@@ -49,8 +49,10 @@ setup(
         "of NVIDIA Apex: fused ops (Pallas), fused optimizers, precision "
         "policies, and dp/tp/sp/pp/cp parallelism over a jax.sharding.Mesh"
     ),
-    packages=find_packages(include=["apex_tpu", "apex_tpu.*"]),
-    package_data={"apex_tpu._native": ["host_ops.cpp"]},
+    packages=find_packages(include=["apex_tpu", "apex_tpu.*",
+                                    "apex_tpu_torch", "apex_tpu_torch.*"]),
+    package_data={"apex_tpu._native": ["host_ops.cpp"],
+                  "apex_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "einops"],
     cmdclass={"build_native": build_native},

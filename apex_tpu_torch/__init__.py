@@ -8,14 +8,21 @@ never imports JAX or :mod:`apex_tpu`; only the parity tests import both.
 
 Subpackages
 -----------
-- :mod:`apex_tpu_torch.ops` — fused LayerNorm/RMSNorm, RoPE, causal
-  flash attention and paged decode attention, each kernel with its plain
-  PyTorch twin, plus the device rule, the kernel build and the launch
-  counters (``ops._dispatch``, ``ops._build``).
-- :mod:`apex_tpu_torch.models` — ``GptConfig`` / ``GptModel`` and the
-  converter from a JAX ``GptModel.init`` parameter tree.
+- :mod:`apex_tpu_torch.ops` — fused LayerNorm/RMSNorm (forward and
+  backward), RoPE, flash attention (forward and backward) and paged
+  decode attention, each kernel with its plain PyTorch twin, plus the
+  device rule, the kernel build and the launch counters
+  (``ops._dispatch``, ``ops._build``).
+- :mod:`apex_tpu_torch.models` — ``GptConfig`` / ``GptModel`` (f32
+  weights, the training forward, ``gpt_lm_loss``) and the converters to
+  and from a JAX ``GptModel.init`` parameter tree.
+- :mod:`apex_tpu_torch.transformer` — the cross entropy at tp = 1.
+- :mod:`apex_tpu_torch.optimizers` — ``FusedAdam`` / ``fused_adam``.
+- :mod:`apex_tpu_torch.data` — token files, the synthetic corpus and
+  the sharded shuffling loader.
 - :mod:`apex_tpu_torch.serve` — paged KV cache, inference engine and
   continuous-batching scheduler.
+- :mod:`apex_tpu_torch.examples` — ``train_gpt``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
@@ -23,7 +30,8 @@ for the CPU.
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("ops", "models", "serve")
+_LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
+                    "serve", "examples")
 
 
 def __getattr__(name):

@@ -1,9 +1,10 @@
 """Fused ops: each kernel beside its plain PyTorch version.
 
-Counterpart of :mod:`apex_tpu.ops` for the serving slice — LayerNorm /
-RMSNorm forward (kernel K1), RoPE (plain), causal flash-attention
-forward (K3) and paged decode attention (K6).  A CUDA tensor goes to the
-kernel, a CPU tensor to the plain version (:mod:`._dispatch`).
+Counterpart of :mod:`apex_tpu.ops` for the serving and training slices
+— LayerNorm / RMSNorm (kernels K1 forward and K2 backward), RoPE
+(plain), flash attention (K3 forward and K4 backward) and paged decode
+attention (K6).  A CUDA tensor goes to the kernel, a CPU tensor to the
+plain version (:mod:`._dispatch`).
 """
 
 from apex_tpu_torch.ops.attention import (  # noqa: F401

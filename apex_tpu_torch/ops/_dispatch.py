@@ -12,17 +12,20 @@ The device of the operands decides, and nothing else: there is no
 switch that routes CUDA tensors to the plain code, and a kernel that
 cannot build or launch raises instead of falling back.
 
-Each kernel wrapper adds one to its launch counter right after its
-kernel launched, so a run can show that its main path went through the
-kernels (``chip_smoke.py`` zeroes the counters, drives the path, and
-reads them).
+Each kernel wrapper launches through :func:`launch`, which adds one to
+the kernel's launch counter right after the kernel launched, so a run
+can show that its main path went through the kernels (``chip_smoke.py``
+zeroes the counters, drives the path, and reads them).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Sequence
 
 import torch
+
+from apex_tpu_torch.ops import _build
 
 __all__ = [
     "resolve_device",
@@ -31,6 +34,7 @@ __all__ = [
     "last_paths",
     "clear_paths",
     "count_launch",
+    "launch",
     "launches",
     "reset_launches",
 ]
@@ -96,6 +100,22 @@ _LAUNCHES: Dict[str, int] = {}
 def count_launch(kernel: str) -> None:
     """Called by a kernel wrapper right after its kernel launched."""
     _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+
+
+def launch(kernel: str, argtypes: Sequence, device: torch.device,
+           *args) -> None:
+    """Call the C entry point ``kernel`` of ``csrc/<kernel>.cu`` (built
+    on first use) with ``args`` and the current stream of ``device``
+    appended, raise if it reports a CUDA error, and count the launch.
+    ``argtypes`` are its ctypes argument types, the stream's last."""
+    fn = getattr(_build.load(kernel), kernel)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(kernel, rc)
+    count_launch(kernel)
 
 
 def launches() -> Dict[str, int]:

@@ -1,35 +1,43 @@
-"""Fused LayerNorm / RMSNorm — forward.
+"""Fused LayerNorm / RMSNorm — forward and backward.
 
 Counterpart of ``apex_tpu/ops/layer_norm.py``: ``fused_layer_norm_affine``,
-``fused_layer_norm``, ``fused_rms_norm_affine`` and ``fused_rms_norm``.
+``fused_layer_norm``, ``fused_rms_norm_affine`` and ``fused_rms_norm``,
+each differentiable and with the ``memory_efficient`` flag.
 
 Semantics (both paths): statistics and normalization in **f32**
 whatever the input dtype; the output has the input's dtype; mean and
-rstd are kept in f32.  For a CUDA tensor the row-wise work is kernel K1
-(``csrc/layer_norm_fwd.cu``, replacing the Pallas ``layer_norm_fwd``);
-for a CPU tensor it is :func:`layer_norm_reference`, the arithmetic of
-the JAX package's ``_jnp_fwd``.  The kernel takes any hidden size: the
-TPU's lane rule (``hidden % 128``) does not apply.
+rstd are kept in f32; the weight and bias gradients come back in the
+parameters' dtype.  ``memory_efficient=True`` saves the forward output
+and rstd instead of the input and mean, and the backward recovers
+``xhat = (y - b) / w`` (0 where ``w == 0``).
 
-Forward only: the backward (TPU kernel K2) is still to be ported, so the
-CUDA path refuses inputs that require a gradient.
+One ``autograd.Function`` (:class:`_Norm2d`) carries both directions.
+For a CUDA tensor the forward is kernel K1 (``csrc/layer_norm_fwd.cu``,
+replacing the Pallas ``layer_norm_fwd``) and the backward kernel K2
+(``csrc/layer_norm_bwd.cu``, replacing ``layer_norm_bwd``); for a CPU
+tensor they are the plain twins :func:`layer_norm_reference` and
+:func:`layer_norm_bwd_reference`, the arithmetic of the JAX package's
+``_jnp_fwd`` and ``_jnp_bwd``.  The kernels take any hidden size: the
+TPU's lane rule (``hidden % 128``) does not apply.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops import _build, _dispatch
+from apex_tpu_torch.ops import _dispatch
 
 __all__ = [
     "fused_layer_norm",
     "fused_layer_norm_affine",
     "fused_rms_norm",
     "fused_rms_norm_affine",
+    "layer_norm_bwd",
+    "layer_norm_bwd_reference",
     "layer_norm_fwd",
     "layer_norm_reference",
 ]
@@ -37,15 +45,19 @@ __all__ = [
 Shape = Union[int, Sequence[int]]
 
 KERNEL = "layer_norm_fwd"
+KERNEL_BWD = "layer_norm_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: K2 CTAs per SM: each CTA walks rows with a stride of the grid and
+#: writes one partial row of dw and db
+_BWD_BLOCKS_PER_SM = 4
 
 
 def layer_norm_reference(
     x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
     rms: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version: ``(y, mu, rstd)`` with ``mu``/``rstd`` f32
-    ``(rows,)`` — ``_jnp_fwd``'s arithmetic."""
+    """The plain version of K1: ``(y, mu, rstd)`` with ``mu``/``rstd``
+    f32 ``(rows,)`` — ``_jnp_fwd``'s arithmetic."""
     xf = x2d.float()
     wf = w.float()
     bf = b.float()
@@ -61,15 +73,56 @@ def layer_norm_reference(
     return y.to(x2d.dtype), mu, rstd
 
 
-def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.layer_norm_fwd
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
+def layer_norm_bwd_reference(
+    x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
+    rstd: torch.Tensor, g: torch.Tensor, rms: bool, x_is_output: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K2: ``(dx, dw, db)`` with ``dx`` in ``x2d``'s
+    dtype and f32 ``dw``/``db`` — ``_jnp_bwd``'s arithmetic.  With
+    ``x_is_output``, ``x2d`` holds the forward output and ``mu`` is not
+    read."""
+    xf = x2d.float()
+    wf = w.float()
+    gf = g.float()
+    bf = b.float()
+    if x_is_output:
+        wsafe = torch.where(wf == 0.0, torch.ones_like(wf), wf)
+        xhat = torch.where(wf == 0.0, torch.zeros_like(xf), (xf - bf) / wsafe)
+    else:
+        xhat = (xf - mu[:, None]) * rstd[:, None]
+    dyw = gf * wf
+    c2 = (dyw * xhat).mean(dim=-1, keepdim=True)
+    if rms:
+        dx = rstd[:, None] * (dyw - xhat * c2)
+    else:
+        c1 = dyw.mean(dim=-1, keepdim=True)
+        dx = rstd[:, None] * (dyw - c1 - xhat * c2)
+    dw = (gf * xhat).sum(dim=0)
+    db = gf.sum(dim=0)
+    return dx.to(x2d.dtype), dw, db
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+
+def _check_operands(name, x2d, w, b, *rows_f32):
+    if not _dispatch.on_card(x2d, w, b, *rows_f32):
+        raise ValueError(f"{name} launches the CUDA kernel: pass CUDA tensors")
+    if x2d.dim() != 2 or w.shape != (x2d.shape[1],) or b.shape != w.shape:
+        raise ValueError(
+            f"expected x (rows, hidden) and w, b (hidden,), got "
+            f"{tuple(x2d.shape)}, {tuple(w.shape)}, {tuple(b.shape)}"
+        )
+    if x2d.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes f32 or bf16 x, got {x2d.dtype}")
+    if any(t.dtype != torch.float32 for t in (w, b, *rows_f32)):
+        raise TypeError(f"{name} takes f32 weight, bias and statistics")
+    if any(t.shape != (x2d.shape[0],) for t in rows_f32):
+        raise ValueError(f"{name} takes (rows,) statistics")
+    if not all(t.is_contiguous() for t in (x2d, w, b, *rows_f32)):
+        raise ValueError(f"{name} takes contiguous tensors")
 
 
 def layer_norm_fwd(
@@ -78,37 +131,101 @@ def layer_norm_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K1 on CUDA tensors: ``(y, mu, rstd)`` for ``x2d`` (rows,
     hidden) in f32 or bf16 and f32 ``w``/``b`` (hidden,)."""
-    if not _dispatch.on_card(x2d, w, b):
-        raise ValueError("layer_norm_fwd launches the CUDA kernel: pass CUDA tensors")
-    if x2d.dim() != 2 or w.shape != (x2d.shape[1],) or b.shape != w.shape:
-        raise ValueError(
-            f"expected x (rows, hidden) and w, b (hidden,), got "
-            f"{tuple(x2d.shape)}, {tuple(w.shape)}, {tuple(b.shape)}"
-        )
-    if x2d.dtype not in _DTYPE_CODES:
-        raise TypeError(f"layer_norm_fwd takes f32 or bf16 x, got {x2d.dtype}")
-    if w.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError("layer_norm_fwd takes f32 weight and bias")
-    if not (x2d.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise ValueError("layer_norm_fwd takes contiguous tensors")
+    _check_operands("layer_norm_fwd", x2d, w, b)
     rows, hidden = x2d.shape
     y = torch.empty_like(x2d)
     mu = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     rstd = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     if rows == 0:
         return y, mu, rstd
-    fn = _lib()
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x2d.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                mu.data_ptr(), rstd.data_ptr(), rows, hidden, float(eps),
-                int(rms), _DTYPE_CODES[x2d.dtype], stream)
-    _build.check(KERNEL, rc)
-    _dispatch.count_launch(KERNEL)
+    _dispatch.launch(
+        KERNEL, _FWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
+        b.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows,
+        hidden, float(eps), int(rms), _DTYPE_CODES[x2d.dtype],
+    )
     return y, mu, rstd
 
 
-def _run(x, normalized_shape, w, b, eps, rms):
+def layer_norm_bwd(
+    x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
+    rstd: torch.Tensor, g: torch.Tensor, *, rms: bool, x_is_output: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K2 on CUDA tensors: ``(dx, dw, db)`` for the saved ``x2d``
+    (or the output ``y`` with ``x_is_output``), f32 ``w``/``b`` (hidden,),
+    f32 ``mu``/``rstd`` (rows,) and the output gradient ``g`` (rows,
+    hidden) in ``x2d``'s dtype.  The CTAs' f32 partial rows of dw and db
+    are summed here with ``torch.sum``."""
+    _check_operands("layer_norm_bwd", x2d, w, b, mu, rstd)
+    if (g.device != x2d.device or g.shape != x2d.shape
+            or g.dtype != x2d.dtype or not g.is_contiguous()):
+        raise ValueError(
+            f"g must be a contiguous {x2d.dtype} tensor of shape "
+            f"{tuple(x2d.shape)} on {x2d.device}, got {g.dtype} "
+            f"{tuple(g.shape)} on {g.device}"
+        )
+    rows, hidden = x2d.shape
+    dx = torch.empty_like(x2d)
+    if rows == 0:
+        zeros = torch.zeros(hidden, dtype=torch.float32, device=x2d.device)
+        return dx, zeros, zeros.clone()
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    n_blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
+    dw_part = torch.empty(n_blocks, hidden, dtype=torch.float32,
+                          device=x2d.device)
+    db_part = torch.empty_like(dw_part)
+    _dispatch.launch(
+        KERNEL_BWD, _BWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
+        b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), rows, hidden,
+        n_blocks, int(rms), int(x_is_output), _DTYPE_CODES[x2d.dtype],
+    )
+    return dx, dw_part.sum(dim=0), db_part.sum(dim=0)
+
+
+class _Norm2d(torch.autograd.Function):
+    """LayerNorm / RMSNorm over ``(rows, hidden)``: K1 and K2 on the card,
+    the plain twins on the CPU.  Saves ``(x, mu, rstd)``, or ``(y, rstd)``
+    with ``memory_efficient`` (``_norm2d_fwd`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, b, eps, rms, memory_efficient):
+        wf, bf = w.float().contiguous(), b.float().contiguous()
+        if _dispatch.on_card(x2d, w, b):
+            y, mu, rstd = layer_norm_fwd(x2d.contiguous(), wf, bf,
+                                         eps=eps, rms=rms)
+        else:
+            y, mu, rstd = layer_norm_reference(x2d, wf, bf, eps, rms)
+        if memory_efficient:
+            ctx.save_for_backward(y, wf, bf, rstd)
+        else:
+            ctx.save_for_backward(x2d, wf, bf, mu, rstd)
+        ctx.rms, ctx.memory_efficient = rms, memory_efficient
+        ctx.param_dtypes = (w.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.memory_efficient:
+            x_or_y, wf, bf, rstd = ctx.saved_tensors
+            mu = torch.zeros_like(rstd)
+        else:
+            x_or_y, wf, bf, mu, rstd = ctx.saved_tensors
+        g = g.to(x_or_y.dtype)
+        if _dispatch.on_card(x_or_y, g):
+            dx, dw, db = layer_norm_bwd(
+                x_or_y.contiguous(), wf, bf, mu, rstd, g.contiguous(),
+                rms=ctx.rms, x_is_output=ctx.memory_efficient,
+            )
+        else:
+            dx, dw, db = layer_norm_bwd_reference(
+                x_or_y, wf, bf, mu, rstd, g, ctx.rms, ctx.memory_efficient
+            )
+        w_dtype, b_dtype = ctx.param_dtypes
+        return dx, dw.to(w_dtype), db.to(b_dtype), None, None, None
+
+
+def _run(x, normalized_shape, w: Optional[torch.Tensor],
+         b: Optional[torch.Tensor], eps, rms, memory_efficient):
     shape_t = (
         (normalized_shape,)
         if isinstance(normalized_shape, int)
@@ -126,42 +243,34 @@ def _run(x, normalized_shape, w, b, eps, rms):
     b = (torch.zeros(hidden, dtype=torch.float32, device=x.device)
          if b is None else b.reshape(hidden))
     op = "rms_norm" if rms else "layer_norm"
-    if _dispatch.on_card(x2d, w, b):
-        if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x2d, w, b)
-        ):
-            raise NotImplementedError(
-                "the LayerNorm backward kernel (K2) is not ported yet: call "
-                "the CUDA forward under torch.no_grad()"
-            )
-        _dispatch.record_path(op, "cuda")
-        y, _, _ = layer_norm_fwd(
-            x2d.contiguous(), w.float().contiguous(), b.float().contiguous(),
-            eps=float(eps), rms=rms,
-        )
-    else:
-        _dispatch.record_path(op, "torch")
-        y, _, _ = layer_norm_reference(x2d, w, b, float(eps), rms)
+    _dispatch.record_path(op, "cuda" if _dispatch.on_card(x2d, w, b)
+                          else "torch")
+    y = _Norm2d.apply(x2d, w, b, float(eps), bool(rms),
+                      bool(memory_efficient))
     return y.reshape(x.shape)
 
 
 def fused_layer_norm_affine(x, weight, bias, normalized_shape: Shape,
-                            eps: float = 1e-6):
-    """≙ apex_tpu.ops.layer_norm.fused_layer_norm_affine (forward)."""
-    return _run(x, normalized_shape, weight, bias, eps, False)
+                            eps: float = 1e-6, memory_efficient: bool = False):
+    """≙ apex_tpu.ops.layer_norm.fused_layer_norm_affine."""
+    return _run(x, normalized_shape, weight, bias, eps, False,
+                memory_efficient)
 
 
-def fused_layer_norm(x, normalized_shape: Shape, eps: float = 1e-6):
+def fused_layer_norm(x, normalized_shape: Shape, eps: float = 1e-6,
+                     memory_efficient: bool = False):
     """Non-affine LayerNorm (≙ fused_layer_norm)."""
-    return _run(x, normalized_shape, None, None, eps, False)
+    return _run(x, normalized_shape, None, None, eps, False, memory_efficient)
 
 
 def fused_rms_norm_affine(x, weight, normalized_shape: Shape,
-                          eps: float = 1e-6):
-    """≙ apex_tpu.ops.layer_norm.fused_rms_norm_affine (forward)."""
-    return _run(x, normalized_shape, weight, None, eps, True)
+                          eps: float = 1e-6, memory_efficient: bool = False):
+    """≙ apex_tpu.ops.layer_norm.fused_rms_norm_affine."""
+    return _run(x, normalized_shape, weight, None, eps, True,
+                memory_efficient)
 
 
-def fused_rms_norm(x, normalized_shape: Shape, eps: float = 1e-6):
+def fused_rms_norm(x, normalized_shape: Shape, eps: float = 1e-6,
+                   memory_efficient: bool = False):
     """Non-affine RMSNorm (≙ fused_rms_norm)."""
-    return _run(x, normalized_shape, None, None, eps, True)
+    return _run(x, normalized_shape, None, None, eps, True, memory_efficient)

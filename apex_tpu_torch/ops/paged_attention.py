@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.ops import _build, _dispatch
+from apex_tpu_torch.ops import _dispatch
 from apex_tpu_torch.ops.attention import MASK_VALUE
 from apex_tpu_torch.ops.rope import rotate_half
 
@@ -81,14 +81,8 @@ def paged_decode_attention_reference(
     return o.to(q.dtype)
 
 
-def _lib():
-    fn = _build.load(KERNEL).paged_decode
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -166,16 +160,13 @@ def paged_decode_fwd(
     out = torch.empty_like(q)
     if b == 0:
         return out
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
-                lengths.data_ptr(), _ptr(rope_cos), _ptr(rope_sin),
-                out.data_ptr(), b, h, d, page, np_, float(scale),
-                _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], stream)
-    _build.check(KERNEL, rc)
-    _dispatch.count_launch(KERNEL)
+    _dispatch.launch(
+        KERNEL, _ARGS, q.device, q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        page_table.data_ptr(), lengths.data_ptr(), _ptr(rope_cos),
+        _ptr(rope_sin), out.data_ptr(), b, h, d, page, np_, float(scale),
+        _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
+    )
     return out
 
 

@@ -7,7 +7,10 @@ rotation runs in f32 and casts back to the input dtype:
     y = t * cos + rotate_half(t) * sin
 
 Only the first ``rot_dim = cos.shape[-1]`` channels rotate; the tail
-passes through.
+passes through.  The gradient is autograd's through the f32 rotation,
+which is the JAX package's ``_transpose_apply``: ``dt = g * cos +
+rotate_half^T(g * sin)`` in f32, cast to ``t``'s dtype, with the tail's
+gradient passed through and none for the tables.
 """
 
 from __future__ import annotations

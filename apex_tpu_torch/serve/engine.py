@@ -102,8 +102,9 @@ class InferenceEngine:
 
     Runs on ``device`` — the card by default, raising when there is
     none; ``device="cpu"`` runs the plain PyTorch versions.  The model
-    must already live there.  Inputs are host sequences/arrays; tokens
-    come back on the host.
+    must already live there; the engine serves a copy of its weights
+    cast to ``cfg.dtype`` when the engine is built.  Inputs are host
+    sequences/arrays; tokens come back on the host.
     """
 
     def __init__(self, cfg: GptConfig, model: GptModel,
@@ -123,7 +124,11 @@ class InferenceEngine:
                 f"the model lives on {model.device}, the engine on "
                 f"{self.device}"
             )
-        self.model = model
+        #: the engine's own copy of the weights, in ``cfg.dtype`` where the
+        #: layers compute (:func:`~apex_tpu_torch.serve.model.serving_copy`):
+        #: made once here, so decode casts no f32 weight; later changes to
+        #: ``model`` do not reach it
+        self.model = model_lib.serving_copy(cfg, model)
         self.pool = cache_lib.PagePool(
             self.serve.num_pages, self.serve.page_size
         )

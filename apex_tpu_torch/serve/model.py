@@ -19,20 +19,26 @@ raise.  The KV pool tensors are updated in place.
 
 from __future__ import annotations
 
-import torch
-import torch.nn.functional as F
+from copy import deepcopy
 
-from apex_tpu_torch.models.gpt import GptConfig, GptModel, rope_cos_sin
-from apex_tpu_torch.ops.attention import flash_attention
-from apex_tpu_torch.ops.layer_norm import fused_layer_norm_affine
-from apex_tpu_torch.ops.paged_attention import paged_decode_attention
-from apex_tpu_torch.ops.rope import (
-    fused_apply_rotary_pos_emb_cached,
-    rotate_half,
+import torch
+
+from apex_tpu_torch.models.gpt import (
+    GptConfig,
+    GptModel,
+    apply_block,
+    apply_layer_norm,
+    apply_linear,
+    apply_mlp,
+    embed_tokens,
+    rope_cos_sin,
+    tied_logits,
 )
+from apex_tpu_torch.ops.paged_attention import paged_decode_attention
+from apex_tpu_torch.ops.rope import rotate_half
 from apex_tpu_torch.serve import cache as cache_lib
 
-__all__ = ["validate_config", "prefill_body", "decode_body"]
+__all__ = ["validate_config", "serving_copy", "prefill_body", "decode_body"]
 
 
 def validate_config(cfg: GptConfig) -> GptConfig:
@@ -55,31 +61,25 @@ def _check_wire(kv_wire: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# functional layers (numerics of the JAX stack at tp=1)
+# the engine's weights and the serving-only layers
 # ---------------------------------------------------------------------------
 
 
-def _layer_norm(x, ln, eps):
-    return fused_layer_norm_affine(
-        x, ln.scale, ln.bias, (x.shape[-1],), eps=eps
-    )
-
-
-def _linear(x, lin, dtype):
-    """Compute-dtype matmul (f32 accumulation inside), cast back, bias
-    added in the compute dtype."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
-
-
-def _embed(model: GptModel, ids, dtype):
-    return model.word_embeddings.weight[ids].to(dtype)
-
-
-def _logits(model: GptModel, h, dtype):
-    """Tied-embedding vocab logits: ``cfg.dtype`` operands, f32
-    accumulation and f32 output."""
-    embed = model.word_embeddings.weight
-    return F.linear(h.to(dtype).float(), embed.to(dtype).float())
+@torch.no_grad()
+def serving_copy(cfg: GptConfig, model: GptModel) -> GptModel:
+    """The engine's copy of ``model``: the matmul and embedding weights
+    cast to ``cfg.dtype`` once, here, and the LayerNorm affines kept in
+    f32, so that no decode step casts f32 weights (the shared layers'
+    casts are then no-ops).  Gradients are off."""
+    copy = deepcopy(model)
+    for blk in copy.layers:
+        for lin in (blk.qkv, blk.out, blk.fc1, blk.fc2):
+            lin.to(cfg.dtype)
+    copy.word_embeddings.to(cfg.dtype)
+    if not cfg.rotary:
+        copy.position_embeddings.data = copy.position_embeddings.data.to(
+            cfg.dtype)
+    return copy.requires_grad_(False)
 
 
 def _rope_rows(x, cos, sin):
@@ -90,36 +90,9 @@ def _rope_rows(x, cos, sin):
     return out.to(x.dtype)
 
 
-def _mlp(x, blk, cfg: GptConfig):
-    y = _layer_norm(x, blk.ln_mlp, cfg.layer_norm_eps)
-    y = _linear(y, blk.fc1, cfg.dtype)
-    y = F.gelu(y, approximate="tanh")
-    y = _linear(y, blk.fc2, cfg.dtype)
-    return x + y
-
-
 # ---------------------------------------------------------------------------
 # prefill: full-sequence forward that also yields per-position K/V
 # ---------------------------------------------------------------------------
-
-
-def _prefill_block(cfg: GptConfig, blk, x, cos, sin):
-    """One decoder block over ``x`` (S, B, hidden); returns the new
-    hidden and this layer's rotated K and V as (B, H, S, D)."""
-    heads = cfg.num_heads
-    head_dim = cfg.head_dim
-    y = _layer_norm(x, blk.ln_attn, cfg.layer_norm_eps)
-    qkv = _linear(y, blk.qkv, cfg.dtype)
-    s, b = qkv.shape[0], qkv.shape[1]
-    qkv = qkv.reshape(s, b, heads, 3, head_dim)
-    q, k, v = (qkv[:, :, :, i].permute(1, 2, 0, 3) for i in range(3))
-    if cfg.rotary:
-        q = fused_apply_rotary_pos_emb_cached(q, cos, sin)
-        k = fused_apply_rotary_pos_emb_cached(k, cos, sin)
-    ctx = flash_attention(q, k, v, causal=True, scale=head_dim ** -0.5)
-    ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, heads * head_dim)
-    x = x + _linear(ctx, blk.out, cfg.dtype)
-    return _mlp(x, blk, cfg), (k, v)
 
 
 @torch.no_grad()
@@ -144,7 +117,7 @@ def prefill_body(
     kv_pages)``."""
     _check_wire(kv_wire)
     dtype = cfg.dtype
-    x = _embed(model, tokens.long(), dtype)  # (S, 1, h)
+    x = embed_tokens(model, tokens, dtype)  # (S, 1, h)
     s = tokens.shape[0]
     cos = sin = None
     if cfg.rotary:
@@ -156,7 +129,7 @@ def prefill_body(
 
     ks, vs = [], []
     for blk in model.layers:
-        x, (k, v) = _prefill_block(cfg, blk, x, cos, sin)
+        x, k, v = apply_block(cfg, blk, x, cos, sin)
         # (1, H, S, D) -> per-position rows (S, H, D) -> page blocks
         ks.append(cache_lib.pack_prompt_pages(k[0].transpose(0, 1), page_size))
         vs.append(cache_lib.pack_prompt_pages(v[0].transpose(0, 1), page_size))
@@ -164,8 +137,8 @@ def prefill_body(
     cache_lib.write_prompt_pages(kv_pages["v"], torch.stack(vs), page_ids)
 
     h_last = x[max(int(length) - 1, 0), 0][None]  # (1, hidden)
-    h_last = _layer_norm(h_last, model.ln_f, cfg.layer_norm_eps)
-    logits = _logits(model, h_last, dtype)[0]  # (V,) f32
+    h_last = apply_layer_norm(h_last, model.ln_f, cfg.layer_norm_eps)
+    logits = tied_logits(model, h_last, dtype)[0]  # (V,) f32
     next_token = torch.argmax(logits, dim=-1)
     finite = torch.isfinite(logits).all()
     return logits, next_token, finite, kv_pages
@@ -184,7 +157,7 @@ def _decode_step(cfg: GptConfig, model: GptModel, kv_pages: dict, tokens,
     b = tokens.shape[0]
     heads = cfg.num_heads
     head_dim = cfg.head_dim
-    x = _embed(model, tokens.long(), cfg.dtype)  # (B, hidden)
+    x = embed_tokens(model, tokens, cfg.dtype)  # (B, hidden)
 
     pos = (lengths.long() - 1).clamp_min(0)  # this token's position
     rows = torch.arange(b, device=x.device)
@@ -200,8 +173,8 @@ def _decode_step(cfg: GptConfig, model: GptModel, kv_pages: dict, tokens,
 
     for i, blk in enumerate(model.layers):
         k_l, v_l = kv_pages["k"][i], kv_pages["v"][i]
-        y = _layer_norm(x, blk.ln_attn, cfg.layer_norm_eps)
-        qkv = _linear(y, blk.qkv, cfg.dtype).reshape(b, heads, 3, head_dim)
+        y = apply_layer_norm(x, blk.ln_attn, cfg.layer_norm_eps)
+        qkv = apply_linear(y, blk.qkv, cfg.dtype).reshape(b, heads, 3, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, H, D)
         if cfg.rotary:
             k = _rope_rows(k, cos_rows, sin_rows)
@@ -212,11 +185,11 @@ def _decode_step(cfg: GptConfig, model: GptModel, kv_pages: dict, tokens,
             scale=head_dim ** -0.5, rope_cos=cos_rows, rope_sin=sin_rows,
         )
         ctx = ctx.to(cfg.dtype).reshape(b, heads * head_dim)
-        x = x + _linear(ctx, blk.out, cfg.dtype)
-        x = _mlp(x, blk, cfg)
+        x = x + apply_linear(ctx, blk.out, cfg.dtype)
+        x = apply_mlp(x, blk, cfg)
 
-    h = _layer_norm(x, model.ln_f, cfg.layer_norm_eps)
-    return _logits(model, h, cfg.dtype)
+    h = apply_layer_norm(x, model.ln_f, cfg.layer_norm_eps)
+    return tied_logits(model, h, cfg.dtype)
 
 
 @torch.no_grad()

@@ -201,6 +201,28 @@ def _tiny_engine(num_pages=NUM_PAGES, seed=1):
     )
 
 
+def test_engine_serves_its_own_compute_dtype_copy():
+    """The engine casts the matmul and embedding weights to cfg.dtype
+    once, when it is built, keeps the LayerNorm affines f32, and leaves
+    the (f32, trainable) model it was given alone."""
+    cfg = GptConfig(**DIMS, dtype=torch.bfloat16)
+    model = GptModel(cfg, device="cpu")
+    eng = InferenceEngine(cfg, model, ServeConfig(page_size=PAGE,
+                                                  num_pages=NUM_PAGES),
+                          device="cpu")
+    blk = eng.model.layers[0]
+    assert eng.model is not model
+    assert blk.qkv.weight.dtype == blk.fc2.bias.dtype == torch.bfloat16
+    assert eng.model.word_embeddings.weight.dtype == torch.bfloat16
+    assert blk.ln_attn.scale.dtype == eng.model.ln_f.bias.dtype == torch.float32
+    assert not any(p.requires_grad for p in eng.model.parameters())
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in model.parameters())
+    torch.testing.assert_close(blk.qkv.weight,
+                               model.layers[0].qkv.weight.to(torch.bfloat16),
+                               atol=0, rtol=0)
+
+
 def test_growth_victim_is_youngest():
     """A pool that cannot grow sheds the youngest running request."""
     eng = _tiny_engine(num_pages=5)

@@ -2,8 +2,9 @@
 
 - the port and ``chip_smoke.py`` import neither ``jax`` nor ``apex_tpu``
   (AST scan of every module);
-- entry points run on the card by default and raise without one, unless
-  the caller passes ``device="cpu"``;
+- entry points (the model, the engine, the converter and the example
+  trainer) run on the card by default and raise without one, unless the
+  caller passes ``device="cpu"``;
 - kernel wrappers launch their kernel or raise: handed CPU tensors, a
   kernel entry refuses instead of computing the plain version, and a
   kernel that cannot be built raises;
@@ -19,8 +20,9 @@ import torch
 
 from apex_tpu_torch.models import GptConfig, GptModel, from_jax_params
 from apex_tpu_torch.ops import _build, _dispatch
-from apex_tpu_torch.ops.attention import flash_fwd
-from apex_tpu_torch.ops.layer_norm import layer_norm_fwd
+from apex_tpu_torch.examples import train_gpt
+from apex_tpu_torch.ops.attention import flash_bwd, flash_fwd
+from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
 from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 
@@ -62,7 +64,7 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["model", "engine", "convert"])
+@pytest.mark.parametrize("entry", ["model", "engine", "convert", "train"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -71,8 +73,10 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
         elif entry == "engine":
             InferenceEngine(cfg, GptModel(cfg, device="cpu"),
                             ServeConfig(max_pages_per_seq=4))
-        else:
+        elif entry == "convert":
             from_jax_params({}, cfg)
+        else:
+            train_gpt.main(["--tiny", "--steps", "1"])
 
 
 def test_cpu_runs_when_asked(no_gpu):
@@ -88,9 +92,16 @@ def test_kernel_entries_refuse_cpu_tensors():
     w = torch.ones(32)
     with pytest.raises(ValueError, match="CUDA"):
         layer_norm_fwd(x, w, w, eps=1e-5, rms=False)
+    stats = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_bwd(x, w, w, stats, stats, x, rms=False,
+                       x_is_output=False)
     q = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd(q, q, q, scale=0.125, causal=True)
+    lse = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd(q, q, q, q, lse, lse, scale=0.125, causal=True)
     pages = torch.zeros(4, 2, 16, 64)
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_fwd(

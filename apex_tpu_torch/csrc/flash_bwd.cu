@@ -2,11 +2,13 @@
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py :: flash_bwd
 //           (Pallas bodies _dkdv_kernel and _dq_kernel, recompute helper
-//           _recompute_p) — dq, dk, dv by recomputing p = exp(s*scale - lse)
-//           from the forward's f32 row logsumexp, bottom-right causal
-//           alignment (offset S_k - S_q).  delta = rowsum(dO*O) - dlse is
-//           computed outside the kernels, as the JAX package does in jnp,
-//           so the dlse fold needs nothing here.
+//           _recompute_p) — dq, dk, dv by recomputing the probabilities,
+//           bottom-right causal alignment (offset S_k - S_q), with the
+//           forward's optional additive bias (G, RS, S_k) and hash
+//           dropout (flash_operands.cuh).  delta = rowsum(dO*O) - dlse
+//           (O the dropped output) is computed outside the kernels, as
+//           the JAX package does in jnp, so the dlse fold needs nothing
+//           here.
 // Bound on the H100: tensor-core operations.  Five products of 2*D flops
 //           per live (q, k) pair (the recompute Q K^T, dO V^T, P^T dO,
 //           dS K, dS^T Q: 2.5x the forward's count) against reading q, k,
@@ -20,28 +22,45 @@
 //           fragments and its dK and dV sums in f32 accumulator
 //           fragments, and loops over the q tiles.  Under causal masking a
 //           q tile with no live pair is skipped unless it holds fully-masked
-//           rows (row + offset < 0, Sq > Sk): those rows' p is the closed
-//           form 1/Sk (the forward averaged V uniformly) and still feeds dV,
-//           as the TPU's include_fully_masked rule keeps them.
+//           rows (row + offset < 0, Sq > Sk): those rows' p is 1/Sk (the
+//           forward averaged V uniformly) and still feeds dV, as the TPU's
+//           include_fully_masked rule keeps them.
 //           dQ: one CTA per (batch*head, 64-row q tile), each warp owns 16
 //           queries; the k loop stops at the tile's causal limit, and a
 //           fully-masked row gets dq = 0 (the mask blocks its gradient).
 //           Both recompute S and dP with wmma bf16 16x16x16 fragments and
-//           f32 accumulation, form p and ds = p*(dp - delta) in f32 with
-//           two lanes per row (interleaved columns, padded shared-memory
-//           rows), and round p and ds to bf16 for the next products, as
-//           the TPU's bf16 MXU passes do.  Masked pairs have p = 0 (the
-//           forward's finite MASK_VALUE gives exp(-1e9 - lse) = 0) and
-//           ds = 0; the ragged edge (rows past S_q, keys past S_k) is masked
-//           here, with nothing padded.  Heaviest causal tiles first.  Head
-//           dim 64 only, the port's models'.  Not yet used: wgmma, TMA,
-//           cp.async pipelining (later work).
+//           f32 accumulation, form p and ds in f32 with two lanes per row
+//           (interleaved columns, padded shared-memory rows), and round p
+//           and ds to bf16 for the next products, as the TPU's bf16 MXU
+//           passes do.  p = exp(s - m) / l from the forward's row max m and
+//           row sum l, not exp(s - lse) as on the TPU: a row that a bias
+//           masks completely has lse = MASK_VALUE + log(S_k), which f32
+//           rounds back to MASK_VALUE, so exp(s - lse) would give 1 where
+//           the softmax is 1/S_k (the Pallas kernel patches only the causal
+//           case, with a closed form); with m and l every fully-masked row,
+//           causal or by bias, gets 1/S_k and needs no special case.  The
+//           bias is read from global memory per score (s*scale + max(bias,
+//           PAD_VALUE), then the causal mask), the dropout keep mask is
+//           re-hashed from (seed, bh, row, col): dv += (D*p)^T dO and
+//           ds = p*(D*dp - delta) with D = keep / (1 - p_drop).  Causally
+//           masked pairs have ds = 0 (the mask is a where() on the score);
+//           their p is 0 unless the whole row is masked.  The ragged edge
+//           (rows past S_q, keys past S_k) is masked here, with nothing
+//           padded.  Heaviest causal tiles first.  Head dim 64 only, the
+//           port's models'.  One template instance per operand combination
+//           (bias, dropout: four), so a call without them runs the code it
+//           ran before they existed.  Not yet used: wgmma, TMA, cp.async pipelining
+//           (later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "flash_operands.cuh"
+
 namespace {
+
+using flash_operands::kMaskValue;
 
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
@@ -64,7 +83,7 @@ constexpr int kPLd = kBK + 8;
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
   return sizeof(bf16) * 4 * kBK * kTileLd<D>            // K, V, Q, dO tiles
-         + sizeof(float) * 2 * kBQ                      // lse, delta
+         + sizeof(float) * 3 * kBQ                      // m, 1/l, delta
          + sizeof(float) * 2 * kWarps * kRows * kSLd    // S^T, dP^T
          + sizeof(bf16) * 2 * kWarps * kRows * kPLd;    // P^T, dS^T
 }
@@ -159,14 +178,18 @@ __device__ __forceinline__ void store_rows(const FragAcc (&acc)[D / 16],
   __syncwarp();
 }
 
-template <int D>
+template <int D, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      const float* __restrict__ row_max,
+                      const float* __restrict__ row_sum,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ seed, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, int bh_count, int sq, int sk,
-                      float scale, int causal, int offset) {
+                      float scale, int causal, int offset, int bias_div,
+                      int bias_rows, uint32_t threshold, float drop_scale) {
   static_assert(D <= kSLd, "the f32 scratch rows stage D-wide outputs");
   constexpr int kLd = kTileLd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -174,8 +197,9 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + kBK * kLd;
   bf16* Qs = Vs + kBK * kLd;
   bf16* dOs = Qs + kBQ * kLd;
-  float* lse_s = reinterpret_cast<float*>(dOs + kBQ * kLd);
-  float* delta_s = lse_s + kBQ;
+  float* m_s = reinterpret_cast<float*>(dOs + kBQ * kLd);
+  float* il_s = m_s + kBQ;
+  float* delta_s = il_s + kBQ;
   float* Ss = delta_s + kBQ;
   float* dPs = Ss + kWarps * kRows * kSLd;
   bf16* Ps = reinterpret_cast<bf16*>(dPs + kWarps * kRows * kSLd);
@@ -191,8 +215,20 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
   const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
   const bf16* ob = dout + static_cast<size_t>(bh) * sq * D;
-  const float* lse_b = lse + static_cast<size_t>(bh) * sq;
+  const float* m_b = row_max + static_cast<size_t>(bh) * sq;
+  const float* l_b = row_sum + static_cast<size_t>(bh) * sq;
   const float* delta_b = delta + static_cast<size_t>(bh) * sq;
+  // the bias of this lane's key: one value for a key-padding row (RS = 1;
+  // keys past S_k, never written, read the last key's), else row `qrow`
+  // of the group's (S_q, S_k) block
+  const float* bias_g = nullptr;
+  float bias_k = 0.f;
+  if constexpr (kBias) {
+    bias_g = flash_operands::bias_row(bias, bh, bias_div, bias_rows, 0, sk);
+    if (bias_rows == 1) bias_k = flash_operands::bias_at(bias_g, min(krow, sk - 1));
+  }
+  uint32_t key = 0;
+  if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
 
   float* Sw = Ss + warp * kRows * kSLd;
   float* dPw = dPs + warp * kRows * kSLd;
@@ -215,7 +251,6 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wmma::fill_fragment(acc_dv[n], 0.f);
   }
 
-  const float inv_sk = 1.f / static_cast<float>(sk);
   const int nq = (sq + kBQ - 1) / kBQ;
   for (int qt = 0; qt < nq; ++qt) {
     const int q0 = qt * kBQ;
@@ -229,7 +264,8 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<D>(dOs, ob, q0, sq);
     for (int i = threadIdx.x; i < kBQ; i += kThreads) {
       const bool in = q0 + i < sq;
-      lse_s[i] = in ? lse_b[q0 + i] : 0.f;
+      m_s[i] = in ? m_b[q0 + i] : 0.f;
+      il_s[i] = in ? 1.f / l_b[q0 + i] : 0.f;
       delta_s[i] = in ? delta_b[q0 + i] : 0.f;
     }
     __syncthreads();
@@ -248,16 +284,33 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < kBQ / 2; ++c) {
       const int cl = 2 * c + half;
       const int qrow = q0 + cl;
-      float p = 0.f, ds = 0.f;
-      if (qrow < sq) {
-        if (causal && qrow + offset < 0) {
-          p = inv_sk;  // fully-masked row: the closed form of its softmax
-        } else if (!causal || krow <= qrow + offset) {
-          p = __expf(srow[cl] * scale - lse_s[cl]);
-          ds = p * (dprow[cl] - delta_s[cl]);
+      float pv = 0.f, ds = 0.f;
+      if (qrow < sq && krow < sk) {
+        const bool masked = causal && krow > qrow + offset;
+        float s = kMaskValue;
+        if (!masked) {
+          s = srow[cl] * scale;
+          if constexpr (kBias)
+            s += bias_rows == 1 ? bias_k
+                                : flash_operands::bias_at(
+                                      bias_g + static_cast<size_t>(qrow) * sk,
+                                      krow);
         }
+        const float p = __expf(s - m_s[cl]) * il_s[cl];
+        float dp = dprow[cl];
+        pv = p;
+        if constexpr (kDropout) {
+          const float keep =
+              flash_operands::dropout_keep(
+                  key, flash_operands::dropout_row(key, qrow), krow, threshold)
+                  ? drop_scale
+                  : 0.f;
+          pv = p * keep;
+          dp *= keep;
+        }
+        if (!masked) ds = p * (dp - delta_s[cl]);
       }
-      prow[cl] = __float2bfloat16(p);
+      prow[cl] = __float2bfloat16(pv);
       dsrow[cl] = __float2bfloat16(ds);
     }
     __syncwarp();
@@ -275,14 +328,18 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(acc_dv, Sw, dvb, row0, sk, 1.f);
 }
 
-template <int D>
+template <int D, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const float* __restrict__ row_max,
+                    const float* __restrict__ row_sum,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ bias,
+                    const int* __restrict__ seed, bf16* __restrict__ dq,
                     int bh_count, int sq, int sk, float scale, int causal,
-                    int offset) {
+                    int offset, int bias_div, int bias_rows,
+                    uint32_t threshold, float drop_scale) {
   static_assert(D <= kSLd, "the f32 scratch rows stage D-wide outputs");
   constexpr int kLd = kTileLd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -313,9 +370,20 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile<D>(Qs, qb, q0, sq);
   load_tile<D>(dOs, ob, q0, sq);
-  const float lse_r = row < sq ? lse[static_cast<size_t>(bh) * sq + row] : 0.f;
-  const float delta_r =
-      row < sq ? delta[static_cast<size_t>(bh) * sq + row] : 0.f;
+  const size_t ri = static_cast<size_t>(bh) * sq + row;
+  const float m_r = row < sq ? row_max[ri] : 0.f;
+  const float il_r = row < sq ? 1.f / row_sum[ri] : 0.f;
+  const float delta_r = row < sq ? delta[ri] : 0.f;
+  // rows past S_q, never written, read the last row's bias
+  const float* brow = nullptr;
+  if constexpr (kBias)
+    brow = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
+                                    min(row, sq - 1), sk);
+  uint32_t key = 0, row_hash = 0;
+  if constexpr (kDropout) {
+    key = flash_operands::dropout_key(seed, bh);
+    row_hash = flash_operands::dropout_row(key, row);
+  }
   int k_end = sk;
   if (causal) {
     const int q_last = min(q0 + kBQ, sq) - 1;
@@ -352,8 +420,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int col = kt + cl;
       float ds = 0.f;
       if (row < sq && col < sk && (!causal || col <= row + offset)) {
-        const float p = __expf(srow[cl] * scale - lse_r);
-        ds = p * (dprow[cl] - delta_r);
+        float s = srow[cl] * scale;
+        if constexpr (kBias) s += flash_operands::bias_at(brow, col);
+        const float p = __expf(s - m_r) * il_r;
+        float dp = dprow[cl];
+        if constexpr (kDropout)
+          dp = flash_operands::dropout_keep(key, row_hash, col, threshold)
+                   ? dp * drop_scale
+                   : 0.f;
+        ds = p * (dp - delta_r);
       }
       dsrow[cl] = __float2bfloat16(ds);
     }
@@ -368,39 +443,47 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 q0 + warp * kRows, sq, scale);
 }
 
-template <int D>
+template <int D, bool kBias, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, void* dk, void* dv,
-           int bh, int sq, int sk, float scale, int causal, int offset,
+           const void* m, const void* l, const void* delta, const void* bias,
+           const void* seed, void* dq, void* dk, void* dv, int bh, int sq,
+           int sk, int bias_div, int bias_rows, float scale, int causal,
+           int offset, uint32_t threshold, float drop_scale,
            cudaStream_t stream) {
   constexpr size_t dkdv_bytes = dkdv_smem_bytes<D>();
   constexpr size_t dq_bytes = dq_smem_bytes<D>();
+  auto* dkdv_kernel = &flash_bwd_dkdv_kernel<D, kBias, kDropout>;
+  auto* dq_kernel = &flash_bwd_dq_kernel<D, kBias, kDropout>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dkdv_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dq_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   const bf16* op = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
+  const float* mp = static_cast<const float*>(m);
+  const float* lp = static_cast<const float*>(l);
   const float* dp = static_cast<const float*>(delta);
+  const float* bp = static_cast<const float*>(bias);
+  const int* sp = static_cast<const int*>(seed);
   const int nk = (sk + kBK - 1) / kBK;
   const int nq = (sq + kBQ - 1) / kBQ;
-  flash_bwd_dkdv_kernel<D><<<dim3(static_cast<unsigned>(bh) * nk), kThreads,
-                             dkdv_bytes, stream>>>(
-      qp, kp, vp, op, lp, dp, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      bh, sq, sk, scale, causal, offset);
+  dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk), kThreads, dkdv_bytes,
+                stream>>>(
+      qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), bh, sq, sk, scale, causal, offset, bias_div,
+      bias_rows, threshold, drop_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<dim3(static_cast<unsigned>(bh) * nq), kThreads,
-                           dq_bytes, stream>>>(
-      qp, kp, vp, op, lp, dp, static_cast<bf16*>(dq), bh, sq, sk, scale,
-      causal, offset);
+  dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq), kThreads, dq_bytes,
+              stream>>>(
+      qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<bf16*>(dq), bh, sq, sk,
+      scale, causal, offset, bias_div, bias_rows, threshold, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -410,15 +493,26 @@ extern "C" const char* apex_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; lse and delta (bh, sq)
-// f32; dq (bh, sq, d), dk and dv (bh, sk, d) bf16.  d must be 64.  The
-// causal mask is aligned bottom-right.
+// q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; m, l (K3's row max and
+// row sum) and delta (bh, sq) f32; bias and seed as K3's (null when
+// absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.  d must be 64.
+// The causal mask is aligned bottom-right.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
-                         const void* dout, const void* lse, const void* delta,
+                         const void* dout, const void* m, const void* l,
+                         const void* delta, const void* bias, const void* seed,
                          void* dq, void* dk, void* dv, int bh, int sq, int sk,
-                         int d, float scale, int causal, void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64)
+                         int d, int groups, int bias_rows, float scale,
+                         int causal, unsigned threshold, float drop_scale,
+                         void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64 || groups <= 0 ||
+      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, scale,
-                    causal, sk - sq, static_cast<cudaStream_t>(stream));
+  const auto run = bias != nullptr
+                       ? (seed != nullptr ? &launch<64, true, true>
+                                          : &launch<64, true, false>)
+                       : (seed != nullptr ? &launch<64, false, true>
+                                          : &launch<64, false, false>);
+  return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
+             bh / groups, bias_rows, scale, causal, sk - sq, threshold,
+             drop_scale, static_cast<cudaStream_t>(stream));
 }

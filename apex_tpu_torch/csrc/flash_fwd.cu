@@ -1,9 +1,12 @@
-// K3: causal flash-attention forward for Hopper (sm_90a).
+// K3: flash-attention forward for Hopper (sm_90a).
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py :: flash_fwd
 //           (Pallas body _fwd_kernel, dead-tile skip _causal_block_live) —
 //           online-softmax attention returning o and the f32 row
-//           logsumexp, bottom-right causal alignment (offset S_k - S_q).
+//           logsumexp, bottom-right causal alignment (offset S_k - S_q),
+//           with the TPU kernel's two optional operands: an additive f32
+//           bias (G, RS, S_k) and dropout on the probabilities with the
+//           hash keep mask of _dropout_keep_block (flash_operands.cuh).
 // Bound on the H100: tensor-core operations.  QK^T and PV cost
 //           4 * S_q * S_k_live * D flops per head against reading q, k, v
 //           and writing o once, i.e. ~S/2 flops per byte at causal D = 64:
@@ -24,14 +27,31 @@
 //           TPU kernel's 128-lane broadcast of lse is a tiling artifact of
 //           Mosaic and is dropped: lse is written as (BH, S_q).
 //           The heaviest causal tiles are issued first.  Head dim 64
-//           only, the port's models' (one template instance).  Not yet used:
-//           wgmma, TMA, cp.async pipelining (later work).
+//           only, the port's models'.  One template instance per operand
+//           combination (bias, dropout: four), so a call without them runs
+//           the code it ran before they existed.
+//           Bias: read straight from global memory in the softmax pass,
+//           one f32 per score (a (1, S_k) key-padding row stays in L1/L2
+//           for the whole tile), added after the scale and floored at
+//           PAD_VALUE, before the causal mask.  Dropout: the seed is read
+//           from device memory (no host sync); each lane hashes its row
+//           once per CTA and each (row, col) once more, in registers; the
+//           row max m and sum l take the undropped p, the bf16 P tile of
+//           the PV product takes keep ? p / (1 - p_drop) : 0.  Besides lse
+//           the kernel writes each row's m and l, from which K4 recomputes
+//           p = exp(s - m) / l: exact also for a row that a bias masks
+//           completely, whose lse rounds back to MASK_VALUE in f32.
+//           Not yet used: wgmma, TMA, cp.async pipelining (later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "flash_operands.cuh"
+
 namespace {
+
+using flash_operands::kMaskValue;
 
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
@@ -41,7 +61,6 @@ constexpr int kBK = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = 16;
-constexpr float kMaskValue = -1e9f;
 static_assert(kBQ == kBK, "load_tile stages q tiles and k/v tiles alike");
 static_assert(kBQ == kWarps * kRowsPerWarp, "each warp owns 16 q rows");
 
@@ -78,12 +97,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
   }
 }
 
-template <int D>
+template <int D, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int bh_count, int sq, int sk,
-                 float scale, int causal, int offset) {
+                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                 const int* __restrict__ seed, bf16* __restrict__ o,
+                 float* __restrict__ lse, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int bh_count, int sq, int sk,
+                 float scale, int causal, int offset, int bias_div,
+                 int bias_rows, uint32_t threshold, float drop_scale) {
   constexpr int kLd = kTileLd<D>;
   constexpr int kOld = kOLd<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -111,6 +133,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* Sw = Ss + warp * kRowsPerWarp * kSLd;
   bf16* Pw = Ps + warp * kRowsPerWarp * kPLd;
   float* Ow = Os + warp * kRowsPerWarp * kOld;
+
+  // the operands: this row's bias (the ragged rows past S_q, which are
+  // never written, read the last row's) and the row's half of the
+  // dropout hash
+  const float* brow = nullptr;
+  if constexpr (kBias)
+    brow = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
+                                    min(row, sq - 1), sk);
+  uint32_t key = 0, row_hash = 0;
+  if constexpr (kDropout) {
+    key = flash_operands::dropout_key(seed, bh);
+    row_hash = flash_operands::dropout_row(key, row);
+  }
 
   load_tile<D>(Qs, qb, q0, sq);
   for (int i = lane; i < kRowsPerWarp * kOld; i += 32) Ow[i] = 0.f;
@@ -157,8 +192,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int cl = 2 * c + half;
       const int col = kt + cl;
       float s = srow[cl] * scale;
-      if (col >= sk) s = -INFINITY;
-      else if (causal && col > row + offset) s = kMaskValue;
+      if (col >= sk) {
+        s = -INFINITY;
+      } else {
+        if constexpr (kBias) s += flash_operands::bias_at(brow, col);
+        if (causal && col > row + offset) s = kMaskValue;
+      }
       sv[c] = s;
       mx = fmaxf(mx, s);
     }
@@ -171,7 +210,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < 32; ++c) {
       const float p = __expf(sv[c] - m_new);
       psum += p;
-      prow[2 * c + half] = __float2bfloat16(p);
+      float pv = p;
+      if constexpr (kDropout)
+        pv = flash_operands::dropout_keep(key, row_hash, kt + 2 * c + half,
+                                          threshold)
+                 ? p * drop_scale
+                 : 0.f;
+      prow[2 * c + half] = __float2bfloat16(pv);
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l = l * alpha + psum;
@@ -205,25 +250,36 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 2; ++c)
       og[2 * c + half] = __float2bfloat16(orow[2 * c + half] / l);
-    if (half == 0) lse[static_cast<size_t>(bh) * sq + row] = m + logf(l);
+    if (half == 0) {
+      const size_t i = static_cast<size_t>(bh) * sq + row;
+      lse[i] = m + logf(l);
+      m_out[i] = m;
+      l_out[i] = l;
+    }
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int bh, int sq, int sk, float scale, int causal, int offset,
+template <int D, bool kBias, bool kDropout>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* seed, void* o, void* lse, void* m, void* l, int bh,
+           int sq, int sk, int bias_div, int bias_rows, float scale,
+           int causal, int offset, uint32_t threshold, float drop_scale,
            cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
+  auto* kernel = &flash_fwd_kernel<D, kBias, kDropout>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (sq + kBQ - 1) / kBQ;
   const dim3 grid(static_cast<unsigned>(bh) * n_tiles);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), bh, sq, sk, scale, causal, offset);
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const int*>(seed), static_cast<bf16*>(o),
+      static_cast<float*>(lse), static_cast<float*>(m),
+      static_cast<float*>(l), bh, sq, sk, scale, causal, offset, bias_div,
+      bias_rows, threshold, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,13 +289,25 @@ extern "C" const char* apex_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (bh, sq, d), k and v (bh, sk, d) bf16; o (bh, sq, d) bf16; lse (bh, sq)
-// f32.  d must be 64.  The causal mask is aligned bottom-right.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int bh, int sq, int sk, int d, float scale,
-                         int causal, void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64)
+// q (bh, sq, d), k and v (bh, sk, d) bf16; bias (groups, bias_rows, sk)
+// f32 or null; seed one int32 or null (no dropout); o (bh, sq, d) bf16;
+// lse, m, l (bh, sq) f32.  d must be 64, groups must divide bh and
+// bias_rows be 1 or sq.  The causal mask is aligned bottom-right.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         const void* bias, const void* seed, void* o,
+                         void* lse, void* m, void* l, int bh, int sq, int sk,
+                         int d, int groups, int bias_rows, float scale,
+                         int causal, unsigned threshold, float drop_scale,
+                         void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64 || groups <= 0 ||
+      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<64>(q, k, v, o, lse, bh, sq, sk, scale, causal, sk - sq,
-                    static_cast<cudaStream_t>(stream));
+  const auto run = bias != nullptr
+                       ? (seed != nullptr ? &launch<64, true, true>
+                                          : &launch<64, true, false>)
+                       : (seed != nullptr ? &launch<64, false, true>
+                                          : &launch<64, false, false>);
+  return run(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, bh / groups,
+             bias_rows, scale, causal, sk - sq, threshold, drop_scale,
+             static_cast<cudaStream_t>(stream));
 }

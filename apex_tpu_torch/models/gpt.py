@@ -58,6 +58,7 @@ __all__ = [
     "gpt_lm_loss",
     "rope_cos_sin",
     "tied_logits",
+    "vocab_logits",
 ]
 
 
@@ -223,11 +224,17 @@ class _TiedLogits(torch.autograd.Function):
         return dh, dembed
 
 
+def vocab_logits(h, embed):
+    """f32 logits ``h @ embed^T`` (..., V) from ``h`` (..., hidden) and
+    ``embed`` (V, hidden), both in the compute dtype.  V need not be a
+    multiple of 8 (BERT's 30522)."""
+    return _TiedLogits.apply(h, embed)
+
+
 def tied_logits(model: "GptModel", h, dtype):
     """Vocab logits (..., V) in f32 through the tied embedding, with
     compute-dtype operands (``_tied_vocab_logits`` at tp=1)."""
-    return _TiedLogits.apply(h.to(dtype),
-                             model.word_embeddings.weight.to(dtype))
+    return vocab_logits(h.to(dtype), model.word_embeddings.weight.to(dtype))
 
 
 class GptBlock(nn.Module):

@@ -5,8 +5,9 @@ into ``build/apex_tpu_torch/<name>-<hash>.so`` at the repository root
 (an installed copy of the package, outside a checkout, builds under the
 per-user cache ``$XDG_CACHE_HOME/apex_tpu_torch``, by default
 ``~/.cache/apex_tpu_torch``), with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
--shared -Xcompiler -fPIC``.  The hash covers the source and the flags,
-so an edited kernel rebuilds and an unchanged one is reused.  The
+-shared -Xcompiler -fPIC``.  The hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel rebuilds and
+an unchanged one is reused.  The
 libraries load through :mod:`ctypes` (no PyTorch headers in the build,
 which keeps each build to seconds).
 
@@ -78,8 +79,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    # the shared headers (csrc/*.cuh) count in every kernel's hash
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source_path(name).read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return _BUILD / f"{name}-{digest}.so"
 

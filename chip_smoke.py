@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-seven phases; any failure raises and the exit code is non-zero.  Without
+nine phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -16,7 +16,11 @@ a CUDA device it exits non-zero at once and prints no result.
    within a stated tolerance: K1 (LayerNorm forward), K2 (its backward,
    with rms and memory_efficient), K3 (flash forward), K4 (flash
    backward: Sq != Sk both ways, fully-masked rows, non-causal, dlse)
-   and K6 (paged decode).
+   and K6 (paged decode).  K3 and K4 again with their bias and dropout
+   operands: BERT's shape with its key-padding bias over ragged lengths
+   and a fully masked row, with and without dropout 0.1, and every
+   other bias layout at smaller shapes; and the dropout keep masks of K3
+   and of both K4 passes read back bit for bit against the twin's.
 2. The serving slice: ``GptConfig()`` at full width (bf16, seeded random
    weights) behind ``InferenceEngine`` + ``ContinuousBatchingScheduler``
    answers 8 greedy requests (prompts of 17..1900 tokens, 32 new tokens
@@ -28,7 +32,7 @@ a CUDA device it exits non-zero at once and prints no result.
 3. Serving cross-check: at full width with 2 layers, one 256-token
    prefill and 4 decode steps through the card engine (bf16) against the
    CPU engine (f32, the same weights), fed the same tokens.
-4. Timing at the main-path shapes (training and serving): each kernel,
+4. Timing at the main-path shapes (training, BERT and serving): each kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
@@ -47,8 +51,19 @@ a CUDA device it exits non-zero at once and prints no result.
 7. Training cross-check: 2 layers at full width, B=2, S=256 — the loss,
    every parameter's gradient and the weights after one FusedAdam step,
    card (bf16) against CPU (f32), from the same weights and batch.
+8. BERT-Large pretraining: ``python -m
+   apex_tpu_torch.examples.pretrain_bert``'s ``train`` at
+   ``BertConfig(remat=True)``, batch 128, seq 128, 20 masked predictions
+   per sequence, FusedLAMB, 8 steps, then 2 steps with dropout through
+   the same ``train_step``; exact K1-K4 counts for each run, losses
+   finite and falling; step time, sequences/s, tokens/s, 6NT MFU, peak
+   memory and one profiled step by layer.
+9. BERT cross-check: 2 layers at full width, B=4, S=128, attention_mask
+   lengths 128/100/37/0, attention dropout 0.1 with the same seeds on
+   both sides — the loss, every gradient and the weights after one
+   FusedLAMB step, card (bf16) against CPU (f32).
 
-The phases run in the order 1, 2, 3, 6, 7, 4, 5.
+The phases run in the order 1, 2, 3, 6, 7, 8, 9, 4, 5.
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -98,6 +113,11 @@ K4_TOL = dict(rtol=2 ** -7, row=1 / 8, floor=2 ** -10, norm=1e-2)
 #: phase 3: bf16 card engine vs f32 CPU engine on 2-layer logits (logit
 #: std ~0.64; a CPU bf16-vs-f32 run of the same check gives ~0.02)
 LOGITS_TOL = 0.06
+
+#: BERT-Large phase-1 pretraining (``bench.py::bench_bert_lamb``): batch
+#: 128, seq 128
+BERT_BATCH = 128
+BERT_SEQ = 128
 
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/pallas/layer_norm.py:237",
@@ -263,19 +283,17 @@ def phase1(gen):
                        (16, 16, 16), (16, 1024, 1024), (16, 2048, 2048),
                        (4, 200, 200), (4, 64, 192), (2, 96, 40)):
         q, k, v = attn_inputs(bh, sq, sk, 64, gen)
-        o, lse = attn.flash_fwd(q, k, v, scale=0.125, causal=True)
-        o_r, lse_r = attn.mha_reference_with_lse(
-            q[None], k[None], v[None], causal=True, scale=0.125
-        )
+        out = attn.flash_fwd(q, k, v, scale=0.125, causal=True)
+        ref = attn.flash_fwd_reference(q, k, v, scale=0.125, causal=True)
         tag = f"K3 flash_fwd BH={bh} Sq={sq} Sk={sk} D=64 causal"
-        e = compare(tag + " o", o, o_r[0], BF16_TOL)
-        compare(tag + " lse", lse, lse_r[0], F32_TOL)
-        errs.setdefault("flash_fwd", e)
-        del o_r, lse_r
+        errs.setdefault("flash_fwd", check_k3(tag, out, ref))
+        del out, ref
         torch.cuda.empty_cache()
 
     errs["layer_norm_bwd"] = phase1_ln_bwd(gen)
     errs["flash_bwd"] = phase1_flash_bwd(gen)
+    phase1_flash_operands(gen)
+    phase1_dropout_mask(gen)
 
     cases = (
         ("bf16", dict(b=8, h=16, d=64, page=16, np_=128, pool=1025,
@@ -386,7 +404,7 @@ def k4_check(out, ref):
     return ok, float(err.max()), rel, ratio
 
 
-def k4_dropped_tile(q, k, v, do, lse, delta, ref, scale):
+def k4_dropped_tile(q, k, v, do, m, l, delta, ref, scale):
     """The twin's (dq, dk, dv) less what the 64-key tile at S/4 gives the
     later half of the query rows, in bf16: what a K4 that skipped that
     tile for those rows would return (causal, Sq = Sk = S >= 256, so the
@@ -397,13 +415,38 @@ def k4_dropped_tile(q, k, v, do, lse, delta, ref, scale):
     rows, keys = slice(s // 2, None), slice(s // 4, s // 4 + 64)
     qr, dor = q[:, rows].float(), do[:, rows].float()
     kt, vt = k[:, keys].float(), v[:, keys].float()
-    p = torch.exp(qr @ kt.transpose(1, 2) * scale - lse[:, rows, None])
+    p = (torch.exp(qr @ kt.transpose(1, 2) * scale - m[:, rows, None])
+         / l[:, rows, None])
     ds = p * (dor @ vt.transpose(1, 2) - delta[:, rows, None])
     dq, dk, dv = (t.float() for t in ref)
     dq[:, rows] -= scale * ds @ kt
     dk[:, keys] -= scale * ds.transpose(1, 2) @ qr
     dv[:, keys] -= p.transpose(1, 2) @ dor
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def check_k3(tag, out, ref):
+    """K3's (o, lse, m, l) against its twin's: o within BF16_TOL, the f32
+    row statistics within F32_TOL.  Returns max |o - o_ref|."""
+    e = compare(tag + " o", out[0], ref[0], BF16_TOL)
+    for name, a, r in zip(("lse", "m", "l"), out[1:], ref[1:]):
+        compare(f"{tag} {name}", a, r, F32_TOL)
+    return e
+
+
+def check_k4(tag, out, ref):
+    """K4's (dq, dk, dv) against its twin's under ``K4_TOL``; returns
+    each max |out - ref|."""
+    errs = []
+    for n, a, r in zip(("dq", "dk", "dv"), out, ref):
+        ok, max_abs, rel, ratio = k4_check(a, r)
+        log(f"  {tag} {n}: max_abs_err={max_abs:.3e} rel_fro_err="
+            f"{rel:.3e} worst err/allowance={ratio:.3e} tol={K4_TOL} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag} {n} disagrees with its twin")
+        errs.append(max_abs)
+    return errs
 
 
 def phase1_flash_bwd(gen):
@@ -422,30 +465,22 @@ def phase1_flash_bwd(gen):
         q, k, v = attn_inputs(bh, sq, sk, 64, gen)
         do = torch.randn(bh, sq, 64, generator=gen, device="cuda").to(
             torch.bfloat16)
-        o, lse = attn.mha_reference_with_lse(q, k, v, causal=causal,
-                                             scale=0.125)
+        o, _, m, l = attn.flash_fwd_reference(q, k, v, causal=causal,
+                                              scale=0.125)
         delta = (do.float() * o.float()).sum(-1)
         if with_dlse:
             delta = delta - torch.randn(bh, sq, generator=gen, device="cuda")
         del o
-        out = attn.flash_bwd(q, k, v, do, lse, delta, scale=0.125,
+        out = attn.flash_bwd(q, k, v, do, m, l, delta, scale=0.125,
                              causal=causal)
-        ref = attn.flash_bwd_reference(q, k, v, do, lse, delta, scale=0.125,
+        ref = attn.flash_bwd_reference(q, k, v, do, m, l, delta, scale=0.125,
                                        causal=causal)
         tag = (f"K4 flash_bwd BH={bh} Sq={sq} Sk={sk} D=64 causal={causal} "
                f"dlse={with_dlse}")
-        errs = []
-        for n, a, r in zip(("dq", "dk", "dv"), out, ref):
-            ok, max_abs, rel, ratio = k4_check(a, r)
-            log(f"  {tag} {n}: max_abs_err={max_abs:.3e} rel_fro_err="
-                f"{rel:.3e} worst err/allowance={ratio:.3e} tol={K4_TOL} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{tag} {n} disagrees with its twin")
-            errs.append(max_abs)
+        errs = check_k4(tag, out, ref)
         if main_err is None:
             main_err = max(errs)
-            bad = k4_dropped_tile(q, k, v, do, lse, delta, ref, 0.125)
+            bad = k4_dropped_tile(q, k, v, do, m, l, delta, ref, 0.125)
             for n, a, r in zip(("dq", "dk", "dv"), bad, ref):
                 ok, max_abs, rel, ratio = k4_check(a, r)
                 log(f"  {tag} {n} with one 64-key tile dropped for the "
@@ -459,6 +494,153 @@ def phase1_flash_bwd(gen):
         del out, ref
         torch.cuda.empty_cache()
     return main_err
+
+
+def padding_bias(lengths, s):
+    """BERT's key-padding mask in the kernels' layout: (B, 1, S) f32, 0 on
+    the first ``lengths[b]`` keys and MASK_VALUE after (G = B, RS = 1)."""
+    import torch
+
+    keep = torch.arange(s, device="cuda")[None] < lengths[:, None]
+    return torch.where(keep, 0.0, -1e9)[:, None, :].contiguous()
+
+
+def bert_lengths(gen, batch=BERT_BATCH, s=BERT_SEQ):
+    """Ragged key lengths in [1, S] with row 0 full and row 1 empty (a
+    sequence with no real token: every key masked by the bias)."""
+    import torch
+
+    lengths = torch.randint(1, s + 1, (batch,), generator=gen, device="cuda")
+    lengths[0], lengths[1] = s, 0
+    return lengths
+
+
+def phase1_flash_operands(gen):
+    """K3 and K4 with the bias and dropout operands against their twins
+    (K3: BF16_TOL and F32_TOL; K4: K4_TOL), on the same inputs and seed:
+    BERT's shape (BH = 128·16, S = 128, non-causal) with its (B, 1, S)
+    key-padding bias over ragged lengths and one fully masked row, with
+    and without dropout 0.1, and dropout alone; then every other bias
+    layout (G = BH / B / 1, RS = S_q / 1) at smaller ragged shapes, causal
+    and not, with and without dropout."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    log("phase 1: K3/K4 bias and dropout operands against their twins")
+    heads = 16
+    bert_bias = padding_bias(bert_lengths(gen), BERT_SEQ)
+
+    def rand_bias(g, rs, sk):
+        return torch.randn(g, rs, sk, generator=gen, device="cuda")
+
+    # (tag, BH, Sq, Sk, causal, bias, dropout_p)
+    bh = BERT_BATCH * heads
+    cases = [
+        ("BERT padding bias G=B RS=1", bh, BERT_SEQ, BERT_SEQ, False,
+         bert_bias, 0.0),
+        ("BERT padding bias G=B RS=1 + dropout 0.1", bh, BERT_SEQ, BERT_SEQ,
+         False, bert_bias, 0.1),
+        ("dropout 0.1 alone", bh, BERT_SEQ, BERT_SEQ, False, None, 0.1),
+        ("G=BH RS=Sq", 8, 200, 200, True, rand_bias(8, 200, 200), 0.0),
+        ("G=BH RS=Sq", 8, 200, 136, False, rand_bias(8, 200, 136), 0.0),
+        ("G=B RS=Sq + dropout 0.1", 8, 136, 200, True,
+         rand_bias(2, 136, 200), 0.1),
+        ("G=1 RS=1", 8, 200, 200, True, rand_bias(1, 1, 200), 0.0),
+        ("G=1 RS=Sq + dropout 0.1", 8, 96, 200, False,
+         rand_bias(1, 96, 200), 0.1),
+        ("G=BH RS=1 + dropout 0.5", 8, 72, 72, True, rand_bias(8, 1, 72),
+         0.5),
+    ]
+    for tag, bh, sq, sk, causal, bias, p in cases:
+        q, k, v = attn_inputs(bh, sq, sk, 64, gen)
+        seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        kw = dict(scale=0.125, causal=causal, dropout_p=p, seed=seed)
+        tag = f"{tag} BH={bh} Sq={sq} Sk={sk} causal={causal}"
+        ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
+        check_k3("K3 " + tag, attn.flash_fwd(q, k, v, bias, **kw), ref)
+        do = torch.randn(bh, sq, 64, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        o, _, m, l = ref
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, m, l, delta, bias)
+        check_k4("K4 " + tag, attn.flash_bwd(*args, **kw),
+                 attn.flash_bwd_reference(*args, **kw))
+        del ref, o, args
+        torch.cuda.empty_cache()
+
+
+def phase1_dropout_mask(gen):
+    """Reads K3's and K4's dropout keep masks back bit for bit at BERT's
+    shape (BH = 2048, S = 128, p = 0.1) and compares each with the twin's
+    ``dropout_keep_mask``.  BF16_TOL cannot see one flipped bit, which
+    moves o by ~|v|/S.  q = 0 makes every score 0; the bias leaves 64
+    keys unmasked (keys 0..63 for even bh, 64..127 for odd bh), so every
+    (row, key) pair of the (BH, S, S) mask is read once:
+
+    - K3: v is the identity on the unmasked keys, so o[i, c] =
+      keep(i, j0 + c) · bf16(1/(1-p)) / 64;
+    - K4's dK/dV pass: dO[i, c] = [c == i mod 64] · (1 if i < 64 else 2),
+      so dv[j0 + c', c] / (bf16(1/(1-p)) / 64) = keep(c, j) + 2 keep(c + 64,
+      j) with j = j0 + c';
+    - K4's dQ pass: k = v = the identity on the unmasked keys and dO = 1,
+      so dq[i, c] = scale · (keep ? 1/(1-p) : 0 - delta_i) / 64, kept
+      iff dq[i, c] > -scale · delta_i / 128."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    log("phase 1: K3/K4 dropout keep masks read back bit for bit")
+    bh, s, d, p, scale = BERT_BATCH * 16, BERT_SEQ, 64, 0.1, 0.125
+    seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    keep = attn.dropout_keep_mask(seed, (bh, s, s), p)
+    j0 = (torch.arange(bh, device="cuda") % 2) * 64
+    cols = torch.arange(s, device="cuda")
+    live = (cols[None] >= j0[:, None]) & (cols[None] < j0[:, None] + 64)
+    bias = torch.where(live, 0.0, -1e9)[:, None, :].contiguous()
+    eye = torch.zeros(bh, s, d, device="cuda")
+    eye[live] = torch.eye(d, device="cuda").repeat(bh, 1)
+    eye = eye.to(torch.bfloat16)
+    zeros = torch.zeros(bh, s, d, dtype=torch.bfloat16, device="cuda")
+    kw = dict(scale=scale, causal=False, dropout_p=p, seed=seed)
+    # per bh, the (S, 64) block of the mask over its unmasked keys
+    want = keep[live[:, None, :].expand(bh, s, s)].reshape(bh, s, 64)
+    unit = float(torch.tensor(1 / (1 - p)).to(torch.bfloat16)) / 64
+
+    o, _, m, l = attn.flash_fwd(zeros, zeros, eye, bias, **kw)
+    got = o.float() > 0
+    bad = int((got != want).sum())
+    vals = o.float()[got]
+    log(f"  K3 o: {bad} of {want.numel()} mask bits differ; kept entries "
+        f"in [{float(vals.min()):.6f}, {float(vals.max()):.6f}], expected "
+        f"{unit:.6f}")
+    if bad or not torch.all(vals == unit):
+        raise AssertionError("K3's dropout mask differs from the twin's")
+
+    rows = torch.arange(s, device="cuda")
+    do = torch.zeros(bh, s, d, device="cuda")
+    do[:, rows, rows % 64] = torch.where(rows < 64, 1.0, 2.0)
+    do = do.to(torch.bfloat16)
+    delta = torch.zeros(bh, s, device="cuda")
+    _, _, dv = attn.flash_bwd(zeros, zeros, eye, do, m, l, delta, bias, **kw)
+    code = torch.round(dv.float()[live] / unit).reshape(bh, 64, d)
+    # code[b, c', c] = keep(c, j0 + c') + 2 keep(c + 64, j0 + c')
+    got = torch.stack([code % 2, code // 2], 1).bool()  # (bh, 2, 64', 64)
+    want_dv = want.reshape(bh, 2, 64, 64).transpose(2, 3)
+    bad_dv = int((got != want_dv).sum()) + int((code > 3).sum())
+    log(f"  K4 dK/dV pass dv: {bad_dv} of {want.numel()} mask bits differ")
+
+    ones = torch.ones(bh, s, d, dtype=torch.bfloat16, device="cuda")
+    o, _, m, l = attn.flash_fwd(zeros, eye, eye, bias, **kw)
+    delta = o.float().sum(-1)
+    dq, _, _ = attn.flash_bwd(zeros, eye, eye, ones, m, l, delta, bias, **kw)
+    got = dq.float() > -scale * delta[..., None] / 128
+    bad_dq = int((got != want).sum())
+    log(f"  K4 dQ pass dq: {bad_dq} of {want.numel()} mask bits differ")
+    if bad_dv or bad_dq:
+        raise AssertionError("K4's dropout mask differs from the twin's")
 
 
 # ---------------------------------------------------------------------------
@@ -733,45 +915,107 @@ def _time_attn(gen, flush, bh, s, *, with_bwd):
     fwd = dict(
         ms=time_ms(lambda: attn.flash_fwd(q, k, v, scale=0.125, causal=True),
                    flush=flush),
-        plain_ms=time_ms(lambda: attn.mha_reference_with_lse(
+        plain_ms=time_ms(lambda: attn.flash_fwd_reference(
             q, k, v, causal=True, scale=0.125), flush=flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True, scale=0.125),
             flush=flush),
     )
     fwd["bound_ms"], fwd["bound_by"] = bound(
-        2 * 4 * elems + 4 * bh * s, 4 * d * live, BF16_TENSOR_FLOPS)
+        2 * 4 * elems + 3 * 4 * bh * s, 4 * d * live, BF16_TENSOR_FLOPS)
     if not with_bwd:
         return fwd, None
     do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
-    o, lse = attn.flash_fwd(q, k, v, scale=0.125, causal=True)
+    o, _, m, l = attn.flash_fwd(q, k, v, scale=0.125, causal=True)
     delta = (do.float() * o.float()).sum(-1)
     qr, kr, vr = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
                                            scale=0.125)
     bwd = dict(
-        ms=time_ms(lambda: attn.flash_bwd(q, k, v, do, lse, delta,
+        ms=time_ms(lambda: attn.flash_bwd(q, k, v, do, m, l, delta,
                                           scale=0.125, causal=True),
                    flush=flush),
         # the f32 twin materialises five (BH, S, S) f32 score-sized
         # tensors (~10 GB here): fewer runs
         plain_ms=time_ms(lambda: attn.flash_bwd_reference(
-            q, k, v, do, lse, delta, scale=0.125, causal=True),
+            q, k, v, do, m, l, delta, scale=0.125, causal=True),
             iters=5, warmup=1, flush=flush),
         library_ms=time_ms(lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), do[None], retain_graph=True), flush=flush),
     )
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        2 * 7 * elems + 2 * 4 * bh * s, 10 * d * live, BF16_TENSOR_FLOPS)
+        2 * 7 * elems + 3 * 4 * bh * s, 10 * d * live, BF16_TENSOR_FLOPS)
+    return fwd, bwd
+
+
+def _time_attn_bert(gen, flush, dropout_p):
+    """K3 and K4 at BERT's shape (BH = 128·16, S = 128, D = 64,
+    non-causal) with the (B, 1, S) padding bias over ragged lengths and
+    ``dropout_p``, beside the plain versions and SDPA with the same
+    additive mask (``attn_mask``, bf16) and dropout rate, forward and
+    backward (timed on its own), with the bounds: the bytes of q, k, v
+    (and dO) read, o (dq, dk, dv) written and the f32 row statistics, the
+    bias and the seed; 2 products of 2·D flops per pair forward, 5
+    backward, S² pairs per head."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention as attn
+
+    bh, s, d, heads = BERT_BATCH * 16, BERT_SEQ, 64, 16
+    q, k, v = attn_inputs(bh, s, s, d, gen)
+    bias = padding_bias(bert_lengths(gen), s)
+    seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    kw = dict(scale=0.125, causal=False, dropout_p=dropout_p, seed=seed)
+    pairs = bh * s * s
+    elems = bh * s * d
+    extra = BERT_BATCH * s * 4 + 4  # the bias and the seed
+    q4, k4, v4 = (t.reshape(BERT_BATCH, heads, s, d) for t in (q, k, v))
+    mask4 = bias[:, None].to(torch.bfloat16)  # (B, 1, 1, S)
+
+    def sdpa(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, attn_mask=mask4,
+                                              dropout_p=dropout_p,
+                                              scale=0.125)
+
+    fwd = dict(
+        ms=time_ms(lambda: attn.flash_fwd(q, k, v, bias, **kw), flush=flush),
+        plain_ms=time_ms(lambda: attn.flash_fwd_reference(q, k, v, bias, **kw),
+                         flush=flush),
+        library_ms=time_ms(lambda: sdpa(q4, k4, v4), flush=flush),
+    )
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        4 * elems * 2 + 3 * bh * s * 4 + extra, 4 * d * pairs,
+        BF16_TENSOR_FLOPS)
+    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    o, _, m, l = attn.flash_fwd(q, k, v, bias, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, m, l, delta, bias)
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    o_lib = sdpa(qr, kr, vr)
+    bwd = dict(
+        ms=time_ms(lambda: attn.flash_bwd(*args, **kw), flush=flush),
+        plain_ms=time_ms(lambda: attn.flash_bwd_reference(*args, **kw),
+                         flush=flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            o_lib, (qr, kr, vr), do.reshape(q4.shape), retain_graph=True),
+            flush=flush),
+    )
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        7 * elems * 2 + 3 * bh * s * 4 + extra, 10 * d * pairs,
+        BF16_TENSOR_FLOPS)
     return fwd, bwd
 
 
 def phase4(gen, launches, errs):
-    """Each kernel at its main-path shapes: the training shapes of phase
-    6 (K1, K2 at x (16384, 1024); K3, K4 at BH=128, S=2048) and the
-    serving shapes of phase 2 (K1 at (2048, 1024), K3 at BH=16, S=2048,
-    K6 at the decode batch).  ``launches`` maps kernel -> {path: count}
-    from the phase-2 and phase-6 runs."""
+    """Each kernel at its main-path shapes: the GPT training shapes of
+    phase 6 (K1, K2 at x (16384, 1024), which is also BERT's B·S x
+    hidden; K3, K4 at BH=128, S=2048), BERT's attention of phase 8 (K3,
+    K4 at BH=2048, S=128 with the padding bias, without and with dropout
+    0.1) and the serving shapes of phase 2 (K1 at (2048, 1024), K3 at
+    BH=16, S=2048, K6 at the decode batch).  ``launches`` maps kernel ->
+    {path: count} from the phase-2, -6 and -8 runs."""
     import torch
 
     from apex_tpu_torch.ops import layer_norm as ln
@@ -789,8 +1033,17 @@ def phase4(gen, launches, errs):
     at_fwd, at_bwd = _time_attn(gen, flush, train_bh, TRAIN_SEQ, with_bwd=True)
     shape = f"BH={train_bh} S={TRAIN_SEQ} D=64 causal bf16"
     rows["flash_fwd"] = dict(at_fwd, shape=shape)
-    rows["flash_bwd"] = dict(at_bwd, shape=shape + ", lse/delta f32")
+    rows["flash_bwd"] = dict(at_bwd, shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
+
+    bert = {}
+    for p, tag in ((0.0, "bert_shape"), (0.1, "bert_dropout_shape")):
+        b_fwd, b_bwd = _time_attn_bert(gen, flush, p)
+        shape = (f"BH={BERT_BATCH * 16} S={BERT_SEQ} D=64 non-causal bf16, "
+                 f"bias (B, 1, S) f32, dropout {p}")
+        bert.setdefault("flash_fwd", {})[tag] = dict(b_fwd, shape=shape)
+        bert.setdefault("flash_bwd", {})[tag] = dict(b_bwd, shape=shape)
+        torch.cuda.empty_cache()
 
     serving = {}
     serving["layer_norm_fwd"] = dict(_time_ln(gen, flush, 2048, 1024)[0],
@@ -864,8 +1117,12 @@ def phase4(gen, launches, errs):
         }
         if name in rows and name in serving:
             entry["serving_shape"] = fields(serving[name])
+        for tag, r in bert.get(name, {}).items():
+            entry[tag] = fields(r)
         kernels.append(entry)
-        for tag, r in (("", main), (" (serving)", entry.get("serving_shape"))):
+        for tag, r in (("", main), (" (serving)", entry.get("serving_shape")),
+                       (" (BERT)", entry.get("bert_shape")),
+                       (" (BERT, dropout)", entry.get("bert_dropout_shape"))):
             if r is None:
                 continue
             log(f"  {name}{tag} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
@@ -897,6 +1154,7 @@ KERNEL_GROUPS = (
     ("K1 layer_norm_fwd", ("ln_fwd_kernel",)),
     ("K2 layer_norm_bwd", ("ln_bwd_kernel",)),
     ("cuBLAS GEMMs", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
 )
 
 
@@ -1172,17 +1430,281 @@ def phase7():
         worst_grad = max(worst_grad, rel)
         worst_max = max(worst_max, float(du.max()))
         worst_mean = max(worst_mean, float(du.mean()))
-        if rel > GRAD_REL_TOL:
+        if not rel <= GRAD_REL_TOL:
             raise AssertionError(f"phase 7: grad of {k} off by {rel:.3e}")
     log(f"  worst per-parameter grad relative error {worst_grad:.3e} "
         f"(tol {GRAD_REL_TOL}); after one Adam step: worst max |Δ update| "
         f"{worst_max:.3e} (tol {ADAM_MAX_TOL:.3e}), worst mean |Δ update| "
         f"{worst_mean:.3e} (tol {ADAM_MEAN_TOL:.3e})")
-    if worst_max > ADAM_MAX_TOL or worst_mean > ADAM_MEAN_TOL:
+    if not (worst_max <= ADAM_MAX_TOL and worst_mean <= ADAM_MEAN_TOL):
         raise AssertionError("phase 7: the Adam updates disagree")
     return {"loss_card": l_card, "loss_cpu": l_cpu,
             "max_grad_rel_err": worst_grad, "max_update_diff": worst_max,
             "max_mean_update_diff": worst_mean}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: BERT-Large pretraining at full width
+# ---------------------------------------------------------------------------
+
+
+BERT_STEPS = 8
+BERT_DROPOUT_STEPS = 2
+
+
+def bert_step_launches(layers):
+    """Kernel launches of one BERT training step with full remat and L
+    layers: K1 runs 2L+2 times forward (the embedding LayerNorm, two per
+    block, the MLM transform's) and 2L again in the blocks' recompute, K2
+    2L+2 times, K3 L + L times (forward and recompute) and K4 L times."""
+    return {"layer_norm_fwd": (2 * layers + 2) + 2 * layers,
+            "layer_norm_bwd": 2 * layers + 2,
+            "flash_fwd": 2 * layers, "flash_bwd": layers}
+
+
+def _check_launches(tag, steps, layers):
+    from apex_tpu_torch.ops import _dispatch
+
+    launches = _dispatch.launches()
+    paths = _dispatch.last_paths()
+    per_step = bert_step_launches(layers)
+    want = {k: n * steps for k, n in per_step.items()}
+    log(f"  {tag}: launches={launches} (per step {per_step}) paths={paths}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    if paths != {"layer_norm": "cuda", "flash_attention": "cuda"}:
+        raise AssertionError(f"{tag}: op paths {paths}")
+    return launches
+
+
+def phase8():
+    """``examples.pretrain_bert``'s ``train`` at ``BertConfig(remat=True)``
+    (BERT-Large, bf16 compute on f32 weights), batch 128, seq 128, K = 20
+    masked predictions per sequence, FusedLAMB at lr 1e-3, 8 steps on the
+    synthetic corpus; then 2 steps with dropout 0.1 in the attention and
+    hidden layers (``deterministic=False``) through the same
+    ``train_step``.  The launch counters are zeroed before each run and
+    read after it: K1-K4 must have launched exactly their per-step counts
+    times the steps.  Losses must be finite, and falling over the 8
+    steps.  Then one more step under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.examples import pretrain_bert
+    from apex_tpu_torch.ops import _dispatch
+
+    log(f"phase 8: train BertConfig(remat=True) {BERT_STEPS} steps at batch "
+        f"{BERT_BATCH}, seq {BERT_SEQ}, then {BERT_DROPOUT_STEPS} with "
+        f"dropout")
+    args = pretrain_bert.parse_args([
+        "--steps", str(BERT_STEPS), "--batch", str(BERT_BATCH),
+        "--seq-len", str(BERT_SEQ),
+    ])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    run = pretrain_bert.train(args)
+    torch.cuda.synchronize()
+    layers = run.cfg.num_layers
+    launches = {"bert": _check_launches("BERT", BERT_STEPS, layers)}
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.losses
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+
+    gen = torch.Generator().manual_seed(99)
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    drop_losses, drop_seconds = [], []
+    for _ in range(BERT_DROPOUT_STEPS):
+        batch = next(run.batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drop_losses.append(float(pretrain_bert.train_step(
+            run.model, run.optimizer, batch, generator=gen)))
+        torch.cuda.synchronize()
+        drop_seconds.append(time.perf_counter() - t0)
+    launches["bert_dropout"] = _check_launches(
+        "BERT with dropout", BERT_DROPOUT_STEPS, layers)
+    if not all(np.isfinite(drop_losses)):
+        raise AssertionError(f"dropout losses not finite: {drop_losses}")
+
+    n_params = sum(p.numel() for p in run.model.parameters())
+    step_s = statistics.median(run.step_seconds[1:])
+    mfu = 6 * n_params * run.tokens_per_step / step_s / BF16_TENSOR_FLOPS
+    log(f"  losses {[round(x, 4) for x in losses]}; with dropout "
+        f"{[round(x, 4) for x in drop_losses]}")
+    log(f"  step seconds {[round(x, 4) for x in run.step_seconds]}; median "
+        f"of steps 1.. {step_s * 1e3:.1f} ms, "
+        f"{run.sequences_per_step / step_s:.1f} sequences/s, "
+        f"{run.tokens_per_step / step_s:.0f} tokens/s, 6NT MFU {mfu:.4f} "
+        f"(N={n_params}), peak memory {peak / 1e9:.2f} GB; with dropout "
+        f"{[round(x * 1e3, 1) for x in drop_seconds]} ms")
+
+    batch = next(run.batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pretrain_bert.train_step(run.model, run.optimizer, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = sorted(device_kernels(prof), key=lambda o: -o[1])
+    busy_ms = sum(o[1] for o in ops) / 1e3
+    groups = group_kernels(ops)
+    log(f"  profiled step: {wall * 1e3:.1f} ms host, {busy_ms:.1f} ms of "
+        f"device kernels ({busy_ms / (wall * 1e3):.3f} busy; "
+        f"{busy_ms / (step_s * 1e3):.3f} of the unprofiled median step), "
+        f"{sum(o[2] for o in ops)} kernel launches")
+    log("  device ms by layer: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in groups.items()))
+    top = []
+    for key, us, count in ops[:15]:
+        log(f"    {us / 1e3:9.3f} ms  {count:5d}x  {key[:100]}")
+        top.append({"op": key[:100], "ms": us / 1e3, "count": count})
+    out = {
+        "device_busy_share_unprofiled": busy_ms / (step_s * 1e3),
+        "losses": losses,
+        "dropout_losses": drop_losses,
+        "step_seconds": run.step_seconds,
+        "dropout_step_seconds": drop_seconds,
+        "step_ms_median": step_s * 1e3,
+        "sequences_per_s": run.sequences_per_step / step_s,
+        "tokens_per_s": run.tokens_per_step / step_s,
+        "params": n_params,
+        "mfu_6nt": mfu,
+        "peak_memory_bytes": peak,
+        "profiled_step_ms": wall * 1e3,
+        "profiled_device_ms": busy_ms,
+        "device_ms_by_layer": groups,
+        "top_device_ops": top,
+    }
+    del run
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: one BERT training step with dropout, card bf16 against CPU f32
+# ---------------------------------------------------------------------------
+
+
+#: The phase-9 limits, like phase 7's, sit between the sound reading and
+#: the readings of a planted fault in one plain twin.  Faulty, each f32
+#: CPU step with one twin altered against the sound f32 CPU step: K3
+#: dropping the bias moves the loss by 4.0e-3, a gradient by 55% and an
+#: update by 104%; K4 recomputing p = exp(s - lse) (the TPU's rule, wrong
+#: in the fully padded row) moves a gradient 4300-fold and an update by
+#: 154%; K4 hashing the keep mask with seed + 1 moves a gradient by 22%
+#: and an update by 84%; K4 leaving the keep mask off dP by 14% and 74%;
+#: K4 dropping the bias gives non-finite gradients; K2 dropping the
+#: mean(g·w) term of dx moves a gradient by 4.1% and an update by 19%.
+#: The same comparison with the CPU in bf16 reads 2.2e-3, 1.1% and 17.5%.
+#: |loss(card bf16) - loss(CPU f32)|: the loss is ~11.6
+BERT_LOSS_TOL = 3e-3
+#: per parameter, ||grad_card - grad_cpu|| / ||grad_cpu||
+BERT_GRAD_REL_TOL = 3e-2
+#: per parameter, ||update_card - update_cpu|| / ||update_cpu||: LAMB's
+#: first step moves each element by about ±lr·ratio, so an element whose
+#: gradient sign differs between bf16 and f32 moves the other way; this
+#: limit catches the attention twins' faults, the gradient limit K2's
+BERT_UPDATE_REL_TOL = 0.5
+BERT_LR = 1e-3
+BERT_CROSS_LENGTHS = (128, 100, 37, 0)
+
+
+def bert_cross_step(device, seed_model=13):
+    """One ``bert_pretrain_loss`` + FusedLAMB step of the 2-layer,
+    full-width BERT with attention dropout 0.1 (hidden dropout 0) on
+    ``device`` ("cuda": bf16 compute; "cpu": f32), from the weights drawn
+    on the CPU from ``seed_model`` and a fixed batch: B = 4, S = 128,
+    attention_mask lengths 128/100/37/0 (the last sequence has no real
+    token), 20 packed predictions per sequence, the dropout generator
+    seeded alike on both sides (the same attention masks).  Returns
+    (loss, {name: grad}, {name: update}) on the CPU in f32."""
+    import torch
+
+    from apex_tpu_torch import data
+    from apex_tpu_torch.models import BertConfig, BertForPreTraining
+    from apex_tpu_torch.models import bert_pretrain_loss
+    from apex_tpu_torch.optimizers import FusedLAMB
+
+    cfg = BertConfig(num_layers=2, attention_dropout=0.1, hidden_dropout=0.0,
+                     dtype=torch.bfloat16 if device == "cuda"
+                     else torch.float32)
+    model = BertForPreTraining(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(
+                                   seed_model)).to(device)
+    rs = np.random.RandomState(5)
+    b, s = len(BERT_CROSS_LENGTHS), BERT_SEQ
+    ids = rs.randint(1000, cfg.vocab_size, size=(s, b)).astype(np.int32)
+    labels = np.where(rs.rand(s, b) < 0.15, ids, -1).astype(np.int32)
+    pos, pids, w = data.pack_mlm_predictions(labels, 20)
+    batch = {
+        "input_ids": ids,
+        "token_type_ids": (np.arange(s)[:, None] >= s // 2).repeat(b, 1)
+        .astype(np.int32),
+        "attention_mask": (np.arange(s)[None] < np.array(
+            BERT_CROSS_LENGTHS)[:, None]).astype(np.int32),
+        "nsp_labels": rs.randint(0, 2, size=(b,)).astype(np.int32),
+        "mlm_positions": pos, "mlm_label_ids": pids, "mlm_weights": w,
+    }
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    before = {k: p.detach().float().cpu().clone()
+              for k, p in model.named_parameters()}
+    opt = FusedLAMB(model.parameters(), lr=BERT_LR, weight_decay=0.01)
+    loss = bert_pretrain_loss(model, batch, deterministic=False,
+                              generator=torch.Generator().manual_seed(17))
+    loss.backward()
+    grads = {k: p.grad.detach().float().cpu()
+             for k, p in model.named_parameters()}
+    opt.step()
+    updates = {k: p.detach().float().cpu() - before[k]
+               for k, p in model.named_parameters()}
+    return float(loss.detach()), grads, updates
+
+
+def compare_cross(a, b):
+    """(|loss diff|, worst per-parameter relative gradient error, worst
+    per-parameter relative update error) of step ``a`` against the
+    reference step ``b``, with the names of the worst parameters."""
+    (la, ga, ua), (lb, gb, ub) = a, b
+
+    def worst(x, y):
+        rel = {k: float((x[k] - y[k]).norm() / y[k].norm().clamp_min(1e-30))
+               for k in y}
+        rel = {k: r if np.isfinite(r) else float("inf") for k, r in rel.items()}
+        k = max(rel, key=rel.get)
+        return rel[k], k
+
+    return abs(la - lb), worst(ga, gb), worst(ua, ub)
+
+
+def phase9():
+    """BERT at full width with 2 layers: the loss, every parameter's
+    gradient and the weights after one FusedLAMB step on the card (bf16,
+    K1-K4 with the padding bias and attention dropout) against the CPU
+    (f32, the plain twins), from the same weights, batch and attention
+    dropout seeds."""
+    log("phase 9: 2-layer full-width BERT step with attention dropout and "
+        "a fully padded row, card bf16 against CPU f32")
+    card = bert_cross_step("cuda")
+    cpu = bert_cross_step("cpu")
+    dloss, (grad_rel, grad_k), (upd_rel, upd_k) = compare_cross(card, cpu)
+    log(f"  loss card={card[0]:.6f} cpu={cpu[0]:.6f} diff={dloss:.2e} "
+        f"(tol {BERT_LOSS_TOL}); worst grad relative error {grad_rel:.3e} "
+        f"({grad_k}, tol {BERT_GRAD_REL_TOL}); after one LAMB step worst "
+        f"update relative error {upd_rel:.3e} ({upd_k}, tol "
+        f"{BERT_UPDATE_REL_TOL})")
+    if not dloss <= BERT_LOSS_TOL:
+        raise AssertionError("phase 9: the losses disagree")
+    if not grad_rel <= BERT_GRAD_REL_TOL:
+        raise AssertionError(f"phase 9: grad of {grad_k} off by {grad_rel}")
+    if not upd_rel <= BERT_UPDATE_REL_TOL:
+        raise AssertionError(f"phase 9: update of {upd_k} off by {upd_rel}")
+    return {"loss_card": card[0], "loss_cpu": cpu[0],
+            "max_grad_rel_err": grad_rel, "max_update_rel_err": upd_rel}
 
 
 def main():
@@ -1216,16 +1738,20 @@ def main():
     cross = phase3()
     train_launches, training = phase6()
     train_cross = phase7()
+    bert_launches, bert = phase8()
+    bert_cross = phase9()
+    runs = (("serving", serve_launches), ("training", train_launches),
+            ("bert", bert_launches["bert"]),
+            ("bert_dropout", bert_launches["bert_dropout"]))
     launches = {
-        name: {path: counts[name] for path, counts in
-               (("serving", serve_launches), ("training", train_launches))
-               if name in counts}
+        name: {path: counts[name] for path, counts in runs if name in counts}
         for name in _build.KERNELS
     }
     kernels = phase4(gen, launches, errs)
     profile = phase5(engine)
     log(json.dumps({"serving": rates, "cross_check": cross,
                     "training": training, "training_cross_check": train_cross,
+                    "bert": bert, "bert_cross_check": bert_cross,
                     "decode_profile": profile}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -52,7 +52,7 @@ setup(
     packages=find_packages(include=["apex_tpu", "apex_tpu.*",
                                     "apex_tpu_torch", "apex_tpu_torch.*"]),
     package_data={"apex_tpu._native": ["host_ops.cpp"],
-                  "apex_tpu_torch": ["csrc/*.cu"]},
+                  "apex_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "einops"],
     cmdclass={"build_native": build_native},

@@ -244,7 +244,7 @@ def test_attention_lse_grads_match_jax(force_pallas, s):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_twin_is_the_jax_kernel_math(causal):
     """The port's K4 twin against the Pallas flash_bwd itself on the
-    same o and lse (the JAX kernel's), with a dlse cotangent, F32_TOL."""
+    same o (the JAX kernel's), with a dlse cotangent, F32_TOL."""
     from apex_tpu.ops.pallas import flash_attention as jax_kernels
 
     q, k, v, do = (a[0] for a in _qkv_do(256, 256, seed=21))
@@ -255,10 +255,14 @@ def test_flash_bwd_twin_is_the_jax_kernel_math(causal):
                                 jnp.asarray(do), None, scale=0.125,
                                 causal=causal, dlse=jnp.asarray(dlse))
     delta = (do * _np(o)).sum(-1) - dlse
+    # the twin recomputes p from the row max and sum of its own forward,
+    # whose lse is the JAX kernel's
+    _, lse_p, m, l = port_attn.flash_fwd_reference(
+        *map(torch.from_numpy, (q, k, v)), scale=0.125, causal=causal)
+    np.testing.assert_allclose(lse_p.numpy(), _np(lse)[..., 0], **F32_TOL)
     out = port_attn.flash_bwd_reference(
-        *map(torch.from_numpy, (q, k, v, do)),
-        torch.from_numpy(_np(lse)[..., 0]), torch.from_numpy(delta),
-        scale=0.125, causal=causal,
+        *map(torch.from_numpy, (q, k, v, do)), m, l,
+        torch.from_numpy(delta), scale=0.125, causal=causal,
     )
     for a, r in zip(out, ref):
         np.testing.assert_allclose(a.numpy(), _np(r), **F32_TOL)

@@ -2,12 +2,13 @@
 
 - the port and ``chip_smoke.py`` import neither ``jax`` nor ``apex_tpu``
   (AST scan of every module);
-- entry points (the model, the engine, the converter and the example
-  trainer) run on the card by default and raise without one, unless the
-  caller passes ``device="cpu"``;
+- entry points (the GPT and BERT models, the engine, the converters and
+  the example trainers) run on the card by default and raise without
+  one, unless the caller passes ``device="cpu"``;
 - kernel wrappers launch their kernel or raise: handed CPU tensors, a
   kernel entry refuses instead of computing the plain version, and a
-  kernel that cannot be built raises;
+  kernel that cannot be built raises; a trainable attention bias on the
+  card raises, naming the kernel it needs (K5);
 - every kernel source carries its note (what it replaces, its bound on
   the card, what its design does about it).
 """
@@ -18,9 +19,17 @@ from pathlib import Path
 import pytest
 import torch
 
-from apex_tpu_torch.models import GptConfig, GptModel, from_jax_params
+from apex_tpu_torch.models import (
+    BertConfig,
+    BertForPreTraining,
+    GptConfig,
+    GptModel,
+    bert_from_jax_params,
+    from_jax_params,
+)
 from apex_tpu_torch.ops import _build, _dispatch
-from apex_tpu_torch.examples import train_gpt
+from apex_tpu_torch.examples import pretrain_bert, train_gpt
+from apex_tpu_torch.ops import attention
 from apex_tpu_torch.ops.attention import flash_bwd, flash_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
@@ -29,6 +38,9 @@ from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=32, hidden_size=32, num_layers=1, num_heads=2,
             intermediate_size=64, max_seq_len=64, dtype=torch.float32)
+TINY_BERT = dict(vocab_size=32, hidden_size=32, num_layers=1, num_heads=2,
+                 intermediate_size=64, max_position_embeddings=64,
+                 dtype=torch.float32)
 
 
 def _port_files():
@@ -64,7 +76,9 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["model", "engine", "convert", "train"])
+@pytest.mark.parametrize("entry", ["model", "engine", "convert", "train",
+                                   "bert_model", "bert_convert",
+                                   "bert_train"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -75,8 +89,14 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
                             ServeConfig(max_pages_per_seq=4))
         elif entry == "convert":
             from_jax_params({}, cfg)
-        else:
+        elif entry == "train":
             train_gpt.main(["--tiny", "--steps", "1"])
+        elif entry == "bert_model":
+            BertForPreTraining(BertConfig(**TINY_BERT))
+        elif entry == "bert_convert":
+            bert_from_jax_params({}, BertConfig(**TINY_BERT))
+        else:
+            pretrain_bert.main(["--tiny", "--steps", "1"])
 
 
 def test_cpu_runs_when_asked(no_gpu):
@@ -99,9 +119,14 @@ def test_kernel_entries_refuse_cpu_tensors():
     q = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd(q, q, q, scale=0.125, causal=True)
-    lse = torch.zeros(2, 16)
+    stats = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_bwd(q, q, q, q, lse, lse, scale=0.125, causal=True)
+        flash_bwd(q, q, q, q, stats, stats, stats, scale=0.125, causal=True)
+    bias = torch.zeros(1, 1, 16)
+    seed = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd(q, q, q, bias, scale=0.125, causal=False, dropout_p=0.1,
+                  seed=seed)
     pages = torch.zeros(4, 2, 16, 64)
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_fwd(
@@ -109,6 +134,15 @@ def test_kernel_entries_refuse_cpu_tensors():
             torch.zeros(1, 2, dtype=torch.int32),
             torch.ones(1, dtype=torch.int32), scale=0.125,
         )
+
+
+def test_trainable_bias_on_the_card_raises_naming_k5(monkeypatch):
+    # stands in for CUDA operands: the refusal comes before any launch
+    monkeypatch.setattr(_dispatch, "on_card", lambda *tensors: True)
+    q = torch.zeros(1, 2, 16, 64)
+    with pytest.raises(NotImplementedError, match="K5 flash_dbias"):
+        attention.flash_attention(q, q, q, torch.zeros(1, 1, 1, 16),
+                                  bias_grad=True)
 
 
 def test_device_rule():

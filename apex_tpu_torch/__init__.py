@@ -22,7 +22,9 @@ Subpackages
   the sharded shuffling loader.
 - :mod:`apex_tpu_torch.serve` — paged KV cache, inference engine and
   continuous-batching scheduler.
-- :mod:`apex_tpu_torch.examples` — ``train_gpt``.
+- :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``.
+- :mod:`apex_tpu_torch.contrib` — the OpenFold surface: ``mha``,
+  ``layer_norm``, ``DAPAxialBlock`` and the evoformer modules.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
@@ -31,7 +33,7 @@ for the CPU.
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
-                    "serve", "examples")
+                    "serve", "examples", "contrib")
 
 
 def __getattr__(name):

@@ -46,10 +46,10 @@
 //           masked pairs have ds = 0 (the mask is a where() on the score);
 //           their p is 0 unless the whole row is masked.  The ragged edge
 //           (rows past S_q, keys past S_k) is masked here, with nothing
-//           padded.  Heaviest causal tiles first.  Head dim 64 only, the
-//           port's models'.  One template instance per operand combination
-//           (bias, dropout: four), so a call without them runs the code it
-//           ran before they existed.  Not yet used: wgmma, TMA, cp.async pipelining
+//           padded.  Heaviest causal tiles first.  Head dims 32 and 64, as
+//           K3.  One template instance per head dim and operand combination
+//           (bias, dropout: four each), so a call without them runs the code
+//           it ran before they existed.  Not yet used: wgmma, TMA, cp.async pipelining
 //           (later work).
 
 #include <cuda_bf16.h>
@@ -487,6 +487,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+using LaunchFn = decltype(&launch<64, false, false>);
+
+template <int D>
+LaunchFn pick(bool with_bias, bool dropout) {
+  if (with_bias)
+    return dropout ? &launch<D, true, true> : &launch<D, true, false>;
+  return dropout ? &launch<D, false, true> : &launch<D, false, false>;
+}
+
 }  // namespace
 
 extern "C" const char* apex_error_string(int code) {
@@ -495,7 +504,8 @@ extern "C" const char* apex_error_string(int code) {
 
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; m, l (K3's row max and
 // row sum) and delta (bh, sq) f32; bias and seed as K3's (null when
-// absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.  d must be 64.
+// absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.  d must be 32
+// or 64.
 // The causal mask is aligned bottom-right.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* m, const void* l,
@@ -504,14 +514,11 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int d, int groups, int bias_rows, float scale,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64 || groups <= 0 ||
+  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) || groups <= 0 ||
       bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = bias != nullptr
-                       ? (seed != nullptr ? &launch<64, true, true>
-                                          : &launch<64, true, false>)
-                       : (seed != nullptr ? &launch<64, false, true>
-                                          : &launch<64, false, false>);
+  const LaunchFn run = d == 32 ? pick<32>(bias != nullptr, seed != nullptr)
+                               : pick<64>(bias != nullptr, seed != nullptr);
   return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
              bh / groups, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

@@ -26,10 +26,14 @@
 //           S_k (the ragged edge) get -inf and weigh exactly zero.  The
 //           TPU kernel's 128-lane broadcast of lse is a tiling artifact of
 //           Mosaic and is dropped: lse is written as (BH, S_q).
-//           The heaviest causal tiles are issued first.  Head dim 64
-//           only, the port's models'.  One template instance per operand
-//           combination (bias, dropout: four), so a call without them runs
-//           the code it ran before they existed.
+//           The heaviest causal tiles are issued first.  Head dims 64
+//           (GPT, BERT, the evoformer's MSA attention) and 32 (its triangle
+//           attention): nothing depends on 64 but the template argument,
+//           and a bf16 tile row of D + 8 (80 bytes at D = 32, 144 at 64)
+//           starts the eight rows of a fragment load on distinct 16-byte
+//           bank groups either way.  One template instance per head dim and
+//           operand combination (bias, dropout: four each), so a call
+//           without them runs the code it ran before they existed.
 //           Bias: read straight from global memory in the softmax pass,
 //           one f32 per score (a (1, S_k) key-padding row stays in L1/L2
 //           for the whole tile), added after the scale and floored at
@@ -283,6 +287,15 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+using LaunchFn = decltype(&launch<64, false, false>);
+
+template <int D>
+LaunchFn pick(bool with_bias, bool dropout) {
+  if (with_bias)
+    return dropout ? &launch<D, true, true> : &launch<D, true, false>;
+  return dropout ? &launch<D, false, true> : &launch<D, false, false>;
+}
+
 }  // namespace
 
 extern "C" const char* apex_error_string(int code) {
@@ -291,7 +304,7 @@ extern "C" const char* apex_error_string(int code) {
 
 // q (bh, sq, d), k and v (bh, sk, d) bf16; bias (groups, bias_rows, sk)
 // f32 or null; seed one int32 or null (no dropout); o (bh, sq, d) bf16;
-// lse, m, l (bh, sq) f32.  d must be 64, groups must divide bh and
+// lse, m, l (bh, sq) f32.  d must be 32 or 64, groups must divide bh and
 // bias_rows be 1 or sq.  The causal mask is aligned bottom-right.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* seed, void* o,
@@ -299,14 +312,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int d, int groups, int bias_rows, float scale,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64 || groups <= 0 ||
+  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) || groups <= 0 ||
       bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = bias != nullptr
-                       ? (seed != nullptr ? &launch<64, true, true>
-                                          : &launch<64, true, false>)
-                       : (seed != nullptr ? &launch<64, false, true>
-                                          : &launch<64, false, false>);
+  const LaunchFn run = d == 32 ? pick<32>(bias != nullptr, seed != nullptr)
+                               : pick<64>(bias != nullptr, seed != nullptr);
   return run(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, bh / groups,
              bias_rows, scale, causal, sk - sq, threshold, drop_scale,
              static_cast<cudaStream_t>(stream));

@@ -10,6 +10,8 @@ from apex_tpu_torch.models.bert import (  # noqa: F401
 from apex_tpu_torch.models.convert import (  # noqa: F401
     bert_from_jax_params,
     bert_to_jax_params,
+    evoformer_from_jax_params,
+    evoformer_to_jax_params,
     from_jax_params,
     to_jax_params,
 )

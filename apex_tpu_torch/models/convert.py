@@ -18,6 +18,14 @@ is the one place the layout changes.  The fused QKV output keeps its
 ``(heads, 3, head_dim)`` column order, so nothing is permuted beyond the
 transpose.  Both sides hold f32, so the weights cross exactly in both
 directions.
+
+OpenFold (``apex_tpu_torch.contrib.openfold``): the JAX module tree of
+any ported evoformer module (``Module.init`` of ``EvoformerBlock``,
+``TriangleAttention``, ``DAPAxialBlock``, ...) maps name for name onto
+the port's module: a Flax ``Dense`` ``kernel`` (in, out) and ``bias`` are
+an ``nn.Linear``'s ``weight`` (out, in) and ``bias``, and the
+module-level LayerNorm leaves ``<name>_scale``/``<name>_bias`` are
+parameters of the same names.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from apex_tpu_torch.models.gpt import GptConfig, GptModel
 __all__ = [
     "bert_from_jax_params",
     "bert_to_jax_params",
+    "evoformer_from_jax_params",
+    "evoformer_to_jax_params",
     "from_jax_params",
     "to_jax_params",
 ]
@@ -217,4 +227,68 @@ def bert_to_jax_params(model: BertForPreTraining,
         else:
             for i, row in enumerate(rows):
                 _put(encoder, (f"layer_{i}", "layer") + path, row)
+    return {"params": tree}
+
+
+# ---------------------------------------------------------------------------
+# OpenFold evoformer modules
+# ---------------------------------------------------------------------------
+
+
+def _evoformer_leaves(module: torch.nn.Module):
+    """(port name, JAX path below ``params``, is an (in, out) matrix) of
+    every parameter of ``module``."""
+    linears = {name for name, mod in module.named_modules()
+               if isinstance(mod, torch.nn.Linear)}
+    for name, _ in module.named_parameters():
+        parent, _, leaf = name.rpartition(".")
+        if parent in linears:
+            yield (name, (*parent.split("."),
+                          "kernel" if leaf == "weight" else "bias"),
+                   leaf == "weight")
+        else:
+            yield name, tuple(name.split(".")), False
+
+
+def evoformer_from_jax_params(params_np: Mapping,
+                              module: torch.nn.Module) -> torch.nn.Module:
+    """Load a JAX tree of f32 numpy arrays (``{"params": {...}}`` or the
+    inner dict) into the ported openfold ``module`` in place, exactly,
+    on the module's device; returns the module.  Every parameter of the
+    module must be in the tree and every leaf of the tree used."""
+    tree = params_np.get("params", params_np)
+    sd = {}
+    for name, path, transpose in _evoformer_leaves(module):
+        leaf = torch.from_numpy(np.array(_get(tree, path), dtype=np.float32))
+        sd[name] = leaf.T.contiguous() if transpose else leaf
+    n_leaves = sum(1 for _ in _walk_leaves(tree))
+    if n_leaves != len(sd):
+        raise ValueError(
+            f"the JAX tree has {n_leaves} leaves, the module {len(sd)} "
+            f"parameters")
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def _walk_leaves(tree):
+    for value in tree.values():
+        if isinstance(value, Mapping):
+            yield from _walk_leaves(value)
+        else:
+            yield value
+
+
+def evoformer_to_jax_params(
+        module: torch.nn.Module,
+        tensors: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """The inverse of :func:`evoformer_from_jax_params`: the JAX-shaped
+    tree ``{"params": {...}}`` of f32 numpy arrays.  ``tensors`` maps the
+    module's parameter names to the tensors to lay out (for example each
+    parameter's ``.grad``); by default the parameters themselves."""
+    if tensors is None:
+        tensors = dict(module.named_parameters())
+    tree: dict = {}
+    for name, path, transpose in _evoformer_leaves(module):
+        out = tensors[name].detach().float().cpu().numpy()
+        _put(tree, path, out.T if transpose else out)
     return {"params": tree}

@@ -32,7 +32,7 @@ __all__ = ["KERNELS", "build", "load", "check", "build_log", "source_path"]
 
 #: every kernel source of the package (``csrc/<name>.cu``)
 KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd",
-           "paged_decode")
+           "flash_dbias", "paged_decode")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

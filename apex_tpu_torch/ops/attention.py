@@ -10,12 +10,13 @@ One ``autograd.Function`` (:class:`_Flash`) carries both directions:
   f32 row logsumexp; the backward is kernel K4 (``csrc/flash_bwd.cu``,
   replacing ``flash_bwd``) — dq, dk, dv recomputed in two passes.  Both
   take bf16 q/k/v and any ``S_q``/``S_k`` (the kernels mask their own
-  ragged edge, so nothing is padded), and head dim 64, the one the
-  port's models use.  Every call on the card launches the kernels: the
-  TPU's short-sequence routing to the unfused composition was a v5e
-  measurement and is not carried over.
-- **plain path** (CPU tensors): the twins :func:`flash_fwd_reference`
-  and :func:`flash_bwd_reference`, the same arithmetic unfused in f32.
+  ragged edge, so nothing is padded), and head dims 32 (the evoformer's
+  triangle attention) and 64.  Every call on the card launches the
+  kernels: the TPU's short-sequence routing to the unfused composition
+  was a v5e measurement and is not carried over.
+- **plain path** (CPU tensors): the twins :func:`flash_fwd_reference`,
+  :func:`flash_bwd_reference` and :func:`flash_dbias_reference`, the
+  same arithmetic unfused in f32.
 
 Both directions take the TPU kernels' two optional operands:
 
@@ -25,11 +26,18 @@ Both directions take the TPU kernels' two optional operands:
   :func:`flash_attention` turns a bias broadcastable to (B, H, Sq, Sk)
   into it and clamps it at ``MASK_VALUE``; the kernels floor it at
   ``PAD_VALUE``, add it after the scale and before the causal mask.
-  It is the additive-mask form: no gradient reaches it.
-  ``bias_grad=True`` (a trainable bias) differentiates
-  :func:`mha_reference` on the CPU, as the JAX package's jnp path does;
-  on the card it needs K5 (``flash_dbias``), which is not ported, and
-  raises.
+  By default it is the additive-mask form and gets no gradient.
+  ``bias_grad=True`` makes it trainable: the backward also returns
+  dbias through kernel K5 (``csrc/flash_dbias.cu``, replacing the
+  Pallas ``flash_dbias``) on the card and its twin
+  :func:`flash_dbias_reference` on the CPU, in the (G, RS, Sk) layout
+  (each group's members summed, and every query row when RS = 1);
+  autograd of the clamp and the broadcast in :func:`_format_bias`
+  carries it back to the caller's shape, as ``jnp.maximum`` and
+  ``broadcast_to`` do in JAX.  A head-dependent bias is materialised at
+  G = BH, as the JAX package does, so the sum over the batch of an
+  evoformer's (1, H, N, N) pair bias is that broadcast's backward, not
+  the kernel's.
 - **dropout** on the attention probabilities with the keep mask of the
   TPU kernels' ``_dropout_keep_block``, reproduced bit for bit
   (:func:`dropout_keep_mask`): a keyed two-round murmur3-fmix hash of
@@ -43,19 +51,20 @@ Both directions take the TPU kernels' two optional operands:
   p/(1-p_drop) : 0``.
 
 The forward also keeps each row's f32 max ``m`` and sum ``l`` of
-``exp(s - m)``, and the backward recomputes ``p = exp(s - m) / l``.  The
-TPU's recompute ``p = exp(s - lse)`` (``_recompute_p``) is wrong for a
-row whose every key is masked: its lse, ``MASK_VALUE + log(Sk)``,
-rounds back to ``MASK_VALUE`` in f32, so p comes out 1 instead of
-``1/Sk``; the Pallas backward patches only the causal case, and a
-bias-masked row (a BERT sequence with no real token) gets gradients off
-by orders of magnitude.  With ``m`` and ``l`` both cases are exact and
+``exp(s - m)``, and the backward (K4 and K5) recomputes ``p = exp(s -
+m) / l``.  The TPU's recompute ``p = exp(s - lse)`` (``_recompute_p``)
+is wrong for a row whose every key is masked: its lse, ``MASK_VALUE +
+log(Sk)``, rounds back to ``MASK_VALUE`` in f32, so p comes out 1
+instead of ``1/Sk``; the Pallas backward patches only the causal case,
+and a bias-masked row (a BERT sequence with no real token) gets
+gradients, and a trainable bias its dbias, off by orders of
+magnitude.  With ``m`` and ``l`` both cases are exact and
 need no closed form; such a row averages V uniformly (finite
 ``MASK_VALUE``), and under a bias its score gradient is not zero, as
 autodiff of :func:`mha_reference` gives.
 
 ``delta = rowsum(dO * O) - dlse`` (with the dropped O) is computed in
-PyTorch before either backward, as the JAX package does in jnp outside
+PyTorch before K4 and K5, as the JAX package does in jnp outside
 Pallas; it folds the gradient of :func:`flash_attention_with_lse`'s
 ``lse`` output.
 """
@@ -79,6 +88,8 @@ __all__ = [
     "flash_attention_with_lse",
     "flash_bwd",
     "flash_bwd_reference",
+    "flash_dbias",
+    "flash_dbias_reference",
     "flash_fwd",
     "flash_fwd_reference",
     "mha_reference",
@@ -93,7 +104,8 @@ PAD_VALUE = -1.5e9
 
 KERNEL = "flash_fwd"
 KERNEL_BWD = "flash_bwd"
-_HEAD_DIMS = (64,)
+KERNEL_DBIAS = "flash_dbias"
+_HEAD_DIMS = (32, 64)
 
 # ---------------------------------------------------------------------------
 # the dropout keep mask (``_dropout_keep_block``)
@@ -257,35 +269,60 @@ def flash_fwd_reference(q, k, v, bias=None, *, scale: float, causal: bool,
                            dropout_p)
 
 
+def _recompute_ds(q, k, v, do, m, l, delta, bias, scale, causal, dropout_p,
+                  seed):
+    """K4's and K5's shared recompute in f32: ``(pv, ds)`` with ``p =
+    exp(s - m) / l``, ``pv = D*p`` and ``ds = p * (D*dp - delta)``, D =
+    keep/(1-p_drop) (1 without dropout).  A causally masked pair has ds
+    = 0 (the mask is a ``where`` on the score); its p is 0 unless its
+    whole row is masked, where it is 1/Sk and still feeds dv."""
+    sq, sk = q.shape[-2], k.shape[-2]
+    s = _flat_scores(q, k, bias, causal, scale)
+    p = torch.exp(s - m.float()[..., None]) / l.float()[..., None]
+    dp = torch.einsum("...qd,...kd->...qk", do.float(), v.float())
+    pv = p
+    if dropout_p > 0.0:
+        keep = dropout_keep_mask(seed, p.shape, dropout_p)
+        d = torch.where(keep, 1.0 / (1.0 - dropout_p), 0.0)
+        pv, dp = p * d, dp * d
+    ds = p * (dp - delta.float()[..., None])
+    if causal:
+        ds = ds.masked_fill(~_causal_mask(sq, sk, s.device), 0.0)
+    return pv, ds
+
+
 def flash_bwd_reference(q, k, v, do, m, l, delta, bias=None, *, scale: float,
                         causal: bool, dropout_p: float = 0.0,
                         seed: Optional[torch.Tensor] = None):
     """The plain version of K4: ``(dq, dk, dv)`` in q's dtype, from the
     forward's f32 row max ``m`` and row sum ``l`` (..., Sq) and ``delta =
     rowsum(dO * O) - dlse`` (..., Sq), in K3's layout (bias (G, RS, Sk)).
-
-    ``p = exp(s - m) / l`` is recomputed in f32.  With dropout D =
-    keep/(1-p_drop): dv = (D*p)^T dO and ds = p * (D*dp - delta).  A
-    causally masked pair has ds = 0 (the mask is a ``where`` on the
-    score); its p is 0 unless its whole row is masked, where it is 1/Sk
-    and still feeds dv."""
-    sq, sk = q.shape[-2], k.shape[-2]
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = _flat_scores(q, k, bias, causal, scale)
-    p = torch.exp(s - m.float()[..., None]) / l.float()[..., None]
-    dp = torch.einsum("...qd,...kd->...qk", dof, vf)
-    pv = p
-    if dropout_p > 0.0:
-        keep = dropout_keep_mask(seed, p.shape, dropout_p)
-        d = torch.where(keep, 1.0 / (1.0 - dropout_p), 0.0)
-        pv, dp = p * d, dp * d
-    dv = torch.einsum("...qk,...qd->...kd", pv, dof)
-    ds = p * (dp - delta.float()[..., None])
-    if causal:
-        ds = ds.masked_fill(~_causal_mask(sq, sk, s.device), 0.0)
-    dq = torch.einsum("...qk,...kd->...qd", ds, kf) * scale
-    dk = torch.einsum("...qk,...qd->...kd", ds, qf) * scale
+    dv = (D*p)^T dO, dq = ds K * scale, dk = ds^T Q * scale
+    (:func:`_recompute_ds`)."""
+    pv, ds = _recompute_ds(q, k, v, do, m, l, delta, bias, scale, causal,
+                           dropout_p, seed)
+    dv = torch.einsum("...qk,...qd->...kd", pv, do.float())
+    dq = torch.einsum("...qk,...kd->...qd", ds, k.float()) * scale
+    dk = torch.einsum("...qk,...qd->...kd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_dbias_reference(q, k, v, do, m, l, delta, bias, *, scale: float,
+                          causal: bool, dropout_p: float = 0.0,
+                          seed: Optional[torch.Tensor] = None):
+    """The plain version of K5: the f32 gradient of the (G, RS, Sk) bias,
+    in its layout, with K4's operands.  ``ds`` (:func:`_recompute_ds`) is
+    summed over each group's BH/G members and, when RS = 1, over every
+    query row: ``dbias[g, r, c] = sum over bh in g (and rows) of ds[bh,
+    r, c]``."""
+    _, ds = _recompute_ds(q, k, v, do, m, l, delta, bias, scale, causal,
+                          dropout_p, seed)
+    bh, sq, sk = ds.shape
+    g, rs, _ = bias.shape
+    dbias = ds.reshape(g, bh // g, sq, sk).sum(dim=1)
+    if rs == 1:
+        dbias = dbias.sum(dim=1, keepdim=True)
+    return dbias
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +336,8 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _FWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _U, _F, _P]
 # q, k, v, dO, m, l, delta, bias, seed, dq, dk, dv; then as K3
 _BWD_ARGS = [_P] * 12 + [_I] * 6 + [_F, _I, _U, _F, _P]
+# q, k, v, dO, m, l, delta, bias, seed, dbias; then as K3
+_DBIAS_ARGS = [_P] * 10 + [_I] * 6 + [_F, _I, _U, _F, _P]
 
 
 def _check_qkv(name, q, k, v, *more):
@@ -384,6 +423,15 @@ def flash_fwd(q, k, v, bias=None, *, scale: float, causal: bool,
     return o, lse, m, l
 
 
+def _check_bwd_operands(name, q, do, m, l, delta):
+    if do.shape != q.shape or do.dtype != torch.bfloat16:
+        raise ValueError(f"do must be bf16 of shape {tuple(q.shape)}")
+    if any(t.shape != q.shape[:2] or t.dtype != torch.float32
+           for t in (m, l, delta)):
+        raise ValueError(
+            f"m, l and delta must be f32 of shape {tuple(q.shape[:2])}")
+
+
 def flash_bwd(q, k, v, do, m, l, delta, bias=None, *, scale: float,
               causal: bool, dropout_p: float = 0.0,
               seed: Optional[torch.Tensor] = None
@@ -393,12 +441,7 @@ def flash_bwd(q, k, v, do, m, l, delta, bias=None, *, scale: float,
     dq, dk, dv in bf16 (the dK/dV pass, then the dQ pass)."""
     more = [t for t in (bias, seed) if t is not None]
     _check_qkv("flash_bwd", q, k, v, do, m, l, delta, *more)
-    if do.shape != q.shape or do.dtype != torch.bfloat16:
-        raise ValueError(f"do must be bf16 of shape {tuple(q.shape)}")
-    if any(t.shape != q.shape[:2] or t.dtype != torch.float32
-           for t in (m, l, delta)):
-        raise ValueError(
-            f"m, l and delta must be f32 of shape {tuple(q.shape[:2])}")
+    _check_bwd_operands("flash_bwd", q, do, m, l, delta)
     _check_vectors("flash_bwd", q, k, v, do, m, l, delta)
     bias_ptr, seed_ptr, groups, rows, threshold, drop_scale = _operand_args(
         "flash_bwd", q, k, bias, dropout_p, seed)
@@ -417,6 +460,35 @@ def flash_bwd(q, k, v, do, m, l, delta, bias=None, *, scale: float,
     return dq, dk, dv
 
 
+def flash_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
+                causal: bool, dropout_p: float = 0.0,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K5 on CUDA tensors: the f32 gradient of the (G, RS, Sk)
+    ``bias``, in its layout, from K4's operands (q, do (BH, Sq, D) and k,
+    v (BH, Sk, D) bf16; m, l, delta (BH, Sq) f32; the int32 seed with
+    ``dropout_p``).  Each group's members, and every query row when RS =
+    1, are summed inside the kernel in a fixed order: the gradient is the
+    same from run to run."""
+    if bias is None:
+        raise ValueError("flash_dbias needs the bias it differentiates")
+    more = [bias] + ([] if seed is None else [seed])
+    _check_qkv("flash_dbias", q, k, v, do, m, l, delta, *more)
+    _check_bwd_operands("flash_dbias", q, do, m, l, delta)
+    _check_vectors("flash_dbias", q, k, v, do, m, l, delta)
+    bias_ptr, seed_ptr, groups, rows, threshold, drop_scale = _operand_args(
+        "flash_dbias", q, k, bias, dropout_p, seed)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dbias = torch.empty_like(bias)
+    _dispatch.launch(
+        KERNEL_DBIAS, _DBIAS_ARGS, q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+        delta.data_ptr(), bias_ptr, seed_ptr, dbias.data_ptr(), bh, sq, sk,
+        d, groups, rows, float(scale), int(causal), threshold, drop_scale,
+    )
+    return dbias
+
+
 # ---------------------------------------------------------------------------
 # autograd and the public API
 # ---------------------------------------------------------------------------
@@ -428,9 +500,10 @@ def _flat(x):
 
 
 class _Flash(torch.autograd.Function):
-    """Attention over (B, H, S, D) returning ``(o, lse)``: K3 and K4 on
-    the card, the plain twins on the CPU.  ``bias`` is (G, RS, Sk) and
-    gets no gradient; ``seed`` is the int32 dropout seed or None."""
+    """Attention over (B, H, S, D) returning ``(o, lse)``: K3, K4 and K5
+    on the card, the plain twins on the CPU.  ``bias`` is (G, RS, Sk);
+    it gets a gradient (K5) only when it requires one, so a mask-only
+    bias launches no K5.  ``seed`` is the int32 dropout seed or None."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, causal, dropout_p):
@@ -456,19 +529,28 @@ class _Flash(torch.autograd.Function):
         delta = (do.float() * o.float()).sum(dim=-1)
         if dlse is not None:
             delta = delta - dlse.reshape(b * h, sq).float()
-        bwd = flash_bwd if _dispatch.on_card(q, k, v, do) else flash_bwd_reference
-        dq, dk, dv = bwd(_flat(q), _flat(k), _flat(v), do, m, l, delta, bias,
-                         scale=ctx.scale, causal=ctx.causal,
-                         dropout_p=ctx.dropout_p, seed=seed)
+        on_card = _dispatch.on_card(q, k, v, do)
+        args = (_flat(q), _flat(k), _flat(v), do, m, l, delta, bias)
+        kw = dict(scale=ctx.scale, causal=ctx.causal,
+                  dropout_p=ctx.dropout_p, seed=seed)
+        bwd = flash_bwd if on_card else flash_bwd_reference
+        dq, dk, dv = bwd(*args, **kw)
+        dbias = None
+        if ctx.needs_input_grad[3]:
+            dbias_fn = flash_dbias if on_card else flash_dbias_reference
+            dbias = dbias_fn(*args, **kw)
         return (dq.reshape(b, h, sq, d), dk.reshape(b, h, sk, d),
-                dv.reshape(b, h, sk, d), None, None, None, None, None)
+                dv.reshape(b, h, sk, d), dbias, None, None, None, None)
 
 
 def _format_bias(bias, b, h, sq, sk):
     """(B?, H?, Sq?, Sk?) bias -> the kernels' (G, RS, Sk) layout, f32,
     clamped at MASK_VALUE (``_format_bias`` without the TPU's padding): a
     head-independent bias keeps G in {1, B} and a query-independent one
-    RS = 1, so a (B, 1, 1, Sk) padding mask never becomes a matrix."""
+    RS = 1, so a (B, 1, 1, Sk) padding mask never becomes a matrix; a
+    head-dependent one is expanded to G = BH.  Differentiable: the
+    backward of the clamp, expand and reshape takes a (G, RS, Sk) dbias
+    back to the caller's shape."""
     if bias.dim() > 4:
         raise ValueError(f"bias of rank {bias.dim()} > 4")
     bias = bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape))
@@ -500,25 +582,16 @@ def _dropout_seed(dropout_p, generator, dropout_seed, device):
 def _attend(op, q, k, v, bias, *, causal, scale, dropout_p, generator,
             dropout_seed, bias_grad=False):
     """The public functions' common part: the default scale, the seed,
-    the bias's layout, then the plain differentiable composition (a
-    trainable bias, CPU only) or :class:`_Flash`."""
+    the bias's layout (detached unless ``bias_grad``), then
+    :class:`_Flash`."""
     b, h, sq, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
     seed = _dropout_seed(dropout_p, generator, dropout_seed, q.device)
     on_card = _dispatch.on_card(q, k, v, *([] if bias is None else [bias]))
     _dispatch.record_path(op, "cuda" if on_card else "torch")
-    if bias is not None and bias_grad:
-        if on_card:
-            raise NotImplementedError(
-                "a trainable attention bias (bias_grad=True) needs K5 "
-                "flash_dbias, which is not ported yet (ROADMAP B)"
-            )
-        o = mha_reference(q, k, v, torch.clamp(bias, min=MASK_VALUE),
-                          causal=causal, scale=scale, dropout_p=dropout_p,
-                          dropout_seed=seed)
-        return o, None
     if bias is not None:
-        bias = _format_bias(bias.detach(), b, h, sq, k.shape[-2])
+        bias = _format_bias(bias if bias_grad else bias.detach(), b, h, sq,
+                            k.shape[-2])
     return _Flash.apply(q, k, v, bias, seed, scale, bool(causal),
                         float(dropout_p))
 
@@ -532,9 +605,9 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False,
     -> (B,H,Sq,D) in the input dtype, differentiable in q, k and v.
 
     ``bias`` (rank <= 4, broadcastable to (B,H,Sq,Sk)) is clamped at
-    MASK_VALUE and gets no gradient, unless ``bias_grad=True``: then the
-    CPU differentiates :func:`mha_reference` and the card raises (K5,
-    ``flash_dbias``, is not ported).  ``dropout_p`` > 0 drops attention
+    MASK_VALUE and gets no gradient, unless ``bias_grad=True``: then its
+    gradient comes from K5 (``flash_dbias``) on the card and from
+    :func:`flash_dbias_reference` on the CPU.  ``dropout_p`` > 0 drops attention
     probabilities with the kernels' keep mask, seeded by ``dropout_seed``
     (an int32 tensor) or else by a seed drawn from ``generator``."""
     return _attend("flash_attention", q, k, v, bias, causal=causal,

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-nine phases; any failure raises and the exit code is non-zero.  Without
+eleven phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -20,7 +20,11 @@ a CUDA device it exits non-zero at once and prints no result.
    operands: BERT's shape with its key-padding bias over ragged lengths
    and a fully masked row, with and without dropout 0.1, and every
    other bias layout at smaller shapes; and the dropout keep masks of K3
-   and of both K4 passes read back bit for bit against the twin's.
+   and of both K4 passes read back bit for bit against the twin's.  K5
+   (the bias gradient) at the evoformer's two biased shapes and in every
+   (G, RS) layout, causal and not, Sq != Sk both ways, ragged, with
+   dropout, D = 32 and 64; K3 and K4 at D = 32, the triangle shape
+   with its G = BH bias included.
 2. The serving slice: ``GptConfig()`` at full width (bf16, seeded random
    weights) behind ``InferenceEngine`` + ``ContinuousBatchingScheduler``
    answers 8 greedy requests (prompts of 17..1900 tokens, 32 new tokens
@@ -32,7 +36,8 @@ a CUDA device it exits non-zero at once and prints no result.
 3. Serving cross-check: at full width with 2 layers, one 256-token
    prefill and 4 decode steps through the card engine (bf16) against the
    CPU engine (f32, the same weights), fed the same tokens.
-4. Timing at the main-path shapes (training, BERT and serving): each kernel,
+4. Timing at the main-path shapes (training, BERT, evoformer and
+   serving): each kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
@@ -62,8 +67,17 @@ a CUDA device it exits non-zero at once and prints no result.
    lengths 128/100/37/0, attention dropout 0.1 with the same seeds on
    both sides — the loss, every gradient and the weights after one
    FusedLAMB step, card (bf16) against CPU (f32).
+10. Evoformer training: 4 ``EvoformerBlock``s at AlphaFold2's widths
+    (OpenFold's c_m 256, c_z 128, 4 heads) on N_seq 128 x N_res 256,
+    MSE to seeded targets, FusedAdam, 8 steps; exact K1-K5 counts,
+    losses finite and falling; step time, analytic MFU, peak memory and
+    one profiled step by layer.
+11. Evoformer cross-check: one full-width block at N_res 64, N_seq 32 —
+    the loss, every gradient and the weights after one FusedAdam step,
+    card (bf16 attention) against CPU (f32), and a planted fault (K5's
+    twin halved) that must fail the same limits.
 
-The phases run in the order 1, 2, 3, 6, 7, 8, 9, 4, 5.
+The phases run in the order 1, 2, 3, 6, 7, 8, 9, 10, 11, 4, 5.
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -93,7 +107,7 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 K6_TOL = dict(atol=4e-3, rtol=8e-3)
 #: f32 statistics (LayerNorm mean/rstd, attention lse): summation order
 F32_TOL = dict(atol=1e-3, rtol=1e-4)
-#: K2's dw/db: f32 sums over up to 16384 rows (|sum| up to ~500) taken
+#: K2's dw/db: f32 sums over up to 65536 rows (|sum| up to ~1000) taken
 #: in another order (per-CTA partials, then torch.sum)
 SUM_TOL = dict(atol=1e-2, rtol=1e-3)
 #: K4's dq, dk, dv, scaled to the reference, row by row: at S = 2048 an
@@ -124,6 +138,7 @@ REPLACES = {
     "layer_norm_bwd": "apex_tpu/ops/pallas/layer_norm.py:258",
     "flash_fwd": "apex_tpu/ops/pallas/flash_attention.py:615",
     "flash_bwd": "apex_tpu/ops/pallas/flash_attention.py:873",
+    "flash_dbias": "apex_tpu/ops/pallas/flash_attention.py:1108",
     "paged_decode": "apex_tpu/ops/pallas/decode_attention.py:263",
 }
 
@@ -264,15 +279,24 @@ def phase1(gen):
     log("phase 1: kernels against their plain versions")
     errs = {}
     # the training shape first (its error goes into the kernels line),
-    # then the prefill shape, the decode batch, RMS and a ragged row
-    for rows, hidden, rms in ((TRAIN_BATCH * TRAIN_SEQ, 1024, False),
-                              (2048, 1024, False), (8, 1024, False),
-                              (2048, 1024, True), (37, 1000, False)):
+    # then the prefill shape, the decode batch, RMS, a ragged row, and the
+    # evoformer's f32 rows (MSA 128 x 256 rows of 256, pair 256 x 256
+    # rows of 128, eps 1e-6)
+    for rows, hidden, rms, dt, eps in (
+            (TRAIN_BATCH * TRAIN_SEQ, 1024, False, "bf16", 1e-5),
+            (2048, 1024, False, "bf16", 1e-5), (8, 1024, False, "bf16", 1e-5),
+            (2048, 1024, True, "bf16", 1e-5), (37, 1000, False, "bf16", 1e-5),
+            (EVO_SEQ * EVO_RES, 256, False, "f32", 1e-6),
+            (EVO_RES * EVO_RES, 128, False, "f32", 1e-6)):
         x, w, b = ln_inputs(rows, hidden, gen)
-        y, mu, rstd = ln.layer_norm_fwd(x, w, b, eps=1e-5, rms=rms)
-        y_r, mu_r, rstd_r = ln.layer_norm_reference(x, w, b, 1e-5, rms)
-        tag = f"K1 layer_norm_fwd rows={rows} hidden={hidden} rms={rms}"
-        e = compare(tag + " y", y, y_r, BF16_TOL)
+        if dt == "f32":
+            x = x.float()
+        y, mu, rstd = ln.layer_norm_fwd(x, w, b, eps=eps, rms=rms)
+        y_r, mu_r, rstd_r = ln.layer_norm_reference(x, w, b, eps, rms)
+        tag = (f"K1 layer_norm_fwd rows={rows} hidden={hidden} {dt} "
+               f"rms={rms}")
+        e = compare(tag + " y", y, y_r,
+                    BF16_TOL if dt == "bf16" else F32_TOL)
         compare(tag + " mu", mu, mu_r, F32_TOL)
         compare(tag + " rstd", rstd, rstd_r, F32_TOL)
         errs.setdefault("layer_norm_fwd", e)
@@ -325,8 +349,9 @@ def phase1(gen):
 
 #: (rows, hidden, dtype, rms, memory_efficient): the training shape, the
 #: other modes, ragged rows, f32, one hidden size for each of K2's
-#: register variants (a thread holds 1, 2, 4, 8 or 16 columns) and a row
-#: wider than that (the streamed variant)
+#: register variants (a thread holds 1, 2, 4, 8 or 16 columns), a row
+#: wider than that (the streamed variant), and the evoformer's f32 rows
+#: (MSA 128 x 256 rows of 256, pair 256 x 256 rows of 128)
 LN_BWD_CASES = (
     (16384, 1024, "bf16", False, False),
     (16384, 1024, "bf16", False, True),
@@ -338,6 +363,8 @@ LN_BWD_CASES = (
     (64, 2000, "bf16", False, False),
     (64, 4096, "f32", False, True),
     (64, 5000, "f32", False, False),
+    (128 * 256, 256, "f32", False, False),
+    (256 * 256, 128, "f32", False, False),
 )
 
 
@@ -569,6 +596,139 @@ def phase1_flash_operands(gen):
                  attn.flash_bwd_reference(*args, **kw))
         del ref, o, args
         torch.cuda.empty_cache()
+
+
+#: K5's dbias against its twin, element by element: both recompute p and
+#: ds in f32 from the same bf16 inputs (the kernel's products on the
+#: tensor cores with f32 sums, ``__expf``), so they differ by the f32
+#: rounding of the sums and of exp; an element may be off by ``rtol`` of
+#: itself plus ``floor`` times the RMS of the whole tensor (an element of
+#: dbias is a difference p·(dp - delta) that cancels to near 0), and the
+#: relative Frobenius error must stay under ``norm``.  Phase 1 shows that
+#: an output with one 64-key tile's dbias halved for the later half of
+#: the rows fails the same check.
+K5_TOL = dict(rtol=2 ** -10, floor=2 ** -10, norm=1e-3)
+
+
+def k5_check(out, ref):
+    """(ok, max |out - ref|, relative Frobenius error, worst ratio of an
+    element's error to its allowance) under ``K5_TOL``."""
+    import torch
+
+    err = (out - ref).abs()
+    allowed = K5_TOL["rtol"] * ref.abs() + K5_TOL["floor"] * ref.pow(2).mean().sqrt()
+    rel = float(err.norm() / ref.norm().clamp_min(1e-30))
+    ratio = float((err / allowed.clamp_min(1e-30)).max())
+    ok = (bool(torch.isfinite(out).all()) and bool((err <= allowed).all())
+          and rel <= K5_TOL["norm"])
+    return ok, float(err.max()), rel, ratio
+
+
+def check_k5(tag, out, ref):
+    ok, max_abs, rel, ratio = k5_check(out, ref)
+    log(f"  {tag} dbias: max_abs_err={max_abs:.3e} rel_fro_err={rel:.3e} "
+        f"worst err/allowance={ratio:.3e} tol={K5_TOL} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} dbias disagrees with its twin")
+    return max_abs
+
+
+#: the evoformer's attention calls at AlphaFold2's initial-training crop
+#: (N_res 256, N_seq 128, 4 heads): (BH, S, D, bias) per call
+EVO_RES, EVO_SEQ, EVO_HEADS = 256, 128, 4
+TRIANGLE_SHAPE = (EVO_RES * EVO_HEADS, EVO_RES, 32)   # start and end node
+MSA_ROW_SHAPE = (EVO_SEQ * EVO_HEADS, EVO_RES, 64)    # with the pair bias
+MSA_COL_SHAPE = (EVO_RES * EVO_HEADS, EVO_SEQ, 64)    # no bias
+
+
+def phase1_flash_dbias(gen):
+    """K5 against its twin (``K5_TOL``), and K3/K4 at head dim 32 against
+    theirs (BF16_TOL, F32_TOL, K4_TOL), on the same inputs and seed, with
+    m, l from the f32 reference forward: the evoformer's three shapes
+    first (triangle attention, D = 32, and MSA row attention, D = 64,
+    each with its (BH, S, S) bias at G = BH, and K3/K4 at MSA column
+    attention's, D = 64, no bias; all non-causal), then every (G, RS)
+    layout at smaller ragged shapes, causal and not, Sq != Sk both ways,
+    with and without dropout 0.1, D = 32 and 64.  At the triangle shape
+    an output with one tile halved must fail K5_TOL.  Returns max |dbias
+    - ref| at the triangle shape and K3's and K4's errors there."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    log("phase 1: K5 flash_dbias, and K3/K4 at head dim 32, against their "
+        "twins")
+
+    def rand_bias(g, rs, sk):
+        return torch.randn(g, rs, sk, generator=gen, device="cuda")
+
+    tri_bh, tri_s, _ = TRIANGLE_SHAPE
+    row_bh, row_s, _ = MSA_ROW_SHAPE
+    col_bh, col_s, _ = MSA_COL_SHAPE
+    # (tag, BH, Sq, Sk, D, causal, bias (G, RS) or None (no bias, no K5),
+    # dropout_p, with K3/K4)
+    cases = [
+        ("triangle G=BH RS=Sq", tri_bh, tri_s, tri_s, 32, False,
+         (tri_bh, tri_s), 0.0, True),
+        ("MSA row G=BH RS=Sq", row_bh, row_s, row_s, 64, False,
+         (row_bh, row_s), 0.0, True),
+        ("MSA column no bias", col_bh, col_s, col_s, 64, False, None, 0.0,
+         True),
+        ("G=1 RS=Sq", 8, 200, 200, 32, True, (1, 200), 0.0, True),
+        ("G=B RS=Sq + dropout 0.1", 8, 136, 200, 64, True, (2, 136), 0.1,
+         False),
+        ("G=BH RS=1 + dropout 0.1", 8, 200, 136, 32, False, (8, 1), 0.1,
+         True),
+        ("G=B RS=1", 8, 200, 200, 64, True, (2, 1), 0.0, False),
+        ("G=1 RS=1 + dropout 0.1", 8, 72, 200, 32, True, (1, 1), 0.1, True),
+        ("G=BH RS=Sq", 8, 200, 72, 64, True, (8, 200), 0.0, False),
+        ("G=BH RS=Sq + dropout 0.1", 8, 256, 256, 32, False, (8, 256), 0.1,
+         True),
+    ]
+    main = {}
+    for tag, bh, sq, sk, d, causal, layout, p, with_k34 in cases:
+        q, k, v = attn_inputs(bh, sq, sk, d, gen)
+        bias = None if layout is None else rand_bias(*layout, sk)
+        seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        kw = dict(scale=d ** -0.5, causal=causal, dropout_p=p, seed=seed)
+        tag = f"{tag} BH={bh} Sq={sq} Sk={sk} D={d} causal={causal}"
+        ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
+        if with_k34:
+            e3 = check_k3("K3 " + tag, attn.flash_fwd(q, k, v, bias, **kw),
+                          ref)
+        do = torch.randn(bh, sq, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        o, _, m, l = ref
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, m, l, delta, bias)
+        del ref, o
+        if with_k34:
+            e4 = check_k4("K4 " + tag, attn.flash_bwd(*args, **kw),
+                          attn.flash_bwd_reference(*args, **kw))
+        if bias is None:
+            del args, q, k, v, do, m, l, delta
+            torch.cuda.empty_cache()
+            continue
+        ref = attn.flash_dbias_reference(*args, **kw)
+        e5 = check_k5("K5 " + tag, attn.flash_dbias(*args, **kw), ref)
+        if not main:
+            main = {"flash_dbias": e5, "flash_fwd_d32": e3,
+                    "flash_bwd_d32": max(e4)}
+            bad = ref.clone()
+            bad[:, sq // 2:, 64:128] *= 0.5
+            ok, max_abs, rel, ratio = k5_check(bad, ref)
+            log(f"  K5 {tag} with one 64-key tile halved for the later half "
+                f"of the rows: max_abs_err={max_abs:.3e} rel_fro_err="
+                f"{rel:.3e} worst err/allowance={ratio:.3e} "
+                f"{'passes: FAIL' if ok else 'fails: ok'}")
+            if ok:
+                raise AssertionError("K5_TOL cannot tell a halved tile")
+            del bad
+        del ref, args, q, k, v, do, m, l, delta, bias
+        torch.cuda.empty_cache()
+    return main
 
 
 def phase1_dropout_mask(gen):
@@ -1008,16 +1168,116 @@ def _time_attn_bert(gen, flush, dropout_p):
     return fwd, bwd
 
 
+def _time_evo_attention(gen, flush, bh, s, d, *, with_k34):
+    """K5 (and K3, K4) at an evoformer shape: q/k/v (bh, s, d) bf16,
+    non-causal, a (bh, s, s) f32 bias at G = BH, beside the plain
+    versions and SDPA with the same bias as a bf16 ``attn_mask`` of (B,
+    H, S, S), H = 4.  K5's library call is SDPA's backward with the mask
+    requiring grad, which returns dq, dk, dv and the mask's gradient: it
+    stands beside K4 + K5 (``k4_plus_k5_ms``), not K5 alone.  Bounds:
+    q, k, v (dO) read, o (dq, dk, dv) written, the f32 row statistics,
+    the bias read and (K5) dbias written, against 2 products of 2·D
+    flops per pair forward, 5 backward, 2 for K5's recompute."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention as attn
+
+    b = bh // EVO_HEADS
+    scale = d ** -0.5
+    q, k, v = attn_inputs(bh, s, s, d, gen)
+    bias = torch.randn(bh, s, s, generator=gen, device="cuda")
+    kw = dict(scale=scale, causal=False)
+    pairs = bh * s * s
+    elems = bh * s * d
+    stats = 3 * bh * s * 4
+    bias_bytes = bias.numel() * 4
+    q4, k4, v4 = (t.reshape(b, EVO_HEADS, s, d) for t in (q, k, v))
+    mask4 = bias.reshape(b, EVO_HEADS, s, s).to(torch.bfloat16)
+
+    def library(fn):
+        """A library timing, or None (logged) where SDPA refuses."""
+        try:
+            return time_ms(fn, flush=flush)
+        except RuntimeError as exc:
+            log(f"  SDPA refused: {str(exc).splitlines()[0][:200]}")
+            return None
+
+    rows = {}
+    o, _, m, l = attn.flash_fwd(q, k, v, bias, **kw)
+    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, m, l, delta, bias)
+    if with_k34:
+        rows["flash_fwd"] = dict(
+            ms=time_ms(lambda: attn.flash_fwd(q, k, v, bias, **kw),
+                       flush=flush),
+            plain_ms=time_ms(lambda: attn.flash_fwd_reference(q, k, v, bias,
+                                                              **kw),
+                             flush=flush),
+            library_ms=library(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask4, scale=scale)),
+        )
+        rows["flash_fwd"]["bound_ms"], rows["flash_fwd"]["bound_by"] = bound(
+            4 * elems * 2 + stats + bias_bytes, 4 * d * pairs,
+            BF16_TENSOR_FLOPS)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask4,
+                                               scale=scale)
+        rows["flash_bwd"] = dict(
+            ms=time_ms(lambda: attn.flash_bwd(*args, **kw), flush=flush),
+            plain_ms=time_ms(lambda: attn.flash_bwd_reference(*args, **kw),
+                             flush=flush),
+            library_ms=library(lambda: torch.autograd.grad(
+                o_lib, (qr, kr, vr), do.reshape(q4.shape),
+                retain_graph=True)),
+        )
+        rows["flash_bwd"]["bound_ms"], rows["flash_bwd"]["bound_by"] = bound(
+            7 * elems * 2 + stats + bias_bytes, 10 * d * pairs,
+            BF16_TENSOR_FLOPS)
+        del o_lib
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    mr = mask4.detach().clone().requires_grad_()
+    lib_k45 = None
+    try:
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mr,
+                                               scale=scale)
+        lib_k45 = library(lambda: torch.autograd.grad(
+            o_lib, (qr, kr, vr, mr), do.reshape(q4.shape), retain_graph=True))
+        del o_lib
+    except RuntimeError as exc:
+        log(f"  SDPA refused a mask that requires grad: "
+            f"{str(exc).splitlines()[0][:200]}")
+    k5_ms = time_ms(lambda: attn.flash_dbias(*args, **kw), flush=flush)
+    k4_ms = (rows["flash_bwd"]["ms"] if with_k34
+             else time_ms(lambda: attn.flash_bwd(*args, **kw), flush=flush))
+    rows["flash_dbias"] = dict(
+        ms=k5_ms,
+        plain_ms=time_ms(lambda: attn.flash_dbias_reference(*args, **kw),
+                         flush=flush),
+        library_ms=lib_k45,
+        k4_ms=k4_ms,
+        k4_plus_k5_ms=k4_ms + k5_ms,
+    )
+    rows["flash_dbias"]["bound_ms"], rows["flash_dbias"]["bound_by"] = bound(
+        4 * elems * 2 + stats + 2 * bias_bytes, 4 * d * pairs,
+        BF16_TENSOR_FLOPS)
+    return rows
+
+
 def phase4(gen, launches, errs):
     """Each kernel at its main-path shapes: the GPT training shapes of
     phase 6 (K1, K2 at x (16384, 1024), which is also BERT's B·S x
     hidden; K3, K4 at BH=128, S=2048), BERT's attention of phase 8 (K3,
     K4 at BH=2048, S=128 with the padding bias, without and with dropout
     0.1) and the serving shapes of phase 2 (K1 at (2048, 1024), K3 at
-    BH=16, S=2048, K6 at the decode batch).  ``launches`` maps kernel ->
-    {path: count} from the phase-2, -6 and -8 runs."""
+    BH=16, S=2048, K6 at the decode batch), and the evoformer's attention
+    of phase 10 (K3, K4 and K5 at the triangle shape, K5 at the MSA row
+    shape).  ``launches`` maps kernel -> {path: count} from the phase-2,
+    -6, -8 and -10 runs."""
     import torch
 
+    from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import paged_attention as pa
 
@@ -1036,14 +1296,32 @@ def phase4(gen, launches, errs):
     rows["flash_bwd"] = dict(at_bwd, shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
 
-    bert = {}
+    extra = {}  # kernel -> {tag: row} of the shapes beside its main one
     for p, tag in ((0.0, "bert_shape"), (0.1, "bert_dropout_shape")):
         b_fwd, b_bwd = _time_attn_bert(gen, flush, p)
         shape = (f"BH={BERT_BATCH * 16} S={BERT_SEQ} D=64 non-causal bf16, "
                  f"bias (B, 1, S) f32, dropout {p}")
-        bert.setdefault("flash_fwd", {})[tag] = dict(b_fwd, shape=shape)
-        bert.setdefault("flash_bwd", {})[tag] = dict(b_bwd, shape=shape)
+        extra.setdefault("flash_fwd", {})[tag] = dict(b_fwd, shape=shape)
+        extra.setdefault("flash_bwd", {})[tag] = dict(b_bwd, shape=shape)
         torch.cuda.empty_cache()
+
+    tri_bh, tri_s, tri_d = TRIANGLE_SHAPE
+    row_bh, row_s, row_d = MSA_ROW_SHAPE
+    evo = _time_evo_attention(gen, flush, tri_bh, tri_s, tri_d,
+                              with_k34=True)
+    tri_shape = (f"BH={tri_bh} S={tri_s} D={tri_d} non-causal bf16, bias "
+                 f"({tri_bh}, {tri_s}, {tri_s}) f32 (triangle attention)")
+    for name in ("flash_fwd", "flash_bwd"):
+        extra.setdefault(name, {})["triangle_shape"] = dict(evo[name],
+                                                           shape=tri_shape)
+    rows["flash_dbias"] = dict(evo["flash_dbias"], shape=tri_shape)
+    torch.cuda.empty_cache()
+    msa = _time_evo_attention(gen, flush, row_bh, row_s, row_d,
+                              with_k34=False)["flash_dbias"]
+    extra["flash_dbias"] = {"msa_row_shape": dict(
+        msa, shape=f"BH={row_bh} S={row_s} D={row_d} non-causal bf16, bias "
+        f"({row_bh}, {row_s}, {row_s}) f32 (MSA row attention)")}
+    torch.cuda.empty_cache()
 
     serving = {}
     serving["layer_norm_fwd"] = dict(_time_ln(gen, flush, 2048, 1024)[0],
@@ -1099,11 +1377,12 @@ def phase4(gen, launches, errs):
 
     def fields(r):
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "shape")}
+                                        "bound_by", "library_ms", "shape",
+                                        "k4_ms", "k4_plus_k5_ms")
+                if key in r}
 
     kernels = []
-    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
-                 "flash_bwd", "paged_decode"):
+    for name in _build.KERNELS:
         main = rows.get(name, serving.get(name))
         entry = {
             "name": name,
@@ -1117,18 +1396,25 @@ def phase4(gen, launches, errs):
         }
         if name in rows and name in serving:
             entry["serving_shape"] = fields(serving[name])
-        for tag, r in bert.get(name, {}).items():
+        for tag, r in extra.get(name, {}).items():
             entry[tag] = fields(r)
         kernels.append(entry)
         for tag, r in (("", main), (" (serving)", entry.get("serving_shape")),
                        (" (BERT)", entry.get("bert_shape")),
-                       (" (BERT, dropout)", entry.get("bert_dropout_shape"))):
+                       (" (BERT, dropout)", entry.get("bert_dropout_shape")),
+                       (" (triangle)", entry.get("triangle_shape")),
+                       (" (MSA row)", entry.get("msa_row_shape"))):
             if r is None:
                 continue
+            lib = ("not measured" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+            k45 = ("" if "k4_plus_k5_ms" not in r else
+                   f" (K4 {r['k4_ms']:.4f} ms, K4 + K5 "
+                   f"{r['k4_plus_k5_ms']:.4f} ms beside the library's "
+                   f"backward with the mask's gradient)")
             log(f"  {name}{tag} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms, library "
-                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+                f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}){k45}")
     return kernels
 
 
@@ -1147,10 +1433,11 @@ def device_kernels(prof):
     ]
 
 
-#: kernel-name fragments -> the layer that owns the time (phase 6)
+#: kernel-name fragments -> the layer that owns the time (phases 6, 8, 10)
 KERNEL_GROUPS = (
     ("K3 flash_fwd", ("flash_fwd_kernel",)),
     ("K4 flash_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
+    ("K5 flash_dbias", ("flash_dbias_kernel",)),
     ("K1 layer_norm_fwd", ("ln_fwd_kernel",)),
     ("K2 layer_norm_bwd", ("ln_bwd_kernel",)),
     ("cuBLAS GEMMs", ("nvjet", "gemm", "xmma", "cutlass")),
@@ -1707,6 +1994,368 @@ def phase9():
             "max_grad_rel_err": grad_rel, "max_update_rel_err": upd_rel}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: evoformer training at AlphaFold2's widths
+# ---------------------------------------------------------------------------
+
+
+#: EvoformerBlock(msa_dim=256, pair_dim=128, heads=4, mlp_ratio=4,
+#: opm_hidden=32): OpenFold's evoformer_stack widths (c_m 256, c_z 128,
+#: c_hidden_mul 128, c_hidden_opm 32, 4 triangle heads of 32,
+#: transition_n 4); 4 of its 48 blocks, at the initial-training crop
+#: (N_res 256, N_seq 128, ``EVO_RES``/``EVO_SEQ``)
+EVO = dict(msa_dim=256, pair_dim=128, heads=EVO_HEADS, mlp_ratio=4,
+           opm_hidden=32)
+EVO_BLOCKS = 4
+EVO_STEPS = 8
+EVO_LR = 3e-4
+#: per block and step: LayerNorm 12 times (MSA row attention 2, column
+#: attention, MSA transition, outer product mean, 2 per triangle update,
+#: 1 per triangle attention, pair transition), attention 4 times (MSA
+#: row, MSA column, triangle start, triangle end), a trainable bias 3
+#: times (all but the column attention)
+EVO_BLOCK_LAUNCHES = {"layer_norm_fwd": 12, "layer_norm_bwd": 12,
+                      "flash_fwd": 4, "flash_bwd": 4, "flash_dbias": 3}
+
+
+def evoformer_block_flops(n_seq, n_res, msa_dim, pair_dim, heads, mlp_ratio,
+                          opm_hidden):
+    """Matrix-product flops of one EvoformerBlock forward (2 per
+    multiply-add; the triangle updates' hidden width is pair_dim):
+    MSA row and column attention (q, k, v, gate, out projections, the
+    pair-bias projection, QK^T and PV), the MSA transition, the outer
+    product mean (a, b, the outer product, out), two triangle
+    multiplicative updates (a, a_gate, b, b_gate, the contraction, out,
+    gate), two triangle attentions and the pair transition."""
+    s, r, cm, cz, h = n_seq, n_res, msa_dim, pair_dim, heads
+    msa_rows = s * r
+    pair_rows = r * r
+    f = 0
+    f += 5 * 2 * msa_rows * cm * cm + 2 * pair_rows * cz * h   # row proj
+    f += 4 * s * r * r * cm                                   # row attention
+    f += 5 * 2 * msa_rows * cm * cm + 4 * r * s * s * cm      # column
+    f += 2 * 2 * msa_rows * cm * mlp_ratio * cm               # transition
+    f += 2 * 2 * msa_rows * cm * opm_hidden                   # OPM a, b
+    f += 2 * s * pair_rows * opm_hidden ** 2                  # outer product
+    f += 2 * pair_rows * opm_hidden ** 2 * cz                 # OPM out
+    tri_mul = 4 * 2 * pair_rows * cz * cz + 2 * r ** 3 * cz + 2 * 2 * pair_rows * cz * cz
+    f += 2 * tri_mul
+    tri_att = 5 * 2 * pair_rows * cz * cz + 2 * pair_rows * cz * h + 4 * r ** 3 * cz
+    f += 2 * tri_att
+    f += 2 * 2 * pair_rows * cz * mlp_ratio * cz              # transition
+    return f
+
+
+def randomize_zero_params(module, generator, std=0.02):
+    """Every parameter that is exactly zero at init (the out/down and gate
+    kernels, the biases, the LayerNorm biases) gets N(0, std^2) from
+    ``generator``, as the JAX tests' ``_randomize`` breaks the zero init:
+    otherwise the output is the input and every gradient through the
+    attention, dbias included, is zero."""
+    import torch
+
+    with torch.no_grad():
+        for p in module.parameters():
+            if not bool(p.any()):
+                p.copy_(std * torch.randn(p.shape, generator=generator,
+                                          device=generator.device))
+
+
+def evoformer_stack(n_blocks, device, generator, dtype):
+    import torch
+
+    from apex_tpu_torch.contrib.openfold import EvoformerBlock
+
+    blocks = torch.nn.ModuleList(
+        EvoformerBlock(**EVO, dtype=dtype, device=device, generator=generator)
+        for _ in range(n_blocks))
+    randomize_zero_params(blocks, generator)
+    return blocks
+
+
+def evoformer_data(n_seq, n_res, device, seed):
+    """Seeded MSA and pair inputs and MSE targets (numpy, then
+    ``device``): m (n_seq, n_res, 256), z (n_res, n_res, 128)."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    shapes = ((n_seq, n_res, EVO["msa_dim"]), (n_res, n_res, EVO["pair_dim"]))
+    m, z, tm, tz = (torch.from_numpy(rs.randn(*shp).astype(np.float32))
+                    .to(device) for shp in shapes * 2)
+    return m, z, tm, tz
+
+
+def evoformer_loss(blocks, m, z, tm, tz):
+    for blk in blocks:
+        m, z = blk(m, z)
+    return (m - tm).pow(2).mean() + (z - tz).pow(2).mean()
+
+
+def phase10():
+    """4 full-width ``EvoformerBlock``s chained (the JAX package has no
+    stack module, so the script chains them) at N_seq 128, N_res 256,
+    bf16 attention on f32 weights, the zero-initialised parameters
+    randomized, MSE to seeded targets, FusedAdam at lr 3e-4 for 8 steps.
+    The launch counters are zeroed before and read after: K1-K5 must
+    have launched exactly ``EVO_BLOCK_LAUNCHES`` x blocks x steps, and
+    every op must have taken the kernel path.  Losses finite and falling;
+    step time, the analytic MFU, peak memory, then one profiled step by
+    layer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    log(f"phase 10: train {EVO_BLOCKS} EvoformerBlock({EVO}) at N_seq "
+        f"{EVO_SEQ}, N_res {EVO_RES}, {EVO_STEPS} FusedAdam steps")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    blocks = evoformer_stack(EVO_BLOCKS, "cuda", gen, torch.bfloat16)
+    m, z, tm, tz = evoformer_data(EVO_SEQ, EVO_RES, "cuda", seed=22)
+    opt = FusedAdam(blocks.parameters(), lr=EVO_LR)
+
+    def step():
+        loss = evoformer_loss(blocks, m, z, tm, tz)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    losses, seconds = [], []
+    for _ in range(EVO_STEPS):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = _dispatch.launches()
+    paths = _dispatch.last_paths()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * EVO_BLOCKS * EVO_STEPS for k, n in EVO_BLOCK_LAUNCHES.items()}
+    log(f"  launches={launches} (per block and step {EVO_BLOCK_LAUNCHES}) "
+        f"paths={paths}")
+    if launches != want:
+        raise AssertionError(f"evoformer launches {launches} != {want}")
+    if paths != {"layer_norm": "cuda", "flash_attention": "cuda"}:
+        raise AssertionError(f"evoformer op paths {paths}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    n_params = sum(p.numel() for p in blocks.parameters())
+    flops = 3 * EVO_BLOCKS * evoformer_block_flops(EVO_SEQ, EVO_RES, **EVO)
+    step_s = statistics.median(seconds[1:])
+    mfu = flops / step_s / BF16_TENSOR_FLOPS
+    log(f"  losses {[round(x, 5) for x in losses]}")
+    log(f"  step seconds {[round(x, 4) for x in seconds]}; median of steps "
+        f"1.. {step_s * 1e3:.1f} ms; MFU {mfu:.4f} = 3 x {EVO_BLOCKS} x "
+        f"{flops / 3 / EVO_BLOCKS / 1e9:.1f} GFLOP (one block's forward "
+        f"matrix products, evoformer_block_flops; backward counted 2x) / "
+        f"step time / 989 TFLOP/s; N={n_params}; peak memory "
+        f"{peak / 1e9:.2f} GB")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = sorted(device_kernels(prof), key=lambda o: -o[1])
+    busy_ms = sum(o[1] for o in ops) / 1e3
+    groups = group_kernels(ops)
+    log(f"  profiled step: {wall * 1e3:.1f} ms host, {busy_ms:.1f} ms of "
+        f"device kernels ({busy_ms / (wall * 1e3):.3f} busy; "
+        f"{busy_ms / (step_s * 1e3):.3f} of the unprofiled median step), "
+        f"{sum(o[2] for o in ops)} kernel launches")
+    log("  device ms by layer: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in groups.items()))
+    top = []
+    for key, us, count in ops[:15]:
+        log(f"    {us / 1e3:9.3f} ms  {count:5d}x  {key[:100]}")
+        top.append({"op": key[:100], "ms": us / 1e3, "count": count})
+    out = {
+        "device_busy_share_unprofiled": busy_ms / (step_s * 1e3),
+        "losses": losses,
+        "step_seconds": seconds,
+        "step_ms_median": step_s * 1e3,
+        "params": n_params,
+        "flops_per_step": flops,
+        "mfu": mfu,
+        "peak_memory_bytes": peak,
+        "profiled_step_ms": wall * 1e3,
+        "profiled_device_ms": busy_ms,
+        "device_ms_by_layer": groups,
+        "top_device_ops": top,
+    }
+    del blocks, opt, m, z, tm, tz
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: one evoformer training step, card bf16 against CPU f32
+# ---------------------------------------------------------------------------
+
+
+EVO_CROSS_RES, EVO_CROSS_SEQ = 64, 32
+#: The phase-11 limits, one per reading of the card's step against the
+#: CPU's.  Each sits between the card's sound reading and that of a
+#: planted fault (``EVO_FAULTS``) which the phase runs each time as a CPU
+#: f32 step against the sound CPU f32 step.
+EVO_LIMITS = {
+    # |loss(card bf16) - loss(CPU f32)|; the loss is ~4.4, where one f32
+    # step is 4.8e-7
+    "loss_diff": 2e-5,
+    # the worst parameter's ||grad_card - grad_cpu|| / ||grad_cpu||
+    "max_grad_rel_err": 5e-2,
+    # the worst parameter's mean |update_card - update_cpu| after one
+    # FusedAdam step.  Adam's first step moves each weight by about lr
+    # whatever the gradient's scale, so this reading sees the optimizer
+    # and not a gradient scaled by a constant: only the gradient limit
+    # sees a halved dbias
+    "max_mean_update_diff": 1e-5,
+    # |grad EVO_ZERO_GRAD| / |grad EVO_BIAS_KERNELS[0]|, the larger side
+    "zero_grad_norm_ratio": 1e-3,
+}
+#: each planted fault and the reading it must push past its limit
+EVO_FAULTS = {
+    "K3 twin's output x 0.99": "loss_diff",
+    "K5 twin's dbias x 0.5": "max_grad_rel_err",
+    "K5 twin's dbias without delta": "zero_grad_norm_ratio",
+    "FusedAdam lr x 1.1": "max_mean_update_diff",
+}
+#: a parameter whose gradient is zero in exact arithmetic: MSA row
+#: attention's ``ln_z`` feeds only the pair-bias projection, so its bias
+#: adds one value per head to every score, which the softmax ignores.
+#: Both runs read round-off there (an H100 read a relative difference of
+#: 6.3e3 and Adam's first step turns round-off into ±lr), so it is held
+#: to a bound on its norm instead (``zero_grad_norm_ratio``): a dbias
+#: whose rows do not sum to zero, as without delta, moves it
+EVO_ZERO_GRAD = "msa_row_att.ln_z_bias"
+#: the parameters K5's gradient feeds
+EVO_BIAS_KERNELS = ("msa_row_att.pair_bias.weight",
+                    "pair_block.tri_att_start.tri_bias.weight",
+                    "pair_block.tri_att_end.tri_bias.weight")
+
+
+def evoformer_cross_step(device, fault=None):
+    """One MSE + FusedAdam step of one full-width EvoformerBlock at N_res
+    64, N_seq 32 on ``device`` ("cuda": bf16 attention; "cpu": f32), from
+    weights drawn on the CPU (seed 31, zero-initialised parameters
+    randomized) and seeded data.  ``fault`` names one of ``EVO_FAULTS``
+    to plant (CPU only: it patches the twins or the learning rate).
+    Returns (loss, {name: grad}, {name: update}) on the CPU in f32."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    fwd, dbias = attn.flash_fwd_reference, attn.flash_dbias_reference
+
+    def fwd_scaled(*a, **kw):
+        o, *rest = fwd(*a, **kw)
+        return (0.99 * o, *rest)
+
+    def dbias_without_delta(q, k, v, do, m, l, delta, *a, **kw):
+        return dbias(q, k, v, do, m, l, torch.zeros_like(delta), *a, **kw)
+
+    planted = {
+        "K3 twin's output x 0.99": ("flash_fwd_reference", fwd_scaled),
+        "K5 twin's dbias x 0.5": (
+            "flash_dbias_reference", lambda *a, **kw: 0.5 * dbias(*a, **kw)),
+        "K5 twin's dbias without delta": ("flash_dbias_reference",
+                                          dbias_without_delta),
+    }
+    lr = EVO_LR * (1.1 if fault == "FusedAdam lr x 1.1" else 1.0)
+
+    cpu = evoformer_stack(1, "cpu", torch.Generator().manual_seed(31),
+                          torch.float32)
+    if device == "cpu":
+        blocks = cpu
+    else:
+        blocks = evoformer_stack(1, device, torch.Generator().manual_seed(0),
+                                 torch.bfloat16)
+        blocks.load_state_dict({k: v.to(device)
+                                for k, v in cpu.state_dict().items()})
+    data = evoformer_data(EVO_CROSS_SEQ, EVO_CROSS_RES, device, seed=32)
+    before = {k: p.detach().float().cpu().clone()
+              for k, p in blocks.named_parameters()}
+    opt = FusedAdam(blocks.parameters(), lr=lr)
+    if fault in planted:
+        setattr(attn, *planted[fault])
+    try:
+        loss = evoformer_loss(blocks, *data)
+        loss.backward()
+    finally:
+        attn.flash_fwd_reference, attn.flash_dbias_reference = fwd, dbias
+    grads = {k.removeprefix("0."): p.grad.detach().float().cpu()
+             for k, p in blocks.named_parameters()}
+    opt.step()
+    updates = {k.removeprefix("0."): p.detach().float().cpu() - before[k]
+               for k, p in blocks.named_parameters()}
+    return float(loss.detach()), grads, updates
+
+
+def evoformer_cross_readings(a, b):
+    """The readings of step ``a`` against step ``b``, keyed as
+    ``EVO_LIMITS``, plus the worst gradient's parameter and the bias
+    kernels' relative gradient errors; ``EVO_ZERO_GRAD`` is left out of
+    the gradient and update readings."""
+    (la, ga, ua), (lb, gb, ub) = a, b
+    keys = [k for k in gb if k != EVO_ZERO_GRAD]
+    rel = {k: float((ga[k] - gb[k]).norm() / gb[k].norm().clamp_min(1e-30))
+           for k in keys}
+    rel = {k: r if np.isfinite(r) else float("inf") for k, r in rel.items()}
+    worst = max(rel, key=rel.get)
+    zero = max(float(g[EVO_ZERO_GRAD].norm()
+                     / g[EVO_BIAS_KERNELS[0]].norm().clamp_min(1e-30))
+               for g in (ga, gb))
+    return {"loss_diff": abs(la - lb), "max_grad_rel_err": rel[worst],
+            "max_mean_update_diff": max(float((ua[k] - ub[k]).abs().mean())
+                                        for k in keys),
+            "zero_grad_norm_ratio": zero, "worst_param": worst,
+            "bias_kernel_grad_rel_err": {k: rel[k] for k in EVO_BIAS_KERNELS}}
+
+
+def phase11():
+    """One EvoformerBlock at full channel widths, N_res 64, N_seq 32: the
+    loss, every gradient (the pair-bias and triangle-bias kernels, which
+    K5 feeds, named) and the weights after one FusedAdam step on the card
+    (bf16 attention, K1-K5) against the CPU (f32, the plain twins), from
+    the same weights and data, within ``EVO_LIMITS``; then each planted
+    fault of ``EVO_FAULTS`` on the CPU against the sound CPU step, which
+    must push its reading past its limit."""
+    log(f"phase 11: one full-width EvoformerBlock step at N_res "
+        f"{EVO_CROSS_RES}, N_seq {EVO_CROSS_SEQ}, card bf16 against CPU f32")
+    card = evoformer_cross_step("cuda")
+    cpu = evoformer_cross_step("cpu")
+    out = {"loss_card": card[0], "loss_cpu": cpu[0]}
+    runs = [("card", card, None)] + [
+        (f"planted {fault}", evoformer_cross_step("cpu", fault), key)
+        for fault, key in EVO_FAULTS.items()]
+    for tag, a, key in runs:
+        r = evoformer_cross_readings(a, cpu)
+        out[tag] = r
+        outside = [k for k, lim in EVO_LIMITS.items() if not r[k] <= lim]
+        log(f"  {tag} against CPU f32: loss {a[0]:.6f} vs {cpu[0]:.6f}; "
+            + ", ".join(f"{k} {r[k]:.3e} (limit {lim:.0e})"
+                        for k, lim in EVO_LIMITS.items())
+            + f"; worst gradient {r['worst_param']}; bias kernels "
+            + ", ".join(f"{k} {v:.3e}"
+                        for k, v in r["bias_kernel_grad_rel_err"].items())
+            + f"; outside: {outside or 'none'}")
+        if key is None and outside:
+            raise AssertionError("phase 11: the card's step disagrees")
+        if key is not None and key not in outside:
+            raise AssertionError(
+                f"phase 11: the {key} limit passes the {tag}")
+    return out
+
+
 def main():
     import torch
 
@@ -1734,15 +2383,19 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase1(gen)
+    errs.update(phase1_flash_dbias(gen))
     serve_launches, rates, engine = phase2()
     cross = phase3()
     train_launches, training = phase6()
     train_cross = phase7()
     bert_launches, bert = phase8()
     bert_cross = phase9()
+    evo_launches, evoformer = phase10()
+    evo_cross = phase11()
     runs = (("serving", serve_launches), ("training", train_launches),
             ("bert", bert_launches["bert"]),
-            ("bert_dropout", bert_launches["bert_dropout"]))
+            ("bert_dropout", bert_launches["bert_dropout"]),
+            ("evoformer", evo_launches))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in _build.KERNELS
@@ -1752,6 +2405,8 @@ def main():
     log(json.dumps({"serving": rates, "cross_check": cross,
                     "training": training, "training_cross_check": train_cross,
                     "bert": bert, "bert_cross_check": bert_cross,
+                    "evoformer": evoformer,
+                    "evoformer_cross_check": evo_cross,
                     "decode_profile": profile}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

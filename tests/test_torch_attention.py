@@ -1,12 +1,14 @@
 """apex_tpu_torch flash attention (and the RoPE it rides with) vs the
 JAX package.
 
-The port's plain versions (what its CUDA kernels K3 and K4 are held
+The port's plain versions (what its CUDA kernels K3, K4 and K5 are held
 against on the card) against ``apex_tpu.ops.attention.flash_attention``
 forced onto its Pallas kernels in interpret mode, on the same seeded
-numpy inputs, f32, D = 64: without operands, with every layout of the
-additive bias, and with dropout at the same int32 seed (the keep mask
-itself bit for bit against ``_dropout_keep_block``).  A row whose every
+numpy inputs, f32, D = 64 and 32: without operands, with every layout of
+the additive bias, and with dropout at the same int32 seed (the keep
+mask itself bit for bit against ``_dropout_keep_block``); K5's twin
+``flash_dbias_reference`` against the Pallas ``flash_dbias`` for every
+bias layout, and a trainable bias's gradient end to end.  A row whose every
 key the bias masks is held to autodiff of ``mha_reference`` instead:
 the Pallas backward is wrong there (ROADMAP C).  Tolerance 2e-5: the
 Pallas kernels run an online softmax over key blocks, the port one
@@ -307,9 +309,9 @@ def test_fully_bias_masked_row_matches_reference_autodiff(force_pallas):
 
 
 def test_bias_grad_differentiates_mha_reference():
-    """``bias_grad=True`` on the CPU: the bias gets autodiff's gradient of
-    ``mha_reference`` (JAX's jnp path), TOL; without it the bias gets
-    none."""
+    """``bias_grad=True`` on the CPU (K5's twin through ``_Flash``): the
+    bias gets autodiff's gradient of ``mha_reference`` (JAX's jnp path),
+    TOL; without it the bias gets none."""
     q, k, v = _qkv(32, 48, b=B, h=H, seed=60)
     do = np.random.RandomState(61).randn(B, H, 32, 64).astype(np.float32)
     bias = _bias((1, H, 32, 48), seed=62)
@@ -348,3 +350,160 @@ def test_dropout_seed_sources():
         run()
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         port_attn.flash_attention(q, k, v, dropout_p=1.0, dropout_seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# K5: the gradient of a trainable bias, and K3/K4 at head dim 32
+# ---------------------------------------------------------------------------
+
+
+def _dbias_pair(bh, sq, sk, d, bias_shape, causal, p=0.0, seed=80):
+    """(port dbias, Pallas dbias) for one (G, RS, Sk) bias layout: the
+    Pallas ``flash_fwd`` and ``flash_dbias`` in interpret mode against
+    ``flash_dbias_reference`` on the port's own forward statistics, from
+    the same q, k, v, dO, bias and int32 dropout seed."""
+    from apex_tpu.ops.pallas import flash_attention as pallas
+
+    rs = np.random.RandomState(seed)
+    q = rs.randn(bh, sq, d).astype(np.float32)
+    k, v = (rs.randn(bh, sk, d).astype(np.float32) for _ in range(2))
+    do = rs.randn(bh, sq, d).astype(np.float32)
+    bias = (2.0 * rs.randn(*bias_shape)).astype(np.float32)
+    dseed = np.array([rs.randint(-2 ** 31, 2 ** 31 - 1)], np.int32)
+    kw = dict(scale=d ** -0.5, causal=causal, dropout_p=p)
+    jseed = jnp.asarray(dseed[0]) if p else None
+    o_j, lse_j = pallas.flash_fwd(*_j(q, k, v, bias), dropout_seed=jseed,
+                                  **kw)
+    dbias_j = pallas.flash_dbias(*_j(q, k, v), o_j, lse_j, jnp.asarray(do),
+                                 jnp.asarray(bias), dropout_seed=jseed, **kw)
+    qt, kt, vt, dot, bt = _t(q, k, v, do, bias)
+    st = torch.from_numpy(dseed) if p else None
+    o, _, m, l = port_attn.flash_fwd_reference(qt, kt, vt, bt, seed=st, **kw)
+    delta = (dot * o).sum(-1)
+    dbias = port_attn.flash_dbias_reference(qt, kt, vt, dot, m, l, delta, bt,
+                                            seed=st, **kw)
+    assert dbias.shape == bias.shape and dbias.dtype == torch.float32
+    return dbias.numpy(), np.asarray(dbias_j)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias_shape", [
+    (1, 1, 128), (2, 1, 128), (8, 1, 128),        # RS = 1: G = 1, B, BH
+    (1, 128, 128), (2, 128, 128), (8, 128, 128),  # RS = Sq
+])
+def test_dbias_reference_matches_jax_pallas(bias_shape, causal):
+    """Every (G, RS) layout at BH = 8, S = 128, D = 32: each group's
+    members summed (and every row when RS = 1), TOL scaled by the
+    number of summed terms' magnitude (atol 1e-4: RS = 1 sums 128 rows
+    and up to 8 members)."""
+    dbias, ref = _dbias_pair(8, 128, 128, 32, bias_shape, causal)
+    np.testing.assert_allclose(dbias, ref, atol=1e-4, rtol=1e-4)
+    assert np.abs(ref).max() > 1e-2
+
+
+@pytest.mark.parametrize("sq,sk,bias_rows,causal,p", [
+    (64, 128, 64, True, 0.0),     # Sq < Sk, bottom-right causal
+    (128, 64, 128, False, 0.0),   # Sq > Sk
+    (128, 128, 128, False, 0.1),  # dropout at the same int32 seed
+    (64, 128, 1, True, 0.1),
+])
+def test_dbias_reference_sq_neq_sk_and_dropout(sq, sk, bias_rows, causal, p):
+    dbias, ref = _dbias_pair(4, sq, sk, 64, (2, bias_rows, sk), causal, p=p,
+                             seed=81)
+    np.testing.assert_allclose(dbias, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bias_shape", [(1, H, S, S), (B, H, S, S),
+                                        (B, 1, 1, S)])
+@pytest.mark.parametrize("d", [32, 64])
+def test_trainable_bias_grad_matches_jax_pallas(force_pallas, bias_shape, d):
+    """``flash_attention(..., bias_grad=True)``: o and the gradients of q,
+    k, v and the bias against ``jax.vjp`` of the JAX function on its
+    Pallas kernels (``flash_dbias`` for the bias), TOL.  (1, H, S, S) is
+    the evoformer's pair bias: the kernels see it at G = BH and the sum
+    over the batch is the broadcast's backward."""
+    q, k, v = _qkv(S, S, b=B, h=H, d=d, seed=82)
+    do = np.random.RandomState(83).randn(B, H, S, d).astype(np.float32)
+    bias = _bias(bias_shape, seed=84)
+    bias[..., 5] = -30.0  # finite: the clamp would cut an -inf's gradient
+    kw = dict(scale=d ** -0.5)
+    out_j, grads_j = _vjp_jax(
+        lambda a, b_, c, e: jax_attn.flash_attention(a, b_, c, e,
+                                                     bias_grad=True, **kw),
+        (q, k, v, bias), jnp.asarray(do))
+    assert jax_dispatch.last_paths()["flash_attention"] == "pallas"
+    out, grads = _vjp_port(
+        lambda a, b_, c, e: port_attn.flash_attention(a, b_, c, e,
+                                                      bias_grad=True, **kw),
+        (q, k, v, bias), torch.from_numpy(do))
+    _assert_close(out, grads, out_j, grads_j)
+    assert grads[3].shape == bias_shape
+
+
+@pytest.mark.parametrize("sq,sk,causal,bias_shape", [
+    (128, 128, True, None),
+    (200, 200, False, None),          # ragged
+    (64, 192, True, None),            # bottom-right, Sq < Sk
+    (128, 128, False, (B, H, S, S)),  # the triangle attention's layout
+    (128, 128, True, (B, 1, 1, S)),
+])
+def test_head_dim_32_matches_jax_pallas(force_pallas, sq, sk, causal,
+                                        bias_shape):
+    """K3/K4's twins at D = 32 (the evoformer's triangle attention): o,
+    lse, dq, dk and dv against the Pallas kernels in interpret mode,
+    TOL."""
+    q, k, v = _qkv(sq, sk, b=B, h=H, d=32, seed=85)
+    do = np.random.RandomState(86).randn(B, H, sq, 32).astype(np.float32)
+    bias = None if bias_shape is None else _bias(bias_shape, seed=87)
+    bj = None if bias is None else jnp.asarray(bias)
+    bt = None if bias is None else torch.from_numpy(bias)
+    kw = dict(causal=causal, scale=32 ** -0.5)
+    out_j, grads_j = _vjp_jax(
+        lambda a, b_, c: jax_attn.flash_attention(a, b_, c, bj, **kw),
+        (q, k, v), jnp.asarray(do))
+    assert jax_dispatch.last_paths()["flash_attention"] == "pallas"
+    out, grads = _vjp_port(
+        lambda a, b_, c: port_attn.flash_attention(a, b_, c, bt, **kw),
+        (q, k, v), torch.from_numpy(do))
+    _assert_close(out, grads, out_j, grads_j)
+    _, lse_j = jax_attn.flash_attention_with_lse(*_j(q, k, v), bj, **kw)
+    _, lse = port_attn.flash_attention_with_lse(*_t(q, k, v), bt, **kw)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **TOL)
+
+
+def test_fully_bias_masked_row_dbias_matches_reference_autodiff():
+    """A trainable (B, 1, 1, S) bias with batch row 1 fully masked (-1e9,
+    exactly the clamp value, whose gradient passes) and row 0's keys
+    100+: the port's dbias (K5's twin, p = exp(s - m)/l) equals autodiff
+    of the unclamped ``mha_reference`` in both rows, TOL.  The Pallas
+    ``flash_dbias``, which recomputes p = exp(s - lse), is off by more
+    than 1 in row 1: its lse rounds back to MASK_VALUE in f32, so p
+    comes out 1 instead of 1/S (ROADMAP C)."""
+    from apex_tpu.ops.pallas import flash_attention as pallas
+
+    q, k, v = _qkv(S, S, b=B, h=H, seed=88)
+    do = np.random.RandomState(89).randn(B, H, S, 64).astype(np.float32)
+    bias = np.zeros((B, 1, 1, S), np.float32)
+    bias[0, ..., 100:] = -1e9
+    bias[1] = -1e9
+    _, grads_r = _vjp_jax(
+        lambda a, b_, c, e: jax_attn.mha_reference(a, b_, c, e, scale=0.125),
+        (q, k, v, bias), jnp.asarray(do))
+    out, grads = _vjp_port(
+        lambda a, b_, c, e: port_attn.flash_attention(
+            a, b_, c, e, scale=0.125, bias_grad=True),
+        (q, k, v, bias), torch.from_numpy(do))
+    for g, g_r in zip(grads, grads_r):
+        np.testing.assert_allclose(g.numpy(), np.asarray(g_r), **TOL)
+    assert np.abs(np.asarray(grads_r[3])[1]).max() > 1e-3
+    # the Pallas dbias on the kernels' layout (G = B, RS = 1)
+    flat = [x.reshape(B * H, S, 64) for x in (q, k, v, do)]
+    bias_f = jnp.asarray(bias.reshape(B, 1, S))
+    o_j, lse_j = pallas.flash_fwd(*_j(*flat[:3]), bias_f, scale=0.125,
+                                  causal=False)
+    dbias_p = np.asarray(pallas.flash_dbias(
+        *_j(*flat[:3]), o_j, lse_j, jnp.asarray(flat[3]), bias_f,
+        scale=0.125, causal=False))
+    ref = np.asarray(grads_r[3]).reshape(B, 1, S)
+    np.testing.assert_allclose(dbias_p[0], ref[0], **TOL)
+    assert np.abs(dbias_p[1] - ref[1]).max() > 1.0

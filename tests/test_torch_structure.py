@@ -2,13 +2,14 @@
 
 - the port and ``chip_smoke.py`` import neither ``jax`` nor ``apex_tpu``
   (AST scan of every module);
-- entry points (the GPT and BERT models, the engine, the converters and
-  the example trainers) run on the card by default and raise without
-  one, unless the caller passes ``device="cpu"``;
+- entry points (the GPT and BERT models, the engine, the converters,
+  the example trainers and the OpenFold modules) run on the card by
+  default and raise without one, unless the caller passes
+  ``device="cpu"``;
 - kernel wrappers launch their kernel or raise: handed CPU tensors, a
   kernel entry refuses instead of computing the plain version, and a
   kernel that cannot be built raises; a trainable attention bias on the
-  card raises, naming the kernel it needs (K5);
+  card goes through K5;
 - every kernel source carries its note (what it replaces, its bound on
   the card, what its design does about it).
 """
@@ -19,6 +20,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from apex_tpu_torch.contrib.openfold import DAPAxialBlock, EvoformerBlock
 from apex_tpu_torch.models import (
     BertConfig,
     BertForPreTraining,
@@ -30,7 +32,7 @@ from apex_tpu_torch.models import (
 from apex_tpu_torch.ops import _build, _dispatch
 from apex_tpu_torch.examples import pretrain_bert, train_gpt
 from apex_tpu_torch.ops import attention
-from apex_tpu_torch.ops.attention import flash_bwd, flash_fwd
+from apex_tpu_torch.ops.attention import flash_bwd, flash_dbias, flash_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
 from apex_tpu_torch.serve import InferenceEngine, ServeConfig
@@ -78,7 +80,7 @@ def no_gpu(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["model", "engine", "convert", "train",
                                    "bert_model", "bert_convert",
-                                   "bert_train"])
+                                   "bert_train", "evoformer", "dap_axial"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -95,6 +97,10 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             BertForPreTraining(BertConfig(**TINY_BERT))
         elif entry == "bert_convert":
             bert_from_jax_params({}, BertConfig(**TINY_BERT))
+        elif entry == "evoformer":
+            EvoformerBlock(16, 8, 2)
+        elif entry == "dap_axial":
+            DAPAxialBlock(16, 2)
         else:
             pretrain_bert.main(["--tiny", "--steps", "1"])
 
@@ -136,13 +142,40 @@ def test_kernel_entries_refuse_cpu_tensors():
         )
 
 
-def test_trainable_bias_on_the_card_raises_naming_k5(monkeypatch):
-    # stands in for CUDA operands: the refusal comes before any launch
+@pytest.mark.parametrize("bias_rows,dropout_p", [(16, 0.0), (1, 0.1)])
+def test_flash_dbias_refuses_cpu_tensors(bias_rows, dropout_p):
+    q = torch.zeros(2, 16, 32, dtype=torch.bfloat16)
+    stats = torch.zeros(2, 16)
+    seed = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dbias(q, q, q, q, stats, stats, stats,
+                    torch.zeros(2, bias_rows, 16), scale=0.125, causal=False,
+                    dropout_p=dropout_p, seed=seed)
+
+
+@pytest.mark.parametrize("bias_grad", [True, False])
+def test_trainable_bias_on_the_card_launches_k5(monkeypatch, bias_grad):
+    """On the card a trainable bias goes through K3, K4 and K5 (and a
+    mask-only bias through K3 and K4), with no plain path in between.
+    The kernel wrappers are stood in for by their twins, counted."""
     monkeypatch.setattr(_dispatch, "on_card", lambda *tensors: True)
-    q = torch.zeros(1, 2, 16, 64)
-    with pytest.raises(NotImplementedError, match="K5 flash_dbias"):
-        attention.flash_attention(q, q, q, torch.zeros(1, 1, 1, 16),
-                                  bias_grad=True)
+    calls = []
+    for name in ("flash_fwd", "flash_bwd", "flash_dbias"):
+        twin = getattr(attention, name + "_reference")
+
+        def wrapper(*args, _name=name, _twin=twin, **kwargs):
+            calls.append(_name)
+            return _twin(*args, **kwargs)
+
+        monkeypatch.setattr(attention, name, wrapper)
+    q = torch.randn(1, 2, 16, 32, requires_grad=True)
+    bias = torch.randn(1, 2, 16, 16, requires_grad=True)
+    attention.flash_attention(q, q, q, bias, bias_grad=bias_grad).sum().backward()
+    if bias_grad:
+        assert calls == ["flash_fwd", "flash_bwd", "flash_dbias"]
+        assert bias.grad.shape == bias.shape
+    else:
+        assert calls == ["flash_fwd", "flash_bwd"] and bias.grad is None
 
 
 def test_device_rule():

@@ -14,174 +14,164 @@
 //           dS K, dS^T Q: 2.5x the forward's count) against reading q, k,
 //           v, dO and writing dq, dk, dv once: ~1.25*S flops per byte at
 //           causal D = 64, so the least time is the live-pair flops /
-//           989 TFLOP/s (bf16 dense).
+//           989 TFLOP/s (bf16 dense).  The two passes below do seven
+//           products (the recompute twice).
 // Design:   the TPU's two passes, kept because neither needs atomics, so
-//           the gradients are the same from run to run.
-//           dK/dV: one 128-thread CTA per (batch*head, 64-row k tile);
-//           each warp owns 16 keys, keeps its K and V rows as wmma
-//           fragments and its dK and dV sums in f32 accumulator
-//           fragments, and loops over the q tiles.  Under causal masking a
-//           q tile with no live pair is skipped unless it holds fully-masked
+//           the gradients are the same bits from run to run.  Both are
+//           built like K3 (flash_fwd.cu): two consumer warpgroups of 64
+//           rows (wgmma's M) and a producer warpgroup that hands its
+//           registers to them (setmaxnreg) and streams tiles through a
+//           ring of shared-memory stages (3 without a bias, 2 with one)
+//           with TMA (3-D tensor maps (D, S, BH), 128-byte swizzle at
+//           D = 64, 64-byte at D = 32), each stage guarded by a full and an
+//           empty mbarrier; every product runs on wgmma with f32
+//           accumulators in registers, and P and dS go to the next product
+//           as bf16 register A operands.
+//           dK/dV: one CTA per (batch*head, 128-key tile), heaviest
+//           first; K and V are loaded once, each warpgroup owns 64 keys
+//           and keeps its dK and dV sums in registers for the whole loop.
+//           The ring carries 64-row Q and dO tiles and the rows' m, 1/l
+//           and delta (plain loads by one producer warp's lanes, issued
+//           one tile ahead, which then arrive on the stage's full barrier
+//           beside the TMA bytes).  Per q tile: S^T = K Q^T and dP^T = V dO^T (A and B
+//           from shared memory), P^T and dS^T formed in registers, then
+//           dV += P^T dO and dK += dS^T Q with dO and Q transposed from
+//           shared memory.  Under causal masking a (64-key, 64-row) block
+//           with no live pair is skipped unless it holds fully-masked
 //           rows (row + offset < 0, Sq > Sk): those rows' p is 1/Sk (the
-//           forward averaged V uniformly) and still feeds dV, as the TPU's
-//           include_fully_masked rule keeps them.
-//           dQ: one CTA per (batch*head, 64-row q tile), each warp owns 16
-//           queries; the k loop stops at the tile's causal limit, and a
-//           fully-masked row gets dq = 0 (the mask blocks its gradient).
-//           Both recompute S and dP with wmma bf16 16x16x16 fragments and
-//           f32 accumulation, form p and ds in f32 with two lanes per row
-//           (interleaved columns, padded shared-memory rows), and round p
-//           and ds to bf16 for the next products, as the TPU's bf16 MXU
-//           passes do.  p = exp(s - m) / l from the forward's row max m and
-//           row sum l, not exp(s - lse) as on the TPU: a row that a bias
-//           masks completely has lse = MASK_VALUE + log(S_k), which f32
-//           rounds back to MASK_VALUE, so exp(s - lse) would give 1 where
-//           the softmax is 1/S_k (the Pallas kernel patches only the causal
-//           case, with a closed form); with m and l every fully-masked row,
-//           causal or by bias, gets 1/S_k and needs no special case.  The
-//           bias is read from global memory per score (s*scale + max(bias,
-//           PAD_VALUE), then the causal mask), the dropout keep mask is
-//           re-hashed from (seed, bh, row, col): dv += (D*p)^T dO and
-//           ds = p*(D*dp - delta) with D = keep / (1 - p_drop).  Causally
-//           masked pairs have ds = 0 (the mask is a where() on the score);
-//           their p is 0 unless the whole row is masked.  The ragged edge
-//           (rows past S_q, keys past S_k) is masked here, with nothing
-//           padded.  Heaviest causal tiles first.  Head dims 32 and 64, as
-//           K3.  One template instance per head dim and operand combination
-//           (bias, dropout: four each), so a call without them runs the code
-//           it ran before they existed.  Not yet used: wgmma, TMA, cp.async pipelining
-//           (later work).
+//           forward averaged V uniformly) and still feeds dV, as the
+//           TPU's include_fully_masked rule keeps them.
+//           dQ: one CTA per (batch*head, 128-row q tile), heaviest first;
+//           Q, dO and the rows' statistics stay resident, the ring runs
+//           over 64-key K and V tiles up to each warpgroup's causal
+//           limit: S = Q K^T and dP = dO V^T, dS in registers, dQ += dS K
+//           with K transposed from shared memory; a fully-masked row gets
+//           dq = 0 (the mask blocks its gradient).
+//           p and ds are formed in f32 and rounded to bf16 for the next
+//           products, as the TPU's bf16 MXU passes do.  p = exp(s - m) / l
+//           from the forward's row max m and row sum l, not exp(s - lse)
+//           as on the TPU: a row that a bias masks completely has lse =
+//           MASK_VALUE + log(S_k), which f32 rounds back to MASK_VALUE, so
+//           exp(s - lse) would give 1 where the softmax is 1/S_k (the
+//           Pallas kernel patches only the causal case, with a closed
+//           form); with m and l every fully-masked row, causal or by bias,
+//           gets 1/S_k and needs no special case.  Blocks with no masked
+//           pair and no ragged row or key skip the masks and, without a
+//           bias, fold the scale into one FFMA before exp2.  Bias (s*scale
+//           + max(bias, PAD_VALUE), then the causal mask): a (G, S_q, S_k)
+//           bias with S_k % 4 == 0 rides the ring as 128-byte swizzled TMA
+//           boxes of 32 keys, which the dK/dV pass reads transposed (8
+//           keys of 4 queries per warp load, on distinct banks); a
+//           key-padding row (RS = 1) or a row stride TMA cannot map is
+//           read per score from global memory.  The dropout keep mask is
+//           re-hashed from (seed, bh, row, col): dv += (D*p)^T dO and ds =
+//           p*(D*dp - delta) with D = keep / (1 - p_drop).  Causally
+//           masked pairs have ds = 0 (the mask is a where() on the
+//           score); their p is 0 unless the whole row is masked.  The
+//           ragged edge (rows past S_q, keys past S_k) reads zeros from
+//           TMA and is masked here.  Head dims 32 and 64, as K3.  One
+//           template instance per head dim, bias mode and dropout.  Not
+//           yet used: overlap of the elementwise pass with the next
+//           tile's products, persistent CTAs (ROADMAP B).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <type_traits>
 
 #include "flash_operands.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using flash_operands::kMaskValue;
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16;
-static_assert(kBQ == kBK, "load_tile stages q tiles and k/v tiles alike");
-static_assert(kBQ == kWarps * kRows, "each warp owns 16 rows of a tile");
+using flash_operands::kBiasGlobal;
+using flash_operands::kBiasTile;
+using flash_operands::kNoBias;
 
-// Shared-memory row strides, padded as in K3 so that the wmma loads and
-// the two-lanes-per-row elementwise pass spread over the banks.  The f32
-// scratch rows (kSLd) also stage the D-wide outputs.
-template <int D> constexpr int kTileLd = D + 8;
-constexpr int kSLd = kBK + 4;
-constexpr int kPLd = kBK + 8;
+constexpr int kConsumers = 2;                     // warpgroups of 64 rows
+constexpr int kResident = 64 * kConsumers;        // rows a CTA keeps
+constexpr int kBlock = 64;  // rows of a ring stage: the producer's lanes
+                            // load two each
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr float kLog2e = 1.4426950408889634f;
+// the staged bias of one stage (kBlock x kResident f32 either way round)
+constexpr int kStageBiasBytes = kBlock * kResident * 4;
 
-template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return sizeof(bf16) * 4 * kBK * kTileLd<D>            // K, V, Q, dO tiles
-         + sizeof(float) * 3 * kBQ                      // m, 1/l, delta
-         + sizeof(float) * 2 * kWarps * kRows * kSLd    // S^T, dP^T
-         + sizeof(bf16) * 2 * kWarps * kRows * kPLd;    // P^T, dS^T
+// The ring's depth of each bias mode (measured with
+// apex_tpu_torch/tools/flash_tiles.py, whose sweep overrides it through
+// the macro): 3 stages without a bias, 2 with one.
+template <int kBias>
+__host__ __device__ constexpr int stages() {
+#ifdef APEX_FLASH_BWD_STAGES
+  return APEX_FLASH_BWD_STAGES;
+#else
+  return kBias == kNoBias ? 3 : 2;
+#endif
 }
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * 4 * kBK * kTileLd<D>            // Q, dO, K, V tiles
-         + sizeof(float) * 2 * kWarps * kRows * kSLd    // S, dP
-         + sizeof(bf16) * kWarps * kRows * kPLd;        // dS
+template <int kBias>
+__host__ __device__ constexpr int stage_bias_bytes() {
+  return kBias == kBiasTile ? kStageBiasBytes : 0;
 }
 
-// Copy 64 rows of D bf16 from global `src` into shared `dst` (row stride
-// kTileLd) as 16-byte vectors, zero-filling rows at or past `limit`.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// Two resident tiles of kResident rows and the stages of two kBlock-row
+// tiles, the staged bias (and, for dK/dV, three rows of kBlock f32
+// statistics).
+template <int D, int kBias, bool kStats>
+constexpr size_t smem_bytes() {
+  constexpr int kStages = stages<kBias>();
+  return 1024 + size_t{2} * D * 2 * (kResident + kStages * kBlock) +
+         size_t{stage_bias_bytes<kBias>()} * kStages +
+         (kStats ? sizeof(float) * 3 * kBlock * kStages : 0) +
+         sizeof(uint64_t) * (2 * kStages + 1);
+}
+
+// Whether the 64 keys from kw0 take part in the 64-row q tile qt.
+__device__ __forceinline__ bool block_live(int qt, int kw0, int sq, int sk,
+                                           int causal, int offset) {
+  if (kw0 >= sk) return false;
+  if (!causal) return true;
+  const int q0 = qt * kBlock;
+  const int q_last = min(q0 + kBlock, sq) - 1;
+  return q_last + offset >= kw0 || q0 + offset < 0;
+}
+
+// Write this thread's two rows (row0, row0 + 8) of a warpgroup's 64 x D
+// f32 accumulator, times `scale`, as bf16 rows of `out` below `limit`.
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int limit) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
-    const int r = i / kVec, c = i % kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D)[c];
-    reinterpret_cast<uint4*>(dst + r * kTileLd<D>)[c] = val;
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           bf16* out, int row0, int limit,
+                                           float scale) {
+  const int quad = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= limit) continue;
+    bf16* og = out + static_cast<size_t>(row) * D + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
   }
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// out[16 x 64] = A_w (16 x D, register fragments) times the transpose of
-// the 64-row shared tile `T` (64 x D), stored row-major into f32 `out`.
-template <int D>
-__device__ __forceinline__ void times_tile_t(const FragA (&a)[D / 16],
-                                             const bf16* T, float* out) {
-  constexpr int kLd = kTileLd<D>;
-#pragma unroll
-  for (int n = 0; n < kBK / 16; ++n) {
-    FragAcc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBCol bt;
-      wmma::load_matrix_sync(bt, T + n * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(acc, a[kk], bt, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, kSLd, wmma::mem_row_major);
-  }
-}
-
-// acc[D/16] (16 x D) += P (16 x 64 bf16 in shared, row stride kPLd) times
-// the 64-row shared tile `T` (64 x D).
-template <int D>
-__device__ __forceinline__ void accumulate(FragAcc (&acc)[D / 16],
-                                           const bf16* P, const bf16* T) {
-  constexpr int kLd = kTileLd<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      FragA pa;
-      FragBRow tb;
-      wmma::load_matrix_sync(pa, P + kk * 16, kPLd);
-      wmma::load_matrix_sync(tb, T + kk * 16 * kLd + n * 16, kLd);
-      wmma::mma_sync(acc[n], pa, tb, acc[n]);
-    }
-  }
-}
-
-// Write the warp's 16 x D accumulator times `scale` as bf16 rows
-// row0 + r (r < 16, rows at or past `limit` skipped), staged through the
-// warp's f32 scratch `stage` (16 x kSLd).
-template <int D>
-__device__ __forceinline__ void store_rows(const FragAcc (&acc)[D / 16],
-                                           float* stage, bf16* out, int row0,
-                                           int limit, float scale) {
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], kSLd, wmma::mem_row_major);
-  __syncwarp();
-  if (row0 + r < limit) {
-    bf16* og = out + static_cast<size_t>(row0 + r) * D;
-    const float* srow = stage + r * kSLd;
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c)
-      og[2 * c + half] = __float2bfloat16(srow[2 * c + half] * scale);
-  }
-  __syncwarp();
-}
-
-template <int D, bool kBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D, int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_bias,
                       const float* __restrict__ row_max,
                       const float* __restrict__ row_sum,
                       const float* __restrict__ delta,
@@ -190,148 +180,289 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       bf16* __restrict__ dv, int bh_count, int sq, int sk,
                       float scale, int causal, int offset, int bias_div,
                       int bias_rows, uint32_t threshold, float drop_scale) {
-  static_assert(D <= kSLd, "the f32 scratch rows stage D-wide outputs");
-  constexpr int kLd = kTileLd<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kBK * kLd;
-  bf16* Qs = Vs + kBK * kLd;
-  bf16* dOs = Qs + kBQ * kLd;
-  float* m_s = reinterpret_cast<float*>(dOs + kBQ * kLd);
-  float* il_s = m_s + kBQ;
-  float* delta_s = il_s + kBQ;
-  float* Ss = delta_s + kBQ;
-  float* dPs = Ss + kWarps * kRows * kSLd;
-  bf16* Ps = reinterpret_cast<bf16*>(dPs + kWarps * kRows * kSLd);
-  bf16* dSs = Ps + kWarps * kRows * kPLd;
+  constexpr int kStages = stages<kBias>();
+  constexpr int kBiasBytes = stage_bias_bytes<kBias>();
+  constexpr bool kHasBias = kBias != kNoBias;
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kResBytes = kResident * kRowBytes;
+  constexpr int kTileBytes = kBlock * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align_1024(smem_raw);
+  unsigned char* Vs = Ks + kResBytes;
+  unsigned char* Qs = Vs + kResBytes;              // kStages tiles
+  unsigned char* dOs = Qs + kStages * kTileBytes;  // kStages tiles
+  unsigned char* Bs = dOs + kStages * kTileBytes;  // kStages bias tiles
+  float* stats = reinterpret_cast<float*>(Bs + kStages * kBiasBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 3 * kBlock * kStages);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
 
   const int bh = blockIdx.x % bh_count;
-  const int k0 = static_cast<int>(blockIdx.x / bh_count) * kBK;
+  const int k0 = static_cast<int>(blockIdx.x / bh_count) * kResident;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int krow = k0 + warp * kRows + r;
+  const int nq = (sq + kBlock - 1) / kBlock;
 
-  const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
-  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-  const bf16* ob = dout + static_cast<size_t>(bh) * sq * D;
-  const float* m_b = row_max + static_cast<size_t>(bh) * sq;
-  const float* l_b = row_sum + static_cast<size_t>(bh) * sq;
-  const float* delta_b = delta + static_cast<size_t>(bh) * sq;
-  // the bias of this lane's key: one value for a key-padding row (RS = 1;
-  // keys past S_k, never written, read the last key's), else row `qrow`
-  // of the group's (S_q, S_k) block
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);               // the producer warp's lanes
+      mbar_init(&empty[s], 4 * kConsumers);  // one per consumer warp
+    }
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one warp
+    setmaxnreg_dec<24>();
+    if (warp > 4 * kConsumers) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * kResBytes);
+      tma_load_3d(Ks, &tm_k, kv_full, 0, k0, bh);
+      tma_load_3d(Vs, &tm_v, kv_full, 0, k0, bh);
+    }
+    // each lane loads rows lane and lane + 32 of a q tile's m, 1/l and
+    // delta one live tile ahead, so the loads wait behind the ring
+    const size_t base = static_cast<size_t>(bh) * sq;
+    auto next_live = [&](int qt) {
+      while (qt < nq && !block_live(qt, k0, sq, sk, causal, offset) &&
+             !block_live(qt, k0 + 64, sq, sk, causal, offset))
+        ++qt;
+      return qt;
+    };
+    float row_stats[2][3];
+    auto fetch = [&](int qt) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int r = qt * kBlock + lane + 32 * k;
+        const bool in = qt < nq && r < sq;
+        row_stats[k][0] = in ? row_max[base + r] : 0.f;
+        row_stats[k][1] = in ? 1.f / row_sum[base + r] : 0.f;
+        row_stats[k][2] = in ? delta[base + r] : 0.f;
+      }
+    };
+    int qt = next_live(0);
+    fetch(qt);
+    for (int t = 0; qt < nq; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      float* st = stats + 3 * kBlock * s;
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          st[c * kBlock + lane + 32 * k] = row_stats[k][c];
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * kTileBytes + kBiasBytes);
+        tma_load_3d(Qs + s * kTileBytes, &tm_q, &full[s], 0, qt * kBlock, bh);
+        tma_load_3d(dOs + s * kTileBytes, &tm_do, &full[s], 0, qt * kBlock,
+                    bh);
+        if constexpr (kBias == kBiasTile)
+          for (int b = 0; b < kResident / 32; ++b)
+            tma_load_3d(Bs + s * kBiasBytes + b * kBlock * 128, &tm_bias,
+                        &full[s], k0 + 32 * b, qt * kBlock, bh / bias_div);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+      qt = next_live(qt + 1);
+      fetch(qt);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  // a consumer: warpgroup wg owns keys [kw0, kw0 + 64); this thread holds
+  // keys krow0 and krow0 + 8 (the accumulators' rows) and queries
+  // 8j + 2 quad + e of the tile (their columns)
+  const int wg = warp >> 2;
+  const int kw0 = k0 + 64 * wg;
+  const int quad = lane & 3;
+  const int krow0 = kw0 + 16 * (warp & 3) + (lane >> 2);
+
+  // the bias of the group; with one key-padding row (RS = 1) the two
+  // keys' values (keys past S_k, never written, read the last key's)
   const float* bias_g = nullptr;
-  float bias_k = 0.f;
-  if constexpr (kBias) {
+  float bias_k[2] = {0.f, 0.f};
+  if constexpr (kBias == kBiasGlobal) {
     bias_g = flash_operands::bias_row(bias, bh, bias_div, bias_rows, 0, sk);
-    if (bias_rows == 1) bias_k = flash_operands::bias_at(bias_g, min(krow, sk - 1));
+    if (bias_rows == 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bias_k[h] = flash_operands::bias_at(bias_g, min(krow0 + 8 * h, sk - 1));
   }
   uint32_t key = 0;
   if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
 
-  float* Sw = Ss + warp * kRows * kSLd;
-  float* dPw = dPs + warp * kRows * kSLd;
-  bf16* Pw = Ps + warp * kRows * kPLd;
-  bf16* dSw = dSs + warp * kRows * kPLd;
-
-  load_tile<D>(Ks, kb, k0, sk);
-  load_tile<D>(Vs, vb, k0, sk);
-  __syncthreads();
-  FragA ka[D / 16], va[D / 16];
+  const float scale_log2 = scale * kLog2e;
+  float acc_dk[D / 2], acc_dv[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(ka[kk], Ks + warp * kRows * kLd + kk * 16, kLd);
-    wmma::load_matrix_sync(va[kk], Vs + warp * kRows * kLd + kk * 16, kLd);
-  }
-  FragAcc acc_dk[D / 16], acc_dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(acc_dk[n], 0.f);
-    wmma::fill_fragment(acc_dv[n], 0.f);
-  }
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
-  const int nq = (sq + kBQ - 1) / kBQ;
+  mbar_wait(kv_full, 0);
+  const uint64_t k_desc = make_desc<kRowBytes>(Ks + wg * 64 * kRowBytes);
+  const uint64_t v_desc = make_desc<kRowBytes>(Vs + wg * 64 * kRowBytes);
+
+  int t = 0;
   for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kBQ;
-    if (causal) {
-      const int q_last = min(q0 + kBQ, sq) - 1;
-      const bool live = q_last + offset >= k0;
-      const bool fully_masked_rows = q0 + offset < 0;
-      if (!live && !fully_masked_rows) continue;  // uniform over the CTA
-    }
-    load_tile<D>(Qs, qb, q0, sq);
-    load_tile<D>(dOs, ob, q0, sq);
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-      const bool in = q0 + i < sq;
-      m_s[i] = in ? m_b[q0 + i] : 0.f;
-      il_s[i] = in ? 1.f / l_b[q0 + i] : 0.f;
-      delta_s[i] = in ? delta_b[q0 + i] : 0.f;
-    }
-    __syncthreads();
+    const bool mine = block_live(qt, kw0, sq, sk, causal, offset);
+    if (!block_live(qt, k0, sq, sk, causal, offset) &&
+        !block_live(qt, k0 + 64, sq, sk, causal, offset))
+      continue;
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    if (mine) {
+      const int q0 = qt * kBlock;
+      const uint64_t q_desc = make_desc<kRowBytes>(Qs + s * kTileBytes);
+      const uint64_t do_desc = make_desc<kRowBytes>(dOs + s * kTileBytes);
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float acc_s[kBlock / 2], acc_dp[kBlock / 2];
+#pragma unroll
+      for (int i = 0; i < kBlock / 2; ++i) acc_s[i] = acc_dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(acc_s, desc_add(k_desc, 32 * kk), desc_add(q_desc, 32 * kk),
+                 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(acc_dp, desc_add(v_desc, 32 * kk),
+                 desc_add(do_desc, 32 * kk), 1);
+      wgmma_commit();
 
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-    times_tile_t<D>(ka, Qs, Sw);
-    times_tile_t<D>(va, dOs, dPw);
-    __syncwarp();
-
-    // P^T and dS^T in f32, rounded to bf16 for the products below
-    const float* srow = Sw + r * kSLd;
-    const float* dprow = dPw + r * kSLd;
-    bf16* prow = Pw + r * kPLd;
-    bf16* dsrow = dSw + r * kPLd;
-#pragma unroll 8
-    for (int c = 0; c < kBQ / 2; ++c) {
-      const int cl = 2 * c + half;
-      const int qrow = q0 + cl;
-      float pv = 0.f, ds = 0.f;
-      if (qrow < sq && krow < sk) {
-        const bool masked = causal && krow > qrow + offset;
-        float s = kMaskValue;
-        if (!masked) {
-          s = srow[cl] * scale;
-          if constexpr (kBias)
-            s += bias_rows == 1 ? bias_k
-                                : flash_operands::bias_at(
-                                      bias_g + static_cast<size_t>(qrow) * sk,
-                                      krow);
-        }
-        const float p = __expf(s - m_s[cl]) * il_s[cl];
-        float dp = dprow[cl];
-        pv = p;
-        if constexpr (kDropout) {
-          const float keep =
-              flash_operands::dropout_keep(
-                  key, flash_operands::dropout_row(key, qrow), krow, threshold)
-                  ? drop_scale
-                  : 0.f;
-          pv = p * keep;
-          dp *= keep;
-        }
-        if (!masked) ds = p * (dp - delta_s[cl]);
+      float bv[kBlock / 2];
+      if constexpr (kBias == kBiasGlobal) {
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int qrow = q0 + 8 * j + 2 * quad + e;
+              const int krow = krow0 + 8 * h;
+              bv[4 * j + 2 * h + e] =
+                  bias_rows == 1 ? bias_k[h]
+                  : qrow < sq && krow < sk
+                      ? flash_operands::bias_at(
+                            bias_g + static_cast<size_t>(qrow) * sk, krow)
+                      : 0.f;
+            }
+      } else if constexpr (kBias == kBiasTile) {
+        // the staged (query, key) tile read transposed: a warp's lanes
+        // read 8 keys of 4 queries, on distinct banks
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              bv[4 * j + 2 * h + e] = fmaxf(
+                  *flash_operands::bias_tile_at<kBlock>(
+                      Bs + s * kBiasBytes, 8 * j + 2 * quad + e,
+                      krow0 - k0 + 8 * h),
+                  flash_operands::kPadValue);
       }
-      prow[cl] = __float2bfloat16(pv);
-      dsrow[cl] = __float2bfloat16(ds);
+      wgmma_wait();
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
+
+      // P^T and dS^T in f32, rounded to bf16 as the next products' A.  A
+      // block with no masked pair and no ragged row or key (not "edge")
+      // skips the masks, and without a bias folds the scale into the
+      // exponent; elsewhere p = exp(s - m) takes the difference first,
+      // exact for a fully masked row (s = m = MASK_VALUE).
+      const float* st = stats + 3 * kBlock * s;
+      auto elementwise = [&](auto edge_tag) {
+        constexpr bool kEdge = decltype(edge_tag)::value;
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * quad + e;
+            const int qrow = q0 + c;
+            const float m_c = st[c], il_c = st[kBlock + c];
+            const float delta_c = st[2 * kBlock + c];
+            uint32_t row_hash = 0;
+            if constexpr (kDropout)
+              row_hash = flash_operands::dropout_row(key, qrow);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              const int krow = krow0 + 8 * h;
+              float pv = 0.f, ds = 0.f;
+              if (!kEdge || (qrow < sq && krow < sk)) {
+                const bool masked =
+                    kEdge && causal && krow > qrow + offset;
+                float p;
+                if constexpr (!kEdge && !kHasBias) {
+                  p = ex2(fmaf(acc_s[i], scale_log2, -m_c * kLog2e)) * il_c;
+                } else {
+                  float x = kMaskValue;
+                  if (!masked) {
+                    x = acc_s[i] * scale;
+                    if constexpr (kHasBias) x = fmaf(acc_s[i], scale, bv[i]);
+                  }
+                  p = __expf(x - m_c) * il_c;
+                }
+                float dp = acc_dp[i];
+                pv = p;
+                if constexpr (kDropout) {
+                  const float keep = flash_operands::dropout_keep(
+                                         key, row_hash, krow, threshold)
+                                         ? drop_scale
+                                         : 0.f;
+                  pv = p * keep;
+                  dp *= keep;
+                }
+                if (!masked) ds = p * (dp - delta_c);
+              }
+              acc_s[i] = pv;
+              acc_dp[i] = ds;
+            }
+          }
+      };
+      const bool edge = q0 + kBlock > sq || kw0 + 64 > sk ||
+                        (causal && kw0 + 63 > q0 + offset);
+      if (edge)
+        elementwise(std::true_type{});
+      else
+        elementwise(std::false_type{});
+      uint32_t pa[kBlock / 4], dsa[kBlock / 4];
+#pragma unroll
+      for (int i = 0; i < kBlock / 4; ++i) {
+        pa[i] = pack_bf16(acc_s[2 * i], acc_s[2 * i + 1]);
+        dsa[i] = pack_bf16(acc_dp[2 * i], acc_dp[2 * i + 1]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk) {
+        wgmma_rs(acc_dv, pa + 4 * kk, desc_add(do_desc, kk * 16 * kRowBytes),
+                 1);
+        wgmma_rs(acc_dk, dsa + 4 * kk, desc_add(q_desc, kk * 16 * kRowBytes),
+                 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
     }
     __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q
-    accumulate<D>(acc_dv, Pw, dOs);
-    accumulate<D>(acc_dk, dSw, Qs);
-    __syncthreads();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    ++t;
   }
 
-  const int row0 = k0 + warp * kRows;
-  bf16* dkb = dk + static_cast<size_t>(bh) * sk * D;
-  bf16* dvb = dv + static_cast<size_t>(bh) * sk * D;
-  store_rows<D>(acc_dk, Sw, dkb, row0, sk, scale);
-  store_rows<D>(acc_dv, Sw, dvb, row0, sk, 1.f);
+  const size_t base = static_cast<size_t>(bh) * sk * D;
+  store_rows<D>(acc_dk, dk + base, krow0, sk, scale);
+  store_rows<D>(acc_dv, dv + base, krow0, sk, 1.f);
 }
 
-template <int D, bool kBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+template <int D, int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_bias,
                     const float* __restrict__ row_max,
                     const float* __restrict__ row_sum,
                     const float* __restrict__ delta,
@@ -340,160 +471,300 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int bh_count, int sq, int sk, float scale, int causal,
                     int offset, int bias_div, int bias_rows,
                     uint32_t threshold, float drop_scale) {
-  static_assert(D <= kSLd, "the f32 scratch rows stage D-wide outputs");
-  constexpr int kLd = kTileLd<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBQ * kLd;
-  bf16* Ks = dOs + kBQ * kLd;
-  bf16* Vs = Ks + kBK * kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBK * kLd);
-  float* dPs = Ss + kWarps * kRows * kSLd;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + kWarps * kRows * kSLd);
+  constexpr int kStages = stages<kBias>();
+  constexpr int kBiasBytes = stage_bias_bytes<kBias>();
+  constexpr bool kHasBias = kBias != kNoBias;
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kResBytes = kResident * kRowBytes;
+  constexpr int kTileBytes = kBlock * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_1024(smem_raw);
+  unsigned char* dOs = Qs + kResBytes;
+  unsigned char* Ks = dOs + kResBytes;            // kStages tiles
+  unsigned char* Vs = Ks + kStages * kTileBytes;  // kStages tiles
+  unsigned char* Bs = Vs + kStages * kTileBytes;  // kStages bias tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBiasBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
 
-  const int n_tiles = (sq + kBQ - 1) / kBQ;
+  const int n_tiles = (sq + kResident - 1) / kResident;
   const int bh = blockIdx.x % bh_count;
-  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
-  const int q0 = tile * kBQ;
+  const int q0 =
+      (n_tiles - 1 - static_cast<int>(blockIdx.x / bh_count)) * kResident;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  const int row = q0 + warp * kRows + r;
-
-  const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
-  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-  const bf16* ob = dout + static_cast<size_t>(bh) * sq * D;
-
-  float* Sw = Ss + warp * kRows * kSLd;
-  float* dPw = dPs + warp * kRows * kSLd;
-  bf16* dSw = dSs + warp * kRows * kPLd;
-
-  load_tile<D>(Qs, qb, q0, sq);
-  load_tile<D>(dOs, ob, q0, sq);
-  const size_t ri = static_cast<size_t>(bh) * sq + row;
-  const float m_r = row < sq ? row_max[ri] : 0.f;
-  const float il_r = row < sq ? 1.f / row_sum[ri] : 0.f;
-  const float delta_r = row < sq ? delta[ri] : 0.f;
-  // rows past S_q, never written, read the last row's bias
-  const float* brow = nullptr;
-  if constexpr (kBias)
-    brow = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
-                                    min(row, sq - 1), sk);
-  uint32_t key = 0, row_hash = 0;
-  if constexpr (kDropout) {
-    key = flash_operands::dropout_key(seed, bh);
-    row_hash = flash_operands::dropout_row(key, row);
+  // each warpgroup's keys [0, k_end): up to the causal limit of its last row
+  int k_end[kConsumers];
+#pragma unroll
+  for (int w = 0; w < kConsumers; ++w) {
+    const int wq0 = q0 + 64 * w;
+    const int q_last = min(wq0 + 64, sq) - 1;
+    k_end[w] = wq0 >= sq ? 0
+               : causal  ? max(0, min(sk, q_last + offset + 1))
+                         : sk;
   }
-  int k_end = sk;
-  if (causal) {
-    const int q_last = min(q0 + kBQ, sq) - 1;
-    k_end = max(0, min(sk, q_last + offset + 1));
+  const int n_kt = (max(k_end[0], k_end[1]) + kBlock - 1) / kBlock;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
   }
   __syncthreads();
 
-  FragA qa[D / 16], oa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], Qs + warp * kRows * kLd + kk * 16, kLd);
-    wmma::load_matrix_sync(oa[kk], dOs + warp * kRows * kLd + kk * 16, kLd);
-  }
-  FragAcc acc_dq[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc_dq[n], 0.f);
-
-  for (int kt = 0; kt < k_end; kt += kBK) {
-    load_tile<D>(Ks, kb, kt, sk);
-    load_tile<D>(Vs, vb, kt, sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-    times_tile_t<D>(qa, Ks, Sw);
-    times_tile_t<D>(oa, Vs, dPw);
-    __syncwarp();
-
-    const float* srow = Sw + r * kSLd;
-    const float* dprow = dPw + r * kSLd;
-    bf16* dsrow = dSw + r * kPLd;
-#pragma unroll 8
-    for (int c = 0; c < kBK / 2; ++c) {
-      const int cl = 2 * c + half;
-      const int col = kt + cl;
-      float ds = 0.f;
-      if (row < sq && col < sk && (!causal || col <= row + offset)) {
-        float s = srow[cl] * scale;
-        if constexpr (kBias) s += flash_operands::bias_at(brow, col);
-        const float p = __expf(s - m_r) * il_r;
-        float dp = dprow[cl];
-        if constexpr (kDropout)
-          dp = flash_operands::dropout_keep(key, row_hash, col, threshold)
-                   ? dp * drop_scale
-                   : 0.f;
-        ds = p * (dp - delta_r);
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one thread
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kConsumers && lane == 0) {
+      mbar_expect_tx(q_full, 2 * kResBytes);
+      tma_load_3d(Qs, &tm_q, q_full, 0, q0, bh);
+      tma_load_3d(dOs, &tm_do, q_full, 0, q0, bh);
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes + kBiasBytes);
+        tma_load_3d(Ks + s * kTileBytes, &tm_k, &full[s], 0, t * kBlock, bh);
+        tma_load_3d(Vs + s * kTileBytes, &tm_v, &full[s], 0, t * kBlock, bh);
+        if constexpr (kBias == kBiasTile)
+          for (int b = 0; b < kBlock / 32; ++b)
+            tma_load_3d(Bs + s * kBiasBytes + b * kResident * 128, &tm_bias,
+                        &full[s], t * kBlock + 32 * b, q0, bh / bias_div);
       }
-      dsrow[cl] = __float2bfloat16(ds);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  // a consumer: rows row0 and row0 + 8 of warpgroup wg's 64
+  const int wg = warp >> 2;
+  const int quad = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int my_kt = (k_end[wg] + kBlock - 1) / kBlock;
+
+  float m_r[2], il_r[2], delta_r[2];
+  const float* brow[2] = {nullptr, nullptr};
+  uint32_t key = 0, row_hash[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const size_t ri = static_cast<size_t>(bh) * sq + row;
+    m_r[h] = row < sq ? row_max[ri] : 0.f;
+    il_r[h] = row < sq ? 1.f / row_sum[ri] : 0.f;
+    delta_r[h] = row < sq ? delta[ri] : 0.f;
+    // rows past S_q, never written, read the last row's bias
+    if constexpr (kBias == kBiasGlobal)
+      brow[h] = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
+                                         min(row, sq - 1), sk);
+    if constexpr (kDropout) {
+      key = flash_operands::dropout_key(seed, bh);
+      row_hash[h] = flash_operands::dropout_row(key, row);
+    }
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  const float mb_r[2] = {m_r[0] * kLog2e, m_r[1] * kLog2e};
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  const uint64_t q_desc = make_desc<kRowBytes>(Qs + wg * 64 * kRowBytes);
+  const uint64_t do_desc = make_desc<kRowBytes>(dOs + wg * 64 * kRowBytes);
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    if (t < my_kt) {
+      const uint64_t k_desc = make_desc<kRowBytes>(Ks + s * kTileBytes);
+      const uint64_t v_desc = make_desc<kRowBytes>(Vs + s * kTileBytes);
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
+      float acc_s[kBlock / 2], acc_dp[kBlock / 2];
+#pragma unroll
+      for (int i = 0; i < kBlock / 2; ++i) acc_s[i] = acc_dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(acc_s, desc_add(q_desc, 32 * kk), desc_add(k_desc, 32 * kk),
+                 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(acc_dp, desc_add(do_desc, 32 * kk),
+                 desc_add(v_desc, 32 * kk), 1);
+      wgmma_commit();
+
+      const int c0 = t * kBlock + 2 * quad;
+      float bv[kBlock / 2];
+      if constexpr (kBias == kBiasGlobal) {
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = c0 + 8 * j + e;
+              bv[4 * j + 2 * h + e] =
+                  col < sk ? flash_operands::bias_at(brow[h], col) : 0.f;
+            }
+      } else if constexpr (kBias == kBiasTile) {
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 b2 = *reinterpret_cast<const float2*>(
+                flash_operands::bias_tile_at<kResident>(
+                    Bs + s * kBiasBytes, row0 - q0 + 8 * h,
+                    8 * j + 2 * quad));
+            bv[4 * j + 2 * h] = fmaxf(b2.x, flash_operands::kPadValue);
+            bv[4 * j + 2 * h + 1] = fmaxf(b2.y, flash_operands::kPadValue);
+          }
+      }
+      wgmma_wait();
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
+
+      // dS in f32, rounded to bf16 as the next product's A; a tile with
+      // no masked pair and no ragged row or key skips the masks, as in
+      // the dK/dV pass
+      auto elementwise = [&](auto edge_tag) {
+        constexpr bool kEdge = decltype(edge_tag)::value;
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              const int col = c0 + 8 * j + e;
+              const int row = row0 + 8 * h;
+              float ds = 0.f;
+              if (!kEdge ||
+                  (row < sq && col < sk && (!causal || col <= row + offset))) {
+                float p;
+                if constexpr (!kEdge && !kHasBias) {
+                  p = ex2(fmaf(acc_s[i], scale_log2, -mb_r[h])) * il_r[h];
+                } else {
+                  float x = acc_s[i] * scale;
+                  if constexpr (kHasBias) x = fmaf(acc_s[i], scale, bv[i]);
+                  p = __expf(x - m_r[h]) * il_r[h];
+                }
+                float dp = acc_dp[i];
+                if constexpr (kDropout)
+                  dp = flash_operands::dropout_keep(key, row_hash[h], col,
+                                                    threshold)
+                           ? dp * drop_scale
+                           : 0.f;
+                ds = p * (dp - delta_r[h]);
+              }
+              acc_s[i] = ds;
+            }
+      };
+      const bool edge = (t + 1) * kBlock > sk || q0 + 64 * (wg + 1) > sq ||
+                        (causal && (t + 1) * kBlock - 1 > q0 + 64 * wg + offset);
+      if (edge)
+        elementwise(std::true_type{});
+      else
+        elementwise(std::false_type{});
+      uint32_t dsa[kBlock / 4];
+#pragma unroll
+      for (int i = 0; i < kBlock / 4; ++i)
+        dsa[i] = pack_bf16(acc_s[2 * i], acc_s[2 * i + 1]);
+
+      // dQ += dS K
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        wgmma_rs(acc_dq, dsa + 4 * kk, desc_add(k_desc, kk * 16 * kRowBytes),
+                 1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc_dq);
     }
     __syncwarp();
-
-    // dQ += dS K
-    accumulate<D>(acc_dq, dSw, Ks);
-    __syncthreads();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  store_rows<D>(acc_dq, Sw, dq + static_cast<size_t>(bh) * sq * D,
-                q0 + warp * kRows, sq, scale);
+  store_rows<D>(acc_dq, dq + static_cast<size_t>(bh) * sq * D, row0, sq,
+                scale);
 }
 
-template <int D, bool kBias, bool kDropout>
+template <int D, int kBias, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* m, const void* l, const void* delta, const void* bias,
            const void* seed, void* dq, void* dk, void* dv, int bh, int sq,
            int sk, int bias_div, int bias_rows, float scale, int causal,
            int offset, uint32_t threshold, float drop_scale,
            cudaStream_t stream) {
-  constexpr size_t dkdv_bytes = dkdv_smem_bytes<D>();
-  constexpr size_t dq_bytes = dq_smem_bytes<D>();
+  // the dK/dV pass keeps kResident keys and streams kBlock query rows; the
+  // dQ pass the other way round
+  CUtensorMap q_ring, do_ring, k_res, v_res, q_res, do_res, k_ring, v_ring;
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    int rows, box;
+  } maps[] = {{&q_ring, q, sq, kBlock},      {&do_ring, dout, sq, kBlock},
+              {&k_res, k, sk, kResident},    {&v_res, v, sk, kResident},
+              {&q_res, q, sq, kResident},    {&do_res, dout, sq, kResident},
+              {&k_ring, k, sk, kBlock},      {&v_ring, v, sk, kBlock}};
+  for (const auto& mp : maps) {
+    const cudaError_t err =
+        hopper_host::make_map(mp.map, mp.ptr, bh, mp.rows, D, mp.box);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // the staged bias: (64 queries, 128 keys) tiles for dK/dV, (128, 64)
+  // for dQ
+  CUtensorMap bias_ring{}, bias_res{};
+  if (kBias == kBiasTile) {
+    cudaError_t err = hopper_host::make_bias_map(&bias_ring, bias,
+                                                 bh / bias_div, sq, sk, kBlock);
+    if (err == cudaSuccess)
+      err = hopper_host::make_bias_map(&bias_res, bias, bh / bias_div, sq, sk,
+                                       kResident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  constexpr size_t dkdv_bytes = smem_bytes<D, kBias, true>();
+  constexpr size_t dq_bytes = smem_bytes<D, kBias, false>();
   auto* dkdv_kernel = &flash_bwd_dkdv_kernel<D, kBias, kDropout>;
   auto* dq_kernel = &flash_bwd_dq_kernel<D, kBias, kDropout>;
   cudaError_t err = cudaFuncSetAttribute(
       dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dkdv_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dq_bytes));
+  err = cudaFuncSetAttribute(dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dq_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* op = static_cast<const bf16*>(dout);
   const float* mp = static_cast<const float*>(m);
   const float* lp = static_cast<const float*>(l);
   const float* dp = static_cast<const float*>(delta);
   const float* bp = static_cast<const float*>(bias);
   const int* sp = static_cast<const int*>(seed);
-  const int nk = (sk + kBK - 1) / kBK;
-  const int nq = (sq + kBQ - 1) / kBQ;
+  const int nk = (sk + kResident - 1) / kResident;
+  const int nq = (sq + kResident - 1) / kResident;
   dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk), kThreads, dkdv_bytes,
-                stream>>>(
-      qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), bh, sq, sk, scale, causal, offset, bias_div,
-      bias_rows, threshold, drop_scale);
+                stream>>>(q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
+                          static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh,
+                          sq, sk, scale, causal, offset, bias_div, bias_rows,
+                          threshold, drop_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq), kThreads, dq_bytes,
-              stream>>>(
-      qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<bf16*>(dq), bh, sq, sk,
-      scale, causal, offset, bias_div, bias_rows, threshold, drop_scale);
+              stream>>>(q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
+                        static_cast<bf16*>(dq), bh, sq, sk, scale, causal,
+                        offset, bias_div, bias_rows, threshold, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-using LaunchFn = decltype(&launch<64, false, false>);
+using LaunchFn = decltype(&launch<64, kNoBias, false>);
 
 template <int D>
-LaunchFn pick(bool with_bias, bool dropout) {
-  if (with_bias)
-    return dropout ? &launch<D, true, true> : &launch<D, true, false>;
-  return dropout ? &launch<D, false, true> : &launch<D, false, false>;
+LaunchFn pick(int bias_mode, bool dropout) {
+  if (bias_mode == kBiasTile)
+    return dropout ? &launch<D, kBiasTile, true> : &launch<D, kBiasTile, false>;
+  if (bias_mode == kBiasGlobal)
+    return dropout ? &launch<D, kBiasGlobal, true>
+                   : &launch<D, kBiasGlobal, false>;
+  return dropout ? &launch<D, kNoBias, true> : &launch<D, kNoBias, false>;
 }
 
 }  // namespace
@@ -502,11 +773,10 @@ extern "C" const char* apex_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; m, l (K3's row max and
-// row sum) and delta (bh, sq) f32; bias and seed as K3's (null when
-// absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.  d must be 32
-// or 64.
-// The causal mask is aligned bottom-right.
+// q, dout (bh, sq, d) and k, v (bh, sk, d) bf16, 16-byte aligned; m, l
+// (K3's row max and row sum) and delta (bh, sq) f32; bias and seed as
+// K3's (null when absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.
+// d must be 32 or 64.  The causal mask is aligned bottom-right.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* m, const void* l,
                          const void* delta, const void* bias, const void* seed,
@@ -517,8 +787,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) || groups <= 0 ||
       bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const LaunchFn run = d == 32 ? pick<32>(bias != nullptr, seed != nullptr)
-                               : pick<64>(bias != nullptr, seed != nullptr);
+  const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
+  const LaunchFn run = d == 32 ? pick<32>(mode, seed != nullptr)
+                               : pick<64>(mode, seed != nullptr);
   return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
              bh / groups, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

@@ -12,274 +12,460 @@
 //           and writing o once, i.e. ~S/2 flops per byte at causal D = 64:
 //           above the 295 flop/byte balance point from S ~ 600 on, so the
 //           least time is the live-tile flops / 989 TFLOP/s (bf16 dense).
-// Design:   one 128-thread CTA per (batch*head, 64-row q tile); each of the
-//           four warps owns 16 q rows.  The k/v loop stops at the causal
-//           limit of the tile's last row (the effect of _causal_block_live;
-//           a tile whose first row sees no key at all under bottom-right
-//           alignment walks every key, like the TPU's include_fully_masked
-//           rule).  K and V tiles of 64 rows are staged in shared memory;
-//           QK^T and PV run on the tensor cores through wmma bf16
-//           16x16x16 fragments with f32 accumulation; the online softmax
-//           runs in f32 with two lanes per row.  Masked scores take the
-//           finite MASK_VALUE = -1e9 (flash_attention.py:49) so a row that
-//           sees no key averages V uniformly, as on the TPU; columns past
-//           S_k (the ragged edge) get -inf and weigh exactly zero.  The
-//           TPU kernel's 128-lane broadcast of lse is a tiling artifact of
-//           Mosaic and is dropped: lse is written as (BH, S_q).
-//           The heaviest causal tiles are issued first.  Head dims 64
-//           (GPT, BERT, the evoformer's MSA attention) and 32 (its triangle
-//           attention): nothing depends on 64 but the template argument,
-//           and a bf16 tile row of D + 8 (80 bytes at D = 32, 144 at 64)
-//           starts the eight rows of a fragment load on distinct 16-byte
-//           bank groups either way.  One template instance per head dim and
-//           operand combination (bias, dropout: four each), so a call
-//           without them runs the code it ran before they existed.
-//           Bias: read straight from global memory in the softmax pass,
-//           one f32 per score (a (1, S_k) key-padding row stays in L1/L2
-//           for the whole tile), added after the scale and floored at
-//           PAD_VALUE, before the causal mask.  Dropout: the seed is read
-//           from device memory (no host sync); each lane hashes its row
-//           once per CTA and each (row, col) once more, in registers; the
-//           row max m and sum l take the undropped p, the bf16 P tile of
-//           the PV product takes keep ? p / (1 - p_drop) : 0.  Besides lse
-//           the kernel writes each row's m and l, from which K4 recomputes
-//           p = exp(s - m) / l: exact also for a row that a bias masks
-//           completely, whose lse rounds back to MASK_VALUE in f32.
-//           Not yet used: wgmma, TMA, cp.async pipelining (later work).
+//           With a (BH, S, S) f32 bias the bias bytes bound it instead.
+// Design:   persistent CTAs, one per SM, walk the work items (batch*head,
+//           128-row q tile), heaviest causal tiles first, in rounds of the
+//           grid that alternate direction, so the CTA that took one round's
+//           heaviest item takes the next one's lightest.  Each CTA has two
+//           consumer warpgroups of 64 rows each (wgmma's M) and a producer
+//           warpgroup that hands its registers to them (setmaxnreg) and
+//           issues every load from one thread. The producer loads each item's
+//           Q tile into one of two buffers (so the next item's loads overlap
+//           this one's epilogue, which matters at S = 128-256) and streams K
+//           and V tiles through a ring of shared-memory stages with TMA (3-D
+//           tensor maps (D, S, BH), so ragged rows read as zeros without
+//           touching the next head; 128-byte swizzle at D = 64, 64-byte at D
+//           = 32), each stage guarded by a full and an empty mbarrier: 128
+//           keys and 3 stages without a bias, 64 keys and 2 stages with one
+//           (Tile, measured by tools/flash_tiles.py).  Each consumer computes
+//           S = Q K^T with wgmma (A and B from shared memory), runs the
+//           online softmax on the accumulator registers (row max and sum
+//           reduced over the quad that shares a row), converts P to bf16 in
+//           registers and feeds it as wgmma's A operand for O += P V (V
+//           transposed from shared memory); O stays in registers until the
+//           epilogue writes o, lse, m and l.  Each warpgroup walks the keys
+//           the old 64-row tiles walked: up to the causal limit of its last
+//           row, rounded up to 64, or every key when its first row sees none
+//           (like the TPU's include_fully_masked rule); masked scores take
+//           the finite MASK_VALUE = -1e9 (flash_attention.py:49), so a row
+//           that sees no key averages V uniformly, and keys past that walk or
+//           past S_k get -inf and weigh exactly zero.  Tiles that no row sees
+//           masked skip the masks and, without a bias, fold the scale into
+//           one FFMA before exp2.  The TPU kernel's 128-lane broadcast of lse
+//           is a tiling artifact of Mosaic and is dropped: lse is written as
+//           (BH, S_q).  Bias (added after the scale, floored at PAD_VALUE,
+//           before the causal mask): a (G, S_q, S_k) bias with S_k % 4 == 0
+//           rides the ring as TMA boxes of 32 keys x 128 rows, 128-byte
+//           swizzled so that each quad's float2 reads of 8 rows hit distinct
+//           banks; a key-padding row (RS = 1) or a row stride TMA cannot map
+//           is read per score from global memory in the accumulator layout (a
+//           quad reads 32 contiguous bytes). Dropout: the seed is read from
+//           device memory (no host sync); each thread hashes its two rows
+//           once and each (row, col) it holds; m and l take the undropped p,
+//           the bf16 P of the PV product takes keep ? p / (1 - p_drop) : 0.
+//           Besides lse the kernel writes each row's m and l, from which K4
+//           recomputes p = exp(s - m) / l: exact also for a row that a bias
+//           masks completely, whose lse rounds back to MASK_VALUE in f32. One
+//           template instance per head dim (32, 64), bias mode and dropout.
+//           Not yet used: overlap of one tile's softmax with the next tile's
+//           QK^T (ROADMAP B).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <type_traits>
 
 #include "flash_operands.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using flash_operands::kMaskValue;
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 16;
-static_assert(kBQ == kBK, "load_tile stages q tiles and k/v tiles alike");
-static_assert(kBQ == kWarps * kRowsPerWarp, "each warp owns 16 q rows");
+using flash_operands::kBiasGlobal;
+using flash_operands::kBiasTile;
+using flash_operands::kNoBias;
 
-// Shared-memory row strides, padded so that neither the wmma fragment
-// loads nor the softmax lanes (16 rows x 2 lanes, interleaved columns)
-// pile onto one bank: a bf16 tile row of D + 8 shifts each row by 16
-// bytes; f32 rows of 68 / D + 4 floats and bf16 rows of 72 shift rows by
-// 4 banks.  wmma needs ldm % 8 == 0 (bf16) and % 4 == 0 (f32).
-template <int D> constexpr int kTileLd = D + 8;
-constexpr int kSLd = kBK + 4;
-constexpr int kPLd = kBK + 8;
-template <int D> constexpr int kOLd = D + 4;
+constexpr int kConsumers = 2;                     // warpgroups of 64 rows
+constexpr int kBlockQ = 64 * kConsumers;          // q rows per CTA
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kWalk = 64;  // the key walk's granularity (see Design)
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+// Keys per stage and the ring's depth of each bias mode (measured with
+// apex_tpu_torch/tools/flash_tiles.py, whose sweep overrides them through
+// the macros): 128 keys and 3 stages without a bias; 64 keys and 2 stages
+// with one, which keeps the bias registers or the staged tile small.
+template <int kBias>
+struct Tile {
+#ifdef APEX_FLASH_FWD_BLOCK_K
+  static constexpr int kBlockK = APEX_FLASH_FWD_BLOCK_K;
+#else
+  static constexpr int kBlockK = kBias == kNoBias ? 128 : 64;
+#endif
+#ifdef APEX_FLASH_FWD_STAGES
+  static constexpr int kStages = APEX_FLASH_FWD_STAGES;
+#else
+  static constexpr int kStages = kBias == kNoBias ? 3 : 2;
+#endif
+  static_assert(kBlockK == 64 || kBlockK == 128, "wgmma N of QK^T");
+  // the staged bias of one stage: kBlockK / 32 boxes of 32 keys x kBlockQ
+  // rows of f32
+  static constexpr int kBiasBytes = kBias == kBiasTile ? kBlockQ * kBlockK * 4
+                                                       : 0;
+};
+
+template <int D, int kBias>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (kBQ + 2 * kBK) * kTileLd<D>      // Q, K, V tiles
-         + sizeof(float) * kWarps * kRowsPerWarp * kSLd   // scores
-         + sizeof(bf16) * kWarps * kRowsPerWarp * kPLd    // probabilities
-         + sizeof(float) * kWarps * kRowsPerWarp * kOLd<D>;  // output
+  using T = Tile<kBias>;
+  return 1024                                                       // alignment
+         + size_t{2} * D * (2 * kBlockQ + 2 * T::kStages * T::kBlockK)  // Q K V
+         + size_t{T::kBiasBytes} * T::kStages                       // bias
+         + sizeof(uint64_t) * (2 * T::kStages + 4);                 // mbarriers
 }
 
-// Copy 64 rows of D bf16 from global `src` into shared `dst` (row stride
-// kTileLd) as 16-byte vectors, zero-filling rows at or past `limit`.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int limit) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
-    const int r = i / kVec, c = i % kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D)[c];
-    reinterpret_cast<uint4*>(dst + r * kTileLd<D>)[c] = val;
-  }
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + (((a + 1023) & ~1023u) - a);
 }
 
-template <int D, bool kBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ bias,
-                 const int* __restrict__ seed, bf16* __restrict__ o,
-                 float* __restrict__ lse, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int bh_count, int sq, int sk,
-                 float scale, int causal, int offset, int bias_div,
-                 int bias_rows, uint32_t threshold, float drop_scale) {
-  constexpr int kLd = kTileLd<D>;
-  constexpr int kOld = kOLd<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBQ * kLd;
-  bf16* Vs = Ks + kBK * kLd;
-  float* Ss = reinterpret_cast<float*>(Vs + kBK * kLd);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + kWarps * kRowsPerWarp * kSLd);
-  float* Os = reinterpret_cast<float*>(Ps + kWarps * kRowsPerWarp * kPLd);
+// The keys [0, limit) that warpgroup rows [wq0, wq0 + 64) walk; 0 when
+// none of them is a real row.
+__device__ __forceinline__ int key_limit(int wq0, int sq, int sk, int causal,
+                                         int offset) {
+  if (wq0 >= sq) return 0;
+  if (!causal || wq0 + offset < 0) return sk;
+  const int q_last = min(wq0 + 64, sq) - 1;
+  const int end = q_last + offset + 1;
+  return min(sk, (end + kWalk - 1) / kWalk * kWalk);
+}
 
-  const int n_tiles = (sq + kBQ - 1) / kBQ;
-  const int bh = blockIdx.x % bh_count;
-  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x / bh_count);
-  const int q0 = tile * kBQ;
+template <int D, int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_bias,
+                 const float* __restrict__ bias, const int* __restrict__ seed,
+                 bf16* __restrict__ o, float* __restrict__ lse,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
+                 int bh_count, int sq, int sk, float scale, int causal,
+                 int offset, int bias_div, int bias_rows, uint32_t threshold,
+                 float drop_scale) {
+  constexpr int kBlockK = Tile<kBias>::kBlockK;
+  constexpr int kStages = Tile<kBias>::kStages;
+  constexpr int kBiasBytes = Tile<kBias>::kBiasBytes;
+  constexpr bool kHasBias = kBias != kNoBias;
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kQBytes = kBlockQ * kRowBytes;
+  constexpr int kKVBytes = kBlockK * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_1024(smem_raw);     // two Q tiles
+  unsigned char* Ks = Qs + 2 * kQBytes;
+  unsigned char* Vs = Ks + kStages * kKVBytes;
+  unsigned char* Bs = Vs + kStages * kKVBytes;  // the staged bias tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBiasBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;  // two each, one per Q tile
+  uint64_t* q_empty = q_full + 2;
+
+  const int n_tiles = (sq + kBlockQ - 1) / kBlockQ;
+  const int n_items = bh_count * n_tiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // softmax lanes: two per row; lane `half` owns the row's columns
-  // 2c + half (interleaved, so the 32 lanes of a warp hit distinct banks)
-  const int row_local = lane >> 1, half = lane & 1;
-  const int row = q0 + warp * kRowsPerWarp + row_local;
+  // work item w: batch-head w % BH and q tile n_tiles - 1 - w / BH, so the
+  // heaviest causal tiles come first; each warpgroup walks [0, lim0 or
+  // lim1), the CTA loads n_kt key tiles
+  struct Item {
+    int bh, q0, lim0, lim1, n_kt;
+  };
+  // round r of the grid takes items [r G, r G + G) (G CTAs), forwards in
+  // even rounds and backwards in odd ones: the CTA that took one round's
+  // heaviest item takes the next round's lightest
+  auto item_index = [&](int r) {
+    const int g = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
+    return r * g + ((r & 1) ? g - 1 - c : c);
+  };
+  auto item = [&](int w) {
+    Item it;
+    it.bh = w % bh_count;
+    it.q0 = (n_tiles - 1 - w / bh_count) * kBlockQ;
+    it.lim0 = key_limit(it.q0, sq, sk, causal, offset);
+    it.lim1 = key_limit(it.q0 + 64, sq, sk, causal, offset);
+    it.n_kt = (max(it.lim0, it.lim1) + kBlockK - 1) / kBlockK;
+    return it;
+  };
 
-  const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
-  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-
-  float* Sw = Ss + warp * kRowsPerWarp * kSLd;
-  bf16* Pw = Ps + warp * kRowsPerWarp * kPLd;
-  float* Ow = Os + warp * kRowsPerWarp * kOld;
-
-  // the operands: this row's bias (the ragged rows past S_q, which are
-  // never written, read the last row's) and the row's half of the
-  // dropout hash
-  const float* brow = nullptr;
-  if constexpr (kBias)
-    brow = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
-                                    min(row, sq - 1), sk);
-  uint32_t key = 0, row_hash = 0;
-  if constexpr (kDropout) {
-    key = flash_operands::dropout_key(seed, bh);
-    row_hash = flash_operands::dropout_row(key, row);
-  }
-
-  load_tile<D>(Qs, qb, q0, sq);
-  for (int i = lane; i < kRowsPerWarp * kOld; i += 32) Ow[i] = 0.f;
-
-  int k_end = sk;
-  if (causal && q0 + offset >= 0) {
-    const int q_last = min(q0 + kBQ, sq) - 1;
-    k_end = min(sk, q_last + offset + 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], 4 * kConsumers);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], Qs + warp * kRowsPerWarp * kLd + kk * 16, kLd);
-
-  float m = -INFINITY, l = 0.f;
-  for (int kt = 0; kt < k_end; kt += kBK) {
-    load_tile<D>(Ks, kb, kt, sk);
-    load_tile<D>(Vs, vb, kt, sk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-#pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + n * 16 * kLd + kk * 16, kLd);
-        wmma::mma_sync(acc, qa[kk], kf, acc);
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one thread
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kConsumers && lane == 0) {
+      int t = 0;  // the ring's running count over all items
+      for (int r = 0, n = 0; r * static_cast<int>(gridDim.x) < n_items; ++r) {
+        const int w = item_index(r);
+        if (w >= n_items) continue;
+        const Item it = item(w);
+        const int qb = n & 1;
+        const uint32_t q_phase = (n >> 1) & 1;
+        ++n;
+        mbar_wait(&q_empty[qb], q_phase ^ 1);
+        mbar_expect_tx(&q_full[qb], kQBytes);
+        tma_load_3d(Qs + qb * kQBytes, &tm_q, &q_full[qb], 0, it.q0, it.bh);
+        for (int kt = 0; kt < it.n_kt; ++kt, ++t) {
+          const int s = t % kStages;
+          mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * kKVBytes + kBiasBytes);
+          tma_load_3d(Ks + s * kKVBytes, &tm_k, &full[s], 0, kt * kBlockK,
+                      it.bh);
+          tma_load_3d(Vs + s * kKVBytes, &tm_v, &full[s], 0, kt * kBlockK,
+                      it.bh);
+          if constexpr (kBias == kBiasTile)
+            for (int b = 0; b < kBlockK / 32; ++b)
+              tma_load_3d(Bs + s * kBiasBytes + b * kBlockQ * 128, &tm_bias,
+                          &full[s], kt * kBlockK + 32 * b, it.q0,
+                          it.bh / bias_div);
+        }
       }
-      wmma::store_matrix_sync(Sw + n * 16, acc, kSLd, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // online softmax in f32: two lanes per row, 32 columns each
-    const float* srow = Sw + row_local * kSLd;
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int cl = 2 * c + half;
-      const int col = kt + cl;
-      float s = srow[cl] * scale;
-      if (col >= sk) {
-        s = -INFINITY;
-      } else {
-        if constexpr (kBias) s += flash_operands::bias_at(brow, col);
-        if (causal && col > row + offset) s = kMaskValue;
-      }
-      sv[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = __expf(m - m_new);
-    float psum = 0.f;
-    bf16* prow = Pw + row_local * kPLd;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = __expf(sv[c] - m_new);
-      psum += p;
-      float pv = p;
-      if constexpr (kDropout)
-        pv = flash_operands::dropout_keep(key, row_hash, kt + 2 * c + half,
-                                          threshold)
-                 ? p * drop_scale
-                 : 0.f;
-      prow[2 * c + half] = __float2bfloat16(pv);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = Ow + row_local * kOld;
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[2 * c + half] *= alpha;
-    __syncwarp();
-
-    // O += P V
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc;
-      wmma::load_matrix_sync(oc, Ow + n * 16, kOld, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, Pw + kk * 16, kPLd);
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * kLd + n * 16, kLd);
-        wmma::mma_sync(oc, pa, vf, oc);
-      }
-      wmma::store_matrix_sync(Ow + n * 16, oc, kOld, wmma::mem_row_major);
-    }
-    __syncthreads();
+    return;
   }
 
-  if (row < sq) {
-    const float* orow = Ow + row_local * kOld;
-    bf16* og = o + (static_cast<size_t>(bh) * sq + row) * D;
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int quad = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  int t = 0;
+  for (int r = 0, n = 0; r * static_cast<int>(gridDim.x) < n_items; ++r) {
+    const int w = item_index(r);
+    if (w >= n_items) continue;
+    const Item it = item(w);
+    const int bh = it.bh, q0 = it.q0;
+    // warpgroup wg owns rows [wq0, wq0 + 64); this thread holds rows row0
+    // and row0 + 8 of the accumulators, columns 8j + 2 quad + e
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * (warp & 3) + (lane >> 2);
+    const int col_lim = wg == 0 ? it.lim0 : it.lim1;
+    const int my_kt = (col_lim + kBlockK - 1) / kBlockK;
+
+    // the operands: the bias rows (rows past S_q, never written, read the
+    // last row's) and the dropout hash of each row
+    const float* brow[2] = {nullptr, nullptr};
+    uint32_t key = 0, row_hash[2] = {0, 0};
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c)
-      og[2 * c + half] = __float2bfloat16(orow[2 * c + half] / l);
-    if (half == 0) {
-      const size_t i = static_cast<size_t>(bh) * sq + row;
-      lse[i] = m + logf(l);
-      m_out[i] = m;
-      l_out[i] = l;
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (kBias == kBiasGlobal)
+        brow[h] = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
+                                           min(row0 + 8 * h, sq - 1), sk);
+      if constexpr (kDropout) {
+        key = flash_operands::dropout_key(seed, bh);
+        row_hash[h] = flash_operands::dropout_row(key, row0 + 8 * h);
+      }
+    }
+
+    float acc_o[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc_o[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    const int qb = n & 1;
+    mbar_wait(&q_full[qb], (n >> 1) & 1);
+    ++n;
+    const uint64_t q_desc =
+        make_desc<kRowBytes>(Qs + qb * kQBytes + wg * 64 * kRowBytes);
+
+    for (int kt = 0; kt < it.n_kt; ++kt, ++t) {
+      const int s = t % kStages;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      if (kt < my_kt) {
+        // S = Q K^T
+        const uint64_t k_desc = make_desc<kRowBytes>(Ks + s * kKVBytes);
+        float acc_s[kBlockK / 2];
+#pragma unroll
+        for (int i = 0; i < kBlockK / 2; ++i) acc_s[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(acc_s, desc_add(q_desc, 32 * kk), desc_add(k_desc, 32 * kk),
+                   1);
+        wgmma_commit();
+
+        const int c0 = kt * kBlockK + 2 * quad;
+        float bv[kBlockK / 2];
+        if constexpr (kBias == kBiasGlobal) {
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = c0 + 8 * j + e;
+                bv[4 * j + 2 * h + e] =
+                    col < col_lim ? flash_operands::bias_at(brow[h], col) : 0.f;
+              }
+        } else if constexpr (kBias == kBiasTile) {
+          // this thread's rows of the staged tile, two keys at a time
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 b2 = *reinterpret_cast<const float2*>(
+                  flash_operands::bias_tile_at<kBlockQ>(
+                      Bs + s * kBiasBytes, row0 - q0 + 8 * h,
+                      8 * j + 2 * quad));
+              bv[4 * j + 2 * h] = fmaxf(b2.x, flash_operands::kPadValue);
+              bv[4 * j + 2 * h + 1] = fmaxf(b2.y, flash_operands::kPadValue);
+            }
+        }
+        wgmma_wait();
+        fence_regs(acc_s);
+
+        // online softmax on the accumulator registers.  A tile that no
+        // row of the warpgroup sees masked or past its walk (not "edge")
+        // skips the masks, and without a bias keeps S unscaled and folds the
+        // scale into the exponent (one FFMA); elsewhere p = exp(s - m) with
+        // the difference taken first, exact when s and m are both
+        // MASK_VALUE (a fully masked row) or both ~ -1e9 (a padding bias).
+        uint32_t pa[kBlockK / 4];
+        auto softmax = [&](auto edge_tag) {
+          constexpr bool kEdge = decltype(edge_tag)::value;
+          constexpr bool kRaw = !kEdge && !kHasBias;
+          float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * h + e;
+                const int col = c0 + 8 * j + e;
+                float x = acc_s[i];
+                if constexpr (kHasBias) x = fmaf(x, scale, bv[i]);
+                else if constexpr (kEdge) x *= scale;
+                if constexpr (kEdge) {
+                  if (col >= col_lim) x = -INFINITY;
+                  else if (causal && col > row0 + 8 * h + offset) x = kMaskValue;
+                }
+                acc_s[i] = x;
+                mx[h] = fmaxf(mx[h], x);
+              }
+          float alpha[2], mb[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            if constexpr (kRaw) mx[h] *= scale;
+            const float m_new = fmaxf(m[h], mx[h]);
+            alpha[h] = __expf(m[h] - m_new);
+            m[h] = m_new;
+            mb[h] = m_new * kLog2e;
+            l[h] *= alpha[h];
+          }
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float pv[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float x = acc_s[4 * j + 2 * h + e];
+                const float p = kRaw ? ex2(fmaf(x, scale_log2, -mb[h]))
+                                     : __expf(x - m[h]);
+                l[h] += p;
+                pv[e] = p;
+                if constexpr (kDropout)
+                  pv[e] = flash_operands::dropout_keep(key, row_hash[h],
+                                                       c0 + 8 * j + e, threshold)
+                              ? p * drop_scale
+                              : 0.f;
+              }
+              pa[2 * j + h] = pack_bf16(pv[0], pv[1]);
+            }
+        };
+        const bool edge = (kt + 1) * kBlockK > col_lim ||
+                          (causal && (kt + 1) * kBlockK - 1 > wq0 + offset);
+        if (edge)
+          softmax(std::true_type{});
+        else
+          softmax(std::false_type{});
+
+        // O += P V
+        const uint64_t v_desc = make_desc<kRowBytes>(Vs + s * kKVBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk)
+          wgmma_rs(acc_o, pa + 4 * kk, desc_add(v_desc, kk * 16 * kRowBytes), 1);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc_o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&q_empty[qb]);  // the last QK^T has read Q
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = row0 + 8 * h;
+      if (row >= sq) continue;
+      const float inv = 1.f / l[h];
+      bf16* og = o + (static_cast<size_t>(bh) * sq + row) * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * h] * inv,
+                                  acc_o[4 * j + 2 * h + 1] * inv);
+      if (quad == 0) {
+        const size_t r = static_cast<size_t>(bh) * sq + row;
+        lse[r] = m[h] + logf(l[h]);
+        m_out[r] = m[h];
+        l_out[r] = l[h];
+      }
     }
   }
 }
 
-template <int D, bool kBias, bool kDropout>
+template <int D, int kBias, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seed, void* o, void* lse, void* m, void* l, int bh,
            int sq, int sk, int bias_div, int bias_rows, float scale,
            int causal, int offset, uint32_t threshold, float drop_scale,
            cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  auto* kernel = &flash_fwd_kernel<D, kBias, kDropout>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  constexpr int kBlockK = Tile<kBias>::kBlockK;
+  CUtensorMap tm_q, tm_k, tm_v, tm_bias{};
+  cudaError_t err = hopper_host::make_map(&tm_q, q, bh, sq, D, kBlockQ);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&tm_k, k, bh, sk, D, kBlockK);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&tm_v, v, bh, sk, D, kBlockK);
+  if (err == cudaSuccess && kBias == kBiasTile)
+    err = hopper_host::make_bias_map(&tm_bias, bias, bh / bias_div, sq, sk,
+                                     kBlockQ);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (sq + kBQ - 1) / kBQ;
-  const dim3 grid(static_cast<unsigned>(bh) * n_tiles);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+  constexpr size_t bytes = smem_bytes<D, kBias>();
+  auto* kernel = &flash_fwd_kernel<D, kBias, kDropout>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // persistent: one CTA per SM (shared memory and registers allow one)
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_items = bh * ((sq + kBlockQ - 1) / kBlockQ);
+  const int grid = min(n_items, sms);
+  kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_bias, static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<bf16*>(o),
       static_cast<float*>(lse), static_cast<float*>(m),
       static_cast<float*>(l), bh, sq, sk, scale, causal, offset, bias_div,
@@ -287,13 +473,16 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-using LaunchFn = decltype(&launch<64, false, false>);
+using LaunchFn = decltype(&launch<64, kNoBias, false>);
 
 template <int D>
-LaunchFn pick(bool with_bias, bool dropout) {
-  if (with_bias)
-    return dropout ? &launch<D, true, true> : &launch<D, true, false>;
-  return dropout ? &launch<D, false, true> : &launch<D, false, false>;
+LaunchFn pick(int bias_mode, bool dropout) {
+  if (bias_mode == kBiasTile)
+    return dropout ? &launch<D, kBiasTile, true> : &launch<D, kBiasTile, false>;
+  if (bias_mode == kBiasGlobal)
+    return dropout ? &launch<D, kBiasGlobal, true>
+                   : &launch<D, kBiasGlobal, false>;
+  return dropout ? &launch<D, kNoBias, true> : &launch<D, kNoBias, false>;
 }
 
 }  // namespace
@@ -302,10 +491,11 @@ extern "C" const char* apex_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (bh, sq, d), k and v (bh, sk, d) bf16; bias (groups, bias_rows, sk)
-// f32 or null; seed one int32 or null (no dropout); o (bh, sq, d) bf16;
-// lse, m, l (bh, sq) f32.  d must be 32 or 64, groups must divide bh and
-// bias_rows be 1 or sq.  The causal mask is aligned bottom-right.
+// q (bh, sq, d), k and v (bh, sk, d) bf16, 16-byte aligned; bias (groups,
+// bias_rows, sk) f32 or null; seed one int32 or null (no dropout); o (bh,
+// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32 or 64, groups must
+// divide bh and bias_rows be 1 or sq.  The causal mask is aligned
+// bottom-right.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* seed, void* o,
                          void* lse, void* m, void* l, int bh, int sq, int sk,
@@ -315,8 +505,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) || groups <= 0 ||
       bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const LaunchFn run = d == 32 ? pick<32>(bias != nullptr, seed != nullptr)
-                               : pick<64>(bias != nullptr, seed != nullptr);
+  const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
+  const LaunchFn run = d == 32 ? pick<32>(mode, seed != nullptr)
+                               : pick<64>(mode, seed != nullptr);
   return run(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, bh / groups,
              bias_rows, scale, causal, sk - sq, threshold, drop_scale,
              static_cast<cudaStream_t>(stream));

@@ -62,4 +62,30 @@ __device__ __forceinline__ float bias_at(const float* row, int col) {
   return fmaxf(row[col], kPadValue);
 }
 
+// How K3 and K4 read a bias: none; per score from global memory (RS = 1,
+// or a row stride TMA cannot map); or staged per tile into shared memory
+// by TMA (RS = S_q, S_k % 4 == 0, 16-byte aligned).
+enum BiasMode { kNoBias = 0, kBiasGlobal = 1, kBiasTile = 2 };
+
+// The mode of a call's bias (null when absent) on the host.
+inline int bias_mode(const void* bias, int bias_rows, int sq, int sk) {
+  if (bias == nullptr) return kNoBias;
+  const bool tma = bias_rows == sq && sq > 1 && sk % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  return tma ? kBiasTile : kBiasGlobal;
+}
+
+// Element (r, c) of a bias tile staged by TMA as boxes of 32 keys x kRows
+// rows of 128 bytes, each box 128-byte swizzled: the 16-byte chunk of a
+// row is XORed with the row's index mod 8, so the quads of a warp that
+// read 8 rows of one box, or 8 keys of 8 rows, hit distinct banks.
+template <int kRows>
+__device__ __forceinline__ const float* bias_tile_at(const unsigned char* tile,
+                                                     int r, int c) {
+  const int cc = c & 31;
+  return reinterpret_cast<const float*>(
+      tile + (c >> 5) * kRows * 128 + r * 128 + (((cc >> 2) ^ (r & 7)) << 4) +
+      ((cc & 3) << 2));
+}
+
 }  // namespace flash_operands

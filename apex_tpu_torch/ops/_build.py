@@ -26,7 +26,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 __all__ = ["KERNELS", "build", "load", "check", "build_log", "source_path"]
 
@@ -56,7 +56,7 @@ def _build_dir() -> Path:
 _BUILD = _build_dir()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOGS: Dict[str, str] = {}
+_LOGS: Dict[Path, str] = {}  # library path -> compiler output
 
 
 def source_path(name: str) -> Path:
@@ -78,22 +78,29 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
+def _target(name: str, flags: Sequence[str]) -> Path:
     # the shared headers (csrc/*.cuh) count in every kernel's hash
     headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source_path(name).read_bytes() + headers
-        + " ".join(NVCC_FLAGS).encode()
+        source_path(name).read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     return _BUILD / f"{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
+def _flags(defines: Sequence[str]):
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def build(names: Iterable[str] = KERNELS,
+          defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile every library in ``names`` that is not built yet — one
     ``nvcc`` process per source, started together — and return name ->
-    library path.  Raises with the compiler's output on failure."""
+    library path.  ``defines`` (``NAME=VALUE``) become ``-D`` flags, for
+    a sweep over a kernel's compile-time shape.  Raises with the
+    compiler's output on failure."""
     names = tuple(names)
-    targets = {n: _target(n) for n in names}
+    flags = _flags(defines)
+    targets = {n: _target(n, flags) for n in names}
     todo = [n for n in names if not targets[n].exists()]
     if not todo:
         return targets
@@ -102,7 +109,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(n))]
+        cmd = [nvcc, *flags, "-o", str(tmp), str(source_path(n))]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
@@ -110,7 +117,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     failed = []
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        _LOGS[n] = out
+        _LOGS[targets[n]] = out
         if proc.returncode:
             failed.append(f"--- {n} (exit {proc.returncode}) ---\n{out}")
             continue
@@ -120,11 +127,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     return targets
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Sequence[str] = ()) -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) of ``name``'s build in this process, or "" if it was
-    already built."""
-    return _LOGS.get(name, "")
+    spills) of ``name``'s build (with ``defines``) in this process, or
+    "" if it was already built."""
+    return _LOGS.get(_target(name, _flags(defines)), "")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,9 +18,12 @@ a CUDA device it exits non-zero at once and prints no result.
    backward: Sq != Sk both ways, fully-masked rows, non-causal, dlse)
    and K6 (paged decode).  K3 and K4 again with their bias and dropout
    operands: BERT's shape with its key-padding bias over ragged lengths
-   and a fully masked row, with and without dropout 0.1, and every
-   other bias layout at smaller shapes; and the dropout keep masks of K3
-   and of both K4 passes read back bit for bit against the twin's.  K5
+   and a fully masked row, with and without dropout 0.1, every other
+   bias layout at smaller shapes, and biases whose S_k is not a multiple
+   of 4 at D = 32 and 64; the dropout keep masks of K3 and of both K4
+   passes read back bit for bit against the twin's; and K3 and K4 run
+   twice at the GPT and triangle shapes, where both runs must give the
+   same bits.  K5
    (the bias gradient) at the evoformer's two biased shapes and in every
    (G, RS) layout, causal and not, Sq != Sk both ways, ragged, with
    dropout, D = 32 and 64; K3 and K4 at D = 32, the triangle shape
@@ -36,8 +39,9 @@ a CUDA device it exits non-zero at once and prints no result.
 3. Serving cross-check: at full width with 2 layers, one 256-token
    prefill and 4 decode steps through the card engine (bf16) against the
    CPU engine (f32, the same weights), fed the same tokens.
-4. Timing at the main-path shapes (training, BERT, evoformer and
-   serving): each kernel,
+4. Timing at the main-path shapes (training, BERT, the evoformer's
+   triangle, MSA row and MSA column attention, and serving): each
+   kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
@@ -311,6 +315,9 @@ def phase1(gen):
         ref = attn.flash_fwd_reference(q, k, v, scale=0.125, causal=True)
         tag = f"K3 flash_fwd BH={bh} Sq={sq} Sk={sk} D=64 causal"
         errs.setdefault("flash_fwd", check_k3(tag, out, ref))
+        if bh == TRAIN_BATCH * 16:
+            check_repeat(tag, out, attn.flash_fwd(q, k, v, scale=0.125,
+                                                  causal=True))
         del out, ref
         torch.cuda.empty_cache()
 
@@ -476,6 +483,19 @@ def check_k4(tag, out, ref):
     return errs
 
 
+def check_repeat(tag, first, again):
+    """A kernel run twice on the same inputs must give the same bits: K3
+    and K4 use no atomics, so no sum depends on the order in which the
+    blocks finish."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"  {tag}: a second run on the same inputs is "
+        f"{'bit-identical' if same else 'DIFFERENT: FAIL'}")
+    if not same:
+        raise AssertionError(f"{tag} differs from run to run")
+
+
 def phase1_flash_bwd(gen):
     """K4 against its twin on the same bf16 q, k, v, dO and the same f32
     lse and delta (from the f32 reference forward), under ``K4_TOL``:
@@ -507,6 +527,8 @@ def phase1_flash_bwd(gen):
         errs = check_k4(tag, out, ref)
         if main_err is None:
             main_err = max(errs)
+            check_repeat(tag, out, attn.flash_bwd(q, k, v, do, m, l, delta,
+                                                  scale=0.125, causal=True))
             bad = k4_dropped_tile(q, k, v, do, m, l, delta, ref, 0.125)
             for n, a, r in zip(("dq", "dk", "dv"), bad, ref):
                 ok, max_abs, rel, ratio = k4_check(a, r)
@@ -549,7 +571,9 @@ def phase1_flash_operands(gen):
     key-padding bias over ragged lengths and one fully masked row, with
     and without dropout 0.1, and dropout alone; then every other bias
     layout (G = BH / B / 1, RS = S_q / 1) at smaller ragged shapes, causal
-    and not, with and without dropout."""
+    and not, with and without dropout; and biases whose S_k is not a
+    multiple of 4 (rows TMA cannot map, read from global memory instead),
+    at D = 32 and 64."""
     import torch
 
     from apex_tpu_torch.ops import attention as attn
@@ -561,33 +585,40 @@ def phase1_flash_operands(gen):
     def rand_bias(g, rs, sk):
         return torch.randn(g, rs, sk, generator=gen, device="cuda")
 
-    # (tag, BH, Sq, Sk, causal, bias, dropout_p)
+    # (tag, BH, Sq, Sk, causal, bias, dropout_p, D)
     bh = BERT_BATCH * heads
     cases = [
         ("BERT padding bias G=B RS=1", bh, BERT_SEQ, BERT_SEQ, False,
-         bert_bias, 0.0),
+         bert_bias, 0.0, 64),
         ("BERT padding bias G=B RS=1 + dropout 0.1", bh, BERT_SEQ, BERT_SEQ,
-         False, bert_bias, 0.1),
-        ("dropout 0.1 alone", bh, BERT_SEQ, BERT_SEQ, False, None, 0.1),
-        ("G=BH RS=Sq", 8, 200, 200, True, rand_bias(8, 200, 200), 0.0),
-        ("G=BH RS=Sq", 8, 200, 136, False, rand_bias(8, 200, 136), 0.0),
+         False, bert_bias, 0.1, 64),
+        ("dropout 0.1 alone", bh, BERT_SEQ, BERT_SEQ, False, None, 0.1, 64),
+        ("G=BH RS=Sq", 8, 200, 200, True, rand_bias(8, 200, 200), 0.0, 64),
+        ("G=BH RS=Sq", 8, 200, 136, False, rand_bias(8, 200, 136), 0.0, 64),
         ("G=B RS=Sq + dropout 0.1", 8, 136, 200, True,
-         rand_bias(2, 136, 200), 0.1),
-        ("G=1 RS=1", 8, 200, 200, True, rand_bias(1, 1, 200), 0.0),
+         rand_bias(2, 136, 200), 0.1, 64),
+        ("G=1 RS=1", 8, 200, 200, True, rand_bias(1, 1, 200), 0.0, 64),
         ("G=1 RS=Sq + dropout 0.1", 8, 96, 200, False,
-         rand_bias(1, 96, 200), 0.1),
+         rand_bias(1, 96, 200), 0.1, 64),
         ("G=BH RS=1 + dropout 0.5", 8, 72, 72, True, rand_bias(8, 1, 72),
-         0.5),
+         0.5, 64),
     ]
-    for tag, bh, sq, sk, causal, bias, p in cases:
-        q, k, v = attn_inputs(bh, sq, sk, 64, gen)
+    for d in (32, 64):
+        cases += [
+            ("G=B RS=Sq, Sk % 4 != 0", 8, 130, 37, True,
+             rand_bias(2, 130, 37), 0.0, d),
+            ("G=BH RS=1, Sk % 4 != 0", 8, 100, 101, False,
+             rand_bias(8, 1, 101), 0.0, d),
+        ]
+    for tag, bh, sq, sk, causal, bias, p, d in cases:
+        q, k, v = attn_inputs(bh, sq, sk, d, gen)
         seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
                              device="cuda", dtype=torch.int32)
-        kw = dict(scale=0.125, causal=causal, dropout_p=p, seed=seed)
-        tag = f"{tag} BH={bh} Sq={sq} Sk={sk} causal={causal}"
+        kw = dict(scale=d ** -0.5, causal=causal, dropout_p=p, seed=seed)
+        tag = f"{tag} BH={bh} Sq={sq} Sk={sk} D={d} causal={causal}"
         ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
         check_k3("K3 " + tag, attn.flash_fwd(q, k, v, bias, **kw), ref)
-        do = torch.randn(bh, sq, 64, generator=gen, device="cuda").to(
+        do = torch.randn(bh, sq, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         o, _, m, l = ref
         delta = (do.float() * o.float()).sum(-1)
@@ -696,8 +727,12 @@ def phase1_flash_dbias(gen):
         tag = f"{tag} BH={bh} Sq={sq} Sk={sk} D={d} causal={causal}"
         ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
         if with_k34:
-            e3 = check_k3("K3 " + tag, attn.flash_fwd(q, k, v, bias, **kw),
-                          ref)
+            out = attn.flash_fwd(q, k, v, bias, **kw)
+            e3 = check_k3("K3 " + tag, out, ref)
+            if bh == tri_bh and d == 32:  # the triangle shape
+                check_repeat("K3 " + tag, out,
+                             attn.flash_fwd(q, k, v, bias, **kw))
+            del out
         do = torch.randn(bh, sq, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         o, _, m, l = ref
@@ -705,8 +740,12 @@ def phase1_flash_dbias(gen):
         args = (q, k, v, do, m, l, delta, bias)
         del ref, o
         if with_k34:
-            e4 = check_k4("K4 " + tag, attn.flash_bwd(*args, **kw),
+            out = attn.flash_bwd(*args, **kw)
+            e4 = check_k4("K4 " + tag, out,
                           attn.flash_bwd_reference(*args, **kw))
+            if bh == tri_bh and d == 32:
+                check_repeat("K4 " + tag, out, attn.flash_bwd(*args, **kw))
+            del out
         if bias is None:
             del args, q, k, v, do, m, l, delta
             torch.cuda.empty_cache()
@@ -1168,7 +1207,7 @@ def _time_attn_bert(gen, flush, dropout_p):
     return fwd, bwd
 
 
-def _time_evo_attention(gen, flush, bh, s, d, *, with_k34):
+def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
     """K5 (and K3, K4) at an evoformer shape: q/k/v (bh, s, d) bf16,
     non-causal, a (bh, s, s) f32 bias at G = BH, beside the plain
     versions and SDPA with the same bias as a bf16 ``attn_mask`` of (B,
@@ -1177,7 +1216,9 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34):
     stands beside K4 + K5 (``k4_plus_k5_ms``), not K5 alone.  Bounds:
     q, k, v (dO) read, o (dq, dk, dv) written, the f32 row statistics,
     the bias read and (K5) dbias written, against 2 products of 2·D
-    flops per pair forward, 5 backward, 2 for K5's recompute."""
+    flops per pair forward, 5 backward, 2 for K5's recompute.  Without
+    ``with_bias`` (MSA column attention) only K3 and K4 run, and SDPA
+    without a mask."""
     import torch
     import torch.nn.functional as F
 
@@ -1186,14 +1227,16 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34):
     b = bh // EVO_HEADS
     scale = d ** -0.5
     q, k, v = attn_inputs(bh, s, s, d, gen)
-    bias = torch.randn(bh, s, s, generator=gen, device="cuda")
+    bias = (torch.randn(bh, s, s, generator=gen, device="cuda") if with_bias
+            else None)
     kw = dict(scale=scale, causal=False)
     pairs = bh * s * s
     elems = bh * s * d
     stats = 3 * bh * s * 4
-    bias_bytes = bias.numel() * 4
+    bias_bytes = 0 if bias is None else bias.numel() * 4
     q4, k4, v4 = (t.reshape(b, EVO_HEADS, s, d) for t in (q, k, v))
-    mask4 = bias.reshape(b, EVO_HEADS, s, s).to(torch.bfloat16)
+    mask4 = (None if bias is None
+             else bias.reshape(b, EVO_HEADS, s, s).to(torch.bfloat16))
 
     def library(fn):
         """A library timing, or None (logged) where SDPA refuses."""
@@ -1236,6 +1279,8 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34):
             7 * elems * 2 + stats + bias_bytes, 10 * d * pairs,
             BF16_TENSOR_FLOPS)
         del o_lib
+    if bias is None:
+        return rows
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
     mr = mask4.detach().clone().requires_grad_()
     lib_k45 = None
@@ -1272,8 +1317,8 @@ def phase4(gen, launches, errs):
     K4 at BH=2048, S=128 with the padding bias, without and with dropout
     0.1) and the serving shapes of phase 2 (K1 at (2048, 1024), K3 at
     BH=16, S=2048, K6 at the decode batch), and the evoformer's attention
-    of phase 10 (K3, K4 and K5 at the triangle shape, K5 at the MSA row
-    shape).  ``launches`` maps kernel -> {path: count} from the phase-2,
+    of phase 10 (K3, K4 and K5 at the triangle and MSA row shapes, K3
+    and K4 at the MSA column shape).  ``launches`` maps kernel -> {path: count} from the phase-2,
     -6, -8 and -10 runs."""
     import torch
 
@@ -1317,10 +1362,20 @@ def phase4(gen, launches, errs):
     rows["flash_dbias"] = dict(evo["flash_dbias"], shape=tri_shape)
     torch.cuda.empty_cache()
     msa = _time_evo_attention(gen, flush, row_bh, row_s, row_d,
-                              with_k34=False)["flash_dbias"]
-    extra["flash_dbias"] = {"msa_row_shape": dict(
-        msa, shape=f"BH={row_bh} S={row_s} D={row_d} non-causal bf16, bias "
-        f"({row_bh}, {row_s}, {row_s}) f32 (MSA row attention)")}
+                              with_k34=True)
+    row_shape = (f"BH={row_bh} S={row_s} D={row_d} non-causal bf16, bias "
+                 f"({row_bh}, {row_s}, {row_s}) f32 (MSA row attention)")
+    for name in ("flash_fwd", "flash_bwd", "flash_dbias"):
+        extra.setdefault(name, {})["msa_row_shape"] = dict(msa[name],
+                                                          shape=row_shape)
+    torch.cuda.empty_cache()
+    col_bh, col_s, col_d = MSA_COL_SHAPE
+    msa = _time_evo_attention(gen, flush, col_bh, col_s, col_d,
+                              with_k34=True, with_bias=False)
+    for name in ("flash_fwd", "flash_bwd"):
+        extra[name]["msa_col_shape"] = dict(
+            msa[name], shape=f"BH={col_bh} S={col_s} D={col_d} non-causal "
+            f"bf16, no bias (MSA column attention)")
     torch.cuda.empty_cache()
 
     serving = {}
@@ -1403,7 +1458,8 @@ def phase4(gen, launches, errs):
                        (" (BERT)", entry.get("bert_shape")),
                        (" (BERT, dropout)", entry.get("bert_dropout_shape")),
                        (" (triangle)", entry.get("triangle_shape")),
-                       (" (MSA row)", entry.get("msa_row_shape"))):
+                       (" (MSA row)", entry.get("msa_row_shape")),
+                       (" (MSA column)", entry.get("msa_col_shape"))):
             if r is None:
                 continue
             lib = ("not measured" if r["library_ms"] is None

@@ -11,10 +11,15 @@
   kernel that cannot be built raises; a trainable attention bias on the
   card goes through K5;
 - every kernel source carries its note (what it replaces, its bound on
-  the card, what its design does about it).
+  the card, what its design does about it);
+- K3 and K4 are built for Hopper (TMA, mbarriers, wgmma, no wmma), K4
+  has no atomics, their C argument lists stay as the wrappers declare
+  them, and no kernel links the driver library.
 """
 
 import ast
+import ctypes
+import re
 from pathlib import Path
 
 import pytest
@@ -222,3 +227,82 @@ def test_kernel_sources_carry_their_note(name):
                   "Design:"):
         assert field in head, (name, field)
     assert 'extern "C"' in src and "cudaGetLastError" in src
+
+
+def _translation_unit(name):
+    """Kernel ``name``'s source with the csrc headers it includes: what
+    nvcc compiles."""
+    src = _build.source_path(name).read_text()
+    csrc = _build.source_path(name).parent
+    headers = [csrc / h for h in
+               re.findall(r'#include "([^"]+)"', src)]
+    return src, "\n".join([src] + [h.read_text() for h in headers])
+
+
+def _code(text):
+    """``text`` without its // comments."""
+    return "\n".join(line.split("//")[0] for line in text.splitlines())
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd"])
+def test_flash_kernels_run_on_wgmma_and_tma(name):
+    """K3 and K4 load through TMA into an mbarrier ring and multiply on
+    wgmma; no wmma fragment is left."""
+    src, tu = _translation_unit(name)
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                "mbarrier.try_wait", "mbarrier.arrive.expect_tx",
+                "setmaxnreg"):
+        assert ptx in tu, (name, ptx)
+    for call in ("wgmma_ss(", "wgmma_rs(", "tma_load_3d(", "mbar_wait(",
+                 "make_map("):
+        assert call in src, (name, call)
+    assert "wmma::" not in tu and "<mma.h>" not in tu
+
+
+def test_flash_bwd_is_atomic_free():
+    """K4's gradients are the same bits from run to run: two passes and
+    no atomic or reduction to global memory."""
+    _, tu = _translation_unit("flash_bwd")
+    code = _code(tu)
+    assert "atomic" not in code
+    assert re.search(r"\bred\.", code) is None
+    assert "cp.reduce.async" not in code
+    assert code.count("__global__") == 2  # the dK/dV pass and the dQ pass
+
+
+def test_flash_c_argument_lists_are_unchanged():
+    """The redesigned K3 and K4 keep their C entry points' arguments."""
+    p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_uint)
+    assert attention._FWD_ARGS == [p] * 9 + [i] * 6 + [f, i, u, f, p]
+    assert attention._BWD_ARGS == [p] * 12 + [i] * 6 + [f, i, u, f, p]
+    for name, args in (("flash_fwd", attention._FWD_ARGS),
+                       ("flash_bwd", attention._BWD_ARGS)):
+        src = _build.source_path(name).read_text()
+        entry = src.split(f'extern "C" int {name}(')[1].split(")")[0]
+        assert entry.count(",") + 1 == len(args), name
+
+
+def test_nvcc_flags_do_not_link_the_driver():
+    """The tensor maps are encoded through the driver entry point that
+    the runtime hands out, so no kernel links libcuda."""
+    assert not any(flag.startswith("-l") for flag in _build.NVCC_FLAGS)
+    assert "-lcuda" not in " ".join(_build.NVCC_FLAGS)
+    _, tu = _translation_unit("flash_fwd")
+    assert "cudaGetDriverEntryPoint" in tu
+
+
+def test_tile_sweep_defines_reach_the_sources():
+    """Every macro the tile sweep sets is read by its kernel's source,
+    and each variant builds into a library of its own."""
+    from apex_tpu_torch.tools import flash_tiles
+
+    for name, variants in flash_tiles.VARIANTS.items():
+        src = _build.source_path(name).read_text()
+        targets = set()
+        for _, defines in variants:
+            for define in defines:
+                assert f"#ifdef {define.split('=')[0]}" in src, define
+            flags = _build.NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+            targets.add(_build._target(name, flags))
+        assert len(targets) == len(variants)

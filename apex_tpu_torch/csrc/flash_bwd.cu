@@ -69,8 +69,18 @@
 //           masked pairs have ds = 0 (the mask is a where() on the
 //           score); their p is 0 unless the whole row is masked.  The
 //           ragged edge (rows past S_q, keys past S_k) reads zeros from
-//           TMA and is masked here.  Head dims 32 and 64, as K3.  One
-//           template instance per head dim, bias mode and dropout.  Not
+//           TMA and is masked here.  Head dims 32, 64 and 128, as K3 (the
+//           wrapper pads any other head dim up to 128 with zeros).  At D =
+//           128 a tile is two 64-column blocks (hopper.cuh, TileLayout), and
+//           the dK/dV pass splits by halves of D: dK and dV of 64 keys x 128
+//           would take 128 f32 registers a thread beside S^T and dP^T, past
+//           the 168 that ptxas gives each instance (it allocates no more
+//           after setmaxnreg: the unsplit pass spilled up to 2 KB), so each
+//           of two CTAs per key tile recomputes S^T and dP^T and accumulates
+//           one 64-column half of dK and dV (the register profile of D =
+//           64, at 1.5x the pass's products); the bias is read inside the
+//           elementwise pass rather than into 32 registers ahead of it.
+//           One template instance per head dim, bias mode and dropout.  Not
 //           yet used: overlap of the elementwise pass with the next
 //           tile's products, persistent CTAs (ROADMAP B).
 
@@ -97,6 +107,7 @@ constexpr int kConsumers = 2;                     // warpgroups of 64 rows
 constexpr int kResident = 64 * kConsumers;        // rows a CTA keeps
 constexpr int kBlock = 64;  // rows of a ring stage: the producer's lanes
                             // load two each
+
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr float kLog2e = 1.4426950408889634f;
 // the staged bias of one stage (kBlock x kResident f32 either way round)
@@ -104,14 +115,21 @@ constexpr int kStageBiasBytes = kBlock * kResident * 4;
 
 // The ring's depth of each bias mode (measured with
 // apex_tpu_torch/tools/flash_tiles.py, whose sweep overrides it through
-// the macro): 3 stages without a bias, 2 with one.
-template <int kBias>
+// the macro below D = 128, where 3 stages with a bias would pass the 227
+// KB of shared memory): 3 stages without a bias, 2 with one.
+template <int D, int kBias>
 __host__ __device__ constexpr int stages() {
 #ifdef APEX_FLASH_BWD_STAGES
-  return APEX_FLASH_BWD_STAGES;
-#else
-  return kBias == kNoBias ? 3 : 2;
+  if (D < 128) return APEX_FLASH_BWD_STAGES;
 #endif
+  return kBias == kNoBias ? 3 : 2;
+}
+
+// The CTAs per key tile of the dK/dV pass, each accumulating D / split of
+// the head dims (see Design).
+template <int D>
+__host__ __device__ constexpr int dkdv_split() {
+  return D == 128 ? 2 : 1;
 }
 
 template <int kBias>
@@ -129,7 +147,7 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
 // statistics).
 template <int D, int kBias, bool kStats>
 constexpr size_t smem_bytes() {
-  constexpr int kStages = stages<kBias>();
+  constexpr int kStages = stages<D, kBias>();
   return 1024 + size_t{2} * D * 2 * (kResident + kStages * kBlock) +
          size_t{stage_bias_bytes<kBias>()} * kStages +
          (kStats ? sizeof(float) * 3 * kBlock * kStages : 0) +
@@ -146,10 +164,11 @@ __device__ __forceinline__ bool block_live(int qt, int kw0, int sq, int sk,
   return q_last + offset >= kw0 || q0 + offset < 0;
 }
 
-// Write this thread's two rows (row0, row0 + 8) of a warpgroup's 64 x D
-// f32 accumulator, times `scale`, as bf16 rows of `out` below `limit`.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+// Write this thread's two rows (row0, row0 + 8) of a warpgroup's 64 x
+// kWidth f32 accumulator, times `scale`, as bf16 rows kStride apart of
+// `out` below `limit`.
+template <int kWidth, int kStride>
+__device__ __forceinline__ void store_rows(const float (&acc)[kWidth / 2],
                                            bf16* out, int row0, int limit,
                                            float scale) {
   const int quad = threadIdx.x & 3;
@@ -157,9 +176,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
     if (row >= limit) continue;
-    bf16* og = out + static_cast<size_t>(row) * D + 2 * quad;
+    bf16* og = out + static_cast<size_t>(row) * kStride + 2 * quad;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < kWidth / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
   }
@@ -180,9 +199,11 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                       bf16* __restrict__ dv, int bh_count, int sq, int sk,
                       float scale, int causal, int offset, int bias_div,
                       int bias_rows, uint32_t threshold, float drop_scale) {
-  constexpr int kStages = stages<kBias>();
+  constexpr int kStages = stages<D, kBias>();
   constexpr int kBiasBytes = stage_bias_bytes<kBias>();
   constexpr bool kHasBias = kBias != kNoBias;
+  using L = TileLayout<D>;
+  constexpr int kAtom = L::kAtomBytes;
   constexpr int kRowBytes = 2 * D;
   constexpr int kResBytes = kResident * kRowBytes;
   constexpr int kTileBytes = kBlock * kRowBytes;
@@ -197,8 +218,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + kStages;
   uint64_t* kv_full = empty + kStages;
 
-  const int bh = blockIdx.x % bh_count;
-  const int k0 = static_cast<int>(blockIdx.x / bh_count) * kResident;
+  // the head dims [half * kOutD, (half + 1) * kOutD) of dK and dV that this
+  // CTA accumulates (all of them below D = 128; see Design)
+  constexpr int kSplit = dkdv_split<D>();
+  constexpr int kOutD = D / kSplit;
+  const int half = static_cast<int>(blockIdx.x % kSplit);
+  const int rest = static_cast<int>(blockIdx.x / kSplit);
+  const int bh = rest % bh_count;
+  const int k0 = (rest / bh_count) * kResident;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nq = (sq + kBlock - 1) / kBlock;
 
@@ -217,8 +244,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (warp > 4 * kConsumers) return;
     if (lane == 0) {
       mbar_expect_tx(kv_full, 2 * kResBytes);
-      tma_load_3d(Ks, &tm_k, kv_full, 0, k0, bh);
-      tma_load_3d(Vs, &tm_v, kv_full, 0, k0, bh);
+      tma_load_tile<D, kResident>(Ks, &tm_k, kv_full, k0, bh);
+      tma_load_tile<D, kResident>(Vs, &tm_v, kv_full, k0, bh);
     }
     // each lane loads rows lane and lane + 32 of a q tile's m, 1/l and
     // delta one live tile ahead, so the loads wait behind the ring
@@ -253,9 +280,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
           st[c * kBlock + lane + 32 * k] = row_stats[k][c];
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * kTileBytes + kBiasBytes);
-        tma_load_3d(Qs + s * kTileBytes, &tm_q, &full[s], 0, qt * kBlock, bh);
-        tma_load_3d(dOs + s * kTileBytes, &tm_do, &full[s], 0, qt * kBlock,
-                    bh);
+        tma_load_tile<D, kBlock>(Qs + s * kTileBytes, &tm_q, &full[s],
+                                 qt * kBlock, bh);
+        tma_load_tile<D, kBlock>(dOs + s * kTileBytes, &tm_do, &full[s],
+                                 qt * kBlock, bh);
         if constexpr (kBias == kBiasTile)
           for (int b = 0; b < kResident / 32; ++b)
             tma_load_3d(Bs + s * kBiasBytes + b * kBlock * 128, &tm_bias,
@@ -293,13 +321,15 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
 
   const float scale_log2 = scale * kLog2e;
-  float acc_dk[D / 2], acc_dv[D / 2];
+  float acc_dk[kOutD / 2], acc_dv[kOutD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < kOutD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
   mbar_wait(kv_full, 0);
-  const uint64_t k_desc = make_desc<kRowBytes>(Ks + wg * 64 * kRowBytes);
-  const uint64_t v_desc = make_desc<kRowBytes>(Vs + wg * 64 * kRowBytes);
+  const uint64_t k_desc = make_desc<kAtom>(Ks + wg * 64 * kAtom);
+  const uint64_t v_desc = make_desc<kAtom>(Vs + wg * 64 * kAtom);
+  // at D = 128 the bias is read inside the elementwise pass (see Design)
+  constexpr bool kBiasAhead = kHasBias && D < 128;
 
   int t = 0;
   for (int qt = 0; qt < nq; ++qt) {
@@ -311,8 +341,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&full[s], (t / kStages) & 1);
     if (mine) {
       const int q0 = qt * kBlock;
-      const uint64_t q_desc = make_desc<kRowBytes>(Qs + s * kTileBytes);
-      const uint64_t do_desc = make_desc<kRowBytes>(dOs + s * kTileBytes);
+      const uint64_t q_desc = make_desc<kAtom>(Qs + s * kTileBytes);
+      const uint64_t do_desc = make_desc<kAtom>(dOs + s * kTileBytes);
       // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
       float acc_s[kBlock / 2], acc_dp[kBlock / 2];
 #pragma unroll
@@ -320,45 +350,44 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(acc_s, desc_add(k_desc, 32 * kk), desc_add(q_desc, 32 * kk),
-                 1);
+        wgmma_ss(acc_s, desc_add(k_desc, L::template kmajor_step<kResident>(kk)),
+                 desc_add(q_desc, L::template kmajor_step<kBlock>(kk)), 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(acc_dp, desc_add(v_desc, 32 * kk),
-                 desc_add(do_desc, 32 * kk), 1);
+        wgmma_ss(acc_dp, desc_add(v_desc, L::template kmajor_step<kResident>(kk)),
+                 desc_add(do_desc, L::template kmajor_step<kBlock>(kk)), 1);
       wgmma_commit();
 
+      // the bias of score (query 8j + 2 quad + e of the tile, key krow0 +
+      // 8h): global memory (keys and rows past the edge read 0), or the
+      // staged (query, key) tile read transposed, whose warp reads of 8
+      // keys of 4 queries hit distinct banks
+      auto bias_of = [&](int j, int e, int h) -> float {
+        if constexpr (kBias == kBiasGlobal) {
+          const int qrow = q0 + 8 * j + 2 * quad + e;
+          const int krow = krow0 + 8 * h;
+          return bias_rows == 1 ? bias_k[h]
+                 : qrow < sq && krow < sk
+                     ? flash_operands::bias_at(
+                           bias_g + static_cast<size_t>(qrow) * sk, krow)
+                     : 0.f;
+        } else if constexpr (kBias == kBiasTile) {
+          return fmaxf(*flash_operands::bias_tile_at<kBlock>(
+                           Bs + s * kBiasBytes, 8 * j + 2 * quad + e,
+                           krow0 - k0 + 8 * h),
+                       flash_operands::kPadValue);
+        } else {
+          return 0.f;
+        }
+      };
       float bv[kBlock / 2];
-      if constexpr (kBias == kBiasGlobal) {
+      if constexpr (kBiasAhead) {
 #pragma unroll
         for (int j = 0; j < kBlock / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int qrow = q0 + 8 * j + 2 * quad + e;
-              const int krow = krow0 + 8 * h;
-              bv[4 * j + 2 * h + e] =
-                  bias_rows == 1 ? bias_k[h]
-                  : qrow < sq && krow < sk
-                      ? flash_operands::bias_at(
-                            bias_g + static_cast<size_t>(qrow) * sk, krow)
-                      : 0.f;
-            }
-      } else if constexpr (kBias == kBiasTile) {
-        // the staged (query, key) tile read transposed: a warp's lanes
-        // read 8 keys of 4 queries, on distinct banks
-#pragma unroll
-        for (int j = 0; j < kBlock / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              bv[4 * j + 2 * h + e] = fmaxf(
-                  *flash_operands::bias_tile_at<kBlock>(
-                      Bs + s * kBiasBytes, 8 * j + 2 * quad + e,
-                      krow0 - k0 + 8 * h),
-                  flash_operands::kPadValue);
+            for (int h = 0; h < 2; ++h) bv[4 * j + 2 * h + e] = bias_of(j, e, h);
       }
       wgmma_wait();
       fence_regs(acc_s);
@@ -398,7 +427,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                   float x = kMaskValue;
                   if (!masked) {
                     x = acc_s[i] * scale;
-                    if constexpr (kHasBias) x = fmaf(acc_s[i], scale, bv[i]);
+                    if constexpr (kHasBias)
+                      x = fmaf(acc_s[i], scale,
+                               kBiasAhead ? bv[i] : bias_of(j, e, h));
                   }
                   p = __expf(x - m_c) * il_c;
                 }
@@ -432,14 +463,18 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         dsa[i] = pack_bf16(acc_dp[2 * i], acc_dp[2 * i + 1]);
       }
 
-      // dV += P^T dO and dK += dS^T Q
+      // dV += P^T dO and dK += dS^T Q over this CTA's head dims, dO and Q
+      // transposed: N = kOutD, within one column block at D = 128
+      const uint32_t cols = half * kBlock * kAtom;
+      const uint64_t do_t = make_desc<kAtom>(dOs + s * kTileBytes + cols,
+                                             kBlock * kAtom);
+      const uint64_t q_t =
+          make_desc<kAtom>(Qs + s * kTileBytes + cols, kBlock * kAtom);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlock / 16; ++kk) {
-        wgmma_rs(acc_dv, pa + 4 * kk, desc_add(do_desc, kk * 16 * kRowBytes),
-                 1);
-        wgmma_rs(acc_dk, dsa + 4 * kk, desc_add(q_desc, kk * 16 * kRowBytes),
-                 1);
+        wgmma_rs(acc_dv, pa + 4 * kk, desc_add(do_t, L::mnmajor_step(kk)), 1);
+        wgmma_rs(acc_dk, dsa + 4 * kk, desc_add(q_t, L::mnmajor_step(kk)), 1);
       }
       wgmma_commit();
       wgmma_wait();
@@ -451,9 +486,9 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     ++t;
   }
 
-  const size_t base = static_cast<size_t>(bh) * sk * D;
-  store_rows<D>(acc_dk, dk + base, krow0, sk, scale);
-  store_rows<D>(acc_dv, dv + base, krow0, sk, 1.f);
+  const size_t base = static_cast<size_t>(bh) * sk * D + half * kOutD;
+  store_rows<kOutD, D>(acc_dk, dk + base, krow0, sk, scale);
+  store_rows<kOutD, D>(acc_dv, dv + base, krow0, sk, 1.f);
 }
 
 template <int D, int kBias, bool kDropout>
@@ -471,9 +506,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     int bh_count, int sq, int sk, float scale, int causal,
                     int offset, int bias_div, int bias_rows,
                     uint32_t threshold, float drop_scale) {
-  constexpr int kStages = stages<kBias>();
+  constexpr int kStages = stages<D, kBias>();
   constexpr int kBiasBytes = stage_bias_bytes<kBias>();
   constexpr bool kHasBias = kBias != kNoBias;
+  using L = TileLayout<D>;
+  constexpr int kAtom = L::kAtomBytes;
   constexpr int kRowBytes = 2 * D;
   constexpr int kResBytes = kResident * kRowBytes;
   constexpr int kTileBytes = kBlock * kRowBytes;
@@ -518,14 +555,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_dec<24>();
     if (warp == 4 * kConsumers && lane == 0) {
       mbar_expect_tx(q_full, 2 * kResBytes);
-      tma_load_3d(Qs, &tm_q, q_full, 0, q0, bh);
-      tma_load_3d(dOs, &tm_do, q_full, 0, q0, bh);
+      tma_load_tile<D, kResident>(Qs, &tm_q, q_full, q0, bh);
+      tma_load_tile<D, kResident>(dOs, &tm_do, q_full, q0, bh);
       for (int t = 0; t < n_kt; ++t) {
         const int s = t % kStages;
         mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * kTileBytes + kBiasBytes);
-        tma_load_3d(Ks + s * kTileBytes, &tm_k, &full[s], 0, t * kBlock, bh);
-        tma_load_3d(Vs + s * kTileBytes, &tm_v, &full[s], 0, t * kBlock, bh);
+        tma_load_tile<D, kBlock>(Ks + s * kTileBytes, &tm_k, &full[s],
+                                 t * kBlock, bh);
+        tma_load_tile<D, kBlock>(Vs + s * kTileBytes, &tm_v, &full[s],
+                                 t * kBlock, bh);
         if constexpr (kBias == kBiasTile)
           for (int b = 0; b < kBlock / 32; ++b)
             tma_load_3d(Bs + s * kBiasBytes + b * kResident * 128, &tm_bias,
@@ -569,15 +608,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
 
   mbar_wait(q_full, 0);
-  const uint64_t q_desc = make_desc<kRowBytes>(Qs + wg * 64 * kRowBytes);
-  const uint64_t do_desc = make_desc<kRowBytes>(dOs + wg * 64 * kRowBytes);
+  const uint64_t q_desc = make_desc<kAtom>(Qs + wg * 64 * kAtom);
+  const uint64_t do_desc = make_desc<kAtom>(dOs + wg * 64 * kAtom);
 
   for (int t = 0; t < n_kt; ++t) {
     const int s = t % kStages;
     mbar_wait(&full[s], (t / kStages) & 1);
     if (t < my_kt) {
-      const uint64_t k_desc = make_desc<kRowBytes>(Ks + s * kTileBytes);
-      const uint64_t v_desc = make_desc<kRowBytes>(Vs + s * kTileBytes);
+      const uint64_t k_desc = make_desc<kAtom>(Ks + s * kTileBytes);
+      const uint64_t v_desc = make_desc<kAtom>(Vs + s * kTileBytes);
       // S = Q K^T and dP = dO V^T: 64 queries x 64 keys
       float acc_s[kBlock / 2], acc_dp[kBlock / 2];
 #pragma unroll
@@ -585,12 +624,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(acc_s, desc_add(q_desc, 32 * kk), desc_add(k_desc, 32 * kk),
-                 1);
+        wgmma_ss(acc_s, desc_add(q_desc, L::template kmajor_step<kResident>(kk)),
+                 desc_add(k_desc, L::template kmajor_step<kBlock>(kk)), 1);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(acc_dp, desc_add(do_desc, 32 * kk),
-                 desc_add(v_desc, 32 * kk), 1);
+        wgmma_ss(acc_dp, desc_add(do_desc, L::template kmajor_step<kResident>(kk)),
+                 desc_add(v_desc, L::template kmajor_step<kBlock>(kk)), 1);
       wgmma_commit();
 
       const int c0 = t * kBlock + 2 * quad;
@@ -670,12 +709,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < kBlock / 4; ++i)
         dsa[i] = pack_bf16(acc_s[2 * i], acc_s[2 * i + 1]);
 
-      // dQ += dS K
+      // dQ += dS K, K transposed: N = D spans the tile's column blocks
+      const uint64_t k_t = make_desc<kAtom>(Ks + s * kTileBytes, kBlock * kAtom);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlock / 16; ++kk)
-        wgmma_rs(acc_dq, dsa + 4 * kk, desc_add(k_desc, kk * 16 * kRowBytes),
-                 1);
+        wgmma_rs(acc_dq, dsa + 4 * kk, desc_add(k_t, L::mnmajor_step(kk)), 1);
       wgmma_commit();
       wgmma_wait();
       fence_regs(acc_dq);
@@ -684,8 +723,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  store_rows<D>(acc_dq, dq + static_cast<size_t>(bh) * sq * D, row0, sq,
-                scale);
+  store_rows<D, D>(acc_dq, dq + static_cast<size_t>(bh) * sq * D, row0, sq,
+                   scale);
 }
 
 template <int D, int kBias, bool kDropout>
@@ -741,17 +780,18 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const int* sp = static_cast<const int*>(seed);
   const int nk = (sk + kResident - 1) / kResident;
   const int nq = (sq + kResident - 1) / kResident;
-  dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk), kThreads, dkdv_bytes,
-                stream>>>(q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
-                          static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh,
-                          sq, sk, scale, causal, offset, bias_div, bias_rows,
-                          threshold, drop_scale);
+  dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()),
+                kThreads, dkdv_bytes, stream>>>(
+      q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk, scale,
+      causal, offset, bias_div, bias_rows, threshold, drop_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq), kThreads, dq_bytes,
-              stream>>>(q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
-                        static_cast<bf16*>(dq), bh, sq, sk, scale, causal,
-                        offset, bias_div, bias_rows, threshold, drop_scale);
+              stream>>>(
+      q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
+      static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset, bias_div,
+      bias_rows, threshold, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -776,7 +816,7 @@ extern "C" const char* apex_error_string(int code) {
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16, 16-byte aligned; m, l
 // (K3's row max and row sum) and delta (bh, sq) f32; bias and seed as
 // K3's (null when absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.
-// d must be 32 or 64.  The causal mask is aligned bottom-right.
+// d must be 32, 64 or 128.  The causal mask is aligned bottom-right.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* m, const void* l,
                          const void* delta, const void* bias, const void* seed,
@@ -784,12 +824,14 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int d, int groups, int bias_rows, float scale,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) || groups <= 0 ||
-      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
+  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
+      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
-  const LaunchFn run = d == 32 ? pick<32>(mode, seed != nullptr)
-                               : pick<64>(mode, seed != nullptr);
+  const bool dropout = seed != nullptr;
+  const LaunchFn run = d == 32   ? pick<32>(mode, dropout)
+                       : d == 64 ? pick<64>(mode, dropout)
+                                 : pick<128>(mode, dropout);
   return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
              bh / groups, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

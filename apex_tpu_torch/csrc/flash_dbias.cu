@@ -22,7 +22,8 @@
 //           (group, k tile) loops over the members and every q tile.  Each
 //           warp owns 16 query rows of a tile and recomputes S = Q K^T and
 //           dP = dO V^T with K4's wmma bf16 16x16x16 fragments (f32
-//           accumulation, D = 32 or 64); two lanes per row form p =
+//           accumulation, D = 32, 64 or 128, the wrapper padding any
+//           other head dim up to 128 with zeros); two lanes per row form p =
 //           exp(s - m) / l from K3's row max m and row sum l (exact also for
 //           a row that a bias masks completely, where the TPU's exp(s - lse)
 //           is not) and ds in f32, and each lane keeps its 32 (row, column)
@@ -60,9 +61,10 @@ static_assert(kBQ == kBK, "load_tile stages q tiles and k/v tiles alike");
 static_assert(kBQ == kWarps * kRows, "each warp owns 16 rows of a tile");
 
 // Shared-memory row strides, padded as in K4: a bf16 tile row of D + 8
-// (144 bytes at D = 64, 80 at D = 32: either way the eight rows of a
-// fragment load start on distinct 16-byte bank groups) and f32 scratch
-// rows of 68 floats.
+// (144 bytes at D = 64, 80 at D = 32, 272 at D = 128: each way the eight
+// rows of a fragment load start on distinct 16-byte bank groups) and f32
+// scratch rows of 68 floats.  At D = 128 the four tiles and the scratch
+// take 102 KB.
 template <int D> constexpr int kTileLd = D + 8;
 constexpr int kSLd = kBK + 4;
 
@@ -304,7 +306,7 @@ extern "C" const char* apex_error_string(int code) {
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; m, l (K3's row max and
 // row sum) and delta (bh, sq) f32; bias (groups, bias_rows, sk) f32; seed
 // one int32 or null (no dropout); dbias f32 in the bias's layout.  d must
-// be 32 or 64, groups must divide bh and bias_rows be 1 or sq.  The causal
+// be 32, 64 or 128, groups must divide bh and bias_rows be 1 or sq.  The causal
 // mask is aligned bottom-right.
 extern "C" int flash_dbias(const void* q, const void* k, const void* v,
                            const void* dout, const void* m, const void* l,
@@ -313,14 +315,16 @@ extern "C" int flash_dbias(const void* q, const void* k, const void* v,
                            int sk, int d, int groups, int bias_rows,
                            float scale, int causal, unsigned threshold,
                            float drop_scale, void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) ||
+  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
       bias == nullptr || groups <= 0 || bh % groups != 0 ||
       (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   // with sq = 1 the two layouts coincide and the RS = 1 path serves both
   const bool row_bias = bias_rows != 1;
-  const LaunchFn run = d == 32 ? pick<32>(row_bias, seed != nullptr)
-                               : pick<64>(row_bias, seed != nullptr);
+  const bool dropout = seed != nullptr;
+  const LaunchFn run = d == 32   ? pick<32>(row_bias, dropout)
+                       : d == 64 ? pick<64>(row_bias, dropout)
+                                 : pick<128>(row_bias, dropout);
   return run(q, k, v, dout, m, l, delta, bias, seed, dbias, groups,
              bh / groups, sq, sk, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

@@ -56,7 +56,11 @@
 //           Besides lse the kernel writes each row's m and l, from which K4
 //           recomputes p = exp(s - m) / l: exact also for a row that a bias
 //           masks completely, whose lse rounds back to MASK_VALUE in f32. One
-//           template instance per head dim (32, 64), bias mode and dropout.
+//           template instance per head dim (32, 64, 128), bias mode and
+//           dropout; the wrapper pads any other head dim up to 128 to the
+//           next instance with zeros.  At D = 128 a tile is two 64-column
+//           blocks (hopper.cuh, TileLayout) and the stages hold 64 keys (the
+//           O accumulator is 64 f32 registers a thread).
 //           Not yet used: overlap of one tile's softmax with the next tile's
 //           QK^T (ROADMAP B).
 
@@ -81,23 +85,27 @@ using flash_operands::kNoBias;
 
 constexpr int kConsumers = 2;                     // warpgroups of 64 rows
 constexpr int kBlockQ = 64 * kConsumers;          // q rows per CTA
-constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr int kWalk = 64;  // the key walk's granularity (see Design)
+
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Keys per stage and the ring's depth of each bias mode (measured with
 // apex_tpu_torch/tools/flash_tiles.py, whose sweep overrides them through
 // the macros): 128 keys and 3 stages without a bias; 64 keys and 2 stages
 // with one, which keeps the bias registers or the staged tile small.
-template <int kBias>
+template <int D, int kBias>
 struct Tile {
+  // D = 128 keeps 64 keys and its ring: 128 keys, or 3 stages with a
+  // bias, would pass the 227 KB of shared memory
 #ifdef APEX_FLASH_FWD_BLOCK_K
-  static constexpr int kBlockK = APEX_FLASH_FWD_BLOCK_K;
+  static constexpr int kBlockK = D < 128 ? APEX_FLASH_FWD_BLOCK_K : 64;
 #else
-  static constexpr int kBlockK = kBias == kNoBias ? 128 : 64;
+  static constexpr int kBlockK = kBias == kNoBias && D < 128 ? 128 : 64;
 #endif
 #ifdef APEX_FLASH_FWD_STAGES
-  static constexpr int kStages = APEX_FLASH_FWD_STAGES;
+  static constexpr int kStages =
+      D < 128 ? APEX_FLASH_FWD_STAGES : kBias == kNoBias ? 3 : 2;
 #else
   static constexpr int kStages = kBias == kNoBias ? 3 : 2;
 #endif
@@ -110,7 +118,7 @@ struct Tile {
 
 template <int D, int kBias>
 constexpr size_t smem_bytes() {
-  using T = Tile<kBias>;
+  using T = Tile<D, kBias>;
   return 1024                                                       // alignment
          + size_t{2} * D * (2 * kBlockQ + 2 * T::kStages * T::kBlockK)  // Q K V
          + size_t{T::kBiasBytes} * T::kStages                       // bias
@@ -145,10 +153,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  int bh_count, int sq, int sk, float scale, int causal,
                  int offset, int bias_div, int bias_rows, uint32_t threshold,
                  float drop_scale) {
-  constexpr int kBlockK = Tile<kBias>::kBlockK;
-  constexpr int kStages = Tile<kBias>::kStages;
-  constexpr int kBiasBytes = Tile<kBias>::kBiasBytes;
+  constexpr int kBlockK = Tile<D, kBias>::kBlockK;
+  constexpr int kStages = Tile<D, kBias>::kStages;
+  constexpr int kBiasBytes = Tile<D, kBias>::kBiasBytes;
   constexpr bool kHasBias = kBias != kNoBias;
+  using L = TileLayout<D>;
+  constexpr int kAtom = L::kAtomBytes;
   constexpr int kRowBytes = 2 * D;
   constexpr int kQBytes = kBlockQ * kRowBytes;
   constexpr int kKVBytes = kBlockK * kRowBytes;
@@ -214,15 +224,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         ++n;
         mbar_wait(&q_empty[qb], q_phase ^ 1);
         mbar_expect_tx(&q_full[qb], kQBytes);
-        tma_load_3d(Qs + qb * kQBytes, &tm_q, &q_full[qb], 0, it.q0, it.bh);
+        tma_load_tile<D, kBlockQ>(Qs + qb * kQBytes, &tm_q, &q_full[qb], it.q0,
+                                  it.bh);
         for (int kt = 0; kt < it.n_kt; ++kt, ++t) {
           const int s = t % kStages;
           mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
           mbar_expect_tx(&full[s], 2 * kKVBytes + kBiasBytes);
-          tma_load_3d(Ks + s * kKVBytes, &tm_k, &full[s], 0, kt * kBlockK,
-                      it.bh);
-          tma_load_3d(Vs + s * kKVBytes, &tm_v, &full[s], 0, kt * kBlockK,
-                      it.bh);
+          tma_load_tile<D, kBlockK>(Ks + s * kKVBytes, &tm_k, &full[s],
+                                    kt * kBlockK, it.bh);
+          tma_load_tile<D, kBlockK>(Vs + s * kKVBytes, &tm_v, &full[s],
+                                    kt * kBlockK, it.bh);
           if constexpr (kBias == kBiasTile)
             for (int b = 0; b < kBlockK / 32; ++b)
               tma_load_3d(Bs + s * kBiasBytes + b * kBlockQ * 128, &tm_bias,
@@ -275,22 +286,22 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&q_full[qb], (n >> 1) & 1);
     ++n;
     const uint64_t q_desc =
-        make_desc<kRowBytes>(Qs + qb * kQBytes + wg * 64 * kRowBytes);
+        make_desc<kAtom>(Qs + qb * kQBytes + wg * 64 * kAtom);
 
     for (int kt = 0; kt < it.n_kt; ++kt, ++t) {
       const int s = t % kStages;
       mbar_wait(&full[s], (t / kStages) & 1);
       if (kt < my_kt) {
         // S = Q K^T
-        const uint64_t k_desc = make_desc<kRowBytes>(Ks + s * kKVBytes);
+        const uint64_t k_desc = make_desc<kAtom>(Ks + s * kKVBytes);
         float acc_s[kBlockK / 2];
 #pragma unroll
         for (int i = 0; i < kBlockK / 2; ++i) acc_s[i] = 0.f;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss(acc_s, desc_add(q_desc, 32 * kk), desc_add(k_desc, 32 * kk),
-                   1);
+          wgmma_ss(acc_s, desc_add(q_desc, L::template kmajor_step<kBlockQ>(kk)),
+                   desc_add(k_desc, L::template kmajor_step<kBlockK>(kk)), 1);
         wgmma_commit();
 
         const int c0 = kt * kBlockK + 2 * quad;
@@ -395,11 +406,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           softmax(std::false_type{});
 
         // O += P V
-        const uint64_t v_desc = make_desc<kRowBytes>(Vs + s * kKVBytes);
+        const uint64_t v_desc =
+            make_desc<kAtom>(Vs + s * kKVBytes, kBlockK * kAtom);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBlockK / 16; ++kk)
-          wgmma_rs(acc_o, pa + 4 * kk, desc_add(v_desc, kk * 16 * kRowBytes), 1);
+          wgmma_rs(acc_o, pa + 4 * kk, desc_add(v_desc, L::mnmajor_step(kk)), 1);
         wgmma_commit();
         wgmma_wait();
         fence_regs(acc_o);
@@ -439,7 +451,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
            int sq, int sk, int bias_div, int bias_rows, float scale,
            int causal, int offset, uint32_t threshold, float drop_scale,
            cudaStream_t stream) {
-  constexpr int kBlockK = Tile<kBias>::kBlockK;
+  constexpr int kBlockK = Tile<D, kBias>::kBlockK;
   CUtensorMap tm_q, tm_k, tm_v, tm_bias{};
   cudaError_t err = hopper_host::make_map(&tm_q, q, bh, sq, D, kBlockQ);
   if (err == cudaSuccess)
@@ -493,7 +505,7 @@ extern "C" const char* apex_error_string(int code) {
 
 // q (bh, sq, d), k and v (bh, sk, d) bf16, 16-byte aligned; bias (groups,
 // bias_rows, sk) f32 or null; seed one int32 or null (no dropout); o (bh,
-// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32 or 64, groups must
+// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32, 64 or 128, groups must
 // divide bh and bias_rows be 1 or sq.  The causal mask is aligned
 // bottom-right.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -502,12 +514,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int d, int groups, int bias_rows, float scale,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64) || groups <= 0 ||
-      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
+  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
+      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
-  const LaunchFn run = d == 32 ? pick<32>(mode, seed != nullptr)
-                               : pick<64>(mode, seed != nullptr);
+  const bool dropout = seed != nullptr;
+  const LaunchFn run = d == 32   ? pick<32>(mode, dropout)
+                       : d == 64 ? pick<64>(mode, dropout)
+                                 : pick<128>(mode, dropout);
   return run(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, bh / groups,
              bias_rows, scale, causal, sk - sq, threshold, drop_scale,
              static_cast<cudaStream_t>(stream));

@@ -11,8 +11,14 @@
 //
 // A tile row holds one head's D bf16 values: 128 bytes at D = 64 (swizzled
 // in 128-byte atoms of 8 rows, descriptor layout 1), 64 bytes at D = 32
-// (64-byte atoms of 8 rows, layout 2).  TMA and wgmma must agree on the
-// swizzle, and a stage must start on a multiple of the atom (1024 bytes).
+// (64-byte atoms of 8 rows, layout 2).  At D = 128 a row is 256 bytes, past
+// the 128-byte atom and past the widest TMA box that swizzle allows, so a
+// tile of R rows is two column blocks of R x 64 values (R x 128 bytes)
+// side by side (TileLayout): a K-major k16 step past column 64 moves to
+// the second block, and an MN-major operand whose N spans both blocks
+// reaches the second one through the descriptor's leading byte offset.
+// TMA and wgmma must agree on the swizzle, and a stage must start on a
+// multiple of the atom (1024 bytes).
 
 #pragma once
 
@@ -27,6 +33,27 @@ namespace hopper {
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// How a tile of bf16 rows of D values lies in shared memory: kBlocks
+// column blocks of kBoxCols values, each block kRows x kAtomBytes,
+// swizzled in kAtomBytes atoms.
+template <int D>
+struct TileLayout {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static constexpr int kAtomBytes = D >= 64 ? 128 : 2 * D;
+  static constexpr int kBlocks = 2 * D / kAtomBytes;
+  static constexpr int kBoxCols = kAtomBytes / 2;
+  // the byte offset of k16 step kk of a K-major operand (32 bytes of a
+  // row per step) in a tile of kRows rows
+  template <int kRows>
+  __host__ __device__ static constexpr uint32_t kmajor_step(int kk) {
+    return (32 * kk / kAtomBytes) * kRows * kAtomBytes + (32 * kk) % kAtomBytes;
+  }
+  // the byte offset of k16 step kk of an MN-major operand (16 rows)
+  __host__ __device__ static constexpr uint32_t mnmajor_step(int kk) {
+    return 16 * kk * kAtomBytes;
+  }
+};
 
 // ---------------------------------------------------------------- mbarriers
 
@@ -92,21 +119,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Rows [row, row + kRows) of head `outer` of a (D, rows, outer) tensor map
+// into the tile at `dst`, one box per column block (TileLayout<D>).
+template <int D, int kRows>
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int row,
+                                              int outer) {
+  using L = TileLayout<D>;
+#pragma unroll
+  for (int c = 0; c < L::kBlocks; ++c)
+    tma_load_3d(static_cast<unsigned char*>(dst) + c * kRows * L::kAtomBytes,
+                map, bar, c * L::kBoxCols, row, outer);
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // The shared-memory descriptor of a swizzled bf16 tile whose rows are
 // kRowBytes (64 or 128) long, starting at `tile`: 8-row groups kRowBytes * 8
 // apart (the stride byte offset), swizzle layout 1 (128 B) or 2 (64 B).
 // For a K-major operand the rows are M or N and one k16 step is 32 bytes
-// of a row; for an MN-major (transposed) operand the rows are K, one k16
-// step is 16 rows, and the N extent fits in one row, so the leading byte
-// offset (between atoms along N) is never used.
+// of a row; for an MN-major (transposed) operand the rows are K and one
+// k16 step is 16 rows.  `lead_bytes` (the leading byte offset) is the
+// distance between the 64-value column blocks along N of an MN-major
+// operand whose N spans two of them (D = 128); where N fits in one row it
+// is never used.
 template <int kRowBytes>
-__device__ __forceinline__ uint64_t make_desc(const void* tile) {
+__device__ __forceinline__ uint64_t make_desc(const void* tile,
+                                              uint32_t lead_bytes = 16) {
   static_assert(kRowBytes == 64 || kRowBytes == 128, "64 or 128-byte rows");
   constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
   const uint64_t addr = smem_addr(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{(lead_bytes >> 4) & 0x3FFF} << 16) |
          (uint64_t{(8 * kRowBytes) >> 4} << 32) | (kLayout << 62);
 }
 
@@ -257,6 +300,37 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// m64n128k16: A from registers (four bf16x2 per thread), B from
+// shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 }  // namespace hopper
 
 // ------------------------------------------------------------ host side
@@ -315,13 +389,14 @@ inline cudaError_t encode_3d(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A (bh, rows, d) bf16 array, one head's rows per box, swizzled as the
-// wgmma descriptors expect.
+// A (bh, rows, d) bf16 array, swizzled as the wgmma descriptors expect:
+// one box per head's rows and column block (TileLayout), at most 64
+// values (128 bytes) wide.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh,
                             int rows, int d, int box_rows) {
   return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, bh, rows, d,
-                   d, box_rows,
-                   d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   d >= 64 ? 64 : d, box_rows,
+                   d >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                            : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 

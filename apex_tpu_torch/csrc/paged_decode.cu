@@ -19,9 +19,14 @@
 //           shared memory); the p.v sum then runs with lane d owning head
 //           dims d, d+32, ... so the V rows are read coalesced.  int8 pages multiply by their per
 //           (head, token) f32 scale.  Positions >= length weigh zero.
-//           bf16, f32 and int8 pages; bf16 or f32 queries; head dims 32
-//           and 64.  Not yet used: splitting a long sequence over
-//           several CTAs (later work).
+//           bf16, f32 and int8 pages; bf16 or f32 queries; any head dim
+//           d <= 128, unpadded (padding would copy the page pool, which is
+//           the KV cache): one instance per multiple of 32 with the head
+//           dim fixed at compile time (K rows read as 16-byte vectors), and
+//           one (kD = 0) for the head dims between them, d read at run
+//           time, K rows element by element and lanes past d masked; the
+//           fused rotate-half RoPE pairs dim i with i + d/2 of the real d.  Not yet used:
+//           splitting a long sequence over several CTAs (later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +67,16 @@ __device__ __forceinline__ float dot_row(const float* qs, const KVT* row) {
   return dot;
 }
 
+// q . (one K row of d elements), element by element.
+template <typename KVT>
+__device__ __forceinline__ float dot_row_short(const float* qs, const KVT* row,
+                                               int d) {
+  float dot = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < d; ++i) dot += qs[i] * to_f(row[i]);
+  return dot;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -73,7 +88,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename QT, typename KVT, int D>
+// kD: the head dim, a multiple of 32 (d == kD), or 0: any d <= 128.
+template <typename QT, typename KVT, int kD>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
                     const KVT* __restrict__ vp, const float* __restrict__ ks,
@@ -81,26 +97,31 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
                     const int* __restrict__ lengths,
                     const float* __restrict__ cos_rows,
                     const float* __restrict__ sin_rows, QT* __restrict__ out,
-                    int heads, int page, int np, float scale) {
-  constexpr int kDimsPerLane = (D + 31) / 32;
-  __shared__ float qs[D];
-  __shared__ float part_o[kWarps][D];
+                    int heads, int d_arg, int page, int np, float scale) {
+  constexpr int kCap = kD > 0 ? kD : 128;
+  constexpr int kDimsPerLane = kCap / 32;
+  const int d = kD > 0 ? kD : d_arg;
+  __shared__ float qs[kCap];
+  __shared__ float part_o[kWarps][kCap];
   __shared__ float part_m[kWarps];
   __shared__ float part_l[kWarps];
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t qoff = (static_cast<size_t>(b) * heads + h) * D;
+  const size_t qoff = (static_cast<size_t>(b) * heads + h) * d;
 
-  // q in f32, rotated (rotate_half layout) when cos/sin rows are given
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float x = to_f(q[qoff + d]);
+  // q in f32, rotated (rotate_half layout over the real d) when cos/sin
+  // rows are given
+  const int half = d / 2;
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    float x = to_f(q[qoff + i]);
     if (cos_rows != nullptr) {
-      const float r = d < D / 2 ? -to_f(q[qoff + d + D / 2]) : to_f(q[qoff + d - D / 2]);
-      x = x * cos_rows[static_cast<size_t>(b) * D + d] +
-          r * sin_rows[static_cast<size_t>(b) * D + d];
+      const float r =
+          i < half ? -to_f(q[qoff + i + half]) : to_f(q[qoff + i - half]);
+      x = x * cos_rows[static_cast<size_t>(b) * d + i] +
+          r * sin_rows[static_cast<size_t>(b) * d + i];
     }
-    qs[d] = x;
+    qs[i] = x;
   }
   __syncthreads();
 
@@ -119,7 +140,12 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
       const int t = t0 + lane;
       float s = -INFINITY;
       if (t < page && j * page + t < len) {
-        float dot = dot_row<KVT, D>(qs, kp + (base + t) * D);
+        const KVT* krow = kp + (base + t) * d;
+        float dot;
+        if constexpr (kD > 0)
+          dot = dot_row<KVT, kD>(qs, krow);
+        else
+          dot = dot_row_short<KVT>(qs, krow, d);
         if (ks != nullptr) dot *= ks[base + t];
         s = dot * scale;
       }
@@ -137,11 +163,11 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
         if (pt == 0.f) continue;
         const size_t r = base + t0 + tt;
         const float w = vs != nullptr ? pt * vs[r] : pt;
-        const KVT* vrow = vp + r * D;
+        const KVT* vrow = vp + r * d;
 #pragma unroll
         for (int i = 0; i < kDimsPerLane; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) acc[i] += w * to_f(vrow[d]);
+          const int dd = lane + 32 * i;
+          if (dd < d) acc[i] += w * to_f(vrow[dd]);
         }
       }
       m = m_new;
@@ -153,12 +179,9 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
     part_l[warp] = l;
   }
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) part_o[warp][d] = acc[i];
-  }
+  for (int i = 0; i < kDimsPerLane; ++i) part_o[warp][lane + 32 * i] = acc[i];
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += kThreads) {
+  for (int i = threadIdx.x; i < d; i += kThreads) {
     float mm = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, part_m[w]);
@@ -168,11 +191,11 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
       for (int w = 0; w < kWarps; ++w) {
         const float f = __expf(part_m[w] - mm);
         ll += part_l[w] * f;
-        oo += part_o[w][d] * f;
+        oo += part_o[w][i] * f;
       }
     }
     // an idle slot (length 0) walked no page: the contract is zeros
-    out[qoff + d] = from_f<QT>(ll > 0.f ? oo / ll : 0.f);
+    out[qoff + i] = from_f<QT>(ll > 0.f ? oo / ll : 0.f);
   }
 }
 
@@ -188,12 +211,16 @@ int launch_d(int d, dim3 grid, cudaStream_t s, const void* q, const void* kp,
         static_cast<const KVT*>(vp), static_cast<const float*>(ks),           \
         static_cast<const float*>(vs), static_cast<const int*>(table),        \
         static_cast<const int*>(lengths), static_cast<const float*>(cos_rows),\
-        static_cast<const float*>(sin_rows), static_cast<QT*>(out), heads,    \
+        static_cast<const float*>(sin_rows), static_cast<QT*>(out), heads, d, \
         page, np, scale);                                                     \
     break;
-  switch (d) {
+  if (d <= 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d % 32 ? 0 : d) {
+    APEX_DECODE_CASE(0)
     APEX_DECODE_CASE(32)
     APEX_DECODE_CASE(64)
+    APEX_DECODE_CASE(96)
+    APEX_DECODE_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -231,7 +258,7 @@ extern "C" const char* apex_error_string(int code) {
 // q (B, H, D) and out (B, H, D) in q_dtype (0 f32, 1 bf16); k/v pages
 // (P, H, page, D) in kv_dtype (0 f32, 1 bf16, 2 int8, the latter with f32
 // scales (P, H, page)); table (B, NP) and lengths (B,) int32; cos/sin rows
-// (B, D) f32 or null.
+// (B, D) f32 or null.  Any head dim 1 <= D <= 128; with RoPE, D even.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* ks, const void* vs, const void* table,
                             const void* lengths, const void* cos_rows,

@@ -28,11 +28,18 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
-__all__ = ["KERNELS", "build", "load", "check", "build_log", "source_path"]
+__all__ = ["ENTRY_POINTS", "KERNELS", "build", "load", "library", "check",
+           "build_log", "source_path"]
 
 #: every kernel source of the package (``csrc/<name>.cu``)
 KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd",
-           "flash_dbias", "paged_decode")
+           "flash_dbias", "paged_decode", "flash_f32")
+
+#: C entry points that live in a source of another name (entry -> source);
+#: every other entry point is the function of its own name in
+#: ``csrc/<name>.cu``.  The f32 instances of K3, K4 and K5 share one source.
+ENTRY_POINTS = {"flash_fwd_f32": "flash_f32", "flash_bwd_f32": "flash_f32",
+                "flash_dbias_f32": "flash_f32"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -134,8 +141,13 @@ def build_log(name: str, defines: Sequence[str] = ()) -> str:
     return _LOGS.get(_target(name, _flags(defines)), "")
 
 
+def library(entry: str) -> str:
+    """The source (library) name that holds C entry point ``entry``."""
+    return ENTRY_POINTS.get(entry, entry)
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel source ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
@@ -146,7 +158,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(name: str, code: int) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if C entry point ``name`` reported a CUDA error."""
     if code:
-        msg = _LIBS[name].apex_error_string(code).decode()
+        msg = _LIBS[library(name)].apex_error_string(code).decode()
         raise RuntimeError(f"kernel {name} failed to launch: {msg} ({code})")

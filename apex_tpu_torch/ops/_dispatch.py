@@ -104,11 +104,12 @@ def count_launch(kernel: str) -> None:
 
 def launch(kernel: str, argtypes: Sequence, device: torch.device,
            *args) -> None:
-    """Call the C entry point ``kernel`` of ``csrc/<kernel>.cu`` (built
-    on first use) with ``args`` and the current stream of ``device``
-    appended, raise if it reports a CUDA error, and count the launch.
+    """Call the C entry point ``kernel`` of its source (``csrc/<kernel>.cu``
+    or the one ``_build.ENTRY_POINTS`` names; built on first use) with
+    ``args`` and the current stream of ``device`` appended, raise if it
+    reports a CUDA error, and count the launch under ``kernel``.
     ``argtypes`` are its ctypes argument types, the stream's last."""
-    fn = getattr(_build.load(kernel), kernel)
+    fn = getattr(_build.load(_build.library(kernel)), kernel)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -9,11 +9,22 @@ One ``autograd.Function`` (:class:`_Flash`) carries both directions:
   online-softmax attention in one pass, bottom-right causal alignment,
   f32 row logsumexp; the backward is kernel K4 (``csrc/flash_bwd.cu``,
   replacing ``flash_bwd``) — dq, dk, dv recomputed in two passes.  Both
-  take bf16 q/k/v and any ``S_q``/``S_k`` (the kernels mask their own
-  ragged edge, so nothing is padded), and head dims 32 (the evoformer's
-  triangle attention) and 64.  Every call on the card launches the
-  kernels: the TPU's short-sequence routing to the unfused composition
-  was a v5e measurement and is not carried over.
+  take any ``S_q``/``S_k`` (the kernels mask their own ragged edge, so no
+  sequence is padded) and any head dim up to 128: the kernels have
+  instances at 32 (the evoformer's triangle attention), 64 and 128, and
+  the wrappers zero-pad q, k, v and dO on the last dim up to the next one
+  (:func:`kernel_head_dim`, the counterpart of the reference's
+  ``padded_head_dim``) and slice the outputs back, which changes neither
+  the scores (the scale is the caller's) nor the dropout mask (indexed by
+  (bh, i, j)).  bf16 q/k/v run K3/K4/K5 on the tensor cores; f32 q/k/v
+  run their f32 instances (``csrc/flash_f32.cu``, SIMT FFMA), as the
+  reference runs f32 inputs at ``Precision.HIGHEST``.  The kernel entry
+  points take q, k and v of one dtype; :func:`flash_attention` widens
+  mixed dtypes and f16 exactly to f32 first.  Head dims above 128 are not
+  ported yet (the reference pads them to a multiple of 128) and raise.
+  Every call on the card launches
+  the kernels: the TPU's short-sequence routing to the unfused
+  composition was a v5e measurement and is not carried over.
 - **plain path** (CPU tensors): the twins :func:`flash_fwd_reference`,
   :func:`flash_bwd_reference` and :func:`flash_dbias_reference`, the
   same arithmetic unfused in f32.
@@ -80,6 +91,7 @@ import torch
 from apex_tpu_torch.ops import _dispatch
 
 __all__ = [
+    "KERNEL_HEAD_DIMS",
     "MASK_VALUE",
     "PAD_VALUE",
     "draw_dropout_seed",
@@ -92,6 +104,7 @@ __all__ = [
     "flash_dbias_reference",
     "flash_fwd",
     "flash_fwd_reference",
+    "kernel_head_dim",
     "mha_reference",
     "mha_reference_with_lse",
 ]
@@ -105,7 +118,38 @@ PAD_VALUE = -1.5e9
 KERNEL = "flash_fwd"
 KERNEL_BWD = "flash_bwd"
 KERNEL_DBIAS = "flash_dbias"
-_HEAD_DIMS = (32, 64)
+#: the f32 instances of K3, K4 and K5 (``csrc/flash_f32.cu``)
+KERNEL_F32 = "flash_fwd_f32"
+KERNEL_BWD_F32 = "flash_bwd_f32"
+KERNEL_DBIAS_F32 = "flash_dbias_f32"
+#: the head dims the kernels are instantiated at
+KERNEL_HEAD_DIMS = (32, 64, 128)
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernels' head dim for a model's ``d``: the smallest of 32, 64
+    and 128 that is at least ``d`` — the port's ``padded_head_dim``
+    (whose D <= 128 rounding to a multiple of 8 is a Mosaic tiling rule;
+    here the instances decide).  Head dims above 128 are not ported: the
+    reference pads them to a multiple of 128, and this raises."""
+    d = int(d)
+    if d < 1:
+        raise ValueError(f"head dim must be positive, got {d}")
+    for dk in KERNEL_HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(
+        f"head dim {d} > 128 is not ported to the card yet (the reference "
+        f"pads it to a multiple of 128; ROADMAP C1)"
+    )
+
+
+def _pad_head(x, dk):
+    """``x`` zero-padded on its last dim up to ``dk`` (unchanged when it
+    is already ``dk`` wide)."""
+    d = x.shape[-1]
+    return x if d == dk else torch.nn.functional.pad(x, (0, dk - d))
 
 # ---------------------------------------------------------------------------
 # the dropout keep mask (``_dropout_keep_block``)
@@ -350,11 +394,14 @@ def _check_qkv(name, q, k, v, *more):
             f"expected q (BH, Sq, D) and k, v (BH, Sk, D), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("the flash kernels take bf16 q, k and v")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or (
+            v.dtype != q.dtype):
+        raise TypeError(
+            f"the flash kernels take q, k and v of one dtype, bf16 or f32, "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
     bh, sq, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (one of {_HEAD_DIMS})")
+    kernel_head_dim(d)  # raises above 128
     if bh == 0 or sq == 0 or k.shape[1] == 0:
         raise ValueError(f"{name} needs non-empty q and k")
 
@@ -396,36 +443,53 @@ def _operand_args(name, q, k, bias, dropout_p, seed):
     return bias_ptr, seed_ptr, groups, rows, threshold, drop_scale
 
 
+def _padded(name, d, *tensors):
+    """``tensors`` zero-padded on the head dim to ``kernel_head_dim(d)``
+    and checked for the kernels' loads, with that head dim."""
+    dk = kernel_head_dim(d)
+    tensors = [_pad_head(t, dk) for t in tensors]
+    _check_vectors(name, *tensors)
+    return dk, tensors
+
+
+def _unpad(x, d):
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def flash_fwd(q, k, v, bias=None, *, scale: float, causal: bool,
               dropout_p: float = 0.0, seed: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, ...]:
-    """Kernel K3 on CUDA tensors.  q (BH, Sq, D), k/v (BH, Sk, D) bf16;
-    optional bias (G, RS, Sk) f32 and, with ``dropout_p``, an int32 seed
-    (1,).  Returns o (BH, Sq, D) bf16 and the f32 lse, row max m and row
-    sum l, (BH, Sq) each.  The causal mask is aligned bottom-right
-    (offset ``Sk - Sq``)."""
+    """Kernel K3 on CUDA tensors.  q (BH, Sq, D), k/v (BH, Sk, D), all
+    bf16 (K3) or all f32 (its f32 instance), any D <= 128; optional bias
+    (G, RS, Sk) f32 and, with ``dropout_p``, an int32 seed (1,).  Returns
+    o (BH, Sq, D) in q's dtype and the f32 lse, row max m and row sum l,
+    (BH, Sq) each.  The causal mask is aligned bottom-right (offset ``Sk
+    - Sq``)."""
     more = [t for t in (bias, seed) if t is not None]
     _check_qkv("flash_fwd", q, k, v, *more)
-    _check_vectors("flash_fwd", q, k, v)
     bias_ptr, seed_ptr, groups, rows, threshold, drop_scale = _operand_args(
         "flash_fwd", q, k, bias, dropout_p, seed)
     bh, sq, d = q.shape
     sk = k.shape[1]
+    dk, (q, k, v) = _padded("flash_fwd", d, q, k, v)
     o = torch.empty_like(q)
     lse, m, l = (torch.empty(bh, sq, dtype=torch.float32, device=q.device)
                  for _ in range(3))
     _dispatch.launch(
-        KERNEL, _FWD_ARGS, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), bias_ptr, seed_ptr, o.data_ptr(), lse.data_ptr(),
-        m.data_ptr(), l.data_ptr(), bh, sq, sk, d, groups, rows,
-        float(scale), int(causal), threshold, drop_scale,
+        KERNEL if q.dtype == torch.bfloat16 else KERNEL_F32, _FWD_ARGS,
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+        seed_ptr, o.data_ptr(), lse.data_ptr(), m.data_ptr(), l.data_ptr(),
+        bh, sq, sk, dk, groups, rows, float(scale), int(causal), threshold,
+        drop_scale,
     )
-    return o, lse, m, l
+    return _unpad(o, d), lse, m, l
 
 
 def _check_bwd_operands(name, q, do, m, l, delta):
-    if do.shape != q.shape or do.dtype != torch.bfloat16:
-        raise ValueError(f"do must be bf16 of shape {tuple(q.shape)}")
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(
+            f"do must be {q.dtype} of shape {tuple(q.shape)}, got "
+            f"{do.dtype} {tuple(do.shape)}")
     if any(t.shape != q.shape[:2] or t.dtype != torch.float32
            for t in (m, l, delta)):
         raise ValueError(
@@ -437,27 +501,30 @@ def flash_bwd(q, k, v, do, m, l, delta, bias=None, *, scale: float,
               seed: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K4 on CUDA tensors.  q, do (BH, Sq, D) and k, v (BH, Sk,
-    D) bf16; m, l and delta (BH, Sq) f32; bias and seed as K3's.  Returns
-    dq, dk, dv in bf16 (the dK/dV pass, then the dQ pass)."""
+    D), all bf16 or all f32, any D <= 128; m, l and delta (BH, Sq) f32;
+    bias and seed as K3's.  Returns dq, dk, dv in q's dtype (the dK/dV
+    pass, then the dQ pass)."""
     more = [t for t in (bias, seed) if t is not None]
     _check_qkv("flash_bwd", q, k, v, do, m, l, delta, *more)
     _check_bwd_operands("flash_bwd", q, do, m, l, delta)
-    _check_vectors("flash_bwd", q, k, v, do, m, l, delta)
+    _check_vectors("flash_bwd", m, l, delta)
     bias_ptr, seed_ptr, groups, rows, threshold, drop_scale = _operand_args(
         "flash_bwd", q, k, bias, dropout_p, seed)
     bh, sq, d = q.shape
     sk = k.shape[1]
+    dh, (q, k, v, do) = _padded("flash_bwd", d, q, k, v, do)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _dispatch.launch(
-        KERNEL_BWD, _BWD_ARGS, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        delta.data_ptr(), bias_ptr, seed_ptr, dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, sq, sk, d, groups, rows, float(scale),
-        int(causal), threshold, drop_scale,
+        KERNEL_BWD if q.dtype == torch.bfloat16 else KERNEL_BWD_F32,
+        _BWD_ARGS, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+        bias_ptr, seed_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+        sq, sk, dh, groups, rows, float(scale), int(causal), threshold,
+        drop_scale,
     )
-    return dq, dk, dv
+    return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
@@ -465,26 +532,28 @@ def flash_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K5 on CUDA tensors: the f32 gradient of the (G, RS, Sk)
     ``bias``, in its layout, from K4's operands (q, do (BH, Sq, D) and k,
-    v (BH, Sk, D) bf16; m, l, delta (BH, Sq) f32; the int32 seed with
-    ``dropout_p``).  Each group's members, and every query row when RS =
-    1, are summed inside the kernel in a fixed order: the gradient is the
-    same from run to run."""
+    v (BH, Sk, D), all bf16 or all f32, any D <= 128; m, l, delta (BH,
+    Sq) f32; the int32 seed with ``dropout_p``).  Each group's members,
+    and every query row when RS = 1, are summed inside the kernel in a
+    fixed order: the gradient is the same from run to run."""
     if bias is None:
         raise ValueError("flash_dbias needs the bias it differentiates")
     more = [bias] + ([] if seed is None else [seed])
     _check_qkv("flash_dbias", q, k, v, do, m, l, delta, *more)
     _check_bwd_operands("flash_dbias", q, do, m, l, delta)
-    _check_vectors("flash_dbias", q, k, v, do, m, l, delta)
+    _check_vectors("flash_dbias", m, l, delta)
     bias_ptr, seed_ptr, groups, rows, threshold, drop_scale = _operand_args(
         "flash_dbias", q, k, bias, dropout_p, seed)
     bh, sq, d = q.shape
     sk = k.shape[1]
+    dh, (q, k, v, do) = _padded("flash_dbias", d, q, k, v, do)
     dbias = torch.empty_like(bias)
     _dispatch.launch(
-        KERNEL_DBIAS, _DBIAS_ARGS, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        delta.data_ptr(), bias_ptr, seed_ptr, dbias.data_ptr(), bh, sq, sk,
-        d, groups, rows, float(scale), int(causal), threshold, drop_scale,
+        KERNEL_DBIAS if q.dtype == torch.bfloat16 else KERNEL_DBIAS_F32,
+        _DBIAS_ARGS, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+        bias_ptr, seed_ptr, dbias.data_ptr(), bh, sq, sk, dh, groups, rows,
+        float(scale), int(causal), threshold, drop_scale,
     )
     return dbias
 
@@ -583,7 +652,10 @@ def _attend(op, q, k, v, bias, *, causal, scale, dropout_p, generator,
             dropout_seed, bias_grad=False):
     """The public functions' common part: the default scale, the seed,
     the bias's layout (detached unless ``bias_grad``), then
-    :class:`_Flash`."""
+    :class:`_Flash`.  q, k and v of one dtype, bf16 or f32, go as they
+    are; mixed dtypes or another float dtype (f16) are widened to f32,
+    exactly, as the reference's kernels widen each operand before their
+    dots, and o comes back in q's dtype (each gradient in its input's)."""
     b, h, sq, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
     seed = _dropout_seed(dropout_p, generator, dropout_seed, q.device)
@@ -592,8 +664,13 @@ def _attend(op, q, k, v, bias, *, causal, scale, dropout_p, generator,
     if bias is not None:
         bias = _format_bias(bias if bias_grad else bias.detach(), b, h, sq,
                             k.shape[-2])
-    return _Flash.apply(q, k, v, bias, seed, scale, bool(causal),
-                        float(dropout_p))
+    out_dtype = q.dtype
+    if k.dtype != q.dtype or v.dtype != q.dtype or (
+            q.dtype not in _KERNEL_DTYPES):
+        q, k, v = (t.float() for t in (q, k, v))
+    o, lse = _Flash.apply(q, k, v, bias, seed, scale, bool(causal),
+                          float(dropout_p))
+    return o.to(out_dtype), lse
 
 
 def flash_attention(q, k, v, bias=None, *, causal: bool = False,

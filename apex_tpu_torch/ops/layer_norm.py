@@ -18,18 +18,23 @@ replacing the Pallas ``layer_norm_fwd``) and the backward kernel K2
 tensor they are the plain twins :func:`layer_norm_reference` and
 :func:`layer_norm_bwd_reference`, the arithmetic of the JAX package's
 ``_jnp_fwd`` and ``_jnp_bwd``.  The kernels take any hidden size: the
-TPU's lane rule (``hidden % 128``) does not apply.
+TPU's lane rule (``hidden % 128``) does not apply.  Both kernels run a
+row on one warp or a narrower lane group from registers, with a
+persistent grid; :func:`norm_launch_plan` picks the load width, the
+values per lane, the lanes per row and the grid for a call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.ops import _dispatch
+from apex_tpu_torch.ops import _build, _dispatch
 
 __all__ = [
     "fused_layer_norm",
@@ -40,6 +45,7 @@ __all__ = [
     "layer_norm_bwd_reference",
     "layer_norm_fwd",
     "layer_norm_reference",
+    "norm_launch_plan",
 ]
 
 Shape = Union[int, Sequence[int]]
@@ -47,9 +53,94 @@ Shape = Union[int, Sequence[int]]
 KERNEL = "layer_norm_fwd"
 KERNEL_BWD = "layer_norm_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: K2 CTAs per SM: each CTA walks rows with a stride of the grid and
-#: writes one partial row of dw and db
-_BWD_BLOCKS_PER_SM = 4
+#: warps in a CTA of K1 and K2
+NORM_WARPS = 8
+#: the values a lane can hold in registers (K1's and K2's instances);
+#: a row wider than 32 lanes times the last streams
+_PER_LANE = (4, 8, 16, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class NormPlan:
+    """How K1 or K2 runs one call.
+
+    - ``vec``: values per load — 16 bytes' worth (8 bf16, 4 f32) when the
+      row's byte width and every row tensor's and w's and b's bases are
+      multiples of 16, else 1 (the same path, one element per load);
+    - ``per_lane``: values a lane holds in registers (0: the row streams
+      through L1/L2, one warp per row);
+    - ``lanes``: lanes per row, a power of two, and ``rows_per_warp`` =
+      32 / lanes rows side by side in a warp;
+    - ``ctas_per_sm``: the CTAs of :data:`NORM_WARPS` warps of the
+      instance that stay resident on an SM;
+    - ``grid``: the persistent grid, at most ``ctas_per_sm`` per SM;
+    - ``parts``: K2's partial rows of dw and db (one per CTA, or one per
+      warp when the row streams).
+    """
+
+    vec: int
+    per_lane: int
+    lanes: int
+    rows_per_warp: int
+    ctas_per_sm: int
+    grid: int
+    parts: int
+
+
+def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
+                     ctas_per_sm: Callable[[int, int], int],
+                     aligned: bool = True, bwd: bool = False) -> NormPlan:
+    """The launch plan of K1 (or K2 with ``bwd``) for ``rows`` rows of
+    ``hidden`` values of ``elem_bytes`` bytes (2 bf16, 4 f32) on a card
+    with ``sms`` SMs; ``aligned`` says whether every row tensor's base,
+    and w's and b's, is 16-byte aligned.  ``ctas_per_sm(vec, per_lane)``
+    gives the CTAs of the chosen instance that stay resident on an SM: on
+    the card, the built kernel's own count (:func:`_resident_ctas`)."""
+    if rows < 1 or hidden < 1 or elem_bytes not in (2, 4) or sms < 1:
+        raise ValueError(
+            f"bad norm launch: rows={rows} hidden={hidden} "
+            f"elem_bytes={elem_bytes} sms={sms}")
+    vec = 16 // elem_bytes
+    if not aligned or hidden % vec:
+        vec = 1
+    per_lane = next((n for n in _PER_LANE if n >= vec and hidden <= 32 * n),
+                    0)
+    lanes = 32
+    if per_lane:
+        lanes = 1 << max(0, math.ceil(math.log2(-(-hidden // per_lane))))
+    ctas = ctas_per_sm(vec, per_lane)
+    if ctas < 1:
+        raise ValueError(f"no CTA of the norm kernel fits an SM: {ctas}")
+    rows_per_warp = 32 // lanes
+    grid = min(-(-rows // (NORM_WARPS * rows_per_warp)), sms * ctas)
+    parts = grid if per_lane else grid * NORM_WARPS
+    return NormPlan(vec, per_lane, lanes, rows_per_warp, ctas, grid, parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_ctas(kernel: str, dtype_code: int, device_index: int, vec: int,
+                   per_lane: int) -> int:
+    """The CTAs of K1's or K2's instance that stay resident on an SM of
+    the device, from the CUDA occupancy calculator on the built kernel
+    (``<kernel>_ctas_per_sm``)."""
+    fn = getattr(_build.load(_build.library(kernel)), f"{kernel}_ctas_per_sm")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.check(kernel, fn(dtype_code, vec, per_lane, ctypes.byref(ctas)))
+    return ctas.value
+
+
+def _plan(kernel, x2d, *row_tensors, bwd):
+    rows, hidden = x2d.shape
+    dev = x2d.device.index
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2d, *row_tensors))
+    ctas = functools.partial(_resident_ctas, kernel,
+                             _DTYPE_CODES[x2d.dtype], dev)
+    return norm_launch_plan(rows, hidden, x2d.element_size(), sms=sms,
+                            ctas_per_sm=ctas, aligned=aligned, bwd=bwd)
 
 
 def layer_norm_reference(
@@ -103,8 +194,12 @@ def layer_norm_bwd_reference(
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P]
-_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+# x, w, b, y, mu, rstd; rows, hidden, eps, rms, dtype; vec, per_lane,
+# lanes, grid; stream
+_FWD_ARGS = [_P] * 6 + [_I, _I, _F, _I, _I] + [_I] * 4 + [_P]
+# x, w, b, mu, rstd, g, dx, partial rows; rows, hidden, rms, x_is_output,
+# dtype; vec, per_lane, lanes, grid; stream
+_BWD_ARGS = [_P] * 8 + [_I] * 5 + [_I] * 4 + [_P]
 
 
 def _check_operands(name, x2d, w, b, *rows_f32):
@@ -138,10 +233,12 @@ def layer_norm_fwd(
     rstd = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     if rows == 0:
         return y, mu, rstd
+    plan = _plan(KERNEL, x2d, y, w, b, bwd=False)
     _dispatch.launch(
         KERNEL, _FWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows,
-        hidden, float(eps), int(rms), _DTYPE_CODES[x2d.dtype],
+        hidden, float(eps), int(rms), _DTYPE_CODES[x2d.dtype], plan.vec,
+        plan.per_lane, plan.lanes, plan.grid,
     )
     return y, mu, rstd
 
@@ -153,8 +250,9 @@ def layer_norm_bwd(
     """Kernel K2 on CUDA tensors: ``(dx, dw, db)`` for the saved ``x2d``
     (or the output ``y`` with ``x_is_output``), f32 ``w``/``b`` (hidden,),
     f32 ``mu``/``rstd`` (rows,) and the output gradient ``g`` (rows,
-    hidden) in ``x2d``'s dtype.  The CTAs' f32 partial rows of dw and db
-    are summed here with ``torch.sum``."""
+    hidden) in ``x2d``'s dtype.  The kernel's f32 partial rows of dw and
+    db (:class:`NormPlan` ``parts``) are summed here with one
+    ``torch.sum``, in a fixed order."""
     _check_operands("layer_norm_bwd", x2d, w, b, mu, rstd)
     if (g.device != x2d.device or g.shape != x2d.shape
             or g.dtype != x2d.dtype or not g.is_contiguous()):
@@ -168,18 +266,18 @@ def layer_norm_bwd(
     if rows == 0:
         zeros = torch.zeros(hidden, dtype=torch.float32, device=x2d.device)
         return dx, zeros, zeros.clone()
-    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    n_blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
-    dw_part = torch.empty(n_blocks, hidden, dtype=torch.float32,
-                          device=x2d.device)
-    db_part = torch.empty_like(dw_part)
+    plan = _plan(KERNEL_BWD, x2d, g, dx, w, bwd=True)
+    part = torch.empty(plan.parts, 2, hidden, dtype=torch.float32,
+                       device=x2d.device)
     _dispatch.launch(
         KERNEL_BWD, _BWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
         b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), rows, hidden,
-        n_blocks, int(rms), int(x_is_output), _DTYPE_CODES[x2d.dtype],
+        dx.data_ptr(), part.data_ptr(), rows, hidden, int(rms),
+        int(x_is_output), _DTYPE_CODES[x2d.dtype], plan.vec, plan.per_lane,
+        plan.lanes, plan.grid,
     )
-    return dx, dw_part.sum(dim=0), db_part.sum(dim=0)
+    dw, db = part.sum(dim=0)
+    return dx, dw, db
 
 
 class _Norm2d(torch.autograd.Function):

@@ -59,6 +59,7 @@ SHAPES = (
     ("triangle", 1024, 256, 32, False, (1024, 256)),
     ("msa_row", 512, 256, 64, False, (512, 256)),
     ("msa_col", 1024, 128, 64, False, None),
+    ("long", 8, 16384, 128, True, None),
 )
 
 
@@ -116,7 +117,9 @@ def _check(name, gen):
     """The variant now loaded for ``name`` against the plain version."""
     for bh, sq, sk, d, causal, layout in ((4, 200, 130, 64, True, None),
                                           (8, 130, 37, 32, True, (2, 130)),
-                                          (8, 136, 200, 64, True, (8, 136))):
+                                          (8, 136, 200, 64, True, (8, 136)),
+                                          (4, 200, 130, 128, True, None),
+                                          (8, 136, 200, 128, False, (8, 136))):
         q, k, v, bias, do = _inputs(bh, sq, sk, d, layout, gen)
         kw = dict(scale=d ** -0.5, causal=causal)
         ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
@@ -142,7 +145,7 @@ def _time_shape(name, shape, flush, gen):
     kw = dict(scale=d ** -0.5, causal=causal)
     if name == "flash_fwd":
         return _time_ms(lambda: attn.flash_fwd(q, k, v, bias, **kw), flush)
-    o, _, m, l = attn.flash_fwd_reference(q, k, v, bias, **kw)
+    o, _, m, l = attn.flash_fwd(q, k, v, bias, **kw)
     delta = (do.float() * o.float()).sum(-1)
     return _time_ms(lambda: attn.flash_bwd(q, k, v, do, m, l, delta, bias,
                                            **kw), flush)

@@ -27,7 +27,12 @@ a CUDA device it exits non-zero at once and prints no result.
    (the bias gradient) at the evoformer's two biased shapes and in every
    (G, RS) layout, causal and not, Sq != Sk both ways, ragged, with
    dropout, D = 32 and 64; K3 and K4 at D = 32, the triangle shape
-   with its G = BH bias included.
+   with its G = BH bias included.  K3, K4 and K5 at D = 128 in every
+   bias mode and with dropout, at D = 48 and 96 (padded by the wrappers
+   to 64 and 128), and their f32 instances at D 64, 96 and the triangle
+   shape; K6 at D 80, 96 and 128 (int8 and bf16 pages, RoPE); K1 and K2
+   also at widths 1001 (rows off 16-byte boundaries), 130 f32, 12288
+   (streamed), 64 and 33 (several rows a warp).
 2. The serving slice: ``GptConfig()`` at full width (bf16, seeded random
    weights) behind ``InferenceEngine`` + ``ContinuousBatchingScheduler``
    answers 8 greedy requests (prompts of 17..1900 tokens, 32 new tokens
@@ -40,8 +45,10 @@ a CUDA device it exits non-zero at once and prints no result.
    prefill and 4 decode steps through the card engine (bf16) against the
    CPU engine (f32, the same weights), fed the same tokens.
 4. Timing at the main-path shapes (training, BERT, the evoformer's
-   triangle, MSA row and MSA column attention, and serving): each
-   kernel,
+   triangle, MSA row and MSA column attention, and serving), and K1/K2
+   at the evoformer's f32 rows, K3/K4 at the reference's long-context
+   shape (BH 8, S 16384, D 128, causal) and the f32 instances of K3-K5
+   at the triangle shape: each kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
@@ -75,19 +82,23 @@ a CUDA device it exits non-zero at once and prints no result.
     (OpenFold's c_m 256, c_z 128, 4 heads) on N_seq 128 x N_res 256,
     MSE to seeded targets, FusedAdam, 8 steps; exact K1-K5 counts,
     losses finite and falling; step time, analytic MFU, peak memory and
-    one profiled step by layer.
+    one profiled step by layer.  Then one block with f32 attention (the
+    JAX module's precision) for 3 steps: exact counts of K1, K2 and the
+    f32 instances of K3-K5, losses falling, step time.
 11. Evoformer cross-check: one full-width block at N_res 64, N_seq 32 —
     the loss, every gradient and the weights after one FusedAdam step,
     card (bf16 attention) against CPU (f32), and a planted fault (K5's
     twin halved) that must fail the same limits.
 
 The phases run in the order 1, 2, 3, 6, 7, 8, 9, 10, 11, 4, 5.
-The line before the last is a JSON object of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object of the kernels (every C entry
+point, the f32 instances included); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -111,6 +122,15 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 K6_TOL = dict(atol=4e-3, rtol=8e-3)
 #: f32 statistics (LayerNorm mean/rstd, attention lse): summation order
 F32_TOL = dict(atol=1e-3, rtol=1e-4)
+#: the f32 instances of K3, K4 and K5 (csrc/flash_f32.cu) against their
+#: f32 twins, on inputs drawn in full f32: FFMA products, and sums in
+#: another order than cuBLAS's.  The control that must fail is the same
+#: twin with q, k and v rounded to TF32 and its products on TF32 (what a
+#: kernel on bf16 or TF32 tensor cores would compute): phase 1 checks that
+#: each f32 case's control fails this limit.  The limit sits between the
+#: two, about a factor of 20 from each on an H100: phase 1 logs both
+#: readings as "worst err/allowance" (PERF.md).
+F32_ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 #: K2's dw/db: f32 sums over up to 65536 rows (|sum| up to ~1000) taken
 #: in another order (per-CTA partials, then torch.sum)
 SUM_TOL = dict(atol=1e-2, rtol=1e-3)
@@ -144,7 +164,14 @@ REPLACES = {
     "flash_bwd": "apex_tpu/ops/pallas/flash_attention.py:873",
     "flash_dbias": "apex_tpu/ops/pallas/flash_attention.py:1108",
     "paged_decode": "apex_tpu/ops/pallas/decode_attention.py:263",
+    # the f32 instances of K3, K4 and K5 (csrc/flash_f32.cu): the same
+    # Pallas kernels on f32 inputs, at Precision.HIGHEST
+    "flash_fwd_f32": "apex_tpu/ops/pallas/flash_attention.py:615",
+    "flash_bwd_f32": "apex_tpu/ops/pallas/flash_attention.py:873",
+    "flash_dbias_f32": "apex_tpu/ops/pallas/flash_attention.py:1108",
 }
+#: every kernel's C entry point, as the launch counters name them
+KERNEL_ENTRIES = tuple(REPLACES)
 
 
 def log(*args):
@@ -163,8 +190,11 @@ def compare(name, out, ref, tol):
     max_abs = float(err.max()) if err.numel() else 0.0
     big = ref.abs() >= 0.1
     max_rel = float((err[big] / ref.abs()[big]).max()) if big.any() else 0.0
+    allowed = tol["atol"] + tol["rtol"] * ref.abs()
+    ratio = float((err / allowed).max()) if err.numel() else 0.0
     log(f"  {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-        f"tol={tol} {'ok' if ok else 'FAIL'}")
+        f"worst err/allowance={ratio:.3e} tol={tol} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_abs
@@ -274,24 +304,44 @@ MAIN_LENGTHS = [0, 1, 17, 2048, 100, 555, 1024, 2047]
 
 
 def phase1(gen):
-    import torch
-
-    from apex_tpu_torch.ops import attention as attn
-    from apex_tpu_torch.ops import layer_norm as ln
-    from apex_tpu_torch.ops import paged_attention as pa
-
+    """Each kernel against its plain version on the card; returns the
+    errors that go into the kernels line."""
     log("phase 1: kernels against their plain versions")
-    errs = {}
+    errs = {"layer_norm_fwd": phase1_ln_fwd(gen),
+            "flash_fwd": phase1_flash_fwd(gen)}
+    errs["layer_norm_bwd"] = phase1_ln_bwd(gen)
+    errs["flash_bwd"] = phase1_flash_bwd(gen)
+    phase1_flash_operands(gen)
+    phase1_dropout_mask(gen)
+    errs.update(phase1_head_dims(gen))
+    errs["paged_decode"] = phase1_paged(gen)
+    return errs
+
+
+def phase1_ln_fwd(gen):
+    """K1 against its twin: y under BF16_TOL (bf16) or F32_TOL (f32), mu
+    and rstd under F32_TOL.  Returns max |y - y_ref| at the training
+    shape."""
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    main_err = None
     # the training shape first (its error goes into the kernels line),
-    # then the prefill shape, the decode batch, RMS, a ragged row, and the
+    # then the prefill shape, the decode batch, RMS, a ragged row, the
     # evoformer's f32 rows (MSA 128 x 256 rows of 256, pair 256 x 256
-    # rows of 128, eps 1e-6)
+    # rows of 128, eps 1e-6), an odd bf16 width (1001: every row but
+    # every eighth starts off a 16-byte boundary, so one element per
+    # load), an f32 width of 130 (520 bytes, also one element per load),
+    # a wide row that streams (12288 > 32 lanes x 32 values) and narrow
+    # rows that share a warp (64 bf16: 8 lanes a row; 33 f32: 16)
     for rows, hidden, rms, dt, eps in (
             (TRAIN_BATCH * TRAIN_SEQ, 1024, False, "bf16", 1e-5),
             (2048, 1024, False, "bf16", 1e-5), (8, 1024, False, "bf16", 1e-5),
             (2048, 1024, True, "bf16", 1e-5), (37, 1000, False, "bf16", 1e-5),
             (EVO_SEQ * EVO_RES, 256, False, "f32", 1e-6),
-            (EVO_RES * EVO_RES, 128, False, "f32", 1e-6)):
+            (EVO_RES * EVO_RES, 128, False, "f32", 1e-6),
+            (1000, 1001, False, "bf16", 1e-5), (999, 130, True, "f32", 1e-6),
+            (64, 12288, False, "bf16", 1e-5), (300, 64, False, "bf16", 1e-5),
+            (301, 33, False, "f32", 1e-6)):
         x, w, b = ln_inputs(rows, hidden, gen)
         if dt == "f32":
             x = x.float()
@@ -303,10 +353,21 @@ def phase1(gen):
                     BF16_TOL if dt == "bf16" else F32_TOL)
         compare(tag + " mu", mu, mu_r, F32_TOL)
         compare(tag + " rstd", rstd, rstd_r, F32_TOL)
-        errs.setdefault("layer_norm_fwd", e)
+        if main_err is None:
+            main_err = e
+    return main_err
 
-    # the training shape (BH = batch x heads) first, then the prefill
-    # shapes and ragged and Sq != Sk cases
+
+def phase1_flash_fwd(gen):
+    """K3 against its twin at D = 64, causal: the training shape (BH =
+    batch x heads, run twice for the same bits) first, then the prefill
+    shapes and ragged and Sq != Sk cases.  Returns the training shape's
+    error."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    main_err = None
     for bh, sq, sk in ((TRAIN_BATCH * 16, TRAIN_SEQ, TRAIN_SEQ),
                        (16, 16, 16), (16, 1024, 1024), (16, 2048, 2048),
                        (4, 200, 200), (4, 64, 192), (2, 96, 40)):
@@ -314,24 +375,43 @@ def phase1(gen):
         out = attn.flash_fwd(q, k, v, scale=0.125, causal=True)
         ref = attn.flash_fwd_reference(q, k, v, scale=0.125, causal=True)
         tag = f"K3 flash_fwd BH={bh} Sq={sq} Sk={sk} D=64 causal"
-        errs.setdefault("flash_fwd", check_k3(tag, out, ref))
-        if bh == TRAIN_BATCH * 16:
+        e = check_k3(tag, out, ref)
+        if main_err is None:
+            main_err = e
             check_repeat(tag, out, attn.flash_fwd(q, k, v, scale=0.125,
                                                   causal=True))
         del out, ref
         torch.cuda.empty_cache()
+    return main_err
 
-    errs["layer_norm_bwd"] = phase1_ln_bwd(gen)
-    errs["flash_bwd"] = phase1_flash_bwd(gen)
-    phase1_flash_operands(gen)
-    phase1_dropout_mask(gen)
 
+def phase1_paged(gen):
+    """K6 against its twin under K6_TOL, idle slots exactly zero.
+    Returns the decode batch's error."""
+    from apex_tpu_torch.ops import paged_attention as pa
+
+    main_err = None
+    # the decode batch, int8 pages, f32 pages, then head dims past the
+    # main path's 64, all with the fused RoPE: 96 and 128 with int8 pages
+    # and bf16 pages (whole 16-byte vectors per K row), and 80 and 48,
+    # which are no multiple of 32 (one element per load, lanes past d
+    # masked)
     cases = (
         ("bf16", dict(b=8, h=16, d=64, page=16, np_=128, pool=1025,
                       lengths=MAIN_LENGTHS)),
         ("int8", dict(b=8, h=16, d=64, page=16, np_=128, pool=1025,
                       lengths=MAIN_LENGTHS)),
         ("f32", dict(b=3, h=4, d=32, page=8, np_=3, pool=12,
+                     lengths=[17, 9, 0])),
+        ("int8", dict(b=8, h=8, d=96, page=16, np_=128, pool=1025,
+                      lengths=MAIN_LENGTHS)),
+        ("int8", dict(b=8, h=8, d=128, page=16, np_=128, pool=1025,
+                      lengths=MAIN_LENGTHS)),
+        ("bf16", dict(b=8, h=8, d=128, page=16, np_=128, pool=1025,
+                      lengths=MAIN_LENGTHS)),
+        ("bf16", dict(b=4, h=4, d=80, page=16, np_=8, pool=33,
+                      lengths=[0, 1, 100, 128])),
+        ("f32", dict(b=3, h=4, d=48, page=8, np_=3, pool=12,
                      lengths=[17, 9, 0])),
     )
     for kv, shape in cases:
@@ -349,16 +429,19 @@ def phase1(gen):
         idle = [i for i, n in enumerate(shape["lengths"]) if n == 0]
         if float(out[idle].float().abs().max()) != 0.0:
             raise AssertionError(tag + ": an idle slot is not exactly zero")
-        if kv == "bf16":
-            errs["paged_decode"] = e
-    return errs
+        if main_err is None:
+            main_err = e
+    return main_err
 
 
 #: (rows, hidden, dtype, rms, memory_efficient): the training shape, the
 #: other modes, ragged rows, f32, one hidden size for each of K2's
-#: register variants (a thread holds 1, 2, 4, 8 or 16 columns), a row
-#: wider than that (the streamed variant), and the evoformer's f32 rows
-#: (MSA 128 x 256 rows of 256, pair 256 x 256 rows of 128)
+#: register variants (a lane holds 4, 8, 16 or 32 values, from 16-byte
+#: loads or one element per load), rows wider than that (streamed), the
+#: evoformer's f32 rows (MSA 128 x 256 rows of 256, pair 256 x 256 rows
+#: of 128), an odd bf16 width whose rows start off 16-byte boundaries
+#: (1001), an f32 width of 130, a wide row (12288) and narrow rows that
+#: share a warp (64, 33)
 LN_BWD_CASES = (
     (16384, 1024, "bf16", False, False),
     (16384, 1024, "bf16", False, True),
@@ -372,6 +455,11 @@ LN_BWD_CASES = (
     (64, 5000, "f32", False, False),
     (128 * 256, 256, "f32", False, False),
     (256 * 256, 128, "f32", False, False),
+    (1000, 1001, "bf16", False, False),
+    (999, 130, "f32", False, True),
+    (64, 12288, "bf16", False, True),
+    (300, 64, "bf16", True, False),
+    (301, 33, "f32", False, False),
 )
 
 
@@ -770,6 +858,152 @@ def phase1_flash_dbias(gen):
     return main
 
 
+#: (tag, BH, Sq, Sk, D, causal, bias (G, RS) or None, dropout_p) of
+#: phase 1's head-dim and f32 cases
+HEAD_DIM_CASES = (
+    ("D=128 causal (the long-context bench's head dim)", 16, 1024, 1024,
+     128, True, None, 0.0),
+    ("D=128 G=BH RS=Sq", 8, 256, 256, 128, False, (8, 256), 0.0),
+    ("D=128 G=B RS=1 + dropout 0.1", 8, 200, 136, 128, True, (2, 1), 0.1),
+    ("D=128 G=B RS=Sq, Sk % 4 != 0", 8, 130, 37, 128, True, (2, 130), 0.0),
+    ("D=48 (padded to 64)", 8, 200, 200, 48, True, None, 0.0),
+    ("D=96 (padded to 128) G=BH RS=Sq + dropout 0.1", 8, 136, 200, 96,
+     False, (8, 136), 0.1),
+    ("D=96 (padded to 128)", 4, 1000, 1000, 96, True, None, 0.0),
+)
+F32_CASES = (
+    ("f32 D=64", 8, 256, 256, 64, True, None, 0.0),
+    ("f32 D=64 G=B RS=1 + dropout 0.1", 8, 136, 200, 64, True, (2, 1), 0.1),
+    ("f32 D=64 G=BH RS=Sq", 8, 200, 136, 64, False, (8, 200), 0.0),
+    ("f32 D=96 (padded to 128)", 8, 200, 200, 96, True, None, 0.0),
+    ("f32 D=96 G=BH RS=Sq + dropout 0.1", 8, 200, 72, 96, True, (8, 200),
+     0.1),
+    ("f32 D=96 G=1 RS=1", 8, 72, 200, 96, False, (1, 1), 0.0),
+    ("f32 triangle D=32 G=BH RS=Sq", TRIANGLE_SHAPE[0], TRIANGLE_SHAPE[1],
+     TRIANGLE_SHAPE[1], 32, False, (TRIANGLE_SHAPE[0], TRIANGLE_SHAPE[1]),
+     0.0),
+)
+
+
+def tf32_twin(fn, q, k, v, *rest, **kw):
+    """The twin ``fn`` with q, k and v rounded to TF32 (10 mantissa bits,
+    to nearest) and its products on TF32: the f32 instances' control."""
+    import torch
+
+    def tf32(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+            torch.float32)
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn(tf32(q), tf32(k), tf32(v), *rest, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def f32_control(tag, names, ref, bad):
+    """compare() of the TF32 control (:func:`tf32_twin`) with the sound
+    twin under F32_ATTN_TOL: at least one output must fail, or the limit
+    could not tell an f32 kernel from one on bf16 or TF32 tensor cores."""
+    failed = []
+    for name, a, r in zip(names, bad, ref):
+        try:
+            compare(f"{tag} {name}, control (twin on TF32)", a, r,
+                    F32_ATTN_TOL)
+        except AssertionError:
+            failed.append(name)
+    log(f"  {tag} control fails on {failed or 'nothing'}: "
+        f"{'ok' if failed else 'FAIL'}")
+    if not failed:
+        raise AssertionError(f"{tag}: F32_ATTN_TOL passes TF32 products")
+
+
+def phase1_head_dims(gen):
+    """K3, K4 and K5 at the head dims past the main paths' 32 and 64, and
+    their f32 instances, against the twins on the same inputs and seed
+    (m, l from the twin's forward).  bf16 (``HEAD_DIM_CASES``): D = 128,
+    the kernels' own instance, with every bias mode (TMA tiles, the
+    key-padding row, a row stride TMA cannot map) and dropout, and D = 48
+    and 96, which the wrappers pad to 64 and 128; K3 under BF16_TOL and
+    F32_TOL, K4 under K4_TOL, K5 under K5_TOL, and the D = 128 causal
+    case run twice for the same bits.  f32 (``F32_CASES``, q, k, v and dO
+    drawn in full f32): D 64 and 96, with and without a bias, causal and
+    not, with dropout, and the triangle shape; o, lse, m, l, dq, dk, dv
+    and dbias under F32_ATTN_TOL, and each kernel's TF32 control
+    (:func:`f32_control`) failing it.  Returns the first D = 128 case's and the first f32 case's
+    errors for the kernels line."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    log("phase 1: K3/K4/K5 at D = 128 and padded head dims, and their f32 "
+        "instances, against their twins")
+    errs = {}
+    for tag, bh, sq, sk, d, causal, layout, p in HEAD_DIM_CASES + F32_CASES:
+        f32 = tag.startswith("f32")
+        if f32:  # full f32: no value that bf16 or TF32 holds exactly
+            q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                       for s in (sq, sk, sk))
+        else:
+            q, k, v = attn_inputs(bh, sq, sk, d, gen)
+        do = torch.randn(bh, sq, d, generator=gen, device="cuda").to(q.dtype)
+        bias = (None if layout is None else
+                torch.randn(*layout, sk, generator=gen, device="cuda"))
+        seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        kw = dict(scale=d ** -0.5, causal=causal, dropout_p=p, seed=seed)
+        tag = f"{tag} BH={bh} Sq={sq} Sk={sk} D={d} causal={causal}"
+        ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
+        out = attn.flash_fwd(q, k, v, bias, **kw)
+        if f32:
+            e3 = compare(f"K3 {tag} o", out[0], ref[0], F32_ATTN_TOL)
+            for name, a, r in zip(("lse", "m", "l"), out[1:], ref[1:]):
+                compare(f"K3 {tag} {name}", a, r, F32_ATTN_TOL)
+            f32_control("K3 " + tag, ("o", "lse"), ref,
+                        tf32_twin(attn.flash_fwd_reference, q, k, v, bias,
+                                  **kw))
+        else:
+            e3 = check_k3("K3 " + tag, out, ref)
+        if d == 128 and causal and bias is None:
+            check_repeat("K3 " + tag, out, attn.flash_fwd(q, k, v, bias, **kw))
+        o, _, m, l = ref
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, m, l, delta, bias)
+        del ref, out, o
+        out = attn.flash_bwd(*args, **kw)
+        ref = attn.flash_bwd_reference(*args, **kw)
+        if f32:
+            e4 = [compare(f"K4 {tag} {n}", a, r, F32_ATTN_TOL)
+                  for n, a, r in zip(("dq", "dk", "dv"), out, ref)]
+            f32_control("K4 " + tag, ("dq", "dk", "dv"), ref,
+                        tf32_twin(attn.flash_bwd_reference, *args, **kw))
+        else:
+            e4 = check_k4("K4 " + tag, out, ref)
+        if d == 128 and causal and bias is None:
+            check_repeat("K4 " + tag, out, attn.flash_bwd(*args, **kw))
+        del out, ref
+        e5 = None
+        if bias is not None and f32:
+            ref = attn.flash_dbias_reference(*args, **kw)
+            e5 = compare(f"K5 {tag} dbias", attn.flash_dbias(*args, **kw),
+                         ref, F32_ATTN_TOL)
+            f32_control("K5 " + tag, ("dbias",), (ref,),
+                        (tf32_twin(attn.flash_dbias_reference, *args, **kw),))
+            del ref
+        elif bias is not None:
+            e5 = check_k5("K5 " + tag, attn.flash_dbias(*args, **kw),
+                          attn.flash_dbias_reference(*args, **kw))
+        suffix = "_f32" if f32 else "_d128"
+        if d in (64, 128) and f"flash_fwd{suffix}" not in errs:
+            errs[f"flash_fwd{suffix}"] = e3
+            errs[f"flash_bwd{suffix}"] = max(e4)
+        if e5 is not None and f"flash_dbias{suffix}" not in errs:
+            errs[f"flash_dbias{suffix}"] = e5
+        del args, q, k, v, do, m, l, delta, bias
+        torch.cuda.empty_cache()
+    return errs
+
+
 def phase1_dropout_mask(gen):
     """Reads K3's and K4's dropout keep masks back bit for bit at BERT's
     shape (BH = 2048, S = 128, p = 0.1) and compares each with the twin's
@@ -1057,18 +1291,22 @@ def _attn_live_pairs(s, causal=True):
     return s * (s + 1) // 2 if causal else s * s
 
 
-def _time_ln(gen, flush, rows, hidden):
-    """K1 and K2 at x (rows, hidden) bf16, each beside its plain version
-    and the library call (``F.layer_norm`` and its backward, bf16
-    affine), with the bounds."""
+def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
+    """K1 and K2 at x (rows, hidden) in ``dtype`` (bf16 or f32), each
+    beside its plain version and the library call (``F.layer_norm`` and
+    its backward, affine, with the weights in x's dtype), with the
+    bounds."""
     import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import layer_norm as ln
 
     x, w, b = ln_inputs(rows, hidden, gen)
-    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    if dtype == "f32":
+        x = x.float()
+    wb, bb = w.to(x.dtype), b.to(x.dtype)
     n = x.numel()
+    elem = x.element_size()
     fwd = dict(
         ms=time_ms(lambda: ln.layer_norm_fwd(x, w, b, eps=1e-5, rms=False),
                    flush=flush),
@@ -1078,7 +1316,7 @@ def _time_ln(gen, flush, rows, hidden):
                            flush=flush),
     )
     fwd["bound_ms"], fwd["bound_by"] = bound(
-        _ln_bytes(rows, hidden, 2, bwd=False), 8 * n, F32_FLOPS)
+        _ln_bytes(rows, hidden, elem, bwd=False), 8 * n, F32_FLOPS)
 
     _, mu, rstd = ln.layer_norm_reference(x, w, b, 1e-5, False)
     g = torch.randn(rows, hidden, generator=gen, device="cuda").to(x.dtype)
@@ -1093,7 +1331,7 @@ def _time_ln(gen, flush, rows, hidden):
             y_lib, (xr, wr, br), g, retain_graph=True), flush=flush),
     )
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        _ln_bytes(rows, hidden, 2, bwd=True), 12 * n, F32_FLOPS)
+        _ln_bytes(rows, hidden, elem, bwd=True), 12 * n, F32_FLOPS)
     return fwd, bwd
 
 
@@ -1139,6 +1377,70 @@ def _time_attn(gen, flush, bh, s, *, with_bwd):
         plain_ms=time_ms(lambda: attn.flash_bwd_reference(
             q, k, v, do, m, l, delta, scale=0.125, causal=True),
             iters=5, warmup=1, flush=flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            o_lib, (qr, kr, vr), do[None], retain_graph=True), flush=flush),
+    )
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        2 * 7 * elems + 3 * 4 * bh * s, 10 * d * live, BF16_TENSOR_FLOPS)
+    return fwd, bwd
+
+
+#: the reference's long-context benchmark (``bench.py``'s long-context
+#: config: B 1, H 8, S 16384, D 128, causal)
+LONG_BH, LONG_S, LONG_D = 8, 16384, 128
+
+
+def _time_attn_long(gen, flush):
+    """K3 and K4 at the long-context shape (BH 8, S 16384, D 128, causal,
+    bf16) beside the plain versions and SDPA (``is_causal``; its backward
+    timed on its own), with the bounds: 2 products of 2*D flops per live
+    pair forward, 5 backward.  The plain versions hold (8, 16384, 16384)
+    f32 score-sized tensors (8.6 GB each): one run each after one warm-up,
+    and "not measured" if the card runs out of memory."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention as attn
+
+    bh, s, d = LONG_BH, LONG_S, LONG_D
+    scale = d ** -0.5
+    q, k, v = attn_inputs(bh, s, s, d, gen)
+    live = bh * _attn_live_pairs(s)
+    elems = bh * s * d
+
+    def plain(fn):
+        try:
+            return time_ms(fn, iters=1, warmup=1, flush=flush)
+        except torch.cuda.OutOfMemoryError:
+            log("  the plain version ran out of device memory: not measured")
+            return None
+        finally:
+            torch.cuda.empty_cache()
+
+    fwd = dict(
+        ms=time_ms(lambda: attn.flash_fwd(q, k, v, scale=scale, causal=True),
+                   flush=flush),
+        plain_ms=plain(lambda: attn.flash_fwd_reference(
+            q, k, v, causal=True, scale=scale)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, scale=scale),
+            flush=flush),
+    )
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        2 * 4 * elems + 3 * 4 * bh * s, 4 * d * live, BF16_TENSOR_FLOPS)
+    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    o, _, m, l = attn.flash_fwd(q, k, v, scale=scale, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    qr, kr, vr = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           scale=scale)
+    bwd = dict(
+        ms=time_ms(lambda: attn.flash_bwd(q, k, v, do, m, l, delta,
+                                          scale=scale, causal=True),
+                   flush=flush),
+        plain_ms=plain(lambda: attn.flash_bwd_reference(
+            q, k, v, do, m, l, delta, scale=scale, causal=True)),
         library_ms=time_ms(lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), do[None], retain_graph=True), flush=flush),
     )
@@ -1207,7 +1509,8 @@ def _time_attn_bert(gen, flush, dropout_p):
     return fwd, bwd
 
 
-def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
+def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
+                        dtype="bf16"):
     """K5 (and K3, K4) at an evoformer shape: q/k/v (bh, s, d) bf16,
     non-causal, a (bh, s, s) f32 bias at G = BH, beside the plain
     versions and SDPA with the same bias as a bf16 ``attn_mask`` of (B,
@@ -1218,7 +1521,9 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
     the bias read and (K5) dbias written, against 2 products of 2·D
     flops per pair forward, 5 backward, 2 for K5's recompute.  Without
     ``with_bias`` (MSA column attention) only K3 and K4 run, and SDPA
-    without a mask."""
+    without a mask.  With ``dtype="f32"`` q, k, v, dO, the SDPA mask and
+    SDPA run in f32, the bytes count 4 per element and the operations
+    the f32 peak (the f32 instances run on the CUDA cores)."""
     import torch
     import torch.nn.functional as F
 
@@ -1227,6 +1532,10 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
     b = bh // EVO_HEADS
     scale = d ** -0.5
     q, k, v = attn_inputs(bh, s, s, d, gen)
+    if dtype == "f32":
+        q, k, v = (t.float() for t in (q, k, v))
+    elem = q.element_size()
+    peak = F32_FLOPS if dtype == "f32" else BF16_TENSOR_FLOPS
     bias = (torch.randn(bh, s, s, generator=gen, device="cuda") if with_bias
             else None)
     kw = dict(scale=scale, causal=False)
@@ -1236,7 +1545,7 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
     bias_bytes = 0 if bias is None else bias.numel() * 4
     q4, k4, v4 = (t.reshape(b, EVO_HEADS, s, d) for t in (q, k, v))
     mask4 = (None if bias is None
-             else bias.reshape(b, EVO_HEADS, s, s).to(torch.bfloat16))
+             else bias.reshape(b, EVO_HEADS, s, s).to(q.dtype))
 
     def library(fn):
         """A library timing, or None (logged) where SDPA refuses."""
@@ -1248,7 +1557,7 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
 
     rows = {}
     o, _, m, l = attn.flash_fwd(q, k, v, bias, **kw)
-    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(q.dtype)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, m, l, delta, bias)
     if with_k34:
@@ -1262,8 +1571,7 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
                 q4, k4, v4, attn_mask=mask4, scale=scale)),
         )
         rows["flash_fwd"]["bound_ms"], rows["flash_fwd"]["bound_by"] = bound(
-            4 * elems * 2 + stats + bias_bytes, 4 * d * pairs,
-            BF16_TENSOR_FLOPS)
+            4 * elems * elem + stats + bias_bytes, 4 * d * pairs, peak)
         qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
         o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask4,
                                                scale=scale)
@@ -1276,8 +1584,7 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
                 retain_graph=True)),
         )
         rows["flash_bwd"]["bound_ms"], rows["flash_bwd"]["bound_by"] = bound(
-            7 * elems * 2 + stats + bias_bytes, 10 * d * pairs,
-            BF16_TENSOR_FLOPS)
+            7 * elems * elem + stats + bias_bytes, 10 * d * pairs, peak)
         del o_lib
     if bias is None:
         return rows
@@ -1305,8 +1612,7 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True):
         k4_plus_k5_ms=k4_ms + k5_ms,
     )
     rows["flash_dbias"]["bound_ms"], rows["flash_dbias"]["bound_by"] = bound(
-        4 * elems * 2 + stats + 2 * bias_bytes, 4 * d * pairs,
-        BF16_TENSOR_FLOPS)
+        4 * elems * elem + stats + 2 * bias_bytes, 4 * d * pairs, peak)
     return rows
 
 
@@ -1318,8 +1624,12 @@ def phase4(gen, launches, errs):
     0.1) and the serving shapes of phase 2 (K1 at (2048, 1024), K3 at
     BH=16, S=2048, K6 at the decode batch), and the evoformer's attention
     of phase 10 (K3, K4 and K5 at the triangle and MSA row shapes, K3
-    and K4 at the MSA column shape).  ``launches`` maps kernel -> {path: count} from the phase-2,
-    -6, -8 and -10 runs."""
+    and K4 at the MSA column shape).  Beside them: K1 and K2 at the
+    evoformer's f32 rows (pair (65536, 128), MSA (32768, 256)), K3 and K4
+    at the reference's long-context shape (BH 8, S 16384, D 128, causal)
+    and the f32 instances of K3, K4 and K5 at the triangle shape (the
+    f32-attention run of phase 10).  ``launches`` maps kernel -> {path:
+    count} from the phase-2, -6, -8 and -10 runs."""
     import torch
 
     from apex_tpu_torch.ops import _build
@@ -1335,13 +1645,22 @@ def phase4(gen, launches, errs):
     rows["layer_norm_fwd"] = dict(ln_fwd, shape=f"x ({train_rows}, 1024) bf16")
     rows["layer_norm_bwd"] = dict(ln_bwd, shape=f"x, g ({train_rows}, 1024) bf16")
     torch.cuda.empty_cache()
+    extra = {}  # kernel -> {tag: row} of the shapes beside its main one
+    for tag, n_rows, hidden in (
+            ("evo_pair_shape", EVO_RES * EVO_RES, EVO["pair_dim"]),
+            ("evo_msa_shape", EVO_SEQ * EVO_RES, EVO["msa_dim"])):
+        ln_fwd, ln_bwd = _time_ln(gen, flush, n_rows, hidden, "f32")
+        extra.setdefault("layer_norm_fwd", {})[tag] = dict(
+            ln_fwd, shape=f"x ({n_rows}, {hidden}) f32 (evoformer)")
+        extra.setdefault("layer_norm_bwd", {})[tag] = dict(
+            ln_bwd, shape=f"x, g ({n_rows}, {hidden}) f32 (evoformer)")
+        torch.cuda.empty_cache()
     at_fwd, at_bwd = _time_attn(gen, flush, train_bh, TRAIN_SEQ, with_bwd=True)
     shape = f"BH={train_bh} S={TRAIN_SEQ} D=64 causal bf16"
     rows["flash_fwd"] = dict(at_fwd, shape=shape)
     rows["flash_bwd"] = dict(at_bwd, shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
 
-    extra = {}  # kernel -> {tag: row} of the shapes beside its main one
     for p, tag in ((0.0, "bert_shape"), (0.1, "bert_dropout_shape")):
         b_fwd, b_bwd = _time_attn_bert(gen, flush, p)
         shape = (f"BH={BERT_BATCH * 16} S={BERT_SEQ} D=64 non-causal bf16, "
@@ -1376,6 +1695,18 @@ def phase4(gen, launches, errs):
         extra[name]["msa_col_shape"] = dict(
             msa[name], shape=f"BH={col_bh} S={col_s} D={col_d} non-causal "
             f"bf16, no bias (MSA column attention)")
+    torch.cuda.empty_cache()
+    long_fwd, long_bwd = _time_attn_long(gen, flush)
+    shape = f"BH={LONG_BH} S={LONG_S} D={LONG_D} causal bf16 (long context)"
+    extra["flash_fwd"]["long_context_shape"] = dict(long_fwd, shape=shape)
+    extra["flash_bwd"]["long_context_shape"] = dict(
+        long_bwd, shape=shape + ", m/l/delta f32")
+    torch.cuda.empty_cache()
+    f32 = _time_evo_attention(gen, flush, tri_bh, tri_s, tri_d,
+                              with_k34=True, dtype="f32")
+    shape = tri_shape.replace("bf16", "f32")
+    for name in ("flash_fwd", "flash_bwd", "flash_dbias"):
+        rows[name + "_f32"] = dict(f32[name], shape=shape)
     torch.cuda.empty_cache()
 
     serving = {}
@@ -1437,18 +1768,20 @@ def phase4(gen, launches, errs):
                 if key in r}
 
     kernels = []
-    for name in _build.KERNELS:
+    for name in KERNEL_ENTRIES:
         main = rows.get(name, serving.get(name))
         entry = {
             "name": name,
             "route": "cuda",
-            "source": f"apex_tpu_torch/csrc/{name}.cu",
+            "source": f"apex_tpu_torch/csrc/{_build.library(name)}.cu",
             "replaces": REPLACES[name],
             "launches": sum(launches[name].values()),
             "launches_by_path": launches[name],
             "max_abs_err": errs[name],
             **fields(main),
         }
+        if name + "_d128" in errs:  # phase 1's first D = 128 case
+            entry["max_abs_err_d128"] = errs[name + "_d128"]
         if name in rows and name in serving:
             entry["serving_shape"] = fields(serving[name])
         for tag, r in extra.get(name, {}).items():
@@ -1459,17 +1792,22 @@ def phase4(gen, launches, errs):
                        (" (BERT, dropout)", entry.get("bert_dropout_shape")),
                        (" (triangle)", entry.get("triangle_shape")),
                        (" (MSA row)", entry.get("msa_row_shape")),
-                       (" (MSA column)", entry.get("msa_col_shape"))):
+                       (" (MSA column)", entry.get("msa_col_shape")),
+                       (" (long context)", entry.get("long_context_shape")),
+                       (" (evoformer pair)", entry.get("evo_pair_shape")),
+                       (" (evoformer MSA)", entry.get("evo_msa_shape"))):
             if r is None:
                 continue
             lib = ("not measured" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
+            plain_s = ("not measured" if r["plain_ms"] is None
+                       else f"{r['plain_ms']:.4f} ms")
             k45 = ("" if "k4_plus_k5_ms" not in r else
                    f" (K4 {r['k4_ms']:.4f} ms, K4 + K5 "
                    f"{r['k4_plus_k5_ms']:.4f} ms beside the library's "
                    f"backward with the mask's gradient)")
             log(f"  {name}{tag} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
+                f"plain {plain_s}, library {lib}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}){k45}")
     return kernels
 
@@ -2252,6 +2590,72 @@ def phase10():
     return launches, out
 
 
+#: phase 10's second run: the same block with f32 attention (the JAX
+#: module's precision), through the f32 instances of K3, K4 and K5; one
+#: block and 3 steps (depth and steps cut for the phase's time)
+EVO_F32_BLOCKS = 1
+EVO_F32_STEPS = 3
+EVO_F32_BLOCK_LAUNCHES = {"layer_norm_fwd": 12, "layer_norm_bwd": 12,
+                          "flash_fwd_f32": 4, "flash_bwd_f32": 4,
+                          "flash_dbias_f32": 3}
+
+
+def phase10_f32():
+    """``EVO_F32_BLOCKS`` full-width ``EvoformerBlock`` with f32 attention
+    (``dtype=torch.float32``: q, k and v reach the kernels in f32, as the
+    JAX module computes them) at the same crop, FusedAdam, ``EVO_F32_STEPS``
+    steps, with the launch counters zeroed before and read after: K1, K2
+    and the f32 instances of K3, K4 and K5 must have launched exactly
+    ``EVO_F32_BLOCK_LAUNCHES`` x blocks x steps, every op on the kernel
+    path; losses finite and falling; the median step time."""
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    log(f"phase 10: train {EVO_F32_BLOCKS} EvoformerBlock({EVO}) with f32 "
+        f"attention at N_seq {EVO_SEQ}, N_res {EVO_RES}, {EVO_F32_STEPS} "
+        f"FusedAdam steps")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    blocks = evoformer_stack(EVO_F32_BLOCKS, "cuda", gen, torch.float32)
+    m, z, tm, tz = evoformer_data(EVO_SEQ, EVO_RES, "cuda", seed=24)
+    opt = FusedAdam(blocks.parameters(), lr=EVO_LR)
+    torch.cuda.synchronize()
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    losses, seconds = [], []
+    for _ in range(EVO_F32_STEPS):
+        t0 = time.perf_counter()
+        loss = evoformer_loss(blocks, m, z, tm, tz)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+    launches = _dispatch.launches()
+    paths = _dispatch.last_paths()
+    want = {k: n * EVO_F32_BLOCKS * EVO_F32_STEPS
+            for k, n in EVO_F32_BLOCK_LAUNCHES.items()}
+    log(f"  launches={launches} (per block and step "
+        f"{EVO_F32_BLOCK_LAUNCHES}) paths={paths}")
+    if launches != want:
+        raise AssertionError(f"f32 evoformer launches {launches} != {want}")
+    if paths != {"layer_norm": "cuda", "flash_attention": "cuda"}:
+        raise AssertionError(f"f32 evoformer op paths {paths}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    step_ms = statistics.median(seconds[1:]) * 1e3
+    log(f"  losses {[round(x, 5) for x in losses]}; step seconds "
+        f"{[round(x, 4) for x in seconds]}; median of steps 1.. "
+        f"{step_ms:.1f} ms")
+    del blocks, opt, m, z, tm, tz
+    torch.cuda.empty_cache()
+    return launches, {"losses": losses, "step_seconds": seconds,
+                      "step_ms_median": step_ms, "blocks": EVO_F32_BLOCKS}
+
+
 # ---------------------------------------------------------------------------
 # phase 11: one evoformer training step, card bf16 against CPU f32
 # ---------------------------------------------------------------------------
@@ -2412,6 +2816,39 @@ def phase11():
     return out
 
 
+def ptxas_summary(text, nvcc):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
+    (demangled by the toolkit's ``cu++filt`` beside ``nvcc``), registers
+    and spills."""
+    import re
+
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (f", spills {m.group(1)}/{m.group(2)} bytes"
+                     if m.group(1) != "0" or m.group(2) != "0" else "")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, m.group(1), spill))
+            name = None
+    names = [r[0] for r in rows]
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if names and os.path.exists(filt):
+        res = subprocess.run([filt, *names], capture_output=True, text=True)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            # "void ns::name<args>(parameters)" -> "ns::name<args>"
+            names = [n.split(">(")[0].removeprefix("void ") + ">"
+                     for n in res.stdout.splitlines()]
+    return [f"{n}: {r} registers{sp}" for n, (_, r, sp) in zip(names, rows)]
+
+
 def main():
     import torch
 
@@ -2432,10 +2869,8 @@ def main():
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            spills = "spill stores" in line and "0 bytes spill stores" not in line
-            if "registers" in line or spills:
-                log(f"  [{name}] {line.strip()}")
+        for line in ptxas_summary(_build.build_log(name), _build._nvcc()):
+            log(f"  [{name}] {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = phase1(gen)
@@ -2447,21 +2882,27 @@ def main():
     bert_launches, bert = phase8()
     bert_cross = phase9()
     evo_launches, evoformer = phase10()
+    evo_f32_launches, evoformer_f32 = phase10_f32()
     evo_cross = phase11()
     runs = (("serving", serve_launches), ("training", train_launches),
             ("bert", bert_launches["bert"]),
             ("bert_dropout", bert_launches["bert_dropout"]),
-            ("evoformer", evo_launches))
+            ("evoformer", evo_launches),
+            ("evoformer_f32", evo_f32_launches))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
-        for name in _build.KERNELS
+        for name in KERNEL_ENTRIES
     }
+    idle = [name for name in KERNEL_ENTRIES if not sum(launches[name].values())]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
     kernels = phase4(gen, launches, errs)
     profile = phase5(engine)
     log(json.dumps({"serving": rates, "cross_check": cross,
                     "training": training, "training_cross_check": train_cross,
                     "bert": bert, "bert_cross_check": bert_cross,
                     "evoformer": evoformer,
+                    "evoformer_f32_attention": evoformer_f32,
                     "evoformer_cross_check": evo_cross,
                     "decode_profile": profile}))
     smi = subprocess.run(

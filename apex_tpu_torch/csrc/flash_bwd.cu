@@ -69,17 +69,24 @@
 //           masked pairs have ds = 0 (the mask is a where() on the
 //           score); their p is 0 unless the whole row is masked.  The
 //           ragged edge (rows past S_q, keys past S_k) reads zeros from
-//           TMA and is masked here.  Head dims 32, 64 and 128, as K3 (the
-//           wrapper pads any other head dim up to 128 with zeros).  At D =
-//           128 a tile is two 64-column blocks (hopper.cuh, TileLayout), and
-//           the dK/dV pass splits by halves of D: dK and dV of 64 keys x 128
-//           would take 128 f32 registers a thread beside S^T and dP^T, past
+//           TMA and is masked here.  Head dims 32, 64, 128 and 256, as K3
+//           (the wrapper pads any other head dim up to 256 with zeros).  At
+//           D = 128 a tile is two 64-column blocks (hopper.cuh,
+//           TileLayout), and the dK/dV pass splits by halves of D: dK and
+//           dV of 64 keys x 128 would take 128 f32 registers a thread
+//           beside S^T and dP^T, past
 //           the 168 that ptxas gives each instance (it allocates no more
 //           after setmaxnreg: the unsplit pass spilled up to 2 KB), so each
 //           of two CTAs per key tile recomputes S^T and dP^T and accumulates
 //           one 64-column half of dK and dV (the register profile of D =
 //           64, at 1.5x the pass's products); the bias is read inside the
 //           elementwise pass rather than into 32 registers ahead of it.
+//           Above 128 (the D = 256 instance) the products that reduce over
+//           D (S^T, dP^T, S, dP) loop over the tiles' four 64-column blocks
+//           into the same registers, the dK/dV pass runs four CTAs per key
+//           tile (one per 64 columns of dK and dV) and the dQ pass two per
+//           q tile (one per 128 columns of dQ), each recomputing the scores
+//           over all of D; the ring has one stage (two would pass 227 KB).
 //           One template instance per head dim, bias mode and dropout.  Not
 //           yet used: overlap of the elementwise pass with the next
 //           tile's products, persistent CTAs (ROADMAP B).
@@ -116,20 +123,29 @@ constexpr int kStageBiasBytes = kBlock * kResident * 4;
 // The ring's depth of each bias mode (measured with
 // apex_tpu_torch/tools/flash_tiles.py, whose sweep overrides it through
 // the macro below D = 128, where 3 stages with a bias would pass the 227
-// KB of shared memory): 3 stages without a bias, 2 with one.
+// KB of shared memory): 3 stages without a bias, 2 with one; one at D =
+// 256, whose resident tiles take 128 KB.
 template <int D, int kBias>
 __host__ __device__ constexpr int stages() {
 #ifdef APEX_FLASH_BWD_STAGES
   if (D < 128) return APEX_FLASH_BWD_STAGES;
 #endif
+  if (D > 128) return 1;
   return kBias == kNoBias ? 3 : 2;
 }
 
 // The CTAs per key tile of the dK/dV pass, each accumulating D / split of
-// the head dims (see Design).
+// the head dims: one 64-column block each from D = 128 on (see Design).
 template <int D>
 __host__ __device__ constexpr int dkdv_split() {
-  return D == 128 ? 2 : 1;
+  return D >= 128 ? D / 64 : 1;
+}
+
+// The CTAs per q tile of the dQ pass, each accumulating 128 of the head
+// dims above D = 128.
+template <int D>
+__host__ __device__ constexpr int dq_split() {
+  return D > 128 ? D / 128 : 1;
 }
 
 template <int kBias>
@@ -219,7 +235,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* kv_full = empty + kStages;
 
   // the head dims [half * kOutD, (half + 1) * kOutD) of dK and dV that this
-  // CTA accumulates (all of them below D = 128; see Design)
+  // CTA accumulates (all of them below D = 128; see Design): from D = 128
+  // on, column block `half` of the tiles
   constexpr int kSplit = dkdv_split<D>();
   constexpr int kOutD = D / kSplit;
   const int half = static_cast<int>(blockIdx.x % kSplit);
@@ -464,7 +481,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // dV += P^T dO and dK += dS^T Q over this CTA's head dims, dO and Q
-      // transposed: N = kOutD, within one column block at D = 128
+      // transposed: N = kOutD, within one column block from D = 128 on
       const uint32_t cols = half * kBlock * kAtom;
       const uint64_t do_t = make_desc<kAtom>(dOs + s * kTileBytes + cols,
                                              kBlock * kAtom);
@@ -524,10 +541,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
+  // the head dims [part * kOutD, (part + 1) * kOutD) of dQ that this CTA
+  // accumulates (all of them up to D = 128; see Design)
+  constexpr int kSplit = dq_split<D>();
+  constexpr int kOutD = D / kSplit;
   const int n_tiles = (sq + kResident - 1) / kResident;
-  const int bh = blockIdx.x % bh_count;
-  const int q0 =
-      (n_tiles - 1 - static_cast<int>(blockIdx.x / bh_count)) * kResident;
+  const int part = static_cast<int>(blockIdx.x % kSplit);
+  const int rest = static_cast<int>(blockIdx.x / kSplit);
+  const int bh = rest % bh_count;
+  const int q0 = (n_tiles - 1 - rest / bh_count) * kResident;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // each warpgroup's keys [0, k_end): up to the causal limit of its last row
   int k_end[kConsumers];
@@ -603,9 +625,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const float scale_log2 = scale * kLog2e;
   const float mb_r[2] = {m_r[0] * kLog2e, m_r[1] * kLog2e};
-  float acc_dq[D / 2];
+  float acc_dq[kOutD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+  for (int i = 0; i < kOutD / 2; ++i) acc_dq[i] = 0.f;
 
   mbar_wait(q_full, 0);
   const uint64_t q_desc = make_desc<kAtom>(Qs + wg * 64 * kAtom);
@@ -709,8 +731,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < kBlock / 4; ++i)
         dsa[i] = pack_bf16(acc_s[2 * i], acc_s[2 * i + 1]);
 
-      // dQ += dS K, K transposed: N = D spans the tile's column blocks
-      const uint64_t k_t = make_desc<kAtom>(Ks + s * kTileBytes, kBlock * kAtom);
+      // dQ += dS K, K transposed: N = kOutD spans this CTA's column blocks
+      const uint64_t k_t = make_desc<kAtom>(
+          Ks + s * kTileBytes + part * (kOutD / 64) * kBlock * kAtom,
+          kBlock * kAtom);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlock / 16; ++kk)
@@ -723,8 +747,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  store_rows<D, D>(acc_dq, dq + static_cast<size_t>(bh) * sq * D, row0, sq,
-                   scale);
+  store_rows<kOutD, D>(acc_dq,
+                       dq + static_cast<size_t>(bh) * sq * D + part * kOutD,
+                       row0, sq, scale);
 }
 
 template <int D, int kBias, bool kDropout>
@@ -787,8 +812,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       causal, offset, bias_div, bias_rows, threshold, drop_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq), kThreads, dq_bytes,
-              stream>>>(
+  dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * dq_split<D>()), kThreads,
+              dq_bytes, stream>>>(
       q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
       static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset, bias_div,
       bias_rows, threshold, drop_scale);
@@ -816,7 +841,7 @@ extern "C" const char* apex_error_string(int code) {
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16, 16-byte aligned; m, l
 // (K3's row max and row sum) and delta (bh, sq) f32; bias and seed as
 // K3's (null when absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.
-// d must be 32, 64 or 128.  The causal mask is aligned bottom-right.
+// d must be 32, 64, 128 or 256.  The causal mask is aligned bottom-right.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* m, const void* l,
                          const void* delta, const void* bias, const void* seed,
@@ -824,14 +849,16 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int d, int groups, int bias_rows, float scale,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
-      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
+  if (bh <= 0 || sq <= 0 || sk <= 0 ||
+      (d != 32 && d != 64 && d != 128 && d != 256) || groups <= 0 ||
+      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
   const bool dropout = seed != nullptr;
-  const LaunchFn run = d == 32   ? pick<32>(mode, dropout)
-                       : d == 64 ? pick<64>(mode, dropout)
-                                 : pick<128>(mode, dropout);
+  const LaunchFn run = d == 32    ? pick<32>(mode, dropout)
+                       : d == 64  ? pick<64>(mode, dropout)
+                       : d == 128 ? pick<128>(mode, dropout)
+                                  : pick<256>(mode, dropout);
   return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
              bh / groups, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

@@ -22,8 +22,10 @@
 //           (group, k tile) loops over the members and every q tile.  Each
 //           warp owns 16 query rows of a tile and recomputes S = Q K^T and
 //           dP = dO V^T with K4's wmma bf16 16x16x16 fragments (f32
-//           accumulation, D = 32, 64 or 128, the wrapper padding any
-//           other head dim up to 128 with zeros); two lanes per row form p =
+//           accumulation, D = 32, 64, 128 or 256, the wrapper padding any
+//           other head dim up to 256 with zeros; above 128 the A fragments
+//           are read in chunks of 128 columns, so D = 256 holds no more of
+//           them in registers than D = 128); two lanes per row form p =
 //           exp(s - m) / l from K3's row max m and row sum l (exact also for
 //           a row that a bias masks completely, where the TPU's exp(s - lse)
 //           is not) and ds in f32, and each lane keeps its 32 (row, column)
@@ -64,7 +66,7 @@ static_assert(kBQ == kWarps * kRows, "each warp owns 16 rows of a tile");
 // (144 bytes at D = 64, 80 at D = 32, 272 at D = 128: each way the eight
 // rows of a fragment load start on distinct 16-byte bank groups) and f32
 // scratch rows of 68 floats.  At D = 128 the four tiles and the scratch
-// take 102 KB.
+// take 102 KB, at D = 256 170 KB.
 template <int D> constexpr int kTileLd = D + 8;
 constexpr int kSLd = kBK + 4;
 
@@ -93,21 +95,39 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// out[16 x 64] = A_w (16 x D, register fragments) times the transpose of
-// the 64-row shared tile `T` (64 x D), stored row-major into f32 `out`.
+// out[16 x 64] = A (16 rows of the shared tile, 16 x D) times the
+// transpose of the 64-row shared tile `T` (64 x D), stored row-major into
+// f32 `out`.  Up to D = 128 A's fragments are read once for every column
+// block of `out`; above it they are read kChunk columns at a time for each
+// block, so that no more of them are held in registers than at D = 128.
 template <int D>
-__device__ __forceinline__ void times_tile_t(const FragA (&a)[D / 16],
-                                             const bf16* T, float* out) {
+__device__ __forceinline__ void times_tile_t(const bf16* A, const bf16* T,
+                                             float* out) {
   constexpr int kLd = kTileLd<D>;
+  constexpr int kChunk = D < 128 ? D : 128;
+  FragA a[kChunk / 16];
+  if constexpr (D == kChunk) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wmma::load_matrix_sync(a[kk], A + kk * 16, kLd);
+  }
 #pragma unroll
   for (int n = 0; n < kBK / 16; ++n) {
     FragAcc acc;
     wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBCol bt;
-      wmma::load_matrix_sync(bt, T + n * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(acc, a[kk], bt, acc);
+    for (int c0 = 0; c0 < D; c0 += kChunk) {
+      if constexpr (D != kChunk) {
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk)
+          wmma::load_matrix_sync(a[kk], A + c0 + kk * 16, kLd);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        FragBCol bt;
+        wmma::load_matrix_sync(bt, T + n * 16 * kLd + c0 + kk * 16, kLd);
+        wmma::mma_sync(acc, a[kk], bt, acc);
+      }
     }
     wmma::store_matrix_sync(out + n * 16, acc, kSLd, wmma::mem_row_major);
   }
@@ -199,14 +219,8 @@ flash_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();
 
       // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-      FragA qa[D / 16], oa[D / 16];
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(qa[kk], Qs + warp * kRows * kLd + kk * 16, kLd);
-        wmma::load_matrix_sync(oa[kk], dOs + warp * kRows * kLd + kk * 16, kLd);
-      }
-      times_tile_t<D>(qa, Ks, Sw);
-      times_tile_t<D>(oa, Vs, dPw);
+      times_tile_t<D>(Qs + warp * kRows * kLd, Ks, Sw);
+      times_tile_t<D>(dOs + warp * kRows * kLd, Vs, dPw);
       __syncwarp();
 
       const int row = q0 + warp * kRows + r;
@@ -306,8 +320,8 @@ extern "C" const char* apex_error_string(int code) {
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; m, l (K3's row max and
 // row sum) and delta (bh, sq) f32; bias (groups, bias_rows, sk) f32; seed
 // one int32 or null (no dropout); dbias f32 in the bias's layout.  d must
-// be 32, 64 or 128, groups must divide bh and bias_rows be 1 or sq.  The causal
-// mask is aligned bottom-right.
+// be 32, 64, 128 or 256, groups must divide bh and bias_rows be 1 or sq.
+// The causal mask is aligned bottom-right.
 extern "C" int flash_dbias(const void* q, const void* k, const void* v,
                            const void* dout, const void* m, const void* l,
                            const void* delta, const void* bias,
@@ -315,16 +329,17 @@ extern "C" int flash_dbias(const void* q, const void* k, const void* v,
                            int sk, int d, int groups, int bias_rows,
                            float scale, int causal, unsigned threshold,
                            float drop_scale, void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
-      bias == nullptr || groups <= 0 || bh % groups != 0 ||
-      (bias_rows != 1 && bias_rows != sq))
+  if (bh <= 0 || sq <= 0 || sk <= 0 ||
+      (d != 32 && d != 64 && d != 128 && d != 256) || bias == nullptr ||
+      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   // with sq = 1 the two layouts coincide and the RS = 1 path serves both
   const bool row_bias = bias_rows != 1;
   const bool dropout = seed != nullptr;
-  const LaunchFn run = d == 32   ? pick<32>(row_bias, dropout)
-                       : d == 64 ? pick<64>(row_bias, dropout)
-                                 : pick<128>(row_bias, dropout);
+  const LaunchFn run = d == 32    ? pick<32>(row_bias, dropout)
+                       : d == 64  ? pick<64>(row_bias, dropout)
+                       : d == 128 ? pick<128>(row_bias, dropout)
+                                  : pick<256>(row_bias, dropout);
   return run(q, k, v, dout, m, l, delta, bias, seed, dbias, groups,
              bh / groups, sq, sk, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

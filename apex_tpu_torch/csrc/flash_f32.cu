@@ -11,35 +11,69 @@
 //           members (and every query row when RS = 1) in a fixed order; the
 //           bottom-right causal mask, the (G, RS, S_k) bias floored at
 //           PAD_VALUE and the hash dropout of flash_operands.cuh.
-// Bound on the H100: operations.  bf16 or TF32 tensor cores would round the
-//           inputs and miss the reference's f32 accuracy, so every product
-//           runs in f32 FFMA on the CUDA cores: 67 TFLOP/s, against which
-//           the 4*D flops per (q, k) pair of the forward (10*D backward, 4*D
-//           for dbias's recompute) outweigh the bytes at S >= ~64.
-// Design:   simple and right first: every product is SIMT FFMA over 64 x 64
-//           tiles staged in shared memory, each of 256 threads owning a 4 x 4
-//           block of the 64 x 64 score tile (rows ty + 16i, columns tx + 16j:
-//           a row's 16 threads share a half-warp, so its max and sum reduce
-//           with four shuffles).  The q, k, v and dO tiles are staged
-//           transposed (head dim x 65 floats), so every inner-loop read is a
-//           broadcast or 16 consecutive banks.  Forward: one CTA per
-//           (batch*head, 64-row q tile), heaviest causal tiles first, looping
-//           over 64-key tiles up to K3's key walk (its key_limit: the causal
-//           limit of the tile's last row rounded up to 64, or every key when
-//           its first row sees none; masked scores MASK_VALUE, keys past the
-//           walk -inf); P goes through shared memory to O += P V.  Backward:
-//           K4's two passes — dK/dV with one CTA per (batch*head, 64-key
-//           tile) over the live q tiles (K4's block_live, fully-masked rows
-//           included), dQ with one CTA per (batch*head, 64-row q tile) up to
-//           the causal limit — with no atomics, so the gradients are the
-//           same bits from run to run.  dbias: K5's grid (RS = S_q: one CTA
-//           per (group, q tile, k tile); RS = 1: one CTA per (group, k tile)
-//           over every q tile, its 64 rows summed in shared memory in order).
-//           expf, not __expf.  Head dims 32, 64 and 128, the wrapper padding
-//           any other head dim up to 128 with zeros; the bias is read per
-//           score from global memory.  Not yet used: register tiling beyond
-//           4 x 4, a cp.async pipeline, 3xTF32 tensor-core products (later
-//           work: the times are in PERF.md).
+// Bound on the H100: the longer of the bytes (q, k, v, dO, the bias and the
+//           row statistics read once, o, dq, dk, dv or dbias written once)
+//           over 3.35 TB/s and the operations (4*D flops per (q, k) pair
+//           forward, 10*D backward, 4*D for dbias's recompute) at three
+//           TF32 products each over 495 TFLOP/s.  At the evoformer's shapes
+//           (D 32 and 64 with a (BH, S, S) f32 bias) that is the bytes.  On
+//           the CUDA cores (67 TFLOP/s of FFMA, K5 here) it is the
+//           operations from S ~ 64 on.
+// Design:   K3 and K4 run every product on the tensor cores as 3xTF32
+//           (CUTLASS's OpMultiplyAddFastF32 scheme): each f32 operand x is
+//           split in registers into big = cvt.rna.tf32(x) and small =
+//           cvt.rna.tf32(x - big), and a product is small*big + big*small +
+//           big*big, the small terms first, on mma.sync m16n8k8 tf32 with
+//           f32 accumulators — about 21 of f32's 24 mantissa bits, where one
+//           TF32 product keeps 11.  mma.sync and not wgmma: wgmma reads an
+//           f32 tile as TF32 by dropping its low bits and takes TF32 only
+//           K-major from shared memory, so big and small would have to be
+//           written out as separate tiles, and V, Q and dO staged
+//           transposed; with mma.sync the split is three instructions per
+//           fragment element, the same tiles feed every product, and P and
+//           dS go from an accumulator to the next product's A fragment in
+//           registers (the reduction index inside a k8 step is permuted,
+//           A's k = t <-> column 2t and k = t + 4 <-> 2t + 1, and B's rows
+//           alike, so no shuffle is needed).  A CTA is 4 warps, each owning
+//           16 rows of a 64-row tile.  Tiles stream through a ring of
+//           shared-memory stages filled by 16-byte cp.async copies (4-byte
+//           ones for a bias whose rows are not 16-byte aligned; rows and keys
+//           past the edge zero-filled), one commit group per stage: every
+//           thread both loads and computes, so cp.async.wait_group and a
+//           barrier are the whole handshake and no mbarrier is needed.  f32
+//           rows are padded to D + 4 floats, so the fragment reads (a
+//           quad's rows t, or a column 2t of 8 rows) hit 32 distinct banks;
+//           the bias tile is staged with its K (or Q) tile instead of being
+//           read per score from device memory.
+//           K3: one CTA per (batch*head, 64-row q tile, slice of at most 128
+//           columns of o), heaviest causal tiles first; Q (all of D) stays
+//           resident, the ring carries 32-key K tiles, the slice of V and the
+//           (64 rows x 32 keys) bias tile; the key walk is K3's (key_limit:
+//           the causal limit of the tile's last row rounded up to 64, or
+//           every key when its first row sees none; masked scores
+//           MASK_VALUE, keys past the walk -inf) and the online softmax
+//           keeps f32 m and l per row; p = expf(s - m).
+//           K4: the dK/dV pass runs one CTA per (batch*head, 64-key tile,
+//           slice of at most 64 columns of dk and dv) over the live 32-row q
+//           tiles (K4's block_live, fully-masked rows included), K and V
+//           resident, Q, dO, their rows' m, l, delta and the (32 x 64) bias
+//           tile through the ring; the dQ pass one CTA per (batch*head,
+//           64-row q tile, slice of at most 128 columns of dq) up to the
+//           causal limit, Q and dO resident, K, V and the bias tile through
+//           the ring.  p = expf(s - m) / l, so a fully-masked row is exact;
+//           no atomics, so the gradients are the same bits from run to run.
+//           Products over D loop over the whole padded head dim; outputs
+//           indexed by D are split over CTAs by slices, each recomputing the
+//           scores.
+//           K5 keeps its SIMT design: FFMA over 64 x 64 tiles staged
+//           transposed (head dim x 65 floats), each of 256 threads owning a
+//           4 x 4 block of scores, K5's grid (RS = S_q: one CTA per (group, q
+//           tile, k tile); RS = 1: one CTA per (group, k tile) over every q
+//           tile, its 64 rows summed in shared memory in order), the head dim
+//           walked in chunks of at most 128 columns so that D = 256 fits.
+//           Head dims 32, 64, 128 and 256; the wrapper pads any other head
+//           dim up to 256 with zeros.  Not yet used: wgmma, a producer warp,
+//           K5 on the tensor cores (later work: the times are in PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -50,222 +84,204 @@
 namespace {
 
 using flash_operands::kMaskValue;
+using flash_operands::kPadValue;
 
-constexpr int kB = 64;          // q rows and keys of a tile
-constexpr int kThreads = 256;   // 16 x 16, each 4 x 4 of a 64 x 64 tile
-constexpr int kLd = kB + 1;     // a transposed tile's row stride, in floats
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;  // the tensor-core kernels (K3, K4)
+constexpr int kRowsT = 64;             // rows of a resident or q tile
+constexpr int kKeysT = 32;             // keys (K3, dQ) or rows (dK/dV) a stage
+constexpr int kBiasLd = kKeysT + 8;    // a (64 x 32) bias tile's row stride
+constexpr int kBiasLdT = kRowsT + 4;   // a (32 x 64) bias tile's row stride
 
-// Rows [row0, row0 + 64) of one head (rows x D, row-major) into the
-// transposed tile t[k * kLd + r], zero past `limit`.
-template <int D>
-__device__ __forceinline__ void load_t(float* t, const float* src, int row0,
-                                       int limit) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-    const int r = i / D, k = i % D;
-    t[k * kLd + r] =
-        row0 + r < limit ? src[static_cast<size_t>(row0 + r) * D + k] : 0.f;
+// ------------------------------------------------------------ cp.async
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from `src` to shared `dst`, or zeros when `in` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from `src` to shared `dst`, or zero when `in` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rows [row0, row0 + R) (zero at or past `limit`), columns [col0, col0 +
+// C) of a row-major f32 array of row stride `src_ld` into `dst` (row stride
+// `ld`), as 16-byte copies.
+template <int R, int C>
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
+                                           int src_ld, int row0, int limit,
+                                           int col0) {
+  constexpr int kVecs = C / 4;
+  for (int i = threadIdx.x; i < R * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * 4;
+    const bool in = row0 + r < limit;
+    cp_async16(dst + r * ld + c,
+               src + static_cast<size_t>(in ? row0 + r : 0) * src_ld + col0 + c,
+               in);
   }
 }
 
-// acc[i][j] = sum over k of a[k][ty + 16i] * b[k][tx + 16j] for two
-// transposed tiles.
-template <int D>
-__device__ __forceinline__ void tile_product(float (&acc)[4][4], const float* a,
-                                             const float* b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a[k * kLd + ty + 16 * i];
-      bv[i] = b[k * kLd + tx + 16 * i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// Rows [row0, row0 + R) and keys [col0, col0 + C) of one group's bias
+// (`bias_g`, rows of `sk`) into `dst` (row stride `ld`); with one
+// key-padding row (rs1) only row 0.  Rows past `sq` and keys past `sk` read
+// 0; 16-byte copies when every row is 16-byte aligned (`vec`).
+template <int R, int C>
+__device__ __forceinline__ void stage_bias(float* dst, int ld,
+                                           const float* bias_g, bool rs1,
+                                           int row0, int sq, int col0, int sk,
+                                           bool vec) {
+  const int rows = rs1 ? 1 : R;
+  const int per = vec ? 4 : 1;
+  const int n = rows * (C / per);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i / (C / per), c = (i % (C / per)) * per;
+    const bool in = (rs1 || row0 + r < sq) && col0 + c < sk;
+    const float* src =
+        bias_g + (in ? static_cast<size_t>(rs1 ? 0 : row0 + r) * sk + col0 + c
+                     : 0);
+    if (vec)
+      cp_async16(dst + r * ld + c, src, in);
+    else
+      cp_async4(dst + r * ld + c, src, in);
   }
 }
 
-// acc[i][c] += sum over n of p[(ty + 16i) * kLd + n] * t[(tx + 16c) * kLd + n]:
-// a 64 x 64 row-major tile p times the transposed tile t (D x 64), into
-// this thread's rows ty + 16i and head dims tx + 16c.
-template <int D>
-__device__ __forceinline__ void times_t(float (&acc)[4][D / 16], const float* p,
-                                        const float* t, int ty, int tx) {
-#pragma unroll 4
-  for (int n = 0; n < kB; ++n) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * kLd + n];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float tv = t[(tx + 16 * c) * kLd + n];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], tv, acc[i][c]);
-    }
-  }
+// ------------------------------------------------------- 3xTF32 products
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-// Sum or max over the 16 threads of a row (a half-warp).
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// An operand split into its TF32 big part and the TF32 rounding of the rest.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+
+// m16n8k8 A (row) and B (col) fragments, each split.  Thread (g, t) = (lane
+// / 4, lane % 4) holds A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]
+// and B[t][g], B[t + 4][g]; its accumulator C[g][2t + e], C[g + 8][2t + e].
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// Not volatile: the products of independent accumulators may interleave.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// d += a * b at f32 accuracy: the small terms first, then big * big, into
+// a fresh accumulator that one FADD a value adds to d.  The tensor cores
+// truncate their f32 sums, so a running sum kept inside them drifts by
+// up to an ulp of the sum per step; here each step truncates only its own
+// k8 partial, and the running sum rounds to nearest.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.small, b.big);
+  mma_tf32(t, a.big, b.small);
+  mma_tf32(t, a.big, b.big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
+
+// A = rows [r0, r0 + 16), columns [c0, c0 + 8) of a row-major tile.
+__device__ __forceinline__ FragA load_a(const float* tile, int ld, int r0,
+                                        int c0) {
+  const int g = lane_g(), t = lane_t();
+  const float* p = tile + (r0 + g) * ld + c0 + t;
+  const float x[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
+  FragA a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], a.big[i], a.small[i]);
+  return a;
+}
+
+// B = the transpose of rows [n0, n0 + 8), columns [k0, k0 + 8) of a
+// row-major tile (B[k][n] = tile[n0 + n][k0 + k]).
+__device__ __forceinline__ FragB load_bt(const float* tile, int ld, int n0,
+                                         int k0) {
+  const float* p = tile + (n0 + lane_g()) * ld + k0 + lane_t();
+  FragB b;
+  split(p[0], b.big[0], b.small[0]);
+  split(p[4], b.big[1], b.small[1]);
+  return b;
+}
+
+// B = rows [k0, k0 + 8), columns [n0, n0 + 8) of a row-major tile, its k
+// permuted to match a_from_acc: B's k = t is row 2t, k = t + 4 row 2t + 1.
+__device__ __forceinline__ FragB load_b_perm(const float* tile, int ld, int k0,
+                                             int n0) {
+  const float* p = tile + (k0 + 2 * lane_t()) * ld + n0 + lane_g();
+  FragB b;
+  split(p[0], b.big[0], b.small[0]);
+  split(p[ld], b.big[1], b.small[1]);
+  return b;
+}
+
+// The A fragment of the k8 step over the 8 columns of accumulator block
+// `c` (16 x 8), k permuted: A's k = t is column 2t, k = t + 4 column 2t + 1.
+__device__ __forceinline__ FragA a_from_acc(const float (&c)[4]) {
+  FragA a;
+  split(c[0], a.big[0], a.small[0]);
+  split(c[2], a.big[1], a.small[1]);
+  split(c[1], a.big[2], a.small[2]);
+  split(c[3], a.big[3], a.small[3]);
+  return a;
+}
+
+// ------------------------------------------------------------ the rules
 
 // K3's key walk for the 64 rows from q0 (flash_fwd.cu key_limit).
 __device__ __forceinline__ int key_limit(int q0, int sq, int sk, int causal,
                                          int offset) {
   if (!causal || q0 + offset < 0) return sk;
-  const int q_last = min(q0 + kB, sq) - 1;
-  return min(sk, (q_last + offset + 1 + kB - 1) / kB * kB);
+  const int q_last = min(q0 + kRowsT, sq) - 1;
+  return min(sk, (q_last + offset + 1 + kRowsT - 1) / kRowsT * kRowsT);
 }
 
-// K4's rule: whether the 64 keys from k0 take part in the q tile from q0.
-__device__ __forceinline__ bool block_live(int q0, int k0, int sq, int sk,
-                                           int causal, int offset) {
-  if (k0 >= sk) return false;
+// K4's rule: whether the `keys` keys from k0 take part in the `rows` rows
+// from q0 (some pair live, or a row that sees no key at all).
+__device__ __forceinline__ bool block_live(int q0, int rows, int k0, int sq,
+                                           int sk, int causal, int offset) {
+  if (k0 >= sk || q0 >= sq) return false;
   if (!causal) return true;
-  const int q_last = min(q0 + kB, sq) - 1;
+  const int q_last = min(q0 + rows, sq) - 1;
   return q_last + offset >= k0 || q0 + offset < 0;
-}
-
-// The bias of score (row, col) of batch-head bh, or 0 without a bias.
-__device__ __forceinline__ float bias_of(const float* bias, int bh,
-                                         int bias_div, int bias_rows, int row,
-                                         int col, int sk) {
-  if (bias == nullptr) return 0.f;
-  return flash_operands::bias_at(
-      flash_operands::bias_row(bias, bh, bias_div, bias_rows, row, sk), col);
-}
-
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * D * kLd + kB * kLd);  // Q^T, K^T, V^T, P
-}
-
-template <int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     const int* __restrict__ seed, float* __restrict__ o,
-                     float* __restrict__ lse, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int bh_count, int sq, int sk,
-                     float scale, int causal, int offset, int bias_div,
-                     int bias_rows, uint32_t threshold, float drop_scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* Kt = Qt + D * kLd;
-  float* Vt = Kt + D * kLd;
-  float* Ps = Vt + D * kLd;
-  const int n_tiles = (sq + kB - 1) / kB;
-  const int bh = blockIdx.x % bh_count;
-  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x / bh_count)) * kB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int lim = key_limit(q0, sq, sk, causal, offset);
-  const int n_kt = (lim + kB - 1) / kB;
-  const size_t head_q = static_cast<size_t>(bh) * sq * D;
-  const size_t head_k = static_cast<size_t>(bh) * sk * D;
-
-  uint32_t key = 0, row_hash[4] = {0, 0, 0, 0};
-  if constexpr (kDropout) {
-    key = flash_operands::dropout_key(seed, bh);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      row_hash[i] = flash_operands::dropout_row(key, q0 + ty + 16 * i);
-  }
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-
-  load_t<D>(Qt, q + head_q, q0, sq);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // the previous tile's reads of K^T, V^T and P are done
-    load_t<D>(Kt, k + head_k, k0, sk);
-    load_t<D>(Vt, v + head_k, k0, sk);
-    __syncthreads();
-    float s[4][4];
-    tile_product<D>(s, Qt, Kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x;
-        if (col >= lim) {
-          x = -INFINITY;
-        } else {
-          x = s[i][j] * scale +
-              bias_of(bias, bh, bias_div, bias_rows, min(row, sq - 1), col, sk);
-          if (causal && col > row + offset) x = kMaskValue;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        l[i] += p;
-        float pv = p;
-        if constexpr (kDropout)
-          pv = flash_operands::dropout_keep(key, row_hash[i], k0 + tx + 16 * j,
-                                            threshold)
-                   ? p * drop_scale
-                   : 0.f;
-        Ps[(ty + 16 * i) * kLd + tx + 16 * j] = pv;
-      }
-    }
-    __syncthreads();
-    times_t<D>(acc, Ps, Vt, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lt = row_sum(l[i]);
-    const int row = q0 + ty + 16 * i;
-    if (row >= sq) continue;
-    const float inv = 1.f / lt;
-    float* orow = o + head_q + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) {
-      const size_t r = static_cast<size_t>(bh) * sq + row;
-      lse[r] = m[i] + logf(lt);
-      m_out[r] = m[i];
-      l_out[r] = lt;
-    }
-  }
-}
-
-template <int D>
-constexpr size_t bwd_smem() {
-  // four transposed tiles and two 64 x 64 score tiles
-  return sizeof(float) * (4 * D * kLd + 2 * kB * kLd);
 }
 
 // p (undropped) and ds of score (row, col), or zeros past the edge: K4's
@@ -295,200 +311,635 @@ __device__ __forceinline__ void p_and_ds(float s, float dp, float b, int row,
   if (!masked) ds = p * (dp - delta_r);
 }
 
-// dK/dV: one CTA per (batch-head, 64-key tile).  Thread (ty, tx) holds keys
-// k0 + ty + 16i and head dims tx + 16c of dK and dV, and of S^T keys ty +
-// 16i by queries tx + 16j.
-template <int D, bool kDropout>
+// Per head dim: the slice of D whose outputs a CTA accumulates (K3's o and
+// the dQ pass's dq: at most 128 columns; the dK/dV pass, two accumulators:
+// 64), and each ring's depth: as deep as keeps two or three CTAs on an SM at
+// the evoformer's D = 32 and 64; one stage at D = 256 in K4, whose resident
+// tiles take 133 KB.
+template <int D>
+struct Slice {
+  static constexpr int kDV = D < 128 ? D : 128;
+  static constexpr int kDkdvDV = D < 64 ? D : 64;
+  static constexpr int kFwdStages = D <= 64 ? 3 : 2;
+  static constexpr int kDkdvStages = D == 32 ? 3 : D <= 128 ? 2 : 1;
+  static constexpr int kDqStages = D <= 128 ? 2 : 1;
+};
+
+// ------------------------------------------------------------------ K3
+
+template <int D, bool kBias>
+constexpr size_t fwd_smem() {
+  constexpr int kLd = D + 4, kLdV = Slice<D>::kDV + 4;
+  constexpr int kStage =
+      kKeysT * kLd + kKeysT * kLdV + (kBias ? kRowsT * kBiasLd : 0);
+  return sizeof(float) * (kRowsT * kLd + Slice<D>::kFwdStages * kStage);
+}
+
+template <int D, bool kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     const int* __restrict__ seed, float* __restrict__ o,
+                     float* __restrict__ lse, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int bh_count, int sq, int sk,
+                     float scale, int causal, int offset, int bias_div,
+                     int bias_rows, uint32_t threshold, float drop_scale) {
+  constexpr int kDV = Slice<D>::kDV;
+  constexpr int kSlices = D / kDV;
+  constexpr int kStages = Slice<D>::kFwdStages;
+  constexpr int kLd = D + 4, kLdV = kDV + 4;
+  constexpr int kKFloats = kKeysT * kLd, kVFloats = kKeysT * kLdV;
+  constexpr int kStageFloats = kKFloats + kVFloats + (kBias ? kRowsT * kBiasLd : 0);
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* ring = Qs + kRowsT * kLd;
+
+  const int n_tiles = (sq + kRowsT - 1) / kRowsT;
+  const int head = static_cast<int>(blockIdx.x % (bh_count * kSlices));
+  const int bh = head / kSlices, dv0 = (head % kSlices) * kDV;
+  const int q0 =
+      (n_tiles - 1 - static_cast<int>(blockIdx.x / (bh_count * kSlices))) *
+      kRowsT;
+  const int lim = key_limit(q0, sq, sk, causal, offset);
+  const int n_kt = (lim + kKeysT - 1) / kKeysT;
+  const float* qh = q + static_cast<size_t>(bh) * sq * D;
+  const float* kh = k + static_cast<size_t>(bh) * sk * D;
+  const float* vh = v + static_cast<size_t>(bh) * sk * D;
+  const bool rs1 = bias_rows == 1;
+  const float* bias_g =
+      kBias ? bias + static_cast<size_t>(bh / bias_div) * bias_rows * sk
+            : nullptr;
+  const bool bias_vec =
+      kBias && sk % 4 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+
+  auto fill = [&](int kt) {
+    float* st = ring + (kt % kStages) * kStageFloats;
+    const int k0 = kt * kKeysT;
+    stage_rows<kKeysT, D>(st, kLd, kh, D, k0, sk, 0);
+    stage_rows<kKeysT, kDV>(st + kKFloats, kLdV, vh, D, k0, sk, dv0);
+    if constexpr (kBias)
+      stage_bias<kRowsT, kKeysT>(st + kKFloats + kVFloats, kBiasLd, bias_g,
+                                 rs1, q0, sq, k0, sk, bias_vec);
+  };
+  stage_rows<kRowsT, D>(Qs, kLd, qh, D, q0, sq, 0);  // with stage 0's group
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) fill(s);
+    cp_async_commit();
+  }
+
+  // this thread: rows wr + g and wr + g + 8 of the tile, keys and head dims
+  // 8j + 2t + e of each 8-column block
+  const int warp = threadIdx.x >> 5, g = lane_g(), t = lane_t();
+  const int wr = 16 * warp;
+  uint32_t key = 0, row_hash[2] = {0, 0};
+  if constexpr (kDropout) {
+    key = flash_operands::dropout_key(seed, bh);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      row_hash[h] = flash_operands::dropout_row(key, q0 + wr + g + 8 * h);
+  }
+  float acc_o[kDV / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDV / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_o[n][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + kStages - 1 < n_kt) fill(kt + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* Ks = ring + (kt % kStages) * kStageFloats;
+    const float* Vs = Ks + kKFloats;
+    const float* Bs = Vs + kVFloats;
+    const int k0 = kt * kKeysT;
+
+    // S = Q K^T: 16 rows x 32 keys a warp
+    float s[kKeysT / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const FragA a = load_a(Qs, kLd, wr, 8 * kk);
+#pragma unroll
+      for (int j = 0; j < kKeysT / 8; ++j)
+        mma3(s[j], a, load_bt(Ks, kLd, 8 * j, 8 * kk));
+    }
+
+    // the online softmax
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float b2[2] = {0.f, 0.f};
+        if constexpr (kBias) {
+          const float2 bb = *reinterpret_cast<const float2*>(
+              Bs + (rs1 ? 0 : wr + g + 8 * h) * kBiasLd + 8 * j + 2 * t);
+          b2[0] = fmaxf(bb.x, kPadValue);
+          b2[1] = fmaxf(bb.y, kPadValue);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t + e;
+          const int row = q0 + wr + g + 8 * h;
+          float x;
+          if (col >= lim) {
+            x = -INFINITY;
+          } else {
+            x = fmaf(s[j][2 * h + e], scale, b2[e]);
+            if (causal && col > row + offset) x = kMaskValue;
+          }
+          s[j][2 * h + e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int n = 0; n < kDV / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc_o[n][i] *= alpha[i >> 1];
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        const float p = expf(s[j][i] - m[h]);
+        l[h] += p;
+        float pv = p;
+        if constexpr (kDropout)
+          pv = flash_operands::dropout_keep(key, row_hash[h],
+                                            k0 + 8 * j + 2 * t + (i & 1),
+                                            threshold)
+                   ? p * drop_scale
+                   : 0.f;
+        s[j][i] = pv;
+      }
+
+    // O += P V over this CTA's slice
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j) {
+      const FragA a = a_from_acc(s[j]);
+#pragma unroll
+      for (int n = 0; n < kDV / 8; ++n)
+        mma3(acc_o[n], a, load_b_perm(Vs, kLdV, 8 * j, 8 * n));
+    }
+    __syncthreads();  // every warp is done with the stage before its refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = q0 + wr + g + 8 * h;
+    if (row >= sq) continue;
+    const float inv = 1.f / l[h];
+    float* orow = o + (static_cast<size_t>(bh) * sq + row) * D + dv0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDV / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc_o[n][2 * h] * inv, acc_o[n][2 * h + 1] * inv);
+    if (t == 0 && dv0 == 0) {
+      const size_t r = static_cast<size_t>(bh) * sq + row;
+      lse[r] = m[h] + logf(l[h]);
+      m_out[r] = m[h];
+      l_out[r] = l[h];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K4
+
+template <int D, bool kBias>
+constexpr size_t dkdv_smem() {
+  constexpr int kLd = D + 4;
+  constexpr int kStage = 2 * kKeysT * kLd + 3 * kKeysT +
+                         (kBias ? kKeysT * kBiasLdT : 0);
+  return sizeof(float) * (2 * kRowsT * kLd + Slice<D>::kDkdvStages * kStage);
+}
+
+// dK/dV: one CTA per (batch-head, 64-key tile, slice of dK and dV).  Warp w
+// holds keys k0 + 16w + g (+8) of S^T, dP^T, dK and dV; the ring carries
+// 32-row Q and dO tiles, their rows' m, l and delta, and the (32 rows x 64
+// keys) bias tile.
+template <int D, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
                           const float* __restrict__ dout,
-                          const float* __restrict__ row_max_in,
-                          const float* __restrict__ row_sum_in,
+                          const float* __restrict__ row_max,
+                          const float* __restrict__ row_sum,
                           const float* __restrict__ delta,
                           const float* __restrict__ bias,
                           const int* __restrict__ seed, float* __restrict__ dk,
                           float* __restrict__ dv, int bh_count, int sq, int sk,
                           float scale, int causal, int offset, int bias_div,
                           int bias_rows, uint32_t threshold, float drop_scale) {
-  extern __shared__ float smem[];
-  float* Kt = smem;
-  float* Vt = Kt + D * kLd;
-  float* Qt = Vt + D * kLd;
-  float* dOt = Qt + D * kLd;
-  float* Ps = dOt + D * kLd;  // P^T: keys x queries
-  float* dSs = Ps + kB * kLd;
-  __shared__ float stats[3][kB];  // the q tile's m, 1/l and delta
-  const int bh = blockIdx.x % bh_count;
-  const int k0 = static_cast<int>(blockIdx.x / bh_count) * kB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t head_q = static_cast<size_t>(bh) * sq * D;
-  const size_t head_k = static_cast<size_t>(bh) * sk * D;
+  constexpr int kDV = Slice<D>::kDkdvDV;
+  constexpr int kSlices = D / kDV;
+  constexpr int kStages = Slice<D>::kDkdvStages;
+  constexpr int kLd = D + 4;
+  constexpr int kTile = kKeysT * kLd;  // one 32-row Q or dO tile
+  constexpr int kStageFloats =
+      2 * kTile + 3 * kKeysT + (kBias ? kKeysT * kBiasLdT : 0);
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kRowsT * kLd;
+  float* ring = Vs + kRowsT * kLd;
+
+  const int slice = static_cast<int>(blockIdx.x % kSlices);
+  const int rest = static_cast<int>(blockIdx.x / kSlices);
+  const int bh = rest % bh_count;
+  const int k0 = (rest / bh_count) * kRowsT;
+  const int dv0 = slice * kDV;
+  const int nq = (sq + kKeysT - 1) / kKeysT;
   const size_t rows = static_cast<size_t>(bh) * sq;
+  const float* qh = q + rows * D;
+  const float* oh = dout + rows * D;
+  const bool rs1 = bias_rows == 1;
+  const float* bias_g =
+      kBias ? bias + static_cast<size_t>(bh / bias_div) * bias_rows * sk
+            : nullptr;
+  const bool bias_vec =
+      kBias && sk % 4 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+
+  auto live = [&](int qb) {
+    return block_live(qb * kKeysT, kKeysT, k0, sq, sk, causal, offset);
+  };
+  auto next_live = [&](int qb) {
+    while (qb < nq && !live(qb)) ++qb;
+    return qb;
+  };
+  // the n-th live q tile qb goes to stage n % kStages
+  auto fill = [&](int qb, int n) {
+    float* st = ring + (n % kStages) * kStageFloats;
+    const int q0 = qb * kKeysT;
+    stage_rows<kKeysT, D>(st, kLd, qh, D, q0, sq, 0);
+    stage_rows<kKeysT, D>(st + kTile, kLd, oh, D, q0, sq, 0);
+    float* stats = st + 2 * kTile;
+    if (threadIdx.x < 3 * kKeysT) {
+      const int c = threadIdx.x / kKeysT, r = threadIdx.x % kKeysT;
+      const float* src = c == 0 ? row_max : c == 1 ? row_sum : delta;
+      const bool in = q0 + r < sq;
+      cp_async4(stats + threadIdx.x, src + rows + (in ? q0 + r : 0), in);
+    }
+    if constexpr (kBias)
+      stage_bias<kKeysT, kRowsT>(stats + 3 * kKeysT, kBiasLdT, bias_g, rs1, q0,
+                                 sq, k0, sk, bias_vec);
+  };
+
+  stage_rows<kRowsT, D>(Ks, kLd, k + static_cast<size_t>(bh) * sk * D, D, k0,
+                        sk, 0);
+  stage_rows<kRowsT, D>(Vs, kLd, v + static_cast<size_t>(bh) * sk * D, D, k0,
+                        sk, 0);
+  int qb_load = next_live(0), n_loaded = 0;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (qb_load < nq) {
+      fill(qb_load, n_loaded++);
+      qb_load = next_live(qb_load + 1);
+    }
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, g = lane_g(), t = lane_t();
+  const int kr = 16 * warp;  // the warp's first key in the tile
   uint32_t key = 0;
   if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
-
-  float acc_dk[4][D / 16], acc_dv[4][D / 16];
+  float acc_dk[kDV / 8][4], acc_dv[kDV / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < kDV / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+    for (int i = 0; i < 4; ++i) acc_dk[n][i] = acc_dv[n][i] = 0.f;
 
-  load_t<D>(Kt, k + head_k, k0, sk);
-  load_t<D>(Vt, v + head_k, k0, sk);
-  const int nq = (sq + kB - 1) / kB;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kB;
-    if (!block_live(q0, k0, sq, sk, causal, offset)) continue;
-    __syncthreads();  // the previous tile's reads are done
-    load_t<D>(Qt, q + head_q, q0, sq);
-    load_t<D>(dOt, dout + head_q, q0, sq);
-    if (threadIdx.x < kB) {
-      const int r = q0 + threadIdx.x;
-      stats[0][threadIdx.x] = r < sq ? row_max_in[rows + r] : 0.f;
-      stats[1][threadIdx.x] = r < sq ? 1.f / row_sum_in[rows + r] : 0.f;
-      stats[2][threadIdx.x] = r < sq ? delta[rows + r] : 0.f;
+  int it = 0;
+  for (int qb = next_live(0); qb < nq; qb = next_live(qb + 1), ++it) {
+    if (qb_load < nq) {
+      fill(qb_load, n_loaded++);
+      qb_load = next_live(qb_load + 1);
     }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
     __syncthreads();
-    float st[4][4], dpt[4][4];
-    tile_product<D>(st, Kt, Qt, ty, tx);
-    tile_product<D>(dpt, Vt, dOt, ty, tx);
+    const float* Qs = ring + (it % kStages) * kStageFloats;
+    const float* dOs = Qs + kTile;
+    const float* stats = dOs + kTile;
+    const float* Bs = stats + 3 * kKeysT;
+    const int q0 = qb * kKeysT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
+    float st[kKeysT / 8][4], dpt[kKeysT / 8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const int row = q0 + c;
-      uint32_t row_hash = 0;
-      if constexpr (kDropout) row_hash = flash_operands::dropout_row(key, row);
+    for (int j = 0; j < kKeysT / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + ty + 16 * i;
-        const float b =
-            row < sq && col < sk
-                ? bias_of(bias, bh, bias_div, bias_rows, row, col, sk)
-                : 0.f;
-        float pv, ds;
-        p_and_ds<kDropout>(st[i][j], dpt[i][j], b, row, col, sq, sk, scale,
-                           causal, offset, stats[0][c], stats[1][c],
-                           stats[2][c], key, row_hash, threshold, drop_scale,
-                           pv, ds);
-        Ps[(ty + 16 * i) * kLd + c] = pv;
-        dSs[(ty + 16 * i) * kLd + c] = ds;
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const FragA ak = load_a(Ks, kLd, kr, 8 * kk);
+      const FragA av = load_a(Vs, kLd, kr, 8 * kk);
+#pragma unroll
+      for (int j = 0; j < kKeysT / 8; ++j) {
+        mma3(st[j], ak, load_bt(Qs, kLd, 8 * j, 8 * kk));
+        mma3(dpt[j], av, load_bt(dOs, kLd, 8 * j, 8 * kk));
+      }
+    }
+
+    // P^T and dS^T: query c = 8j + 2t + e of the tile, key kr + g + 8h
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const int qrow = q0 + c;
+        uint32_t row_hash = 0;
+        if constexpr (kDropout) row_hash = flash_operands::dropout_row(key, qrow);
+        const float m_c = stats[c], il_c = 1.f / stats[kKeysT + c];
+        const float delta_c = stats[2 * kKeysT + c];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * h + e;
+          float b = 0.f;
+          if constexpr (kBias)
+            b = fmaxf(Bs[(rs1 ? 0 : c) * kBiasLdT + kr + g + 8 * h], kPadValue);
+          float pv, ds;
+          p_and_ds<kDropout>(st[j][i], dpt[j][i], b, qrow, k0 + kr + g + 8 * h,
+                             sq, sk, scale, causal, offset, m_c, il_c, delta_c,
+                             key, row_hash, threshold, drop_scale, pv, ds);
+          st[j][i] = pv;
+          dpt[j][i] = ds;
+        }
+      }
+
+    // dV += P^T dO and dK += dS^T Q over this CTA's slice
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j) {
+      const FragA ap = a_from_acc(st[j]);
+      const FragA ad = a_from_acc(dpt[j]);
+#pragma unroll
+      for (int n = 0; n < kDV / 8; ++n) {
+        mma3(acc_dv[n], ap, load_b_perm(dOs, kLd, 8 * j, dv0 + 8 * n));
+        mma3(acc_dk[n], ad, load_b_perm(Qs, kLd, 8 * j, dv0 + 8 * n));
       }
     }
     __syncthreads();
-    times_t<D>(acc_dv, Ps, dOt, ty, tx);   // dV += P^T dO
-    times_t<D>(acc_dk, dSs, Qt, ty, tx);   // dK += dS^T Q
   }
+  cp_async_wait<0>();  // no copy is left in flight past the kernel's end
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key_row = k0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int key_row = k0 + kr + g + 8 * h;
     if (key_row >= sk) continue;
-    const size_t off = head_k + static_cast<size_t>(key_row) * D;
+    const size_t off =
+        (static_cast<size_t>(bh) * sk + key_row) * D + dv0 + 2 * t;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      dk[off + tx + 16 * c] = acc_dk[i][c] * scale;
-      dv[off + tx + 16 * c] = acc_dv[i][c];
+    for (int n = 0; n < kDV / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + off + 8 * n) = make_float2(
+          acc_dk[n][2 * h] * scale, acc_dk[n][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * n) =
+          make_float2(acc_dv[n][2 * h], acc_dv[n][2 * h + 1]);
     }
   }
 }
 
-// dQ: one CTA per (batch-head, 64-row q tile), heaviest causal tiles first.
-template <int D, bool kDropout>
+template <int D, bool kBias>
+constexpr size_t dq_smem() {
+  constexpr int kLd = D + 4;
+  constexpr int kStage = 2 * kKeysT * kLd + (kBias ? kRowsT * kBiasLd : 0);
+  return sizeof(float) * (2 * kRowsT * kLd + Slice<D>::kDqStages * kStage);
+}
+
+// dQ: one CTA per (batch-head, 64-row q tile, slice of dQ), heaviest causal
+// tiles first.  Warp w holds rows q0 + 16w + g (+8); the ring carries 32-key
+// K and V tiles and the (64 rows x 32 keys) bias tile.
+template <int D, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ dout,
-                        const float* __restrict__ row_max_in,
-                        const float* __restrict__ row_sum_in,
+                        const float* __restrict__ row_max,
+                        const float* __restrict__ row_sum,
                         const float* __restrict__ delta,
                         const float* __restrict__ bias,
                         const int* __restrict__ seed, float* __restrict__ dq,
                         int bh_count, int sq, int sk, float scale, int causal,
                         int offset, int bias_div, int bias_rows,
                         uint32_t threshold, float drop_scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* dOt = Qt + D * kLd;
-  float* Kt = dOt + D * kLd;
-  float* Vt = Kt + D * kLd;
-  float* dSs = Vt + D * kLd;  // dS: queries x keys
-  const int n_tiles = (sq + kB - 1) / kB;
-  const int bh = blockIdx.x % bh_count;
-  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x / bh_count)) * kB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t head_q = static_cast<size_t>(bh) * sq * D;
-  const size_t head_k = static_cast<size_t>(bh) * sk * D;
-  const int q_last = min(q0 + kB, sq) - 1;
-  const int k_end = causal ? max(0, min(sk, q_last + offset + 1)) : sk;
-  const int n_kt = (k_end + kB - 1) / kB;
+  constexpr int kDV = Slice<D>::kDV;
+  constexpr int kSlices = D / kDV;
+  constexpr int kStages = Slice<D>::kDqStages;
+  constexpr int kLd = D + 4;
+  constexpr int kTile = kKeysT * kLd;
+  constexpr int kStageFloats = 2 * kTile + (kBias ? kRowsT * kBiasLd : 0);
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kRowsT * kLd;
+  float* ring = dOs + kRowsT * kLd;
 
-  float m_r[4], il_r[4], delta_r[4];
-  uint32_t key = 0, row_hash[4] = {0, 0, 0, 0};
+  const int n_tiles = (sq + kRowsT - 1) / kRowsT;
+  const int slice = static_cast<int>(blockIdx.x % kSlices);
+  const int rest = static_cast<int>(blockIdx.x / kSlices);
+  const int bh = rest % bh_count;
+  const int q0 = (n_tiles - 1 - rest / bh_count) * kRowsT;
+  const int dv0 = slice * kDV;
+  const int q_last = min(q0 + kRowsT, sq) - 1;
+  const int k_end = causal ? max(0, min(sk, q_last + offset + 1)) : sk;
+  const int n_kt = (k_end + kKeysT - 1) / kKeysT;
+  const float* kh = k + static_cast<size_t>(bh) * sk * D;
+  const float* vh = v + static_cast<size_t>(bh) * sk * D;
+  const bool rs1 = bias_rows == 1;
+  const float* bias_g =
+      kBias ? bias + static_cast<size_t>(bh / bias_div) * bias_rows * sk
+            : nullptr;
+  const bool bias_vec =
+      kBias && sk % 4 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+
+  auto fill = [&](int kt) {
+    float* st = ring + (kt % kStages) * kStageFloats;
+    const int k0 = kt * kKeysT;
+    stage_rows<kKeysT, D>(st, kLd, kh, D, k0, sk, 0);
+    stage_rows<kKeysT, D>(st + kTile, kLd, vh, D, k0, sk, 0);
+    if constexpr (kBias)
+      stage_bias<kRowsT, kKeysT>(st + 2 * kTile, kBiasLd, bias_g, rs1, q0, sq,
+                                 k0, sk, bias_vec);
+  };
+  const size_t head_q = static_cast<size_t>(bh) * sq * D;
+  stage_rows<kRowsT, D>(Qs, kLd, q + head_q, D, q0, sq, 0);
+  stage_rows<kRowsT, D>(dOs, kLd, dout + head_q, D, q0, sq, 0);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) fill(s);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5, g = lane_g(), t = lane_t();
+  const int wr = 16 * warp;
+  float m_r[2], il_r[2], delta_r[2];
+  uint32_t key = 0, row_hash[2] = {0, 0};
   if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
     const size_t ri = static_cast<size_t>(bh) * sq + row;
-    m_r[i] = row < sq ? row_max_in[ri] : 0.f;
-    il_r[i] = row < sq ? 1.f / row_sum_in[ri] : 0.f;
-    delta_r[i] = row < sq ? delta[ri] : 0.f;
-    if constexpr (kDropout) row_hash[i] = flash_operands::dropout_row(key, row);
+    m_r[h] = row < sq ? row_max[ri] : 0.f;
+    il_r[h] = row < sq ? 1.f / row_sum[ri] : 0.f;
+    delta_r[h] = row < sq ? delta[ri] : 0.f;
+    if constexpr (kDropout) row_hash[h] = flash_operands::dropout_row(key, row);
   }
-  float acc[4][D / 16];
+  float acc[kDV / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < kDV / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
-  load_t<D>(Qt, q + head_q, q0, sq);
-  load_t<D>(dOt, dout + head_q, q0, sq);
+  // with no key to walk, the Q and dO copies still complete before the end
+  if (n_kt == 0) {
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
+    if (kt + kStages - 1 < n_kt) fill(kt + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
     __syncthreads();
-    load_t<D>(Kt, k + head_k, k0, sk);
-    load_t<D>(Vt, v + head_k, k0, sk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product<D>(s, Qt, Kt, ty, tx);
-    tile_product<D>(dp, dOt, Vt, ty, tx);
+    const float* Ks = ring + (kt % kStages) * kStageFloats;
+    const float* Vs = Ks + kTile;
+    const float* Bs = Vs + kTile;
+    const int k0 = kt * kKeysT;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys a warp
+    float s[kKeysT / 8][4], dp[kKeysT / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
+    for (int j = 0; j < kKeysT / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float b =
-            row < sq && col < sk
-                ? bias_of(bias, bh, bias_div, bias_rows, row, col, sk)
-                : 0.f;
-        float pv, ds;
-        p_and_ds<kDropout>(s[i][j], dp[i][j], b, row, col, sq, sk, scale,
-                           causal, offset, m_r[i], il_r[i], delta_r[i], key,
-                           row_hash[i], threshold, drop_scale, pv, ds);
-        dSs[(ty + 16 * i) * kLd + tx + 16 * j] = ds;
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const FragA aq = load_a(Qs, kLd, wr, 8 * kk);
+      const FragA ao = load_a(dOs, kLd, wr, 8 * kk);
+#pragma unroll
+      for (int j = 0; j < kKeysT / 8; ++j) {
+        mma3(s[j], aq, load_bt(Ks, kLd, 8 * j, 8 * kk));
+        mma3(dp[j], ao, load_bt(Vs, kLd, 8 * j, 8 * kk));
       }
     }
+
+    // dS
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float b2[2] = {0.f, 0.f};
+        if constexpr (kBias) {
+          const float2 bb = *reinterpret_cast<const float2*>(
+              Bs + (rs1 ? 0 : wr + g + 8 * h) * kBiasLd + 8 * j + 2 * t);
+          b2[0] = fmaxf(bb.x, kPadValue);
+          b2[1] = fmaxf(bb.y, kPadValue);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * h + e;
+          float pv, ds;
+          p_and_ds<kDropout>(s[j][i], dp[j][i], b2[e], q0 + wr + g + 8 * h,
+                             k0 + 8 * j + 2 * t + e, sq, sk, scale, causal,
+                             offset, m_r[h], il_r[h], delta_r[h], key,
+                             row_hash[h], threshold, drop_scale, pv, ds);
+          s[j][i] = ds;
+        }
+      }
+
+    // dQ += dS K over this CTA's slice
+#pragma unroll
+    for (int j = 0; j < kKeysT / 8; ++j) {
+      const FragA a = a_from_acc(s[j]);
+#pragma unroll
+      for (int n = 0; n < kDV / 8; ++n)
+        mma3(acc[n], a, load_b_perm(Ks, kLd, 8 * j, dv0 + 8 * n));
+    }
     __syncthreads();
-    times_t<D>(acc, dSs, Kt, ty, tx);  // dQ += dS K
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
     if (row >= sq) continue;
-    float* out = dq + head_q + static_cast<size_t>(row) * D;
+    float* out = dq + head_q + static_cast<size_t>(row) * D + dv0 + 2 * t;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) out[tx + 16 * c] = acc[i][c] * scale;
+    for (int n = 0; n < kDV / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
+}
+
+// ------------------------------------------------------------------ K5
+
+constexpr int kB5 = 64;          // q rows and keys of a K5 tile
+constexpr int kThreads5 = 256;   // 16 x 16, each 4 x 4 of a 64 x 64 tile
+constexpr int kLd5 = kB5 + 1;    // a transposed tile's row stride, in floats
+
+// Rows [row0, row0 + 64) and head dims [col0, col0 + C) of one head (rows
+// x D, row-major) into the transposed tile t[k * kLd5 + r], zero past
+// `limit`.
+template <int D, int C>
+__device__ __forceinline__ void load_t(float* t, const float* src, int row0,
+                                       int limit, int col0) {
+  for (int i = threadIdx.x; i < kB5 * C; i += kThreads5) {
+    const int r = i / C, k = i % C;
+    t[k * kLd5 + r] =
+        row0 + r < limit ? src[static_cast<size_t>(row0 + r) * D + col0 + k]
+                         : 0.f;
+  }
+}
+
+// acc[i][j] += sum over k < C of a[k][ty + 16i] * b[k][tx + 16j] for two
+// transposed tiles.
+template <int C>
+__device__ __forceinline__ void tile_product(float (&acc)[4][4], const float* a,
+                                             const float* b, int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < C; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[k * kLd5 + ty + 16 * i];
+      bv[i] = b[k * kLd5 + tx + 16 * i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// the head dims a K5 tile holds at once
+template <int D>
+__host__ __device__ constexpr int dbias_chunk() {
+  return D < 128 ? D : 128;
+}
+
+template <int D>
+constexpr size_t dbias_smem() {
+  return sizeof(float) * (4 * dbias_chunk<D>() * kLd5 + kB5 * kLd5);
 }
 
 // dbias: kRowBias (RS = S_q) one CTA per (group, q tile, k tile) over the
 // group's members; else (RS = 1) one CTA per (group, k tile) over the
 // members and every q tile, the 64 rows summed in order at the end.
 template <int D, bool kRowBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads5)
 flash_dbias_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ dout,
@@ -500,18 +951,19 @@ flash_dbias_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        int members, int sq, int sk, int nq, int nk, float scale,
                        int causal, int offset, uint32_t threshold,
                        float drop_scale) {
+  constexpr int kC = dbias_chunk<D>();
   extern __shared__ float smem[];
   float* Qt = smem;
-  float* dOt = Qt + D * kLd;
-  float* Kt = dOt + D * kLd;
-  float* Vt = Kt + D * kLd;
-  float* sums = Vt + D * kLd;  // RS = 1: the 64 rows' sums
+  float* dOt = Qt + kC * kLd5;
+  float* Kt = dOt + kC * kLd5;
+  float* Vt = Kt + kC * kLd5;
+  float* sums = Vt + kC * kLd5;  // RS = 1: the 64 rows' sums
   const int kt = static_cast<int>(blockIdx.x % nk);
   const int rest = static_cast<int>(blockIdx.x / nk);
   const int g = kRowBias ? rest / nq : rest;
   const int q_first = kRowBias ? rest % nq : 0;
   const int q_stop = kRowBias ? q_first + 1 : nq;
-  const int k0 = kt * kB;
+  const int k0 = kt * kB5;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t bias_g = static_cast<size_t>(g) * (kRowBias ? sq : 1) * sk;
 
@@ -528,18 +980,24 @@ flash_dbias_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     uint32_t key = 0;
     if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
     for (int qt = q_first; qt < q_stop; ++qt) {
-      const int q0 = qt * kB;
+      const int q0 = qt * kB5;
       // a tile with no live pair has ds = 0 (uniform over the CTA)
-      if (causal && k0 > min(q0 + kB, sq) - 1 + offset) continue;
-      __syncthreads();
-      load_t<D>(Qt, q + head_q, q0, sq);
-      load_t<D>(dOt, dout + head_q, q0, sq);
-      load_t<D>(Kt, k + head_k, k0, sk);
-      load_t<D>(Vt, v + head_k, k0, sk);
-      __syncthreads();
+      if (causal && k0 > min(q0 + kB5, sq) - 1 + offset) continue;
       float s[4][4], dp[4][4];
-      tile_product<D>(s, Qt, Kt, ty, tx);
-      tile_product<D>(dp, dOt, Vt, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int c0 = 0; c0 < D; c0 += kC) {
+        __syncthreads();  // the previous chunk's reads are done
+        load_t<D, kC>(Qt, q + head_q, q0, sq, c0);
+        load_t<D, kC>(dOt, dout + head_q, q0, sq, c0);
+        load_t<D, kC>(Kt, k + head_k, k0, sk, c0);
+        load_t<D, kC>(Vt, v + head_k, k0, sk, c0);
+        __syncthreads();
+        tile_product<kC>(s, Qt, Kt, ty, tx);
+        tile_product<kC>(dp, dOt, Vt, ty, tx);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = q0 + ty + 16 * i;
@@ -567,7 +1025,7 @@ flash_dbias_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if constexpr (kRowBias) {
-    const int q0 = q_first * kB;
+    const int q0 = q_first * kB5;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty + 16 * i;
@@ -583,15 +1041,17 @@ flash_dbias_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sums[(ty + 16 * i) * kLd + tx + 16 * j] = acc[i][j];
+      for (int j = 0; j < 4; ++j) sums[(ty + 16 * i) * kLd5 + tx + 16 * j] = acc[i][j];
     __syncthreads();
-    if (threadIdx.x < kB && k0 + static_cast<int>(threadIdx.x) < sk) {
+    if (threadIdx.x < kB5 && k0 + static_cast<int>(threadIdx.x) < sk) {
       float sum = 0.f;
-      for (int r = 0; r < kB; ++r) sum += sums[r * kLd + threadIdx.x];
+      for (int r = 0; r < kB5; ++r) sum += sums[r * kLd5 + threadIdx.x];
       dbias[bias_g + k0 + threadIdx.x] = sum;
     }
   }
 }
+
+// ------------------------------------------------------------ launchers
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -600,18 +1060,20 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D, bool kDropout>
+template <int D, bool kBias, bool kDropout>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                const void* seed, void* o, void* lse, void* m, void* l, int bh,
                int sq, int sk, int bias_div, int bias_rows, float scale,
                int causal, int offset, uint32_t threshold, float drop_scale,
                cudaStream_t stream) {
-  auto* kernel = &flash_fwd_f32_kernel<D, kDropout>;
-  constexpr size_t bytes = fwd_smem<D>();
+  auto* kernel = &flash_fwd_f32_kernel<D, kBias, kDropout>;
+  constexpr size_t bytes = fwd_smem<D, kBias>();
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (sq + kB - 1) / kB;
-  kernel<<<dim3(static_cast<unsigned>(bh) * n_tiles), kThreads, bytes, stream>>>(
+  const size_t ctas = static_cast<size_t>(bh) * (D / Slice<D>::kDV) *
+                      ((sq + kRowsT - 1) / kRowsT);
+  if (ctas > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<float*>(o),
@@ -621,18 +1083,19 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kDropout>
+template <int D, bool kBias, bool kDropout>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* m, const void* l, const void* delta,
                const void* bias, const void* seed, void* dq, void* dk,
                void* dv, int bh, int sq, int sk, int bias_div, int bias_rows,
                float scale, int causal, int offset, uint32_t threshold,
                float drop_scale, cudaStream_t stream) {
-  auto* dkdv = &flash_bwd_dkdv_f32_kernel<D, kDropout>;
-  auto* dqk = &flash_bwd_dq_f32_kernel<D, kDropout>;
-  constexpr size_t bytes = bwd_smem<D>();
-  cudaError_t err = allow_smem(dkdv, bytes);
-  if (err == cudaSuccess) err = allow_smem(dqk, bytes);
+  auto* dkdv = &flash_bwd_dkdv_f32_kernel<D, kBias, kDropout>;
+  auto* dqk = &flash_bwd_dq_f32_kernel<D, kBias, kDropout>;
+  constexpr size_t dkdv_bytes = dkdv_smem<D, kBias>();
+  constexpr size_t dq_bytes = dq_smem<D, kBias>();
+  cudaError_t err = allow_smem(dkdv, dkdv_bytes);
+  if (err == cudaSuccess) err = allow_smem(dqk, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -643,15 +1106,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   const float* dp = static_cast<const float*>(delta);
   const float* bp = static_cast<const float*>(bias);
   const int* sp = static_cast<const int*>(seed);
-  const int nk = (sk + kB - 1) / kB;
-  const int nq = (sq + kB - 1) / kB;
-  dkdv<<<dim3(static_cast<unsigned>(bh) * nk), kThreads, bytes, stream>>>(
-      qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dk),
-      static_cast<float*>(dv), bh, sq, sk, scale, causal, offset, bias_div,
-      bias_rows, threshold, drop_scale);
+  const size_t nk = (sk + kRowsT - 1) / kRowsT;
+  const size_t nq = (sq + kRowsT - 1) / kRowsT;
+  const size_t dkdv_ctas = bh * nk * (D / Slice<D>::kDkdvDV);
+  const size_t dq_ctas = bh * nq * (D / Slice<D>::kDV);
+  if (dkdv_ctas > 0x7fffffffu || dq_ctas > 0x7fffffffu)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  dkdv<<<dim3(static_cast<unsigned>(dkdv_ctas)), kThreads, dkdv_bytes,
+         stream>>>(qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dk),
+                   static_cast<float*>(dv), bh, sq, sk, scale, causal, offset,
+                   bias_div, bias_rows, threshold, drop_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(static_cast<unsigned>(bh) * nq), kThreads, bytes, stream>>>(
+  dqk<<<dim3(static_cast<unsigned>(dq_ctas)), kThreads, dq_bytes, stream>>>(
       qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dq), bh, sq, sk,
       scale, causal, offset, bias_div, bias_rows, threshold, drop_scale);
   return static_cast<int>(cudaGetLastError());
@@ -665,14 +1132,14 @@ int launch_dbias(const void* q, const void* k, const void* v, const void* dout,
                  int offset, uint32_t threshold, float drop_scale,
                  cudaStream_t stream) {
   auto* kernel = &flash_dbias_f32_kernel<D, kRowBias, kDropout>;
-  constexpr size_t bytes = sizeof(float) * (4 * D * kLd + kB * kLd);
+  constexpr size_t bytes = dbias_smem<D>();
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nq = (sq + kB - 1) / kB;
-  const int nk = (sk + kB - 1) / kB;
+  const int nq = (sq + kB5 - 1) / kB5;
+  const int nk = (sk + kB5 - 1) / kB5;
   const size_t ctas = static_cast<size_t>(groups) * (kRowBias ? nq : 1) * nk;
   if (ctas > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads, bytes, stream>>>(
+  kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads5, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
@@ -683,10 +1150,20 @@ int launch_dbias(const void* q, const void* k, const void* v, const void* dout,
 }
 
 bool bad_args(int bh, int sq, int sk, int d, int groups, int bias_rows) {
-  return bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
-         groups <= 0 || bh % groups != 0 ||
-         (bias_rows != 1 && bias_rows != sq);
+  return bh <= 0 || sq <= 0 || sk <= 0 ||
+         (d != 32 && d != 64 && d != 128 && d != 256) || groups <= 0 ||
+         bh % groups != 0 || (bias_rows != 1 && bias_rows != sq);
 }
+
+// The instance of a launcher template for (d, two flags).
+#define APEX_F32_PICK(FN, D, A, B)                                          \
+  ((A) ? ((B) ? &FN<D, true, true> : &FN<D, true, false>)                   \
+       : ((B) ? &FN<D, false, true> : &FN<D, false, false>))
+#define APEX_F32_BY_D(FN, d, A, B)                                          \
+  ((d) == 32    ? APEX_F32_PICK(FN, 32, A, B)                               \
+   : (d) == 64  ? APEX_F32_PICK(FN, 64, A, B)                               \
+   : (d) == 128 ? APEX_F32_PICK(FN, 128, A, B)                              \
+                : APEX_F32_PICK(FN, 256, A, B))
 
 }  // namespace
 
@@ -696,7 +1173,7 @@ extern "C" const char* apex_error_string(int code) {
 
 // The C entry points take the arguments of their bf16 counterparts
 // (flash_fwd.cu, flash_bwd.cu, flash_dbias.cu) with f32 q, k, v, dO, o, dq,
-// dk and dv.  d must be 32, 64 or 128.
+// dk and dv, 16-byte aligned.  d must be 32, 64, 128 or 256.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              const void* bias, const void* seed, void* o,
                              void* lse, void* m, void* l, int bh, int sq,
@@ -705,11 +1182,8 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              float drop_scale, void* stream) {
   if (bad_args(bh, sq, sk, d, groups, bias_rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  using Fn = decltype(&launch_fwd<64, false>);
-  const bool drop = seed != nullptr;
-  const Fn run = d == 32   ? (drop ? &launch_fwd<32, true> : &launch_fwd<32, false>)
-                 : d == 64 ? (drop ? &launch_fwd<64, true> : &launch_fwd<64, false>)
-                           : (drop ? &launch_fwd<128, true> : &launch_fwd<128, false>);
+  const auto run =
+      APEX_F32_BY_D(launch_fwd, d, bias != nullptr, seed != nullptr);
   return run(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, bh / groups,
              bias_rows, scale, causal, sk - sq, threshold, drop_scale,
              static_cast<cudaStream_t>(stream));
@@ -725,11 +1199,8 @@ extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,
                              void* stream) {
   if (bad_args(bh, sq, sk, d, groups, bias_rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  using Fn = decltype(&launch_bwd<64, false>);
-  const bool drop = seed != nullptr;
-  const Fn run = d == 32   ? (drop ? &launch_bwd<32, true> : &launch_bwd<32, false>)
-                 : d == 64 ? (drop ? &launch_bwd<64, true> : &launch_bwd<64, false>)
-                           : (drop ? &launch_bwd<128, true> : &launch_bwd<128, false>);
+  const auto run =
+      APEX_F32_BY_D(launch_bwd, d, bias != nullptr, seed != nullptr);
   return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
              bh / groups, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));
@@ -744,19 +1215,9 @@ extern "C" int flash_dbias_f32(const void* q, const void* k, const void* v,
                                float drop_scale, void* stream) {
   if (bias == nullptr || bad_args(bh, sq, sk, d, groups, bias_rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  using Fn = decltype(&launch_dbias<64, true, false>);
   // with sq = 1 the two layouts coincide and the RS = 1 path serves both
-  const bool row = bias_rows != 1, drop = seed != nullptr;
-  Fn run;
-  if (d == 32)
-    run = row ? (drop ? &launch_dbias<32, true, true> : &launch_dbias<32, true, false>)
-              : (drop ? &launch_dbias<32, false, true> : &launch_dbias<32, false, false>);
-  else if (d == 64)
-    run = row ? (drop ? &launch_dbias<64, true, true> : &launch_dbias<64, true, false>)
-              : (drop ? &launch_dbias<64, false, true> : &launch_dbias<64, false, false>);
-  else
-    run = row ? (drop ? &launch_dbias<128, true, true> : &launch_dbias<128, true, false>)
-              : (drop ? &launch_dbias<128, false, true> : &launch_dbias<128, false, false>);
+  const auto run =
+      APEX_F32_BY_D(launch_dbias, d, bias_rows != 1, seed != nullptr);
   return run(q, k, v, dout, m, l, delta, bias, seed, dbias, groups,
              bh / groups, sq, sk, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));

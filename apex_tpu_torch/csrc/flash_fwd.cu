@@ -56,11 +56,17 @@
 //           Besides lse the kernel writes each row's m and l, from which K4
 //           recomputes p = exp(s - m) / l: exact also for a row that a bias
 //           masks completely, whose lse rounds back to MASK_VALUE in f32. One
-//           template instance per head dim (32, 64, 128), bias mode and
-//           dropout; the wrapper pads any other head dim up to 128 to the
+//           template instance per head dim (32, 64, 128, 256), bias mode and
+//           dropout; the wrapper pads any other head dim up to 256 to the
 //           next instance with zeros.  At D = 128 a tile is two 64-column
 //           blocks (hopper.cuh, TileLayout) and the stages hold 64 keys (the
-//           O accumulator is 64 f32 registers a thread).
+//           O accumulator is 64 f32 registers a thread).  Above 128 (the
+//           D = 256 instance) QK^T loops over the four 64-column blocks of
+//           the Q and K tiles into the same S registers, and O is split
+//           over CTAs by slices of 128 columns (DV): a work item is (batch*
+//           head, q tile, slice), each recomputing the scores over all of D
+//           and staging only its slice of V, so the O accumulator stays at
+//           64 registers; one Q buffer and two stages fit in 227 KB.
 //           Not yet used: overlap of one tile's softmax with the next tile's
 //           QK^T (ROADMAP B).
 
@@ -96,7 +102,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // with one, which keeps the bias registers or the staged tile small.
 template <int D, int kBias>
 struct Tile {
-  // D = 128 keeps 64 keys and its ring: 128 keys, or 3 stages with a
+  // the columns of O a CTA computes (see Design)
+  static constexpr int kDV = D < 128 ? D : 128;
+  // Q buffers: two (the next item's Q loads during this one's epilogue),
+  // one at D = 256, where two would not fit
+  static constexpr int kQBufs = D > 128 ? 1 : 2;
+  // D >= 128 keeps 64 keys and its ring: 128 keys, or 3 stages with a
   // bias, would pass the 227 KB of shared memory
 #ifdef APEX_FLASH_FWD_BLOCK_K
   static constexpr int kBlockK = D < 128 ? APEX_FLASH_FWD_BLOCK_K : 64;
@@ -119,10 +130,11 @@ struct Tile {
 template <int D, int kBias>
 constexpr size_t smem_bytes() {
   using T = Tile<D, kBias>;
-  return 1024                                                       // alignment
-         + size_t{2} * D * (2 * kBlockQ + 2 * T::kStages * T::kBlockK)  // Q K V
-         + size_t{T::kBiasBytes} * T::kStages                       // bias
-         + sizeof(uint64_t) * (2 * T::kStages + 4);                 // mbarriers
+  return 1024                                                   // alignment
+         + size_t{2} * D * T::kQBufs * kBlockQ                  // Q
+         + size_t{2} * (D + T::kDV) * T::kStages * T::kBlockK   // K, V
+         + size_t{T::kBiasBytes} * T::kStages                   // bias
+         + sizeof(uint64_t) * (2 * T::kStages + 2 * T::kQBufs); // mbarriers
 }
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -153,33 +165,40 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  int bh_count, int sq, int sk, float scale, int causal,
                  int offset, int bias_div, int bias_rows, uint32_t threshold,
                  float drop_scale) {
-  constexpr int kBlockK = Tile<D, kBias>::kBlockK;
-  constexpr int kStages = Tile<D, kBias>::kStages;
-  constexpr int kBiasBytes = Tile<D, kBias>::kBiasBytes;
+  using T = Tile<D, kBias>;
+  constexpr int kBlockK = T::kBlockK;
+  constexpr int kStages = T::kStages;
+  constexpr int kBiasBytes = T::kBiasBytes;
+  constexpr int kDV = T::kDV;
+  constexpr int kQBufs = T::kQBufs;
+  constexpr int kSlices = D / kDV;
   constexpr bool kHasBias = kBias != kNoBias;
   using L = TileLayout<D>;
+  using LV = TileLayout<kDV>;
   constexpr int kAtom = L::kAtomBytes;
   constexpr int kRowBytes = 2 * D;
   constexpr int kQBytes = kBlockQ * kRowBytes;
-  constexpr int kKVBytes = kBlockK * kRowBytes;
+  constexpr int kKBytes = kBlockK * kRowBytes;
+  constexpr int kVBytes = kBlockK * 2 * kDV;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Qs = align_1024(smem_raw);     // two Q tiles
-  unsigned char* Ks = Qs + 2 * kQBytes;
-  unsigned char* Vs = Ks + kStages * kKVBytes;
-  unsigned char* Bs = Vs + kStages * kKVBytes;  // the staged bias tiles
+  unsigned char* Qs = align_1024(smem_raw);     // kQBufs Q tiles
+  unsigned char* Ks = Qs + kQBufs * kQBytes;
+  unsigned char* Vs = Ks + kStages * kKBytes;   // the slice's columns of V
+  unsigned char* Bs = Vs + kStages * kVBytes;   // the staged bias tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBiasBytes);
   uint64_t* empty = full + kStages;
-  uint64_t* q_full = empty + kStages;  // two each, one per Q tile
-  uint64_t* q_empty = q_full + 2;
+  uint64_t* q_full = empty + kStages;  // kQBufs each, one per Q tile
+  uint64_t* q_empty = q_full + kQBufs;
 
   const int n_tiles = (sq + kBlockQ - 1) / kBlockQ;
-  const int n_items = bh_count * n_tiles;
+  const int n_items = bh_count * kSlices * n_tiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // work item w: batch-head w % BH and q tile n_tiles - 1 - w / BH, so the
-  // heaviest causal tiles come first; each warpgroup walks [0, lim0 or
-  // lim1), the CTA loads n_kt key tiles
+  // work item w: batch-head and slice from w % (BH * slices), q tile
+  // n_tiles - 1 - w / (BH * slices), so the heaviest causal tiles come
+  // first; each warpgroup walks [0, lim0 or lim1), the CTA loads n_kt key
+  // tiles
   struct Item {
-    int bh, q0, lim0, lim1, n_kt;
+    int bh, dv0, q0, lim0, lim1, n_kt;
   };
   // round r of the grid takes items [r G, r G + G) (G CTAs), forwards in
   // even rounds and backwards in odd ones: the CTA that took one round's
@@ -190,8 +209,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   auto item = [&](int w) {
     Item it;
-    it.bh = w % bh_count;
-    it.q0 = (n_tiles - 1 - w / bh_count) * kBlockQ;
+    const int head = w % (bh_count * kSlices);
+    it.bh = head / kSlices;
+    it.dv0 = (head % kSlices) * kDV;
+    it.q0 = (n_tiles - 1 - w / (bh_count * kSlices)) * kBlockQ;
     it.lim0 = key_limit(it.q0, sq, sk, causal, offset);
     it.lim1 = key_limit(it.q0 + 64, sq, sk, causal, offset);
     it.n_kt = (max(it.lim0, it.lim1) + kBlockK - 1) / kBlockK;
@@ -203,7 +224,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * kConsumers);  // one arrival per consumer warp
     }
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < kQBufs; ++b) {
       mbar_init(&q_full[b], 1);
       mbar_init(&q_empty[b], 4 * kConsumers);
     }
@@ -219,8 +240,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int w = item_index(r);
         if (w >= n_items) continue;
         const Item it = item(w);
-        const int qb = n & 1;
-        const uint32_t q_phase = (n >> 1) & 1;
+        // the Q buffer and its phase by shifts: a signed % and / here
+        // cost 7% at BERT's shape (PERF.md)
+        const int qb = kQBufs == 1 ? 0 : n & 1;
+        const uint32_t q_phase = (kQBufs == 1 ? n : n >> 1) & 1;
         ++n;
         mbar_wait(&q_empty[qb], q_phase ^ 1);
         mbar_expect_tx(&q_full[qb], kQBytes);
@@ -229,11 +252,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kt = 0; kt < it.n_kt; ++kt, ++t) {
           const int s = t % kStages;
           mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full[s], 2 * kKVBytes + kBiasBytes);
-          tma_load_tile<D, kBlockK>(Ks + s * kKVBytes, &tm_k, &full[s],
+          mbar_expect_tx(&full[s], kKBytes + kVBytes + kBiasBytes);
+          tma_load_tile<D, kBlockK>(Ks + s * kKBytes, &tm_k, &full[s],
                                     kt * kBlockK, it.bh);
-          tma_load_tile<D, kBlockK>(Vs + s * kKVBytes, &tm_v, &full[s],
-                                    kt * kBlockK, it.bh);
+          tma_load_tile<kDV, kBlockK>(Vs + s * kVBytes, &tm_v, &full[s],
+                                      kt * kBlockK, it.bh, it.dv0);
           if constexpr (kBias == kBiasTile)
             for (int b = 0; b < kBlockK / 32; ++b)
               tma_load_3d(Bs + s * kBiasBytes + b * kBlockQ * 128, &tm_bias,
@@ -277,13 +300,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    float acc_o[D / 2];
+    float acc_o[kDV / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc_o[j] = 0.f;
+    for (int j = 0; j < kDV / 2; ++j) acc_o[j] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    const int qb = n & 1;
-    mbar_wait(&q_full[qb], (n >> 1) & 1);
+    const int qb = kQBufs == 1 ? 0 : n & 1;
+    mbar_wait(&q_full[qb], (kQBufs == 1 ? n : n >> 1) & 1);
     ++n;
     const uint64_t q_desc =
         make_desc<kAtom>(Qs + qb * kQBytes + wg * 64 * kAtom);
@@ -293,7 +316,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(&full[s], (t / kStages) & 1);
       if (kt < my_kt) {
         // S = Q K^T
-        const uint64_t k_desc = make_desc<kAtom>(Ks + s * kKVBytes);
+        const uint64_t k_desc = make_desc<kAtom>(Ks + s * kKBytes);
         float acc_s[kBlockK / 2];
 #pragma unroll
         for (int i = 0; i < kBlockK / 2; ++i) acc_s[i] = 0.f;
@@ -376,7 +399,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             l[h] *= alpha[h];
           }
 #pragma unroll
-          for (int i = 0; i < D / 2; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+          for (int i = 0; i < kDV / 2; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
           for (int j = 0; j < kBlockK / 8; ++j)
 #pragma unroll
@@ -406,12 +429,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           softmax(std::false_type{});
 
         // O += P V
-        const uint64_t v_desc =
-            make_desc<kAtom>(Vs + s * kKVBytes, kBlockK * kAtom);
+        const uint64_t v_desc = make_desc<LV::kAtomBytes>(
+            Vs + s * kVBytes, kBlockK * LV::kAtomBytes);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBlockK / 16; ++kk)
-          wgmma_rs(acc_o, pa + 4 * kk, desc_add(v_desc, L::mnmajor_step(kk)), 1);
+          wgmma_rs(acc_o, pa + 4 * kk, desc_add(v_desc, LV::mnmajor_step(kk)),
+                   1);
         wgmma_commit();
         wgmma_wait();
         fence_regs(acc_o);
@@ -429,13 +453,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + 8 * h;
       if (row >= sq) continue;
       const float inv = 1.f / l[h];
-      bf16* og = o + (static_cast<size_t>(bh) * sq + row) * D + 2 * quad;
+      bf16* og =
+          o + (static_cast<size_t>(bh) * sq + row) * D + it.dv0 + 2 * quad;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < kDV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
             __floats2bfloat162_rn(acc_o[4 * j + 2 * h] * inv,
                                   acc_o[4 * j + 2 * h + 1] * inv);
-      if (quad == 0) {
+      if (quad == 0 && it.dv0 == 0) {
         const size_t r = static_cast<size_t>(bh) * sq + row;
         lse[r] = m[h] + logf(l[h]);
         m_out[r] = m[h];
@@ -474,7 +499,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_items = bh * ((sq + kBlockQ - 1) / kBlockQ);
+  const int n_items =
+      bh * (D / Tile<D, kBias>::kDV) * ((sq + kBlockQ - 1) / kBlockQ);
   const int grid = min(n_items, sms);
   kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_bias, static_cast<const float*>(bias),
@@ -505,23 +531,25 @@ extern "C" const char* apex_error_string(int code) {
 
 // q (bh, sq, d), k and v (bh, sk, d) bf16, 16-byte aligned; bias (groups,
 // bias_rows, sk) f32 or null; seed one int32 or null (no dropout); o (bh,
-// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32, 64 or 128, groups must
-// divide bh and bias_rows be 1 or sq.  The causal mask is aligned
-// bottom-right.
+// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32, 64, 128 or 256,
+// groups must divide bh and bias_rows be 1 or sq.  The causal mask is
+// aligned bottom-right.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* seed, void* o,
                          void* lse, void* m, void* l, int bh, int sq, int sk,
                          int d, int groups, int bias_rows, float scale,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || (d != 32 && d != 64 && d != 128) ||
-      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
+  if (bh <= 0 || sq <= 0 || sk <= 0 ||
+      (d != 32 && d != 64 && d != 128 && d != 256) || groups <= 0 ||
+      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
   const bool dropout = seed != nullptr;
-  const LaunchFn run = d == 32   ? pick<32>(mode, dropout)
-                       : d == 64 ? pick<64>(mode, dropout)
-                                 : pick<128>(mode, dropout);
+  const LaunchFn run = d == 32    ? pick<32>(mode, dropout)
+                       : d == 64  ? pick<64>(mode, dropout)
+                       : d == 128 ? pick<128>(mode, dropout)
+                                  : pick<256>(mode, dropout);
   return run(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, bh / groups,
              bias_rows, scale, causal, sk - sq, threshold, drop_scale,
              static_cast<cudaStream_t>(stream));

@@ -11,11 +11,11 @@
 //
 // A tile row holds one head's D bf16 values: 128 bytes at D = 64 (swizzled
 // in 128-byte atoms of 8 rows, descriptor layout 1), 64 bytes at D = 32
-// (64-byte atoms of 8 rows, layout 2).  At D = 128 a row is 256 bytes, past
-// the 128-byte atom and past the widest TMA box that swizzle allows, so a
-// tile of R rows is two column blocks of R x 64 values (R x 128 bytes)
-// side by side (TileLayout): a K-major k16 step past column 64 moves to
-// the second block, and an MN-major operand whose N spans both blocks
+// (64-byte atoms of 8 rows, layout 2).  From D = 128 on a row is 256 bytes
+// or more, past the 128-byte atom and past the widest TMA box that swizzle
+// allows, so a tile of R rows is D / 64 column blocks of R x 64 values (R x
+// 128 bytes) side by side (TileLayout): a K-major k16 step past column 64
+// moves to the next block, and an MN-major operand whose N spans two blocks
 // reaches the second one through the descriptor's leading byte offset.
 // TMA and wgmma must agree on the swizzle, and a stage must start on a
 // multiple of the atom (1024 bytes).
@@ -39,7 +39,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // swizzled in kAtomBytes atoms.
 template <int D>
 struct TileLayout {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static_assert(D == 32 || D % 64 == 0, "head dim 32 or a multiple of 64");
   static constexpr int kAtomBytes = D >= 64 ? 128 : 2 * D;
   static constexpr int kBlocks = 2 * D / kAtomBytes;
   static constexpr int kBoxCols = kAtomBytes / 2;
@@ -119,17 +119,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Rows [row, row + kRows) of head `outer` of a (D, rows, outer) tensor map
-// into the tile at `dst`, one box per column block (TileLayout<D>).
+// Rows [row, row + kRows) of head `outer` of a tensor map into the tile
+// of D columns at `dst`, one box per column block (TileLayout<D>), from
+// column `col` of the map on (a slice of a wider head).
 template <int D, int kRows>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int row,
-                                              int outer) {
+                                              int outer, int col = 0) {
   using L = TileLayout<D>;
 #pragma unroll
   for (int c = 0; c < L::kBlocks; ++c)
     tma_load_3d(static_cast<unsigned char*>(dst) + c * kRows * L::kAtomBytes,
-                map, bar, c * L::kBoxCols, row, outer);
+                map, bar, col + c * L::kBoxCols, row, outer);
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -141,8 +142,8 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
 // of a row; for an MN-major (transposed) operand the rows are K and one
 // k16 step is 16 rows.  `lead_bytes` (the leading byte offset) is the
 // distance between the 64-value column blocks along N of an MN-major
-// operand whose N spans two of them (D = 128); where N fits in one row it
-// is never used.
+// operand whose N spans two of them (D >= 128); where N fits in one row
+// it is never used.
 template <int kRowBytes>
 __device__ __forceinline__ uint64_t make_desc(const void* tile,
                                               uint32_t lead_bytes = 16) {

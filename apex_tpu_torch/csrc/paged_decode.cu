@@ -19,13 +19,17 @@
 //           shared memory); the p.v sum then runs with lane d owning head
 //           dims d, d+32, ... so the V rows are read coalesced.  int8 pages multiply by their per
 //           (head, token) f32 scale.  Positions >= length weigh zero.
-//           bf16, f32 and int8 pages; bf16 or f32 queries; any head dim
-//           d <= 128, unpadded (padding would copy the page pool, which is
-//           the KV cache): one instance per multiple of 32 with the head
-//           dim fixed at compile time (K rows read as 16-byte vectors), and
-//           one (kD = 0) for the head dims between them, d read at run
-//           time, K rows element by element and lanes past d masked; the
-//           fused rotate-half RoPE pairs dim i with i + d/2 of the real d.  Not yet used:
+//           bf16, f32 and int8 pages; bf16 or f32 queries; any head dim,
+//           unpadded (padding would copy the page pool, which is the KV
+//           cache): up to 128, one instance per multiple of 32 with the
+//           head dim fixed at compile time (K rows read as 16-byte
+//           vectors), and one (kD = 0) for the head dims between them, d
+//           read at run time, K rows element by element and lanes past d
+//           masked; above 128 one more (kD = -1) loops q.k and p.v over
+//           the head dim in steps of 32 lanes, with q and each warp's
+//           accumulator row in dynamic shared memory (9 * 4 * d bytes, up
+//           to the 227 KB a CTA may take).  The fused rotate-half RoPE
+//           pairs dim i with i + d/2 of the real d.  Not yet used:
 //           splitting a long sequence over several CTAs (later work).
 
 #include <cuda_bf16.h>
@@ -88,7 +92,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// kD: the head dim, a multiple of 32 (d == kD), or 0: any d <= 128.
+// kD: the head dim, a multiple of 32 (d == kD); 0: any d <= 128; -1: any
+// d, q and the accumulators in dynamic shared memory (see Design).
 template <typename QT, typename KVT, int kD>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
@@ -98,13 +103,19 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
                     const float* __restrict__ cos_rows,
                     const float* __restrict__ sin_rows, QT* __restrict__ out,
                     int heads, int d_arg, int page, int np, float scale) {
+  constexpr bool kWide = kD < 0;
   constexpr int kCap = kD > 0 ? kD : 128;
-  constexpr int kDimsPerLane = kCap / 32;
+  constexpr int kDimsPerLane = kWide ? 0 : kCap / 32;
+  constexpr int kFixed = kWide ? 1 : kCap;
   const int d = kD > 0 ? kD : d_arg;
-  __shared__ float qs[kCap];
-  __shared__ float part_o[kWarps][kCap];
+  extern __shared__ float wide_smem[];  // kWide: q (d), then kWarps rows of d
+  __shared__ float qs_fixed[kFixed];
+  __shared__ float part_fixed[kWarps * kFixed];
   __shared__ float part_m[kWarps];
   __shared__ float part_l[kWarps];
+  float* qs = kWide ? wide_smem : qs_fixed;
+  float* part_o = kWide ? wide_smem + d : part_fixed;
+  const int ld = kWide ? d : kCap;  // part_o's row stride
 
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -128,9 +139,13 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
   const int len = lengths[b];
   const int live_pages = min((len + page - 1) / page, np);
   float m = -INFINITY, l = 0.f;
-  float acc[kDimsPerLane];
+  float acc[kDimsPerLane > 0 ? kDimsPerLane : 1];
 #pragma unroll
   for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
+  // kWide: lane t owns dims t, t + 32, ... of its warp's accumulator row
+  float* acc_row = part_o + warp * ld;
+  if constexpr (kWide)
+    for (int dd = lane; dd < d; dd += 32) acc_row[dd] = 0.f;
 
   for (int j = warp; j < live_pages; j += kWarps) {
     const int pid = table[static_cast<size_t>(b) * np + j];
@@ -157,6 +172,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
       l = l * alpha + warp_sum(p);
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) acc[i] *= alpha;
+      if constexpr (kWide)
+        for (int dd = lane; dd < d; dd += 32) acc_row[dd] *= alpha;
       const int nt = min(32, page - t0);
       for (int tt = 0; tt < nt; ++tt) {
         const float pt = __shfl_sync(kFull, p, tt);
@@ -169,6 +186,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
           const int dd = lane + 32 * i;
           if (dd < d) acc[i] += w * to_f(vrow[dd]);
         }
+        if constexpr (kWide)
+          for (int dd = lane; dd < d; dd += 32) acc_row[dd] += w * to_f(vrow[dd]);
       }
       m = m_new;
     }
@@ -179,7 +198,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
     part_l[warp] = l;
   }
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) part_o[warp][lane + 32 * i] = acc[i];
+  for (int i = 0; i < kDimsPerLane; ++i) acc_row[lane + 32 * i] = acc[i];
   __syncthreads();
   for (int i = threadIdx.x; i < d; i += kThreads) {
     float mm = -INFINITY;
@@ -191,7 +210,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
       for (int w = 0; w < kWarps; ++w) {
         const float f = __expf(part_m[w] - mm);
         ll += part_l[w] * f;
-        oo += part_o[w][i] * f;
+        oo += part_o[w * ld + i] * f;
       }
     }
     // an idle slot (length 0) walked no page: the contract is zeros
@@ -206,7 +225,7 @@ int launch_d(int d, dim3 grid, cudaStream_t s, const void* q, const void* kp,
              void* out, int heads, int page, int np, float scale) {
 #define APEX_DECODE_CASE(DIM)                                                 \
   case DIM:                                                                   \
-    paged_decode_kernel<QT, KVT, DIM><<<grid, kThreads, 0, s>>>(              \
+    paged_decode_kernel<QT, KVT, DIM><<<grid, kThreads, smem, s>>>(           \
         static_cast<const QT*>(q), static_cast<const KVT*>(kp),               \
         static_cast<const KVT*>(vp), static_cast<const float*>(ks),           \
         static_cast<const float*>(vs), static_cast<const int*>(table),        \
@@ -214,8 +233,31 @@ int launch_d(int d, dim3 grid, cudaStream_t s, const void* q, const void* kp,
         static_cast<const float*>(sin_rows), static_cast<QT*>(out), heads, d, \
         page, np, scale);                                                     \
     break;
-  if (d <= 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (d % 32 ? 0 : d) {
+  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // above 128: q and kWarps accumulator rows of d floats, in dynamic shared
+  // memory that the wide instance may take up to the card's opt-in limit
+  // less its static shared memory (set once, at its first launch)
+  const size_t smem = d > 128 ? sizeof(float) * (kWarps + 1) * d : 0;
+  if (d > 128) {
+    static const cudaError_t wide = [] {
+      const auto kernel = paged_decode_kernel<QT, KVT, -1>;
+      int dev = 0, optin = 0;
+      cudaFuncAttributes attr;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            optin - static_cast<int>(attr.sharedSizeBytes));
+      return err;
+    }();
+    if (wide != cudaSuccess) return static_cast<int>(wide);
+  }
+  switch (d > 128 ? -1 : d % 32 ? 0 : d) {
+    APEX_DECODE_CASE(-1)
     APEX_DECODE_CASE(0)
     APEX_DECODE_CASE(32)
     APEX_DECODE_CASE(64)
@@ -258,7 +300,8 @@ extern "C" const char* apex_error_string(int code) {
 // q (B, H, D) and out (B, H, D) in q_dtype (0 f32, 1 bf16); k/v pages
 // (P, H, page, D) in kv_dtype (0 f32, 1 bf16, 2 int8, the latter with f32
 // scales (P, H, page)); table (B, NP) and lengths (B,) int32; cos/sin rows
-// (B, D) f32 or null.  Any head dim 1 <= D <= 128; with RoPE, D even.
+// (B, D) f32 or null.  Any head dim D >= 1 whose 9 * 4 * D bytes of
+// shared memory fit a CTA (D <= 6450); with RoPE, D even.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const void* ks, const void* vs, const void* table,
                             const void* lengths, const void* cos_rows,

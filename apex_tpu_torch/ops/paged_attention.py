@@ -9,8 +9,8 @@ sequence against a KV history in the block-pooled paged cache
 - **kernel path** (CUDA tensors): kernel K6 (``csrc/paged_decode.cu``,
   replacing the Pallas ``paged_decode_fwd``) — reads the live pages in
   place through the page table, with the query RoPE and the int8 KV
-  dequant fused, at any head dim up to 128 without padding (padding
-  would copy the page pool, which is the KV cache).
+  dequant fused, at any head dim without padding (padding would copy
+  the page pool, which is the KV cache).
 
 Both share the semantics: positions ``>= lengths[b]`` are masked, an
 idle slot (``lengths[b] == 0``) returns exactly zeros, and RoPE is
@@ -38,8 +38,6 @@ __all__ = [
 KERNEL = "paged_decode"
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-#: the widest head dim K6 is instantiated for
-MAX_HEAD_DIM = 128
 
 
 def paged_decode_attention_reference(
@@ -146,10 +144,8 @@ def paged_decode_fwd(
         rope_sin = rope_sin.float().contiguous()
         if rope_cos.shape != (b, d) or rope_sin.shape != (b, d):
             raise ValueError("rope_cos/rope_sin must be (B, D)")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d} is not ported to the card yet (K6 takes 1..."
-            f"{MAX_HEAD_DIM}; ROADMAP C1)")
+    if d < 1:
+        raise ValueError(f"head dim must be positive, got {d}")
     if has_rope and d % 2:
         raise ValueError(f"the rotate-half RoPE needs an even head dim, got {d}")
     tensors = [q, k_pages, v_pages, page_table, lengths] + (

@@ -27,10 +27,12 @@ a CUDA device it exits non-zero at once and prints no result.
    (the bias gradient) at the evoformer's two biased shapes and in every
    (G, RS) layout, causal and not, Sq != Sk both ways, ragged, with
    dropout, D = 32 and 64; K3 and K4 at D = 32, the triangle shape
-   with its G = BH bias included.  K3, K4 and K5 at D = 128 in every
-   bias mode and with dropout, at D = 48 and 96 (padded by the wrappers
-   to 64 and 128), and their f32 instances at D 64, 96 and the triangle
-   shape; K6 at D 80, 96 and 128 (int8 and bf16 pages, RoPE); K1 and K2
+   with its G = BH bias included.  K3, K4 and K5 at D = 128 and 256 in
+   every bias mode and with dropout, at D = 48, 96 and 160 (padded by the
+   wrappers to 64, 128 and 256), and their f32 instances at D 32, 64, 96,
+   192 and the evoformer's triangle, MSA row and MSA column shapes, each
+   beside a TF32 control that must fail the f32 limit; K6 at D 80, 96,
+   128, 160, 192 and 256 (int8 and bf16 pages, RoPE); K1 and K2
    also at widths 1001 (rows off 16-byte boundaries), 130 f32, 12288
    (streamed), 64 and 33 (several rows a warp).
 2. The serving slice: ``GptConfig()`` at full width (bf16, seeded random
@@ -47,8 +49,9 @@ a CUDA device it exits non-zero at once and prints no result.
 4. Timing at the main-path shapes (training, BERT, the evoformer's
    triangle, MSA row and MSA column attention, and serving), and K1/K2
    at the evoformer's f32 rows, K3/K4 at the reference's long-context
-   shape (BH 8, S 16384, D 128, causal) and the f32 instances of K3-K5
-   at the triangle shape: each kernel,
+   shape (BH 8, S 16384, D 128, causal) and at D = 256 (BH 32, S 2048,
+   causal), and the f32 instances of K3-K5 at the triangle, MSA row and
+   MSA column shapes: each kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
@@ -82,9 +85,10 @@ a CUDA device it exits non-zero at once and prints no result.
     (OpenFold's c_m 256, c_z 128, 4 heads) on N_seq 128 x N_res 256,
     MSE to seeded targets, FusedAdam, 8 steps; exact K1-K5 counts,
     losses finite and falling; step time, analytic MFU, peak memory and
-    one profiled step by layer.  Then one block with f32 attention (the
-    JAX module's precision) for 3 steps: exact counts of K1, K2 and the
-    f32 instances of K3-K5, losses falling, step time.
+    one profiled step by layer.  Then the same 4 blocks with f32
+    attention (the JAX module's precision) for 8 steps: exact counts of
+    K1, K2 and the f32 instances of K3-K5, losses falling, step time and
+    one profiled step by layer.
 11. Evoformer cross-check: one full-width block at N_res 64, N_seq 32 —
     the loss, every gradient and the weights after one FusedAdam step,
     card (bf16 attention) against CPU (f32), and a planted fault (K5's
@@ -94,6 +98,14 @@ The phases run in the order 1, 2, 3, 6, 7, 8, 9, 10, 11, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
+
+    python3 chip_smoke.py --f32-attention
+
+times only the f32 instances of K3-K5 (phase 4's rows at the evoformer's
+three shapes) and runs phase 10's f32 training, and prints them as one
+JSON line: copied beside another tree's ``apex_tpu_torch`` it times that
+tree's kernels with this script's timing code, for a comparison of two
+commits.
 """
 
 import dataclasses
@@ -109,6 +121,7 @@ import numpy as np
 #: published H100 SXM peaks (NVIDIA data sheet, dense): the bound_ms basis
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 #: bf16 output tolerance of a kernel against its plain version: the two
@@ -393,9 +406,9 @@ def phase1_paged(gen):
     main_err = None
     # the decode batch, int8 pages, f32 pages, then head dims past the
     # main path's 64, all with the fused RoPE: 96 and 128 with int8 pages
-    # and bf16 pages (whole 16-byte vectors per K row), and 80 and 48,
+    # and bf16 pages (whole 16-byte vectors per K row), 80 and 48,
     # which are no multiple of 32 (one element per load, lanes past d
-    # masked)
+    # masked), and 256, 192 and 160, past 128
     cases = (
         ("bf16", dict(b=8, h=16, d=64, page=16, np_=128, pool=1025,
                       lengths=MAIN_LENGTHS)),
@@ -413,6 +426,13 @@ def phase1_paged(gen):
                       lengths=[0, 1, 100, 128])),
         ("f32", dict(b=3, h=4, d=48, page=8, np_=3, pool=12,
                      lengths=[17, 9, 0])),
+        # above 128: q and the accumulators in shared memory
+        ("int8", dict(b=8, h=8, d=256, page=16, np_=128, pool=1025,
+                      lengths=MAIN_LENGTHS)),
+        ("int8", dict(b=4, h=4, d=192, page=16, np_=8, pool=33,
+                      lengths=[0, 1, 100, 128])),
+        ("bf16", dict(b=4, h=4, d=160, page=16, np_=8, pool=33,
+                      lengths=[0, 1, 100, 128])),
     )
     for kv, shape in cases:
         args = paged_inputs(**shape, gen=gen, kv=kv)
@@ -870,6 +890,13 @@ HEAD_DIM_CASES = (
     ("D=96 (padded to 128) G=BH RS=Sq + dropout 0.1", 8, 136, 200, 96,
      False, (8, 136), 0.1),
     ("D=96 (padded to 128)", 4, 1000, 1000, 96, True, None, 0.0),
+    ("D=256 causal", 8, 512, 512, 256, True, None, 0.0),
+    ("D=256 G=BH RS=Sq + dropout 0.1", 8, 256, 256, 256, False, (8, 256),
+     0.1),
+    ("D=256 G=B RS=1 + dropout 0.1", 8, 200, 136, 256, True, (2, 1), 0.1),
+    ("D=256 G=B RS=Sq, Sk % 4 != 0", 8, 130, 37, 256, True, (2, 130), 0.0),
+    ("D=160 (padded to 256) G=BH RS=Sq", 8, 200, 200, 160, True, (8, 200),
+     0.0),
 )
 F32_CASES = (
     ("f32 D=64", 8, 256, 256, 64, True, None, 0.0),
@@ -879,9 +906,19 @@ F32_CASES = (
     ("f32 D=96 G=BH RS=Sq + dropout 0.1", 8, 200, 72, 96, True, (8, 200),
      0.1),
     ("f32 D=96 G=1 RS=1", 8, 72, 200, 96, False, (1, 1), 0.0),
+    ("f32 D=32 + dropout 0.1", 8, 200, 200, 32, True, None, 0.1),
+    ("f32 D=64 G=B RS=Sq, Sk % 4 != 0", 8, 130, 37, 64, True, (2, 130), 0.0),
+    ("f32 D=192 (padded to 256) G=BH RS=Sq", 4, 136, 200, 192, False,
+     (4, 136), 0.0),
+    ("f32 D=192 (padded to 256) G=B RS=1 + dropout 0.1", 4, 200, 136, 192,
+     True, (2, 1), 0.1),
     ("f32 triangle D=32 G=BH RS=Sq", TRIANGLE_SHAPE[0], TRIANGLE_SHAPE[1],
      TRIANGLE_SHAPE[1], 32, False, (TRIANGLE_SHAPE[0], TRIANGLE_SHAPE[1]),
      0.0),
+    ("f32 MSA row D=64 G=BH RS=Sq", MSA_ROW_SHAPE[0], MSA_ROW_SHAPE[1],
+     MSA_ROW_SHAPE[1], 64, False, (MSA_ROW_SHAPE[0], MSA_ROW_SHAPE[1]), 0.0),
+    ("f32 MSA column D=64 no bias", MSA_COL_SHAPE[0], MSA_COL_SHAPE[1],
+     MSA_COL_SHAPE[1], 64, False, None, 0.0),
 )
 
 
@@ -921,17 +958,19 @@ def f32_control(tag, names, ref, bad):
 def phase1_head_dims(gen):
     """K3, K4 and K5 at the head dims past the main paths' 32 and 64, and
     their f32 instances, against the twins on the same inputs and seed
-    (m, l from the twin's forward).  bf16 (``HEAD_DIM_CASES``): D = 128,
-    the kernels' own instance, with every bias mode (TMA tiles, the
-    key-padding row, a row stride TMA cannot map) and dropout, and D = 48
-    and 96, which the wrappers pad to 64 and 128; K3 under BF16_TOL and
-    F32_TOL, K4 under K4_TOL, K5 under K5_TOL, and the D = 128 causal
-    case run twice for the same bits.  f32 (``F32_CASES``, q, k, v and dO
-    drawn in full f32): D 64 and 96, with and without a bias, causal and
-    not, with dropout, and the triangle shape; o, lse, m, l, dq, dk, dv
-    and dbias under F32_ATTN_TOL, and each kernel's TF32 control
-    (:func:`f32_control`) failing it.  Returns the first D = 128 case's and the first f32 case's
-    errors for the kernels line."""
+    (m, l from the twin's forward).  bf16 (``HEAD_DIM_CASES``): D = 128
+    and 256, the kernels' own instances, with every bias mode (TMA tiles,
+    the key-padding row, a row stride TMA cannot map) and dropout, and D
+    = 48, 96 and 160, which the wrappers pad to 64, 128 and 256; K3 under
+    BF16_TOL and F32_TOL, K4 under K4_TOL, K5 under K5_TOL, and the D =
+    128 causal case run twice for the same bits.  f32 (``F32_CASES``, q,
+    k, v and dO drawn in full f32): D 32, 64, 96 and 192, with and
+    without a bias, causal and not, with dropout, a bias whose S_k is no
+    multiple of 4, and the evoformer's three shapes (triangle, MSA row,
+    MSA column) at full size, which phase 10's f32 run gives them; o, lse,
+    m, l, dq, dk, dv and dbias under F32_ATTN_TOL, and each kernel's TF32
+    control (:func:`f32_control`) failing it.  Returns the first D = 128
+    case's and the first f32 case's errors for the kernels line."""
     import torch
 
     from apex_tpu_torch.ops import attention as attn
@@ -1335,27 +1374,27 @@ def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
     return fwd, bwd
 
 
-def _time_attn(gen, flush, bh, s, *, with_bwd):
-    """K3 (and K4) at q/k/v (bh, s, 64) causal bf16, beside the plain
-    versions and SDPA (``is_causal``; its backward timed on its own),
-    with the bounds: 2 products of 2*D flops per live pair forward, 5
-    backward (the recompute, dO V^T, P^T dO, dS K, dS^T Q)."""
+def _time_attn(gen, flush, bh, s, *, with_bwd, d=64):
+    """K3 (and K4) at q/k/v (bh, s, d) causal bf16, scale 1/sqrt(d),
+    beside the plain versions and SDPA (``is_causal``; its backward timed
+    on its own), with the bounds: 2 products of 2*D flops per live pair
+    forward, 5 backward (the recompute, dO V^T, P^T dO, dS K, dS^T Q)."""
     import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as attn
 
-    d = 64
+    scale = d ** -0.5
     q, k, v = attn_inputs(bh, s, s, d, gen)
     live = bh * _attn_live_pairs(s)
     elems = bh * s * d
     fwd = dict(
-        ms=time_ms(lambda: attn.flash_fwd(q, k, v, scale=0.125, causal=True),
+        ms=time_ms(lambda: attn.flash_fwd(q, k, v, scale=scale, causal=True),
                    flush=flush),
         plain_ms=time_ms(lambda: attn.flash_fwd_reference(
-            q, k, v, causal=True, scale=0.125), flush=flush),
+            q, k, v, causal=True, scale=scale), flush=flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True, scale=0.125),
+            q[None], k[None], v[None], is_causal=True, scale=scale),
             flush=flush),
     )
     fwd["bound_ms"], fwd["bound_by"] = bound(
@@ -1363,19 +1402,19 @@ def _time_attn(gen, flush, bh, s, *, with_bwd):
     if not with_bwd:
         return fwd, None
     do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
-    o, _, m, l = attn.flash_fwd(q, k, v, scale=0.125, causal=True)
+    o, _, m, l = attn.flash_fwd(q, k, v, scale=scale, causal=True)
     delta = (do.float() * o.float()).sum(-1)
     qr, kr, vr = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
-                                           scale=0.125)
+                                           scale=scale)
     bwd = dict(
         ms=time_ms(lambda: attn.flash_bwd(q, k, v, do, m, l, delta,
-                                          scale=0.125, causal=True),
+                                          scale=scale, causal=True),
                    flush=flush),
         # the f32 twin materialises five (BH, S, S) f32 score-sized
         # tensors (~10 GB here): fewer runs
         plain_ms=time_ms(lambda: attn.flash_bwd_reference(
-            q, k, v, do, m, l, delta, scale=0.125, causal=True),
+            q, k, v, do, m, l, delta, scale=scale, causal=True),
             iters=5, warmup=1, flush=flush),
         library_ms=time_ms(lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), do[None], retain_graph=True), flush=flush),
@@ -1388,6 +1427,8 @@ def _time_attn(gen, flush, bh, s, *, with_bwd):
 #: the reference's long-context benchmark (``bench.py``'s long-context
 #: config: B 1, H 8, S 16384, D 128, causal)
 LONG_BH, LONG_S, LONG_D = 8, 16384, 128
+#: phase 4's head dim past 128 (B 4, H 8, S 2048, D 256, causal)
+WIDE_BH, WIDE_S, WIDE_D = 32, 2048, 256
 
 
 def _time_attn_long(gen, flush):
@@ -1522,8 +1563,10 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
     flops per pair forward, 5 backward, 2 for K5's recompute.  Without
     ``with_bias`` (MSA column attention) only K3 and K4 run, and SDPA
     without a mask.  With ``dtype="f32"`` q, k, v, dO, the SDPA mask and
-    SDPA run in f32, the bytes count 4 per element and the operations
-    the f32 peak (the f32 instances run on the CUDA cores)."""
+    SDPA run in f32 and the bytes count 4 per element; K3's and K4's f32
+    instances count three TF32 products per product against the TF32
+    tensor-core peak (3xTF32), K5's f32 instance its products against
+    the f32 peak of the CUDA cores."""
     import torch
     import torch.nn.functional as F
 
@@ -1535,7 +1578,9 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
     if dtype == "f32":
         q, k, v = (t.float() for t in (q, k, v))
     elem = q.element_size()
-    peak = F32_FLOPS if dtype == "f32" else BF16_TENSOR_FLOPS
+    # K3/K4: (product multiplier, peak); K5 on the CUDA cores in f32
+    k34 = (3, TF32_TENSOR_FLOPS) if dtype == "f32" else (1, BF16_TENSOR_FLOPS)
+    k5_peak = F32_FLOPS if dtype == "f32" else BF16_TENSOR_FLOPS
     bias = (torch.randn(bh, s, s, generator=gen, device="cuda") if with_bias
             else None)
     kw = dict(scale=scale, causal=False)
@@ -1571,7 +1616,8 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
                 q4, k4, v4, attn_mask=mask4, scale=scale)),
         )
         rows["flash_fwd"]["bound_ms"], rows["flash_fwd"]["bound_by"] = bound(
-            4 * elems * elem + stats + bias_bytes, 4 * d * pairs, peak)
+            4 * elems * elem + stats + bias_bytes, k34[0] * 4 * d * pairs,
+            k34[1])
         qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
         o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask4,
                                                scale=scale)
@@ -1584,7 +1630,8 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
                 retain_graph=True)),
         )
         rows["flash_bwd"]["bound_ms"], rows["flash_bwd"]["bound_by"] = bound(
-            7 * elems * elem + stats + bias_bytes, 10 * d * pairs, peak)
+            7 * elems * elem + stats + bias_bytes, k34[0] * 10 * d * pairs,
+            k34[1])
         del o_lib
     if bias is None:
         return rows
@@ -1612,8 +1659,31 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
         k4_plus_k5_ms=k4_ms + k5_ms,
     )
     rows["flash_dbias"]["bound_ms"], rows["flash_dbias"]["bound_by"] = bound(
-        4 * elems * elem + stats + 2 * bias_bytes, 4 * d * pairs, peak)
+        4 * elems * elem + stats + 2 * bias_bytes, 4 * d * pairs, k5_peak)
     return rows
+
+
+def _time_f32_attention(gen, flush):
+    """The f32 instances of K3, K4 and K5 at the evoformer's three shapes,
+    those of phase 10's f32 run (:func:`_time_evo_attention` with
+    ``dtype="f32"``): {kernel: {"triangle_shape" | "msa_row_shape" |
+    "msa_col_shape": row}}; MSA column attention has no bias and no K5."""
+    import torch
+
+    out = {}
+    for tag, (bh, s, d), with_bias, what in (
+            ("triangle_shape", TRIANGLE_SHAPE, True, "triangle attention"),
+            ("msa_row_shape", MSA_ROW_SHAPE, True, "MSA row attention"),
+            ("msa_col_shape", MSA_COL_SHAPE, False, "MSA column attention")):
+        timed = _time_evo_attention(gen, flush, bh, s, d, with_k34=True,
+                                    with_bias=with_bias, dtype="f32")
+        shape = (f"BH={bh} S={s} D={d} non-causal f32, "
+                 + (f"bias ({bh}, {s}, {s}) f32" if with_bias else "no bias")
+                 + f" ({what})")
+        for name, row in timed.items():
+            out.setdefault(name + "_f32", {})[tag] = dict(row, shape=shape)
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase4(gen, launches, errs):
@@ -1627,7 +1697,8 @@ def phase4(gen, launches, errs):
     and K4 at the MSA column shape).  Beside them: K1 and K2 at the
     evoformer's f32 rows (pair (65536, 128), MSA (32768, 256)), K3 and K4
     at the reference's long-context shape (BH 8, S 16384, D 128, causal)
-    and the f32 instances of K3, K4 and K5 at the triangle shape (the
+    and at D = 256 (BH 32, S 2048, causal), and the f32 instances of K3,
+    K4 and K5 at the triangle, MSA row and MSA column shapes (the
     f32-attention run of phase 10).  ``launches`` maps kernel -> {path:
     count} from the phase-2, -6, -8 and -10 runs."""
     import torch
@@ -1702,11 +1773,16 @@ def phase4(gen, launches, errs):
     extra["flash_bwd"]["long_context_shape"] = dict(
         long_bwd, shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
-    f32 = _time_evo_attention(gen, flush, tri_bh, tri_s, tri_d,
-                              with_k34=True, dtype="f32")
-    shape = tri_shape.replace("bf16", "f32")
-    for name in ("flash_fwd", "flash_bwd", "flash_dbias"):
-        rows[name + "_f32"] = dict(f32[name], shape=shape)
+    for name, by_shape in _time_f32_attention(gen, flush).items():
+        rows[name] = by_shape.pop("triangle_shape")
+        extra.setdefault(name, {}).update(by_shape)
+    # a head dim past 128, which no model of either package runs
+    wide_fwd, wide_bwd = _time_attn(gen, flush, WIDE_BH, WIDE_S,
+                                    with_bwd=True, d=WIDE_D)
+    shape = f"BH={WIDE_BH} S={WIDE_S} D={WIDE_D} causal bf16 (no model path)"
+    extra["flash_fwd"]["d256_shape"] = dict(wide_fwd, shape=shape)
+    extra["flash_bwd"]["d256_shape"] = dict(wide_bwd,
+                                            shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
 
     serving = {}
@@ -1794,6 +1870,7 @@ def phase4(gen, launches, errs):
                        (" (MSA row)", entry.get("msa_row_shape")),
                        (" (MSA column)", entry.get("msa_col_shape")),
                        (" (long context)", entry.get("long_context_shape")),
+                       (" (D = 256)", entry.get("d256_shape")),
                        (" (evoformer pair)", entry.get("evo_pair_shape")),
                        (" (evoformer MSA)", entry.get("evo_msa_shape"))):
             if r is None:
@@ -1832,6 +1909,10 @@ KERNEL_GROUPS = (
     ("K3 flash_fwd", ("flash_fwd_kernel",)),
     ("K4 flash_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
     ("K5 flash_dbias", ("flash_dbias_kernel",)),
+    ("K3 flash_fwd_f32", ("flash_fwd_f32_kernel",)),
+    ("K4 flash_bwd_f32", ("flash_bwd_dkdv_f32_kernel",
+                          "flash_bwd_dq_f32_kernel")),
+    ("K5 flash_dbias_f32", ("flash_dbias_f32_kernel",)),
     ("K1 layer_norm_fwd", ("ln_fwd_kernel",)),
     ("K2 layer_norm_bwd", ("ln_bwd_kernel",)),
     ("cuBLAS GEMMs", ("nvjet", "gemm", "xmma", "cutlass")),
@@ -2485,6 +2566,42 @@ def evoformer_loss(blocks, m, z, tm, tz):
     return (m - tm).pow(2).mean() + (z - tz).pow(2).mean()
 
 
+def profiled_step(step, step_s):
+    """One ``step()`` under ``torch.profiler``: its host time, the device
+    kernels' time by layer (``KERNEL_GROUPS``) and the top kernels, and
+    the kernels' share of the unprofiled median step ``step_s``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = sorted(device_kernels(prof), key=lambda o: -o[1])
+    busy_ms = sum(o[1] for o in ops) / 1e3
+    groups = group_kernels(ops)
+    log(f"  profiled step: {wall * 1e3:.1f} ms host, {busy_ms:.1f} ms of "
+        f"device kernels ({busy_ms / (wall * 1e3):.3f} busy; "
+        f"{busy_ms / (step_s * 1e3):.3f} of the unprofiled median step), "
+        f"{sum(o[2] for o in ops)} kernel launches")
+    log("  device ms by layer: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in groups.items()))
+    top = []
+    for key, us, count in ops[:15]:
+        log(f"    {us / 1e3:9.3f} ms  {count:5d}x  {key[:100]}")
+        top.append({"op": key[:100], "ms": us / 1e3, "count": count})
+    return {
+        "device_busy_share_unprofiled": busy_ms / (step_s * 1e3),
+        "profiled_step_ms": wall * 1e3,
+        "profiled_device_ms": busy_ms,
+        "device_ms_by_layer": groups,
+        "top_device_ops": top,
+    }
+
+
 def phase10():
     """4 full-width ``EvoformerBlock``s chained (the JAX package has no
     stack module, so the script chains them) at N_seq 128, N_res 256,
@@ -2496,7 +2613,6 @@ def phase10():
     step time, the analytic MFU, peak memory, then one profiled step by
     layer."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.optimizers import FusedAdam
@@ -2551,28 +2667,7 @@ def phase10():
         f"step time / 989 TFLOP/s; N={n_params}; peak memory "
         f"{peak / 1e9:.2f} GB")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ops = sorted(device_kernels(prof), key=lambda o: -o[1])
-    busy_ms = sum(o[1] for o in ops) / 1e3
-    groups = group_kernels(ops)
-    log(f"  profiled step: {wall * 1e3:.1f} ms host, {busy_ms:.1f} ms of "
-        f"device kernels ({busy_ms / (wall * 1e3):.3f} busy; "
-        f"{busy_ms / (step_s * 1e3):.3f} of the unprofiled median step), "
-        f"{sum(o[2] for o in ops)} kernel launches")
-    log("  device ms by layer: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in groups.items()))
-    top = []
-    for key, us, count in ops[:15]:
-        log(f"    {us / 1e3:9.3f} ms  {count:5d}x  {key[:100]}")
-        top.append({"op": key[:100], "ms": us / 1e3, "count": count})
     out = {
-        "device_busy_share_unprofiled": busy_ms / (step_s * 1e3),
         "losses": losses,
         "step_seconds": seconds,
         "step_ms_median": step_s * 1e3,
@@ -2580,21 +2675,18 @@ def phase10():
         "flops_per_step": flops,
         "mfu": mfu,
         "peak_memory_bytes": peak,
-        "profiled_step_ms": wall * 1e3,
-        "profiled_device_ms": busy_ms,
-        "device_ms_by_layer": groups,
-        "top_device_ops": top,
+        **profiled_step(step, step_s),
     }
     del blocks, opt, m, z, tm, tz
     torch.cuda.empty_cache()
     return launches, out
 
 
-#: phase 10's second run: the same block with f32 attention (the JAX
-#: module's precision), through the f32 instances of K3, K4 and K5; one
-#: block and 3 steps (depth and steps cut for the phase's time)
-EVO_F32_BLOCKS = 1
-EVO_F32_STEPS = 3
+#: phase 10's second run: the same blocks with f32 attention (the JAX
+#: module's precision), through the f32 instances of K3, K4 and K5; 4
+#: blocks and 8 steps, as the bf16 run
+EVO_F32_BLOCKS = 4
+EVO_F32_STEPS = 8
 EVO_F32_BLOCK_LAUNCHES = {"layer_norm_fwd": 12, "layer_norm_bwd": 12,
                           "flash_fwd_f32": 4, "flash_bwd_f32": 4,
                           "flash_dbias_f32": 3}
@@ -2607,7 +2699,8 @@ def phase10_f32():
     steps, with the launch counters zeroed before and read after: K1, K2
     and the f32 instances of K3, K4 and K5 must have launched exactly
     ``EVO_F32_BLOCK_LAUNCHES`` x blocks x steps, every op on the kernel
-    path; losses finite and falling; the median step time."""
+    path; losses finite and falling; the median step time, then one
+    profiled step by layer."""
     import torch
 
     from apex_tpu_torch.ops import _dispatch
@@ -2621,19 +2714,24 @@ def phase10_f32():
     blocks = evoformer_stack(EVO_F32_BLOCKS, "cuda", gen, torch.float32)
     m, z, tm, tz = evoformer_data(EVO_SEQ, EVO_RES, "cuda", seed=24)
     opt = FusedAdam(blocks.parameters(), lr=EVO_LR)
+
+    def step():
+        loss = evoformer_loss(blocks, m, z, tm, tz)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
     torch.cuda.synchronize()
     _dispatch.reset_launches()
     _dispatch.clear_paths()
     losses, seconds = [], []
     for _ in range(EVO_F32_STEPS):
         t0 = time.perf_counter()
-        loss = evoformer_loss(blocks, m, z, tm, tz)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        loss = step()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        losses.append(float(loss.detach()))
+        losses.append(float(loss))
     launches = _dispatch.launches()
     paths = _dispatch.last_paths()
     want = {k: n * EVO_F32_BLOCKS * EVO_F32_STEPS
@@ -2646,14 +2744,16 @@ def phase10_f32():
         raise AssertionError(f"f32 evoformer op paths {paths}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
-    step_ms = statistics.median(seconds[1:]) * 1e3
+    step_s = statistics.median(seconds[1:])
     log(f"  losses {[round(x, 5) for x in losses]}; step seconds "
         f"{[round(x, 4) for x in seconds]}; median of steps 1.. "
-        f"{step_ms:.1f} ms")
+        f"{step_s * 1e3:.1f} ms")
+    out = {"losses": losses, "step_seconds": seconds,
+           "step_ms_median": step_s * 1e3, "blocks": EVO_F32_BLOCKS,
+           **profiled_step(step, step_s)}
     del blocks, opt, m, z, tm, tz
     torch.cuda.empty_cache()
-    return launches, {"losses": losses, "step_seconds": seconds,
-                      "step_ms_median": step_ms, "blocks": EVO_F32_BLOCKS}
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2850,7 +2950,15 @@ def ptxas_summary(text, nvcc):
 
 
 def main():
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--f32-attention", action="store_true",
+                        help="time only the f32 instances of K3-K5 and "
+                        "phase 10's f32 run")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -2873,6 +2981,17 @@ def main():
             log(f"  [{name}] {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.f32_attention:
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        rows = _time_f32_attention(gen, flush)
+        for name, by_shape in rows.items():
+            for tag, r in by_shape.items():
+                log(f"  {name} ({tag}): kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+        _, run = phase10_f32()
+        print(json.dumps({"f32_attention": rows,
+                          "evoformer_f32_attention": run}), flush=True)
+        return
     errs = phase1(gen)
     errs.update(phase1_flash_dbias(gen))
     serve_launches, rates, engine = phase2()

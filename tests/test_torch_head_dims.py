@@ -1,26 +1,31 @@
-"""apex_tpu_torch at every head dim up to 128 and on f32 q/k/v, against
-the JAX package, and the launch plan of the redesigned K1/K2.
+"""apex_tpu_torch at every head dim and on f32 q/k/v, against the JAX
+package, and the launch plan of the redesigned K1/K2.
 
-- The card pads a head dim that has no kernel instance (48, 96) to the
-  next one (64, 128) and slices the outputs back; D = 128 has its own
-  instance.  Here that composition — ``kernel_head_dim``, the wrappers'
-  own padding helper, the plain twins at the padded D, the slice — is
-  held against ``apex_tpu.ops.attention.flash_attention`` on its Pallas
-  kernels in interpret mode (which pads D its own way) at D = 48, 96 and
-  128: o, and dq, dk, dv and a trainable bias's gradient through
-  ``jax.vjp``.  Tolerance 2e-5, as ``test_torch_attention.py``: the
-  Pallas kernels take an online softmax over key blocks, the twins one
-  softmax over the row.
+- The card pads a head dim that has no kernel instance (48, 96, 160) to
+  the next one (64, 128, 256) and slices the outputs back; D = 128 and
+  256 have their own instances.  Here that composition —
+  ``kernel_head_dim``, the wrappers' own padding helper, the plain twins
+  at the padded D, the slice — is held against
+  ``apex_tpu.ops.attention.flash_attention`` on its Pallas kernels in
+  interpret mode (which pads D its own way: above 128 to a multiple of
+  128) at D = 48, 96, 128, 160 and 256: o, and dq, dk, dv and a
+  trainable bias's gradient through ``jax.vjp``.  Tolerance 2e-5, as
+  ``test_torch_attention.py``: the Pallas kernels take an online softmax
+  over key blocks, the twins one softmax over the row.
+- The port's public ``flash_attention`` at D = 160 and 256 (its autograd
+  over the twins on the CPU), with and without a trainable bias, against
+  ``jax.vjp`` of the JAX function on the Pallas kernels; TOL.
 - f32 q/k/v: the port's autograd on f32 inputs (its twins on the CPU,
   the f32 kernel instances on the card) against the JAX function at f32
   (the Pallas dots at ``Precision.HIGHEST``), with a trainable bias and
   with dropout at the same int32 seed, D 64 and 96; TOL.
 - The wrappers' route on the card, with the launch stood in for: bf16 to
   K3/K4/K5, f32 to their f32 instances, the padded head dim in the C
-  arguments; mixed dtypes and D > 128 raise, naming the gap.
-- K6's twin at D 96 and 128 (no padding: K6 takes any D <= 128) with the
-  fused RoPE and int8 pages against the JAX paged decode in interpret
-  mode; tolerance 2e-6, as ``test_torch_paged_attention.py``.
+  arguments; mixed dtypes and D > 256 (no instance yet) raise, naming
+  the gap.
+- K6's twin at D 96, 128, 192 and 256 (no padding: K6 takes any D) with
+  the fused RoPE and int8 pages against the JAX paged decode in
+  interpret mode; tolerance 2e-6, as ``test_torch_paged_attention.py``.
 - ``norm_launch_plan`` (K1/K2): the load width, the one-element loads of
   misaligned or odd rows, the lanes per row, the persistent grid and
   K2's partial rows.
@@ -107,13 +112,14 @@ def _padded_attention(q, k, v, do, bias, *, causal, scale):
             dbias)
 
 
-@pytest.mark.parametrize("d,padded", [(48, 64), (96, 128), (128, 128)])
+@pytest.mark.parametrize("d,padded", [(48, 64), (96, 128), (128, 128),
+                                      (160, 256), (256, 256)])
 @pytest.mark.parametrize("causal,with_bias", [(True, False), (False, True)])
 def test_padded_head_dims_match_jax_pallas(force_pallas, d, padded, causal,
                                            with_bias):
-    """D = 48 and 96 padded to the next instance, D = 128 at its own:
-    the forward and every gradient (a (B, H, S, S) trainable bias's
-    included) against ``jax.vjp`` of the Pallas path."""
+    """D = 48, 96 and 160 padded to the next instance, D = 128 and 256 at
+    their own: the forward and every gradient (a (B, H, S, S) trainable
+    bias's included) against ``jax.vjp`` of the Pallas path."""
     b, h, s = 1, 2, 72
     q, k, v, do = (_rand((b, h, s, d), seed) for seed in (1, 2, 3, 4))
     bias = _rand((b, h, s, s), 5) if with_bias else None
@@ -153,15 +159,47 @@ def test_instance_head_dims_are_not_copied():
 
 @pytest.mark.parametrize("d,want", [(1, 32), (32, 32), (33, 64), (48, 64),
                                     (64, 64), (65, 128), (96, 128),
-                                    (128, 128)])
+                                    (128, 128), (129, 256), (160, 256),
+                                    (192, 256), (256, 256)])
 def test_kernel_head_dim(d, want):
     assert port_attn.kernel_head_dim(d) == want
 
 
-@pytest.mark.parametrize("d", [0, 129, 256])
+@pytest.mark.parametrize("d", [0, 257, 384])
 def test_kernel_head_dim_refuses_what_is_not_ported(d):
+    """D = 0 is no head dim; above 256 the card has no instance yet (the
+    plain twins, and so every entry point on the CPU, take any D)."""
     with pytest.raises(ValueError, match="ROADMAP C1" if d else "positive"):
         port_attn.kernel_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_wide_head_dims_match_jax(force_pallas, d, with_bias):
+    """``flash_attention`` at D = 160 and 256 on the CPU (the port's
+    autograd over the twins), causal without a bias and non-causal with
+    a trainable (B, H, S, S) one: o and every gradient against
+    ``jax.vjp`` of the JAX function on its Pallas kernels; TOL."""
+    b, h, s = 1, 2, 40
+    q, k, v, do = (_rand((b, h, s, d), seed) for seed in (61, 62, 63, 64))
+    bias = _rand((b, h, s, s), 65)
+    kw = dict(causal=not with_bias, scale=d ** -0.5)
+    arrays = (q, k, v) + ((bias,) if with_bias else ())
+    if with_bias:
+        fn_j = lambda a, b_, c, e: jax_attn.flash_attention(  # noqa: E731
+            a, b_, c, e, bias_grad=True, **kw)
+    else:
+        fn_j = lambda a, b_, c: jax_attn.flash_attention(  # noqa: E731
+            a, b_, c, **kw)
+    out_j, vjp = jax.vjp(fn_j, *(jnp.asarray(t) for t in arrays))
+    grads_j = vjp(jnp.asarray(do))
+    assert jax_dispatch.last_paths()["flash_attention"] == "pallas"
+    ts = [torch.from_numpy(t).requires_grad_() for t in arrays]
+    out = port_attn.flash_attention(*ts, bias_grad=with_bias, **kw)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), **TOL)
+    for t, want in zip(ts, grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +262,7 @@ def fake_card(monkeypatch):
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""),
                                           (torch.float32, "_f32")])
 @pytest.mark.parametrize("d,padded", [(32, 32), (48, 64), (96, 128),
-                                      (128, 128)])
+                                      (128, 128), (160, 256), (256, 256)])
 def test_wrappers_route_by_dtype_and_pad(fake_card, dtype, suffix, d, padded):
     bh, s = 2, 16
     q = torch.zeros(bh, s, d, dtype=dtype)
@@ -249,15 +287,16 @@ def test_wrappers_refuse_mixed_dtypes_and_wide_heads(fake_card):
     with pytest.raises(TypeError, match="one dtype"):
         port_attn.flash_fwd(a.half(), a.half(), a.half(), scale=0.125,
                             causal=False)
-    wide = torch.zeros(2, 16, 160, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 16, 320, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ROADMAP C1"):
         port_attn.flash_fwd(wide, wide, wide, scale=0.125, causal=False)
     assert fake_card == []
 
 
 def test_paged_decode_takes_any_head_dim_up_to_128(monkeypatch):
-    """K6's wrapper passes D through unpadded and refuses D > 128 and an
-    odd D with the rotate-half RoPE."""
+    """K6's wrapper passes any D through unpadded, up to 128 and past it
+    (the kernel's wide instance), and refuses an odd D with the
+    rotate-half RoPE."""
     from apex_tpu_torch.ops import paged_attention as pa
 
     calls = []
@@ -265,17 +304,13 @@ def test_paged_decode_takes_any_head_dim_up_to_128(monkeypatch):
     monkeypatch.setattr(_dispatch, "launch",
                         lambda kernel, argtypes, device, *args:
                         calls.append(args[12]))
-    for d in (40, 96, 128):
+    for d in (40, 96, 128, 160, 256):
         pages = torch.zeros(4, 2, 16, d)
         table = torch.zeros(1, 2, dtype=torch.int32)
         lengths = torch.ones(1, dtype=torch.int32)
         pa.paged_decode_fwd(torch.zeros(1, 2, d), pages, pages, table,
                             lengths, scale=0.125)
-    assert calls == [40, 96, 128]
-    pages = torch.zeros(4, 2, 16, 160)
-    with pytest.raises(ValueError, match="ROADMAP C1"):
-        pa.paged_decode_fwd(torch.zeros(1, 2, 160), pages, pages, table,
-                            lengths, scale=0.125)
+    assert calls == [40, 96, 128, 160, 256]
     pages = torch.zeros(4, 2, 16, 33)
     rope = torch.zeros(1, 33)
     with pytest.raises(ValueError, match="even head dim"):
@@ -285,15 +320,16 @@ def test_paged_decode_takes_any_head_dim_up_to_128(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# K6 at D 96 and 128
+# K6 at D 96, 128, 192 and 256
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192, 256])
 @pytest.mark.parametrize("int8", [False, True])
 def test_paged_decode_wide_heads_match_jax_kernel(force_pallas, d, int8):
-    """K6's twin at D 96 and 128 with the fused RoPE, f32 or int8 pages,
-    against the Pallas paged decode; the idle slot exactly zero."""
+    """K6's twin at D 96, 128, 192 and 256 with the fused RoPE, f32 or
+    int8 pages, against the Pallas paged decode; the idle slot exactly
+    zero."""
     rs = np.random.RandomState(40 + d)
     b, h, page, pool, np_ = 3, 4, 8, 12, 3
     kp = rs.randn(pool, h, page, d).astype(np.float32)
@@ -392,16 +428,22 @@ def test_norm_plan_refuses_bad_shapes():
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_dbias"])
 def test_flash_kernels_dispatch_every_instance(name):
-    """K3, K4 and K5 pick an instance for each of 32, 64 and 128, and
-    their f32 counterpart in ``flash_f32.cu`` for each too."""
+    """K3, K4 and K5 pick an instance for each of 32, 64, 128 and 256,
+    and their f32 counterpart in ``flash_f32.cu`` for each too (through
+    its ``APEX_F32_BY_D`` dispatch, which lists every head dim)."""
     src = _build.source_path(name).read_text()
     entry = src.split(f'extern "C" int {name}(')[1]
     for d in port_attn.KERNEL_HEAD_DIMS:
         assert f"pick<{d}>" in entry and f"d != {d}" in entry, (name, d)
     f32 = _build.source_path("flash_f32").read_text()
     body = f32.split(f'extern "C" int {name}_f32(')[1].split("\n}\n")[0]
+    launcher = {"flash_fwd": "launch_fwd", "flash_bwd": "launch_bwd",
+                "flash_dbias": "launch_dbias"}[name]
+    assert re.search(rf"APEX_F32_BY_D\({launcher}, d,", body), name
+    by_d = f32.split("#define APEX_F32_BY_D")[1].split("\n\n")[0]
     for d in port_attn.KERNEL_HEAD_DIMS:
-        assert re.search(rf"<{d}, (true|false)", body), (name, d)
+        assert re.search(rf"APEX_F32_PICK\(FN, {d}, A, B\)", by_d), (name, d)
+        assert f"d != {d}" in f32.split("bool bad_args(")[1], (name, d)
 
 
 def test_build_names_the_f32_kernels():

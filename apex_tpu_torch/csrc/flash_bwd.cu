@@ -70,7 +70,7 @@
 //           score); their p is 0 unless the whole row is masked.  The
 //           ragged edge (rows past S_q, keys past S_k) reads zeros from
 //           TMA and is masked here.  Head dims 32, 64, 128 and 256, as K3
-//           (the wrapper pads any other head dim up to 256 with zeros).  At
+//           (the wrapper pads any other head dim to the next with zeros).  At
 //           D = 128 a tile is two 64-column blocks (hopper.cuh,
 //           TileLayout), and the dK/dV pass splits by halves of D: dK and
 //           dV of 64 keys x 128 would take 128 f32 registers a thread
@@ -87,6 +87,13 @@
 //           tile (one per 64 columns of dK and dV) and the dQ pass two per
 //           q tile (one per 128 columns of dQ), each recomputing the scores
 //           over all of D; the ring has one stage (two would pass 227 KB).
+//           Above 256 (any multiple of 128; the wrapper pads to it) a wide
+//           instance of each pass takes the head dim at run time and keeps
+//           no tile resident: the products over D stream K, V, Q and dO
+//           through a ring one 64-column block a stage, the dK/dV pass
+//           taking its own block last and holding that stage for dV and dK,
+//           the dQ pass reading K's slice from a second ring (the wide
+//           kernels below), so shared memory does not grow with D.
 //           One template instance per head dim, bias mode and dropout.  Not
 //           yet used: overlap of the elementwise pass with the next
 //           tile's products, persistent CTAs (ROADMAP B).
@@ -752,12 +759,620 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                        row0, sq, scale);
 }
 
+// ------------------------------------------------------- the wide instance
+//
+// Any head dim above 256 (a multiple of 128; the wrapper pads to it), the
+// number of 64-column blocks d / 64 a run-time argument.  No tile stays
+// resident: the products that reduce over D (S^T and dP^T, or S and dP)
+// stream both operands through ring A one 64-column block a stage, all
+// four of them (K, V, Q, dO) in one stage, summed in the same registers.
+// dK/dV: a q tile's blocks come in an order that ends with the CTA's own
+// 64 columns, and the consumers hold that last stage until dV += P^T dO
+// and dK += dS^T Q have read its Q and dO blocks; ring B carries the q
+// tile's m, 1/l, delta and staged bias tile.  dQ: ring B carries each key
+// tile's slice of K (128 columns) and its staged bias tile.  So shared
+// memory does not grow with d.  Grids, walks and the elementwise pass are
+// the D = 256 instance's.
+constexpr int kWideStagesA = 3;
+constexpr int kWideBlkBytes = kBlock * 128;        // 64 rows x 64 bf16
+constexpr int kWideResBlkBytes = kResident * 128;  // 128 rows x 64 bf16
+constexpr int kWideABytes = 2 * (kWideBlkBytes + kWideResBlkBytes);
+
+template <int kBias>
+__host__ __device__ constexpr int wide_stages_b(bool stats) {
+  return stats || kBias != kBiasTile ? 2 : 1;
+}
+
+// ring B's stage: the staged bias tile and (dK/dV) the statistics, or
+// (dQ) K's slice and the bias tile; a multiple of 1024 bytes
+template <int kBias>
+__host__ __device__ constexpr int wide_b_bytes(bool stats) {
+  return ((stats ? 3 * kBlock * 4 : kBlock * 2 * 128) +
+          stage_bias_bytes<kBias>() + 1023) /
+         1024 * 1024;
+}
+
+template <int kBias>
+constexpr size_t wide_smem_bytes(bool stats) {
+  return 1024 + size_t{kWideStagesA} * kWideABytes +
+         size_t{wide_stages_b<kBias>(stats)} * wide_b_bytes<kBias>(stats) +
+         sizeof(uint64_t) * 2 * (kWideStagesA + 2);
+}
+
+// store_rows with a row stride known at run time
+template <int kWidth>
+__device__ __forceinline__ void store_rows_d(const float (&acc)[kWidth / 2],
+                                             bf16* out, int row0, int limit,
+                                             int stride, float scale) {
+  const int quad = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= limit) continue;
+    bf16* og = out + static_cast<size_t>(row) * stride + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < kWidth / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+template <int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_bias,
+                           const float* __restrict__ row_max,
+                           const float* __restrict__ row_sum,
+                           const float* __restrict__ delta,
+                           const float* __restrict__ bias,
+                           const int* __restrict__ seed, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int bh_count, int sq, int sk,
+                           int d, float scale, int causal, int offset,
+                           int bias_div, int bias_rows, uint32_t threshold,
+                           float drop_scale) {
+  constexpr int kStagesB = wide_stages_b<kBias>(true);
+  constexpr int kBBytes = wide_b_bytes<kBias>(true);
+  constexpr int kBiasBytes = stage_bias_bytes<kBias>();
+  constexpr bool kHasBias = kBias != kNoBias;
+  // a stage of ring A: K block, V block (128 keys), Q block, dO block (64
+  // rows)
+  constexpr int kVOff = kWideResBlkBytes, kQOff = 2 * kWideResBlkBytes;
+  constexpr int kDOOff = kQOff + kWideBlkBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_a = align_1024(smem_raw);
+  unsigned char* ring_b = ring_a + kWideStagesA * kWideABytes;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(ring_b + kStagesB * kBBytes);
+  uint64_t* empty_a = full_a + kWideStagesA;
+  uint64_t* full_b = empty_a + kWideStagesA;
+  uint64_t* empty_b = full_b + kStagesB;
+
+  const int nb = d / 64;
+  const int half = static_cast<int>(blockIdx.x % nb);
+  const int rest = static_cast<int>(blockIdx.x / nb);
+  const int bh = rest % bh_count;
+  const int k0 = (rest / bh_count) * kResident;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (sq + kBlock - 1) / kBlock;
+  // the column block of a q tile's i-th stage: the others in order, then
+  // this CTA's own
+  auto block_of = [&](int i) {
+    return i == nb - 1 ? half : i < half ? i : i + 1;
+  };
+  auto live_any = [&](int qt) {
+    return block_live(qt, k0, sq, sk, causal, offset) ||
+           block_live(qt, k0 + 64, sq, sk, causal, offset);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStagesA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], 4 * kConsumers);
+    }
+    for (int s = 0; s < kStagesB; ++s) {
+      mbar_init(&full_b[s], 32);  // the producer warp's lanes
+      mbar_init(&empty_b[s], 4 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one warp
+    setmaxnreg_dec<24>();
+    if (warp > 4 * kConsumers) return;
+    const size_t base = static_cast<size_t>(bh) * sq;
+    auto next_live = [&](int qt) {
+      while (qt < nq && !live_any(qt)) ++qt;
+      return qt;
+    };
+    float row_stats[2][3];
+    auto fetch = [&](int qt) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int r = qt * kBlock + lane + 32 * k;
+        const bool in = qt < nq && r < sq;
+        row_stats[k][0] = in ? row_max[base + r] : 0.f;
+        row_stats[k][1] = in ? 1.f / row_sum[base + r] : 0.f;
+        row_stats[k][2] = in ? delta[base + r] : 0.f;
+      }
+    };
+    int qt = next_live(0), ta = 0;
+    fetch(qt);
+    for (int t = 0; qt < nq; ++t) {
+      if (lane == 0) {
+        for (int i = 0; i < nb; ++i, ++ta) {
+          const int s = ta % kWideStagesA, col = 64 * block_of(i);
+          mbar_wait(&empty_a[s], ((ta / kWideStagesA) & 1) ^ 1);
+          mbar_expect_tx(&full_a[s], kWideABytes);
+          unsigned char* st = ring_a + s * kWideABytes;
+          tma_load_3d(st, &tm_k, &full_a[s], col, k0, bh);
+          tma_load_3d(st + kVOff, &tm_v, &full_a[s], col, k0, bh);
+          tma_load_3d(st + kQOff, &tm_q, &full_a[s], col, qt * kBlock, bh);
+          tma_load_3d(st + kDOOff, &tm_do, &full_a[s], col, qt * kBlock, bh);
+        }
+      }
+      const int s = t % kStagesB;
+      mbar_wait(&empty_b[s], ((t / kStagesB) & 1) ^ 1);
+      unsigned char* st = ring_b + s * kBBytes;
+      float* stats = reinterpret_cast<float*>(st + kBiasBytes);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          stats[c * kBlock + lane + 32 * k] = row_stats[k][c];
+      if (lane == 0) {
+        mbar_expect_tx(&full_b[s], kBiasBytes);
+        if constexpr (kBias == kBiasTile)
+          for (int b = 0; b < kResident / 32; ++b)
+            tma_load_3d(st + b * kBlock * 128, &tm_bias, &full_b[s],
+                        k0 + 32 * b, qt * kBlock, bh / bias_div);
+      } else {
+        mbar_arrive(&full_b[s]);
+      }
+      qt = next_live(qt + 1);
+      fetch(qt);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int kw0 = k0 + 64 * wg;
+  const int quad = lane & 3;
+  const int krow0 = kw0 + 16 * (warp & 3) + (lane >> 2);
+
+  const float* bias_g = nullptr;
+  float bias_k[2] = {0.f, 0.f};
+  if constexpr (kBias == kBiasGlobal) {
+    bias_g = flash_operands::bias_row(bias, bh, bias_div, bias_rows, 0, sk);
+    if (bias_rows == 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bias_k[h] = flash_operands::bias_at(bias_g, min(krow0 + 8 * h, sk - 1));
+  }
+  uint32_t key = 0;
+  if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
+
+  const float scale_log2 = scale * kLog2e;
+  float acc_dk[32], acc_dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  int ta = 0, tb = 0;
+  for (int qt = 0; qt < nq; ++qt) {
+    if (!live_any(qt)) continue;
+    const bool mine = block_live(qt, kw0, sq, sk, causal, offset);
+    const int q0 = qt * kBlock;
+    // S^T = K Q^T and dP^T = V dO^T, one column block a stage
+    float acc_s[kBlock / 2], acc_dp[kBlock / 2];
+#pragma unroll
+    for (int i = 0; i < kBlock / 2; ++i) acc_s[i] = acc_dp[i] = 0.f;
+    int s_last = 0;
+    for (int i = 0; i < nb; ++i, ++ta) {
+      const int s = ta % kWideStagesA;
+      mbar_wait(&full_a[s], (ta / kWideStagesA) & 1);
+      if (mine) {
+        const unsigned char* st = ring_a + s * kWideABytes;
+        const uint64_t k_desc = make_desc<128>(st + wg * 64 * 128);
+        const uint64_t v_desc = make_desc<128>(st + kVOff + wg * 64 * 128);
+        const uint64_t q_desc = make_desc<128>(st + kQOff);
+        const uint64_t do_desc = make_desc<128>(st + kDOOff);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(acc_s, desc_add(k_desc, 32 * kk), desc_add(q_desc, 32 * kk),
+                   1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(acc_dp, desc_add(v_desc, 32 * kk),
+                   desc_add(do_desc, 32 * kk), 1);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc_s);
+        fence_regs(acc_dp);
+      }
+      if (i < nb - 1) {  // the last block's stage is held for dV and dK
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty_a[s]);
+      } else {
+        s_last = s;
+      }
+    }
+
+    const int sb = tb % kStagesB;
+    mbar_wait(&full_b[sb], (tb / kStagesB) & 1);
+    if (mine) {
+      const unsigned char* Bs = ring_b + sb * kBBytes;
+      const float* st = reinterpret_cast<const float*>(Bs + kBiasBytes);
+      auto bias_of = [&](int j, int e, int h) -> float {
+        if constexpr (kBias == kBiasGlobal) {
+          const int qrow = q0 + 8 * j + 2 * quad + e;
+          const int krow = krow0 + 8 * h;
+          return bias_rows == 1 ? bias_k[h]
+                 : qrow < sq && krow < sk
+                     ? flash_operands::bias_at(
+                           bias_g + static_cast<size_t>(qrow) * sk, krow)
+                     : 0.f;
+        } else if constexpr (kBias == kBiasTile) {
+          return fmaxf(*flash_operands::bias_tile_at<kBlock>(
+                           Bs, 8 * j + 2 * quad + e, krow0 - k0 + 8 * h),
+                       flash_operands::kPadValue);
+        } else {
+          return 0.f;
+        }
+      };
+      // P^T and dS^T, as the fixed instances form them
+      auto elementwise = [&](auto edge_tag) {
+        constexpr bool kEdge = decltype(edge_tag)::value;
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * quad + e;
+            const int qrow = q0 + c;
+            const float m_c = st[c], il_c = st[kBlock + c];
+            const float delta_c = st[2 * kBlock + c];
+            uint32_t row_hash = 0;
+            if constexpr (kDropout)
+              row_hash = flash_operands::dropout_row(key, qrow);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              const int krow = krow0 + 8 * h;
+              float pv = 0.f, ds = 0.f;
+              if (!kEdge || (qrow < sq && krow < sk)) {
+                const bool masked = kEdge && causal && krow > qrow + offset;
+                float p;
+                if constexpr (!kEdge && !kHasBias) {
+                  p = ex2(fmaf(acc_s[i], scale_log2, -m_c * kLog2e)) * il_c;
+                } else {
+                  float x = kMaskValue;
+                  if (!masked) {
+                    x = acc_s[i] * scale;
+                    if constexpr (kHasBias)
+                      x = fmaf(acc_s[i], scale, bias_of(j, e, h));
+                  }
+                  p = __expf(x - m_c) * il_c;
+                }
+                float dp = acc_dp[i];
+                pv = p;
+                if constexpr (kDropout) {
+                  const float keep = flash_operands::dropout_keep(
+                                         key, row_hash, krow, threshold)
+                                         ? drop_scale
+                                         : 0.f;
+                  pv = p * keep;
+                  dp *= keep;
+                }
+                if (!masked) ds = p * (dp - delta_c);
+              }
+              acc_s[i] = pv;
+              acc_dp[i] = ds;
+            }
+          }
+      };
+      const bool edge = q0 + kBlock > sq || kw0 + 64 > sk ||
+                        (causal && kw0 + 63 > q0 + offset);
+      if (edge)
+        elementwise(std::true_type{});
+      else
+        elementwise(std::false_type{});
+      uint32_t pa[kBlock / 4], dsa[kBlock / 4];
+#pragma unroll
+      for (int i = 0; i < kBlock / 4; ++i) {
+        pa[i] = pack_bf16(acc_s[2 * i], acc_s[2 * i + 1]);
+        dsa[i] = pack_bf16(acc_dp[2 * i], acc_dp[2 * i + 1]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q over this CTA's 64 columns: the held
+      // stage's dO and Q blocks, transposed
+      const unsigned char* sa = ring_a + s_last * kWideABytes;
+      const uint64_t do_t = make_desc<128>(sa + kDOOff, kBlock * 128);
+      const uint64_t q_t = make_desc<128>(sa + kQOff, kBlock * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk) {
+        wgmma_rs(acc_dv, pa + 4 * kk, desc_add(do_t, 16 * kk * 128), 1);
+        wgmma_rs(acc_dk, dsa + 4 * kk, desc_add(q_t, 16 * kk * 128), 1);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&empty_a[s_last]);
+      mbar_arrive(&empty_b[sb]);
+    }
+    ++tb;
+  }
+
+  const size_t base = static_cast<size_t>(bh) * sk * d + half * 64;
+  store_rows_d<64>(acc_dk, dk + base, krow0, sk, d, scale);
+  store_rows_d<64>(acc_dv, dv + base, krow0, sk, d, 1.f);
+}
+
+template <int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_bias,
+                         const float* __restrict__ row_max,
+                         const float* __restrict__ row_sum,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ bias,
+                         const int* __restrict__ seed, bf16* __restrict__ dq,
+                         int bh_count, int sq, int sk, int d, float scale,
+                         int causal, int offset, int bias_div, int bias_rows,
+                         uint32_t threshold, float drop_scale) {
+  constexpr int kStagesB = wide_stages_b<kBias>(false);
+  constexpr int kBBytes = wide_b_bytes<kBias>(false);
+  constexpr int kSliceBytes = kBlock * 2 * 128;  // 64 keys x 128 bf16
+  constexpr bool kHasBias = kBias != kNoBias;
+  // a stage of ring A: Q block, dO block (128 rows), K block, V block (64
+  // keys)
+  constexpr int kDOOff = kWideResBlkBytes, kKOff = 2 * kWideResBlkBytes;
+  constexpr int kVOff = kKOff + kWideBlkBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_a = align_1024(smem_raw);
+  unsigned char* ring_b = ring_a + kWideStagesA * kWideABytes;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(ring_b + kStagesB * kBBytes);
+  uint64_t* empty_a = full_a + kWideStagesA;
+  uint64_t* full_b = empty_a + kWideStagesA;
+  uint64_t* empty_b = full_b + kStagesB;
+
+  const int nb = d / 64, parts = d / 128;
+  const int n_tiles = (sq + kResident - 1) / kResident;
+  const int part = static_cast<int>(blockIdx.x % parts);
+  const int rest = static_cast<int>(blockIdx.x / parts);
+  const int bh = rest % bh_count;
+  const int q0 = (n_tiles - 1 - rest / bh_count) * kResident;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int k_end[kConsumers];
+#pragma unroll
+  for (int w = 0; w < kConsumers; ++w) {
+    const int wq0 = q0 + 64 * w;
+    const int q_last = min(wq0 + 64, sq) - 1;
+    k_end[w] = wq0 >= sq ? 0
+               : causal  ? max(0, min(sk, q_last + offset + 1))
+                         : sk;
+  }
+  const int n_kt = (max(k_end[0], k_end[1]) + kBlock - 1) / kBlock;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStagesA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], 4 * kConsumers);
+    }
+    for (int s = 0; s < kStagesB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], 4 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one thread
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kConsumers && lane == 0) {
+      int ta = 0;
+      for (int t = 0; t < n_kt; ++t) {
+        for (int c = 0; c < nb; ++c, ++ta) {
+          const int s = ta % kWideStagesA;
+          mbar_wait(&empty_a[s], ((ta / kWideStagesA) & 1) ^ 1);
+          mbar_expect_tx(&full_a[s], kWideABytes);
+          unsigned char* st = ring_a + s * kWideABytes;
+          tma_load_3d(st, &tm_q, &full_a[s], 64 * c, q0, bh);
+          tma_load_3d(st + kDOOff, &tm_do, &full_a[s], 64 * c, q0, bh);
+          tma_load_3d(st + kKOff, &tm_k, &full_a[s], 64 * c, t * kBlock, bh);
+          tma_load_3d(st + kVOff, &tm_v, &full_a[s], 64 * c, t * kBlock, bh);
+        }
+        const int s = t % kStagesB;
+        mbar_wait(&empty_b[s], ((t / kStagesB) & 1) ^ 1);
+        mbar_expect_tx(&full_b[s], kSliceBytes + stage_bias_bytes<kBias>());
+        unsigned char* st = ring_b + s * kBBytes;
+        tma_load_tile<128, kBlock>(st, &tm_k, &full_b[s], t * kBlock, bh,
+                                   128 * part);
+        if constexpr (kBias == kBiasTile)
+          for (int b = 0; b < kBlock / 32; ++b)
+            tma_load_3d(st + kSliceBytes + b * kResident * 128, &tm_bias,
+                        &full_b[s], t * kBlock + 32 * b, q0, bh / bias_div);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int quad = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int my_kt = (k_end[wg] + kBlock - 1) / kBlock;
+
+  float m_r[2], il_r[2], delta_r[2];
+  const float* brow[2] = {nullptr, nullptr};
+  uint32_t key = 0, row_hash[2] = {0, 0};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const size_t ri = static_cast<size_t>(bh) * sq + row;
+    m_r[h] = row < sq ? row_max[ri] : 0.f;
+    il_r[h] = row < sq ? 1.f / row_sum[ri] : 0.f;
+    delta_r[h] = row < sq ? delta[ri] : 0.f;
+    if constexpr (kBias == kBiasGlobal)
+      brow[h] = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
+                                         min(row, sq - 1), sk);
+    if constexpr (kDropout) {
+      key = flash_operands::dropout_key(seed, bh);
+      row_hash[h] = flash_operands::dropout_row(key, row);
+    }
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  const float mb_r[2] = {m_r[0] * kLog2e, m_r[1] * kLog2e};
+  float acc_dq[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_dq[i] = 0.f;
+
+  int ta = 0;
+  for (int t = 0; t < n_kt; ++t) {
+    const bool mine = t < my_kt;
+    // S = Q K^T and dP = dO V^T, one column block a stage
+    float acc_s[kBlock / 2], acc_dp[kBlock / 2];
+#pragma unroll
+    for (int i = 0; i < kBlock / 2; ++i) acc_s[i] = acc_dp[i] = 0.f;
+    for (int c = 0; c < nb; ++c, ++ta) {
+      const int s = ta % kWideStagesA;
+      mbar_wait(&full_a[s], (ta / kWideStagesA) & 1);
+      if (mine) {
+        const unsigned char* st = ring_a + s * kWideABytes;
+        const uint64_t q_desc = make_desc<128>(st + wg * 64 * 128);
+        const uint64_t do_desc = make_desc<128>(st + kDOOff + wg * 64 * 128);
+        const uint64_t k_desc = make_desc<128>(st + kKOff);
+        const uint64_t v_desc = make_desc<128>(st + kVOff);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(acc_s, desc_add(q_desc, 32 * kk), desc_add(k_desc, 32 * kk),
+                   1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss(acc_dp, desc_add(do_desc, 32 * kk),
+                   desc_add(v_desc, 32 * kk), 1);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc_s);
+        fence_regs(acc_dp);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_a[s]);
+    }
+
+    const int sb = t % kStagesB;
+    mbar_wait(&full_b[sb], (t / kStagesB) & 1);
+    if (mine) {
+      const unsigned char* Ks = ring_b + sb * kBBytes;
+      const unsigned char* Bs = Ks + kSliceBytes;
+      const int c0 = t * kBlock + 2 * quad;
+      float bv[kBlock / 2];
+      if constexpr (kBias == kBiasGlobal) {
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = c0 + 8 * j + e;
+              bv[4 * j + 2 * h + e] =
+                  col < sk ? flash_operands::bias_at(brow[h], col) : 0.f;
+            }
+      } else if constexpr (kBias == kBiasTile) {
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 b2 = *reinterpret_cast<const float2*>(
+                flash_operands::bias_tile_at<kResident>(
+                    Bs, row0 - q0 + 8 * h, 8 * j + 2 * quad));
+            bv[4 * j + 2 * h] = fmaxf(b2.x, flash_operands::kPadValue);
+            bv[4 * j + 2 * h + 1] = fmaxf(b2.y, flash_operands::kPadValue);
+          }
+      }
+      // dS, as the fixed instances form it
+      auto elementwise = [&](auto edge_tag) {
+        constexpr bool kEdge = decltype(edge_tag)::value;
+#pragma unroll
+        for (int j = 0; j < kBlock / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              const int col = c0 + 8 * j + e;
+              const int row = row0 + 8 * h;
+              float ds = 0.f;
+              if (!kEdge ||
+                  (row < sq && col < sk && (!causal || col <= row + offset))) {
+                float p;
+                if constexpr (!kEdge && !kHasBias) {
+                  p = ex2(fmaf(acc_s[i], scale_log2, -mb_r[h])) * il_r[h];
+                } else {
+                  float x = acc_s[i] * scale;
+                  if constexpr (kHasBias) x = fmaf(acc_s[i], scale, bv[i]);
+                  p = __expf(x - m_r[h]) * il_r[h];
+                }
+                float dp = acc_dp[i];
+                if constexpr (kDropout)
+                  dp = flash_operands::dropout_keep(key, row_hash[h], col,
+                                                    threshold)
+                           ? dp * drop_scale
+                           : 0.f;
+                ds = p * (dp - delta_r[h]);
+              }
+              acc_s[i] = ds;
+            }
+      };
+      const bool edge = (t + 1) * kBlock > sk || q0 + 64 * (wg + 1) > sq ||
+                        (causal && (t + 1) * kBlock - 1 > q0 + 64 * wg + offset);
+      if (edge)
+        elementwise(std::true_type{});
+      else
+        elementwise(std::false_type{});
+      uint32_t dsa[kBlock / 4];
+#pragma unroll
+      for (int i = 0; i < kBlock / 4; ++i)
+        dsa[i] = pack_bf16(acc_s[2 * i], acc_s[2 * i + 1]);
+
+      // dQ += dS K over this CTA's 128 columns, K's slice transposed
+      const uint64_t k_t = make_desc<128>(Ks, kBlock * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        wgmma_rs(acc_dq, dsa + 4 * kk, desc_add(k_t, 16 * kk * 128), 1);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc_dq);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_b[sb]);
+  }
+
+  store_rows_d<128>(acc_dq, dq + static_cast<size_t>(bh) * sq * d + part * 128,
+                    row0, sq, d, scale);
+}
+
+// D: 32, 64, 128 or 256, or 0 for the wide instance (d a multiple of 128
+// above 256)
 template <int D, int kBias, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* m, const void* l, const void* delta, const void* bias,
            const void* seed, void* dq, void* dk, void* dv, int bh, int sq,
-           int sk, int bias_div, int bias_rows, float scale, int causal,
-           int offset, uint32_t threshold, float drop_scale,
+           int sk, int d, int bias_div, int bias_rows, float scale,
+           int causal, int offset, uint32_t threshold, float drop_scale,
            cudaStream_t stream) {
   // the dK/dV pass keeps kResident keys and streams kBlock query rows; the
   // dQ pass the other way round
@@ -772,7 +1387,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
               {&k_ring, k, sk, kBlock},      {&v_ring, v, sk, kBlock}};
   for (const auto& mp : maps) {
     const cudaError_t err =
-        hopper_host::make_map(mp.map, mp.ptr, bh, mp.rows, D, mp.box);
+        hopper_host::make_map(mp.map, mp.ptr, bh, mp.rows, d, mp.box);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // the staged bias: (64 queries, 128 keys) tiles for dK/dV, (128, 64)
@@ -786,18 +1401,6 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
                                        kResident);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  constexpr size_t dkdv_bytes = smem_bytes<D, kBias, true>();
-  constexpr size_t dq_bytes = smem_bytes<D, kBias, false>();
-  auto* dkdv_kernel = &flash_bwd_dkdv_kernel<D, kBias, kDropout>;
-  auto* dq_kernel = &flash_bwd_dq_kernel<D, kBias, kDropout>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dkdv_bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dq_bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const float* mp = static_cast<const float*>(m);
   const float* lp = static_cast<const float*>(l);
   const float* dp = static_cast<const float*>(delta);
@@ -805,19 +1408,59 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const int* sp = static_cast<const int*>(seed);
   const int nk = (sk + kResident - 1) / kResident;
   const int nq = (sq + kResident - 1) / kResident;
-  dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()),
-                kThreads, dkdv_bytes, stream>>>(
-      q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk, scale,
-      causal, offset, bias_div, bias_rows, threshold, drop_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * dq_split<D>()), kThreads,
-              dq_bytes, stream>>>(
-      q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
-      static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset, bias_div,
-      bias_rows, threshold, drop_scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (D == 0) {
+    constexpr size_t dkdv_bytes = wide_smem_bytes<kBias>(true);
+    constexpr size_t dq_bytes = wide_smem_bytes<kBias>(false);
+    auto* dkdv_kernel = &flash_bwd_dkdv_wide_kernel<kBias, kDropout>;
+    auto* dq_kernel = &flash_bwd_dq_wide_kernel<kBias, kDropout>;
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dkdv_bytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dq_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(dq_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * (d / 64)), kThreads,
+                  dkdv_bytes, stream>>>(
+        q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk, d, scale,
+        causal, offset, bias_div, bias_rows, threshold, drop_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * (d / 128)), kThreads,
+                dq_bytes, stream>>>(
+        q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
+        static_cast<bf16*>(dq), bh, sq, sk, d, scale, causal, offset,
+        bias_div, bias_rows, threshold, drop_scale);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    constexpr size_t dkdv_bytes = smem_bytes<D, kBias, true>();
+    constexpr size_t dq_bytes = smem_bytes<D, kBias, false>();
+    auto* dkdv_kernel = &flash_bwd_dkdv_kernel<D, kBias, kDropout>;
+    auto* dq_kernel = &flash_bwd_dq_kernel<D, kBias, kDropout>;
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dkdv_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(dq_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dq_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()),
+                  kThreads, dkdv_bytes, stream>>>(
+        q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk, scale,
+        causal, offset, bias_div, bias_rows, threshold, drop_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * dq_split<D>()), kThreads,
+                dq_bytes, stream>>>(
+        q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
+        static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset, bias_div,
+        bias_rows, threshold, drop_scale);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 using LaunchFn = decltype(&launch<64, kNoBias, false>);
@@ -841,7 +1484,8 @@ extern "C" const char* apex_error_string(int code) {
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16, 16-byte aligned; m, l
 // (K3's row max and row sum) and delta (bh, sq) f32; bias and seed as
 // K3's (null when absent); dq (bh, sq, d), dk and dv (bh, sk, d) bf16.
-// d must be 32, 64, 128 or 256.  The causal mask is aligned bottom-right.
+// d must be 32, 64, 128, 256 or a multiple of 128 above 256.  The causal
+// mask is aligned bottom-right.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* m, const void* l,
                          const void* delta, const void* bias, const void* seed,
@@ -850,16 +1494,17 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 ||
-      (d != 32 && d != 64 && d != 128 && d != 256) || groups <= 0 ||
-      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
+      (d != 32 && d != 64 && d != 128 && !(d >= 256 && d % 128 == 0)) ||
+      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
   const bool dropout = seed != nullptr;
   const LaunchFn run = d == 32    ? pick<32>(mode, dropout)
                        : d == 64  ? pick<64>(mode, dropout)
                        : d == 128 ? pick<128>(mode, dropout)
-                                  : pick<256>(mode, dropout);
+                       : d == 256 ? pick<256>(mode, dropout)
+                                  : pick<0>(mode, dropout);
   return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
-             bh / groups, bias_rows, scale, causal, sk - sq, threshold,
+             d, bh / groups, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));
 }

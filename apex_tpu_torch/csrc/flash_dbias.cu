@@ -23,7 +23,7 @@
 //           warp owns 16 query rows of a tile and recomputes S = Q K^T and
 //           dP = dO V^T with K4's wmma bf16 16x16x16 fragments (f32
 //           accumulation, D = 32, 64, 128 or 256, the wrapper padding any
-//           other head dim up to 256 with zeros; above 128 the A fragments
+//           other head dim to the next with zeros; above 128 the A fragments
 //           are read in chunks of 128 columns, so D = 256 holds no more of
 //           them in registers than D = 128); two lanes per row form p =
 //           exp(s - m) / l from K3's row max m and row sum l (exact also for
@@ -39,8 +39,13 @@
 //           there, fully masked rows included).  Bias and dbias offsets are
 //           64-bit (G*RS*S_k is 67 M at the evoformer's triangle shape).
 //           One template instance per (D, RS = S_q or 1, dropout), so a call
-//           without dropout runs no dropout code.  Not yet used: wgmma,
-//           TMA, cp.async pipelining (later work).
+//           without dropout runs no dropout code.  Above 256 (any multiple
+//           of 128; the wrapper pads to it) the wide instance (D = 0, the
+//           head dim a run-time argument) streams the four tiles 64
+//           columns at a time through the same shared memory, S and dP
+//           summed over the chunks in wmma accumulators, so shared memory
+//           does not grow with D.  Not yet used: wgmma, TMA, cp.async
+//           pipelining (later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,6 +79,25 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(bf16) * 4 * kBK * kTileLd<D>            // Q, dO, K, V tiles
          + sizeof(float) * 2 * kWarps * kRows * kSLd;   // S, dP
+}
+
+// The wide instance (D = 0) holds kChunkW columns of each tile at a time.
+constexpr int kChunkW = 64;
+template <> constexpr int kTileLd<0> = kChunkW + 8;
+
+// Columns [c0, c0 + 64) of 64 rows of a (rows x d) bf16 head into `dst`
+// (row stride kTileLd<0>), zero past `limit`.
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int row0,
+                                           int limit, int d, int c0) {
+  constexpr int kVec = kChunkW / 8;
+  for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
+    const int r = i / kVec, c = i % kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < limit)
+      val = reinterpret_cast<const uint4*>(
+          src + static_cast<size_t>(row0 + r) * d + c0)[c];
+    reinterpret_cast<uint4*>(dst + r * kTileLd<0>)[c] = val;
+  }
 }
 
 // Copy 64 rows of D bf16 from global `src` into shared `dst` (row stride
@@ -134,7 +158,7 @@ __device__ __forceinline__ void times_tile_t(const bf16* A, const bf16* T,
 }
 
 // kRowBias: RS = S_q (a CTA owns one q tile); else RS = 1 (a CTA walks
-// every q tile and sums the rows).
+// every q tile and sums the rows).  D = 0: the wide instance, head dim d.
 template <int D, bool kRowBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 flash_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -144,10 +168,11 @@ flash_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const float* __restrict__ delta,
                    const float* __restrict__ bias,
                    const int* __restrict__ seed, float* __restrict__ dbias,
-                   int members, int sq, int sk, int nq, int nk, float scale,
-                   int causal, int offset, uint32_t threshold,
+                   int members, int sq, int sk, int nq, int nk, int d_arg,
+                   float scale, int causal, int offset, uint32_t threshold,
                    float drop_scale) {
   constexpr int kLd = kTileLd<D>;
+  const int d = D > 0 ? D : d_arg;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + kBQ * kLd;
@@ -201,26 +226,66 @@ flash_dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int t = 0; t < members; ++t) {
     const int bh = g * members + t;
-    const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
-    const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-    const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-    const bf16* ob = dout + static_cast<size_t>(bh) * sq * D;
+    const bf16* qb = q + static_cast<size_t>(bh) * sq * d;
+    const bf16* kb = k + static_cast<size_t>(bh) * sk * d;
+    const bf16* vb = v + static_cast<size_t>(bh) * sk * d;
+    const bf16* ob = dout + static_cast<size_t>(bh) * sq * d;
     uint32_t key = 0;
     if constexpr (kDropout) key = flash_operands::dropout_key(seed, bh);
     for (int qt = q_first; qt < q_stop; ++qt) {
       const int q0 = qt * kBQ;
       // a tile with no live pair has ds = 0 (uniform over the CTA)
       if (causal && k0 > min(q0 + kBQ, sq) - 1 + offset) continue;
-      __syncthreads();  // the previous iteration's fragment loads are done
-      load_tile<D>(Qs, qb, q0, sq);
-      load_tile<D>(dOs, ob, q0, sq);
-      load_tile<D>(Ks, kb, k0, sk);
-      load_tile<D>(Vs, vb, k0, sk);
-      __syncthreads();
+      if constexpr (D > 0) {
+        __syncthreads();  // the previous iteration's fragment loads are done
+        load_tile<D>(Qs, qb, q0, sq);
+        load_tile<D>(dOs, ob, q0, sq);
+        load_tile<D>(Ks, kb, k0, sk);
+        load_tile<D>(Vs, vb, k0, sk);
+        __syncthreads();
 
-      // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
-      times_tile_t<D>(Qs + warp * kRows * kLd, Ks, Sw);
-      times_tile_t<D>(dOs + warp * kRows * kLd, Vs, dPw);
+        // S = Q K^T and dP = dO V^T: this warp's 16 queries x 64 keys
+        times_tile_t<D>(Qs + warp * kRows * kLd, Ks, Sw);
+        times_tile_t<D>(dOs + warp * kRows * kLd, Vs, dPw);
+      } else {
+        // the same products 64 columns at a time, summed in the
+        // accumulators over the chunks
+        FragAcc acc_s[kBK / 16], acc_dp[kBK / 16];
+#pragma unroll
+        for (int n = 0; n < kBK / 16; ++n) {
+          wmma::fill_fragment(acc_s[n], 0.f);
+          wmma::fill_fragment(acc_dp[n], 0.f);
+        }
+        for (int c0 = 0; c0 < d; c0 += kChunkW) {
+          __syncthreads();  // the previous chunk's fragment loads are done
+          load_chunk(Qs, qb, q0, sq, d, c0);
+          load_chunk(dOs, ob, q0, sq, d, c0);
+          load_chunk(Ks, kb, k0, sk, d, c0);
+          load_chunk(Vs, vb, k0, sk, d, c0);
+          __syncthreads();
+#pragma unroll
+          for (int kk = 0; kk < kChunkW / 16; ++kk) {
+            FragA aq, ao;
+            wmma::load_matrix_sync(aq, Qs + warp * kRows * kLd + kk * 16, kLd);
+            wmma::load_matrix_sync(ao, dOs + warp * kRows * kLd + kk * 16, kLd);
+#pragma unroll
+            for (int n = 0; n < kBK / 16; ++n) {
+              FragBCol bk, bv;
+              wmma::load_matrix_sync(bk, Ks + n * 16 * kLd + kk * 16, kLd);
+              wmma::load_matrix_sync(bv, Vs + n * 16 * kLd + kk * 16, kLd);
+              wmma::mma_sync(acc_s[n], aq, bk, acc_s[n]);
+              wmma::mma_sync(acc_dp[n], ao, bv, acc_dp[n]);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kBK / 16; ++n) {
+          wmma::store_matrix_sync(Sw + n * 16, acc_s[n], kSLd,
+                                  wmma::mem_row_major);
+          wmma::store_matrix_sync(dPw + n * 16, acc_dp[n], kSLd,
+                                  wmma::mem_row_major);
+        }
+      }
       __syncwarp();
 
       const int row = q0 + warp * kRows + r;
@@ -280,8 +345,8 @@ template <int D, bool kRowBias, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* m, const void* l, const void* delta, const void* bias,
            const void* seed, void* dbias, int groups, int members, int sq,
-           int sk, float scale, int causal, int offset, uint32_t threshold,
-           float drop_scale, cudaStream_t stream) {
+           int sk, int d, float scale, int causal, int offset,
+           uint32_t threshold, float drop_scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   auto* kernel = &flash_dbias_kernel<D, kRowBias, kDropout>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -298,7 +363,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(delta), static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<float*>(dbias), members, sq,
-      sk, nq, nk, scale, causal, offset, threshold, drop_scale);
+      sk, nq, nk, d, scale, causal, offset, threshold, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,8 +385,8 @@ extern "C" const char* apex_error_string(int code) {
 // q, dout (bh, sq, d) and k, v (bh, sk, d) bf16; m, l (K3's row max and
 // row sum) and delta (bh, sq) f32; bias (groups, bias_rows, sk) f32; seed
 // one int32 or null (no dropout); dbias f32 in the bias's layout.  d must
-// be 32, 64, 128 or 256, groups must divide bh and bias_rows be 1 or sq.
-// The causal mask is aligned bottom-right.
+// be 32, 64, 128, 256 or a multiple of 128 above 256, groups must divide
+// bh and bias_rows be 1 or sq.  The causal mask is aligned bottom-right.
 extern "C" int flash_dbias(const void* q, const void* k, const void* v,
                            const void* dout, const void* m, const void* l,
                            const void* delta, const void* bias,
@@ -330,7 +395,8 @@ extern "C" int flash_dbias(const void* q, const void* k, const void* v,
                            float scale, int causal, unsigned threshold,
                            float drop_scale, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 ||
-      (d != 32 && d != 64 && d != 128 && d != 256) || bias == nullptr ||
+      (d != 32 && d != 64 && d != 128 && !(d >= 256 && d % 128 == 0)) ||
+      bias == nullptr ||
       groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   // with sq = 1 the two layouts coincide and the RS = 1 path serves both
@@ -339,8 +405,9 @@ extern "C" int flash_dbias(const void* q, const void* k, const void* v,
   const LaunchFn run = d == 32    ? pick<32>(row_bias, dropout)
                        : d == 64  ? pick<64>(row_bias, dropout)
                        : d == 128 ? pick<128>(row_bias, dropout)
-                                  : pick<256>(row_bias, dropout);
+                       : d == 256 ? pick<256>(row_bias, dropout)
+                                  : pick<0>(row_bias, dropout);
   return run(q, k, v, dout, m, l, delta, bias, seed, dbias, groups,
-             bh / groups, sq, sk, scale, causal, sk - sq, threshold,
+             bh / groups, sq, sk, d, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));
 }

@@ -57,8 +57,8 @@
 //           recomputes p = exp(s - m) / l: exact also for a row that a bias
 //           masks completely, whose lse rounds back to MASK_VALUE in f32. One
 //           template instance per head dim (32, 64, 128, 256), bias mode and
-//           dropout; the wrapper pads any other head dim up to 256 to the
-//           next instance with zeros.  At D = 128 a tile is two 64-column
+//           dropout; the wrapper pads any other head dim to the next
+//           instance with zeros.  At D = 128 a tile is two 64-column
 //           blocks (hopper.cuh, TileLayout) and the stages hold 64 keys (the
 //           O accumulator is 64 f32 registers a thread).  Above 128 (the
 //           D = 256 instance) QK^T loops over the four 64-column blocks of
@@ -67,6 +67,12 @@
 //           head, q tile, slice), each recomputing the scores over all of D
 //           and staging only its slice of V, so the O accumulator stays at
 //           64 registers; one Q buffer and two stages fit in 227 KB.
+//           Above 256 (any multiple of 128; the wrapper pads to it) a wide
+//           instance takes the head dim at run time: Q is no longer
+//           resident, QK^T streams Q's and K's 64-column blocks through a
+//           ring of its own, one pair a stage, and a second ring carries
+//           each key tile's V slice and bias tile (flash_fwd_wide_kernel),
+//           so shared memory does not grow with D.
 //           Not yet used: overlap of one tile's softmax with the next tile's
 //           QK^T (ROADMAP B).
 
@@ -470,6 +476,374 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------- the wide instance
+//
+// Any head dim above 256 (a multiple of 128; the wrapper pads to it), the
+// number of 64-column blocks d / 64 a run-time argument.  Q no longer stays
+// resident: QK^T streams Q's and K's column blocks through ring A, one
+// (128-row Q block, 64-key K block) pair a stage, and sums them in the S
+// registers; ring B carries each key tile's slice of V (128 columns: O is
+// split over work items as at D = 256) and its staged bias tile.  So
+// shared memory does not grow with d.  The work items, key walk, softmax
+// and epilogue are the D = 256 instance's.
+constexpr int kWideStagesA = 4;
+constexpr int kWideStagesB = 2;
+constexpr int kWideBlockK = 64;
+constexpr int kWideDV = 128;
+constexpr int kQBlkBytes = kBlockQ * 128;      // 128 rows x 64 bf16
+constexpr int kKBlkBytes = kWideBlockK * 128;  // 64 keys x 64 bf16
+
+template <int kBias>
+__host__ __device__ constexpr int wide_bias_bytes() {
+  return kBias == kBiasTile ? kBlockQ * kWideBlockK * 4 : 0;
+}
+
+template <int kBias>
+constexpr size_t wide_smem_bytes() {
+  return 1024 + size_t{kWideStagesA} * (kQBlkBytes + kKBlkBytes) +
+         size_t{kWideStagesB} *
+             (kWideBlockK * 2 * kWideDV + wide_bias_bytes<kBias>()) +
+         sizeof(uint64_t) * 2 * (kWideStagesA + kWideStagesB);
+}
+
+template <int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_bias,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ seed, bf16* __restrict__ o,
+                      float* __restrict__ lse, float* __restrict__ m_out,
+                      float* __restrict__ l_out, int bh_count, int sq, int sk,
+                      int d, float scale, int causal, int offset,
+                      int bias_div, int bias_rows, uint32_t threshold,
+                      float drop_scale) {
+  constexpr int kBlockK = kWideBlockK;
+  constexpr int kDV = kWideDV;
+  constexpr int kBiasBytes = wide_bias_bytes<kBias>();
+  constexpr bool kHasBias = kBias != kNoBias;
+  using LV = TileLayout<kDV>;
+  constexpr int kABytes = kQBlkBytes + kKBlkBytes;
+  constexpr int kVBytes = kBlockK * 2 * kDV;
+  constexpr int kBBytes = kVBytes + kBiasBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_a = align_1024(smem_raw);   // Q block, K block
+  unsigned char* ring_b = ring_a + kWideStagesA * kABytes;  // V slice, bias
+  uint64_t* full_a =
+      reinterpret_cast<uint64_t*>(ring_b + kWideStagesB * kBBytes);
+  uint64_t* empty_a = full_a + kWideStagesA;
+  uint64_t* full_b = empty_a + kWideStagesA;
+  uint64_t* empty_b = full_b + kWideStagesB;
+
+  const int nb = d / 64, slices = d / kDV;
+  const int n_tiles = (sq + kBlockQ - 1) / kBlockQ;
+  const int n_items = bh_count * slices * n_tiles;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  struct Item {
+    int bh, dv0, q0, lim0, lim1, n_kt;
+  };
+  auto item_index = [&](int r) {
+    const int g = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
+    return r * g + ((r & 1) ? g - 1 - c : c);
+  };
+  auto item = [&](int w) {
+    Item it;
+    const int head = w % (bh_count * slices);
+    it.bh = head / slices;
+    it.dv0 = (head % slices) * kDV;
+    it.q0 = (n_tiles - 1 - w / (bh_count * slices)) * kBlockQ;
+    it.lim0 = key_limit(it.q0, sq, sk, causal, offset);
+    it.lim1 = key_limit(it.q0 + 64, sq, sk, causal, offset);
+    it.n_kt = (max(it.lim0, it.lim1) + kBlockK - 1) / kBlockK;
+    return it;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStagesA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], 4 * kConsumers);
+    }
+    for (int s = 0; s < kWideStagesB; ++s) {
+      mbar_init(&full_b[s], 1);
+      mbar_init(&empty_b[s], 4 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {  // the producer warpgroup: one thread
+    setmaxnreg_dec<24>();
+    if (warp == 4 * kConsumers && lane == 0) {
+      int ta = 0, tb = 0;  // each ring's running count over all items
+      for (int r = 0; r * static_cast<int>(gridDim.x) < n_items; ++r) {
+        const int w = item_index(r);
+        if (w >= n_items) continue;
+        const Item it = item(w);
+        for (int kt = 0; kt < it.n_kt; ++kt) {
+          for (int c = 0; c < nb; ++c, ++ta) {
+            const int s = ta % kWideStagesA;
+            mbar_wait(&empty_a[s], ((ta / kWideStagesA) & 1) ^ 1);
+            mbar_expect_tx(&full_a[s], kABytes);
+            unsigned char* st = ring_a + s * kABytes;
+            tma_load_3d(st, &tm_q, &full_a[s], 64 * c, it.q0, it.bh);
+            tma_load_3d(st + kQBlkBytes, &tm_k, &full_a[s], 64 * c,
+                        kt * kBlockK, it.bh);
+          }
+          const int s = tb % kWideStagesB;
+          mbar_wait(&empty_b[s], ((tb / kWideStagesB) & 1) ^ 1);
+          mbar_expect_tx(&full_b[s], kBBytes);
+          unsigned char* st = ring_b + s * kBBytes;
+          tma_load_tile<kDV, kBlockK>(st, &tm_v, &full_b[s], kt * kBlockK,
+                                      it.bh, it.dv0);
+          if constexpr (kBias == kBiasTile)
+            for (int b = 0; b < kBlockK / 32; ++b)
+              tma_load_3d(st + kVBytes + b * kBlockQ * 128, &tm_bias,
+                          &full_b[s], kt * kBlockK + 32 * b, it.q0,
+                          it.bh / bias_div);
+          ++tb;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = warp >> 2;
+  const int quad = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  int ta = 0, tb = 0;
+  for (int r = 0; r * static_cast<int>(gridDim.x) < n_items; ++r) {
+    const int w = item_index(r);
+    if (w >= n_items) continue;
+    const Item it = item(w);
+    const int bh = it.bh, q0 = it.q0;
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * (warp & 3) + (lane >> 2);
+    const int col_lim = wg == 0 ? it.lim0 : it.lim1;
+    const int my_kt = (col_lim + kBlockK - 1) / kBlockK;
+
+    const float* brow[2] = {nullptr, nullptr};
+    uint32_t key = 0, row_hash[2] = {0, 0};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (kBias == kBiasGlobal)
+        brow[h] = flash_operands::bias_row(bias, bh, bias_div, bias_rows,
+                                           min(row0 + 8 * h, sq - 1), sk);
+      if constexpr (kDropout) {
+        key = flash_operands::dropout_key(seed, bh);
+        row_hash[h] = flash_operands::dropout_row(key, row0 + 8 * h);
+      }
+    }
+
+    float acc_o[kDV / 2];
+#pragma unroll
+    for (int j = 0; j < kDV / 2; ++j) acc_o[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int kt = 0; kt < it.n_kt; ++kt) {
+      const bool mine = kt < my_kt;
+      // S = Q K^T, one column block of Q and K a stage of ring A
+      float acc_s[kBlockK / 2];
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) acc_s[i] = 0.f;
+      for (int c = 0; c < nb; ++c, ++ta) {
+        const int s = ta % kWideStagesA;
+        mbar_wait(&full_a[s], (ta / kWideStagesA) & 1);
+        if (mine) {
+          const unsigned char* st = ring_a + s * kABytes;
+          const uint64_t q_desc = make_desc<128>(st + wg * 64 * 128);
+          const uint64_t k_desc = make_desc<128>(st + kQBlkBytes);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(acc_s, desc_add(q_desc, 32 * kk),
+                     desc_add(k_desc, 32 * kk), 1);
+          wgmma_commit();
+          wgmma_wait();
+          fence_regs(acc_s);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty_a[s]);
+      }
+
+      const int sb = tb % kWideStagesB;
+      mbar_wait(&full_b[sb], (tb / kWideStagesB) & 1);
+      if (mine) {
+        const unsigned char* Vs = ring_b + sb * kBBytes;
+        const unsigned char* Bs = Vs + kVBytes;
+        const int c0 = kt * kBlockK + 2 * quad;
+        float bv[kBlockK / 2];
+        if constexpr (kBias == kBiasGlobal) {
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = c0 + 8 * j + e;
+                bv[4 * j + 2 * h + e] =
+                    col < col_lim ? flash_operands::bias_at(brow[h], col) : 0.f;
+              }
+        } else if constexpr (kBias == kBiasTile) {
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 b2 = *reinterpret_cast<const float2*>(
+                  flash_operands::bias_tile_at<kBlockQ>(Bs, row0 - q0 + 8 * h,
+                                                        8 * j + 2 * quad));
+              bv[4 * j + 2 * h] = fmaxf(b2.x, flash_operands::kPadValue);
+              bv[4 * j + 2 * h + 1] = fmaxf(b2.y, flash_operands::kPadValue);
+            }
+        }
+
+        // the online softmax, as the fixed instances run it
+        uint32_t pa[kBlockK / 4];
+        auto softmax = [&](auto edge_tag) {
+          constexpr bool kEdge = decltype(edge_tag)::value;
+          constexpr bool kRaw = !kEdge && !kHasBias;
+          float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * h + e;
+                const int col = c0 + 8 * j + e;
+                float x = acc_s[i];
+                if constexpr (kHasBias) x = fmaf(x, scale, bv[i]);
+                else if constexpr (kEdge) x *= scale;
+                if constexpr (kEdge) {
+                  if (col >= col_lim) x = -INFINITY;
+                  else if (causal && col > row0 + 8 * h + offset) x = kMaskValue;
+                }
+                acc_s[i] = x;
+                mx[h] = fmaxf(mx[h], x);
+              }
+          float alpha[2], mb[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            if constexpr (kRaw) mx[h] *= scale;
+            const float m_new = fmaxf(m[h], mx[h]);
+            alpha[h] = __expf(m[h] - m_new);
+            m[h] = m_new;
+            mb[h] = m_new * kLog2e;
+            l[h] *= alpha[h];
+          }
+#pragma unroll
+          for (int i = 0; i < kDV / 2; ++i) acc_o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+          for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float pv[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float x = acc_s[4 * j + 2 * h + e];
+                const float p = kRaw ? ex2(fmaf(x, scale_log2, -mb[h]))
+                                     : __expf(x - m[h]);
+                l[h] += p;
+                pv[e] = p;
+                if constexpr (kDropout)
+                  pv[e] = flash_operands::dropout_keep(key, row_hash[h],
+                                                       c0 + 8 * j + e, threshold)
+                              ? p * drop_scale
+                              : 0.f;
+              }
+              pa[2 * j + h] = pack_bf16(pv[0], pv[1]);
+            }
+        };
+        const bool edge = (kt + 1) * kBlockK > col_lim ||
+                          (causal && (kt + 1) * kBlockK - 1 > wq0 + offset);
+        if (edge)
+          softmax(std::true_type{});
+        else
+          softmax(std::false_type{});
+
+        // O += P V over this item's slice
+        const uint64_t v_desc =
+            make_desc<LV::kAtomBytes>(Vs, kBlockK * LV::kAtomBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk)
+          wgmma_rs(acc_o, pa + 4 * kk, desc_add(v_desc, LV::mnmajor_step(kk)),
+                   1);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(acc_o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_b[sb]);
+      ++tb;
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = row0 + 8 * h;
+      if (row >= sq) continue;
+      const float inv = 1.f / l[h];
+      bf16* og =
+          o + (static_cast<size_t>(bh) * sq + row) * d + it.dv0 + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < kDV / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * h] * inv,
+                                  acc_o[4 * j + 2 * h + 1] * inv);
+      if (quad == 0 && it.dv0 == 0) {
+        const size_t rr = static_cast<size_t>(bh) * sq + row;
+        lse[rr] = m[h] + logf(l[h]);
+        m_out[rr] = m[h];
+        l_out[rr] = l[h];
+      }
+    }
+  }
+}
+
+// The wide instance's launch (d a multiple of 128 above 256).
+template <int kBias, bool kDropout>
+int launch_wide(const void* q, const void* k, const void* v, const void* bias,
+                const void* seed, void* o, void* lse, void* m, void* l, int bh,
+                int sq, int sk, int d, int bias_div, int bias_rows, float scale,
+                int causal, int offset, uint32_t threshold, float drop_scale,
+                cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_bias{};
+  cudaError_t err = hopper_host::make_map(&tm_q, q, bh, sq, d, kBlockQ);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&tm_k, k, bh, sk, d, kWideBlockK);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&tm_v, v, bh, sk, d, kWideBlockK);
+  if (err == cudaSuccess && kBias == kBiasTile)
+    err = hopper_host::make_bias_map(&tm_bias, bias, bh / bias_div, sq, sk,
+                                     kBlockQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t bytes = wide_smem_bytes<kBias>();
+  auto* kernel = &flash_fwd_wide_kernel<kBias, kDropout>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_items = bh * (d / kWideDV) * ((sq + kBlockQ - 1) / kBlockQ);
+  const int grid = min(n_items, sms);
+  kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_bias, static_cast<const float*>(bias),
+      static_cast<const int*>(seed), static_cast<bf16*>(o),
+      static_cast<float*>(lse), static_cast<float*>(m),
+      static_cast<float*>(l), bh, sq, sk, d, scale, causal, offset, bias_div,
+      bias_rows, threshold, drop_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, int kBias, bool kDropout>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seed, void* o, void* lse, void* m, void* l, int bh,
@@ -531,9 +905,9 @@ extern "C" const char* apex_error_string(int code) {
 
 // q (bh, sq, d), k and v (bh, sk, d) bf16, 16-byte aligned; bias (groups,
 // bias_rows, sk) f32 or null; seed one int32 or null (no dropout); o (bh,
-// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32, 64, 128 or 256,
-// groups must divide bh and bias_rows be 1 or sq.  The causal mask is
-// aligned bottom-right.
+// sq, d) bf16; lse, m, l (bh, sq) f32.  d must be 32, 64, 128, 256 or a
+// multiple of 128 above 256, groups must divide bh and bias_rows be 1 or
+// sq.  The causal mask is aligned bottom-right.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* bias, const void* seed, void* o,
                          void* lse, void* m, void* l, int bh, int sq, int sk,
@@ -541,11 +915,26 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int causal, unsigned threshold, float drop_scale,
                          void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 ||
-      (d != 32 && d != 64 && d != 128 && d != 256) || groups <= 0 ||
-      bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
+      (d != 32 && d != 64 && d != 128 && !(d >= 256 && d % 128 == 0)) ||
+      groups <= 0 || bh % groups != 0 || (bias_rows != 1 && bias_rows != sq))
     return static_cast<int>(cudaErrorInvalidValue);
   const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
   const bool dropout = seed != nullptr;
+  if (d > 256) {
+    using WideFn = decltype(&launch_wide<kNoBias, false>);
+    const WideFn wide =
+        mode == kBiasTile
+            ? (dropout ? &launch_wide<kBiasTile, true>
+                       : &launch_wide<kBiasTile, false>)
+        : mode == kBiasGlobal
+            ? (dropout ? &launch_wide<kBiasGlobal, true>
+                       : &launch_wide<kBiasGlobal, false>)
+            : (dropout ? &launch_wide<kNoBias, true>
+                       : &launch_wide<kNoBias, false>);
+    return wide(q, k, v, bias, seed, o, lse, m, l, bh, sq, sk, d,
+                bh / groups, bias_rows, scale, causal, sk - sq, threshold,
+                drop_scale, static_cast<cudaStream_t>(stream));
+  }
   const LaunchFn run = d == 32    ? pick<32>(mode, dropout)
                        : d == 64  ? pick<64>(mode, dropout)
                        : d == 128 ? pick<128>(mode, dropout)

@@ -10,22 +10,23 @@ One ``autograd.Function`` (:class:`_Flash`) carries both directions:
   f32 row logsumexp; the backward is kernel K4 (``csrc/flash_bwd.cu``,
   replacing ``flash_bwd``) — dq, dk, dv recomputed in two passes.  Both
   take any ``S_q``/``S_k`` (the kernels mask their own ragged edge, so no
-  sequence is padded) and any head dim up to 256: the kernels have
-  instances at 32 (the evoformer's triangle attention), 64, 128 and 256
-  (whose products over D loop over 64-column blocks and whose D-indexed
-  outputs are split over CTAs), and the wrappers zero-pad q, k, v and dO
-  on the last dim up to the next one (:func:`kernel_head_dim`, the
-  counterpart of the reference's ``padded_head_dim``, which also pads a
-  head dim above 128 to a multiple of 128) and slice the outputs back,
-  which changes neither the scores (the scale is the caller's) nor the
-  dropout mask (indexed by (bh, i, j)).  bf16 q/k/v run K3/K4/K5 on the
-  tensor cores; f32 q/k/v run their f32 instances
-  (``csrc/flash_f32.cu``: K3 and K4 as 3xTF32 tensor-core products, K5
-  on the CUDA cores), as the reference runs f32 inputs at
-  ``Precision.HIGHEST``.  The kernel entry points take q, k and v of one
-  dtype; :func:`flash_attention` widens mixed dtypes and f16 exactly to
-  f32 first.  A head dim above 256 has no instance on the card yet and
-  raises there (ROADMAP C1); the plain twins take any.
+  sequence is padded) and any head dim: the kernels have instances at
+  32 (the evoformer's triangle attention), 64, 128 and 256 (whose
+  products over D loop over 64-column blocks and whose D-indexed outputs
+  are split over CTAs), and a wide one for any multiple of 128 above
+  256, whose number of 64-column blocks is a run-time argument and
+  whose products over D stream their operands through the ring a block
+  at a time, so its shared memory does not grow with D.  The wrappers
+  zero-pad q, k, v and dO on the last dim up to the instance's
+  (:func:`kernel_head_dim`, the counterpart of the reference's
+  ``padded_head_dim``: above 128 both pad to a multiple of 128) and slice
+  the outputs back, which changes neither the scores (the scale is the
+  caller's) nor the dropout mask (indexed by (bh, i, j)).  bf16 q/k/v
+  run K3/K4/K5 on the tensor cores; f32 q/k/v run their f32 instances
+  (``csrc/flash_f32.cu``: every product as 3xTF32 on the tensor cores),
+  as the reference runs f32 inputs at ``Precision.HIGHEST``.  The kernel
+  entry points take q, k and v of one dtype; :func:`flash_attention`
+  widens mixed dtypes and f16 exactly to f32 first.
   Every call on the card launches
   the kernels: the TPU's short-sequence routing to the unfused
   composition was a v5e measurement and is not carried over.
@@ -126,28 +127,26 @@ KERNEL_DBIAS = "flash_dbias"
 KERNEL_F32 = "flash_fwd_f32"
 KERNEL_BWD_F32 = "flash_bwd_f32"
 KERNEL_DBIAS_F32 = "flash_dbias_f32"
-#: the head dims the kernels are instantiated at
+#: the head dims the kernels are instantiated at; a wider head dim runs
+#: the wide instance at the next multiple of 128
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def kernel_head_dim(d: int) -> int:
-    """The kernels' head dim for a model's ``d``: the smallest of 32, 64,
-    128 and 256 that is at least ``d`` — the port's ``padded_head_dim``
-    (whose D <= 128 rounding to a multiple of 8 is a Mosaic tiling rule;
-    here the instances decide; above 128 both pad to a multiple of 128).
-    A head dim above 256 has no instance on the card yet: this raises
-    for it (the plain twins take any)."""
+    """The kernels' head dim for a model's ``d``: up to 256 the smallest
+    of 32, 64, 128 and 256 that is at least ``d``; above 256 the next
+    multiple of 128 (the wide instance).  Above 128 this is the
+    reference's ``padded_head_dim`` (a multiple of 128); at D <= 128 the
+    reference rounds to a multiple of 8, a Mosaic tiling rule, and here
+    the instances decide.  Raises only for d < 1."""
     d = int(d)
     if d < 1:
         raise ValueError(f"head dim must be positive, got {d}")
     for dk in KERNEL_HEAD_DIMS:
         if d <= dk:
             return dk
-    raise ValueError(
-        f"head dim {d} > {KERNEL_HEAD_DIMS[-1]} has no kernel instance on "
-        f"the card yet (ROADMAP C1)"
-    )
+    return -(-d // 128) * 128
 
 
 def _pad_head(x, dk):
@@ -406,7 +405,6 @@ def _check_qkv(name, q, k, v, *more):
             f"got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     bh, sq, d = q.shape
-    kernel_head_dim(d)  # raises above 256
     if bh == 0 or sq == 0 or k.shape[1] == 0:
         raise ValueError(f"{name} needs non-empty q and k")
 
@@ -465,7 +463,7 @@ def flash_fwd(q, k, v, bias=None, *, scale: float, causal: bool,
               dropout_p: float = 0.0, seed: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, ...]:
     """Kernel K3 on CUDA tensors.  q (BH, Sq, D), k/v (BH, Sk, D), all
-    bf16 (K3) or all f32 (its f32 instance), any D <= 256; optional bias
+    bf16 (K3) or all f32 (its f32 instance), any D; optional bias
     (G, RS, Sk) f32 and, with ``dropout_p``, an int32 seed (1,).  Returns
     o (BH, Sq, D) in q's dtype and the f32 lse, row max m and row sum l,
     (BH, Sq) each.  The causal mask is aligned bottom-right (offset ``Sk
@@ -506,7 +504,7 @@ def flash_bwd(q, k, v, do, m, l, delta, bias=None, *, scale: float,
               seed: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K4 on CUDA tensors.  q, do (BH, Sq, D) and k, v (BH, Sk,
-    D), all bf16 or all f32, any D <= 256; m, l and delta (BH, Sq) f32;
+    D), all bf16 or all f32, any D; m, l and delta (BH, Sq) f32;
     bias and seed as K3's.  Returns dq, dk, dv in q's dtype (the dK/dV
     pass, then the dQ pass)."""
     more = [t for t in (bias, seed) if t is not None]
@@ -537,7 +535,7 @@ def flash_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K5 on CUDA tensors: the f32 gradient of the (G, RS, Sk)
     ``bias``, in its layout, from K4's operands (q, do (BH, Sq, D) and k,
-    v (BH, Sk, D), all bf16 or all f32, any D <= 256; m, l, delta (BH,
+    v (BH, Sk, D), all bf16 or all f32, any D; m, l, delta (BH,
     Sq) f32; the int32 seed with ``dropout_p``).  Each group's members,
     and every query row when RS = 1, are summed inside the kernel in a
     fixed order: the gradient is the same from run to run."""

@@ -10,7 +10,12 @@ sequence against a KV history in the block-pooled paged cache
   replacing the Pallas ``paged_decode_fwd``) — reads the live pages in
   place through the page table, with the query RoPE and the int8 KV
   dequant fused, at any head dim without padding (padding would copy
-  the page pool, which is the KV cache).
+  the page pool, which is the KV cache).  It splits each sequence's
+  page table into runs of pages, one CTA per (sequence, head, run), by
+  the plan of :func:`decode_split_plan`, which reads shapes only (decode
+  is bound by the host: the lengths are never read back), and merges
+  the runs' partial softmax states in a fixed order inside the same
+  launch.
 
 Both share the semantics: positions ``>= lengths[b]`` are masked, an
 idle slot (``lengths[b] == 0``) returns exactly zeros, and RoPE is
@@ -21,7 +26,8 @@ time).  Inference only: the op runs under ``torch.no_grad()``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +36,7 @@ from apex_tpu_torch.ops.attention import MASK_VALUE
 from apex_tpu_torch.ops.rope import rotate_half
 
 __all__ = [
+    "decode_split_plan",
     "paged_decode_attention",
     "paged_decode_attention_reference",
     "paged_decode_fwd",
@@ -81,7 +88,63 @@ def paged_decode_attention_reference(
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+# q, k/v pages, k/v scales, table, lengths, cos, sin, out; batch, heads,
+# d, page, NP; scale, q dtype, kv dtype; workspace, counters; split pages,
+# splits; stream
+_ARGS = ([_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _I] + [_P, _P]
+         + [_I, _I, _P])
+
+#: the fewest tokens a split walks (two of the kernel's 32-token tiles)
+SPLIT_MIN_TOKENS = 64
+#: the most CTAs a launch asks for, per SM: a CTA whose split lies past
+#: its sequence exits at once, but still takes a slot in the grid
+SPLIT_MAX_CTAS_PER_SM = 64
+#: the most splits a row (the kernel merges them in one CTA)
+SPLIT_MAX = 128
+
+
+def decode_split_plan(batch: int, heads: int, np_: int, page: int,
+                      sms: int) -> Tuple[int, int]:
+    """K6's grid from shapes alone: ``(split_pages, n_split)``, the pages
+    of a split and the splits of a page-table row, so the kernel runs
+    ``batch * heads * n_split`` CTAs.  A split walks at least
+    ``SPLIT_MIN_TOKENS`` tokens (a few pages), so that a long sequence
+    spreads over many CTAs while a CTA still has a tile or two to
+    overlap; the grid is held to ``SPLIT_MAX_CTAS_PER_SM`` CTAs an SM, and
+    a row to ``SPLIT_MAX`` splits, by lengthening the splits.  Every split
+    starts inside the row (``n_split * split_pages`` covers ``np_`` and
+    ``(n_split - 1) * split_pages < np_``).  The lengths are not an
+    argument: the kernel reads them, and a CTA past its sequence's length
+    exits."""
+    for name, v in (("batch", batch), ("heads", heads), ("np_", np_),
+                    ("page", page), ("sms", sms)):
+        if int(v) < 1:
+            raise ValueError(f"{name} must be positive, got {v}")
+    split = -(-SPLIT_MIN_TOKENS // page)
+    max_splits = min(SPLIT_MAX, max(
+        1, SPLIT_MAX_CTAS_PER_SM * sms // (batch * heads)))
+    split = min(max(split, -(-np_ // max_splits)), np_)
+    return split, -(-np_ // split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: device -> K6's arrival counters: int32, zero between launches (the
+#: kernel's last CTA of each (sequence, head) resets its own), so no call
+#: pays a fill; grown, never shrunk.  The launches of one device share
+#: them, so K6 runs on one stream at a time (the decode step's).
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -101,7 +164,10 @@ def paged_decode_fwd(
     - ``page_table`` (B, NP) and ``lengths`` (B,) int32.  Page ids must
       lie in ``[0, P)``: the kernel reads them as given.
 
-    Returns (B, H, D) in ``q.dtype``."""
+    Returns (B, H, D) in ``q.dtype``.  One launch: the grid comes from
+    :func:`decode_split_plan`; with more than one split a row, the
+    partial states go to a workspace allocated here and the arrival
+    counters of :data:`_COUNTERS`."""
     operands = [q, k_pages, v_pages, page_table, lengths]
     has_scales = k_scale is not None
     has_rope = rope_cos is not None
@@ -153,20 +219,23 @@ def paged_decode_fwd(
     )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_fwd takes contiguous tensors")
-    if k_pages.data_ptr() % 16:
-        raise ValueError(
-            "k_pages must be 16-byte aligned (the kernel loads K rows as "
-            "16-byte vectors)"
-        )
     out = torch.empty_like(q)
     if b == 0:
         return out
+    dev = q.device
+    split, n_split = decode_split_plan(b, h, np_, page, _sms(dev.index))
+    work = counters = None
+    if n_split > 1:
+        work = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                           device=dev)
+        counters = _counters(dev, b * h)
     _dispatch.launch(
-        KERNEL, _ARGS, q.device, q.data_ptr(), k_pages.data_ptr(),
+        KERNEL, _ARGS, dev, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         page_table.data_ptr(), lengths.data_ptr(), _ptr(rope_cos),
         _ptr(rope_sin), out.data_ptr(), b, h, d, page, np_, float(scale),
-        _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
+        _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], _ptr(work),
+        _ptr(counters), split, n_split,
     )
     return out
 

@@ -24,6 +24,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from apex_tpu_torch.ops._dispatch import resolve_device
+
 __all__ = [
     "NULL_PAGE",
     "PagePool",
@@ -153,16 +155,19 @@ def init_kv_pages(
     head_dim: int,
     *,
     dtype=torch.bfloat16,
-    device="cpu",
+    device="cuda",
     kv_wire: str = "f32",
 ) -> dict:
     """Fresh zeroed pool tensors ``{"k", "v"}`` of ``(L, P, H, page,
-    D)`` in ``dtype`` on ``device``.  ``kv_wire="f32"`` (the KV cache in
-    the model dtype) is the only wire ported so far."""
+    D)`` in ``dtype`` on ``device`` (the card unless the caller asks for
+    the CPU; raises without a GPU, as every entry point does).
+    ``kv_wire="f32"`` (the KV cache in the model dtype) is the only wire
+    ported so far."""
     if kv_wire != "f32":
         raise NotImplementedError(
             f"kv_wire {kv_wire!r} is not ported yet (only 'f32')"
         )
+    device = resolve_device(device)
     shape = (num_layers, num_pages, num_heads, page_size, head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -27,12 +27,16 @@ a CUDA device it exits non-zero at once and prints no result.
    (the bias gradient) at the evoformer's two biased shapes and in every
    (G, RS) layout, causal and not, Sq != Sk both ways, ragged, with
    dropout, D = 32 and 64; K3 and K4 at D = 32, the triangle shape
-   with its G = BH bias included.  K3, K4 and K5 at D = 128 and 256 in
-   every bias mode and with dropout, at D = 48, 96 and 160 (padded by the
-   wrappers to 64, 128 and 256), and their f32 instances at D 32, 64, 96,
-   192 and the evoformer's triangle, MSA row and MSA column shapes, each
-   beside a TF32 control that must fail the f32 limit; K6 at D 80, 96,
-   128, 160, 192 and 256 (int8 and bf16 pages, RoPE); K1 and K2
+   with its G = BH bias included.  K3, K4 and K5 at D = 128, 256 and 384
+   (the wide instance) in every bias mode and with dropout, at D = 48,
+   96, 160 and 320 (padded by the wrappers to 64, 128, 256 and 384), and
+   their f32 instances at D 32, 64, 96, 128, 192, 320, 384 and the
+   evoformer's triangle, MSA row and MSA column shapes, each beside a
+   TF32 control that must fail the f32 limit by more than 10x; K6 at D
+   34, 60, 80, 96, 128, 160, 192, 256 and 320 (int8, f32 and bf16 pages,
+   RoPE, every copy width) and at lengths that straddle its splits (0, 1, a
+   split, a split + 1, NP x page), the decode batch run twice for the
+   same bits; K1 and K2
    also at widths 1001 (rows off 16-byte boundaries), 130 f32, 12288
    (streamed), 64 and 33 (several rows a warp).
 2. The serving slice: ``GptConfig()`` at full width (bf16, seeded random
@@ -50,14 +54,16 @@ a CUDA device it exits non-zero at once and prints no result.
    triangle, MSA row and MSA column attention, and serving), and K1/K2
    at the evoformer's f32 rows, K3/K4 at the reference's long-context
    shape (BH 8, S 16384, D 128, causal) and at D = 256 (BH 32, S 2048,
-   causal), and the f32 instances of K3-K5 at the triangle, MSA row and
-   MSA column shapes: each kernel,
+   causal), K3, K4 and K5 at D = 384 (BH 32, S 2048; K3/K4 causal), K6
+   at phase 1's short lengths, and the f32 instances of K3-K5 at the
+   triangle, MSA row and MSA column shapes: each kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
 5. Decode at batch 8, full width: host time per iteration unprofiled,
    then a ``torch.profiler`` trace of 4 iterations — the device time of
-   their kernels (the device's busy share), the kernels that took most,
+   their kernels (the device's busy share), K6's share of it and its
+   launches per step, the kernels that took most,
    and the host side split into the time inside PyTorch ops and runtime
    calls (by op) and the Python time outside them.
 6. The training slice: ``python -m apex_tpu_torch.examples.train_gpt``'s
@@ -88,7 +94,7 @@ a CUDA device it exits non-zero at once and prints no result.
     one profiled step by layer.  Then the same 4 blocks with f32
     attention (the JAX module's precision) for 8 steps: exact counts of
     K1, K2 and the f32 instances of K3-K5, losses falling, step time and
-    one profiled step by layer.
+    one profiled step by layer, with K5 f32's share of its kernel time.
 11. Evoformer cross-check: one full-width block at N_res 64, N_seq 32 —
     the loss, every gradient and the weights after one FusedAdam step,
     card (bf16 attention) against CPU (f32), and a planted fault (K5's
@@ -106,6 +112,18 @@ three shapes) and runs phase 10's f32 training, and prints them as one
 JSON line: copied beside another tree's ``apex_tpu_torch`` it times that
 tree's kernels with this script's timing code, for a comparison of two
 commits.
+
+    python3 chip_smoke.py --timing
+
+runs phase 4 alone (no launch counts, no phase-1 errors) and prints its
+rows as one JSON line, for the same kind of comparison; the D = 384 rows
+of a tree whose kernels refuse that head dim (an older one) are logged
+as refused and left out.
+
+    python3 chip_smoke.py --phase1
+
+runs phase 1 alone (every kernel against its plain version) and prints
+the errors as one JSON line: the quick check of a kernel's first build.
 """
 
 import dataclasses
@@ -404,11 +422,11 @@ def phase1_paged(gen):
     from apex_tpu_torch.ops import paged_attention as pa
 
     main_err = None
-    # the decode batch, int8 pages, f32 pages, then head dims past the
+    # the decode batch (32 splits a row, run twice for the same bits),
+    # int8 pages, f32 pages (one split a row), then head dims past the
     # main path's 64, all with the fused RoPE: 96 and 128 with int8 pages
-    # and bf16 pages (whole 16-byte vectors per K row), 80 and 48,
-    # which are no multiple of 32 (one element per load, lanes past d
-    # masked), and 256, 192 and 160, past 128
+    # and bf16 pages, 80 and 48, which are no multiple of 32, and 256,
+    # 192 and 160, past 128; then lengths that straddle the splits
     cases = (
         ("bf16", dict(b=8, h=16, d=64, page=16, np_=128, pool=1025,
                       lengths=MAIN_LENGTHS)),
@@ -433,6 +451,22 @@ def phase1_paged(gen):
                       lengths=[0, 1, 100, 128])),
         ("bf16", dict(b=4, h=4, d=160, page=16, np_=8, pool=33,
                       lengths=[0, 1, 100, 128])),
+        # lengths across the split edges (NP 12, page 16: 4-page splits,
+        # 3 a row): 0, 1, one split, a split + 1, NP x page
+        ("bf16", dict(b=6, h=4, d=64, page=16, np_=12, pool=80,
+                      lengths=[0, 1, 64, 65, 192, 100])),
+        ("int8", dict(b=6, h=4, d=128, page=16, np_=12, pool=80,
+                      lengths=[0, 1, 64, 65, 192, 100])),
+        ("f32", dict(b=6, h=2, d=256, page=16, np_=12, pool=80,
+                     lengths=[0, 1, 64, 65, 192, 100])),
+        ("bf16", dict(b=6, h=2, d=320, page=16, np_=12, pool=80,
+                      lengths=[0, 1, 64, 65, 192, 100])),
+        # rows no multiple of 16 bytes (4-byte copies) or of 4 (element
+        # copies), across splits
+        ("bf16", dict(b=6, h=2, d=60, page=16, np_=12, pool=80,
+                      lengths=[0, 1, 64, 65, 192, 100])),
+        ("int8", dict(b=6, h=2, d=34, page=8, np_=20, pool=130,
+                      lengths=[0, 1, 64, 65, 160, 100])),
     )
     for kv, shape in cases:
         args = paged_inputs(**shape, gen=gen, kv=kv)
@@ -451,6 +485,9 @@ def phase1_paged(gen):
             raise AssertionError(tag + ": an idle slot is not exactly zero")
         if main_err is None:
             main_err = e
+            # the splits merge in a fixed order: the same bits again
+            check_repeat(tag, (out,), (pa.paged_decode_fwd(*pos, scale=scale,
+                                                           **kw),))
     return main_err
 
 
@@ -897,6 +934,13 @@ HEAD_DIM_CASES = (
     ("D=256 G=B RS=Sq, Sk % 4 != 0", 8, 130, 37, 256, True, (2, 130), 0.0),
     ("D=160 (padded to 256) G=BH RS=Sq", 8, 200, 200, 160, True, (8, 200),
      0.0),
+    # above 256: the wide instance (64-column blocks streamed)
+    ("D=320 (padded to 384) causal", 8, 256, 256, 320, True, None, 0.0),
+    ("D=384 G=BH RS=Sq + dropout 0.1", 8, 200, 200, 384, False, (8, 200),
+     0.1),
+    ("D=384 G=B RS=1 + dropout 0.1", 8, 200, 136, 384, True, (2, 1), 0.1),
+    ("D=320 (padded to 384) G=BH RS=Sq, Sk % 4 != 0", 8, 130, 37, 320, True,
+     (8, 130), 0.0),
 )
 F32_CASES = (
     ("f32 D=64", 8, 256, 256, 64, True, None, 0.0),
@@ -919,6 +963,16 @@ F32_CASES = (
      MSA_ROW_SHAPE[1], 64, False, (MSA_ROW_SHAPE[0], MSA_ROW_SHAPE[1]), 0.0),
     ("f32 MSA column D=64 no bias", MSA_COL_SHAPE[0], MSA_COL_SHAPE[1],
      MSA_COL_SHAPE[1], 64, False, None, 0.0),
+    # K5 at D = 128 with two members (64-column blocks, Q and dO streamed)
+    ("f32 D=128 G=B RS=Sq", 4, 136, 136, 128, False, (2, 136), 0.0),
+    # above 256: the wide instances
+    ("f32 D=384 causal", 4, 256, 256, 384, True, None, 0.0),
+    ("f32 D=384 G=BH RS=Sq + dropout 0.1", 4, 200, 136, 384, False,
+     (4, 200), 0.1),
+    ("f32 D=320 (padded to 384) G=B RS=1", 4, 136, 200, 320, True, (2, 1),
+     0.0),
+    ("f32 D=320 (padded to 384) G=B RS=Sq, Sk % 4 != 0", 4, 130, 37, 320,
+     True, (2, 130), 0.0),
 )
 
 
@@ -940,19 +994,25 @@ def tf32_twin(fn, q, k, v, *rest, **kw):
 
 def f32_control(tag, names, ref, bad):
     """compare() of the TF32 control (:func:`tf32_twin`) with the sound
-    twin under F32_ATTN_TOL: at least one output must fail, or the limit
-    could not tell an f32 kernel from one on bf16 or TF32 tensor cores."""
-    failed = []
+    twin under F32_ATTN_TOL: at least one output must fail, by more than
+    10 times its allowance, or the limit could not tell an f32 kernel
+    from one on bf16 or TF32 tensor cores."""
+    failed, worst = [], 0.0
     for name, a, r in zip(names, bad, ref):
+        a, r = a.float(), r.float()
+        allowed = F32_ATTN_TOL["atol"] + F32_ATTN_TOL["rtol"] * r.abs()
+        worst = max(worst, float(((a - r).abs() / allowed).max()))
         try:
             compare(f"{tag} {name}, control (twin on TF32)", a, r,
                     F32_ATTN_TOL)
         except AssertionError:
             failed.append(name)
-    log(f"  {tag} control fails on {failed or 'nothing'}: "
-        f"{'ok' if failed else 'FAIL'}")
-    if not failed:
-        raise AssertionError(f"{tag}: F32_ATTN_TOL passes TF32 products")
+    ok = bool(failed) and worst > 10.0
+    log(f"  {tag} control fails on {failed or 'nothing'}, worst "
+        f"err/allowance {worst:.1f}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"{tag}: F32_ATTN_TOL does not reject TF32 products by 10x")
 
 
 def phase1_head_dims(gen):
@@ -975,8 +1035,8 @@ def phase1_head_dims(gen):
 
     from apex_tpu_torch.ops import attention as attn
 
-    log("phase 1: K3/K4/K5 at D = 128 and padded head dims, and their f32 "
-        "instances, against their twins")
+    log("phase 1: K3/K4/K5 at D = 128, 256, 384 and padded head dims, and "
+        "their f32 instances, against their twins")
     errs = {}
     for tag, bh, sq, sk, d, causal, layout, p in HEAD_DIM_CASES + F32_CASES:
         f32 = tag.startswith("f32")
@@ -1003,7 +1063,7 @@ def phase1_head_dims(gen):
                                   **kw))
         else:
             e3 = check_k3("K3 " + tag, out, ref)
-        if d == 128 and causal and bias is None:
+        if d in (128, 320) and causal and bias is None and not f32:
             check_repeat("K3 " + tag, out, attn.flash_fwd(q, k, v, bias, **kw))
         o, _, m, l = ref
         delta = (do.float() * o.float()).sum(-1)
@@ -1018,7 +1078,7 @@ def phase1_head_dims(gen):
                         tf32_twin(attn.flash_bwd_reference, *args, **kw))
         else:
             e4 = check_k4("K4 " + tag, out, ref)
-        if d == 128 and causal and bias is None:
+        if d in (128, 320) and causal and bias is None and not f32:
             check_repeat("K4 " + tag, out, attn.flash_bwd(*args, **kw))
         del out, ref
         e5 = None
@@ -1429,6 +1489,67 @@ def _time_attn(gen, flush, bh, s, *, with_bwd, d=64):
 LONG_BH, LONG_S, LONG_D = 8, 16384, 128
 #: phase 4's head dim past 128 (B 4, H 8, S 2048, D 256, causal)
 WIDE_BH, WIDE_S, WIDE_D = 32, 2048, 256
+#: and past 256: the wide instance
+WIDER_D = 384
+
+
+def sdpa_backend(fn):
+    """The backend SDPA dispatches ``fn`` to: the first of its priority
+    order (``torch._C._get_sdp_priority_order``, else flash, efficient,
+    cuDNN, math) that accepts the call."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        order = [SDPBackend(int(b)) for b in torch._C._get_sdp_priority_order()]
+    except (AttributeError, TypeError, ValueError):
+        order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]):
+                fn()
+            return backend.name.lower()
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def _time_attn_wider(gen, flush):
+    """K3, K4 (causal) and K5 (non-causal, a (BH, S, S) f32 bias at G =
+    BH) at BH 32, S 2048, D 384, the wide instance, beside their plain
+    versions and SDPA on whichever backend it picks for a head dim its
+    flash kernels refuse (named in each row); None where this tree's
+    kernels refuse the head dim (an older tree)."""
+    import torch
+    import torch.nn.functional as F
+
+    bh, s, d = WIDE_BH, WIDE_S, WIDER_D
+    try:
+        fwd, bwd = _time_attn(gen, flush, bh, s, with_bwd=True, d=d)
+    except ValueError as exc:  # a tree without the wide instance
+        log(f"  D = {d} refused: {exc}")
+        return None
+    q, k, v = attn_inputs(bh, s, s, d, gen)
+    qr, kr, vr = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
+    lib = sdpa_backend(lambda: F.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=True, scale=d ** -0.5))
+    fwd["library"] = bwd["library"] = f"SDPA ({lib} backend)"
+    del q, k, v, qr, kr, vr
+    torch.cuda.empty_cache()
+    k5 = _time_evo_attention(gen, flush, bh, s, d, with_k34=False)
+    b = bh // EVO_HEADS
+    q, k, v = (t.reshape(b, EVO_HEADS, s, d) for t in attn_inputs(bh, s, s, d,
+                                                                  gen))
+    mask = torch.zeros(b, EVO_HEADS, s, s, device="cuda",
+                       dtype=torch.bfloat16, requires_grad=True)
+    lib = sdpa_backend(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                       scale=d ** -0.5), mask,
+        torch.ones_like(q)))
+    k5["flash_dbias"]["library"] = (f"SDPA backward with the mask's "
+                                    f"gradient ({lib} backend)")
+    return fwd, bwd, k5["flash_dbias"]
 
 
 def _time_attn_long(gen, flush):
@@ -1563,10 +1684,9 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
     flops per pair forward, 5 backward, 2 for K5's recompute.  Without
     ``with_bias`` (MSA column attention) only K3 and K4 run, and SDPA
     without a mask.  With ``dtype="f32"`` q, k, v, dO, the SDPA mask and
-    SDPA run in f32 and the bytes count 4 per element; K3's and K4's f32
-    instances count three TF32 products per product against the TF32
-    tensor-core peak (3xTF32), K5's f32 instance its products against
-    the f32 peak of the CUDA cores."""
+    SDPA run in f32 and the bytes count 4 per element; the f32 instances
+    of K3, K4 and K5 count three TF32 products per product against the
+    TF32 tensor-core peak (3xTF32)."""
     import torch
     import torch.nn.functional as F
 
@@ -1578,9 +1698,8 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
     if dtype == "f32":
         q, k, v = (t.float() for t in (q, k, v))
     elem = q.element_size()
-    # K3/K4: (product multiplier, peak); K5 on the CUDA cores in f32
+    # (product multiplier, peak) of K3, K4 and K5
     k34 = (3, TF32_TENSOR_FLOPS) if dtype == "f32" else (1, BF16_TENSOR_FLOPS)
-    k5_peak = F32_FLOPS if dtype == "f32" else BF16_TENSOR_FLOPS
     bias = (torch.randn(bh, s, s, generator=gen, device="cuda") if with_bias
             else None)
     kw = dict(scale=scale, causal=False)
@@ -1659,7 +1778,8 @@ def _time_evo_attention(gen, flush, bh, s, d, *, with_k34, with_bias=True,
         k4_plus_k5_ms=k4_ms + k5_ms,
     )
     rows["flash_dbias"]["bound_ms"], rows["flash_dbias"]["bound_by"] = bound(
-        4 * elems * elem + stats + 2 * bias_bytes, 4 * d * pairs, k5_peak)
+        4 * elems * elem + stats + 2 * bias_bytes, k34[0] * 4 * d * pairs,
+        k34[1])
     return rows
 
 
@@ -1697,10 +1817,12 @@ def phase4(gen, launches, errs):
     and K4 at the MSA column shape).  Beside them: K1 and K2 at the
     evoformer's f32 rows (pair (65536, 128), MSA (32768, 256)), K3 and K4
     at the reference's long-context shape (BH 8, S 16384, D 128, causal)
-    and at D = 256 (BH 32, S 2048, causal), and the f32 instances of K3,
-    K4 and K5 at the triangle, MSA row and MSA column shapes (the
+    and at D = 256 (BH 32, S 2048, causal), K3, K4 and K5 at D = 384 (BH
+    32, S 2048), K6 at phase 1's short lengths, and the f32 instances of
+    K3, K4 and K5 at the triangle, MSA row and MSA column shapes (the
     f32-attention run of phase 10).  ``launches`` maps kernel -> {path:
-    count} from the phase-2, -6, -8 and -10 runs."""
+    count} from the phase-2, -6, -8 and -10 runs (empty with
+    ``--timing``)."""
     import torch
 
     from apex_tpu_torch.ops import _build
@@ -1784,6 +1906,17 @@ def phase4(gen, launches, errs):
     extra["flash_bwd"]["d256_shape"] = dict(wide_bwd,
                                             shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
+    # and past 256 (the wide instance)
+    wider = _time_attn_wider(gen, flush)
+    if wider is not None:
+        shape = f"BH={WIDE_BH} S={WIDE_S} D={WIDER_D} bf16 (no model path)"
+        for name, r, what in zip(
+                ("flash_fwd", "flash_bwd", "flash_dbias"), wider,
+                (" causal", " causal, m/l/delta f32",
+                 f" non-causal, bias ({WIDE_BH}, {WIDE_S}, {WIDE_S}) f32")):
+            extra.setdefault(name, {})["d384_shape"] = dict(
+                r, shape=shape + what)
+    torch.cuda.empty_cache()
 
     serving = {}
     serving["layer_norm_fwd"] = dict(_time_ln(gen, flush, 2048, 1024)[0],
@@ -1836,11 +1969,30 @@ def phase4(gen, launches, errs):
         library_ms=time_ms(library_paged, flush=flush),
         bound_ms=b_ms, bound_by=b_by,
     )
+    # and at phase 1's short lengths (one split a row): f32 pages
+    short = paged_inputs(b=3, h=4, d=32, page=8, np_=3, pool=12,
+                         lengths=[17, 9, 0], gen=gen, kv="f32")
+    pos = [short[k] for k in ("q", "k_pages", "v_pages", "page_table",
+                              "lengths")]
+    kw = dict(scale=32 ** -0.5, rope_cos=short["rope_cos"],
+              rope_sin=short["rope_sin"])
+    tokens = 17 + 9
+    b_ms, b_by = bound(2 * tokens * 4 * 32 * 4 + 2 * 3 * 4 * 32 * 4
+                       + 2 * 3 * 32 * 4 + 4 * 9 + 4 * 3,
+                       4 * 4 * 32 * tokens, F32_FLOPS)
+    extra.setdefault("paged_decode", {})["short_shape"] = dict(
+        shape="B=3 H=4 D=32 page=8 NP=3 f32, lengths [17, 9, 0]",
+        ms=time_ms(lambda: pa.paged_decode_fwd(*pos, **kw), flush=flush),
+        plain_ms=time_ms(
+            lambda: pa.paged_decode_attention_reference(*pos, **kw),
+            flush=flush),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
 
     def fields(r):
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "shape",
-                                        "k4_ms", "k4_plus_k5_ms")
+                                        "bound_by", "library_ms", "library",
+                                        "shape", "k4_ms", "k4_plus_k5_ms")
                 if key in r}
 
     kernels = []
@@ -1851,9 +2003,9 @@ def phase4(gen, launches, errs):
             "route": "cuda",
             "source": f"apex_tpu_torch/csrc/{_build.library(name)}.cu",
             "replaces": REPLACES[name],
-            "launches": sum(launches[name].values()),
-            "launches_by_path": launches[name],
-            "max_abs_err": errs[name],
+            "launches": sum(launches.get(name, {}).values()),
+            "launches_by_path": launches.get(name, {}),
+            "max_abs_err": errs.get(name),
             **fields(main),
         }
         if name + "_d128" in errs:  # phase 1's first D = 128 case
@@ -1871,6 +2023,8 @@ def phase4(gen, launches, errs):
                        (" (MSA column)", entry.get("msa_col_shape")),
                        (" (long context)", entry.get("long_context_shape")),
                        (" (D = 256)", entry.get("d256_shape")),
+                       (" (D = 384)", entry.get("d384_shape")),
+                       (" (short lengths)", entry.get("short_shape")),
                        (" (evoformer pair)", entry.get("evo_pair_shape")),
                        (" (evoformer MSA)", entry.get("evo_msa_shape"))):
             if r is None:
@@ -1883,6 +2037,8 @@ def phase4(gen, launches, errs):
                    f" (K4 {r['k4_ms']:.4f} ms, K4 + K5 "
                    f"{r['k4_plus_k5_ms']:.4f} ms beside the library's "
                    f"backward with the mask's gradient)")
+            if "library" in r:
+                lib += f" ({r['library']})"
             log(f"  {name}{tag} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
                 f"plain {plain_s}, library {lib}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}){k45}")
@@ -1906,13 +2062,19 @@ def device_kernels(prof):
 
 #: kernel-name fragments -> the layer that owns the time (phases 6, 8, 10)
 KERNEL_GROUPS = (
-    ("K3 flash_fwd", ("flash_fwd_kernel",)),
-    ("K4 flash_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")),
+    ("K3 flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
+    ("K4 flash_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkdv_wide_kernel",
+                      "flash_bwd_dq_wide_kernel")),
     ("K5 flash_dbias", ("flash_dbias_kernel",)),
-    ("K3 flash_fwd_f32", ("flash_fwd_f32_kernel",)),
+    ("K3 flash_fwd_f32", ("flash_fwd_f32_kernel",
+                          "flash_fwd_f32_wide_kernel")),
     ("K4 flash_bwd_f32", ("flash_bwd_dkdv_f32_kernel",
-                          "flash_bwd_dq_f32_kernel")),
+                          "flash_bwd_dq_f32_kernel",
+                          "flash_bwd_dkdv_f32_wide_kernel",
+                          "flash_bwd_dq_f32_wide_kernel")),
     ("K5 flash_dbias_f32", ("flash_dbias_f32_kernel",)),
+    ("K6 paged_decode", ("paged_decode_kernel",)),
     ("K1 layer_norm_fwd", ("ln_fwd_kernel",)),
     ("K2 layer_norm_bwd", ("ln_bwd_kernel",)),
     ("cuBLAS GEMMs", ("nvjet", "gemm", "xmma", "cutlass")),
@@ -2007,11 +2169,18 @@ def phase5(engine):
         "device_busy_share_unprofiled": busy_us / 1e3 / steps / plain_ms,
         "kernel_launches_per_step": launches / steps,
     })
+    k6 = [k for k in kernels if "paged_decode_kernel" in k[0]]
+    out["k6_ms_per_step"] = sum(k[1] for k in k6) / 1e3 / steps
+    out["k6_launches_per_step"] = sum(k[2] for k in k6) / steps
+    out["k6_share_of_device"] = out["k6_ms_per_step"] / out[
+        "device_ms_per_step"]
     log(f"  device kernels {out['device_ms_per_step']:.3f} ms/step, busy "
         f"share {out['device_busy_share']:.3f} profiled and "
         f"{out['device_busy_share_unprofiled']:.3f} against the unprofiled "
         f"host time, {out['kernel_launches_per_step']:.0f} kernel "
-        f"launches/step")
+        f"launches/step; K6 {out['k6_ms_per_step']:.4f} ms/step in "
+        f"{out['k6_launches_per_step']:.0f} launches, "
+        f"{out['k6_share_of_device']:.3f} of the kernel time")
     for key, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
         log(f"    {us / steps / 1e3:8.4f} ms/step  {count // steps:4d}x  "
             f"{key[:90]}")
@@ -2751,6 +2920,11 @@ def phase10_f32():
     out = {"losses": losses, "step_seconds": seconds,
            "step_ms_median": step_s * 1e3, "blocks": EVO_F32_BLOCKS,
            **profiled_step(step, step_s)}
+    k5_ms = out["device_ms_by_layer"]["K5 flash_dbias_f32"]
+    out["k5_f32_share_of_device"] = k5_ms / out["profiled_device_ms"]
+    log(f"  K5 flash_dbias_f32: {k5_ms:.2f} ms of the profiled step's "
+        f"{out['profiled_device_ms']:.1f} ms of kernels "
+        f"({out['k5_f32_share_of_device']:.3f})")
     del blocks, opt, m, z, tm, tz
     torch.cuda.empty_cache()
     return launches, out
@@ -2958,6 +3132,11 @@ def main():
     parser.add_argument("--f32-attention", action="store_true",
                         help="time only the f32 instances of K3-K5 and "
                         "phase 10's f32 run")
+    parser.add_argument("--timing", action="store_true",
+                        help="run phase 4 alone (the kernels' times)")
+    parser.add_argument("--phase1", action="store_true",
+                        help="run phase 1 alone (the kernels against their "
+                        "plain versions)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2992,7 +3171,14 @@ def main():
         print(json.dumps({"f32_attention": rows,
                           "evoformer_f32_attention": run}), flush=True)
         return
+    if args.timing:
+        print(json.dumps({"timing": phase4(gen, {}, {})}), flush=True)
+        return
     errs = phase1(gen)
+    if args.phase1:
+        errs.update(phase1_flash_dbias(gen))
+        print(json.dumps({"phase1": errs}), flush=True)
+        return
     errs.update(phase1_flash_dbias(gen))
     serve_launches, rates, engine = phase2()
     cross = phase3()

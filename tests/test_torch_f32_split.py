@@ -18,6 +18,15 @@ the JAX package's f32 reference (``jax.vjp`` of
 - the same composition with one TF32 product per step (what a kernel on
   TF32 or bf16 tensor cores computes) fails it.
 
+K5's f32 instance takes the same products since its redesign: it
+recomputes S = Q K^T and dP = dO V^T as 3xTF32 products (64-column blocks
+of a wide head in order, which is the same k8 order), p = exp(s - m) / l
+from the forward's m and l, ds = p (dp - delta), and sums ds over a
+group's heads in member order.  :func:`emulated_dbias` composes that, at
+G = BH and at G = B (a head-independent bias, two members), at D 32, 64,
+192 and 384, against the gradient of the JAX reference's bias: it meets
+``F32_ATTN_TOL`` with three products and fails it with one.
+
 The emulation stands alone here: it is not a feature of the port.
 """
 
@@ -148,3 +157,61 @@ def test_split_recovers_f32_to_22_bits():
     err = np.abs((big.astype(np.float64) + small) - x) / np.abs(x)
     assert err.max() <= 2.0 ** -22
     assert (np.abs(big.astype(np.float64) - x) / np.abs(x)).max() > 2.0 ** -14
+
+
+def emulated_dbias(q, k, v, bias, do, scale, passes, members):
+    """K5's arithmetic on the emulated products: the forward's m, l and o
+    (for delta), then K5's recompute of s and dp, p = exp(s - m) / l, ds =
+    p (dp - delta), and each group's ``members`` heads summed in order
+    (f32 after every add).  ``bias`` is (B, H // members, S, S)."""
+    t = lambda x: np.swapaxes(x, -1, -2)  # noqa: E731
+    b, h = q.shape[:2]
+    full = np.repeat(bias, members, axis=1)
+    s = (product(q, t(k), passes) * F32(scale) + full).astype(F32)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m).astype(F32)
+    l = p.sum(-1, keepdims=True, dtype=F32)
+    o = (product(p, v, passes) / l).astype(F32)
+    delta = (do * o).sum(-1, keepdims=True, dtype=F32)
+    # K5: the recompute from m and l
+    s5 = (product(q, t(k), passes) * F32(scale) + full).astype(F32)
+    p5 = (np.exp(s5 - m) * (F32(1) / l)).astype(F32)
+    dp = product(do, t(v), passes)
+    ds = (p5 * (dp - delta)).astype(F32)
+    ds = ds.reshape(b, h // members, members, *ds.shape[2:])
+    acc = np.zeros_like(ds[:, :, 0])
+    for member in range(members):
+        acc = (acc + ds[:, :, member]).astype(F32)
+    return acc
+
+
+def _dbias_case(d, members, seed):
+    rs = np.random.RandomState(seed)
+    b, h, s = 1, 2, 96
+    q, k, v, do = (rs.randn(b, h, s, d).astype(F32) for _ in range(4))
+    bias = rs.randn(b, h // members, s, s).astype(F32)
+    scale = d ** -0.5
+    with jax.default_matmul_precision("float32"):
+        _, vjp = jax.vjp(
+            lambda e: jax_attn.mha_reference(*(jnp.asarray(x)
+                                               for x in (q, k, v)), e,
+                                             scale=scale),
+            jnp.asarray(bias))
+        want = np.asarray(vjp(jnp.asarray(do))[0])
+    return (q, k, v, bias, do, scale), want
+
+
+@pytest.mark.parametrize("d", [32, 64, 192, 384])
+@pytest.mark.parametrize("members", [1, 2])
+def test_k5_three_tf32_products_meet_the_f32_limit(d, members):
+    args, want = _dbias_case(d, members, 170 + d + members)
+    got = emulated_dbias(*args, passes=3, members=members)
+    np.testing.assert_allclose(got, want, **F32_ATTN_TOL)
+    assert _worst([got], [want]) < 0.5
+
+
+@pytest.mark.parametrize("d", [32, 64, 192, 384])
+def test_k5_one_tf32_product_fails_the_f32_limit(d):
+    args, want = _dbias_case(d, 1, 170 + d + 1)
+    got = emulated_dbias(*args, passes=1, members=1)
+    assert _worst([got], [want]) > 10.0

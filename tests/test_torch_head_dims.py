@@ -2,8 +2,9 @@
 package, and the launch plan of the redesigned K1/K2.
 
 - The card pads a head dim that has no kernel instance (48, 96, 160) to
-  the next one (64, 128, 256) and slices the outputs back; D = 128 and
-  256 have their own instances.  Here that composition —
+  the next one (64, 128, 256), and one above 256 to the next multiple of
+  128 (320 to 384, the wide instance), and slices the outputs back; D =
+  128 and 256 have their own instances.  Here that composition —
   ``kernel_head_dim``, the wrappers' own padding helper, the plain twins
   at the padded D, the slice — is held against
   ``apex_tpu.ops.attention.flash_attention`` on its Pallas kernels in
@@ -12,17 +13,17 @@ package, and the launch plan of the redesigned K1/K2.
   trainable bias's gradient through ``jax.vjp``.  Tolerance 2e-5, as
   ``test_torch_attention.py``: the Pallas kernels take an online softmax
   over key blocks, the twins one softmax over the row.
-- The port's public ``flash_attention`` at D = 160 and 256 (its autograd
-  over the twins on the CPU), with and without a trainable bias, against
-  ``jax.vjp`` of the JAX function on the Pallas kernels; TOL.
+- The port's public ``flash_attention`` at D = 160, 256, 320 and 384 (its
+  autograd over the twins on the CPU), with and without a trainable
+  bias, against ``jax.vjp`` of the JAX function on the Pallas kernels;
+  TOL.
 - f32 q/k/v: the port's autograd on f32 inputs (its twins on the CPU,
   the f32 kernel instances on the card) against the JAX function at f32
   (the Pallas dots at ``Precision.HIGHEST``), with a trainable bias and
   with dropout at the same int32 seed, D 64 and 96; TOL.
 - The wrappers' route on the card, with the launch stood in for: bf16 to
   K3/K4/K5, f32 to their f32 instances, the padded head dim in the C
-  arguments; mixed dtypes and D > 256 (no instance yet) raise, naming
-  the gap.
+  arguments (384 for D = 320, the wide instance); mixed dtypes raise.
 - K6's twin at D 96, 128, 192 and 256 (no padding: K6 takes any D) with
   the fused RoPE and int8 pages against the JAX paged decode in
   interpret mode; tolerance 2e-6, as ``test_torch_paged_attention.py``.
@@ -160,23 +161,27 @@ def test_instance_head_dims_are_not_copied():
 @pytest.mark.parametrize("d,want", [(1, 32), (32, 32), (33, 64), (48, 64),
                                     (64, 64), (65, 128), (96, 128),
                                     (128, 128), (129, 256), (160, 256),
-                                    (192, 256), (256, 256)])
+                                    (192, 256), (256, 256), (257, 384),
+                                    (320, 384), (384, 384), (513, 640)])
 def test_kernel_head_dim(d, want):
+    """The instances up to 256; above, the reference's padded_head_dim (a
+    multiple of 128), which the wide instance takes."""
     assert port_attn.kernel_head_dim(d) == want
+    if d > 128:
+        assert want % 128 == 0 and want - d < 128
 
 
-@pytest.mark.parametrize("d", [0, 257, 384])
+@pytest.mark.parametrize("d", [0])
 def test_kernel_head_dim_refuses_what_is_not_ported(d):
-    """D = 0 is no head dim; above 256 the card has no instance yet (the
-    plain twins, and so every entry point on the CPU, take any D)."""
-    with pytest.raises(ValueError, match="ROADMAP C1" if d else "positive"):
+    """D = 0 is no head dim: the only one the card refuses."""
+    with pytest.raises(ValueError, match="positive"):
         port_attn.kernel_head_dim(d)
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 320, 384])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_wide_head_dims_match_jax(force_pallas, d, with_bias):
-    """``flash_attention`` at D = 160 and 256 on the CPU (the port's
+    """``flash_attention`` at D = 160, 256, 320 and 384 on the CPU (the port's
     autograd over the twins), causal without a bias and non-causal with
     a trainable (B, H, S, S) one: o and every gradient against
     ``jax.vjp`` of the JAX function on its Pallas kernels; TOL."""
@@ -262,7 +267,8 @@ def fake_card(monkeypatch):
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""),
                                           (torch.float32, "_f32")])
 @pytest.mark.parametrize("d,padded", [(32, 32), (48, 64), (96, 128),
-                                      (128, 128), (160, 256), (256, 256)])
+                                      (128, 128), (160, 256), (256, 256),
+                                      (320, 384), (384, 384)])
 def test_wrappers_route_by_dtype_and_pad(fake_card, dtype, suffix, d, padded):
     bh, s = 2, 16
     q = torch.zeros(bh, s, d, dtype=dtype)
@@ -281,16 +287,22 @@ def test_wrappers_route_by_dtype_and_pad(fake_card, dtype, suffix, d, padded):
 
 
 def test_wrappers_refuse_mixed_dtypes_and_wide_heads(fake_card):
+    """Mixed dtypes and f16 raise; a head dim above 256, which the card
+    refused before the wide instance, now launches it at the next
+    multiple of 128, and only D < 1 is refused."""
     a = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="one dtype"):
         port_attn.flash_fwd(a, a.float(), a, scale=0.125, causal=False)
     with pytest.raises(TypeError, match="one dtype"):
         port_attn.flash_fwd(a.half(), a.half(), a.half(), scale=0.125,
                             causal=False)
-    wide = torch.zeros(2, 16, 320, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP C1"):
-        port_attn.flash_fwd(wide, wide, wide, scale=0.125, causal=False)
     assert fake_card == []
+    wide = torch.zeros(2, 16, 320, dtype=torch.bfloat16)
+    o, *_ = port_attn.flash_fwd(wide, wide, wide, scale=0.125, causal=False)
+    assert fake_card == [("flash_fwd", 384)] and o.shape == wide.shape
+    empty = torch.zeros(2, 16, 0, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="positive"):
+        port_attn.flash_fwd(empty, empty, empty, scale=0.125, causal=False)
 
 
 def test_paged_decode_takes_any_head_dim_up_to_128(monkeypatch):
@@ -301,6 +313,7 @@ def test_paged_decode_takes_any_head_dim_up_to_128(monkeypatch):
 
     calls = []
     monkeypatch.setattr(_dispatch, "on_card", lambda *tensors: True)
+    monkeypatch.setattr(pa, "_sms", lambda index: 132)
     monkeypatch.setattr(_dispatch, "launch",
                         lambda kernel, argtypes, device, *args:
                         calls.append(args[12]))
@@ -428,22 +441,35 @@ def test_norm_plan_refuses_bad_shapes():
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd", "flash_dbias"])
 def test_flash_kernels_dispatch_every_instance(name):
-    """K3, K4 and K5 pick an instance for each of 32, 64, 128 and 256,
-    and their f32 counterpart in ``flash_f32.cu`` for each too (through
-    its ``APEX_F32_BY_D`` dispatch, which lists every head dim)."""
+    """K3, K4 and K5 pick an instance for each of 32, 64, 128 and 256 and
+    the wide one for any multiple of 128 above 256, and their f32
+    counterparts in ``flash_f32.cu`` likewise (K3's and K4's through the
+    ``APEX_F32_BY_D`` dispatch, which lists every head dim; K5's by the
+    head dims its stages hold)."""
     src = _build.source_path(name).read_text()
     entry = src.split(f'extern "C" int {name}(')[1]
+    wide = "d >= 256 && d % 128 == 0"
     for d in port_attn.KERNEL_HEAD_DIMS:
-        assert f"pick<{d}>" in entry and f"d != {d}" in entry, (name, d)
+        assert f"pick<{d}>" in entry, (name, d)
+    for d in port_attn.KERNEL_HEAD_DIMS[:-1]:
+        assert f"d != {d}" in entry, (name, d)
+    assert wide in entry, name
+    assert ("launch_wide<" if name == "flash_fwd" else "pick<0>") in entry
     f32 = _build.source_path("flash_f32").read_text()
     body = f32.split(f'extern "C" int {name}_f32(')[1].split("\n}\n")[0]
-    launcher = {"flash_fwd": "launch_fwd", "flash_bwd": "launch_bwd",
-                "flash_dbias": "launch_dbias"}[name]
-    assert re.search(rf"APEX_F32_BY_D\({launcher}, d,", body), name
-    by_d = f32.split("#define APEX_F32_BY_D")[1].split("\n\n")[0]
-    for d in port_attn.KERNEL_HEAD_DIMS:
-        assert re.search(rf"APEX_F32_PICK\(FN, {d}, A, B\)", by_d), (name, d)
-        assert f"d != {d}" in f32.split("bool bad_args(")[1], (name, d)
+    if name == "flash_dbias":
+        for chunk in ("32, false", "64, false", "128, false", "64, true"):
+            assert f"pick_dbias<{chunk}>" in body, chunk
+    else:
+        launcher = {"flash_fwd": "launch_fwd", "flash_bwd": "launch_bwd"}[name]
+        assert re.search(rf"APEX_F32_BY_D\({launcher}, d,", body), name
+        by_d = f32.split("#define APEX_F32_BY_D")[1].split("\n\n")[0]
+        for d in port_attn.KERNEL_HEAD_DIMS + (0,):
+            assert re.search(rf"APEX_F32_PICK\(FN, {d}, A, B\)", by_d), d
+    bad_args = f32.split("bool bad_args(")[1].split("\n}\n")[0]
+    for d in port_attn.KERNEL_HEAD_DIMS[:-1]:
+        assert f"d != {d}" in bad_args, (name, d)
+    assert wide in bad_args, name
 
 
 def test_build_names_the_f32_kernels():

@@ -77,7 +77,7 @@ def _pools(cfg):
     )
     kv = init_kv_pages(
         cfg.num_layers, NUM_PAGES, cfg.num_heads, PAGE, cfg.head_dim,
-        dtype=torch.float32,
+        dtype=torch.float32, device="cpu",
     )
     return jkv, kv
 

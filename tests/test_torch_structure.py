@@ -14,7 +14,11 @@
   the card, what its design does about it);
 - K3 and K4 are built for Hopper (TMA, mbarriers, wgmma, no wmma), K4
   has no atomics, their C argument lists stay as the wrappers declare
-  them, and no kernel links the driver library.
+  them, and no kernel links libcuda;
+- K5's f32 instance multiplies on the tensor cores (3xTF32 ``mma.sync``,
+  no FFMA tile loop) through a cp.async ring and, like K6, uses no float
+  atomic or reduction; K6 loads through cp.async, and its C arguments
+  match the wrapper's list.
 """
 
 import ast
@@ -40,7 +44,8 @@ from apex_tpu_torch.ops import attention
 from apex_tpu_torch.ops.attention import flash_bwd, flash_dbias, flash_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
-from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+from apex_tpu_torch.ops import paged_attention
+from apex_tpu_torch.serve import InferenceEngine, ServeConfig, init_kv_pages
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=32, hidden_size=32, num_layers=1, num_heads=2,
@@ -85,7 +90,8 @@ def no_gpu(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["model", "engine", "convert", "train",
                                    "bert_model", "bert_convert",
-                                   "bert_train", "evoformer", "dap_axial"])
+                                   "bert_train", "evoformer", "dap_axial",
+                                   "kv_pages"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -106,6 +112,8 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             EvoformerBlock(16, 8, 2)
         elif entry == "dap_axial":
             DAPAxialBlock(16, 2)
+        elif entry == "kv_pages":
+            init_kv_pages(1, 4, 2, 16, 8)
         else:
             pretrain_bert.main(["--tiny", "--steps", "1"])
 
@@ -267,7 +275,8 @@ def test_flash_bwd_is_atomic_free():
     assert "atomic" not in code
     assert re.search(r"\bred\.", code) is None
     assert "cp.reduce.async" not in code
-    assert code.count("__global__") == 2  # the dK/dV pass and the dQ pass
+    # the dK/dV pass and the dQ pass, each also as the wide instance
+    assert code.count("__global__") == 4
 
 
 def test_flash_c_argument_lists_are_unchanged():
@@ -306,3 +315,53 @@ def test_tile_sweep_defines_reach_the_sources():
             flags = _build.NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
             targets.add(_build._target(name, flags))
         assert len(targets) == len(variants)
+
+
+def _kernel_body(code, name):
+    """The text of ``__global__`` function ``name`` in ``code``."""
+    start = code.index(name + "(")
+    end = code.find("__global__", start)
+    return code[start:end if end > 0 else len(code)]
+
+
+@pytest.mark.parametrize("name", ["flash_f32", "paged_decode"])
+def test_k5_f32_and_k6_use_no_float_atomics(name):
+    """K5's f32 sums and K6's merge take a fixed order: no float atomic, no
+    red. and no bulk reduction.  K6's one atomic is its integer arrival
+    counter, whose result picks the CTA that merges."""
+    _, tu = _translation_unit(name)
+    code = _code(tu)
+    assert re.search(r"\bred\.", code) is None
+    assert "cp.reduce.async" not in code
+    calls = re.findall(r"atomic\w*\(([^,]*),", code)
+    if name == "flash_f32":
+        assert calls == []
+    else:
+        assert calls == ["&counters[bh]"]
+        assert "int* __restrict__ counters" in code
+
+
+def test_k5_f32_runs_on_tensor_cores_through_a_cp_async_ring():
+    """The redesigned K5 f32: 3xTF32 mma.sync products fed by cp.async,
+    and no SIMT FFMA tile loop left."""
+    _, tu = _translation_unit("flash_f32")
+    code = _code(tu)
+    body = _kernel_body(code, "flash_dbias_f32_kernel")
+    for call in ("mma3(", "load_a(", "load_bt(", "stage_rows<",
+                 "cp_async_wait<", "stage_bias<"):
+        assert call in body, call
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in code
+    assert "tile_product" not in code and "load_t<" not in code
+
+
+def test_k6_loads_through_cp_async_and_declares_its_arguments():
+    """K6 streams its K and V tiles through cp.async, and the wrapper's
+    argument list (the split plan and the workspace included) matches the
+    C entry point's."""
+    src = _build.source_path("paged_decode").read_text()
+    code = _code(src)
+    assert "cp.async.cg.shared.global" in code
+    assert "cp.async.wait_group" in code
+    entry = src.split('extern "C" int paged_decode(')[1].split(")")[0]
+    assert entry.count(",") + 1 == len(paged_attention._ARGS)
+    assert paged_attention._ARGS[-1] is ctypes.c_void_p  # the stream

@@ -1,7 +1,8 @@
 """OpenFold kernels and modules — counterpart of
 :mod:`apex_tpu.contrib.openfold`.
 
-``mha`` is :func:`flash_attention` (K3/K4, K5 for a trainable bias) and
+``mha`` is :func:`flash_attention` (K3/K4, K5's function for a trainable
+bias: in bf16 at G = BH the epilogue of K4's dQ pass) and
 ``layer_norm`` :func:`fused_layer_norm_affine` (K1/K2), under the names
 OpenFold-shaped code looks for.  :class:`DAPAxialBlock` and the evoformer
 modules run unsharded (``axis_name=None``).  Dynamic axial parallelism —

@@ -21,8 +21,10 @@ here every module takes its widths when it is built.
   attention cast, ``apex_tpu/ops/attention.py:277-279``).  The pair bias
   stays f32, as the kernels' bias operand is.
 - LayerNorm is kernel K1/K2 (:func:`fused_layer_norm_affine`, eps 1e-6)
-  and attention K3/K4, with K5 for the trainable pair bias
-  (``flash_attention(..., bias_grad=True)``).  The triangle and
+  and attention K3/K4, with the trainable pair bias's gradient
+  (``flash_attention(..., bias_grad=True)``) written by K4's dQ pass
+  (``flash_bwd_dbias``: the bias reaches the kernels at G = BH, RS = S)
+  in bf16, and by K5's f32 instance with f32 attention.  The triangle and
   outer-product contractions are plain ``torch.einsum``, as the JAX
   package leaves them to XLA.
 - ``axis_name`` (dynamic axial parallelism over several cards) is not
@@ -103,9 +105,9 @@ def _layer_norm(mod: nn.Module, x, name: str):
 def _pair_bias(proj: nn.Linear, z_ln, n_res: int):
     """Per-head attention bias projected from the (LN'd) pair rep:
     (1, H, N, N), one bias group shared by every batch row and trainable
-    through K5.  The attention materialises it at G = B·H (a
-    head-dependent bias, as in the JAX package), so K5 differentiates
-    each batch row's copy and the sum over the batch is the backward of
+    (K5's function).  The attention materialises it at G = B·H (a
+    head-dependent bias, as in the JAX package), so the kernel (in bf16
+    K4's dQ pass, ``flash_bwd_dbias``) differentiates each batch row's copy and the sum over the batch is the backward of
     that broadcast in :func:`flash_attention`, outside the kernel — not
     the kernel's grouped-G reduction that the JAX docstring names."""
     tri = proj(z_ln)
@@ -121,7 +123,7 @@ class GatedAttention(nn.Module):
     """OpenFold-style attention: no-bias q/k/v projections, additive pair
     bias, sigmoid gating on the attended values, output projection.
     ``x`` (B, S, dim); optional ``bias`` broadcastable to (B, H, S, S),
-    trainable (K5) when ``bias_grad``.  q, k and v go to the kernels in
+    trainable when ``bias_grad``.  q, k and v go to the kernels in
     ``dtype``; the attended values come back to f32."""
 
     def __init__(self, dim: int, heads: int, *, bias_grad: bool = True,

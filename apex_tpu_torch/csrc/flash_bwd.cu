@@ -8,7 +8,9 @@
 //           dropout (flash_operands.cuh).  delta = rowsum(dO*O) - dlse
 //           (O the dropped output) is computed outside the kernels, as
 //           the JAX package does in jnp, so the dlse fold needs nothing
-//           here.
+//           here.  The entry flash_bwd_dbias also replaces flash_dbias
+//           (_dbias_kernel) where each dbias element has one owner (G =
+//           BH, RS = S_q): see the dQ pass below.
 // Bound on the H100: tensor-core operations.  Five products of 2*D flops
 //           per live (q, k) pair (the recompute Q K^T, dO V^T, P^T dO,
 //           dS K, dS^T Q: 2.5x the forward's count) against reading q, k,
@@ -46,7 +48,18 @@
 //           over 64-key K and V tiles up to each warpgroup's causal
 //           limit: S = Q K^T and dP = dO V^T, dS in registers, dQ += dS K
 //           with K transposed from shared memory; a fully-masked row gets
-//           dq = 0 (the mask blocks its gradient).
+//           dq = 0 (the mask blocks its gradient).  With a trainable bias
+//           at G = BH and RS = S_q (flash_bwd_dbias, its own __global__
+//           flash_bwd_dq_dbias_kernel) the dQ pass also writes K5's
+//           output: each tile's f32 ds, which the bias differentiates to,
+//           leaves the registers as dbias before it is rounded for dQ
+//           (float2 stores from the accumulator layout, eight full 32-byte
+//           sectors a warp store; zeros for the key tiles the causal walk
+//           skips; at D = 256 only the first of the two CTAs of a q tile
+//           writes).  That costs one f32 write of the bias's size, where a
+//           separate K5 recomputes S and dP and reads q, k, v, dO and the
+//           bias again; each element is written once, so dbias is the
+//           same bits from run to run.
 //           p and ds are formed in f32 and rounded to bf16 for the next
 //           products, as the TPU's bf16 MXU passes do.  p = exp(s - m) / l
 //           from the forward's row max m and row sum l, not exp(s - lse)
@@ -515,21 +528,53 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_rows<kOutD, D>(acc_dv, dv + base, krow0, sk, 1.f);
 }
 
-template <int D, int kBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_do,
-                    const __grid_constant__ CUtensorMap tm_bias,
-                    const float* __restrict__ row_max,
-                    const float* __restrict__ row_sum,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ bias,
-                    const int* __restrict__ seed, bf16* __restrict__ dq,
-                    int bh_count, int sq, int sk, float scale, int causal,
-                    int offset, int bias_div, int bias_rows,
-                    uint32_t threshold, float drop_scale) {
+// Write this thread's part of a warpgroup's 64-row x 64-key f32 tile
+// (rows row0 and row0 + 8, keys col0 + 8j + 2 quad + e, the accumulator
+// layout of wgmma) into the (S_q, S_k) f32 rows of `out`, below sq and sk:
+// a quad's two adjacent keys as one float2 where S_k is even (each warp
+// store fills eight whole 32-byte sectors), else one float each.
+__device__ __forceinline__ void store_dbias_tile(const float (&acc)[kBlock / 2],
+                                                 float* out, int row0,
+                                                 int col0, int sq, int sk) {
+  const int quad = threadIdx.x & 3;
+  const bool pairs = (sk & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= sq) continue;
+    float* o = out + static_cast<size_t>(row) * sk;
+#pragma unroll
+    for (int j = 0; j < kBlock / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * quad;
+      const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+      if (pairs) {
+        if (col < sk) *reinterpret_cast<float2*>(o + col) = make_float2(x, y);
+      } else {
+        if (col < sk) o[col] = x;
+        if (col + 1 < sk) o[col + 1] = y;
+      }
+    }
+  }
+}
+
+// The dQ pass (see Design); with kDbias (a bias at G = BH, RS = S_q, where
+// each dbias element has one owner) it also writes K5's output: each
+// tile's f32 ds, before it is rounded for dQ += dS K, is dbias[bh, row,
+// key], and the key tiles that the causal walk skips get zeros, as K5
+// writes an element for every (row, key).  With dq_split 2 (D = 256) the
+// CTA of part 0 writes it.  Each element is written once, so dbias is the
+// same bits from run to run.
+template <int D, int kBias, bool kDropout, bool kDbias>
+__device__ __forceinline__ void dq_pass(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap& tm_do, const CUtensorMap& tm_bias,
+    const float* __restrict__ row_max, const float* __restrict__ row_sum,
+    const float* __restrict__ delta, const float* __restrict__ bias,
+    const int* __restrict__ seed, bf16* __restrict__ dq,
+    float* __restrict__ dbias, int bh_count, int sq, int sk, float scale,
+    int causal, int offset, int bias_div, int bias_rows, uint32_t threshold,
+    float drop_scale) {
+  static_assert(!kDbias || kBias != kNoBias, "dbias needs a bias");
   constexpr int kStages = stages<D, kBias>();
   constexpr int kBiasBytes = stage_bias_bytes<kBias>();
   constexpr bool kHasBias = kBias != kNoBias;
@@ -609,6 +654,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int quad = lane & 3;
   const int row0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
   const int my_kt = (k_end[wg] + kBlock - 1) / kBlock;
+  // this batch-head's (S_q, S_k) dbias rows (64-bit: BH * S_q * S_k is 67
+  // M at the evoformer's triangle shape)
+  float* dbias_bh = nullptr;
+  if constexpr (kDbias) dbias_bh = dbias + static_cast<size_t>(bh) * sq * sk;
 
   float m_r[2], il_r[2], delta_r[2];
   const float* brow[2] = {nullptr, nullptr};
@@ -733,6 +782,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         elementwise(std::true_type{});
       else
         elementwise(std::false_type{});
+      if constexpr (kDbias)
+        if (part == 0) store_dbias_tile(acc_s, dbias_bh, row0, t * kBlock, sq, sk);
       uint32_t dsa[kBlock / 4];
 #pragma unroll
       for (int i = 0; i < kBlock / 4; ++i)
@@ -754,9 +805,64 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
+  if constexpr (kDbias) {
+    // the key tiles past this warpgroup's causal limit: ds is 0 there
+    if (part == 0) {
+      float zeros[kBlock / 2];
+#pragma unroll
+      for (int i = 0; i < kBlock / 2; ++i) zeros[i] = 0.f;
+      for (int t = my_kt; t * kBlock < sk; ++t)
+        store_dbias_tile(zeros, dbias_bh, row0, t * kBlock, sq, sk);
+    }
+  }
   store_rows<kOutD, D>(acc_dq,
                        dq + static_cast<size_t>(bh) * sq * D + part * kOutD,
                        row0, sq, scale);
+}
+
+template <int D, int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_bias,
+                    const float* __restrict__ row_max,
+                    const float* __restrict__ row_sum,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ bias,
+                    const int* __restrict__ seed, bf16* __restrict__ dq,
+                    int bh_count, int sq, int sk, float scale, int causal,
+                    int offset, int bias_div, int bias_rows,
+                    uint32_t threshold, float drop_scale) {
+  dq_pass<D, kBias, kDropout, false>(
+      tm_q, tm_k, tm_v, tm_do, tm_bias, row_max, row_sum, delta, bias, seed,
+      dq, nullptr, bh_count, sq, sk, scale, causal, offset, bias_div,
+      bias_rows, threshold, drop_scale);
+}
+
+// The dQ pass with K5's dbias as its epilogue (its own name, so a profile
+// reports its time apart from the plain pass)
+template <int D, int kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_dbias_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_bias,
+                          const float* __restrict__ row_max,
+                          const float* __restrict__ row_sum,
+                          const float* __restrict__ delta,
+                          const float* __restrict__ bias,
+                          const int* __restrict__ seed, bf16* __restrict__ dq,
+                          float* __restrict__ dbias, int bh_count, int sq,
+                          int sk, float scale, int causal, int offset,
+                          int bias_div, int bias_rows, uint32_t threshold,
+                          float drop_scale) {
+  dq_pass<D, kBias, kDropout, true>(
+      tm_q, tm_k, tm_v, tm_do, tm_bias, row_max, row_sum, delta, bias, seed,
+      dq, dbias, bh_count, sq, sk, scale, causal, offset, bias_div,
+      bias_rows, threshold, drop_scale);
 }
 
 // ------------------------------------------------------- the wide instance
@@ -1366,14 +1472,17 @@ flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // D: 32, 64, 128 or 256, or 0 for the wide instance (d a multiple of 128
-// above 256)
-template <int D, int kBias, bool kDropout>
+// above 256).  kDbias: the dQ pass also writes dbias (G = BH, RS = S_q,
+// D <= 256).
+template <int D, int kBias, bool kDropout, bool kDbias = false>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* m, const void* l, const void* delta, const void* bias,
-           const void* seed, void* dq, void* dk, void* dv, int bh, int sq,
-           int sk, int d, int bias_div, int bias_rows, float scale,
-           int causal, int offset, uint32_t threshold, float drop_scale,
-           cudaStream_t stream) {
+           const void* seed, void* dq, void* dk, void* dv, void* dbias,
+           int bh, int sq, int sk, int d, int bias_div, int bias_rows,
+           float scale, int causal, int offset, uint32_t threshold,
+           float drop_scale, cudaStream_t stream) {
+  static_assert(!kDbias || (D > 0 && kBias != kNoBias),
+                "the dbias epilogue is in the fixed instances' dQ pass");
   // the dK/dV pass keeps kResident keys and streams kBlock query rows; the
   // dQ pass the other way round
   CUtensorMap q_ring, do_ring, k_res, v_res, q_res, do_res, k_ring, v_ring;
@@ -1438,14 +1547,18 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     constexpr size_t dkdv_bytes = smem_bytes<D, kBias, true>();
     constexpr size_t dq_bytes = smem_bytes<D, kBias, false>();
     auto* dkdv_kernel = &flash_bwd_dkdv_kernel<D, kBias, kDropout>;
-    auto* dq_kernel = &flash_bwd_dq_kernel<D, kBias, kDropout>;
     cudaError_t err = cudaFuncSetAttribute(
         dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(dkdv_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(dq_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dq_bytes));
+    if constexpr (kDbias)
+      err = cudaFuncSetAttribute(&flash_bwd_dq_dbias_kernel<D, kBias, kDropout>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(dq_bytes));
+    else
+      err = cudaFuncSetAttribute(&flash_bwd_dq_kernel<D, kBias, kDropout>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(dq_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()),
                   kThreads, dkdv_bytes, stream>>>(
@@ -1454,16 +1567,35 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         causal, offset, bias_div, bias_rows, threshold, drop_scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * dq_split<D>()), kThreads,
-                dq_bytes, stream>>>(
-        q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
-        static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset, bias_div,
-        bias_rows, threshold, drop_scale);
+    const dim3 dq_grid(static_cast<unsigned>(bh) * nq * dq_split<D>());
+    if constexpr (kDbias)
+      flash_bwd_dq_dbias_kernel<D, kBias, kDropout>
+          <<<dq_grid, kThreads, dq_bytes, stream>>>(
+              q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
+              static_cast<bf16*>(dq), static_cast<float*>(dbias), bh, sq, sk,
+              scale, causal, offset, bias_div, bias_rows, threshold,
+              drop_scale);
+    else
+      flash_bwd_dq_kernel<D, kBias, kDropout>
+          <<<dq_grid, kThreads, dq_bytes, stream>>>(
+              q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
+              static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset,
+              bias_div, bias_rows, threshold, drop_scale);
     return static_cast<int>(cudaGetLastError());
   }
 }
 
 using LaunchFn = decltype(&launch<64, kNoBias, false>);
+
+// The fused instances: a bias in either mode, with or without dropout
+template <int D>
+LaunchFn pick_dbias(int bias_mode, bool dropout) {
+  if (bias_mode == kBiasTile)
+    return dropout ? &launch<D, kBiasTile, true, true>
+                   : &launch<D, kBiasTile, false, true>;
+  return dropout ? &launch<D, kBiasGlobal, true, true>
+                 : &launch<D, kBiasGlobal, false, true>;
+}
 
 template <int D>
 LaunchFn pick(int bias_mode, bool dropout) {
@@ -1504,7 +1636,35 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                        : d == 128 ? pick<128>(mode, dropout)
                        : d == 256 ? pick<256>(mode, dropout)
                                   : pick<0>(mode, dropout);
-  return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, bh, sq, sk,
-             d, bh / groups, bias_rows, scale, causal, sk - sq, threshold,
+  return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, nullptr, bh,
+             sq, sk, d, bh / groups, bias_rows, scale, causal, sk - sq,
+             threshold, drop_scale, static_cast<cudaStream_t>(stream));
+}
+
+// flash_bwd, and the gradient of the bias in the same launch (K5's
+// function where each dbias element has one owner): bias (bh, sq, sk) f32
+// (G = BH, RS = S_q) and dbias f32 of the same shape, written by the dQ
+// pass.  d must be 32, 64, 128 or 256 (the wide instance and other
+// layouts take flash_bwd, then flash_dbias).
+extern "C" int flash_bwd_dbias(const void* q, const void* k, const void* v,
+                               const void* dout, const void* m, const void* l,
+                               const void* delta, const void* bias,
+                               const void* seed, void* dq, void* dk, void* dv,
+                               void* dbias, int bh, int sq, int sk, int d,
+                               int groups, int bias_rows, float scale,
+                               int causal, unsigned threshold,
+                               float drop_scale, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 ||
+      (d != 32 && d != 64 && d != 128 && d != 256) || bias == nullptr ||
+      dbias == nullptr || groups != bh || bias_rows != sq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mode = flash_operands::bias_mode(bias, bias_rows, sq, sk);
+  const bool dropout = seed != nullptr;
+  const LaunchFn run = d == 32    ? pick_dbias<32>(mode, dropout)
+                       : d == 64  ? pick_dbias<64>(mode, dropout)
+                       : d == 128 ? pick_dbias<128>(mode, dropout)
+                                  : pick_dbias<256>(mode, dropout);
+  return run(q, k, v, dout, m, l, delta, bias, seed, dq, dk, dv, dbias, bh,
+             sq, sk, d, 1, bias_rows, scale, causal, sk - sq, threshold,
              drop_scale, static_cast<cudaStream_t>(stream));
 }

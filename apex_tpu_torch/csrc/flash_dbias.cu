@@ -15,7 +15,12 @@
 //           per byte, far below the 295 of the balance point.  The least
 //           time is q, k, v, dO, m, l, delta and the bias read once and
 //           dbias written once over 3.35 TB/s.
-// Design:   no float atomics, so the gradient is the same from run to run
+// Design:   no model path since the bias gradient at G = BH, RS = S_q (the
+//           layout of every trainable bias the ported models train) left
+//           K4's dQ pass as an epilogue (flash_bwd.cu, flash_bwd_dbias):
+//           this kernel serves the other layouts (groups summed over
+//           members or rows) and the wide head dims.
+//           No float atomics, so the gradient is the same from run to run
 //           (K4's rule): the group reduction runs inside a CTA.
 //           RS = S_q: one 128-thread CTA per (group, 64-row q tile, 64-key
 //           k tile) loops over the group's members; RS = 1: one CTA per

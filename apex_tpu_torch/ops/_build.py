@@ -37,9 +37,11 @@ KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd", "flash_bwd",
 
 #: C entry points that live in a source of another name (entry -> source);
 #: every other entry point is the function of its own name in
-#: ``csrc/<name>.cu``.  The f32 instances of K3, K4 and K5 share one source.
+#: ``csrc/<name>.cu``.  The f32 instances of K3, K4 and K5 share one source;
+#: K4 with K5's dbias in its dQ pass lives in K4's.
 ENTRY_POINTS = {"flash_fwd_f32": "flash_f32", "flash_bwd_f32": "flash_f32",
-                "flash_dbias_f32": "flash_f32"}
+                "flash_dbias_f32": "flash_f32",
+                "flash_bwd_dbias": "flash_bwd"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -44,10 +44,14 @@ Both directions take the TPU kernels' two optional operands:
   ``PAD_VALUE``, add it after the scale and before the causal mask.
   By default it is the additive-mask form and gets no gradient.
   ``bias_grad=True`` makes it trainable: the backward also returns
-  dbias through kernel K5 (``csrc/flash_dbias.cu``, replacing the
-  Pallas ``flash_dbias``) on the card and its twin
-  :func:`flash_dbias_reference` on the CPU, in the (G, RS, Sk) layout
-  (each group's members summed, and every query row when RS = 1);
+  dbias, the Pallas ``flash_dbias``'s function, on the card and its
+  twin :func:`flash_dbias_reference` on the CPU, in the (G, RS, Sk)
+  layout (each group's members summed, and every query row when RS =
+  1).  On the card a bf16 bias at G = BH and RS = Sq (one owner per
+  dbias element: every trainable bias of the ported models) leaves
+  K4's dQ pass as its epilogue (:func:`flash_bwd_dbias`), so nothing
+  is recomputed for it; any other layout, the wide head dims and f32
+  launch kernel K5 (``csrc/flash_dbias.cu``) after K4;
   autograd of the clamp and the broadcast in :func:`_format_bias`
   carries it back to the caller's shape, as ``jnp.maximum`` and
   ``broadcast_to`` do in JAX.  A head-dependent bias is materialised at
@@ -104,6 +108,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_with_lse",
     "flash_bwd",
+    "flash_bwd_dbias",
+    "flash_bwd_dbias_reference",
     "flash_bwd_reference",
     "flash_dbias",
     "flash_dbias_reference",
@@ -123,6 +129,8 @@ PAD_VALUE = -1.5e9
 KERNEL = "flash_fwd"
 KERNEL_BWD = "flash_bwd"
 KERNEL_DBIAS = "flash_dbias"
+#: K4 with K5's dbias as its dQ pass's epilogue (``csrc/flash_bwd.cu``)
+KERNEL_BWD_DBIAS = "flash_bwd_dbias"
 #: the f32 instances of K3, K4 and K5 (``csrc/flash_f32.cu``)
 KERNEL_F32 = "flash_fwd_f32"
 KERNEL_BWD_F32 = "flash_bwd_f32"
@@ -373,6 +381,20 @@ def flash_dbias_reference(q, k, v, do, m, l, delta, bias, *, scale: float,
     return dbias
 
 
+def flash_bwd_dbias_reference(q, k, v, do, m, l, delta, bias, *,
+                              scale: float, causal: bool,
+                              dropout_p: float = 0.0,
+                              seed: Optional[torch.Tensor] = None):
+    """The plain version of :func:`flash_bwd_dbias`: ``(dq, dk, dv,
+    dbias)`` from :func:`flash_bwd_reference` and then
+    :func:`flash_dbias_reference`, each looked up in this module when it
+    is called."""
+    kw = dict(scale=scale, causal=causal, dropout_p=dropout_p, seed=seed)
+    dq, dk, dv = flash_bwd_reference(q, k, v, do, m, l, delta, bias, **kw)
+    return dq, dk, dv, flash_dbias_reference(q, k, v, do, m, l, delta, bias,
+                                             **kw)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -386,6 +408,8 @@ _FWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _U, _F, _P]
 _BWD_ARGS = [_P] * 12 + [_I] * 6 + [_F, _I, _U, _F, _P]
 # q, k, v, dO, m, l, delta, bias, seed, dbias; then as K3
 _DBIAS_ARGS = [_P] * 10 + [_I] * 6 + [_F, _I, _U, _F, _P]
+# q, k, v, dO, m, l, delta, bias, seed, dq, dk, dv, dbias; then as K3
+_BWD_DBIAS_ARGS = [_P] * 13 + [_I] * 6 + [_F, _I, _U, _F, _P]
 
 
 def _check_qkv(name, q, k, v, *more):
@@ -561,6 +585,59 @@ def flash_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
     return dbias
 
 
+def _fused_dbias(bias, bh, sq, dtype, d) -> bool:
+    """Whether the bias gradient of a call on the card leaves K4's dQ pass
+    (:func:`flash_bwd_dbias`) instead of a K5 launch of its own: bf16 q/k/v,
+    a (G, RS, Sk) bias at G = BH and RS = Sq (each dbias element then
+    belongs to one (bh, row, key), the layout of every trainable bias the
+    ported models train) and a kernel head dim of at most 256 (the wide
+    instance and the f32 instances keep K5)."""
+    return (bias is not None and dtype == torch.bfloat16
+            and tuple(bias.shape[:2]) == (bh, sq)
+            and kernel_head_dim(d) <= KERNEL_HEAD_DIMS[-1])
+
+
+def flash_bwd_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
+                    causal: bool, dropout_p: float = 0.0,
+                    seed: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """K4 with K5's output as its dQ pass's epilogue, on CUDA tensors:
+    ``(dq, dk, dv, dbias)`` from :func:`flash_bwd`'s operands, where
+    :func:`_fused_dbias` holds (bf16, a bias (BH, Sq, Sk) f32, any D up
+    to 256).  Each tile's f32 ds is written as dbias before the dQ
+    product rounds it, so the bias, q, k, v and dO are read once for
+    both gradients; every dbias element is written once, the same bits
+    from run to run.  Raises for any other call (no fallback)."""
+    if bias is None:
+        raise ValueError("flash_bwd_dbias needs the bias it differentiates")
+    more = [bias] + ([] if seed is None else [seed])
+    _check_qkv("flash_bwd_dbias", q, k, v, do, m, l, delta, *more)
+    _check_bwd_operands("flash_bwd_dbias", q, do, m, l, delta)
+    _check_vectors("flash_bwd_dbias", m, l, delta)
+    bias_ptr, seed_ptr, groups, rows, threshold, drop_scale = _operand_args(
+        "flash_bwd_dbias", q, k, bias, dropout_p, seed)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if not _fused_dbias(bias, bh, sq, q.dtype, d):
+        raise ValueError(
+            f"flash_bwd_dbias takes bf16 q/k/v, a bias ({bh}, {sq}, {sk}) "
+            f"and a head dim up to 256, got {q.dtype}, bias "
+            f"{tuple(bias.shape)}, D={d}: use flash_bwd and flash_dbias")
+    dh, (q, k, v, do) = _padded("flash_bwd_dbias", d, q, k, v, do)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    _dispatch.launch(
+        KERNEL_BWD_DBIAS, _BWD_DBIAS_ARGS, q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
+        l.data_ptr(), delta.data_ptr(), bias_ptr, seed_ptr, dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), bh, sq, sk, dh,
+        groups, rows, float(scale), int(causal), threshold, drop_scale,
+    )
+    return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d), dbias
+
+
 # ---------------------------------------------------------------------------
 # autograd and the public API
 # ---------------------------------------------------------------------------
@@ -574,8 +651,9 @@ def _flat(x):
 class _Flash(torch.autograd.Function):
     """Attention over (B, H, S, D) returning ``(o, lse)``: K3, K4 and K5
     on the card, the plain twins on the CPU.  ``bias`` is (G, RS, Sk);
-    it gets a gradient (K5) only when it requires one, so a mask-only
-    bias launches no K5.  ``seed`` is the int32 dropout seed or None."""
+    it gets a gradient only when it requires one (from K4's dQ pass
+    where :func:`_fused_dbias` holds, else from K5), so a mask-only bias
+    launches neither.  ``seed`` is the int32 dropout seed or None."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, causal, dropout_p):
@@ -605,12 +683,16 @@ class _Flash(torch.autograd.Function):
         args = (_flat(q), _flat(k), _flat(v), do, m, l, delta, bias)
         kw = dict(scale=ctx.scale, causal=ctx.causal,
                   dropout_p=ctx.dropout_p, seed=seed)
-        bwd = flash_bwd if on_card else flash_bwd_reference
-        dq, dk, dv = bwd(*args, **kw)
         dbias = None
-        if ctx.needs_input_grad[3]:
-            dbias_fn = flash_dbias if on_card else flash_dbias_reference
-            dbias = dbias_fn(*args, **kw)
+        if (on_card and ctx.needs_input_grad[3]
+                and _fused_dbias(bias, b * h, sq, q.dtype, d)):
+            dq, dk, dv, dbias = flash_bwd_dbias(*args, **kw)
+        else:
+            bwd = flash_bwd if on_card else flash_bwd_reference
+            dq, dk, dv = bwd(*args, **kw)
+            if ctx.needs_input_grad[3]:
+                dbias_fn = flash_dbias if on_card else flash_dbias_reference
+                dbias = dbias_fn(*args, **kw)
         return (dq.reshape(b, h, sq, d), dk.reshape(b, h, sk, d),
                 dv.reshape(b, h, sk, d), dbias, None, None, None, None)
 

@@ -275,8 +275,9 @@ def test_flash_bwd_is_atomic_free():
     assert "atomic" not in code
     assert re.search(r"\bred\.", code) is None
     assert "cp.reduce.async" not in code
-    # the dK/dV pass and the dQ pass, each also as the wide instance
-    assert code.count("__global__") == 4
+    # the dK/dV pass and the dQ pass, each also as the wide instance, and
+    # the dQ pass with the dbias epilogue (flash_bwd_dbias)
+    assert code.count("__global__") == 5
 
 
 def test_flash_c_argument_lists_are_unchanged():

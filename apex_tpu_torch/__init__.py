@@ -20,8 +20,11 @@ Subpackages
 - :mod:`apex_tpu_torch.optimizers` — ``FusedAdam`` / ``fused_adam``.
 - :mod:`apex_tpu_torch.data` — token files, the synthetic corpus and
   the sharded shuffling loader.
-- :mod:`apex_tpu_torch.serve` — paged KV cache, inference engine and
-  continuous-batching scheduler.
+- :mod:`apex_tpu_torch.parallel` — the blockwise int8 codec of the
+  gradient wire (the serving KV and weight wires use it).
+- :mod:`apex_tpu_torch.serve` — paged KV cache (bf16/f32 or int8 pages),
+  prefix cache, inference engine (sampling, chunked prefill, the decode
+  step as one CUDA graph) and continuous-batching scheduler.
 - :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``.
 - :mod:`apex_tpu_torch.contrib` — the OpenFold surface: ``mha``,
   ``layer_norm``, ``DAPAxialBlock`` and the evoformer modules.
@@ -33,7 +36,7 @@ for the CPU.
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
-                    "serve", "examples", "contrib")
+                    "parallel", "serve", "examples", "contrib")
 
 
 def __getattr__(name):

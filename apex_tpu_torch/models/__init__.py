@@ -13,6 +13,7 @@ from apex_tpu_torch.models.convert import (  # noqa: F401
     evoformer_from_jax_params,
     evoformer_to_jax_params,
     from_jax_params,
+    gpt_param_tree,
     to_jax_params,
 )
 from apex_tpu_torch.models.gpt import (  # noqa: F401

@@ -44,6 +44,7 @@ __all__ = [
     "evoformer_from_jax_params",
     "evoformer_to_jax_params",
     "from_jax_params",
+    "gpt_param_tree",
     "to_jax_params",
 ]
 
@@ -84,23 +85,25 @@ def from_jax_params(params_np: Mapping, cfg: GptConfig, *,
     return model
 
 
-def to_jax_params(model: GptModel,
-                  tensors: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
-    """The inverse of :func:`from_jax_params`: a JAX-shaped tree of f32
-    numpy arrays (``{"params": {...}}``, the stack's leaves stacked on a
-    leading layer axis, kernels ``(in, out)``).  ``tensors`` maps the
-    model's parameter names to the tensors to lay out (for example each
-    parameter's ``.grad``); by default the parameters themselves."""
+def gpt_param_tree(model: GptModel,
+                   tensors: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> dict:
+    """The JAX ``GptModel.init`` layout of the model's tensors, as torch
+    tensors where they lie (``{"params": {...}}``, the stack's leaves
+    stacked on a leading layer axis, kernels ``(in, out)``).  ``tensors``
+    maps the model's parameter names to the tensors to lay out (for
+    example each parameter's ``.grad``); by default the parameters
+    themselves, detached."""
     cfg = model.cfg
     if tensors is None:
         tensors = dict(model.named_parameters())
 
     def a(name):
-        return tensors[name].detach().float().cpu().numpy()
+        return tensors[name].detach()
 
     def stacked(leaf, transpose=False):
         rows = [a(f"layers.{i}.{leaf}") for i in range(cfg.num_layers)]
-        return np.stack([r.T if transpose else r for r in rows])
+        return torch.stack([r.t() if transpose else r for r in rows])
 
     block = {
         name: {"weight": stacked(f"{name}.weight", transpose=True),
@@ -118,6 +121,20 @@ def to_jax_params(model: GptModel,
     if not cfg.rotary:
         tree["position_embeddings"] = a("position_embeddings")
     return {"params": tree}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def to_jax_params(model: GptModel,
+                  tensors: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
+    """The inverse of :func:`from_jax_params`: a JAX-shaped tree of f32
+    numpy arrays (:func:`gpt_param_tree` on the host)."""
+    return _tree_map(lambda t: t.float().cpu().numpy(),
+                     gpt_param_tree(model, tensors))
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,17 @@ cannot build or launch raises instead of falling back.
 Each kernel wrapper launches through :func:`launch`, which adds one to
 the kernel's launch counter right after the kernel launched, so a run
 can show that its main path went through the kernels (``chip_smoke.py``
-zeroes the counters, drives the path, and reads them).
+zeroes the counters, drives the path, and reads them).  A CUDA graph
+runs its kernels without Python: the serving engine records the
+launches of the step it captures (:func:`recorded_apart`) and adds them
+on every replay (:func:`replay_record`), so the counts stay exact.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 import torch
 
@@ -37,6 +41,8 @@ __all__ = [
     "launch",
     "launches",
     "reset_launches",
+    "recorded_apart",
+    "replay_record",
 ]
 
 
@@ -125,3 +131,34 @@ def launches() -> Dict[str, int]:
 
 def reset_launches() -> None:
     _LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def recorded_apart() -> Iterator[dict]:
+    """Record the launches and paths of the block apart, and leave the
+    counters and the path log as they were.  Yields ``{"launches":
+    {kernel: n}, "paths": {op: path}}``, filled when the block ends.
+    A captured CUDA graph's launches are counted in Python once, at
+    capture (where no kernel runs); the engine records them so, and adds
+    them on every replay (:func:`replay_record`)."""
+    saved_launches, saved_paths = dict(_LAUNCHES), dict(_PATH_LOG)
+    _LAUNCHES.clear()
+    _PATH_LOG.clear()
+    rec: dict = {}
+    try:
+        yield rec
+    finally:
+        rec["launches"], rec["paths"] = dict(_LAUNCHES), dict(_PATH_LOG)
+        _LAUNCHES.clear()
+        _LAUNCHES.update(saved_launches)
+        _PATH_LOG.clear()
+        _PATH_LOG.update(saved_paths)
+
+
+def replay_record(rec: dict) -> None:
+    """Count the launches of one replay of a graph whose capture
+    :func:`recorded_apart` recorded as ``rec``, under the same names, and
+    record its paths."""
+    for kernel, n in rec["launches"].items():
+        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + n
+    _PATH_LOG.update(rec["paths"])

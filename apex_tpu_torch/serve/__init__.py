@@ -1,13 +1,15 @@
 """Serving — paged KV cache, inference engine, continuous batching.
 
-Counterpart of :mod:`apex_tpu.serve` for the greedy serving path:
+Counterpart of :mod:`apex_tpu.serve`'s core:
 
-- :mod:`apex_tpu_torch.serve.cache` — :class:`PagePool` and the paged KV
-  pool tensors ``(L, P, H, page, D)``;
-- :mod:`apex_tpu_torch.serve.model` — the functional prefill/decode
-  forward over :class:`~apex_tpu_torch.models.GptModel` weights;
-- :mod:`apex_tpu_torch.serve.engine` — :class:`InferenceEngine` and
-  :class:`ServeConfig`;
+- :mod:`apex_tpu_torch.serve.cache` — :class:`PagePool`,
+  :class:`PrefixCache` and the paged KV pool tensors ``(L, P, H, page,
+  D)``, on the model dtype or the int8 KV wire;
+- :mod:`apex_tpu_torch.serve.model` — the functional prefill, chunked
+  prefill and decode forward over :class:`~apex_tpu_torch.models.GptModel`
+  weights or the int8 weight wire, and the fused sampler;
+- :mod:`apex_tpu_torch.serve.engine` — :class:`InferenceEngine` (the
+  decode step as one CUDA graph on the card) and :class:`ServeConfig`;
 - :mod:`apex_tpu_torch.serve.scheduler` —
   :class:`ContinuousBatchingScheduler` and :class:`Request`.
 """
@@ -15,8 +17,11 @@ Counterpart of :mod:`apex_tpu.serve` for the greedy serving path:
 from apex_tpu_torch.serve.cache import (  # noqa: F401
     NULL_PAGE,
     PagePool,
+    PrefixCache,
     append_token_kv,
+    encode_kv,
     init_kv_pages,
+    prefix_keys,
     pack_prompt_pages,
     write_prompt_pages,
 )
@@ -25,8 +30,15 @@ from apex_tpu_torch.serve.engine import (  # noqa: F401
     ServeConfig,
 )
 from apex_tpu_torch.serve.model import (  # noqa: F401
+    WEIGHT_WIRE_MIN_SIZE,
+    PackedParams,
+    PackedWeight,
+    chunk_prefill_body,
     decode_body,
+    dequantize_params,
     prefill_body,
+    quantize_params,
+    sample_tokens,
     validate_config,
 )
 from apex_tpu_torch.serve.scheduler import (  # noqa: F401

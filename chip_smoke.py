@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-eleven phases; any failure raises and the exit code is non-zero.  Without
+twelve phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -51,29 +51,38 @@ a CUDA device it exits non-zero at once and prints no result.
    each).  The launch counters are zeroed just before and read just
    after: K1, K3 and K6 must each have launched, exactly as often as the
    prefill and decode calls require, and every op must have taken the
-   kernel path.  The page pool must end empty.  The same requests are
+   kernel path (the decode step is a CUDA graph: its launches count once
+   a replay).  The page pool must end empty.  The same requests are
    then served again: the second run's rates pay no first-call costs.
 3. Serving cross-check: at full width with 2 layers, one 256-token
    prefill and 4 decode steps through the card engine (bf16) against the
-   CPU engine (f32, the same weights), fed the same tokens.
+   CPU engine (f32, the same weights), fed the same tokens; again on the
+   int8 KV wire and on the int8 weight wire, each beside a planted fault
+   (the codec's scales halved) that must fail its limit; and two
+   128-token chunks of the chunked prefill against the monolithic
+   prefill on the card.
 4. Timing at the main-path shapes (training, BERT, the evoformer's
    triangle, MSA row and MSA column attention, and serving), and K1/K2
    at the evoformer's f32 rows, K3/K4 at the reference's long-context
    shape (BH 8, S 16384, D 128, causal) and at D = 256 (BH 32, S 2048,
    causal), K3, K4 and K5 at D = 384 (BH 32, S 2048; K3/K4 causal), K6
-   at phase 1's short lengths, the fused K4 + K5 call at the triangle
+   at phase 1's short lengths and on int8 pages at the decode batch,
+   the fused K4 + K5 call at the triangle
    and MSA row shapes beside K4 alone and K5 alone, and the f32
    instances of K3-K5 at the
    triangle, MSA row and MSA column shapes: each kernel,
    its plain version and one PyTorch library call computing the same
    function (the yardstick, never used by the port), with the least time
    the card could take.
-5. Decode at batch 8, full width: host time per iteration unprofiled,
-   then a ``torch.profiler`` trace of 4 iterations — the device time of
+5. Decode at batch 8, full width, through the captured CUDA graph and
+   eagerly on the card, on bf16 and on int8 KV pages: host time per
+   iteration unprofiled and the counted launches, then a
+   ``torch.profiler`` trace of 4 iterations — the device time of
    their kernels (the device's busy share), K6's share of it and its
    launches per step, the kernels that took most,
    and the host side split into the time inside PyTorch ops and runtime
-   calls (by op) and the Python time outside them.
+   calls (by op) and the Python time outside them; and one replay's
+   device time between CUDA events.
 6. The training slice: ``python -m apex_tpu_torch.examples.train_gpt``'s
    ``train`` at ``GptConfig(remat=True)``, seq 2048, batch 8, 8 steps on
    a synthetic zipf corpus, with the launch counters zeroed before and
@@ -109,7 +118,20 @@ a CUDA device it exits non-zero at once and prints no result.
     card (bf16 attention) against CPU (f32), and a planted fault (K5's
     twin halved) that must fail the same limits.
 
-The phases run in the order 1, 2, 3, 6, 7, 8, 9, 10, 11, 4, 5.
+12. The engine's full surface: ``GptConfig()`` (phase 2's seeded
+    weights) on the int8 KV and weight wires with top-k 50 sampling
+    behind a scheduler with the prefix cache and 512-token chunks; 8
+    requests (six share a 1024-token system prompt; four sample at
+    temperature 0.8 with stream seeds), 32 new tokens each, served twice.
+    K1 and K6 launch exactly what the chunk calls and decode replays
+    require, K3 never; the pool holds only the cache's pages after each
+    run; every prompt of the second run hits and every stream equals the
+    first run's; each sampled token lies in its row's top 50; 4 full
+    decode steps of the graph equal the eager step bit for bit; other
+    stream seeds draw other streams.  It reports the int8 pool's and the
+    packed weights' bytes.
+
+The phases run in the order 1, 2, 3, 12, 6, 7, 8, 9, 10, 11, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -133,6 +155,11 @@ as refused and left out.
 
 runs phase 1 alone (every kernel against its plain version) and prints
 the errors as one JSON line: the quick check of a kernel's first build.
+
+    python3 chip_smoke.py --serving
+
+runs the serving phases alone (2, 3, 12 and 5, checked as in the full
+run) and prints them as one JSON line.
 
     python3 chip_smoke.py --evoformer
 
@@ -198,6 +225,12 @@ K4_TOL = dict(rtol=2 ** -7, row=1 / 8, floor=2 ** -10, norm=1e-2)
 #: phase 3: bf16 card engine vs f32 CPU engine on 2-layer logits (logit
 #: std ~0.64; a CPU bf16-vs-f32 run of the same check gives ~0.02)
 LOGITS_TOL = 0.06
+#: phase 3 on the int8 KV wire and on the int8 weight wire: both engines
+#: quantize, from bf16 and from f32 values, so a code can move by one
+#: step where the two sit on either side of a rounding edge; each limit
+#: sits between the sound reading and its planted fault's (WIRE_FAULTS)
+LOGITS_TOL_KV_INT8 = 0.1
+LOGITS_TOL_WEIGHTS_INT8 = 0.1
 
 #: BERT-Large phase-1 pretraining (``bench.py::bench_bert_lamb``): batch
 #: 128, seq 128
@@ -1400,27 +1433,59 @@ def phase2():
 # ---------------------------------------------------------------------------
 
 
-def phase3():
+#: phase 3's planted faults on the card engine, each of which must push
+#: its own reading past its wire's limit: the int8 KV codec's scales
+#: halved (``encode_kv``'s twin on the card), and the weight codec's
+#: scales halved (``comm.dequantize_blocks``)
+WIRE_FAULTS = {"kv_int8": "encode_kv scales halved",
+               "weights_int8": "weight scales halved"}
+
+
+def _planted_fault(name):
+    """A context manager that plants WIRE_FAULTS[name] (None: none)."""
+    import contextlib
+
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.serve import cache as cache_lib
+
+    @contextlib.contextmanager
+    def patched(module, attr, fn):
+        orig = getattr(module, attr)
+        setattr(module, attr, fn(orig))
+        try:
+            yield
+        finally:
+            setattr(module, attr, orig)
+
+    if name is None:
+        return contextlib.nullcontext()
+    if name == "kv_int8":
+        return patched(cache_lib, "encode_kv", lambda f: (
+            lambda x: (lambda c, sc: (c, sc * 0.5))(*f(x))))
+    return patched(comm, "dequantize_blocks", lambda f: (
+        lambda q, scale, *a, **k: f(q, scale * 0.5, *a, **k)))
+
+
+def cross_serve(cfg, card, cpu, serve_kw, fault=None):
+    """One 256-token prefill and 4 decode steps through a card engine
+    and a CPU engine on ``serve_kw`` (``fault`` planted on the card
+    engine's calls, its graph captured under it), both fed the CPU's
+    tokens.  Returns the steps' (name, card logits, cpu logits, card
+    token, cpu token)."""
     import torch
 
-    from apex_tpu_torch.models import GptConfig, GptModel
     from apex_tpu_torch.serve import InferenceEngine, ServeConfig
 
-    log("phase 3: 2-layer full width, card bf16 against CPU f32")
-    cfg = GptConfig(num_layers=2)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    card = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(7))
-    cpu = GptModel(cpu_cfg, device="cpu")
-    cpu.load_state_dict({k: v.float().cpu()
-                         for k, v in card.state_dict().items()})
     serve = ServeConfig(page_size=16, max_batch=1, max_pages_per_seq=128,
-                        num_pages=129)
+                        num_pages=129, **serve_kw)
     e_card = InferenceEngine(cfg, card, serve)
     e_cpu = InferenceEngine(cpu_cfg, cpu, serve, device="cpu")
     rs = np.random.RandomState(1)
     prompt = [int(t) for t in rs.randint(0, cfg.vocab_size, size=256)]
     p_card, p_cpu = e_card.pool.alloc(17), e_cpu.pool.alloc(17)
-    lg, tg = e_card.prefill(prompt, p_card[:16])
+    with _planted_fault(fault):
+        lg, tg = e_card.prefill(prompt, p_card[:16])
     lc, tc = e_cpu.prefill(prompt, p_cpu[:16])
     steps = [("prefill", lg.float().cpu(), lc, tg, tc)]
     t_card = np.zeros((1, 128), np.int32)
@@ -1430,33 +1495,317 @@ def phase3():
     for i in range(4):
         # both engines are fed the reference's token (teacher forcing),
         # so every step compares the same computation
-        lg, ng = e_card.decode(np.array([cur]), np.array([ctx + 1]), t_card)
+        with _planted_fault(fault):
+            lg, ng = e_card.decode(np.array([cur]), np.array([ctx + 1]),
+                                   t_card)
         lc, nc = e_cpu.decode(np.array([cur]), np.array([ctx + 1]), t_cpu)
         steps.append((f"decode{i}", lg[0].float().cpu(), lc[0], int(ng[0]),
                       int(nc[0])))
         cur, ctx = int(nc[0]), ctx + 1
+    return steps
+
+
+def check_steps(tag, steps, tol):
+    """Each step's logits within ``tol``; a different greedy token only
+    at a near-tie.  Returns (worst diff, steps with the same token)."""
+    import torch
+
     worst, same = 0.0, 0
     for name, l_card, l_cpu, tok_card, tok_cpu in steps:
         err = float((l_card - l_cpu).abs().max())
         worst = max(worst, err)
         top = float(l_cpu.max())
-        log(f"  {name}: max|logits diff|={err:.4f} token card={tok_card} "
-            f"cpu={tok_cpu} cpu top-1 logit={top:.4f}")
-        if not torch.isfinite(l_card).all() or err > LOGITS_TOL:
-            raise AssertionError(f"{name}: logits differ by {err}")
+        log(f"  {tag} {name}: max|logits diff|={err:.4f} token card="
+            f"{tok_card} cpu={tok_cpu} cpu top-1 logit={top:.4f}")
+        if not torch.isfinite(l_card).all() or err > tol:
+            raise AssertionError(f"{tag} {name}: logits differ by {err}")
         if tok_card == tok_cpu:
             same += 1
-        elif float(l_cpu[tok_card]) < top - 2 * LOGITS_TOL:
+        elif float(l_cpu[tok_card]) < top - 2 * tol:
             # a different greedy token is allowed only for a near-tie
             # that the bf16 tolerance itself can flip
             raise AssertionError(
-                f"{name}: greedy token {tok_card} != {tok_cpu} and not a "
-                f"near-tie"
+                f"{tag} {name}: greedy token {tok_card} != {tok_cpu} and "
+                f"not a near-tie"
             )
-    log(f"  greedy tokens identical in {same}/{len(steps)} steps; "
-        f"worst logits diff {worst:.4f} <= {LOGITS_TOL}")
-    return {"same_tokens": same, "steps": len(steps),
-            "max_logits_diff": worst}
+    log(f"  {tag}: greedy tokens identical in {same}/{len(steps)} steps; "
+        f"worst logits diff {worst:.4f} <= {tol}")
+    return worst, same
+
+
+def phase3():
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    log("phase 3: 2-layer full width, card bf16 against CPU f32, on the "
+        "f32 wires, the int8 KV wire and the int8 weight wire")
+    cfg = GptConfig(num_layers=2)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    card = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(7))
+    cpu = GptModel(cpu_cfg, device="cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in card.state_dict().items()})
+    worst, same = check_steps("f32 wires", cross_serve(cfg, card, cpu, {}),
+                              LOGITS_TOL)
+    out = {"same_tokens": same, "steps": 5, "max_logits_diff": worst}
+    for fault, wire, tol in (("kv_int8", dict(kv_wire="int8"),
+                              LOGITS_TOL_KV_INT8),
+                             ("weights_int8", dict(weight_wire="int8"),
+                              LOGITS_TOL_WEIGHTS_INT8)):
+        worst, same = check_steps(fault, cross_serve(cfg, card, cpu, wire),
+                                  tol)
+        bad = cross_serve(cfg, card, cpu, wire, fault=fault)
+        planted = max(float((a - b).abs().max()) for _, a, b, _, _ in bad)
+        log(f"  {fault} planted fault ({WIRE_FAULTS[fault]}): worst logits "
+            f"diff {planted:.4f}, {planted / tol:.1f}x the limit {tol} "
+            f"(the sound reading {worst / tol:.2f}x)")
+        if not planted > tol:
+            raise AssertionError(f"phase 3: the planted fault of {fault} "
+                                 f"reads {planted} <= {tol}")
+        out[fault] = {"same_tokens": same, "steps": 5,
+                      "max_logits_diff": worst, "planted_fault_diff": planted,
+                      "limit": tol}
+    # chunked prefill (two 128-token chunks) against the monolithic
+    # prefill, both on the card
+    serve = ServeConfig(page_size=16, max_batch=1, max_pages_per_seq=128,
+                        num_pages=129)
+    e_mono = InferenceEngine(cfg, card, serve)
+    e_chunk = InferenceEngine(cfg, card, serve)
+    rs = np.random.RandomState(1)
+    prompt = [int(t) for t in rs.randint(0, cfg.vocab_size, size=256)]
+    pages = e_chunk.pool.alloc(16)
+    lm, tm = e_mono.prefill(prompt, e_mono.pool.alloc(16))
+    e_chunk.chunk_prefill(prompt[:128], 0, pages, pages[:8])
+    lc, tc = e_chunk.chunk_prefill(prompt[128:], 128, pages, pages[8:])
+    worst, same = check_steps(
+        "chunked vs monolithic",
+        [("prefill", lc.float().cpu(), lm.float().cpu(), tc, tm)],
+        LOGITS_TOL)
+    out["chunked_vs_monolithic"] = {"max_logits_diff": worst,
+                                    "same_token": bool(same)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the engine's full surface at full width
+# ---------------------------------------------------------------------------
+
+
+#: phase 12's requests: six open with one 1024-token system prompt and
+#: go on with these tails, two share nothing; 0, 2, 4, 6 are greedy, the
+#: others sample at SAMPLE_TEMP with a stream seed
+SYSTEM_TOKENS = 1024
+SHARED_TAILS = (17, 60, 100, 250, 400, 700)
+ALONE_LENS = (300, 1900)
+SAMPLE_TEMP = 0.8
+TOP_K = 50
+CHUNK_TOKENS = 512
+
+
+def phase12():
+    """``GptConfig()`` (the seeded weights of phase 2) behind the engine
+    on both int8 wires with top-k sampling, and a scheduler with the
+    prefix cache and 512-token chunks; 8 requests, 32 new tokens each,
+    served twice (the second time every prompt hits the cache).  Checks
+    the exact launches of K1 and K6 (counted per graph replay; K3 none),
+    the pool's accounting after each run, the hits, the hits' streams
+    against the cold run's, the sampled tokens' support, the decode
+    graph against the eager step bit for bit, and that another stream
+    seed draws another stream."""
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        InferenceEngine,
+        Request,
+        ServeConfig,
+    )
+
+    log("phase 12: GptConfig() on the int8 KV and weight wires, top-k "
+        "sampling, prefix cache, 512-token chunks, the decode graph")
+    torch.cuda.empty_cache()
+    cfg = GptConfig()
+    model = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(1234))
+    serve = ServeConfig(page_size=16, max_batch=8, max_pages_per_seq=128,
+                        num_pages=1025, kv_wire="int8", weight_wire="int8",
+                        top_k=TOP_K, sample_seed=0)
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, model, serve).build(chunked=True)
+    build_s = time.perf_counter() - t0
+    dense_bytes = sum(p.numel() * 2 for p in model.parameters())
+    del model
+    bf16_pool = (2 * cfg.num_layers * serve.num_pages * cfg.num_heads
+                 * serve.page_size * cfg.head_dim * 2)
+    mem = {"kv_pool_bytes": engine.kv_pool_bytes(),
+           "kv_pool_bytes_bf16": bf16_pool,
+           "kv_pool_ratio": engine.kv_pool_bytes() / bf16_pool,
+           "weight_bytes": engine.weight_bytes(),
+           "weight_bytes_bf16": dense_bytes,
+           "graph_launches_per_replay": engine.graph_launches,
+           "build_s": build_s}
+    log(f"  built in {build_s:.1f} s (every prefill and chunk bucket run "
+        f"once, the decode step captured: {engine.graph_launches} counted "
+        f"launches a replay); KV pool {mem['kv_pool_bytes']} bytes (int8 "
+        f"codes + f32 scales) = {mem['kv_pool_ratio']:.3f} x the bf16 "
+        f"pool's {bf16_pool}; resident weights {mem['weight_bytes']} bytes "
+        f"(bf16 {dense_bytes})")
+
+    rs = np.random.RandomState(12)
+    system = [int(t) for t in rs.randint(0, cfg.vocab_size,
+                                         size=SYSTEM_TOKENS)]
+    prompts = [system + [int(t) for t in rs.randint(0, cfg.vocab_size,
+                                                    size=n)]
+               for n in SHARED_TAILS]
+    prompts += [[int(t) for t in rs.randint(0, cfg.vocab_size, size=n)]
+                for n in ALONE_LENS]
+    sampled = [i % 2 == 1 for i in range(len(prompts))]
+
+    def requests(seed_base=100):
+        return [Request(prompt=list(p), max_new_tokens=NEW_TOKENS,
+                        temperature=SAMPLE_TEMP if sampled[i] else 0.0,
+                        stream_seed=seed_base + i if sampled[i] else None)
+                for i, p in enumerate(prompts)]
+
+    sched = ContinuousBatchingScheduler(engine, prefix_cache=True,
+                                        prefill_chunk_tokens=CHUNK_TOKENS)
+    decode = engine.decode
+    support = {"checked": 0}
+
+    def checked_decode(tokens, lengths, tables, temps, **kw):
+        """The engine's decode, then each sampled row's token against its
+        logits' top 50 (phase 12's support check)."""
+        logits, nxt = decode(tokens, lengths, tables, temps, **kw)
+        rows = np.flatnonzero((np.asarray(lengths) > 0)
+                              & (np.asarray(temps) > 0))
+        if rows.size:
+            # in the top k: at least the k-th largest logit (ties too)
+            idx = torch.as_tensor(rows, device=logits.device)
+            kth = torch.topk(logits[idx], TOP_K, dim=-1).values[:, -1]
+            picked = logits[idx, torch.as_tensor(nxt[rows],
+                                                 device=logits.device)]
+            if not bool((picked >= kth).all()):
+                raise AssertionError(
+                    f"a sampled token of slots {rows.tolist()} "
+                    f"({nxt[rows].tolist()}) is not in its top {TOP_K}")
+            support["checked"] += rows.size
+        return logits, nxt
+
+    def serve_once(reqs):
+        sched_calls = (engine.prefill_calls, engine.decode_iters)
+        for r in reqs:
+            sched.submit(r)
+        t = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for r in reqs:
+            if r.status != "done" or len(r.tokens) != NEW_TOKENS:
+                raise AssertionError(
+                    f"request of {len(r.prompt)} tokens ended {r.status} "
+                    f"({r.shed_reason}) with {len(r.tokens)} tokens")
+        # the pool holds only what the cache holds
+        sched.leak_check()
+        if engine.pool.in_use != len(sched.prefix):
+            raise AssertionError(
+                f"{engine.pool.in_use} pages in use, the cache holds "
+                f"{len(sched.prefix)}")
+        return (engine.prefill_calls - sched_calls[0],
+                engine.decode_iters - sched_calls[1], wall)
+
+    engine.decode = checked_decode
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    cold = requests()
+    chunks1, decodes1, wall1 = serve_once(cold)
+    hits1 = sched.prefix.hits
+    warm = requests()
+    chunks2, decodes2, wall2 = serve_once(warm)
+    launches = _dispatch.launches()
+    paths = _dispatch.last_paths()
+    engine.decode = decode
+    layers = cfg.num_layers
+    n_chunk, n_decode = chunks1 + chunks2, decodes1 + decodes2
+    want = {"layer_norm_fwd": (2 * layers + 1) * (n_chunk + n_decode),
+            "paged_decode": layers * n_decode}
+    log(f"  run 1: {chunks1} chunk calls, {decodes1} decode replays, "
+        f"{wall1:.2f} s; run 2: {chunks2} chunk calls, {decodes2} decode "
+        f"replays, {wall2:.2f} s; launches={launches} paths={paths}")
+    if launches != want:
+        raise AssertionError(f"phase 12 launches {launches} != {want}")
+    want_paths = {"layer_norm": "cuda", "paged_decode_attention": "cuda"}
+    if paths != want_paths:
+        raise AssertionError(f"phase 12 op paths {paths} != {want_paths}")
+    hits = sched.prefix.hits - hits1
+    log(f"  prefix cache: run 1 {hits1} hits, {sched.prefix.misses} misses; "
+        f"run 2 {hits} hits ({[r.cache_hit_tokens for r in warm]} tokens), "
+        f"{sched.forks} copy-on-write forks, {len(sched.prefix)} cached "
+        f"pages; {support['checked']} sampled tokens in their top {TOP_K}")
+    # run 1 admits all 8 at once, so only the first of the shared prompts
+    # to finish commits its pages; run 2 hits at least the system prompt
+    if hits != len(prompts) or any(
+            r.cache_hit_tokens < min(len(r.prompt), SYSTEM_TOKENS)
+            for r in warm):
+        raise AssertionError("phase 12: a prompt of run 2 missed the cache")
+    for c, w in zip(cold, warm):
+        # greedy and seeded streams alike: a hit re-runs the cold run's
+        # last chunk over the same pages
+        if c.tokens != w.tokens:
+            raise AssertionError(
+                f"phase 12: the hit's stream {w.tokens[:8]} differs from "
+                f"the cold run's {c.tokens[:8]} (temperature "
+                f"{c.temperature})")
+    if not support["checked"]:
+        raise AssertionError("phase 12: no sampled token was checked")
+
+    # graph against eager: 4 steps of the full batch, bit for bit
+    eager_checks = {"steps": 0}
+
+    def compared_decode(tokens, lengths, tables, temps, **kw):
+        if eager_checks["steps"] < 4 and (np.asarray(lengths) > 0).all():
+            le, te, fe = engine._decode_eager(tokens, lengths, tables, temps,
+                                              **kw)
+            lg, tg = decode(tokens, lengths, tables, temps, **kw)
+            if not (torch.equal(lg, le) and np.array_equal(tg, te)
+                    and np.array_equal(engine.last_decode_finite, fe)):
+                err = float((lg.float() - le.float()).abs().max())
+                raise AssertionError(
+                    f"phase 12: the graph's decode differs from the eager "
+                    f"step (max |logits diff| {err})")
+            eager_checks["steps"] += 1
+            return lg, tg
+        return decode(tokens, lengths, tables, temps, **kw)
+
+    engine.decode = compared_decode
+    third = requests()
+    serve_once(third)
+    engine.decode = decode
+    if eager_checks["steps"] < 4:
+        raise AssertionError("phase 12: fewer than 4 full-batch steps to "
+                             "compare")
+    if any(a.tokens != c.tokens for a, c in zip(third, cold)):
+        raise AssertionError("phase 12: run 3 differs from run 1")
+    # another stream seed draws another stream
+    other = requests(seed_base=900)
+    serve_once(other)
+    differ = [i for i in range(len(prompts))
+              if sampled[i] and other[i].tokens != cold[i].tokens]
+    if len(differ) != sum(sampled):
+        raise AssertionError(f"phase 12: other seeds gave the same stream "
+                             f"(requests {differ} differ)")
+    log(f"  graph == eager bit for bit over {eager_checks['steps']} full "
+        f"steps; the seeded streams repeat under the same seeds and differ "
+        f"under others; greedy streams: {[c.tokens[:4] for c in cold[::2]]}")
+    return launches, dict(mem, chunk_calls=[chunks1, chunks2],
+                          decode_replays=[decodes1, decodes2],
+                          run_s=[wall1, wall2], hits=[hits1, hits],
+                          forks=sched.forks,
+                          sampled_tokens_checked=support["checked"],
+                          graph_eager_steps=eager_checks["steps"],
+                          peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
 # ---------------------------------------------------------------------------
@@ -2085,6 +2434,59 @@ def phase4(gen, launches, errs):
         library_ms=time_ms(lambda: library_paged(args, 0.125), flush=flush),
         bound_ms=b_ms, bound_by=b_by,
     )
+    # and on int8 pages (the codes and f32 scales of the int8 KV wire,
+    # phase 12's path) at the same batch and lengths
+    q8 = paged_inputs(b=8, h=16, d=64, page=16, np_=128, pool=1025,
+                      lengths=MAIN_LENGTHS, gen=gen, kv="int8")
+    pos = [q8[k] for k in ("q", "k_pages", "v_pages", "page_table",
+                           "lengths")]
+    kw = dict(scale=0.125, k_scale=q8["k_scale"], v_scale=q8["v_scale"],
+              rope_cos=q8["rope_cos"], rope_sin=q8["rope_sin"])
+    tokens = sum(MAIN_LENGTHS)
+    b_ms, b_by = bound(
+        2 * tokens * 16 * 64 * 1 + 2 * tokens * 16 * 4
+        + 2 * 8 * 16 * 64 * 2 + 2 * 8 * 64 * 4 + 4 * pages + 4 * 8,
+        4 * 16 * 64 * tokens, F32_FLOPS,
+    )
+
+    def library_paged_int8(a, scale):
+        """The dequantizing gather (the rows of the table's pages, codes
+        x scales in q's dtype) and SDPA over it, with the RoPE applied
+        to q first and the lengths as a mask."""
+        import torch.nn.functional as F
+
+        from apex_tpu_torch.ops.rope import rotate_half
+
+        b, h, d = a["q"].shape
+        qf = a["q"].float()
+        qr = (qf * a["rope_cos"][:, None] + rotate_half(qf)
+              * a["rope_sin"][:, None]).to(a["q"].dtype)
+        table = a["page_table"].long()
+
+        def rows(name):
+            x = (a[f"{name}_pages"][table].float()
+                 * a[f"{name}_scale"][table][..., None]).to(a["q"].dtype)
+            return x.transpose(1, 2).reshape(b, h, -1, d)
+
+        kk, vv = rows("k"), rows("v")
+        mask = (torch.arange(kk.shape[2], device="cuda")[None]
+                < a["lengths"][:, None])[:, None, None]
+        return F.scaled_dot_product_attention(qr[:, :, None], kk, vv,
+                                              attn_mask=mask, scale=scale)
+
+    extra.setdefault("paged_decode", {})["int8_shape"] = dict(
+        shape="B=8 H=16 D=64 page=16 NP=128 int8 pages + f32 scales, "
+        f"lengths {MAIN_LENGTHS}",
+        ms=time_ms(lambda: pa.paged_decode_fwd(*pos, **kw), flush=flush),
+        plain_ms=time_ms(
+            lambda: pa.paged_decode_attention_reference(*pos, **kw),
+            flush=flush),
+        library_ms=time_ms(lambda: library_paged_int8(q8, 0.125),
+                           flush=flush),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    del q8
+    torch.cuda.empty_cache()
     # and at phase 1's short lengths (one split a row): f32 pages
     short = paged_inputs(b=3, h=4, d=32, page=8, np_=3, pool=12,
                          lengths=[17, 9, 0], gen=gen, kv="f32")
@@ -2148,6 +2550,7 @@ def phase4(gen, launches, errs):
                        (" (long context)", entry.get("long_context_shape")),
                        (" (D = 256)", entry.get("d256_shape")),
                        (" (D = 384)", entry.get("d384_shape")),
+                       (" (int8 pages)", entry.get("int8_shape")),
                        (" (short lengths)", entry.get("short_shape")),
                        (" (evoformer pair)", entry.get("evo_pair_shape")),
                        (" (evoformer MSA)", entry.get("evo_msa_shape"))):
@@ -2227,20 +2630,22 @@ def group_kernels(kernels):
 # ---------------------------------------------------------------------------
 
 
-def phase5(engine):
-    """Decode iterations at batch 8 (full width, contexts ~512): the host
-    time of 4 unprofiled iterations, then a torch.profiler trace of 4
-    more — the summed device time of the kernels they ran, the kernels
-    that took most, and where the host time went: inside PyTorch ops and
-    CUDA runtime calls (self CPU time, by op) or in Python outside them
-    (scheduler, engine, the ctypes calls of the kernel wrappers)."""
+def _decode_profile(engine, eager):
+    """Decode iterations at batch 8 (full width, contexts ~512) through
+    the scheduler: the host time of 4 unprofiled iterations and their
+    counted launches, then a torch.profiler trace of 4 more — the summed
+    device time of the kernels they ran, the kernels that took most, and
+    where the host time went: inside PyTorch ops and CUDA runtime calls
+    (self CPU time, by op) or in Python outside them.  ``eager`` runs the
+    step eagerly on the card (the engine's private eager entry point)
+    instead of replaying the captured graph."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from apex_tpu_torch.ops import _dispatch
     from apex_tpu_torch.serve import ContinuousBatchingScheduler, Request
 
-    log("phase 5: decode iterations at batch 8, unprofiled then profiled")
     rs = np.random.RandomState(2)
     sched = ContinuousBatchingScheduler(engine)
     steps = 4
@@ -2251,19 +2656,37 @@ def phase5(engine):
             max_new_tokens=2 * steps + 2,
         ))
     sched.step()  # the 8 prefills and the first decode, not timed
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        sched.step()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    decode = engine.decode
+    if eager:
+        def eager_decode(tokens, lengths, tables, temps=None, **kw):
+            logits, nxt, finite = engine._decode_eager(
+                tokens, lengths, tables, temps, **kw)
+            engine.decode_iters += 1
+            engine.last_decode_finite = finite
+            return logits, nxt
+
+        engine.decode = eager_decode
+    try:
+        torch.cuda.synchronize()
+        before = _dispatch.launches()
         t0 = time.perf_counter()
         for _ in range(steps):
             sched.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+        after = _dispatch.launches()
+        counted = {k: (after.get(k, 0) - before.get(k, 0)) / steps
+                   for k in after if after.get(k, 0) != before.get(k, 0)}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sched.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        engine.decode = decode
+    replay = None if eager else _replay_ms(engine)
     sched.run()
     kernels = device_kernels(prof)
     host_ops = [
@@ -2277,12 +2700,18 @@ def phase5(engine):
         "host_ms_per_step": wall * 1e3 / steps,
         "host_ms_per_step_in_ops": in_ops_ms,
         "host_ms_per_step_outside_ops": wall * 1e3 / steps - in_ops_ms,
+        "counted_launches_per_step": counted,
     }
+    if replay is not None:
+        out["replay_device_ms"] = replay
+        log(f"  one replay of the captured step {replay:.4f} ms on the card "
+            f"(CUDA events)")
     log(f"  host {plain_ms:.3f} ms/step unprofiled; profiled "
         f"{out['host_ms_per_step']:.3f} ms/step, of which "
         f"{in_ops_ms:.3f} inside PyTorch ops and runtime calls (self CPU "
-        f"time) and {out['host_ms_per_step_outside_ops']:.3f} outside them")
-    for key, us, count in sorted(host_ops, key=lambda o: -o[1])[:10]:
+        f"time) and {out['host_ms_per_step_outside_ops']:.3f} outside them; "
+        f"counted launches a step {counted}")
+    for key, us, count in sorted(host_ops, key=lambda o: -o[1])[:6]:
         log(f"    host {us / steps / 1e3:8.4f} ms/step  {count // steps:4d}x  "
             f"{key[:80]}")
     if not kernels:
@@ -2309,9 +2738,53 @@ def phase5(engine):
         f"launches/step; K6 {out['k6_ms_per_step']:.4f} ms/step in "
         f"{out['k6_launches_per_step']:.0f} launches, "
         f"{out['k6_share_of_device']:.3f} of the kernel time")
-    for key, us, count in sorted(kernels, key=lambda k: -k[1])[:8]:
+    for key, us, count in sorted(kernels, key=lambda k: -k[1])[:6]:
         log(f"    {us / steps / 1e3:8.4f} ms/step  {count // steps:4d}x  "
             f"{key[:90]}")
+    return out
+
+
+def _replay_ms(engine, iters=20):
+    """Median device ms of one replay of the captured decode step (CUDA
+    events around ``replay``) on the static inputs of the last step,
+    whose appends rewrite the same slots of pages the live requests
+    still own."""
+    import torch
+
+    graph = engine._graph["graph"]
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase5(engine):
+    """The decode step at batch 8 through the captured CUDA graph and
+    eagerly on the card, on the bf16 KV pool of phase 2's engine and on
+    an int8 KV pool (the same weights): host and device time per step,
+    launches per step."""
+    import torch
+
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    log("phase 5: decode iterations at batch 8, the graph against the "
+        "eager step, bf16 and int8 KV pages")
+    out = {}
+    int8 = InferenceEngine(engine.cfg, engine.model, dataclasses.replace(
+        engine.serve, kv_wire="int8")).build(buckets=(512,))
+    for tag, eng in (("bf16_kv", engine), ("int8_kv", int8)):
+        out[tag] = {}
+        for mode in ("graph", "eager"):
+            log(f"  {tag}, {mode}:")
+            out[tag][mode] = _decode_profile(eng, eager=mode == "eager")
+    del int8
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3270,6 +3743,8 @@ def main():
     parser.add_argument("--phase1", action="store_true",
                         help="run phase 1 alone (the kernels against their "
                         "plain versions)")
+    parser.add_argument("--serving", action="store_true",
+                        help="run the serving phases alone (2, 3, 12, 5)")
     parser.add_argument("--evoformer", action="store_true",
                         help="run phase 10's bf16 evoformer training alone "
                         "(launches logged, not checked)")
@@ -3310,6 +3785,17 @@ def main():
     if args.timing:
         print(json.dumps({"timing": phase4(gen, {}, {})}), flush=True)
         return
+    if args.serving:
+        serve_launches, rates, engine = phase2()
+        cross = phase3()
+        wires_launches, wires = phase12()
+        profile = phase5(engine)
+        print(json.dumps({"serving": dict(rates, launches=serve_launches),
+                          "cross_check": cross,
+                          "serving_int8_wires": dict(
+                              wires, launches=wires_launches),
+                          "decode_profile": profile}), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -3334,6 +3820,7 @@ def main():
         return
     serve_launches, rates, engine = phase2()
     cross = phase3()
+    wires_launches, wires = phase12()
     train_launches, training = phase6()
     train_cross = phase7()
     bert_launches, bert = phase8()
@@ -3341,7 +3828,9 @@ def main():
     evo_launches, evoformer = phase10()
     evo_f32_launches, evoformer_f32 = phase10_f32()
     evo_cross = phase11()
-    runs = (("serving", serve_launches), ("training", train_launches),
+    runs = (("serving", serve_launches),
+            ("serving_int8_wires", wires_launches),
+            ("training", train_launches),
             ("bert", bert_launches["bert"]),
             ("bert_dropout", bert_launches["bert_dropout"]),
             ("evoformer", evo_launches),
@@ -3357,6 +3846,7 @@ def main():
     kernels = phase4(gen, launches, errs)
     profile = phase5(engine)
     log(json.dumps({"serving": rates, "cross_check": cross,
+                    "serving_int8_wires": wires,
                     "training": training, "training_cross_check": train_cross,
                     "bert": bert, "bert_cross_check": bert_cross,
                     "evoformer": evoformer,

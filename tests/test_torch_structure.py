@@ -83,6 +83,23 @@ def test_port_imports_neither_jax_nor_apex_tpu():
     assert bad == []
 
 
+#: the port's modules, each under its JAX counterpart's name
+COUNTERPARTS = (
+    "ops/layer_norm.py", "ops/rope.py", "ops/attention.py",
+    "ops/paged_attention.py", "models/gpt.py", "models/bert.py",
+    "optimizers/fused_adam.py", "optimizers/fused_lamb.py",
+    "transformer/tensor_parallel/cross_entropy.py",
+    "contrib/openfold/evoformer.py", "parallel/comm.py", "serve/cache.py",
+    "serve/model.py", "serve/engine.py", "serve/scheduler.py",
+)
+
+
+@pytest.mark.parametrize("module", COUNTERPARTS)
+def test_port_modules_keep_their_counterparts_names(module):
+    assert (ROOT / "apex_tpu" / module).is_file(), module
+    assert (ROOT / "apex_tpu_torch" / module).is_file(), module
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -9,22 +9,25 @@ never imports JAX or :mod:`apex_tpu`; only the parity tests import both.
 Subpackages
 -----------
 - :mod:`apex_tpu_torch.ops` — fused LayerNorm/RMSNorm (forward and
-  backward), RoPE, flash attention (forward and backward) and paged
-  decode attention, each kernel with its plain PyTorch twin, plus the
+  backward), RoPE, flash attention (forward and backward, and packed
+  QKV) and paged decode attention, each kernel with its plain PyTorch
+  twin, the plain softmax cross entropy and scaled softmaxes, plus the
   device rule, the kernel build and the launch counters
   (``ops._dispatch``, ``ops._build``).
-- :mod:`apex_tpu_torch.models` — ``GptConfig`` / ``GptModel`` (f32
-  weights, the training forward, ``gpt_lm_loss``) and the converters to
-  and from a JAX ``GptModel.init`` parameter tree.
-- :mod:`apex_tpu_torch.transformer` — the cross entropy at tp = 1.
-- :mod:`apex_tpu_torch.optimizers` — ``FusedAdam`` / ``fused_adam``.
-- :mod:`apex_tpu_torch.data` — token files, the synthetic corpus and
-  the sharded shuffling loader.
+- :mod:`apex_tpu_torch.models` — GPT and BERT (f32 weights, the
+  training forward and losses, the remat policies) and the converters
+  to and from the JAX parameter trees.
+- :mod:`apex_tpu_torch.transformer` — the cross entropy at tp = 1, the
+  enums, ``FusedScaleMaskSoftmax`` and the remat policy resolution.
+- :mod:`apex_tpu_torch.optimizers` — FusedAdam and FusedLAMB.
+- :mod:`apex_tpu_torch.data` — token files, the synthetic corpus, the
+  sharded shuffling loader, the BERT batches and ``DevicePrefetcher``.
 - :mod:`apex_tpu_torch.parallel` — the blockwise int8 codec of the
   gradient wire (the serving KV and weight wires use it).
 - :mod:`apex_tpu_torch.serve` — paged KV cache (bf16/f32 or int8 pages),
   prefix cache, inference engine (sampling, chunked prefill, the decode
-  step as one CUDA graph) and continuous-batching scheduler.
+  step and the speculative round as CUDA graphs) and continuous-batching
+  scheduler.
 - :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``.
 - :mod:`apex_tpu_torch.contrib` — the OpenFold surface: ``mha``,
   ``layer_norm``, ``DAPAxialBlock`` and the evoformer modules.

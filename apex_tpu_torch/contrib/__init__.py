@@ -5,5 +5,5 @@ Ported so far:
 - :mod:`apex_tpu_torch.contrib.openfold` — the OpenFold surface: the
   fused attention and LayerNorm under their OpenFold names,
   ``DAPAxialBlock`` and the evoformer modules (one card; the dynamic
-  axial parallelism collectives are ROADMAP A6).
+  axial parallelism collectives are ROADMAP item 5).
 """

@@ -10,7 +10,7 @@ sharding the pair representation's axial dims across cards and swapping
 which one is sharded — needs several cards and ``torch.distributed``:
 its collectives (``scatter``, ``gather``, ``row_to_col``, ``col_to_row``
 and the all-to-all transitions) and any ``axis_name`` but None raise
-(ROADMAP A6).
+(ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ def _dap_collective(name):
 
     collective.__name__ = collective.__qualname__ = name
     collective.__doc__ = (f"DAP's ``{name}`` (a collective over several "
-                          f"cards): not ported yet, raises (ROADMAP A6).")
+                          f"cards): not ported yet, raises (ROADMAP item 5).")
     return collective
 
 

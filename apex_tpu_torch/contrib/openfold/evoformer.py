@@ -28,7 +28,7 @@ here every module takes its widths when it is built.
   outer-product contractions are plain ``torch.einsum``, as the JAX
   package leaves them to XLA.
 - ``axis_name`` (dynamic axial parallelism over several cards) is not
-  ported: anything but None raises (ROADMAP A6).
+  ported: anything but None raises (ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def _no_dap(axis_name) -> None:
     if axis_name is not None:
         raise NotImplementedError(
             "dynamic axial parallelism (axis_name) needs several cards and "
-            "torch.distributed, which are not ported yet (ROADMAP A6)")
+            "torch.distributed, which are not ported yet (ROADMAP item 5)")
 
 
 def _setup(device, generator):

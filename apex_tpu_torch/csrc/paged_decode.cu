@@ -49,8 +49,7 @@
 //           output is the same bits from run to run and one launch does
 //           it all.  bf16, f32 and int8 pages (per (head, token) f32
 //           scales); bf16 or f32 queries.  Not yet used: TMA bulk copies of
-//           whole pages, several heads a CTA, CUDA graphs around the decode
-//           step (ROADMAP A2).
+//           whole pages, several heads a CTA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -3,8 +3,8 @@ loader and the BERT masked-LM batches.
 
 Counterpart of ``apex_tpu/data`` (``write_token_file``,
 ``synthetic_token_corpus``, ``TokenFileDataset``, ``DataLoader``,
-``pack_mlm_predictions``, ``bert_mlm_batches``), kept as the port's own
-copy: the same file format, the same shuffle order and the same batches
+``pack_mlm_predictions``, ``bert_mlm_batches``, ``DevicePrefetcher``),
+kept as the port's own copy: the same file format, the same shuffle order and the same batches
 for the same seed.  Batches are assembled with a numpy gather where the
 JAX package calls its native row gather, and the MLM corruption is the
 numpy replay of its native ``mlm_mask_batch`` (the same splitmix64
@@ -19,12 +19,17 @@ from __future__ import annotations
 
 import json
 import os
+import queue
+import threading
+import time
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "DataLoader",
+    "DevicePrefetcher",
     "TokenFileDataset",
     "bert_mlm_batches",
     "gather_rows",
@@ -353,3 +358,185 @@ def bert_mlm_batches(loader: DataLoader, *, seed: int = 0,
             out.update(mlm_positions=pos, mlm_label_ids=pids, mlm_weights=w)
         yield out
         step += 1
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the arrays of a batch: a dict, list or tuple of them,
+    nested, or one array."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class DevicePrefetcher:
+    """Background host-to-device prefetch: a worker thread stays
+    ``depth`` batches ahead of the consumer, copying each batch onto
+    ``device`` while the step runs on the card.
+
+    Wraps any iterator of batches (numpy arrays or CPU tensors, or
+    dicts, lists and tuples of them); yields the same structure as
+    tensors on ``device`` (the card by default; ``device="cpu"`` only
+    converts).  On the card each array goes through pinned host memory
+    with a ``non_blocking`` copy on the prefetcher's own stream; the
+    consumer's stream waits for that copy's event before it reads the
+    batch, and the batch's memory is recorded on the consumer's stream
+    so the allocator does not reuse it early.
+
+    Backpressure is bounded: the hand-off queue holds at most ``depth``
+    batches, so a consumer that stops pulling stalls the worker instead
+    of buffering the dataset.  :attr:`stall_fraction` is the share of
+    wall time the consumer spent blocked on an empty queue (the
+    input-bound signal), and :meth:`metrics` adds the producer's wait
+    and the queue's occupancy.  ``board_key`` is accepted for the
+    reference's signature and unused: the metrics board is not ported
+    (ROADMAP item 8).  Call :meth:`close` (or use the prefetcher as a
+    context manager) to stop the worker.
+    """
+
+    _DONE = object()
+
+    def __init__(self, it, device="cuda", depth: int = 2, *,
+                 board_key: Optional[str] = "data/input_stall_fraction"):
+        from apex_tpu_torch.ops._dispatch import resolve_device
+
+        self._device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._src = iter(it)
+        self.board_key = board_key
+        self._t0 = time.monotonic()
+        self._consumer_wait_s = 0.0  # queue empty: input-bound
+        self._producer_wait_s = 0.0  # queue full: compute-bound (healthy)
+        self._batches = 0
+        self._occupancy_sum = 0.0
+        # the one field both threads touch: the worker adds to it,
+        # metrics() reads it from the consumer
+        self._lock = threading.Lock()
+        self._worker = threading.Thread(target=self._fill, daemon=True)
+        self._worker.start()
+
+    def _to_device(self, batch):
+        """The batch on the device, and the event its copies end at (None
+        off the card)."""
+        def put(x):
+            t = torch.as_tensor(x)
+            if self._stream is None:
+                return t.to(self._device)
+            return t.pin_memory().to(self._device, non_blocking=True)
+
+        if self._stream is None:
+            return _tree_map(put, batch), None
+        with torch.cuda.stream(self._stream):
+            out = _tree_map(put, batch)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return out, done
+
+    def _put(self, item) -> bool:
+        """Enqueue with stop-aware timeout polling; False when stopped
+        (an unbounded blocking put could pin the worker forever if the
+        consumer abandons iteration without close())."""
+        t0 = time.monotonic()
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                with self._lock:
+                    self._producer_wait_s += time.monotonic() - t0
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _fill(self):
+        try:
+            for batch in self._src:
+                if self._stop.is_set():
+                    return
+                if not self._put(self._to_device(batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — handed to the consumer
+            self._put(e)
+            return
+        self._put(self._DONE)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        # stop-aware polling get, as _put: an untimed get could hang if
+        # close() drains the sentinel from another thread
+        t0 = time.monotonic()
+        self._occupancy_sum += self._q.qsize() / self._q.maxsize
+        while True:
+            if self._stop.is_set():
+                raise StopIteration
+            try:
+                item = self._q.get(timeout=0.1)
+                break
+            except queue.Empty:
+                continue
+        if self._batches == 0:
+            # the first fetch waits on the worker's start and first fill:
+            # warm-up, not a steady-state stall; the clock starts here
+            self._t0 = time.monotonic()
+        else:
+            self._consumer_wait_s += time.monotonic() - t0
+        if item is self._DONE:
+            self._stop.set()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._stop.set()
+            raise item
+        self._batches += 1
+        batch, done = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(done)
+            _tree_map(lambda t: t.record_stream(consumer), batch)
+        return batch
+
+    @property
+    def stall_fraction(self) -> float:
+        """Share of wall time the consumer spent blocked on an empty
+        prefetch queue."""
+        wall = time.monotonic() - self._t0
+        return min(1.0, self._consumer_wait_s / wall) if wall > 0 else 0.0
+
+    def metrics(self) -> dict:
+        """The pipeline-balance ledger: consumer stall (input-bound),
+        producer wait (compute-bound backpressure, healthy), mean queue
+        occupancy at fetch, batches served."""
+        with self._lock:
+            producer_wait_s = self._producer_wait_s
+        return {
+            "batches": self._batches,
+            "stall_fraction": self.stall_fraction,
+            "consumer_wait_s": self._consumer_wait_s,
+            "producer_wait_s": producer_wait_s,
+            "mean_occupancy": (
+                self._occupancy_sum / self._batches if self._batches else 0.0
+            ),
+            "depth": self._q.maxsize,
+        }
+
+    def close(self) -> None:
+        """Stop the worker and wait for it to exit."""
+        self._stop.set()
+        # drain so a blocked put() can observe the stop flag
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._worker.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -5,7 +5,9 @@ parallelism 1: the packed-corpus loader -> the MLM corruption and the
 fixed-K prediction triple (``bert_mlm_batches``) ->
 ``BertForPreTraining(BertConfig(remat=True))`` -> ``bert_pretrain_loss``
 -> ``loss.backward()`` -> ``FusedLAMB.step()`` (lr 1e-3, weight decay
-0.01), bf16 compute on f32 weights.  On the card every LayerNorm runs
+0.01), bf16 compute on f32 weights.  The batches reach the device
+through ``DevicePrefetcher`` (two batches ahead, pinned memory, as the
+JAX example's ``DevicePrefetcher``).  On the card every LayerNorm runs
 through K1/K2 and every attention through K3/K4 with the key-padding
 bias.
 
@@ -35,6 +37,7 @@ import torch
 
 from apex_tpu_torch.data import (
     DataLoader,
+    DevicePrefetcher,
     TokenFileDataset,
     bert_mlm_batches,
     synthetic_token_corpus,
@@ -88,21 +91,10 @@ def corpus(args, vocab: int) -> str:
     )
 
 
-def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's numpy arrays as tensors on ``device``; to the card
-    through pinned memory, so the copies do not wait for the card."""
-    out = {}
-    for key, value in batch.items():
-        t = torch.from_numpy(value)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[key] = t
-    return out
-
-
 def batch_stream(args, cfg: BertConfig, device) -> Iterator[Dict]:
-    """Endless batch dicts on ``device``.  With the fixed-K triple the
-    dense labels are dropped: the loss reads only the triple."""
+    """Endless batch dicts on ``device``, prefetched two ahead by a
+    :class:`DevicePrefetcher`.  With the fixed-K triple the dense labels
+    are dropped: the loss reads only the triple."""
     ds = TokenFileDataset(corpus(args, cfg.vocab_size), seq_len=args.seq_len)
     loader = DataLoader(ds, batch_size=args.batch, seed=1234)
     stream = bert_mlm_batches(
@@ -110,10 +102,10 @@ def batch_stream(args, cfg: BertConfig, device) -> Iterator[Dict]:
         vocab_size=cfg.vocab_size, special_floor=1000,
         max_predictions_per_seq=args.max_predictions_per_seq or None,
     )
-    for batch in stream:
-        if args.max_predictions_per_seq:
-            batch.pop("mlm_labels")
-        yield _to_device(batch, device)
+    if args.max_predictions_per_seq:
+        stream = ({k: v for k, v in b.items() if k != "mlm_labels"}
+                  for b in stream)
+    return DevicePrefetcher(stream, device=device, depth=2)
 
 
 @dataclasses.dataclass
@@ -137,7 +129,7 @@ def build(args):
     ``args.device``, FusedLAMB, and the endless batch stream."""
     if args.ckpt_dir or args.resume:
         raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP A9); the example "
+            "checkpointing is not ported yet (ROADMAP item 3); the example "
             "trains from a fresh seeded model"
         )
     if args.max_predictions_per_seq < 0:

@@ -65,7 +65,7 @@ def _check_single_gpu(args) -> None:
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: tensor, sequence and context "
-            "parallelism and experts are not ported yet (ROADMAP A6, A8); "
+            "parallelism and experts are not ported yet (ROADMAP items 5 and 7); "
             "the example trains on one GPU"
         )
 

@@ -19,8 +19,13 @@ maps both JAX layouts (scanned and unrolled) onto them.
 
 On the card every LayerNorm runs through K1/K2 and every attention
 through K3/K4 with the padding mask as their bias operand (G = B, RS =
-1).  ``remat=True`` (policy ``"full"``) recomputes each block in the
-backward through non-reentrant ``torch.utils.checkpoint``.
+1).  :class:`BertEncoderCore` is the stack of blocks.  ``remat=True``
+checkpoints each block (non-reentrant ``torch.utils.checkpoint``) under
+``remat_policy`` (``"full"``, ``"dots"`` or ``"sums"``,
+:mod:`apex_tpu_torch.transformer.pipeline_parallel.schedules`);
+``remat_attention=True`` recomputes the attention core in the backward
+whatever the policy: an inner checkpoint that saves nothing, needed only
+without ``remat`` (a checkpointed block recomputes the core anyway).
 
 Dropout (``deterministic=False``) takes a CPU ``torch.Generator``.
 Before each block the model draws that block's seeds on the host — the
@@ -51,6 +56,12 @@ from apex_tpu_torch.models.gpt import (
 )
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.attention import MASK_VALUE, flash_attention
+from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+    SUMS_SAVE_NAMES,
+    checkpoint_name,
+    remat,
+    resolve_remat_policy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -58,6 +69,7 @@ from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
 __all__ = [
     "BertConfig",
     "BertEmbeddings",
+    "BertEncoderCore",
     "BertForPreTraining",
     "BertLayer",
     "BertMlp",
@@ -65,6 +77,7 @@ __all__ = [
     "BertSelfAttention",
     "bert_large_config",
     "bert_pretrain_loss",
+    "SUMS_SAVE_NAMES",
 ]
 
 
@@ -84,6 +97,14 @@ class BertConfig:
     sequence_parallel: bool = False
     remat: bool = False
     remat_policy: str = "full"
+    # recompute the attention core (scores, softmax, PV) in the backward
+    # whatever remat_policy saves: an inner checkpoint that saves nothing
+    remat_attention: bool = False
+    # the reference's prevent_cse of the per-layer checkpoint (None =
+    # auto).  Eager PyTorch has no common-subexpression elimination that
+    # could merge the recompute with the forward, so it has no effect
+    # here; it is validated and kept for the configs' sake
+    remat_prevent_cse: Optional[bool] = None
     # the layout of the JAX tree that ``convert.bert_to_jax_params``
     # writes by default (scanned, as the JAX default)
     scan_layers: bool = True
@@ -93,6 +114,11 @@ class BertConfig:
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r} "
                 "(options are 'full', 'dots', 'sums')"
+            )
+        if self.remat_prevent_cse not in (None, True, False):
+            raise ValueError(
+                f"remat_prevent_cse must be None or a bool, got "
+                f"{self.remat_prevent_cse!r}"
             )
 
     @property
@@ -131,13 +157,24 @@ class BertSelfAttention(nn.Module):
                 dropout_seed: Optional[torch.Tensor] = None):
         cfg = self.cfg
         s, b = x.shape[0], x.shape[1]
-        qkv = apply_linear(x, self.qkv, cfg.dtype)
+        qkv = apply_linear(x, self.qkv, cfg.dtype, "bert_qkv")
         qkv = qkv.reshape(s, b, cfg.num_heads, 3, cfg.head_dim)
         q, k, v = (qkv[:, :, :, i].permute(1, 2, 0, 3) for i in range(3))
         p = cfg.attention_dropout if dropout_seed is not None else 0.0
-        ctx = flash_attention(q, k, v, attention_bias,
-                              scale=cfg.head_dim ** -0.5, dropout_p=p,
-                              dropout_seed=dropout_seed)
+
+        def core(q, k, v, bias, seed):
+            return flash_attention(q, k, v, bias, scale=cfg.head_dim ** -0.5,
+                                   dropout_p=p, dropout_seed=seed)
+
+        if cfg.remat_attention and not cfg.remat:
+            # under the block's own checkpoint the core is recomputed
+            # whatever the policy (K3 is invisible to it), so only a
+            # block without one needs this.  The seed is an explicit
+            # operand: the recompute draws the same keep mask
+            ctx = checkpoint(core, q, k, v, attention_bias, dropout_seed,
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            ctx = core(q, k, v, attention_bias, dropout_seed)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, cfg.hidden_size)
         return apply_linear(ctx, self.out, cfg.dtype)
 
@@ -152,7 +189,7 @@ class BertMlp(nn.Module):
         self.fc2 = _linear(cfg.intermediate_size, cfg.hidden_size, device)
 
     def forward(self, x):
-        y = F.gelu(apply_linear(x, self.fc1, self.cfg.dtype),
+        y = F.gelu(apply_linear(x, self.fc1, self.cfg.dtype, "bert_fc1"),
                    approximate="tanh")
         return apply_linear(y, self.fc2, self.cfg.dtype)
 
@@ -180,11 +217,15 @@ class BertLayer(nn.Module):
         attn = self.attention(x, attention_bias, attention_seed)
         if gen is not None:
             attn = _hidden_dropout(attn, cfg.hidden_dropout, gen)
-        x = apply_layer_norm(x + attn, self.ln_attn, cfg.layer_norm_eps)
+        with checkpoint_name("bert_sum_attn"):
+            x = x + attn
+        x = apply_layer_norm(x, self.ln_attn, cfg.layer_norm_eps)
         mlp = self.mlp(x)
         if gen is not None:
             mlp = _hidden_dropout(mlp, cfg.hidden_dropout, gen)
-        return apply_layer_norm(x + mlp, self.ln_mlp, cfg.layer_norm_eps)
+        with checkpoint_name("bert_sum_mlp"):
+            x = x + mlp
+        return apply_layer_norm(x, self.ln_mlp, cfg.layer_norm_eps)
 
 
 class BertEmbeddings(nn.Module):
@@ -223,13 +264,6 @@ class BertEmbeddings(nn.Module):
         return apply_layer_norm(x, self.ln, cfg.layer_norm_eps)
 
 
-class BertEncoder(nn.Module):
-    def __init__(self, cfg: BertConfig, device=None):
-        super().__init__()
-        self.layers = nn.ModuleList(BertLayer(cfg, device)
-                                    for _ in range(cfg.num_layers))
-
-
 def _draw_seeds(generator: Optional[torch.Generator], n: int):
     """``n`` host integers from the CPU ``generator`` (int32 range)."""
     if generator is None or generator.device.type != "cpu":
@@ -241,6 +275,53 @@ def _draw_seeds(generator: Optional[torch.Generator], n: int):
                          generator=generator).tolist()
 
 
+def _dropout_on(cfg: BertConfig, deterministic: bool) -> bool:
+    return not deterministic and (cfg.hidden_dropout > 0.0
+                                  or cfg.attention_dropout > 0.0)
+
+
+class BertEncoderCore(nn.Module):
+    """A stack of ``num_layers`` :class:`BertLayer`s (the whole encoder,
+    or a pipeline stage of one), each checkpointed under ``cfg.remat``
+    and ``cfg.remat_policy``.  Returns the (S, B, hidden) output."""
+
+    def __init__(self, cfg: BertConfig, num_layers: int, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(BertLayer(cfg, device)
+                                    for _ in range(num_layers))
+
+    def forward(self, x, attention_bias=None, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                layer_seeds=None):
+        """``deterministic=False`` draws two seeds a layer from the CPU
+        ``generator`` before the stack (or takes them as ``layer_seeds``):
+        the attention's keep-mask seed, written to the device as the
+        int32 tensor K3/K4 read, and the seed of the block's own
+        generator for its hidden dropouts.  So a recomputed block draws
+        the same masks, and the draws wait for nothing on the card."""
+        cfg = self.cfg
+        n = len(self.layers)
+        dropout = _dropout_on(cfg, deterministic)
+        if dropout and layer_seeds is None:
+            layer_seeds = _draw_seeds(generator, 2 * n)
+        policy = resolve_remat_policy(cfg.remat_policy)
+        for i, layer in enumerate(self.layers):
+            attn_seed = hidden_seed = None
+            if dropout:
+                attn_seed = torch.full((1,), layer_seeds[2 * i],
+                                       dtype=torch.int32, device=x.device)
+                hidden_seed = layer_seeds[2 * i + 1]
+            if cfg.remat:
+                # the block's randomness comes in through its seeds, so
+                # the checkpoint has no RNG state to stash
+                x = remat(layer, x, attention_bias, attn_seed, hidden_seed,
+                          policy=policy, preserve_rng_state=False)
+            else:
+                x = layer(x, attention_bias, attn_seed, hidden_seed)
+        return x
+
+
 class BertModel(nn.Module):
     """Embeddings + the encoder; returns the (S, B, hidden) sequence
     output in ``cfg.dtype``."""
@@ -249,7 +330,7 @@ class BertModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg, device)
-        self.encoder = BertEncoder(cfg, device)
+        self.encoder = BertEncoderCore(cfg, cfg.num_layers, device)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 *, deterministic: bool = True,
@@ -261,27 +342,14 @@ class BertModel(nn.Module):
             keep = attention_mask.bool()[:, None, None, :]
             bias = torch.where(keep, 0.0, MASK_VALUE).to(torch.float32)
         x = self.embeddings(input_ids, token_type_ids)
-        dropout = not deterministic and (cfg.hidden_dropout > 0.0
-                                         or cfg.attention_dropout > 0.0)
+        dropout = _dropout_on(cfg, deterministic)
         seeds = _draw_seeds(generator, 1 + 2 * cfg.num_layers) if dropout \
             else None
         if dropout and cfg.hidden_dropout > 0.0:
             gen = torch.Generator(device=x.device).manual_seed(seeds[0])
             x = _hidden_dropout(x, cfg.hidden_dropout, gen)
-        for i, layer in enumerate(self.encoder.layers):
-            attn_seed = hidden_seed = None
-            if dropout:
-                attn_seed = torch.full((1,), seeds[1 + 2 * i],
-                                       dtype=torch.int32, device=x.device)
-                hidden_seed = seeds[2 + 2 * i]
-            if cfg.remat:
-                # the block's randomness comes in through its seeds, so
-                # the checkpoint has no RNG state to stash
-                x = checkpoint(layer, x, bias, attn_seed, hidden_seed,
-                               use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = layer(x, bias, attn_seed, hidden_seed)
-        return x
+        return self.encoder(x, bias, deterministic=deterministic,
+                            layer_seeds=seeds[1:] if dropout else None)
 
 
 class BertForPreTraining(nn.Module):
@@ -300,12 +368,7 @@ class BertForPreTraining(nn.Module):
         super().__init__()
         if cfg.sequence_parallel:
             raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP A6)")
-        if cfg.remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported yet "
-                "(ROADMAP: remat policies 'dots' and 'sums'); use 'full'"
-            )
+                "sequence parallelism is not ported yet (ROADMAP item 5)")
         dev = resolve_device(device)
         self.cfg = cfg
         h = cfg.hidden_size

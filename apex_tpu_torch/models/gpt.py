@@ -20,8 +20,12 @@ would round away in bf16 storage).  ``nn.Linear`` keeps PyTorch's
 transposes flax's ``(in, out)`` kernels.
 
 :meth:`GptModel.forward` is the training forward, seq-first ``(S, B)``;
-``remat=True`` (policy ``"full"``) recomputes each block in the backward
-(``torch.utils.checkpoint``, non-reentrant).  :func:`gpt_lm_loss` is the
+``remat=True`` checkpoints each block (non-reentrant
+``torch.utils.checkpoint``) under ``remat_policy``: ``"full"``
+recomputes the whole block in the backward, ``"dots"`` saves the
+products' outputs and ``"sums"`` the tagged QKV, first MLP product and
+residual sums (:mod:`apex_tpu_torch.transformer.pipeline_parallel.
+schedules`).  :func:`gpt_lm_loss` is the
 next-token cross entropy through the tied embedding.  The serving bodies
 (:mod:`apex_tpu_torch.serve.model`) drive the same block functions.
 """
@@ -35,12 +39,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm_affine
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
+from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+    checkpoint_name,
+    remat,
+    resolve_remat_policy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -152,10 +160,15 @@ def apply_layer_norm(x, ln: LayerNorm, eps: float):
                                    eps=eps)
 
 
-def apply_linear(x, lin: nn.Linear, dtype):
+def apply_linear(x, lin: nn.Linear, dtype, name: Optional[str] = None):
     """Compute-dtype matmul (f32 accumulation inside), cast back, bias
-    added in the compute dtype (Column/RowParallelLinear at tp=1)."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+    added in the compute dtype (Column/RowParallelLinear at tp=1).  The
+    result carries the checkpoint tag ``name`` (:func:`checkpoint_name`;
+    the bias add is the tagged op)."""
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    bias = lin.bias.to(dtype)
+    with checkpoint_name(name):
+        return y + bias
 
 
 def embed_tokens(model: "GptModel", ids, dtype):
@@ -167,10 +180,11 @@ def embed_tokens(model: "GptModel", ids, dtype):
 def apply_mlp(x, blk: "GptBlock", cfg: GptConfig):
     """x + fc2(gelu_tanh(fc1(LN(x))))."""
     y = apply_layer_norm(x, blk.ln_mlp, cfg.layer_norm_eps)
-    y = apply_linear(y, blk.fc1, cfg.dtype)
+    y = apply_linear(y, blk.fc1, cfg.dtype, "gpt_fc1")
     y = F.gelu(y, approximate="tanh")
     y = apply_linear(y, blk.fc2, cfg.dtype)
-    return x + y
+    with checkpoint_name("gpt_sum_mlp"):
+        return x + y
 
 
 def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
@@ -181,7 +195,7 @@ def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
     heads = cfg.num_heads
     head_dim = cfg.head_dim
     y = apply_layer_norm(x, blk.ln_attn, cfg.layer_norm_eps)
-    qkv = apply_linear(y, blk.qkv, cfg.dtype)
+    qkv = apply_linear(y, blk.qkv, cfg.dtype, "gpt_qkv")
     s, b = qkv.shape[0], qkv.shape[1]
     # per-head-interleaved (heads, 3, head_dim) column layout
     qkv = qkv.reshape(s, b, heads, 3, head_dim)
@@ -191,7 +205,9 @@ def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
         k = fused_apply_rotary_pos_emb_cached(k, cos, sin)
     ctx = flash_attention(q, k, v, causal=True, scale=head_dim ** -0.5)
     ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, heads * head_dim)
-    x = x + apply_linear(ctx, blk.out, cfg.dtype)
+    attn = apply_linear(ctx, blk.out, cfg.dtype)
+    with checkpoint_name("gpt_sum_attn"):
+        x = x + attn
     return apply_mlp(x, blk, cfg), k, v
 
 
@@ -273,11 +289,6 @@ class GptModel(nn.Module):
             raise NotImplementedError(
                 "the port's GptModel is the dense single-shard stack"
             )
-        if cfg.remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported yet "
-                "(ROADMAP: remat policies 'dots' and 'sums'); use 'full'"
-            )
         dev = resolve_device(device)
         self.cfg = cfg
         self.word_embeddings = nn.Embedding(
@@ -338,9 +349,10 @@ class GptModel(nn.Module):
                     f"sequence of {s} exceeds max_seq_len {cfg.max_seq_len}"
                 )
             x = x + self.position_embeddings[:s, None, :].to(cfg.dtype)
+        policy = resolve_remat_policy(cfg.remat_policy)
         for blk in self.layers:
             if cfg.remat:
-                x = checkpoint(blk, x, cos, sin, use_reentrant=False)
+                x = remat(blk, x, cos, sin, policy=policy)
             else:
                 x = blk(x, cos, sin)
         return apply_layer_norm(x, self.ln_f, cfg.layer_norm_eps)

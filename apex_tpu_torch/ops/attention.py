@@ -115,6 +115,7 @@ __all__ = [
     "flash_dbias_reference",
     "flash_fwd",
     "flash_fwd_reference",
+    "fmha_qkvpacked",
     "kernel_head_dim",
     "mha_reference",
     "mha_reference_with_lse",
@@ -790,3 +791,19 @@ def flash_attention_with_lse(q, k, v, bias=None, *, causal: bool = False,
     return _attend("flash_attention_with_lse", q, k, v, bias, causal=causal,
                    scale=scale, dropout_p=dropout_p, generator=generator,
                    dropout_seed=dropout_seed)
+
+
+def fmha_qkvpacked(qkv, bias=None, *, causal: bool = False,
+                   scale: Optional[float] = None, dropout_p: float = 0.0,
+                   generator: Optional[torch.Generator] = None,
+                   dropout_seed: Optional[torch.Tensor] = None):
+    """Packed-QKV attention (the reference's ``fmha_qkvpacked``, as
+    ``apex/contrib/fmha``'s ``FMHAFun``): ``qkv`` (B, S, 3, H, D), the
+    output of a fused QKV projection, to (B, S, H, D) through
+    :func:`flash_attention` (K3 forward and K4 backward on the card).
+    ``bias`` and dropout as in :func:`flash_attention`."""
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    o = flash_attention(q, k, v, bias, causal=causal, scale=scale,
+                        dropout_p=dropout_p, generator=generator,
+                        dropout_seed=dropout_seed)
+    return o.transpose(1, 2)

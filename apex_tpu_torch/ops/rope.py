@@ -1,6 +1,6 @@
 """Rotary position embedding (RoPE), rotate_half convention.
 
-Counterpart of ``apex_tpu/ops/rope.py`` (forward): plain PyTorch, as the
+Counterpart of ``apex_tpu/ops/rope.py``: plain PyTorch, as the
 JAX package's version is plain jnp — there is no kernel to port.  The
 rotation runs in f32 and casts back to the input dtype:
 
@@ -17,7 +17,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rotate_half", "fused_apply_rotary_pos_emb_cached"]
+__all__ = [
+    "rotate_half",
+    "fused_apply_rotary_pos_emb",
+    "fused_apply_rotary_pos_emb_cached",
+]
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -39,3 +43,14 @@ def fused_apply_rotary_pos_emb_cached(
     if t_pass.shape[-1] == 0:
         return out
     return torch.cat((out, t_pass), dim=-1)
+
+
+def fused_apply_rotary_pos_emb(t: torch.Tensor,
+                               freqs: torch.Tensor) -> torch.Tensor:
+    """≙ fused_apply_rotary_pos_emb (non-cached): ``freqs`` in radians,
+    e.g. ``(S, 1, 1, rot_dim)`` against ``t`` ``(S, B, H, D)``; the
+    tables are ``cos(freqs)`` and ``sin(freqs)`` in f32.  The gradient
+    flows to ``t`` only, as in the reference."""
+    freqs = freqs.detach()
+    return fused_apply_rotary_pos_emb_cached(t, torch.cos(freqs).float(),
+                                             torch.sin(freqs).float())

@@ -4,8 +4,8 @@ The arithmetic of the JAX ``fused_adam`` (≙ apex's ``AdamFunctor``),
 written out in plain PyTorch with ``torch._foreach_*`` so that one call
 updates every tensor of a step (the JAX version is plain jnp too):
 
-- f32 moments ``m`` and ``v`` whatever the parameter dtype, and one step
-  count;
+- f32 moments ``m`` and ``v`` whatever the parameter dtype (the
+  functional form stores them in ``state_dtype``), and one step count;
 - ``adam_w_mode=False`` (``ADAM_MODE_0``): L2, ``g += wd * p`` before
   the moments; ``adam_w_mode=True`` (``ADAM_MODE_1``): decoupled decay,
   ``u += wd * p`` after them;
@@ -70,6 +70,12 @@ def _adam_step(params: List[torch.Tensor], grads: List[torch.Tensor],
     return [t.to(p.dtype) for t, p in zip(u, params)]
 
 
+def _stored(new: Dict[str, torch.Tensor],
+            old: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The f32 moments ``new`` in the storage dtypes of ``old``."""
+    return {k: t.to(old[k].dtype) for k, t in new.items()}
+
+
 class FusedAdamState(NamedTuple):
     count: int  # 1-based after the first update
     m: Dict[str, torch.Tensor]
@@ -89,24 +95,29 @@ def fused_adam(
     weight_decay: float = 0.0,
     adam_w_mode: bool = True,
     bias_correction: bool = True,
+    *,
+    state_dtype: torch.dtype = torch.float32,
 ):
     """Functional Adam(W): ``init(params) -> state`` and
     ``update(grads, state, params) -> (updates, state)`` over dicts of
-    tensors with the same keys; the caller adds the updates."""
+    tensors with the same keys; the caller adds the updates.  The
+    moments are stored in ``state_dtype`` (e.g. ``torch.bfloat16`` to
+    halve their memory) and updated in f32 arithmetic, rounded once on
+    each store."""
 
     def init(params):
         return FusedAdamState(
             count=0,
-            m={k: torch.zeros_like(p, dtype=torch.float32)
+            m={k: torch.zeros_like(p, dtype=state_dtype)
                for k, p in params.items()},
-            v={k: torch.zeros_like(p, dtype=torch.float32)
+            v={k: torch.zeros_like(p, dtype=state_dtype)
                for k, p in params.items()},
         )
 
     def update(grads, state, params):
         keys = list(params)
-        m = {k: state.m[k].clone() for k in keys}
-        v = {k: state.v[k].clone() for k in keys}
+        m = {k: state.m[k].to(torch.float32, copy=True) for k in keys}
+        v = {k: state.v[k].to(torch.float32, copy=True) for k in keys}
         updates = _adam_step(
             [params[k] for k in keys], [grads[k] for k in keys],
             [m[k] for k in keys], [v[k] for k in keys],
@@ -115,7 +126,8 @@ def fused_adam(
             adam_w_mode=adam_w_mode, bias_correction=bias_correction,
         )
         return (dict(zip(keys, updates)),
-                FusedAdamState(count=state.count + 1, m=m, v=v))
+                FusedAdamState(count=state.count + 1,
+                               m=_stored(m, state.m), v=_stored(v, state.v)))
 
     return _FusedAdamTransform(init, update)
 

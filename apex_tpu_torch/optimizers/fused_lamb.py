@@ -33,7 +33,11 @@ from typing import Callable, Dict, List, NamedTuple, Union
 
 import torch
 
-from apex_tpu_torch.optimizers.fused_adam import ScalarOrSchedule, _lr_at
+from apex_tpu_torch.optimizers.fused_adam import (
+    ScalarOrSchedule,
+    _lr_at,
+    _stored,
+)
 from apex_tpu_torch.optimizers.multi_tensor import global_norm
 
 __all__ = ["FusedLAMB", "FusedLAMBState", "fused_lamb"]
@@ -113,10 +117,14 @@ def fused_lamb(
     adam_w_mode: bool = True,
     max_grad_norm: float = 1.0,
     use_nvlamb: bool = False,
+    *,
+    state_dtype: torch.dtype = torch.float32,
 ):
     """Functional LAMB: ``init(params) -> state`` and ``update(grads,
     state, params) -> (updates, state)`` over dicts of tensors with the
-    same keys; the caller adds the updates."""
+    same keys; the caller adds the updates.  The moments are stored in
+    ``state_dtype`` and updated in f32 arithmetic, rounded once on each
+    store."""
     hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
                  weight_decay=weight_decay, bias_correction=bias_correction,
                  grad_averaging=grad_averaging, adam_w_mode=adam_w_mode,
@@ -125,16 +133,16 @@ def fused_lamb(
     def init(params):
         return FusedLAMBState(
             count=0,
-            m={k: torch.zeros_like(p, dtype=torch.float32)
+            m={k: torch.zeros_like(p, dtype=state_dtype)
                for k, p in params.items()},
-            v={k: torch.zeros_like(p, dtype=torch.float32)
+            v={k: torch.zeros_like(p, dtype=state_dtype)
                for k, p in params.items()},
         )
 
     def update(grads, state, params):
         keys = list(params)
-        m = {k: state.m[k].clone() for k in keys}
-        v = {k: state.v[k].clone() for k in keys}
+        m = {k: state.m[k].to(torch.float32, copy=True) for k in keys}
+        v = {k: state.v[k].to(torch.float32, copy=True) for k in keys}
         g = [grads[k] for k in keys]
         updates = _lamb_step(
             [params[k] for k in keys], g, [m[k] for k in keys],
@@ -143,7 +151,8 @@ def fused_lamb(
             clip=_clip_divisor(g, max_grad_norm), **hyper,
         )
         return (dict(zip(keys, updates)),
-                FusedLAMBState(count=state.count + 1, m=m, v=v))
+                FusedLAMBState(count=state.count + 1,
+                               m=_stored(m, state.m), v=_stored(v, state.v)))
 
     return _FusedLAMBTransform(init, update)
 

@@ -8,8 +8,12 @@ Counterpart of :mod:`apex_tpu.serve`'s core:
 - :mod:`apex_tpu_torch.serve.model` — the functional prefill, chunked
   prefill and decode forward over :class:`~apex_tpu_torch.models.GptModel`
   weights or the int8 weight wire, and the fused sampler;
+- :mod:`apex_tpu_torch.serve.spec` — speculative decoding's
+  :class:`SpecConfig`, the draft, verify and rollback bodies and the
+  acceptance rule;
 - :mod:`apex_tpu_torch.serve.engine` — :class:`InferenceEngine` (the
-  decode step as one CUDA graph on the card) and :class:`ServeConfig`;
+  decode step and the spec round as CUDA graphs on the card) and
+  :class:`ServeConfig`;
 - :mod:`apex_tpu_torch.serve.scheduler` —
   :class:`ContinuousBatchingScheduler` and :class:`Request`.
 """
@@ -38,8 +42,14 @@ from apex_tpu_torch.serve.model import (  # noqa: F401
     dequantize_params,
     prefill_body,
     quantize_params,
+    rope_tables,
     sample_tokens,
     validate_config,
+)
+from apex_tpu_torch.serve.spec import (  # noqa: F401
+    SpecConfig,
+    draft_from_params,
+    speculative_verify,
 )
 from apex_tpu_torch.serve.scheduler import (  # noqa: F401
     SHED_REASONS,

@@ -26,8 +26,15 @@ Sampling follows the JAX engine: per-request temperatures, a static
 ``top_k`` and a ``sample_seed``; the noise is a counter-based hash
 (:func:`~apex_tpu_torch.serve.model.sample_keys`) of the seed and, per
 slot, either (stream seed, generation index) or (call index, slot).
-The analysis build, chaos gates, spans, rebuild and speculative
-decoding are not ported yet.
+
+With a :class:`~apex_tpu_torch.serve.spec.SpecConfig` the engine also
+holds a draft (the target's own weights, or a separate model packed or
+copied on its own) with a KV pool of the target's page geometry, and
+runs speculative rounds (:meth:`spec_step`): on the card the draft's
+``k + 1`` steps, the verify's ``k + 1`` steps and the acceptance are one
+more captured CUDA graph.  Not ported yet: the analysis build and
+``lint`` (ROADMAP item 9), the chaos gates and ``rebuild`` (item 4),
+spans and the metrics board (item 8).
 """
 
 from __future__ import annotations
@@ -43,17 +50,22 @@ from apex_tpu_torch.ops import _dispatch
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.serve import cache as cache_lib
 from apex_tpu_torch.serve import model as model_lib
+from apex_tpu_torch.serve import spec as spec_lib
+from apex_tpu_torch.serve.model import (
+    DOMAIN_DECODE_CALL,
+    DOMAIN_DECODE_STREAM,
+    DOMAIN_PREFILL_CALL,
+    DOMAIN_PREFILL_STREAM,
+)
 
 __all__ = ["ServeConfig", "InferenceEngine"]
 
-#: sampling-key domains: the first word of each row's key
-DOMAIN_PREFILL_CALL = 1    # (prefill call index, 0)
-DOMAIN_PREFILL_STREAM = 2  # (stream seed, 0)
-DOMAIN_DECODE_CALL = 3     # (decode call index, slot)
-DOMAIN_DECODE_STREAM = 4   # (stream seed, generation index)
 #: decode input columns: token, length, temperature bits, the key's
 #: three words, then the page table
 _COLS = 6
+#: spec-round input columns: token, length, temperature bits, stream,
+#: generation index, then the target's and the draft's page tables
+_SPEC_COLS = 5
 
 
 def _default_buckets(page_size: int, max_len: int) -> Tuple[int, ...]:
@@ -143,7 +155,8 @@ class InferenceEngine:
     """
 
     def __init__(self, cfg: GptConfig, model: GptModel,
-                 serve: Optional[ServeConfig] = None, *, device="cuda"):
+                 serve: Optional[ServeConfig] = None, *,
+                 spec: Optional[spec_lib.SpecConfig] = None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = model_lib.validate_config(cfg)
         self.serve = serve or ServeConfig()
@@ -198,6 +211,65 @@ class InferenceEngine:
         #: the captured decode step (card only): the graph, its static
         #: input, its outputs and the launches recorded at capture
         self._graph = None
+        #: speculative decoding: None = plain serving; a SpecConfig adds
+        #: the draft's weights and KV pool, and the spec round (one
+        #: captured graph on the card, :meth:`spec_step`)
+        self.spec = spec
+        self.draft_cfg: Optional[GptConfig] = None
+        self.draft_weights = None
+        self.draft_cache = None
+        self._spec_graph = None
+        self.last_verify_logits: Optional[torch.Tensor] = None
+        #: spec rounds run and draft prefills (the draft's own counter,
+        #: so a spec deployment leaves the target's counters as they are)
+        self.spec_rounds = 0
+        self.draft_prefill_calls = 0
+        if spec is not None:
+            self._init_draft(spec)
+
+    def _init_draft(self, spec: spec_lib.SpecConfig) -> None:
+        """Validate the draft against the target and give it its weights
+        and its KV pool, which mirrors the target's page geometry so that
+        one :class:`PagePool` indexes both (draft pages ride the
+        ``"draft"`` namespace)."""
+        cfg, s = self.cfg, self.serve
+        draft = spec.draft_params
+        dcfg = spec.draft_cfg or (draft.cfg if draft is not None else cfg)
+        if draft is not None and draft.cfg != dcfg:
+            raise ValueError("SpecConfig.draft_cfg differs from the draft "
+                             "model's config")
+        dcfg = model_lib.validate_config(dcfg)
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size} (proposals must share the token space)"
+            )
+        if s.max_context > dcfg.max_seq_len:
+            raise ValueError(
+                f"max context {s.max_context} exceeds the draft model's "
+                f"max_seq_len {dcfg.max_seq_len}"
+            )
+        if dcfg.hidden_size % dcfg.num_heads:
+            raise ValueError("draft num_heads must divide hidden_size")
+        self.draft_cfg = dcfg
+        if draft is None:
+            # self-draft: the target's own weights, shared
+            self.draft_weights = self.weights
+        elif draft.device != self.device:
+            raise ValueError(
+                f"the draft lives on {draft.device}, the engine on "
+                f"{self.device}"
+            )
+        elif s.weight_wire == "int8":
+            # the draft's own stacked tree: its blocks follow its layout
+            self.draft_weights = model_lib.PackedParams(dcfg, draft)
+        else:
+            self.draft_weights = model_lib.serving_copy(dcfg, draft)
+        self.draft_cache = cache_lib.init_kv_pages(
+            dcfg.num_layers, s.num_pages, dcfg.num_heads, s.page_size,
+            dcfg.head_dim, dtype=dcfg.dtype, device=self.device,
+            kv_wire=s.kv_wire,
+        )
 
     # -- sizes ---------------------------------------------------------------
     def kv_pool_bytes(self) -> int:
@@ -239,9 +311,10 @@ class InferenceEngine:
     def build(self, buckets: Optional[Tuple[int, ...]] = None, *,
               chunked: bool = False):
         """Run the prefill at every bucket once (and, with
-        ``chunked=True``, the chunked prefill at every bucket) so that
-        first-call costs leave the serving path, and on the card capture
-        the decode step as a CUDA graph.  The warm-up writes only the
+        ``chunked=True``, the chunked prefill at every bucket; with a
+        draft, the draft's prefill too) so that first-call costs leave
+        the serving path, and on the card capture the decode step (and
+        the spec round) as CUDA graphs.  The warm-up writes only the
         null page and leaves the call and launch counters as they
         were."""
         s = self.serve
@@ -265,8 +338,12 @@ class InferenceEngine:
                         self.cfg, self.weights, self.cache, tokens, 1, 0,
                         ids, table, temp, keys, page_size=s.page_size,
                         kv_wire=s.kv_wire, top_k=s.top_k)
+                if self.spec is not None:
+                    self._draft_prefill_body(tokens, 1, ids)
         if self.device.type == "cuda":
             self._capture_decode()
+            if self.spec is not None:
+                self._capture_spec()
         return self
 
     # -- serving calls -------------------------------------------------------
@@ -385,32 +462,47 @@ class InferenceEngine:
         )
         return logits, torch.stack([next_tokens, finite.long()])
 
-    @torch.no_grad()
-    def _capture_decode(self) -> None:
-        """Run the decode step once on a side stream with every slot idle
-        (it writes only the null page), then capture it into a CUDA
-        graph.  The launch counters and the path log are left as they
+    def _capture(self, compute, width: int) -> dict:
+        """Run ``compute`` once on a side stream over an all-zero input
+        (every slot idle: it writes only the null pages), then capture
+        it into a CUDA graph over a static ``(max_batch, width)`` int64
+        input.  The launch counters and the path log are left as they
         were; the launches and paths of the captured step are kept, and
         every replay adds them."""
-        s = self.serve
         dev = self.device
-        inp = torch.zeros((s.max_batch, _COLS + s.max_pages_per_seq),
-                          dtype=torch.int64, device=dev)
+        inp = torch.zeros((self.serve.max_batch, width), dtype=torch.int64,
+                          device=dev)
         staging = torch.zeros(inp.shape, dtype=torch.int64, pin_memory=True)
         with _dispatch.recorded_apart():
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._decode_compute(inp)
+                compute(inp)
             torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _dispatch.recorded_apart() as rec:
             with torch.cuda.graph(graph):
-                logits, out = self._decode_compute(inp)
+                outs = compute(inp)
         if not rec["launches"]:
-            raise RuntimeError("the captured decode step launched no kernel")
-        self._graph = dict(graph=graph, inp=inp, staging=staging,
-                           logits=logits, out=out, record=rec)
+            raise RuntimeError("the captured step launched no kernel")
+        return dict(graph=graph, inp=inp, staging=staging, outs=outs,
+                    record=rec)
+
+    @staticmethod
+    def _replay(g: dict, arr: np.ndarray):
+        """One copy of ``arr`` into the graph's input, one replay, its
+        launches counted; returns the graph's outputs."""
+        g["staging"].numpy()[...] = arr
+        g["inp"].copy_(g["staging"], non_blocking=True)
+        g["graph"].replay()
+        _dispatch.replay_record(g["record"])
+        return g["outs"]
+
+    @torch.no_grad()
+    def _capture_decode(self) -> None:
+        """Capture the decode step (:meth:`_capture`)."""
+        self._graph = self._capture(
+            self._decode_compute, _COLS + self.serve.max_pages_per_seq)
 
     @property
     def graph_launches(self) -> dict:
@@ -436,12 +528,8 @@ class InferenceEngine:
         if self.device.type == "cuda":
             if self._graph is None:
                 self._capture_decode()
-            g = self._graph
-            g["staging"].numpy()[...] = arr
-            g["inp"].copy_(g["staging"], non_blocking=True)
-            g["graph"].replay()
-            _dispatch.replay_record(g["record"])
-            logits, out = g["logits"].clone(), g["out"].cpu()
+            logits, out = self._replay(self._graph, arr)
+            logits, out = logits.clone(), out.cpu()
         else:
             logits, out = self._decode_compute(torch.from_numpy(arr))
         self.decode_iters += 1
@@ -473,5 +561,199 @@ class InferenceEngine:
             raise RuntimeError(
                 f"reset_cache with {self.pool.in_use} pages in use"
             )
-        for name, t in self.cache.items():
-            t.fill_(1 if name.endswith("_scale") else 0)
+        for cache in (self.cache, self.draft_cache or {}):
+            for name, t in cache.items():
+                t.fill_(1 if name.endswith("_scale") else 0)
+
+    # -- speculative decoding ------------------------------------------------
+    def _need_spec(self) -> spec_lib.SpecConfig:
+        if self.spec is None:
+            raise ValueError("engine has no speculative config")
+        return self.spec
+
+    def _draft_prefill_body(self, tokens, length, ids):
+        return model_lib.prefill_body(
+            self.draft_cfg, self.draft_weights, self.draft_cache, tokens,
+            length, ids, page_size=self.serve.page_size,
+            kv_wire=self.serve.kv_wire)
+
+    @torch.no_grad()
+    def draft_prefill(self, prompt_ids, page_ids) -> None:
+        """Prefill the draft's KV for a prompt into the request's draft
+        pages (its greedy token is discarded: the target's prefill gives
+        the stream's first token).  Counted on
+        :attr:`draft_prefill_calls`, not on the target's counters."""
+        self._need_spec()
+        n = len(prompt_ids)
+        bucket = self.bucket_for(n)
+        tokens = np.zeros((bucket, 1), np.int64)
+        tokens[:n, 0] = np.asarray(prompt_ids, np.int64)
+        ids = np.full((bucket // self.serve.page_size,), cache_lib.NULL_PAGE,
+                      np.int64)
+        ids[: len(page_ids)] = np.asarray(page_ids, np.int64)
+        self._draft_prefill_body(self._tensor(tokens, torch.int64), n,
+                                 self._tensor(ids, torch.int64))
+        self.draft_prefill_calls += 1
+
+    def _spec_input(self, tokens, lengths, page_tables, draft_tables, temps,
+                    streams, gens) -> np.ndarray:
+        """The spec round's inputs as one int64 host array (B, 5 + 2 NP):
+        token, length, the temperature's f32 bits, the stream folded to
+        31 bits, the generation index, the target's and the draft's page
+        tables."""
+        s = self.serve
+        b, np_ = s.max_batch, s.max_pages_per_seq
+        arr = np.zeros((b, _SPEC_COLS + 2 * np_), np.int64)
+        arr[:, 0] = np.asarray(tokens, np.int64)
+        arr[:, 1] = np.asarray(lengths, np.int64)
+        t = (np.zeros(b, np.float32) if temps is None
+             else np.asarray(temps, np.float32).reshape(b))
+        arr[:, 2] = t.view(np.int32)
+        arr[:, 3] = model_lib.fold31(np.asarray(streams, np.int64)
+                                     & 0xFFFFFFFF)
+        arr[:, 4] = np.asarray(gens, np.int64)
+        arr[:, _SPEC_COLS:_SPEC_COLS + np_] = np.asarray(page_tables,
+                                                          np.int64)
+        arr[:, _SPEC_COLS + np_:] = np.asarray(draft_tables, np.int64)
+        return arr
+
+    def _spec_compute(self, inp: torch.Tensor) -> torch.Tensor:
+        """One spec round on an input laid out as :meth:`_spec_input`'s:
+        the draft's ``k + 1`` steps, the pin of a non-finite draft's
+        proposals, the target's ``k + 1`` verify steps and the
+        acceptance.  Returns the verify logits ``(k + 1, B, V)`` and
+        ``(B, k + 3)`` int64: the tokens, n_accept and the finite screen
+        (one readback)."""
+        s, k = self.serve, self.spec.k
+        np_ = s.max_pages_per_seq
+        tokens = inp[:, 0].contiguous()
+        lengths = inp[:, 1].to(torch.int32).contiguous()
+        temps = inp[:, 2].to(torch.int32).view(torch.float32)
+        streams, gens = inp[:, 3].contiguous(), inp[:, 4].contiguous()
+        tables = inp[:, _SPEC_COLS:_SPEC_COLS + np_].to(torch.int32)
+        dtables = inp[:, _SPEC_COLS + np_:].to(torch.int32)
+        d_tokens, d_probs, d_finite = spec_lib.draft_body(
+            self.draft_cfg, self.draft_weights, self.draft_cache, tokens,
+            lengths, dtables.contiguous(), temps, s.sample_seed, streams,
+            gens, k=k, page_size=s.page_size, kv_wire=s.kv_wire,
+            top_k=s.top_k)
+        if k:
+            # a non-finite draft must not smuggle a token into the
+            # stream: its proposals are pinned to one id with the
+            # matching point-mass distribution, which the rejection
+            # sampler handles like any q (greedy emits only the argmax
+            # chain), so such a round degrades to ~zero acceptance
+            pin = self.cfg.vocab_size - 1
+            bad = ~d_finite
+            d_tokens = torch.where(bad[:, None],
+                                   torch.full_like(d_tokens, pin), d_tokens)
+            point = (torch.arange(d_probs.shape[-1], device=bad.device)
+                     == pin).float()
+            d_probs = torch.where(bad[None, :, None], point, d_probs)
+        logits, out, n_accept, finite = spec_lib.verify_body(
+            self.cfg, self.weights, self.cache, tokens, d_tokens, lengths,
+            tables.contiguous(), temps, d_probs, s.sample_seed, streams,
+            gens, page_size=s.page_size, kv_wire=s.kv_wire, top_k=s.top_k)
+        return logits, torch.cat(
+            [out, n_accept[:, None], finite.long()[:, None]], dim=1)
+
+    @torch.no_grad()
+    def _capture_spec(self) -> None:
+        """Capture the spec round (:meth:`_capture`)."""
+        self._spec_graph = self._capture(
+            self._spec_compute, _SPEC_COLS + 2 * self.serve.max_pages_per_seq)
+
+    @property
+    def spec_graph_launches(self) -> dict:
+        """Kernel -> launches in one replay of the captured spec round
+        (empty before the capture, and on the CPU)."""
+        g = self._spec_graph
+        return dict(g["record"]["launches"]) if g else {}
+
+    @torch.no_grad()
+    def spec_step(self, tokens, lengths, page_tables, draft_tables, temps,
+                  streams, gens):
+        """One speculative round over the full slot array: the draft
+        proposes ``k`` tokens per live slot, the target scores ``k + 1``
+        positions and the acceptance runs on the device.  ``lengths``
+        counts each slot's context including the fed token (0 = idle);
+        ``draft_tables`` are the slots' draft pages.  Each slot's draws
+        are keyed by its stream and the emission index ``gens + j``.  On
+        the card the round is one replay of a captured CUDA graph (one
+        input copy, one readback).  Returns ``(out_tokens (B, k+1),
+        n_accept (B,), finite (B,))`` on the host: slot ``b`` emits
+        ``out_tokens[b, :n_accept[b] + 1]``; the screen also lands on
+        :attr:`last_decode_finite`, and the target's logits ``(k + 1, B,
+        V)`` on the device on :attr:`last_verify_logits` (on the card the
+        graph's own output: valid until the next round).  The reference's ``serve.draft`` and
+        ``serve.decode`` chaos gates wait for the port of
+        ``resilience.chaos`` (ROADMAP)."""
+        k = self._need_spec().k
+        arr = self._spec_input(tokens, lengths, page_tables, draft_tables,
+                               temps, streams, gens)
+        if self.device.type == "cuda":
+            if self._spec_graph is None:
+                self._capture_spec()
+            logits, out = self._replay(self._spec_graph, arr)
+            out = out.cpu()
+        else:
+            logits, out = self._spec_compute(torch.from_numpy(arr))
+        self.last_verify_logits = logits
+        self.spec_rounds += 1
+        self.decode_iters += 1
+        out = out.numpy()
+        self.last_decode_finite = out[:, k + 2].astype(bool)
+        return out[:, : k + 1], out[:, k + 1], self.last_decode_finite
+
+    def _rollback(self, cache, starts, counts, page_tables) -> None:
+        s = self.serve
+        spec_lib.rollback_body(
+            cache, self._tensor(starts, torch.int64),
+            self._tensor(counts, torch.int64),
+            self._tensor(page_tables, torch.int64),
+            k=self._need_spec().k + 1, page_size=s.page_size)
+
+    def rollback(self, starts, counts, page_tables) -> None:
+        """Zero the target KV rows of rejected positions ``[starts[b],
+        starts[b] + counts[b])`` through each slot's page table, in place
+        and eagerly (:func:`~apex_tpu_torch.serve.spec.rollback_body`:
+        indexed writes, no kernel of the port).  The scheduler forked any
+        shared tail page before the round, so every touched page is
+        private."""
+        self._rollback(self.cache, starts, counts, page_tables)
+
+    def draft_rollback(self, starts, counts, page_tables) -> None:
+        """:meth:`rollback` for the draft's KV pool (draft page ids)."""
+        self._rollback(self.draft_cache, starts, counts, page_tables)
+
+    @torch.no_grad()
+    def update_draft_params(self, draft_params) -> None:
+        """Load new draft weights in place (cast to the draft's dtype, or
+        packed on the int8 weight wire), so a captured spec round keeps
+        its addresses.  ``None`` means no new draft: a self-draft already
+        reads the engine's own weights.  The draft must have the engine's
+        draft architecture; a self-draft engine takes none (its draft is
+        its target)."""
+        spec = self._need_spec()
+        if draft_params is None:
+            return
+        if spec.draft_params is None:
+            raise ValueError(
+                "a self-draft engine's draft is its target: build an engine "
+                "with a separate draft to load draft weights"
+            )
+        if draft_params.cfg != self.draft_cfg:
+            raise ValueError("the new draft's config differs from the "
+                             "engine's draft")
+        if self.serve.weight_wire == "int8":
+            new = model_lib.PackedParams(self.draft_cfg, draft_params)
+            for dst, src in zip(self.draft_weights.leaves(), new.leaves()):
+                if isinstance(dst, model_lib.PackedWeight):
+                    dst.codes.copy_(src.codes)
+                    dst.scale.copy_(src.scale)
+                else:
+                    dst.copy_(src)
+        else:
+            src = dict(draft_params.named_parameters())
+            for name, dst in self.draft_weights.named_parameters():
+                dst.copy_(src[name])

@@ -55,6 +55,7 @@ from apex_tpu_torch.models.gpt import (
     rope_cos_sin,
     tied_logits,
 )
+from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.paged_attention import paged_decode_attention
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached, rotate_half
 from apex_tpu_torch.parallel import comm
@@ -63,6 +64,7 @@ from apex_tpu_torch.serve import cache as cache_lib
 __all__ = [
     "WEIGHT_WIRE_MIN_SIZE",
     "validate_config",
+    "rope_tables",
     "serving_copy",
     "PackedWeight",
     "PackedParams",
@@ -81,6 +83,15 @@ __all__ = [
 #: LN affines — the reference's rule)
 WEIGHT_WIRE_MIN_SIZE = 1024
 
+#: sampling-key domains: the first word of each row's key
+#: (:func:`sample_keys`)
+DOMAIN_PREFILL_CALL = 1    # (prefill call index, 0)
+DOMAIN_PREFILL_STREAM = 2  # (stream seed, 0)
+DOMAIN_DECODE_CALL = 3     # (decode call index, slot)
+DOMAIN_DECODE_STREAM = 4   # (stream seed, generation index)
+DOMAIN_DRAFT_STREAM = 5    # a speculative draft's proposal (stream, index)
+DOMAIN_ACCEPT_STREAM = 6   # a speculative acceptance uniform (stream, index)
+
 
 def validate_config(cfg: GptConfig) -> GptConfig:
     """Serving supports the dense single-shard GPT stack."""
@@ -92,6 +103,16 @@ def validate_config(cfg: GptConfig) -> GptConfig:
     if cfg.num_experts:
         raise ValueError("MoE serving is not supported yet")
     return cfg
+
+
+def rope_tables(cfg: GptConfig, device="cuda"):
+    """The f32 cos/sin tables ``(max_seq_len, head_dim)`` in the model's
+    rotate_half layout, on ``device`` (the card by default), or ``(None,
+    None)`` for a model without RoPE."""
+    if not cfg.rotary:
+        return None, None
+    return rope_cos_sin(cfg.max_seq_len, cfg.head_dim,
+                        device=resolve_device(device))
 
 
 def _check_wire(kv_wire: str) -> None:
@@ -419,8 +440,7 @@ def prefill_body(
     s = tokens.shape[0]
     cos = sin = None
     if cfg.rotary:
-        cos, sin = rope_cos_sin(cfg.max_seq_len, cfg.head_dim,
-                                device=x.device)
+        cos, sin = rope_tables(cfg, x.device)
         cos, sin = cos[:s], sin[:s]
     else:
         x = x + view.position_embeddings[:s, None, :].to(dtype)
@@ -496,7 +516,7 @@ def chunk_prefill_body(
         cfg.max_seq_len - 1)
     cos_rows = sin_rows = None
     if cfg.rotary:
-        cos_t, sin_t = rope_cos_sin(cfg.max_seq_len, head_dim, device=dev)
+        cos_t, sin_t = rope_tables(cfg, dev)
         cos_rows, sin_rows = cos_t[positions], sin_t[positions]  # (C, D)
     else:
         x = x + view.position_embeddings[positions][:, None, :].to(dtype)
@@ -582,8 +602,7 @@ def _decode_step(cfg: GptConfig, view, kv_pages: dict, tokens, lengths,
     slots = pos % page_size
     cos_rows = sin_rows = None
     if cfg.rotary:
-        cos_t, sin_t = rope_cos_sin(cfg.max_seq_len, head_dim,
-                                    device=x.device)
+        cos_t, sin_t = rope_tables(cfg, x.device)
         cos_rows, sin_rows = cos_t[pos], sin_t[pos]  # (B, D)
     else:
         x = x + view.position_embeddings[pos].to(cfg.dtype)

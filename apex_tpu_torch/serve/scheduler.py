@@ -26,10 +26,23 @@ finished sequence frees its pages to the pool at once.
 - each request samples at its own ``temperature`` (<= 0 is greedy),
   its noise keyed by its stream seed and generation index.
 
+- with an engine that carries a
+  :class:`~apex_tpu_torch.serve.spec.SpecConfig`, each running request
+  rides a speculative round a step (the draft proposes ``k`` tokens from
+  its own KV pages, allocated in the ``"draft"`` namespace and never
+  shared into the prefix cache; the target verifies them; the rejected
+  tail is rolled back).  The whole span a round may write is forked
+  (copy-on-write) before the round; a request whose span cannot be
+  provisioned, or that is near the context ceiling, decodes plain that
+  step; once the acceptance rate over the last ``window`` rounds falls
+  below ``min_accept_rate``, every request decodes plain.
+
 :meth:`leak_check` (``PagePool.leak_check`` against the live ownership
-ledger and the cache's pages) runs after every retirement.  Retries,
-deadlines, the overload ladder, drain, speculative decoding, metrics
-and spans are not ported yet.
+ledger, draft pages included, and the cache's pages) runs after every
+retirement.  Not ported yet: retries, deadlines, the overload ladder,
+drain and ``resume()`` (which re-arms the acceptance fallback), and the
+draft's chaos site (ROADMAP item 4); the metrics board and spans (item
+8): the spec counters are plain attributes.
 """
 
 from __future__ import annotations
@@ -110,6 +123,13 @@ class Request:
     #: the cache was already probed for this request (match + borrow
     #: run once, even when admission then waits on the pool)
     cache_probed: bool = False
+    # -- speculative decoding (scheduler-owned) --------------------------
+    #: the draft's KV pages (``"draft"`` pool namespace), mirroring
+    #: :attr:`pages` position for position; freed on every retire path
+    draft_pages: List[int] = dataclasses.field(default_factory=list)
+    #: False once this request's draft state is unusable (its draft
+    #: prefill failed): the stream decodes plain from then on
+    spec_ok: bool = True
 
 
 class ContinuousBatchingScheduler:
@@ -151,6 +171,23 @@ class ContinuousBatchingScheduler:
         self.slots: List[Optional[Request]] = [None] * self.serve.max_batch
         self.completed: List[Request] = []
         self.shed: List[Request] = []
+        spec = engine.spec
+        #: speculative decoding's counters: rounds, proposals drafted and
+        #: accepted, rollbacks (slots with a rejected tail), fallbacks to
+        #: plain decode, failed draft prefills
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rollbacks = 0
+        self.spec_fallbacks = 0
+        self.draft_faults = 0
+        #: per-round (drafted, accepted, emitted, slot_steps) over the last
+        #: ``spec.window`` rounds: the acceptance fallback's evidence
+        self._spec_window: Optional[Deque] = (
+            collections.deque(maxlen=spec.window) if spec is not None
+            else None)
+        #: the acceptance fallback tripped: every request decodes plain
+        self._spec_fallback = False
 
     # -- bookkeeping ------------------------------------------------------
     @property
@@ -179,6 +216,9 @@ class ContinuousBatchingScheduler:
             # one reference each: a borrowed page survives its co-holders
             self.pool.free(req.pages)
             req.pages = []
+        if req.draft_pages:
+            self.pool.free(req.draft_pages)
+            req.draft_pages = []
         req.status = status
         req.shed_reason = reason if status == SHED else None
         (self.completed if status == DONE else self.shed).append(req)
@@ -191,11 +231,12 @@ class ContinuousBatchingScheduler:
 
     # -- page accounting ---------------------------------------------------
     def owned_pages(self) -> List[List[int]]:
-        """The live ownership ledger: per-request page lists of the
-        slots and of queued requests that already borrowed cached
+        """The live ownership ledger: per-request page lists (target and
+        draft) of the slots and of queued requests that already hold
         pages."""
-        owned = [r.pages for r in self.slots if r is not None and r.pages]
-        owned.extend(r.pages for r in self.queue if r.pages)
+        live = [r for r in self.slots if r is not None] + list(self.queue)
+        owned = [r.pages for r in live if r.pages]
+        owned.extend(r.draft_pages for r in live if r.draft_pages)
         return owned
 
     def leak_check(self) -> None:
@@ -208,15 +249,16 @@ class ContinuousBatchingScheduler:
         )
         self.leak_checks_run += 1
 
-    def _alloc(self, n: int) -> Optional[List[int]]:
-        """``n`` pages, all or nothing.  An exhausted pool first evicts
-        idle prefix-cache runs (LRU, never a borrowed page): cached
-        history yields to live work."""
-        got = self.pool.alloc(n)
+    def _alloc(self, n: int, ns: str = "kv") -> Optional[List[int]]:
+        """``n`` pages in namespace ``ns`` (``"draft"`` for the draft's
+        KV), all or nothing.  An exhausted pool first evicts idle
+        prefix-cache runs (LRU, never a borrowed page): cached history
+        yields to live work."""
+        got = self.pool.alloc(n, ns=ns)
         if got is None and self.prefix is not None:
             if self.prefix.evict(need=n):
                 self.leak_check()
-                got = self.pool.alloc(n)
+                got = self.pool.alloc(n, ns=ns)
         return got
 
     def _stream(self, req: Request) -> int:
@@ -265,6 +307,17 @@ class ContinuousBatchingScheduler:
             if grown is None:
                 return False  # pool exhausted: the head waits
             req.pages = req.pages + grown
+        if self.engine.spec is not None and req.spec_ok:
+            # the draft mirrors the prompt's page span in its own
+            # namespace, all or nothing: a request never admits with a
+            # half-provisioned draft cache (its target pages stay on the
+            # ledger while it waits)
+            dneed = need - len(req.draft_pages)
+            if dneed > 0:
+                dgot = self._alloc(dneed, ns="draft")
+                if dgot is None:
+                    return False
+                req.draft_pages.extend(dgot)
         self.queue.popleft()
         if self.prefix is not None or self.prefill_chunk_tokens is not None:
             return self._start_chunked_prefill(req, slot)
@@ -332,6 +385,16 @@ class ContinuousBatchingScheduler:
             self.prefix.commit(
                 req.prompt, req.pages[: self.pool.pages_for(len(req.prompt))]
             )
+        if self.engine.spec is not None and req.spec_ok:
+            # the draft's KV over the prompt, so proposals start from the
+            # context the target sees.  A failed draft prefill demotes the
+            # request to plain decode: the draft is an accelerator, never
+            # a dependency of the stream
+            try:
+                self.engine.draft_prefill(req.prompt, req.draft_pages)
+            except Exception:  # noqa: BLE001 — counted, stream goes plain
+                self.draft_faults += 1
+                req.spec_ok = False
         if self._finished(req):
             self.slots[slot] = None
             self._retire(req, DONE)
@@ -381,9 +444,41 @@ class ContinuousBatchingScheduler:
             req, req.ctx_len // self.serve.page_size
         )
 
-    def _plain_decode_once(self) -> None:
-        """One single-token decode iteration over every running slot
-        (prefilling slots advance by chunks instead)."""
+    def _ensure_spec_span(self, req: Request) -> bool:
+        """Provision the whole span a spec round may write BEFORE the
+        round: target KV at positions ``ctx_len`` through ``ctx_len +
+        k``, so every page the span touches is made private and writable
+        now (rejected positions are overwritten in place, which is only
+        safe because no shared page is ever written), and the draft span
+        grows alongside in the ``"draft"`` namespace.  False when a page
+        cannot be had (the request decodes plain this step)."""
+        ps = self.serve.page_size
+        k = self.engine.spec.k
+        for idx in range(req.ctx_len // ps, (req.ctx_len + k) // ps + 1):
+            if idx >= self.serve.max_pages_per_seq:
+                return False
+            if not self._ensure_target_page(req, idx):
+                return False
+            while len(req.draft_pages) <= idx:
+                got = self._alloc(1, ns="draft")
+                if got is None:
+                    return False
+                req.draft_pages.extend(got)
+        return True
+
+    def _decode_once(self) -> None:
+        """One decode pass over the running batch: spec rounds for the
+        requests with a healthy draft (unless the acceptance fallback
+        tripped), plain single-token decode for the rest."""
+        if self.engine.spec is not None and not self._spec_fallback:
+            self._spec_decode_once()
+        else:
+            self._plain_decode_once()
+
+    def _plain_decode_once(self, only: Optional[set] = None) -> None:
+        """One single-token decode iteration over every running slot, or
+        over the slot indices in ``only`` (the plain side of a mixed
+        batch); prefilling slots advance by chunks instead."""
         b = len(self.slots)
         tokens = np.zeros((b,), np.int64)
         lengths = np.zeros((b,), np.int32)
@@ -395,6 +490,8 @@ class ContinuousBatchingScheduler:
         )
         for i, req in enumerate(self.slots):
             if req is None or req.status == PREFILLING:
+                continue
+            if only is not None and i not in only:
                 continue
             if not self._ensure_growth_page(req):
                 # pool exhausted mid-decode: shed the youngest running
@@ -430,6 +527,8 @@ class ContinuousBatchingScheduler:
         for i, req in enumerate(self.slots):
             if req is None or req.status == PREFILLING:
                 continue
+            if only is not None and i not in only:
+                continue
             if not bool(finite[i]):
                 # quarantine: a non-finite logits row evicts ONLY the
                 # offending slot; the rest keep this iteration's tokens
@@ -442,16 +541,124 @@ class ContinuousBatchingScheduler:
                 self.slots[i] = None
                 self._retire(req, DONE)
 
+    # -- speculative decoding ---------------------------------------------
+    def _spec_decode_once(self) -> None:
+        """Partition the running batch: requests with a healthy draft
+        ride a spec round; requests demoted from their draft, whose span
+        cannot be provisioned or that are near the context ceiling ride
+        plain decode.  Mixed batches are the steady state."""
+        k = self.engine.spec.k
+        spec_idx: List[int] = []
+        plain_idx: List[int] = []
+        for i, req in enumerate(self.slots):
+            if req is None or req.status == PREFILLING:
+                continue
+            if (req.spec_ok and req.draft_pages
+                    and req.ctx_len + 1 + k <= self.serve.max_context):
+                spec_idx.append(i)
+            else:
+                plain_idx.append(i)
+        for i in list(spec_idx):
+            if not self._ensure_spec_span(self.slots[i]):
+                # the whole span cannot be had: plain for this step only
+                spec_idx.remove(i)
+                plain_idx.append(i)
+        if spec_idx:
+            self._spec_round(spec_idx, k)
+        if plain_idx:
+            self._plain_decode_once(set(plain_idx))
+
+    def _spec_round(self, idx: List[int], k: int) -> None:
+        """One propose, verify, accept and roll back round for the slots
+        ``idx``.  The verify runs the plain decode step's function, so an
+        accepted token is the token plain decode would have produced; the
+        rejected tail's KV (target and draft) is zeroed afterwards."""
+        b = len(self.slots)
+        np_ = self.serve.max_pages_per_seq
+        tokens = np.zeros((b,), np.int64)
+        lengths = np.zeros((b,), np.int32)
+        temps = np.zeros((b,), np.float32)
+        streams = np.zeros((b,), np.int64)
+        gens = np.zeros((b,), np.int64)
+        tables = np.full((b, np_), NULL_PAGE, np.int32)
+        dtables = np.full((b, np_), NULL_PAGE, np.int32)
+        for i in idx:
+            req = self.slots[i]
+            tokens[i] = req.tokens[-1]
+            lengths[i] = req.ctx_len + 1  # context incl. the fed token
+            temps[i] = req.temperature
+            streams[i] = self._stream(req)
+            gens[i] = len(req.tokens) - 1
+            tables[i] = self._page_table_row(req)
+            dtables[i, : len(req.draft_pages)] = req.draft_pages
+        out, acc, finite = self.engine.spec_step(
+            tokens, lengths, tables, dtables, temps, streams, gens)
+        self.spec_rounds += 1
+        rb_starts = np.zeros((b,), np.int32)
+        rb_counts = np.zeros((b,), np.int32)
+        drafted = accepted = emitted = slot_steps = 0
+        for i in idx:
+            req = self.slots[i]
+            slot_steps += 1
+            if not bool(finite[i]):
+                # the target's own logits are not finite: the same
+                # quarantine as a poisoned plain step
+                self.slots[i] = None
+                self._shed_request(req, SHED_POISONED)
+                continue
+            a = int(acc[i])
+            drafted += k
+            accepted += a
+            start_ctx = req.ctx_len
+            for t in out[i, : a + 1]:
+                req.ctx_len += 1
+                req.tokens.append(int(t))
+                emitted += 1
+                if self._finished(req):
+                    break
+            if self._finished(req):
+                self.slots[i] = None
+                self._retire(req, DONE)
+            else:
+                # the round wrote KV at [start_ctx, start_ctx + k]: what
+                # lies past the new context is a rejected proposal's
+                stale = start_ctx + k + 1 - req.ctx_len
+                if stale > 0:
+                    rb_starts[i] = req.ctx_len
+                    rb_counts[i] = stale
+        if rb_counts.any():
+            self.engine.rollback(rb_starts, rb_counts, tables)
+            self.engine.draft_rollback(rb_starts, rb_counts, dtables)
+            self.spec_rollbacks += int((rb_counts > 0).sum())
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self._spec_window.append((drafted, accepted, emitted, slot_steps))
+        if self._acceptance_collapsed():
+            self._spec_fallback = True
+            self.spec_fallbacks += 1
+
+    def _acceptance_collapsed(self) -> bool:
+        """True once the window is full and its acceptance rate (accepted
+        over drafted proposals) is below the config's
+        ``min_accept_rate``: speculation then costs more than it saves."""
+        w = self._spec_window
+        if len(w) < w.maxlen:
+            return False
+        drafted = sum(r[0] for r in w)
+        accepted = sum(r[1] for r in w)
+        return bool(drafted) and (
+            accepted / drafted < self.engine.spec.min_accept_rate)
+
     # -- the iteration ----------------------------------------------------
     def step(self) -> None:
         """One continuous-batching iteration: admit into free slots
         (prefilling a request, or starting its chunked prefill), advance
         each chunked prefill by one chunk, then one decode pass over the
-        running batch."""
+        running batch (spec rounds with a speculative engine)."""
         while self._admit_one():
             pass
         self._advance_prefills()
-        self._plain_decode_once()
+        self._decode_once()
 
     def run(self, max_steps: int = 10_000) -> None:
         """Step until every submitted request completed or was shed."""

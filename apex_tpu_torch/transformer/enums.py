@@ -1,0 +1,26 @@
+"""≙ ``apex_tpu/transformer/enums.py`` (ModelType, AttnType, AttnMaskType,
+LayerType), the port's own copy."""
+
+import enum
+
+__all__ = ["ModelType", "AttnType", "AttnMaskType", "LayerType"]
+
+
+class ModelType(enum.Enum):
+    encoder_or_decoder = 1
+    encoder_and_decoder = 2
+
+
+class LayerType(enum.Enum):
+    encoder = 1
+    decoder = 2
+
+
+class AttnType(enum.Enum):
+    self_attn = 1
+    cross_attn = 2
+
+
+class AttnMaskType(enum.Enum):
+    padding = 1
+    causal = 2

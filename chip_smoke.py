@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-twelve phases; any failure raises and the exit code is non-zero.  Without
+thirteen phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -130,8 +130,30 @@ a CUDA device it exits non-zero at once and prints no result.
     decode steps of the graph equal the eager step bit for bit; other
     stream seeds draw other streams.  It reports the int8 pool's and the
     packed weights' bytes.
+13. Speculative decoding: ``GptConfig()`` (phase 2's seeded weights),
+    ``SpecConfig(k=4)`` with the target's first 2 layers as the draft
+    (``draft_from_params``), phase 2's 8 greedy requests: every stream
+    equals phase 2's plain decode bit for bit, with exact K1, K3 and K6
+    launches (K3 only in the target's and the draft's prefills; each
+    spec round is one replay of a captured CUDA graph whose launches
+    count per replay); again with a self-draft (every live slot accepts
+    all 4 proposals every round), on the int8 KV wire against plain
+    decode on int8 pages, and at k = 0 with four seeded requests at
+    temperature 0.8 against plain decode's sampled streams; at k = 4 the
+    four sampled requests served twice behind the prefix cache (hits,
+    copy-on-write forks of the spec span): every emitted token in its
+    position's top 50, the streams repeating, no draft page in the
+    cache.  It reports the draft's acceptance rate, tokens a slot a
+    round, host and device ms and launches per round and decode tokens/s
+    beside phase 2's.
 
-The phases run in the order 1, 2, 3, 12, 6, 7, 8, 9, 10, 11, 4, 5.
+Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
+BERT's shape against the same function on a CPU copy; phase 6 also
+trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
+7 and 9 also run the card under the remat policies, whose losses and
+gradients must be equal bit for bit.
+
+The phases run in the order 1, 2, 3, 12, 13, 6, 7, 8, 9, 10, 11, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -158,8 +180,8 @@ the errors as one JSON line: the quick check of a kernel's first build.
 
     python3 chip_smoke.py --serving
 
-runs the serving phases alone (2, 3, 12 and 5, checked as in the full
-run) and prints them as one JSON line.
+runs the serving phases alone (2, 3, 12, 13 and 5, checked as in the
+full run) and prints them as one JSON line.
 
     python3 chip_smoke.py --evoformer
 
@@ -170,6 +192,7 @@ kernel time by layer.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -400,6 +423,7 @@ def phase1(gen):
     errs["layer_norm_bwd"] = phase1_ln_bwd(gen)
     errs["flash_bwd"] = phase1_flash_bwd(gen)
     phase1_flash_operands(gen)
+    errs["fmha_qkvpacked"] = phase1_fmha_qkvpacked()
     phase1_dropout_mask(gen)
     errs.update(phase1_head_dims(gen))
     errs["paged_decode"] = phase1_paged(gen)
@@ -829,6 +853,54 @@ def phase1_flash_operands(gen):
                  attn.flash_bwd_reference(*args, **kw))
         del ref, o, args
         torch.cuda.empty_cache()
+
+
+def phase1_fmha_qkvpacked():
+    """``fmha_qkvpacked`` (packed (B, S, 3, H, D) input) at BERT's shape
+    with its key-padding bias, on the card (K3 forward, K4 backward)
+    against the plain twins on the same unpacked operands: the output
+    under BF16_TOL and F32-close row statistics, then each of dq, dk, dv
+    of the packed gradient under K4_TOL against ``flash_bwd_reference``
+    fed the card's own forward output for delta (as every K4 check feeds
+    both sides one delta: a bf16 step of o moves delta, which a row over
+    a few keys cannot absorb).  Its inputs come from a generator of its
+    own, so the other phase-1 checks draw the inputs they drew before it
+    existed.  Returns max |o - o_ref|."""
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, s, h, d = BERT_BATCH, BERT_SEQ, 16, 64
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    bias = padding_bias(bert_lengths(gen), s)  # (B, 1, S): G = B, RS = 1
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    before = _dispatch.launches()
+    o = attn.fmha_qkvpacked(qkv, bias[:, None])  # bias (B, 1, 1, S)
+    o.backward(do)
+    after = _dispatch.launches()
+    ran = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    if ran.get("flash_fwd") != 1 or ran.get("flash_bwd") != 1:
+        raise AssertionError(f"fmha_qkvpacked launched {ran}, not K3 and K4 "
+                             f"once each")
+
+    def flat(x):  # (B, S, H, D) -> (B·H, S, D)
+        return x.detach().transpose(1, 2).reshape(b * h, s, d)
+
+    q, k, v = (flat(qkv[:, :, i]) for i in range(3))
+    kw = dict(scale=d ** -0.5, causal=False)
+    ref = attn.flash_fwd_reference(q, k, v, bias, **kw)
+    tag = f"fmha_qkvpacked B={b} S={s} H={h} D={d}, BERT padding bias"
+    err = compare(tag + " o", flat(o), ref[0], BF16_TOL)
+    m, l = ref[2], ref[3]
+    delta = (flat(do).float() * flat(o).float()).sum(-1)
+    want = attn.flash_bwd_reference(q, k, v, flat(do), m, l, delta, bias,
+                                    **kw)
+    check_k4(tag, [flat(qkv.grad[:, :, i]) for i in range(3)], want)
+    return err
 
 
 #: K5's dbias against its twin, element by element: both recompute p and
@@ -1425,7 +1497,7 @@ def phase2():
         f"prefill {rates['prefill_tokens_per_s_warm']:.0f}, decode "
         f"{rates['decode_tokens_per_s_warm']:.1f}")
     log("  first tokens:", [r.tokens[:4] for r in reqs])
-    return launches, rates, engine
+    return launches, rates, engine, [r.tokens for r in reqs]
 
 
 # ---------------------------------------------------------------------------
@@ -1806,6 +1878,414 @@ def phase12():
                           sampled_tokens_checked=support["checked"],
                           graph_eager_steps=eager_checks["steps"],
                           peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+# ---------------------------------------------------------------------------
+# phase 13: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+
+#: phase 13: proposals per round and the truncated draft's depth (the
+#: reference's ``serve_bench --speculate 4 --draft-layers 2``)
+SPEC_K = 4
+DRAFT_LAYERS = 2
+SPEC_TEMP = 0.8
+SPEC_SAMPLED = 4
+
+
+def _spec_want(cfg, draft_layers, k, calls, chunked):
+    """The exact K1/K3/K6 launches of a speculative serving run: each
+    target prefill L blocks (K1 2L + 1, K3 L; a chunk call K1 2L + 1 and
+    no K3), each draft prefill the draft's, each plain decode replay K1
+    2L + 1 and K6 L, each spec round k + 1 draft steps and k + 1 verify
+    steps (K1 2Ld + 1 and 2L + 1, K6 Ld and L a step; no K3)."""
+    layers, ld = cfg.num_layers, draft_layers
+    rounds, plain = calls["spec_rounds"], calls["plain_decodes"]
+    return {
+        "layer_norm_fwd": (2 * layers + 1) * (calls["prefills"] + plain)
+        + (2 * ld + 1) * calls["draft_prefills"]
+        + rounds * (k + 1) * (2 * ld + 1 + 2 * layers + 1),
+        "flash_fwd": (0 if chunked else layers * calls["prefills"])
+        + ld * calls["draft_prefills"],
+        "paged_decode": layers * plain + rounds * (k + 1) * (ld + layers),
+    }
+
+
+def _spec_serve(engine, prompts, *, draft_layers, temperature=0.0,
+                seeds=None, sched=None, on_round=None):
+    """Serve ``prompts`` (32 new tokens each) through a scheduler over a
+    speculative engine with the launch counters zeroed before and read
+    after; checks that every request finished, the ledger and (without a
+    prefix cache) the empty pool, and the exact launches.  Returns
+    (streams, launches, calls, clock) — ``clock`` the host time of the
+    decode-side engine calls (spec rounds, plain decodes, rollbacks) and
+    the n_accept of every live slot of every round."""
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.serve import ContinuousBatchingScheduler, Request
+
+    sched = sched or ContinuousBatchingScheduler(engine)
+    clock = {"decode_s": 0.0, "round_s": [], "accepts": []}
+    saved = {n: getattr(engine, n) for n in
+             ("spec_step", "decode", "rollback", "draft_rollback")}
+
+    def timed(name):
+        fn = saved[name]
+
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)  # host tokens or in-place writes
+            if name in ("rollback", "draft_rollback"):
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            clock["decode_s"] += dt
+            if name == "spec_step":
+                clock["round_s"].append(dt)
+                live = np.asarray(a[1]) > 0
+                clock["accepts"].extend(int(x) for x in out[1][live])
+                if on_round is not None:
+                    on_round(a, out)
+            return out
+        return call
+
+    for name in saved:
+        setattr(engine, name, timed(name))
+    before = dict(prefills=engine.prefill_calls,
+                  draft_prefills=engine.draft_prefill_calls,
+                  spec_rounds=engine.spec_rounds,
+                  decodes=engine.decode_iters)
+    reqs = [Request(prompt=list(p), max_new_tokens=NEW_TOKENS,
+                    temperature=temperature,
+                    stream_seed=None if seeds is None else seeds[i])
+            for i, p in enumerate(prompts)]
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    try:
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        torch.cuda.synchronize()
+    finally:
+        # drop the wrappers (a restored bound method would tie the engine
+        # to itself in a cycle and keep its pool and graphs alive)
+        for name in saved:
+            delattr(engine, name)
+    launches = _dispatch.launches()
+    paths = _dispatch.last_paths()
+    for r in reqs:
+        if r.status != "done" or len(r.tokens) != NEW_TOKENS:
+            raise AssertionError(
+                f"phase 13: a request of {len(r.prompt)} tokens ended "
+                f"{r.status} ({r.shed_reason}) with {len(r.tokens)} tokens")
+    sched.leak_check()
+    if sched.prefix is None and engine.pool.in_use != 0:
+        raise AssertionError(f"phase 13: {engine.pool.in_use} pages in use")
+    calls = dict(prefills=engine.prefill_calls - before["prefills"],
+                 draft_prefills=(engine.draft_prefill_calls
+                                 - before["draft_prefills"]),
+                 spec_rounds=engine.spec_rounds - before["spec_rounds"])
+    calls["plain_decodes"] = (engine.decode_iters - before["decodes"]
+                              - calls["spec_rounds"])
+    want = _spec_want(engine.cfg, draft_layers, engine.spec.k, calls,
+                      chunked=sched.prefix is not None
+                      or sched.prefill_chunk_tokens is not None)
+    per_round = engine.spec_graph_launches
+    want_round = {
+        "layer_norm_fwd": (engine.spec.k + 1) * (2 * draft_layers + 1
+                                                 + 2 * engine.cfg.num_layers
+                                                 + 1),
+        "paged_decode": (engine.spec.k + 1) * (draft_layers
+                                               + engine.cfg.num_layers)}
+    if launches != want or per_round != want_round:
+        raise AssertionError(
+            f"phase 13 launches {launches} != {want} (calls {calls}); a "
+            f"replay counts {per_round}, want {want_round}")
+    want_paths = {"layer_norm": "cuda", "flash_attention": "cuda",
+                  "paged_decode_attention": "cuda"}
+    if paths != want_paths:
+        raise AssertionError(f"phase 13 op paths {paths} != {want_paths}")
+    if not calls["spec_rounds"] or sched.draft_faults:
+        raise AssertionError(f"phase 13: {calls['spec_rounds']} spec rounds, "
+                             f"{sched.draft_faults} draft faults")
+    return [r.tokens for r in reqs], launches, calls, clock, sched
+
+
+def _spec_profile(engine, steps=4):
+    """Spec rounds at batch 8 with ~512-token contexts (as phase 5's
+    decode profile): host ms a round unprofiled and the counted launches,
+    a torch.profiler trace of 4 more (device ms, kernels a round, the
+    kernels that took most), and one replay of the captured round between
+    CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.serve import ContinuousBatchingScheduler, Request
+
+    rs = np.random.RandomState(2)
+    sched = ContinuousBatchingScheduler(engine)
+    for _ in range(8):
+        sched.submit(Request(
+            prompt=[int(t) for t in rs.randint(0, engine.cfg.vocab_size,
+                                               size=512)],
+            max_new_tokens=(2 * steps + 2) * (engine.spec.k + 1)))
+    sched.step()  # the prefills and the first round, not timed
+    torch.cuda.synchronize()
+    before = _dispatch.launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    after = _dispatch.launches()
+    counted = {k: (after.get(k, 0) - before.get(k, 0)) / steps for k in after
+               if after.get(k, 0) != before.get(k, 0)}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    graph = engine._spec_graph["graph"]
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    sched.run()
+    kernels = device_kernels(prof)
+    out = {"host_ms_per_round_unprofiled": host_ms,
+           "counted_launches_per_round": counted,
+           "replay_device_ms": statistics.median(times)}
+    if kernels:
+        busy_us = sum(k[1] for k in kernels)
+        out.update({
+            "device_ms_per_round": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernel_launches_per_round": sum(k[2] for k in kernels) / steps,
+        })
+        k6 = [k for k in kernels if "paged_decode_kernel" in k[0]]
+        out["k6_ms_per_round"] = sum(k[1] for k in k6) / 1e3 / steps
+        for key, us, count in sorted(kernels, key=lambda k: -k[1])[:6]:
+            log(f"    {us / steps / 1e3:8.4f} ms/round  {count // steps:4d}x"
+                f"  {key[:90]}")
+    else:
+        log("  the profiler recorded no device kernels: device time not "
+            "measured")
+    log(f"  spec round at batch 8, ~512-token contexts: host "
+        f"{host_ms:.3f} ms/round unprofiled, one replay "
+        f"{out['replay_device_ms']:.3f} ms (CUDA events), device kernels "
+        f"{out.get('device_ms_per_round', float('nan')):.3f} ms/round in "
+        f"{out.get('kernel_launches_per_round', float('nan')):.0f} "
+        f"launches; counted {counted}")
+    return out
+
+
+def phase13(plain_streams, plain_rates):
+    """Speculative decoding at the full width of ``GptConfig()`` (phase
+    2's seeded weights), ``ServeConfig(page_size=16, max_batch=8)``,
+    ``SpecConfig(k=4)`` with the target's first 2 layers as the draft
+    (``draft_from_params``), phase 2's 8 greedy requests:
+
+    - every stream equals phase 2's plain decode bit for bit, with exact
+      K1, K3 and K6 launches (K3 only in the prefills; the round one
+      graph replay with its launches counted per replay);
+    - with a self-draft, every live slot accepts all k proposals on every
+      round, the streams again equal phase 2's;
+    - on the int8 KV wire, the streams equal plain decode on int8 pages;
+    - four requests at temperature 0.8 with stream seeds: at k = 0 the
+      streams equal plain decode's; at k = 4, served twice behind the
+      prefix cache (the second run hits, and copy-on-write forks the
+      span), every emitted token lies in its position's top 50, the
+      streams repeat, and no draft page enters the cache;
+    - the pool ends empty.
+
+    Reports the draft's acceptance rate, tokens per slot a round, host
+    and device ms per round, launches per round and decode tokens/s
+    beside phase 2's."""
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+    from apex_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        InferenceEngine,
+        ServeConfig,
+        SpecConfig,
+        draft_from_params,
+    )
+
+    log(f"phase 13: speculative decoding at full width, k={SPEC_K}, a "
+        f"{DRAFT_LAYERS}-layer draft, a self-draft, both KV wires")
+    torch.cuda.empty_cache()
+    cfg = GptConfig()
+    model = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(1234))
+    serve = ServeConfig(page_size=16, max_batch=8, max_pages_per_seq=128,
+                        num_pages=1025, top_k=TOP_K)
+    rs = np.random.RandomState(0)  # phase 2's prompts
+    prompts = [[int(t) for t in rs.randint(0, cfg.vocab_size, size=n)]
+               for n in PROMPT_LENS]
+    draft = draft_from_params(model, DRAFT_LAYERS)
+
+    def engine(spec, **kw):
+        t0 = time.perf_counter()
+        eng = InferenceEngine(cfg, model, dataclasses.replace(serve, **kw),
+                              spec=spec).build()
+        log(f"  engine {'plain' if spec is None else f'k={spec.k}'} {kw} "
+            f"built in {time.perf_counter() - t0:.1f} s; a spec round "
+            f"counts {eng.spec_graph_launches}")
+        return eng
+
+    def same(tag, got, want):
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"phase 13: {tag}: streams {bad} differ "
+                                 f"from plain decode")
+        log(f"  {tag}: all {len(got)} streams equal plain decode's")
+
+    out = {}
+    # the 2-layer draft on bf16 pages: phase 2's streams, timing
+    eng = engine(SpecConfig(draft, k=SPEC_K))
+    streams, launches, calls, clock, sched = _spec_serve(
+        eng, prompts, draft_layers=DRAFT_LAYERS)
+    same(f"{DRAFT_LAYERS}-layer draft, bf16 KV", streams, plain_streams)
+    decode_tokens = len(prompts) * (NEW_TOKENS - 1)
+    acc = np.asarray(clock["accepts"])
+    out["draft"] = {
+        "calls": calls, "launches": launches,
+        "spec_graph_launches_per_round": eng.spec_graph_launches,
+        "acceptance_rate": sched.spec_accepted / sched.spec_drafted,
+        "tokens_per_slot_round": float((acc + 1).mean()),
+        "rollbacks": sched.spec_rollbacks,
+        "host_ms_per_round": 1e3 * float(np.mean(clock["round_s"])),
+        "decode_s": clock["decode_s"],
+        "decode_tokens_per_s": decode_tokens / clock["decode_s"],
+        "plain_decode_tokens_per_s": plain_rates["decode_tokens_per_s"],
+    }
+    d = out["draft"]
+    log(f"  {calls}; acceptance {d['acceptance_rate']:.4f} "
+        f"({sched.spec_accepted}/{sched.spec_drafted}), "
+        f"{d['tokens_per_slot_round']:.3f} tokens a slot a round, "
+        f"{d['rollbacks']} rollbacks, host {d['host_ms_per_round']:.3f} ms "
+        f"a round; decode {d['decode_tokens_per_s']:.1f} tokens/s against "
+        f"phase 2's plain {d['plain_decode_tokens_per_s']:.1f}")
+    out["draft"]["profile"] = _spec_profile(eng)
+
+    # the same engine: 4 seeded sampled requests twice behind the cache
+    seeds = [100 + i for i in range(SPEC_SAMPLED)]
+    support = {"checked": 0}
+
+    def in_top_k(args, res):
+        toks, acc_r, _ = res
+        logits = eng.last_verify_logits
+        for b in np.flatnonzero(np.asarray(args[1]) > 0):
+            for j in range(int(acc_r[b]) + 1):
+                row = logits[j, b]
+                kth = torch.topk(row, TOP_K).values[-1]
+                if not bool(row[int(toks[b, j])] >= kth):
+                    raise AssertionError(
+                        f"phase 13: token {int(toks[b, j])} of slot {b} at "
+                        f"position {j} is not in its top {TOP_K}")
+                support["checked"] += 1
+
+    cached = ContinuousBatchingScheduler(eng, prefix_cache=True,
+                                         prefill_chunk_tokens=CHUNK_TOKENS)
+    runs = []
+    for _ in range(2):
+        s_streams, s_launches, s_calls, _, _ = _spec_serve(
+            eng, prompts[:SPEC_SAMPLED], draft_layers=DRAFT_LAYERS,
+            temperature=SPEC_TEMP, seeds=seeds, sched=cached,
+            on_round=in_top_k)
+        runs.append(s_streams)
+        if any(eng.pool.namespace(p) != "kv"
+               for p in cached.prefix.cached_pages()):
+            raise AssertionError("phase 13: a draft page is in the cache")
+        if eng.pool.in_use != len(cached.prefix):
+            raise AssertionError("phase 13: pages outside the cache's hold")
+    if runs[0] != runs[1] or not cached.prefix.hits or not cached.forks:
+        raise AssertionError(
+            f"phase 13: the cached run's seeded streams differ, or it did "
+            f"not hit ({cached.prefix.hits} hits, {cached.forks} forks)")
+    cached.prefix.flush()
+    if eng.pool.in_use:
+        raise AssertionError("phase 13: pages left after the cache's flush")
+    log(f"  sampled at k={SPEC_K} behind the prefix cache, served twice: "
+        f"{cached.prefix.hits} hits, {cached.forks} forks, the streams "
+        f"repeat, {support['checked']} emitted tokens in their top {TOP_K}")
+    out["sampled_k4"] = {"tokens_checked": support["checked"],
+                         "hits": cached.prefix.hits, "forks": cached.forks,
+                         "launches": s_launches, "calls": s_calls}
+    del eng, cached, sched
+    torch.cuda.empty_cache()
+
+    # self-draft: every proposal accepted
+    eng = engine(SpecConfig(None, k=SPEC_K))
+    streams, launches, calls, clock, sched = _spec_serve(
+        eng, prompts, draft_layers=cfg.num_layers)
+    same("self-draft, bf16 KV", streams, plain_streams)
+    if set(clock["accepts"]) != {SPEC_K}:
+        raise AssertionError(f"phase 13: a self-draft slot accepted "
+                             f"{sorted(set(clock['accepts']))}, not {SPEC_K}")
+    out["self_draft"] = {
+        "calls": calls, "launches": launches,
+        "acceptance_rate": sched.spec_accepted / sched.spec_drafted,
+        "host_ms_per_round": 1e3 * float(np.mean(clock["round_s"])),
+        "decode_tokens_per_s": decode_tokens / clock["decode_s"]}
+    log(f"  self-draft: every live slot accepted {SPEC_K} of {SPEC_K} on "
+        f"all {calls['spec_rounds']} rounds; host "
+        f"{out['self_draft']['host_ms_per_round']:.3f} ms a round, decode "
+        f"{out['self_draft']['decode_tokens_per_s']:.1f} tokens/s")
+    del eng, sched
+    torch.cuda.empty_cache()
+
+    # the int8 KV wire against plain decode on int8 pages
+    base = engine(None, kv_wire="int8")
+    sched = ContinuousBatchingScheduler(base)
+    want8 = [sched.submit(_plain_request(p)) for p in prompts]
+    sched.run()
+    want8 = [r.tokens for r in want8]
+    del base, sched
+    eng = engine(SpecConfig(draft, k=SPEC_K), kv_wire="int8")
+    streams, launches, calls, clock, sched = _spec_serve(
+        eng, prompts, draft_layers=DRAFT_LAYERS)
+    same(f"{DRAFT_LAYERS}-layer draft, int8 KV", streams, want8)
+    out["int8_kv"] = {"calls": calls, "launches": launches,
+                      "acceptance_rate": (sched.spec_accepted
+                                          / sched.spec_drafted)}
+    del eng, sched
+    torch.cuda.empty_cache()
+
+    # k = 0: sampled streams equal plain decode's
+    base = engine(None)
+    sched = ContinuousBatchingScheduler(base)
+    want_s = [sched.submit(_plain_request(p, SPEC_TEMP, seeds[i]))
+              for i, p in enumerate(prompts[:SPEC_SAMPLED])]
+    sched.run()
+    want_s = [r.tokens for r in want_s]
+    del base, sched
+    eng = engine(SpecConfig(draft, k=0))
+    streams, launches, calls, _, _ = _spec_serve(
+        eng, prompts[:SPEC_SAMPLED], draft_layers=DRAFT_LAYERS,
+        temperature=SPEC_TEMP, seeds=seeds)
+    same(f"k=0, temperature {SPEC_TEMP}, seeded", streams, want_s)
+    out["k0_sampled"] = {"calls": calls, "launches": launches}
+    del eng, model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out["draft"]["launches"], out
+
+
+def _plain_request(prompt, temperature=0.0, seed=None):
+    from apex_tpu_torch.serve import Request
+
+    return Request(prompt=list(prompt), max_new_tokens=NEW_TOKENS,
+                   temperature=temperature, stream_seed=seed)
 
 
 # ---------------------------------------------------------------------------
@@ -2806,7 +3286,10 @@ def phase6():
     step with full remat, L layers: K1 runs 2L+1 times forward and 2L
     again in the recompute, K2 2L+1 times, K3 L + L times and K4 L
     times; every count must be exactly that times the steps.  Then one
-    more step under ``torch.profiler``."""
+    more step under ``torch.profiler``.  Then 3 steps each under
+    ``remat_policy="dots"`` and ``"sums"`` (the same launches a step: K1
+    and K3 are recomputed under every policy), with their step time,
+    tokens/s and peak memory beside ``"full"``'s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2884,9 +3367,109 @@ def phase6():
         "device_ms_by_layer": groups,
         "top_device_ops": top,
     }
+    cfg = run.cfg
+    full = dict(step_ms_median=step_s * 1e3, tokens_per_s=tokens_per_s,
+                peak_memory_bytes=peak)
+    full.update(_profiled_train_step(run.model, run.optimizer,
+                                     next(run.batches), step_s))
+    log(f"  remat_policy='full' (the run above): one profiled step "
+        f"{full['profiled_step_ms']:.1f} ms host, "
+        f"{full['profiled_device_ms']:.1f} ms of kernels in "
+        f"{full['profiled_kernel_launches']} launches, "
+        f"{full['profiled_host_ms_in_ops']:.1f} ms of host time in ops")
     del run
+    gc.collect()
     torch.cuda.empty_cache()
+    out["remat_policies"] = {"full": full}
+    for policy in ("dots", "sums"):
+        out["remat_policies"][policy] = _train_gpt_policy(
+            args, dataclasses.replace(cfg, remat_policy=policy), per_step)
     return launches, out
+
+
+def _profiled_train_step(model, opt, ids, step_s):
+    """One more training step under ``torch.profiler``: its host time,
+    its kernels' device time and launches, and the host time inside
+    PyTorch ops (self CPU time, where a dispatch mode's Python shows)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.examples import train_gpt
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_gpt.train_step(model, opt, ids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    host_in_ops = sum(e.self_cpu_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU) / 1e3
+    device_ms = sum(k[1] for k in kernels) / 1e3
+    return {"profiled_step_ms": wall * 1e3, "profiled_device_ms": device_ms,
+            "profiled_kernel_launches": sum(k[2] for k in kernels),
+            "profiled_host_ms_in_ops": host_in_ops,
+            "device_busy_share_unprofiled": device_ms / (step_s * 1e3)}
+
+
+def _train_gpt_policy(args, cfg, per_step, steps=3):
+    """``steps`` FusedAdam steps of a fresh seeded ``GptModel(cfg)`` on
+    the example's corpus and loader, with the launches checked against
+    ``per_step``; returns the median step time of steps 1.., tokens/s and
+    the peak memory."""
+    import torch
+
+    from apex_tpu_torch.data import DataLoader, TokenFileDataset
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import GptModel
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GptModel(cfg)  # weights seeded with 0, as the example's
+    opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+    loader = DataLoader(TokenFileDataset(
+        train_gpt.corpus(args, cfg.vocab_size), seq_len=TRAIN_SEQ),
+        batch_size=TRAIN_BATCH, seed=7)
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    losses, seconds = [], []
+    for _, batch in zip(range(steps), loader):
+        ids = torch.as_tensor(batch.T.astype(np.int64), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_gpt.train_step(model, opt, ids)))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches = _dispatch.launches()
+    want = {k: n * steps for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"training under {cfg.remat_policy!r}: launches "
+                             f"{launches} != {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"losses not finite: {losses}")
+    step_s = statistics.median(seconds[1:])
+    res = {"losses": losses, "step_seconds": seconds,
+           "step_ms_median": step_s * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    res.update(_profiled_train_step(model, opt, ids, step_s))
+    log(f"  remat_policy={cfg.remat_policy!r}: {steps} steps, launches "
+        f"{launches} (per step as 'full'), step {res['step_ms_median']:.1f} "
+        f"ms, {res['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{res['peak_memory_bytes'] / 1e9:.2f} GB, losses "
+        f"{[round(x, 4) for x in losses]}; one profiled step: "
+        f"{res['profiled_step_ms']:.1f} ms host, "
+        f"{res['profiled_device_ms']:.1f} ms of kernels in "
+        f"{res['profiled_kernel_launches']} launches, "
+        f"{res['profiled_host_ms_in_ops']:.1f} ms of host time in ops")
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2917,62 +3500,99 @@ ADAM_MAX_TOL = 2 * TRAIN_LR * (1 + 1e-3)
 ADAM_MEAN_TOL = 2e-5
 
 
+def _gpt_cross_step(model, ids):
+    """One ``gpt_lm_loss`` + FusedAdam step: (loss, {name: grad}, {name:
+    update}) on the CPU in f32."""
+    from apex_tpu_torch.models import gpt_lm_loss
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    before = {k: p.detach().clone().cpu() for k, p in model.named_parameters()}
+    opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+    loss = gpt_lm_loss(model, ids)
+    loss.backward()
+    grads = {k: p.grad.detach().float().cpu()
+             for k, p in model.named_parameters()}
+    opt.step()
+    updates = {k: p.detach().cpu() - before[k]
+               for k, p in model.named_parameters()}
+    return float(loss.detach()), grads, updates
+
+
 def phase7():
     """GptConfig at full width with 2 layers, B=2, S=256: the loss, every
     parameter's gradient and the weights after one FusedAdam step on the
     card (bf16 compute, kernels K1-K4) against the CPU (f32, the plain
-    versions), from the same f32 weights and the same batch."""
+    versions), from the same f32 weights and the same batch: without
+    remat, and with ``remat=True`` under each of ``"full"``, ``"dots"``
+    and ``"sums"``, whose losses and gradients on the card must be equal
+    bit for bit."""
     import torch
 
-    from apex_tpu_torch.models import GptConfig, GptModel, gpt_lm_loss
-    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.models import GptConfig, GptModel
 
     log("phase 7: 2-layer full width training step, card bf16 against "
-        "CPU f32")
+        "CPU f32, without remat and under each remat policy")
     cfg = GptConfig(num_layers=2, max_seq_len=256)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     card = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(11))
+    state = {k: v.cpu() for k, v in card.state_dict().items()}
     cpu = GptModel(cpu_cfg, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    cpu.load_state_dict(state)
     ids = torch.from_numpy(np.random.RandomState(3).randint(
         0, cfg.vocab_size, size=(256, 2)).astype(np.int64))
-    results = {}
-    for name, model, dev_ids in (("card", card, ids.cuda()), ("cpu", cpu, ids)):
-        before = {k: p.detach().clone().cpu()
-                  for k, p in model.named_parameters()}
-        opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
-        loss = gpt_lm_loss(model, dev_ids)
-        loss.backward()
-        grads = {k: p.grad.detach().float().cpu()
-                 for k, p in model.named_parameters()}
-        opt.step()
-        updates = {k: p.detach().cpu() - before[k]
-                   for k, p in model.named_parameters()}
-        results[name] = (float(loss.detach()), grads, updates)
-    (l_card, g_card, u_card), (l_cpu, g_cpu, u_cpu) = (results["card"],
-                                                        results["cpu"])
-    log(f"  loss card={l_card:.6f} cpu={l_cpu:.6f} diff={abs(l_card - l_cpu):.2e} "
-        f"tol={LOSS_TOL}")
-    if not np.isfinite(l_card) or abs(l_card - l_cpu) > LOSS_TOL:
-        raise AssertionError("phase 7: the losses disagree")
-    worst_grad, worst_max, worst_mean = 0.0, 0.0, 0.0
-    for k in g_cpu:
-        rel = float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm().clamp_min(1e-30))
-        du = (u_card[k] - u_cpu[k]).abs()
-        worst_grad = max(worst_grad, rel)
-        worst_max = max(worst_max, float(du.max()))
-        worst_mean = max(worst_mean, float(du.mean()))
-        if not rel <= GRAD_REL_TOL:
-            raise AssertionError(f"phase 7: grad of {k} off by {rel:.3e}")
-    log(f"  worst per-parameter grad relative error {worst_grad:.3e} "
-        f"(tol {GRAD_REL_TOL}); after one Adam step: worst max |Δ update| "
-        f"{worst_max:.3e} (tol {ADAM_MAX_TOL:.3e}), worst mean |Δ update| "
-        f"{worst_mean:.3e} (tol {ADAM_MEAN_TOL:.3e})")
-    if not (worst_max <= ADAM_MAX_TOL and worst_mean <= ADAM_MEAN_TOL):
-        raise AssertionError("phase 7: the Adam updates disagree")
-    return {"loss_card": l_card, "loss_cpu": l_cpu,
-            "max_grad_rel_err": worst_grad, "max_update_diff": worst_max,
-            "max_mean_update_diff": worst_mean}
+    l_cpu, g_cpu, u_cpu = _gpt_cross_step(cpu, ids)
+    results = {"card": _gpt_cross_step(card, ids.cuda())}
+    for policy in ("full", "dots", "sums"):
+        model = GptModel(dataclasses.replace(cfg, remat=True,
+                                             remat_policy=policy))
+        model.load_state_dict(state)
+        results[f"remat {policy}"] = _gpt_cross_step(model, ids.cuda())
+        del model
+    out = {"loss_cpu": l_cpu}
+    for name, (l_card, g_card, u_card) in results.items():
+        log(f"  {name}: loss card={l_card:.6f} cpu={l_cpu:.6f} "
+            f"diff={abs(l_card - l_cpu):.2e} tol={LOSS_TOL}")
+        if not np.isfinite(l_card) or abs(l_card - l_cpu) > LOSS_TOL:
+            raise AssertionError(f"phase 7 ({name}): the losses disagree")
+        worst_grad, worst_max, worst_mean = 0.0, 0.0, 0.0
+        for k in g_cpu:
+            rel = float((g_card[k] - g_cpu[k]).norm()
+                        / g_cpu[k].norm().clamp_min(1e-30))
+            du = (u_card[k] - u_cpu[k]).abs()
+            worst_grad = max(worst_grad, rel)
+            worst_max = max(worst_max, float(du.max()))
+            worst_mean = max(worst_mean, float(du.mean()))
+            if not rel <= GRAD_REL_TOL:
+                raise AssertionError(
+                    f"phase 7 ({name}): grad of {k} off by {rel:.3e}")
+        log(f"  {name}: worst per-parameter grad relative error "
+            f"{worst_grad:.3e} (tol {GRAD_REL_TOL}); after one Adam step: "
+            f"worst max |Δ update| {worst_max:.3e} (tol {ADAM_MAX_TOL:.3e}), "
+            f"worst mean |Δ update| {worst_mean:.3e} (tol "
+            f"{ADAM_MEAN_TOL:.3e})")
+        if not (worst_max <= ADAM_MAX_TOL and worst_mean <= ADAM_MEAN_TOL):
+            raise AssertionError(f"phase 7 ({name}): the Adam updates "
+                                 f"disagree")
+        key = "card" if name == "card" else name.replace(" ", "_")
+        out[key] = {"loss_card": l_card, "max_grad_rel_err": worst_grad,
+                    "max_update_diff": worst_max,
+                    "max_mean_update_diff": worst_mean}
+    ref = results["remat full"]
+    for policy in ("dots", "sums"):
+        l_p, g_p, _ = results[f"remat {policy}"]
+        if l_p != ref[0] or any(not torch.equal(g_p[k], ref[1][k])
+                                for k in g_p):
+            raise AssertionError(f"phase 7: remat_policy {policy!r} differs "
+                                 f"from 'full' on the card")
+    log("  the three remat policies give the same loss and gradients on "
+        "the card, bit for bit")
+    out["policies_bit_identical"] = True
+    # the keys of earlier runs' JSON
+    out.update(loss_card=out["card"]["loss_card"],
+               max_grad_rel_err=out["card"]["max_grad_rel_err"],
+               max_update_diff=out["card"]["max_update_diff"],
+               max_mean_update_diff=out["card"]["max_mean_update_diff"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3146,15 +3766,16 @@ BERT_LR = 1e-3
 BERT_CROSS_LENGTHS = (128, 100, 37, 0)
 
 
-def bert_cross_step(device, seed_model=13):
+def bert_cross_step(device, seed_model=13, **over):
     """One ``bert_pretrain_loss`` + FusedLAMB step of the 2-layer,
     full-width BERT with attention dropout 0.1 (hidden dropout 0) on
     ``device`` ("cuda": bf16 compute; "cpu": f32), from the weights drawn
     on the CPU from ``seed_model`` and a fixed batch: B = 4, S = 128,
     attention_mask lengths 128/100/37/0 (the last sequence has no real
     token), 20 packed predictions per sequence, the dropout generator
-    seeded alike on both sides (the same attention masks).  Returns
-    (loss, {name: grad}, {name: update}) on the CPU in f32."""
+    seeded alike on both sides (the same attention masks).  ``over``
+    sets more config fields (the remat options).  Returns (loss, {name:
+    grad}, {name: update}) on the CPU in f32."""
     import torch
 
     from apex_tpu_torch import data
@@ -3164,7 +3785,7 @@ def bert_cross_step(device, seed_model=13):
 
     cfg = BertConfig(num_layers=2, attention_dropout=0.1, hidden_dropout=0.0,
                      dtype=torch.bfloat16 if device == "cuda"
-                     else torch.float32)
+                     else torch.float32, **over)
     model = BertForPreTraining(cfg, device="cpu",
                                generator=torch.Generator().manual_seed(
                                    seed_model)).to(device)
@@ -3213,30 +3834,65 @@ def compare_cross(a, b):
     return abs(la - lb), worst(ga, gb), worst(ua, ub)
 
 
+#: phase 9's card runs: without remat, and under the remat options
+BERT_REMAT_RUNS = {
+    "card": {},
+    "remat full": dict(remat=True, remat_policy="full"),
+    "remat dots": dict(remat=True, remat_policy="dots"),
+    "remat sums": dict(remat=True, remat_policy="sums"),
+    "remat sums + remat_attention": dict(remat=True, remat_policy="sums",
+                                         remat_attention=True),
+}
+
+
 def phase9():
     """BERT at full width with 2 layers: the loss, every parameter's
     gradient and the weights after one FusedLAMB step on the card (bf16,
     K1-K4 with the padding bias and attention dropout) against the CPU
     (f32, the plain twins), from the same weights, batch and attention
-    dropout seeds."""
+    dropout seeds: without remat, and with ``remat=True`` under ``"full"``,
+    ``"dots"``, ``"sums"`` and ``"sums"`` with ``remat_attention``, whose
+    losses and gradients on the card must be equal bit for bit."""
+    import torch
+
     log("phase 9: 2-layer full-width BERT step with attention dropout and "
-        "a fully padded row, card bf16 against CPU f32")
-    card = bert_cross_step("cuda")
+        "a fully padded row, card bf16 against CPU f32, without remat and "
+        "under the remat options")
     cpu = bert_cross_step("cpu")
-    dloss, (grad_rel, grad_k), (upd_rel, upd_k) = compare_cross(card, cpu)
-    log(f"  loss card={card[0]:.6f} cpu={cpu[0]:.6f} diff={dloss:.2e} "
-        f"(tol {BERT_LOSS_TOL}); worst grad relative error {grad_rel:.3e} "
-        f"({grad_k}, tol {BERT_GRAD_REL_TOL}); after one LAMB step worst "
-        f"update relative error {upd_rel:.3e} ({upd_k}, tol "
-        f"{BERT_UPDATE_REL_TOL})")
-    if not dloss <= BERT_LOSS_TOL:
-        raise AssertionError("phase 9: the losses disagree")
-    if not grad_rel <= BERT_GRAD_REL_TOL:
-        raise AssertionError(f"phase 9: grad of {grad_k} off by {grad_rel}")
-    if not upd_rel <= BERT_UPDATE_REL_TOL:
-        raise AssertionError(f"phase 9: update of {upd_k} off by {upd_rel}")
-    return {"loss_card": card[0], "loss_cpu": cpu[0],
-            "max_grad_rel_err": grad_rel, "max_update_rel_err": upd_rel}
+    out = {"loss_cpu": cpu[0]}
+    runs = {}
+    for name, over in BERT_REMAT_RUNS.items():
+        card = runs[name] = bert_cross_step("cuda", **over)
+        dloss, (grad_rel, grad_k), (upd_rel, upd_k) = compare_cross(card, cpu)
+        log(f"  {name}: loss card={card[0]:.6f} cpu={cpu[0]:.6f} "
+            f"diff={dloss:.2e} (tol {BERT_LOSS_TOL}); worst grad relative "
+            f"error {grad_rel:.3e} ({grad_k}, tol {BERT_GRAD_REL_TOL}); after "
+            f"one LAMB step worst update relative error {upd_rel:.3e} "
+            f"({upd_k}, tol {BERT_UPDATE_REL_TOL})")
+        if not dloss <= BERT_LOSS_TOL:
+            raise AssertionError(f"phase 9 ({name}): the losses disagree")
+        if not grad_rel <= BERT_GRAD_REL_TOL:
+            raise AssertionError(
+                f"phase 9 ({name}): grad of {grad_k} off by {grad_rel}")
+        if not upd_rel <= BERT_UPDATE_REL_TOL:
+            raise AssertionError(
+                f"phase 9 ({name}): update of {upd_k} off by {upd_rel}")
+        out[name.replace(" ", "_")] = {
+            "loss_card": card[0], "max_grad_rel_err": grad_rel,
+            "max_update_rel_err": upd_rel}
+    ref = runs["remat full"]
+    for name in ("remat dots", "remat sums", "remat sums + remat_attention"):
+        loss, grads, _ = runs[name]
+        if loss != ref[0] or any(not torch.equal(grads[k], ref[1][k])
+                                 for k in grads):
+            raise AssertionError(f"phase 9: {name} differs from remat full "
+                                 f"on the card")
+    log("  remat full, dots, sums and sums + remat_attention give the same "
+        "loss and gradients on the card, bit for bit")
+    out["policies_bit_identical"] = True
+    out.update({k: out["card"][k] for k in
+                ("loss_card", "max_grad_rel_err", "max_update_rel_err")})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3744,7 +4400,8 @@ def main():
                         help="run phase 1 alone (the kernels against their "
                         "plain versions)")
     parser.add_argument("--serving", action="store_true",
-                        help="run the serving phases alone (2, 3, 12, 5)")
+                        help="run the serving phases alone (2, 3, 12, 13, "
+                        "5)")
     parser.add_argument("--evoformer", action="store_true",
                         help="run phase 10's bf16 evoformer training alone "
                         "(launches logged, not checked)")
@@ -3786,14 +4443,16 @@ def main():
         print(json.dumps({"timing": phase4(gen, {}, {})}), flush=True)
         return
     if args.serving:
-        serve_launches, rates, engine = phase2()
+        serve_launches, rates, engine, streams = phase2()
         cross = phase3()
         wires_launches, wires = phase12()
+        spec_launches, spec = phase13(streams, rates)
         profile = phase5(engine)
         print(json.dumps({"serving": dict(rates, launches=serve_launches),
                           "cross_check": cross,
                           "serving_int8_wires": dict(
                               wires, launches=wires_launches),
+                          "speculative": spec,
                           "decode_profile": profile}), flush=True)
         return
     if args.evoformer:
@@ -3818,9 +4477,10 @@ def main():
     if args.phase1:
         print(json.dumps({"phase1": errs}), flush=True)
         return
-    serve_launches, rates, engine = phase2()
+    serve_launches, rates, engine, streams = phase2()
     cross = phase3()
     wires_launches, wires = phase12()
+    spec_launches, spec = phase13(streams, rates)
     train_launches, training = phase6()
     train_cross = phase7()
     bert_launches, bert = phase8()
@@ -3830,6 +4490,7 @@ def main():
     evo_cross = phase11()
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
+            ("speculative", spec_launches),
             ("training", train_launches),
             ("bert", bert_launches["bert"]),
             ("bert_dropout", bert_launches["bert_dropout"]),
@@ -3846,7 +4507,7 @@ def main():
     kernels = phase4(gen, launches, errs)
     profile = phase5(engine)
     log(json.dumps({"serving": rates, "cross_check": cross,
-                    "serving_int8_wires": wires,
+                    "serving_int8_wires": wires, "speculative": spec,
                     "training": training, "training_cross_check": train_cross,
                     "bert": bert, "bert_cross_check": bert_cross,
                     "evoformer": evoformer,

@@ -264,11 +264,11 @@ def test_init_matches_jax_rules(name):
 
 
 def test_dap_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         pof.row_to_col(torch.zeros(2, 2, 2), "dap")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         pof.TriangleAttention(DZ, H, axis_name="dap", **PORT)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         pof.EvoformerBlock(D, DZ, H, axis_name="dap", **PORT)
     assert pof.mha is flash_attention
     assert pof.layer_norm is fused_layer_norm_affine

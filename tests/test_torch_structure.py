@@ -2,10 +2,10 @@
 
 - the port and ``chip_smoke.py`` import neither ``jax`` nor ``apex_tpu``
   (AST scan of every module);
-- entry points (the GPT and BERT models, the engine, the converters,
-  the example trainers and the OpenFold modules) run on the card by
-  default and raise without one, unless the caller passes
-  ``device="cpu"``;
+- entry points (the GPT and BERT models, the engine with and without a
+  draft, the converters, the example trainers, the OpenFold modules,
+  ``rope_tables`` and ``DevicePrefetcher``) run on the card by default
+  and raise without one, unless the caller passes ``device="cpu"``;
 - kernel wrappers launch their kernel or raise: handed CPU tensors, a
   kernel entry refuses instead of computing the plain version, and a
   kernel that cannot be built raises; a trainable attention bias on the
@@ -45,7 +45,14 @@ from apex_tpu_torch.ops.attention import flash_bwd, flash_dbias, flash_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
 from apex_tpu_torch.ops import paged_attention
-from apex_tpu_torch.serve import InferenceEngine, ServeConfig, init_kv_pages
+from apex_tpu_torch.data import DevicePrefetcher
+from apex_tpu_torch.serve import (
+    InferenceEngine,
+    ServeConfig,
+    SpecConfig,
+    init_kv_pages,
+    rope_tables,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(vocab_size=32, hidden_size=32, num_layers=1, num_heads=2,
@@ -91,6 +98,9 @@ COUNTERPARTS = (
     "transformer/tensor_parallel/cross_entropy.py",
     "contrib/openfold/evoformer.py", "parallel/comm.py", "serve/cache.py",
     "serve/model.py", "serve/engine.py", "serve/scheduler.py",
+    "serve/spec.py", "ops/xentropy.py", "ops/scaled_softmax.py",
+    "transformer/enums.py", "transformer/functional/fused_softmax.py",
+    "transformer/pipeline_parallel/schedules.py",
 )
 
 
@@ -108,7 +118,8 @@ def no_gpu(monkeypatch):
 @pytest.mark.parametrize("entry", ["model", "engine", "convert", "train",
                                    "bert_model", "bert_convert",
                                    "bert_train", "evoformer", "dap_axial",
-                                   "kv_pages"])
+                                   "kv_pages", "spec_engine", "rope_tables",
+                                   "prefetcher"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -131,6 +142,14 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             DAPAxialBlock(16, 2)
         elif entry == "kv_pages":
             init_kv_pages(1, 4, 2, 16, 8)
+        elif entry == "spec_engine":
+            InferenceEngine(cfg, GptModel(cfg, device="cpu"),
+                            ServeConfig(max_pages_per_seq=4),
+                            spec=SpecConfig(None, k=2))
+        elif entry == "rope_tables":
+            rope_tables(cfg)
+        elif entry == "prefetcher":
+            DevicePrefetcher(iter([]))
         else:
             pretrain_bert.main(["--tiny", "--steps", "1"])
 

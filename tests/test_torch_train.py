@@ -254,10 +254,22 @@ def test_remat_matches_no_remat(jax_gpt):
 
 @pytest.mark.parametrize("policy", ["dots", "sums"])
 def test_unported_remat_policies_raise(policy):
-    cfg = GptConfig(**DIMS, dtype=torch.float32, remat=True,
-                    remat_policy=policy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GptModel(cfg, device="cpu")
+    """The policies once raised here; now each builds and gives the loss
+    and gradients of ``"full"`` bit for bit (what each saves is held in
+    ``test_torch_remat.py``)."""
+    ids = torch.from_numpy(
+        np.random.RandomState(4).randint(0, DIMS["vocab_size"], (16, 2)))
+    out = []
+    for name in ("full", policy):
+        cfg = GptConfig(**DIMS, dtype=torch.float32, remat=True,
+                        remat_policy=name)
+        model = GptModel(cfg, device="cpu")
+        loss = gpt_lm_loss(model, ids)
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in model.parameters()]))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
 
 
 def test_three_training_steps_match_jax(jax_gpt):

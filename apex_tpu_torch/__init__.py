@@ -17,8 +17,9 @@ Subpackages
 - :mod:`apex_tpu_torch.models` — GPT and BERT (f32 weights, the
   training forward and losses, the remat policies) and the converters
   to and from the JAX parameter trees.
-- :mod:`apex_tpu_torch.transformer` — the cross entropy at tp = 1, the
-  enums, ``FusedScaleMaskSoftmax`` and the remat policy resolution.
+- :mod:`apex_tpu_torch.transformer` — the cross entropy and the RNG
+  tracker at tp = 1, the enums, ``FusedScaleMaskSoftmax`` and the remat
+  policy resolution.
 - :mod:`apex_tpu_torch.optimizers` — FusedAdam and FusedLAMB.
 - :mod:`apex_tpu_torch.data` — token files, the synthetic corpus, the
   sharded shuffling loader, the BERT batches and ``DevicePrefetcher``.
@@ -28,6 +29,15 @@ Subpackages
   prefix cache, inference engine (sampling, chunked prefill, the decode
   step and the speculative round as CUDA graphs) and continuous-batching
   scheduler.
+- :mod:`apex_tpu_torch.checkpoint` — step-numbered checkpoints on
+  ``torch.distributed.checkpoint`` with the commit-marker rule, and the
+  training state (params, optimizer state, step, RNG streams, stream
+  cursor) in one tree.
+- :mod:`apex_tpu_torch.goodput` — the async checkpoint engine and the
+  resumable batch stream.
+- :mod:`apex_tpu_torch.resilience` — chaos fault injection, retry, and
+  ``run_resilient`` (auto-resume, preemption, rollback).
+- :mod:`apex_tpu_torch.observability` — the lock-order sanitizer.
 - :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``.
 - :mod:`apex_tpu_torch.contrib` — the OpenFold surface: ``mha``,
   ``layer_norm``, ``DAPAxialBlock`` and the evoformer modules.
@@ -39,7 +49,8 @@ for the CPU.
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
-                    "parallel", "serve", "examples", "contrib")
+                    "parallel", "serve", "examples", "contrib", "checkpoint",
+                    "goodput", "resilience", "observability")
 
 
 def __getattr__(name):

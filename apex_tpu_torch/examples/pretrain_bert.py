@@ -12,16 +12,25 @@ through K1/K2 and every attention through K3/K4 with the key-padding
 bias.
 
     python -m apex_tpu_torch.examples.pretrain_bert --steps 8 --batch 128
+    # checkpoint every 2 steps, then resume from the newest checkpoint:
+    python -m apex_tpu_torch.examples.pretrain_bert --steps 4 --ckpt-dir D --save-every 2
+    python -m apex_tpu_torch.examples.pretrain_bert --steps 8 --ckpt-dir D --resume
     # tiny f32 run on the CPU (the plain PyTorch versions):
     python -m apex_tpu_torch.examples.pretrain_bert --tiny --device cpu --steps 3
 
 Without ``--data`` it trains on a synthetic zipf corpus (ids 1000 and
 up) that it writes once into the temporary directory.  ``--tiny`` is the
 CPU configuration (f32, head dim 16): the card's flash kernels take
-bf16 and head dim 64.  The JAX example's ``--chunk`` (steps per jitted
-scan) has no counterpart in eager PyTorch; checkpointing and data
-parallelism are not ported yet (``--ckpt-dir`` and ``--resume`` raise).
-:func:`train_step` trains with dropout when it is given a generator.
+bf16 and head dim 64.  With ``--ckpt-dir`` the run saves the params, the
+LAMB state and the step count through :class:`CheckpointManager`
+(``max_to_keep=2``, every ``--save-every`` steps, a checkpoint's number
+being the steps done); ``--resume`` restores the newest one in place,
+seeks the batch stream to it (``bert_mlm_batches(start_step=...)``) and
+trains on up to ``--steps``, so the resumed steps are an uninterrupted
+run's, bit for bit.  The JAX example's ``--chunk`` (steps per jitted
+scan) has no counterpart in eager PyTorch; data parallelism is not
+ported yet.  :func:`train_step` trains with dropout when it is given a
+generator.
 """
 
 from __future__ import annotations
@@ -35,6 +44,12 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
+from apex_tpu_torch.checkpoint import (
+    CheckpointManager,
+    latest_step,
+    restore_training_state,
+    snapshot_training_state,
+)
 from apex_tpu_torch.data import (
     DataLoader,
     DevicePrefetcher,
@@ -47,10 +62,12 @@ from apex_tpu_torch.models.bert import (
     BertForPreTraining,
     bert_pretrain_loss,
 )
+from apex_tpu_torch.models.convert import load_optimizer_state, optimizer_state
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.optimizers import FusedLAMB
 
-__all__ = ["TrainRun", "build", "main", "parse_args", "train", "train_step"]
+__all__ = ["MLMBatches", "TrainRun", "build", "main", "parse_args", "train",
+           "train_step", "training_state"]
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -65,8 +82,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--max-predictions-per-seq", type=int, default=20,
                    help="fixed-K masked-position MLM head (0 = dense labels "
                    "over all positions)")
-    p.add_argument("--ckpt-dir", default=None)
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--ckpt-dir", default=None, help="checkpoint directory")
+    p.add_argument("--save-every", type=int, default=8,
+                   help="checkpoint every N steps")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest checkpoint in --ckpt-dir")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -91,54 +111,100 @@ def corpus(args, vocab: int) -> str:
     )
 
 
-def batch_stream(args, cfg: BertConfig, device) -> Iterator[Dict]:
-    """Endless batch dicts on ``device``, prefetched two ahead by a
-    :class:`DevicePrefetcher`.  With the fixed-K triple the dense labels
-    are dropped: the loss reads only the triple."""
-    ds = TokenFileDataset(corpus(args, cfg.vocab_size), seq_len=args.seq_len)
-    loader = DataLoader(ds, batch_size=args.batch, seed=1234)
-    stream = bert_mlm_batches(
-        loader, seed=42, mask_prob=0.15, mask_id=103,
-        vocab_size=cfg.vocab_size, special_floor=1000,
-        max_predictions_per_seq=args.max_predictions_per_seq or None,
-    )
-    if args.max_predictions_per_seq:
-        stream = ({k: v for k, v in b.items() if k != "mlm_labels"}
-                  for b in stream)
-    return DevicePrefetcher(stream, device=device, depth=2)
+class MLMBatches:
+    """The example's batches as a loader: ``iter_from(step)`` yields the
+    batch dicts of :func:`bert_mlm_batches` from global step ``step`` on
+    (the MLM corruption keyed by step), with the dense labels dropped
+    under the fixed-K triple; the identity fields
+    (:func:`apex_tpu_torch.goodput.stream_state`) are the token
+    loader's.  A :class:`~apex_tpu_torch.goodput.ResumableStream` over it
+    serves ``run_resilient``."""
+
+    def __init__(self, args, cfg: BertConfig):
+        ds = TokenFileDataset(corpus(args, cfg.vocab_size),
+                              seq_len=args.seq_len)
+        self.tokens = DataLoader(ds, batch_size=args.batch, seed=1234)
+        self.vocab_size = cfg.vocab_size
+        self.k = args.max_predictions_per_seq
+
+    def __getattr__(self, name):  # seed, rank, world, batch_size, ...
+        return getattr(self.__dict__["tokens"], name)
+
+    def iter_from(self, step: int = 0) -> Iterator[Dict]:
+        stream = bert_mlm_batches(
+            self.tokens, seed=42, mask_prob=0.15, mask_id=103,
+            vocab_size=self.vocab_size, special_floor=1000,
+            start_step=step, max_predictions_per_seq=self.k or None,
+        )
+        if self.k:
+            return ({k: v for k, v in b.items() if k != "mlm_labels"}
+                    for b in stream)
+        return stream
+
+
+def batch_stream(args, cfg: BertConfig, device, start_step: int = 0
+                 ) -> DevicePrefetcher:
+    """Batch dicts on ``device`` from global step ``start_step`` on,
+    prefetched two ahead by a :class:`DevicePrefetcher`.  With the
+    fixed-K triple the dense labels are dropped: the loss reads only the
+    triple."""
+    return DevicePrefetcher(MLMBatches(args, cfg).iter_from(start_step),
+                            device=device, depth=2)
+
+
+def training_state(model: BertForPreTraining, opt: FusedLAMB, step: int
+                   ) -> dict:
+    """The checkpointed tree: the parameters and the LAMB state as the
+    live tensors (a restore with this tree as the template loads them
+    back in place), the LAMB count and ``step`` (steps done)."""
+    return snapshot_training_state(
+        {k: p.detach() for k, p in model.named_parameters()},
+        optimizer_state(opt, model), step=step)
 
 
 @dataclasses.dataclass
 class TrainRun:
     """What :func:`train` did: the per-step losses and host seconds (the
-    device synchronised before and after each step), and the state to go
-    on from."""
+    device synchronised before and after each step) of the steps it ran,
+    the checkpoint step it resumed from (None on a fresh start), and the
+    state to go on from.  :meth:`close` stops the batch prefetcher."""
 
     cfg: BertConfig
     model: BertForPreTraining
     optimizer: FusedLAMB
-    batches: Iterator[Dict[str, torch.Tensor]]
+    batches: DevicePrefetcher
     losses: List[float]
     step_seconds: List[float]
     sequences_per_step: int
     tokens_per_step: int
+    resumed_from: Optional[int] = None
+    checkpoints: Optional[List[int]] = None
+
+    def close(self) -> None:
+        self.batches.close()
 
 
 def build(args):
-    """``(cfg, model, optimizer, batches)``: the model (seed 0) on
-    ``args.device``, FusedLAMB, and the endless batch stream."""
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP item 3); the example "
-            "trains from a fresh seeded model"
-        )
+    """``(cfg, model, optimizer, batches, start_step)``: the model (seed 0)
+    on ``args.device`` and FusedLAMB, restored in place from the newest
+    checkpoint of ``--ckpt-dir`` under ``--resume`` (``start_step`` its
+    steps done, else 0), and the batch stream from ``start_step`` on."""
     if args.max_predictions_per_seq < 0:
         raise ValueError("--max-predictions-per-seq must be >= 0")
+    if args.save_every < 1:
+        raise ValueError("--save-every must be >= 1")
     dev = resolve_device(args.device)
     cfg = config(args)
     model = BertForPreTraining(cfg, device=dev)  # weights seeded with 0
     opt = FusedLAMB(model.parameters(), lr=args.lr, weight_decay=0.01)
-    return cfg, model, opt, batch_stream(args, cfg, dev)
+    start_step = 0
+    if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        with CheckpointManager(args.ckpt_dir) as mgr:
+            restored = mgr.restore(template=training_state(model, opt, 0))
+        _, opt_state, start_step, _, _ = restore_training_state(restored)
+        load_optimizer_state(opt, model, opt_state)
+        print(f"resumed from step {start_step} ({args.ckpt_dir})", flush=True)
+    return cfg, model, opt, batch_stream(args, cfg, dev, start_step), start_step
 
 
 def train_step(model: BertForPreTraining, opt: FusedLAMB,
@@ -161,29 +227,48 @@ def _sync(device: torch.device) -> None:
 
 
 def train(args) -> TrainRun:
-    cfg, model, opt, batches = build(args)
+    cfg, model, opt, batches, start = build(args)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"BERT {n_params / 1e6:.1f}M params | device={model.device} "
           f"batch={args.batch} seq_len={args.seq_len} remat={cfg.remat} "
           f"K={args.max_predictions_per_seq}", flush=True)
+    mgr = (CheckpointManager(args.ckpt_dir, max_to_keep=2,
+                             save_interval_steps=args.save_every)
+           if args.ckpt_dir else None)
     losses, seconds = [], []
-    for step in range(args.steps):
-        batch = next(batches)
-        _sync(model.device)
-        t0 = time.perf_counter()
-        loss = train_step(model, opt, batch)
-        losses.append(float(loss))
-        _sync(model.device)
-        seconds.append(time.perf_counter() - t0)
-        print(f"step {step}: loss {losses[-1]:.4f} "
-              f"{seconds[-1] * 1e3:.1f} ms", flush=True)
+    try:
+        for step in range(start, args.steps):
+            batch = next(batches)
+            _sync(model.device)
+            t0 = time.perf_counter()
+            loss = train_step(model, opt, batch)
+            losses.append(float(loss))
+            _sync(model.device)
+            seconds.append(time.perf_counter() - t0)
+            print(f"step {step}: loss {losses[-1]:.4f} "
+                  f"{seconds[-1] * 1e3:.1f} ms", flush=True)
+            if mgr is not None:
+                mgr.save(step + 1, training_state(model, opt, step + 1))
+    except BaseException:
+        batches.close()
+        raise
+    if start >= args.steps:
+        print(f"nothing to do: resumed step {start} >= --steps {args.steps}",
+              flush=True)
+    steps = None
+    if mgr is not None:
+        steps = mgr.all_steps()
+        print(f"checkpoints at steps {steps} in {args.ckpt_dir}", flush=True)
     return TrainRun(cfg, model, opt, batches, losses, seconds, args.batch,
-                    args.batch * args.seq_len)
+                    args.batch * args.seq_len,
+                    start if args.resume and start else None, steps)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:
-    """Parse ``argv``, train, and return the per-step losses."""
-    return train(parse_args(argv)).losses
+    """Parse ``argv``, train, and return the losses of the steps run."""
+    run = train(parse_args(argv))
+    run.close()
+    return run.losses
 
 
 if __name__ == "__main__":

@@ -228,9 +228,34 @@ class BertLayer(nn.Module):
         return apply_layer_norm(x, self.ln_mlp, cfg.layer_norm_eps)
 
 
+class _TypeEmbedding(torch.autograd.Function):
+    """``F.embedding`` of the token types, with a backward that sums the
+    output gradient over the tokens of each type (one reduction per row
+    of the table) instead of CUDA's ``embedding_dense_backward``: with
+    every token of a batch in one of two rows, that backward's sum came
+    out different in the last bits between two identical runs on an H100
+    (3.7e-9 in ``token_type_embeddings`` after 8 BERT-Large steps,
+    ``chip_smoke.py`` phase 14), so a resumed run could not equal an
+    uninterrupted one bit for bit.  The reductions run in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        flat = ids.reshape(-1, 1)
+        return None, torch.stack([torch.where(flat == k, g, 0.0).sum(0)
+                                  for k in range(ctx.rows)])
+
+
 class BertEmbeddings(nn.Module):
     """Word (f32 table, looked up then cast), learned position and token
-    type embeddings, LayerNorm."""
+    type embeddings (:class:`_TypeEmbedding`), LayerNorm."""
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
@@ -259,8 +284,8 @@ class BertEmbeddings(nn.Module):
         if cfg.type_vocab_size:
             tt = (torch.zeros_like(input_ids) if token_type_ids is None
                   else token_type_ids)
-            x = x + F.embedding(tt.long(),
-                                self.token_type_embeddings).to(cfg.dtype)
+            x = x + _TypeEmbedding.apply(
+                tt.long(), self.token_type_embeddings).to(cfg.dtype)
         return apply_layer_norm(x, self.ln, cfg.layer_norm_eps)
 
 

@@ -19,6 +19,14 @@ is the one place the layout changes.  The fused QKV output keeps its
 transpose.  Both sides hold f32, so the weights cross exactly in both
 directions.
 
+Optimizer state: the JAX ``fused_lamb`` / ``fused_adam`` states
+(``count`` and the moments ``m``, ``v``, trees of the params' layout)
+convert through the same leaf mapping into the port's
+:class:`FusedLAMBState` / :class:`FusedAdamState`, and
+:func:`load_optimizer_state` puts either into a stateful
+:class:`FusedLAMB` / :class:`FusedAdam`, so a JAX training state
+restored to numpy continues in the port.
+
 OpenFold (``apex_tpu_torch.contrib.openfold``): the JAX module tree of
 any ported evoformer module (``Module.init`` of ``EvoformerBlock``,
 ``TriangleAttention``, ``DAPAxialBlock``, ...) maps name for name onto
@@ -37,14 +45,20 @@ import torch
 
 from apex_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from apex_tpu_torch.models.gpt import GptConfig, GptModel
+from apex_tpu_torch.ops._dispatch import resolve_device
+from apex_tpu_torch.optimizers import FusedAdamState, FusedLAMBState
 
 __all__ = [
+    "adam_state_from_jax",
     "bert_from_jax_params",
+    "bert_lamb_state_from_jax",
     "bert_to_jax_params",
     "evoformer_from_jax_params",
     "evoformer_to_jax_params",
     "from_jax_params",
     "gpt_param_tree",
+    "load_optimizer_state",
+    "optimizer_state",
     "to_jax_params",
 ]
 
@@ -189,11 +203,10 @@ def _put(tree, path, value):
     tree[path[-1]] = value
 
 
-def bert_from_jax_params(params_np: Mapping, cfg: BertConfig, *,
-                         device="cuda") -> BertForPreTraining:
-    """A :class:`BertForPreTraining` on ``device`` holding the JAX tree's
-    f32 weights exactly; the tree may be scanned or unrolled."""
-    model = BertForPreTraining(cfg, device=device)
+def _bert_state_dict_from_jax(params_np: Mapping, cfg: BertConfig) -> dict:
+    """The port's ``state_dict`` (f32 CPU tensors) for a JAX BERT tree,
+    scanned or unrolled: the parameters, or any tree of their layout (the
+    LAMB moments)."""
     tree = params_np["params"]
     encoder = tree["bert"]["encoder"]
 
@@ -209,7 +222,16 @@ def bert_from_jax_params(params_np: Mapping, cfg: BertConfig, *,
             else:
                 leaf = _get(encoder[f"layer_{i}"]["layer"], path)
             sd[f"bert.encoder.layers.{i}.{name}"] = t(leaf, tr)
-    model.load_state_dict(sd, strict=True)
+    return sd
+
+
+def bert_from_jax_params(params_np: Mapping, cfg: BertConfig, *,
+                         device="cuda") -> BertForPreTraining:
+    """A :class:`BertForPreTraining` on ``device`` holding the JAX tree's
+    f32 weights exactly; the tree may be scanned or unrolled."""
+    model = BertForPreTraining(cfg, device=device)
+    model.load_state_dict(_bert_state_dict_from_jax(params_np, cfg),
+                          strict=True)
     return model
 
 
@@ -309,3 +331,89 @@ def evoformer_to_jax_params(
         out = tensors[name].detach().float().cpu().numpy()
         _put(tree, path, out.T if transpose else out)
     return {"params": tree}
+
+
+# ---------------------------------------------------------------------------
+# optimizer state: the JAX FusedLAMB / FusedAdam states, the stateful
+# optimizers' state
+# ---------------------------------------------------------------------------
+
+
+def _moments(opt_state_np):
+    """``(count, m, v)`` of a JAX ``FusedLAMBState`` / ``FusedAdamState``:
+    the NamedTuple itself, or what a checkpoint restores it as (a dict of
+    its fields, or a sequence in field order)."""
+    if hasattr(opt_state_np, "_fields"):
+        return opt_state_np.count, opt_state_np.m, opt_state_np.v
+    if isinstance(opt_state_np, Mapping):
+        return opt_state_np["count"], opt_state_np["m"], opt_state_np["v"]
+    count, m, v = opt_state_np
+    return count, m, v
+
+
+def bert_lamb_state_from_jax(opt_state_np, cfg: BertConfig, *,
+                             device="cuda") -> FusedLAMBState:
+    """The JAX ``fused_lamb`` state of a BERT (``count`` and the f32
+    moments ``m``, ``v`` over the params tree, as numpy) as the port's
+    :class:`FusedLAMBState`, the moments keyed by parameter name (the
+    leaf mapping of :func:`bert_from_jax_params`) on ``device``."""
+    dev = resolve_device(device)
+    count, m, v = _moments(opt_state_np)
+    return FusedLAMBState(
+        count=int(np.asarray(count)),
+        m={k: t.to(dev) for k, t in _bert_state_dict_from_jax(m, cfg).items()},
+        v={k: t.to(dev) for k, t in _bert_state_dict_from_jax(v, cfg).items()},
+    )
+
+
+def adam_state_from_jax(opt_state_np, cfg: GptConfig, *,
+                        device="cuda") -> FusedAdamState:
+    """The JAX ``fused_adam`` state of a GPT as the port's
+    :class:`FusedAdamState`, the moments keyed by parameter name (the
+    leaf mapping of :func:`from_jax_params`) on ``device``."""
+    dev = resolve_device(device)
+    count, m, v = _moments(opt_state_np)
+    return FusedAdamState(
+        count=int(np.asarray(count)),
+        m={k: t.to(dev) for k, t in _state_dict_from_jax(m, cfg).items()},
+        v={k: t.to(dev) for k, t in _state_dict_from_jax(v, cfg).items()},
+    )
+
+
+def optimizer_state(optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module) -> dict:
+    """A stateful :class:`FusedLAMB` / :class:`FusedAdam`'s state as a
+    tree keyed by ``model``'s parameter names: ``{"count": steps taken,
+    "m": {name: tensor}, "v": {name: tensor}}``, the live moment tensors
+    (zeros created for a parameter that has none yet, as its first step
+    would), so a checkpoint restore with this tree as the template loads
+    them in place."""
+    for p in model.parameters():
+        if not optimizer.state[p]:
+            optimizer.state[p]["m"] = torch.zeros_like(p, dtype=torch.float32)
+            optimizer.state[p]["v"] = torch.zeros_like(p, dtype=torch.float32)
+    named = list(model.named_parameters())
+    return {"count": int(optimizer.param_groups[0]["step"]),
+            "m": {k: optimizer.state[p]["m"] for k, p in named},
+            "v": {k: optimizer.state[p]["v"] for k, p in named}}
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module, state) -> None:
+    """Set a stateful :class:`FusedLAMB` / :class:`FusedAdam` to ``state``
+    (a :class:`FusedLAMBState` / :class:`FusedAdamState`, or the tree of
+    :func:`optimizer_state`): every group's step count and each
+    parameter's f32 moments, copied in place (a moment that already is
+    the live tensor is left as it is)."""
+    count, m, v = _moments(state)
+    for group in optimizer.param_groups:
+        group["step"] = int(count)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            slot = optimizer.state[p]
+            for key, src in (("m", m[name]), ("v", v[name])):
+                dst = slot.get(key)
+                if dst is None:
+                    slot[key] = dst = torch.zeros_like(p, dtype=torch.float32)
+                if dst is not src:
+                    dst.copy_(src)

@@ -1,0 +1,44 @@
+"""Fault tolerance — make a run survive what production throws at it
+(counterpart of :mod:`apex_tpu.resilience`).
+
+- :mod:`apex_tpu_torch.resilience.chaos` — deterministic, seedable fault
+  injection (the reference's sites, spec grammar and coin), driven from
+  tests or the ``APEX_TPU_CHAOS`` env var.
+- :mod:`apex_tpu_torch.resilience.retry` — bounded-backoff retry for
+  checkpoint I/O.
+- :mod:`apex_tpu_torch.resilience.runner` — ``run_resilient``:
+  SIGTERM-safe training loop with ``latest_step()`` auto-resume and
+  skip-budget rollback to the last complete checkpoint.
+
+Not yet ported: ``guards`` (the guarded amp update, with the amp scaler:
+ROADMAP item 10) and ``robust_initialize_distributed`` (multi-process
+runs: item 5).
+"""
+
+from apex_tpu_torch.resilience import chaos  # noqa: F401
+from apex_tpu_torch.resilience.retry import (  # noqa: F401
+    RetryPolicy,
+    add_retry_listener,
+    remove_retry_listener,
+    retry_call,
+)
+from apex_tpu_torch.resilience.runner import (  # noqa: F401
+    ObserverFanout,
+    PreemptionHandler,
+    ResilientCheckpointManager,
+    RunResult,
+    run_resilient,
+)
+
+__all__ = [
+    "chaos",
+    "RetryPolicy",
+    "add_retry_listener",
+    "remove_retry_listener",
+    "retry_call",
+    "ObserverFanout",
+    "PreemptionHandler",
+    "ResilientCheckpointManager",
+    "RunResult",
+    "run_resilient",
+]

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-thirteen phases; any failure raises and the exit code is non-zero.  Without
+fourteen phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -147,13 +147,29 @@ a CUDA device it exits non-zero at once and prints no result.
     round, host and device ms and launches per round and decode tokens/s
     beside phase 2's.
 
+14. Checkpoints, preemption and resume: BERT-Large at phase 8's
+    configuration.  Two uninterrupted 8-step runs of the example agree
+    bit for bit; ``--steps 4 --ckpt-dir D --save-every 2`` leaves steps
+    2 and 4, and ``--resume --steps 8`` resumes at 4 with exact K1-K4
+    counts, its losses, params and LAMB state equal to the uninterrupted
+    run's bit for bit.  ``run_resilient`` with dropout (seeds from the
+    RNG tracker), a ``ResumableStream`` and the async engine saving every
+    2 steps, under a save fault at 2, partial debris at 4 and a SIGTERM
+    at 5: preempted at 5, resumed at 5 to 8, equal to an uninterrupted
+    dropout run bit for bit (weights, LAMB state, generator state), the
+    events the schedule's.  Then the costs: checkpoint bytes, the step
+    path's ms per save, the write's and the restore's ms, the engine's
+    stall fraction, and the median step saving every 2 steps beside none.
+    It needs 16 GB of free disk under the temporary directory.
+
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
 trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 7 and 9 also run the card under the remat policies, whose losses and
 gradients must be equal bit for bit.
 
-The phases run in the order 1, 2, 3, 12, 13, 6, 7, 8, 9, 10, 11, 4, 5.
+The phases run in the order 1, 2, 3, 12, 13, 6, 7, 8, 9, 14, 10, 11, 4,
+5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -177,6 +193,13 @@ as refused and left out.
 
 runs phase 1 alone (every kernel against its plain version) and prints
 the errors as one JSON line: the quick check of a kernel's first build.
+
+    python3 chip_smoke.py --resilience
+
+runs phase 14 alone (with the kernels' build) and prints it as one JSON
+line.  ``--seed N`` seeds phase 1's generator (default 0): phase 1 on
+other seeds shows the margins of its limits, K5 f32's dbias limit (C7)
+among them.
 
     python3 chip_smoke.py --serving
 
@@ -226,7 +249,8 @@ F32_TOL = dict(atol=1e-3, rtol=1e-4)
 #: kernel on bf16 or TF32 tensor cores would compute): phase 1 checks that
 #: each f32 case's control fails this limit.  The limit sits between the
 #: two, about a factor of 20 from each on an H100: phase 1 logs both
-#: readings as "worst err/allowance" (PERF.md).
+#: readings as "worst err/allowance" (PERF.md).  K5's dbias adds a term
+#: that grows with the sums it cancels (``K5_F32_SUMS_C``, ROADMAP C7).
 F32_ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 #: K2's dw/db: f32 sums over up to 65536 rows (|sum| up to ~1000) taken
 #: in another order (per-CTA partials, then torch.sum)
@@ -1208,6 +1232,118 @@ def f32_control(tag, names, ref, bad):
             f"{tag}: F32_ATTN_TOL does not reject TF32 products by 10x")
 
 
+#: K5 f32's dbias limit (ROADMAP C7): dbias = p·(dp - delta) cancels two
+#: sums of D products down to about 1, so the summation error of the
+#: kernel and of its twin grows with the magnitude of those sums, not
+#: with |dbias|.  The allowance of element (i, j) adds to F32_ATTN_TOL
+#: ``K5_F32_SUMS_C · 2^-23 · t_ij``, ``t_ij = p_ij · (Σ_d |dO_id·v_jd|·D_ij
+#: + Σ_d |dO_id·o_id|)`` (D_ij the dropout scale, 1 without dropout); where
+#: dbias sums a group's members (G < BH, or RS = 1) the members' t are
+#: summed in quadrature, as their independent rounding errors add
+#: (:func:`k5_f32_sums`).  Readings on an H100 (NVIDIA H100 80GB HBM3,
+#: 700.00 W), phase 1 with seeds 0, 1 and 2, the 13 f32 cases with a
+#: bias (D 64-384, the triangle and MSA row shapes): at c = 16 the sound
+#: kernel reads at most 0.118 of its allowance (D = 384) and the TF32
+#: control at least 29.5 times it (D = 320); the worst sound case needs c
+#: >= 0.675 to read 0.5 and the weakest control stays above 10 up to c =
+#: 62.1, so c = 16 sits between them (4.2x from the sound side, 2.9x from
+#: the control's).  The fixed F32_ATTN_TOL alone read up to 1.717 (seed
+#: 1, D = 320, S_k 37) and the control at least 118.6.  The window's
+#: edges are read with ``--seed N`` (:func:`k5_f32_readings`).
+K5_F32_SUMS_C = 16.0
+#: set by ``--seed``: phase 1 also reads, per f32 case, the c at which
+#: the sound reading would be 0.5 and the control's 10
+K5_F32_WINDOW = False
+
+
+def k5_f32_sums(q, k, v, do, m, l, bias, do_o, *, scale, causal, dropout_p,
+                seed):
+    """The twin's ``t = p_ij · (Σ_d |dO_id·v_jd|·D_ij + Σ_d |dO_id·o_id|)``
+    (``do_o`` = Σ_d |dO_id·o_id| from the twin's o), causally masked,
+    summed in quadrature (sqrt of the sum of squares) into dbias's (G,
+    RS, Sk) layout as ``flash_dbias_reference`` sums ds; f32 on the
+    card."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    s = attn._flat_scores(q, k, bias, causal, scale)
+    t = torch.exp(s - m.float()[..., None]) / l.float()[..., None]
+    del s
+    dpa = torch.einsum("...qd,...kd->...qk", do.float().abs(),
+                       v.float().abs())
+    if dropout_p > 0.0:
+        keep = attn.dropout_keep_mask(seed, dpa.shape, dropout_p)
+        dpa = torch.where(keep, dpa / (1.0 - dropout_p), 0.0)
+    t = t * (dpa + do_o.float()[..., None])
+    del dpa
+    sq, sk = t.shape[-2:]
+    if causal:
+        t = t.masked_fill(~attn._causal_mask(sq, sk, t.device), 0.0)
+    g, rs, _ = bias.shape
+    t = (t * t).reshape(g, -1, sq, sk).sum(dim=1)
+    return (t.sum(dim=1, keepdim=True) if rs == 1 else t).sqrt()
+
+
+def k5_f32_readings(err, ref, sums):
+    """Readings of one dbias error against the C7 allowance: the worst
+    err/allowance at ``K5_F32_SUMS_C`` (``at_c``) and under F32_ATTN_TOL
+    alone (``fixed``, the old limit); with :data:`K5_F32_WINDOW`, also
+    the c at which the worst ratio would be 0.5 and 10 (bisection; inf
+    where no c reaches it)."""
+    base = F32_ATTN_TOL["atol"] + F32_ATTN_TOL["rtol"] * ref.abs()
+    term = sums * 2.0 ** -23
+
+    def ratio(c):
+        return float((err / (base + c * term)).max())
+
+    def c_at(target):
+        if ratio(0.0) <= target:
+            return 0.0
+        lo, hi = 0.0, 1e9
+        if ratio(hi) > target:
+            return float("inf")
+        for _ in range(80):
+            mid = (lo + hi) / 2
+            lo, hi = (mid, hi) if ratio(mid) > target else (lo, mid)
+        return hi
+
+    out = {"fixed": ratio(0.0), "at_c": ratio(K5_F32_SUMS_C)}
+    if K5_F32_WINDOW:
+        out.update({"c_for_0.5": c_at(0.5), "c_for_10": c_at(10.0)})
+    return out
+
+
+def check_k5_f32(tag, out, ref, bad, sums):
+    """K5 f32's dbias against its twin under the C7 allowance (F32_ATTN_TOL
+    plus ``K5_F32_SUMS_C`` times the quadrature term), and the TF32
+    control ``bad`` against the same allowance: the sound reading must
+    stay at or below 1 and the control's above 10.  Logs both readings,
+    with the old fixed limit's beside them, and returns (max |out - ref|,
+    the readings)."""
+    import torch
+
+    out, ref, bad = out.float(), ref.float(), bad.float()
+    err = (out - ref).abs()
+    sound = k5_f32_readings(err, ref, sums)
+    control = k5_f32_readings((bad - ref).abs(), ref, sums)
+    ok = bool(torch.isfinite(out).all()) and sound["at_c"] <= 1.0
+    window = (f"; c for 0.5: {sound['c_for_0.5']:.3g}, c for 10: "
+              f"{control['c_for_10']:.3g}" if K5_F32_WINDOW else "")
+    log(f"  K5 {tag} dbias: max_abs_err={float(err.max()):.3e} worst "
+        f"err/allowance {sound['at_c']:.3e} at c={K5_F32_SUMS_C:g} (fixed "
+        f"F32_ATTN_TOL {sound['fixed']:.3e}) {'ok' if ok else 'FAIL'}; "
+        f"TF32 control {control['at_c']:.1f} (fixed {control['fixed']:.1f}) "
+        f"{'ok' if control['at_c'] > 10.0 else 'FAIL'}{window}")
+    if not ok:
+        raise AssertionError(f"K5 {tag} dbias disagrees with its twin")
+    if not control["at_c"] > 10.0:
+        raise AssertionError(
+            f"K5 {tag}: the C7 allowance does not reject TF32 products by "
+            f"10x")
+    return float(err.max()), {"sound": sound, "control": control}
+
+
 def phase1_head_dims(gen):
     """K3, K4 and K5 at the head dims past the main paths' 32 and 64, and
     their f32 instances, against the twins on the same inputs and seed
@@ -1221,7 +1357,8 @@ def phase1_head_dims(gen):
     without a bias, causal and not, with dropout, a bias whose S_k is no
     multiple of 4, and the evoformer's three shapes (triangle, MSA row,
     MSA column) at full size, which phase 10's f32 run gives them; o, lse,
-    m, l, dq, dk, dv and dbias under F32_ATTN_TOL, and each kernel's TF32
+    m, l, dq, dk, dv under F32_ATTN_TOL and dbias under the C7 allowance
+    (:func:`check_k5_f32`), and each kernel's TF32
     control (:func:`f32_control`) failing it.  Returns the first D = 128
     case's and the first f32 case's errors for the kernels line."""
     import torch
@@ -1230,7 +1367,7 @@ def phase1_head_dims(gen):
 
     log("phase 1: K3/K4/K5 at D = 128, 256, 384 and padded head dims, and "
         "their f32 instances, against their twins")
-    errs = {}
+    errs, k5_limits = {}, {}
     for tag, bh, sq, sk, d, causal, layout, p in HEAD_DIM_CASES + F32_CASES:
         f32 = tag.startswith("f32")
         if f32:  # full f32: no value that bf16 or TF32 holds exactly
@@ -1260,6 +1397,7 @@ def phase1_head_dims(gen):
             check_repeat("K3 " + tag, out, attn.flash_fwd(q, k, v, bias, **kw))
         o, _, m, l = ref
         delta = (do.float() * o.float()).sum(-1)
+        do_o = (do.float() * o.float()).abs().sum(-1)
         args = (q, k, v, do, m, l, delta, bias)
         del ref, out, o
         out = attn.flash_bwd(*args, **kw)
@@ -1277,11 +1415,11 @@ def phase1_head_dims(gen):
         e5 = None
         if bias is not None and f32:
             ref = attn.flash_dbias_reference(*args, **kw)
-            e5 = compare(f"K5 {tag} dbias", attn.flash_dbias(*args, **kw),
-                         ref, F32_ATTN_TOL)
-            f32_control("K5 " + tag, ("dbias",), (ref,),
-                        (tf32_twin(attn.flash_dbias_reference, *args, **kw),))
-            del ref
+            sums = k5_f32_sums(q, k, v, do, m, l, bias, do_o, **kw)
+            e5, k5_limits[tag] = check_k5_f32(
+                tag, attn.flash_dbias(*args, **kw), ref,
+                tf32_twin(attn.flash_dbias_reference, *args, **kw), sums)
+            del ref, sums
         elif bias is not None:
             e5 = check_k5("K5 " + tag, attn.flash_dbias(*args, **kw),
                           attn.flash_dbias_reference(*args, **kw))
@@ -1291,8 +1429,9 @@ def phase1_head_dims(gen):
             errs[f"flash_bwd{suffix}"] = max(e4)
         if e5 is not None and f"flash_dbias{suffix}" not in errs:
             errs[f"flash_dbias{suffix}"] = e5
-        del args, q, k, v, do, m, l, delta, bias
+        del args, q, k, v, do, m, l, delta, do_o, bias
         torch.cuda.empty_cache()
+    errs["k5_f32_limits"] = k5_limits
     return errs
 
 
@@ -3896,6 +4035,443 @@ def phase9():
 
 
 # ---------------------------------------------------------------------------
+# phase 14: checkpoints, preemption and bit-exact resume of BERT-Large
+# ---------------------------------------------------------------------------
+
+
+#: phase 14's runs: phase 8's configuration, 8 steps, a checkpoint every
+#: 2; the drill's chaos spec (a save that fails once at step 2, partial
+#: debris then a failure at 4, SIGTERM while step 5 runs)
+RES_STEPS = 8
+RES_SAVE_EVERY = 2
+RES_SPEC = ("checkpoint_save:raise:x1@2;checkpoint_save:partial:x1@4;"
+            "preemption@5")
+RES_SEED = 1234
+RES_TIMING_STEPS = 10
+#: one BERT-Large checkpoint is ~4.0 GB (336.2 M f32 params and LAMB's
+#: f32 m and v); each part of phase 14 keeps at most two steps plus one
+#: staging directory (~12 GB; (b)'s partial debris is smaller than a
+#: step) and removes its directory before the next part starts: phase
+#: 14 refuses to start below this
+RES_DISK_BYTES = 16e9
+
+
+def _bert_final_state(model, opt):
+    """CPU copies of the params, LAMB's m and v (by parameter name) and
+    its step count."""
+    from apex_tpu_torch.models.convert import optimizer_state
+
+    tree = optimizer_state(opt, model)
+    return {"params": {k: p.detach().cpu() for k, p in
+                       model.named_parameters()},
+            "m": {k: t.cpu() for k, t in tree["m"].items()},
+            "v": {k: t.cpu() for k, t in tree["v"].items()},
+            "count": tree["count"]}
+
+
+def _same_state(tag, a, b):
+    """Bit-for-bit equality of two :func:`_bert_final_state`s (raises with
+    the first leaf that differs)."""
+    import torch
+
+    if a["count"] != b["count"]:
+        raise AssertionError(f"{tag}: LAMB count {a['count']} != "
+                             f"{b['count']}")
+    differ = [f"{part} {k} (max |diff| "
+              f"{float((t.float() - b[part][k].float()).abs().max()):.3e})"
+              for part in ("params", "m", "v") for k, t in a[part].items()
+              if not torch.equal(t, b[part][k])]
+    if differ:
+        raise AssertionError(f"{tag}: {len(differ)} leaves differ: "
+                             + "; ".join(differ))
+
+
+class _Events:
+    """run_resilient's observer: every event in order, and the async
+    engine's phase records."""
+
+    def __init__(self):
+        self.events, self.phases = [], []
+
+    def on_step(self, step, skipped, info):
+        self.events.append(("step", step))
+
+    def on_retry(self, what, attempt, error):
+        self.events.append(("retry", what, attempt, type(error).__name__))
+
+    def on_resume(self, step):
+        self.events.append(("resume", step))
+
+    def on_preempt(self, step):
+        self.events.append(("preempt", step))
+
+    def on_rollback(self, *args):
+        self.events.append(("rollback",) + args)
+
+    def on_checkpoint(self, step, info=None):
+        if info is None:
+            self.events.append(("checkpoint", step))
+        else:
+            self.phases.append(info)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase14():
+    """Checkpoint, preemption and resume of ``BertConfig(remat=True)``
+    (phase 8's configuration: batch 128 x 128, 20 MLM predictions,
+    FusedLAMB) on the card, every run compared bit for bit:
+
+    (a) the example: two uninterrupted 8-step runs (they must agree: the
+        card's step is reproducible), then ``--steps 4 --ckpt-dir D
+        --save-every 2`` (leaves steps 2 and 4) and ``--resume --steps
+        8``: it resumes at 4, its losses, params and LAMB m, v and count
+        equal the uninterrupted run's, and its K1-K4 launches are 4
+        steps' (the counters zeroed before it, read after it);
+    (b) ``run_resilient`` on the same step with dropout 0.1 (the seeds
+        drawn from the RNG tracker's generator), fed by a
+        ``ResumableStream`` over the example's MLM batches (keyed by
+        step, prefetched onto the card), the async engine saving every 2
+        steps under ``RES_SPEC``: the first call is preempted after step
+        5 with a final checkpoint at 5, the partial save's debris on disk
+        and invisible; the second call resumes at 5 and runs to 8, and
+        its weights, LAMB state and generator state equal an
+        uninterrupted dropout run's; the events are the schedule's (a
+        retry at each faulted save, the preemption, the resume), the
+        stream reseeked once (back to 0 after the reference run; the
+        resume continues it), the SIGTERM handler is restored;
+    (c) the costs: checkpoint bytes, the step path's ms per save
+        (snapshot + enqueue), the background write's ms, the restore's
+        ms, the engine's stall fraction, and the median step with a save
+        every 2 steps beside the same loop without saving."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch.examples import pretrain_bert
+    from apex_tpu_torch.goodput import AsyncCheckpointEngine, ResumableStream
+    from apex_tpu_torch.models import BertForPreTraining
+    from apex_tpu_torch.models.convert import (
+        load_optimizer_state,
+        optimizer_state,
+    )
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.resilience import chaos, run_resilient
+    from apex_tpu_torch.transformer.tensor_parallel.random import (
+        model_parallel_tpu_manual_seed,
+    )
+
+    root = tempfile.mkdtemp(prefix="apex_tpu_torch_phase14_")
+    free = shutil.disk_usage(root).free
+    log(f"phase 14: checkpoint, preemption and resume of BertConfig(remat="
+        f"True) at batch {BERT_BATCH}, seq {BERT_SEQ}; {free / 1e9:.1f} GB "
+        f"free under {root}")
+    if free < RES_DISK_BYTES:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"phase 14 needs {RES_DISK_BYTES / 1e9:.0f} GB "
+                             f"of disk under {root}, {free / 1e9:.1f} free")
+    base = ["--steps", str(RES_STEPS), "--batch", str(BERT_BATCH),
+            "--seq-len", str(BERT_SEQ)]
+    out = {}
+    try:
+        # (a) the example
+        full = []
+        for _ in range(2):
+            run = pretrain_bert.train(pretrain_bert.parse_args(base))
+            run.close()
+            torch.cuda.synchronize()
+            full.append((run.losses, _bert_final_state(run.model,
+                                                       run.optimizer)))
+            layers = run.cfg.num_layers
+            del run
+            torch.cuda.empty_cache()
+        if full[0][0] != full[1][0]:
+            raise AssertionError(f"phase 14: two uninterrupted runs differ: "
+                                 f"{full[0][0]} != {full[1][0]}")
+        _same_state("phase 14: two uninterrupted runs", full[0][1], full[1][1])
+        log(f"  two uninterrupted 8-step runs agree bit for bit (losses "
+            f"{[round(x, 4) for x in full[0][0]]})")
+        d = os.path.join(root, "example")
+        args = pretrain_bert.parse_args(
+            base[:1] + ["4"] + base[2:] + ["--ckpt-dir", d, "--save-every",
+                                           str(RES_SAVE_EVERY)])
+        t0 = time.perf_counter()
+        run = pretrain_bert.train(args)
+        run.close()
+        first_s = time.perf_counter() - t0
+        first_steps = run.checkpoints
+        if first_steps != [2, 4] or run.losses != full[0][0][:4]:
+            raise AssertionError(f"phase 14: the 4-step run left "
+                                 f"{first_steps}, losses {run.losses}")
+        del run
+        torch.cuda.empty_cache()
+        _dispatch.reset_launches()
+        _dispatch.clear_paths()
+        t0 = time.perf_counter()
+        run = pretrain_bert.train(pretrain_bert.parse_args(
+            base + ["--ckpt-dir", d, "--resume", "--save-every",
+                    str(RES_SAVE_EVERY)]))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        run.close()
+        launches = _check_launches("phase 14 resumed example", 4, layers)
+        if run.resumed_from != 4 or run.losses != full[0][0][4:]:
+            raise AssertionError(
+                f"phase 14: resumed from {run.resumed_from}, losses "
+                f"{run.losses} against {full[0][0][4:]}")
+        _same_state("phase 14: the resumed example", _bert_final_state(
+            run.model, run.optimizer), full[0][1])
+        log(f"  example: --steps 4 --save-every 2 left {first_steps} "
+            f"after a 4-step run ({first_s:.1f} s with its 3 saves); "
+            f"--resume at 4 to 8 ({resume_s:.1f} s with a restore and 2 "
+            f"saves): losses, params, LAMB m, v and count equal the "
+            f"uninterrupted run's bit for bit")
+        out["example"] = {"resumed_from": run.resumed_from,
+                          "losses_resumed": run.losses,
+                          "checkpoints": run.checkpoints,
+                          "first_run_s": first_s, "resumed_run_s": resume_s,
+                          "bit_identical": True}
+        cfg, margs = run.cfg, pretrain_bert.parse_args(base)
+        del run, full
+        torch.cuda.empty_cache()
+        shutil.rmtree(d, ignore_errors=True)
+
+        # (b) run_resilient with dropout under the chaos drill
+        stream = ResumableStream(pretrain_bert.MLMBatches(margs, cfg),
+                                 prefetch=2, device="cuda")
+
+        def fresh():
+            model = BertForPreTraining(cfg, device="cuda")
+            opt = FusedLAMB(model.parameters(), lr=margs.lr,
+                            weight_decay=0.01)
+            tracker = model_parallel_tpu_manual_seed(RES_SEED)
+            return model, opt, tracker
+
+        def stepper(model, opt, tracker):
+            def state():
+                return {"params": {k: p.detach() for k, p in
+                                   model.named_parameters()},
+                        "opt_state": optimizer_state(opt, model),
+                        "rng": tracker.get_states()}
+
+            def step_fn(st, batch):
+                tracker.set_states(st["rng"])
+                load_optimizer_state(opt, model, st["opt_state"])
+                loss = pretrain_bert.train_step(model, opt, batch,
+                                                generator=tracker.fork())
+                return state(), {"skipped": False, "loss": loss}
+
+            return state, step_fn
+
+        model, opt, tracker = fresh()
+        state, step_fn = stepper(model, opt, tracker)
+        st = state()
+        _dispatch.reset_launches()
+        _dispatch.clear_paths()
+        for step in range(RES_STEPS):
+            st, _ = step_fn(st, stream(step))
+        torch.cuda.synchronize()
+        _check_launches("phase 14 dropout reference", RES_STEPS, layers)
+        ref = _bert_final_state(model, opt)
+        ref_rng = tracker.get_states()
+        del model, opt, st
+        torch.cuda.empty_cache()
+        d = os.path.join(root, "resilient")
+        handler = signal.getsignal(signal.SIGTERM)
+        calls = []
+        faults = chaos.parse_spec(RES_SPEC)[0]
+        for call in range(2):
+            model, opt, tracker = fresh()  # a relaunch: fresh weights
+            state, step_fn = stepper(model, opt, tracker)
+            rec = _Events()
+            _dispatch.reset_launches()
+            _dispatch.clear_paths()
+            t0 = time.perf_counter()
+            with chaos.inject(*faults):
+                res = run_resilient(step_fn, state(), stream,
+                                    directory=d, num_steps=RES_STEPS,
+                                    save_interval_steps=RES_SAVE_EVERY,
+                                    max_to_keep=2, observer=rec)
+            torch.cuda.synchronize()
+            # call 1 runs steps 0-5, call 2 steps 6 and 7 (checked below)
+            _check_launches(f"phase 14 run_resilient call {call + 1}",
+                            res.steps_run, layers)
+            calls.append((res, rec, time.perf_counter() - t0,
+                          ckpt.all_steps(d), sorted(os.listdir(d))))
+            if call == 0:
+                del model, opt, state, step_fn, res
+                torch.cuda.empty_cache()
+        if signal.getsignal(signal.SIGTERM) != handler:
+            raise AssertionError("phase 14: the SIGTERM handler was not "
+                                 "restored")
+        (r1, e1, s1, steps1, ls1), (r2, e2, s2, steps2, _) = calls
+        debris = [n for n in ls1 if n.startswith("4.orbax-checkpoint-tmp-")]
+        log(f"  run_resilient call 1: {tuple(r1[1:])} in {s1:.1f} s, steps "
+            f"on disk {steps1}, directory {ls1}")
+        log(f"  run_resilient call 2: {tuple(r2[1:])} in {s2:.1f} s, steps "
+            f"on disk {steps2}")
+        if not (r1.preempted and r1.last_step == 5 and steps1[-1:] == [5]):
+            raise AssertionError(f"phase 14: call 1 {tuple(r1[1:])}, steps "
+                                 f"{steps1}")
+        if not debris or steps1 != [4, 5]:
+            raise AssertionError(f"phase 14: the partial save's debris: "
+                                 f"{ls1}, complete steps {steps1}")
+        if not (r1.steps_run == 6 and r2.resumed_from == 5
+                and r2.last_step == RES_STEPS - 1 and r2.steps_run == 2
+                and not r2.preempted):
+            raise AssertionError(f"phase 14: call 2 {tuple(r2[1:])}")
+        retries = [e for e in e1.events if e[0] == "retry"]
+        want_retries = [("retry", f"checkpoint save (step {s})", 0,
+                         "InjectedFault") for s in (2, 4)]
+        marks = ([e for e in e1.events if e[0] in ("preempt", "resume")],
+                 [e for e in e2.events if e[0] in ("preempt", "resume",
+                                                   "retry")])
+        if retries != want_retries or marks != ([("preempt", 5)],
+                                                [("resume", 5)]):
+            raise AssertionError(f"phase 14: events {e1.events} / "
+                                 f"{e2.events}")
+        if stream.seeks != 1:
+            raise AssertionError(f"phase 14: {stream.seeks} stream seeks")
+        _same_state("phase 14: run_resilient after the drill",
+                    _bert_final_state(model, opt), ref)
+        if any(not torch.equal(tracker.get_states()[k], ref_rng[k])
+               for k in ref_rng):
+            raise AssertionError("phase 14: the generator's state differs")
+        log(f"  run_resilient: preempted at 5 (debris {debris} invisible, "
+            f"latest {steps1[-1]}), resumed at 5 to 8; weights, LAMB state "
+            f"and generator state equal the uninterrupted dropout run's bit "
+            f"for bit; events {retries + marks[0] + marks[1]}; stream seeks "
+            f"{stream.seeks}; SIGTERM handler restored")
+        writes = [p for p in e1.phases + e2.phases if p["phase"] == "write"]
+        out["run_resilient"] = {
+            "call1": list(r1[1:]), "call2": list(r2[1:]),
+            "steps_on_disk": [steps1, steps2], "debris": debris,
+            "retries": len(retries), "stream_seeks": stream.seeks,
+            "write_ms": [(p["t1"] - p["t0"]) * 1e3 for p in writes],
+            "call_seconds": [s1, s2], "bit_identical": True}
+        shutil.rmtree(d, ignore_errors=True)
+
+        # (c) the costs, with a save every 2 steps and without saving
+        state, step_fn = stepper(model, opt, tracker)
+        tmpl = state()
+        d = os.path.join(root, "timing")
+        batches = [stream(RES_STEPS + i) for i in range(RES_TIMING_STEPS)]
+        stream.close()
+        per_mode = {}
+        for mode in ("save every 2", "no save"):
+            eng = (AsyncCheckpointEngine(d, max_to_keep=2,
+                                         save_interval_steps=RES_SAVE_EVERY)
+                   if mode == "save every 2" else None)
+            secs = []
+            st = state()
+            if eng is not None:
+                # the pinned slots (queue depth + 1) allocated at set-up
+                eng.reserve(st)
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, info = step_fn(st, batch)
+                float(info["loss"])
+                if eng is not None:
+                    eng.save(i, st)
+                secs.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            per_mode[mode] = secs
+            if eng is not None:
+                stall = eng.stall_fraction()
+                t0 = time.perf_counter()
+                eng.wait_until_finished()
+                drain_s = time.perf_counter() - t0
+                stats = eng.stats()
+                # one more save with the writer idle, into a slot an
+                # earlier save used: the step path's cost at a cadence
+                # the disk keeps up with (saves further apart than a
+                # write); its checkpoint is restored and checked below
+                t0 = time.perf_counter()
+                eng.save(RES_TIMING_STEPS, st, force=True)
+                idle_save_ms = (time.perf_counter() - t0) * 1e3
+                saved = _bert_final_state(model, opt)
+                eng.wait_until_finished()
+                eng.close()
+                if stats["pinned_slots"] != eng._max_slots:
+                    raise AssertionError(f"phase 14: {stats['pinned_slots']}"
+                                         f" pinned slots, not "
+                                         f"{eng._max_slots}")
+        last = ckpt.latest_step(d)
+        nbytes = _dir_bytes(os.path.join(d, str(last)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ckpt.restore_step_dir(d, last, template=tmpl)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if last != RES_TIMING_STEPS:
+            raise AssertionError(f"phase 14: latest step {last}")
+        back = _bert_final_state(model, opt)
+        back["count"] = int(got["opt_state"]["count"])
+        _same_state("phase 14: the idle save (a reused pinned slot), "
+                    "restored", back, saved)
+        del got, back, saved
+        saves = stats["saves"]
+        costs = {
+            "checkpoint_bytes": nbytes,
+            "step_path_ms_per_save": (stats["snapshot_ms_total"]
+                                      + stats["enqueue_wait_ms_total"])
+            / saves,
+            "snapshot_ms_per_save": stats["snapshot_ms_total"] / saves,
+            "enqueue_wait_ms_per_save": stats["enqueue_wait_ms_total"]
+            / saves,
+            "write_ms_per_save": stats["write_ms_total"] / stats["writes"],
+            "write_gb_per_s": nbytes / (stats["write_ms_total"]
+                                        / stats["writes"]) / 1e6,
+            "restore_ms": restore_ms,
+            "stall_fraction": stall,
+            "drain_after_loop_s": drain_s,
+            "pinned_slots": stats["pinned_slots"],
+            "reserve_ms": stats["reserve_ms_total"],
+            "step_path_ms_idle_writer_save": idle_save_ms,
+            "saves": saves, "failures": stats["failures"],
+            "step_ms_median_saving": statistics.median(
+                per_mode["save every 2"][1:]) * 1e3,
+            "step_ms_median_no_save": statistics.median(
+                per_mode["no save"][1:]) * 1e3,
+            "step_ms_mean_saving": statistics.mean(
+                per_mode["save every 2"][1:]) * 1e3,
+            "step_ms_mean_no_save": statistics.mean(
+                per_mode["no save"][1:]) * 1e3,
+            "step_ms_saving": [x * 1e3 for x in per_mode["save every 2"]],
+            "step_ms_no_save": [x * 1e3 for x in per_mode["no save"]],
+        }
+        log(f"  pinned pool: {stats['pinned_slots']:.0f} slots reserved in "
+            f"{stats['reserve_ms_total']:.0f} ms; the idle save's slot "
+            f"restored bit for bit")
+        log(f"  costs: checkpoint {nbytes / 1e9:.3f} GB; step path "
+            f"{costs['step_path_ms_per_save']:.1f} ms a save (snapshot "
+            f"{costs['snapshot_ms_per_save']:.1f} + enqueue "
+            f"{costs['enqueue_wait_ms_per_save']:.1f}; {idle_save_ms:.1f} "
+            f"with the writer idle); background write "
+            f"{costs['write_ms_per_save']:.0f} ms "
+            f"({costs['write_gb_per_s']:.2f} GB/s); restore "
+            f"{restore_ms:.0f} ms; stall fraction {stall:.4f}; median step "
+            f"{costs['step_ms_median_saving']:.1f} ms saving every 2 steps, "
+            f"{costs['step_ms_median_no_save']:.1f} ms without (means "
+            f"{costs['step_ms_mean_saving']:.1f} / "
+            f"{costs['step_ms_mean_no_save']:.1f})")
+        out["costs"] = costs
+        del model, opt, tmpl, state, step_fn, batches
+        torch.cuda.empty_cache()
+        return {"bert_resume": launches}, out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 10: evoformer training at AlphaFold2's widths
 # ---------------------------------------------------------------------------
 
@@ -4405,6 +4981,13 @@ def main():
     parser.add_argument("--evoformer", action="store_true",
                         help="run phase 10's bf16 evoformer training alone "
                         "(launches logged, not checked)")
+    parser.add_argument("--resilience", action="store_true",
+                        help="run phase 14 alone (checkpoint, preemption "
+                        "and resume of BERT-Large)")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="seed of phase 1's generator (the kernels' "
+                        "inputs; 0 by default); also reads K5 f32's c "
+                        "window per case")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4416,8 +4999,14 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
-        f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+        f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"({smi})")
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
@@ -4427,7 +5016,9 @@ def main():
         for line in ptxas_summary(_build.build_log(name), _build._nvcc()):
             log(f"  [{name}] {line}")
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    global K5_F32_WINDOW
+    K5_F32_WINDOW = args.seed is not None
+    gen = torch.Generator(device="cuda").manual_seed(args.seed or 0)
     if args.f32_attention:
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
         rows = _time_f32_attention(gen, flush)
@@ -4454,6 +5045,11 @@ def main():
                               wires, launches=wires_launches),
                           "speculative": spec,
                           "decode_profile": profile}), flush=True)
+        return
+    if args.resilience:
+        launches, run = phase14()
+        print(json.dumps({"resilience": dict(run, launches=launches)}),
+              flush=True)
         return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
@@ -4485,6 +5081,7 @@ def main():
     train_cross = phase7()
     bert_launches, bert = phase8()
     bert_cross = phase9()
+    res_launches, resilience = phase14()
     evo_launches, evoformer = phase10()
     evo_f32_launches, evoformer_f32 = phase10_f32()
     evo_cross = phase11()
@@ -4494,6 +5091,7 @@ def main():
             ("training", train_launches),
             ("bert", bert_launches["bert"]),
             ("bert_dropout", bert_launches["bert_dropout"]),
+            ("bert_resume", res_launches["bert_resume"]),
             ("evoformer", evo_launches),
             ("evoformer_f32", evo_f32_launches))
     launches = {
@@ -4510,15 +5108,11 @@ def main():
                     "serving_int8_wires": wires, "speculative": spec,
                     "training": training, "training_cross_check": train_cross,
                     "bert": bert, "bert_cross_check": bert_cross,
+                    "resilience": resilience,
                     "evoformer": evoformer,
                     "evoformer_f32_attention": evoformer_f32,
                     "evoformer_cross_check": evo_cross,
                     "decode_profile": profile}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip()
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

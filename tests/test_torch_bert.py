@@ -14,7 +14,8 @@
   correctly in the all-zero row); one LAMB step of both trainers;
 - remat equal to no remat, with and without dropout (the seeds drawn
   before each block give the recompute the same masks);
-- the example trainer for three steps on ``device="cpu"``.
+- the example trainer for three steps on ``device="cpu"``, and its
+  checkpoints: a resumed run's losses are an uninterrupted run's.
 
 Tolerances are stated per test.
 """
@@ -32,6 +33,7 @@ from apex_tpu.models.bert import BertConfig as JaxBertConfig
 from apex_tpu.models.bert import BertForPreTraining as JaxBert
 from apex_tpu.models.bert import bert_pretrain_loss as jax_bert_loss
 from apex_tpu.optimizers import fused_lamb as jax_fused_lamb
+from apex_tpu_torch import checkpoint as port_ckpt
 from apex_tpu_torch import data as port_data
 from apex_tpu_torch.examples import pretrain_bert
 from apex_tpu_torch.models import (
@@ -308,7 +310,40 @@ def test_example_trains_three_steps_on_cpu(tmp_path):
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "x"], ["--resume"]])
-def test_example_refuses_checkpointing(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        pretrain_bert.main(["--tiny", "--device", "cpu", *flag])
+@pytest.mark.parametrize("case", ["save_then_resume", "resume_empty_dir",
+                                  "resume_past_steps"])
+def test_example_checkpoints_and_resumes(tmp_path, case):
+    """``--save-every 2`` for 4 steps (checkpoints at 1, 2 and 4: orbax's
+    policy saves the first step, ``max_to_keep=2`` keeps 2 and 4), then
+    ``--resume`` to 6: the losses equal an uninterrupted 6-step run's bit
+    for bit; ``--resume`` on an empty directory starts at step 0;
+    ``--resume`` past ``--steps`` trains nothing."""
+    corpus = port_data.synthetic_token_corpus(
+        tmp_path / "corpus.bin", vocab_size=2048, num_tokens=20_000,
+        floor=1000)
+    base = ["--tiny", "--device", "cpu", "--batch", "4", "--seq-len", "32",
+            "--lr", "1e-2", "--data", str(corpus)]
+    ckpt = ["--ckpt-dir", str(tmp_path / "ckpt")]
+    full = pretrain_bert.main(base + ["--steps", "6"])
+    if case == "save_then_resume":
+        first = pretrain_bert.main(base + ckpt + ["--steps", "4",
+                                                  "--save-every", "2"])
+        assert port_ckpt.all_steps(tmp_path / "ckpt") == [2, 4]
+        run = pretrain_bert.train(pretrain_bert.parse_args(
+            base + ckpt + ["--steps", "6", "--resume", "--save-every", "2"]))
+        run.close()
+        assert run.resumed_from == 4 and len(run.losses) == 2
+        assert first + run.losses == full
+        assert run.checkpoints == [4, 6]
+    elif case == "resume_empty_dir":
+        run = pretrain_bert.train(pretrain_bert.parse_args(
+            base + ckpt + ["--steps", "6", "--resume"]))
+        run.close()
+        assert run.resumed_from is None and run.losses == full
+    else:
+        pretrain_bert.main(base + ckpt + ["--steps", "4", "--save-every",
+                                          "2"])
+        run = pretrain_bert.train(pretrain_bert.parse_args(
+            base + ckpt + ["--steps", "3", "--resume"]))
+        run.close()
+        assert run.resumed_from == 4 and run.losses == []

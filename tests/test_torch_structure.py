@@ -1,10 +1,12 @@
 """apex_tpu_torch's structural contracts, checked without a GPU.
 
-- the port and ``chip_smoke.py`` import neither ``jax`` nor ``apex_tpu``
-  (AST scan of every module);
+- the port and ``chip_smoke.py`` import neither ``jax``, ``apex_tpu`` nor
+  ``orbax`` (AST scan of every module);
 - entry points (the GPT and BERT models, the engine with and without a
-  draft, the converters, the example trainers, the OpenFold modules,
-  ``rope_tables`` and ``DevicePrefetcher``) run on the card by default
+  draft, the converters of weights and optimizer states, the example
+  trainers and the BERT example's resume, the OpenFold modules,
+  ``rope_tables``, ``DevicePrefetcher`` and ``ResumableStream``'s
+  prefetch) run on the card by default
   and raise without one, unless the caller passes ``device="cpu"``;
 - kernel wrappers launch their kernel or raise: handed CPU tensors, a
   kernel entry refuses instead of computing the plain version, and a
@@ -35,7 +37,9 @@ from apex_tpu_torch.models import (
     BertForPreTraining,
     GptConfig,
     GptModel,
+    adam_state_from_jax,
     bert_from_jax_params,
+    bert_lamb_state_from_jax,
     from_jax_params,
 )
 from apex_tpu_torch.ops import _build, _dispatch
@@ -46,6 +50,7 @@ from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
 from apex_tpu_torch.ops import paged_attention
 from apex_tpu_torch.data import DevicePrefetcher
+from apex_tpu_torch.goodput import ResumableStream
 from apex_tpu_torch.serve import (
     InferenceEngine,
     ServeConfig,
@@ -85,7 +90,7 @@ def test_port_imports_neither_jax_nor_apex_tpu():
         (p.relative_to(ROOT).as_posix(), mod)
         for p in files
         for mod in _imported_modules(p)
-        if mod.split(".")[0] in ("jax", "jaxlib", "apex_tpu", "flax")
+        if mod.split(".")[0] in ("jax", "jaxlib", "apex_tpu", "flax", "orbax")
     ]
     assert bad == []
 
@@ -101,6 +106,10 @@ COUNTERPARTS = (
     "serve/spec.py", "ops/xentropy.py", "ops/scaled_softmax.py",
     "transformer/enums.py", "transformer/functional/fused_softmax.py",
     "transformer/pipeline_parallel/schedules.py",
+    "transformer/tensor_parallel/random.py", "observability/locks.py",
+    "checkpoint/__init__.py", "resilience/__init__.py",
+    "resilience/chaos.py", "resilience/retry.py", "resilience/runner.py",
+    "goodput/__init__.py", "goodput/async_ckpt.py", "goodput/stream.py",
 )
 
 
@@ -108,6 +117,11 @@ COUNTERPARTS = (
 def test_port_modules_keep_their_counterparts_names(module):
     assert (ROOT / "apex_tpu" / module).is_file(), module
     assert (ROOT / "apex_tpu_torch" / module).is_file(), module
+
+
+class _OneBatchLoader:
+    def iter_from(self, step):
+        return iter([torch.zeros(2)])
 
 
 @pytest.fixture
@@ -119,7 +133,9 @@ def no_gpu(monkeypatch):
                                    "bert_model", "bert_convert",
                                    "bert_train", "evoformer", "dap_axial",
                                    "kv_pages", "spec_engine", "rope_tables",
-                                   "prefetcher"])
+                                   "prefetcher", "lamb_convert",
+                                   "adam_convert", "bert_resume",
+                                   "resumable_stream"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -150,6 +166,15 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             rope_tables(cfg)
         elif entry == "prefetcher":
             DevicePrefetcher(iter([]))
+        elif entry == "lamb_convert":
+            bert_lamb_state_from_jax({}, BertConfig(**TINY_BERT))
+        elif entry == "adam_convert":
+            adam_state_from_jax({}, cfg)
+        elif entry == "bert_resume":
+            pretrain_bert.main(["--tiny", "--steps", "1", "--resume",
+                                "--ckpt-dir", "unused"])
+        elif entry == "resumable_stream":
+            ResumableStream(_OneBatchLoader(), prefetch=1)(0)
         else:
             pretrain_bert.main(["--tiny", "--steps", "1"])
 

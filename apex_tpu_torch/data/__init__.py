@@ -389,10 +389,11 @@ class DevicePrefetcher:
     of buffering the dataset.  :attr:`stall_fraction` is the share of
     wall time the consumer spent blocked on an empty queue (the
     input-bound signal), and :meth:`metrics` adds the producer's wait
-    and the queue's occupancy.  ``board_key`` is accepted for the
-    reference's signature and unused: the metrics board is not ported
-    (ROADMAP item 8).  Call :meth:`close` (or use the prefetcher as a
-    context manager) to stop the worker.
+    and the queue's occupancy.  From the 8th batch on the fraction is
+    published on the board under ``board_key`` (None publishes nothing:
+    give a second prefetcher, e.g. an eval loader, ``None`` so that it
+    does not overwrite the training input's gauge).  Call :meth:`close`
+    (or use the prefetcher as a context manager) to stop the worker.
     """
 
     _DONE = object()
@@ -492,6 +493,12 @@ class DevicePrefetcher:
             self._stop.set()
             raise item
         self._batches += 1
+        # publish once the fraction means something: the first batches'
+        # worker start over a near-zero wall time would read as a stall
+        if self.board_key is not None and self._batches >= 8:
+            from apex_tpu_torch.observability.metrics import board
+
+            board.set(self.board_key, self.stall_fraction)
         batch, done = item
         if done is not None:
             consumer = torch.cuda.current_stream(self._device)

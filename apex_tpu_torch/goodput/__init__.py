@@ -14,7 +14,7 @@ and host (counterpart of :mod:`apex_tpu.goodput`).
   uninterrupted run's, bit for bit.
 
 ``run_resilient`` adopts the engine by default (``checkpoint="async"``).
-The metrics board's gauges wait for ROADMAP item 8.
+The engine publishes its ``goodput/ckpt/*`` gauges on the metrics board.
 """
 
 from apex_tpu_torch.goodput.async_ckpt import (  # noqa: F401

@@ -32,8 +32,10 @@ step path, so checkpoint cadence trades directly against step time.
 
 Every completed phase lands as an event (:meth:`drain_events`;
 ``run_resilient`` forwards them to the observer's ``on_checkpoint``) and
-in :meth:`stats` / :meth:`stall_fraction`.  Publishing them to the
-metrics board waits for ROADMAP item 8.
+in :meth:`stats` / :meth:`stall_fraction`, and each save, write and
+finalize publishes the board's ``goodput/ckpt/*`` gauges (saves,
+writes, failures, the last snapshot's and write's ms, the stall
+fraction).
 
 Failure contract (the reference's): a background write that fails
 permanently loses that one step's checkpoint, never crash consistency —
@@ -388,6 +390,7 @@ class AsyncCheckpointEngine:
             st["last_snapshot_ms"] = (t1 - t0) * 1e3
             if self._first_save_t is None:
                 self._first_save_t = t_wait
+        self._publish()
         return True
 
     def _take_slot(self) -> list:
@@ -471,6 +474,7 @@ class AsyncCheckpointEngine:
                 "phase": "finalize", "step": self._last_saved,
                 "t0": t0, "t1": t0 + dt,
             })
+            self._publish()
         self._raise_deferred()
 
     # -- the background writer ---------------------------------------------
@@ -553,6 +557,20 @@ class AsyncCheckpointEngine:
             "snapshot_t0": snap_t0, "snapshot_t1": snap_t1,
             "enqueue_ms": enq_slot[0] if enq_slot else 0.0,
         })
+        self._publish()
+
+    def _publish(self) -> None:
+        """The engine's gauges on the board."""
+        from apex_tpu_torch.observability.metrics import board
+
+        with self._lock:
+            st = dict(self._stats)
+        board.set("goodput/ckpt/saves", st["saves"])
+        board.set("goodput/ckpt/writes", st["writes"])
+        board.set("goodput/ckpt/failures", st["failures"])
+        board.set("goodput/ckpt/last_snapshot_ms", st["last_snapshot_ms"])
+        board.set("goodput/ckpt/last_write_ms", st["last_write_ms"])
+        board.set("goodput/ckpt/stall_frac", self.stall_fraction())
 
     #: test hook: raises planted mid-write failures INSIDE the writer
     #: (after the snapshot, before the commit) — the on-disk shape of a

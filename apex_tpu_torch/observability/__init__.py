@@ -1,4 +1,68 @@
-"""Observability of the port (counterpart of
-:mod:`apex_tpu.observability`); so far the lock-order sanitizer
-(:mod:`apex_tpu_torch.observability.locks`).  The metrics board, spans
-and the flight recorder wait for ROADMAP item 8."""
+"""Observability of the port (counterpart of :mod:`apex_tpu.observability`):
+the serving path's telemetry spine.
+
+- :mod:`~apex_tpu_torch.observability.metrics` — :class:`MetricRegistry`
+  (0-d f32 tensors updated in place, fetched on a double-buffered
+  cadence) and the host-side :data:`board`;
+- :mod:`~apex_tpu_torch.observability.ometrics` — the OpenMetrics
+  exposition (:func:`render`, :func:`parse_exposition`,
+  :class:`OpsServer`, :class:`Histogram`, :func:`metric_name`);
+- :mod:`~apex_tpu_torch.observability.spans` — :class:`SpanRecorder`,
+  the per-request and per-step causal record;
+- :mod:`~apex_tpu_torch.observability.flight` — :class:`FlightRecorder`,
+  the crash black box;
+- :mod:`~apex_tpu_torch.observability.health` — :class:`Watchdog` and the
+  serving rules;
+- :mod:`~apex_tpu_torch.observability.meter` — :func:`percentile`;
+- :mod:`~apex_tpu_torch.observability.locks` — the lock-order sanitizer.
+
+The rest of the reference's observability (the step meter, memory
+statistics, attribution, export sinks, traces, the fleet view, SLOs and
+canaries) waits for ROADMAP item 8.
+"""
+
+from apex_tpu_torch.observability.flight import (  # noqa: F401
+    ENV_FLIGHT,
+    FlightRecorder,
+    json_safe,
+    parse_flight_spec,
+)
+from apex_tpu_torch.observability.health import (  # noqa: F401
+    HealthEvent,
+    HungStepRule,
+    QueueDepthRule,
+    QueueWaitFractionRule,
+    Rule,
+    ServeFaultRule,
+    SpecAcceptanceRule,
+    StaleFetchRule,
+    TTFTRule,
+    Watchdog,
+    serve_rules,
+)
+from apex_tpu_torch.observability.locks import (  # noqa: F401
+    TrackedLock,
+    sanitizer_report,
+)
+from apex_tpu_torch.observability.meter import percentile  # noqa: F401
+from apex_tpu_torch.observability.metrics import (  # noqa: F401
+    Board,
+    MetricRegistry,
+    board,
+)
+from apex_tpu_torch.observability.ometrics import (  # noqa: F401
+    DEFAULT_LATENCY_BUCKETS_MS,
+    ExportNamespace,
+    Histogram,
+    OpsServer,
+    metric_name,
+    ops_port_from_env,
+    parse_exposition,
+    render,
+)
+from apex_tpu_torch.observability.spans import (  # noqa: F401
+    SpanRecorder,
+    monotonic_to_epoch,
+    parse_spans_spec,
+    wall_clock_anchor,
+)

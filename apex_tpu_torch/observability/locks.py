@@ -12,8 +12,8 @@ while holding ``A`` adds edge ``A -> B``.  A new edge that closes a
 cycle is a potential deadlock and is reported loudly: a
 ``RuntimeWarning``, a ``locksan_cycle`` event on an attached flight
 recorder (:func:`attach_flight`), and an entry of
-:func:`sanitizer_report`.  Publishing the cycle count to the metrics
-board waits for ROADMAP item 8.  Unarmed, the overhead is one cached
+:func:`sanitizer_report`; the count of cycles is published on the
+board as ``locksan/cycles``.  Unarmed, the overhead is one cached
 flag check per acquire.
 """
 
@@ -141,6 +141,9 @@ class _Sanitizer:
             RuntimeWarning,
             stacklevel=4,
         )
+        from apex_tpu_torch.observability.metrics import board
+
+        board.set("locksan/cycles", len(self._cycles))
         if self._flight is not None:
             try:
                 self._flight.note("locksan_cycle", **record)

@@ -39,8 +39,9 @@ manager, used by tests) or ambient via ``APEX_TPU_CHAOS`` for real runs::
     APEX_TPU_CHAOS="grads:nan:p=0.001;seed=42"
 
 Hooks are host-side and fire only where training code calls them
-(``runner`` and ``retry`` are the port's call sites so far; the guards,
-the serving and the fleet hooks wait for ROADMAP items 10, 4 and 7);
+(the port's call sites: ``runner``, ``retry``, the serving engine and
+scheduler; the guards and the fleet hooks wait for ROADMAP items 10 and
+7);
 with no faults configured every hook is a cheap no-op.
 
 Counterpart of ``apex_tpu/resilience/chaos.py``, host code copied over:

@@ -32,7 +32,11 @@ info)`` when the async engine's write or finalize completes, and
 ``on_retry(what, attempt, error)``.  ``discarded`` is the exact count of
 accepted-but-unsaved steps a rollback threw away.  ``flight=`` and
 ``spans=`` take recorders with the same protocol plus ``dump(reason)``;
-arming them from the environment waits for ROADMAP item 8.  The
+when they are None, ``APEX_TPU_FLIGHT=N[:DIR]`` and
+``APEX_TPU_SPANS=N[:DIR]`` arm a
+:class:`~apex_tpu_torch.observability.flight.FlightRecorder` and a
+:class:`~apex_tpu_torch.observability.spans.SpanRecorder` from the
+environment.  The
 pre-preemption host barrier is the chaos ``COLLECTIVE`` site at world
 size 1 until multi-process runs (item 5).
 """
@@ -367,8 +371,23 @@ def run_resilient(
     ``flight`` / ``spans``: recorders that join the observer fan-out and
     whose ``dump(reason)`` is called on any unhandled exception and on
     preemption (an explicitly passed recorder otherwise stays with its
-    caller).
+    caller).  When ``flight`` is None, ``APEX_TPU_FLIGHT=N[:DIR]`` arms
+    a flight recorder from the environment (no sources attached: its
+    frames carry steps, skips and events); when ``spans`` is None,
+    ``APEX_TPU_SPANS=N[:DIR]`` arms a span recorder, which also dumps at
+    normal completion (a good run's timeline is the baseline a
+    postmortem compares against).
     """
+    spans_env_armed = False
+    if spans is None:
+        from apex_tpu_torch.observability.spans import SpanRecorder
+
+        spans = SpanRecorder.from_env()
+        spans_env_armed = spans is not None
+    if flight is None:
+        from apex_tpu_torch.observability.flight import FlightRecorder
+
+        flight = FlightRecorder.from_env()
     if flight is not None or spans is not None:
         observer = ObserverFanout([observer, flight, spans])
     on_retry = getattr(observer, "on_retry", None)
@@ -404,6 +423,8 @@ def run_resilient(
                 f"preemption (SIGTERM) at step {result.last_step}",
                 label="spans",
             )
+    elif spans_env_armed:
+        _safe_dump(spans, "completed", label="spans")
     return result
 
 

@@ -15,7 +15,9 @@ Counterpart of :mod:`apex_tpu.serve`'s core:
   decode step and the spec round as CUDA graphs on the card) and
   :class:`ServeConfig`;
 - :mod:`apex_tpu_torch.serve.scheduler` —
-  :class:`ContinuousBatchingScheduler` and :class:`Request`.
+  :class:`ContinuousBatchingScheduler` (retries, engine supervision, the
+  overload ladder, drain and resume, TTFT attribution) and
+  :class:`Request`.
 """
 
 from apex_tpu_torch.serve.cache import (  # noqa: F401
@@ -50,9 +52,14 @@ from apex_tpu_torch.serve.spec import (  # noqa: F401
     SpecConfig,
     draft_from_params,
     speculative_verify,
+    target_probs,
 )
 from apex_tpu_torch.serve.scheduler import (  # noqa: F401
     SHED_REASONS,
+    SHED_REROUTED,
+    TTFT_COMPONENTS,
     ContinuousBatchingScheduler,
     Request,
+    declare_serve_metrics,
+    ttft_attribution,
 )

@@ -32,21 +32,44 @@ holds a draft (the target's own weights, or a separate model packed or
 copied on its own) with a KV pool of the target's page geometry, and
 runs speculative rounds (:meth:`spec_step`): on the card the draft's
 ``k + 1`` steps, the verify's ``k + 1`` steps and the acceptance are one
-more captured CUDA graph.  Not ported yet: the analysis build and
-``lint`` (ROADMAP item 9), the chaos gates and ``rebuild`` (item 4),
-spans and the metrics board (item 8).
+more captured CUDA graph.
+
+**Failure surface** (the reference's): every step screens its logits
+for non-finite values (:attr:`last_prefill_finite`,
+:attr:`last_decode_finite`, the scheduler's quarantine evidence); the
+chaos gates of the ``serve.prefill``, ``serve.decode`` and
+``serve.draft`` sites (:meth:`_chaos_gate`) run on the host before a
+call — before a graph's replay, never inside a capture — so they add no
+launch to a graph: ``stall`` sleeps, ``raise`` raises
+:class:`~apex_tpu_torch.resilience.chaos.InjectedFault`, and ``nan`` /
+``inf`` mark the first live slot's screen non-finite after the readback
+(a poisoned draft round pins every proposal, through one column of the
+round's input).  :meth:`rebuild` is the supervised recovery: on the card
+it drops the captured graphs (and their private memory pools) and
+captures new ones, while the KV pool, its scale planes, the weights and
+the page pool stay at their addresses, so surviving requests resume from
+their pages.  With a span recorder attached (``engine.spans``, set by
+the scheduler) each prefill and decode call records an
+``engine/prefill`` / ``engine/decode`` span, measured up to its
+readback.  The build gauges go to the board (``serve/page_size``, ...).
+Not ported yet: the analysis build, ``lint``, ``ServeConfig.verify``
+and ``hbm_budget_bytes`` (ROADMAP item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.models.gpt import GptConfig, GptModel
+from apex_tpu_torch.observability.metrics import board
+from apex_tpu_torch.observability.spans import TRACK_ENGINE
 from apex_tpu_torch.ops import _dispatch
+from apex_tpu_torch.resilience import chaos
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.serve import cache as cache_lib
 from apex_tpu_torch.serve import model as model_lib
@@ -64,8 +87,10 @@ __all__ = ["ServeConfig", "InferenceEngine"]
 #: three words, then the page table
 _COLS = 6
 #: spec-round input columns: token, length, temperature bits, stream,
-#: generation index, then the target's and the draft's page tables
-_SPEC_COLS = 5
+#: generation index, the draft's poison threshold (1; 2 pins every
+#: proposal: a ``serve.draft`` nan/inf fault), then the target's and the
+#: draft's page tables
+_SPEC_COLS = 6
 
 
 def _default_buckets(page_size: int, max_len: int) -> Tuple[int, ...]:
@@ -156,8 +181,11 @@ class InferenceEngine:
 
     def __init__(self, cfg: GptConfig, model: GptModel,
                  serve: Optional[ServeConfig] = None, *,
-                 spec: Optional[spec_lib.SpecConfig] = None, device="cuda"):
+                 spec: Optional[spec_lib.SpecConfig] = None, registry=None,
+                 device="cuda"):
         self.device = resolve_device(device)
+        #: the metric registry a scheduler inherits by default
+        self.registry = registry
         self.cfg = model_lib.validate_config(cfg)
         self.serve = serve or ServeConfig()
         if self.serve.max_context > cfg.max_seq_len:
@@ -200,9 +228,18 @@ class InferenceEngine:
             kv_wire=self.serve.kv_wire,
         )
         #: call counters (always counted); the sampler's call-indexed
-        #: keys read them
+        #: keys and the chaos gates read them, and they are the
+        #: correlation ids of a request's span chain
         self.decode_iters = 0
         self.prefill_calls = 0
+        #: optional :class:`~apex_tpu_torch.observability.spans.
+        #: SpanRecorder` (the scheduler attaches its own)
+        self.spans = None
+        #: supervised recoveries (:meth:`rebuild` calls)
+        self.rebuilds = 0
+        #: graph captures by step ("decode", "spec"; card only): one each
+        #: at build, one more each rebuild
+        self.captures: Dict[str, int] = {}
         #: the non-finite screens of the LAST prefill/decode call —
         #: a bool, and a (max_batch,) bool array (None before the first
         #: decode); the scheduler's quarantine reads them
@@ -211,6 +248,8 @@ class InferenceEngine:
         #: the captured decode step (card only): the graph, its static
         #: input, its outputs and the launches recorded at capture
         self._graph = None
+        #: the stream every capture warms up and captures on (card only)
+        self._side = None
         #: speculative decoding: None = plain serving; a SpecConfig adds
         #: the draft's weights and KV pool, and the spec round (one
         #: captured graph on the card, :meth:`spec_step`)
@@ -226,6 +265,19 @@ class InferenceEngine:
         self.draft_prefill_calls = 0
         if spec is not None:
             self._init_draft(spec)
+        self._publish_build_gauges()
+
+    def _publish_build_gauges(self) -> None:
+        s = self.serve
+        board.set("serve/page_size", s.page_size)
+        board.set("serve/num_pages", s.num_pages - 1)
+        board.set("serve/max_batch", s.max_batch)
+        board.set("serve/max_context", s.max_context)
+        board.set("serve/kv_wire", s.kv_wire)
+        board.set("serve/weight_wire", s.weight_wire)
+        if self.spec is not None:
+            board.set("serve/spec_k", self.spec.k)
+            board.set("serve/spec_mode", self.spec.mode)
 
     def _init_draft(self, spec: spec_lib.SpecConfig) -> None:
         """Validate the draft against the target and give it its weights
@@ -346,6 +398,83 @@ class InferenceEngine:
                 self._capture_spec()
         return self
 
+    # -- failure surface -----------------------------------------------------
+    @staticmethod
+    def _chaos_gate(site: str, call_idx: int):
+        """The serving chaos hook, on the host before the call (never in
+        a captured graph): ``stall`` sleeps (a hung call: the scheduler's
+        decode timeouts see it), ``raise`` raises
+        :class:`~apex_tpu_torch.resilience.chaos.InjectedFault`, and
+        ``nan`` / ``inf`` return the fault so that the caller poisons its
+        non-finite screen.  ``call_idx`` is the 0-based prefill-call,
+        decode-iteration or spec-round index."""
+        fault = chaos.active(site, call_idx)
+        if fault is None:
+            return None
+        if fault.mode == "stall":
+            time.sleep(fault.stall_seconds)
+            return None
+        if fault.mode in ("nan", "inf"):
+            return fault
+        raise chaos.InjectedFault(site, call_idx, fault.mode)
+
+    def _span(self, name: str, t0, **args) -> None:
+        """Record an ``engine/...`` span from ``t0`` to now, when a
+        recorder is attached."""
+        rec = self.spans
+        if rec is not None:
+            rec.span(name, t0, rec.now(), track=TRACK_ENGINE, **args)
+
+    def _now(self):
+        return self.spans.now() if self.spans is not None else None
+
+    @staticmethod
+    def _poison_first_live(finite: np.ndarray, lengths) -> np.ndarray:
+        """An injected poisoned-logits fault: the first live slot's
+        screen reads non-finite, as a real non-finite row would; the
+        quarantine downstream is the production path."""
+        live = np.flatnonzero(np.asarray(lengths) > 0)
+        if live.size:
+            finite[live[0]] = False
+        return finite
+
+    @torch.no_grad()
+    def rebuild(self, *, full: bool = False):
+        """Supervised recovery: on the card, drop the captured decode
+        graph (and the spec round's) and capture new ones — a re-capture,
+        with the KV pool, its scale planes, the weights and the page pool
+        left at their addresses, so surviving requests resume from their
+        pages and the new graphs read the same tensors.  Each old graph
+        is reset and its private memory pool released before the new
+        capture, so rebuilds do not grow the allocator's reservation.  A
+        replay after a rebuild gives the bits the replay before it gave.
+
+        ``full=True`` also drops what the engine caches per prefill
+        bucket; prefill runs eagerly and caches nothing per bucket, so
+        it is the default rebuild.  On the CPU (no graphs) a rebuild only
+        counts."""
+        self.rebuilds += 1
+        if self.device.type == "cuda":
+            had_spec = self._spec_graph is not None
+            self._release_graphs()
+            self._capture_decode()
+            if self.spec is not None and had_spec:
+                self._capture_spec()
+        board.set("serve/engine_rebuilds", self.rebuilds)
+        return self
+
+    def _release_graphs(self) -> None:
+        """Reset the captured graphs and return their private memory
+        pools to the card (nothing may still hold a graph's output)."""
+        torch.cuda.synchronize(self.device)
+        for g in (self._graph, self._spec_graph):
+            if g is not None:
+                g["graph"].reset()
+                g.clear()
+        self._graph = self._spec_graph = None
+        self.last_verify_logits = None
+        torch.cuda.empty_cache()
+
     # -- serving calls -------------------------------------------------------
     @torch.no_grad()
     def prefill(self, prompt_ids, page_ids, *, temperature: float = 0.0,
@@ -355,7 +484,8 @@ class InferenceEngine:
         returns ``(last_logits (V,) on the device, first_token)``.  The
         first token is sampled in the step (``temperature <= 0`` is
         greedy), its noise keyed by ``stream`` when given, else by the
-        call index."""
+        call index.  Rides the ``serve.prefill`` chaos site."""
+        poison = self._chaos_gate(chaos.SERVE_PREFILL, self.prefill_calls)
         n = len(prompt_ids)
         bucket = self.bucket_for(n)
         np_b = bucket // self.serve.page_size
@@ -364,6 +494,7 @@ class InferenceEngine:
         ids = np.full((np_b,), cache_lib.NULL_PAGE, np.int64)
         ids[: len(page_ids)] = np.asarray(page_ids, np.int64)
         keys = self._prefill_keys(stream)
+        t0 = self._now()
         logits, next_token, finite, self.cache = model_lib.prefill_body(
             self.cfg, self.weights, self.cache,
             self._tensor(tokens, torch.int64), n,
@@ -374,7 +505,11 @@ class InferenceEngine:
         )
         self.prefill_calls += 1
         out = torch.stack([next_token, finite.long()]).cpu()
-        self.last_prefill_finite = bool(out[1])
+        self.last_prefill_finite = bool(out[1]) and poison is None
+        # the readback above waited for the card: the span covers the
+        # device time
+        self._span("engine/prefill", t0, bucket=bucket, tokens=n,
+                   call=self.prefill_calls)
         return logits, int(out[0])
 
     @torch.no_grad()
@@ -389,7 +524,9 @@ class InferenceEngine:
         ``chunk_page_ids`` (null entries skip pages a borrowed cache run
         already holds).  Returns ``(last_logits (V,), next_token)`` for
         the chunk's final live position; the screen lands on
-        :attr:`last_prefill_finite`, as for :meth:`prefill`."""
+        :attr:`last_prefill_finite`, as for :meth:`prefill`, and it rides
+        the ``serve.prefill`` chaos site."""
+        poison = self._chaos_gate(chaos.SERVE_PREFILL, self.prefill_calls)
         n = len(chunk_ids)
         bucket = self.bucket_for(n)
         np_b = bucket // self.serve.page_size
@@ -401,6 +538,7 @@ class InferenceEngine:
                         np.int64)
         table[: len(page_table_row)] = np.asarray(page_table_row, np.int64)
         keys = self._prefill_keys(stream)
+        t0 = self._now()
         logits, next_token, finite, self.cache = model_lib.chunk_prefill_body(
             self.cfg, self.weights, self.cache,
             self._tensor(tokens, torch.int64), n, int(offset),
@@ -411,7 +549,9 @@ class InferenceEngine:
         )
         self.prefill_calls += 1
         out = torch.stack([next_token, finite.long()]).cpu()
-        self.last_prefill_finite = bool(out[1])
+        self.last_prefill_finite = bool(out[1]) and poison is None
+        self._span("engine/prefill", t0, bucket=bucket, tokens=n,
+                   offset=int(offset), call=self.prefill_calls, chunked=True)
         return logits, int(out[0])
 
     @torch.no_grad()
@@ -463,25 +603,30 @@ class InferenceEngine:
         return logits, torch.stack([next_tokens, finite.long()])
 
     def _capture(self, compute, width: int) -> dict:
-        """Run ``compute`` once on a side stream over an all-zero input
-        (every slot idle: it writes only the null pages), then capture
-        it into a CUDA graph over a static ``(max_batch, width)`` int64
-        input.  The launch counters and the path log are left as they
-        were; the launches and paths of the captured step are kept, and
-        every replay adds them."""
+        """Run ``compute`` once on the engine's side stream over an
+        all-zero input (every slot idle: it writes only the null pages),
+        then capture it into a CUDA graph over a static ``(max_batch,
+        width)`` int64 input on the same stream.  The launch counters and
+        the path log are left as they were; the launches and paths of the
+        captured step are kept, and every replay adds them.  One stream
+        for every capture of the engine's life: cuBLAS keeps a workspace
+        per stream, so a new stream at each re-capture would grow the
+        allocator's reservation by one workspace a rebuild."""
         dev = self.device
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        side = self._side
         inp = torch.zeros((self.serve.max_batch, width), dtype=torch.int64,
                           device=dev)
         staging = torch.zeros(inp.shape, dtype=torch.int64, pin_memory=True)
         with _dispatch.recorded_apart():
-            side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 compute(inp)
             torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _dispatch.recorded_apart() as rec:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=side):
                 outs = compute(inp)
         if not rec["launches"]:
             raise RuntimeError("the captured step launched no kernel")
@@ -503,6 +648,7 @@ class InferenceEngine:
         """Capture the decode step (:meth:`_capture`)."""
         self._graph = self._capture(
             self._decode_compute, _COLS + self.serve.max_pages_per_seq)
+        self.captures["decode"] = self.captures.get("decode", 0) + 1
 
     @property
     def graph_launches(self) -> dict:
@@ -522,9 +668,13 @@ class InferenceEngine:
         by the call index and the slot.  On the card the step is a replay
         of the captured graph.  Returns ``(logits (B, V) on the device,
         next_tokens (B,) on the host)``; the per-slot non-finite screen
-        lands on :attr:`last_decode_finite`."""
+        lands on :attr:`last_decode_finite`.  Rides the ``serve.decode``
+        chaos site, its gate on the host before the replay."""
+        poison = self._chaos_gate(chaos.SERVE_DECODE, self.decode_iters)
         arr = self._decode_input(tokens, lengths, page_tables, temps,
                                  streams, gens)
+        self.decode_iters += 1
+        t0 = self._now()
         if self.device.type == "cuda":
             if self._graph is None:
                 self._capture_decode()
@@ -532,9 +682,14 @@ class InferenceEngine:
             logits, out = logits.clone(), out.cpu()
         else:
             logits, out = self._decode_compute(torch.from_numpy(arr))
-        self.decode_iters += 1
         out = out.numpy()
-        self.last_decode_finite = out[1].astype(bool)
+        finite = out[1].astype(bool)
+        if poison is not None:
+            finite = self._poison_first_live(finite, lengths)
+        self.last_decode_finite = finite
+        # the readback above waited for the card
+        self._span("engine/decode", t0, iter=self.decode_iters,
+                   batch=int((np.asarray(lengths) > 0).sum()))
         return logits, out[0]
 
     @torch.no_grad()
@@ -564,6 +719,55 @@ class InferenceEngine:
         for cache in (self.cache, self.draft_cache or {}):
             for name, t in cache.items():
                 t.fill_(1 if name.endswith("_scale") else 0)
+
+    @torch.no_grad()
+    def probe_stream(self, prompt_ids, max_new_tokens: int):
+        """The golden-probe hook: run ONE prompt greedily through prefill
+        and a single-slot decode loop and return ``(tokens,
+        prefill_logits_bytes, finite)`` — the raw material of a model
+        fingerprint (greedy argmax ignores the sampler's noise, so the
+        stream is a function of the weights and the steps; the prefill's
+        last logits as f32 bytes make a digest sensitive to changes too
+        small to flip an argmax).  Pages come from the engine's own pool
+        and are freed before returning: probe a quiet engine.  ``finite``
+        folds in the non-finite screens."""
+        n = len(prompt_ids)
+        total = n + int(max_new_tokens)
+        if total > self.serve.max_context:
+            raise ValueError(
+                f"probe needs {total} tokens of context, "
+                f"max_context={self.serve.max_context}"
+            )
+        pages_needed = -(-total // self.serve.page_size)
+        page_ids = self.pool.alloc(pages_needed)
+        if page_ids is None:
+            raise RuntimeError(
+                f"probe_stream: page pool exhausted ({pages_needed} pages "
+                f"needed) — probe a quiet engine"
+            )
+        try:
+            # prefill takes the prompt's pages; decode reaches the growth
+            # pages through the full page-table row
+            prompt_pages = page_ids[: -(-n // self.serve.page_size)]
+            logits, first = self.prefill(prompt_ids, prompt_pages)
+            logits_bytes = logits.float().cpu().numpy().tobytes()
+            finite = bool(self.last_prefill_finite)
+            tokens = [first]
+            b = self.serve.max_batch
+            table = np.full((b, self.serve.max_pages_per_seq),
+                            cache_lib.NULL_PAGE, np.int32)
+            table[0, :pages_needed] = np.asarray(page_ids, np.int32)
+            for i in range(int(max_new_tokens) - 1):
+                tok = np.zeros((b,), np.int64)
+                lengths = np.zeros((b,), np.int32)
+                tok[0] = tokens[-1]
+                lengths[0] = n + i + 1  # context incl. the fed token
+                _, next_tokens = self.decode(tok, lengths, table)
+                finite = finite and bool(self.last_decode_finite[0])
+                tokens.append(int(next_tokens[0]))
+        finally:
+            self.pool.free(page_ids)
+        return tokens, logits_bytes, finite
 
     # -- speculative decoding ------------------------------------------------
     def _need_spec(self) -> spec_lib.SpecConfig:
@@ -596,11 +800,12 @@ class InferenceEngine:
         self.draft_prefill_calls += 1
 
     def _spec_input(self, tokens, lengths, page_tables, draft_tables, temps,
-                    streams, gens) -> np.ndarray:
-        """The spec round's inputs as one int64 host array (B, 5 + 2 NP):
+                    streams, gens, draft_poisoned=False) -> np.ndarray:
+        """The spec round's inputs as one int64 host array (B, 6 + 2 NP):
         token, length, the temperature's f32 bits, the stream folded to
-        31 bits, the generation index, the target's and the draft's page
-        tables."""
+        31 bits, the generation index, the draft's poison threshold (2
+        when ``draft_poisoned``, else 1), the target's and the draft's
+        page tables."""
         s = self.serve
         b, np_ = s.max_batch, s.max_pages_per_seq
         arr = np.zeros((b, _SPEC_COLS + 2 * np_), np.int64)
@@ -612,6 +817,7 @@ class InferenceEngine:
         arr[:, 3] = model_lib.fold31(np.asarray(streams, np.int64)
                                      & 0xFFFFFFFF)
         arr[:, 4] = np.asarray(gens, np.int64)
+        arr[:, 5] = 2 if draft_poisoned else 1
         arr[:, _SPEC_COLS:_SPEC_COLS + np_] = np.asarray(page_tables,
                                                           np.int64)
         arr[:, _SPEC_COLS + np_:] = np.asarray(draft_tables, np.int64)
@@ -638,13 +844,16 @@ class InferenceEngine:
             gens, k=k, page_size=s.page_size, kv_wire=s.kv_wire,
             top_k=s.top_k)
         if k:
-            # a non-finite draft must not smuggle a token into the
-            # stream: its proposals are pinned to one id with the
-            # matching point-mass distribution, which the rejection
-            # sampler handles like any q (greedy emits only the argmax
-            # chain), so such a round degrades to ~zero acceptance
+            # a non-finite (or chaos-poisoned) draft must not smuggle a
+            # token into the stream: its proposals are pinned to one id
+            # with the matching point-mass distribution, which the
+            # rejection sampler handles like any q (greedy emits only the
+            # argmax chain), so such a round degrades to ~zero
+            # acceptance.  A row is bad where finite (0 or 1) is under
+            # its threshold (1; 2 under a serve.draft nan/inf fault): one
+            # comparison, the op count of a plain negation
             pin = self.cfg.vocab_size - 1
-            bad = ~d_finite
+            bad = torch.lt(d_finite, inp[:, 5])
             d_tokens = torch.where(bad[:, None],
                                    torch.full_like(d_tokens, pin), d_tokens)
             point = (torch.arange(d_probs.shape[-1], device=bad.device)
@@ -662,6 +871,7 @@ class InferenceEngine:
         """Capture the spec round (:meth:`_capture`)."""
         self._spec_graph = self._capture(
             self._spec_compute, _SPEC_COLS + 2 * self.serve.max_pages_per_seq)
+        self.captures["spec"] = self.captures.get("spec", 0) + 1
 
     @property
     def spec_graph_launches(self) -> dict:
@@ -685,12 +895,25 @@ class InferenceEngine:
         ``out_tokens[b, :n_accept[b] + 1]``; the screen also lands on
         :attr:`last_decode_finite`, and the target's logits ``(k + 1, B,
         V)`` on the device on :attr:`last_verify_logits` (on the card the
-        graph's own output: valid until the next round).  The reference's ``serve.draft`` and
-        ``serve.decode`` chaos gates wait for the port of
-        ``resilience.chaos`` (ROADMAP)."""
-        k = self._need_spec().k
+        graph's own output: valid until the next round).
+
+        Rides the ``serve.draft`` chaos site (indexed by the round,
+        counted on attempts: a raise burns its index) — ``raise`` raises
+        before the round runs (the scheduler decodes those slots plain),
+        ``nan``/``inf`` pin every proposal (zero acceptance, never a
+        corrupt token) — and the ``serve.decode`` site for the verify, as
+        :meth:`decode`."""
+        spec = self._need_spec()
+        k = spec.k
+        round_idx = self.spec_rounds
+        self.spec_rounds += 1
+        draft_fault = self._chaos_gate(chaos.SERVE_DRAFT, round_idx)
+        poison = self._chaos_gate(chaos.SERVE_DECODE, self.decode_iters)
         arr = self._spec_input(tokens, lengths, page_tables, draft_tables,
-                               temps, streams, gens)
+                               temps, streams, gens,
+                               draft_poisoned=draft_fault is not None)
+        self.decode_iters += 1
+        t0 = self._now()
         if self.device.type == "cuda":
             if self._spec_graph is None:
                 self._capture_spec()
@@ -699,11 +922,16 @@ class InferenceEngine:
         else:
             logits, out = self._spec_compute(torch.from_numpy(arr))
         self.last_verify_logits = logits
-        self.spec_rounds += 1
-        self.decode_iters += 1
         out = out.numpy()
-        self.last_decode_finite = out[:, k + 2].astype(bool)
-        return out[:, : k + 1], out[:, k + 1], self.last_decode_finite
+        finite = out[:, k + 2].astype(bool)
+        if poison is not None:
+            finite = self._poison_first_live(finite, lengths)
+        self.last_decode_finite = finite
+        acc = out[:, k + 1]
+        live = int((np.asarray(lengths) > 0).sum())
+        self._span("engine/decode", t0, iter=self.decode_iters, batch=live,
+                   spec=True, drafted=k * live, accepted=int(acc.sum()))
+        return out[:, : k + 1], acc, finite
 
     def _rollback(self, cache, starts, counts, page_tables) -> None:
         s = self.serve

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-fourteen phases; any failure raises and the exit code is non-zero.  Without
+fifteen phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -161,6 +161,34 @@ a CUDA device it exits non-zero at once and prints no result.
     path's ms per save, the write's and the restore's ms, the engine's
     stall fraction, and the median step saving every 2 steps beside none.
     It needs 16 GB of free disk under the temporary directory.
+15. Serving robustness: ``GptConfig()`` (phase 2's seeded weights)
+    behind ``ServeConfig(page_size=16, max_batch=8, max_pages_per_seq=
+    128)`` with a 256-page pool, through the ported chaos drill
+    (``apex_tpu_torch.tools.serve_chaos_drill``): 100 Poisson arrivals
+    (seed 0, the reference drill's draws) of 64/256/1024-token prompts
+    and 16/32/64 new tokens on the virtual clock, fault-free and under
+    ``DEFAULT_CHAOS_SPEC``, then the overload probe and a drain of 12
+    requests, on bf16 and on int8 KV pages.  The drill's four guarantees
+    hold (no exception escapes; leak checks after every shed and free,
+    the pool empty; every request one terminal and every span chain
+    closed; the storm's p99 TTFT within 2x), the ledger equals
+    ``DEFAULT_EXPECTED`` exactly and every retry's cause is an injected
+    fault, the clamp rung and page pressure are reached, the probe sheds
+    exactly the excess as ``queue_full`` and clamps to 4 tokens, the
+    drain sheds its queue as ``draining``; a request that completed in
+    both runs streams the same tokens; K1, K3 and K6 launch exactly as
+    the calls require (the counters zeroed before the drill and read
+    after), all on the kernel paths.  Then a self-draft ``SpecConfig(k=
+    4)`` under two ``serve.draft`` raises and one ``serve.decode`` raise
+    (the streams equal plain decode's, both graphs re-captured, exact
+    launches); three ``rebuild()`` re-captures in the middle of a run
+    (the replay bit for bit equal to itself and the eager step before
+    and after each, ``memory_reserved`` not growing, the run's streams
+    an uninterrupted run's), a crashed decode step that every request
+    survives by retrying with its pages and prefix kept; a decode-only
+    scheduler step's host ms with a registry and a span recorder
+    attached beside one with neither (the same launches); and a metric
+    registry on the card read back as one on the host.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -168,8 +196,8 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 7 and 9 also run the card under the remat policies, whose losses and
 gradients must be equal bit for bit.
 
-The phases run in the order 1, 2, 3, 12, 13, 6, 7, 8, 9, 14, 10, 11, 4,
-5.
+The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
+11, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -203,8 +231,13 @@ among them.
 
     python3 chip_smoke.py --serving
 
-runs the serving phases alone (2, 3, 12, 13 and 5, checked as in the
-full run) and prints them as one JSON line.
+runs the serving phases alone (2, 3, 12, 13, 15 and 5, checked as in
+the full run) and prints them as one JSON line.
+
+    python3 chip_smoke.py --chaos
+
+runs phase 15 alone (with the kernels' build) and prints it as one JSON
+line.
 
     python3 chip_smoke.py --evoformer
 
@@ -2425,6 +2458,556 @@ def _plain_request(prompt, temperature=0.0, seed=None):
 
     return Request(prompt=list(prompt), max_new_tokens=NEW_TOKENS,
                    temperature=temperature, stream_seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: serving robustness at full width under a chaos storm
+# ---------------------------------------------------------------------------
+
+
+#: phase 15's pool: 256 usable pages (4096 tokens of KV) against the
+#: drill's 8 slots of up to 1024 + 64 tokens, so the clamp rung (60%
+#: occupancy) and page pressure (growth-page victims) are reached
+CHAOS_PAGES = 257
+CHAOS_PROMPTS = (64, 256, 1024)
+CHAOS_OUTPUTS = (16, 32, 64)
+#: drain requests: more than the 8 slots, so the drain sheds a queue
+CHAOS_DRAIN = 12
+#: the speculative run's storm: two faulted draft rounds (each falls
+#: back to plain decode) and one crashed spec round (retries, a
+#: re-capture of both graphs at the idle point)
+CHAOS_SPEC_FAULTS = "serve.draft:raise:x2@1,3;serve.decode:raise:x1@5"
+CHAOS_SPEC_EXPECTED = {"draft_faults": 2, "engine_faults": 1}
+CHAOS_REBUILDS = 3
+
+
+def _chaos_args(tmp):
+    """The drill's parser with phase 15's load: 100 Poisson arrivals
+    (seed 0) of prompts from CHAOS_PROMPTS and outputs from
+    CHAOS_OUTPUTS, the drill's ladder knobs, spans recorded."""
+    from apex_tpu_torch.tools import serve_chaos_drill as drill
+
+    return drill.build_parser().parse_args([
+        "--prompt-mix", *map(str, CHAOS_PROMPTS),
+        "--output-mix", *map(str, CHAOS_OUTPUTS),
+        "--batch", "8", "--page-size", "16", "--pages", str(CHAOS_PAGES),
+        "--pages-per-seq", "128", "--vocab", "50304",
+        "--drain-requests", str(CHAOS_DRAIN),
+        "--spans", os.path.join(tmp, "spans.json")])
+
+
+def _timed_decode(engine, record):
+    """Wrap ``engine.decode`` to append each call's host ms (it returns
+    host tokens: synchronised) to ``record``; the wrapper is an instance
+    attribute, dropped with ``delattr``."""
+    fn = engine.decode
+
+    def decode(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        record.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    engine.decode = decode
+
+
+def _serving_want(engines, layers):
+    """The exact K1/K3/K6 launches of plain serving on ``engines``: each
+    prefill K1 2L + 1 and K3 L, each decode replay K1 2L + 1 and K6 L."""
+    prefills = sum(e.prefill_calls for e in engines)
+    decodes = sum(e.decode_iters for e in engines)
+    return {"layer_norm_fwd": (2 * layers + 1) * (prefills + decodes),
+            "flash_fwd": layers * prefills,
+            "paged_decode": layers * decodes}
+
+
+WANT_PATHS = {"layer_norm": "cuda", "flash_attention": "cuda",
+              "paged_decode_attention": "cuda"}
+
+
+def _chaos_drill(model, kv_wire, tmp):
+    """One run of the ported chaos drill at full width on ``kv_wire``:
+    the fault-free reference, the storm (DEFAULT_CHAOS_SPEC), the
+    overload probe and the drain, with the launch counters zeroed before
+    and read after.  Holds the drill's four guarantees and its ledger to
+    DEFAULT_EXPECTED exactly, every retry's cause to an injected fault,
+    the streams of requests that completed in both runs, the exact
+    launches and the kernel paths; returns (launches, numbers)."""
+    import gc
+
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+    from apex_tpu_torch.tools import serve_chaos_drill as drill
+
+    args = _chaos_args(tmp)
+    serve = ServeConfig(page_size=16, num_pages=CHAOS_PAGES, max_batch=8,
+                        max_pages_per_seq=128, kv_wire=kv_wire)
+    engines, decode_ms = [], []
+
+    def factory(args, registry=None):
+        eng = InferenceEngine(model.cfg, model, serve,
+                              registry=registry).build()
+        decode_ms.append([])
+        _timed_decode(eng, decode_ms[-1])
+        engines.append(eng)
+        return eng
+
+    keep = {}
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    art = drill.run_drill(args, engine_factory=factory, keep=keep)
+    torch.cuda.synchronize()
+    launches, paths = _dispatch.launches(), _dispatch.last_paths()
+    tag = f"phase 15 ({kv_wire} KV)"
+    failures = drill.check(art, args)
+    probe = art["overload_probe"]
+    if probe["clamped_to"] != [4]:
+        failures.append(f"the probe clamped to {probe['clamped_to']}, not 4")
+    if not art["storm"]["clamped"] or not art["storm"]["shed_reasons"].get(
+            "growth_victim"):
+        failures.append("the storm reached neither the clamp rung nor "
+                        f"page pressure: {art['storm']}")
+    with open(args.spans) as f:
+        spans = json.load(f)["spans"]
+    causes = [e["args"]["cause"] for e in spans
+              if e["name"] == "req/retrying"]
+    if (len(causes) != art["registry"]["serve/retries"]
+            or any(c.split(":")[1] != "InjectedFault" for c in causes)):
+        failures.append(f"retries whose cause is not an injected fault: "
+                        f"{causes}")
+    # a request that completed in both runs streams the same tokens (a
+    # retried one resumed from its kept pages); where the clamp rung cut
+    # one run short, the shorter stream is the longer's prefix
+    pairs = [(a, b) for a, b in zip(keep["reference"], keep["storm"])
+             if a.status == b.status == "done"]
+    same = sum(a.tokens == b.tokens for a, b in pairs)
+    for a, b in pairs:
+        n = min(len(a.tokens), len(b.tokens))
+        if a.tokens[:n] != b.tokens[:n] or (
+                a.max_new_tokens == b.max_new_tokens
+                and a.tokens != b.tokens):
+            failures.append(f"request {a.rid}/{b.rid}: the storm's stream "
+                            "differs from the fault-free run's")
+    retried = [b for a, b in pairs if b.retries]
+    want = _serving_want(engines, model.cfg.num_layers)
+    if launches != want or min(want.values()) <= 0:
+        failures.append(f"launches {launches} != {want}")
+    if paths != WANT_PATHS:
+        failures.append(f"op paths {paths} != {WANT_PATHS}")
+    per_replay = {"layer_norm_fwd": 2 * model.cfg.num_layers + 1,
+                  "paged_decode": model.cfg.num_layers}
+    if any(e.graph_launches != per_replay for e in engines):
+        failures.append("a replay's launches "
+                        f"{[e.graph_launches for e in engines]}")
+    if failures:
+        raise AssertionError(f"{tag}: " + "; ".join(failures))
+    ref_ms, storm_ms = decode_ms
+    tick_ms = 1e3 * drill.VirtualClock().tick_s
+    out = {"config": art["config"], "chaos_spec": art["chaos_spec"],
+           "engine_faults": art["registry"]["serve/engine_faults"],
+           "rebuilds": art["engine"]["rebuilds"],
+           "graph_captures": art["engine"]["graph_captures"],
+           "overload_probe": probe, "drain": art["drain"],
+           "p99_ttft_inflation": art["p99_ttft_inflation"],
+           "streams_equal": same, "completed_in_both": len(pairs),
+           "retried_completed": len(retried)}
+    for run, ms in (("reference", ref_ms), ("storm", storm_ms)):
+        r = art[run]
+        out[run] = {
+            "host_s": r["host_s"], "completed": r["completed"],
+            "shed_reasons": r["shed_reasons"], "clamped": r["clamped"],
+            "retries": r["retries_total"],
+            "ttft_p50_ticks": r["ttft_ms"]["p50"] / tick_ms,
+            "ttft_p99_ticks": r["ttft_ms"]["p99"] / tick_ms,
+            "decode_steps": len(ms),
+            "decode_host_ms_median": statistics.median(ms),
+            "decode_host_ms_mean": statistics.fmean(ms)}
+        log(f"  {kv_wire} KV, {run}: {r['completed']}/{r['offered']} "
+            f"done, shed {r['shed_reasons']}, clamped {r['clamped']}, "
+            f"retries {r['retries_total']}; host {r['host_s']:.3f} s; "
+            f"TTFT p50/p99 {out[run]['ttft_p50_ticks']:.1f}/"
+            f"{out[run]['ttft_p99_ticks']:.1f} ticks; decode "
+            f"{len(ms)} steps, host ms median "
+            f"{out[run]['decode_host_ms_median']:.3f} mean "
+            f"{out[run]['decode_host_ms_mean']:.3f}")
+    log(f"  {kv_wire} KV: ledger {dict((k, art['registry'][v]) for k, v in drill.EXPECTED_KEYS.items())} "
+        f"= DEFAULT_EXPECTED; inflation {art['p99_ttft_inflation']:.3f}; "
+        f"probe {probe['queue_full']} queue_full of {probe['burst']}, "
+        f"{probe['clamped']} clamped to {probe['clamped_to']}; drain "
+        f"{art['drain']['statuses']}, pool {art['drain']['pool_in_use']}; "
+        f"{same}/{len(pairs)} streams equal ({len(retried)} retried); "
+        f"launches {launches}")
+    for eng in engines:
+        del eng.decode
+    engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _chaos_requests(cfg, seed=5):
+    """8 greedy requests, prompts from CHAOS_PROMPTS, 32 new tokens."""
+    from apex_tpu_torch.serve import Request
+
+    rs = np.random.RandomState(seed)
+    lens = [CHAOS_PROMPTS[i % 3] for i in range(8)]
+    return [Request(prompt=[int(t) for t in rs.randint(0, cfg.vocab_size,
+                                                      size=n)],
+                    max_new_tokens=NEW_TOKENS) for n in lens]
+
+
+def _chaos_spec(model):
+    """A self-draft SpecConfig(k=4) engine under CHAOS_SPEC_FAULTS: the
+    greedy streams equal plain decode's, the ledger is the injected one,
+    the pool ends empty, and K1/K3/K6 launch exactly as the calls that
+    ran require (a faulted round runs nothing)."""
+    import gc
+
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.resilience import chaos
+    from apex_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        InferenceEngine,
+        ServeConfig,
+        SpecConfig,
+    )
+
+    cfg = model.cfg
+    serve = ServeConfig(page_size=16, num_pages=1025, max_batch=8,
+                        max_pages_per_seq=128)
+    plain = InferenceEngine(cfg, model, serve).build()
+    sched = ContinuousBatchingScheduler(plain)
+    reqs = [sched.submit(r) for r in _chaos_requests(cfg)]
+    sched.run()
+    want_streams = [r.tokens for r in reqs]
+    del plain, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = InferenceEngine(cfg, model, serve,
+                          spec=SpecConfig(None, k=4)).build()
+    ran = {"spec_step": 0, "decode": 0}
+    for name in ran:
+        fn = getattr(eng, name)
+
+        def call(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            ran[_name] += 1  # the call ran its graph: no fault raised
+            return out
+
+        setattr(eng, name, call)
+    reg = MetricRegistry(fetch_every=1)
+    sched = ContinuousBatchingScheduler(eng, registry=reg)
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    with chaos.inject(*chaos.parse_spec(CHAOS_SPEC_FAULTS)[0]):
+        reqs = [sched.submit(r) for r in _chaos_requests(cfg)]
+        sched.run()
+    torch.cuda.synchronize()
+    launches, paths = _dispatch.launches(), _dispatch.last_paths()
+    for name in ran:
+        delattr(eng, name)
+    reg.fetch()
+    vals = reg.values()
+    got = {k: vals[f"serve/{k}"] for k in CHAOS_SPEC_EXPECTED}
+    layers, k = cfg.num_layers, eng.spec.k
+    calls = {"prefills": eng.prefill_calls,
+             "draft_prefills": eng.draft_prefill_calls,
+             "spec_rounds": ran["spec_step"], "plain_decodes": ran["decode"]}
+    want = _spec_want(cfg, layers, k, calls, chunked=False)
+    failures = []
+    if [r.tokens for r in reqs] != want_streams:
+        failures.append("the spec streams under faults differ from plain "
+                        "decode's")
+    if any(r.status != "done" for r in reqs) or eng.pool.in_use:
+        failures.append(f"statuses {[r.status for r in reqs]}, "
+                        f"{eng.pool.in_use} pages in use")
+    # the owed rebuild runs at the idle exit, after the last publish: the
+    # engine counts it
+    if got != CHAOS_SPEC_EXPECTED or eng.rebuilds != 1:
+        failures.append(f"ledger {got} (rebuilds {eng.rebuilds}) != "
+                        f"{CHAOS_SPEC_EXPECTED}")
+    if eng.captures != {"decode": 2, "spec": 2}:
+        failures.append(f"graph captures {eng.captures}")
+    if launches != want or not ran["spec_step"] or not ran["decode"]:
+        failures.append(f"launches {launches} != {want} (calls {calls})")
+    if paths != WANT_PATHS:
+        failures.append(f"op paths {paths}")
+    if failures:
+        raise AssertionError("phase 15 (spec): " + "; ".join(failures))
+    log(f"  spec k=4 self-draft under {CHAOS_SPEC_FAULTS!r}: 8 streams "
+        f"equal plain decode's; ledger {got}; captures {eng.captures}; "
+        f"{ran['spec_step']} rounds and {ran['decode']} plain decodes ran; "
+        f"launches {launches}")
+    out = {"faults": CHAOS_SPEC_FAULTS, "ledger": got,
+           "rebuilds": eng.rebuilds,
+           "captures": dict(eng.captures), "calls": calls,
+           "launches": launches}
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_args(sched):
+    """The inputs the scheduler's next plain decode would feed (the live
+    slots' last tokens at their context lengths, their page tables)."""
+    from apex_tpu_torch.serve import NULL_PAGE
+
+    b, np_ = len(sched.slots), sched.serve.max_pages_per_seq
+    tokens = np.zeros((b,), np.int64)
+    lengths = np.zeros((b,), np.int32)
+    tables = np.full((b, np_), NULL_PAGE, np.int32)
+    for i, r in enumerate(sched.slots):
+        if r is not None and r.status == "running":
+            tokens[i] = r.tokens[-1]
+            lengths[i] = r.ctx_len + 1
+            tables[i, : len(r.pages)] = r.pages
+    return tokens, lengths, tables
+
+
+def _chaos_rebuilds(model):
+    """CHAOS_REBUILDS re-captures in the middle of a run: before and
+    after each, the replay of the live batch's next decode gives the
+    same bits, equal to the eager step's; ``memory_reserved`` never
+    exceeds its value before the first rebuild; the run then completes
+    with the streams of an uninterrupted run.  Then a crashed decode
+    step (``serve.decode:raise`` at the batch's third iteration): every
+    running request retries with its pages and prefix kept, the owed
+    rebuild runs at the idle point, and the streams are again the
+    uninterrupted run's (the reference's
+    ``test_decode_fault_retries_preserve_prefix`` at full width).
+    Reports the host ms of a re-capture."""
+    import gc
+
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.resilience import chaos
+    from apex_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        InferenceEngine,
+        ServeConfig,
+    )
+
+    cfg = model.cfg
+    eng = InferenceEngine(cfg, model, ServeConfig(
+        page_size=16, num_pages=1025, max_batch=8,
+        max_pages_per_seq=128)).build()
+    sched = ContinuousBatchingScheduler(eng)
+    reqs = [sched.submit(r) for r in _chaos_requests(cfg, seed=6)]
+    sched.run()
+    want = [r.tokens for r in reqs]
+    sched = ContinuousBatchingScheduler(eng)
+    reqs = [sched.submit(r) for r in _chaos_requests(cfg, seed=6)]
+    for _ in range(4):  # every request admitted and a few tokens decoded
+        sched.step()
+    args = _decode_args(sched)
+    if int((args[1] > 0).sum()) != 8:
+        raise AssertionError("phase 15: the batch is not full mid-run")
+    logits0, tok0 = eng.decode(*args)
+    logits0 = logits0.clone()
+    e_logits, e_tok, _ = eng._decode_eager(*args)
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    allocated0 = torch.cuda.memory_allocated()
+    ms, reserved, allocated = [], [], []
+    failures = []
+    if not (torch.equal(logits0, e_logits) and np.array_equal(tok0, e_tok)):
+        failures.append("the replay differs from the eager step")
+    for i in range(CHAOS_REBUILDS):
+        t = time.perf_counter()
+        eng.rebuild()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        logits, tok = eng.decode(*args)
+        if not (torch.equal(logits, logits0) and np.array_equal(tok, tok0)):
+            failures.append(f"the replay after rebuild {i + 1} differs")
+        reserved.append(torch.cuda.memory_reserved())
+        allocated.append(torch.cuda.memory_allocated())
+    sched.run()
+    if [r.tokens for r in reqs] != want or eng.pool.in_use:
+        failures.append("the run across the rebuilds did not stream the "
+                        "uninterrupted run's tokens")
+    sched = ContinuousBatchingScheduler(eng, registry=MetricRegistry(
+        fetch_every=1))
+    fault = chaos.Fault(chaos.SERVE_DECODE, steps=(eng.decode_iters + 2,),
+                        mode="raise", max_hits=1)
+    with chaos.inject(fault):
+        reqs = [sched.submit(r) for r in _chaos_requests(cfg, seed=6)]
+        sched.run()
+    sched.registry.fetch()
+    vals = sched.registry.values()
+    if ([r.tokens for r in reqs] != want
+            or [r.retries for r in reqs] != [1] * 8
+            or vals["serve/engine_faults"] != 1
+            or vals["serve/readmitted"] != 8
+            or eng.rebuilds != 1 + CHAOS_REBUILDS or eng.pool.in_use):
+        failures.append(
+            f"after a crashed decode: retries {[r.retries for r in reqs]}, "
+            f"faults {vals['serve/engine_faults']}, readmitted "
+            f"{vals['serve/readmitted']}, rebuilds {eng.rebuilds}, or the "
+            "streams differ from the uninterrupted run's")
+    if max(reserved) > reserved0:
+        failures.append(f"memory_reserved grew: {reserved0} -> {reserved}")
+    if eng.captures.get("decode") != 2 + CHAOS_REBUILDS:
+        failures.append(f"captures {eng.captures}")
+    if failures:
+        raise AssertionError("phase 15 (rebuilds): " + "; ".join(failures))
+    log(f"  {CHAOS_REBUILDS} rebuilds mid-run: the replay equal to itself "
+        f"and the eager step bit for bit; re-capture host ms "
+        f"{[round(x, 3) for x in ms]}; memory_reserved {reserved0} -> "
+        f"{reserved}, allocated {allocated0} -> {allocated}; the run's "
+        "streams equal the uninterrupted run's; after a crashed decode "
+        "step all 8 requests retried and streamed them again")
+    out = {"recapture_ms": ms, "reserved_before": reserved0,
+           "reserved_after": reserved, "allocated_before": allocated0,
+           "allocated_after": allocated}
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 15's telemetry modes: (registry fetched every step, spans)
+TELEMETRY_MODES = {"none": (False, False), "registry": (True, False),
+                   "spans": (False, True), "both": (True, True)}
+
+
+def _telemetry_cost(model, rounds=2):
+    """The host ms of a decode-only scheduler step with a registry
+    (fetch every step), a span recorder, both or neither attached,
+    alternated ``rounds`` times on one engine; the launches of every
+    timed step must be the graph's (publishing adds none)."""
+    import gc
+
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry, SpanRecorder
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        InferenceEngine,
+        Request,
+        ServeConfig,
+    )
+
+    cfg = model.cfg
+    eng = InferenceEngine(cfg, model, ServeConfig(
+        page_size=16, num_pages=1025, max_batch=8,
+        max_pages_per_seq=128)).build()
+    times = {mode: [] for mode in TELEMETRY_MODES}
+    rs = np.random.RandomState(7)
+    prompts = [[int(t) for t in rs.randint(0, cfg.vocab_size, size=64)]
+               for _ in range(8)]
+    per_step = eng.graph_launches
+    for _ in range(rounds):
+        for mode, (reg, spans) in TELEMETRY_MODES.items():
+            sched = ContinuousBatchingScheduler(
+                eng, registry=MetricRegistry(fetch_every=1) if reg else None,
+                spans=SpanRecorder() if spans else None)
+            for p in prompts:
+                sched.submit(Request(prompt=list(p), max_new_tokens=64))
+            sched.step()  # admissions and the first decode
+            while sched.pending:
+                _dispatch.reset_launches()
+                t = time.perf_counter()
+                sched.step()
+                dt = 1e3 * (time.perf_counter() - t)
+                if sched.pending:  # the last step retires every request
+                    times[mode].append(dt)
+                if _dispatch.launches() != per_step:
+                    raise AssertionError(
+                        f"phase 15: a {mode} step launched "
+                        f"{_dispatch.launches()}, a replay {per_step}")
+    med = {m: statistics.median(v) for m, v in times.items()}
+    log("  telemetry: a decode-only scheduler step's host ms "
+        + ", ".join(f"{m} {v:.3f}" for m, v in med.items())
+        + f" (both - none +{med['both'] - med['none']:.3f} ms; "
+        f"{len(times['none'])} steps each); launches a step {per_step}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "steps": len(times["none"])}
+
+
+def _registry_on_card(steps=12, fetch_every=2):
+    """A MetricRegistry whose state lives on the card (each fetch a
+    ``non_blocking`` copy into pinned memory behind a CUDA event) against
+    one on the host, fed the same updates: at every step the same
+    fetched values and step, at most ``2 * fetch_every`` steps stale."""
+    import torch
+
+    from apex_tpu_torch.observability import MetricRegistry
+    from apex_tpu_torch.serve import declare_serve_metrics
+
+    regs = {d: MetricRegistry(fetch_every=fetch_every, device=d)
+            for d in ("cuda", "cpu")}
+    states = {}
+    for dev, reg in regs.items():
+        declare_serve_metrics(reg)
+        reg.minimum("train/loss_min")
+        states[dev] = reg.init()
+    for step in range(steps):
+        upd = {"serve/tokens_out": 8, "serve/queue_depth": step % 5,
+               "serve/ttft_ms": 0.1 * step, "train/loss_min": 9.0 - step % 4}
+        for dev, reg in regs.items():
+            # a device tensor feeds the card's state, as a step would
+            vals = dict(upd, **{"serve/completed": torch.tensor(
+                float(step), device=dev)})
+            reg.update(states[dev], vals)
+            reg.observe(step, states[dev])
+        card, host = regs["cuda"], regs["cpu"]
+        if (card.values() != host.values()
+                or card.fetched_step != host.fetched_step
+                or (card.fetched_step is not None
+                    and step - card.fetched_step > 2 * fetch_every)):
+            raise AssertionError(
+                f"phase 15: the card's registry at step {step} read "
+                f"{card.fetched_step}, the host's {host.fetched_step}")
+    if regs["cuda"].fetch() != regs["cpu"].fetch():
+        raise AssertionError("phase 15: the card's registry drained other "
+                             "values than the host's")
+    log(f"  a registry on the card: {steps} steps at fetch_every "
+        f"{fetch_every} read the host registry's values and steps")
+    return {"steps": steps, "fetch_every": fetch_every}
+
+
+def phase15():
+    """Serving robustness at the full width of ``GptConfig()`` (phase 2's
+    seeded weights) under a chaos storm, through the ported drill
+    (``apex_tpu_torch.tools.serve_chaos_drill``) on bf16 and on int8 KV
+    pages; a speculative run under draft and decode faults; three
+    re-captures in the middle of a run; and the telemetry's cost a
+    decode step.  Returns (the bf16 drill's launches, the numbers)."""
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+
+    log("phase 15: GptConfig() serving under a chaos storm (the drill at "
+        f"{CHAOS_PAGES - 1} pages, prompts {CHAOS_PROMPTS}, outputs "
+        f"{CHAOS_OUTPUTS}), spec under draft faults, rebuilds, telemetry")
+    torch.cuda.empty_cache()
+    model = GptModel(GptConfig(),
+                     generator=torch.Generator("cuda").manual_seed(1234))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_phase15_") as tmp:
+        launches, out["bf16_kv"] = _chaos_drill(model, "f32", tmp)
+        out["int8_kv"] = _chaos_drill(model, "int8", tmp)[1]
+    out["spec"] = _chaos_spec(model)
+    out["rebuilds"] = _chaos_rebuilds(model)
+    out["telemetry"] = _telemetry_cost(model)
+    out["registry_on_card"] = _registry_on_card()
+    del model
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -4977,13 +5560,16 @@ def main():
                         "plain versions)")
     parser.add_argument("--serving", action="store_true",
                         help="run the serving phases alone (2, 3, 12, 13, "
-                        "5)")
+                        "15, 5)")
     parser.add_argument("--evoformer", action="store_true",
                         help="run phase 10's bf16 evoformer training alone "
                         "(launches logged, not checked)")
     parser.add_argument("--resilience", action="store_true",
                         help="run phase 14 alone (checkpoint, preemption "
                         "and resume of BERT-Large)")
+    parser.add_argument("--chaos", action="store_true",
+                        help="run phase 15 alone (serving under a chaos "
+                        "storm, rebuilds, the telemetry's cost)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -5038,13 +5624,21 @@ def main():
         cross = phase3()
         wires_launches, wires = phase12()
         spec_launches, spec = phase13(streams, rates)
+        chaos_launches, chaos = phase15()
         profile = phase5(engine)
         print(json.dumps({"serving": dict(rates, launches=serve_launches),
                           "cross_check": cross,
                           "serving_int8_wires": dict(
                               wires, launches=wires_launches),
                           "speculative": spec,
+                          "serving_chaos": dict(
+                              chaos, launches=chaos_launches),
                           "decode_profile": profile}), flush=True)
+        return
+    if args.chaos:
+        launches, chaos = phase15()
+        print(json.dumps({"serving_chaos": dict(chaos, launches=launches)}),
+              flush=True)
         return
     if args.resilience:
         launches, run = phase14()
@@ -5077,6 +5671,7 @@ def main():
     cross = phase3()
     wires_launches, wires = phase12()
     spec_launches, spec = phase13(streams, rates)
+    chaos_launches, chaos = phase15()
     train_launches, training = phase6()
     train_cross = phase7()
     bert_launches, bert = phase8()
@@ -5088,6 +5683,7 @@ def main():
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
+            ("serving_chaos", chaos_launches),
             ("training", train_launches),
             ("bert", bert_launches["bert"]),
             ("bert_dropout", bert_launches["bert_dropout"]),
@@ -5106,7 +5702,7 @@ def main():
     profile = phase5(engine)
     log(json.dumps({"serving": rates, "cross_check": cross,
                     "serving_int8_wires": wires, "speculative": spec,
-                    "training": training, "training_cross_check": train_cross,
+                    "serving_chaos": chaos, "training": training, "training_cross_check": train_cross,
                     "bert": bert, "bert_cross_check": bert_cross,
                     "resilience": resilience,
                     "evoformer": evoformer,

@@ -5,8 +5,8 @@
 - entry points (the GPT and BERT models, the engine with and without a
   draft, the converters of weights and optimizer states, the example
   trainers and the BERT example's resume, the OpenFold modules,
-  ``rope_tables``, ``DevicePrefetcher`` and ``ResumableStream``'s
-  prefetch) run on the card by default
+  ``rope_tables``, ``DevicePrefetcher``, ``ResumableStream``'s
+  prefetch and the serving chaos drill) run on the card by default
   and raise without one, unless the caller passes ``device="cpu"``;
 - kernel wrappers launch their kernel or raise: handed CPU tensors, a
   kernel entry refuses instead of computing the plain version, and a
@@ -51,6 +51,7 @@ from apex_tpu_torch.ops.paged_attention import paged_decode_fwd
 from apex_tpu_torch.ops import paged_attention
 from apex_tpu_torch.data import DevicePrefetcher
 from apex_tpu_torch.goodput import ResumableStream
+from apex_tpu_torch.tools import serve_chaos_drill
 from apex_tpu_torch.serve import (
     InferenceEngine,
     ServeConfig,
@@ -110,6 +111,10 @@ COUNTERPARTS = (
     "checkpoint/__init__.py", "resilience/__init__.py",
     "resilience/chaos.py", "resilience/retry.py", "resilience/runner.py",
     "goodput/__init__.py", "goodput/async_ckpt.py", "goodput/stream.py",
+    "observability/__init__.py", "observability/meter.py",
+    "observability/ometrics.py", "observability/metrics.py",
+    "observability/flight.py", "observability/spans.py",
+    "observability/health.py",
 )
 
 
@@ -117,6 +122,49 @@ COUNTERPARTS = (
 def test_port_modules_keep_their_counterparts_names(module):
     assert (ROOT / "apex_tpu" / module).is_file(), module
     assert (ROOT / "apex_tpu_torch" / module).is_file(), module
+
+
+#: the port's tools under the reference's tools/ names
+TOOLS = ("serve_chaos_drill.py",)
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_port_tools_keep_their_counterparts_names(tool):
+    assert (ROOT / "tools" / tool).is_file(), tool
+    assert (ROOT / "apex_tpu_torch" / "tools" / tool).is_file(), tool
+
+
+def test_new_public_names_are_the_references():
+    """The serving and observability names this port carries over."""
+    import apex_tpu_torch.observability as obs
+    import apex_tpu_torch.serve as serve
+    from apex_tpu_torch.serve import scheduler
+
+    for name in ("SHED_REROUTED", "TTFT_COMPONENTS", "declare_serve_metrics",
+                 "ttft_attribution", "target_probs"):
+        assert hasattr(serve, name), name
+    for name in ("RETRYING", "SHED_DEADLINE", "SHED_QUEUE_FULL",
+                 "SHED_RETRIES_EXHAUSTED", "SHED_DRAINING", "SHED_REROUTED"):
+        assert hasattr(scheduler, name), name
+    sched = scheduler.ContinuousBatchingScheduler
+    for name in ("_send_to_retry", "_on_engine_fault", "_run_rebuild",
+                 "flush_rebuild", "_overloaded", "_readmit", "drain",
+                 "start_drain", "finish_drain", "resume", "batch_fill"):
+        assert callable(getattr(sched, name)), name
+    for name in ("_chaos_gate", "rebuild", "probe_stream"):
+        assert callable(getattr(InferenceEngine, name)), name
+    assert {"ttft_ms", "ttft_components"} <= set(dir(scheduler.Request))
+    for name in ("MetricRegistry", "Board", "board", "FlightRecorder",
+                 "SpanRecorder", "Watchdog", "serve_rules", "render",
+                 "parse_exposition", "OpsServer", "Histogram",
+                 "metric_name", "ExportNamespace", "percentile",
+                 "TTFTRule", "QueueDepthRule", "QueueWaitFractionRule",
+                 "SpecAcceptanceRule", "ServeFaultRule", "HealthEvent",
+                 "Rule", "wall_clock_anchor", "monotonic_to_epoch",
+                 "parse_spans_spec", "json_safe", "parse_flight_spec",
+                 "ENV_FLIGHT", "ops_port_from_env",
+                 "DEFAULT_LATENCY_BUCKETS_MS"):
+        assert hasattr(obs, name), name
 
 
 class _OneBatchLoader:
@@ -135,7 +183,7 @@ def no_gpu(monkeypatch):
                                    "kv_pages", "spec_engine", "rope_tables",
                                    "prefetcher", "lamb_convert",
                                    "adam_convert", "bert_resume",
-                                   "resumable_stream"])
+                                   "resumable_stream", "chaos_drill"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -175,6 +223,8 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
                                 "--ckpt-dir", "unused"])
         elif entry == "resumable_stream":
             ResumableStream(_OneBatchLoader(), prefetch=1)(0)
+        elif entry == "chaos_drill":
+            serve_chaos_drill.main([])
         else:
             pretrain_bert.main(["--tiny", "--steps", "1"])
 

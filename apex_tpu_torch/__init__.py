@@ -17,14 +17,19 @@ Subpackages
 - :mod:`apex_tpu_torch.models` — GPT and BERT (f32 weights, the
   training forward and losses, the remat policies) and the converters
   to and from the JAX parameter trees.
-- :mod:`apex_tpu_torch.transformer` — the cross entropy and the RNG
-  tracker at tp = 1, the enums, ``FusedScaleMaskSoftmax`` and the remat
-  policy resolution.
+- :mod:`apex_tpu_torch.parallel_state` — the ``(dp, pp, cp, tp)``
+  process groups.
+- :mod:`apex_tpu_torch.transformer` — tensor and sequence parallelism
+  (the mappings, the Column/Row/VocabParallel layers, the vocab-parallel
+  cross entropy, the RNG tracker and RNG-correct checkpoint), the enums,
+  ``FusedScaleMaskSoftmax`` and the remat policy resolution.
 - :mod:`apex_tpu_torch.optimizers` — FusedAdam and FusedLAMB.
 - :mod:`apex_tpu_torch.data` — token files, the synthetic corpus, the
   sharded shuffling loader, the BERT batches and ``DevicePrefetcher``.
-- :mod:`apex_tpu_torch.parallel` — the blockwise int8 codec of the
-  gradient wire (the serving KV and weight wires use it).
+- :mod:`apex_tpu_torch.parallel` — data parallelism: the gradient-sync
+  engine (three wires, chunking, plans, the collective call log, the
+  int8 codec the serving wires use too), DDP, ZeRO Adam/LAMB,
+  SyncBatchNorm and the process group's start-up.
 - :mod:`apex_tpu_torch.serve` — paged KV cache (bf16/f32 or int8 pages),
   prefix cache, inference engine (sampling, chunked prefill, the decode
   step and the speculative round as CUDA graphs) and continuous-batching
@@ -38,9 +43,11 @@ Subpackages
 - :mod:`apex_tpu_torch.resilience` — chaos fault injection, retry, and
   ``run_resilient`` (auto-resume, preemption, rollback).
 - :mod:`apex_tpu_torch.observability` — the lock-order sanitizer.
-- :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``.
-- :mod:`apex_tpu_torch.contrib` — the OpenFold surface: ``mha``,
-  ``layer_norm``, ``DAPAxialBlock`` and the evoformer modules.
+- :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``,
+  ``distributed_data_parallel``.
+- :mod:`apex_tpu_torch.contrib` — the OpenFold surface (``mha``,
+  ``layer_norm``, ``DAPAxialBlock``, the evoformer modules) and the ZeRO
+  optimizers under their contrib names.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
@@ -49,8 +56,9 @@ for the CPU.
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
-                    "parallel", "serve", "examples", "contrib", "checkpoint",
-                    "goodput", "resilience", "observability")
+                    "parallel", "parallel_state", "serve", "examples",
+                    "contrib", "checkpoint", "goodput", "resilience",
+                    "observability")
 
 
 def __getattr__(name):

@@ -1,17 +1,22 @@
-"""BERT-Large phase-1 pretraining on one GPU.
+"""BERT-Large phase-1 pretraining, data-parallel over the world.
 
-The port's counterpart of ``examples/bert/pretrain_bert.py`` at data
-parallelism 1: the packed-corpus loader -> the MLM corruption and the
-fixed-K prediction triple (``bert_mlm_batches``) ->
-``BertForPreTraining(BertConfig(remat=True))`` -> ``bert_pretrain_loss``
--> ``loss.backward()`` -> ``FusedLAMB.step()`` (lr 1e-3, weight decay
-0.01), bf16 compute on f32 weights.  The batches reach the device
+The port's counterpart of ``examples/bert/pretrain_bert.py``: the
+packed-corpus loader -> the MLM corruption and the fixed-K prediction
+triple (``bert_mlm_batches``) -> this dp rank's columns of the global
+batch -> ``BertForPreTraining(BertConfig(remat=True))`` ->
+``bert_pretrain_loss`` -> ``loss.backward()`` under
+``DistributedDataParallel`` (gradients averaged over the world; the
+dp-mean loss) -> ``FusedLAMB.step()`` (lr 1e-3, weight decay 0.01),
+bf16 compute on f32 weights.  The batches reach the device
 through ``DevicePrefetcher`` (two batches ahead, pinned memory, as the
 JAX example's ``DevicePrefetcher``).  On the card every LayerNorm runs
 through K1/K2 and every attention through K3/K4 with the key-padding
 bias.
 
     python -m apex_tpu_torch.examples.pretrain_bert --steps 8 --batch 128
+    # data-parallel over two cards (global batch 128, 64 a rank):
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.examples.pretrain_bert \
+        --steps 8 --batch 128
     # checkpoint every 2 steps, then resume from the newest checkpoint:
     python -m apex_tpu_torch.examples.pretrain_bert --steps 4 --ckpt-dir D --save-every 2
     python -m apex_tpu_torch.examples.pretrain_bert --steps 8 --ckpt-dir D --resume
@@ -28,9 +33,13 @@ being the steps done); ``--resume`` restores the newest one in place,
 seeks the batch stream to it (``bert_mlm_batches(start_step=...)``) and
 trains on up to ``--steps``, so the resumed steps are an uninterrupted
 run's, bit for bit.  The JAX example's ``--chunk`` (steps per jitted
-scan) has no counterpart in eager PyTorch; data parallelism is not
-ported yet.  :func:`train_step` trains with dropout when it is given a
-generator.
+scan) has no counterpart in eager PyTorch.  Checkpointing is
+one-process in this port: ``--ckpt-dir`` at world size > 1 raises
+(multi-process checkpoints come with the trainer, ROADMAP item 6).
+:func:`train_step` trains with dropout when it is given a generator.
+The rendezvous flags (``--backend``, ``--init-method``,
+``--world-size``, ``--rank``) are those of
+:mod:`apex_tpu_torch.examples._launch`.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
+from apex_tpu_torch import parallel_state as ps
 from apex_tpu_torch.checkpoint import (
     CheckpointManager,
     latest_step,
@@ -57,6 +67,10 @@ from apex_tpu_torch.data import (
     bert_mlm_batches,
     synthetic_token_corpus,
 )
+from apex_tpu_torch.examples._launch import (
+    add_distributed_args,
+    start_distributed,
+)
 from apex_tpu_torch.models.bert import (
     BertConfig,
     BertForPreTraining,
@@ -65,6 +79,7 @@ from apex_tpu_torch.models.bert import (
 from apex_tpu_torch.models.convert import load_optimizer_state, optimizer_state
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.optimizers import FusedLAMB
+from apex_tpu_torch.parallel import DistributedDataParallel
 
 __all__ = ["MLMBatches", "TrainRun", "build", "main", "parse_args", "train",
            "train_step", "training_state"]
@@ -89,6 +104,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="resume from the newest checkpoint in --ckpt-dir")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -131,15 +147,34 @@ class MLMBatches:
         return getattr(self.__dict__["tokens"], name)
 
     def iter_from(self, step: int = 0) -> Iterator[Dict]:
+        """The batch dicts from global step ``step`` on, each cut to this
+        dp rank's columns of the global batch
+        (:func:`dp_columns`)."""
         stream = bert_mlm_batches(
             self.tokens, seed=42, mask_prob=0.15, mask_id=103,
             vocab_size=self.vocab_size, special_floor=1000,
             start_step=step, max_predictions_per_seq=self.k or None,
         )
-        if self.k:
-            return ({k: v for k, v in b.items() if k != "mlm_labels"}
-                    for b in stream)
-        return stream
+        drop = ("mlm_labels",) if self.k else ()
+        return ({k: dp_columns(k, v) for k, v in b.items() if k not in drop}
+                for b in stream)
+
+
+#: the batch axis of each field (ids, labels and the triple are (S or K,
+#: B); the mask is (B, S); the NSP labels (B,))
+_BATCH_AXIS = {"attention_mask": 0, "nsp_labels": 0}
+
+
+def dp_columns(key: str, value):
+    """This dp rank's contiguous slice of the global batch along the
+    field's batch axis (the whole field at dp = 1)."""
+    dp = ps.axis_size(ps.DATA_PARALLEL_AXIS)
+    if dp == 1:
+        return value
+    axis = _BATCH_AXIS.get(key, 1)
+    per = value.shape[axis] // dp
+    lo = ps.axis_rank(ps.DATA_PARALLEL_AXIS) * per
+    return value.take(range(lo, lo + per), axis=axis)
 
 
 def batch_stream(args, cfg: BertConfig, device, start_step: int = 0
@@ -179,21 +214,33 @@ class TrainRun:
     tokens_per_step: int
     resumed_from: Optional[int] = None
     checkpoints: Optional[List[int]] = None
+    ddp: Optional[DistributedDataParallel] = None
 
     def close(self) -> None:
         self.batches.close()
 
 
 def build(args):
-    """``(cfg, model, optimizer, batches, start_step)``: the model (seed 0)
-    on ``args.device`` and FusedLAMB, restored in place from the newest
+    """``(cfg, model, optimizer, batches, start_step)``: the process group
+    and the dp group (:func:`start_distributed`), the model (seed 0) on
+    ``args.device`` and FusedLAMB, restored in place from the newest
     checkpoint of ``--ckpt-dir`` under ``--resume`` (``start_step`` its
-    steps done, else 0), and the batch stream from ``start_step`` on."""
+    steps done, else 0), and this dp rank's batch stream from
+    ``start_step`` on."""
     if args.max_predictions_per_seq < 0:
         raise ValueError("--max-predictions-per-seq must be >= 0")
     if args.save_every < 1:
         raise ValueError("--save-every must be >= 1")
     dev = resolve_device(args.device)
+    start_distributed(args)
+    dp = ps.get_data_parallel_world_size()
+    if args.ckpt_dir and dp > 1:
+        raise NotImplementedError(
+            "--ckpt-dir at world size > 1: checkpointing is one-process in "
+            "this port (multi-process checkpoints come with ROADMAP item 6)")
+    if args.batch % dp:
+        raise ValueError(f"--batch ({args.batch}) must be divisible by "
+                         f"dp={dp}")
     cfg = config(args)
     model = BertForPreTraining(cfg, device=dev)  # weights seeded with 0
     opt = FusedLAMB(model.parameters(), lr=args.lr, weight_decay=0.01)
@@ -209,13 +256,19 @@ def build(args):
 
 def train_step(model: BertForPreTraining, opt: FusedLAMB,
                batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None):
-    """One step; returns the loss (a device scalar).  With a CPU
-    ``generator`` the step trains with dropout (``deterministic=False``),
-    its seeds drawn from it."""
-    loss = bert_pretrain_loss(model, batch, deterministic=generator is None,
-                              generator=generator)
-    loss.backward()
+               generator: Optional[torch.Generator] = None,
+               ddp: Optional[DistributedDataParallel] = None):
+    """One step on this rank's batch; returns the loss (a device scalar;
+    the dp mean under ``ddp``, which averages the gradients over the
+    world).  With a CPU ``generator`` the step trains with dropout
+    (``deterministic=False``), its seeds drawn from it."""
+    if ddp is not None:
+        loss, _ = ddp.value_and_grad(batch, generator)
+    else:
+        loss = bert_pretrain_loss(model, batch,
+                                  deterministic=generator is None,
+                                  generator=generator)
+        loss.backward()
     opt.step()
     opt.zero_grad(set_to_none=True)
     return loss.detach()
@@ -226,12 +279,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _loss(model, batch, generator=None):
+    return bert_pretrain_loss(model, batch, deterministic=generator is None,
+                              generator=generator)
+
+
 def train(args) -> TrainRun:
     cfg, model, opt, batches, start = build(args)
+    ddp = DistributedDataParallel(model, _loss)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"BERT {n_params / 1e6:.1f}M params | device={model.device} "
           f"batch={args.batch} seq_len={args.seq_len} remat={cfg.remat} "
-          f"K={args.max_predictions_per_seq}", flush=True)
+          f"K={args.max_predictions_per_seq} "
+          f"dp={ps.get_data_parallel_world_size()}", flush=True)
     mgr = (CheckpointManager(args.ckpt_dir, max_to_keep=2,
                              save_interval_steps=args.save_every)
            if args.ckpt_dir else None)
@@ -241,7 +301,7 @@ def train(args) -> TrainRun:
             batch = next(batches)
             _sync(model.device)
             t0 = time.perf_counter()
-            loss = train_step(model, opt, batch)
+            loss = train_step(model, opt, batch, ddp=ddp)
             losses.append(float(loss))
             _sync(model.device)
             seconds.append(time.perf_counter() - t0)
@@ -261,7 +321,7 @@ def train(args) -> TrainRun:
         print(f"checkpoints at steps {steps} in {args.ckpt_dir}", flush=True)
     return TrainRun(cfg, model, opt, batches, losses, seconds, args.batch,
                     args.batch * args.seq_len,
-                    start if args.resume and start else None, steps)
+                    start if args.resume and start else None, steps, ddp)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:

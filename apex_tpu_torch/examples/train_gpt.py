@@ -1,18 +1,28 @@
-"""GPT causal-LM training on one GPU.
+"""GPT causal-LM training, data- and tensor-parallel.
 
-The port's counterpart of ``examples/gpt/train_gpt.py`` at tensor and
-context parallelism 1 and no experts: ``GptModel`` -> ``gpt_lm_loss`` ->
-``loss.backward()`` -> ``FusedAdam.step()`` over the packed-corpus
-loader.  On the card every LayerNorm and attention call runs through
-the hand-written kernels K1-K4 in both directions.
+The port's counterpart of ``examples/gpt/train_gpt.py`` with no context
+parallelism and no experts: ``GptModel`` -> ``gpt_lm_loss`` ->
+``loss.backward()`` -> the sequence-parallel gradient sum (``--tp > 1
+--sequence-parallel``) -> the dp sync (``DistributedDataParallel``, or
+the reduce-scatter of ``DistributedFusedAdam`` with ``--zero``) ->
+the optimizer step, over the packed-corpus loader.  ``--tp`` shards the
+model over tp ranks; dp is the world over tp, and each dp rank trains on
+its columns of the global ``--batch``.  On the card every LayerNorm and
+attention call runs through the hand-written kernels K1-K4 in both
+directions.
 
     python -m apex_tpu_torch.examples.train_gpt --steps 8 --batch 8 --seq-len 2048
+    # tp = 2 with sequence parallelism on two cards:
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.examples.train_gpt \
+        --tp 2 --sequence-parallel --steps 8 --batch 8 --seq-len 2048
     # tiny f32 run on the CPU (the plain PyTorch versions):
     python -m apex_tpu_torch.examples.train_gpt --tiny --device cpu --steps 3
 
 Without ``--data`` it trains on a synthetic zipf corpus that it writes
 once into the temporary directory.  ``--tiny`` is the CPU configuration
-(f32, head dim 16): the card's flash kernels take bf16 and head dim 64.
+(f32, head dim 16).  The rendezvous flags (``--backend``,
+``--init-method``, ``--world-size``, ``--rank``) are those of
+:mod:`apex_tpu_torch.examples._launch`.
 """
 
 from __future__ import annotations
@@ -27,10 +37,23 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from apex_tpu_torch import parallel_state as ps
 from apex_tpu_torch.data import DataLoader, TokenFileDataset, synthetic_token_corpus
+from apex_tpu_torch.examples._launch import (
+    add_distributed_args,
+    start_distributed,
+)
 from apex_tpu_torch.models.gpt import GptConfig, GptModel, gpt_lm_loss
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.parallel import (
+    DistributedDataParallel,
+    DistributedFusedAdam,
+    comm,
+)
+from apex_tpu_torch.transformer.tensor_parallel import (
+    allreduce_sequence_parallel_gradients,
+)
 
 __all__ = ["TrainRun", "build", "main", "parse_args", "train", "train_step"]
 
@@ -46,17 +69,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--context-parallel",
                    choices=["ring", "ring_zigzag", "ulysses"], default=None)
     p.add_argument("--num-experts", type=int, default=0)
+    p.add_argument("--zero", action="store_true",
+                   help="shard the Adam update over dp (DistributedFusedAdam)")
+    p.add_argument("--wire", choices=["f32", "bf16", "int8"], default="f32",
+                   help="the dp gradient sync's wire format")
     p.add_argument("--data", default=None, help="packed uint16 token file")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="depth (default: the configuration's)")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
 def _check_single_gpu(args) -> None:
+    """Refuse what is not ported yet: context parallelism and experts."""
     unported = [
         name for name, on in (
-            (f"--tp {args.tp}", args.tp != 1),
-            ("--sequence-parallel", args.sequence_parallel),
             (f"--context-parallel {args.context_parallel}",
              args.context_parallel is not None),
             (f"--num-experts {args.num_experts}", args.num_experts != 0),
@@ -64,9 +93,8 @@ def _check_single_gpu(args) -> None:
     ]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: tensor, sequence and context "
-            "parallelism and experts are not ported yet (ROADMAP items 5 and 7); "
-            "the example trains on one GPU"
+            f"{', '.join(unported)}: context parallelism and experts are "
+            "not ported yet (ROADMAP item 7)"
         )
 
 
@@ -87,7 +115,10 @@ def config(args) -> GptConfig:
         if args.tiny
         else dict(vocab_size=50304, remat=True)
     )
-    return GptConfig(**dims, max_seq_len=args.seq_len)
+    if args.num_layers is not None:
+        dims["num_layers"] = args.num_layers
+    return GptConfig(**dims, max_seq_len=args.seq_len,
+                     sequence_parallel=args.sequence_parallel)
 
 
 @dataclasses.dataclass
@@ -98,35 +129,63 @@ class TrainRun:
 
     cfg: GptConfig
     model: GptModel
-    optimizer: FusedAdam
+    optimizer: object
     batches: Iterator[torch.Tensor]
     losses: List[float]
     step_seconds: List[float]
     tokens_per_step: int
+    ddp: Optional[DistributedDataParallel] = None
 
 
 def build(args):
-    """``(cfg, model, optimizer, batches)``: the model (seed 0) on
-    ``args.device``, FusedAdam, and an endless iterator of (S, B) int64
-    token batches on that device."""
+    """``(cfg, model, optimizer, batches, ddp)``: the process group and
+    the tp/dp groups (:func:`start_distributed`), the model (seed 0, this
+    rank's tp shard) on ``args.device``, FusedAdam (or
+    DistributedFusedAdam with ``--zero``), an endless iterator of this
+    dp rank's (S, B / dp) int64 token columns on that device, and the
+    DDP wrapper (None with ``--zero``)."""
     _check_single_gpu(args)
     dev = resolve_device(args.device)
+    start_distributed(args, args.tp)
+    dp = ps.get_data_parallel_world_size()
+    if args.batch % dp:
+        raise ValueError(f"--batch ({args.batch}) must be divisible by "
+                         f"dp={dp}")
     cfg = config(args)
     model = GptModel(cfg, device=dev)  # weights seeded with 0
-    opt = FusedAdam(model.parameters(), lr=args.lr)
+    ddp = None
+    if args.zero:
+        opt = DistributedFusedAdam(model.parameters(), lr=args.lr,
+                                   wire=args.wire)
+    else:
+        opt = FusedAdam(model.parameters(), lr=args.lr)
+        ddp = DistributedDataParallel(model, lambda m, ids: gpt_lm_loss(m, ids),
+                                      wire=args.wire)
     ds = TokenFileDataset(corpus(args, cfg.vocab_size), seq_len=args.seq_len)
     loader = DataLoader(ds, batch_size=args.batch, seed=7)
-    batches = (torch.as_tensor(b.T.astype(np.int64), device=dev)
+    per = args.batch // dp
+    lo = ps.get_data_parallel_rank() * per
+    batches = (torch.as_tensor(b[lo:lo + per].T.astype(np.int64), device=dev)
                for b in loader)
-    return cfg, model, opt, batches
+    return cfg, model, opt, batches, ddp
 
 
-def train_step(model: GptModel, opt: FusedAdam, ids: torch.Tensor):
-    """One step on token ids (S, B); returns the loss (a device scalar)."""
-    loss = gpt_lm_loss(model, ids)
-    loss.backward()
+def train_step(model: GptModel, opt, ids: torch.Tensor,
+               ddp: Optional[DistributedDataParallel] = None):
+    """One step on this rank's token ids (S, B / dp); returns the loss
+    (a device scalar: the dp mean under ``ddp`` or a ZeRO optimizer).
+    Without ``ddp`` and at world 1, the plain FusedAdam step."""
+    if ddp is not None:
+        loss, _ = ddp.value_and_grad(ids)
+    else:
+        loss = gpt_lm_loss(model, ids)
+        loss.backward()
+    if model.cfg.sequence_parallel:
+        allreduce_sequence_parallel_gradients(model)
     opt.step()
     opt.zero_grad(set_to_none=True)
+    if ddp is None and isinstance(opt, DistributedFusedAdam):
+        return comm.mean_over(loss)
     return loss.detach()
 
 
@@ -136,24 +195,27 @@ def _sync(device: torch.device) -> None:
 
 
 def train(args) -> TrainRun:
-    cfg, model, opt, batches = build(args)
+    cfg, model, opt, batches, ddp = build(args)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"GPT {n_params / 1e6:.1f}M params | device={model.device} "
-          f"batch={args.batch} seq_len={args.seq_len} remat={cfg.remat}",
+    mesh = ps.get_mesh()
+    print(f"GPT {n_params / 1e6:.1f}M params/rank | device={model.device} "
+          f"batch={args.batch} seq_len={args.seq_len} remat={cfg.remat} "
+          f"dp={mesh.shape['dp']} tp={mesh.shape['tp']} "
+          f"sp={cfg.sequence_parallel} zero={args.zero} wire={args.wire}",
           flush=True)
     losses, seconds = [], []
     for step in range(args.steps):
         ids = next(batches)
         _sync(model.device)
         t0 = time.perf_counter()
-        loss = train_step(model, opt, ids)
+        loss = train_step(model, opt, ids, ddp)
         losses.append(float(loss))
         _sync(model.device)
         seconds.append(time.perf_counter() - t0)
         print(f"step {step}: loss {losses[-1]:.4f} "
               f"{seconds[-1] * 1e3:.1f} ms", flush=True)
     return TrainRun(cfg, model, opt, batches, losses, seconds,
-                    args.batch * args.seq_len)
+                    args.batch * args.seq_len, ddp)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:

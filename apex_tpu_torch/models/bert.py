@@ -1,9 +1,9 @@
 """BERT — the encoder of BERT-Large pretraining, its heads and its loss.
 
-Counterpart of ``apex_tpu/models/bert.py`` at tensor parallelism 1:
-Megatron's seq-first layout ``(S, B, hidden)``, post-LN blocks (original
-BERT's residual order), GELU (tanh), the ``(B, 1, 1, S)`` additive
-key-padding mask at -1e9, the NSP pooler on position 0, the MLM
+Counterpart of ``apex_tpu/models/bert.py``: Megatron's seq-first layout
+``(S, B, hidden)``, post-LN blocks (original BERT's residual order),
+GELU (tanh), the ``(B, 1, 1, S)`` additive key-padding mask at -1e9,
+the NSP pooler on position 0, the MLM
 transform (dense, GELU, LayerNorm) and the MLM decoder tied to the word
 embedding, with f32 logits plus ``mlm_bias``.
 
@@ -36,6 +36,19 @@ checkpoint restores no explicit generator) and the draws wait for
 nothing on the card.  The same generator state gives the same attention
 masks on the card and on the CPU; the hidden masks come from each
 device's own generator.
+
+Tensor and sequence parallelism follow the reference's sites, as in
+:mod:`.gpt`: ``qkv``/``fc1`` column-parallel, ``out``/``fc2``
+row-parallel, the word embedding vocab-parallel, and the tied decoder
+this rank's vocab slice plus its slice of ``mlm_bias``, fed to the
+vocab-parallel cross entropy.  Under ``sequence_parallel`` the
+embeddings, LayerNorms, dropouts and the MLM transform run on the rank's
+``S / tp`` rows (their parameters registered as sequence-parallel); the
+pooler reads a gather whose backward splits (it is replicated
+computation) and the decoder a gather whose backward reduce-scatters.
+A dropout mask over rank-local values (tp-sharded heads; sequence shards
+under SP) takes its seed folded with the tp rank
+(:func:`_per_rank_dropout_rng`); replicated values keep the shared seed.
 """
 
 from __future__ import annotations
@@ -48,8 +61,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch import parallel_state as ps
 from apex_tpu_torch.models.gpt import (
     LayerNorm,
+    _tp_world,
     apply_layer_norm,
     apply_linear,
     vocab_logits,
@@ -65,6 +80,16 @@ from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
+)
+from apex_tpu_torch.transformer.tensor_parallel.random import to_per_rank_key
 
 __all__ = [
     "BertConfig",
@@ -136,6 +161,16 @@ def _linear(n_in: int, n_out: int, device) -> nn.Linear:
                      device=device)
 
 
+def _per_rank_dropout_rng(seed, rank_local: bool):
+    """A dropout seed, folded with the tp rank when the masked values are
+    rank-local (a sequence shard, or tp-sharded heads) — ≙ Megatron's
+    model-parallel RNG stream; replicated values need the same mask on
+    every rank, so ``rank_local=False`` keeps the shared seed."""
+    if rank_local and _tp_world() > 1:
+        return to_per_rank_key(seed)
+    return seed
+
+
 def _hidden_dropout(x, p: float, generator: torch.Generator):
     """``nn.Dropout``: keep with probability 1 - p, scale by 1/(1 - p)."""
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
@@ -150,15 +185,20 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.qkv = _linear(h, 3 * h, device)
-        self.out = _linear(h, h, device)
+        sp = cfg.sequence_parallel
+        self.qkv = ColumnParallelLinear(h, 3 * h, sequence_parallel_enabled=sp,
+                                        dtype=cfg.dtype, device=device)
+        self.out = RowParallelLinear(h, h, input_is_parallel=True,
+                                     sequence_parallel_enabled=sp,
+                                     dtype=cfg.dtype, device=device)
 
     def forward(self, x, attention_bias=None,
                 dropout_seed: Optional[torch.Tensor] = None):
         cfg = self.cfg
-        s, b = x.shape[0], x.shape[1]
-        qkv = apply_linear(x, self.qkv, cfg.dtype, "bert_qkv")
-        qkv = qkv.reshape(s, b, cfg.num_heads, 3, cfg.head_dim)
+        qkv = self.qkv(x, "bert_qkv")
+        s, b = qkv.shape[0], qkv.shape[1]  # the full sequence under SP
+        heads = qkv.shape[2] // (3 * cfg.head_dim)
+        qkv = qkv.reshape(s, b, heads, 3, cfg.head_dim)
         q, k, v = (qkv[:, :, :, i].permute(1, 2, 0, 3) for i in range(3))
         p = cfg.attention_dropout if dropout_seed is not None else 0.0
 
@@ -175,8 +215,8 @@ class BertSelfAttention(nn.Module):
                              use_reentrant=False, preserve_rng_state=False)
         else:
             ctx = core(q, k, v, attention_bias, dropout_seed)
-        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, cfg.hidden_size)
-        return apply_linear(ctx, self.out, cfg.dtype)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, heads * cfg.head_dim)
+        return self.out(ctx)
 
 
 class BertMlp(nn.Module):
@@ -185,13 +225,17 @@ class BertMlp(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.fc1 = _linear(cfg.hidden_size, cfg.intermediate_size, device)
-        self.fc2 = _linear(cfg.intermediate_size, cfg.hidden_size, device)
+        sp = cfg.sequence_parallel
+        self.fc1 = ColumnParallelLinear(
+            cfg.hidden_size, cfg.intermediate_size,
+            sequence_parallel_enabled=sp, dtype=cfg.dtype, device=device)
+        self.fc2 = RowParallelLinear(
+            cfg.intermediate_size, cfg.hidden_size, input_is_parallel=True,
+            sequence_parallel_enabled=sp, dtype=cfg.dtype, device=device)
 
     def forward(self, x):
-        y = F.gelu(apply_linear(x, self.fc1, self.cfg.dtype, "bert_fc1"),
-                   approximate="tanh")
-        return apply_linear(y, self.fc2, self.cfg.dtype)
+        y = F.gelu(self.fc1(x, "bert_fc1"), approximate="tanh")
+        return self.fc2(y)
 
 
 class BertLayer(nn.Module):
@@ -202,10 +246,11 @@ class BertLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
+        sp = cfg.sequence_parallel
         self.attention = BertSelfAttention(cfg, device)
-        self.ln_attn = LayerNorm(h, device)
+        self.ln_attn = LayerNorm(h, device, sequence_parallel=sp)
         self.mlp = BertMlp(cfg, device)
-        self.ln_mlp = LayerNorm(h, device)
+        self.ln_mlp = LayerNorm(h, device, sequence_parallel=sp)
 
     def forward(self, x, attention_bias=None,
                 attention_seed: Optional[torch.Tensor] = None,
@@ -213,7 +258,9 @@ class BertLayer(nn.Module):
         cfg = self.cfg
         gen = None
         if hidden_seed is not None and cfg.hidden_dropout > 0.0:
-            gen = torch.Generator(device=x.device).manual_seed(hidden_seed)
+            # sequence shards under SP (rank-local), else replicated
+            seed = _per_rank_dropout_rng(hidden_seed, cfg.sequence_parallel)
+            gen = torch.Generator(device=x.device).manual_seed(seed)
         attn = self.attention(x, attention_bias, attention_seed)
         if gen is not None:
             attn = _hidden_dropout(attn, cfg.hidden_dropout, gen)
@@ -261,17 +308,26 @@ class BertEmbeddings(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h,
-                                            dtype=torch.float32, device=device)
+        sp = cfg.sequence_parallel
+        self.word_embeddings = VocabParallelEmbedding(
+            cfg.vocab_size, h, sequence_parallel_enabled=sp, dtype=cfg.dtype,
+            device=device)
         self.position_embeddings = nn.Parameter(torch.empty(
             cfg.max_position_embeddings, h, dtype=torch.float32,
             device=device))
         if cfg.type_vocab_size:
             self.token_type_embeddings = nn.Parameter(torch.empty(
                 cfg.type_vocab_size, h, dtype=torch.float32, device=device))
-        self.ln = LayerNorm(h, device)
+        if sp and _tp_world() > 1:
+            ps.register_sequence_parallel_param(self.position_embeddings)
+            if cfg.type_vocab_size:
+                ps.register_sequence_parallel_param(
+                    self.token_type_embeddings)
+        self.ln = LayerNorm(h, device, sequence_parallel=sp)
 
     def forward(self, input_ids, token_type_ids=None):
+        """The (S, B, hidden) embeddings (the rank's (S / tp, B, hidden)
+        rows under sequence parallelism)."""
         cfg = self.cfg
         s = input_ids.shape[0]
         if s > cfg.max_position_embeddings:
@@ -279,11 +335,16 @@ class BertEmbeddings(nn.Module):
                 f"sequence of {s} exceeds max_position_embeddings "
                 f"({cfg.max_position_embeddings})"
             )
-        x = F.embedding(input_ids.long(), self.word_embeddings.weight)
-        x = x.to(cfg.dtype) + self.position_embeddings[:s, None, :].to(cfg.dtype)
+        x = self.word_embeddings(input_ids)
+        local_s = x.shape[0]
+        start = 0
+        if cfg.sequence_parallel and _tp_world() > 1:
+            start = ps.axis_rank(ps.TENSOR_PARALLEL_AXIS) * local_s
+        rows = self.position_embeddings[start:start + local_s]
+        x = x + rows[:, None, :].to(cfg.dtype)
         if cfg.type_vocab_size:
             tt = (torch.zeros_like(input_ids) if token_type_ids is None
-                  else token_type_ids)
+                  else token_type_ids)[start:start + local_s]
             x = x + _TypeEmbedding.apply(
                 tt.long(), self.token_type_embeddings).to(cfg.dtype)
         return apply_layer_norm(x, self.ln, cfg.layer_norm_eps)
@@ -334,8 +395,10 @@ class BertEncoderCore(nn.Module):
         for i, layer in enumerate(self.layers):
             attn_seed = hidden_seed = None
             if dropout:
-                attn_seed = torch.full((1,), layer_seeds[2 * i],
-                                       dtype=torch.int32, device=x.device)
+                # the heads are tp-sharded: each rank needs its own mask
+                attn_seed = torch.full(
+                    (1,), _per_rank_dropout_rng(layer_seeds[2 * i], True),
+                    dtype=torch.int32, device=x.device)
                 hidden_seed = layer_seeds[2 * i + 1]
             if cfg.remat:
                 # the block's randomness comes in through its seeds, so
@@ -371,7 +434,8 @@ class BertModel(nn.Module):
         seeds = _draw_seeds(generator, 1 + 2 * cfg.num_layers) if dropout \
             else None
         if dropout and cfg.hidden_dropout > 0.0:
-            gen = torch.Generator(device=x.device).manual_seed(seeds[0])
+            seed = _per_rank_dropout_rng(seeds[0], cfg.sequence_parallel)
+            gen = torch.Generator(device=x.device).manual_seed(seed)
             x = _hidden_dropout(x, cfg.hidden_dropout, gen)
         return self.encoder(x, bias, deterministic=deterministic,
                             layer_seeds=seeds[1:] if dropout else None)
@@ -391,19 +455,24 @@ class BertForPreTraining(nn.Module):
     def __init__(self, cfg: BertConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP item 5)")
         dev = resolve_device(device)
         self.cfg = cfg
         h = cfg.hidden_size
+        sp = cfg.sequence_parallel and _tp_world() > 1
         self.bert = BertModel(cfg, dev)
         self.pooler = _linear(h, h, dev)
         self.nsp_head = _linear(h, 2, dev)
         self.mlm_dense = _linear(h, h, dev)
-        self.mlm_ln = LayerNorm(h, dev)
-        self.mlm_bias = nn.Parameter(
-            torch.zeros(cfg.vocab_size, dtype=torch.float32, device=dev))
+        self.mlm_ln = LayerNorm(h, dev, sequence_parallel=sp)
+        if sp:
+            # the transform runs on the SP rows, between the decoder's
+            # gather and its vocab-partial cotangents
+            ps.register_sequence_parallel_param(self.mlm_dense.weight)
+            ps.register_sequence_parallel_param(self.mlm_dense.bias)
+        # this rank's slice of the vocab-sharded decoder bias
+        self.mlm_bias = nn.Parameter(torch.zeros(
+            ps.divide(cfg.vocab_size, _tp_world()), dtype=torch.float32,
+            device=dev))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
@@ -421,12 +490,22 @@ class BertForPreTraining(nn.Module):
             param.copy_(draw * std)
 
         emb = self.bert.embeddings
-        normal_(emb.word_embeddings.weight, 0.02)
+        cfg = self.cfg
+        emb.word_embeddings.load_full_(torch.randn(
+            (cfg.vocab_size, cfg.hidden_size), generator=generator,
+            dtype=torch.float32, device=generator.device) * 0.02)
         normal_(emb.position_embeddings, 0.02)
         if self.cfg.type_vocab_size:
             normal_(emb.token_type_embeddings, 0.02)
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, (ColumnParallelLinear, RowParallelLinear)):
+                # the full weight's draw, cut to the shard
+                mod.load_full_(torch.randn(
+                    (mod.output_size, mod.input_size), generator=generator,
+                    dtype=torch.float32, device=generator.device)
+                    * mod.input_size ** -0.5)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Linear):
                 normal_(mod.weight, mod.in_features ** -0.5)
                 mod.bias.zero_()
             elif isinstance(mod, LayerNorm):
@@ -440,11 +519,18 @@ class BertForPreTraining(nn.Module):
         cfg = self.cfg
         seq = self.bert(input_ids, token_type_ids, attention_mask,
                         deterministic=deterministic, generator=generator)
-        pooled = torch.tanh(apply_linear(seq[0], self.pooler, cfg.dtype))
+        sp = cfg.sequence_parallel and _tp_world() > 1
+        # the pooler is replicated computation: its gather's backward
+        # splits (a reduce-scatter would feed the encoder tp x NSP's grad)
+        seq_full = (gather_from_sequence_parallel_region(
+            seq, tensor_parallel_output_grad=False) if sp else seq)
+        pooled = torch.tanh(apply_linear(seq_full[0], self.pooler, cfg.dtype))
         nsp_logits = apply_linear(pooled, self.nsp_head, cfg.dtype)
         h = F.gelu(apply_linear(seq, self.mlm_dense, cfg.dtype),
                    approximate="tanh")
         h = apply_layer_norm(h, self.mlm_ln, cfg.layer_norm_eps)
+        if sp:
+            h = gather_from_sequence_parallel_region(h)
         return (h, self.mlm_bias), nsp_logits
 
 
@@ -485,6 +571,11 @@ def bert_pretrain_loss(model: BertForPreTraining, batch, *,
         labels = batch["mlm_labels"]
         weights = (labels >= 0).float()
         labels = labels.clamp_min(0)
+    if not cfg.sequence_parallel and _tp_world() > 1:
+        # the decoder's cotangent is partial per tp rank (its vocab
+        # slice): copy_to sums it in the backward (under SP the MLM
+        # gather's reduce-scatter does)
+        h = copy_to_tensor_model_parallel_region(h)
     dec = model.bert.embeddings.word_embeddings.weight.to(cfg.dtype)
 
     def rows_loss(h_rows, dec, l_rows, w_rows):

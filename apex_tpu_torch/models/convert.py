@@ -34,6 +34,14 @@ the port's module: a Flax ``Dense`` ``kernel`` (in, out) and ``bias`` are
 an ``nn.Linear``'s ``weight`` (out, in) and ``bias``, and the
 module-level LayerNorm leaves ``<name>_scale``/``<name>_bias`` are
 parameters of the same names.
+
+Tensor parallelism: :func:`tp_shard_jax_params` cuts a full JAX tree
+into rank ``r``'s shard in the reference's layout (what each device of
+a ``tp``-axis ``shard_map`` holds: the column-parallel kernels and
+biases split along their output dim, the row-parallel kernels along
+their input dim, the word embedding and ``mlm_bias`` along the vocab);
+:func:`from_jax_params` and :func:`bert_from_jax_params` load this
+process's shard when the tp group has more than one rank.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from apex_tpu_torch import parallel_state as ps
 from apex_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from apex_tpu_torch.models.gpt import GptConfig, GptModel
 from apex_tpu_torch.ops._dispatch import resolve_device
@@ -60,6 +69,7 @@ __all__ = [
     "load_optimizer_state",
     "optimizer_state",
     "to_jax_params",
+    "tp_shard_jax_params",
 ]
 
 _LINEARS = ("qkv", "out", "fc1", "fc2")
@@ -90,12 +100,52 @@ def _state_dict_from_jax(params_np: Mapping, cfg: GptConfig) -> dict:
     return sd
 
 
+#: the sharded dim of each tensor-parallel leaf, by (module, leaf) name:
+#: column-parallel outputs, row-parallel inputs, vocab rows
+_TP_AXES = {("qkv", "weight"): -1, ("qkv", "bias"): -1,
+            ("fc1", "weight"): -1, ("fc1", "bias"): -1,
+            ("out", "weight"): -2, ("fc2", "weight"): -2,
+            ("word_embeddings", "weight"): -2}
+
+
+def tp_shard_jax_params(params_np: Mapping, rank: int, tp: int) -> dict:
+    """Rank ``rank``'s shard, at tensor parallelism ``tp``, of a full
+    JAX GPT or BERT tree of numpy arrays (scanned or unrolled), in the
+    reference's layout.  Replicated leaves come back whole."""
+
+    def walk(tree, path):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        axis = _TP_AXES.get(path[-2:])
+        if path[-1:] == ("mlm_bias",):
+            axis = -1
+        if axis is None or tp == 1:
+            return tree
+        a = np.asarray(tree)
+        n = a.shape[axis] // tp
+        if n * tp != a.shape[axis]:
+            raise ValueError(f"{'/'.join(path)}: dim {a.shape[axis]} is not "
+                             f"divisible by tp={tp}")
+        return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=axis)
+
+    return walk(params_np, ())
+
+
+def _this_rank(params_np: Mapping) -> Mapping:
+    tp = ps.axis_size(ps.TENSOR_PARALLEL_AXIS)
+    if tp == 1:
+        return params_np
+    return tp_shard_jax_params(params_np,
+                               ps.axis_rank(ps.TENSOR_PARALLEL_AXIS), tp)
+
+
 def from_jax_params(params_np: Mapping, cfg: GptConfig, *,
                     device="cuda") -> GptModel:
     """A :class:`GptModel` on ``device`` holding the JAX tree's f32
-    weights exactly."""
+    weights exactly (this rank's shard of them at tp > 1)."""
     model = GptModel(cfg, device=device)
-    model.load_state_dict(_state_dict_from_jax(params_np, cfg), strict=True)
+    model.load_state_dict(_state_dict_from_jax(_this_rank(params_np), cfg),
+                          strict=True)
     return model
 
 
@@ -228,10 +278,11 @@ def _bert_state_dict_from_jax(params_np: Mapping, cfg: BertConfig) -> dict:
 def bert_from_jax_params(params_np: Mapping, cfg: BertConfig, *,
                          device="cuda") -> BertForPreTraining:
     """A :class:`BertForPreTraining` on ``device`` holding the JAX tree's
-    f32 weights exactly; the tree may be scanned or unrolled."""
+    f32 weights exactly (this rank's shard of them at tp > 1); the tree
+    may be scanned or unrolled."""
     model = BertForPreTraining(cfg, device=device)
-    model.load_state_dict(_bert_state_dict_from_jax(params_np, cfg),
-                          strict=True)
+    model.load_state_dict(
+        _bert_state_dict_from_jax(_this_rank(params_np), cfg), strict=True)
     return model
 
 

@@ -28,6 +28,20 @@ residual sums (:mod:`apex_tpu_torch.transformer.pipeline_parallel.
 schedules`).  :func:`gpt_lm_loss` is the
 next-token cross entropy through the tied embedding.  The serving bodies
 (:mod:`apex_tpu_torch.serve.model`) drive the same block functions.
+
+Tensor and sequence parallelism follow the reference's sites: ``qkv``
+and ``fc1`` are :class:`ColumnParallelLinear`, ``out`` and ``fc2``
+:class:`RowParallelLinear` (heads and the MLP's columns sharded over
+tp), ``word_embeddings`` a :class:`VocabParallelEmbedding`, and the
+tied logits are this rank's vocab slice, fed to the vocab-parallel
+cross entropy.  With ``sequence_parallel`` the activations between the
+tp regions are the rank's ``S / tp`` rows (the LayerNorms run on them,
+K1/K2 at ``S * B / tp`` rows), the LayerNorm affines, the Row biases and
+the position table register as sequence-parallel, and the final hidden
+states are gathered before the logits.  Build the model after
+``parallel_state.initialize_model_parallel``; its weights are the tp = 1
+model's from the same generator, split.  At tp = 1 every layer is the
+dense layer, bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch import parallel_state as ps
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm_affine
@@ -51,6 +66,15 @@ from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
 )
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
 )
 
 __all__ = [
@@ -132,9 +156,12 @@ class GptConfig:
 
 class LayerNorm(nn.Module):
     """LayerNorm affine parameters under the flax names ``scale`` and
-    ``bias`` (f32)."""
+    ``bias`` (f32); ``sequence_parallel`` registers both as
+    sequence-parallel (the LayerNorm runs inside the sequence-sharded
+    region)."""
 
-    def __init__(self, size: int, device=None):
+    def __init__(self, size: int, device=None,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.scale = nn.Parameter(
             torch.ones(size, dtype=torch.float32, device=device)
@@ -142,11 +169,22 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(
             torch.zeros(size, dtype=torch.float32, device=device)
         )
+        if sequence_parallel:
+            ps.register_sequence_parallel_param(self.scale)
+            ps.register_sequence_parallel_param(self.bias)
 
 
-def _linear(n_in: int, n_out: int, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=True, dtype=torch.float32,
-                     device=device)
+def _tp_world() -> int:
+    return ps.axis_size(ps.TENSOR_PARALLEL_AXIS)
+
+
+def _project(x, lin, dtype, name: Optional[str] = None):
+    """A tensor-parallel layer's forward, or :func:`apply_linear` of the
+    weights of a serving view (a namespace with ``weight`` and
+    ``bias``): the same arithmetic at tp = 1."""
+    if isinstance(lin, nn.Module):
+        return lin(x, name)
+    return apply_linear(x, lin, dtype, name)
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +218,9 @@ def embed_tokens(model: "GptModel", ids, dtype):
 def apply_mlp(x, blk: "GptBlock", cfg: GptConfig):
     """x + fc2(gelu_tanh(fc1(LN(x))))."""
     y = apply_layer_norm(x, blk.ln_mlp, cfg.layer_norm_eps)
-    y = apply_linear(y, blk.fc1, cfg.dtype, "gpt_fc1")
+    y = _project(y, blk.fc1, cfg.dtype, "gpt_fc1")
     y = F.gelu(y, approximate="tanh")
-    y = apply_linear(y, blk.fc2, cfg.dtype)
+    y = _project(y, blk.fc2, cfg.dtype)
     with checkpoint_name("gpt_sum_mlp"):
         return x + y
 
@@ -191,12 +229,14 @@ def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
     """One decoder block over ``x`` (S, B, hidden), the JAX ``GptBlock``:
     x + attn(LN(x)), then x + mlp(LN(x)).  Returns the new hidden and
     this layer's rotated K and V as (B, H, S, D) (the serving prefill
-    writes them into its cache)."""
-    heads = cfg.num_heads
+    writes them into its cache).  Under sequence parallelism ``x`` is
+    the rank's (S / tp, B, hidden) rows; the heads are the rank's
+    ``num_heads / tp``."""
     head_dim = cfg.head_dim
     y = apply_layer_norm(x, blk.ln_attn, cfg.layer_norm_eps)
-    qkv = apply_linear(y, blk.qkv, cfg.dtype, "gpt_qkv")
+    qkv = _project(y, blk.qkv, cfg.dtype, "gpt_qkv")
     s, b = qkv.shape[0], qkv.shape[1]
+    heads = qkv.shape[2] // (3 * head_dim)
     # per-head-interleaved (heads, 3, head_dim) column layout
     qkv = qkv.reshape(s, b, heads, 3, head_dim)
     q, k, v = (qkv[:, :, :, i].permute(1, 2, 0, 3) for i in range(3))
@@ -205,7 +245,7 @@ def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
         k = fused_apply_rotary_pos_emb_cached(k, cos, sin)
     ctx = flash_attention(q, k, v, causal=True, scale=head_dim ** -0.5)
     ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, heads * head_dim)
-    attn = apply_linear(ctx, blk.out, cfg.dtype)
+    attn = _project(ctx, blk.out, cfg.dtype)
     with checkpoint_name("gpt_sum_attn"):
         x = x + attn
     return apply_mlp(x, blk, cfg), k, v
@@ -248,8 +288,8 @@ def vocab_logits(h, embed):
 
 
 def tied_logits(model: "GptModel", h, dtype):
-    """Vocab logits (..., V) in f32 through the tied embedding, with
-    compute-dtype operands (``_tied_vocab_logits`` at tp=1)."""
+    """Vocab logits (..., V / tp) in f32 through the tied embedding (this
+    rank's vocab rows), with compute-dtype operands."""
     return vocab_logits(h.to(dtype), model.word_embeddings.weight.to(dtype))
 
 
@@ -261,13 +301,22 @@ class GptBlock(nn.Module):
     def __init__(self, cfg: GptConfig, device=None):
         super().__init__()
         h = cfg.hidden_size
+        sp = cfg.sequence_parallel
         self.cfg = cfg
-        self.ln_attn = LayerNorm(h, device)
-        self.qkv = _linear(h, 3 * h, device)
-        self.out = _linear(h, h, device)
-        self.ln_mlp = LayerNorm(h, device)
-        self.fc1 = _linear(h, cfg.intermediate_size, device)
-        self.fc2 = _linear(cfg.intermediate_size, h, device)
+        self.ln_attn = LayerNorm(h, device, sequence_parallel=sp)
+        self.qkv = ColumnParallelLinear(
+            h, 3 * h, sequence_parallel_enabled=sp, dtype=cfg.dtype,
+            device=device)
+        self.out = RowParallelLinear(
+            h, h, input_is_parallel=True, sequence_parallel_enabled=sp,
+            dtype=cfg.dtype, device=device)
+        self.ln_mlp = LayerNorm(h, device, sequence_parallel=sp)
+        self.fc1 = ColumnParallelLinear(
+            h, cfg.intermediate_size, sequence_parallel_enabled=sp,
+            dtype=cfg.dtype, device=device)
+        self.fc2 = RowParallelLinear(
+            cfg.intermediate_size, h, input_is_parallel=True,
+            sequence_parallel_enabled=sp, dtype=cfg.dtype, device=device)
 
     def forward(self, x, cos=None, sin=None):
         return apply_block(self.cfg, self, x, cos, sin)[0]
@@ -275,34 +324,40 @@ class GptBlock(nn.Module):
 
 class GptModel(nn.Module):
     """Embedding + ``num_layers`` blocks + final LN, on ``device`` (the
-    card by default; ``device="cpu"`` for the plain versions).
+    card by default; ``device="cpu"`` for the plain versions), holding
+    this rank's tensor-parallel shards.
 
     The weights are drawn from ``generator`` (a fresh one seeded with 0
-    when None): embeddings N(0, 0.02), matmul weights N(0, 1/fan_in)
-    (flax's lecun-normal scale), biases 0, LayerNorm scale 1 and bias 0.
+    when None), each at its full shape and then cut to the rank's shard:
+    embeddings N(0, 0.02), matmul weights N(0, 1/fan_in) (flax's
+    lecun-normal scale), biases 0, LayerNorm scale 1 and bias 0.
     """
 
     def __init__(self, cfg: GptConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.sequence_parallel or cfg.context_parallel or cfg.num_experts:
+        if cfg.context_parallel or cfg.num_experts:
             raise NotImplementedError(
-                "the port's GptModel is the dense single-shard stack"
+                "context parallelism and experts are not ported yet "
+                "(ROADMAP item 7)"
             )
         dev = resolve_device(device)
         self.cfg = cfg
-        self.word_embeddings = nn.Embedding(
-            cfg.vocab_size, cfg.hidden_size, dtype=torch.float32, device=dev
-        )
+        sp = cfg.sequence_parallel
+        self.word_embeddings = VocabParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, sequence_parallel_enabled=sp,
+            dtype=cfg.dtype, device=dev)
         if not cfg.rotary:
             self.position_embeddings = nn.Parameter(torch.empty(
                 cfg.max_seq_len, cfg.hidden_size, dtype=torch.float32,
                 device=dev,
             ))
+            if sp and _tp_world() > 1:
+                ps.register_sequence_parallel_param(self.position_embeddings)
         self.layers = nn.ModuleList(
             GptBlock(cfg, dev) for _ in range(cfg.num_layers)
         )
-        self.ln_f = LayerNorm(cfg.hidden_size, dev)
+        self.ln_f = LayerNorm(cfg.hidden_size, dev, sequence_parallel=sp)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
@@ -313,20 +368,23 @@ class GptModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded init, drawn on the generator's device in f32."""
-        def normal_(param, std):
-            draw = torch.randn(
-                param.shape, generator=generator, dtype=torch.float32,
-                device=generator.device,
-            )
-            param.copy_(draw * std)
+        """Seeded init, drawn at full shape on the generator's device in
+        f32 (the same draws at every tp degree), then cut to the shard."""
+        def normal(shape, std):
+            return torch.randn(shape, generator=generator,
+                               dtype=torch.float32,
+                               device=generator.device) * std
 
-        normal_(self.word_embeddings.weight, 0.02)
+        cfg = self.cfg
+        self.word_embeddings.load_full_(
+            normal((cfg.vocab_size, cfg.hidden_size), 0.02))
         if not self.cfg.rotary:
-            normal_(self.position_embeddings, 0.02)
+            self.position_embeddings.copy_(
+                normal(self.position_embeddings.shape, 0.02))
         for blk in self.layers:
             for lin in (blk.qkv, blk.out, blk.fc1, blk.fc2):
-                normal_(lin.weight, lin.in_features ** -0.5)
+                lin.load_full_(normal((lin.output_size, lin.input_size),
+                                      lin.input_size ** -0.5))
                 lin.bias.zero_()
             for ln in (blk.ln_attn, blk.ln_mlp):
                 ln.scale.fill_(1.0)
@@ -336,10 +394,12 @@ class GptModel(nn.Module):
 
     def forward(self, input_ids):
         """Hidden states (S, B, hidden) in ``cfg.dtype`` after the final
-        LayerNorm, for token ids (S, B)."""
+        LayerNorm, for token ids (S, B) (under sequence parallelism the
+        rows are gathered back to the full sequence)."""
         cfg = self.cfg
         s = input_ids.shape[0]
-        x = embed_tokens(self, input_ids, cfg.dtype)
+        sp = cfg.sequence_parallel and _tp_world() > 1
+        x = self.word_embeddings(input_ids)  # (S / tp, B, h) under SP
         cos = sin = None
         if cfg.rotary:
             cos, sin = rope_cos_sin(s, cfg.head_dim, device=x.device)
@@ -348,21 +408,34 @@ class GptModel(nn.Module):
                 raise ValueError(
                     f"sequence of {s} exceeds max_seq_len {cfg.max_seq_len}"
                 )
-            x = x + self.position_embeddings[:s, None, :].to(cfg.dtype)
+            start = ps.axis_rank(ps.TENSOR_PARALLEL_AXIS) * x.shape[0] \
+                if sp else 0
+            rows = self.position_embeddings[start:start + x.shape[0]]
+            x = x + rows[:, None, :].to(cfg.dtype)
         policy = resolve_remat_policy(cfg.remat_policy)
         for blk in self.layers:
             if cfg.remat:
                 x = remat(blk, x, cos, sin, policy=policy)
             else:
                 x = blk(x, cos, sin)
-        return apply_layer_norm(x, self.ln_f, cfg.layer_norm_eps)
+        x = apply_layer_norm(x, self.ln_f, cfg.layer_norm_eps)
+        if sp:
+            x = gather_from_sequence_parallel_region(x)
+        return x
 
 
 def gpt_lm_loss(model: GptModel, input_ids):
     """Next-token cross entropy through the tied embedding: f32 logits
     of every position, then the mean over positions 0..S-2 of the loss
-    of predicting token t+1 (``gpt_lm_loss`` of the JAX package at tp=1,
-    no MoE).  ``input_ids`` is (S, B)."""
-    logits = tied_logits(model, model(input_ids), model.cfg.dtype)
+    of predicting token t+1 (``gpt_lm_loss`` of the JAX package, no
+    MoE).  ``input_ids`` is (S, B), the same on every tp rank.  At tp >
+    1 the logits are the rank's vocab slice: without sequence
+    parallelism the hidden states enter through ``copy_to`` (the logits'
+    partial cotangents summed in the backward); under it the final
+    gather's reduce-scatter sums them."""
+    h = model(input_ids)
+    if not model.cfg.sequence_parallel and _tp_world() > 1:
+        h = copy_to_tensor_model_parallel_region(h)
+    logits = tied_logits(model, h, model.cfg.dtype)
     losses = vocab_parallel_cross_entropy(logits[:-1], input_ids[1:])
     return losses.mean()

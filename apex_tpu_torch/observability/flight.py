@@ -272,8 +272,9 @@ class FlightRecorder:
             final["fetched_step"] = self.registry.fetched_step
         if self.meter is not None:
             final["meter"] = self.meter.summary()
-        # one process per run until multi-process runs are ported
-        host = {"id": 0, "count": 1}
+        from apex_tpu_torch.parallel import multihost
+
+        host = {"id": multihost.host_id(), "count": multihost.host_count()}
         # the per-process monotonic→epoch anchor (captured once in
         # observability.spans): lines this dump up against span
         # records from the same or other processes

@@ -495,8 +495,9 @@ class SpanRecorder:
         return [dict(e) for e in self._ring]
 
     def header(self) -> Dict[str, Any]:
-        # one process per run until multi-process runs are ported
-        host = {"id": 0, "count": 1}
+        from apex_tpu_torch.parallel import multihost
+
+        host = {"id": multihost.host_id(), "count": multihost.host_count()}
         return {
             "version": 1,
             "kind": "apex_tpu_spans",

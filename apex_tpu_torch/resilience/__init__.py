@@ -5,14 +5,14 @@
   injection (the reference's sites, spec grammar and coin), driven from
   tests or the ``APEX_TPU_CHAOS`` env var.
 - :mod:`apex_tpu_torch.resilience.retry` — bounded-backoff retry for
-  checkpoint I/O.
+  checkpoint I/O and the process group's rendezvous
+  (``robust_initialize_distributed``).
 - :mod:`apex_tpu_torch.resilience.runner` — ``run_resilient``:
   SIGTERM-safe training loop with ``latest_step()`` auto-resume and
   skip-budget rollback to the last complete checkpoint.
 
 Not yet ported: ``guards`` (the guarded amp update, with the amp scaler:
-ROADMAP item 10) and ``robust_initialize_distributed`` (multi-process
-runs: item 5).
+ROADMAP item 10).
 """
 
 from apex_tpu_torch.resilience import chaos  # noqa: F401
@@ -21,6 +21,7 @@ from apex_tpu_torch.resilience.retry import (  # noqa: F401
     add_retry_listener,
     remove_retry_listener,
     retry_call,
+    robust_initialize_distributed,
 )
 from apex_tpu_torch.resilience.runner import (  # noqa: F401
     ObserverFanout,

@@ -3,22 +3,26 @@
 Counterpart of ``apex_tpu/resilience/retry.py``, host code copied over.
 The policy is deliberately boring — bounded attempts, exponential
 backoff, then *raise*.  Checkpoint I/O goes through :func:`retry_call`
-(:class:`apex_tpu_torch.resilience.ResilientCheckpointManager`);
-``robust_initialize_distributed`` (the rendezvous, the chaos
-``RENDEZVOUS`` site) waits for multi-process runs (ROADMAP item 5).
+(:class:`apex_tpu_torch.resilience.ResilientCheckpointManager`), and
+:func:`robust_initialize_distributed` retries the process group's
+rendezvous (the chaos ``RENDEZVOUS`` site).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 import warnings
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, Optional, Sequence, Tuple, Type
+
+from apex_tpu_torch.resilience import chaos
 
 __all__ = [
     "RetryPolicy",
     "retry_call",
     "add_retry_listener",
     "remove_retry_listener",
+    "robust_initialize_distributed",
 ]
 
 # Observability bridge: each about-to-be-retried failure is announced to
@@ -102,3 +106,43 @@ def retry_call(
             policy.sleep(pause)
     assert last is not None
     raise last
+
+
+def robust_initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
+    policy: Optional[RetryPolicy] = None,
+    **kwargs,
+) -> Tuple[int, int]:
+    """Join the process group, retrying a flaky rendezvous.
+
+    Against :func:`apex_tpu_torch.parallel.initialize_distributed`: no
+    rendezvous given and no cluster environment is the same one-process
+    no-op, ``(0, 1)``, with no retry; a join that fails is retried with
+    backoff and then **raised** (``strict``), never degraded to one
+    process.  ``kwargs`` (``backend``, ``device``, ``init_method``,
+    ``timeout_s``) go to ``initialize_distributed``."""
+    from apex_tpu_torch.parallel import multihost
+
+    policy = policy or RetryPolicy()
+    attempts = itertools.count()  # chaos attempt index across retries
+
+    def _join():
+        chaos.maybe_fail(chaos.RENDEZVOUS, next(attempts))
+        return multihost.initialize_distributed(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+            local_device_ids=local_device_ids,
+            strict=True,
+            **kwargs,
+        )
+
+    return retry_call(
+        _join,
+        policy=policy,
+        retry_on=(RuntimeError, chaos.InjectedFault),
+        describe="distributed rendezvous",
+    )

@@ -37,8 +37,9 @@ when they are None, ``APEX_TPU_FLIGHT=N[:DIR]`` and
 :class:`~apex_tpu_torch.observability.flight.FlightRecorder` and a
 :class:`~apex_tpu_torch.observability.spans.SpanRecorder` from the
 environment.  The
-pre-preemption host barrier is the chaos ``COLLECTIVE`` site at world
-size 1 until multi-process runs (item 5).
+pre-preemption barrier is ``parallel.multihost.host_barrier`` (the chaos
+``COLLECTIVE`` site, and a ``torch.distributed`` barrier when the
+process is in a group).
 """
 
 from __future__ import annotations
@@ -638,12 +639,15 @@ def _run_resilient_inner(
         if preempt.requested and completed >= 0:
             # Final checkpoint so a relaunch resumes within one step.  The
             # step may already be on disk when save_interval_steps == 1.
-            # Barrier first (the chaos COLLECTIVE site; one process, so
-            # nothing else to wait for) — best-effort, because a peer
-            # already torn down by the eviction must not keep THIS host
-            # from reaching its final checkpoint.
+            # Barrier first (the chaos COLLECTIVE site): every process
+            # agrees training stopped at `completed` — best-effort,
+            # because a peer already torn down by the eviction must not
+            # keep THIS host from reaching its final checkpoint.
             try:
-                chaos.maybe_fail(chaos.COLLECTIVE, completed)
+                from apex_tpu_torch.parallel import multihost
+
+                multihost.host_barrier(f"resilient-stop-{completed}",
+                                       completed)
             except Exception as e:
                 import warnings
 

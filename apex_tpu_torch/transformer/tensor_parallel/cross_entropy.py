@@ -1,21 +1,31 @@
-"""Vocab-parallel cross entropy at tensor-parallel size 1.
+"""Vocab-parallel cross entropy: no logits gather.
 
-Counterpart of ``apex_tpu/transformer/tensor_parallel/cross_entropy.py``:
-``vocab_parallel_cross_entropy`` with its ``_fwd``/``_bwd`` arithmetic.
-The forward keeps ``exp(logits - max)`` and its row sum for the backward,
-which rebuilds ``softmax - target_dist`` from them.  ``label_smoothing``
-spreads the smoothing uniformly over the full vocab.
+Counterpart of ``apex_tpu/transformer/tensor_parallel/cross_entropy.py``
+(≙ apex's ``_VocabParallelCrossEntropy``): the softmax cross entropy of
+logits whose vocab is sharded over the tp group, with three row-wise
+all-reduces — the global max, the sum of exps and the target logit
+(which only the rank that owns the target's id holds) — and, with
+``label_smoothing``, the sum of the logits.  The forward keeps
+``exp(logits - max)`` and the row sums for the backward, which rebuilds
+``softmax - target_dist`` on each rank's slice with no collective.
+``label_smoothing`` spreads the smoothing uniformly over the full vocab.
 
-Shapes: ``logits`` is ``(..., V)``, ``target`` is ``(...)`` integer ids
-in ``[0, V)`` (an id outside the range gets no target logit, as on the
-JAX side).  The loss is f32 of shape ``(...)``; the logits gradient
-comes back in the logits' dtype.  Only ``tp_size=1`` is ported: the
-vocab-sharded version needs the collectives of the multi-GPU slice.
+Shapes: ``logits`` is ``(..., V / tp)`` (this rank's slice: ids
+``[rank * V / tp, (rank + 1) * V / tp)``), ``target`` is ``(...)``
+integer ids in ``[0, V)`` (an id outside the range gets no target
+logit, as on the JAX side).  The loss is f32 of shape ``(...)``, the
+same on every rank; the logits gradient comes back in the logits'
+dtype.  At tp = 1 no collective is issued.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from apex_tpu_torch import parallel_state as ps
+from apex_tpu_torch.parallel import comm
 
 __all__ = ["vocab_parallel_cross_entropy"]
 
@@ -23,19 +33,27 @@ __all__ = ["vocab_parallel_cross_entropy"]
 class _VocabCrossEntropy(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, logits, target, smoothing):
+    def forward(ctx, logits, target, smoothing, axis_name):
+        group = ps.get_group(axis_name)
+        world = ps.axis_size(axis_name)
         lf = logits.float()
-        vocab = lf.shape[-1]
-        shifted = lf - lf.amax(dim=-1, keepdim=True)
-        in_range = (target >= 0) & (target < vocab)
-        idx = target.long().clamp(0, vocab - 1)
+        local_v = lf.shape[-1]
+        vocab = local_v * world
+        start = ps.axis_rank(axis_name) * local_v
+        lmax = comm.all_reduce(lf.amax(dim=-1), group, op="max")
+        shifted = lf - lmax[..., None]
+        in_range = (target >= start) & (target < start + local_v)
+        idx = (target.long() - start).clamp(0, local_v - 1)
         pred = shifted.gather(-1, idx[..., None])[..., 0]
-        pred = torch.where(in_range, pred, torch.zeros_like(pred))
-        mean_logit = shifted.sum(dim=-1) / vocab if smoothing > 0.0 else None
+        pred = comm.all_reduce(
+            torch.where(in_range, pred, torch.zeros_like(pred)), group)
+        mean_logit = None
+        if smoothing > 0.0:
+            mean_logit = comm.all_reduce(shifted.sum(dim=-1), group) / vocab
         # in place: the shifted logits are not needed past this point,
         # and at (S*B, V) = (16384, 50304) each such buffer is 3.3 GB
         exp = shifted.exp_()
-        sum_exp = exp.sum(dim=-1)
+        sum_exp = comm.all_reduce(exp.sum(dim=-1), group)
         log_z = torch.log(sum_exp)
         loss = log_z - pred
         if smoothing > 0.0:
@@ -43,6 +61,7 @@ class _VocabCrossEntropy(torch.autograd.Function):
             loss = (1.0 - smoothing) * loss + smoothing * (log_z - mean_logit)
         ctx.save_for_backward(exp, sum_exp, in_range, idx)
         ctx.smoothing = smoothing
+        ctx.vocab = vocab
         ctx.logits_dtype = logits.dtype
         return loss
 
@@ -56,23 +75,28 @@ class _VocabCrossEntropy(torch.autograd.Function):
         grad.scatter_add_(-1, idx[..., None],
                           -(1.0 - s) * in_range[..., None].float())
         if s > 0.0:
-            grad.sub_(s / exp.shape[-1])
+            grad.sub_(s / ctx.vocab)
         grad.mul_(g[..., None])
-        return grad.to(ctx.logits_dtype), None, None
+        return grad.to(ctx.logits_dtype), None, None, None
 
 
 def vocab_parallel_cross_entropy(logits, target, label_smoothing: float = 0.0,
-                                 *, tp_size: int = 1):
-    """Per-position cross entropy (f32, shape ``target.shape``) of
-    ``logits`` (..., V) against integer ``target`` (...)."""
-    if tp_size != 1:
-        raise NotImplementedError(
-            f"vocab_parallel_cross_entropy at tp_size={tp_size} is not "
-            "ported yet (ROADMAP: multi-GPU slice); only tp_size=1"
+                                 axis_name: str = ps.TENSOR_PARALLEL_AXIS, *,
+                                 tp_size: Optional[int] = None):
+    """Per-position cross entropy (f32, shape ``target.shape``) of this
+    rank's vocab slice ``logits`` (..., V / tp) against integer
+    ``target`` (...).  ``tp_size``, when given, must be the size of the
+    ``axis_name`` group (a check of the caller's sharding)."""
+    world = ps.axis_size(axis_name)
+    if tp_size is not None and tp_size != world:
+        raise ValueError(
+            f"vocab_parallel_cross_entropy: tp_size={tp_size} but the "
+            f"{axis_name!r} group has {world} rank(s)"
         )
     if logits.shape[:-1] != target.shape:
         raise ValueError(
             f"logits {tuple(logits.shape)} and target {tuple(target.shape)} "
             "disagree on the leading dimensions"
         )
-    return _VocabCrossEntropy.apply(logits, target, float(label_smoothing))
+    return _VocabCrossEntropy.apply(logits, target, float(label_smoothing),
+                                    axis_name)

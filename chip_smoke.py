@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-fifteen phases; any failure raises and the exit code is non-zero.  Without
+sixteen phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -189,6 +189,38 @@ a CUDA device it exits non-zero at once and prints no result.
     scheduler step's host ms with a registry and a span recorder
     attached beside one with neither (the same launches); and a metric
     registry on the card read back as one on the host.
+16. Data and tensor parallelism (``phase16``), in worker processes on
+    the one card (``torch.multiprocessing``, spawn; a ``file://`` store,
+    a timeout on every process group and on every join; the kernels
+    built by this process first).  16a: ``examples.train_gpt`` at phase
+    6's configuration for 4 steps in a world of 1 over NCCL
+    (``DistributedDataParallel``, ``parallel_state`` at tp = 1) equals
+    the same run without a process group, and phase 6's first 4 steps,
+    bit for bit: losses, every parameter's bytes, K1-K4 launches.  16b:
+    GptConfig()'s width at 2 layers, tp = 2 with sequence parallelism
+    on two ranks over gloo, weights cut from tp = 1's seeded full
+    weights: one step's gradients gathered over tp within
+    ``P16_TP_GRAD_TOL`` of tp = 1's (each over the tensor's max), a
+    planted fault (one RowParallelLinear that skips its reduction) past
+    10x that; then 4 steps of ``examples.train_gpt --tp 2
+    --sequence-parallel`` with losses within ``P16_TP_LOSS_TOL`` of the
+    same steps at tp = 1, and each rank's K1-K4 counts exactly tp = 1's
+    (K1/K2 at S * B / 2 rows, K3/K4 at B * H / 2 heads; phase 1 holds
+    the kernels to their plain versions at these shapes).  16c: dp = 2
+    over gloo: GPT with ``DistributedFusedAdam`` (``train_gpt --zero``)
+    on the f32 and int8 wires against FusedAdam at dp = 1 on the same
+    global batch, the reduced shard within the int8 codec's bound of
+    the exact one, each beside a planted fault (the reduce-scatter
+    skipped) that must fail both; BERT-Large through
+    ``examples.pretrain_bert`` under DDP and FusedLAMB at 128 x 128
+    against dp = 1 (the mean of the two halves' losses); each first
+    step's collective call log against ``zero_plan`` / ``sync_plan``.
+    16d: ``SyncBatchNorm`` over the two ranks on a (32, 64, 56, 56) bf16
+    batch whose halves differ in mean and scale, against the unsplit
+    cuDNN BatchNorm (output, gradients, running statistics), beside a
+    planted fault (statistics over one rank's rows) that must fail.  The
+    two-rank times are of two processes sharing one card, staged
+    through the host by gloo: not a rank's speed.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -197,7 +229,7 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 4, 5.
+11, 16, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -238,6 +270,11 @@ the full run) and prints them as one JSON line.
 
 runs phase 15 alone (with the kernels' build) and prints it as one JSON
 line.
+
+    python3 chip_smoke.py --parallel
+
+runs phase 16 alone (with the kernels' build; 16a then compares with
+its own no-group run only) and prints it as one JSON line.
 
     python3 chip_smoke.py --evoformer
 
@@ -501,9 +538,12 @@ def phase1_ln_fwd(gen):
     # every eighth starts off a 16-byte boundary, so one element per
     # load), an f32 width of 130 (520 bytes, also one element per load),
     # a wide row that streams (12288 > 32 lanes x 32 values) and narrow
-    # rows that share a warp (64 bf16: 8 lanes a row; 33 f32: 16)
+    # rows that share a warp (64 bf16: 8 lanes a row; 33 f32: 16); the
+    # second case is phase 16's sharded shape (tp = 2 with sequence
+    # parallelism: S x B / 2 rows)
     for rows, hidden, rms, dt, eps in (
             (TRAIN_BATCH * TRAIN_SEQ, 1024, False, "bf16", 1e-5),
+            (TRAIN_BATCH * TRAIN_SEQ // 2, 1024, False, "bf16", 1e-5),
             (2048, 1024, False, "bf16", 1e-5), (8, 1024, False, "bf16", 1e-5),
             (2048, 1024, True, "bf16", 1e-5), (37, 1000, False, "bf16", 1e-5),
             (EVO_SEQ * EVO_RES, 256, False, "f32", 1e-6),
@@ -529,15 +569,16 @@ def phase1_ln_fwd(gen):
 
 def phase1_flash_fwd(gen):
     """K3 against its twin at D = 64, causal: the training shape (BH =
-    batch x heads, run twice for the same bits) first, then the prefill
-    shapes and ragged and Sq != Sk cases.  Returns the training shape's
-    error."""
+    batch x heads, run twice for the same bits) first, then phase 16's
+    (tp = 2: half the heads), the prefill shapes and ragged and Sq != Sk
+    cases.  Returns the training shape's error."""
     import torch
 
     from apex_tpu_torch.ops import attention as attn
 
     main_err = None
     for bh, sq, sk in ((TRAIN_BATCH * 16, TRAIN_SEQ, TRAIN_SEQ),
+                       (TRAIN_BATCH * 16 // 2, TRAIN_SEQ, TRAIN_SEQ),
                        (16, 16, 16), (16, 1024, 1024), (16, 2048, 2048),
                        (4, 200, 200), (4, 64, 192), (2, 96, 40)):
         q, k, v = attn_inputs(bh, sq, sk, 64, gen)
@@ -640,6 +681,8 @@ def phase1_paged(gen):
 LN_BWD_CASES = (
     (16384, 1024, "bf16", False, False),
     (16384, 1024, "bf16", False, True),
+    (8192, 1024, "bf16", False, False),  # phase 16: tp = 2 with SP
+    (8192, 1024, "bf16", False, True),
     (1000, 1024, "bf16", True, False),
     (37, 768, "f32", False, True),
     (37, 768, "f32", True, True),
@@ -690,11 +733,12 @@ def phase1_ln_bwd(gen):
     return main_err
 
 
-#: (BH, Sq, Sk, causal, with dlse): the training shape, ragged lengths,
-#: Sq < Sk, Sq > Sk with fully-masked rows, non-causal, and an lse
-#: cotangent folded into delta
+#: (BH, Sq, Sk, causal, with dlse): the training shape, phase 16's (tp =
+#: 2: half the heads), ragged lengths, Sq < Sk, Sq > Sk with fully-masked
+#: rows, non-causal, and an lse cotangent folded into delta
 FLASH_BWD_CASES = (
     (128, 2048, 2048, True, False),
+    (64, 2048, 2048, True, False),
     (4, 1000, 1000, True, False),
     (4, 17, 17, True, False),
     (4, 64, 192, True, False),
@@ -3478,8 +3522,9 @@ def phase4(gen, launches, errs):
     evoformer's f32 rows (pair (65536, 128), MSA (32768, 256)), K3 and K4
     at the reference's long-context shape (BH 8, S 16384, D 128, causal)
     and at D = 256 (BH 32, S 2048, causal), K3, K4 and K5 at D = 384 (BH
-    32, S 2048), K6 at phase 1's short lengths, and the f32 instances of
-    K3, K4 and K5 at the triangle, MSA row and MSA column shapes (the
+    32, S 2048), K1, K2 at (8192, 1024) and K3, K4 at BH = 64 (phase
+    16's tp = 2 shapes), K6 at phase 1's short lengths, and the f32
+    instances of K3, K4 and K5 at the triangle, MSA row and MSA column shapes (the
     f32-attention run of phase 10).  ``launches`` maps kernel -> {path:
     count} from the phase-2, -6, -8 and -10 runs (empty with
     ``--timing``)."""
@@ -3512,6 +3557,20 @@ def phase4(gen, launches, errs):
     shape = f"BH={train_bh} S={TRAIN_SEQ} D=64 causal bf16"
     rows["flash_fwd"] = dict(at_fwd, shape=shape)
     rows["flash_bwd"] = dict(at_bwd, shape=shape + ", m/l/delta f32")
+    torch.cuda.empty_cache()
+    # phase 16's sharded shapes (tp = 2 with sequence parallelism)
+    ln_fwd, ln_bwd = _time_ln(gen, flush, train_rows // 2, 1024)
+    shape = f"({train_rows // 2}, 1024) bf16 (tp = 2 + SP)"
+    extra.setdefault("layer_norm_fwd", {})["tp2_shape"] = dict(
+        ln_fwd, shape="x " + shape)
+    extra.setdefault("layer_norm_bwd", {})["tp2_shape"] = dict(
+        ln_bwd, shape="x, g " + shape)
+    at_fwd, at_bwd = _time_attn(gen, flush, train_bh // 2, TRAIN_SEQ,
+                                with_bwd=True)
+    shape = f"BH={train_bh // 2} S={TRAIN_SEQ} D=64 causal bf16 (tp = 2)"
+    extra.setdefault("flash_fwd", {})["tp2_shape"] = dict(at_fwd, shape=shape)
+    extra.setdefault("flash_bwd", {})["tp2_shape"] = dict(
+        at_bwd, shape=shape + ", m/l/delta f32")
     torch.cuda.empty_cache()
 
     for p, tag in ((0.0, "bert_shape"), (0.1, "bert_dropout_shape")):
@@ -3744,6 +3803,7 @@ def phase4(gen, launches, errs):
             entry[tag] = fields(r)
         kernels.append(entry)
         for tag, r in (("", main), (" (serving)", entry.get("serving_shape")),
+                       (" (tp = 2)", entry.get("tp2_shape")),
                        (" (BERT)", entry.get("bert_shape")),
                        (" (BERT, dropout)", entry.get("bert_dropout_shape")),
                        (" (triangle)", entry.get("triangle_shape")),
@@ -5544,6 +5604,865 @@ def ptxas_summary(text, nvcc):
     return [f"{n}: {r} registers{sp}" for n, (_, r, sp) in zip(names, rows)]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data and tensor parallelism — workers on one card
+# ---------------------------------------------------------------------------
+
+#: phase 16's runs: 4 steps; 16b and 16c's GPT cut to 2 layers (the
+#: width stays GptConfig()'s: hidden 1024, 16 heads, vocab 50304) at
+#: phase 6's batch 8 x 2048; BERT-Large whole (24 x 1024) at phase 8's
+#: batch 128 x 128
+P16_STEPS = 4
+P16_GPT_LAYERS = 2
+#: every init_process_group's timeout, and a spawn's deadline
+P16_GROUP_TIMEOUT_S = 180.0
+P16_SPAWN_TIMEOUT_S = 600.0
+#: 16b: tp = 2 against tp = 1 on the card, each gradient's max |diff|
+#: over the tensor's max |value| (bf16 products; the row-parallel
+#: outputs summed as two bf16 partials instead of one product)
+P16_TP_GRAD_TOL = 3e-2
+#: the planted fault (one RowParallelLinear that skips its reduction)
+#: must read more than this many times the limit
+P16_FAULT_FACTOR = 10.0
+#: 16b: the losses of ``train_gpt --tp 2 --sequence-parallel`` against
+#: the same steps at tp = 1, and the one hand-built forward's: each
+#: loss's relative difference.  The planted fault's loss must read more.
+#: On an H100 (700 W) the sound run reads 1.9e-5 and the fault 1.8e-4
+P16_TP_LOSS_TOL = 6e-5
+#: 16c's ZeRO f32 run against FusedAdam at dp 1: each loss's relative
+#: difference.  The planted fault (the reduce-scatter skipped, each rank
+#: stepping on its local gradient) must read more.  On an H100 the sound
+#: run reads 3.5e-5 and the fault 2.0e-3
+P16_ZERO_LOSS_TOL = 3e-4
+#: 16c's ZeRO int8 run against FusedAdam at dp 1 (the wire's rounding);
+#: the same planted fault on the int8 wire must read more.  On an H100
+#: the sound run reads 8.3e-4 and the fault 1.4e-3: over 4 steps the
+#: int8 rounding moves the losses almost as far as the lost half of the
+#: batch does, so this margin is thin; the shard probe, against the
+#: codec's bound, is the check that reads the fault with room (~5x)
+P16_INT8_LOSS_TOL = 1.1e-3
+#: 16c BERT-Large dp = 2 against dp = 1 (the mean of the two halves'
+#: losses, the reference's per-rank normalization): relative, per step.
+#: On an H100 the sound run equals dp = 1 bit for bit; the limit allows
+#: the f32 summation-order differences ZeRO's f32 run shows (3.5e-5),
+#: and the planted fault (DDP's sync skipped) must read more
+P16_BERT_LOSS_TOL = 3e-4
+#: 16d SyncBatchNorm: bf16 output and input gradient, and the f32
+#: parameter gradients and running statistics, each over its max |value|.
+#: On an H100 the sound run reads at most 6.7e-3 (dw) and the planted
+#: fault (statistics over one rank's rows) at least 0.115 (dx)
+P16_BN_TOL = 2e-2
+P16_BN_SHAPE = (32, 64, 56, 56)
+
+
+def _p16_main(rank, world, backend, store, jobs, out_dir):
+    """A phase-16 worker: join the group on card 0 (``file://`` store,
+    ``backend``), run ``jobs`` (names of functions here, with kwargs),
+    write their results as JSON; a failure writes its traceback."""
+    import traceback
+
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from apex_tpu_torch.parallel import multihost
+
+    try:
+        multihost.initialize_distributed(
+            init_method=f"file://{store}", num_processes=world,
+            process_id=rank, backend=backend, device="cuda",
+            timeout_s=P16_GROUP_TIMEOUT_S)
+        out = {}
+        for name, fn, kwargs in jobs:
+            out[name] = globals()[fn](rank, world, **kwargs)
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        multihost.finalize_distributed()
+
+
+def _p16_spawn(world, backend, jobs):
+    """Run ``jobs`` (``(name, function name, kwargs)``) on ``world``
+    processes sharing card 0
+    (``torch.multiprocessing``, spawn).  A worker that raises, exits
+    non-zero or outlives ``P16_SPAWN_TIMEOUT_S`` fails the phase (the
+    others are killed).  Returns each rank's results."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as tmp_mp
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="apex_p16_")
+    ctx = tmp_mp.get_context("spawn")
+    procs = [ctx.Process(target=_p16_main, args=(
+        r, world, backend, os.path.join(tmp, "store"), jobs, tmp))
+        for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(0.0, P16_SPAWN_TIMEOUT_S - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        if hung:
+            raise AssertionError(
+                f"phase 16: ranks {hung} hung past {P16_SPAWN_TIMEOUT_S} s")
+        for r, p in enumerate(procs):
+            if p.exitcode != 0:
+                err = os.path.join(tmp, f"err{r}.txt")
+                text = open(err).read() if os.path.exists(err) else ""
+                raise AssertionError(
+                    f"phase 16: rank {r} exited with {p.exitcode}\n{text}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        log(f"  {world} worker(s) over {backend}: "
+            f"{time.perf_counter() - t0:.1f} s wall")
+        return out
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _param_digests(model):
+    """sha256 of every parameter's bytes (bit-for-bit comparisons
+    across processes)."""
+    import hashlib
+
+    return {n: hashlib.sha256(
+        p.detach().cpu().contiguous().view(-1).view(
+            __import__("torch").uint8).numpy().tobytes()).hexdigest()
+        for n, p in model.named_parameters()}
+
+
+def _timed_steps(step, batches, steps):
+    """(losses, step seconds, first step's collective summary)."""
+    import torch
+
+    from apex_tpu_torch.parallel import comm
+
+    losses, seconds, summary = [], [], None
+    for i in range(steps):
+        b = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with comm.collective_log() as rec:
+                loss = step(b)
+                torch.cuda.synchronize()
+            summary = comm.collective_summary(rec)
+        else:
+            loss = step(b)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, summary
+
+
+def _gpt_args(extra, layers=None, steps=P16_STEPS):
+    from apex_tpu_torch.examples import train_gpt
+
+    argv = ["--steps", str(steps), "--batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), *extra]
+    if layers is not None:
+        argv += ["--num-layers", str(layers)]
+    return train_gpt.parse_args(argv)
+
+
+def p16_world1(rank, world):
+    """16a worker: ``examples.train_gpt`` at phase 6's configuration, 4
+    steps, in a world of 1 over NCCL (DDP on the f32 wire and
+    parallel_state at tp = 1: every sync the identity)."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.ops import _dispatch
+
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    run = train_gpt.train(_gpt_args(["--backend", "nccl"]))
+    torch.cuda.synchronize()
+    return dict(losses=run.losses, step_seconds=run.step_seconds,
+                launches=_dispatch.launches(),
+                digests=_param_digests(run.model),
+                peak=torch.cuda.max_memory_allocated(),
+                backend=torch.distributed.get_backend(),
+                world=torch.distributed.get_world_size(),
+                ddp=run.ddp is not None)
+
+
+def _gather_full(model, name, t):
+    """Parameter ``name``'s tensor ``t`` gathered over tp to its full
+    shape (the replicated parameters as they are)."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        VocabParallelEmbedding,
+        _TPLinear,
+    )
+
+    mod_name, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(mod_name)
+    dim = None
+    if isinstance(mod, VocabParallelEmbedding):
+        dim = 0
+    elif isinstance(mod, _TPLinear):
+        dim = mod.shard_dim if leaf == "weight" else (
+            0 if mod.shard_dim == 0 else None)
+    tp = ps.get_tensor_model_parallel_world_size()
+    if dim is None or tp == 1:
+        return t
+    out = t.new_empty((tp,) + tuple(t.shape))
+    comm.all_gather_into(out.view(-1), t.contiguous().view(-1),
+                         ps.get_tensor_model_parallel_group())
+    return torch.cat(out.unbind(0), dim=dim)
+
+
+def _rel_errs(model, grads, ref):
+    """Per parameter: max |full(grad) - ref| / max |ref|."""
+    out = {}
+    for n, g in grads.items():
+        full = _gather_full(model, n, g).float()
+        r = ref[n].float()
+        out[n] = float((full - r).abs().max() / r.abs().max().clamp_min(1e-30))
+    return out
+
+
+def p16_tp(rank, world, layers, steps):
+    """16b worker at GptConfig()'s width, ``layers`` layers, remat, phase
+    6's batch.  The gradients, on a model built here: tp = 1 first (no
+    model-parallel group), one forward and backward, then tp = 2 with
+    sequence parallelism from the same seeded full weights, each gradient
+    gathered over tp against tp = 1's; then the planted fault.  The
+    training run goes through ``examples.train_gpt --tp 2
+    --sequence-parallel`` (``build`` and ``train_step``: the tp and dp
+    groups, this dp rank's columns, DDP at dp 1, the sequence-parallel
+    gradient sum): ``steps`` steps after the batch the ZeRO workers probe
+    on, so that its losses line up with phase 16's dp = 1 run, the
+    launches counted around those steps."""
+    import dataclasses as dc
+
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models.gpt import GptConfig, GptModel, gpt_lm_loss
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.transformer.tensor_parallel import (
+        allreduce_sequence_parallel_gradients,
+        mappings,
+    )
+
+    dev = torch.device("cuda", 0)
+    cfg = GptConfig(num_layers=layers, remat=True, max_seq_len=TRAIN_SEQ)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_SEQ, TRAIN_BATCH),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+
+    def grads_of(model):
+        loss = gpt_lm_loss(model, ids)
+        loss.backward()
+        if model.cfg.sequence_parallel:
+            allreduce_sequence_parallel_gradients(model)
+        return float(loss.detach()), {n: p.grad.detach().clone()
+                                      for n, p in model.named_parameters()}
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    ps.destroy_model_parallel()
+    dense = GptModel(cfg, device=dev, generator=seeded())
+    loss1, ref = grads_of(dense)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ps.initialize_model_parallel(2)
+    try:
+        cfg2 = dc.replace(cfg, sequence_parallel=True)
+        model = GptModel(cfg2, device=dev, generator=seeded())
+        loss2, grads = grads_of(model)
+        errs = _rel_errs(model, grads, ref)
+        del model, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the planted fault: layer 0's out projection skips its sum
+        bad = GptModel(cfg2, device=dev, generator=seeded())
+        lin = bad.layers[0].out
+
+        def skip_reduce(x, name=None):
+            y = F.linear(x.to(lin.compute_dtype), lin.weight.to(
+                lin.compute_dtype))
+            return mappings._split_along_first_dim(y) + lin.bias.to(
+                lin.compute_dtype)
+
+        lin.forward = skip_reduce
+        loss_bad, bad_grads = grads_of(bad)
+        fault = _rel_errs(bad, bad_grads, ref)
+        del bad, bad_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        ps.destroy_model_parallel()
+
+    args = _gpt_args(["--tp", "2", "--sequence-parallel", "--backend",
+                      "gloo"], layers=layers, steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, model, opt, batches, ddp = train_gpt.build(args)
+        next(batches)  # the ZeRO workers' probe batch
+        _dispatch.reset_launches()
+        losses, seconds, summary = _timed_steps(
+            lambda b: train_gpt.train_step(model, opt, b, ddp), batches,
+            steps)
+        launches = _dispatch.launches()
+        mesh = ps.get_mesh().shape
+    finally:
+        ps.destroy_model_parallel()
+    return dict(loss_tp1=loss1, loss_tp2=loss2, loss_fault=loss_bad,
+                grad_rel_errs=errs, fault_rel_errs=fault, losses=losses,
+                seconds=seconds, launches=launches, mesh=dict(mesh),
+                sp=model.cfg.sequence_parallel, ddp=ddp is not None,
+                peak=torch.cuda.max_memory_allocated(), collectives=summary)
+
+
+def _p16_probe_shard(model, opt, ids, world):
+    """One backward on ``ids``: this rank's reduce-scattered shard (on
+    the optimizer's wire) against the exact (f32) one, and the int8
+    codec's bound (0.5 (world + 1) + 0.5) / 127 of the largest gradient
+    before the reduction, averaged over the world (the quantized tests'
+    statement); on the f32 wire the two are the same reduction."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.models.gpt import gpt_lm_loss
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.parallel.distributed_fused_optimizers import (
+        _flatten_pad,
+    )
+
+    gpt_lm_loss(model, ids).backward()
+    flat = _flatten_pad([p.grad for p in model.parameters()], opt.spec)
+    gmax = flat.abs().max().reshape(1)
+    comm.all_reduce(gmax, ps.get_data_parallel_group(), op="max")
+    exact = comm.reduce_scatter_flat(flat, wire="f32") / world
+    got = opt.reduce_scatter_grads()
+    opt.zero_grad()
+    err = float((got - exact).abs().max())
+    bound = float((0.5 * (world + 1) + 0.5) / 127.0 * gmax / world)
+    return err, bound
+
+
+def p16_zero(rank, world, layers, steps, wire, fault=False):
+    """16c worker: ``examples.train_gpt --zero`` (DistributedFusedAdam)
+    at ``layers`` layers over dp = world on ``wire``: the shard probe on
+    the first batch, then ``steps`` steps; the first step's call log and
+    the optimizer's plan.  ``fault`` plants the fault the checks exist to
+    catch: the reduce-scatter skipped, each rank updating its shard from
+    its own local gradient."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.parallel.distributed_fused_optimizers import (
+        _flatten_pad,
+    )
+
+    args = _gpt_args(["--zero", "--wire", wire, "--backend", "gloo"],
+                     layers=layers, steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, opt, batches, ddp = train_gpt.build(args)
+    if fault:
+        def local_shard(grads=None, gradient_average=True):
+            return opt._rank_slice(_flatten_pad(
+                [p.grad for p in opt.params], opt.spec))
+
+        opt.reduce_scatter_grads = local_shard
+    err, bound = _p16_probe_shard(model, opt, next(batches), world)
+    _dispatch.reset_launches()
+    losses, seconds, summary = _timed_steps(
+        lambda ids: train_gpt.train_step(model, opt, ids, ddp), batches,
+        steps)
+    return dict(losses=losses, seconds=seconds, collectives=summary,
+                plan=opt.collective_plan(), probe_err=err,
+                probe_bound=bound, launches=_dispatch.launches(),
+                peak=torch.cuda.max_memory_allocated(),
+                padded=opt.spec.padded_size, shard=opt.spec.shard_size)
+
+
+def _bert_args(extra=(), steps=P16_STEPS):
+    from apex_tpu_torch.examples import pretrain_bert
+
+    return pretrain_bert.parse_args([
+        "--steps", str(steps), "--batch", str(BERT_BATCH),
+        "--seq-len", str(BERT_SEQ), *extra])
+
+
+def p16_bert(rank, world, steps, fault=False):
+    """16c worker: ``examples.pretrain_bert`` (BERT-Large, FusedLAMB) at
+    dp = world under DistributedDataParallel, ``steps`` steps.  ``fault``
+    plants the fault the check exists to catch: DDP's gradient sync
+    skipped, each rank stepping on its own half of the batch."""
+    import torch
+
+    from apex_tpu_torch.examples import pretrain_bert
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.parallel import DistributedDataParallel
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, opt, batches, _ = pretrain_bert.build(
+        _bert_args(["--backend", "gloo"], steps))
+    ddp = DistributedDataParallel(model, pretrain_bert._loss)
+    if fault:
+        ddp.all_reduce_gradients = lambda grads=None: None
+    try:
+        _dispatch.reset_launches()
+        losses, seconds, summary = _timed_steps(
+            lambda b: pretrain_bert.train_step(model, opt, b, ddp=ddp),
+            batches, steps)
+    finally:
+        batches.close()
+    return dict(losses=losses, seconds=seconds, collectives=summary,
+                plan=ddp.collective_plan(), launches=_dispatch.launches(),
+                peak=torch.cuda.max_memory_allocated(),
+                sizes=[p.numel() for p in model.parameters()])
+
+
+def p16_syncbn(rank, world):
+    """16d worker: SyncBatchNorm on this rank's rows of a seeded
+    (N, C, H, W) bf16 batch against the unsplit cuDNN BatchNorm on the
+    whole batch (computed on every rank).  The ranks' rows differ in
+    mean and scale, so that statistics over one rank's rows are wrong:
+    the planted fault is the same layer normalizing over its own rows
+    (its statistics' group the tp axis, of size 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import SyncBatchNorm, comm
+
+    ps.destroy_model_parallel()
+    ps.initialize_model_parallel()
+    try:
+        dev = torch.device("cuda", 0)
+        n, c, h, w = P16_BN_SHAPE
+        g = torch.Generator().manual_seed(3)
+        half = torch.arange(n).reshape(n, 1, 1, 1) >= n // 2
+        x = (torch.randn(n, c, h, w, generator=g)
+             * torch.where(half, 3.0, 2.0)
+             + torch.where(half, 2.0, 0.5)).to(dev, torch.bfloat16)
+        cot = torch.randn(n, c, h, w, generator=g).to(dev, torch.bfloat16)
+        weight = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bias = (0.1 * torch.randn(c, generator=g)).to(dev)
+        rows = slice(rank * n // world, (rank + 1) * n // world)
+        grp = ps.get_data_parallel_group()
+
+        xf = x.clone().requires_grad_(True)
+        wf = weight.clone().requires_grad_(True)
+        bf = bias.clone().requires_grad_(True)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        yf = F.batch_norm(xf, rm, rv, wf, bf, training=True, momentum=0.1,
+                          eps=1e-5)
+        yf.backward(cot)
+
+        def rel(a, b):
+            b = b.detach().float()
+            return float((a.detach().float() - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30))
+
+        def run(axis):
+            bn = SyncBatchNorm(c, device=dev, axis_name=axis)
+            with torch.no_grad():
+                bn.weight.copy_(weight)
+                bn.bias.copy_(bias)
+            xr = x[rows].clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = bn(xr)
+            y.backward(cot[rows])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            dw, db = bn.weight.grad.clone(), bn.bias.grad.clone()
+            comm.all_reduce(dw, grp)
+            comm.all_reduce(db, grp)
+            return dict(y=rel(y, yf[rows]), dx=rel(xr.grad, xf.grad[rows]),
+                        dw=rel(dw, wf.grad), db=rel(db, bf.grad),
+                        running_mean=rel(bn.running_mean, rm),
+                        running_var=rel(bn.running_var, rv), ms=ms)
+
+        out = run(ps.DATA_PARALLEL_AXIS)
+        out["fault"] = run(ps.TENSOR_PARALLEL_AXIS)
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def _bert_dp1_reference(steps, world):
+    """BERT-Large at dp = 1 on the global batch, with dp = world's
+    objective: the mean of the ``world`` slices' losses (each normalized
+    by its own count of predictions, as each dp rank's is), so the
+    gradients are the mean of the slices' gradients."""
+    import torch
+
+    from apex_tpu_torch.examples import pretrain_bert
+    from apex_tpu_torch.models.bert import bert_pretrain_loss
+
+    cfg, model, opt, batches, _ = pretrain_bert.build(_bert_args((), steps))
+    losses, seconds = [], []
+    try:
+        for _ in range(steps):
+            b = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total = 0.0
+            for r in range(world):
+                part = {}
+                for k, v in b.items():
+                    axis = pretrain_bert._BATCH_AXIS.get(k, 1)
+                    per = v.shape[axis] // world
+                    part[k] = v.narrow(axis, r * per, per)
+                total = total + bert_pretrain_loss(model, part)
+            loss = total / world
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        batches.close()
+    return losses, seconds
+
+
+def _zero_exact_bytes(kind, shard, world, wire):
+    """The exact bytes a ZeRO step's ``kind`` moves (the plan writes
+    ``[0, hi]`` around them): the f32 shard a reduce-scatter returns, or
+    the world's encoded payloads of an all-to-all or all-gather, chunk
+    by chunk as ``comm`` cuts them."""
+    from apex_tpu_torch.parallel import comm
+
+    if kind == "reduce-scatter":
+        return shard * 4
+    bounds = comm._chunk_bounds(
+        shard, min(comm.resolve_chunks(int(
+            world * shard * comm.wire_bytes_per_element(wire))), shard),
+        1 if wire == "f32" else comm.DEFAULT_BLOCK)
+    return sum(world * comm.wire_payload_bytes(hi - lo, wire)
+               for lo, hi in bounds)
+
+
+def _check_plan(tag, summary, plan):
+    """The call log of one step against a plan: every planned collective
+    with its count and bytes within the plan's bounds, and nothing
+    unplanned."""
+    kinds = {e["kind"] for e in plan["collectives"]}
+    extra = set(summary) - kinds
+    if extra:
+        raise AssertionError(f"{tag}: unplanned collectives {extra}")
+    for e in plan["collectives"]:
+        got = summary.get(e["kind"], {"count": 0, "bytes": 0})
+        if e["count"] is not None and got["count"] != e["count"]:
+            raise AssertionError(f"{tag}: {e['kind']} count {got['count']} "
+                                 f"!= planned {e['count']}")
+        lo, hi = e["bytes"]
+        if not lo <= got["bytes"] <= hi:
+            raise AssertionError(f"{tag}: {e['kind']} bytes {got['bytes']} "
+                                 f"outside the planned [{lo}, {hi}]")
+
+
+def _gpt_step_launches(layers):
+    """K1-K4 launches of one remat GPT step: two LayerNorms a layer and
+    the final one, each layer's forward run twice (the recompute)."""
+    return {"layer_norm_fwd": 2 * (2 * layers) + 1,
+            "layer_norm_bwd": 2 * layers + 1,
+            "flash_fwd": 2 * layers, "flash_bwd": layers}
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase16(phase6_losses=None):
+    """Data and tensor parallelism on the card (ROADMAP item 5), in
+    worker processes started with ``torch.multiprocessing`` (spawn), each
+    in a ``file://``-store process group with a timeout, every kernel
+    built by this process first:
+
+    - 16a: ``train_gpt`` at phase 6's configuration, 4 steps, in a world
+      of 1 over NCCL (DDP, parallel_state at tp = 1) equals the same run
+      in this process with no process group bit for bit (losses,
+      parameters' bytes, K1-K4 launches; and phase 6's first 4 losses
+      when phase 6 ran);
+    - 16b: tp = 2 with sequence parallelism, two ranks on the card over
+      gloo: the gradients gathered over tp against tp = 1, a planted
+      fault past 10x the limit; 4 steps of ``train_gpt --tp 2
+      --sequence-parallel`` against the same steps at tp = 1, K1-K4
+      counts equal per rank;
+    - 16c: dp = 2 over gloo: GPT with DistributedFusedAdam on the f32
+      and int8 wires against FusedAdam at dp = 1 (the reduced shard
+      within the int8 codec's bound), each beside its planted fault (the
+      reduce-scatter skipped), BERT-Large through ``pretrain_bert`` under
+      DDP and FusedLAMB against dp = 1 on the same global batch, and each
+      first step's call log against ``zero_plan`` / ``sync_plan``;
+    - 16d: SyncBatchNorm over two ranks against the unsplit BatchNorm,
+      beside its planted fault (statistics over one rank's rows).
+
+    Every reading is logged before a failed check fails the phase.
+
+    The two-rank times are of two processes sharing one card, their
+    collectives staged through the host by gloo: not a rank's speed."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.ops import _dispatch
+
+    out = {}
+    log("phase 16: data and tensor parallelism")
+    # 16a ------------------------------------------------------------------
+    torch.cuda.empty_cache()
+    _dispatch.reset_launches()
+    ref = train_gpt.train(_gpt_args([]))
+    torch.cuda.synchronize()
+    ref_launches = _dispatch.launches()
+    ref_digests = _param_digests(ref.model)
+    ref_losses, ref_seconds = ref.losses, ref.step_seconds
+    layers = ref.cfg.num_layers
+    del ref
+    (w1,) = _p16_spawn(1, "nccl", [("p16_world1", "p16_world1", {})])
+    w1 = w1["p16_world1"]
+    want = {k: n * P16_STEPS for k, n in _gpt_step_launches(layers).items()}
+    if (w1["backend"], w1["world"], w1["ddp"]) != ("nccl", 1, True):
+        raise AssertionError(f"16a ran as {w1['backend']} x {w1['world']}")
+    if w1["losses"] != ref_losses:
+        raise AssertionError(f"16a losses {w1['losses']} != {ref_losses}")
+    if phase6_losses is not None and \
+            w1["losses"] != phase6_losses[:P16_STEPS]:
+        raise AssertionError(f"16a losses {w1['losses']} != phase 6's "
+                             f"{phase6_losses[:P16_STEPS]}")
+    diff = [n for n in ref_digests if ref_digests[n] != w1["digests"][n]]
+    if diff:
+        raise AssertionError(f"16a parameters differ: {diff[:5]}")
+    if w1["launches"] != want or ref_launches != want:
+        raise AssertionError(f"16a launches {w1['launches']} / "
+                             f"{ref_launches} != {want}")
+    step_w1 = statistics.median(w1["step_seconds"][1:]) * 1e3
+    step_ref = statistics.median(ref_seconds[1:]) * 1e3
+    log(f"  16a world 1 over NCCL: losses {w1['losses']} equal the "
+        f"no-group run's{' and phase 6' if phase6_losses else ''}; "
+        f"{len(ref_digests)} parameters bit for bit; launches {want}; "
+        f"step {step_w1:.1f} ms (no group {step_ref:.1f} ms), peak "
+        f"{w1['peak'] / 1e9:.2f} GB")
+    out["16a"] = dict(losses=w1["losses"], launches=w1["launches"],
+                      step_ms=step_w1, step_ms_no_group=step_ref,
+                      peak_memory_bytes=w1["peak"])
+
+    # 16b and 16c's dp = 1 reference (this process, no group) ---------------
+    def gpt_ref():
+        cfg, model, opt, batches, ddp = train_gpt.build(
+            _gpt_args([], layers=P16_GPT_LAYERS))
+        next(batches)  # the workers' probe batch
+        torch.cuda.reset_peak_memory_stats()
+        _dispatch.reset_launches()
+        losses, seconds, _ = _timed_steps(
+            lambda ids: train_gpt.train_step(model, opt, ids, ddp), batches,
+            P16_STEPS)
+        return (losses, seconds, _dispatch.launches(),
+                torch.cuda.max_memory_allocated())
+
+    gpt_dp1, gpt_dp1_s, gpt_dp1_launches, gpt_dp1_peak = gpt_ref()
+    want2 = {k: n * P16_STEPS
+             for k, n in _gpt_step_launches(P16_GPT_LAYERS).items()}
+    if gpt_dp1_launches != want2:
+        raise AssertionError(f"16b/16c dp 1 launches {gpt_dp1_launches} != "
+                             f"{want2}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_dp1, bert_dp1_s = _bert_dp1_reference(P16_STEPS, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16b, 16c, 16d: one spawn of two ranks over gloo ------------------------
+    zero = dict(layers=P16_GPT_LAYERS, steps=P16_STEPS)
+    runs = _p16_spawn(2, "gloo", [
+        ("p16_tp", "p16_tp", dict(layers=P16_GPT_LAYERS, steps=P16_STEPS)),
+        ("p16_zero", "p16_zero", dict(zero, wire="f32")),
+        ("p16_zero_int8", "p16_zero", dict(zero, wire="int8")),
+        ("p16_zero_fault", "p16_zero", dict(zero, wire="f32", fault=True)),
+        ("p16_zero_int8_fault", "p16_zero", dict(zero, wire="int8",
+                                                 fault=True)),
+        ("p16_bert", "p16_bert", dict(steps=P16_STEPS)),
+        ("p16_bert_fault", "p16_bert", dict(steps=P16_STEPS, fault=True)),
+        ("p16_syncbn", "p16_syncbn", {}),
+    ])
+    failed, faults = [], []
+
+    def check(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    # 16b
+    for r, run in enumerate(runs):
+        tp = run["p16_tp"]
+        worst = max(tp["grad_rel_errs"].items(), key=lambda kv: kv[1])
+        fault = max(tp["fault_rel_errs"].values())
+        loss_err = max(_rel(tp["losses"], gpt_dp1),
+                       _rel([tp["loss_tp2"]], [tp["loss_tp1"]]))
+        fault_loss = _rel([tp["loss_fault"]], [tp["loss_tp1"]])
+        log(f"  16b rank {r}: tp 2 + SP against tp 1: worst gradient "
+            f"{worst[1]:.4g} ({worst[0]}; limit {P16_TP_GRAD_TOL}), planted "
+            f"fault {fault:.4g} ({fault / P16_TP_GRAD_TOL:.1f}x the limit); "
+            f"one loss {tp['loss_tp2']} vs {tp['loss_tp1']} (planted fault "
+            f"{tp['loss_fault']}, rel {fault_loss:.3g}); train_gpt "
+            f"{tp['mesh']} sp {tp['sp']} ddp {tp['ddp']}: losses "
+            f"{tp['losses']} vs dp 1 {gpt_dp1} (worst rel {loss_err:.3g}, "
+            f"limit {P16_TP_LOSS_TOL}); launches {tp['launches']} (dp 1 "
+            f"{gpt_dp1_launches}); step "
+            f"{statistics.median(tp['seconds'][1:]) * 1e3:.1f} ms (tp 1 "
+            f"{statistics.median(gpt_dp1_s[1:]) * 1e3:.1f} ms; two processes "
+            f"sharing the card over gloo), peak {tp['peak'] / 1e9:.2f} GB "
+            f"(tp 1 {gpt_dp1_peak / 1e9:.2f} GB); one step's collectives "
+            f"{tp['collectives']}")
+        check(tp["mesh"]["tp"] == 2 and tp["mesh"]["dp"] == 1 and tp["sp"]
+              and tp["ddp"], f"16b rank {r}: train_gpt ran as {tp['mesh']} "
+              f"sp {tp['sp']} ddp {tp['ddp']}")
+        check(worst[1] <= P16_TP_GRAD_TOL, f"16b rank {r}: gradient {worst}")
+        check(fault > P16_FAULT_FACTOR * P16_TP_GRAD_TOL,
+              f"16b rank {r}: the planted fault reads only {fault}")
+        check(loss_err <= P16_TP_LOSS_TOL, f"16b rank {r}: losses {loss_err}")
+        faults.append(fault_loss)
+        check(tp["launches"] == gpt_dp1_launches,
+              f"16b rank {r}: launches {tp['launches']} != "
+              f"{gpt_dp1_launches}")
+    # a fault is caught when the check fails on any rank
+    check(max(faults) > P16_TP_LOSS_TOL,
+          f"16b: the planted fault's loss reads only {max(faults)}")
+    out["16b"] = {k: runs[0]["p16_tp"][k] for k in (
+        "loss_tp1", "loss_tp2", "loss_fault", "losses", "seconds", "launches",
+        "peak", "collectives")}
+    out["16b"]["peak_tp1"] = gpt_dp1_peak
+    out["16b"]["worst_grad_rel_err"] = max(
+        max(run["p16_tp"]["grad_rel_errs"].values()) for run in runs)
+    out["16b"]["fault_rel_err"] = min(
+        max(run["p16_tp"]["fault_rel_errs"].values()) for run in runs)
+    # 16c GPT ZeRO, and each wire's planted fault (the reduce-scatter
+    # skipped): the fault must fail both the loss limit and the probe
+    for wire, key, tol in (("f32", "p16_zero", P16_ZERO_LOSS_TOL),
+                           ("int8", "p16_zero_int8", P16_INT8_LOSS_TOL)):
+        fault_losses, fault_probes = [], []
+        for r, run in enumerate(runs):
+            z, zf = run[key], run[key + "_fault"]
+            err = _rel(z["losses"], gpt_dp1)
+            ferr = _rel(zf["losses"], gpt_dp1)
+            log(f"  16c rank {r} ZeRO Adam {wire}: losses {z['losses']} vs "
+                f"dp 1 {gpt_dp1} (rel {err:.3g}, limit {tol}); shard probe "
+                f"{z['probe_err']:.3g} (bound {z['probe_bound']:.3g}); "
+                f"planted fault (no reduce-scatter): losses {zf['losses']} "
+                f"(rel {ferr:.3g}, {ferr / tol:.1f}x the limit), probe "
+                f"{zf['probe_err']:.3g} ({zf['probe_err'] / zf['probe_bound']:.1f}"
+                f"x the bound); step "
+                f"{statistics.median(z['seconds'][1:]) * 1e3:.1f} ms (dp 1 "
+                f"{statistics.median(gpt_dp1_s[1:]) * 1e3:.1f}; two processes "
+                f"sharing the card over gloo), peak {z['peak'] / 1e9:.2f} GB; "
+                f"one step's collectives {z['collectives']}")
+            check(err <= tol, f"16c ZeRO {wire} rank {r}: {err}")
+            check(z["probe_err"] <= z["probe_bound"],
+                  f"16c ZeRO {wire} rank {r}: shard error {z['probe_err']} > "
+                  f"{z['probe_bound']}")
+            fault_losses.append(ferr / tol)
+            fault_probes.append(zf["probe_err"] / zf["probe_bound"])
+            try:
+                _check_plan(f"16c ZeRO {wire} rank {r}", z["collectives"],
+                            z["plan"])
+            except AssertionError as e:
+                failed.append(str(e))
+            for kind in ("reduce-scatter", "all-to-all", "all-gather"):
+                if kind in z["collectives"]:
+                    want = _zero_exact_bytes(kind, z["shard"], 2, wire)
+                    check(z["collectives"][kind]["bytes"] == want,
+                          f"16c ZeRO {wire} rank {r}: {kind} moved "
+                          f"{z['collectives'][kind]['bytes']} bytes, the "
+                          f"plan's exact count is {want}")
+        check(max(fault_losses) > 1, f"16c ZeRO {wire}: the planted "
+              f"fault's losses read only {max(fault_losses):.3g}x the limit")
+        check(max(fault_probes) > 1, f"16c ZeRO {wire}: the planted "
+              f"fault's shard reads only {max(fault_probes):.3g}x the bound")
+        out[f"16c_zero_{wire}"] = {k: runs[0][key][k] for k in (
+            "losses", "seconds", "collectives", "probe_err", "probe_bound",
+            "peak")}
+        out[f"16c_zero_{wire}"]["fault"] = {
+            k: runs[0][key + "_fault"][k] for k in (
+                "losses", "probe_err", "probe_bound")}
+    out["16c_gpt_dp1"] = dict(losses=gpt_dp1, seconds=gpt_dp1_s)
+    # 16c BERT, and its planted fault (DDP's sync skipped)
+    fault_losses = []
+    for r, run in enumerate(runs):
+        b = run["p16_bert"]
+        err = _rel(b["losses"], bert_dp1)
+        ferr = _rel(run["p16_bert_fault"]["losses"], bert_dp1)
+        fault_losses.append(ferr)
+        log(f"  16c rank {r} BERT-Large dp 2: losses {b['losses']} vs dp 1 "
+            f"{bert_dp1} (rel {err:.3g}, limit {P16_BERT_LOSS_TOL}); planted "
+            f"fault (no gradient sync): losses "
+            f"{run['p16_bert_fault']['losses']} (rel {ferr:.3g}, "
+            f"{ferr / P16_BERT_LOSS_TOL:.1f}x the limit); step "
+            f"{statistics.median(b['seconds'][1:]) * 1e3:.1f} ms (dp 1 "
+            f"{statistics.median(bert_dp1_s[1:]) * 1e3:.1f}; two processes "
+            f"sharing the card over gloo), peak {b['peak'] / 1e9:.2f} GB; "
+            f"one step's collectives {b['collectives']}")
+        check(err <= P16_BERT_LOSS_TOL, f"16c BERT rank {r}: {err}")
+        try:
+            _check_plan(f"16c BERT rank {r}", b["collectives"], b["plan"])
+        except AssertionError as e:
+            failed.append(str(e))
+        # the exact path: every parameter's gradient once, and the loss
+        ar = b["collectives"].get("all-reduce", {"bytes": None})
+        check(ar["bytes"] == 4 * sum(b["sizes"]) + 4,
+              f"16c BERT rank {r}: all-reduce bytes {ar['bytes']}")
+    check(max(fault_losses) > P16_BERT_LOSS_TOL, f"16c BERT: the planted "
+          f"fault's losses read only {max(fault_losses)}")
+    out["16c_bert"] = {k: runs[0]["p16_bert"][k] for k in (
+        "losses", "seconds", "collectives", "peak")}
+    out["16c_bert"]["fault_losses"] = runs[0]["p16_bert_fault"]["losses"]
+    out["16c_bert_dp1"] = dict(losses=bert_dp1, seconds=bert_dp1_s)
+    # 16d
+    for r, run in enumerate(runs):
+        bn = dict(run["p16_syncbn"])
+        bad = bn.pop("fault")
+        log(f"  16d rank {r} SyncBatchNorm {P16_BN_SHAPE} bf16: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in bn.items())
+            + f" (limit {P16_BN_TOL}); planted fault (local statistics): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in bad.items()))
+        over = {k: v for k, v in bn.items() if k != "ms" and v > P16_BN_TOL}
+        check(not over, f"16d rank {r}: {over}")
+        for k in ("y", "dx", "running_mean", "running_var"):
+            check(bad[k] > P16_BN_TOL, f"16d rank {r}: the planted fault's "
+                  f"{k} reads only {bad[k]}")
+    out["16d"] = runs[0]["p16_syncbn"]
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+    out["launches_tp2"] = runs[0]["p16_tp"]["launches"]
+    out["launches_world1"] = w1["launches"]
+    return out
+
+
 def main():
     import argparse
 
@@ -5570,6 +6489,9 @@ def main():
     parser.add_argument("--chaos", action="store_true",
                         help="run phase 15 alone (serving under a chaos "
                         "storm, rebuilds, the telemetry's cost)")
+    parser.add_argument("--parallel", action="store_true",
+                        help="run phase 16 alone (data and tensor "
+                        "parallelism: worker processes on the card)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -5645,6 +6567,9 @@ def main():
         print(json.dumps({"resilience": dict(run, launches=launches)}),
               flush=True)
         return
+    if args.parallel:
+        print(json.dumps({"parallel": phase16()}), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -5680,6 +6605,7 @@ def main():
     evo_launches, evoformer = phase10()
     evo_f32_launches, evoformer_f32 = phase10_f32()
     evo_cross = phase11()
+    parallel = phase16(training["losses"])
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -5689,7 +6615,9 @@ def main():
             ("bert_dropout", bert_launches["bert_dropout"]),
             ("bert_resume", res_launches["bert_resume"]),
             ("evoformer", evo_launches),
-            ("evoformer_f32", evo_f32_launches))
+            ("evoformer_f32", evo_f32_launches),
+            ("parallel_world1", parallel["launches_world1"]),
+            ("parallel_tp2_rank0", parallel["launches_tp2"]))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -5708,6 +6636,7 @@ def main():
                     "evoformer": evoformer,
                     "evoformer_f32_attention": evoformer_f32,
                     "evoformer_cross_check": evo_cross,
+                    "parallel": parallel,
                     "decode_profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

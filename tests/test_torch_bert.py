@@ -289,8 +289,20 @@ def test_dropout_changes_the_loss_and_needs_a_cpu_generator(jax_bert):
     (dict(sequence_parallel=True), "ROADMAP item 5"),
 ])
 def test_unported_options_raise(over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        BertForPreTraining(_cfg(**over), device="cpu")
+    """``sequence_parallel`` raised until ROADMAP item 5 ported it: now it
+    builds, and at tp = 1 (no model-parallel group) the model is the
+    dense one, bit for bit."""
+    sp = BertForPreTraining(_cfg(**over), device="cpu")
+    dense = BertForPreTraining(_cfg(), device="cpu")
+    assert match == "ROADMAP item 5"
+    for (name, a), (_, b) in zip(sp.named_parameters(),
+                                 dense.named_parameters()):
+        assert torch.equal(a, b), name
+    ids = torch.randint(0, sp.cfg.vocab_size, (16, 2),
+                        generator=torch.Generator().manual_seed(0))
+    (h_sp, _), nsp_sp = sp(ids)
+    (h, _), nsp = dense(ids)
+    assert torch.equal(h_sp, h) and torch.equal(nsp_sp, nsp)
 
 
 # ---------------------------------------------------------------------------

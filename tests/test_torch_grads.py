@@ -325,8 +325,10 @@ def test_cross_entropy_value_and_grad_match_jax(smoothing):
 
 
 def test_cross_entropy_refuses_tp_and_shape_mismatch():
+    """A ``tp_size`` the tp group does not have (one process here: 1)
+    and a logits/target mismatch both raise."""
     logits = torch.zeros(4, 10)
-    with pytest.raises(NotImplementedError, match="tp_size=2"):
+    with pytest.raises(ValueError, match="tp_size=2"):
         vocab_parallel_cross_entropy(logits, torch.zeros(4, dtype=torch.long),
                                      tp_size=2)
     with pytest.raises(ValueError, match="leading dimensions"):

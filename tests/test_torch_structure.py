@@ -114,7 +114,15 @@ COUNTERPARTS = (
     "observability/__init__.py", "observability/meter.py",
     "observability/ometrics.py", "observability/metrics.py",
     "observability/flight.py", "observability/spans.py",
-    "observability/health.py",
+    "observability/health.py", "parallel_state.py",
+    "parallel/__init__.py", "parallel/distributed.py",
+    "parallel/quantized.py", "parallel/distributed_fused_optimizers.py",
+    "parallel/sync_batchnorm.py", "parallel/multihost.py",
+    "transformer/tensor_parallel/__init__.py",
+    "transformer/tensor_parallel/mappings.py",
+    "transformer/tensor_parallel/layers.py",
+    "transformer/tensor_parallel/data.py",
+    "transformer/tensor_parallel/utils.py",
 )
 
 
@@ -132,6 +140,92 @@ TOOLS = ("serve_chaos_drill.py",)
 def test_port_tools_keep_their_counterparts_names(tool):
     assert (ROOT / "tools" / tool).is_file(), tool
     assert (ROOT / "apex_tpu_torch" / "tools" / tool).is_file(), tool
+
+
+#: the data- and tensor-parallel modules (ROADMAP item 5) and the public
+#: names each must carry over from its counterpart
+PARALLEL_NAMES = {
+    "parallel_state": (
+        "initialize_model_parallel", "destroy_model_parallel",
+        "model_parallel_is_initialized", "get_mesh",
+        "get_data_parallel_world_size", "get_data_parallel_rank",
+        "get_tensor_model_parallel_world_size",
+        "get_tensor_model_parallel_rank",
+        "get_tensor_model_parallel_src_rank",
+        "get_pipeline_model_parallel_world_size",
+        "get_pipeline_model_parallel_rank",
+        "get_pipeline_model_parallel_next_rank",
+        "get_pipeline_model_parallel_prev_rank",
+        "get_context_parallel_world_size", "get_context_parallel_rank",
+        "get_expert_model_parallel_world_size",
+        "get_expert_model_parallel_rank", "is_pipeline_first_stage",
+        "is_pipeline_last_stage", "get_virtual_pipeline_model_parallel_rank",
+        "set_virtual_pipeline_model_parallel_rank",
+        "get_virtual_pipeline_model_parallel_world_size",
+        "set_virtual_pipeline_model_parallel_world_size",
+        "register_sequence_parallel_param", "sequence_parallel_param_paths",
+        "clear_sequence_parallel_params", "divide", "bound_axis_size",
+        "axis_is_bound", "DATA_PARALLEL_AXIS", "TENSOR_PARALLEL_AXIS",
+        "PIPELINE_PARALLEL_AXIS", "CONTEXT_PARALLEL_AXIS",
+        "EXPERT_PARALLEL_AXIS"),
+    "parallel": (
+        "DistributedDataParallel", "Reducer", "all_reduce_gradients",
+        "DistributedFusedAdam", "DistributedFusedLAMB", "SyncBatchNorm",
+        "convert_syncbn_model", "quantized_all_reduce_gradients",
+        "initialize_distributed", "distributed_is_initialized",
+        "finalize_distributed", "sync_gradients", "reduce_scatter_flat",
+        "all_gather_flat", "collective_summary"),
+    "parallel.comm": (
+        "WIRE_FORMATS", "DEFAULT_BLOCK", "check_wire", "sync_gradients",
+        "reduce_scatter_flat", "all_gather_flat", "all_gather_rows",
+        "resolve_chunks", "chunks_requested", "wire_bytes_per_element",
+        "quantize_blocks", "dequantize_blocks", "pack_int8", "unpack_int8",
+        "wire_payload_bytes", "sync_plan", "zero_plan",
+        "collective_summary", "compiled_collectives", "ring_wire_bytes",
+        "publish_collective_summary"),
+    "parallel.multihost": (
+        "initialize_distributed", "distributed_is_initialized",
+        "finalize_distributed", "cluster_env_hints", "host_barrier",
+        "host_id", "host_count"),
+    "parallel.distributed_fused_optimizers": (
+        "DistributedFusedAdam", "DistributedFusedLAMB",
+        "DistributedFusedLamb"),
+    "transformer.tensor_parallel": (
+        "vocab_parallel_cross_entropy", "broadcast_data",
+        "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
+        "sharded_init", "_reduce", "_split_along_last_dim",
+        "_gather_along_last_dim", "_split_along_first_dim",
+        "_gather_along_first_dim", "_reduce_scatter_along_first_dim",
+        "allreduce_sequence_parallel_gradients",
+        "copy_to_tensor_model_parallel_region",
+        "gather_from_sequence_parallel_region",
+        "gather_from_tensor_model_parallel_region",
+        "reduce_from_tensor_model_parallel_region",
+        "reduce_scatter_to_sequence_parallel_region",
+        "scatter_to_sequence_parallel_region",
+        "scatter_to_tensor_model_parallel_region", "TPURNGStatesTracker",
+        "checkpoint", "get_cuda_rng_tracker", "get_tpu_rng_tracker",
+        "model_parallel_cuda_manual_seed", "model_parallel_tpu_manual_seed",
+        "to_per_rank_key", "VocabUtility", "divide",
+        "split_tensor_along_last_dim"),
+    "resilience": ("robust_initialize_distributed",),
+    "contrib.optimizers": ("DistributedFusedAdam", "DistributedFusedLAMB",
+                           "DistributedFusedLamb"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(PARALLEL_NAMES))
+def test_parallel_modules_carry_the_references_names(module):
+    import importlib
+
+    port = importlib.import_module(f"apex_tpu_torch.{module}")
+    for name in PARALLEL_NAMES[module]:
+        assert hasattr(port, name), (module, name)
+    # the reference has each of them too (LARC is left out on purpose)
+    ref_src = (ROOT / "apex_tpu" / (module.replace(".", "/") + ".py"))
+    if not ref_src.exists():
+        ref_src = ref_src.with_suffix("") / "__init__.py"
+    assert ref_src.is_file(), module
 
 
 def test_new_public_names_are_the_references():
@@ -183,7 +277,9 @@ def no_gpu(monkeypatch):
                                    "kv_pages", "spec_engine", "rope_tables",
                                    "prefetcher", "lamb_convert",
                                    "adam_convert", "bert_resume",
-                                   "resumable_stream", "chaos_drill"])
+                                   "resumable_stream", "chaos_drill",
+                                   "init_distributed", "ddp_example",
+                                   "gpt_tp_example"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -225,6 +321,17 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             ResumableStream(_OneBatchLoader(), prefetch=1)(0)
         elif entry == "chaos_drill":
             serve_chaos_drill.main([])
+        elif entry == "init_distributed":
+            from apex_tpu_torch.parallel import initialize_distributed
+
+            initialize_distributed()
+        elif entry == "ddp_example":
+            from apex_tpu_torch.examples import distributed_data_parallel
+
+            distributed_data_parallel.main(["--steps", "1"])
+        elif entry == "gpt_tp_example":
+            train_gpt.main(["--tiny", "--steps", "1", "--tp", "2",
+                            "--sequence-parallel"])
         else:
             pretrain_bert.main(["--tiny", "--steps", "1"])
 

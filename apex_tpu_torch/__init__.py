@@ -23,7 +23,8 @@ Subpackages
   (the mappings, the Column/Row/VocabParallel layers, the vocab-parallel
   cross entropy, the RNG tracker and RNG-correct checkpoint), the enums,
   ``FusedScaleMaskSoftmax`` and the remat policy resolution.
-- :mod:`apex_tpu_torch.optimizers` — FusedAdam and FusedLAMB.
+- :mod:`apex_tpu_torch.optimizers` — FusedAdam and FusedLAMB, and the
+  ``by_name`` registry.
 - :mod:`apex_tpu_torch.data` — token files, the synthetic corpus, the
   sharded shuffling loader, the BERT batches and ``DevicePrefetcher``.
 - :mod:`apex_tpu_torch.parallel` — data parallelism: the gradient-sync
@@ -37,17 +38,27 @@ Subpackages
 - :mod:`apex_tpu_torch.checkpoint` — step-numbered checkpoints on
   ``torch.distributed.checkpoint`` with the commit-marker rule, and the
   training state (params, optimizer state, step, RNG streams, stream
-  cursor) in one tree.
+  cursor) in one tree; at world size > 1 every rank writes its own
+  shards.
 - :mod:`apex_tpu_torch.goodput` — the async checkpoint engine and the
   resumable batch stream.
-- :mod:`apex_tpu_torch.resilience` — chaos fault injection, retry, and
-  ``run_resilient`` (auto-resume, preemption, rollback).
-- :mod:`apex_tpu_torch.observability` — the lock-order sanitizer.
+- :mod:`apex_tpu_torch.resilience` — chaos fault injection, retry,
+  ``run_resilient`` (auto-resume, preemption, rollback) and the guarded
+  amp update.
+- :mod:`apex_tpu_torch.observability` — the metric registry, spans, the
+  flight recorder, the health rules, the step meters and the lock-order
+  sanitizer.
+- :mod:`apex_tpu_torch.train` — the composable trainer (``TrainConfig``,
+  ``Trainer.build``/``verify``/``fit``, ``build_guarded``).
+- :mod:`apex_tpu_torch.amp` — the opt-level policies and the loss
+  scalers.
+- :mod:`apex_tpu_torch.analysis` — the rule tables and findings the
+  trainer's verification reads.
 - :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``,
   ``distributed_data_parallel``.
 - :mod:`apex_tpu_torch.contrib` — the OpenFold surface (``mha``,
-  ``layer_norm``, ``DAPAxialBlock``, the evoformer modules) and the ZeRO
-  optimizers under their contrib names.
+  ``layer_norm``, the DAP collectives, ``DAPAxialBlock``, the evoformer
+  modules) and the ZeRO optimizers under their contrib names.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
@@ -58,7 +69,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
                     "parallel", "parallel_state", "serve", "examples",
                     "contrib", "checkpoint", "goodput", "resilience",
-                    "observability")
+                    "observability", "train", "amp", "analysis")
 
 
 def __getattr__(name):

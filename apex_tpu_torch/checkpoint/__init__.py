@@ -1,9 +1,9 @@
-"""Checkpoint / resume on ``torch.distributed.checkpoint``, in one process.
+"""Checkpoint / resume on ``torch.distributed.checkpoint``.
 
 Counterpart of ``apex_tpu/checkpoint/__init__.py``.  The JAX package
 writes through orbax; the port writes each checkpoint with
 ``torch.distributed.checkpoint`` (DCP, shipped with PyTorch) with
-``no_dist=True``: one process, one data file.  A state is any tree of
+``no_dist=True``: each process writes its own files.  A state is any tree of
 dicts, lists and tuples whose leaves are tensors (CPU or CUDA), numpy
 arrays or scalars, and Python scalars.  The tree's structure and every
 non-tensor leaf go into ``tree.json`` beside DCP's files; tensors and
@@ -25,6 +25,20 @@ Surface (as the reference's):
   params + optimizer state + step + the RNG tracker's states + the
   stream cursor in one tree.  The amp scaler's piece waits for ROADMAP
   item 10.
+
+**Several processes.**  When ``torch.distributed`` runs a world of more
+than one process, a save is collective: every rank calls it with its
+own state, in the same order.  A subtree wrapped in :class:`PerRank`
+(:func:`per_rank`) holds this rank's own shards — the ZeRO flat
+optimizer state — and every rank writes it into ``rank<r>/`` of the
+step; every other leaf is replicated and only rank 0 writes it (into
+``rank0/``, with ``tree.json``).  The ranks then report to each other
+over a gloo group of their own (a flag all-reduced with max): only when
+every rank has finished does rank 0 write the commit marker and rename
+the staging directory, and a second round returns every rank after the
+step is visible.  A rank that fails (or dies) mid-save leaves no
+committed step.  A restore (same world) reads the replicated leaves from
+``rank0/`` and each rank's own shards from ``rank<r>/``.
 
 **The commit-marker rule.**  Every step is written into a staging
 directory ``<step>.apex-ckpt-tmp-<pid>-<n>``; the commit marker
@@ -52,6 +66,8 @@ import numpy as np
 import torch
 
 __all__ = [
+    "PerRank",
+    "per_rank",
     "save_checkpoint",
     "restore_checkpoint",
     "latest_step",
@@ -89,12 +105,66 @@ def _abspath(path) -> str:
     return os.path.abspath(os.fspath(path))
 
 
+class PerRank:
+    """A subtree holding this rank's own shards (each rank saves and
+    restores its own); any tree of dicts, lists, tuples and tensors.
+    In one process it is saved like any other subtree."""
+
+    __slots__ = ("tree",)
+
+    def __init__(self, tree):
+        self.tree = tree
+
+    def __repr__(self) -> str:
+        return f"PerRank({self.tree!r:.60})"
+
+
+def per_rank(tree) -> PerRank:
+    """Mark ``tree`` as this rank's own shards (see :class:`PerRank`)."""
+    return tree if isinstance(tree, PerRank) else PerRank(tree)
+
+
+def _world():
+    """``(rank, world)`` of the default process group ((0, 1) without
+    one)."""
+    d = torch.distributed
+    if d.is_available() and d.is_initialized() and d.get_world_size() > 1:
+        return d.get_rank(), d.get_world_size()
+    return 0, 1
+
+
+_GROUP = None
+
+
+def checkpoint_group():
+    """A gloo group over the whole world for the saves' coordination
+    (created on first use, collectively, on the calling thread): kept
+    apart from the training collectives, so a background writer's
+    rounds never interleave with a step's.  None in one process."""
+    global _GROUP
+    if _world()[1] == 1:
+        return None
+    if _GROUP is None:
+        _GROUP = torch.distributed.new_group(backend="gloo")
+    return _GROUP
+
+
 # ---------------------------------------------------------------------------
 # the tree codec: structure and scalars in tree.json, arrays through DCP
 # ---------------------------------------------------------------------------
 
 
-def _encode(node, leaves: List[torch.Tensor]):
+def _encode(node, leaves: List[torch.Tensor], ranked=None):
+    """``node``'s ``tree.json`` entry; its arrays are appended to
+    ``leaves`` (and, inside a :class:`PerRank`, their indices to
+    ``ranked``)."""
+    if isinstance(node, PerRank):
+        if ranked is None:
+            ranked = set()
+        start = len(leaves)
+        enc = _encode(node.tree, leaves, ranked)
+        ranked.update(range(start, len(leaves)))
+        return {"per_rank": enc}
     if isinstance(node, torch.Tensor):
         leaves.append(node.detach())
         return {"tensor": len(leaves) - 1}
@@ -109,10 +179,11 @@ def _encode(node, leaves: List[torch.Tensor]):
             if not isinstance(key, str):
                 raise TypeError(f"checkpoint dict keys must be str, got "
                                 f"{key!r}")
-        return {"dict": [[k, _encode(v, leaves)] for k, v in node.items()]}
+        return {"dict": [[k, _encode(v, leaves, ranked)]
+                         for k, v in node.items()]}
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
-        return {kind: [_encode(v, leaves) for v in node]}
+        return {kind: [_encode(v, leaves, ranked) for v in node]}
     if node is None or isinstance(node, (bool, int, float, str)):
         return {"value": node}
     raise TypeError(f"cannot checkpoint a leaf of type {type(node).__name__}")
@@ -121,6 +192,9 @@ def _encode(node, leaves: List[torch.Tensor]):
 def _decode(node, tensors, template=None):
     """Rebuild one node from ``tree.json`` and the loaded ``tensors``;
     a template tensor was loaded in place and is returned itself."""
+    if "per_rank" in node:
+        return PerRank(_decode(node["per_rank"], tensors, None if template
+                               is None else per_rank(template).tree))
     if "tensor" in node:
         return tensors[node["tensor"]]
     if "numpy" in node:
@@ -148,7 +222,9 @@ def _targets(node, template, path, out):
     if template is None:
         return
     where = "/".join(path) or "<root>"
-    if "dict" in node:
+    if "per_rank" in node:
+        _targets(node["per_rank"], per_rank(template).tree, path, out)
+    elif "dict" in node:
         if not isinstance(template, dict):
             raise ValueError(f"{where}: the checkpoint has a dict, the "
                              f"template a {type(template).__name__}")
@@ -171,31 +247,52 @@ def _targets(node, template, path, out):
         out[node["tensor"]] = template
 
 
-def save_checkpoint(path, state, *, force: bool = False) -> None:
+def _dcp_save(tensors: dict, directory: str) -> None:
+    if not tensors:
+        return
+    dcp = _dcp()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_ONE_PROCESS)
+        dcp.save(tensors, storage_writer=dcp.FileSystemWriter(
+            directory, thread_count=_WRITE_THREADS), no_dist=True)
+
+
+def _write_synced(path: str, text: str) -> None:
+    with open(path, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def save_checkpoint(path, state, *, force: bool = False,
+                    group=None) -> None:
     """Write ``state`` to ``path``: staged, marked, then renamed into
     place (the commit-marker rule).  An existing checkpoint at ``path``
-    raises unless ``force``, which replaces it."""
+    raises unless ``force``, which replaces it.  In a world of several
+    processes every rank calls it (see the module docstring); ``group``
+    is the gloo group the ranks report over (default
+    :func:`checkpoint_group`)."""
     path = _abspath(path)
     if os.path.exists(path) and not force:
         raise FileExistsError(f"checkpoint {path} already exists")
+    rank, world = _world()
+    if world > 1:
+        _save_ranks(path, state, rank, world, group or checkpoint_group())
+        return
     staging = f"{path}{STAGING_INFIX}{os.getpid()}-{next(_STAGING_IDS)}"
     shutil.rmtree(staging, ignore_errors=True)
     os.makedirs(staging)
     leaves: List[torch.Tensor] = []
     tree = _encode(state, leaves)
-    if leaves:
-        dcp = _dcp()
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message=_ONE_PROCESS)
-            dcp.save({str(i): t for i, t in enumerate(leaves)},
-                     storage_writer=dcp.FileSystemWriter(
-                         staging, thread_count=_WRITE_THREADS),
-                     no_dist=True)
+    _dcp_save({str(i): t for i, t in enumerate(leaves)}, staging)
     for name, text in ((_TREE, json.dumps(tree)), (_MARKER, "committed\n")):
-        with open(os.path.join(staging, name), "w") as f:
-            f.write(text)
-            f.flush()
-            os.fsync(f.fileno())
+        _write_synced(os.path.join(staging, name), text)
+    _commit(staging, path)
+
+
+def _commit(staging: str, path: str) -> None:
+    """Rename a marked staging directory into place (replacing
+    ``path``)."""
     if os.path.exists(path):
         old = f"{path}{STAGING_INFIX}old-{os.getpid()}-{next(_STAGING_IDS)}"
         os.rename(path, old)
@@ -206,6 +303,65 @@ def save_checkpoint(path, state, *, force: bool = False) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+def _round(flag: int, group) -> int:
+    """One coordination round: the max over the ranks of ``flag``."""
+    from apex_tpu_torch.parallel import comm
+
+    t = torch.tensor([flag], dtype=torch.int64)
+    comm.all_reduce(t, group, op="max")
+    return int(t.item())
+
+
+#: test hook: called with the rank just before it writes its files (a
+#: planted failure stands for a rank that dies mid-save)
+_rank_write_hook = None
+
+
+def _save_ranks(path: str, state, rank: int, world: int, group) -> None:
+    """The collective save: each rank writes its files, the ranks report,
+    rank 0 commits only if every rank finished, a second round returns
+    every rank after the commit."""
+    from apex_tpu_torch.parallel import comm
+
+    token = torch.tensor([os.getpid(), next(_STAGING_IDS)], dtype=torch.int64)
+    comm.broadcast(token, 0, group)  # every rank stages into rank 0's name
+    staging = f"{path}{STAGING_INFIX}{token[0].item()}-{token[1].item()}-w"
+    failed = 0
+    try:
+        os.makedirs(staging, exist_ok=True)
+        if _rank_write_hook is not None:
+            _rank_write_hook(rank)
+        leaves: List[torch.Tensor] = []
+        ranked: set = set()
+        tree = _encode(state, leaves, ranked)
+        mine = {str(i): t for i, t in enumerate(leaves)
+                if i in ranked or rank == 0}
+        _dcp_save(mine, os.path.join(staging, f"rank{rank}"))
+        if rank == 0:
+            _write_synced(os.path.join(staging, _TREE), json.dumps(
+                {"world": world, "ranked": sorted(ranked), "root": tree}))
+    except Exception:
+        failed = 1
+        if _round(failed, group):
+            raise
+    if _round(failed, group):
+        if rank == 0:
+            shutil.rmtree(staging, ignore_errors=True)
+        raise RuntimeError(
+            f"checkpoint {path}: a rank failed to write its files; the step "
+            "was not committed")
+    if rank == 0:
+        try:
+            _write_synced(os.path.join(staging, _MARKER), "committed\n")
+            _commit(staging, path)
+        except Exception:
+            failed = 1
+            _round(failed, group)
+            raise
+    if _round(failed, group):
+        raise RuntimeError(f"checkpoint {path}: rank 0 failed to commit")
 
 
 def restore_checkpoint(path, template: Optional[Any] = None):
@@ -219,14 +375,39 @@ def restore_checkpoint(path, template: Optional[Any] = None):
     with open(os.path.join(path, _TREE)) as f:
         tree = json.load(f)
     targets: dict = {}
-    _targets(tree, template, [], targets)
+    if "world" in tree:  # written by several processes
+        rank, world = _world()
+        if world != tree["world"]:
+            raise ValueError(
+                f"checkpoint {path} was written by {tree['world']} "
+                f"processes; this world has {world}")
+        ranked = set(tree["ranked"])
+        tree = tree["root"]
+        _targets(tree, template, [], targets)
+        # the replicated leaves from rank 0's files, this rank's shards
+        # from its own
+        tensors = _dcp_load(os.path.join(path, "rank0"), targets,
+                            lambda i: i not in ranked)
+        tensors.update(_dcp_load(os.path.join(path, f"rank{rank}"),
+                                 targets, lambda i: i in ranked))
+    else:
+        _targets(tree, template, [], targets)
+        tensors = _dcp_load(path, targets)
+    return _decode(tree, tensors, template)
+
+
+def _dcp_load(directory: str, targets: dict, keep=None) -> dict:
+    """The tensors of one DCP directory (the indices ``keep`` accepts),
+    each loaded in place into its template tensor where it has one."""
+    if not os.path.exists(os.path.join(directory, ".metadata")):
+        return {}
     dcp = _dcp()
-    reader = dcp.FileSystemReader(path)
-    meta = reader.read_metadata().state_dict_metadata if os.path.exists(
-        os.path.join(path, ".metadata")) else {}
+    reader = dcp.FileSystemReader(directory)
     tensors = {}
-    for key, md in meta.items():
+    for key, md in reader.read_metadata().state_dict_metadata.items():
         i = int(key)
+        if keep is not None and not keep(i):
+            continue
         t = targets.get(i)
         if t is None:
             t = torch.empty(tuple(md.size), dtype=md.properties.dtype)
@@ -240,7 +421,7 @@ def restore_checkpoint(path, template: Optional[Any] = None):
             warnings.filterwarnings("ignore", message=_ONE_PROCESS)
             dcp.load({str(i): t for i, t in tensors.items()},
                      storage_reader=reader, no_dist=True)
-    return _decode(tree, tensors, template)
+    return tensors
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +517,7 @@ class CheckpointManager:
         save_checkpoint(os.path.join(self.directory, str(int(step))), state,
                         force=force)
         self._steps.add(int(step))
-        if self._max_to_keep is not None:
+        if self._max_to_keep is not None and _world()[0] == 0:
             steps = all_steps(self.directory)
             for s in steps[: max(0, len(steps) - self._max_to_keep)]:
                 shutil.rmtree(os.path.join(self.directory, str(s)),

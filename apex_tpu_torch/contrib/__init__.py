@@ -3,9 +3,9 @@
 Ported so far:
 
 - :mod:`apex_tpu_torch.contrib.openfold` — the OpenFold surface: the
-  fused attention and LayerNorm under their OpenFold names,
-  ``DAPAxialBlock`` and the evoformer modules (one card; the dynamic
-  axial parallelism collectives are the rest of ROADMAP item 5);
+  fused attention and LayerNorm under their OpenFold names, the dynamic
+  axial parallelism collectives, ``DAPAxialBlock`` and the evoformer
+  modules (each with ``axis_name``);
 - :mod:`apex_tpu_torch.contrib.optimizers` — ``DistributedFusedAdam``
   and ``DistributedFusedLamb`` (ZeRO).
 """

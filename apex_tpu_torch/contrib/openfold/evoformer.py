@@ -1,4 +1,5 @@
-"""The evoformer's modules (AlphaFold2 suppl. Algs 6-14), unsharded.
+"""The evoformer's modules (AlphaFold2 suppl. Algs 6-14), under dynamic
+axial parallelism.
 
 Counterpart of ``apex_tpu/contrib/openfold/evoformer.py`` with its module
 and parameter names: every ``nn.Linear`` is named after the Flax
@@ -27,8 +28,15 @@ here every module takes its widths when it is built.
   in bf16, and by K5's f32 instance with f32 attention.  The triangle and
   outer-product contractions are plain ``torch.einsum``, as the JAX
   package leaves them to XLA.
-- ``axis_name`` (dynamic axial parallelism over several cards) is not
-  ported: anything but None raises (ROADMAP item 5).
+- ``axis_name`` names a ``parallel_state`` axis to run under dynamic
+  axial parallelism (:mod:`apex_tpu_torch.contrib.openfold`'s
+  collectives): the leading axial dim of the pair (and the MSA's row
+  dim) is sharded over its ranks, rank r holding rows ``[r*per,
+  (r+1)*per)``; None runs the same math unsharded.  Parameters stay
+  replicated over the group; their local gradients are partial sums the
+  caller all-reduces.  The trainable pair bias still reaches the
+  kernels at G = BH, RS = S, so in bf16 K4's dQ pass writes each rank's
+  share of its gradient and :func:`gather`'s backward sums the shares.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from apex_tpu_torch import parallel_state as ps
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm_affine
@@ -55,11 +64,10 @@ __all__ = [
 ]
 
 
-def _no_dap(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "dynamic axial parallelism (axis_name) needs several cards and "
-            "torch.distributed, which are not ported yet (ROADMAP item 5)")
+def _dap():
+    from apex_tpu_torch.contrib import openfold
+
+    return openfold
 
 
 def _setup(device, generator):
@@ -102,15 +110,18 @@ def _layer_norm(mod: nn.Module, x, name: str):
                                    getattr(mod, name + "_bias"), (d,))
 
 
-def _pair_bias(proj: nn.Linear, z_ln, n_res: int):
+def _pair_bias(proj: nn.Linear, z_ln, n_res: int, axis_name=None):
     """Per-head attention bias projected from the (LN'd) pair rep:
     (1, H, N, N), one bias group shared by every batch row and trainable
-    (K5's function).  The attention materialises it at G = B·H (a
+    (K5's function).  Under DAP the projection runs on the local rows
+    and the small (N/dap, N, H) result is all-gathered.  The attention materialises it at G = B·H (a
     head-dependent bias, as in the JAX package), so the kernel (in bf16
     K4's dQ pass, ``flash_bwd_dbias``) differentiates each batch row's copy and the sum over the batch is the backward of
     that broadcast in :func:`flash_attention`, outside the kernel — not
     the kernel's grouped-G reduction that the JAX docstring names."""
     tri = proj(z_ln)
+    if axis_name is not None:
+        tri = _dap().gather(tri, axis_name, 0)
     if tri.shape[0] != n_res or tri.shape[1] != n_res:
         raise ValueError(
             f"pair bias needs a square pair representation matching the "
@@ -165,8 +176,8 @@ class TriangleAttention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_dap(axis_name)
         dev, gen = _setup(device, generator)
+        self.axis_name = axis_name
         _add_layer_norm(self, "ln", dim, dev)
         self.tri_bias = _dense(dim, heads, dev, gen, bias=False)
         self.attn = GatedAttention(dim, heads, dtype=dtype, device=dev,
@@ -175,7 +186,7 @@ class TriangleAttention(nn.Module):
     def forward(self, z):
         z_ln = _layer_norm(self, z, "ln")
         return self.attn(z_ln, bias=_pair_bias(self.tri_bias, z_ln,
-                                               z.shape[1]))
+                                               z.shape[1], self.axis_name))
 
 
 class TriangleMultiplicativeUpdate(nn.Module):
@@ -183,7 +194,8 @@ class TriangleMultiplicativeUpdate(nn.Module):
     ``outgoing`` out[i,j] = Σ_k a[i,k]·b[j,k], ``incoming`` out[i,j] =
     Σ_k a[k,i]·b[k,j], with a, b gated projections of the LN'd pair to
     ``hidden`` channels (default ``dim``) and a gated, LN'd output
-    projection."""
+    projection.  Under DAP ``outgoing`` all-gathers b and ``incoming``
+    reduce-scatters its partial contraction."""
 
     def __init__(self, dim: int, mode: str, hidden: Optional[int] = None,
                  axis_name=None, *, device="cuda",
@@ -191,10 +203,9 @@ class TriangleMultiplicativeUpdate(nn.Module):
         super().__init__()
         if mode not in ("outgoing", "incoming"):
             raise ValueError(f"unknown mode {mode!r}")
-        _no_dap(axis_name)
         dev, gen = _setup(device, generator)
         c = hidden or dim
-        self.mode = mode
+        self.mode, self.axis_name = mode, axis_name
         _add_layer_norm(self, "ln_in", dim, dev)
         self.a = _dense(dim, c, dev, gen)
         self.a_gate = _dense(dim, c, dev, gen, init="gate")
@@ -208,10 +219,15 @@ class TriangleMultiplicativeUpdate(nn.Module):
         z_ln = _layer_norm(self, z, "ln_in")
         a = torch.sigmoid(self.a_gate(z_ln)) * self.a(z_ln)
         b = torch.sigmoid(self.b_gate(z_ln)) * self.b(z_ln)
+        ax = self.axis_name
         if self.mode == "outgoing":
+            if ax is not None:
+                b = _dap().gather(b, ax, 0)
             x = torch.einsum("ikc,jkc->ijc", a, b)
         else:
             x = torch.einsum("kic,kjc->ijc", a, b)
+            if ax is not None:
+                x = _dap().psum_scatter(x, ax, 0)
         x = self.out(_layer_norm(self, x, "ln_out"))
         return torch.sigmoid(self.gate(z_ln)) * x
 
@@ -236,20 +252,26 @@ class EvoformerPairBlock(nn.Module):
     """One pair-stack block on the square pair z (N, N, dim): triangle
     multiplicative outgoing, incoming, triangle attention around the
     starting then the ending node (in the transposed frame), pair
-    transition — each a residual update."""
+    transition — each a residual update.  Under DAP the block stays
+    row-sharded but for the ending-node attention, which runs in the
+    transposed frame between :func:`row_to_col` and :func:`col_to_row`."""
 
     def __init__(self, dim: int, heads: int, axis_name=None,
                  mlp_ratio: int = 4, *, dtype: torch.dtype = torch.bfloat16,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_dap(axis_name)
         dev, gen = _setup(device, generator)
-        self.dim = dim
+        self.dim, self.axis_name = dim, axis_name
         kw = dict(device=dev, generator=gen)
-        self.tri_mul_out = TriangleMultiplicativeUpdate(dim, "outgoing", **kw)
-        self.tri_mul_in = TriangleMultiplicativeUpdate(dim, "incoming", **kw)
-        self.tri_att_start = TriangleAttention(dim, heads, dtype=dtype, **kw)
-        self.tri_att_end = TriangleAttention(dim, heads, dtype=dtype, **kw)
+        ax = axis_name
+        self.tri_mul_out = TriangleMultiplicativeUpdate(
+            dim, "outgoing", axis_name=ax, **kw)
+        self.tri_mul_in = TriangleMultiplicativeUpdate(
+            dim, "incoming", axis_name=ax, **kw)
+        self.tri_att_start = TriangleAttention(dim, heads, ax, dtype=dtype,
+                                               **kw)
+        self.tri_att_end = TriangleAttention(dim, heads, ax, dtype=dtype,
+                                             **kw)
         self.transition = PairTransition(dim, mlp_ratio, **kw)
 
     def forward(self, z):
@@ -259,9 +281,12 @@ class EvoformerPairBlock(nn.Module):
         z = z + self.tri_mul_out(z)
         z = z + self.tri_mul_in(z)
         z = z + self.tri_att_start(z)
-        zt = z.transpose(0, 1)
+        ax = self.axis_name
+        zc = _dap().row_to_col(z, ax) if ax is not None else z
+        zt = zc.transpose(0, 1)
         zt = zt + self.tri_att_end(zt)
-        z = zt.transpose(0, 1)
+        zc = zt.transpose(0, 1)
+        z = _dap().col_to_row(zc, ax) if ax is not None else zc
         return z + self.transition(z)
 
 
@@ -275,8 +300,8 @@ class MSARowAttentionWithPairBias(nn.Module):
                  axis_name=None, *, dtype: torch.dtype = torch.bfloat16,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_dap(axis_name)
         dev, gen = _setup(device, generator)
+        self.axis_name = axis_name
         _add_layer_norm(self, "ln_m", msa_dim, dev)
         _add_layer_norm(self, "ln_z", pair_dim, dev)
         self.pair_bias = _dense(pair_dim, heads, dev, gen, bias=False)
@@ -287,7 +312,7 @@ class MSARowAttentionWithPairBias(nn.Module):
         m_ln = _layer_norm(self, m, "ln_m")
         z_ln = _layer_norm(self, z, "ln_z")
         return self.attn(m_ln, bias=_pair_bias(self.pair_bias, z_ln,
-                                               m.shape[1]))
+                                               m.shape[1], self.axis_name))
 
 
 class MSAColumnAttention(nn.Module):
@@ -312,24 +337,30 @@ class OuterProductMean(nn.Module):
     """Pair update from the MSA (AF2 suppl. Alg 10): o[i,j] =
     Linear(flatten(mean_s a[s,i] ⊗ b[s,j])), a and b projections of
     LN(m) to ``hidden`` channels, the output ``out_dim`` wide.  (The JAX
-    module takes ``out_dim`` at call time.)"""
+    module takes ``out_dim`` at call time.)  Under DAP the mean contracts
+    the sharded MSA rows locally and one reduce-scatter finishes the sum
+    and lands the pair rows on their owners."""
 
     def __init__(self, msa_dim: int, out_dim: int, hidden: int = 8,
                  axis_name=None, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_dap(axis_name)
         dev, gen = _setup(device, generator)
-        self.hidden = hidden
+        self.hidden, self.axis_name = hidden, axis_name
         _add_layer_norm(self, "ln", msa_dim, dev)
         self.a = _dense(msa_dim, hidden, dev, gen)
         self.b = _dense(msa_dim, hidden, dev, gen)
         self.out = _dense(hidden * hidden, out_dim, dev, gen, init="zeros")
 
     def forward(self, m):
+        ax = self.axis_name
+        # the mean divides by the GLOBAL row count (equal shards)
+        s_total = m.shape[0] * (ps.axis_size(ax) if ax is not None else 1)
         m_ln = _layer_norm(self, m, "ln")
         o = torch.einsum("sic,sjd->ijcd", self.a(m_ln),
-                         self.b(m_ln)) / m.shape[0]
+                         self.b(m_ln)) / s_total
+        if ax is not None:
+            o = _dap().psum_scatter(o, ax, 0)
         return self.out(o.reshape(o.shape[0], o.shape[1],
                                   self.hidden * self.hidden))
 
@@ -339,25 +370,29 @@ class EvoformerBlock(nn.Module):
     attention with pair bias, column attention, transition), the
     outer-product-mean MSA→pair communication, then the pair stack
     (:class:`EvoformerPairBlock`).  m (N_seq, N_res, msa_dim) and z
-    (N_res, N_res, pair_dim) in, the updated pair ``(m, z)`` out."""
+    (N_res, N_res, pair_dim) in, the updated pair ``(m, z)`` out; under
+    DAP m (N_seq/dap, N_res, msa_dim) and z (N_res/dap, N_res, pair_dim),
+    each sharded on its leading dim, and every cross-layout move one
+    collective."""
 
     def __init__(self, msa_dim: int, pair_dim: int, heads: int,
                  axis_name=None, mlp_ratio: int = 4, opm_hidden: int = 8, *,
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_dap(axis_name)
         dev, gen = _setup(device, generator)
         self.msa_dim, self.pair_dim = msa_dim, pair_dim
+        self.axis_name = axis_name
         kw = dict(device=dev, generator=gen)
         self.msa_row_att = MSARowAttentionWithPairBias(
-            msa_dim, pair_dim, heads, dtype=dtype, **kw)
+            msa_dim, pair_dim, heads, axis_name, dtype=dtype, **kw)
         self.msa_col_att = MSAColumnAttention(msa_dim, heads, dtype=dtype,
                                               **kw)
         self.msa_transition = PairTransition(msa_dim, mlp_ratio, **kw)
         self.outer_product_mean = OuterProductMean(msa_dim, pair_dim,
-                                                   opm_hidden, **kw)
-        self.pair_block = EvoformerPairBlock(pair_dim, heads,
+                                                   opm_hidden, axis_name,
+                                                   **kw)
+        self.pair_block = EvoformerPairBlock(pair_dim, heads, axis_name,
                                              mlp_ratio=mlp_ratio,
                                              dtype=dtype, **kw)
 
@@ -369,10 +404,13 @@ class EvoformerBlock(nn.Module):
             raise ValueError(
                 f"pair channel dim {z.shape[-1]} != configured "
                 f"{self.pair_dim}")
+        ax = self.axis_name
         m = m + self.msa_row_att(m, z)
-        mt = m.transpose(0, 1)  # (N_res, N_seq, msa_dim)
+        mc = _dap().row_to_col(m, ax) if ax is not None else m
+        mt = mc.transpose(0, 1)  # (N_res, N_seq, msa_dim)
         mt = mt + self.msa_col_att(mt)
-        m = mt.transpose(0, 1)
+        mc = mt.transpose(0, 1)
+        m = _dap().col_to_row(mc, ax) if ax is not None else mc
         m = m + self.msa_transition(m)
         z = z + self.outer_product_mean(m)
         return m, self.pair_block(z)

@@ -33,9 +33,10 @@ being the steps done); ``--resume`` restores the newest one in place,
 seeks the batch stream to it (``bert_mlm_batches(start_step=...)``) and
 trains on up to ``--steps``, so the resumed steps are an uninterrupted
 run's, bit for bit.  The JAX example's ``--chunk`` (steps per jitted
-scan) has no counterpart in eager PyTorch.  Checkpointing is
-one-process in this port: ``--ckpt-dir`` at world size > 1 raises
-(multi-process checkpoints come with the trainer, ROADMAP item 6).
+scan) has no counterpart in eager PyTorch.  At world size > 1 every
+rank takes part in each save (the state is replicated, so rank 0 writes
+it) and the step is committed only after every rank has finished;
+every rank restores it.
 :func:`train_step` trains with dropout when it is given a generator.
 The rendezvous flags (``--backend``, ``--init-method``,
 ``--world-size``, ``--rank``) are those of
@@ -234,10 +235,6 @@ def build(args):
     dev = resolve_device(args.device)
     start_distributed(args)
     dp = ps.get_data_parallel_world_size()
-    if args.ckpt_dir and dp > 1:
-        raise NotImplementedError(
-            "--ckpt-dir at world size > 1: checkpointing is one-process in "
-            "this port (multi-process checkpoints come with ROADMAP item 6)")
     if args.batch % dp:
         raise ValueError(f"--batch ({args.batch}) must be divisible by "
                          f"dp={dp}")

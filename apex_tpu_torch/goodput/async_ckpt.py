@@ -68,6 +68,8 @@ __all__ = [
 
 
 def _map(fn, tree):
+    if isinstance(tree, _ckpt.PerRank):
+        return _ckpt.PerRank(_map(fn, tree.tree))
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -202,6 +204,12 @@ class AsyncCheckpointEngine:
         self._interval = int(save_interval_steps)
         self._max_to_keep = max_to_keep
         self._last_saved: Optional[int] = _ckpt.latest_step(self._directory)
+        # several processes: every rank's writer takes part in each save
+        # over a gloo group of the engine's own (made here, on the
+        # calling thread, by every rank in the same order)
+        self._rank, world = _ckpt._world()
+        self._group = (torch.distributed.new_group(backend="gloo")
+                       if world > 1 else None)
         depth = resolve_queue_depth(queue_depth)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         # the pinned snapshot slots: at most one per queued write plus
@@ -533,7 +541,8 @@ class AsyncCheckpointEngine:
             if self._commit_hook is not None:
                 self._commit_hook(step)
             _ckpt.save_checkpoint(path, host,
-                                  force=force or os.path.exists(path))
+                                  force=force or os.path.exists(path),
+                                  group=self._group)
             with self._lock:
                 self._phase = "prune"
             self._prune()
@@ -586,9 +595,9 @@ class AsyncCheckpointEngine:
         # dirs are not the port's (it never writes them) and stay; they
         # are invisible to all_steps either way.  Single-writer only: in
         # a multi-process job the directory would be shared.
-        if not (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
+        if self._rank != 0:
+            return  # rank 0 keeps the shared directory
+        if self._group is None:
             try:
                 entries = os.listdir(self._directory)
             except OSError:

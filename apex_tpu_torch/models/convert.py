@@ -68,6 +68,8 @@ __all__ = [
     "gpt_param_tree",
     "load_optimizer_state",
     "optimizer_state",
+    "params_from_numpy",
+    "params_to_numpy",
     "to_jax_params",
     "tp_shard_jax_params",
 ]
@@ -191,6 +193,21 @@ def _tree_map(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def params_from_numpy(tree_np: Mapping, *, device="cuda") -> dict:
+    """A JAX param tree held as numpy (nested dicts of arrays: the
+    trainer demo's, an evoformer's, under DAP or not) as the port's
+    nested dict of f32 tensors on ``device`` (the card by default), the
+    same keys at every level; the trainer's ``params``."""
+    dev = resolve_device(device)
+    return _tree_map(lambda a: torch.as_tensor(
+        np.asarray(a, np.float32)).to(dev), tree_np)
+
+
+def params_to_numpy(tree: Mapping) -> dict:
+    """The inverse of :func:`params_from_numpy`: f32 numpy arrays."""
+    return _tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
 
 
 def to_jax_params(model: GptModel,

@@ -13,12 +13,14 @@ the serving path's telemetry spine.
   the crash black box;
 - :mod:`~apex_tpu_torch.observability.health` — :class:`Watchdog` and the
   serving rules;
-- :mod:`~apex_tpu_torch.observability.meter` — :func:`percentile`;
+- :mod:`~apex_tpu_torch.observability.meter` — :class:`StepMeter`,
+  :class:`GoodputAccountant`, the H100's peak tables and
+  :func:`percentile`;
 - :mod:`~apex_tpu_torch.observability.locks` — the lock-order sanitizer.
 
-The rest of the reference's observability (the step meter, memory
-statistics, attribution, export sinks, traces, the fleet view, SLOs and
-canaries) waits for ROADMAP item 8.
+The rest of the reference's observability (memory statistics,
+attribution, export sinks, traces, the fleet view, SLOs and canaries)
+waits for ROADMAP item 8.
 """
 
 from apex_tpu_torch.observability.flight import (  # noqa: F401
@@ -44,7 +46,17 @@ from apex_tpu_torch.observability.locks import (  # noqa: F401
     TrackedLock,
     sanitizer_report,
 )
-from apex_tpu_torch.observability.meter import percentile  # noqa: F401
+from apex_tpu_torch.observability.meter import (  # noqa: F401
+    GoodputAccountant,
+    StepMeter,
+    chip_peak_flops,
+    peak_flops_for,
+    peak_hbm_bandwidth_for,
+    peak_ici_bandwidth_for,
+    percentile,
+    total_peak_flops,
+    transformer_train_flops,
+)
 from apex_tpu_torch.observability.metrics import (  # noqa: F401
     Board,
     MetricRegistry,

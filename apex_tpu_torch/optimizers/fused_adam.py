@@ -31,9 +31,16 @@ __all__ = ["FusedAdam", "FusedAdamState", "fused_adam"]
 ScalarOrSchedule = Union[float, Callable[[int], float]]
 
 
-def _lr_at(lr: ScalarOrSchedule, prev_count: int) -> float:
-    """A schedule at the 0-based step, or the constant."""
-    return float(lr(prev_count)) if callable(lr) else float(lr)
+def _lr_at(lr: ScalarOrSchedule, prev_count) -> float:
+    """A schedule at the 0-based step, or the constant.  A count held on
+    the device (the amp update's, which a skipped step leaves alone)
+    takes a constant rate only: a schedule would read it on the host."""
+    if not callable(lr):
+        return float(lr)
+    if isinstance(prev_count, torch.Tensor):
+        raise ValueError("a learning-rate schedule needs the step count on "
+                         "the host; the amp update keeps it on the device")
+    return float(lr(prev_count))
 
 
 @torch.no_grad()
@@ -42,10 +49,13 @@ def _adam_step(params: List[torch.Tensor], grads: List[torch.Tensor],
                count: int, lr: float, beta1: float, beta2: float, eps: float,
                weight_decay: float, adam_w_mode: bool,
                bias_correction: bool) -> List[torch.Tensor]:
-    """One update at the 1-based ``count``: updates ``ms`` and ``vs`` in
-    place and returns the parameter updates ``-lr * u`` in each
+    """One update at the 1-based ``count`` (an int, or a 0-d tensor on
+    the device, whose bias corrections are then f32 tensors as the
+    reference's are): updates ``ms`` and ``vs`` in place and returns the parameter updates ``-lr * u`` in each
     parameter's dtype (the caller adds them)."""
     if bias_correction:
+        if isinstance(count, torch.Tensor):  # a count on the device
+            count = count.float()
         bc1 = 1.0 - beta1 ** count
         bc2 = 1.0 - beta2 ** count
     else:
@@ -77,7 +87,7 @@ def _stored(new: Dict[str, torch.Tensor],
 
 
 class FusedAdamState(NamedTuple):
-    count: int  # 1-based after the first update
+    count: int  # 1-based after the first update (a 0-d tensor under amp)
     m: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
 

@@ -65,6 +65,8 @@ def _lamb_step(params: List[torch.Tensor], grads: List[torch.Tensor],
     the parameter updates ``-lr * ratio * u`` in each parameter's dtype
     (the caller adds them)."""
     if bias_correction:
+        if isinstance(count, torch.Tensor):  # a count on the device
+            count = count.float()
         bc1 = 1.0 - beta1 ** count
         bc2 = 1.0 - beta2 ** count
     else:

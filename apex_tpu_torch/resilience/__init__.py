@@ -10,12 +10,19 @@
 - :mod:`apex_tpu_torch.resilience.runner` — ``run_resilient``:
   SIGTERM-safe training loop with ``latest_step()`` auto-resume and
   skip-budget rollback to the last complete checkpoint.
-
-Not yet ported: ``guards`` (the guarded amp update, with the amp scaler:
-ROADMAP item 10).
+- :mod:`apex_tpu_torch.resilience.guards` — the guarded amp update
+  (``GradGuard``, ``guarded_amp_update``): NaN and spike skips on the
+  device, with a consecutive-skip budget.
 """
 
 from apex_tpu_torch.resilience import chaos  # noqa: F401
+from apex_tpu_torch.resilience.guards import (  # noqa: F401
+    GradGuard,
+    GuardState,
+    GuardVerdict,
+    guard_metrics,
+    guarded_amp_update,
+)
 from apex_tpu_torch.resilience.retry import (  # noqa: F401
     RetryPolicy,
     add_retry_listener,
@@ -33,6 +40,11 @@ from apex_tpu_torch.resilience.runner import (  # noqa: F401
 
 __all__ = [
     "chaos",
+    "GradGuard",
+    "GuardState",
+    "GuardVerdict",
+    "guard_metrics",
+    "guarded_amp_update",
     "RetryPolicy",
     "add_retry_listener",
     "remove_retry_listener",

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-sixteen phases; any failure raises and the exit code is non-zero.  Without
+eighteen phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -221,6 +221,31 @@ a CUDA device it exits non-zero at once and prints no result.
     planted fault (statistics over one rank's rows) that must fail.  The
     two-rank times are of two processes sharing one card, staged
     through the host by gloo: not a rank's speed.
+17. The evoformer under dynamic axial parallelism (``phase17``): 2 of
+    phase 10's blocks at its widths and crop, bf16 attention, 3
+    FusedAdam steps, the MSA's and the pair's rows sharded over dap = 2
+    worker processes on the card (gloo; the transitions are all-to-alls
+    of CUDA tensors), the parameter gradients all-reduced over the DAP
+    group: step 0's outputs and every gradient, and the losses, against
+    the same blocks at dap = 1 in this process, beside a planted fault
+    (``gather``'s backward slicing instead of reduce-scattering) past
+    10x the gradient limit; rank 0's K1-K5 launches exactly
+    ``EVO_BLOCK_LAUNCHES`` x blocks x steps (the fused K4 + K5 call at a
+    rank's half shapes, which phases 1 and 4 hold and time).
+18. The trainer (``phase18``).  18a: ``Trainer.build(verify="error")``
+    over ``GptConfig(remat=True)`` through ``module_loss`` at phase 6's
+    batch for 8 steps, dp = 1: phase 6's losses, K1-K4 launches a step
+    equal to phase 6's, no host synchronization a step
+    (``set_sync_debug_mode``), the step time, tokens/s and MFU from
+    ``StepMeter``; each check beside a planted fault it must fail.  18b-d on two worker processes over gloo
+    at GptConfig()'s width with 2 layers: both update modes (ZeRO and
+    DDP) against dp = 1 within 16c's limit, each build's call log within
+    its plan, a planted bogus plan refused, the demo's tp arm with one
+    all-reduce over tp a step; ``build_guarded`` under ``grads:nan@3``
+    (step 3 skipped on both ranks, params unchanged, the scale halved,
+    the other steps against dp = 1 under the same fault); ``fit`` in
+    ZeRO mode on the async engine, preempted at step 5 and resumed, equal
+    to the whole run bit for bit (params and each rank's master shard).
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -229,7 +254,7 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 16, 4, 5.
+11, 16, 17, 18, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -275,6 +300,13 @@ line.
 
 runs phase 16 alone (with the kernels' build; 16a then compares with
 its own no-group run only) and prints it as one JSON line.
+
+    python3 chip_smoke.py --dap
+    python3 chip_smoke.py --trainer
+
+run phase 17 or phase 18 alone (with the kernels' build; 18a then runs
+phase 6's loop itself for the losses it holds) and print it as one JSON
+line.
 
     python3 chip_smoke.py --evoformer
 
@@ -548,6 +580,9 @@ def phase1_ln_fwd(gen):
             (2048, 1024, True, "bf16", 1e-5), (37, 1000, False, "bf16", 1e-5),
             (EVO_SEQ * EVO_RES, 256, False, "f32", 1e-6),
             (EVO_RES * EVO_RES, 128, False, "f32", 1e-6),
+            # phase 17's DAP rank (half the rows)
+            (EVO_SEQ * EVO_RES // DAP, 256, False, "f32", 1e-6),
+            (EVO_RES * EVO_RES // DAP, 128, False, "f32", 1e-6),
             (1000, 1001, False, "bf16", 1e-5), (999, 130, True, "f32", 1e-6),
             (64, 12288, False, "bf16", 1e-5), (300, 64, False, "bf16", 1e-5),
             (301, 33, False, "f32", 1e-6)):
@@ -693,6 +728,8 @@ LN_BWD_CASES = (
     (64, 5000, "f32", False, False),
     (128 * 256, 256, "f32", False, False),
     (256 * 256, 128, "f32", False, False),
+    (64 * 256, 256, "f32", False, False),   # phase 17: a DAP rank's rows
+    (128 * 256, 128, "f32", False, False),
     (1000, 1001, "bf16", False, False),
     (999, 130, "f32", False, True),
     (64, 12288, "bf16", False, True),
@@ -1046,6 +1083,11 @@ EVO_RES, EVO_SEQ, EVO_HEADS = 256, 128, 4
 TRIANGLE_SHAPE = (EVO_RES * EVO_HEADS, EVO_RES, 32)   # start and end node
 MSA_ROW_SHAPE = (EVO_SEQ * EVO_HEADS, EVO_RES, 64)    # with the pair bias
 MSA_COL_SHAPE = (EVO_RES * EVO_HEADS, EVO_SEQ, 64)    # no bias
+#: phase 17's DAP rank (dap = 2): each attention call on half the rows
+DAP = 2
+DAP_SHAPES = {"triangle": (TRIANGLE_SHAPE[0] // DAP,) + TRIANGLE_SHAPE[1:],
+              "msa_row": (MSA_ROW_SHAPE[0] // DAP,) + MSA_ROW_SHAPE[1:],
+              "msa_col": (MSA_COL_SHAPE[0] // DAP,) + MSA_COL_SHAPE[1:]}
 
 
 def check_fused(tag, out, ref4, ref5, causal):
@@ -1115,6 +1157,13 @@ def phase1_flash_dbias(gen):
          (row_bh, row_s), 0.0, True),
         ("MSA column no bias", col_bh, col_s, col_s, 64, False, None, 0.0,
          True),
+        # phase 17's DAP rank: the same calls on half the rows
+        ("DAP triangle G=BH RS=Sq", DAP_SHAPES["triangle"][0], tri_s,
+         tri_s, 32, False, (DAP_SHAPES["triangle"][0], tri_s), 0.0, True),
+        ("DAP MSA row G=BH RS=Sq", DAP_SHAPES["msa_row"][0], row_s, row_s,
+         64, False, (DAP_SHAPES["msa_row"][0], row_s), 0.0, True),
+        ("DAP MSA column no bias", DAP_SHAPES["msa_col"][0], col_s, col_s,
+         64, False, None, 0.0, True),
         ("G=1 RS=Sq", 8, 200, 200, 32, True, (1, 200), 0.0, True),
         ("G=B RS=Sq + dropout 0.1", 8, 136, 200, 64, True, (2, 136), 0.1,
          False),
@@ -3546,7 +3595,9 @@ def phase4(gen, launches, errs):
     extra = {}  # kernel -> {tag: row} of the shapes beside its main one
     for tag, n_rows, hidden in (
             ("evo_pair_shape", EVO_RES * EVO_RES, EVO["pair_dim"]),
-            ("evo_msa_shape", EVO_SEQ * EVO_RES, EVO["msa_dim"])):
+            ("evo_msa_shape", EVO_SEQ * EVO_RES, EVO["msa_dim"]),
+            ("dap_pair_shape", EVO_RES * EVO_RES // DAP, EVO["pair_dim"]),
+            ("dap_msa_shape", EVO_SEQ * EVO_RES // DAP, EVO["msa_dim"])):
         ln_fwd, ln_bwd = _time_ln(gen, flush, n_rows, hidden, "f32")
         extra.setdefault("layer_norm_fwd", {})[tag] = dict(
             ln_fwd, shape=f"x ({n_rows}, {hidden}) f32 (evoformer)")
@@ -3611,6 +3662,18 @@ def phase4(gen, launches, errs):
             msa[name], shape=f"BH={col_bh} S={col_s} D={col_d} non-causal "
             f"bf16, no bias (MSA column attention)")
     torch.cuda.empty_cache()
+    # phase 17's DAP rank (dap = 2): the three calls on half the rows
+    for what, (bh, sq, d) in DAP_SHAPES.items():
+        with_bias = what != "msa_col"
+        timed = _time_evo_attention(gen, flush, bh, sq, d, with_k34=True,
+                                    with_bias=with_bias)
+        shape = (f"BH={bh} S={sq} D={d} non-causal bf16, "
+                 + (f"bias ({bh}, {sq}, {sq}) f32" if with_bias
+                    else "no bias") + f" ({what} at a DAP rank, dap = 2)")
+        for name, row in timed.items():
+            extra.setdefault(name, {})[f"dap_{what}_shape"] = dict(
+                row, shape=shape)
+        torch.cuda.empty_cache()
     long_fwd, long_bwd = _time_attn_long(gen, flush)
     shape = f"BH={LONG_BH} S={LONG_S} D={LONG_D} causal bf16 (long context)"
     extra["flash_fwd"]["long_context_shape"] = dict(long_fwd, shape=shape)
@@ -6463,6 +6526,862 @@ def phase16(phase6_losses=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the evoformer under dynamic axial parallelism — two ranks
+# ---------------------------------------------------------------------------
+
+#: 2 of phase 10's blocks (its widths and crop), 3 FusedAdam steps, the
+#: pair and MSA rows sharded over dap = 2 ranks sharing the card (gloo)
+P17_BLOCKS = 2
+P17_STEPS = 3
+P17_SEED = 31
+#: the sharded run against dap = 1 in one process: the step-0 outputs'
+#: max |diff| over max |ref|, each loss's relative difference, and each
+#: parameter gradient's max |diff| over its max |value| (bf16 attention:
+#: a rank's partial sums round apart from the unsharded contraction's;
+#: ``EVO_ZERO_GRAD``, 0 in exact arithmetic, is read as phase 11 reads
+#: it).  The planted faults must read more than P16_FAULT_FACTOR x the
+#: limit: gather's backward slicing instead of reduce-scattering (the
+#: gradients), the all-to-alls landing the blocks in reverse rank order
+#: (the outputs and the loss; a mean squared error hardly sees a
+#: permutation of rows, so the loss limit sits close under it).  On an
+#: H100 (700 W) the sound run reads 1.42e-4 (outputs), 1.06e-7 (losses)
+#: and 1.30e-3 (gradients); the faults 0.120, 1.10e-5 and 0.712 (the MSA
+#: pair-bias kernel's gradient)
+P17_OUT_TOL = 2e-3
+P17_LOSS_TOL = 1e-6
+P17_GRAD_TOL = 2e-2
+
+
+def _p17_blocks(axis_name):
+    import torch
+
+    from apex_tpu_torch.contrib.openfold import EvoformerBlock
+
+    gen = torch.Generator(device="cuda").manual_seed(P17_SEED)
+    blocks = torch.nn.ModuleList(
+        EvoformerBlock(**EVO, axis_name=axis_name, dtype=torch.bfloat16,
+                       device="cuda", generator=gen)
+        for _ in range(P17_BLOCKS))
+    randomize_zero_params(blocks, gen)
+    return blocks
+
+
+def _p17_train(blocks, data, steps, n_m, n_z, group=None, on_step0=None):
+    """``steps`` FusedAdam steps of the mean squared error (its sum over
+    this rank's rows over the global counts ``n_m``/``n_z``), the
+    gradients and the loss summed over ``group``; ``on_step0(outs)`` sees
+    step 0's outputs and gradients.  Returns (losses, step seconds, the
+    step-0 call log summary)."""
+    import torch
+
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import comm
+
+    m, z, tm, tz = data
+    opt = FusedAdam(blocks.parameters(), lr=EVO_LR)
+    losses, seconds, summary = [], [], None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with comm.collective_log() as rec:
+            om, oz = m, z
+            for blk in blocks:
+                om, oz = blk(om, oz)
+            loss = ((om - tm).pow(2).sum() / n_m
+                    + (oz - tz).pow(2).sum() / n_z)
+            loss.backward()
+            for p in blocks.parameters():
+                comm.all_reduce(p.grad, group)
+            loss = comm.all_reduce(loss.detach().clone(), group)
+        if step == 0:
+            summary = comm.collective_summary(rec)
+            if on_step0 is not None:
+                on_step0(om.detach(), oz.detach())
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, summary
+
+
+def p17_dap(rank, world, ref_path, steps, fault=None):
+    """17 worker: the blocks at dap = ``world`` on this rank's rows of the
+    MSA and the pair, ``steps`` steps; step 0's outputs and gradients
+    against the dap = 1 run saved at ``ref_path``.  ``fault`` plants a
+    fault a check exists for: ``"gather"`` — ``gather``'s backward
+    keeping this rank's rows instead of summing every rank's cotangent
+    (the gradients); ``"all_to_all"`` — the transitions landing the
+    received blocks in reverse rank order (the outputs and losses)."""
+    from apex_tpu_torch import parallel_state as ps
+
+    ps.initialize_model_parallel(1)
+    try:
+        return _p17_rank(ref_path, steps, fault)
+    finally:
+        ps.destroy_model_parallel()
+
+
+def _p17_rank(ref_path, steps, fault):
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.contrib import openfold as pof
+    from apex_tpu_torch.ops import _dispatch
+
+    if fault == "gather":
+        def sliced(ctx, g):
+            n = g.shape[ctx.dim] // ps.axis_size(ctx.axis_name)
+            return (g.narrow(ctx.dim, ps.axis_rank(ctx.axis_name) * n, n),
+                    None, None)
+
+        pof._Gather.backward = staticmethod(sliced)
+    elif fault == "all_to_all":
+        a2a = pof._all_to_all
+
+        def reversed_blocks(x, group, world, split, concat):
+            out = a2a(x, group, world, split, concat)
+            return torch.cat(out.chunk(world, dim=concat)[::-1], dim=concat)
+
+        pof._all_to_all = reversed_blocks
+    ref = torch.load(ref_path, map_location="cuda")
+    blocks = _p17_blocks("dp")
+    full = evoformer_data(EVO_SEQ, EVO_RES, "cuda", seed=P17_SEED)
+    data = [pof.scatter(t, "dp", 0).contiguous() for t in full]
+    n_m, n_z = full[0].numel(), full[1].numel()
+    del full
+    errs = {}
+
+    def check(om, oz):
+        for name, got in (("m", om), ("z", oz)):
+            want = pof.scatter(ref[name], "dp", 0)
+            errs[f"out_{name}"] = float((got - want).abs().max()
+                                        / want.abs().max())
+        grads = {}
+        for name, p in blocks.named_parameters():
+            want = ref["grads"][name]
+            if name.endswith(EVO_ZERO_GRAD):
+                # zero in exact arithmetic: its norm against the pair
+                # bias kernel's gradient, as phase 11 reads it
+                kernel = name.replace(EVO_ZERO_GRAD, EVO_BIAS_KERNELS[0])
+                errs.setdefault("zero_grad_norm_ratio", []).append(float(
+                    p.grad.norm() / ref["grads"][kernel].norm()))
+                continue
+            grads[name] = float((p.grad - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30))
+        errs["grads"] = grads
+
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    losses, seconds, summary = _p17_train(
+        blocks, data, steps, n_m, n_z, ps.get_group("dp"), check)
+    return dict(losses=losses, seconds=seconds, collectives=summary,
+                launches=_dispatch.launches(), errs=errs,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase17():
+    """The evoformer under dynamic axial parallelism (ROADMAP item 5's
+    rest): phase 10's widths and crop (c_m 256, c_z 128, 4 heads; MSA
+    (128, 256, 256), pair (256, 256, 128)), 2 blocks, bf16 attention, 3
+    FusedAdam steps, the rows sharded over dap = 2 worker processes
+    sharing the card over gloo, the parameter gradients all-reduced over
+    the DAP group.  Held to the same blocks at dap = 1 in this process
+    (step 0's outputs and every gradient, the losses), beside the planted
+    fault (gather's backward slicing); rank 0's K1-K5 launches must be
+    ``EVO_BLOCK_LAUNCHES`` x blocks x steps (the fused K4 + K5 call
+    included); the bytes of each collective kind and the step time are
+    logged.  The two-rank times are of two processes sharing one card,
+    their collectives staged through the host by gloo."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+
+    log(f"phase 17: {P17_BLOCKS} evoformer blocks under DAP (dap = {DAP}, "
+        f"N_seq {EVO_SEQ}, N_res {EVO_RES}, {P17_STEPS} FusedAdam steps)")
+    torch.cuda.empty_cache()
+    blocks = _p17_blocks(None)
+    data = evoformer_data(EVO_SEQ, EVO_RES, "cuda", seed=P17_SEED)
+    ref = {}
+
+    def keep(om, oz):
+        ref["m"], ref["z"] = om.float(), oz.float()
+        ref["grads"] = {n: p.grad.detach().clone()
+                        for n, p in blocks.named_parameters()}
+
+    _dispatch.reset_launches()
+    ref_losses, ref_seconds, _ = _p17_train(
+        blocks, data, P17_STEPS, data[0].numel(), data[1].numel(),
+        on_step0=keep)
+    ref_launches = _dispatch.launches()
+    del blocks, data
+    tmp = tempfile.mkdtemp(prefix="apex_p17_")
+    path = os.path.join(tmp, "ref.pt")
+    torch.save(ref, path)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        runs = _p16_spawn(DAP, "gloo", [
+            ("sound", "p17_dap", dict(ref_path=path, steps=P17_STEPS)),
+            ("fault", "p17_dap", dict(ref_path=path, steps=1,
+                                      fault="gather")),
+            ("a2a_fault", "p17_dap", dict(ref_path=path, steps=1,
+                                          fault="all_to_all")),
+        ])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {k: n * P17_BLOCKS * P17_STEPS
+            for k, n in EVO_BLOCK_LAUNCHES.items() if n}
+    sound = [r["sound"] for r in runs]
+    fault = [r["fault"] for r in runs]
+    a2a = [r["a2a_fault"] for r in runs]
+    a2a_out = max(max(r["errs"]["out_m"], r["errs"]["out_z"]) for r in a2a)
+    a2a_loss = max(_rel(r["losses"], ref_losses[:1]) for r in a2a)
+    out_err = max(max(r["errs"]["out_m"], r["errs"]["out_z"]) for r in sound)
+    grad_err = max(max(r["errs"]["grads"].values()) for r in sound)
+    worst = max(((v, n) for r in sound for n, v in r["errs"]["grads"].items()))
+    fault_err = max(max(r["errs"]["grads"].values()) for r in fault)
+    fault_worst = max(((v, n) for r in fault
+                       for n, v in r["errs"]["grads"].items()))
+    zero = max(max(r["errs"]["zero_grad_norm_ratio"]) for r in sound)
+    top = sorted(((v, n) for n, v in sound[0]["errs"]["grads"].items()),
+                 reverse=True)[:4]
+    top_fault = sorted(((v, n) for n, v in fault[0]["errs"]["grads"].items()),
+                       reverse=True)[:4]
+    log(f"  gradients' worst readings, sound {top}; fault {top_fault}; "
+        f"{EVO_ZERO_GRAD} (0 in exact arithmetic) norm / pair-bias "
+        f"kernel's {zero:.3e}")
+    loss_err = max(_rel(r["losses"], ref_losses) for r in sound)
+    step_ms = statistics.median(sound[0]["seconds"][1:]) * 1e3
+    log(f"  dap = 1 (this process): losses {ref_losses}, step "
+        f"{statistics.median(ref_seconds[1:]) * 1e3:.1f} ms, launches "
+        f"{ref_launches}")
+    log(f"  dap = {DAP} over gloo: losses {[r['losses'] for r in sound]} "
+        f"(max rel diff {loss_err:.3e}, limit {P17_LOSS_TOL}); step-0 "
+        f"outputs max rel {out_err:.3e} (limit {P17_OUT_TOL}); gradients "
+        f"max rel {grad_err:.3e} at {worst[1]} (limit {P17_GRAD_TOL})")
+    log(f"  planted fault (gather's backward slicing): gradients max rel "
+        f"{fault_err:.3e} at {fault_worst[1]} (must exceed "
+        f"{P16_FAULT_FACTOR} x {P17_GRAD_TOL})")
+    log(f"  planted fault (all-to-all blocks in reverse order): outputs max "
+        f"rel {a2a_out:.3e}, loss rel {a2a_loss:.3e} (must exceed "
+        f"{P16_FAULT_FACTOR} x {P17_OUT_TOL} and x {P17_LOSS_TOL})")
+    log(f"  rank 0: launches {sound[0]['launches']} (want {want}); step "
+        f"{step_ms:.1f} ms; peak {sound[0]['peak'] / 1e9:.2f} GB; step-0 "
+        f"collectives {sound[0]['collectives']}")
+    if ref_launches != want:
+        raise AssertionError(f"17 dap = 1 launches {ref_launches} != {want}")
+    for r in sound:
+        if r["launches"] != want:
+            raise AssertionError(f"17 launches {r['launches']} != {want}")
+    if loss_err > P17_LOSS_TOL or out_err > P17_OUT_TOL or \
+            grad_err > P17_GRAD_TOL:
+        raise AssertionError("17: the sharded run is past its limits")
+    if fault_err <= P16_FAULT_FACTOR * P17_GRAD_TOL:
+        raise AssertionError("17: the gradient check cannot tell the "
+                             "planted gather fault")
+    if a2a_out <= P16_FAULT_FACTOR * P17_OUT_TOL or \
+            a2a_loss <= P16_FAULT_FACTOR * P17_LOSS_TOL:
+        raise AssertionError("17: the output and loss checks cannot tell "
+                             "the planted all-to-all fault")
+    return sound[0]["launches"], dict(
+        losses=sound[0]["losses"], ref_losses=ref_losses,
+        loss_rel_err=loss_err, out_rel_err=out_err, grad_rel_err=grad_err,
+        worst_grad=worst[1], fault_grad_rel_err=fault_err,
+        fault_worst_grad=fault_worst[1], zero_grad_norm_ratio=zero,
+        a2a_fault_out_rel_err=a2a_out, a2a_fault_loss_rel_err=a2a_loss,
+        step_ms=step_ms, ref_step_ms=statistics.median(ref_seconds[1:]) * 1e3,
+        collectives=sound[0]["collectives"], peak=sound[0]["peak"])
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the composable trainer
+# ---------------------------------------------------------------------------
+
+#: 18b-d: GptConfig()'s width cut to 2 layers (P16_GPT_LAYERS), phase
+#: 6's batch, dp = 2 over gloo; 18c's guarded run (the dynamic scaler at
+#: 2**16, GradGuard with a warm-up of 2) poisons step 3's gradients; 18d
+#: saves every 2 steps and is preempted at step 5 of 8
+P18_STEPS = 4
+P18_GUARDED_STEPS = 5
+P18_CHAOS = "grads:nan@3"
+P18_FIT_STEPS = 8
+P18_FIT_PREEMPT = 5
+#: 18a: the trainer's losses against phase 6's hand-written loop over the
+#: same batches, relative, per step (0 when both run the same kernels in
+#: the same order: on an H100 at 700 W they are equal bit for bit, and
+#: the planted functional_call fault reads 5.9e-2 at its third step)
+P18_LOSS_TOL = 1e-6
+P18_FAULT_STEPS = 3
+
+
+def _gpt_batches(args, cfg, n):
+    """The first ``n`` GLOBAL (S, B) batches of ``train_gpt``'s corpus
+    and loader (the stream ``train_gpt.build`` slices per dp rank)."""
+    import itertools
+
+    import torch
+
+    from apex_tpu_torch.data import DataLoader, TokenFileDataset
+    from apex_tpu_torch.examples import train_gpt
+
+    ds = TokenFileDataset(train_gpt.corpus(args, cfg.vocab_size),
+                          seq_len=args.seq_len)
+    loader = DataLoader(ds, batch_size=args.batch, seed=7)
+    return [torch.as_tensor(b.T.astype(np.int64), device="cuda")
+            for b in itertools.islice(loader, n)]
+
+
+def _gpt_trainer(cfg, dp, mode="auto", verify="error", **kw):
+    """``Trainer.build`` over a fresh ``GptModel(cfg)`` (seed 0) through
+    ``module_loss``: every leaf replicated, the batch's columns over dp,
+    FusedAdam at phase 6's lr."""
+    from apex_tpu_torch.analysis import P
+    from apex_tpu_torch.models.gpt import GptModel, gpt_lm_loss
+    from apex_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+        module_loss,
+        module_params,
+    )
+
+    model = GptModel(cfg, device="cuda")
+    config = TrainConfig(
+        mesh={"dp": dp}, rules=[(r".*", P())], learning_rate=TRAIN_LR,
+        batch_rules=[(r".*", P(None, "dp"))], update_sharding=mode,
+        verify=verify, **kw)
+    return model, Trainer(config), module_loss(model, gpt_lm_loss), \
+        module_params(model)
+
+
+def _p18a_functional_call(cfg, batches):
+    """18a's planted fault: the trainer with its loss through
+    ``torch.func.functional_call`` (the substitution ends with the
+    forward, so remat's recompute reads the module's own, initial
+    weights); its losses over ``batches``."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.models.gpt import gpt_lm_loss
+
+    model, trainer, _, params = _gpt_trainer(cfg, 1, verify="off")
+
+    class Bound(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.module = model
+
+        def forward(self, ids):
+            return gpt_lm_loss(self.module, ids)
+
+    bound = Bound()
+
+    def loss_fn(p, ids):
+        return torch.func.functional_call(
+            bound, {"module." + k.replace("/", "."): t for k, t in p.items()},
+            (ids,))
+
+    step = trainer.build(loss_fn, params, batches[0])
+    st, losses = step.state, []
+    for b in batches:
+        st, aux = step(st, b)
+        losses.append(float(aux["loss"]))
+    del model, trainer, step, st
+    ps.destroy_model_parallel()
+    return losses
+
+
+def _syncs(fn):
+    """The device synchronizations ``fn()`` makes (the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(x.message) for x in w)
+
+
+def _digest(t):
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def p18_workers(rank, world, phase):
+    """18b-d worker (dp = ``world``, GptConfig()'s width at 2 layers):
+
+    - 18b: ``Trainer.build(verify="error")`` in both update modes, 4
+      steps each (losses, the build's plan report and one step's log);
+      a planted bogus ``model_collectives`` entry must fail the build;
+      ``build_demo(1, 2)`` at tp = 2 issues one all-reduce over tp a
+      step; the DDP path with its gradient sync skipped (the planted
+      fault of the loss check);
+    - 18c: ``build_guarded`` with ``APEX_TPU_CHAOS="grads:nan@3"``'s
+      fault between the two programs: per step the loss, the verdict,
+      the scale and the params' digest ("18c_blind": a scaler whose
+      overflow flag never fires, the planted fault of the skip checks);
+    - 18d: ``TrainStep.fit`` in ZeRO mode on the async engine, every 2
+      steps, once whole and once preempted at step 5 and resumed by a
+      fresh build: the final params' and master shard's digests; the
+      same resume with every rank reading the other rank's shards (the
+      planted fault of the bit-for-bit check).
+    ``phase`` picks one of "18b" / "18c" / "18c_blind" / "18d"."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+
+    try:
+        if phase == "18c_blind":
+            return _p18c(rank, world, blind=True)
+        return globals()[f"_p{phase}"](rank, world)
+    finally:
+        ps.destroy_model_parallel()
+        torch.cuda.empty_cache()
+
+
+def _p18_cfg():
+    from apex_tpu_torch.examples import train_gpt
+
+    args = _gpt_args(["--backend", "gloo"], layers=P16_GPT_LAYERS)
+    return args, train_gpt.config(args)
+
+
+def _p18b(rank, world):
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.train import TrainBuildError, build_demo
+
+    args, cfg = _p18_cfg()
+    batches = _gpt_batches(args, cfg, P18_STEPS)
+    out = {}
+    sync = comm.sync_gradients
+    # the planted fault: the DDP path's gradient sync skipped (each rank
+    # steps on its own half of the batch)
+    for mode in ("auto", "replicate", "replicate:no_sync"):
+        upd, _, fault = mode.partition(":")
+        model, trainer, loss_fn, params = _gpt_trainer(
+            cfg, world, upd, verify="off" if fault else "error")
+        step = trainer.build(loss_fn, params, batches[0])
+        if fault:
+            comm.sync_gradients = lambda grads, *a, **k: grads
+        try:
+            st, losses = step.state, []
+            for b in batches:
+                st, aux = step(st, b)
+                losses.append(float(aux["loss"]))
+        finally:
+            comm.sync_gradients = sync
+        out[mode] = dict(mode=step.mode, losses=losses)
+        if not fault:
+            out[mode].update(
+                findings=[f.render() for f in step.report.findings],
+                plan=step.report.sections["plan"],
+                memory=step.report.sections["memory"])
+        del model, trainer, step, st
+        ps.destroy_model_parallel()
+    model, trainer, loss_fn, params = _gpt_trainer(
+        cfg, world, model_collectives=[{
+            "kind": "all-to-all", "axis": "dp", "count": 7,
+            "dtypes": ["s8"]}])
+    try:
+        trainer.build(loss_fn, params, batches[0])
+        out["bogus"] = None
+    except TrainBuildError as e:
+        out["bogus"] = str(e)
+    del model, trainer
+    ps.destroy_model_parallel()
+    demo = build_demo(1, world)
+    with comm.collective_log() as rec:
+        demo(demo.state, demo.example_batch)
+    out["demo_tp"] = dict(findings=[f.render() for f in demo.report.findings],
+                          log=[(r["kind"], r["axis"]) for r in rec])
+    return out
+
+
+def _p18c(rank, world, blind=False):
+    """18c's guarded run at dp = ``world`` (also the dp = 1 run).
+    ``blind`` plants the fault the skip checks exist for: a scaler whose
+    overflow flag never fires."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.analysis import P
+    from apex_tpu_torch.models.gpt import GptModel, gpt_lm_loss
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.resilience import GradGuard, chaos
+    from apex_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+        module_loss,
+        module_params,
+    )
+
+    args, cfg = _p18_cfg()
+    batches = _gpt_batches(args, cfg, P18_GUARDED_STEPS)
+    model = GptModel(cfg, device="cuda")
+    inner = module_loss(model, gpt_lm_loss)
+    class Blind(amp.DynamicLossScaler):
+        def unscale(self, grads, state):
+            grads, found = super().unscale(grads, state)
+            return grads, torch.zeros_like(found)
+
+    g = Trainer(TrainConfig(mesh={"dp": world}, rules=[(r".*", P())],
+                            update_sharding="replicate")).build_guarded(
+        lambda p, b: inner(p, b[0].T), module_params(model),
+        tx=fused_adam(TRAIN_LR),
+        scaler=Blind() if blind else amp.DynamicLossScaler(),
+        guard=GradGuard(warmup_steps=2), verify="error",
+        example_batch=(batches[0].T[None],))
+    faults, seed = chaos.parse_spec(P18_CHAOS)
+    chaos.configure(*faults, seed=seed)
+    rows, state = [], g.state
+    try:
+        for i, ids in enumerate(batches):
+            loss, scaled = g.compute_grads(state["params"], state["scaler"],
+                                           (ids.T[None],))
+            scaled = chaos.corrupt_tree(scaled, i)
+            state, v = g.apply_update(scaled, state, loss)
+            rows.append(dict(
+                loss=float(loss), skipped=float(v.skipped),
+                scale=float(state["scaler"].loss_scale),
+                digest=_digest(torch.cat([t.reshape(-1) for t in
+                                          state["params"].values()]))))
+    finally:
+        chaos.clear()
+    return dict(rows=rows, findings=[f.render() for f in g.report.findings])
+
+
+def _p18d(rank, world):
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.resilience import chaos
+
+    args, cfg = _p18_cfg()
+    batches = _gpt_batches(args, cfg, P18_FIT_STEPS)
+    root = tempfile.gettempdir()
+    out = {}
+    for run in ("plain", "preempted"):
+        d = os.path.join(root, f"apex_p18d_{run}")
+        model, trainer, loss_fn, params = _gpt_trainer(cfg, world, "shard",
+                                                       verify="off")
+        step = trainer.build(loss_fn, params, batches[0])
+        if run == "preempted":
+            chaos.configure(chaos.Fault(chaos.PREEMPTION,
+                                        steps=(P18_FIT_PREEMPT,)))
+            try:
+                first = step.fit(lambda i: batches[i], P18_FIT_STEPS,
+                                 directory=d, save_interval_steps=2,
+                                 max_to_keep=2)
+            finally:
+                chaos.clear()
+            out["first"] = (first.last_step, first.preempted,
+                            ckpt.all_steps(d))
+            del model, trainer, step, first
+            ps.destroy_model_parallel()
+            out["swapped"] = _p18d_swapped(cfg, world, batches, d)
+            model, trainer, loss_fn, params = _gpt_trainer(
+                cfg, world, "shard", verify="off")
+            step = trainer.build(loss_fn, params, batches[0])
+        t0 = time.perf_counter()
+        res = step.fit(lambda i: batches[i], P18_FIT_STEPS, directory=d,
+                       save_interval_steps=2, max_to_keep=2)
+        torch.cuda.synchronize()
+        out[run] = dict(
+            params=_digest(torch.cat([t.reshape(-1) for t in
+                                      res.state["params"].values()])),
+            master=_digest(res.state["opt"].tree["master"]),
+            last=res.last_step, resumed=res.resumed_from,
+            steps_run=res.steps_run, seconds=time.perf_counter() - t0,
+            goodput=step.goodput.snapshot(), steps=ckpt.all_steps(d))
+        del model, trainer, step, res
+        ps.destroy_model_parallel()
+    return out
+
+
+def _p18d_swapped(cfg, world, batches, d):
+    """The planted fault of 18d's bit-for-bit check: a resume of a copy
+    of the preempted run's directory in which every rank reads the other
+    rank's shards (its rank swapped for the checkpoint's reads and
+    writes).  Returns the final params' and master shard's digests."""
+    import shutil
+
+    import torch
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch import parallel_state as ps
+
+    bad = d + "_swapped"
+    if torch.distributed.get_rank() == 0:
+        shutil.rmtree(bad, ignore_errors=True)
+        shutil.copytree(d, bad)
+    torch.distributed.barrier()
+    model, trainer, loss_fn, params = _gpt_trainer(cfg, world, "shard",
+                                                   verify="off")
+    step = trainer.build(loss_fn, params, batches[0])
+    world_of = ckpt._world
+    ckpt._world = lambda: (world - 1 - world_of()[0], world)
+    try:
+        res = step.fit(lambda i: batches[i], P18_FIT_STEPS, directory=bad,
+                       save_interval_steps=2, max_to_keep=2)
+    finally:
+        ckpt._world = world_of
+    out = dict(params=_digest(torch.cat([t.reshape(-1) for t in
+                                         res.state["params"].values()])),
+               master=_digest(res.state["opt"].tree["master"]),
+               resumed=res.resumed_from)
+    del model, trainer, step, res
+    ps.destroy_model_parallel()
+    return out
+
+
+def phase18(phase6_losses=None):
+    """The composable trainer (ROADMAP item 6) on the card:
+
+    - 18a: ``Trainer.build(verify="error")`` over ``GptConfig(remat=True)``
+      at full width through ``module_loss``, phase 6's batch 8 x 2048 and
+      8 FusedAdam steps, dp = 1: its losses against phase 6's hand-written
+      loop on the same batches (``P18_LOSS_TOL``; planted fault: the loss
+      through ``torch.func.functional_call``, which remat's recompute
+      does not see), K1-K4 launches a step equal to phase 6's, no host
+      synchronization a step (``torch.cuda.set_sync_debug_mode``; the
+      hand-written step's count logged; planted fault: the metric fold on
+      the host), the step time, tokens/s and MFU from the ported
+      ``StepMeter``;
+    - 18b-d in two worker processes over gloo (:func:`p18_workers`) at
+      GptConfig()'s width with 2 layers: both update modes against dp = 1
+      (16c's limit; planted fault: the DDP sync skipped), the call
+      log within the declared plan (planted fault: a bogus plan entry),
+      the demo's tp arm; the guarded build under a NaN step against dp =
+      1 under the same fault (planted fault: a scaler whose overflow flag
+      never fires); ``fit`` preempted and resumed bit for bit (planted
+      fault: each rank resuming from the other's shards)."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models.gpt import gpt_lm_loss
+    from apex_tpu_torch.observability import StepMeter, peak_flops_for
+    from apex_tpu_torch.ops import _dispatch
+
+    out = {}
+    log(f"phase 18: the trainer (18a: GptConfig(remat=True), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps, dp = 1)")
+    torch.cuda.empty_cache()
+    args = _gpt_args([])
+    if phase6_losses is None:  # alone (--trainer): phase 6's loop here
+        run = train_gpt.train(args)
+        phase6_losses = run.losses
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg, model, opt, _, _ = train_gpt.build(args)
+    batches = _gpt_batches(args, cfg, TRAIN_STEPS)
+    hand_syncs = _syncs(lambda: train_gpt.train_step(model, opt,
+                                                     batches[0]))
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, trainer, loss_fn, params = _gpt_trainer(cfg, 1)
+    step = trainer.build(loss_fn, params, batches[0])
+    if step.report.findings:
+        raise AssertionError("18a: " + step.report.render())
+    del params
+    n_params = step.n_params()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    meter = StepMeter(tokens_per_step=tokens, flops_per_step=6.0 * n_params
+                      * tokens, peak_flops=peak_flops_for(
+                          torch.cuda.get_device_name(0)))
+    st, losses, seconds = step.state, [], []
+    _dispatch.reset_launches()
+    torch.cuda.synchronize()
+    meter.tick()
+    for b in batches:
+        t0 = time.perf_counter()
+        st, aux = step(st, b)
+        losses.append(float(aux["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        meter.tick()
+    launches = _dispatch.launches()
+    trainer_syncs = _syncs(lambda: step(st, batches[0]))
+    # the planted fault of the sync check: the metric fold on the host
+    from apex_tpu_torch.observability import MetricRegistry
+
+    good = step.registry, step.metrics_state
+    step.registry = MetricRegistry(device="cpu")
+    step.registry.gauge("train/loss")
+    step.metrics_state = step.registry.init()
+    host_fold_syncs = _syncs(lambda: step(st, batches[0]))
+    step.registry, step.metrics_state = good
+    per_step = _gpt_step_launches(cfg.num_layers)
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    ref = phase6_losses[:TRAIN_STEPS] if phase6_losses else None
+    loss_err = _rel(losses, ref) if ref else None
+    log(f"  18a: losses {losses}; phase 6's {ref} (max rel diff "
+        f"{loss_err}); launches {launches} (want {want}); host syncs a "
+        f"step {trainer_syncs} (hand-written step {hand_syncs}; planted "
+        f"fault, the metric fold on the host: {host_fold_syncs}); step "
+        f"{meter.step_time * 1e3:.1f} ms, {meter.tokens_per_sec:.0f} "
+        f"tokens/s, MFU {meter.mfu:.4f} (StepMeter, N={n_params}); peak "
+        f"{step.report.sections['memory']['peak_bytes'] / 1e9:.2f} GB in "
+        "the verify step")
+    if launches != want:
+        raise AssertionError(f"18a launches {launches} != {want}")
+    if trainer_syncs > 0 or host_fold_syncs <= 0:
+        raise AssertionError(f"18a: {trainer_syncs} host syncs a step (the "
+                             f"hand-written step {hand_syncs}, the host-fold "
+                             f"fault {host_fold_syncs})")
+    if ref and loss_err > P18_LOSS_TOL:
+        raise AssertionError(f"18a losses {losses} != phase 6's {ref}")
+    out["18a"] = dict(losses=losses, loss_rel_err=loss_err,
+                      launches=launches, syncs=trainer_syncs,
+                      hand_syncs=hand_syncs, step_ms=meter.step_time * 1e3,
+                      tokens_per_s=meter.tokens_per_sec, mfu=meter.mfu,
+                      params=n_params,
+                      memory=step.report.sections["memory"])
+    del model, trainer, loss_fn, step, st, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the planted fault of the loss check: the loss through
+    # torch.func.functional_call, whose substitution the remat recompute
+    # in the backward does not see (it reads the module's own weights)
+    fault_losses = _p18a_functional_call(cfg, batches[:P18_FAULT_STEPS])
+    fault_err = _rel(fault_losses, ref[:P18_FAULT_STEPS])
+    log(f"  18a planted fault (functional_call under remat): losses "
+        f"{fault_losses}, max rel {fault_err:.3e} (must exceed "
+        f"{P18_LOSS_TOL})")
+    if fault_err <= P18_LOSS_TOL:
+        raise AssertionError("18a: the loss check cannot tell the planted "
+                             "functional_call fault")
+    out["18a"].update(host_fold_fault_syncs=host_fold_syncs,
+                      functional_call_fault_rel_err=fault_err)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dp = 1 references of 18b and 18c (this process)
+    args2, cfg2 = _p18_cfg()
+    b2 = _gpt_batches(args2, cfg2, P18_STEPS)
+    dp1 = {}
+    for mode in ("auto", "replicate"):
+        model, trainer, loss_fn, params = _gpt_trainer(cfg2, 1, mode)
+        s2 = trainer.build(loss_fn, params, b2[0])
+        st, ls = s2.state, []
+        for b in b2:
+            st, aux = s2(st, b)
+            ls.append(float(aux["loss"]))
+        dp1[mode] = ls
+        del model, trainer, s2, st
+        from apex_tpu_torch import parallel_state as ps
+
+        ps.destroy_model_parallel()
+    guarded1 = _p18c(0, 1)
+    from apex_tpu_torch import parallel_state as ps
+
+    ps.destroy_model_parallel()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = _p16_spawn(DAP, "gloo", [
+        (ph, "p18_workers", dict(phase=ph))
+        for ph in ("18b", "18c", "18c_blind", "18d")])
+    b, c, cb, d = ([r[ph] for r in runs]
+                   for ph in ("18b", "18c", "18c_blind", "18d"))
+    checks = []
+
+    def check(ok, what):
+        checks.append((bool(ok), what))
+
+    for mode in ("auto", "replicate"):
+        err = max(_rel(r[mode]["losses"], dp1[mode]) for r in b)
+        log(f"  18b {mode}: mode {b[0][mode]['mode']}, losses "
+            f"{b[0][mode]['losses']} vs dp = 1 {dp1[mode]} (max rel "
+            f"{err:.3e}, limit {P16_ZERO_LOSS_TOL}); plan "
+            f"{b[0][mode]['plan']}; findings {b[0][mode]['findings']}")
+        check(err <= P16_ZERO_LOSS_TOL, f"18b {mode} losses")
+        check(all(not r[mode]["findings"] for r in b), f"18b {mode} plan")
+        check(b[0][mode]["mode"] == {"auto": "zero",
+                                     "replicate": "ddp"}[mode],
+              f"18b {mode} decision")
+        out[f"18b_{mode}"] = dict(losses=b[0][mode]["losses"],
+                                  loss_rel_err=err, plan=b[0][mode]["plan"])
+    ferr = max(_rel(r["replicate:no_sync"]["losses"], dp1["replicate"])
+               for r in b)
+    log(f"  18b planted fault (the DDP sync skipped): losses max rel "
+        f"{ferr:.3e} against dp = 1 (must exceed {P16_ZERO_LOSS_TOL})")
+    check(ferr > P16_ZERO_LOSS_TOL, "18b the sync-skipped fault caught")
+    out["18b_sync_fault_rel_err"] = ferr
+    log(f"  18b planted bogus plan: {b[0]['bogus']!r:.200}")
+    check(all(r["bogus"] and "reshard-plan" in r["bogus"] for r in b),
+          "18b bogus plan refused")
+    log(f"  18b build_demo(1, 2): step log {b[0]['demo_tp']['log']}")
+    check(all(r["demo_tp"]["log"] == [["all-reduce", "tp"]]
+              and not r["demo_tp"]["findings"] for r in b),
+          "18b demo tp arm: one all-reduce over tp")
+    skip = [row["skipped"] for row in c[0]["rows"]]
+    scales = [row["scale"] for row in c[0]["rows"]]
+    log(f"  18c guarded under {P18_CHAOS}: skipped {skip}, scales "
+        f"{scales}; dp = 1 skipped "
+        f"{[row['skipped'] for row in guarded1['rows']]}")
+    check(skip == [1.0 if i == 3 else 0.0 for i in range(P18_GUARDED_STEPS)]
+          and all([row["skipped"] for row in r["rows"]] == skip for r in c),
+          "18c step 3 skipped on both ranks")
+    check(all(r["rows"][3]["digest"] == r["rows"][2]["digest"] for r in c),
+          "18c params unchanged by the skipped step")
+    check(scales[3] == scales[2] / 2, "18c the scale halves")
+    gerr = max(_rel([row["loss"] for row in r["rows"]],
+                    [row["loss"] for row in guarded1["rows"]]) for r in c)
+    check(gerr <= P16_ZERO_LOSS_TOL, "18c losses against dp = 1")
+    check(not c[0]["findings"], "18c plan")
+    bskip = [row["skipped"] for row in cb[0]["rows"]]
+    log(f"  18c planted fault (an overflow flag that never fires): skipped "
+        f"{bskip}, step 3 params unchanged "
+        f"{cb[0]['rows'][3]['digest'] == cb[0]['rows'][2]['digest']}")
+    check(bskip != skip and all(r["rows"][3]["digest"] != r["rows"][2][
+        "digest"] for r in cb), "18c the blind-scaler fault caught")
+    out["18c"] = dict(skipped=skip, scales=scales, loss_rel_err=gerr)
+    for r in d:
+        log(f"  18d: first run {r['first']}; whole run {r['plain']['last']} "
+            f"in {r['plain']['seconds']:.1f} s, resumed from "
+            f"{r['preempted']['resumed']} ({r['preempted']['steps_run']} "
+            f"steps); params/master equal: "
+            f"{r['plain']['params'] == r['preempted']['params']}/"
+            f"{r['plain']['master'] == r['preempted']['master']}")
+        check(r["first"][:2] == [P18_FIT_PREEMPT, True], "18d preempted")
+        check(r["plain"]["params"] == r["preempted"]["params"]
+              and r["plain"]["master"] == r["preempted"]["master"],
+              "18d resume bit for bit")
+        log(f"  18d planted fault (each rank reads the other's shards): "
+            f"resumed from {r['swapped']['resumed']}, params/master equal "
+            f"the whole run: {r['plain']['params'] == r['swapped']['params']}"
+            f"/{r['plain']['master'] == r['swapped']['master']}")
+        check(r["swapped"]["resumed"] == P18_FIT_PREEMPT
+              and r["plain"]["params"] != r["swapped"]["params"],
+              "18d the swapped-shard fault caught")
+    out["18d"] = dict(first=d[0]["first"], plain=d[0]["plain"],
+                      preempted=d[0]["preempted"])
+    bad = [what for ok, what in checks if not ok]
+    if bad:
+        raise AssertionError(f"phase 18 failed: {bad}")
+    return launches, out
+
+
 def main():
     import argparse
 
@@ -6492,6 +7411,12 @@ def main():
     parser.add_argument("--parallel", action="store_true",
                         help="run phase 16 alone (data and tensor "
                         "parallelism: worker processes on the card)")
+    parser.add_argument("--dap", action="store_true",
+                        help="run phase 17 alone (the evoformer under DAP: "
+                        "two worker processes on the card)")
+    parser.add_argument("--trainer", action="store_true",
+                        help="run phase 18 alone (the trainer: GPT at dp "
+                        "1, then dp 2 in worker processes)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -6570,6 +7495,15 @@ def main():
     if args.parallel:
         print(json.dumps({"parallel": phase16()}), flush=True)
         return
+    if args.dap:
+        launches, run = phase17()
+        print(json.dumps({"dap": dict(run, launches=launches)}), flush=True)
+        return
+    if args.trainer:
+        launches, run = phase18()
+        print(json.dumps({"trainer": dict(run, launches=launches)}),
+              flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -6606,6 +7540,8 @@ def main():
     evo_f32_launches, evoformer_f32 = phase10_f32()
     evo_cross = phase11()
     parallel = phase16(training["losses"])
+    dap_launches, dap = phase17()
+    trainer_launches, trainer = phase18(training["losses"])
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -6617,7 +7553,9 @@ def main():
             ("evoformer", evo_launches),
             ("evoformer_f32", evo_f32_launches),
             ("parallel_world1", parallel["launches_world1"]),
-            ("parallel_tp2_rank0", parallel["launches_tp2"]))
+            ("parallel_tp2_rank0", parallel["launches_tp2"]),
+            ("dap_rank0", dap_launches),
+            ("trainer", trainer_launches))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -6637,6 +7575,7 @@ def main():
                     "evoformer_f32_attention": evoformer_f32,
                     "evoformer_cross_check": evo_cross,
                     "parallel": parallel,
+                    "dap": dap, "trainer": trainer,
                     "decode_profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

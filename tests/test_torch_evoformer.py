@@ -14,7 +14,7 @@ through a few LayerNorms and products.
 
 Also: one EvoformerBlock step with FusedAdam against the JAX
 ``FusedAdam``, the converter round trip, the zero output at init, and
-the DAP parts that are not ported raising.
+the DAP axis of size 1 (no process group) running the unsharded math.
 """
 
 import jax
@@ -264,11 +264,19 @@ def test_init_matches_jax_rules(name):
 
 
 def test_dap_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        pof.row_to_col(torch.zeros(2, 2, 2), "dap")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        pof.TriangleAttention(DZ, H, axis_name="dap", **PORT)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        pof.EvoformerBlock(D, DZ, H, axis_name="dap", **PORT)
+    """DAP is ported (tests/test_torch_dap.py holds it to the JAX
+    shard_map run); without a process group every DAP axis has size 1,
+    so the collectives are the identity and a module with an axis_name
+    runs the unsharded math."""
+    x = torch.randn(4, 4, 2)
+    assert pof.row_to_col(x, "dp") is x
+    assert pof.gather(x, "dp", 0) is x
+    assert torch.equal(pof.scatter(x, "dp", 0), x)
+    m, z = (torch.from_numpy(a) for a in _arrays(5, (S, N, D), (N, N, DZ)))
+    plain = pof.EvoformerBlock(D, DZ, H, **PORT)
+    dap = pof.EvoformerBlock(D, DZ, H, axis_name="dp", **PORT)
+    dap.load_state_dict(plain.state_dict())
+    for a, b in zip(dap(m, z), plain(m, z)):
+        assert torch.equal(a, b)
     assert pof.mha is flash_attention
     assert pof.layer_norm is fused_layer_norm_affine

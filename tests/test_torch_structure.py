@@ -4,7 +4,9 @@
   ``orbax`` (AST scan of every module);
 - entry points (the GPT and BERT models, the engine with and without a
   draft, the converters of weights and optimizer states, the example
-  trainers and the BERT example's resume, the OpenFold modules,
+  trainers and the BERT example's resume, the OpenFold modules, the
+  trainer (its demo, ``Trainer.build`` and ``build_guarded``), the loss
+  scaler's state, ``params_from_numpy``,
   ``rope_tables``, ``DevicePrefetcher``, ``ResumableStream``'s
   prefetch and the serving chaos drill) run on the card by default
   and raise without one, unless the caller passes ``device="cpu"``;
@@ -28,6 +30,7 @@ import ctypes
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,6 +126,12 @@ COUNTERPARTS = (
     "transformer/tensor_parallel/layers.py",
     "transformer/tensor_parallel/data.py",
     "transformer/tensor_parallel/utils.py",
+    "contrib/openfold/__init__.py", "analysis/__init__.py",
+    "analysis/sharding.py", "train/__init__.py", "train/config.py",
+    "train/sharding.py", "train/trainer.py", "train/demo.py",
+    "train/guarded.py", "amp/__init__.py", "amp/policy.py",
+    "amp/scaler.py", "resilience/guards.py", "transformer/amp/__init__.py",
+    "transformer/amp/grad_scaler.py",
 )
 
 
@@ -142,8 +151,9 @@ def test_port_tools_keep_their_counterparts_names(tool):
     assert (ROOT / "apex_tpu_torch" / "tools" / tool).is_file(), tool
 
 
-#: the data- and tensor-parallel modules (ROADMAP item 5) and the public
-#: names each must carry over from its counterpart
+#: the data- and tensor-parallel modules (ROADMAP item 5), the DAP, the
+#: trainer, amp and the guards (item 6) and the public names each must
+#: carry over from its counterpart
 PARALLEL_NAMES = {
     "parallel_state": (
         "initialize_model_parallel", "destroy_model_parallel",
@@ -208,7 +218,37 @@ PARALLEL_NAMES = {
         "model_parallel_cuda_manual_seed", "model_parallel_tpu_manual_seed",
         "to_per_rank_key", "VocabUtility", "divide",
         "split_tensor_along_last_dim"),
-    "resilience": ("robust_initialize_distributed",),
+    "resilience": ("robust_initialize_distributed", "GradGuard",
+                   "GuardState", "GuardVerdict", "guard_metrics",
+                   "guarded_amp_update"),
+    "resilience.guards": ("GradGuard", "GuardState", "GuardVerdict",
+                          "guard_metrics", "guarded_amp_update"),
+    "contrib.openfold": ("scatter", "gather", "row_to_col", "col_to_row",
+                         "scatter_rows_gather_cols",
+                         "scatter_cols_gather_rows", "DAPAxialBlock",
+                         "EvoformerBlock", "EvoformerPairBlock"),
+    "train": ("TrainConfig", "Trainer", "TrainStep", "TrainBuildError",
+              "UpdateShardingDecision", "decide_update_sharding",
+              "UPDATE_SHARDING_MODES", "VERIFY_LEVELS", "GuardedStep",
+              "build_guarded", "build_demo", "demo"),
+    "train.sharding": ("ZERO_TWINS", "UpdateShardingDecision",
+                       "decide_update_sharding", "resolve_param_specs",
+                       "resolve_batch_specs", "mirror_optimizer_specs",
+                       "exact_entry_rules", "local_shape", "slice_local",
+                       "plan_wire_bytes"),
+    "train.demo": ("demo_rules", "demo_params", "demo_batch", "demo_loss",
+                   "demo_model_collectives", "demo_config", "build_demo"),
+    "amp": ("Policy", "Properties", "opt_levels", "LossScaleState",
+            "DynamicLossScaler", "StaticLossScaler", "amp_update"),
+    "transformer.amp": ("GradScaler",),
+    "analysis.sharding": ("tree_paths", "match_partition_rules",
+                          "spec_dim_factors"),
+    "optimizers": ("FACTORIES", "by_name"),
+    "observability.meter": ("StepMeter", "GoodputAccountant",
+                            "transformer_train_flops", "peak_flops_for",
+                            "peak_hbm_bandwidth_for",
+                            "peak_ici_bandwidth_for", "chip_peak_flops",
+                            "total_peak_flops", "percentile"),
     "contrib.optimizers": ("DistributedFusedAdam", "DistributedFusedLAMB",
                            "DistributedFusedLamb"),
 }
@@ -279,7 +319,9 @@ def no_gpu(monkeypatch):
                                    "adam_convert", "bert_resume",
                                    "resumable_stream", "chaos_drill",
                                    "init_distributed", "ddp_example",
-                                   "gpt_tp_example"])
+                                   "gpt_tp_example", "trainer_demo",
+                                   "trainer_config", "guarded",
+                                   "loss_scaler", "params_from_numpy"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -329,6 +371,35 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             from apex_tpu_torch.examples import distributed_data_parallel
 
             distributed_data_parallel.main(["--steps", "1"])
+        elif entry == "trainer_demo":
+            from apex_tpu_torch.train import build_demo
+
+            build_demo(1, 1)
+        elif entry == "trainer_config":
+            from apex_tpu_torch.analysis import P
+            from apex_tpu_torch.train import TrainConfig, Trainer
+
+            Trainer(TrainConfig(mesh={"dp": 1}, rules=[(".*", P())])).build(
+                lambda p, b: 0.0, {"w": torch.zeros(2)}, (torch.zeros(2),))
+        elif entry == "guarded":
+            from apex_tpu_torch.amp import DynamicLossScaler
+            from apex_tpu_torch.analysis import P
+            from apex_tpu_torch.optimizers import fused_adam
+            from apex_tpu_torch.resilience import GradGuard
+            from apex_tpu_torch.train import TrainConfig, Trainer
+
+            Trainer(TrainConfig(mesh={"dp": 1}, rules=[(".*", P())])
+                    ).build_guarded(lambda p, b: 0.0, {"w": torch.zeros(2)},
+                                    tx=fused_adam(), scaler=DynamicLossScaler(),
+                                    guard=GradGuard())
+        elif entry == "loss_scaler":
+            from apex_tpu_torch.amp import DynamicLossScaler
+
+            DynamicLossScaler().init()
+        elif entry == "params_from_numpy":
+            from apex_tpu_torch.train import params_from_numpy
+
+            params_from_numpy({"w": np.zeros(2, np.float32)})
         elif entry == "gpt_tp_example":
             train_gpt.main(["--tiny", "--steps", "1", "--tp", "2",
                             "--sequence-parallel"])

@@ -469,3 +469,403 @@ def ce_init_case(logits, target, g, cfg_kwargs, tp):
         return out
     finally:
         ps.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# dynamic axial parallelism (the OpenFold DAP)
+# ---------------------------------------------------------------------------
+
+
+def _dap_module(kind, dims):
+    import torch
+
+    from apex_tpu_torch.contrib import openfold as pof
+
+    kw = dict(dtype=torch.float32, device="cpu")
+    s, r, cm, cz, h = dims
+    if kind.startswith("tmu_"):
+        return pof.TriangleMultiplicativeUpdate(
+            cz, kind[4:], hidden=cz, axis_name="dp", device="cpu")
+    if kind == "pair_block":
+        return pof.EvoformerPairBlock(cz, h, "dp", **kw)
+    if kind == "evo_block":
+        return pof.EvoformerBlock(cm, cz, h, "dp", **kw)
+    return pof.DAPAxialBlock(cz, h, "dp", **kw)
+
+
+def _dap_run(name, kind, params_np, inputs, dims):
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.contrib import openfold as pof
+    from apex_tpu_torch.models import (
+        evoformer_from_jax_params,
+        evoformer_to_jax_params,
+    )
+    from apex_tpu_torch.parallel import comm
+
+    mod = evoformer_from_jax_params(params_np, _dap_module(kind, dims))
+    local = [pof.scatter(torch.from_numpy(x), "dp", 0) for x in inputs]
+    with comm.collective_log() as log:
+        outs = mod(*local)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum(o.square().sum() for o in outs).backward()
+    grads = {}
+    for pname, p in mod.named_parameters():
+        g = p.grad.clone()
+        comm.all_reduce(g, ps.get_group("dp"))
+        grads[pname] = g
+    return ([_np(o) for o in outs], evoformer_to_jax_params(mod, grads),
+            [dict(r) for r in log])
+
+
+def dap_case(modules, collectives, dims, fault_module=None):
+    """Each module on this rank's rows of its inputs (``scatter``), the
+    loss ``sum(out ** 2)`` summed over the outputs, the parameter
+    gradients all-reduced over the dp (DAP) group; each collective with
+    its cotangent ``y * 3 + rank``; then ``fault_module`` again with a
+    planted fault: ``gather``'s backward slicing this rank's rows instead
+    of reduce-scattering (under ``"<name>_fault"``)."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.contrib import openfold as pof
+
+    ps.initialize_model_parallel(1)
+    try:
+        rank = ps.axis_rank("dp")
+        out = {}
+        for name, kind, params_np, inputs in modules:
+            out[name] = _dap_run(name, kind, params_np, inputs, dims)
+        for name, fn, x, kw in collectives:
+            inp = torch.from_numpy(x) * (rank + 1)
+            inp.requires_grad_(True)
+            y = getattr(pof, fn)(inp, "dp", **kw)
+            (g,) = torch.autograd.grad(y, inp, y.detach() * 3 + rank)
+            out[name] = (_np(y), _np(g))
+        for name, kind, params_np, inputs in modules:
+            if name != fault_module:
+                continue
+            gather = pof._Gather.backward
+
+            def sliced(ctx, g):
+                n = g.shape[ctx.dim] // ps.axis_size(ctx.axis_name)
+                return g.narrow(ctx.dim, rank * n, n), None, None
+
+            pof._Gather.backward = staticmethod(sliced)
+            try:
+                out[name + "_fault"] = _dap_run(name, kind, params_np,
+                                                inputs, dims)
+            finally:
+                pof._Gather.backward = gather
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------------
+
+
+def _demo_step(dp, tp, params_np, batch_np, **kw):
+    from apex_tpu_torch.train import build_demo, params_from_numpy
+
+    return build_demo(dp, tp, device="cpu",
+                      params=params_from_numpy(params_np, device="cpu"),
+                      batch=tuple(torch.from_numpy(b) for b in batch_np),
+                      **kw)
+
+
+def _global_params(step):
+    """The step's params gathered to their global shapes (tp shards
+    concatenated along their sharded dim) as numpy."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.analysis.sharding import tree_paths
+    from apex_tpu_torch.parallel import comm
+
+    out = {}
+    specs = dict(tree_paths(step.state_specs["params"]))
+    for path, t in tree_paths(step.state["params"]):
+        spec = tuple(specs[path])
+        dims = [d for d, e in enumerate(spec) if e == "tp"]
+        if dims and ps.axis_size("tp") > 1:
+            d = dims[0]
+            full = torch.empty((ps.axis_size("tp") * t.shape[d],)
+                               + tuple(t.movedim(d, 0).shape[1:]))
+            comm.all_gather_into(full, t.movedim(d, 0).contiguous(),
+                                 ps.get_group("tp"))
+            t = full.movedim(0, d)
+        out[path] = _np(t)
+    return out
+
+
+def trainer_case(dp, tp, params_np, batch_np, steps, modes, bogus_plan):
+    """``build_demo(dp, tp)`` (verify="error") in each update mode
+    (``"<mode>[:<wire>]"``) on the reference's params and batch: the losses of ``steps`` steps, the
+    final global params, the build's report and one step's call log;
+    then the planted bogus plan's build error, ``track_grad_norm``'s
+    norm (or its refusal) and a build per ``optimizer_kwargs``
+    spelling in both modes."""
+    import dataclasses
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.train import TrainBuildError, Trainer
+    from apex_tpu_torch.train import demo
+
+    out = {}
+    batch = tuple(torch.from_numpy(b) for b in batch_np)
+    try:
+        for mode in modes:
+            upd, _, wire = mode.partition(":")
+            step = _demo_step(dp, tp, params_np, batch_np,
+                              update_sharding=upd, wire=wire or "f32",
+                              verify="error", hbm_budget=64 << 20)
+            st, losses = step.state, []
+            for i in range(steps):
+                if i == 0:
+                    with comm.collective_log() as log:
+                        st, aux = step(st, batch)
+                else:
+                    st, aux = step(st, batch)
+                losses.append(float(aux["loss"]))
+            step.state = st
+            step.registry.observe(1, aux["metrics"])
+            out[mode] = dict(
+                mode=step.mode, losses=losses, params=_global_params(step),
+                findings=[f.render() for f in step.report.findings],
+                plan=step.report.sections["plan"],
+                log=comm.collective_summary(log),
+                expect=step.expect_plan,
+                metrics=step.registry.fetch()["train/loss"])
+            ps.destroy_model_parallel()
+        try:
+            _demo_step(dp, tp, params_np, batch_np,
+                       model_collectives=bogus_plan)
+            out["bogus"] = None
+        except TrainBuildError as e:
+            out["bogus"] = str(e)
+        ps.destroy_model_parallel()
+        norms = {}
+        for mode in ("replicate", "shard") if dp > 1 else ("replicate",):
+            cfg = dataclasses.replace(
+                demo.demo_config(dp, tp, update_sharding=mode,
+                                 verify="off", device="cpu"),
+                track_grad_norm=True)
+            try:
+                step = Trainer(cfg).build(
+                    demo.demo_loss, _params_np_to_torch(params_np), batch)
+                st, aux = step(step.state, batch)
+                norms[mode] = (float(aux["grad_norm"]),
+                               float(aux["metrics"]["train/grad_norm"]))
+            except TrainBuildError as e:
+                norms[mode] = str(e)
+            ps.destroy_model_parallel()
+        out["norms"] = norms
+        flips = []
+        if dp > 1:
+            for kwargs in ({"beta1": 0.95, "beta2": 0.98},
+                           {"betas": (0.95, 0.98)}):
+                for mode in ("replicate", "shard"):
+                    cfg = dataclasses.replace(
+                        demo.demo_config(dp, tp, update_sharding=mode,
+                                         verify="off", device="cpu"),
+                        optimizer_kwargs=kwargs)
+                    step = Trainer(cfg).build(
+                        demo.demo_loss, _params_np_to_torch(params_np),
+                        batch)
+                    losses = []
+                    st = step.state
+                    for _ in range(2):
+                        st, aux = step(st, batch)
+                        losses.append(float(aux["loss"]))
+                    flips.append((sorted(kwargs), mode, step.mode, losses))
+                    ps.destroy_model_parallel()
+        out["flips"] = flips
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def _params_np_to_torch(params_np):
+    from apex_tpu_torch.train import params_from_numpy
+
+    return params_from_numpy(params_np, device="cpu")
+
+
+def fit_case(params_np, batch_np, directory, steps, preempt_at):
+    """``TrainStep.fit`` of the dp = 2 demo in ZeRO mode with the async
+    engine, saving every 2 steps: once uninterrupted, once preempted at
+    ``preempt_at`` (chaos SIGTERM) and resumed by a fresh build.  The
+    final params (global) and ZeRO master shard of each, the resumed
+    run's result, and the committed steps."""
+    import os
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.resilience import chaos
+
+    batch = tuple(torch.from_numpy(b) for b in batch_np)
+    out = {}
+    try:
+        for run in ("plain", "preempted"):
+            d = os.path.join(directory, run)
+            step = _demo_step(2, 1, params_np, batch_np, verify="off")
+            assert step.mode == "zero"
+            if run == "preempted":
+                chaos.configure(chaos.Fault(chaos.PREEMPTION,
+                                            steps=(preempt_at,)))
+                try:
+                    first = step.fit(lambda i: batch, steps, directory=d,
+                                     save_interval_steps=2)
+                finally:
+                    chaos.clear()
+                out["first"] = (first.last_step, first.preempted,
+                                ckpt.all_steps(d))
+                ps.destroy_model_parallel()
+                step = _demo_step(2, 1, params_np, batch_np, verify="off")
+            res = step.fit(lambda i: batch, steps, directory=d,
+                           save_interval_steps=2)
+            step.state = res.state
+            out[run] = dict(
+                params=_global_params(step),
+                master=_np(res.state["opt"].tree["master"]),
+                last=res.last_step, resumed=res.resumed_from,
+                steps_run=res.steps_run, goodput=step.goodput.snapshot(),
+                steps=ckpt.all_steps(d))
+            ps.destroy_model_parallel()
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def ckpt_fault_case(directory):
+    """A collective save where rank 1 fails before writing its files:
+    every rank raises and no step is committed; then a sound save of the
+    same step commits and restores each rank's own shard."""
+    import os
+
+    from apex_tpu_torch import checkpoint as ckpt
+
+    rank = torch.distributed.get_rank()
+    state = {"w": torch.arange(4.0), "opt": ckpt.per_rank(
+        {"m": torch.full((3,), float(rank)), "count": 2})}
+    path = os.path.join(directory, "7")
+
+    def hook(r):
+        if r == 1:
+            raise OSError("rank 1 died mid-save")
+
+    ckpt._rank_write_hook = hook
+    try:
+        ckpt.save_checkpoint(path, state)
+        raised = None
+    except Exception as e:  # noqa: BLE001 — the planted failure
+        raised = type(e).__name__
+    finally:
+        ckpt._rank_write_hook = None
+    after_fault = ckpt.all_steps(directory)
+    ckpt.save_checkpoint(path, state)
+    template = {"w": torch.zeros(4), "opt": ckpt.per_rank(
+        {"m": torch.zeros(3), "count": 0})}
+    back = ckpt.restore_checkpoint(path, template)
+    return dict(raised=raised, after_fault=after_fault,
+                after=ckpt.all_steps(directory), w=_np(back["w"]),
+                m=_np(back["opt"].tree["m"]),
+                count=back["opt"].tree["count"],
+                files=sorted(os.listdir(path)))
+
+
+# ---------------------------------------------------------------------------
+# amp: the guarded two-program step, the tp-synced grad scaler
+# ---------------------------------------------------------------------------
+
+
+def guarded_case(params_np, batches_np, accum, poison):
+    """``build_guarded`` at dp = world (f32 wire, replicated Adam, the
+    dynamic scaler at 2**10, ``GradGuard(warmup_steps=2)``) over
+    ``batches_np`` (each a tuple of global ``(accum, rows, ...)``
+    arrays); ``poison[i]`` ("nan" or a factor) spoils step i's scaled
+    gradients between the two programs.  Per step: the dp-mean loss,
+    the verdict, the scaler state; then the final params, the plan
+    report, and the refusals."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.analysis.sharding import P
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.resilience import GradGuard
+    from apex_tpu_torch.train import TrainBuildError, TrainConfig, Trainer
+
+    world = torch.distributed.get_world_size()
+    try:
+        trainer = Trainer(TrainConfig(
+            mesh={"dp": world}, rules=[(r".*", P())],
+            update_sharding="replicate", device="cpu"))
+        g = trainer.build_guarded(
+            lambda p, b: torch.mean((b[0] @ p["w"] - b[1]) ** 2),
+            {"w": torch.from_numpy(params_np)},
+            tx=fused_adam(1e-2),
+            scaler=amp.DynamicLossScaler(init_scale=2.0 ** 10),
+            guard=GradGuard(warmup_steps=2), accum=accum, verify="error",
+            example_batch=tuple(torch.from_numpy(b)
+                                for b in batches_np[0]))
+        state, rows = g.state, []
+        for i, b in enumerate(batches_np):
+            loss, scaled = g.compute_grads(
+                state["params"], state["scaler"],
+                tuple(torch.from_numpy(x) for x in b))
+            p = poison.get(i)
+            if p == "nan":
+                scaled = {k: torch.full_like(v, float("nan"))
+                          for k, v in scaled.items()}
+            elif p is not None:
+                scaled = {k: v * p for k, v in scaled.items()}
+            state, v = g.apply_update(scaled, state, loss)
+            rows.append(dict(
+                loss=float(loss), skipped=float(v.skipped),
+                found_inf=float(v.found_inf), spike=bool(v.spike),
+                grad_norm=float(v.grad_norm),
+                scale=float(state["scaler"].loss_scale),
+                tracker=int(state["scaler"].growth_tracker),
+                count=int(state["opt"].count)))
+        out = dict(rows=rows, w=_np(state["params"]["w"]),
+                   findings=[f.render() for f in g.report.findings],
+                   plan=g.report.sections["plan"])
+        ps.destroy_model_parallel()
+        refusals = []
+        for kw in (dict(mesh={"dp": 1, "tp": world}),
+                   dict(mesh={"dp": world}, update_sharding="shard")):
+            try:
+                Trainer(TrainConfig(rules=[(r".*", P())], device="cpu",
+                                    **kw)).build_guarded(
+                    lambda p, b: 0.0, {}, tx=None, scaler=None, guard=None)
+                refusals.append(None)
+            except TrainBuildError as e:
+                refusals.append(str(e))
+        out["refusals"] = refusals
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def grad_scaler_case(tp):
+    """``GradScaler.unscale`` on tp ranks where only the last rank's
+    gradients overflow: every rank reads found_inf = 1 (and the plain
+    scaler only the last)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.amp import GradScaler
+
+    ps.initialize_model_parallel(tp)
+    try:
+        rank = ps.get_tensor_model_parallel_rank()
+        grads = {"w": torch.ones(4) * (float("inf") if rank == tp - 1
+                                       else 1.0)}
+        scaler = GradScaler(init_scale=4.0)
+        state = scaler.init("cpu")
+        with comm.collective_log() as log:
+            _, synced = scaler.unscale(grads, state)
+        _, plain = amp.DynamicLossScaler(init_scale=4.0).unscale(
+            grads, state)
+        return dict(synced=float(synced), plain=float(plain),
+                    log=[dict(r) for r in log])
+    finally:
+        ps.destroy_model_parallel()

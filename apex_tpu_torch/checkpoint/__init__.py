@@ -576,7 +576,8 @@ def restore_training_state(restored: dict):
     """Unpack a :func:`snapshot_training_state` tree after restore:
     re-seats the RNG tracker's streams and returns ``(params, opt_state,
     step, amp_state, extra)`` with None for absent pieces (``amp_state``
-    is always None until the amp scaler is ported)."""
+    is always None until ``amp/frontend.py`` is ported, ROADMAP item
+    10)."""
     from apex_tpu_torch.transformer.tensor_parallel.random import (
         get_tpu_rng_tracker,
     )

@@ -86,19 +86,6 @@ def _scatter_sum(x: torch.Tensor, group, world: int, dim: int):
     return out.movedim(0, dim)
 
 
-def _all_to_all(x: torch.Tensor, group, world: int, split: int, concat: int):
-    """The tiled all-to-all: block j of ``split`` goes to member j, and
-    the block from member j lands at position j of ``concat``."""
-    if x.shape[split] % world:
-        raise ValueError(
-            f"DAP all-to-all: dim {split} (size {x.shape[split]}) is not "
-            f"divisible by the axis size {world}")
-    send = torch.stack(x.chunk(world, dim=split)).contiguous()
-    recv = torch.empty_like(send)
-    comm.all_to_all_single(recv, send, group)
-    return torch.cat(recv.unbind(0), dim=concat)
-
-
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis_name, dim):
@@ -127,20 +114,6 @@ class _PsumScatter(torch.autograd.Function):
                 None, None)
 
 
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis_name, split, concat):
-        ctx.axis_name, ctx.split, ctx.concat = axis_name, split, concat
-        return _all_to_all(x, ps.get_group(axis_name),
-                           ps.axis_size(axis_name), split, concat)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (_all_to_all(g, ps.get_group(ctx.axis_name),
-                            ps.axis_size(ctx.axis_name), ctx.concat,
-                            ctx.split), None, None, None)
-
-
 def _sharded(axis_name: str) -> bool:
     return ps.axis_size(axis_name) > 1
 
@@ -167,7 +140,7 @@ def scatter_rows_gather_cols(x, axis_name: str, row_axis: int = -3,
     backward the inverse one)."""
     if not _sharded(axis_name):
         return x
-    return _AllToAll.apply(x, axis_name, col_axis % x.ndim, row_axis % x.ndim)
+    return comm.all_to_all(x, axis_name, col_axis, row_axis)
 
 
 def scatter_cols_gather_rows(x, axis_name: str, row_axis: int = -3,
@@ -175,7 +148,7 @@ def scatter_cols_gather_rows(x, axis_name: str, row_axis: int = -3,
     """Inverse DAP transition: columns sharded -> rows sharded."""
     if not _sharded(axis_name):
         return x
-    return _AllToAll.apply(x, axis_name, row_axis % x.ndim, col_axis % x.ndim)
+    return comm.all_to_all(x, axis_name, row_axis, col_axis)
 
 
 # the reference surface's names; "row-sharded" = the R axial dim is split

@@ -29,13 +29,15 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--rank", type=int, default=None)
 
 
-def start_distributed(args, tensor_model_parallel_size: int = 1):
+def start_distributed(args, tensor_model_parallel_size: int = 1,
+                      **sizes):
     """Join the process group (a no-op for one process without a
     rendezvous) and initialize ``parallel_state`` anew with the given tp
-    size; returns the mesh."""
+    size and the other sizes ``sizes`` (``pipeline_model_parallel_size``,
+    ``context_parallel_size``, ...); returns the mesh."""
     initialize_distributed(
         backend=args.backend, device=args.device,
         init_method=args.init_method, num_processes=args.world_size,
         process_id=args.rank)
     ps.destroy_model_parallel()
-    return ps.initialize_model_parallel(tensor_model_parallel_size)
+    return ps.initialize_model_parallel(tensor_model_parallel_size, **sizes)

@@ -1,20 +1,29 @@
-"""GPT causal-LM training, data- and tensor-parallel.
+"""GPT causal-LM training over the parallelism menu: data, tensor
+(+ sequence), context and expert parallelism.
 
-The port's counterpart of ``examples/gpt/train_gpt.py`` with no context
-parallelism and no experts: ``GptModel`` -> ``gpt_lm_loss`` ->
+The port's counterpart of ``examples/gpt/train_gpt.py``: ``GptModel`` ->
+``gpt_lm_loss`` (``gpt_lm_loss_cp`` under ``--context-parallel``) ->
 ``loss.backward()`` -> the sequence-parallel gradient sum (``--tp > 1
---sequence-parallel``) -> the dp sync (``DistributedDataParallel``, or
-the reduce-scatter of ``DistributedFusedAdam`` with ``--zero``) ->
-the optimizer step, over the packed-corpus loader.  ``--tp`` shards the
-model over tp ranks; dp is the world over tp, and each dp rank trains on
-its columns of the global ``--batch``.  On the card every LayerNorm and
-attention call runs through the hand-written kernels K1-K4 in both
-directions.
+--sequence-parallel``) -> the dp sync (``DistributedDataParallel``, the
+reduce-scatter of ``DistributedFusedAdam`` with ``--zero``, or
+``sync_moe_gradients`` with ``--num-experts``, which leaves the
+dp-sharded experts unreduced) -> the mean over cp -> the optimizer
+step, over the packed-corpus loader.  ``--tp`` shards the model over tp
+ranks and ``--cp`` (with ``--context-parallel ring|ring_zigzag|
+ulysses``) the sequence over cp ranks; dp is the world over tp * cp,
+each dp rank trains on its columns of the global ``--batch`` and each cp
+rank on its rows of them (contiguous, or the zigzag pair).  Experts
+shard over dp.  On the card every LayerNorm and attention call runs
+through the hand-written kernels K1-K4 in both directions.
 
     python -m apex_tpu_torch.examples.train_gpt --steps 8 --batch 8 --seq-len 2048
     # tp = 2 with sequence parallelism on two cards:
     torchrun --nproc-per-node 2 -m apex_tpu_torch.examples.train_gpt \
         --tp 2 --sequence-parallel --steps 8 --batch 8 --seq-len 2048
+    # ring attention over cp = 2 ranks, 8 experts:
+    torchrun --nproc-per-node 2 -m apex_tpu_torch.examples.train_gpt \
+        --context-parallel ring --cp 2 --seq-len 4096
+    python -m apex_tpu_torch.examples.train_gpt --num-experts 8
     # tiny f32 run on the CPU (the plain PyTorch versions):
     python -m apex_tpu_torch.examples.train_gpt --tiny --device cpu --steps 3
 
@@ -43,7 +52,12 @@ from apex_tpu_torch.examples._launch import (
     add_distributed_args,
     start_distributed,
 )
-from apex_tpu_torch.models.gpt import GptConfig, GptModel, gpt_lm_loss
+from apex_tpu_torch.models.gpt import (
+    GptConfig,
+    GptModel,
+    gpt_lm_loss,
+    gpt_lm_loss_cp,
+)
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.optimizers import FusedAdam
 from apex_tpu_torch.parallel import (
@@ -51,6 +65,8 @@ from apex_tpu_torch.parallel import (
     DistributedFusedAdam,
     comm,
 )
+from apex_tpu_torch.transformer.context_parallel import zigzag_shard
+from apex_tpu_torch.transformer.moe import sync_moe_gradients
 from apex_tpu_torch.transformer.tensor_parallel import (
     allreduce_sequence_parallel_gradients,
 )
@@ -68,6 +84,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--sequence-parallel", action="store_true")
     p.add_argument("--context-parallel",
                    choices=["ring", "ring_zigzag", "ulysses"], default=None)
+    p.add_argument("--cp", type=int, default=2, help="cp degree when used")
     p.add_argument("--num-experts", type=int, default=0)
     p.add_argument("--zero", action="store_true",
                    help="shard the Adam update over dp (DistributedFusedAdam)")
@@ -82,20 +99,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _check_single_gpu(args) -> None:
-    """Refuse what is not ported yet: context parallelism and experts."""
-    unported = [
-        name for name, on in (
-            (f"--context-parallel {args.context_parallel}",
-             args.context_parallel is not None),
-            (f"--num-experts {args.num_experts}", args.num_experts != 0),
-        ) if on
-    ]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: context parallelism and experts are "
-            "not ported yet (ROADMAP item 7)"
-        )
+def context_parallel_size(args) -> int:
+    return args.cp if args.context_parallel else 1
+
+
+def check_args(args, dp: int) -> None:
+    """The reference's refusals: the batch over dp, the sequence over cp
+    (over 2·cp under zigzag); and ``--zero``, which shards the update
+    over dp, beside the experts or cp."""
+    cp = context_parallel_size(args)
+    if args.batch % dp:
+        raise ValueError(f"--batch ({args.batch}) must be divisible by "
+                         f"dp={dp}")
+    if args.seq_len % cp:
+        raise ValueError(f"--seq-len ({args.seq_len}) must be divisible "
+                         f"by cp={cp}")
+    if args.context_parallel == "ring_zigzag" and args.seq_len % (2 * cp):
+        # two chunks a rank: a cp-divisible length would drop tokens
+        raise ValueError(f"--seq-len ({args.seq_len}) must be divisible "
+                         f"by 2*cp={2 * cp} for ring_zigzag")
+    if args.zero and (args.num_experts or cp > 1):
+        raise ValueError("--zero shards the update over dp: it takes "
+                         "neither --num-experts nor --context-parallel")
 
 
 def corpus(args, vocab: int) -> str:
@@ -118,7 +143,30 @@ def config(args) -> GptConfig:
     if args.num_layers is not None:
         dims["num_layers"] = args.num_layers
     return GptConfig(**dims, max_seq_len=args.seq_len,
-                     sequence_parallel=args.sequence_parallel)
+                     sequence_parallel=args.sequence_parallel,
+                     context_parallel=args.context_parallel,
+                     num_experts=args.num_experts)
+
+
+def loss_fn(model: GptModel, ids):
+    """The step's loss: ``gpt_lm_loss_cp`` over cp ranks, else
+    ``gpt_lm_loss``."""
+    if model.cfg.context_parallel and ps.axis_size(ps.CONTEXT_PARALLEL_AXIS) > 1:
+        return gpt_lm_loss_cp(model, ids)
+    return gpt_lm_loss(model, ids)
+
+
+def local_rows(ids: torch.Tensor, cfg: GptConfig) -> torch.Tensor:
+    """This cp rank's rows of a (S, B) batch: contiguous, or the zigzag
+    pair of chunks."""
+    cp = ps.axis_size(ps.CONTEXT_PARALLEL_AXIS)
+    if not cfg.context_parallel or cp == 1:
+        return ids
+    rank = ps.axis_rank(ps.CONTEXT_PARALLEL_AXIS)
+    if cfg.context_parallel == "ring_zigzag":
+        return zigzag_shard(ids, rank, cp, axis=0)
+    s = ids.shape[0] // cp
+    return ids[rank * s:(rank + 1) * s]
 
 
 @dataclasses.dataclass
@@ -139,18 +187,16 @@ class TrainRun:
 
 def build(args):
     """``(cfg, model, optimizer, batches, ddp)``: the process group and
-    the tp/dp groups (:func:`start_distributed`), the model (seed 0, this
-    rank's tp shard) on ``args.device``, FusedAdam (or
+    the tp/cp/dp groups (:func:`start_distributed`), the model (seed 0,
+    this rank's tp and expert shards) on ``args.device``, FusedAdam (or
     DistributedFusedAdam with ``--zero``), an endless iterator of this
-    dp rank's (S, B / dp) int64 token columns on that device, and the
-    DDP wrapper (None with ``--zero``)."""
-    _check_single_gpu(args)
+    rank's (S / cp, B / dp) int64 tokens on that device, and the DDP
+    wrapper (None with ``--zero`` or ``--num-experts``)."""
     dev = resolve_device(args.device)
-    start_distributed(args, args.tp)
+    start_distributed(args, args.tp,
+                      context_parallel_size=context_parallel_size(args))
     dp = ps.get_data_parallel_world_size()
-    if args.batch % dp:
-        raise ValueError(f"--batch ({args.batch}) must be divisible by "
-                         f"dp={dp}")
+    check_args(args, dp)
     cfg = config(args)
     model = GptModel(cfg, device=dev)  # weights seeded with 0
     ddp = None
@@ -159,29 +205,43 @@ def build(args):
                                    wire=args.wire)
     else:
         opt = FusedAdam(model.parameters(), lr=args.lr)
-        ddp = DistributedDataParallel(model, lambda m, ids: gpt_lm_loss(m, ids),
-                                      wire=args.wire)
+        if not cfg.num_experts:
+            ddp = DistributedDataParallel(model, loss_fn, wire=args.wire)
     ds = TokenFileDataset(corpus(args, cfg.vocab_size), seq_len=args.seq_len)
     loader = DataLoader(ds, batch_size=args.batch, seed=7)
     per = args.batch // dp
     lo = ps.get_data_parallel_rank() * per
-    batches = (torch.as_tensor(b[lo:lo + per].T.astype(np.int64), device=dev)
+    batches = (local_rows(torch.as_tensor(b[lo:lo + per].T.astype(np.int64),
+                                          device=dev), cfg)
                for b in loader)
     return cfg, model, opt, batches, ddp
 
 
 def train_step(model: GptModel, opt, ids: torch.Tensor,
                ddp: Optional[DistributedDataParallel] = None):
-    """One step on this rank's token ids (S, B / dp); returns the loss
-    (a device scalar: the dp mean under ``ddp`` or a ZeRO optimizer).
-    Without ``ddp`` and at world 1, the plain FusedAdam step."""
+    """One step on this rank's token ids (S / cp, B / dp); returns the
+    loss (a device scalar: the dp mean under ``ddp``, a ZeRO optimizer
+    or experts).  Without ``ddp`` and at world 1, the plain FusedAdam
+    step."""
+    cfg = model.cfg
+    sp_tp = cfg.sequence_parallel and ps.axis_size(ps.TENSOR_PARALLEL_AXIS) > 1
     if ddp is not None:
         loss, _ = ddp.value_and_grad(ids)
     else:
-        loss = gpt_lm_loss(model, ids)
+        loss = loss_fn(model, ids)
         loss.backward()
-    if model.cfg.sequence_parallel:
+    if cfg.num_experts:
+        sync_moe_gradients(
+            model, sequence_parallel_axis=(ps.TENSOR_PARALLEL_AXIS
+                                           if sp_tp else None))
+        loss = comm.mean_over(loss)
+    elif cfg.sequence_parallel:
         allreduce_sequence_parallel_gradients(model)
+    if ps.axis_size(ps.CONTEXT_PARALLEL_AXIS) > 1:
+        # cp is a data axis for the gradients
+        comm.sync_gradients([p.grad for p in model.parameters()
+                             if p.grad is not None],
+                            ps.CONTEXT_PARALLEL_AXIS)
     opt.step()
     opt.zero_grad(set_to_none=True)
     if ddp is None and isinstance(opt, DistributedFusedAdam):
@@ -201,7 +261,9 @@ def train(args) -> TrainRun:
     print(f"GPT {n_params / 1e6:.1f}M params/rank | device={model.device} "
           f"batch={args.batch} seq_len={args.seq_len} remat={cfg.remat} "
           f"dp={mesh.shape['dp']} tp={mesh.shape['tp']} "
-          f"sp={cfg.sequence_parallel} zero={args.zero} wire={args.wire}",
+          f"cp={mesh.shape['cp']}({cfg.context_parallel or '-'}) "
+          f"sp={cfg.sequence_parallel} experts={cfg.num_experts} "
+          f"zero={args.zero} wire={args.wire}",
           flush=True)
     losses, seconds = [], []
     for step in range(args.steps):

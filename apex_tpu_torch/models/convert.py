@@ -35,6 +35,21 @@ an ``nn.Linear``'s ``weight`` (out, in) and ``bias``, and the
 module-level LayerNorm leaves ``<name>_scale``/``<name>_bias`` are
 parameters of the same names.
 
+Experts: a GPT with ``num_experts`` holds, per layer, ``moe/router`` (H,
+E) and the stacked ``moe/expert_w1`` (E, H, F) / ``moe/expert_w2`` (E,
+F, H) in place of ``fc1``/``fc2``; they cross as they are (no
+transpose), the experts sliced to this dp rank's ``E / ep`` on the way
+in; on the way out a rank's tree holds its own expert shard.  A GPT
+under context parallelism holds the unsharded tree.
+
+Pipeline stages (:mod:`apex_tpu_torch.examples.train_gpt_pp`): a JAX
+stage tree ``{"core": BertEncoderCore.init(...), "embed": (V, H),
+"is_chunk0": ()}`` (each leaf stacked on a leading chunk axis under
+interleaving) turns into the port's ``{"core": {"layers/<i>/...":
+...}, "embed", "is_chunk0"}`` (:func:`pipeline_stage_from_jax`, the
+core's names those of ``module_params(BertEncoderCore)``) and back
+(:func:`pipeline_stage_to_jax`).
+
 Tensor parallelism: :func:`tp_shard_jax_params` cuts a full JAX tree
 into rank ``r``'s shard in the reference's layout (what each device of
 a ``tp``-axis ``shard_map`` holds: the column-parallel kernels and
@@ -69,6 +84,8 @@ __all__ = [
     "load_optimizer_state",
     "optimizer_state",
     "params_from_numpy",
+    "pipeline_stage_from_jax",
+    "pipeline_stage_to_jax",
     "params_to_numpy",
     "to_jax_params",
     "tp_shard_jax_params",
@@ -76,6 +93,19 @@ __all__ = [
 
 _LINEARS = ("qkv", "out", "fc1", "fc2")
 _NORMS = ("ln_attn", "ln_mlp")
+_MOE = ("router", "expert_w1", "expert_w2")
+
+
+def _linears(cfg: GptConfig):
+    return _LINEARS[:2] if cfg.num_experts else _LINEARS
+
+
+def _expert_rows(a, cfg: GptConfig):
+    """This dp (= ep) rank's experts of a stacked (E, ...) leaf."""
+    ep = ps.axis_size(ps.EXPERT_PARALLEL_AXIS)
+    n = cfg.num_experts // ep
+    r = ps.axis_rank(ps.EXPERT_PARALLEL_AXIS)
+    return a[r * n:(r + 1) * n]
 
 
 def _state_dict_from_jax(params_np: Mapping, cfg: GptConfig) -> dict:
@@ -91,9 +121,14 @@ def _state_dict_from_jax(params_np: Mapping, cfg: GptConfig) -> dict:
         sd["position_embeddings"] = t(tree["position_embeddings"])
     for i in range(cfg.num_layers):
         pre = f"layers.{i}."
-        for name in _LINEARS:
+        for name in _linears(cfg):
             sd[pre + name + ".weight"] = t(block[name]["weight"][i]).T.contiguous()
             sd[pre + name + ".bias"] = t(block[name]["bias"][i])
+        if cfg.num_experts:
+            moe = block["moe"]
+            sd[pre + "moe.router"] = t(moe["router"][i])
+            for name in _MOE[1:]:
+                sd[pre + "moe." + name] = t(_expert_rows(moe[name][i], cfg))
         for name in _NORMS:
             sd[pre + name + ".scale"] = t(block[name]["scale"][i])
             sd[pre + name + ".bias"] = t(block[name]["bias"][i])
@@ -174,8 +209,10 @@ def gpt_param_tree(model: GptModel,
     block = {
         name: {"weight": stacked(f"{name}.weight", transpose=True),
                "bias": stacked(f"{name}.bias")}
-        for name in _LINEARS
+        for name in _linears(cfg)
     }
+    if cfg.num_experts:
+        block["moe"] = {name: stacked(f"moe.{name}") for name in _MOE}
     for name in _NORMS:
         block[name] = {"scale": stacked(f"{name}.scale"),
                        "bias": stacked(f"{name}.bias")}
@@ -335,6 +372,86 @@ def bert_to_jax_params(model: BertForPreTraining,
             for i, row in enumerate(rows):
                 _put(encoder, (f"layer_{i}", "layer") + path, row)
     return {"params": tree}
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages (BertEncoderCore chunks, the tied embedding)
+# ---------------------------------------------------------------------------
+
+
+def _core_from_jax(core_np: Mapping, num_layers: int) -> dict:
+    layer = core_np["params"]["layers"]["layer"]
+    out = {}
+    for i in range(num_layers):
+        for name, path, tr in _BERT_LAYER_LEAVES:
+            a = torch.from_numpy(np.array(_get(layer, path)[i],
+                                          dtype=np.float32))
+            out[f"layers/{i}/" + name.replace(".", "/")] = (
+                a.T.contiguous() if tr else a)
+    return out
+
+
+def _core_to_jax(core: Mapping, num_layers: int) -> dict:
+    layer: dict = {}
+    for name, path, tr in _BERT_LAYER_LEAVES:
+        rows = []
+        for i in range(num_layers):
+            a = core[f"layers/{i}/" + name.replace(".", "/")]
+            a = a.detach().float().cpu().numpy()
+            rows.append(a.T if tr else a)
+        _put(layer, path, np.stack(rows))
+    return {"params": {"layers": {"layer": layer}}}
+
+
+def pipeline_stage_from_jax(tree_np: Mapping, num_layers: int, *,
+                            num_chunks: Optional[int] = None,
+                            device="cuda") -> dict:
+    """A JAX pipeline stage tree of numpy arrays (``core``, ``embed``,
+    ``is_chunk0``; with ``num_chunks`` every leaf stacked on a leading
+    chunk axis) as the port's stage params on ``device``: ``core`` keyed
+    as ``module_params(BertEncoderCore(cfg, num_layers))``, weights
+    ``(out, in)``."""
+    dev = resolve_device(device)
+
+    def one(t):
+        return {"core": _core_from_jax(t["core"], num_layers),
+                "embed": torch.from_numpy(np.array(t["embed"], np.float32)),
+                "is_chunk0": torch.tensor(float(np.asarray(t["is_chunk0"])))}
+
+    if num_chunks is None:
+        tree = one(tree_np)
+    else:
+        chunks = [one(_tree_map(lambda a, c=c: np.asarray(a)[c], tree_np))
+                  for c in range(num_chunks)]
+        tree = {"core": {k: torch.stack([c["core"][k] for c in chunks])
+                         for k in chunks[0]["core"]},
+                "embed": torch.stack([c["embed"] for c in chunks]),
+                "is_chunk0": torch.stack([c["is_chunk0"] for c in chunks])}
+    return _tree_map(lambda t: t.to(dev), tree)
+
+
+def pipeline_stage_to_jax(tree: Mapping, num_layers: int, *,
+                          num_chunks: Optional[int] = None) -> dict:
+    """The inverse of :func:`pipeline_stage_from_jax`: f32 numpy arrays
+    in the JAX stage layout (stacked on the chunk axis with
+    ``num_chunks``)."""
+    def one(t):
+        return {"core": _core_to_jax(t["core"], num_layers),
+                "embed": t["embed"].detach().float().cpu().numpy(),
+                "is_chunk0": t["is_chunk0"].detach().float().cpu().numpy()}
+
+    if num_chunks is None:
+        return one(tree)
+    chunks = [one(_tree_map(lambda a, c=c: a[c], tree))
+              for c in range(num_chunks)]
+    return _tree_map_many(lambda *xs: np.stack(xs), chunks)
+
+
+def _tree_map_many(fn, trees):
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _tree_map_many(fn, [t[k] for t in trees]) for k in first}
+    return fn(*trees)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,20 @@ states are gathered before the logits.  Build the model after
 ``parallel_state.initialize_model_parallel``; its weights are the tp = 1
 model's from the same generator, split.  At tp = 1 every layer is the
 dense layer, bit for bit.
+
+Context parallelism (``context_parallel="ring"``, ``"ring_zigzag"`` or
+``"ulysses"``, :mod:`apex_tpu_torch.transformer.context_parallel`): the
+token inputs are the cp rank's ``S / cp`` rows (contiguous, or the
+zigzag pair of chunks), RoPE and the position table read the global
+positions of those rows, each block's attention is the ring or the
+all-to-all, and :func:`gpt_lm_loss_cp` is the loss (the next-token
+targets cross the shard edges).  Gradients are mean-reduced over cp,
+as over a data axis.  Experts (``num_experts > 0``): each block's MLP is
+a :class:`~apex_tpu_torch.transformer.moe.SwitchMoe` (``moe`` in the
+block: ``router``, ``expert_w1``, ``expert_w2``, the experts this
+rank's dp shard), and the losses add ``moe_aux_coef`` times the mean
+over the layers of their aux losses (the reference's one stacked leaf
+of sown values).
 """
 
 from __future__ import annotations
@@ -59,6 +73,11 @@ from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm_affine
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
+from apex_tpu_torch.parallel import comm
+from apex_tpu_torch.transformer import context_parallel as cpl
+from apex_tpu_torch.transformer.moe import MoeConfig, SwitchMoe
+from apex_tpu_torch.transformer.pipeline_parallel import p2p_communication \
+    as p2p
 from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
     checkpoint_name,
     remat,
@@ -88,6 +107,7 @@ __all__ = [
     "apply_mlp",
     "embed_tokens",
     "gpt_lm_loss",
+    "gpt_lm_loss_cp",
     "rope_cos_sin",
     "tied_logits",
     "vocab_logits",
@@ -178,6 +198,26 @@ def _tp_world() -> int:
     return ps.axis_size(ps.TENSOR_PARALLEL_AXIS)
 
 
+_CP = ps.CONTEXT_PARALLEL_AXIS
+
+
+def _cp_world(cfg: GptConfig) -> int:
+    """The cp size when context parallelism is configured, else 1."""
+    return ps.axis_size(_CP) if cfg.context_parallel else 1
+
+
+def _cp_shard_rows(table, cfg: GptConfig, s_local: int):
+    """This cp rank's ``s_local`` rows of a GLOBAL per-position table
+    (RoPE cos/sin, learned positions): rows ``[rank·s_local, ...)``, or
+    under ``"ring_zigzag"`` global chunks ``rank`` and ``2cp−1−rank``
+    of the global sequence (the table is trimmed to it first)."""
+    rank = ps.axis_rank(_CP)
+    if cfg.context_parallel == "ring_zigzag":
+        cp = ps.axis_size(_CP)
+        return cpl.zigzag_shard(table[: cp * s_local], rank, cp, axis=0)
+    return table[rank * s_local:(rank + 1) * s_local]
+
+
 def _project(x, lin, dtype, name: Optional[str] = None):
     """A tensor-parallel layer's forward, or :func:`apply_linear` of the
     weights of a serving view (a namespace with ``weight`` and
@@ -225,6 +265,20 @@ def apply_mlp(x, blk: "GptBlock", cfg: GptConfig):
         return x + y
 
 
+def _attention(cfg: GptConfig, q, k, v):
+    """Causal attention of the block: flash attention (K3/K4), or under
+    context parallelism the ring (contiguous or zigzag) or Ulysses."""
+    scale = cfg.head_dim ** -0.5
+    if _cp_world(cfg) == 1:
+        return flash_attention(q, k, v, causal=True, scale=scale)
+    if cfg.context_parallel == "ulysses":
+        return cpl.ulysses_attention(q, k, v, causal=True, scale=scale)
+    return cpl.ring_attention(
+        q, k, v, causal=True, scale=scale,
+        layout="zigzag" if cfg.context_parallel == "ring_zigzag"
+        else "contiguous")
+
+
 def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
     """One decoder block over ``x`` (S, B, hidden), the JAX ``GptBlock``:
     x + attn(LN(x)), then x + mlp(LN(x)).  Returns the new hidden and
@@ -232,6 +286,12 @@ def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
     writes them into its cache).  Under sequence parallelism ``x`` is
     the rank's (S / tp, B, hidden) rows; the heads are the rank's
     ``num_heads / tp``."""
+    return _block(cfg, blk, x, cos, sin)[:3]
+
+
+def _block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
+    """:func:`apply_block` and the block's MoE aux loss (None for a
+    dense MLP): ``(x, k, v, aux)``."""
     head_dim = cfg.head_dim
     y = apply_layer_norm(x, blk.ln_attn, cfg.layer_norm_eps)
     qkv = _project(y, blk.qkv, cfg.dtype, "gpt_qkv")
@@ -243,12 +303,17 @@ def apply_block(cfg: GptConfig, blk: "GptBlock", x, cos, sin):
     if cfg.rotary:
         q = fused_apply_rotary_pos_emb_cached(q, cos, sin)
         k = fused_apply_rotary_pos_emb_cached(k, cos, sin)
-    ctx = flash_attention(q, k, v, causal=True, scale=head_dim ** -0.5)
+    ctx = _attention(cfg, q, k, v)
     ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, heads * head_dim)
     attn = _project(ctx, blk.out, cfg.dtype)
     with checkpoint_name("gpt_sum_attn"):
         x = x + attn
-    return apply_mlp(x, blk, cfg), k, v
+    moe = getattr(blk, "moe", None)  # a serving view has no experts
+    if moe is None:
+        return apply_mlp(x, blk, cfg), k, v, None
+    y, aux = moe(apply_layer_norm(x, blk.ln_mlp, cfg.layer_norm_eps))
+    with checkpoint_name("gpt_sum_mlp"):
+        return x + y, k, v, aux
 
 
 class _TiedLogits(torch.autograd.Function):
@@ -311,6 +376,18 @@ class GptBlock(nn.Module):
             h, h, input_is_parallel=True, sequence_parallel_enabled=sp,
             dtype=cfg.dtype, device=device)
         self.ln_mlp = LayerNorm(h, device, sequence_parallel=sp)
+        self.moe = None
+        if cfg.num_experts:
+            # routes this rank's (under SP: S / tp) tokens; the experts
+            # shard over dp and are replicated over tp
+            self.moe = SwitchMoe(MoeConfig(
+                hidden_size=h, ffn_hidden_size=cfg.intermediate_size,
+                num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
+                sequence_parallel=sp,
+                context_parallel=bool(cfg.context_parallel)),
+                device=device)
+            return
         self.fc1 = ColumnParallelLinear(
             h, cfg.intermediate_size, sequence_parallel_enabled=sp,
             dtype=cfg.dtype, device=device)
@@ -319,7 +396,13 @@ class GptBlock(nn.Module):
             sequence_parallel_enabled=sp, dtype=cfg.dtype, device=device)
 
     def forward(self, x, cos=None, sin=None):
-        return apply_block(self.cfg, self, x, cos, sin)[0]
+        return self.forward_with_aux(x, cos, sin)[0]
+
+    def forward_with_aux(self, x, cos=None, sin=None):
+        """``(hidden, aux)``: the block's output and its MoE aux loss
+        (None for a dense MLP)."""
+        out = _block(self.cfg, self, x, cos, sin)
+        return out[0], out[3]
 
 
 class GptModel(nn.Module):
@@ -336,11 +419,6 @@ class GptModel(nn.Module):
     def __init__(self, cfg: GptConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.context_parallel or cfg.num_experts:
-            raise NotImplementedError(
-                "context parallelism and experts are not ported yet "
-                "(ROADMAP item 7)"
-            )
         dev = resolve_device(device)
         self.cfg = cfg
         sp = cfg.sequence_parallel
@@ -382,10 +460,14 @@ class GptModel(nn.Module):
             self.position_embeddings.copy_(
                 normal(self.position_embeddings.shape, 0.02))
         for blk in self.layers:
-            for lin in (blk.qkv, blk.out, blk.fc1, blk.fc2):
+            lins = (blk.qkv, blk.out) if blk.moe is not None else (
+                blk.qkv, blk.out, blk.fc1, blk.fc2)
+            for lin in lins:
                 lin.load_full_(normal((lin.output_size, lin.input_size),
                                       lin.input_size ** -0.5))
                 lin.bias.zero_()
+            if blk.moe is not None:
+                blk.moe.reset_parameters(generator)
             for ln in (blk.ln_attn, blk.ln_mlp):
                 ln.scale.fill_(1.0)
                 ln.bias.zero_()
@@ -395,47 +477,133 @@ class GptModel(nn.Module):
     def forward(self, input_ids):
         """Hidden states (S, B, hidden) in ``cfg.dtype`` after the final
         LayerNorm, for token ids (S, B) (under sequence parallelism the
-        rows are gathered back to the full sequence)."""
+        rows are gathered back to the full sequence; under context
+        parallelism ``input_ids`` and the output are the cp rank's
+        rows)."""
+        return self.forward_with_aux(input_ids)[0]
+
+    def forward_with_aux(self, input_ids):
+        """``(hidden, auxes)``: :meth:`forward` and each layer's MoE aux
+        loss (an empty list for a dense model)."""
         cfg = self.cfg
         s = input_ids.shape[0]
         sp = cfg.sequence_parallel and _tp_world() > 1
+        cp = _cp_world(cfg)
         x = self.word_embeddings(input_ids)  # (S / tp, B, h) under SP
         cos = sin = None
         if cfg.rotary:
-            cos, sin = rope_cos_sin(s, cfg.head_dim, device=x.device)
+            # under cp, s is the rank's rows: RoPE at their global
+            # positions
+            cos, sin = rope_cos_sin(s * cp, cfg.head_dim, device=x.device)
+            if cp > 1:
+                cos, sin = (_cp_shard_rows(t, cfg, s) for t in (cos, sin))
         else:
-            if s > cfg.max_seq_len:
+            if cp * s > cfg.max_seq_len:
                 raise ValueError(
-                    f"sequence of {s} exceeds max_seq_len {cfg.max_seq_len}"
+                    f"sequence of {cp * s} exceeds max_seq_len "
+                    f"{cfg.max_seq_len}"
                 )
-            start = ps.axis_rank(ps.TENSOR_PARALLEL_AXIS) * x.shape[0] \
-                if sp else 0
-            rows = self.position_embeddings[start:start + x.shape[0]]
+            if cp > 1:
+                rows = _cp_shard_rows(self.position_embeddings, cfg, s)
+            else:
+                start = ps.axis_rank(ps.TENSOR_PARALLEL_AXIS) * x.shape[0] \
+                    if sp else 0
+                rows = self.position_embeddings[start:start + x.shape[0]]
             x = x + rows[:, None, :].to(cfg.dtype)
         policy = resolve_remat_policy(cfg.remat_policy)
+        auxes = []
         for blk in self.layers:
             if cfg.remat:
-                x = remat(blk, x, cos, sin, policy=policy)
+                x, aux = remat(blk.forward_with_aux, x, cos, sin,
+                               policy=policy)
             else:
-                x = blk(x, cos, sin)
+                x, aux = blk.forward_with_aux(x, cos, sin)
+            if aux is not None:
+                auxes.append(aux)
         x = apply_layer_norm(x, self.ln_f, cfg.layer_norm_eps)
         if sp:
             x = gather_from_sequence_parallel_region(x)
-        return x
+        return x, auxes
+
+
+def _apply_with_moe_aux(model: GptModel, input_ids):
+    """``(h, aux_total)``: the forward and ``moe_aux_coef`` times the
+    mean over the layers of their aux losses (0.0 for a dense model)."""
+    h, auxes = model.forward_with_aux(input_ids)
+    if not auxes:
+        return h, 0.0
+    return h, model.cfg.moe_aux_coef * torch.stack(auxes).mean()
 
 
 def gpt_lm_loss(model: GptModel, input_ids):
     """Next-token cross entropy through the tied embedding: f32 logits
     of every position, then the mean over positions 0..S-2 of the loss
-    of predicting token t+1 (``gpt_lm_loss`` of the JAX package, no
-    MoE).  ``input_ids`` is (S, B), the same on every tp rank.  At tp >
-    1 the logits are the rank's vocab slice: without sequence
-    parallelism the hidden states enter through ``copy_to`` (the logits'
-    partial cotangents summed in the backward); under it the final
-    gather's reduce-scatter sums them."""
-    h = model(input_ids)
+    of predicting token t+1, plus the MoE aux term
+    (:func:`_apply_with_moe_aux`).  ``input_ids`` is (S, B), the same on
+    every tp rank.  At tp > 1 the logits are the rank's vocab slice:
+    without sequence parallelism the hidden states enter through
+    ``copy_to`` (the logits' partial cotangents summed in the backward);
+    under it the final gather's reduce-scatter sums them."""
+    if _cp_world(model.cfg) > 1:
+        raise ValueError(
+            "the sequence is context-parallel sharded: use gpt_lm_loss_cp "
+            "(the next-token shift crosses cp shard boundaries)"
+        )
+    h, aux_total = _apply_with_moe_aux(model, input_ids)
     if not model.cfg.sequence_parallel and _tp_world() > 1:
         h = copy_to_tensor_model_parallel_region(h)
     logits = tied_logits(model, h, model.cfg.dtype)
     losses = vocab_parallel_cross_entropy(logits[:-1], input_ids[1:])
-    return losses.mean()
+    return losses.mean() + aux_total
+
+
+def gpt_lm_loss_cp(model: GptModel, input_ids_local, *,
+                   axis_name: str = _CP):
+    """Next-token cross entropy of a context-parallel sequence.
+
+    ``input_ids_local`` (S_local, B) is this cp rank's shard in the
+    model's layout: contiguous for ``"ring"``/``"ulysses"``, the zigzag
+    pair for ``"ring_zigzag"``.  The targets across the shard edges come
+    from the neighbours by the pipeline's shift (cyclic); the global last
+    position has no target and is masked (the last rank's last row, or
+    under zigzag rank 0's).  Returns the mean over the global tokens,
+    the same on every cp rank, plus the MoE aux term.  Mean-reduce the
+    gradients over cp (beside dp) before the step: the result is the
+    unsharded :func:`gpt_lm_loss`'s gradient."""
+    h, aux_total = _apply_with_moe_aux(model, input_ids_local)
+    # no SP under cp, so the copy_to boundary always applies at tp > 1
+    if _tp_world() > 1:
+        h = copy_to_tensor_model_parallel_region(h)
+    logits = tied_logits(model, h, model.cfg.dtype)
+    world, rank = ps.axis_size(axis_name), ps.axis_rank(axis_name)
+    ids = input_ids_local
+    valid = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+    if model.cfg.context_parallel == "ring_zigzag":
+        # rows = [chunk rank; chunk 2cp−1−rank].  Chunk r's last row
+        # predicts chunk r+1's first token: rank r+1's lo first, except
+        # chunk cp−1, whose successor (chunk cp) is this rank's own hi
+        # first.  Chunk 2cp−1−r's last row predicts chunk 2cp−r's first
+        # token, rank r−1's hi first; rank 0's hi chunk ends the sequence
+        sc = ids.shape[0] // 2
+        lo, hi = ids[:sc], ids[sc:]
+        lo_first_next = p2p.send_backward_recv_backward(
+            lo[:1].contiguous(), axis_name, cyclic=True)
+        lo_boundary = hi[:1] if rank == world - 1 else lo_first_next
+        hi_boundary = p2p.send_forward_recv_forward(
+            hi[:1].contiguous(), axis_name, cyclic=True)
+        targets = torch.cat([lo[1:], lo_boundary, hi[1:], hi_boundary])
+        if rank == 0:
+            valid[-1] = 0.0
+    else:
+        # the last row's target is the next rank's first token
+        first_next = p2p.send_backward_recv_backward(
+            ids[:1].contiguous(), axis_name, cyclic=True)
+        targets = torch.cat([ids[1:], first_next])
+        if rank == world - 1:
+            valid[-1] = 0.0
+    losses = vocab_parallel_cross_entropy(logits, targets)  # (S_local, B)
+    local_sum = (losses * valid).sum()
+    count = comm.all_reduce(valid.sum(), ps.get_group(axis_name))
+    # psum whose backward sums too: a rank's gradient is cp times its
+    # share, and the cp mean of the gradients is the whole sequence's
+    return comm.psum(local_sum, axis_name) / count + aux_total

@@ -23,14 +23,17 @@ reference's rule, ~4 MiB of wire per chunk (at most 16);
 (``compiled_collectives`` read the collectives out of compiled HLO).
 Every collective the port issues goes through one wrapper here
 (:func:`all_reduce`, :func:`all_gather_into`,
-:func:`reduce_scatter_into`, :func:`all_to_all_single`,
+:func:`reduce_scatter_into`, :func:`all_to_all_single`, :func:`shift`,
 :func:`broadcast`), which records the op, the axis of its group, the
 wire dtype and the bytes of its result — the reference's notation: the
 full buffer for all-gather and all-to-all, the local shard for
-reduce-scatter.  :func:`compiled_collectives` runs a callable and
+reduce-scatter, the bytes sent for the shift (``collective-permute``).  :func:`compiled_collectives` runs a callable and
 returns its calls in the reference's ``{kind: {"count", "bytes"}}``
 shape, which :func:`sync_plan` / :func:`zero_plan` can be held to, and
 :func:`publish_collective_summary` gauges it on the board.
+:func:`psum`, :func:`pmean` and :func:`all_to_all` are the
+differentiable collectives over an axis that the models share, on
+those wrappers.
 
 **The codec** (``quantize_blocks`` / ``dequantize_blocks``) is the
 reference's rules: the last dim cut into blocks of ``block`` elements,
@@ -75,8 +78,12 @@ __all__ = [
     "all_gather_into",
     "reduce_scatter_into",
     "all_to_all_single",
+    "shift",
     "broadcast",
     "mean_over",
+    "psum",
+    "pmean",
+    "all_to_all",
     "collective_log",
     "collective_summary",
     "compiled_collectives",
@@ -309,6 +316,38 @@ def all_to_all_single(out: torch.Tensor, tensor: torch.Tensor, group=None):
     return out
 
 
+def shift(tensor: torch.Tensor, delta: int, group=None,
+          cyclic: bool = False) -> torch.Tensor:
+    """``jax.lax.ppermute`` by ``delta`` places over ``group``: member i
+    sends ``tensor`` to member ``i + delta`` and this rank returns what
+    member ``i - delta`` sent; without ``cyclic`` a member with no such
+    sender receives zeros (and one with no receiver sends nothing).
+    Every member calls it.  The wire is one ``all_to_all_single`` with
+    uneven splits whose only non-empty blocks are the neighbours': gloo
+    refuses send/recv of CUDA tensors, and this carries the same bytes.
+    Logged as ``collective-permute`` with the bytes sent."""
+    if group is None:
+        keep = cyclic or delta == 0
+        return tensor.clone() if keep else torch.zeros_like(tensor)
+    d = _dist()
+    n, r = d.get_world_size(group), d.get_rank(group)
+    dst, src = r + delta, r - delta
+    if cyclic:
+        dst, src = dst % n, src % n
+    numel = tensor.numel()
+    sends, receives = 0 <= dst < n, 0 <= src < n
+    in_splits, out_splits = [0] * n, [0] * n
+    if sends:
+        in_splits[dst] = numel
+    if receives:
+        out_splits[src] = numel
+    send = tensor.reshape(-1).contiguous() if sends else tensor.new_empty(0)
+    out = tensor.new_empty(numel if receives else 0)
+    d.all_to_all_single(out, send, out_splits, in_splits, group=group)
+    _record("collective-permute", group, send)
+    return out.reshape(tensor.shape) if receives else torch.zeros_like(tensor)
+
+
 def broadcast(tensor: torch.Tensor, src: int, group=None):
     """In-place broadcast from global rank ``src``."""
     if group is None:
@@ -325,6 +364,77 @@ def mean_over(value: torch.Tensor,
     out = value.detach().float().clone()
     all_reduce(out, ps.get_group(axis_name))
     return out / ps.axis_size(axis_name)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives over a parallel_state axis: each backward is
+# the transpose JAX takes under shard_map without replication checks
+# ---------------------------------------------------------------------------
+
+
+def _psum(x: torch.Tensor, axis_name: str, mean: bool) -> torch.Tensor:
+    # on a copy: reducing a tensor that autograd saved would corrupt it
+    out = all_reduce(x.clone(memory_format=torch.contiguous_format),
+                     ps.get_group(axis_name))
+    return out / ps.axis_size(axis_name) if mean else out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mean):
+        ctx.axis_name, ctx.mean = axis_name, mean
+        return _psum(x, axis_name, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.axis_name, ctx.mean), None, None
+
+
+def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``jax.lax.psum`` over ``axis_name``'s group; the backward sums the
+    cotangents too, so a rank's gradient of a replicated value is the
+    group's size times its local share."""
+    return _Psum.apply(x, axis_name, False)
+
+
+def pmean(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``jax.lax.pmean`` over ``axis_name``'s group; the backward is the
+    mean of the cotangents."""
+    return _Psum.apply(x, axis_name, True)
+
+
+def _tiled_all_to_all(x: torch.Tensor, axis_name: str, split: int,
+                      concat: int) -> torch.Tensor:
+    world = ps.axis_size(axis_name)
+    if x.shape[split] % world:
+        raise ValueError(
+            f"all-to-all: dim {split} (size {x.shape[split]}) is not "
+            f"divisible by the axis size {world}")
+    send = torch.stack(x.chunk(world, dim=split)).contiguous()
+    out = all_to_all_single(torch.empty_like(send), send,
+                            ps.get_group(axis_name))
+    return torch.cat(out.unbind(0), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, split, concat):
+        ctx.axis_name, ctx.split, ctx.concat = axis_name, split, concat
+        return _tiled_all_to_all(x, axis_name, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_tiled_all_to_all(g, ctx.axis_name, ctx.concat, ctx.split),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split: int,
+               concat: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)`` over ``axis_name``: ``x``
+    cut into ``world`` blocks along ``split``, block j sent to member j,
+    the received blocks concatenated along ``concat`` in member order.
+    The backward is the same exchange with the two dims swapped."""
+    return _AllToAll.apply(x, axis_name, split % x.ndim, concat % x.ndim)
 
 
 def collective_summary(records) -> dict:

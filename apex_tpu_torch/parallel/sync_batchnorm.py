@@ -30,19 +30,6 @@ from apex_tpu_torch.parallel import comm
 __all__ = ["SyncBatchNorm", "convert_syncbn_model"]
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group; the backward sums the cotangents over it."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return comm.all_reduce(x.clone(), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return comm.all_reduce(g.clone(), ctx.group), None
-
-
 class SyncBatchNorm(nn.Module):
     """Drop-in for ``nn.BatchNorm{1,2,3}d`` with statistics over the dp
     group.  ``eval()`` (or ``use_running_average=True``) normalizes with
@@ -104,9 +91,8 @@ class SyncBatchNorm(nn.Module):
             stats = torch.cat([
                 xf.sum(dim=axes), (xf * xf).sum(dim=axes),
                 torch.full((1,), n_local, device=x.device)])
-            group = ps.get_group(self.axis_name)
-            if group is not None:
-                stats = _AllReduceSum.apply(stats, group)
+            if ps.get_group(self.axis_name) is not None:
+                stats = comm.psum(stats, self.axis_name)
             s1, s2, n = stats.split([self.num_features, self.num_features, 1])
             mean = s1 / n
             var = s2 / n - mean * mean

@@ -40,8 +40,8 @@ manager, used by tests) or ambient via ``APEX_TPU_CHAOS`` for real runs::
 
 Hooks are host-side and fire only where training code calls them
 (the port's call sites: ``runner``, ``retry``, the serving engine and
-scheduler; the guards and the fleet hooks wait for ROADMAP items 10 and
-7);
+scheduler, and the guards; the fleet hooks wait for ROADMAP item 8's
+``fleetctl``);
 with no faults configured every hook is a cheap no-op.
 
 Counterpart of ``apex_tpu/resilience/chaos.py``, host code copied over:

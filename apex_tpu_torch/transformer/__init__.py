@@ -1,4 +1,43 @@
 """Transformer building blocks of the port (counterpart of
-:mod:`apex_tpu.transformer`): ``enums``, ``functional.fused_softmax``,
-the remat policy resolution of ``pipeline_parallel.schedules`` and
-``tensor_parallel.cross_entropy``."""
+:mod:`apex_tpu.transformer`):
+
+- :mod:`.tensor_parallel` — TP/SP sharded layers, collective mappings,
+  vocab-parallel CE, RNG tracking;
+- :mod:`.pipeline_parallel` — the pipeline schedules, the p2p shift,
+  the microbatch calculator (:mod:`.microbatches`);
+- :mod:`.context_parallel` — ring, zigzag and Ulysses attention;
+- :mod:`.moe` — Switch MoE over the dp ranks;
+- :mod:`.functional` — FusedScaleMaskSoftmax; :mod:`.amp` — the
+  model-parallel GradScaler; :mod:`.enums`.
+
+The submodules load on first access, as the reference's do."""
+
+from apex_tpu_torch import parallel_state  # noqa: F401
+from apex_tpu_torch.transformer import tensor_parallel  # noqa: F401
+from apex_tpu_torch.transformer.enums import (  # noqa: F401
+    AttnMaskType,
+    AttnType,
+    LayerType,
+    ModelType,
+)
+
+_LAZY = (
+    "pipeline_parallel",
+    "functional",
+    "amp",
+    "microbatches",
+    "moe",
+    "context_parallel",
+)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(f"apex_tpu_torch.transformer.{name}")
+        globals()[name] = module
+        return module
+    raise AttributeError(
+        f"module 'apex_tpu_torch.transformer' has no attribute {name!r}"
+    )

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-eighteen phases; any failure raises and the exit code is non-zero.  Without
+twenty-one phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -246,6 +246,32 @@ a CUDA device it exits non-zero at once and prints no result.
     the other steps against dp = 1 under the same fault); ``fit`` in
     ZeRO mode on the async engine, preempted at step 5 and resumed, equal
     to the whole run bit for bit (params and each rank's master shard).
+19. Context parallelism (``phase19``): GPT at ``GptConfig()``'s width,
+    2 layers, global sequence 2048 and batch 8, cp = 2 worker processes
+    over gloo (1024 rows a rank), 3 FusedAdam steps through
+    ``gpt_lm_loss_cp`` with the gradients mean-reduced over cp, in ring,
+    ring_zigzag and Ulysses: step 0's hidden states, the losses and every
+    gradient against cp = 1 in this process, beside two planted faults
+    (the hops' backward fed no lse cotangent; the shard-edge targets from
+    the rank's own rows); rank 0's launches exact (the ring's hops on the
+    f32 K3/K4, Ulysses' on bf16).  Phase 1 holds the f32 K3/K4 at the
+    hop shapes with dlse != 0 and phase 4 times them.
+20. Experts (``phase20``).  20a: ``train_gpt --num-experts 8`` at
+    ``GptConfig()``'s full size (12 layers, remat), batch 8 x 2048, 8
+    steps: exact K1-K4 launches, the step time, tokens/s, peak memory,
+    MFU over the active parameters.  20b: 2 layers, 8 experts at ep = dp
+    = 2 on two workers over gloo, top-1 and top-2, 3 steps, against ep
+    = 1 on the same two half batches: losses (aux included) and every
+    gradient, beside a planted fault (sync_moe_gradients averaging the
+    expert_ leaves over dp).
+21. Pipeline parallelism (``phase21``): BertEncoderCore stages at
+    BertConfig()'s widths, 4 layers over pp = 2 workers over gloo, S
+    128, 4 microbatches of 8 with the key-padding bias, the loss through
+    the tied head: the five schedules (1f1b in both stash modes, the
+    interleaved two at vpp = 2) against forward_backward_no_pipelining
+    over the same layers in this process, beside a planted fault (a
+    cotangent routed to another microbatch's stash); then
+    ``train_gpt_pp --pp 2`` and ``--pp 2 --vpp 2``, whose loss falls.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -254,7 +280,7 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 16, 17, 18, 4, 5.
+11, 16, 17, 18, 19, 20, 21, 4, 5.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -295,6 +321,13 @@ the full run) and prints them as one JSON line.
 
 runs phase 15 alone (with the kernels' build) and prints it as one JSON
 line.
+
+    python3 chip_smoke.py --context
+    python3 chip_smoke.py --experts
+    python3 chip_smoke.py --pipeline
+
+run phase 19, 20 or 21 alone (any of them together, with the kernels'
+build) and print them as one JSON line.
 
     python3 chip_smoke.py --parallel
 
@@ -552,6 +585,7 @@ def phase1(gen):
     errs["fmha_qkvpacked"] = phase1_fmha_qkvpacked()
     phase1_dropout_mask(gen)
     errs.update(phase1_head_dims(gen))
+    errs.update(phase1_ring_hops(gen))
     errs["paged_decode"] = phase1_paged(gen)
     return errs
 
@@ -3683,6 +3717,9 @@ def phase4(gen, launches, errs):
     for name, by_shape in _time_f32_attention(gen, flush).items():
         rows[name] = by_shape.pop("triangle_shape")
         extra.setdefault(name, {}).update(by_shape)
+    # phase 19's ring hops (f32, K4 with dlse)
+    for name, by_shape in _time_ring_hops(gen, flush).items():
+        extra.setdefault(name, {}).update(by_shape)
     # a head dim past 128, which no model of either package runs
     wide_fwd, wide_bwd = _time_attn(gen, flush, WIDE_BH, WIDE_S,
                                     with_bwd=True, d=WIDE_D)
@@ -3860,6 +3897,8 @@ def phase4(gen, launches, errs):
             entry["phase1_launches"] = errs.get(f"{name}_phase1_launches")
         if name + "_d128" in errs:  # phase 1's first D = 128 case
             entry["max_abs_err_d128"] = errs[name + "_d128"]
+        if name + "_ring" in errs:  # phase 1's ring hops (dlse != 0)
+            entry["max_abs_err_ring"] = errs[name + "_ring"]
         if name in rows and name in serving:
             entry["serving_shape"] = fields(serving[name])
         for tag, r in extra.get(name, {}).items():
@@ -3877,6 +3916,12 @@ def phase4(gen, launches, errs):
                        (" (D = 384)", entry.get("d384_shape")),
                        (" (int8 pages)", entry.get("int8_shape")),
                        (" (short lengths)", entry.get("short_shape")),
+                       (" (ring self hop)", entry.get("ring_self_shape")),
+                       (" (ring past hop)", entry.get("ring_past_shape")),
+                       (" (zigzag self half)",
+                        entry.get("zigzag_self_shape")),
+                       (" (zigzag past half)",
+                        entry.get("zigzag_past_shape")),
                        (" (evoformer pair)", entry.get("evo_pair_shape")),
                        (" (evoformer MSA)", entry.get("evo_msa_shape"))):
             if r is None:
@@ -6629,6 +6674,7 @@ def _p17_rank(ref_path, steps, fault):
     from apex_tpu_torch import parallel_state as ps
     from apex_tpu_torch.contrib import openfold as pof
     from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.parallel import comm
 
     if fault == "gather":
         def sliced(ctx, g):
@@ -6638,13 +6684,14 @@ def _p17_rank(ref_path, steps, fault):
 
         pof._Gather.backward = staticmethod(sliced)
     elif fault == "all_to_all":
-        a2a = pof._all_to_all
+        a2a = comm._tiled_all_to_all
 
-        def reversed_blocks(x, group, world, split, concat):
-            out = a2a(x, group, world, split, concat)
+        def reversed_blocks(x, axis_name, split, concat):
+            out = a2a(x, axis_name, split, concat)
+            world = ps.axis_size(axis_name)
             return torch.cat(out.chunk(world, dim=concat)[::-1], dim=concat)
 
-        pof._all_to_all = reversed_blocks
+        comm._tiled_all_to_all = reversed_blocks
     ref = torch.load(ref_path, map_location="cuda")
     blocks = _p17_blocks("dp")
     full = evoformer_data(EVO_SEQ, EVO_RES, "cuda", seed=P17_SEED)
@@ -7382,6 +7429,1077 @@ def phase18(phase6_losses=None):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the ring hops' f32 K3/K4 (phases 1 and 4)
+# ---------------------------------------------------------------------------
+
+#: phase 19's ring hops (GPT width: B 8 x H 16 heads, S_local 1024 at cp
+#: = 2, D 64; q widened to f32 and k, v with it): the contiguous layout's
+#: causal self hop and plain past hop, and zigzag's 512-row half blocks
+RING_HOPS = (("ring_self", 128, 1024, True), ("ring_past", 128, 1024, False),
+             ("zigzag_self", 128, 512, True), ("zigzag_past", 128, 512, False))
+
+
+def phase1_ring_hops(gen):
+    """The f32 instances of K3 and K4 at the ring hops' shapes, with the
+    non-zero lse cotangent the online-softmax merge feeds K4 (``dlse``,
+    folded into ``delta``): o, lse, m, l, dq, dk, dv against the twins
+    under F32_ATTN_TOL, beside the TF32 control that must fail it."""
+    import torch
+
+    from apex_tpu_torch.ops import attention as attn
+
+    log("phase 1: f32 K3/K4 at the ring hops' shapes, dlse != 0")
+    errs = {}
+    for tag, bh, s, causal in RING_HOPS:
+        q, k, v, do = (torch.randn(bh, s, 64, generator=gen, device="cuda")
+                       for _ in range(4))
+        dlse = 0.5 * torch.randn(bh, s, generator=gen, device="cuda")
+        kw = dict(scale=0.125, causal=causal)
+        tag = f"{tag} BH={bh} S={s} D=64 causal={causal} f32"
+        ref = attn.flash_fwd_reference(q, k, v, **kw)
+        out = attn.flash_fwd(q, k, v, **kw)
+        e3 = compare(f"K3 {tag} o", out[0], ref[0], F32_ATTN_TOL)
+        for name, a, r in zip(("lse", "m", "l"), out[1:], ref[1:]):
+            compare(f"K3 {tag} {name}", a, r, F32_ATTN_TOL)
+        f32_control("K3 " + tag, ("o", "lse"), ref,
+                    tf32_twin(attn.flash_fwd_reference, q, k, v, **kw))
+        o, _, m, l = ref
+        delta = (do * o).sum(-1) - dlse
+        args = (q, k, v, do, m, l, delta)
+        del ref, out, o
+        out = attn.flash_bwd(*args, **kw)
+        ref = attn.flash_bwd_reference(*args, **kw)
+        e4 = [compare(f"K4 {tag} {n} (dlse)", a, r, F32_ATTN_TOL)
+              for n, a, r in zip(("dq", "dk", "dv"), out, ref)]
+        f32_control("K4 " + tag, ("dq", "dk", "dv"), ref,
+                    tf32_twin(attn.flash_bwd_reference, *args, **kw))
+        errs.setdefault("flash_fwd_f32_ring", e3)
+        errs.setdefault("flash_bwd_f32_ring", max(e4))
+        del out, ref, args, q, k, v, do, m, l, delta, dlse
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _time_ring_hops(gen, flush):
+    """The f32 K3 and K4 at the ring hops' shapes (``RING_HOPS``), K4
+    with a non-zero dlse, beside the plain versions and f32 SDPA (B 8,
+    H 16).  Bounds: q, k, v (dO) read, o (dq, dk, dv) written, the f32
+    row statistics (and dlse), against three TF32 products a product
+    (3xTF32) of 2·D flops per live pair, 2 forward and 5 backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention as attn
+
+    out = {}
+    for tag, bh, s, causal in RING_HOPS:
+        q, k, v, do = (torch.randn(bh, s, 64, generator=gen, device="cuda")
+                       for _ in range(4))
+        dlse = 0.5 * torch.randn(bh, s, generator=gen, device="cuda")
+        kw = dict(scale=0.125, causal=causal)
+        live = bh * _attn_live_pairs(s, causal)
+        elems = bh * s * 64
+        q4, k4, v4 = (t.reshape(8, 16, s, 64) for t in (q, k, v))
+        fwd = dict(
+            ms=time_ms(lambda: attn.flash_fwd(q, k, v, **kw), flush=flush),
+            plain_ms=time_ms(lambda: attn.flash_fwd_reference(q, k, v, **kw),
+                             flush=flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=0.125), flush=flush),
+        )
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            4 * elems * 4 + 3 * 4 * bh * s, 3 * 4 * 64 * live,
+            TF32_TENSOR_FLOPS)
+        o, _, m, l = attn.flash_fwd(q, k, v, **kw)
+        delta = (do * o).sum(-1) - dlse
+        args = (q, k, v, do, m, l, delta)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        o_lib, lse_lib = None, None
+        o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                               scale=0.125)
+        bwd = dict(
+            ms=time_ms(lambda: attn.flash_bwd(*args, **kw), flush=flush),
+            plain_ms=time_ms(lambda: attn.flash_bwd_reference(*args, **kw),
+                             iters=5, warmup=1, flush=flush),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                o_lib, (qr, kr, vr), do.reshape(q4.shape),
+                retain_graph=True), flush=flush),
+        )
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            7 * elems * 4 + 4 * 4 * bh * s, 3 * 10 * 64 * live,
+            TF32_TENSOR_FLOPS)
+        shape = (f"BH={bh} S={s} D=64 {'causal' if causal else 'non-causal'}"
+                 f" f32 ({tag.replace('_', ' ')} hop, phase 19)")
+        out.setdefault("flash_fwd_f32", {})[f"{tag}_shape"] = dict(
+            fwd, shape=shape)
+        out.setdefault("flash_bwd_f32", {})[f"{tag}_shape"] = dict(
+            bwd, shape=shape + ", dlse != 0")
+        del o_lib, lse_lib, args, o, m, l, delta, q, k, v, do, qr, kr, vr
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: context parallelism — ring, zigzag and Ulysses on two workers
+# ---------------------------------------------------------------------------
+
+#: ``examples.train_gpt`` at GptConfig()'s width (hidden 1024, 16 heads,
+#: vocab 50304, bf16, remat) and 2 layers, a global sequence of 2048
+#: (1024 a rank at cp = 2), batch 8, 3 FusedAdam steps at phase 6's
+#: learning rate, on the example's corpus and loader
+P19_CP = 2
+P19_LAYERS = 2
+P19_STEPS = 3
+P19_MODES = ("ring", "ring_zigzag", "ulysses")
+#: limits against cp = 1 in this process: the hidden states and each
+#: gradient as max |diff| over the reference's max |value| (and each
+#: gradient's relative Frobenius error ||diff|| / ||ref||), the losses
+#: relative per step, step 0's on its own (Adam carries the rounding of
+#: one step into the next).  The ring's hops run the f32 K3/K4, so the
+#: ring modes are held to cp = 1 with f32 attention (q, k, v widened,
+#: the output cast back, as a hop does) and Ulysses, whose attention is
+#: bf16, to cp = 1 as it trains.  The bf16 weight gradients are each
+#: rank's bf16 product over its rows, summed: one bf16 rounding apart
+#: from cp = 1's, which every mode reads alike (4.6e-3, Ulysses too,
+#: whose forward is bit for bit).  That floor hides the planted dlse
+#: fault (1.3e-2), so each mode is also held in f32: the same weights
+#: as an f32 GptModel, one train_step on the first batch against cp = 1
+#: in f32 (f32 attention on both sides), where the floor is the kernels'
+#: 3xTF32 rounding.  The planted faults: the ring's backward fed no dlse
+#: (at random weights every hop's output is close to the merged one, so
+#: dlse is small) and the shard-edge targets taken from the rank's own
+#: rows (8 of 16,376 targets); the f32 gradients must read each past
+#: P16_FAULT_FACTOR x their limit.  On an H100 (700 W), bf16 sound →
+#: fault: gradients max rel 4.59e-3 → 1.31e-2 (dlse), norm rel 2.31e-3
+#: → 5.73e-3; step-0 loss ≤ 9.5e-7 → 1.03e-5 (boundary); losses over 3
+#: steps ≤ 2.12e-5; hidden ≤ 1.30e-2 (Ulysses bit for bit).  f32 twin:
+#: gradients 2.49e-5 (the embedding's scatter-add) → 1.31e-2 (dlse),
+#: 2.41e-3 (boundary); loss 0 → 1.09e-5 (boundary)
+P19_OUT_TOL = 2e-2
+P19_LOSS0_TOL = 2e-6
+P19_LOSS_TOL = 5e-5
+P19_GRAD_TOL = 1e-2
+P19_GRAD_NORM_TOL = 5e-3
+P19_F32_GRAD_TOL = 1e-4
+P19_F32_LOSS_TOL = 1e-6
+
+
+def _grad_errs(model, ref, rows=None, norm=False):
+    """{name: max |grad - ref| / max |ref|} over the model's parameters
+    (``rows(name, ref)`` cuts a reference tensor to this rank's part);
+    with ``norm``, ||grad - ref|| / ||ref|| instead."""
+    out = {}
+    for name, p in model.named_parameters():
+        want = ref[name] if rows is None else rows(name, ref[name])
+        diff = p.grad.float() - want
+        if norm:
+            out[name] = float(diff.norm() / want.norm().clamp_min(1e-30))
+        else:
+            out[name] = float(diff.abs().max()
+                              / want.abs().max().clamp_min(1e-30))
+    return out
+
+
+def _read_grads_at_step(opt, read):
+    """Have ``opt.step`` call ``read()`` once, before its first update:
+    the gradients as ``train_step`` hands them to the optimizer."""
+    step = opt.step
+
+    def read_then_step(*args, **kwargs):
+        opt.step = step
+        read()
+        return step(*args, **kwargs)
+
+    opt.step = read_then_step
+
+
+def _cp_rows(t, mode, rank, world):
+    from apex_tpu_torch.transformer.context_parallel import zigzag_shard
+
+    if mode == "ring_zigzag":
+        return zigzag_shard(t, rank, world, axis=0)
+    n = t.shape[0] // world
+    return t[rank * n:(rank + 1) * n]
+
+
+def p19_cp(rank, world, ref_path, f32_ref_path, mode, steps, fault=None):
+    """19 worker: ``examples.train_gpt --context-parallel mode --cp
+    world`` at 2 layers through ``build`` and ``train_step`` (the cp
+    group, this rank's rows of the loader's batches by ``local_rows``,
+    DDP at dp = 1, ``gpt_lm_loss_cp``, the cp mean of the gradients).
+    Step 0's hidden states and the gradients ``train_step`` hands the
+    optimizer against the cp = 1 run saved at ``ref_path``, the losses,
+    the launches of the training steps, the step-0 call log.  Then the
+    f32 twin (the same weights as an f32 GptModel, one ``train_step`` on
+    the first batch) against ``f32_ref_path``: its gradients and loss.
+    ``fault``: ``"dlse"`` — the attention backward fed no lse cotangent
+    (the ring's hops); ``"boundary"`` — gpt_lm_loss_cp's shard-edge
+    targets taken from the rank's own first rows instead of the
+    neighbour's."""
+    import dataclasses as dc
+    import itertools
+    import types
+
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.models.gpt import GptModel
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import attention as attn
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    orig_bwd, orig_p2p = attn._Flash.backward, gpt_mod.p2p
+    if fault == "dlse":
+        attn._Flash.backward = staticmethod(
+            lambda ctx, do, dlse: orig_bwd(ctx, do, None))
+    elif fault == "boundary":
+        gpt_mod.p2p = types.SimpleNamespace(
+            send_backward_recv_backward=lambda x, *a, **k: x,
+            send_forward_recv_forward=lambda x, *a, **k: x)
+    args = _gpt_args(["--context-parallel", mode, "--cp", str(world),
+                      "--backend", "gloo"], layers=P19_LAYERS, steps=steps)
+    try:
+        ref = torch.load(ref_path, map_location="cuda")
+        cfg, model, opt, batches, ddp = train_gpt.build(args)
+        first = next(batches)
+        errs = {}
+        with torch.no_grad():
+            h = model(first)
+            want = _cp_rows(ref["h"], mode, rank, world)
+            errs["out"] = float((h.float() - want.float()).abs().max()
+                                / want.float().abs().max())
+        del h
+
+        def read():
+            errs["grads"] = _grad_errs(model, ref["grads"])
+            errs["grads_norm"] = _grad_errs(model, ref["grads"], norm=True)
+
+        _read_grads_at_step(opt, read)
+        torch.cuda.reset_peak_memory_stats()
+        _dispatch.reset_launches()
+        losses, seconds, summary = _timed_steps(
+            lambda b: train_gpt.train_step(model, opt, b, ddp),
+            itertools.chain([first], batches), steps)
+        launches = _dispatch.launches()
+        peak = torch.cuda.max_memory_allocated()
+        out = dict(losses=losses, seconds=seconds, collectives=summary,
+                   launches=launches, errs=errs, peak=peak,
+                   mesh=dict(ps.get_mesh().shape), ddp=ddp is not None)
+        del model, opt, ddp, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the f32 twin: one train_step on the first batch
+        ref = torch.load(f32_ref_path, map_location="cuda")
+        model = GptModel(dc.replace(cfg, dtype=torch.float32), device="cuda")
+        opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+
+        def read_f32():
+            errs["grads_f32"] = _grad_errs(model, ref["grads"])
+
+        _read_grads_at_step(opt, read_f32)
+        loss = float(train_gpt.train_step(model, opt, first, None))
+        errs["loss_f32"] = abs(loss - ref["loss"]) / abs(ref["loss"])
+        return out
+    finally:
+        attn._Flash.backward, gpt_mod.p2p = orig_bwd, orig_p2p
+        ps.destroy_model_parallel()
+
+
+def _p19_want(mode, rank, steps):
+    """Rank ``rank``'s launches in ``steps`` steps at cp = 2 under the
+    example's remat (each block forwarded twice): the ring's computed
+    half or whole blocks (f32, each forwarded three times: the block's
+    recompute and the hop's own checkpoint), Ulysses' bf16 attention
+    over the full sequence, K1/K2 at the rank's rows."""
+    L = P19_LAYERS
+    want = {"layer_norm_fwd": (4 * L + 1) * steps,
+            "layer_norm_bwd": (2 * L + 1) * steps}
+    if mode == "ulysses":
+        want.update(flash_fwd=2 * L * steps, flash_bwd=L * steps)
+        return want
+    # contiguous causal: rank r computes r + 1 blocks; zigzag: 5 half
+    # blocks on every rank (3 at the self hop, 2 at the other)
+    blocks = 5 if mode == "ring_zigzag" else rank + 1
+    want.update(flash_fwd_f32=3 * blocks * L * steps,
+                flash_bwd_f32=blocks * L * steps)
+    return want
+
+
+def _p19_reference(args, f32_attention=False, dtype=None, steps=P19_STEPS):
+    """cp = 1 in this process on the example's model (seed 0; ``dtype``
+    in place of its bf16) and global batches: step 0's hidden states,
+    gradients and loss, the losses and step seconds of ``gpt_lm_loss`` +
+    FusedAdam; with ``f32_attention`` the blocks' attention runs on f32
+    q, k, v (K3/K4's f32 instances) and is cast back, as a ring hop
+    computes it."""
+    import dataclasses as dc
+
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    cfg = train_gpt.config(args)
+    if dtype is not None:
+        cfg = dc.replace(cfg, dtype=dtype)
+    model = gpt_mod.GptModel(cfg, device="cuda")
+    ids = _gpt_batches(args, cfg, P19_STEPS)
+    orig = gpt_mod._attention
+    if f32_attention:
+        gpt_mod._attention = lambda c, q, k, v: orig(
+            c, q.float(), k.float(), v.float()).to(q.dtype)
+    try:
+        ref = {}
+        with torch.no_grad():
+            ref["h"] = model(ids[0])
+        opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+        losses, seconds = [], []
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = gpt_mod.gpt_lm_loss(model, ids[step])
+            loss.backward()
+            if step == 0:
+                ref["loss"] = float(loss.detach())
+                ref["grads"] = {n: p.grad.detach().float().clone()
+                                for n, p in model.named_parameters()}
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        gpt_mod._attention = orig
+    return ref, losses, seconds
+
+
+def phase19():
+    """Context parallelism (ROADMAP item 7): ``examples.train_gpt
+    --context-parallel {ring,ring_zigzag,ulysses} --cp 2`` at
+    ``GptConfig()``'s width and 2 layers, global sequence 2048 and batch
+    8, in two worker processes sharing the card over gloo (1024 rows a
+    rank), 3 FusedAdam steps through ``build`` and ``train_step``.  Held
+    to the same model at cp = 1 in this process (``gpt_lm_loss``, the
+    same weights and batches; f32 attention for the ring modes): step 0's
+    hidden states, the losses and every gradient; beside two planted
+    faults.  Rank 0's launches are exact (:func:`_p19_want`); the bytes
+    of each collective kind and the step time are logged (two processes
+    on one card: gloo stages every collective through the host)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    log(f"phase 19: train_gpt ({P19_LAYERS} layers, GptConfig() width) "
+        f"under context parallelism, cp = {P19_CP}, seq {TRAIN_SEQ}, batch "
+        f"{TRAIN_BATCH}, {P19_STEPS} FusedAdam steps")
+    torch.cuda.empty_cache()
+    args = _gpt_args([], layers=P19_LAYERS, steps=P19_STEPS)
+    tmp = tempfile.mkdtemp(prefix="apex_p19_")
+    paths, refs = {}, {}
+    for kind, kw in (("bf16", {}), ("f32", dict(f32_attention=True)),
+                     ("f32_model", dict(dtype=torch.float32, steps=1))):
+        ref, losses, seconds = _p19_reference(args, **kw)
+        paths[kind] = os.path.join(tmp, f"ref_{kind}.pt")
+        torch.save(ref, paths[kind])
+        refs[kind] = (losses, seconds)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    attention_of = {"ring": "f32", "ring_zigzag": "f32", "ulysses": "bf16"}
+    jobs = [(mode, "p19_cp", dict(ref_path=paths[attention_of[mode]],
+                                  f32_ref_path=paths["f32_model"],
+                                  mode=mode, steps=P19_STEPS))
+            for mode in P19_MODES]
+    jobs += [(f"{fault}_fault", "p19_cp", dict(
+        ref_path=paths["f32"], f32_ref_path=paths["f32_model"], mode="ring",
+        steps=1, fault=fault)) for fault in ("dlse", "boundary")]
+    try:
+        runs = _p16_spawn(P19_CP, "gloo", jobs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for kind, (losses, seconds) in refs.items():
+        log(f"  cp = 1 ({kind}, this process): losses {losses}, step "
+            f"{statistics.median(seconds[1:] or seconds) * 1e3:.1f} ms")
+    ref_losses = {m: refs[attention_of[m]][0] for m in P19_MODES}
+    out = dict(ref_losses=refs["bf16"][0], ref_f32_losses=refs["f32"][0],
+               ref_step_ms=statistics.median(refs["bf16"][1][1:]) * 1e3,
+               ref_f32_step_ms=statistics.median(refs["f32"][1][1:]) * 1e3)
+    failed = []
+    def top(errs, n=3):
+        return [(f"{v:.2e}", k) for v, k in sorted(
+            ((v, k) for k, v in errs.items()), reverse=True)[:n]]
+
+    for mode in P19_MODES:
+        rs = [r[mode] for r in runs]
+        out_err = max(r["errs"]["out"] for r in rs)
+        loss_err = max(_rel(r["losses"], ref_losses[mode]) for r in rs)
+        loss0_err = max(_rel(r["losses"][:1], ref_losses[mode]) for r in rs)
+        worst = max((v, n) for r in rs for n, v in r["errs"]["grads"].items())
+        worst_n = max((v, n) for r in rs
+                      for n, v in r["errs"]["grads_norm"].items())
+        worst32 = max((v, n) for r in rs
+                      for n, v in r["errs"]["grads_f32"].items())
+        loss32 = max(r["errs"]["loss_f32"] for r in rs)
+        step_ms = statistics.median(rs[0]["seconds"][1:]) * 1e3
+        want = [_p19_want(mode, rank, P19_STEPS) for rank in range(P19_CP)]
+        log(f"  {mode}: losses {rs[0]['losses']} (max rel diff "
+            f"{loss_err:.3e}, limit {P19_LOSS_TOL}; step 0 "
+            f"{loss0_err:.3e}, limit {P19_LOSS0_TOL}); step-0 hidden max "
+            f"rel {out_err:.3e} (limit {P19_OUT_TOL}); gradients max rel "
+            f"{worst[0]:.3e} at {worst[1]} (limit {P19_GRAD_TOL}), norm rel "
+            f"{worst_n[0]:.3e} at {worst_n[1]} (limit {P19_GRAD_NORM_TOL});"
+            f" f32 twin: gradients max rel {worst32[0]:.3e} at {worst32[1]} "
+            f"(limit {P19_F32_GRAD_TOL}), loss {loss32:.3e} (limit "
+            f"{P19_F32_LOSS_TOL}); step {step_ms:.1f} ms; peak "
+            f"{rs[0]['peak'] / 1e9:.2f} GB")
+        log(f"    worst gradients: max rel {top(rs[0]['errs']['grads'])}, "
+            f"norm rel {top(rs[0]['errs']['grads_norm'])}, f32 twin "
+            f"{top(rs[0]['errs']['grads_f32'])}")
+        log(f"    rank 0 launches {rs[0]['launches']} (want {want[0]}); "
+            f"rank 1 {rs[1]['launches']}; step-0 collectives "
+            f"{rs[0]['collectives']}")
+        for rank, r in enumerate(rs):
+            if r["launches"] != want[rank]:
+                failed.append(f"{mode} rank {rank} launches")
+            if r["mesh"]["cp"] != P19_CP or not r["ddp"]:
+                failed.append(f"{mode} rank {rank} built {r['mesh']}, "
+                              f"DDP {r['ddp']}")
+        if loss_err > P19_LOSS_TOL or out_err > P19_OUT_TOL or \
+                worst[0] > P19_GRAD_TOL or loss0_err > P19_LOSS0_TOL or \
+                worst_n[0] > P19_GRAD_NORM_TOL or \
+                worst32[0] > P19_F32_GRAD_TOL or loss32 > P19_F32_LOSS_TOL:
+            failed.append(f"{mode} past its limits")
+        out[mode] = dict(losses=rs[0]["losses"], loss_rel_err=loss_err,
+                         loss0_rel_err=loss0_err, out_rel_err=out_err,
+                         grad_rel_err=worst[0], worst_grad=worst[1],
+                         grad_norm_rel_err=worst_n[0],
+                         worst_grad_norm=worst_n[1],
+                         f32_grad_rel_err=worst32[0], f32_worst=worst32[1],
+                         f32_loss_rel_err=loss32, step_ms=step_ms,
+                         collectives=rs[0]["collectives"],
+                         launches_rank0=rs[0]["launches"],
+                         launches_rank1=rs[1]["launches"],
+                         peak=rs[0]["peak"])
+    for fault, what in (("dlse", "the hops' backward fed no dlse"),
+                        ("boundary", "boundary targets from the rank's own "
+                                     "rows")):
+        rs = [r[f"{fault}_fault"] for r in runs]
+        g = max((v, n) for r in rs for n, v in r["errs"]["grads"].items())
+        g_n = max((v, n) for r in rs
+                  for n, v in r["errs"]["grads_norm"].items())
+        g32 = max((v, n) for r in rs
+                  for n, v in r["errs"]["grads_f32"].items())
+        loss0 = max(_rel(r["losses"][:1], ref_losses["ring"]) for r in rs)
+        loss32 = max(r["errs"]["loss_f32"] for r in rs)
+        log(f"  planted fault ({what}): f32 twin gradients max rel "
+            f"{g32[0]:.3e} at {g32[1]} (must exceed {P16_FAULT_FACTOR} x "
+            f"{P19_F32_GRAD_TOL}), loss {loss32:.3e}; bf16 gradients max "
+            f"rel {g[0]:.3e} at {g[1]}, norm rel {g_n[0]:.3e}, step-0 loss "
+            f"{loss0:.3e}; worst f32 {top(rs[0]['errs']['grads_f32'])}")
+        out[f"{fault}_fault"] = dict(
+            f32_grad_rel_err=g32[0], f32_worst=g32[1], f32_loss_rel_err=loss32,
+            grad_rel_err=g[0], worst_grad=g[1], grad_norm_rel_err=g_n[0],
+            loss0_rel_err=loss0)
+        if g32[0] <= P16_FAULT_FACTOR * P19_F32_GRAD_TOL:
+            failed.append(f"the f32 gradient check cannot tell the {fault} "
+                          "fault")
+    if failed:
+        raise AssertionError(f"19: {failed}")
+    launches = {}
+    for mode in P19_MODES:
+        for name, n in out[mode]["launches_rank0"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: experts — Switch MoE GPT at full size, and at ep = 2
+# ---------------------------------------------------------------------------
+
+P20_EXPERTS = 8
+P20_STEPS = 8
+P20B_STEPS = 3
+#: 20b: ep = dp = 2 against ep = 1 on the same two half batches (each
+#: rank's routing, capacity and token order are the half batch's at ep =
+#: 1), relative per tensor and per loss; the planted fault
+#: (sync_moe_gradients averaging the expert_ leaves over dp, which mixes
+#: different experts) must read more than P16_FAULT_FACTOR x the limit
+P20_LOSS_TOL = 1e-4
+P20_GRAD_TOL = 3e-2
+
+
+def _moe_active_params(model):
+    """Parameters a token meets at top-1: every non-expert parameter and
+    one expert's two matrices a layer."""
+    total, experts, one = 0, 0, 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        if ".expert_" in name:
+            experts += p.numel()
+            one += p[0].numel()
+    return total - experts + one
+
+
+def phase20a():
+    """``train_gpt --num-experts 8`` at ``GptConfig()``'s full width and
+    depth (12 layers, remat), batch 8 x 2048, one process (ep = 1), 8
+    steps: the kernels' launches (the MoE blocks launch none: their
+    dispatch, combine and expert products are einsums), the step time,
+    tokens/s, peak memory and MFU over the active parameters (6 N T,
+    N = the parameters a token meets at top-1: the dense ones and one
+    expert's two matrices a layer)."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.ops import _dispatch
+
+    log(f"phase 20a: train_gpt --num-experts {P20_EXPERTS} (GptConfig(), "
+        f"remat) {P20_STEPS} steps at batch {TRAIN_BATCH}, seq {TRAIN_SEQ}")
+    args = train_gpt.parse_args([
+        "--steps", str(P20_STEPS), "--batch", str(TRAIN_BATCH), "--seq-len",
+        str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--num-experts",
+        str(P20_EXPERTS)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _dispatch.reset_launches()
+    run = train_gpt.train(args)
+    torch.cuda.synchronize()
+    launches = _dispatch.launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = run.cfg.num_layers
+    per_step = {"layer_norm_fwd": 2 * (2 * L) + 1,
+                "layer_norm_bwd": 2 * L + 1,
+                "flash_fwd": 2 * L, "flash_bwd": L}
+    want = {k: n * P20_STEPS for k, n in per_step.items()}
+    losses = run.losses
+    n_total = sum(p.numel() for p in run.model.parameters())
+    n_active = _moe_active_params(run.model)
+    step_s = statistics.median(run.step_seconds[1:])
+    tokens_per_s = run.tokens_per_step / step_s
+    mfu = 6 * n_active * tokens_per_s / BF16_TENSOR_FLOPS
+    log(f"  launches {launches} (want {want}); losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"  step {step_s * 1e3:.1f} ms (median of steps 1..), "
+        f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} over the active "
+        f"parameters (6 N T, N = {n_active} active of {n_total}: dense "
+        f"+ one expert a layer at top-1), peak memory {peak / 1e9:.2f} GB")
+    if launches != want:
+        raise AssertionError(f"20a launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"20a losses not finite and falling: {losses}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses, step_ms=step_s * 1e3,
+                          tokens_per_s=tokens_per_s, mfu_active=mfu,
+                          active_params=n_active, params=n_total,
+                          peak_memory_bytes=peak)
+
+
+def _p20_step_grads(model, ids_half):
+    """The mean over the two half batches of ``gpt_lm_loss`` and its
+    gradients (the ep = 2 objective at ep = 1)."""
+    from apex_tpu_torch.models.gpt import gpt_lm_loss
+
+    losses = []
+    for part in ids_half:
+        loss = gpt_lm_loss(model, part) * 0.5
+        loss.backward()
+        losses.append(float(loss.detach()))
+    return sum(losses)
+
+
+def p20_ep(rank, world, ref_path, steps, top_ks=(1, 2), fault=False):
+    """20b worker: ``examples.train_gpt --num-experts 8`` at 2 layers
+    through ``build`` (ep = dp = ``world``: this rank's expert shard and
+    batch columns, no DDP) and ``train_step`` (``sync_moe_gradients``,
+    then the dp-mean loss), top-1 on the example's model and top-2 on the
+    same model built with ``moe_top_k=2``, both on the built batches.
+    Against the ep = 1 runs saved at ``ref_path``: the gradients that
+    ``train_step`` hands the optimizer (the expert shards against the
+    matching experts), the losses, the launches.  ``fault``: the
+    expert_ leaves averaged over dp too."""
+    import dataclasses as dc
+
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models.gpt import GptModel
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer import moe
+
+    orig = moe._is_expert
+    if fault:
+        moe._is_expert = lambda path: False
+    args = _gpt_args(["--num-experts", str(P20_EXPERTS), "--backend",
+                      "gloo"], layers=P19_LAYERS, steps=steps)
+    try:
+        ref = torch.load(ref_path, map_location="cuda")
+        cfg, model, opt, batches, ddp = train_gpt.build(args)
+        ids = [next(batches) for _ in range(steps)]
+        mesh = dict(ps.get_mesh().shape)
+        e_l = P20_EXPERTS // world
+
+        def rows(name, t):
+            return t[rank * e_l:(rank + 1) * e_l] if ".expert_" in name else t
+
+        out = {}
+        for top_k in top_ks:
+            if top_k != cfg.moe_top_k:
+                del model, opt
+                gc.collect()
+                torch.cuda.empty_cache()
+                model = GptModel(dc.replace(cfg, moe_top_k=top_k),
+                                 device="cuda")
+                opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+            errs = {}
+
+            def read(model=model, errs=errs, top_k=top_k):
+                errs["grads"] = _grad_errs(model, ref[top_k]["grads"], rows)
+
+            _read_grads_at_step(opt, read)
+            torch.cuda.reset_peak_memory_stats()
+            _dispatch.reset_launches()
+            losses, seconds, summary = _timed_steps(
+                lambda b: train_gpt.train_step(model, opt, b, ddp),
+                iter(ids), steps)
+            out[top_k] = dict(losses=losses, seconds=seconds,
+                              collectives=summary, errs=errs,
+                              launches=_dispatch.launches(), mesh=mesh,
+                              ddp=ddp is not None,
+                              peak=torch.cuda.max_memory_allocated())
+        return out
+    finally:
+        moe._is_expert = orig
+        ps.destroy_model_parallel()
+
+
+def phase20b():
+    """Experts at ep = dp = 2: ``examples.train_gpt --num-experts 8`` at
+    ``GptConfig()``'s width and 2 layers, top-1 and top-2, in two worker
+    processes over gloo, 3 FusedAdam steps through ``build`` and
+    ``train_step`` on the example's global batch 8 x 2048 (each rank its
+    4 columns); held to ep = 1 in this process on the same two half
+    batches (the mean of their losses and gradients) with the same
+    ep-invariant weights: the losses (the aux term included) and every
+    gradient, beside the planted fault."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models.gpt import GptModel
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    log(f"phase 20b: train_gpt --num-experts {P20_EXPERTS} ({P19_LAYERS} "
+        f"layers) at ep = dp = 2 against ep = 1, top-1 and top-2, "
+        f"{P20B_STEPS} steps")
+    args = _gpt_args(["--num-experts", str(P20_EXPERTS)], layers=P19_LAYERS,
+                     steps=P20B_STEPS)
+    cfg = train_gpt.config(args)
+    ids = _gpt_batches(args, cfg, P20B_STEPS)
+    half = TRAIN_BATCH // 2
+    ref = {}
+    for top_k in (1, 2):
+        torch.cuda.empty_cache()
+        model = GptModel(dc.replace(cfg, moe_top_k=top_k), device="cuda")
+        opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+        ref[top_k] = {"losses": []}
+        for step in range(P20B_STEPS):
+            loss = _p20_step_grads(model, [ids[step][:, :half].contiguous(),
+                                           ids[step][:, half:].contiguous()])
+            if step == 0:
+                ref[top_k]["grads"] = {n: p.grad.detach().float().clone()
+                                       for n, p in model.named_parameters()}
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            ref[top_k]["losses"].append(loss)
+        del model, opt
+    del ids
+    tmp = tempfile.mkdtemp(prefix="apex_p20_")
+    path = os.path.join(tmp, "ref.pt")
+    torch.save(ref, path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = [("sound", "p20_ep", dict(ref_path=path, steps=P20B_STEPS)),
+            ("fault", "p20_ep", dict(ref_path=path, steps=1, top_ks=(1,),
+                                     fault=True))]
+    try:
+        runs = _p16_spawn(2, "gloo", jobs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out, failed = {}, []
+    L = P19_LAYERS
+    want = {"layer_norm_fwd": (4 * L + 1) * P20B_STEPS,
+            "layer_norm_bwd": (2 * L + 1) * P20B_STEPS,
+            "flash_fwd": 2 * L * P20B_STEPS, "flash_bwd": L * P20B_STEPS}
+    for k in (1, 2):
+        rs = [r["sound"][str(k)] for r in runs]
+        loss_err = max(_rel(r["losses"], ref[k]["losses"]) for r in rs)
+        worst = max((v, n) for r in rs for n, v in r["errs"]["grads"].items())
+        step_ms = statistics.median(rs[0]["seconds"][1:]) * 1e3
+        log(f"  top-{k}: ep = 1 losses {ref[k]['losses']}, ep = 2 "
+            f"{rs[0]['losses']} (max rel diff {loss_err:.3e}, limit "
+            f"{P20_LOSS_TOL}); gradients max rel {worst[0]:.3e} at "
+            f"{worst[1]} (limit {P20_GRAD_TOL}); step {step_ms:.1f} ms; "
+            f"peak {rs[0]['peak'] / 1e9:.2f} GB")
+        log(f"    rank 0 launches {rs[0]['launches']} (want {want}); "
+            f"mesh {rs[0]['mesh']}; step-0 collectives "
+            f"{rs[0]['collectives']}")
+        if loss_err > P20_LOSS_TOL or worst[0] > P20_GRAD_TOL:
+            failed.append(f"top-{k} past its limits")
+        for rank, r in enumerate(rs):
+            if r["launches"] != want:
+                failed.append(f"top-{k} rank {rank} launches "
+                              f"{r['launches']} != {want}")
+            if r["mesh"]["dp"] != 2 or r["ddp"]:
+                failed.append(f"top-{k} rank {rank} built {r['mesh']}, "
+                              f"DDP {r['ddp']}")
+        out[f"top{k}"] = dict(losses=rs[0]["losses"],
+                              ref_losses=ref[k]["losses"],
+                              loss_rel_err=loss_err, grad_rel_err=worst[0],
+                              worst_grad=worst[1], step_ms=step_ms,
+                              collectives=rs[0]["collectives"],
+                              launches_rank0=rs[0]["launches"],
+                              peak=rs[0]["peak"])
+    fault = max((v, n) for r in runs for n, v in
+                r["fault"]["1"]["errs"]["grads"].items())
+    log(f"  planted fault (the expert_ leaves averaged over dp): gradients "
+        f"max rel {fault[0]:.3e} at {fault[1]} (must exceed "
+        f"{P16_FAULT_FACTOR} x {P20_GRAD_TOL})")
+    out.update(fault_grad_rel_err=fault[0], fault_worst=fault[1])
+    if fault[0] <= P16_FAULT_FACTOR * P20_GRAD_TOL:
+        failed.append("the gradient check cannot tell the planted fault")
+    if failed:
+        raise AssertionError(f"20b: {failed}")
+    return out["top1"]["launches_rank0"], out
+
+
+def phase20():
+    launches, full = phase20a()
+    launches_ep2, ep2 = phase20b()
+    return launches, launches_ep2, dict(full=full, ep2=ep2)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: pipeline parallelism — the five schedules on two workers
+# ---------------------------------------------------------------------------
+
+#: BertEncoderCore at BertConfig()'s widths (hidden 1024, 16 heads,
+#: intermediate 4096, bf16), 4 layers in all over pp = 2, S 128, 4
+#: microbatches of 8, the tied head over vocab 30522
+P21_PP = 2
+P21_LAYERS = 4
+P21_NM = 4
+P21_MB = 8
+P21_SEED = 21
+P21_SCHEDULES = (
+    ("without_interleaving",
+     "forward_backward_pipelining_without_interleaving", {}),
+    ("1f1b_residuals", "forward_backward_pipelining_1f1b",
+     dict(stash="residuals")),
+    ("1f1b_input", "forward_backward_pipelining_1f1b", dict(stash="input")),
+    ("with_interleaving", "forward_backward_pipelining_with_interleaving",
+     dict(num_model_chunks=2)),
+    ("interleaved_1f1b", "forward_backward_pipelining_interleaved_1f1b",
+     dict(num_model_chunks=2)),
+)
+#: against forward_backward_no_pipelining over the 4 layers in this
+#: process: the per-microbatch losses (relative) and every stage's
+#: gradients (max |diff| over max |value| per tensor).  The planted fault
+#: (a cotangent routed to another microbatch's stash) must read more than
+#: P16_FAULT_FACTOR x the gradient limit.  On an H100 (700 W) every
+#: schedule equals no pipelining bit for bit (the same kernels on the
+#: same microbatches, the gradients summed in the same order) and the
+#: fault reads 1.53
+P21_LOSS_TOL = 1e-5
+P21_GRAD_TOL = 1e-2
+
+
+def _p21_cfg():
+    from apex_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(num_layers=P21_LAYERS)
+
+
+def _p21_fns(core):
+    """(stage_fn, loss_fn): the activation is ``(h, bias)`` — the hidden
+    states and the key-padding bias, which rides along unchanged; the
+    loss is the cross entropy through the tied table ``head``."""
+    import torch
+
+    from apex_tpu_torch.models.gpt import vocab_logits
+    from apex_tpu_torch.train.trainer import module_loss
+
+    run = module_loss(core, lambda m, x: m(x[0], x[1]))
+
+    def stage_fn(p, x):
+        return run(p["core"], x), x[1]
+
+    def loss_fn(p, y, tgt):
+        logits = vocab_logits(y[0], p["head"].to(y[0].dtype))
+        return torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1))
+
+    return stage_fn, loss_fn
+
+
+def _p21_data():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(P21_SEED)
+    cfg = _p21_cfg()
+    h = torch.randn(P21_NM, BERT_SEQ, P21_MB, cfg.hidden_size,
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    lengths = torch.randint(BERT_SEQ // 2, BERT_SEQ + 1, (P21_NM, P21_MB),
+                            generator=gen, device="cuda")
+    keep = torch.arange(BERT_SEQ, device="cuda") < lengths[..., None]
+    bias = torch.where(keep, 0.0, -1e9)[:, :, None, None, :].contiguous()
+    tgt = torch.randint(0, cfg.vocab_size, (P21_NM, BERT_SEQ, P21_MB),
+                        generator=gen, device="cuda")
+    return (h, bias), tgt
+
+
+def _p21_params():
+    """The 4 layers' params (``module_params`` names) and the head."""
+    import torch
+
+    from apex_tpu_torch.examples.train_gpt_pp import init_core
+    from apex_tpu_torch.models.bert import BertEncoderCore
+    from apex_tpu_torch.train.trainer import module_params
+
+    cfg = _p21_cfg()
+    core = BertEncoderCore(cfg, P21_LAYERS, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(P21_SEED)
+    init_core(core, gen)
+    head = torch.randn(cfg.vocab_size, cfg.hidden_size, generator=gen,
+                       device="cuda") * 0.02
+    return core, {k: v.clone() for k, v in module_params(core).items()}, head
+
+
+def _p21_layers(params, first, n):
+    """Layers [first, first + n) of a ``module_params`` tree, renamed
+    from 0."""
+    out = {}
+    for name, t in params.items():
+        i, rest = name.split("/", 2)[1:]
+        if first <= int(i) < first + n:
+            out[f"layers/{int(i) - first}/{rest}"] = t
+    return out
+
+
+def p21_pp(rank, world, ref_path, schedule, kwargs, fault=False):
+    """21 worker: this rank's stage (or chunks, stacked) of the 4 layers,
+    one call of ``schedule``; its per-microbatch losses and every
+    gradient against the no-pipelining run saved at ``ref_path`` (each
+    layer's against the same layer's), a second call timed, the
+    launches of the first.  ``fault``: rank 0's backward of microbatch 0
+    takes microbatch 1's stash and the other way round."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.models.bert import BertEncoderCore
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer import pipeline_parallel as pl
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules
+
+    vpp = kwargs.get("num_model_chunks")
+    ps.initialize_model_parallel(1, world, vpp)
+    orig = schedules._Ticks.backward
+    if fault:
+        def swapped(self, c, m, g):
+            if self.rank == 0 and m in (0, 1):
+                other = (1 - m, c)
+                if other in self.inflight:
+                    self.inflight[(m, c)], self.inflight[other] = (
+                        self.inflight[other], self.inflight[(m, c)])
+            return orig(self, c, m, g)
+
+        schedules._Ticks.backward = swapped
+    try:
+        ref = torch.load(ref_path, map_location="cuda")
+        chunks = vpp or 1
+        per = P21_LAYERS // (world * chunks)
+        stages = [c * world + rank for c in range(chunks)]
+        trees = [{"core": _p21_layers(ref["params"], v * per, per),
+                  "head": ref["head"]} for v in stages]
+        if vpp:
+            params = {"core": {k: torch.stack([t["core"][k] for t in trees])
+                               for k in trees[0]["core"]},
+                      "head": torch.stack([t["head"] for t in trees])}
+        else:
+            params = trees[0]
+        core = BertEncoderCore(_p21_cfg(), per, "cuda")
+        stage_fn, loss_fn = _p21_fns(core)
+        batch = (ref["inputs"], ref["targets"])
+
+        def call():
+            return getattr(pl, schedule)(
+                stage_fn, loss_fn, params, batch, num_microbatches=P21_NM,
+                loss_takes_params=True, **kwargs)
+
+        torch.cuda.synchronize()
+        _dispatch.reset_launches()
+        with comm.collective_log() as rec:
+            losses, grads = call()
+        torch.cuda.synchronize()
+        launches = _dispatch.launches()
+        errs = {}
+        for c, v in enumerate(stages):
+            want = _p21_layers(ref["grads"]["core"], v * per, per)
+            for k, w in want.items():
+                g = grads["core"][k][c] if vpp else grads["core"][k]
+                errs[f"layers/{v * per + int(k.split('/')[1])}/"
+                     f"{k.split('/', 2)[2]}"] = float(
+                    (g.float() - w).abs().max() / w.abs().max())
+        head = grads["head"][-1] if vpp else grads["head"]
+        if rank == world - 1:
+            errs["head"] = float((head - ref["grads"]["head"]).abs().max()
+                                 / ref["grads"]["head"].abs().max())
+        elif head.abs().max() != 0:
+            errs["head"] = float("inf")  # only the last stage meets the loss
+        loss_err = float(((losses - ref["losses"]).abs()
+                          / ref["losses"].abs()).max())
+        del grads
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return dict(loss_err=loss_err, losses=losses.tolist(), errs=errs,
+                    launches=launches, step_ms=(time.perf_counter() - t0)
+                    * 1e3, collectives=comm.collective_summary(rec),
+                    peak=torch.cuda.max_memory_allocated())
+    finally:
+        schedules._Ticks.backward = orig
+        ps.destroy_model_parallel()
+
+
+def p21_example(rank, world, argv):
+    """The ported ``train_gpt_pp`` on this rank (its group is up)."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples import train_gpt_pp
+
+    try:
+        return train_gpt_pp.main(list(argv))
+    finally:
+        ps.destroy_model_parallel()
+
+
+def phase21():
+    """Pipeline parallelism (ROADMAP item 7): BertEncoderCore stages at
+    BertConfig()'s widths, 4 layers over pp = 2 worker processes sharing
+    the card over gloo, S 128, 4 microbatches of 8 with BERT's
+    key-padding bias, the loss through the tied head (vocab 30522,
+    ``loss_takes_params=True``).  Each schedule — without_interleaving,
+    1f1b with both stash modes, with_interleaving and interleaved_1f1b
+    at vpp = 2 — held to ``forward_backward_no_pipelining`` over the
+    same 4 layers in this process: the per-microbatch losses and every
+    stage's gradients, beside a planted fault (a cotangent routed to
+    another microbatch's stash).  Then the ported ``train_gpt_pp --pp
+    2`` and ``--pp 2 --vpp 2`` at their defaults: the loss must fall."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.transformer import pipeline_parallel as pl
+
+    log(f"phase 21: BertEncoderCore pipeline (BertConfig() widths, "
+        f"{P21_LAYERS} layers, pp = {P21_PP}), S {BERT_SEQ}, {P21_NM} "
+        f"microbatches of {P21_MB}")
+    torch.cuda.empty_cache()
+    core, params, head = _p21_params()
+    inputs, targets = _p21_data()
+    stage_fn, loss_fn = _p21_fns(core)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, grads = pl.forward_backward_no_pipelining(
+        stage_fn, loss_fn, {"core": params, "head": head},
+        (inputs, targets), num_microbatches=P21_NM, loss_takes_params=True)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref = dict(params=params, head=head, inputs=inputs, targets=targets,
+               losses=losses, grads={"core": {k: v.float() for k, v in
+                                              grads["core"].items()},
+                                     "head": grads["head"].float()})
+    tmp = tempfile.mkdtemp(prefix="apex_p21_")
+    path = os.path.join(tmp, "ref.pt")
+    torch.save(ref, path)
+    del ref, grads, core, params, head, inputs, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = [(name, "p21_pp", dict(ref_path=path, schedule=fn, kwargs=kw))
+            for name, fn, kw in P21_SCHEDULES]
+    jobs.append(("fault", "p21_pp", dict(
+        ref_path=path, schedule="forward_backward_pipelining_1f1b",
+        kwargs=dict(stash="residuals"), fault=True)))
+    for name, extra in (("example", []), ("example_vpp", ["--vpp", "2"])):
+        jobs.append((name, "p21_example", dict(argv=[
+            "--pp", "2", *extra, "--device", "cuda", "--backend", "gloo"])))
+    try:
+        runs = _p16_spawn(P21_PP, "gloo", jobs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  no pipelining (this process): losses {losses.tolist()}, "
+        f"{ref_ms:.1f} ms")
+    out, failed = dict(ref_losses=losses.tolist(), ref_ms=ref_ms), []
+    for name, _, _ in P21_SCHEDULES:
+        rs = [r[name] for r in runs]
+        loss_err = max(r["loss_err"] for r in rs)
+        worst = max((v, n) for r in rs for n, v in r["errs"].items())
+        log(f"  {name}: losses max rel {loss_err:.3e} (limit "
+            f"{P21_LOSS_TOL}); gradients max rel {worst[0]:.3e} at "
+            f"{worst[1]} (limit {P21_GRAD_TOL}); second call "
+            f"{rs[0]['step_ms']:.1f} ms; rank 0 launches "
+            f"{rs[0]['launches']}, rank 1 {rs[1]['launches']}; rank 0 "
+            f"collectives {rs[0]['collectives']}; peak "
+            f"{rs[0]['peak'] / 1e9:.2f} GB")
+        if loss_err > P21_LOSS_TOL or worst[0] > P21_GRAD_TOL:
+            failed.append(f"{name} past its limits")
+        for r in rs:
+            if not r["launches"].get("flash_fwd") or \
+                    not r["launches"].get("layer_norm_bwd"):
+                failed.append(f"{name}: a rank launched no K1-K4")
+        out[name] = dict(loss_rel_err=loss_err, grad_rel_err=worst[0],
+                         worst_grad=worst[1], step_ms=rs[0]["step_ms"],
+                         launches_rank0=rs[0]["launches"],
+                         launches_rank1=rs[1]["launches"],
+                         collectives=rs[0]["collectives"],
+                         peak=rs[0]["peak"])
+    fault = max((v, n) for r in runs for n, v in r["fault"]["errs"].items())
+    log(f"  planted fault (rank 0's microbatch 0 and 1 cotangents swapped "
+        f"in the 1F1B stash): gradients max rel {fault[0]:.3e} at "
+        f"{fault[1]} (must exceed {P16_FAULT_FACTOR} x {P21_GRAD_TOL})")
+    out.update(fault_grad_rel_err=fault[0], fault_worst=fault[1])
+    if fault[0] <= P16_FAULT_FACTOR * P21_GRAD_TOL:
+        failed.append("the gradient check cannot tell the planted fault")
+    for name in ("example", "example_vpp"):
+        a, b = (r[name] for r in runs)
+        log(f"  train_gpt_pp --pp 2{' --vpp 2' if 'vpp' in name else ''}: "
+            f"losses {[round(x, 4) for x in a]}")
+        if a != b or not all(np.isfinite(a)) or not a[-1] < a[0]:
+            failed.append(f"{name}: losses not shared, finite and falling")
+        out[name] = a
+    if failed:
+        raise AssertionError(f"21: {failed}")
+    launches = {}
+    for name, _, _ in P21_SCHEDULES:
+        for k, n in out[name]["launches_rank0"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, out
+
+
 def main():
     import argparse
 
@@ -7417,6 +8535,15 @@ def main():
     parser.add_argument("--trainer", action="store_true",
                         help="run phase 18 alone (the trainer: GPT at dp "
                         "1, then dp 2 in worker processes)")
+    parser.add_argument("--context", action="store_true",
+                        help="run phase 19 alone (GPT under ring, zigzag "
+                        "and Ulysses context parallelism: two workers)")
+    parser.add_argument("--experts", action="store_true",
+                        help="run phase 20 alone (the MoE GPT at full "
+                        "size, and at ep = 2 on two workers)")
+    parser.add_argument("--pipeline", action="store_true",
+                        help="run phase 21 alone (the five pipeline "
+                        "schedules and train_gpt_pp on two workers)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -7504,6 +8631,26 @@ def main():
         print(json.dumps({"trainer": dict(run, launches=launches)}),
               flush=True)
         return
+    if args.context or args.experts or args.pipeline:
+        # each requested phase runs, and any failure fails the run after
+        # the others have logged their readings
+        out, failures = {}, []
+        for flag, name, fn in (("context", "context", phase19),
+                               ("experts", "experts", phase20),
+                               ("pipeline", "pipeline", phase21)):
+            if not getattr(args, flag):
+                continue
+            try:
+                res = fn()
+            except AssertionError as exc:
+                log(f"  {name} FAILED: {exc}")
+                failures.append(name)
+                continue
+            out[name] = dict(res[-1], launches=res[0])
+        if failures:
+            raise AssertionError(f"phases failed: {failures}")
+        print(json.dumps(out), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -7542,6 +8689,9 @@ def main():
     parallel = phase16(training["losses"])
     dap_launches, dap = phase17()
     trainer_launches, trainer = phase18(training["losses"])
+    cp_launches, context = phase19()
+    moe_launches, ep2_launches, experts = phase20()
+    pp_launches, pipeline = phase21()
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -7555,7 +8705,11 @@ def main():
             ("parallel_world1", parallel["launches_world1"]),
             ("parallel_tp2_rank0", parallel["launches_tp2"]),
             ("dap_rank0", dap_launches),
-            ("trainer", trainer_launches))
+            ("trainer", trainer_launches),
+            ("cp_rank0", cp_launches),
+            ("experts", moe_launches),
+            ("ep2_rank0", ep2_launches),
+            ("pp2_rank0", pp_launches))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -7576,6 +8730,8 @@ def main():
                     "evoformer_cross_check": evo_cross,
                     "parallel": parallel,
                     "dap": dap, "trainer": trainer,
+                    "context": context, "experts": experts,
+                    "pipeline": pipeline,
                     "decode_profile": profile}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

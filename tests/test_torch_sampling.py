@@ -15,7 +15,7 @@ counter-based hash of (seed, per-row words, vocab index).
   vocabulary that 40000 draws follow ``softmax(logits / temp)``;
 - the engine and scheduler: a sampled stream with a ``stream_seed``
   re-draws the same tokens under another scheduler (its prefill token
-  too: the port keys it by the stream, ROADMAP C5), two seeds differ,
+  too: the port keys it by the stream, ROADMAP C4), two seeds differ,
   and the sampled tokens lie in the top k.
 """
 

@@ -435,7 +435,7 @@ def test_chunk_past_the_rope_table(models, kv_wire, tol):
     chunk at offset 16, bucket 128).  The reference's ``jnp.take`` fills
     the RoPE rows past the table with NaN; the padded rows carry it into
     the next layer's V, and ``0 * NaN`` turns the live logits NaN (a
-    fault of the reference, ROADMAP C6).  The port reads the table's last
+    fault of the reference, ROADMAP C5).  The port reads the table's last
     row there: its logits equal the JAX monolithic prefill's (within
     1e-4 at f32, ``TOL_INT8_KV`` when the first chunk is read back
     through the int8 wire) and its pool stays finite."""

@@ -131,7 +131,11 @@ COUNTERPARTS = (
     "train/sharding.py", "train/trainer.py", "train/demo.py",
     "train/guarded.py", "amp/__init__.py", "amp/policy.py",
     "amp/scaler.py", "resilience/guards.py", "transformer/amp/__init__.py",
-    "transformer/amp/grad_scaler.py",
+    "transformer/amp/grad_scaler.py", "transformer/__init__.py",
+    "transformer/microbatches.py", "transformer/context_parallel.py",
+    "transformer/moe.py", "transformer/pipeline_parallel/__init__.py",
+    "transformer/pipeline_parallel/p2p_communication.py",
+    "transformer/pipeline_parallel/utils.py",
 )
 
 
@@ -251,6 +255,33 @@ PARALLEL_NAMES = {
                             "total_peak_flops", "percentile"),
     "contrib.optimizers": ("DistributedFusedAdam", "DistributedFusedLAMB",
                            "DistributedFusedLamb"),
+    # pipeline, context and expert parallelism (item 7)
+    "transformer.pipeline_parallel": (
+        "p2p_communication", "forward_backward_no_pipelining",
+        "forward_backward_pipelining_1f1b",
+        "forward_backward_pipelining_interleaved_1f1b",
+        "forward_backward_pipelining_with_interleaving",
+        "forward_backward_pipelining_without_interleaving",
+        "get_forward_backward_func", "get_current_global_batch_size",
+        "get_kth_microbatch", "get_num_microbatches", "listify_model",
+        "setup_microbatch_calculator", "split_batch_into_microbatches",
+        "update_num_microbatches"),
+    "transformer.pipeline_parallel.p2p_communication": (
+        "send_forward", "recv_forward", "send_backward", "recv_backward",
+        "send_forward_recv_backward", "send_backward_recv_forward",
+        "send_forward_recv_forward", "send_backward_recv_backward",
+        "_shift"),
+    "transformer.microbatches": (
+        "ConstantNumMicroBatches", "RampupBatchsizeNumMicroBatches",
+        "build_num_microbatches_calculator"),
+    "transformer.context_parallel": (
+        "ring_attention", "ulysses_attention", "zigzag_shard",
+        "zigzag_split", "zigzag_merge", "_block_attend", "_merge_block",
+        "_skipped_block", "_ring_attention_zigzag"),
+    "transformer.moe": ("MoeConfig", "SwitchMoe", "moe_dispatch_combine",
+                        "sync_moe_gradients"),
+    "models.gpt": ("gpt_lm_loss_cp", "_cp_world", "_cp_shard_rows",
+                   "_apply_with_moe_aux"),
 }
 
 

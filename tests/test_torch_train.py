@@ -316,17 +316,16 @@ def test_example_trains_three_steps_on_cpu(tmp_path):
     ["--sequence-parallel"],
 ])
 def test_example_refuses_unported_parallelism(flag):
-    """Context parallelism and experts are not ported (ROADMAP item 7).
-    Tensor and sequence parallelism are (item 5): ``--tp 2`` needs a
-    world of at least 2 ranks (one process here), and
-    ``--sequence-parallel`` at tp = 1 trains the dense model."""
-    if flag[0] == "--tp":
+    """Every axis is ported now (tensor and sequence parallelism in item
+    5, context parallelism and experts in item 7); what is refused is a
+    world that cannot hold the layout: ``--tp 2`` and ``--context-parallel
+    ring`` (cp 2 by default) need a world of at least 2 ranks (one
+    process here).  ``--sequence-parallel`` at tp = 1 trains the dense
+    model and ``--num-experts 4`` the MoE model at ep = 1."""
+    if flag[0] in ("--tp", "--context-parallel"):
         with pytest.raises(RuntimeError, match="not divisible"):
             train_gpt.main(["--tiny", "--device", "cpu", *flag])
-    elif flag[0] == "--sequence-parallel":
+    else:
         losses = train_gpt.main(["--tiny", "--device", "cpu", "--steps", "1",
                                  "--batch", "2", "--seq-len", "16", *flag])
         assert len(losses) == 1 and np.isfinite(losses).all()
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_gpt.main(["--tiny", "--device", "cpu", *flag])

@@ -411,6 +411,35 @@ def example_case(module, argv):
         ps.destroy_model_parallel()
 
 
+def train_gpt_case(argv):
+    """``examples.train_gpt``'s ``build`` and ``train_step`` on this rank
+    (at world 1 when called in the test's own process): the losses, the
+    gradients as ``train_step`` hands them to the optimizer at step 0
+    (this rank's shards), the mesh and whether DDP wraps the model."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples import train_gpt
+
+    try:
+        args = train_gpt.parse_args(list(argv))
+        _, model, opt, batches, ddp = train_gpt.build(args)
+        grads0 = {}
+        step = opt.step
+
+        def read_then_step(*a, **k):
+            if not grads0:
+                grads0.update({n: _np(p.grad)
+                               for n, p in model.named_parameters()})
+            return step(*a, **k)
+
+        opt.step = read_then_step
+        losses = [float(train_gpt.train_step(model, opt, next(batches), ddp))
+                  for _ in range(args.steps)]
+        return dict(losses=losses, grads0=grads0,
+                    mesh=dict(ps.get_mesh().shape), ddp=ddp is not None)
+    finally:
+        ps.destroy_model_parallel()
+
+
 def ce_init_case(logits, target, g, cfg_kwargs, tp):
     """The vocab-parallel cross entropy (this rank's vocab slice of the
     full ``logits``, smoothing 0 and 0.1): loss and this slice's
@@ -867,5 +896,287 @@ def grad_scaler_case(tp):
             grads, state)
         return dict(synced=float(synced), plain=float(plain),
                     log=[dict(r) for r in log])
+    finally:
+        ps.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# pipeline, context and expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def _pp_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _pp_loss(y, t):
+    return torch.mean((y - t) ** 2)
+
+
+def _pp_loss_head(p, y, t):
+    return torch.mean((y @ p["head"] - t) ** 2)
+
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return _np(tree)
+
+
+def p2p_case(x):
+    """Every shift of ``comm``'s pipeline wire over pp = world: the value
+    each rank receives for ``x * (rank + 1)`` and the gradient of its
+    input for the cotangent ``y * 3 + rank``, cyclic and not, forward
+    and backward; and the call log of one shift."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p,
+    )
+
+    world = torch.distributed.get_world_size()
+    ps.initialize_model_parallel(1, world)
+    try:
+        rank = ps.get_pipeline_model_parallel_rank()
+        out = {}
+        for name in ("send_forward_recv_forward",
+                     "send_backward_recv_backward"):
+            for cyclic in (False, True):
+                inp = (torch.from_numpy(x) * (rank + 1)).requires_grad_(True)
+                y = getattr(p2p, name)(inp, cyclic=cyclic)
+                (g,) = torch.autograd.grad(y, inp, y.detach() * 3 + rank)
+                out[(name, cyclic)] = (_np(y), _np(g))
+        with comm.collective_log() as log:
+            p2p.send_forward_recv_forward(torch.from_numpy(x))
+        out["log"] = [dict(r) for r in log]
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def pipeline_case(stacked, inputs, targets, cases):
+    """Each case ``(name, schedule, kwargs)`` over pp = world on this
+    rank's stages of ``stacked`` (numpy leaves (pp·vpp, ...), virtual
+    stage ``c·pp + r`` on rank r): ``(losses, grads)``.  ``kwargs``
+    takes ``vpp`` (chunks, stacked) and ``head`` (the loss through the
+    stage's ``head`` leaf, ``loss_takes_params=True``)."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.transformer import pipeline_parallel as pl
+
+    world = torch.distributed.get_world_size()
+    out = {}
+    for name, schedule, kwargs in cases:
+        kwargs = dict(kwargs)
+        vpp = kwargs.pop("vpp", None)
+        head = kwargs.pop("head", False)
+        ps.initialize_model_parallel(1, world, vpp)
+        try:
+            r = ps.get_pipeline_model_parallel_rank()
+            if vpp:
+                params = {k: torch.from_numpy(np.stack(
+                    [v[c * world + r] for c in range(vpp)]))
+                    for k, v in stacked.items()}
+            else:
+                params = {k: torch.from_numpy(v[r].copy())
+                          for k, v in stacked.items()}
+            if not head:
+                params.pop("head", None)
+            losses, grads = getattr(pl, schedule)(
+                _pp_stage, _pp_loss_head if head else _pp_loss, params,
+                (torch.from_numpy(inputs), torch.from_numpy(targets)),
+                num_microbatches=inputs.shape[0], loss_takes_params=head,
+                **kwargs)
+            out[name] = (_np(losses),
+                         None if grads is None else _tree_np(grads))
+        finally:
+            ps.destroy_model_parallel()
+    return out
+
+
+def _cp_local(x, world, rank, layout, axis=2):
+    from apex_tpu_torch.transformer.context_parallel import zigzag_shard
+
+    t = torch.from_numpy(x)
+    if layout == "zigzag":
+        return zigzag_shard(t, rank, world, axis=axis).contiguous()
+    n = t.shape[axis] // world
+    return t.narrow(axis, rank * n, n).contiguous()
+
+
+def _drop_dlse():
+    """Plant the ring's fault: K4's twin fed no lse cotangent."""
+    from apex_tpu_torch.ops import attention
+
+    orig = attention._Flash.backward
+
+    def backward(ctx, do, dlse):
+        return orig(ctx, do, None)
+
+    attention._Flash.backward = staticmethod(backward)
+    return lambda: setattr(attention._Flash, "backward", staticmethod(orig))
+
+
+def cp_case(q, k, v, bias, cases, seed):
+    """Each case ``(name, kind, kwargs)`` over cp = world on this rank's
+    rows of the global (B, H, S, D) q, k, v (and the (B, 1, 1, S)
+    key-padding ``bias`` when ``kwargs["bias"]``): kind "ring",
+    "zigzag" or "ulysses"; ``kwargs`` takes ``causal``, ``dropout_p``
+    (seeded by the int32 ``seed``) and ``fault="dlse"``.  Returns the
+    local output and the q/k/v gradients for the cotangent ``2 * out``.
+    Also the refusals that need cp > 1."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer import context_parallel as cpl
+
+    world = torch.distributed.get_world_size()
+    ps.initialize_model_parallel(1, 1, None, world)
+    try:
+        r = ps.get_context_parallel_rank()
+        out = {}
+        for name, kind, kw in cases:
+            kw = dict(kw)
+            layout = "zigzag" if kind == "zigzag" else "contiguous"
+            loc = [_cp_local(a, world, r, layout).requires_grad_(True)
+                   for a in (q, k, v)]
+            b = (_cp_local(bias, world, r, layout, axis=3)
+                 if kw.pop("bias", False) else None)
+            fault = kw.pop("fault", None)
+            if kw.get("dropout_p"):
+                kw["dropout_seed"] = torch.tensor([seed], dtype=torch.int32)
+            undo = _drop_dlse() if fault == "dlse" else None
+            try:
+                with comm.collective_log() as log:
+                    if kind == "ulysses":
+                        o = cpl.ulysses_attention(*loc, b, **kw)
+                    else:
+                        o = cpl.ring_attention(*loc, b, layout=layout, **kw)
+                    grads = torch.autograd.grad(o, loc, 2 * o.detach())
+            finally:
+                if undo:
+                    undo()
+            out[name] = (_np(o), [_np(g) for g in grads],
+                         comm.collective_summary(log))
+        errors = {}
+        qq = torch.zeros(1, 3, 4, 8)
+        for probe, fn in (
+            ("heads", lambda: cpl.ulysses_attention(qq, qq, qq)),
+            ("ulysses_bias", lambda: cpl.ulysses_attention(
+                torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4, 8),
+                torch.zeros(1, 2, 4, 8), torch.zeros(1, 1, 4, 4))),
+        ):
+            try:
+                fn()
+                errors[probe] = None
+            except ValueError as e:
+                errors[probe] = str(e)
+        out["errors"] = errors
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def gpt_cp_case(params_np, cfg_kwargs, ids, modes, experts=0):
+    """GPT under cp = world in each mode ("ring", "ring_zigzag",
+    "ulysses") from the JAX tree ``params_np``: ``gpt_lm_loss_cp`` on
+    this rank's rows of ``ids`` (S, B), its gradients as the rank has
+    them, and after the mean over cp (JAX tree layout)."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.models import convert
+    from apex_tpu_torch.models.gpt import GptConfig, gpt_lm_loss_cp
+    from apex_tpu_torch.parallel import comm
+
+    world = torch.distributed.get_world_size()
+    out = {}
+    for mode in modes:
+        ps.initialize_model_parallel(1, 1, None, world)
+        try:
+            cfg = GptConfig(**cfg_kwargs, dtype=torch.float32,
+                            context_parallel=mode, num_experts=experts)
+            model = convert.from_jax_params(params_np, cfg, device="cpu")
+            r = ps.get_context_parallel_rank()
+            local = _cp_local(ids, world, r,
+                              "zigzag" if mode == "ring_zigzag"
+                              else "contiguous", axis=0)
+            with comm.collective_log() as log:
+                loss = gpt_lm_loss_cp(model, local)
+                loss.backward()
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            rank_grads = convert.to_jax_params(
+                model, {n: g.clone() for n, g in grads.items()})
+            comm.sync_gradients(list(grads.values()), "cp")
+            out[mode] = (float(loss.detach()), rank_grads,
+                         convert.to_jax_params(model, grads),
+                         comm.collective_summary(log))
+        finally:
+            ps.destroy_model_parallel()
+    return out
+
+
+def moe_case(router, w1, w2, x, cfg_kwargs, with_sync):
+    """SwitchMoe at ep = dp = world over this rank's batch columns of
+    ``x`` (S, B, H), the experts cut from the global (E, ...) weights:
+    the output, the aux loss, the gradients of ``mean(y**2) + 0.01 aux``
+    (before and, with ``with_sync``, after ``sync_moe_gradients``), the
+    call log; and the ep-invariant init (this rank's seeded experts)."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.moe import (
+        MoeConfig,
+        SwitchMoe,
+        sync_moe_gradients,
+    )
+
+    world = torch.distributed.get_world_size()
+    ps.initialize_model_parallel(1)
+    try:
+        r = ps.get_data_parallel_rank()
+        cfg = MoeConfig(**cfg_kwargs, dtype=torch.float32)
+        m = SwitchMoe(cfg, device="cpu")
+        e_l = cfg.num_experts // world
+        seeded = {n: _np(p) for n, p in m.named_parameters()}
+        with torch.no_grad():
+            m.router.copy_(torch.from_numpy(router))
+            m.expert_w1.copy_(torch.from_numpy(w1[r * e_l:(r + 1) * e_l]))
+            m.expert_w2.copy_(torch.from_numpy(w2[r * e_l:(r + 1) * e_l]))
+        xl = torch.from_numpy(x).chunk(world, dim=1)[r].contiguous()
+        with comm.collective_log() as log:
+            y, aux = m(xl)
+            loss = torch.mean(y ** 2) + 0.01 * aux
+            loss.backward()
+        raw = {n: _np(p.grad) for n, p in m.named_parameters()}
+        synced = None
+        if with_sync:
+            sync_moe_gradients(m)
+            synced = {n: _np(p.grad) for n, p in m.named_parameters()}
+        return dict(y=_np(y), aux=float(aux), raw=raw, synced=synced,
+                    log=comm.collective_summary(log), seeded=seeded)
+    finally:
+        ps.destroy_model_parallel()
+
+
+def moe_stats_case(logits, top_k, capacity, scales):
+    """``moe_dispatch_combine`` with its stats averaged over cp = world
+    on this rank's rows of the global router ``logits``: for each
+    ``stats_grad_scale`` in ``scales``, the aux loss and the gradient of
+    ``aux + sum(combine * w)`` (w fixed) w.r.t. the rank's logits."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.transformer.moe import moe_dispatch_combine
+
+    world = torch.distributed.get_world_size()
+    ps.initialize_model_parallel(1, 1, None, world)
+    try:
+        r = ps.get_context_parallel_rank()
+        out = {}
+        for scale in scales:
+            lg = torch.from_numpy(logits).chunk(world)[r].clone()
+            lg.requires_grad_(True)
+            probs = torch.softmax(lg, dim=-1)
+            d, c, aux = moe_dispatch_combine(probs, top_k, capacity, "cp",
+                                             scale)
+            w = torch.arange(c.numel(), dtype=torch.float32).reshape(
+                c.shape) / c.numel()
+            (g,) = torch.autograd.grad(aux + (c * w).sum(), lg)
+            out[scale] = (float(aux.detach()), _np(d), _np(c), _np(g))
+        return out
     finally:
         ps.destroy_model_parallel()

@@ -21,21 +21,48 @@ from typing import Any, Optional, Union
 
 import torch
 
-__all__ = ["Properties", "opt_levels", "Policy"]
+__all__ = ["Properties", "opt_levels", "Policy", "cast_floats", "to_f32",
+           "cast_like"]
+
+
+def _map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of dicts, lists, tuples and
+    NamedTuples (and the leaves at the same places of ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, *vs) for vs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
 
 
 def cast_floats(tree, dtype):
     """Every floating-point tensor of a tree of dicts, lists and tuples
-    cast to ``dtype``; other leaves unchanged."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(dtype) if tree.is_floating_point() else tree
-    if isinstance(tree, dict):
-        return {k: cast_floats(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(cast_floats(v, dtype) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(cast_floats(v, dtype) for v in tree)
-    return tree
+    cast to ``dtype``; other leaves unchanged (the port's copy of
+    ``apex_tpu/_tree_util.py``'s)."""
+    return _map(lambda x: x.to(dtype) if _is_float(x) else x, tree)
+
+
+def to_f32(tree):
+    """f32 copies of the floating leaves (master weights, master
+    gradients); integer leaves pass through.  A leaf already in f32 is
+    copied too, so a master never aliases the model's tensor."""
+    return _map(lambda x: x.to(torch.float32, copy=True) if _is_float(x)
+                else x, tree)
+
+
+def cast_like(ref_tree, tree):
+    """Each floating leaf of ``tree`` cast to the dtype of the matching
+    ``ref_tree`` leaf (the master -> model copy); other leaves
+    untouched."""
+    return _map(lambda x, r: x.to(r.dtype) if _is_float(x) else x, tree,
+                ref_tree)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -131,11 +131,17 @@ class StaticLossScaler(DynamicLossScaler):
 def _as_device_count(opt_state, device):
     """A functional optimizer state with its step count as a 0-d int32
     tensor on ``device`` (so a skipped step can keep the old count with
-    a select, as the reference's device counter does)."""
+    a select, as the reference's device counter does).  A count restored
+    elsewhere (a checkpoint read without a template tensor for it comes
+    back on the host) moves to ``device`` too, so the update's
+    arithmetic is the same after a resume as before it."""
     count = getattr(opt_state, "count", None)
     if isinstance(count, int) and not isinstance(count, bool):
         return opt_state._replace(count=torch.tensor(
             count, dtype=torch.int32, device=device))
+    if isinstance(count, torch.Tensor) and count.device != device:
+        return opt_state._replace(count=count.to(device=device,
+                                                 dtype=torch.int32))
     return opt_state
 
 

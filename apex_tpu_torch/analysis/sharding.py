@@ -14,21 +14,28 @@ Counterpart of the parts of ``apex_tpu/analysis/sharding.py`` (and of
   the ``/``-joined path wins; scalars and one-element leaves are never
   partitioned; a leaf no rule covers raises naming its path) and
   :func:`spec_dim_factors`;
-- :class:`Finding` / :class:`Report` with ``errors()``, ``findings`` and
-  ``render()``: what :meth:`apex_tpu_torch.train.TrainStep.verify`
-  returns.
+- :class:`Finding` / :class:`Report`, re-exported from
+  :mod:`apex_tpu_torch.analysis.findings` (the one schema): what
+  :meth:`apex_tpu_torch.train.TrainStep.verify` returns.
 
-The reference's HLO, concurrency, memory and purity passes are not here
-(ROADMAP item 9): the trainer checks its plan against the collective
-call log of :mod:`apex_tpu_torch.parallel.comm` instead.
+The reference's HLO and memory passes are not here (ROADMAP item 9):
+the trainer checks its plan against the collective call log of
+:mod:`apex_tpu_torch.parallel.comm` instead.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import re
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+from apex_tpu_torch.analysis.findings import (  # noqa: F401
+    ERROR,
+    INFO,
+    WARNING,
+    Finding,
+    Report,
+)
 
 __all__ = [
     "PartitionSpec",
@@ -45,11 +52,6 @@ __all__ = [
     "match_partition_rules",
     "spec_dim_factors",
 ]
-
-ERROR = "error"
-WARNING = "warning"
-INFO = "info"
-
 
 class PartitionSpec(tuple):
     """How a leaf's dimensions map onto mesh axes: one entry per leading
@@ -213,55 +215,3 @@ def spec_dim_factors(spec, mesh: Dict[str, int], rank: int) -> List[int]:
         else:
             factors.append(int(mesh.get(e, 1)))
     return factors
-
-
-# ---------------------------------------------------------------------------
-# findings
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class Finding:
-    """One defect: rule id, severity, where, what, how to fix."""
-
-    rule: str
-    severity: str
-    path: str
-    message: str
-    hint: str = ""
-
-    def to_json(self) -> dict:
-        return dataclasses.asdict(self)
-
-    def render(self) -> str:
-        loc = f" @ {self.path}" if self.path else ""
-        hint = f"\n    fix: {self.hint}" if self.hint else ""
-        return (f"[{self.severity.upper()}] {self.rule}{loc}: "
-                f"{self.message}{hint}")
-
-
-class Report:
-    """The findings of one check, with the sections it attached."""
-
-    def __init__(self, name: str = "", findings=(),
-                 sections: Optional[Dict[str, Any]] = None):
-        self.name = name
-        self.findings: List[Finding] = list(findings)
-        self.sections: Dict[str, Any] = dict(sections or {})
-
-    def extend(self, findings) -> None:
-        self.findings.extend(findings)
-
-    def errors(self) -> List[Finding]:
-        return [f for f in self.findings if f.severity == ERROR]
-
-    def warnings(self) -> List[Finding]:
-        return [f for f in self.findings if f.severity == WARNING]
-
-    def by_rule(self, rule: str) -> List[Finding]:
-        return [f for f in self.findings if f.rule == rule]
-
-    def render(self) -> str:
-        head = (f"{self.name}: {len(self.errors())} error(s), "
-                f"{len(self.warnings())} warning(s)")
-        return "\n".join([head] + [f.render() for f in self.findings])

@@ -22,9 +22,8 @@ Surface (as the reference's):
   ``max_to_keep`` / ``save_interval_steps`` (orbax's policy: the first
   save, then every step divisible by the interval).
 - :func:`snapshot_training_state` / :func:`restore_training_state` —
-  params + optimizer state + step + the RNG tracker's states + the
-  stream cursor in one tree.  The amp scaler's piece waits for ROADMAP
-  item 10.
+  params + optimizer state + step + the amp scaler's state + the RNG
+  tracker's states + the stream cursor in one tree.
 
 **Several processes.**  When ``torch.distributed`` runs a world of more
 than one process, a save is collective: every rank calls it with its
@@ -545,11 +544,16 @@ class CheckpointManager:
 
 
 def snapshot_training_state(params, opt_state=None, *,
-                            step: Optional[int] = None, stream=None,
+                            step: Optional[int] = None, amp_handle=None,
+                            amp_state=None, stream=None,
                             extra=None) -> dict:
     """One checkpointable tree of everything a resume needs: ``params``
-    and ``opt_state`` (trees of tensors), ``step``, the RNG tracker's
-    generator states (captured automatically), the stream cursor
+    and ``opt_state`` (trees of tensors), ``step``, the amp scaler's
+    state (``amp_handle.state_dict(amp_state)`` under ``"amp"``: loss
+    scale, growth tracker, hysteresis; the masters live in
+    ``amp_state.master_params``, pass them or the whole ``AmpState`` as
+    ``extra``), the RNG tracker's generator states (captured
+    automatically), the stream cursor
     (:meth:`apex_tpu_torch.goodput.ResumableStream.state`) and ``extra``.
     Pass the live tensors (``p.detach()``) and restore with this tree as
     the template to load them back in place."""
@@ -562,6 +566,8 @@ def snapshot_training_state(params, opt_state=None, *,
         state["opt_state"] = opt_state
     if step is not None:
         state["step"] = np.asarray(step, np.int64)
+    if amp_handle is not None and amp_state is not None:
+        state["amp"] = amp_handle.state_dict(amp_state)
     rng = get_tpu_rng_tracker().get_states()
     if rng:
         state["rng"] = rng
@@ -572,19 +578,24 @@ def snapshot_training_state(params, opt_state=None, *,
     return state
 
 
-def restore_training_state(restored: dict):
+def restore_training_state(restored: dict, *, amp_handle=None,
+                           amp_state=None):
     """Unpack a :func:`snapshot_training_state` tree after restore:
-    re-seats the RNG tracker's streams and returns ``(params, opt_state,
-    step, amp_state, extra)`` with None for absent pieces (``amp_state``
-    is always None until ``amp/frontend.py`` is ported, ROADMAP item
-    10)."""
+    re-seats the RNG tracker's streams and, given ``amp_handle`` and an
+    ``amp_state`` to update, the amp scaler's state
+    (``amp_handle.load_state_dict``); returns ``(params, opt_state,
+    step, amp_state, extra)`` with None for absent pieces."""
     from apex_tpu_torch.transformer.tensor_parallel.random import (
         get_tpu_rng_tracker,
     )
 
     if "rng" in restored:
         get_tpu_rng_tracker().set_states(restored["rng"])
+    new_amp_state = None
+    if amp_handle is not None and amp_state is not None and "amp" in restored:
+        new_amp_state = amp_handle.load_state_dict(amp_state,
+                                                   restored["amp"])
     step = restored.get("step")
     return (restored.get("params"), restored.get("opt_state"),
-            int(step) if step is not None else None, None,
+            int(step) if step is not None else None, new_amp_state,
             restored.get("extra"))

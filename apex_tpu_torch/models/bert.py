@@ -62,6 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch import parallel_state as ps
+from apex_tpu_torch.amp.lists import carry_policy
 from apex_tpu_torch.models.gpt import (
     LayerNorm,
     _tp_world,
@@ -211,7 +212,8 @@ class BertSelfAttention(nn.Module):
             # whatever the policy (K3 is invisible to it), so only a
             # block without one needs this.  The seed is an explicit
             # operand: the recompute draws the same keep mask
-            ctx = checkpoint(core, q, k, v, attention_bias, dropout_seed,
+            ctx = checkpoint(carry_policy(core), q, k, v, attention_bias,
+                             dropout_seed,
                              use_reentrant=False, preserve_rng_state=False)
         else:
             ctx = core(q, k, v, attention_bias, dropout_seed)
@@ -596,7 +598,7 @@ def bert_pretrain_loss(model: BertForPreTraining, batch, *,
         total = count = 0.0
         for hc, lc, wc in zip(h.chunk(nc), labels.chunk(nc),
                               weights.chunk(nc)):
-            s, c = checkpoint(rows_loss, hc, dec, lc, wc,
+            s, c = checkpoint(carry_policy(rows_loss), hc, dec, lc, wc,
                               use_reentrant=False, preserve_rng_state=False)
             total, count = total + s, count + c
     else:

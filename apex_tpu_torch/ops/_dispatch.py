@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -40,6 +40,7 @@ __all__ = [
     "count_launch",
     "launch",
     "launches",
+    "launch_dtypes",
     "reset_launches",
     "recorded_apart",
     "replay_record",
@@ -101,20 +102,30 @@ def clear_paths() -> None:
 
 #: kernel name -> launches since the last :func:`reset_launches`
 _LAUNCHES: Dict[str, int] = {}
+#: kernel name -> {operand dtype: launches}, for the launches whose
+#: wrapper names the dtype of the operands it passed
+_DTYPES: Dict[str, Dict[str, int]] = {}
 
 
-def count_launch(kernel: str) -> None:
-    """Called by a kernel wrapper right after its kernel launched."""
+def count_launch(kernel: str, dtype: Optional[torch.dtype] = None) -> None:
+    """Called by a kernel wrapper right after its kernel launched;
+    ``dtype`` (of the main operand, e.g. the rows of K1/K2) is tallied
+    apart (:func:`launch_dtypes`)."""
     _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+    if dtype is not None:
+        by = _DTYPES.setdefault(kernel, {})
+        name = str(dtype).replace("torch.", "")
+        by[name] = by.get(name, 0) + 1
 
 
 def launch(kernel: str, argtypes: Sequence, device: torch.device,
-           *args) -> None:
+           *args, dtype: Optional[torch.dtype] = None) -> None:
     """Call the C entry point ``kernel`` of its source (``csrc/<kernel>.cu``
     or the one ``_build.ENTRY_POINTS`` names; built on first use) with
     ``args`` and the current stream of ``device`` appended, raise if it
-    reports a CUDA error, and count the launch under ``kernel``.
-    ``argtypes`` are its ctypes argument types, the stream's last."""
+    reports a CUDA error, and count the launch under ``kernel`` (and
+    under ``dtype``, the main operand's, when given).  ``argtypes`` are
+    its ctypes argument types, the stream's last."""
     fn = getattr(_build.load(_build.library(kernel)), kernel)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
@@ -122,15 +133,23 @@ def launch(kernel: str, argtypes: Sequence, device: torch.device,
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(kernel, rc)
-    count_launch(kernel)
+    count_launch(kernel, dtype)
 
 
 def launches() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def launch_dtypes() -> Dict[str, Dict[str, int]]:
+    """kernel -> {dtype name: launches} since the last
+    :func:`reset_launches` (what shows, e.g., that K1/K2 ran on f32 rows
+    under O1)."""
+    return {k: dict(v) for k, v in _DTYPES.items()}
+
+
 def reset_launches() -> None:
     _LAUNCHES.clear()
+    _DTYPES.clear()
 
 
 @contextlib.contextmanager
@@ -142,17 +161,22 @@ def recorded_apart() -> Iterator[dict]:
     capture (where no kernel runs); the engine records them so, and adds
     them on every replay (:func:`replay_record`)."""
     saved_launches, saved_paths = dict(_LAUNCHES), dict(_PATH_LOG)
+    saved_dtypes = launch_dtypes()
     _LAUNCHES.clear()
     _PATH_LOG.clear()
+    _DTYPES.clear()
     rec: dict = {}
     try:
         yield rec
     finally:
         rec["launches"], rec["paths"] = dict(_LAUNCHES), dict(_PATH_LOG)
+        rec["dtypes"] = launch_dtypes()
         _LAUNCHES.clear()
         _LAUNCHES.update(saved_launches)
         _PATH_LOG.clear()
         _PATH_LOG.update(saved_paths)
+        _DTYPES.clear()
+        _DTYPES.update(saved_dtypes)
 
 
 def replay_record(rec: dict) -> None:
@@ -161,4 +185,8 @@ def replay_record(rec: dict) -> None:
     record its paths."""
     for kernel, n in rec["launches"].items():
         _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + n
+    for kernel, by in rec.get("dtypes", {}).items():
+        mine = _DTYPES.setdefault(kernel, {})
+        for name, n in by.items():
+            mine[name] = mine.get(name, 0) + n
     _PATH_LOG.update(rec["paths"])

@@ -772,7 +772,13 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False,
     gradient comes from K5 (``flash_dbias``) on the card and from
     :func:`flash_dbias_reference` on the CPU.  ``dropout_p`` > 0 drops attention
     probabilities with the kernels' keep mask, seeded by ``dropout_seed``
-    (an int32 tensor) or else by a seed drawn from ``generator``."""
+    (an int32 tensor) or else by a seed drawn from ``generator``.  Under
+    an active O1 policy (:mod:`apex_tpu_torch.amp.lists`) q, k and v are
+    cast to its half dtype first, so the kernels take the cast tensors
+    and the gradients come back in the caller's dtypes."""
+    from apex_tpu_torch.amp.lists import amp_cast
+
+    q, k, v = amp_cast("attention", q, k, v)
     return _attend("flash_attention", q, k, v, bias, causal=causal,
                    scale=scale, dropout_p=dropout_p, generator=generator,
                    dropout_seed=dropout_seed, bias_grad=bias_grad)[0]
@@ -786,8 +792,11 @@ def flash_attention_with_lse(q, k, v, bias=None, *, causal: bool = False,
     """Fused attention returning ``(o, lse)``: o (B,H,Sq,D) in the input
     dtype and the undropped f32 row logsumexp (B,H,Sq), both
     differentiable (the lse gradient folds into delta, as in
-    ``_flash_lse_bwd``).  ``bias`` and dropout as in
+    ``_flash_lse_bwd``).  ``bias``, dropout and the O1 cast as in
     :func:`flash_attention` (the bias gets no gradient)."""
+    from apex_tpu_torch.amp.lists import amp_cast
+
+    q, k, v = amp_cast("attention", q, k, v)
     return _attend("flash_attention_with_lse", q, k, v, bias, causal=causal,
                    scale=scale, dropout_p=dropout_p, generator=generator,
                    dropout_seed=dropout_seed)

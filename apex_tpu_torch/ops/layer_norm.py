@@ -238,7 +238,7 @@ def layer_norm_fwd(
         KERNEL, _FWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows,
         hidden, float(eps), int(rms), _DTYPE_CODES[x2d.dtype], plan.vec,
-        plan.per_lane, plan.lanes, plan.grid,
+        plan.per_lane, plan.lanes, plan.grid, dtype=x2d.dtype,
     )
     return y, mu, rstd
 
@@ -274,7 +274,7 @@ def layer_norm_bwd(
         b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
         dx.data_ptr(), part.data_ptr(), rows, hidden, int(rms),
         int(x_is_output), _DTYPE_CODES[x2d.dtype], plan.vec, plan.per_lane,
-        plan.lanes, plan.grid,
+        plan.lanes, plan.grid, dtype=x2d.dtype,
     )
     dw, db = part.sum(dim=0)
     return dx, dw, db
@@ -324,6 +324,12 @@ class _Norm2d(torch.autograd.Function):
 
 def _run(x, normalized_shape, w: Optional[torch.Tensor],
          b: Optional[torch.Tensor], eps, rms, memory_efficient):
+    from apex_tpu_torch.amp.lists import amp_cast
+
+    # under O1 the rows, weight and bias are cast to f32 before the route
+    # is chosen: K1/K2 take their f32 instance, and the gradients come
+    # back in the caller's dtypes through the casts' backward
+    x, w, b = amp_cast("rms_norm" if rms else "layer_norm", x, w, b)
     shape_t = (
         (normalized_shape,)
         if isinstance(normalized_shape, int)

@@ -14,9 +14,10 @@ get ``-10000.0`` after scaling.  :func:`scaled_masked_softmax` gives a
 row whose every position is masked exact zeros; the causal variant
 masks the strict upper triangle of square scores.
 
-The reference casts the input by the active amp policy first
-(``amp_cast``); amp is not ported (ROADMAP item 10), so no policy is
-ever active and the input passes as it is.
+Each op casts its input by the active amp policy first (``amp_cast``
+under ``"scaled_softmax"`` or ``"scaled_masked_softmax"``, both fp32
+ops): under O1 a half input runs, and comes back, in f32; with no
+policy active the input passes as it is.
 """
 
 from __future__ import annotations
@@ -112,22 +113,30 @@ class _ScaledUpperTriangMaskedSoftmax(torch.autograd.Function):
         return _softmax_bwd(y, g, ctx.scale), None
 
 
+def _amp(name, x):
+    from apex_tpu_torch.amp.lists import amp_cast
+
+    return amp_cast(name, x)
+
+
 def scaled_softmax(x, scale):
     """``softmax(x * scale)`` — ≙ ScaledSoftmax."""
-    return _ScaledSoftmax.apply(x, float(scale))
+    return _ScaledSoftmax.apply(_amp("scaled_softmax", x), float(scale))
 
 
 def scaled_masked_softmax(x, mask, scale):
     """``softmax(mask_fill(x * scale))`` over (b, np, sq, sk) — ≙
     ScaledMaskedSoftmax; ``mask`` boolean, broadcastable (e.g. (b, 1,
     sq, sk)), True = masked, or None."""
-    return _ScaledMaskedSoftmax.apply(x, mask, float(scale))
+    return _ScaledMaskedSoftmax.apply(_amp("scaled_masked_softmax", x),
+                                      mask, float(scale))
 
 
 def scaled_upper_triang_masked_softmax(x, scale):
     """Causal softmax over (b, sq, sk), sq == sk — ≙
     ScaledUpperTriangMaskedSoftmax.  Row 0 attends only to column 0."""
-    return _ScaledUpperTriangMaskedSoftmax.apply(x, float(scale))
+    return _ScaledUpperTriangMaskedSoftmax.apply(_amp("scaled_softmax", x),
+                                                 float(scale))
 
 
 def generic_scaled_masked_softmax(x, mask, scale):

@@ -14,9 +14,10 @@ as the reference's custom backward does.
 - the loss is f32 whatever the logits' dtype; the gradient comes back in
   the logits' dtype.
 
-The reference casts the logits by the active amp policy first
-(``amp_cast``); amp is not ported (ROADMAP item 10), so no policy is
-ever active and the logits pass as they are.
+The logits are cast by the active amp policy first (``amp_cast``
+under ``"xentropy"``, an fp32 op): under O1 half logits are widened to
+f32, and their gradient comes back in the caller's dtype; with no
+policy active they pass as they are.
 """
 
 from __future__ import annotations
@@ -72,7 +73,10 @@ def softmax_cross_entropy_loss(logits, labels, smoothing: float = 0.0,
                                ignore_idx: int = -100):
     """Per-example smoothed cross entropy ``(N,)`` f32 of ``logits``
     ``(N, V)`` against integer ``labels`` ``(N,)``."""
-    return _Xent.apply(logits, labels, float(smoothing), int(ignore_idx))
+    from apex_tpu_torch.amp.lists import amp_cast
+
+    return _Xent.apply(amp_cast("xentropy", logits), labels,
+                       float(smoothing), int(ignore_idx))
 
 
 class SoftmaxCrossEntropyLoss:

@@ -216,9 +216,9 @@ def _verify_guarded(step: GuardedStep, level: str, example_batch) -> None:
         with comm.collective_log() as log:
             step.compute_grads(step.state["params"], step.state["scaler"],
                                example_batch)
-    report = Report("guarded/compute_grads",
-                    check_plan(log, step.expect_plan),
-                    {"plan": comm.collective_summary(log)})
+    report = Report(check_plan(log, step.expect_plan),
+                    target="guarded/compute_grads",
+                    sections={"plan": comm.collective_summary(log)})
     step.report = report
     if report.errors() and level == "error":
         raise TrainBuildError(

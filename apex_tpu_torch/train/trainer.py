@@ -662,7 +662,7 @@ class TrainStep:
         cfg = self.config
         batch = batch if batch is not None else self.example_batch
         budget = hbm_budget if hbm_budget is not None else cfg.hbm_budget
-        report = Report(f"{self.name}/{self.mode}")
+        report = Report(target=f"{self.name}/{self.mode}")
         mesh = cfg.mesh_dict()
         named = []
         for part in ("params", "opt"):

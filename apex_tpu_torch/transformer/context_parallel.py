@@ -48,6 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch import parallel_state as ps
+from apex_tpu_torch.amp.lists import carry_policy
 from apex_tpu_torch.ops.attention import (
     _COL_MUL,
     _ROW_MUL,
@@ -133,7 +134,7 @@ def _attend_hop(q, k, v, bias, scale, causal, dropout_p, seed):
                              causal=causal, dropout_p=dropout_p,
                              dropout_seed=seed, bias=bias)
 
-    return checkpoint(fn, q, k, v, use_reentrant=False,
+    return checkpoint(carry_policy(fn), q, k, v, use_reentrant=False,
                       preserve_rng_state=False)
 
 

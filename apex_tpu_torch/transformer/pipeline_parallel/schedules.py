@@ -169,7 +169,12 @@ def resolve_remat_policy(name) -> Optional[Callable]:
 def remat(fn, *args, policy: Optional[Callable] = None,
           preserve_rng_state: bool = True):
     """``fn(*args)`` under a non-reentrant checkpoint that saves what
-    ``policy`` (:func:`resolve_remat_policy`) selects, or nothing."""
+    ``policy`` (:func:`resolve_remat_policy`) selects, or nothing.  The
+    recompute runs under the amp cast policy active now
+    (:func:`apex_tpu_torch.amp.lists.carry_policy`)."""
+    from apex_tpu_torch.amp.lists import carry_policy
+
+    fn = carry_policy(fn)
     kwargs = {}
     if policy is not None:
         kwargs["context_fn"] = functools.partial(

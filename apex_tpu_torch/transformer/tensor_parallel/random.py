@@ -37,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 
 from apex_tpu_torch import parallel_state as ps
+from apex_tpu_torch.amp.lists import carry_policy
 
 __all__ = [
     "TPURNGStatesTracker",
@@ -174,4 +175,5 @@ def checkpoint(function, *args, **kwargs):
             tracker.set_states(after)
 
     return torch.utils.checkpoint.checkpoint(
-        run, *args, use_reentrant=False, preserve_rng_state=True, **kwargs)
+        carry_policy(run), *args, use_reentrant=False,
+        preserve_rng_state=True, **kwargs)

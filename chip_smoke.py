@@ -3627,6 +3627,13 @@ def phase4(gen, launches, errs):
     rows["layer_norm_bwd"] = dict(ln_bwd, shape=f"x, g ({train_rows}, 1024) bf16")
     torch.cuda.empty_cache()
     extra = {}  # kernel -> {tag: row} of the shapes beside its main one
+    # phase 22's O1 GPT: the same rows in f32 (the O1 cast of the residual)
+    ln_fwd, ln_bwd = _time_ln(gen, flush, train_rows, 1024, "f32")
+    extra["layer_norm_fwd"] = {"amp_o1_shape": dict(
+        ln_fwd, shape=f"x ({train_rows}, 1024) f32 (amp O1)")}
+    extra["layer_norm_bwd"] = {"amp_o1_shape": dict(
+        ln_bwd, shape=f"x, g ({train_rows}, 1024) f32 (amp O1)")}
+    torch.cuda.empty_cache()
     for tag, n_rows, hidden in (
             ("evo_pair_shape", EVO_RES * EVO_RES, EVO["pair_dim"]),
             ("evo_msa_shape", EVO_SEQ * EVO_RES, EVO["msa_dim"]),
@@ -3923,7 +3930,8 @@ def phase4(gen, launches, errs):
                        (" (zigzag past half)",
                         entry.get("zigzag_past_shape")),
                        (" (evoformer pair)", entry.get("evo_pair_shape")),
-                       (" (evoformer MSA)", entry.get("evo_msa_shape"))):
+                       (" (evoformer MSA)", entry.get("evo_msa_shape")),
+                       (" (amp O1, f32)", entry.get("amp_o1_shape"))):
             if r is None:
                 continue
             lib = ("not measured" if r["library_ms"] is None
@@ -8500,6 +8508,585 @@ def phase21():
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: amp — O1 over K1-K4, O2 with masters, the amp state's resume
+# ---------------------------------------------------------------------------
+
+
+#: 22a: GptConfig(remat=True) at phase 6's batch for this many steps
+AMP_STEPS = 4
+#: 22b: phase 7's shape (2 layers at full width, B 2, S 256) as an f32
+#: GPT with remat, whose attention O1 casts to bf16 (the f32 GPT is where
+#: the attention hook changes a dtype), one O1 step on the card against
+#: two CPU steps on the plain twins: under O1 (``o1``) and without amp
+#: (``f32``).  Readings: the loss's absolute difference and the worst
+#: parameter gradient's ||card - cpu|| / ||cpu||.  The card's O1 step must
+#: lie within AMP_CROSS_LOSS_TOL / AMP_CROSS_GRAD_TOL of the CPU's O1
+#: step, and at least AMP_CROSS_CAST_MIN (gradients) from the CPU's f32
+#: step: the bf16 rounding of q, k and v shows.  Planted faults on the
+#: card: the attention hook removed (the f32 K3/K4 run: within f32
+#: rounding of the CPU's f32 step, so below AMP_CROSS_CAST_MIN) and the
+#: recompute run without the forward's policy (a non-reentrant
+#: checkpoint refuses a recompute whose saved tensors change dtype:
+#: ``CheckpointError``, else its readings must fail a limit).  On an H100
+#: (700 W): sound loss 3.6e-5 and gradients 4.8e-3 from the O1 step,
+#: gradients 5.2e-3 from the f32 step; the hook fault 1.06e-4 and 5.1e-3
+#: from the O1 step — the kernels' bf16 rounding of p and dS inside K3/K4
+#: is as large as the rounding of their inputs, so the O1 reading alone
+#: cannot tell them apart — but 2.5e-6 from the f32 step (the f32 K3/K4's
+#: 3xTF32 against the f32 twin): AMP_CROSS_CAST_MIN sits 5.2x under the
+#: sound reading and 400x over the fault's
+AMP_CROSS_LOSS_TOL = 1e-3
+AMP_CROSS_GRAD_TOL = 2.5e-2
+AMP_CROSS_CAST_MIN = 1e-3
+#: 22c: the step whose gradients carry the planted inf
+AMP_OVERFLOW_STEP = 2
+#: 22d: growth after this many clean steps, so the scale moves
+AMP_GROWTH_INTERVAL = 2
+
+
+def _amp_gpt(cfg, level, device="cuda", **amp_kw):
+    """A fresh ``GptModel(cfg)`` (seeded 0) and its flat parameters
+    through ``amp.initialize(level, **amp_kw)`` over FusedAdam at phase
+    6's rate: ``(model, loss_fn, params, handle, state)``."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import GptModel, gpt_lm_loss
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.train import module_loss, module_params
+
+    model = GptModel(cfg, device=device)
+    params, handle = amp.initialize(module_params(model),
+                                    fused_adam(TRAIN_LR), level, **amp_kw)
+    return (model, module_loss(model, gpt_lm_loss), params, handle,
+            handle.init(params))
+
+
+def _amp_grads(loss_fn, params, handle, state, ids):
+    """``(loss, scaled grads)`` of one forward (under the O1 policy when
+    the level patches functions); the backward, and so any remat
+    recompute, runs after the block."""
+    import contextlib
+
+    import torch
+
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    ctx = (handle.patch_functions() if handle.properties.opt_level == "O1"
+           else contextlib.nullcontext())
+    with ctx:
+        loss = loss_fn(leaves, ids)
+        scaled = handle.scale_loss(loss, state)
+    grads = torch.autograd.grad(scaled, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _amp_step(loss_fn, params, handle, state, ids, plant=None):
+    """One amp training step; ``plant(grads)`` may alter the scaled
+    gradients first.  Returns ``(loss, params, state, found_inf)``."""
+    loss, grads = _amp_grads(loss_fn, params, handle, state, ids)
+    if plant is not None:
+        plant(grads)
+    params, state, found = handle.step(params, grads, state)
+    return loss, params, state, found
+
+
+def _clone_tree(tree):
+    """A copy of a tree of tensors (dicts, NamedTuples, None, ints)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_tree(v) for v in tree))
+    return tree
+
+
+def _amp_state_equal(tag, a_params, a_state, b_params, b_state):
+    """Parameters, masters, moments, step count and scaler state of two
+    runs, bit for bit."""
+    import torch
+
+    bad = [k for k in a_params if not torch.equal(a_params[k], b_params[k])]
+    for name in ("m", "v"):
+        bad += [f"{name}:{k}" for k in a_params
+                if not torch.equal(getattr(a_state.opt_state, name)[k],
+                                   getattr(b_state.opt_state, name)[k])]
+    if a_state.master_params is not None:
+        bad += [f"master:{k}" for k in a_params
+                if not torch.equal(a_state.master_params[k],
+                                   b_state.master_params[k])]
+    bad += [f"scaler:{f}" for f, x, y in zip(
+        a_state.scaler_state._fields, a_state.scaler_state,
+        b_state.scaler_state) if not torch.equal(x, y)]
+    if int(a_state.opt_state.count) != int(b_state.opt_state.count):
+        bad.append("count")
+    devs = {str(getattr(st.opt_state.count, "device", "host"))
+            for st in (a_state, b_state)}
+    if len(devs) > 1:
+        bad.append(f"count on {sorted(devs)}")
+    if bad:
+        raise AssertionError(f"{tag}: differs in {bad[:6]} "
+                             f"({len(bad)} tensors)")
+
+
+def _phase22_kernel_checks():
+    """K1 and K2 at the O1 GPT's rows (16384, 1024) in f32 against their
+    twins (F32_TOL; dw, db under SUM_TOL), on a generator of their own
+    (phase 1's draws stay as they were).  Returns max |y - y_ref|."""
+    import torch
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    x, w, b = ln_inputs(rows, 1024, gen)
+    x = x.float()
+    y, mu, rstd = ln.layer_norm_fwd(x, w, b, eps=1e-5, rms=False)
+    y_r, mu_r, rstd_r = ln.layer_norm_reference(x, w, b, 1e-5, False)
+    tag = f"K1 layer_norm_fwd rows={rows} hidden=1024 f32 (amp O1)"
+    err = compare(tag + " y", y, y_r, F32_TOL)
+    compare(tag + " mu", mu, mu_r, F32_TOL)
+    compare(tag + " rstd", rstd, rstd_r, F32_TOL)
+    g = torch.randn(rows, 1024, generator=gen, device="cuda")
+    out = ln.layer_norm_bwd(x, w, b, mu_r, rstd_r, g, rms=False,
+                            x_is_output=False)
+    ref = ln.layer_norm_bwd_reference(x, w, b, mu_r, rstd_r, g, False, False)
+    tag = f"K2 layer_norm_bwd rows={rows} hidden=1024 f32 (amp O1)"
+    err_bwd = compare(tag + " dx", out[0], ref[0], F32_TOL)
+    compare(tag + " dw", out[1], ref[1], SUM_TOL)
+    compare(tag + " db", out[2], ref[2], SUM_TOL)
+    return err, err_bwd
+
+
+def _phase22a(baseline):
+    """22a: ``GptConfig(remat=True)`` at phase 6's batch for AMP_STEPS
+    steps through ``amp.initialize(..., "O1", loss_scale="dynamic")``:
+    exact launches (phase 6's a step), K1/K2 on f32 rows and K3/K4 on
+    bf16 (the bf16 entries, none of the f32 ones), finite falling losses,
+    no overflow, and the step's speed beside ``baseline`` (phase 6's)."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import GptConfig
+    from apex_tpu_torch.ops import _dispatch
+
+    cfg = GptConfig(remat=True)
+    args = train_gpt.parse_args(["--batch", str(TRAIN_BATCH), "--seq-len",
+                                 str(TRAIN_SEQ)])
+    batches = _gpt_batches(args, cfg, AMP_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, loss_fn, params, handle, state = _amp_gpt(
+        cfg, "O1", loss_scale="dynamic")
+    n_params = sum(p.numel() for p in params.values())
+    _dispatch.reset_launches()
+    _dispatch.clear_paths()
+    losses, seconds, found = [], [], []
+    for ids in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, state, f = _amp_step(loss_fn, params, handle, state,
+                                           ids)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        found.append(float(f))
+    launches = _dispatch.launches()
+    dtypes = _dispatch.launch_dtypes()
+    paths = _dispatch.last_paths()
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    per_step = {"layer_norm_fwd": 2 * (2 * layers) + 1,
+                "layer_norm_bwd": 2 * layers + 1,
+                "flash_fwd": 2 * layers, "flash_bwd": layers}
+    want = {k: n * AMP_STEPS for k, n in per_step.items()}
+    step_s = statistics.median(seconds[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / step_s / BF16_TENSOR_FLOPS
+    baseline.setdefault("mfu_6nt", 6 * n_params * tokens / (
+        baseline["step_ms_median"] / 1e3) / BF16_TENSOR_FLOPS)
+    out = {"losses": losses, "found_inf": found, "step_seconds": seconds,
+           "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "mfu_6nt": mfu, "params": n_params, "peak_memory_bytes": peak,
+           "launches": launches, "launch_dtypes": dtypes,
+           "loss_scale": float(state.scaler_state.loss_scale),
+           "phase6": baseline}
+    log(f"  22a O1: launches {launches} (per step {per_step}), dtypes "
+        f"{dtypes}, paths {paths}")
+    log(f"  22a O1: losses {[round(x, 4) for x in losses]}, found_inf "
+        f"{found}; step {step_s * 1e3:.1f} ms, {tokens / step_s:.0f} "
+        f"tokens/s, 6NT MFU {mfu:.4f}, peak memory {peak / 1e9:.2f} GB; "
+        f"phase 6 in this call: {baseline['step_ms_median']:.1f} ms, "
+        f"{baseline['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{baseline['mfu_6nt']:.4f}, peak "
+        f"{baseline['peak_memory_bytes'] / 1e9:.2f} GB")
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches} != {want}")
+    want_dtypes = {"layer_norm_fwd": {"float32": want["layer_norm_fwd"]},
+                   "layer_norm_bwd": {"float32": want["layer_norm_bwd"]}}
+    if dtypes != want_dtypes:
+        failures.append(f"K1/K2 operand dtypes {dtypes} != {want_dtypes}")
+    if paths != {"layer_norm": "cuda", "flash_attention": "cuda"}:
+        failures.append(f"op paths {paths}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses not finite and falling: {losses}")
+    if any(found):
+        failures.append(f"an O1 step overflowed: {found}")
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out, failures
+
+
+def _cross_o1(model, ids, fault=None):
+    """One O1 forward and backward of ``model`` on ``ids``: the loss and
+    the unscaled f32 gradients on the host.  ``fault``: "hook" (the
+    attention category removed from the registry) or "recompute" (the
+    checkpoint wrappers without ``carry_policy``)."""
+    import torch
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp import lists
+    from apex_tpu_torch.amp.lists import _registry
+    from apex_tpu_torch.models import gpt_lm_loss
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.train import module_loss, module_params
+
+    params, handle = amp.initialize(module_params(model),
+                                    fused_adam(TRAIN_LR), "O1",
+                                    loss_scale="dynamic")
+    state = handle.init(params)
+    saved_cat, saved_carry = dict(_registry._CATEGORY), lists.carry_policy
+    if fault == "hook":
+        _registry._CATEGORY.pop("attention")
+    elif fault == "recompute":
+        lists.carry_policy = lambda fn: fn
+    try:
+        loss, grads = _amp_grads(module_loss(model, gpt_lm_loss), params,
+                                 handle, state, ids)
+    finally:
+        _registry._CATEGORY.clear()
+        _registry._CATEGORY.update(saved_cat)
+        lists.carry_policy = saved_carry
+    scale = float(state.scaler_state.loss_scale)
+    return float(loss), {k: (g.float() / scale).cpu()
+                         for k, g in grads.items()}
+
+
+def _cross_readings(card, cpu):
+    l_card, g_card = card
+    l_cpu, g_cpu = cpu
+    worst = max(float((g_card[k] - g_cpu[k]).norm()
+                      / g_cpu[k].norm().clamp_min(1e-30)) for k in g_cpu)
+    return {"loss_diff": abs(l_card - l_cpu), "max_grad_rel_err": worst}
+
+
+def _cross_f32(model, ids):
+    """The loss and f32 gradients of one step without amp."""
+    from apex_tpu_torch.models import gpt_lm_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = gpt_lm_loss(model, ids)
+    loss.backward()
+    grads = {k.replace(".", "/"): p.grad.detach().float().cpu()
+             for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _phase22b():
+    """22b (see AMP_CROSS_LOSS_TOL): every reading is logged before any
+    is checked."""
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+
+    cfg = GptConfig(num_layers=2, max_seq_len=256, dtype=torch.float32,
+                    remat=True)
+    card = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(11))
+    cpu = GptModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, size=(256, 2)).astype(np.int64))
+    refs = {"o1": _cross_o1(cpu, ids), "f32": _cross_f32(cpu, ids)}
+    readings = {}
+    for run in ("sound", "hook", "recompute"):
+        try:
+            got = _cross_o1(card, ids.cuda(),
+                            None if run == "sound" else run)
+        except torch.utils.checkpoint.CheckpointError as exc:
+            readings[run] = {"raised": type(exc).__name__,
+                             "message": str(exc).splitlines()[0]}
+            continue
+        readings[run] = {name: _cross_readings(got, ref)
+                         for name, ref in refs.items()}
+    limits = {"o1_loss_diff": AMP_CROSS_LOSS_TOL,
+              "o1_max_grad_rel_err": AMP_CROSS_GRAD_TOL,
+              "f32_max_grad_rel_err_min": AMP_CROSS_CAST_MIN}
+    for name, r in readings.items():
+        log(f"  22b {name}: {r}")
+    log(f"  22b limits {limits}")
+
+    def passes(r):
+        return ("raised" not in r
+                and r["o1"]["loss_diff"] <= AMP_CROSS_LOSS_TOL
+                and r["o1"]["max_grad_rel_err"] <= AMP_CROSS_GRAD_TOL
+                and r["f32"]["max_grad_rel_err"] >= AMP_CROSS_CAST_MIN)
+
+    failures = []
+    if not passes(readings["sound"]):
+        failures.append(f"the sound O1 step reads {readings['sound']} "
+                        f"against {limits}")
+    for fault in ("hook", "recompute"):
+        if passes(readings[fault]):
+            failures.append(f"the planted {fault} fault reads "
+                            f"{readings[fault]}, within {limits}")
+    return dict(readings, limits=limits), failures
+
+
+def _phase22c():
+    """22c: O2 on GptConfig()'s width cut to 2 layers (remat) at phase
+    6's batch, 4 steps with bf16 parameters, f32 masters and the dynamic
+    scaler; step AMP_OVERFLOW_STEP's gradients carry a planted inf: that
+    step is skipped (parameters, masters and moments bit-identical, the
+    scale halved, the growth tracker 0) and the next applies.  K1/K2 on
+    bf16 rows (O2 casts the model, nothing per op)."""
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import GptConfig
+    from apex_tpu_torch.ops import _dispatch
+
+    cfg = GptConfig(num_layers=P16_GPT_LAYERS, remat=True)
+    args = train_gpt.parse_args(["--batch", str(TRAIN_BATCH), "--seq-len",
+                                 str(TRAIN_SEQ)])
+    batches = _gpt_batches(args, cfg, AMP_STEPS)
+    model, loss_fn, params, handle, state = _amp_gpt(
+        cfg, "O2", loss_scale="dynamic")
+    dtypes = sorted({str(p.dtype) for p in params.values()})
+    master = sorted({str(p.dtype) for p in state.master_params.values()})
+
+    def plant(grads):
+        g = grads["layers/0/fc1/weight"]
+        g.view(-1)[g.numel() // 3] = float("inf")
+
+    _dispatch.reset_launches()
+    failures, rows = [], []
+    for step, ids in enumerate(batches):
+        before = (params, state)
+        loss, params, state, found = _amp_step(
+            loss_fn, params, handle, state, ids,
+            plant if step == AMP_OVERFLOW_STEP else None)
+        sc = state.scaler_state
+        rows.append({"loss": float(loss), "found_inf": float(found),
+                     "loss_scale": float(sc.loss_scale),
+                     "growth_tracker": int(sc.growth_tracker),
+                     "hysteresis": int(sc.hysteresis),
+                     "count": int(state.opt_state.count)})
+        if step == AMP_OVERFLOW_STEP:
+            try:
+                _amp_state_equal("22c: the skipped step", before[0],
+                                 before[1]._replace(scaler_state=sc), params,
+                                 state)
+            except AssertionError as exc:
+                failures.append(str(exc))
+            want_scale = (float(before[1].scaler_state.loss_scale)
+                          * handle.scaler.backoff_factor)
+            if float(sc.loss_scale) != want_scale or int(
+                    sc.growth_tracker) != 0 or float(found) != 1.0:
+                failures.append(f"22c: the overflow step reads {rows[-1]}, "
+                                f"want the scale {want_scale} and tracker 0")
+        elif float(found) != 0.0:
+            failures.append(f"22c: clean step {step} overflowed")
+        if step == AMP_OVERFLOW_STEP + 1 and torch.equal(
+                params["layers/0/fc1/weight"], before[0][
+                    "layers/0/fc1/weight"]):
+            failures.append("22c: the step after the skip did not apply")
+    launches, ldt = _dispatch.launches(), _dispatch.launch_dtypes()
+    per_step = {"layer_norm_fwd": 2 * (2 * cfg.num_layers) + 1,
+                "layer_norm_bwd": 2 * cfg.num_layers + 1,
+                "flash_fwd": 2 * cfg.num_layers, "flash_bwd": cfg.num_layers}
+    want = {k: n * AMP_STEPS for k, n in per_step.items()}
+    if launches != want:
+        failures.append(f"22c launches {launches} != {want}")
+    if set(ldt.get("layer_norm_fwd", {})) != {"bfloat16"}:
+        failures.append(f"22c K1 operand dtypes {ldt}")
+    log(f"  22c O2: params {dtypes}, masters {master}; steps {rows}; "
+        f"launches {launches}, dtypes {ldt}")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return {"param_dtypes": dtypes, "master_dtypes": master, "steps": rows,
+            "launches": launches, "launch_dtypes": ldt}, failures
+
+
+def _phase22d(root):
+    """22d: O2 with the dynamic scaler growing every AMP_GROWTH_INTERVAL
+    clean steps, on 22c's model: 4 uninterrupted steps (twice: the same
+    bits) against 2 steps, ``snapshot_training_state(..., amp_handle=,
+    amp_state=)`` saved, a fresh state restored from it
+    (``restore_training_state``; it must equal the saved state) and 2
+    more steps: parameters, masters, moments, count and the scaler's
+    loss scale, growth tracker and hysteresis equal bit for bit.  (The
+    first card run of this check found the restored step count on the
+    host, which changed the resumed update's arithmetic: ``AmpHandle.
+    init`` now puts it on the device.)"""
+    import torch
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import GptConfig
+
+    cfg = GptConfig(num_layers=P16_GPT_LAYERS, remat=True)
+    args = train_gpt.parse_args(["--batch", str(TRAIN_BATCH), "--seq-len",
+                                 str(TRAIN_SEQ)])
+    batches = _gpt_batches(args, cfg, AMP_STEPS)
+
+    def fresh():
+        model, loss_fn, params, handle, _ = _amp_gpt(cfg, "O2",
+                                                     loss_scale="dynamic")
+        handle.scaler.growth_interval = AMP_GROWTH_INTERVAL
+        return model, loss_fn, params, handle, handle.init(params)
+
+    saved = {}
+
+    def run(resume_at=None):
+        """The run's final (params, state) and the save/restore seconds.
+        The first run keeps its state at the resume step, which the
+        resumed run's restored state must equal before it steps on."""
+        model, loss_fn, params, handle, state = fresh()
+        seconds = {}
+        for step, ids in enumerate(batches):
+            if resume_at is None and step == AMP_STEPS // 2 and not saved:
+                saved["state"] = ({k: v.clone() for k, v in params.items()},
+                                  _clone_tree(state))
+            if step == resume_at:
+                path = os.path.join(root, "amp_ckpt")
+                snap = ckpt.snapshot_training_state(
+                    params, state.opt_state, step=step, amp_handle=handle,
+                    amp_state=state, extra={"master": state.master_params})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save_checkpoint(path, snap)
+                seconds["save"] = time.perf_counter() - t0
+                del model, loss_fn, params, handle, state, snap
+                model, loss_fn, params, handle, state = fresh()
+                template = ckpt.snapshot_training_state(
+                    params, state.opt_state, step=0, amp_handle=handle,
+                    amp_state=state, extra={"master": state.master_params})
+                t0 = time.perf_counter()
+                restored = ckpt.restore_checkpoint(path, template)
+                torch.cuda.synchronize()
+                seconds["restore"] = time.perf_counter() - t0
+                params, opt, at, state, extra = ckpt.restore_training_state(
+                    restored, amp_handle=handle, amp_state=state)
+                if at != step:
+                    raise AssertionError(f"22d: restored step {at}")
+                state = state._replace(opt_state=opt,
+                                       master_params=extra["master"])
+                try:
+                    _amp_state_equal("22d: the restored state", *saved[
+                        "state"], params, state)
+                except AssertionError as exc:
+                    seconds["restore_diff"] = str(exc)
+            _, params, state, _ = _amp_step(loss_fn, params, handle, state,
+                                            ids)
+        return params, state, seconds
+
+    full_p, full_s, _ = run()
+    again_p, again_s, _ = run()
+    res_p, res_s, seconds = run(resume_at=AMP_STEPS // 2)
+    del saved["state"]
+    failures = [seconds.pop("restore_diff")] if "restore_diff" in seconds \
+        else []
+    for tag, (p, st) in (("a second uninterrupted run", (again_p, again_s)),
+                         ("the resumed run", (res_p, res_s))):
+        try:
+            _amp_state_equal(f"22d: {tag}", full_p, full_s, p, st)
+        except AssertionError as exc:
+            failures.append(str(exc))
+    sc = full_s.scaler_state
+    out = {"loss_scale": float(sc.loss_scale),
+           "growth_tracker": int(sc.growth_tracker),
+           "hysteresis": int(sc.hysteresis), "seconds": seconds,
+           "bit_identical": not failures}
+    if float(sc.loss_scale) <= 2.0 ** 16:
+        failures.append(f"22d: the scale never grew ({out})")
+    log(f"  22d amp resume: {out}")
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def _phase22e():
+    """22e: ``examples.dcgan.main_amp`` for 5 steps on the card (O1):
+    its three losses finite."""
+    from apex_tpu_torch.examples.dcgan import main_amp
+
+    t0 = time.perf_counter()
+    losses = main_amp.main(["--steps", "5"])
+    seconds = time.perf_counter() - t0
+    log(f"  22e dcgan: {losses} in {seconds:.1f} s")
+    failures = []
+    if not all(np.isfinite(v).all() and len(v) == 5
+               for v in losses.values()):
+        failures.append(f"22e: dcgan losses {losses}")
+    return {"losses": losses, "seconds": seconds}, failures
+
+
+def phase22(baseline=None):
+    """Amp on the card (the frontend, the O1 cast lists, fp16 masters,
+    the amp state through a checkpoint, the DCGAN example): K1/K2 checked
+    on f32 rows at the training shape, then 22a-e (their docstrings).
+    ``baseline`` is phase 6's run (step ms, tokens/s, MFU, peak memory);
+    without one, 4 steps of phase 6's hand loop run here first.  Every
+    part logs its readings before any failure fails the phase.  Returns
+    (22a's launches, results)."""
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import GptConfig
+
+    t_start = time.perf_counter()
+    log("phase 22: amp — O1 GptConfig(remat=True) over K1-K4, a 2-layer "
+        "O1 cross-check, O2 with a planted overflow, the amp state "
+        "through a checkpoint, the DCGAN example")
+    k1_err, k2_err = _phase22_kernel_checks()
+    if baseline is None:
+        cfg = GptConfig(remat=True)
+        args = train_gpt.parse_args(["--batch", str(TRAIN_BATCH),
+                                     "--seq-len", str(TRAIN_SEQ)])
+        layers = cfg.num_layers
+        per_step = {"layer_norm_fwd": 2 * (2 * layers) + 1,
+                    "layer_norm_bwd": 2 * layers + 1,
+                    "flash_fwd": 2 * layers, "flash_bwd": layers}
+        baseline = _train_gpt_policy(args, cfg, per_step, steps=AMP_STEPS)
+    baseline = {k: baseline[k] for k in ("step_ms_median", "tokens_per_s",
+                                         "mfu_6nt", "peak_memory_bytes")
+                if k in baseline}
+    launches, out_a, failures = _phase22a(baseline)
+    out = {"kernel_checks": {"layer_norm_fwd_f32": k1_err,
+                             "layer_norm_bwd_f32": k2_err},
+           "o1_gpt": out_a}
+    out["o1_cross_check"], f = _phase22b()
+    failures += f
+    out["o2_overflow"], f = _phase22c()
+    failures += f
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_phase22_") as d:
+        out["amp_resume"], f = _phase22d(d)
+    failures += f
+    out["dcgan"], f = _phase22e()
+    failures += f
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"  phase 22 took {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 22: " + "; ".join(failures))
+    return launches, out
+
+
 def main():
     import argparse
 
@@ -8544,6 +9131,11 @@ def main():
     parser.add_argument("--pipeline", action="store_true",
                         help="run phase 21 alone (the five pipeline "
                         "schedules and train_gpt_pp on two workers)")
+    parser.add_argument("--amp", action="store_true",
+                        help="run phase 22 alone (amp: O1 GPT over K1-K4, "
+                        "the O1 cross-check, O2 with an overflow, the amp "
+                        "resume, DCGAN), with phase 6's loop for 4 steps "
+                        "beside it")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -8651,6 +9243,10 @@ def main():
             raise AssertionError(f"phases failed: {failures}")
         print(json.dumps(out), flush=True)
         return
+    if args.amp:
+        launches, run = phase22()
+        print(json.dumps({"amp": dict(run, launches=launches)}), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -8692,6 +9288,7 @@ def main():
     cp_launches, context = phase19()
     moe_launches, ep2_launches, experts = phase20()
     pp_launches, pipeline = phase21()
+    amp_launches, amp_run = phase22(training)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -8709,7 +9306,8 @@ def main():
             ("cp_rank0", cp_launches),
             ("experts", moe_launches),
             ("ep2_rank0", ep2_launches),
-            ("pp2_rank0", pp_launches))
+            ("pp2_rank0", pp_launches),
+            ("amp_o1", amp_launches))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -8731,8 +9329,9 @@ def main():
                     "parallel": parallel,
                     "dap": dap, "trainer": trainer,
                     "context": context, "experts": experts,
-                    "pipeline": pipeline,
+                    "pipeline": pipeline, "amp": amp_run,
                     "decode_profile": profile}))
+    log(f"whole run {time.perf_counter() - t0:.1f} s (the build included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

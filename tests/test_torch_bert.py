@@ -27,6 +27,8 @@ import optax
 import pytest
 import torch
 
+import torch_dist_workers as workers
+
 from apex_tpu import _native
 from apex_tpu import data as jax_data
 from apex_tpu.models.bert import BertConfig as JaxBertConfig
@@ -51,6 +53,14 @@ SEQ, BATCH, K = 32, 4, 6
 LENGTHS = (32, 20, 7, 0)  # the last sequence has no real token
 #: f32 end to end; XLA and PyTorch sum matmuls and rows in other orders
 TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def _destroy_port_parallel_state():
+    """Leave no port ``parallel_state`` behind (an example's ``main``
+    leaves it initialized) for the next test or the next file in this
+    worker."""
+    yield from workers.port_state_guard()
 
 
 @pytest.fixture(autouse=True, scope="module")

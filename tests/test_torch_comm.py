@@ -52,6 +52,14 @@ STEPS = 3
 GRAD_SHAPES = {"a_big": (40, 25), "b_small": (7,), "c_mid": (300,)}
 
 
+@pytest.fixture(autouse=True)
+def _destroy_port_parallel_state():
+    """Leave no port ``parallel_state`` behind (an example's ``main``
+    leaves it initialized) for the next test or the next file in this
+    worker."""
+    yield from workers.port_state_guard()
+
+
 def _toy():
     rng = np.random.RandomState(0)
     return dict(w1=(rng.randn(8, 16) * 0.3).astype(np.float32),

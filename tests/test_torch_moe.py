@@ -57,6 +57,14 @@ WORLDS = (2, 4)
 MOE_KW = dict(hidden_size=H, ffn_hidden_size=F, num_experts=E)
 
 
+@pytest.fixture(autouse=True)
+def _destroy_port_parallel_state():
+    """Leave no port ``parallel_state`` behind (an example's ``main``
+    leaves it initialized) for the next test or the next file in this
+    worker."""
+    yield from workers.port_state_guard()
+
+
 def _weights():
     rs = np.random.RandomState(11)
     return ((rs.randn(H, E) * 0.5).astype(np.float32),

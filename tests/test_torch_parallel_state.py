@@ -82,6 +82,16 @@ def test_broadcast_data_sends_tp_rank0s_batch(runs):
         np.testing.assert_array_equal(got[r], np.full(3, float(r - r % 2)))
 
 
+@pytest.fixture
+def destroyed():
+    """A one-process test starts from a destroyed ``parallel_state``,
+    whatever ran before it in this worker, and leaves none behind."""
+    ps.destroy_model_parallel()
+    yield
+    ps.destroy_model_parallel()
+
+
+@pytest.mark.usefixtures("destroyed")
 def test_one_process_has_no_groups():
     assert not ps.model_parallel_is_initialized()
     assert ps.axis_size("tp") == 1 and ps.axis_rank("dp") == 0
@@ -101,6 +111,7 @@ def test_one_process_has_no_groups():
 
 
 @pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.usefixtures("destroyed")
 def test_failed_join_raises_never_falls_back(strict):
     from apex_tpu_torch.parallel import multihost
 
@@ -111,6 +122,7 @@ def test_failed_join_raises_never_falls_back(strict):
     assert not multihost.distributed_is_initialized()
 
 
+@pytest.mark.usefixtures("destroyed")
 def test_layout_errors_are_the_references():
     with pytest.raises(RuntimeError, match="not divisible"):
         ps.initialize_model_parallel(2)
@@ -126,6 +138,7 @@ def test_layout_errors_are_the_references():
     assert ps.divide(6, 3) == jps.divide(6, 3) == 2
 
 
+@pytest.mark.usefixtures("destroyed")
 def test_virtual_pipeline_setters():
     ps.initialize_model_parallel()
     try:
@@ -143,6 +156,7 @@ def test_virtual_pipeline_setters():
         ps.destroy_model_parallel()
 
 
+@pytest.mark.usefixtures("destroyed")
 def test_sequence_parallel_registry_is_per_epoch():
     from apex_tpu_torch.models.gpt import GptConfig, GptModel
 

@@ -34,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_workers as workers
+
 from apex_tpu_torch.contrib.openfold import DAPAxialBlock, EvoformerBlock
 from apex_tpu_torch.models import (
     BertConfig,
@@ -69,6 +71,14 @@ TINY = dict(vocab_size=32, hidden_size=32, num_layers=1, num_heads=2,
 TINY_BERT = dict(vocab_size=32, hidden_size=32, num_layers=1, num_heads=2,
                  intermediate_size=64, max_position_embeddings=64,
                  dtype=torch.float32)
+
+
+@pytest.fixture(autouse=True)
+def _destroy_port_parallel_state():
+    """Leave no port ``parallel_state`` behind (an example's ``main``
+    leaves it initialized) for the next test or the next file in this
+    worker."""
+    yield from workers.port_state_guard()
 
 
 def _port_files():
@@ -136,7 +146,35 @@ COUNTERPARTS = (
     "transformer/moe.py", "transformer/pipeline_parallel/__init__.py",
     "transformer/pipeline_parallel/p2p_communication.py",
     "transformer/pipeline_parallel/utils.py",
+    # amp's frontend and lists, fp16_utils (item 10); the source lints
+    # and the retrace sentinel (the first part of item 9)
+    "amp/frontend.py", "amp/lists/__init__.py", "amp/lists/_registry.py",
+    "amp/lists/functional_overrides.py", "_autocast_utils.py",
+    "fp16_utils/__init__.py", "analysis/findings.py",
+    "analysis/concurrency.py", "analysis/purity.py", "analysis/retrace.py",
 )
+
+#: the modules this walk must see (each imported nothing of JAX above)
+#: and the examples under their counterparts' names (``examples/`` at the
+#: repository root holds the reference's)
+ITEM10_FILES = (
+    "amp/frontend.py", "amp/lists/_registry.py",
+    "amp/lists/functional_overrides.py", "_autocast_utils.py",
+    "fp16_utils/__init__.py", "analysis/findings.py",
+    "analysis/concurrency.py", "analysis/purity.py", "analysis/retrace.py",
+    "examples/dcgan/main_amp.py",
+)
+
+
+@pytest.mark.parametrize("module", ITEM10_FILES)
+def test_new_modules_are_in_the_isolation_walk(module):
+    path = ROOT / "apex_tpu_torch" / module
+    assert path in _port_files(), module
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in ("jax", "jaxlib", "apex_tpu", "flax",
+                                       "orbax", "optax")], module
+    if module.startswith("examples/"):
+        assert (ROOT / module).is_file(), module
 
 
 @pytest.mark.parametrize("module", COUNTERPARTS)
@@ -243,7 +281,26 @@ PARALLEL_NAMES = {
     "train.demo": ("demo_rules", "demo_params", "demo_batch", "demo_loss",
                    "demo_model_collectives", "demo_config", "build_demo"),
     "amp": ("Policy", "Properties", "opt_levels", "LossScaleState",
-            "DynamicLossScaler", "StaticLossScaler", "amp_update"),
+            "DynamicLossScaler", "StaticLossScaler", "amp_update", "lists",
+            "AmpHandle", "AmpState", "initialize", "scale_loss",
+            "master_params", "state_dict", "load_state_dict"),
+    "amp.lists": ("CastPolicy", "active_policy", "amp_cast", "category",
+                  "o1_patch", "register", "FP16_FUNCS", "FP32_FUNCS",
+                  "CASTS"),
+    "fp16_utils": ("tofp16", "network_to_half", "BN_convert_float",
+                   "prep_param_lists", "master_params_to_model_params",
+                   "model_grads_to_master_grads", "FP16_Optimizer"),
+    "_autocast_utils": ("_cast_if_autocast_enabled", "cast_inputs"),
+    "analysis.findings": ("ERROR", "WARNING", "INFO", "RULES", "Finding",
+                          "Report", "make_finding"),
+    "analysis.concurrency": ("LOCK_CTORS", "BLOCKING_CALLS",
+                             "analyze_class", "lint_source", "lint_sources",
+                             "concurrency_pass"),
+    "analysis.purity": ("REPLAY_CRITICAL", "WALL_CLOCK_PATTERNS",
+                        "WAIVER_RE", "is_replay_critical",
+                        "collect_sources", "lint_source", "lint_sources",
+                        "purity_pass"),
+    "analysis.retrace": ("abstract_signature", "RetraceSentinel"),
     "transformer.amp": ("GradScaler",),
     "analysis.sharding": ("tree_paths", "match_partition_rules",
                           "spec_dim_factors"),

@@ -22,6 +22,8 @@ import optax
 import pytest
 import torch
 
+import torch_dist_workers as workers
+
 from apex_tpu import data as jax_data
 from apex_tpu.models.gpt import GptConfig as JaxGptConfig
 from apex_tpu.models.gpt import GptModel as JaxGptModel
@@ -44,6 +46,14 @@ from apex_tpu_torch.optimizers import FusedAdam, fused_adam
 DIMS = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
             intermediate_size=128, max_seq_len=64)
 SEQ, BATCH = 32, 2
+
+
+@pytest.fixture(autouse=True)
+def _destroy_port_parallel_state():
+    """Leave no port ``parallel_state`` behind (an example's ``main``
+    leaves it initialized) for the next test or the next file in this
+    worker."""
+    yield from workers.port_state_guard()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -309,6 +319,25 @@ def test_example_trains_three_steps_on_cpu(tmp_path):
     ])
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert losses[-1] < losses[0]
+
+
+def test_the_fixture_tears_down_what_main_leaves(tmp_path):
+    """``train_gpt.main`` leaves the port's ``parallel_state`` initialized
+    (the reference's behaviour); the module's autouse fixture, driven here
+    by hand, tears it down, so the next test (or the next file in this
+    worker) starts from no groups."""
+    from apex_tpu_torch import parallel_state as ps
+
+    corpus = port_data.synthetic_token_corpus(
+        tmp_path / "corpus.bin", vocab_size=1024, num_tokens=5_000)
+    guard = workers.port_state_guard()
+    next(guard)
+    train_gpt.main(["--tiny", "--device", "cpu", "--steps", "1", "--batch",
+                    "2", "--seq-len", "16", "--data", corpus])
+    assert ps.model_parallel_is_initialized()
+    with pytest.raises(StopIteration):
+        next(guard)
+    assert not ps.model_parallel_is_initialized()
 
 
 @pytest.mark.parametrize("flag", [

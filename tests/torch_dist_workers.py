@@ -28,6 +28,19 @@ import torch
 GROUP_TIMEOUT_S = 60.0
 
 
+def port_state_guard():
+    """The body of the autouse fixture of every port test file that
+    reaches ``initialize_model_parallel`` in its own process (an example's
+    ``main``, the trainer, a hand-built mesh): yields, then destroys the
+    port's ``parallel_state``, so no test depends on which file ran
+    before it in the same worker.  The examples leave the state
+    initialized when ``main`` returns, as the reference's do."""
+    from apex_tpu_torch import parallel_state
+
+    yield
+    parallel_state.destroy_model_parallel()
+
+
 def spawn(world: int, cases, tmp_path, timeout: float = 240.0) -> list:
     """Run ``cases`` on ``world`` gloo ranks; returns each rank's
     ``{case name: result}``."""

@@ -35,9 +35,9 @@ Only classes that start threads are judged.  Waive an audited site with
 ``# lint: allow(<rule-id>): <reason>`` on the line of the flagged write
 (the purity pass's syntax).  The runtime counterpart is
 :class:`apex_tpu_torch.observability.TrackedLock`.  The module is
-stdlib-only at module level; the graph form
-(:func:`concurrency_pass`) waits for the graph pass framework (ROADMAP
-item 9).
+stdlib-only at module level; the graph form (:func:`concurrency_pass`)
+runs over a :class:`~apex_tpu_torch.analysis.passes.StepGraph`'s
+``sources``.
 """
 
 from __future__ import annotations
@@ -458,9 +458,8 @@ def lint_sources(sources) -> list:
 
 
 def concurrency_pass(graph) -> list:
-    """The graph form of the pass, over a step graph's sources: it waits
-    for the graph pass framework (ROADMAP item 9).  Run
-    :func:`lint_sources` over :func:`.purity.collect_sources` instead."""
-    raise NotImplementedError(
-        "concurrency_pass(graph) waits for the graph pass framework "
-        "(ROADMAP item 9); use lint_sources(purity.collect_sources())")
+    """The pass over a :class:`~.passes.StepGraph`'s ``sources``
+    (registered in :data:`.passes.PASSES`; quiet without them)."""
+    if getattr(graph, "sources", None) is None:
+        return []
+    return lint_sources(graph.sources)

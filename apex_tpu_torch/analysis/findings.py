@@ -9,9 +9,8 @@ fix hint) that a :class:`Report` aggregates.  The trainer's build checks
 
 The rule catalog (:data:`RULES`) is the single source of truth for rule
 ids, default severities and fix hints.  It keeps every rule id of the
-reference, those of the passes not ported yet too (ROADMAP item 9), so
-later passes add no ids; a pass emitting an uncataloged rule id is a
-bug (:func:`make_finding` raises).  The hints name the reference's
+reference, so no pass adds an id; a pass emitting an uncataloged rule id
+is a bug (:func:`make_finding` raises).  The hints name the reference's
 tools where the port has no counterpart yet.
 """
 

@@ -25,8 +25,8 @@ reason is mandatory by convention.
 
 The module is stdlib-only at module level (the findings are imported
 inside the functions), so a tool can load it standalone.  The graph
-form (:func:`purity_pass`) waits for the graph pass framework (ROADMAP
-item 9).
+form (:func:`purity_pass`) runs over a
+:class:`~apex_tpu_torch.analysis.passes.StepGraph`'s ``sources``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ __all__ = [
 #: (``apex_tpu_torch/``), "/"-separated.  A prefix ending in "/" covers
 #: the whole subpackage.  The port's counterparts of the reference's:
 #: ``serve/``, ``goodput/stream.py``, ``resilience/runner.py``;
-#: ``fleetctl/`` is not ported yet (ROADMAP item 8) and stays listed.
+#: ``fleetctl/`` is not ported yet (ROADMAP item 8, its last part) and
+#: stays listed.
 REPLAY_CRITICAL: Tuple[str, ...] = (
     "serve/",
     "goodput/stream.py",
@@ -345,9 +346,8 @@ def lint_sources(sources) -> list:
 
 
 def purity_pass(graph) -> list:
-    """The graph form of the pass, over a step graph's sources: it waits
-    for the graph pass framework (ROADMAP item 9).  Run
-    :func:`lint_sources` over :func:`collect_sources` instead."""
-    raise NotImplementedError(
-        "purity_pass(graph) waits for the graph pass framework (ROADMAP "
-        "item 9); use lint_sources(collect_sources())")
+    """The pass over a :class:`~.passes.StepGraph`'s ``sources``
+    (registered in :data:`.passes.PASSES`; quiet without them)."""
+    if getattr(graph, "sources", None) is None:
+        return []
+    return lint_sources(graph.sources)

@@ -18,9 +18,11 @@ Counterpart of the parts of ``apex_tpu/analysis/sharding.py`` (and of
   :mod:`apex_tpu_torch.analysis.findings` (the one schema): what
   :meth:`apex_tpu_torch.train.TrainStep.verify` returns.
 
-The reference's HLO and memory passes are not here (ROADMAP item 9):
-the trainer checks its plan against the collective call log of
-:mod:`apex_tpu_torch.parallel.comm` instead.
+The reference's GSPMD sharding and reshard passes read compiled
+shardings, which have no counterpart on one card: the trainer checks its
+shards against these tables and its plan against the collective call log
+of :mod:`apex_tpu_torch.parallel.comm` (the recorded step's memory and
+graph passes live in :mod:`.memory` and :mod:`.passes`).
 """
 
 from __future__ import annotations

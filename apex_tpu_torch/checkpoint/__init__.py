@@ -516,11 +516,17 @@ class CheckpointManager:
         save_checkpoint(os.path.join(self.directory, str(int(step))), state,
                         force=force)
         self._steps.add(int(step))
-        if self._max_to_keep is not None and _world()[0] == 0:
-            steps = all_steps(self.directory)
-            for s in steps[: max(0, len(steps) - self._max_to_keep)]:
-                shutil.rmtree(os.path.join(self.directory, str(s)),
-                              ignore_errors=True)
+        rank, world = _world()
+        try:
+            if self._max_to_keep is not None and rank == 0:
+                steps = all_steps(self.directory)
+                for s in steps[: max(0, len(steps) - self._max_to_keep)]:
+                    shutil.rmtree(os.path.join(self.directory, str(s)),
+                                  ignore_errors=True)
+        finally:
+            if world > 1:
+                # every rank returns after rank 0's retention prune
+                _round(0, checkpoint_group())
         return True
 
     def restore(self, step: Optional[int] = None, *, template=None):

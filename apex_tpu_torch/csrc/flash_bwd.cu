@@ -118,6 +118,7 @@
 
 #include "flash_operands.cuh"
 #include "hopper.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -1530,18 +1531,18 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(dq_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * (d / 64)), kThreads,
+    { if (!apex_query::record(dkdv_kernel, dim3(static_cast<unsigned>(bh) * nk * (d / 64)), kThreads, dkdv_bytes)) dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * (d / 64)), kThreads,
                   dkdv_bytes, stream>>>(
         q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk, d, scale,
-        causal, offset, bias_div, bias_rows, threshold, drop_scale);
+        causal, offset, bias_div, bias_rows, threshold, drop_scale); }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * (d / 128)), kThreads,
+    { if (!apex_query::record(dq_kernel, dim3(static_cast<unsigned>(bh) * nq * (d / 128)), kThreads, dq_bytes)) dq_kernel<<<dim3(static_cast<unsigned>(bh) * nq * (d / 128)), kThreads,
                 dq_bytes, stream>>>(
         q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
         static_cast<bf16*>(dq), bh, sq, sk, d, scale, causal, offset,
-        bias_div, bias_rows, threshold, drop_scale);
+        bias_div, bias_rows, threshold, drop_scale); }
     return static_cast<int>(cudaGetLastError());
   } else {
     constexpr size_t dkdv_bytes = smem_bytes<D, kBias, true>();
@@ -1560,27 +1561,27 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(dq_bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()),
+    { if (!apex_query::record(dkdv_kernel, dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()), kThreads, dkdv_bytes)) dkdv_kernel<<<dim3(static_cast<unsigned>(bh) * nk * dkdv_split<D>()),
                   kThreads, dkdv_bytes, stream>>>(
         q_ring, k_res, v_res, do_ring, bias_ring, mp, lp, dp, bp, sp,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk, scale,
-        causal, offset, bias_div, bias_rows, threshold, drop_scale);
+        causal, offset, bias_div, bias_rows, threshold, drop_scale); }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 dq_grid(static_cast<unsigned>(bh) * nq * dq_split<D>());
     if constexpr (kDbias)
-      flash_bwd_dq_dbias_kernel<D, kBias, kDropout>
+      { if (!apex_query::record(&flash_bwd_dq_dbias_kernel<D, kBias, kDropout>, dq_grid, kThreads, dq_bytes)) flash_bwd_dq_dbias_kernel<D, kBias, kDropout>
           <<<dq_grid, kThreads, dq_bytes, stream>>>(
               q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
               static_cast<bf16*>(dq), static_cast<float*>(dbias), bh, sq, sk,
               scale, causal, offset, bias_div, bias_rows, threshold,
-              drop_scale);
+              drop_scale); }
     else
-      flash_bwd_dq_kernel<D, kBias, kDropout>
+      { if (!apex_query::record(&flash_bwd_dq_kernel<D, kBias, kDropout>, dq_grid, kThreads, dq_bytes)) flash_bwd_dq_kernel<D, kBias, kDropout>
           <<<dq_grid, kThreads, dq_bytes, stream>>>(
               q_res, k_ring, v_ring, do_res, bias_res, mp, lp, dp, bp, sp,
               static_cast<bf16*>(dq), bh, sq, sk, scale, causal, offset,
-              bias_div, bias_rows, threshold, drop_scale);
+              bias_div, bias_rows, threshold, drop_scale); }
     return static_cast<int>(cudaGetLastError());
   }
 }

@@ -57,6 +57,7 @@
 #include <mma.h>
 
 #include "flash_operands.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -362,13 +363,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const int nk = (sk + kBK - 1) / kBK;
   const size_t ctas = static_cast<size_t>(groups) * (kRowBias ? nq : 1) * nk;
   if (ctas > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads, bytes, stream>>>(
+  { if (!apex_query::record(kernel, dim3(static_cast<unsigned>(ctas)), kThreads, bytes)) kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(delta), static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<float*>(dbias), members, sq,
-      sk, nq, nk, d, scale, causal, offset, threshold, drop_scale);
+      sk, nq, nk, d, scale, causal, offset, threshold, drop_scale); }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -95,6 +95,7 @@
 #include <cstdint>
 
 #include "flash_operands.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -1812,17 +1813,17 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
         sizeof(float) * kFwdWideStages * fwd_wide_stage<kBias>();
     const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, bytes, stream>>>(
+    { if (!apex_query::record(kernel, grid, kThreads, bytes)) kernel<<<grid, kThreads, bytes, stream>>>(
         qp, kp, vp, bp, sp, op, lsep, mp, lp, bh, sq, sk, d, scale, causal,
-        offset, bias_div, bias_rows, threshold, drop_scale);
+        offset, bias_div, bias_rows, threshold, drop_scale); }
   } else {
     auto* kernel = &flash_fwd_f32_kernel<D, kBias, kDropout>;
     constexpr size_t bytes = fwd_smem<D, kBias>();
     const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, bytes, stream>>>(
+    { if (!apex_query::record(kernel, grid, kThreads, bytes)) kernel<<<grid, kThreads, bytes, stream>>>(
         qp, kp, vp, bp, sp, op, lsep, mp, lp, bh, sq, sk, scale, causal,
-        offset, bias_div, bias_rows, threshold, drop_scale);
+        offset, bias_div, bias_rows, threshold, drop_scale); }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1871,16 +1872,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     err = allow_smem(dkdv, dkdv_bytes);
     if (err == cudaSuccess) err = allow_smem(dqk, dq_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkdv<<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(
+    { if (!apex_query::record(dkdv, dkdv_grid, kThreads, dkdv_bytes)) dkdv<<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(
         qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dk),
         static_cast<float*>(dv), bh, sq, sk, d, scale, causal, offset,
-        bias_div, bias_rows, threshold, drop_scale);
+        bias_div, bias_rows, threshold, drop_scale); }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dqk<<<dq_grid, kThreads, dq_bytes, stream>>>(
+    { if (!apex_query::record(dqk, dq_grid, kThreads, dq_bytes)) dqk<<<dq_grid, kThreads, dq_bytes, stream>>>(
         qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dq), bh, sq,
         sk, d, scale, causal, offset, bias_div, bias_rows, threshold,
-        drop_scale);
+        drop_scale); }
   } else {
     auto* dkdv = &flash_bwd_dkdv_f32_kernel<D, kBias, kDropout>;
     auto* dqk = &flash_bwd_dq_f32_kernel<D, kBias, kDropout>;
@@ -1889,15 +1890,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
     err = allow_smem(dkdv, dkdv_bytes);
     if (err == cudaSuccess) err = allow_smem(dqk, dq_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dkdv<<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(
+    { if (!apex_query::record(dkdv, dkdv_grid, kThreads, dkdv_bytes)) dkdv<<<dkdv_grid, kThreads, dkdv_bytes, stream>>>(
         qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dk),
         static_cast<float*>(dv), bh, sq, sk, scale, causal, offset, bias_div,
-        bias_rows, threshold, drop_scale);
+        bias_rows, threshold, drop_scale); }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dqk<<<dq_grid, kThreads, dq_bytes, stream>>>(
+    { if (!apex_query::record(dqk, dq_grid, kThreads, dq_bytes)) dqk<<<dq_grid, kThreads, dq_bytes, stream>>>(
         qp, kp, vp, op, mp, lp, dp, bp, sp, static_cast<float*>(dq), bh, sq,
-        sk, scale, causal, offset, bias_div, bias_rows, threshold, drop_scale);
+        sk, scale, causal, offset, bias_div, bias_rows, threshold, drop_scale); }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1921,13 +1922,13 @@ int launch_dbias(const void* q, const void* k, const void* v, const void* dout,
   const int nk = (sk + kKeysT - 1) / kKeysT;
   const size_t ctas = static_cast<size_t>(groups) * (kRowBias ? nq : nk);
   if (ctas > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads, bytes, stream>>>(
+  { if (!apex_query::record(kernel, dim3(static_cast<unsigned>(ctas)), kThreads, bytes)) kernel<<<dim3(static_cast<unsigned>(ctas)), kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(delta), static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<float*>(dbias), members, sq,
-      sk, d, scale, causal, offset, threshold, drop_scale);
+      sk, d, scale, causal, offset, threshold, drop_scale); }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,6 +83,7 @@
 
 #include "flash_operands.cuh"
 #include "hopper.cuh"
+#include "launch_query.cuh"
 
 namespace {
 
@@ -835,12 +836,12 @@ int launch_wide(const void* q, const void* k, const void* v, const void* bias,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_items = bh * (d / kWideDV) * ((sq + kBlockQ - 1) / kBlockQ);
   const int grid = min(n_items, sms);
-  kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
+  { if (!apex_query::record(kernel, dim3(static_cast<unsigned>(grid)), kThreads, bytes)) kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_bias, static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<bf16*>(o),
       static_cast<float*>(lse), static_cast<float*>(m),
       static_cast<float*>(l), bh, sq, sk, d, scale, causal, offset, bias_div,
-      bias_rows, threshold, drop_scale);
+      bias_rows, threshold, drop_scale); }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -876,12 +877,12 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   const int n_items =
       bh * (D / Tile<D, kBias>::kDV) * ((sq + kBlockQ - 1) / kBlockQ);
   const int grid = min(n_items, sms);
-  kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
+  { if (!apex_query::record(kernel, dim3(static_cast<unsigned>(grid)), kThreads, bytes)) kernel<<<dim3(static_cast<unsigned>(grid)), kThreads, bytes, stream>>>(
       tm_q, tm_k, tm_v, tm_bias, static_cast<const float*>(bias),
       static_cast<const int*>(seed), static_cast<bf16*>(o),
       static_cast<float*>(lse), static_cast<float*>(m),
       static_cast<float*>(l), bh, sq, sk, scale, causal, offset, bias_div,
-      bias_rows, threshold, drop_scale);
+      bias_rows, threshold, drop_scale); }
   return static_cast<int>(cudaGetLastError());
 }
 

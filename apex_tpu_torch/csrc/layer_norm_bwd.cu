@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include "launch_query.cuh"
 
 namespace {
 
@@ -356,12 +357,12 @@ int launch(int vec, int per_lane, const void* x, const void* w, const void* b,
            int x_is_output, cudaStream_t stream) {
   const Kernel<T> kernel = pick<T>(vec, per_lane);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<dim3(grid), kThreads, 0, stream>>>(
+  { if (!apex_query::record(kernel, dim3(grid), kThreads, 0)) kernel<<<dim3(grid), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<const float*>(mu),
       static_cast<const float*>(rstd), static_cast<const T*>(g),
       static_cast<T*>(dx), static_cast<float*>(part), rows, hidden, lanes, rms,
-      x_is_output);
+      x_is_output); }
   return static_cast<int>(cudaGetLastError());
 }
 

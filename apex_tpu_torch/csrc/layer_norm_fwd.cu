@@ -32,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include "launch_query.cuh"
 
 namespace {
 
@@ -274,11 +275,11 @@ int launch(int vec, int per_lane, const void* x, const void* w, const void* b,
            int grid, float eps, int rms, cudaStream_t stream) {
   const Kernel<T> kernel = pick<T>(vec, per_lane);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<dim3(grid), kThreads, 0, stream>>>(
+  { if (!apex_query::record(kernel, dim3(grid), kThreads, 0)) kernel<<<dim3(grid), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<T*>(y),
       static_cast<float*>(mu), static_cast<float*>(rstd), rows, hidden, lanes,
-      eps, rms);
+      eps, rms); }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,6 +54,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "launch_query.cuh"
 
 namespace {
 
@@ -420,14 +421,14 @@ int launch(dim3 grid, cudaStream_t s, const void* q, const void* kp,
   const int vec = row_bytes % 16 == 0 && a16 ? 16
                   : row_bytes % 4 == 0 && a4 ? 4
                                              : 0;
-  kernel<<<grid, kThreads, smem_bytes(d, row_bytes, tile), s>>>(
+  { if (!apex_query::record(kernel, grid, kThreads, smem_bytes(d, row_bytes, tile))) kernel<<<grid, kThreads, smem_bytes(d, row_bytes, tile), s>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(kp),
       static_cast<const KVT*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<const float*>(cos_rows),
       static_cast<const float*>(sin_rows), static_cast<QT*>(out),
       static_cast<float*>(work), static_cast<int*>(counters), heads, d, page,
-      np, scale, split_pages, n_split, tile, vec);
+      np, scale, split_pages, n_split, tile, vec); }
   return static_cast<int>(cudaGetLastError());
 }
 

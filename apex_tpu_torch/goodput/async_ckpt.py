@@ -545,7 +545,14 @@ class AsyncCheckpointEngine:
                                   group=self._group)
             with self._lock:
                 self._phase = "prune"
-            self._prune()
+            try:
+                self._prune()
+            finally:
+                if self._group is not None:
+                    # the write returns on every rank only once rank 0's
+                    # retention prune is done: a rank that reads the
+                    # directory after wait_until_finished sees it final
+                    _ckpt._round(0, self._group)
         except BaseException as e:  # deferred to the next save() call
             ok = False
             with self._lock:

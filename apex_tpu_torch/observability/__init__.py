@@ -16,13 +16,24 @@ the serving path's telemetry spine.
 - :mod:`~apex_tpu_torch.observability.meter` — :class:`StepMeter`,
   :class:`GoodputAccountant`, the H100's peak tables and
   :func:`percentile`;
-- :mod:`~apex_tpu_torch.observability.locks` — the lock-order sanitizer.
+- :mod:`~apex_tpu_torch.observability.locks` — the lock-order sanitizer;
+- :mod:`~apex_tpu_torch.observability.export` — :class:`Reporter` and its
+  JSONL, CSV, TensorBoard and timeline sinks;
+- :mod:`~apex_tpu_torch.observability.memstats` — the allocator's live
+  watermarks, held against the static memory estimates.
 
-The rest of the reference's observability (memory statistics,
-attribution, export sinks, traces, the fleet view, SLOs and canaries)
-waits for ROADMAP item 8.
+The rest of the reference's observability (traces, attribution, the fleet
+view, SLOs and canaries) waits for ROADMAP item 8's next parts.
 """
 
+from apex_tpu_torch.observability.export import (  # noqa: F401
+    CSVSink,
+    JSONLSink,
+    Reporter,
+    TensorBoardSink,
+    TimelineSink,
+    bench_record,
+)
 from apex_tpu_torch.observability.flight import (  # noqa: F401
     ENV_FLIGHT,
     FlightRecorder,
@@ -45,6 +56,13 @@ from apex_tpu_torch.observability.health import (  # noqa: F401
 from apex_tpu_torch.observability.locks import (  # noqa: F401
     TrackedLock,
     sanitizer_report,
+)
+from apex_tpu_torch.observability.memstats import (  # noqa: F401
+    DeviceMemoryProvider,
+    FakeMemoryProvider,
+    MemStatsMonitor,
+    MemStatsRule,
+    oom_forensics,
 )
 from apex_tpu_torch.observability.meter import (  # noqa: F401
     GoodputAccountant,

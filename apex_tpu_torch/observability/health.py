@@ -32,8 +32,10 @@ rule                           fires when
 :func:`serve_rules` builds the serving set.  Every firing emits a
 :class:`HealthEvent` to the watchdog's ``events``, the board
 (``health/<rule>``), an attached flight recorder and span recorder, and
-the ``on_unhealthy`` callback.  The training and goodput rules (and the
-bench-schema ``reporter`` sink) wait for ROADMAP item 8.
+the ``on_unhealthy`` callback, and to a
+:class:`~apex_tpu_torch.observability.export.Reporter`'s sinks as one
+bench-schema record (``reporter=``).  The training and goodput rules
+wait for ROADMAP item 8's next part.
 """
 
 from __future__ import annotations
@@ -428,7 +430,7 @@ class Watchdog:
         run_resilient(..., observer=ObserverFanout([obs, wd]))
 
     ``rules`` defaults to :func:`serve_rules` (the training rules wait
-    for ROADMAP item 8).  A broken rule must not kill the loop: rule
+    for ROADMAP item 8's next part).  A broken rule must not kill the loop: rule
     exceptions are caught, warned once per rule, and the rule is
     disabled for the run.
     """
@@ -438,6 +440,7 @@ class Watchdog:
         rules: Optional[List[Rule]] = None,
         *,
         registry=None,
+        reporter=None,
         flight=None,
         spans=None,
         on_unhealthy: Optional[Callable[[HealthEvent], Any]] = None,
@@ -449,6 +452,9 @@ class Watchdog:
             raise ValueError("check_every must be >= 1")
         self.rules = list(rules) if rules is not None else serve_rules()
         self.registry = registry
+        #: optional :class:`~apex_tpu_torch.observability.export.Reporter`
+        #: whose sinks get every firing as a bench-schema record
+        self.reporter = reporter
         self.flight = flight
         #: optional :class:`~apex_tpu_torch.observability.spans.SpanRecorder`
         #: — every firing lands on its health track, so the merged
@@ -555,6 +561,15 @@ class Watchdog:
         from apex_tpu_torch.observability.metrics import board
 
         board.set(f"health/{event.rule}", event.value)
+        if self.reporter is not None:
+            from apex_tpu_torch.observability.export import bench_record
+
+            rec = bench_record(
+                f"health/{event.rule}", event.value, "", None,
+                step=event.step, **event.as_record(),
+            )
+            for sink in self.reporter.sinks:
+                sink.write(rec)
         if self.flight is not None:
             self.flight.note_health(event)
         if self.spans is not None:

@@ -18,11 +18,16 @@ discarded_by_rollback) / executed_steps``.
 TTFT and latency statistics.
 
 The peak tables hold the H100's public figures (dense bf16 989 TFLOP/s,
-HBM3 3.35 TB/s, NVLink 4 450 GB/s a direction), the ones ``PERF.md``
-computes its bounds with.  A card the tables do not know raises: an MFU
-against another chip's peak would be a wrong number, not a floor.  The
-reference's ``categorize_op`` and ``vmem_bytes_for`` read TPU HLO and
-VMEM; they wait for the analysis port (ROADMAP item 9).
+TF32 495, f32 67, HBM3 3.35 TB/s, NVLink 4 450 GB/s a direction, 227 KB
+of shared memory a CTA may opt into), the ones ``PERF.md`` and
+:func:`apex_tpu_torch.analysis.kernels.roofline` compute the bounds
+with.  A card the tables do not know raises: an MFU against another
+chip's peak would be a wrong number, not a floor.
+
+:func:`categorize_op` buckets an op or a CUDA kernel's name into the
+reference's :data:`BUCKETS` (step-time attribution's vocabulary), and
+:func:`smem_bytes_for` is the counterpart of the reference's
+``vmem_bytes_for``: the on-chip memory a kernel's CTA may take.
 """
 
 from __future__ import annotations
@@ -31,7 +36,15 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 __all__ = [
+    "BUCKETS",
     "PEAK_BF16_FLOPS",
+    "PEAK_TF32_FLOPS",
+    "PEAK_F32_FLOPS",
+    "SMEM_BYTES",
+    "categorize_op",
+    "peak_tf32_flops_for",
+    "peak_f32_flops_for",
+    "smem_bytes_for",
     "PEAK_HBM_GBPS",
     "PEAK_ICI_GBPS",
     "peak_flops_for",
@@ -60,6 +73,22 @@ def percentile(sorted_vals, q: float) -> float:
 #: dense bf16 peak FLOP/s by device name prefix (public specs)
 PEAK_BF16_FLOPS = {
     "NVIDIA H100": 989e12,
+}
+
+#: dense TF32 tensor-core peak FLOP/s by device name prefix (public specs)
+PEAK_TF32_FLOPS = {
+    "NVIDIA H100": 495e12,
+}
+
+#: f32 (CUDA-core FMA) peak FLOP/s by device name prefix (public specs)
+PEAK_F32_FLOPS = {
+    "NVIDIA H100": 67e12,
+}
+
+#: shared memory a CTA may opt into, by device name prefix (the CUDA
+#: programming guide's table for compute capability 9.0)
+SMEM_BYTES = {
+    "NVIDIA H100": 227 * 1024,
 }
 
 #: HBM bytes/s by device name prefix (public specs)
@@ -96,6 +125,77 @@ def peak_hbm_bandwidth_for(device_kind: str) -> float:
 def peak_ici_bandwidth_for(device_kind: str) -> float:
     """Interconnect bytes/s a direction for a device name."""
     return _lookup(PEAK_ICI_GBPS, device_kind, "interconnect bandwidth")
+
+
+def peak_tf32_flops_for(device_kind: str) -> float:
+    """Dense TF32 tensor-core peak FLOP/s for a device name."""
+    return _lookup(PEAK_TF32_FLOPS, device_kind, "TF32 peak")
+
+
+def peak_f32_flops_for(device_kind: str) -> float:
+    """f32 FMA peak FLOP/s for a device name."""
+    return _lookup(PEAK_F32_FLOPS, device_kind, "f32 peak")
+
+
+def smem_bytes_for(device_kind: str) -> int:
+    """Shared memory one CTA may opt into on a device name (the
+    ``kernel-vmem-overflow`` gate's denominator: the reference's
+    ``vmem_bytes_for``)."""
+    return int(_lookup(SMEM_BYTES, device_kind, "shared memory"))
+
+
+# ---------------------------------------------------------------------------
+# the bucket model: one op-category vocabulary for attribution
+# ---------------------------------------------------------------------------
+
+#: the categories step-time attribution decomposes into (the reference's)
+BUCKETS = ("matmul", "attention", "norm_elementwise", "collective", "other")
+
+_COLLECTIVE_HINTS = (
+    "all-reduce", "all_reduce", "allreduce", "all-gather", "all_gather",
+    "allgather", "reduce-scatter", "reduce_scatter", "reducescatter",
+    "all-to-all", "all_to_all", "alltoall", "collective-permute", "nccl",
+    "sendrecv", "c10d",
+)
+#: the port's attention kernels (K3-K6) and PyTorch's own
+_ATTENTION_HINTS = (
+    "flash", "attention", "attn", "paged_decode", "fmha", "mha",
+    "softmax_xent",
+)
+#: cuBLAS/CUTLASS GEMM kernels and the aten products
+_MATMUL_HINTS = (
+    "gemm", "cutlass", "xmma", "sm90_", "sm80_", "ampere_", "cublas",
+    "matmul", "aten::mm", "aten::bmm", "aten::addmm", "aten::linear",
+    "aten.mm.", "aten.bmm.", "aten.addmm.", "aten.baddbmm.", "aten.linear.",
+    "dot", "einsum", "conv",
+)
+_NORM_ELEMENTWISE_HINTS = (
+    "ln_fwd", "ln_bwd", "layer_norm", "norm", "softmax", "gelu", "relu",
+    "tanh", "sigmoid", "dropout", "bias", "add", "mul", "rope", "rotary",
+    "scale", "mean", "var", "rsqrt", "exp", "erf", "elementwise",
+    "vectorized", "reduce", "copy", "fill", "cast", "where",
+)
+
+
+def categorize_op(opcode: str, op_name: str = "") -> str:
+    """Bucket one op into :data:`BUCKETS` from its op name (an aten op,
+    ``custom-call`` for a kernel of the port) and ``op_name`` (a CUDA
+    kernel's name from a trace, or a recorded op's scope path).
+
+    Priority: collective > attention > matmul > norm-elementwise > other,
+    as the reference's: the attention bucket owns its products."""
+    opcode = (opcode or "").lower()
+    name = (op_name or "").lower()
+    text = f"{opcode} {name}"
+    if any(k in text for k in _COLLECTIVE_HINTS):
+        return "collective"
+    if any(k in text for k in _ATTENTION_HINTS):
+        return "attention"
+    if any(k in text for k in _MATMUL_HINTS):
+        return "matmul"
+    if any(k in text for k in _NORM_ELEMENTWISE_HINTS):
+        return "norm_elementwise"
+    return "other"
 
 
 def chip_peak_flops(device) -> float:

@@ -64,7 +64,7 @@ def _build_dir() -> Path:
 
 _BUILD = _build_dir()
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}  # (source, defines) -> library
 _LOGS: Dict[Path, str] = {}  # library path -> compiler output
 
 
@@ -148,19 +148,23 @@ def library(entry: str) -> str:
     return ENTRY_POINTS.get(entry, entry)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name``, built on first use."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name`` (built with
+    ``defines``: a tuned variant, :mod:`.tune_cache`), built on first
+    use."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        lib = ctypes.CDLL(str(build([name], defines)[name]))
         lib.apex_error_string.argtypes = [ctypes.c_int]
         lib.apex_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 
-def check(name: str, code: int) -> None:
+def check(name: str, code: int, defines: Sequence[str] = ()) -> None:
     """Raise if C entry point ``name`` reported a CUDA error."""
     if code:
-        msg = _LIBS[library(name)].apex_error_string(code).decode()
+        lib = _LIBS[(library(name), tuple(defines))]
+        msg = lib.apex_error_string(code).decode()
         raise RuntimeError(f"kernel {name} failed to launch: {msg} ({code})")

@@ -39,7 +39,12 @@ __all__ = [
     "clear_paths",
     "count_launch",
     "launch",
+    "launch_signatures",
+    "launch_variants",
     "launches",
+    "query",
+    "record_signatures",
+    "signature",
     "launch_dtypes",
     "reset_launches",
     "recorded_apart",
@@ -100,6 +105,17 @@ def clear_paths() -> None:
     _PATH_LOG.clear()
 
 
+#: kernel -> {defines: launches} of tuned variants (:func:`launch_variants`)
+_VARIANTS: Dict[str, Dict[tuple, int]] = {}
+#: the distinct launches since :func:`record_signatures` (None: off)
+SIGNATURES: Optional[Dict[tuple, int]] = None
+#: kernel -> its ctypes argument types, as its wrapper last passed them
+_ARGTYPES: Dict[str, tuple] = {}
+
+#: the step recorders of :func:`apex_tpu_torch.analysis.passes.capture`
+#: that are running: each launch is reported to them as one opaque node
+RECORDERS: list = []
+
 #: kernel name -> launches since the last :func:`reset_launches`
 _LAUNCHES: Dict[str, int] = {}
 #: kernel name -> {operand dtype: launches}, for the launches whose
@@ -118,22 +134,105 @@ def count_launch(kernel: str, dtype: Optional[torch.dtype] = None) -> None:
         by[name] = by.get(name, 0) + 1
 
 
-def launch(kernel: str, argtypes: Sequence, device: torch.device,
-           *args, dtype: Optional[torch.dtype] = None) -> None:
-    """Call the C entry point ``kernel`` of its source (``csrc/<kernel>.cu``
-    or the one ``_build.ENTRY_POINTS`` names; built on first use) with
-    ``args`` and the current stream of ``device`` appended, raise if it
-    reports a CUDA error, and count the launch under ``kernel`` (and
-    under ``dtype``, the main operand's, when given).  ``argtypes`` are
-    its ctypes argument types, the stream's last."""
-    fn = getattr(_build.load(_build.library(kernel)), kernel)
+def _entry(kernel: str, argtypes: Sequence, defines: Sequence[str] = ()):
+    fn = getattr(_build.load(_build.library(kernel), defines), kernel)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(kernel: str, argtypes: Sequence, device: torch.device,
+           *args, dtype: Optional[torch.dtype] = None,
+           defines: Sequence[str] = ()) -> None:
+    """Call the C entry point ``kernel`` of its source (``csrc/<kernel>.cu``
+    or the one ``_build.ENTRY_POINTS`` names; built on first use, with
+    ``defines`` for a tuned variant) with ``args`` and the current stream
+    of ``device`` appended, raise if it reports a CUDA error, and count
+    the launch under ``kernel`` (and under ``dtype``, the main operand's,
+    when given; and under ``defines`` when a variant ran).  ``argtypes``
+    are its ctypes argument types, the stream's last."""
+    defines = tuple(defines)
+    fn = _entry(kernel, argtypes, defines)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    _build.check(kernel, rc)
+    _build.check(kernel, rc, defines)
     count_launch(kernel, dtype)
+    if defines:
+        by = _VARIANTS.setdefault(kernel, {})
+        by[defines] = by.get(defines, 0) + 1
+    if SIGNATURES is not None:
+        key = (kernel, defines, signature(argtypes, args))
+        SIGNATURES[key] = SIGNATURES.get(key, 0) + 1
+        _ARGTYPES[kernel] = tuple(argtypes)
+    for rec in RECORDERS:
+        rec.note_launch(kernel, argtypes, args, dtype)
+
+
+def signature(argtypes: Sequence, args: Sequence) -> tuple:
+    """A launch's arguments as its dispatch reads them: every pointer
+    reduced to 0 (null), 16, 4 or 1 (its alignment), the rest as given
+    (the stream dropped)."""
+    return tuple(
+        (0 if not v else 16 if v % 16 == 0 else 4 if v % 4 == 0 else 1)
+        if ty is ctypes.c_void_p else v
+        for ty, v in zip(argtypes, args))
+
+
+def launch_variants() -> Dict[str, Dict[tuple, int]]:
+    """kernel -> {defines: launches} of the tuned variants launched since
+    the last :func:`reset_launches` (the default build is not listed)."""
+    return {k: dict(v) for k, v in _VARIANTS.items()}
+
+
+def record_signatures(on: bool = True) -> None:
+    """Start (or stop and forget) the log of distinct launches that
+    :func:`launch_signatures` returns (off by default: it costs a few
+    microseconds a launch)."""
+    global SIGNATURES
+    SIGNATURES = {} if on else None
+
+
+def launch_signatures() -> Dict[tuple, int]:
+    """``{(kernel, defines, signature): launches}`` since
+    :func:`record_signatures`."""
+    return dict(SIGNATURES or {})
+
+
+#: a placeholder address of each pointer class (16-, 4- and 1-byte
+#: aligned) for :func:`query`
+_PLACEHOLDER = {16: 1 << 20, 4: (1 << 20) + 4, 1: (1 << 20) + 1}
+
+
+def query(kernel: str, sig: tuple, device, defines: Sequence[str] = (),
+          argtypes: Optional[Sequence] = None) -> list:
+    """The card's own figures for the launches that C entry point
+    ``kernel`` makes for the arguments ``sig`` (:func:`signature`), asked
+    without launching (``csrc/launch_query.cuh``): one dict per
+    ``__global__`` launch with ``regs``, ``static_smem``,
+    ``max_dyn_smem``, ``dyn_smem``, ``threads``, ``ctas_per_sm``,
+    ``grid`` and ``local_bytes``."""
+    argtypes = tuple(argtypes or _ARGTYPES[kernel])
+    fn = _entry(kernel, argtypes, tuple(defines))
+    lib = _build.load(_build.library(kernel), tuple(defines))
+    lib.apex_query_begin.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                     ctypes.c_int]
+    lib.apex_query_begin.restype = None
+    lib.apex_query_end.restype = ctypes.c_int
+    cap = 4
+    out = (ctypes.c_int * (8 * cap))()
+    args = [(_PLACEHOLDER[v] if v else None) if ty is ctypes.c_void_p else v
+            for ty, v in zip(argtypes, sig)]
+    with torch.cuda.device(device):
+        lib.apex_query_begin(out, cap)
+        try:
+            rc = fn(*args, None)
+        finally:
+            n = lib.apex_query_end()
+    _build.check(kernel, rc, tuple(defines))
+    keys = ("regs", "static_smem", "max_dyn_smem", "dyn_smem", "threads",
+            "ctas_per_sm", "grid", "local_bytes")
+    return [dict(zip(keys, out[8 * i: 8 * i + 8])) for i in range(min(n, cap))]
 
 
 def launches() -> Dict[str, int]:
@@ -150,6 +249,7 @@ def launch_dtypes() -> Dict[str, Dict[str, int]]:
 def reset_launches() -> None:
     _LAUNCHES.clear()
     _DTYPES.clear()
+    _VARIANTS.clear()
 
 
 @contextlib.contextmanager

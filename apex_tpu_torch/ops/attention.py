@@ -471,6 +471,19 @@ def _operand_args(name, q, k, bias, dropout_p, seed):
     return bias_ptr, seed_ptr, groups, rows, threshold, drop_scale
 
 
+def _variant(mode: str, q, sq: int, d: int, causal: bool) -> dict:
+    """``{"defines": ...}`` of the K3 (``mode`` "fwd") or K4 ("bwd")
+    variant the tuning cache names for this bf16 call (:mod:`.tune_cache`)
+    for :func:`~._dispatch.launch`, ``{}`` for the default build; the f32
+    instances have no variants."""
+    if q.dtype != torch.bfloat16:
+        return {}
+    from apex_tpu_torch.ops import tune_cache
+
+    defines = tune_cache.flash_defines(mode, sq, d, causal, q.dtype)
+    return {"defines": defines} if defines else {}
+
+
 def _padded(name, d, *tensors):
     """``tensors`` zero-padded on the head dim to ``kernel_head_dim(d)``
     and checked for the kernels' loads, with that head dim."""
@@ -508,7 +521,7 @@ def flash_fwd(q, k, v, bias=None, *, scale: float, causal: bool,
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
         seed_ptr, o.data_ptr(), lse.data_ptr(), m.data_ptr(), l.data_ptr(),
         bh, sq, sk, dk, groups, rows, float(scale), int(causal), threshold,
-        drop_scale,
+        drop_scale, **_variant("fwd", q, sq, dk, causal),
     )
     return _unpad(o, d), lse, m, l
 
@@ -550,7 +563,7 @@ def flash_bwd(q, k, v, do, m, l, delta, bias=None, *, scale: float,
         do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         bias_ptr, seed_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
         sq, sk, dh, groups, rows, float(scale), int(causal), threshold,
-        drop_scale,
+        drop_scale, **_variant("bwd", q, sq, dh, causal),
     )
     return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
@@ -635,6 +648,7 @@ def flash_bwd_dbias(q, k, v, do, m, l, delta, bias, *, scale: float,
         l.data_ptr(), delta.data_ptr(), bias_ptr, seed_ptr, dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), bh, sq, sk, dh,
         groups, rows, float(scale), int(causal), threshold, drop_scale,
+        **_variant("bwd", q, sq, dh, causal),
     )
     return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d), dbias
 
@@ -816,3 +830,368 @@ def fmha_qkvpacked(qkv, bias=None, *, causal: bool = False,
                         dropout_p=dropout_p, generator=generator,
                         dropout_seed=dropout_seed)
     return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# launch plans for the static analysis (apex_tpu_torch.analysis.kernels):
+# the instance, grid, threads and shared memory each launcher of
+# csrc/flash_fwd.cu, flash_bwd.cu, flash_dbias.cu and flash_f32.cu picks
+# ---------------------------------------------------------------------------
+
+#: the C entry points whose launches :func:`specs_from_args` describes
+SPEC_ENTRIES = (KERNEL, KERNEL_BWD, KERNEL_DBIAS, KERNEL_BWD_DBIAS,
+                KERNEL_F32, KERNEL_BWD_F32, KERNEL_DBIAS_F32)
+
+#: flash_operands.cuh's BiasMode
+_NO_BIAS, _BIAS_GLOBAL, _BIAS_TILE = 0, 1, 2
+#: K3's q rows a CTA (two 64-row consumer warpgroups); K4's resident rows
+_BLOCK_Q = 128
+#: the causal walk's granularity: 64 rows (a warpgroup, K4's ring stage)
+#: by 64 keys
+_WALK = 64
+#: the Hopper kernels' threads: two consumer warpgroups and the producer's
+_HOPPER_THREADS = 384
+#: the f32 instances' and K5's threads (four warps)
+_WARPS4_THREADS = 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // int(b))
+
+
+def _flag(b) -> str:
+    return "true" if b else "false"
+
+
+def _define(defines, name):
+    for d in defines:
+        key, _, value = str(d).partition("=")
+        if key == name:
+            return int(value)
+    return None
+
+
+def _bias_mode(bias_cls: int, rows: int, sq: int, sk: int) -> int:
+    """``flash_operands::bias_mode`` on a pointer class."""
+    if not bias_cls:
+        return _NO_BIAS
+    tma = rows == sq and sq > 1 and sk % 4 == 0 and bias_cls == 16
+    return _BIAS_TILE if tma else _BIAS_GLOBAL
+
+
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: row i sees ``min(max(i + sk -
+    sq + 1, 0), sk)`` keys under the bottom-right causal mask."""
+    if not causal:
+        return int(sq) * int(sk)
+    import numpy as np
+
+    rows = np.arange(int(sq), dtype=np.int64) + (int(sk) - int(sq)) + 1
+    return int(np.clip(rows, 0, int(sk)).sum())
+
+
+def _attn_work(kind: str, bh, sq, sk, d, elem, bias_bytes, seed, causal,
+               f32) -> dict:
+    """Each input read once and each output written once — q, k, v (and
+    dO) in, o (dq, dk, dv) out, the f32 row statistics, the bias (and
+    dbias) and the seed — and the products' operations over the live
+    pairs: 2 products of 2·D a pair forward (K3, K5's recompute), 5
+    backward (K4); an f32 product is three TF32 products."""
+    q_el, k_el = bh * sq * d, bh * sk * d
+    live = bh * causal_pairs(sq, sk, causal)
+    extra = 3 * 4 * bh * sq + bias_bytes + (4 if seed else 0)
+    mult, peak = (3, "tf32_tensor") if f32 else (1, "bf16_tensor")
+    if kind == "fwd":
+        return {"bytes": elem * 2 * (q_el + k_el) + extra,
+                "ops": mult * 4 * d * live, "peak": peak}
+    if kind == "dbias":
+        return {"bytes": elem * 2 * (q_el + k_el) + extra + bias_bytes,
+                "ops": mult * 4 * d * live, "peak": peak}
+    nbytes = elem * (3 * q_el + 4 * k_el) + extra
+    if kind == "bwd_dbias":
+        nbytes += bias_bytes
+    return {"bytes": nbytes, "ops": mult * 10 * d * live, "peak": peak}
+
+
+def _causal_geometry(bh, sq, sk, causal, bq=_WALK, bk=_WALK):
+    return {"causal": bool(causal), "bq": bq, "bk": bk, "nq": _cdiv(sq, bq),
+            "nk": _cdiv(sk, bk), "offset": sk - sq,
+            "include_fully_masked": True, "heads": bh}
+
+
+def _k3_bf16(bh, sq, sk, d, mode, dropout, defines, sms):
+    from apex_tpu_torch.ops.introspect import KernelSpec
+
+    boxes = []
+    if d > 256:  # the wide instance: 64-column stages, 128-column items
+        bias_tile = _BLOCK_Q * 64 * 4 if mode == _BIAS_TILE else 0
+        smem = (1024 + 4 * (_BLOCK_Q * 128 + 64 * 128)
+                + 2 * (64 * 2 * 128 + bias_tile) + 8 * 2 * (4 + 2))
+        items = bh * (d // 128) * _cdiv(sq, _BLOCK_Q)
+        name, inst, block_k, stages = (
+            "flash_fwd_wide_kernel", f"<{mode}, {_flag(dropout)}>", 64, 4)
+    else:
+        dv = d if d < 128 else 128
+        qbufs = 1 if d > 128 else 2
+        bk_def = _define(defines, "APEX_FLASH_FWD_BLOCK_K")
+        st_def = _define(defines, "APEX_FLASH_FWD_STAGES")
+        if bk_def is not None:
+            block_k = bk_def if d < 128 else 64
+        else:
+            block_k = 128 if mode == _NO_BIAS and d < 128 else 64
+        if st_def is not None:
+            stages = st_def if d < 128 else (3 if mode == _NO_BIAS else 2)
+        else:
+            stages = 3 if mode == _NO_BIAS else 2
+        bias_tile = _BLOCK_Q * block_k * 4 if mode == _BIAS_TILE else 0
+        smem = (1024 + 2 * d * qbufs * _BLOCK_Q
+                + 2 * (d + dv) * stages * block_k + bias_tile * stages
+                + 8 * (2 * stages + 2 * qbufs))
+        items = bh * (d // dv) * _cdiv(sq, _BLOCK_Q)
+        name, inst = ("flash_fwd_kernel",
+                      f"<{d}, {mode}, {_flag(dropout)}>")
+    boxes = [(_BLOCK_Q, 128), (block_k, 128)]
+    if mode == _BIAS_TILE:
+        boxes.append((_BLOCK_Q, 128))
+    return KernelSpec(
+        name=name, entry=KERNEL, instance=inst, grid=min(items, sms),
+        threads=_HOPPER_THREADS, smem_bytes=smem, min_blocks=1,
+        tile={"block_q": _BLOCK_Q, "block_k": block_k, "d": d},
+        stages=stages,
+        mma={"op": "wgmma", "m": 64, "n": block_k, "k": 16,
+             "dtype": "bfloat16"},
+        tma=tuple(boxes),
+        items={"n_items": items, "per_cta": "persistent"},
+        writes=("o", "lse", "m", "l"),
+        causal=None, flops_per_cell=4.0 * _WALK * _WALK * d,
+        meta={"defines": tuple(defines)})
+
+
+def _k4_bf16(bh, sq, sk, d, mode, dropout, defines, dbias):
+    from apex_tpu_torch.ops.introspect import KernelSpec
+
+    stage_bias = 64 * _BLOCK_Q * 4 if mode == _BIAS_TILE else 0
+    nk, nq = _cdiv(sk, _BLOCK_Q), _cdiv(sq, _BLOCK_Q)
+    inst = f"<{mode}, {_flag(dropout)}>"
+    if d > 256:
+        a_bytes = 2 * (64 * 128 + _BLOCK_Q * 128)
+
+        def wide(stats):
+            stages_b = 2 if stats or mode != _BIAS_TILE else 1
+            b = -(-((3 * 64 * 4 if stats else 64 * 2 * 128) + stage_bias)
+                  // 1024) * 1024
+            return 1024 + 3 * a_bytes + stages_b * b + 8 * 2 * (3 + 2)
+
+        plans = [("flash_bwd_dkdv_wide_kernel", inst, wide(True),
+                  bh * nk * (d // 64), ("dk", "dv"), 8.0, 3),
+                 ("flash_bwd_dq_wide_kernel", inst, wide(False),
+                  bh * nq * (d // 128), ("dq",), 6.0, 3)]
+    else:
+        st_def = _define(defines, "APEX_FLASH_BWD_STAGES")
+        if st_def is not None and d < 128:
+            stages = st_def
+        else:
+            stages = 1 if d > 128 else (3 if mode == _NO_BIAS else 2)
+        base = (1024 + 2 * d * 2 * (_BLOCK_Q + stages * 64)
+                + stage_bias * stages + 8 * (2 * stages + 1))
+        inst = f"<{d}, {mode}, {_flag(dropout)}>"
+        dq_name = "flash_bwd_dq_dbias_kernel" if dbias else \
+            "flash_bwd_dq_kernel"
+        plans = [("flash_bwd_dkdv_kernel", inst, base + 4 * 3 * 64 * stages,
+                  bh * nk * (d // 64 if d >= 128 else 1), ("dk", "dv"), 8.0,
+                  stages),
+                 (dq_name, inst, base, bh * nq * (d // 128 if d > 128 else 1),
+                  ("dq", "dbias") if dbias else ("dq",), 6.0, stages)]
+    boxes = [(64, 128), (_BLOCK_Q, 128)]
+    if mode == _BIAS_TILE:
+        boxes += [(64, 128), (_BLOCK_Q, 128)]
+    entry = KERNEL_BWD_DBIAS if dbias else KERNEL_BWD
+    return [KernelSpec(
+        name=name, entry=entry, instance=inst_, grid=grid,
+        threads=_HOPPER_THREADS, smem_bytes=smem, min_blocks=1,
+        tile={"block_q": 64, "block_k": 64, "resident": _BLOCK_Q, "d": d},
+        stages=stages, mma={"op": "wgmma", "m": 64, "n": 64, "k": 16,
+                            "dtype": "bfloat16"},
+        tma=tuple(boxes), items={"n_items": grid, "per_cta": "one"},
+        writes=writes, flops_per_cell=per * _WALK * _WALK * d,
+        meta={"defines": tuple(defines)})
+        for name, inst_, smem, grid, writes, per, stages in plans]
+
+
+def _k5_bf16(bh, sq, sk, d, groups, rows, dropout):
+    from apex_tpu_torch.ops.introspect import KernelSpec
+
+    kd = d if d in KERNEL_HEAD_DIMS else 0
+    ld = (kd + 8) if kd else 72
+    row_bias = rows != 1
+    grid = groups * (_cdiv(sq, 64) if row_bias else 1) * _cdiv(sk, 64)
+    return KernelSpec(
+        name="flash_dbias_kernel", entry=KERNEL_DBIAS,
+        instance=f"<{kd}, {_flag(row_bias)}, {_flag(dropout)}>", grid=grid,
+        threads=_WARPS4_THREADS, smem_bytes=2 * 4 * 64 * ld + 4 * 2 * 4 * 16 * 68,
+        tile={"block_q": 64, "block_k": 64, "d": d},
+        mma={"op": "wmma", "m": 16, "n": 16, "k": 16, "dtype": "bfloat16"},
+        items={"n_items": grid, "per_cta": "one"}, writes=("dbias",),
+        flops_per_cell=4.0 * 64 * 64 * d)
+
+
+def _f32_specs(entry, bh, sq, sk, d, has_bias, groups, rows, dropout):
+    from apex_tpu_torch.ops.introspect import KernelSpec
+
+    b, dr = _flag(has_bias), _flag(dropout)
+    mma = {"op": "mma.sync", "m": 16, "n": 8, "k": 8, "dtype": "tf32"}
+    nq, nk = _cdiv(sq, 64), _cdiv(sk, 64)
+
+    def spec(name, inst, smem, grid, writes, per, stages):
+        return KernelSpec(
+            name=name, entry=entry, instance=inst, grid=grid,
+            threads=_WARPS4_THREADS, smem_bytes=smem, dtype="float32",
+            tile={"block_q": 64, "block_k": 32, "d": d}, stages=stages,
+            mma=mma, items={"n_items": grid, "per_cta": "one"},
+            writes=writes, flops_per_cell=per * 64 * 32 * d)
+
+    bias_q = 64 * 40 if has_bias else 0     # a (64 x 32) bias tile
+    bias_k = 32 * 68 if has_bias else 0     # a (32 x 64) bias tile
+    if entry == KERNEL_F32:
+        if d > 256:
+            smem = 4 * 3 * (64 * 68 + 32 * 68 + 32 * 132 + bias_q)
+            return [spec("flash_fwd_f32_wide_kernel", f"<{b}, {dr}>", smem,
+                         bh * nq * (d // 128), ("o", "lse", "m", "l"), 4.0,
+                         3)]
+        dv = d if d < 128 else 128
+        stages = 3 if d <= 64 else 2
+        ld, ldv = d + 4, dv + 4
+        smem = 4 * (64 * ld + stages * (32 * ld + 32 * ldv + bias_q))
+        return [spec("flash_fwd_f32_kernel", f"<{d}, {b}, {dr}>", smem,
+                     bh * nq * (d // dv), ("o", "lse", "m", "l"), 4.0,
+                     stages)]
+    if entry == KERNEL_BWD_F32:
+        if d > 256:
+            dkdv = 4 * 2 * (2 * 64 * 68 + 2 * 32 * 68 + 3 * 32 + bias_k)
+            dq = 4 * 2 * (2 * 64 * 68 + 2 * 32 * 68 + 32 * 132 + bias_q)
+            return [spec("flash_bwd_dkdv_f32_wide_kernel", f"<{b}, {dr}>",
+                         dkdv, bh * nk * (d // 64), ("dk", "dv"), 8.0, 2),
+                    spec("flash_bwd_dq_f32_wide_kernel", f"<{b}, {dr}>", dq,
+                         bh * nq * (d // 128), ("dq",), 6.0, 2)]
+        ld = d + 4
+        dv = d if d < 128 else 128
+        kv = d if d < 64 else 64
+        st_kv = 3 if d == 32 else 2 if d <= 128 else 1
+        st_q = 2 if d <= 128 else 1
+        dkdv = 4 * (2 * 64 * ld + st_kv * (2 * 32 * ld + 3 * 32 + bias_k))
+        dq = 4 * (2 * 64 * ld + st_q * (2 * 32 * ld + bias_q))
+        return [spec("flash_bwd_dkdv_f32_kernel", f"<{d}, {b}, {dr}>", dkdv,
+                     bh * nk * (d // kv), ("dk", "dv"), 8.0, st_kv),
+                spec("flash_bwd_dq_f32_kernel", f"<{d}, {b}, {dr}>", dq,
+                     bh * nq * (d // dv), ("dq",), 6.0, st_q)]
+    # flash_dbias_f32
+    row_bias = rows != 1
+    resident = row_bias and groups == bh
+    if d == 32:
+        kc, blocked = 32, False
+    elif d == 64:
+        kc, blocked = 64, False
+    elif d == 128 and resident:
+        kc, blocked = 128, False
+    else:
+        kc, blocked = 64, True
+    ld = kc + 4
+    stages = 3 if kc == 32 else 2
+    res = (not blocked) and row_bias and bh // groups == 1
+    stage = (0 if res else 2 * 64 * ld) + 2 * 32 * ld + 64 * 36
+    smem = 4 * ((2 * 64 * ld if res else 0) + stages * stage)
+    grid = groups * (nq if row_bias else _cdiv(sk, 32))
+    return [spec("flash_dbias_f32_kernel",
+                 f"<{kc}, {_flag(blocked)}, {_flag(row_bias)}, {dr}>", smem,
+                 grid, ("dbias",), 4.0, stages)]
+
+
+def specs_from_args(entry: str, args: tuple, defines=(), *,
+                    sms: int = 132, work_d: Optional[int] = None) -> list:
+    """The specs of one recorded launch of K3, K4 or K5 (any instance; C
+    argument order, pointers as
+    :func:`~apex_tpu_torch.ops.introspect.pointer_class`); ``work_d`` is
+    the caller's head dim before padding, for the work (default the
+    kernel's)."""
+    n_ptr = {KERNEL: 9, KERNEL_F32: 9, KERNEL_BWD: 12, KERNEL_BWD_F32: 12,
+             KERNEL_DBIAS: 10, KERNEL_DBIAS_F32: 10,
+             KERNEL_BWD_DBIAS: 13}[entry]
+    ptrs = args[:n_ptr]
+    bh, sq, sk, d, groups, rows, _scale, causal = args[n_ptr:n_ptr + 8]
+    bias_cls = ptrs[3] if entry in (KERNEL, KERNEL_F32) else ptrs[7]
+    seed = bool(ptrs[4] if entry in (KERNEL, KERNEL_F32) else ptrs[8])
+    causal = bool(causal)
+    f32 = entry in (KERNEL_F32, KERNEL_BWD_F32, KERNEL_DBIAS_F32)
+    elem = 4 if f32 else 2
+    bias_bytes = groups * rows * sk * 4 if bias_cls else 0
+    wd = work_d or d
+    if entry == KERNEL:
+        specs = [_k3_bf16(bh, sq, sk, d, _bias_mode(bias_cls, rows, sq, sk),
+                          seed, defines, sms)]
+        kind = "fwd"
+    elif entry in (KERNEL_BWD, KERNEL_BWD_DBIAS):
+        specs = _k4_bf16(bh, sq, sk, d, _bias_mode(bias_cls, rows, sq, sk),
+                         seed, defines, entry == KERNEL_BWD_DBIAS)
+        kind = "bwd_dbias" if entry == KERNEL_BWD_DBIAS else "bwd"
+    elif entry == KERNEL_DBIAS:
+        specs = [_k5_bf16(bh, sq, sk, d, groups, rows, seed)]
+        kind = "dbias"
+    else:
+        specs = _f32_specs(entry, bh, sq, sk, d, bool(bias_cls), groups,
+                           rows, seed)
+        kind = {KERNEL_F32: "fwd", KERNEL_BWD_F32: "bwd",
+                KERNEL_DBIAS_F32: "dbias"}[entry]
+    work = _attn_work(kind, bh, sq, sk, wd, elem, bias_bytes, seed, causal,
+                      f32)
+    for s in specs:
+        s.causal = _causal_geometry(bh, sq, sk, causal)
+        s.dtype = "float32" if f32 else "bfloat16"
+        s.work = dict(work, call=entry)
+    return specs
+
+
+def kernel_specs(bh: int, sq: int, sk: int, d: int, *, dtype=torch.bfloat16,
+                 causal: bool = True, bias_shape=None,
+                 bias_aligned: bool = True, dropout: bool = False,
+                 modes=("fwd", "bwd"), dbias: bool = False,
+                 defines=None, sms: int = 132) -> list:
+    """The :class:`~apex_tpu_torch.ops.introspect.KernelSpec` records of
+    the launches :func:`flash_fwd` (mode "fwd"), :func:`flash_bwd`
+    ("bwd"; with ``dbias`` at G = BH, RS = Sq and bf16,
+    :func:`flash_bwd_dbias`) and :func:`flash_dbias` ("dbias") make for
+    q (bh, sq, d) and k, v (bh, sk, d) of ``dtype``, a (G, RS, Sk)
+    ``bias_shape`` and dropout, without running anything.  ``defines``
+    names a tuned build (default: what the tuning cache names for the
+    call, :mod:`.tune_cache`); the work (the roofline's bound) is counted
+    at the caller's ``d``, the launch at the kernel head dim."""
+    dk = kernel_head_dim(d)
+    groups, rows = (bias_shape[0], bias_shape[1]) if bias_shape else (1, 1)
+    bias_cls = 0 if bias_shape is None else (16 if bias_aligned else 4)
+    bf16 = dtype == torch.bfloat16
+    out = []
+    for mode in modes:
+        if mode == "fwd":
+            entry = KERNEL if bf16 else KERNEL_F32
+            args = (16, 16, 16, bias_cls, 16 if dropout else 0, 16, 16, 16,
+                    16)
+        elif mode == "bwd":
+            fused = dbias and bf16 and bias_shape is not None and \
+                (groups, rows) == (bh, sq) and dk <= KERNEL_HEAD_DIMS[-1]
+            entry = KERNEL_BWD_DBIAS if fused else (
+                KERNEL_BWD if bf16 else KERNEL_BWD_F32)
+            args = (16,) * 7 + (bias_cls, 16 if dropout else 0) + \
+                (16,) * (4 if fused else 3)
+        else:
+            entry = KERNEL_DBIAS if bf16 else KERNEL_DBIAS_F32
+            args = (16,) * 7 + (bias_cls, 16 if dropout else 0, 16)
+        if defines is None and bf16 and entry != KERNEL_DBIAS:
+            from apex_tpu_torch.ops import tune_cache
+
+            var = tune_cache.flash_defines("fwd" if mode == "fwd" else "bwd",
+                                           sq, dk, causal, dtype)
+        else:
+            var = tuple(defines or ())
+        out += specs_from_args(
+            entry, args + (bh, sq, sk, dk, groups, rows, d ** -0.5,
+                           int(causal), 0, 1.0), var, sms=sms, work_d=d)
+    return out

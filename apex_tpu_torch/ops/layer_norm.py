@@ -45,6 +45,7 @@ __all__ = [
     "layer_norm_bwd_reference",
     "layer_norm_fwd",
     "layer_norm_reference",
+    "kernel_specs",
     "norm_launch_plan",
 ]
 
@@ -89,13 +90,17 @@ class NormPlan:
 
 def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
                      ctas_per_sm: Callable[[int, int], int],
-                     aligned: bool = True, bwd: bool = False) -> NormPlan:
+                     aligned: bool = True, bwd: bool = False,
+                     block_rows: Optional[int] = None) -> NormPlan:
     """The launch plan of K1 (or K2 with ``bwd``) for ``rows`` rows of
     ``hidden`` values of ``elem_bytes`` bytes (2 bf16, 4 f32) on a card
     with ``sms`` SMs; ``aligned`` says whether every row tensor's base,
     and w's and b's, is 16-byte aligned.  ``ctas_per_sm(vec, per_lane)``
     gives the CTAs of the chosen instance that stay resident on an SM: on
-    the card, the built kernel's own count (:func:`_resident_ctas`)."""
+    the card, the built kernel's own count (:func:`_resident_ctas`).
+    ``block_rows`` (a tuning-cache entry, :mod:`.tune_cache`) sets the rows
+    a CTA takes per pass of the persistent grid instead of one row group
+    of each warp."""
     if rows < 1 or hidden < 1 or elem_bytes not in (2, 4) or sms < 1:
         raise ValueError(
             f"bad norm launch: rows={rows} hidden={hidden} "
@@ -112,7 +117,10 @@ def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
     if ctas < 1:
         raise ValueError(f"no CTA of the norm kernel fits an SM: {ctas}")
     rows_per_warp = 32 // lanes
-    grid = min(-(-rows // (NORM_WARPS * rows_per_warp)), sms * ctas)
+    if block_rows is not None and block_rows < 1:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    per_cta = block_rows or NORM_WARPS * rows_per_warp
+    grid = min(-(-rows // per_cta), sms * ctas)
     parts = grid if per_lane else grid * NORM_WARPS
     return NormPlan(vec, per_lane, lanes, rows_per_warp, ctas, grid, parts)
 
@@ -139,8 +147,12 @@ def _plan(kernel, x2d, *row_tensors, bwd):
     aligned = all(t.data_ptr() % 16 == 0 for t in (x2d, *row_tensors))
     ctas = functools.partial(_resident_ctas, kernel,
                              _DTYPE_CODES[x2d.dtype], dev)
+    from apex_tpu_torch.ops import tune_cache
+
     return norm_launch_plan(rows, hidden, x2d.element_size(), sms=sms,
-                            ctas_per_sm=ctas, aligned=aligned, bwd=bwd)
+                            ctas_per_sm=ctas, aligned=aligned, bwd=bwd,
+                            block_rows=tune_cache.layer_norm_block_rows(
+                                hidden))
 
 
 def layer_norm_reference(
@@ -378,3 +390,81 @@ def fused_rms_norm(x, normalized_shape: Shape, eps: float = 1e-6,
                    memory_efficient: bool = False):
     """Non-affine RMSNorm (≙ fused_rms_norm)."""
     return _run(x, normalized_shape, None, None, eps, True, memory_efficient)
+
+
+# ---------------------------------------------------------------------------
+# launch plans for the static analysis (apex_tpu_torch.analysis.kernels)
+# ---------------------------------------------------------------------------
+
+#: the C entry points whose launches :func:`specs_from_args` describes
+SPEC_ENTRIES = (KERNEL, KERNEL_BWD)
+
+_CXX_TYPES = {0: "float", 1: "__nv_bfloat16"}
+
+
+def _min_blocks(elem: int, per_lane: int, bwd: bool) -> int:
+    """``__launch_bounds__``' CTAs per SM of an instance (the sources'
+    ``Cfg<T, kPer>::kCtas``)."""
+    nbytes = per_lane * elem
+    if bwd:
+        return 2 if per_lane == 0 else 4 if nbytes <= 16 else \
+            2 if nbytes <= 32 else 1
+    return 4 if per_lane == 0 or nbytes <= 32 else 2 if nbytes <= 64 else 1
+
+
+def _ln_work(rows: int, hidden: int, elem: int, bwd: bool) -> dict:
+    """Each input read once, each output written once (x in and y out, or
+    x and g in and dx out, with the f32 w, b, mu, rstd, and K2's f32 dw
+    and db), and 8 (K1) or 12 (K2) f32 operations a value."""
+    n = rows * hidden
+    if bwd:
+        nbytes = 3 * n * elem + 4 * hidden * 4 + 2 * rows * 4
+    else:
+        nbytes = 2 * n * elem + 2 * hidden * 4 + 2 * rows * 4
+    return {"bytes": nbytes, "ops": (12 if bwd else 8) * n, "peak": "f32"}
+
+
+def _ln_spec(entry, rows, hidden, dtype_code, vec, per_lane, lanes, grid):
+    from apex_tpu_torch.ops.introspect import KernelSpec
+
+    bwd = entry == KERNEL_BWD
+    elem = 4 if dtype_code == 0 else 2
+    return KernelSpec(
+        name="ln_bwd_kernel" if bwd else "ln_fwd_kernel", entry=entry,
+        instance=f"<{_CXX_TYPES[dtype_code]}, {vec}, {per_lane}>",
+        grid=int(grid), threads=32 * NORM_WARPS, smem_bytes=0,
+        min_blocks=_min_blocks(elem, per_lane, bwd),
+        dtype="float32" if dtype_code == 0 else "bfloat16",
+        tile={"rows_per_warp": 32 // lanes, "lanes": lanes,
+              "per_lane": per_lane, "vec": vec, "hidden": hidden},
+        items={"n_items": -(-rows // (NORM_WARPS * (32 // lanes))),
+               "per_cta": "persistent"},
+        writes=("dx", "dw_part", "db_part") if bwd else ("y", "mu", "rstd"),
+        work=_ln_work(rows, hidden, elem, bwd))
+
+
+def specs_from_args(entry: str, args: tuple, defines=()) -> list:
+    """The specs of one recorded launch of K1 or K2 (C argument order,
+    pointers as :func:`~apex_tpu_torch.ops.introspect.pointer_class`)."""
+    if entry == KERNEL:
+        rows, hidden, _eps, _rms, dtype, vec, per_lane, lanes, grid = args[6:15]
+    else:
+        rows, hidden, _rms, _xo, dtype, vec, per_lane, lanes, grid = args[8:17]
+    return [_ln_spec(entry, rows, hidden, dtype, vec, per_lane, lanes, grid)]
+
+
+def kernel_specs(rows: int, hidden: int, dtype=torch.bfloat16, *,
+                 bwd: bool = False, sms: int = 132, ctas_per_sm: int = 8,
+                 aligned: bool = True, block_rows: Optional[int] = None) -> list:
+    """The :class:`~apex_tpu_torch.ops.introspect.KernelSpec` of K1 (or K2
+    with ``bwd``) on ``rows`` x ``hidden`` rows of ``dtype``, planned by
+    :func:`norm_launch_plan` on a card of ``sms`` SMs where the instance
+    keeps ``ctas_per_sm`` CTAs resident (the occupancy calculator's count
+    on the card)."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    plan = norm_launch_plan(rows, hidden, elem, sms=sms,
+                            ctas_per_sm=lambda v, p: ctas_per_sm,
+                            aligned=aligned, bwd=bwd, block_rows=block_rows)
+    return [_ln_spec(KERNEL_BWD if bwd else KERNEL, rows, hidden,
+                     _DTYPE_CODES[dtype], plan.vec, plan.per_lane, plan.lanes,
+                     plan.grid)]

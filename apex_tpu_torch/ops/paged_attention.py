@@ -37,6 +37,7 @@ from apex_tpu_torch.ops.rope import rotate_half
 
 __all__ = [
     "decode_split_plan",
+    "kernel_specs",
     "paged_decode_attention",
     "paged_decode_attention_reference",
     "paged_decode_fwd",
@@ -262,3 +263,93 @@ def paged_decode_attention(
         return paged_decode_fwd(*args, **kw)
     _dispatch.record_path("paged_decode_attention", "torch")
     return paged_decode_attention_reference(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# launch plans for the static analysis (apex_tpu_torch.analysis.kernels)
+# ---------------------------------------------------------------------------
+
+#: the C entry points whose launches :func:`specs_from_args` describes
+SPEC_ENTRIES = (KERNEL,)
+
+_CXX_Q = {0: "float", 1: "__nv_bfloat16"}
+_CXX_KV = {0: "float", 1: "__nv_bfloat16", 2: "signed char"}
+_KV_BYTES = {0: 4, 1: 2, 2: 1}
+#: csrc/paged_decode.cu: threads a CTA, the largest tile, ring stages,
+#: the most splits a row
+_THREADS, _MAX_TILE, _STAGES = 128, 32, 2
+
+
+def _smem(d: int, row_bytes: int, tile: int) -> int:
+    """``smem_bytes`` of the source: q and the accumulator row (rounded up
+    to 4 floats), the tile's weights, each stage's K and V scales, the
+    merge's weights, and two stages of K and V rows padded to 128 bytes
+    plus 16."""
+    head = 2 * (-(-d // 4) * 4) + _MAX_TILE + 2 * _STAGES * _MAX_TILE + \
+        SPLIT_MAX
+    row = -(-row_bytes // 128) * 128 + 16
+    return 4 * head + _STAGES * 2 * tile * row
+
+
+def _pick_tile(d: int, row_bytes: int, optin: int) -> int:
+    """The largest tile whose two stages keep the CTA within 96 KB, else 4
+    tokens within the opt-in limit, else 0 (the source's ``pick_tile``)."""
+    for tile in (32, 16, 8, 4):
+        if _smem(d, row_bytes, tile) <= 96 * 1024:
+            return tile
+    return 4 if _smem(d, row_bytes, 4) <= optin else 0
+
+
+def specs_from_args(entry: str, args: tuple, defines=(), *,
+                    lengths=None, optin: int = 227 * 1024) -> list:
+    """The spec of one recorded launch of K6 (C argument order, pointers
+    as :func:`~apex_tpu_torch.ops.introspect.pointer_class`); the work
+    counts the live tokens of ``lengths`` when given (the data decides
+    it), else every page of the table."""
+    from apex_tpu_torch.ops.introspect import KernelSpec
+
+    ptrs = args[:10]
+    b, h, d, page, np_, _scale, q_code, kv_code = args[10:18]
+    split, n_split = args[20:22]
+    row_bytes = d * _KV_BYTES[kv_code]
+    tile = _pick_tile(d, row_bytes, optin)
+    if lengths is None:
+        lengths = [np_ * page] * b
+    tokens = int(sum(int(n) for n in lengths))
+    pages = int(sum(-(-int(n) // page) for n in lengths))
+    q_elem = 4 if q_code == 0 else 2
+    nbytes = (2 * tokens * h * d * _KV_BYTES[kv_code]
+              + (2 * tokens * h * 4 if kv_code == 2 else 0)
+              + 2 * b * h * d * q_elem + (2 * b * d * 4 if ptrs[7] else 0)
+              + 4 * pages + 4 * b)
+    return [KernelSpec(
+        name="paged_decode_kernel", entry=KERNEL,
+        instance=f"<{_CXX_Q[q_code]}, {_CXX_KV[kv_code]}>",
+        grid=b * h * n_split, threads=_THREADS,
+        smem_bytes=_smem(d, row_bytes, tile),
+        dtype={0: "float32", 1: "bfloat16", 2: "int8"}[kv_code],
+        tile={"tile": tile, "page": page, "split_pages": split,
+              "n_split": n_split, "d": d}, stages=_STAGES,
+        items={"n_items": b * h * n_split, "per_cta": "one"},
+        writes=("out",),
+        work={"bytes": nbytes, "ops": 4 * h * d * tokens, "peak": "f32",
+              "call": KERNEL},
+        meta={"max_dyn_smem": optin})]
+
+
+def kernel_specs(batch: int, heads: int, d: int, *, page: int, np_: int,
+                 q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16,
+                 lengths=None, rope: bool = True, sms: int = 132) -> list:
+    """The :class:`~apex_tpu_torch.ops.introspect.KernelSpec` of K6 for a
+    decode batch: ``batch`` sequences of ``heads`` heads of ``d``, pages
+    of ``page`` tokens, a page table ``np_`` wide, split by
+    :func:`decode_split_plan` on a card of ``sms`` SMs; ``lengths`` (the
+    data) sets the work."""
+    split, n_split = decode_split_plan(batch, heads, np_, page, sms)
+    args = (16, 16, 16, 16 if kv_dtype == torch.int8 else 0,
+            16 if kv_dtype == torch.int8 else 0, 16, 16,
+            16 if rope else 0, 16 if rope else 0, 16,
+            batch, heads, d, page, np_, d ** -0.5, _Q_CODES[q_dtype],
+            _KV_CODES[kv_dtype], 16 if n_split > 1 else 0,
+            16 if n_split > 1 else 0, split, n_split)
+    return specs_from_args(KERNEL, args, lengths=lengths)

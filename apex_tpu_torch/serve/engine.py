@@ -52,8 +52,19 @@ their pages.  With a span recorder attached (``engine.spans``, set by
 the scheduler) each prefill and decode call records an
 ``engine/prefill`` / ``engine/decode`` span, measured up to its
 readback.  The build gauges go to the board (``serve/page_size``, ...).
-Not ported yet: the analysis build, ``lint``, ``ServeConfig.verify``
-and ``hbm_budget_bytes`` (ROADMAP item 9).
+
+**Build checks** (``ServeConfig.verify``, on by default as in the
+reference): the build records the warm-up it runs anyway — each prefill
+bucket, each chunk bucket, the draft's prefill, and on the card the run of
+the decode step (and the spec round) before its capture
+(:func:`apex_tpu_torch.analysis.capture`; on the CPU one decode warm-up on
+idle slots) — and lints each record: no host transfer, no f64, the KV
+pool updated in place, and the estimated peak against
+``ServeConfig.hbm_budget_bytes`` (:mod:`apex_tpu_torch.analysis.memory`).
+Each program's report lands on :attr:`InferenceEngine.reports`, its
+estimate on the board (``serve/hbm/<program>/peak_hbm_bytes``,
+``serve/peak_hbm_bytes``), and an ERROR fails the build with the rendered
+report.  :meth:`InferenceEngine.lint` merges the reports and never raises.
 """
 
 from __future__ import annotations
@@ -130,6 +141,14 @@ class ServeConfig:
     top_k: int = 0
     #: seed of the sampler's noise
     sample_seed: int = 0
+    #: lint every step program at build from its recorded warm-up (ERROR
+    #: findings raise)
+    verify: bool = True
+    #: estimated peak-memory budget in bytes for each step program
+    #: (weights + KV pool + activations, from the recorded warm-up's live
+    #: ranges — apex_tpu_torch.analysis.memory).  None skips the gate;
+    #: with ``verify=True`` an over-budget program fails the BUILD
+    hbm_budget_bytes: Optional[int] = None
 
     def __post_init__(self):
         if self.kv_wire not in ("f32", "int8"):
@@ -263,6 +282,15 @@ class InferenceEngine:
         #: so a spec deployment leaves the target's counters as they are)
         self.spec_rounds = 0
         self.draft_prefill_calls = 0
+        #: build checks (``ServeConfig.verify``): program name -> its
+        #: :class:`~apex_tpu_torch.analysis.Report`, its recorded warm-up
+        #: (:class:`~apex_tpu_torch.analysis.StepRecord`) and, on the card,
+        #: the allocator's readings over that run (``peak``:
+        #: ``max_memory_allocated``, ``before``: ``memory_allocated`` at
+        #: its start)
+        self.reports: Dict[str, object] = {}
+        self.records: Dict[str, object] = {}
+        self.measured: Dict[str, dict] = {}
         if spec is not None:
             self._init_draft(spec)
         self._publish_build_gauges()
@@ -370,33 +398,172 @@ class InferenceEngine:
         null page and leaves the call and launch counters as they
         were."""
         s = self.serve
-        table = torch.zeros((s.max_pages_per_seq,), dtype=torch.int64,
-                            device=self.device)
         with _dispatch.recorded_apart():
             for b in buckets if buckets is not None else s.buckets():
-                tokens = torch.zeros((b, 1), dtype=torch.int64,
-                                     device=self.device)
-                ids = torch.zeros((b // s.page_size,), dtype=torch.int64,
-                                  device=self.device)
-                temp = torch.zeros((), dtype=torch.float32,
-                                   device=self.device)
-                keys = self._prefill_keys(None)
-                model_lib.prefill_body(
-                    self.cfg, self.weights, self.cache, tokens, 1, ids, temp,
-                    keys, page_size=s.page_size, kv_wire=s.kv_wire,
-                    top_k=s.top_k)
-                if chunked:
-                    model_lib.chunk_prefill_body(
-                        self.cfg, self.weights, self.cache, tokens, 1, 0,
-                        ids, table, temp, keys, page_size=s.page_size,
-                        kv_wire=s.kv_wire, top_k=s.top_k)
-                if self.spec is not None:
-                    self._draft_prefill_body(tokens, 1, ids)
+                for name, run, draft in self._warmups(b, chunked):
+                    self._warm(name, run, draft=draft)
+            if self.device.type != "cuda" and s.verify:
+                # no capture to warm up on the CPU: one decode on idle
+                # slots (it writes only the null pages) is the record
+                self._warm("decode", self._idle_decode())
         if self.device.type == "cuda":
-            self._capture_decode()
+            self._capture_decode(verify=s.verify)
             if self.spec is not None:
-                self._capture_spec()
+                self._capture_spec(verify=s.verify)
         return self
+
+    def _warmups(self, bucket: int, chunked: bool):
+        """``[(name, run, draft)]``: the warm-ups of ``bucket`` — its
+        prefill, with ``chunked`` its chunked prefill, with a draft the
+        draft's prefill — on inputs that write only the null page."""
+        s = self.serve
+        dev = self.device
+        tokens = torch.zeros((bucket, 1), dtype=torch.int64, device=dev)
+        ids = torch.zeros((bucket // s.page_size,), dtype=torch.int64,
+                          device=dev)
+        temp = torch.zeros((), dtype=torch.float32, device=dev)
+        keys = self._prefill_keys(None)
+        out = [(f"prefill_{bucket}", lambda: model_lib.prefill_body(
+            self.cfg, self.weights, self.cache, tokens, 1, ids, temp, keys,
+            page_size=s.page_size, kv_wire=s.kv_wire, top_k=s.top_k), False)]
+        if chunked:
+            table = torch.zeros((s.max_pages_per_seq,), dtype=torch.int64,
+                                device=dev)
+            out.append((f"chunk_prefill_{bucket}",
+                        lambda: model_lib.chunk_prefill_body(
+                            self.cfg, self.weights, self.cache, tokens, 1, 0,
+                            ids, table, temp, keys, page_size=s.page_size,
+                            kv_wire=s.kv_wire, top_k=s.top_k), False))
+        if self.spec is not None:
+            out.append((f"draft_prefill_{bucket}",
+                        lambda: self._draft_prefill_body(tokens, 1, ids),
+                        True))
+        return out
+
+    def _idle_decode(self):
+        """The decode step on idle slots (it writes only the null pages)."""
+        s = self.serve
+        inp = torch.zeros((s.max_batch, _COLS + s.max_pages_per_seq),
+                          dtype=torch.int64, device=self.device)
+        return lambda: self._decode_compute(inp)
+
+    # -- build checks --------------------------------------------------------
+    def _weight_tree(self, weights) -> dict:
+        """The tensors of a weight holder by name (a module's parameters
+        and buffers, or the int8 wire's codes and scales)."""
+        if isinstance(weights, torch.nn.Module):
+            return {**dict(weights.named_parameters()),
+                    **dict(weights.named_buffers())}
+        out = {}
+        for i, leaf in enumerate(weights.leaves()):
+            if isinstance(leaf, model_lib.PackedWeight):
+                out[f"{i}/codes"], out[f"{i}/scale"] = leaf.codes, leaf.scale
+            elif isinstance(leaf, torch.Tensor):
+                out[str(i)] = leaf
+        return out
+
+    def _arguments(self, draft: bool = False, spec: bool = False):
+        """The trees a program reads besides its inputs, by path (the
+        weights and the KV pools), and the paths it must update in place
+        (the pools it writes)."""
+        named = {"params": self._weight_tree(
+            self.draft_weights if draft else self.weights)}
+        donated = ()
+        if not draft:
+            named["kv_cache"] = self.cache
+            donated += ("kv_cache",)
+        if draft or spec:
+            named["draft/params"] = self._weight_tree(self.draft_weights)
+            named["draft/kv_cache"] = self.draft_cache
+            donated += ("draft/kv_cache",)
+        return named, donated
+
+    def _warm(self, name: str, run, *, draft: bool = False,
+              spec: bool = False):
+        """Run one warm-up of program ``name``; with ``verify`` record it
+        (:func:`apex_tpu_torch.analysis.capture`) and lint the record
+        (:meth:`_verify`), reading the allocator over the same run on the
+        card."""
+        if not self.serve.verify:
+            return run()
+        from apex_tpu_torch import analysis
+
+        named, donated = self._arguments(draft, spec)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+        out, record = analysis.capture(run, named=named)
+        if on_card:
+            torch.cuda.synchronize(self.device)
+            self.measured[name] = {
+                "peak": torch.cuda.max_memory_allocated(self.device),
+                "before": before}
+        self.records[name] = record
+        self._verify(name, record, donated)
+        return out
+
+    def _verify(self, name: str, record, donated) -> None:
+        """Lint one program's record: transfer, promotion (f64),
+        donation of ``donated`` and the memory budget; publish the
+        estimate and the counts; raise on an ERROR."""
+        from apex_tpu_torch import analysis
+
+        report = analysis.lint_graph(
+            record, donated_paths=donated,
+            hbm_budget=self.serve.hbm_budget_bytes, name=f"serve/{name}")
+        est = analysis.memory.estimate_peak(record)
+        analysis.memory.publish_peak(est, prefix=f"serve/hbm/{name}")
+        board.set("serve/peak_hbm_bytes", max(
+            int(board.get("serve/peak_hbm_bytes") or 0), est["peak_bytes"]))
+        report.sections["peak_hbm_bytes"] = est["peak_bytes"]
+        report.sections["recorded_run_ms"] = record.run_ms
+        analysis.publish_report(report)
+        self.reports[name] = report
+        errors = report.errors()
+        if errors:
+            raise RuntimeError(
+                f"serve step {name} failed graph lint with {len(errors)} "
+                f"ERROR finding(s):\n{report.render()}")
+
+    def lint(self, bucket: Optional[int] = None):
+        """One merged :class:`~apex_tpu_torch.analysis.Report` over the
+        prefill (the smallest bucket by default) and decode programs,
+        with their memory sections.  It reads the build's records; a
+        program not recorded yet (``verify=False``) is recorded now with
+        a warm-up that writes only the null pages.  Unlike the build
+        checks it never raises: findings come back for rendering."""
+        from apex_tpu_torch import analysis
+
+        s = self.serve
+        bucket = bucket or s.buckets()[0]
+        names = (f"prefill_{bucket}", "decode")
+        reports = []
+        for name in names:
+            if name not in self.records:
+                self._record_for_lint(name, bucket)
+            record = self.records[name]
+            donated = ("kv_cache",)
+            reports.append(analysis.lint_graph(
+                record, donated_paths=donated, hbm_budget=s.hbm_budget_bytes,
+                name=f"serve/{name}"))
+        report = reports[0]
+        analysis.attach_shard_sections(report, [
+            (f"serve/{n}", self.records[n]) for n in names])
+        report.merge(reports[1])
+        report.target = "serve"
+        return report
+
+    @torch.no_grad()
+    def _record_for_lint(self, name: str, bucket: int) -> None:
+        from apex_tpu_torch import analysis
+
+        run = (self._idle_decode() if name == "decode"
+               else self._warmups(bucket, False)[0][1])
+        with _dispatch.recorded_apart():
+            _, self.records[name] = analysis.capture(
+                run, named=self._arguments()[0])
 
     # -- failure surface -----------------------------------------------------
     @staticmethod
@@ -602,7 +769,8 @@ class InferenceEngine:
         )
         return logits, torch.stack([next_tokens, finite.long()])
 
-    def _capture(self, compute, width: int) -> dict:
+    def _capture(self, compute, width: int, verify: Optional[str] = None,
+                 spec: bool = False) -> dict:
         """Run ``compute`` once on the engine's side stream over an
         all-zero input (every slot idle: it writes only the null pages),
         then capture it into a CUDA graph over a static ``(max_batch,
@@ -622,7 +790,11 @@ class InferenceEngine:
         with _dispatch.recorded_apart():
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                compute(inp)
+                if verify:
+                    # the build checks record this warm-up (no second run)
+                    self._warm(verify, lambda: compute(inp), spec=spec)
+                else:
+                    compute(inp)
             torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with _dispatch.recorded_apart() as rec:
@@ -644,10 +816,12 @@ class InferenceEngine:
         return g["outs"]
 
     @torch.no_grad()
-    def _capture_decode(self) -> None:
-        """Capture the decode step (:meth:`_capture`)."""
+    def _capture_decode(self, verify: bool = False) -> None:
+        """Capture the decode step (:meth:`_capture`); ``verify`` records
+        and lints its warm-up (the build's checks)."""
         self._graph = self._capture(
-            self._decode_compute, _COLS + self.serve.max_pages_per_seq)
+            self._decode_compute, _COLS + self.serve.max_pages_per_seq,
+            verify="decode" if verify else None)
         self.captures["decode"] = self.captures.get("decode", 0) + 1
 
     @property
@@ -867,10 +1041,11 @@ class InferenceEngine:
             [out, n_accept[:, None], finite.long()[:, None]], dim=1)
 
     @torch.no_grad()
-    def _capture_spec(self) -> None:
+    def _capture_spec(self, verify: bool = False) -> None:
         """Capture the spec round (:meth:`_capture`)."""
         self._spec_graph = self._capture(
-            self._spec_compute, _SPEC_COLS + 2 * self.serve.max_pages_per_seq)
+            self._spec_compute, _SPEC_COLS + 2 * self.serve.max_pages_per_seq,
+            verify="spec" if verify else None, spec=True)
         self.captures["spec"] = self.captures.get("spec", 0) + 1
 
     @property

@@ -11,10 +11,15 @@ and a biased one, and times it at the main-path shapes of
 each), in the order A B ... then ... B A, so that a drift of the card's
 clocks shows as a difference between the two passes::
 
-    python -m apex_tpu_torch.tools.flash_tiles [--kernel flash_fwd]
+    python -m apex_tpu_torch.tools.flash_tiles [--kernel flash_fwd] \
+        [--cache-out tune.json]
 
 It needs a CUDA device and ``nvcc``; it prints one JSON line per
-(variant, shape, pass) and a table of the medians.
+(variant, shape, pass) and a table of the medians.  ``--cache-out`` merges
+each shape's fastest variant into a tuning cache
+(:func:`apex_tpu_torch.ops.tune_cache.update_flash`: the variant's build
+defines under the shape's key and this card's name), which the dispatch
+reads from ``APEX_TPU_TUNE_CACHE``.
 """
 
 from __future__ import annotations
@@ -99,7 +104,7 @@ def _use(name, path):
     lib = ctypes.CDLL(str(path))
     lib.apex_error_string.argtypes = [ctypes.c_int]
     lib.apex_error_string.restype = ctypes.c_char_p
-    _build._LIBS[name] = lib
+    _build._LIBS[(name, ())] = lib
 
 
 def _inputs(bh, sq, sk, d, layout, gen):
@@ -151,11 +156,32 @@ def _time_shape(name, shape, flush, gen):
                                            **kw), flush)
 
 
+def _write_cache(path, sweep, times):
+    """Merge each (kernel, shape)'s fastest variant (the mean of its two
+    passes) into the tuning cache at ``path``."""
+    from apex_tpu_torch.ops import tune_cache
+
+    backend = torch.cuda.get_device_name(torch.cuda.current_device())
+    for name, variants in sweep.items():
+        mode = "fwd" if name == "flash_fwd" else "bwd"
+        for tag, _, s, d, causal, _ in SHAPES:
+            label, defines = min(
+                variants, key=lambda v: statistics.mean(times[name, v[0], tag]))
+            tune_cache.update_flash(path, sq=s, d=d, causal=causal,
+                                    defines={mode: list(defines)},
+                                    dtype="bfloat16", backend=backend)
+            print(f"cache: {name} {tag} -> {label}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(VARIANTS), action="append",
                     help="sweep only this kernel (repeatable; default both)")
-    kernels = ap.parse_args(argv).kernel or list(VARIANTS)
+    ap.add_argument("--cache-out", metavar="FILE", default=None,
+                    help="merge each shape's fastest variant into this "
+                    "tuning cache")
+    args = ap.parse_args(argv)
+    kernels = args.kernel or list(VARIANTS)
     if not torch.cuda.is_available():
         print("flash_tiles needs a CUDA device", file=sys.stderr)
         return 1
@@ -193,6 +219,8 @@ def main(argv=None) -> int:
                                       "shape": shape[0], "pass": run,
                                       "ms": ms, "card": card}), flush=True)
                     torch.cuda.empty_cache()
+    if args.cache_out:
+        _write_cache(args.cache_out, sweep, times)
     for name, variants in sweep.items():
         print(f"{name} ms (mean of the two passes) on {card}")
         print("  variant   " + " ".join(f"{s[0]:>9}" for s in SHAPES))

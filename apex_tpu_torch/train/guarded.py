@@ -211,14 +211,30 @@ def _verify_guarded(step: GuardedStep, level: str, example_batch) -> None:
             "build_guarded(verify=...) needs example_batch to run "
             "compute_grads on"
         )
+    from apex_tpu_torch.analysis import memory, passes
+    from apex_tpu_torch.train.trainer import _graph_findings
+
     dev = step.state["scaler"].loss_scale.device
-    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.random.fork_rng(devices=[dev] if on_card else []):
         with comm.collective_log() as log:
-            step.compute_grads(step.state["params"], step.state["scaler"],
-                               example_batch)
-    report = Report(check_plan(log, step.expect_plan),
+            _, record = passes.capture(
+                lambda: step.compute_grads(step.state["params"],
+                                           step.state["scaler"],
+                                           example_batch),
+                named={"params": step.state["params"],
+                       "batch": example_batch})
+    report = Report(check_plan(log, step.expect_plan) +
+                    _graph_findings(record),
                     target="guarded/compute_grads",
                     sections={"plan": comm.collective_summary(log)})
+    report.sections["memory"] = {
+        "estimate_bytes": memory.estimate_peak(record)["peak_bytes"],
+        "peak_bytes": (int(torch.cuda.max_memory_allocated(dev))
+                       if on_card else None)}
     step.report = report
     if report.errors() and level == "error":
         raise TrainBuildError(

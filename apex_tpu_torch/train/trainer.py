@@ -77,6 +77,9 @@ from apex_tpu_torch.analysis.sharding import (
     tree_paths,
     tree_unflatten,
 )
+from apex_tpu_torch.analysis import memory
+from apex_tpu_torch.analysis import passes as analysis_passes
+from apex_tpu_torch.analysis.findings import make_finding
 from apex_tpu_torch.checkpoint import PerRank
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.parallel import comm
@@ -284,6 +287,14 @@ def check_plan(records, plan: dict) -> list:
             "declare the model's collectives in TrainConfig."
             "model_collectives"))
     return out
+
+
+def _graph_findings(record) -> list:
+    """The transfer and promotion (f64) passes over a recorded step."""
+    from apex_tpu_torch import analysis
+
+    return analysis.lint_graph(record,
+                               rules=("transfer", "promotion")).findings
 
 
 def check_shapes(named, mesh: dict, min_bytes: int) -> list:
@@ -695,7 +706,9 @@ class TrainStep:
                 torch.cuda.reset_peak_memory_stats(self.device)
             try:
                 with comm.collective_log() as log:
-                    self(copy_, batch)
+                    _, record = analysis_passes.capture(
+                        lambda: self(copy_, batch),
+                        named={"state": copy_, "batch": batch})
                 if on_card:
                     torch.cuda.synchronize(self.device)
             finally:
@@ -703,18 +716,23 @@ class TrainStep:
                 if rng:
                     tracker.set_states(rng)
         report.extend(check_plan(log, self.expect_plan))
+        # the graph passes over the step just run: no host transfer, no
+        # f64
+        report.extend(_graph_findings(record))
         opt = self.state["opt"]
         peak = (torch.cuda.max_memory_allocated(self.device) if on_card
                 else _nbytes({"params": self.state["params"], "opt":
                               opt.tree if isinstance(opt, PerRank) else opt}))
         report.sections["plan"] = comm.collective_summary(log)
         report.sections["memory"] = {"peak_bytes": int(peak),
+                                     "estimate_bytes": memory.estimate_peak(
+                                         record)["peak_bytes"],
                                      "budget": budget,
                                      "measured": "max_memory_allocated"
                                      if on_card else "state bytes"}
         if budget is not None and peak > budget:
-            report.extend([Finding(
-                "memory-over-budget", ERROR, self.name,
+            report.extend([make_finding(
+                "memory-budget", self.name,
                 f"{peak} bytes over the {budget}-byte budget")])
         return report
 

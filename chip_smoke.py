@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-twenty-one phases; any failure raises and the exit code is non-zero.  Without
+twenty-three phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -273,6 +273,33 @@ a CUDA device it exits non-zero at once and prints no result.
     cotangent routed to another microbatch's stash); then
     ``train_gpt_pp --pp 2`` and ``--pp 2 --vpp 2``, whose loss falls.
 
+22. Amp (``phase22``): O1, O2, the amp state through a checkpoint,
+    DCGAN (see ``--amp`` below).
+23. The serving engine's build checks and the kernels' launch plans
+    (``phase23``).  23a: ``GptConfig()`` (phase 2's seeded weights)
+    built without and with ``ServeConfig(verify=True)`` (both build
+    times logged): zero ERROR findings on every program (each prefill
+    bucket and the decode step, each linted from the warm-up the build
+    runs anyway), each program's memory estimate beside
+    ``torch.cuda.max_memory_allocated`` over the same run, phase 2's
+    requests served with exact K1/K3/K6 counts and the unverified
+    engine's streams, the allocator's live peak against the estimates
+    (``memstats.crosscheck``, no drift), and a budget 10% under the
+    largest estimate failing the build with ``memory-budget`` while one
+    10% over builds.  23b: planted faults on a 2-layer engine, each
+    caught by its rule beside a clean sound build: a ``.item()`` in the
+    prefill body (``transfer-hlo-host``), the pool copied instead of
+    written in place (``donation-dropped``), and an f32 bias widening a
+    bf16 layer (``promotion-widen``; the sound layer is clean).  23c
+    (after phase 5): every distinct launch of the run (phase 4's timing
+    aside), its plan from the op modules' ``kernel_specs`` against the
+    card's own figures (``csrc/launch_query.cuh``: dynamic shared
+    memory, CTAs per SM, grid, threads) and its registers against
+    ptxas's, all equal.  23d: a tuning cache naming K3/K4 variants for
+    one shape launches them there (held to the plain twins) and the
+    default elsewhere; a variant that cannot build raises.  23e:
+    ``examples/serve_gpt.py`` end to end, its JSONL checked.
+
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
 trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
@@ -280,7 +307,10 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 16, 17, 18, 19, 20, 21, 4, 5.
+11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 4, 5, 23c.  The bounds
+of the main paths' rows come from the op modules' launch plans
+(:func:`apex_tpu_torch.analysis.kernels.roofline`), the others' from
+:func:`apex_tpu_torch.analysis.kernels.bound`.
 The line before the last is a JSON object of the kernels (every C entry
 point, the f32 instances included); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -339,6 +369,12 @@ its own no-group run only) and prints it as one JSON line.
 
 run phase 17 or phase 18 alone (with the kernels' build; 18a then runs
 phase 6's loop itself for the losses it holds) and print it as one JSON
+line.
+
+    python3 chip_smoke.py --analysis [--phase1]
+
+runs phase 23 alone (23c over phase 23's own launches; with
+``--phase1``, phase 1 first and 23c over both) and prints it as one JSON
 line.
 
     python3 chip_smoke.py --evoformer
@@ -499,12 +535,29 @@ def time_ms(fn, *, iters=25, warmup=3, flush=None):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+#: the peak each bound is taken against, as apex_tpu_torch.analysis.kernels
+#: names it
+PEAK_UNITS = {BF16_TENSOR_FLOPS: "bf16_tensor", TF32_TENSOR_FLOPS: "tf32_tensor",
+              F32_FLOPS: "f32"}
+
+
 def bound(bytes_moved, ops, peak_ops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes"
-    return t_ops, "operations"
+    """(bound_ms, "bytes" | "operations") of a row whose work has no
+    launch plan of its own: :func:`apex_tpu_torch.analysis.kernels.bound`
+    (the main paths' rows take :func:`roofline_bound` of their plans)."""
+    from apex_tpu_torch.analysis import kernels
+
+    return kernels.bound(bytes_moved, ops, PEAK_UNITS[peak_ops])
+
+
+def roofline_bound(specs):
+    """(bound_ms, bound_by) of a call from its launch plans
+    (``kernel_specs``): :func:`apex_tpu_torch.analysis.kernels.roofline`,
+    the one formula behind PERF.md's bound column."""
+    from apex_tpu_torch.analysis import kernels
+
+    r = kernels.roofline(specs[0])
+    return r["bound_ms"], r["bound_by"]
 
 
 # ---------------------------------------------------------------------------
@@ -3142,20 +3195,6 @@ def phase15():
 # ---------------------------------------------------------------------------
 
 
-def _ln_bytes(rows, hidden, elem, *, bwd):
-    """Bytes K1 (x in, y out) or K2 (x, g in, dx out) must move: each
-    input read once, each output written once, with the f32 w, b, mu,
-    rstd (and K2's f32 dw, db)."""
-    n = rows * hidden
-    if bwd:
-        return 3 * n * elem + 4 * hidden * 4 + 2 * rows * 4
-    return 2 * n * elem + 2 * hidden * 4 + 2 * rows * 4
-
-
-def _attn_live_pairs(s, causal=True):
-    return s * (s + 1) // 2 if causal else s * s
-
-
 def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
     """K1 and K2 at x (rows, hidden) in ``dtype`` (bf16 or f32), each
     beside its plain version and the library call (``F.layer_norm`` and
@@ -3170,8 +3209,6 @@ def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
     if dtype == "f32":
         x = x.float()
     wb, bb = w.to(x.dtype), b.to(x.dtype)
-    n = x.numel()
-    elem = x.element_size()
     fwd = dict(
         ms=time_ms(lambda: ln.layer_norm_fwd(x, w, b, eps=1e-5, rms=False),
                    flush=flush),
@@ -3180,8 +3217,8 @@ def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
         library_ms=time_ms(lambda: F.layer_norm(x, (hidden,), wb, bb, 1e-5),
                            flush=flush),
     )
-    fwd["bound_ms"], fwd["bound_by"] = bound(
-        _ln_bytes(rows, hidden, elem, bwd=False), 8 * n, F32_FLOPS)
+    fwd["bound_ms"], fwd["bound_by"] = roofline_bound(
+        ln.kernel_specs(rows, hidden, x.dtype))
 
     _, mu, rstd = ln.layer_norm_reference(x, w, b, 1e-5, False)
     g = torch.randn(rows, hidden, generator=gen, device="cuda").to(x.dtype)
@@ -3195,8 +3232,8 @@ def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
         library_ms=time_ms(lambda: torch.autograd.grad(
             y_lib, (xr, wr, br), g, retain_graph=True), flush=flush),
     )
-    bwd["bound_ms"], bwd["bound_by"] = bound(
-        _ln_bytes(rows, hidden, elem, bwd=True), 12 * n, F32_FLOPS)
+    bwd["bound_ms"], bwd["bound_by"] = roofline_bound(
+        ln.kernel_specs(rows, hidden, x.dtype, bwd=True))
     return fwd, bwd
 
 
@@ -3212,8 +3249,6 @@ def _time_attn(gen, flush, bh, s, *, with_bwd, d=64):
 
     scale = d ** -0.5
     q, k, v = attn_inputs(bh, s, s, d, gen)
-    live = bh * _attn_live_pairs(s)
-    elems = bh * s * d
     fwd = dict(
         ms=time_ms(lambda: attn.flash_fwd(q, k, v, scale=scale, causal=True),
                    flush=flush),
@@ -3223,8 +3258,8 @@ def _time_attn(gen, flush, bh, s, *, with_bwd, d=64):
             q[None], k[None], v[None], is_causal=True, scale=scale),
             flush=flush),
     )
-    fwd["bound_ms"], fwd["bound_by"] = bound(
-        2 * 4 * elems + 3 * 4 * bh * s, 4 * d * live, BF16_TENSOR_FLOPS)
+    plans = attn.kernel_specs(bh, s, s, d, causal=True, defines=())
+    fwd["bound_ms"], fwd["bound_by"] = roofline_bound(plans[:1])
     if not with_bwd:
         return fwd, None
     do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -3245,8 +3280,7 @@ def _time_attn(gen, flush, bh, s, *, with_bwd, d=64):
         library_ms=time_ms(lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), do[None], retain_graph=True), flush=flush),
     )
-    bwd["bound_ms"], bwd["bound_by"] = bound(
-        2 * 7 * elems + 3 * 4 * bh * s, 10 * d * live, BF16_TENSOR_FLOPS)
+    bwd["bound_ms"], bwd["bound_by"] = roofline_bound(plans[1:])
     return fwd, bwd
 
 
@@ -3333,8 +3367,6 @@ def _time_attn_long(gen, flush):
     bh, s, d = LONG_BH, LONG_S, LONG_D
     scale = d ** -0.5
     q, k, v = attn_inputs(bh, s, s, d, gen)
-    live = bh * _attn_live_pairs(s)
-    elems = bh * s * d
 
     def plain(fn):
         try:
@@ -3354,8 +3386,8 @@ def _time_attn_long(gen, flush):
             q[None], k[None], v[None], is_causal=True, scale=scale),
             flush=flush),
     )
-    fwd["bound_ms"], fwd["bound_by"] = bound(
-        2 * 4 * elems + 3 * 4 * bh * s, 4 * d * live, BF16_TENSOR_FLOPS)
+    plans = attn.kernel_specs(bh, s, s, d, causal=True, defines=())
+    fwd["bound_ms"], fwd["bound_by"] = roofline_bound(plans[:1])
     do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
     o, _, m, l = attn.flash_fwd(q, k, v, scale=scale, causal=True)
     delta = (do.float() * o.float()).sum(-1)
@@ -3372,8 +3404,7 @@ def _time_attn_long(gen, flush):
         library_ms=time_ms(lambda: torch.autograd.grad(
             o_lib, (qr, kr, vr), do[None], retain_graph=True), flush=flush),
     )
-    bwd["bound_ms"], bwd["bound_by"] = bound(
-        2 * 7 * elems + 3 * 4 * bh * s, 10 * d * live, BF16_TENSOR_FLOPS)
+    bwd["bound_ms"], bwd["bound_by"] = roofline_bound(plans[1:])
     return fwd, bwd
 
 
@@ -3397,9 +3428,6 @@ def _time_attn_bert(gen, flush, dropout_p):
     seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
                          device="cuda", dtype=torch.int32)
     kw = dict(scale=0.125, causal=False, dropout_p=dropout_p, seed=seed)
-    pairs = bh * s * s
-    elems = bh * s * d
-    extra = BERT_BATCH * s * 4 + 4  # the bias and the seed
     q4, k4, v4 = (t.reshape(BERT_BATCH, heads, s, d) for t in (q, k, v))
     mask4 = bias[:, None].to(torch.bfloat16)  # (B, 1, 1, S)
 
@@ -3414,9 +3442,10 @@ def _time_attn_bert(gen, flush, dropout_p):
                          flush=flush),
         library_ms=time_ms(lambda: sdpa(q4, k4, v4), flush=flush),
     )
-    fwd["bound_ms"], fwd["bound_by"] = bound(
-        4 * elems * 2 + 3 * bh * s * 4 + extra, 4 * d * pairs,
-        BF16_TENSOR_FLOPS)
+    plans = attn.kernel_specs(bh, s, s, d, causal=False,
+                              bias_shape=tuple(bias.shape[:2]),
+                              dropout=dropout_p > 0, defines=())
+    fwd["bound_ms"], fwd["bound_by"] = roofline_bound(plans[:1])
     do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
     o, _, m, l = attn.flash_fwd(q, k, v, bias, **kw)
     delta = (do.float() * o.float()).sum(-1)
@@ -3431,9 +3460,7 @@ def _time_attn_bert(gen, flush, dropout_p):
             o_lib, (qr, kr, vr), do.reshape(q4.shape), retain_graph=True),
             flush=flush),
     )
-    bwd["bound_ms"], bwd["bound_by"] = bound(
-        7 * elems * 2 + 3 * bh * s * 4 + extra, 10 * d * pairs,
-        BF16_TENSOR_FLOPS)
+    bwd["bound_ms"], bwd["bound_by"] = roofline_bound(plans[1:])
     return fwd, bwd
 
 
@@ -3764,13 +3791,8 @@ def phase4(gen, launches, errs):
                              "lengths")]
     kw = dict(scale=0.125, rope_cos=args["rope_cos"],
               rope_sin=args["rope_sin"])
-    tokens = sum(MAIN_LENGTHS)
-    pages = sum(-(-n // 16) for n in MAIN_LENGTHS)
-    b_ms, b_by = bound(
-        2 * tokens * 16 * 64 * 2 + 2 * 8 * 16 * 64 * 2 + 2 * 8 * 64 * 4
-        + 4 * pages + 4 * 8,
-        4 * 16 * 64 * tokens, F32_FLOPS,
-    )
+    b_ms, b_by = roofline_bound(pa.kernel_specs(
+        8, 16, 64, page=16, np_=128, lengths=MAIN_LENGTHS))
 
     def library_paged(a, scale):
         """The same decode as one PyTorch gather of the pages and SDPA
@@ -3810,12 +3832,9 @@ def phase4(gen, launches, errs):
                            "lengths")]
     kw = dict(scale=0.125, k_scale=q8["k_scale"], v_scale=q8["v_scale"],
               rope_cos=q8["rope_cos"], rope_sin=q8["rope_sin"])
-    tokens = sum(MAIN_LENGTHS)
-    b_ms, b_by = bound(
-        2 * tokens * 16 * 64 * 1 + 2 * tokens * 16 * 4
-        + 2 * 8 * 16 * 64 * 2 + 2 * 8 * 64 * 4 + 4 * pages + 4 * 8,
-        4 * 16 * 64 * tokens, F32_FLOPS,
-    )
+    b_ms, b_by = roofline_bound(pa.kernel_specs(
+        8, 16, 64, page=16, np_=128, kv_dtype=torch.int8,
+        lengths=MAIN_LENGTHS))
 
     def library_paged_int8(a, scale):
         """The dequantizing gather (the rows of the table's pages, codes
@@ -3862,10 +3881,9 @@ def phase4(gen, launches, errs):
                               "lengths")]
     kw = dict(scale=32 ** -0.5, rope_cos=short["rope_cos"],
               rope_sin=short["rope_sin"])
-    tokens = 17 + 9
-    b_ms, b_by = bound(2 * tokens * 4 * 32 * 4 + 2 * 3 * 4 * 32 * 4
-                       + 2 * 3 * 32 * 4 + 4 * 9 + 4 * 3,
-                       4 * 4 * 32 * tokens, F32_FLOPS)
+    b_ms, b_by = roofline_bound(pa.kernel_specs(
+        3, 4, 32, page=8, np_=3, q_dtype=torch.float32,
+        kv_dtype=torch.float32, lengths=[17, 9, 0]))
     extra.setdefault("paged_decode", {})["short_shape"] = dict(
         shape="B=3 H=4 D=32 page=8 NP=3 f32, lengths [17, 9, 0]",
         ms=time_ms(lambda: pa.paged_decode_fwd(*pos, **kw), flush=flush),
@@ -7506,7 +7524,7 @@ def _time_ring_hops(gen, flush):
                        for _ in range(4))
         dlse = 0.5 * torch.randn(bh, s, generator=gen, device="cuda")
         kw = dict(scale=0.125, causal=causal)
-        live = bh * _attn_live_pairs(s, causal)
+        live = bh * attn.causal_pairs(s, s, causal)
         elems = bh * s * 64
         q4, k4, v4 = (t.reshape(8, 16, s, 64) for t in (q, k, v))
         fwd = dict(
@@ -9087,6 +9105,491 @@ def phase22(baseline=None):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the serving engine's build checks, the kernels' launch plans
+# against the card, the tuning cache, the serving example
+# ---------------------------------------------------------------------------
+
+#: 23a: the budgets around the largest estimate: 10% under must fail the
+#: build with memory-budget, 10% over must build
+P23_BUDGET_UNDER, P23_BUDGET_OVER = 0.9, 1.1
+#: memstats.crosscheck's tolerance (the reference's default)
+P23_DRIFT_TOL = 0.25
+#: 23b: the 2-layer engine the planted faults are built on (GptConfig()'s
+#: width, phase 2's seed)
+P23_FAULT_LAYERS = 2
+#: 23d: the shape the tuning cache names a variant for, the one it does
+#: not, and the variants (the sweep's bk64 s2 for K3, s2 for K4; a K3
+#: whose 96-key stage fails its static_assert)
+P23_TUNED = (16, 512, 64)
+P23_UNTUNED = (16, 256, 64)
+P23_VARIANTS = {"fwd": ("APEX_FLASH_FWD_BLOCK_K=64", "APEX_FLASH_FWD_STAGES=2"),
+                "bwd": ("APEX_FLASH_BWD_STAGES=2",)}
+P23_BAD_VARIANT = ("APEX_FLASH_FWD_BLOCK_K=96",)
+
+
+def ptxas_table(text, nvcc):
+    """``{demangled instance: {"regs", "smem"}}`` of an ``nvcc -Xptxas -v``
+    log (the names as ``ptxas_summary`` prints them)."""
+    import re
+
+    rows, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m.group(1)), int(sm.group(1)) if sm else 0))
+            name = None
+    names = [r[0] for r in rows]
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if names and os.path.exists(filt):
+        res = subprocess.run([filt, *names], capture_output=True, text=True)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            names = [n.split(">(")[0].removeprefix("void ") + ">"
+                     for n in res.stdout.splitlines()]
+    return {_plain_name(n): {"regs": r, "smem": sm}
+            for n, (_, r, sm) in zip(names, rows)}
+
+
+def _plain_name(name):
+    """A demangled instance as the launch plans name it: no namespace,
+    ``(int)64`` as 64, ``(bool)0``/``(bool)1`` as false/true."""
+    import re
+
+    name = re.sub(r"\(int\)(-?\d+)", r"\1", name)
+    name = re.sub(r"\(bool\)0", "false", name)
+    name = re.sub(r"\(bool\)1", "true", name)
+    for ns in ("<unnamed>::", "(anonymous namespace)::"):
+        name = name.replace(ns, "")
+    return name
+
+
+def _p23_engine(layers=None, **serve_kw):
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+    from apex_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    cfg = GptConfig()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = GptModel(cfg, generator=torch.Generator("cuda").manual_seed(1234))
+    serve = ServeConfig(page_size=16, max_batch=8, max_pages_per_seq=128,
+                        num_pages=1025, **serve_kw)
+    return cfg, InferenceEngine(cfg, model, serve)
+
+
+def _p23_free():
+    """Return the memory of the engines just dropped to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _p23_serve(engine, cfg):
+    """Phase 2's 8 requests through a new scheduler: the streams and the
+    launches (zeroed just before, read just after)."""
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.serve import ContinuousBatchingScheduler, Request
+
+    rs = np.random.RandomState(0)
+    sched = ContinuousBatchingScheduler(engine)
+    reqs = [sched.submit(Request(
+        prompt=[int(t) for t in rs.randint(0, cfg.vocab_size, size=n)],
+        max_new_tokens=NEW_TOKENS)) for n in PROMPT_LENS]
+    p0, d0 = engine.prefill_calls, engine.decode_iters
+    _dispatch.reset_launches()
+    sched.run()
+    launches = _dispatch.launches()
+    n_prefill, n_decode = engine.prefill_calls - p0, engine.decode_iters - d0
+    want = {"layer_norm_fwd": (2 * cfg.num_layers + 1) * (n_prefill + n_decode),
+            "flash_fwd": cfg.num_layers * n_prefill,
+            "paged_decode": cfg.num_layers * n_decode}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != expected {want}")
+    for r in reqs:
+        if r.status != "done" or len(r.tokens) != NEW_TOKENS:
+            raise AssertionError(f"request ended {r.status} ({r.shed_reason})")
+    sched.leak_check()
+    return [r.tokens for r in reqs], launches
+
+
+def _phase23a(streams=None):
+    import torch
+
+    from apex_tpu_torch.observability import memstats
+    from apex_tpu_torch.ops import _dispatch
+
+    log("phase 23a: GptConfig() built with verify=True (phase 2's weights)")
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    # the build time without the checks, then with them
+    cfg, plain = _p23_engine(verify=False)
+    t = time.perf_counter()
+    plain.build()
+    torch.cuda.synchronize()
+    out["build_s_verify_off"] = time.perf_counter() - t
+    plain_streams, _ = _p23_serve(plain, cfg)
+    if streams is not None and plain_streams != streams:
+        raise AssertionError("the unverified engine's streams differ from "
+                             "phase 2's")
+    streams = plain_streams
+    del plain
+    _p23_free()
+    _dispatch.reset_launches()
+    cfg, engine = _p23_engine(verify=True)
+    t = time.perf_counter()
+    engine.build()
+    torch.cuda.synchronize()
+    out["build_s_verify_on"] = time.perf_counter() - t
+    build_launches = _dispatch.launches()
+    if build_launches:
+        raise AssertionError(f"the build counted launches {build_launches}")
+    log(f"  build {out['build_s_verify_off']:.2f} s without the checks, "
+        f"{out['build_s_verify_on']:.2f} s with them")
+    programs = {}
+    for name, report in sorted(engine.reports.items()):
+        est = report.sections["peak_hbm_bytes"]
+        meas = engine.measured[name]
+        args = sum(b.nbytes for b in engine.records[name].argument_buffers())
+        ratio = est / meas["peak"]
+        transient = (est - args) / max(meas["peak"] - meas["before"], 1)
+        programs[name] = dict(errors=len(report.errors()),
+                              rules=report.rule_ids(), estimate=est,
+                              measured_peak=meas["peak"],
+                              measured_before=meas["before"], ratio=ratio,
+                              transient_ratio=transient,
+                              recorded_ops=len(engine.records[name].ops),
+                              run_ms=report.sections["recorded_run_ms"])
+        log(f"  {name}: {len(report.errors())} ERROR, estimate {est} B vs "
+            f"max_memory_allocated {meas['peak']} B: ratio {ratio:.4f} "
+            f"(the step's own: {transient:.4f}); {len(engine.records[name].ops)} "
+            f"ops recorded in {report.sections['recorded_run_ms']:.1f} ms")
+        if report.errors():
+            raise AssertionError(f"{name}: {report.render()}")
+    out["programs"] = programs
+    want_programs = {f"prefill_{b}" for b in engine.serve.buckets()} | {"decode"}
+    if set(programs) != want_programs:
+        raise AssertionError(f"programs {sorted(programs)} != {sorted(want_programs)}")
+    # serving with the checked engine: phase 2's streams, its launches
+    got, launches = _p23_serve(engine, cfg)
+    if got != streams:
+        raise AssertionError("the verified engine's streams differ from "
+                             "the unverified engine's")
+    out["launches"] = launches
+    # the allocator's live peak against the estimates (the engine's
+    # programs over what the process held before the engine existed)
+    monitor = memstats.MemStatsMonitor(memstats.DeviceMemoryProvider())
+    torch.cuda.reset_peak_memory_stats()
+    got2, _ = _p23_serve(engine, cfg)
+    monitor.sample()
+    static = {n: p["estimate"] + baseline for n, p in programs.items()}
+    drift = monitor.crosscheck(static, tolerance=P23_DRIFT_TOL)
+    live = monitor.live_peaks()["device0"]
+    out["memstats"] = dict(live_peak=live, baseline=baseline,
+                           largest_estimate=max(static.values()),
+                           ratio=live / max(static.values()),
+                           findings=drift)
+    log(f"  memstats: live peak {live:.0f} B against the largest estimate "
+        f"{max(static.values())} B (with {baseline} B held before): "
+        f"{out['memstats']['ratio']:.4f}, {len(drift)} drift findings")
+    if drift or got2 != streams:
+        raise AssertionError(f"memstats drift {drift}")
+    top = max(p["estimate"] for p in programs.values())
+    del engine
+    _p23_free()
+    # the budget gate
+    for factor, must_fail in ((P23_BUDGET_UNDER, True),
+                              (P23_BUDGET_OVER, False)):
+        budget = int(top * factor)
+        cfg, gated = _p23_engine(verify=True, hbm_budget_bytes=budget)
+        t = time.perf_counter()
+        try:
+            gated.build()
+            failed = None
+        except RuntimeError as exc:
+            failed = str(exc)
+        build_s = time.perf_counter() - t
+        log(f"  budget {budget} B ({factor}x the largest estimate): "
+            + ("build failed" if failed else "built") + f" in {build_s:.2f} s")
+        if must_fail and (failed is None or "memory-budget" not in failed):
+            raise AssertionError(f"a budget under the estimate built: {failed}")
+        if not must_fail and failed is not None:
+            raise AssertionError(f"a budget over the estimate failed: {failed}")
+        out[f"budget_{factor}"] = {"budget": budget, "build_s": build_s,
+                                   "failed": bool(failed)}
+        del gated
+        _p23_free()
+    return out
+
+
+def _phase23b():
+    """Planted faults on the card: each must be caught by its rule, and
+    the sound build beside it must read clean."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import analysis
+    from apex_tpu_torch.serve import model as model_lib
+
+    log("phase 23b: planted faults on a 2-layer GptConfig() engine")
+    real = model_lib.prefill_body
+
+    def with_item(*a, **k):
+        out = real(*a, **k)
+        float(out[0].float().sum())  # a host read inside the body
+        return out
+
+    def pool_copy(cfg, weights, kv_pages, *a, **k):
+        copy = {n: t.clone() for n, t in kv_pages.items()}
+        return real(cfg, weights, copy, *a, **k)
+
+    out = {}
+    for tag, body, rule in (("sound", real, None),
+                            ("item", with_item, "transfer-hlo-host"),
+                            ("pool_copy", pool_copy, "donation-dropped")):
+        cfg, engine = _p23_engine(layers=P23_FAULT_LAYERS, verify=True,
+                                  prefill_buckets=(64,))
+        model_lib.prefill_body = body
+        try:
+            engine.build()
+            failed = None
+        except RuntimeError as exc:
+            failed = str(exc)
+        finally:
+            model_lib.prefill_body = real
+        log(f"  {tag}: " + ("clean" if failed is None else
+                            f"caught: {failed.splitlines()[1].strip()[:160]}"))
+        out[tag] = failed is None or failed.splitlines()[1].strip()
+        if rule is None and failed is not None:
+            raise AssertionError(f"the sound engine failed its checks: {failed}")
+        if rule is not None and (failed is None or rule not in failed):
+            raise AssertionError(f"{tag} was not caught as {rule}: {failed}")
+        del engine
+        _p23_free()
+    # an f32 widening in a bf16 layer
+    g = torch.Generator("cuda").manual_seed(7)
+    w1 = (0.02 * torch.randn(4096, 1024, generator=g, device="cuda")).bfloat16()
+    w2 = (0.02 * torch.randn(1024, 4096, generator=g, device="cuda")).bfloat16()
+    b1 = torch.zeros(4096, device="cuda", dtype=torch.bfloat16)
+    f32_bias = torch.zeros(4096, device="cuda")
+    x = torch.randn(2048, 1024, generator=g, device="cuda").bfloat16()
+
+    def layer(x):
+        return F.linear(F.gelu(F.linear(x, w1, b1)), w2)
+
+    def widened(x):
+        return F.linear(F.gelu(F.linear(x, w1, b1) + f32_bias).bfloat16(), w2)
+
+    for tag, fn, want in (("layer_sound", layer, []),
+                          ("layer_widened", widened, ["promotion-widen"])):
+        report = analysis.check(fn, x, policy=torch.bfloat16, name=tag)
+        log(f"  {tag}: {report.rule_ids()}")
+        out[tag] = report.rule_ids()
+        if report.rule_ids() != want:
+            raise AssertionError(f"{tag}: {report.render()}")
+    return out
+
+
+def phase23c(signatures):
+    """Every kernel instance the run launched (``signatures``: its
+    distinct launches): its launch plan (``kernel_specs``) against the
+    card's own figures (the query of ``csrc/launch_query.cuh``), and the
+    registers against ptxas's (the build log of this process)."""
+    import torch
+
+    from apex_tpu_torch.analysis import kernels
+    from apex_tpu_torch.ops import _build, _dispatch
+
+    t0 = time.perf_counter()
+    tables = {}
+
+    def table(entry, defines):
+        key = (_build.library(entry), tuple(defines))
+        if key not in tables:
+            tables[key] = ptxas_table(_build.build_log(*key), _build._nvcc())
+        return tables[key]
+
+    log(f"phase 23c: {len(signatures)} distinct launches' plans against the "
+        "card's figures")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kind = torch.cuda.get_device_name(0)
+    seen, rows, bad = set(), [], []
+    for (kernel, defines, sig), n in sorted(signatures.items(),
+                                            key=lambda kv: repr(kv[0])):
+        specs = kernels.specs_from_launch(kernel, sig, defines)
+        key = (kernel, defines, tuple((s.full_name, s.smem_bytes, s.grid)
+                                      for s in specs))
+        if key in seen:
+            continue
+        seen.add(key)
+        got = _dispatch.query(kernel, sig, 0, defines)
+        if len(got) != len(specs):
+            bad.append(f"{kernel} {sig}: {len(got)} launches, the plan "
+                       f"{len(specs)}")
+            continue
+        for spec, q in zip(specs, got):
+            ptx_table = table(spec.entry, defines)
+            name = next((n for n in ptx_table
+                         if n == spec.full_name
+                         or n.endswith("::" + spec.full_name)), None)
+            ptx = ptx_table.get(name)
+            if ptx is None:
+                bad.append(f"{spec.full_name}: not in the build log")
+                continue
+            occ = kernels.occupancy(spec, ptx["regs"], ptx["smem"], kind)
+            row = dict(kernel=kernel, instance=spec.full_name,
+                       defines=list(defines), launches=n,
+                       smem_plan=spec.smem_bytes, smem_card=q["dyn_smem"],
+                       static_smem_ptxas=ptx["smem"],
+                       static_smem_card=q["static_smem"],
+                       occupancy_plan=occ, occupancy_card=q["ctas_per_sm"],
+                       regs_ptxas=ptx["regs"], regs_card=q["regs"],
+                       grid_plan=spec.grid, grid_card=q["grid"],
+                       threads_plan=spec.threads, threads_card=q["threads"])
+            rows.append(row)
+            if (spec.smem_bytes != q["dyn_smem"] or occ != q["ctas_per_sm"]
+                    or ptx["regs"] != q["regs"] or spec.grid != q["grid"]
+                    or spec.threads != q["threads"]):
+                bad.append(f"{spec.full_name} {sig}: {row}")
+    by_inst = sorted({r["instance"] for r in rows})
+    log(f"  {len(rows)} launches of {len(by_inst)} instances checked, "
+        f"{len(bad)} disagree, in {time.perf_counter() - t0:.1f} s")
+    for r in rows[:400]:
+        log(f"  {r['instance']}{' ' + str(r['defines']) if r['defines'] else ''}: "
+            f"smem {r['smem_plan']}/{r['smem_card']}, CTAs/SM "
+            f"{r['occupancy_plan']}/{r['occupancy_card']}, regs "
+            f"{r['regs_ptxas']}/{r['regs_card']}, grid {r['grid_plan']}/"
+            f"{r['grid_card']}")
+    for b in bad:
+        log(f"  DISAGREES: {b}")
+    if bad:
+        raise AssertionError(f"{len(bad)} launch plans disagree with the card")
+    return {"launches_checked": len(rows), "instances": by_inst}
+
+
+def _phase23d(gen, tmp):
+    """A tuning cache naming a non-default K3/K4 variant for one shape."""
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import attention as attn
+    from apex_tpu_torch.ops import tune_cache
+
+    log("phase 23d: a tuning cache naming K3/K4 variants for one shape")
+    bh, s, d = P23_TUNED
+    path = os.path.join(tmp, "tune.json")
+    tune_cache.update_flash(path, sq=s, d=d, causal=True,
+                            defines={m: list(v) for m, v in
+                                     P23_VARIANTS.items()},
+                            dtype="bfloat16",
+                            backend=torch.cuda.get_device_name(0))
+    old = os.environ.get(tune_cache.ENV_VAR)
+    os.environ[tune_cache.ENV_VAR] = path
+    tune_cache.reset()
+    out = {}
+    try:
+        for tag, (bh_, s_, d_) in (("tuned", P23_TUNED),
+                                   ("untuned", P23_UNTUNED)):
+            q, k, v = attn_inputs(bh_, s_, s_, d_, gen)
+            do = torch.randn(bh_, s_, d_, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            kw = dict(scale=d_ ** -0.5, causal=True)
+            _dispatch.reset_launches()
+            o = attn.flash_fwd(q, k, v, **kw)
+            ref = attn.flash_fwd_reference(q, k, v, **kw)
+            check_k3(f"23d {tag}", o, ref)
+            delta = (do.float() * o[0].float()).sum(-1)
+            grads = attn.flash_bwd(q, k, v, do, o[2], o[3], delta, **kw)
+            want = attn.flash_bwd_reference(q, k, v, do, ref[2], ref[3],
+                                             delta, **kw)
+            check_k4(f"23d {tag}", grads, want)
+            variants = {kk: {"+".join(dd): n for dd, n in by.items()}
+                        for kk, by in _dispatch.launch_variants().items()}
+            launches = _dispatch.launches()
+            log(f"  {tag} (BH={bh_} S={s_} D={d_}): launches {launches}, "
+                f"variants {variants}")
+            expect = ({"flash_fwd": {"+".join(P23_VARIANTS["fwd"]): 1},
+                       "flash_bwd": {"+".join(P23_VARIANTS["bwd"]): 1}}
+                      if tag == "tuned" else {})
+            if variants != expect or launches != {"flash_fwd": 1,
+                                                  "flash_bwd": 1}:
+                raise AssertionError(f"{tag}: variants {variants} != {expect}")
+            out[tag] = variants
+        # a variant that cannot build raises: no fallback to the default
+        tune_cache.update_flash(path, sq=s, d=d, causal=True,
+                                defines={"fwd": list(P23_BAD_VARIANT)},
+                                dtype="bfloat16",
+                                backend=torch.cuda.get_device_name(0))
+        q, k, v = attn_inputs(bh, s, s, d, gen)
+        try:
+            attn.flash_fwd(q, k, v, scale=d ** -0.5, causal=True)
+            raised = None
+        except RuntimeError as exc:
+            raised = str(exc).splitlines()[0]
+        log(f"  a variant that cannot build ({P23_BAD_VARIANT}): "
+            f"{raised or 'did not raise'}")
+        if raised is None or "nvcc failed" not in raised:
+            raise AssertionError("the unbuildable variant did not raise")
+        out["bad_variant_raised"] = raised
+    finally:
+        if old is None:
+            os.environ.pop(tune_cache.ENV_VAR, None)
+        else:
+            os.environ[tune_cache.ENV_VAR] = old
+        tune_cache.reset()
+    return out
+
+
+def _phase23e(tmp):
+    """``examples/serve_gpt.py`` end to end, its JSONL checked."""
+    from apex_tpu_torch.examples import serve_gpt
+
+    log("phase 23e: serve_gpt end to end (train, restore, verify, serve)")
+    jsonl = os.path.join(tmp, "serve.jsonl")
+    engine, sched = serve_gpt.main(["--dir", os.path.join(tmp, "serve_gpt"),
+                                    "--metrics-out", jsonl])
+    errors = {n: len(r.errors()) for n, r in engine.reports.items()}
+    with open(jsonl) as f:
+        records = [json.loads(line) for line in f]
+    keys = {"metric", "value", "unit", "vs_baseline", "step"}
+    bad = [r for r in records if set(r) < keys]
+    metrics = {r["metric"] for r in records}
+    log(f"  {len(sched.completed)} served, ERRORs {errors}; {len(records)} "
+        f"JSONL records, {len(metrics)} metrics")
+    for need in ("serve/ttft_ms", "serve/peak_hbm_bytes"):
+        if need not in metrics:
+            raise AssertionError(f"the JSONL lacks {need}")
+    if bad or any(errors.values()) or len(sched.completed) != 6:
+        raise AssertionError(f"serve_gpt: {bad[:3]} {errors}")
+    return {"records": len(records), "served": len(sched.completed),
+            "errors": errors}
+
+
+def phase23(gen, streams=None):
+    """The serving build checks (23a), planted faults (23b), the tuning
+    cache (23d), serve_gpt (23e); 23c (:func:`phase23c`) runs last, over
+    the distinct launches of the whole run."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"23a": _phase23a(streams), "23b": _phase23b()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["23d"] = _phase23d(gen, tmp)
+        out["23e"] = _phase23e(tmp)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23 (but 23c) in {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import argparse
 
@@ -9136,6 +9639,10 @@ def main():
                         "the O1 cross-check, O2 with an overflow, the amp "
                         "resume, DCGAN), with phase 6's loop for 4 steps "
                         "beside it")
+    parser.add_argument("--analysis", action="store_true",
+                        help="run phase 23 alone (the serving build checks, "
+                        "planted faults, the launch plans against the card, "
+                        "the tuning cache, serve_gpt)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -9162,11 +9669,26 @@ def main():
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
-    libs = _build.build()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    from concurrent.futures import ThreadPoolExecutor
+
+    # the kernels, and phase 23d's two tuned variants beside them (one
+    # nvcc per source and variant, all started together)
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(_build.build)] + [
+            pool.submit(_build.build, [f"flash_{m}"], P23_VARIANTS[m])
+            for m in ("fwd", "bwd")]
+        libs = builds[0].result()
+        for b in builds[1:]:
+            b.result()
+    log(f"built {sorted(libs)} and phase 23d's variants in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
         for line in ptxas_summary(_build.build_log(name), _build._nvcc()):
             log(f"  [{name}] {line}")
+    from apex_tpu_torch.ops import _dispatch
+
+    # the distinct launches of the run, for phase 23c
+    _dispatch.record_signatures(True)
 
     global K5_F32_WINDOW
     K5_F32_WINDOW = args.seed is not None
@@ -9247,6 +9769,16 @@ def main():
         launches, run = phase22()
         print(json.dumps({"amp": dict(run, launches=launches)}), flush=True)
         return
+    if args.analysis:
+        run = {}
+        if args.phase1:
+            # phase 1's launches too: the widest set of instances for 23c
+            run["phase1"] = phase1(gen)
+            run["phase1"].update(phase1_flash_dbias(gen))
+        run.update(phase23(gen))
+        run["23c"] = phase23c(_dispatch.launch_signatures())
+        print(json.dumps({"analysis": run}, default=str), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -9289,6 +9821,7 @@ def main():
     moe_launches, ep2_launches, experts = phase20()
     pp_launches, pipeline = phase21()
     amp_launches, amp_run = phase22(training)
+    analysis_run = phase23(gen, streams)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -9307,7 +9840,8 @@ def main():
             ("experts", moe_launches),
             ("ep2_rank0", ep2_launches),
             ("pp2_rank0", pp_launches),
-            ("amp_o1", amp_launches))
+            ("amp_o1", amp_launches),
+            ("analysis_serving", analysis_run["23a"]["launches"]))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -9316,8 +9850,13 @@ def main():
             and name not in PHASE1_ONLY_ENTRIES]
     if idle:
         raise AssertionError(f"kernels the main paths never launched: {idle}")
+    # phase 4 times the kernels with the launch log off (it costs a few
+    # microseconds a launch); 23c reads the launches of every other phase
+    signatures = _dispatch.launch_signatures()
+    _dispatch.record_signatures(False)
     kernels = phase4(gen, launches, errs)
     profile = phase5(engine)
+    analysis_run["23c"] = phase23c(signatures)
     log(json.dumps({"serving": rates, "cross_check": cross,
                     "serving_int8_wires": wires, "speculative": spec,
                     "serving_chaos": chaos, "training": training, "training_cross_check": train_cross,
@@ -9330,7 +9869,8 @@ def main():
                     "dap": dap, "trainer": trainer,
                     "context": context, "experts": experts,
                     "pipeline": pipeline, "amp": amp_run,
-                    "decode_profile": profile}))
+                    "analysis": analysis_run,
+                    "decode_profile": profile}, default=str))
     log(f"whole run {time.perf_counter() - t0:.1f} s (the build included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

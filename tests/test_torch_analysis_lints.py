@@ -357,10 +357,26 @@ def test_replay_critical_modules():
         assert not purity.is_replay_critical(rel)
 
 
-def test_graph_forms_wait_for_item_9():
+@pytest.mark.parametrize("case", ["nonatomic_counter", "wall_clock"])
+def test_graph_forms_wait_for_item_9(case):
+    """Item 9 has landed: the graph forms of both lints run over a
+    ``StepGraph``'s sources (as the reference's do,
+    ``apex_tpu/analysis/concurrency.py:466-471``) and report what the
+    source forms report; without sources they are quiet."""
+    from apex_tpu_torch.analysis import PASSES, StepGraph
+
+    src = textwrap.dedent(CONCURRENCY_CASES.get(case)
+                          or PURITY_CASES[case])
+    rel = "serve/engine.py"
+    graph = StepGraph(sources=[(rel, src)])
+    assert PASSES["concurrency"] is concurrency.concurrency_pass
+    assert PASSES["purity"] is purity.purity_pass
+    got = concurrency.concurrency_pass(graph) + purity.purity_pass(graph)
+    want = concurrency.lint_sources([(rel, src)]) + \
+        purity.lint_sources([(rel, src)])
+    assert got == want and got
     for fn in (concurrency.concurrency_pass, purity.purity_pass):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            fn(object())
+        assert fn(StepGraph()) == []
 
 
 def test_port_tree_lints_clean():

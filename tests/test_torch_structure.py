@@ -152,7 +152,39 @@ COUNTERPARTS = (
     "amp/lists/functional_overrides.py", "_autocast_utils.py",
     "fp16_utils/__init__.py", "analysis/findings.py",
     "analysis/concurrency.py", "analysis/purity.py", "analysis/retrace.py",
+    # the rest of item 9 (the recorded step's reader and passes, the
+    # memory estimate, the kernel passes) and item 8's first part
+    "analysis/hlo.py", "analysis/passes.py", "analysis/memory.py",
+    "analysis/kernels.py", "observability/export.py",
+    "observability/memstats.py",
 )
+
+#: modules of item 9 and item 8's first part whose counterparts live at
+#: another path (the reference keeps its Pallas plumbing under
+#: ``ops/pallas/``, its examples under ``examples/simple/``)
+ITEM9_FILES = {
+    "analysis/hlo.py": "apex_tpu/analysis/hlo.py",
+    "analysis/passes.py": "apex_tpu/analysis/passes.py",
+    "analysis/memory.py": "apex_tpu/analysis/memory.py",
+    "analysis/kernels.py": "apex_tpu/analysis/kernels.py",
+    "ops/tune_cache.py": "apex_tpu/ops/pallas/tune_cache.py",
+    "ops/introspect.py": "apex_tpu/ops/pallas/introspect.py",
+    "observability/export.py": "apex_tpu/observability/export.py",
+    "observability/memstats.py": "apex_tpu/observability/memstats.py",
+    "examples/serve_gpt.py": "examples/simple/serve/serve_gpt.py",
+    "tools/graph_lint.py": "tools/graph_lint.py",
+    "tools/kernel_lint.py": "tools/kernel_lint.py",
+}
+
+
+@pytest.mark.parametrize("module", sorted(ITEM9_FILES))
+def test_item9_modules_are_in_the_isolation_walk(module):
+    path = ROOT / "apex_tpu_torch" / module
+    assert path in _port_files(), module
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in ("jax", "jaxlib", "apex_tpu", "flax",
+                                       "orbax", "optax")], module
+    assert (ROOT / ITEM9_FILES[module]).is_file(), module
 
 #: the modules this walk must see (each imported nothing of JAX above)
 #: and the examples under their counterparts' names (``examples/`` at the
@@ -184,7 +216,7 @@ def test_port_modules_keep_their_counterparts_names(module):
 
 
 #: the port's tools under the reference's tools/ names
-TOOLS = ("serve_chaos_drill.py",)
+TOOLS = ("serve_chaos_drill.py", "graph_lint.py", "kernel_lint.py")
 
 
 @pytest.mark.parametrize("tool", TOOLS)

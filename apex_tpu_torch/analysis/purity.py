@@ -50,9 +50,8 @@ __all__ = [
 #: replay-critical module prefixes, relative to the package root
 #: (``apex_tpu_torch/``), "/"-separated.  A prefix ending in "/" covers
 #: the whole subpackage.  The port's counterparts of the reference's:
-#: ``serve/``, ``goodput/stream.py``, ``resilience/runner.py``;
-#: ``fleetctl/`` is not ported yet (ROADMAP item 8, its last part) and
-#: stays listed.
+#: ``serve/``, ``goodput/stream.py``, ``resilience/runner.py`` and
+#: ``fleetctl/``.
 REPLAY_CRITICAL: Tuple[str, ...] = (
     "serve/",
     "goodput/stream.py",

@@ -570,9 +570,12 @@ def all_gather_flat(shard: torch.Tensor,
 
 def all_gather_rows(row: torch.Tensor,
                     axis_name: str = ps.DATA_PARALLEL_AXIS, *,
-                    wire: str = "f32") -> torch.Tensor:
+                    wire: str = "f32", async_op: bool = False):
     """Every member's metrics row as a ``(world, n)`` f32 matrix (row j
-    = member j), in one collective."""
+    = member j), in one collective.  ``async_op=True`` (f32 wire only)
+    dispatches the gather and returns ``(matrix, work)``: the matrix is
+    valid once ``work.wait()`` returned (``work`` is None where there is
+    no group to wait on)."""
     check_wire(wire)
     world = ps.axis_size(axis_name)
     flat = row.reshape(-1).float()
@@ -582,8 +585,20 @@ def all_gather_rows(row: torch.Tensor,
         collectives=1,
         wire_bytes=int(world * n * wire_bytes_per_element(wire)),
     )
-    full = all_gather_flat(flat, axis_name, wire=wire, chunks=1)
-    return full.reshape(world, n)
+    if not async_op:
+        full = all_gather_flat(flat, axis_name, wire=wire, chunks=1)
+        return full.reshape(world, n)
+    if wire != "f32":
+        raise ValueError("an asynchronous row gather rides the f32 wire")
+    group = ps.get_group(axis_name)
+    out = torch.empty((world, n), dtype=torch.float32, device=flat.device)
+    if group is None or world == 1:
+        return out.copy_(flat.reshape(1, n)), None
+    d = _dist()
+    fn = getattr(d, "all_gather_single", None) or d.all_gather_into_tensor
+    work = fn(out.reshape(-1), flat.contiguous(), group=group, async_op=True)
+    _record("all-gather", group, out)
+    return out, work
 
 
 # ---------------------------------------------------------------------------

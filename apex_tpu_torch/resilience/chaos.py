@@ -40,8 +40,7 @@ manager, used by tests) or ambient via ``APEX_TPU_CHAOS`` for real runs::
 
 Hooks are host-side and fire only where training code calls them
 (the port's call sites: ``runner``, ``retry``, the serving engine and
-scheduler, and the guards; the fleet hooks wait for ROADMAP item 8's
-``fleetctl``);
+scheduler, the guards, and ``fleetctl``'s fleet and router);
 with no faults configured every hook is a cheap no-op.
 
 Counterpart of ``apex_tpu/resilience/chaos.py``, host code copied over:
@@ -118,7 +117,7 @@ SERVE_PREFIX_EVICT = "serve.prefix_evict"
 #: can slow a stream but NEVER corrupt it.  Indices are spec rounds.
 SERVE_DRAFT = "serve.draft"
 #: fleet-control-plane sites (docs/serving.md "Fleet operations"):
-#: hooks live in the reference's fleetctl — ``fleet.replica_crash`` kills a
+#: hooks live in ``fleetctl`` — ``fleet.replica_crash`` kills a
 #: replica mid-iteration (its live requests evacuate under the shared
 #: retry budget), ``fleet.preempt`` delivers a SIGTERM-style preempt
 #: notice (drain + migrate), ``fleet.router`` faults one routing

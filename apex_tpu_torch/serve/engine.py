@@ -201,7 +201,7 @@ class InferenceEngine:
     def __init__(self, cfg: GptConfig, model: GptModel,
                  serve: Optional[ServeConfig] = None, *,
                  spec: Optional[spec_lib.SpecConfig] = None, registry=None,
-                 device="cuda"):
+                 device="cuda", weights=None):
         self.device = resolve_device(device)
         #: the metric registry a scheduler inherits by default
         self.registry = registry
@@ -224,15 +224,14 @@ class InferenceEngine:
         #: (:func:`~apex_tpu_torch.serve.model.serving_copy`, also
         #: :attr:`model`); under ``"int8"`` the packed leaves
         #: (:class:`~apex_tpu_torch.serve.model.PackedParams`, also
-        #: :attr:`params`; :attr:`model` is None)
+        #: :attr:`params`; :attr:`model` is None).  ``weights=`` serves
+        #: another engine's prepared weights (its :attr:`weights`, same
+        #: config and wire) instead of a copy: replicas of one model then
+        #: share one copy, as the reference's engines share one tree
         self.model: Optional[GptModel] = None
         self.params: Optional[model_lib.PackedParams] = None
-        if self.serve.weight_wire == "int8":
-            self.params = model_lib.PackedParams(cfg, model)
-            self.weights = self.params
-        else:
-            self.model = model_lib.serving_copy(cfg, model)
-            self.weights = self.model
+        self._adopt(weights if weights is not None
+                    else self.prepare_weights(model))
         self.pool = cache_lib.PagePool(
             self.serve.num_pages, self.serve.page_size
         )
@@ -295,6 +294,67 @@ class InferenceEngine:
             self._init_draft(spec)
         self._publish_build_gauges()
 
+    def prepare_weights(self, model: GptModel, cfg=None):
+        """``model`` prepared as this engine serves it, in tensors of its
+        own: a serving copy (in ``cfg.dtype``; ``cfg`` the target's by
+        default, the draft's for a draft), or packed (quantized anew) on
+        the int8 weight wire."""
+        if model.device != self.device:
+            raise ValueError(
+                f"the model lives on {model.device}, the engine on "
+                f"{self.device}"
+            )
+        cfg = cfg or self.cfg
+        if self.serve.weight_wire == "int8":
+            return model_lib.PackedParams(cfg, model)
+        return model_lib.serving_copy(cfg, model)
+
+    def _own(self, weights, cfg):
+        """``weights`` as served: a model prepared anew, prepared weights
+        as they are."""
+        if isinstance(weights, GptModel) and not getattr(
+                weights, "_serving_copy", False):
+            return self.prepare_weights(weights, cfg)
+        return weights
+
+    def _adopt(self, weights) -> None:
+        want = (model_lib.PackedParams if self.serve.weight_wire == "int8"
+                else GptModel)
+        if not isinstance(weights, want):
+            raise ValueError(
+                f"weights must be a {want.__name__} on "
+                f"weight_wire={self.serve.weight_wire!r}"
+            )
+        self.weights = weights
+        if want is GptModel:
+            self.model = weights
+        else:
+            self.params = weights
+
+    @torch.no_grad()
+    def swap_weights(self, weights, draft_weights=None) -> None:
+        """Serve new target weights: ``weights`` is a :class:`GptModel`,
+        prepared here into tensors of the engine's own
+        (:meth:`prepare_weights`: never copied into the old tensors,
+        which other engines may share), or an already prepared weight
+        object (an engine's :attr:`weights`), adopted as it is — a
+        rollback's incumbent comes back bit for bit.  ``draft_weights``
+        does the same for a separate draft (None keeps it); a self-draft
+        follows the new target.  Then every graph is captured anew
+        (:meth:`rebuild` with ``full=True``): the old graphs read the old
+        tensors' addresses.  Only legal on a quiet engine."""
+        if self.pool.in_use != 0:
+            raise RuntimeError(
+                f"swap_weights with {self.pool.in_use} pages in use"
+            )
+        self._adopt(self._own(weights, self.cfg))
+        if self.spec is not None:
+            if self.spec.draft_params is None:
+                self.draft_weights = self.weights
+            elif draft_weights is not None:
+                self.draft_weights = self._own(draft_weights, self.draft_cfg)
+        self.rebuild(full=True)
+
     def _publish_build_gauges(self) -> None:
         s = self.serve
         board.set("serve/page_size", s.page_size)
@@ -335,16 +395,10 @@ class InferenceEngine:
         if draft is None:
             # self-draft: the target's own weights, shared
             self.draft_weights = self.weights
-        elif draft.device != self.device:
-            raise ValueError(
-                f"the draft lives on {draft.device}, the engine on "
-                f"{self.device}"
-            )
-        elif s.weight_wire == "int8":
-            # the draft's own stacked tree: its blocks follow its layout
-            self.draft_weights = model_lib.PackedParams(dcfg, draft)
         else:
-            self.draft_weights = model_lib.serving_copy(dcfg, draft)
+            # the draft's own weights (on the int8 wire its own stacked
+            # tree: its blocks follow its layout)
+            self.draft_weights = self.prepare_weights(draft, dcfg)
         self.draft_cache = cache_lib.init_kv_pages(
             dcfg.num_layers, s.num_pages, dcfg.num_heads, s.page_size,
             dcfg.head_dim, dtype=dcfg.dtype, device=self.device,

@@ -139,6 +139,7 @@ def serving_copy(cfg: GptConfig, model: GptModel) -> GptModel:
     if not cfg.rotary:
         copy.position_embeddings.data = copy.position_embeddings.data.to(
             cfg.dtype)
+    copy._serving_copy = True  # prepared: an engine adopts it as it is
     return copy.requires_grad_(False)
 
 

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-twenty-three phases; any failure raises and the exit code is non-zero.  Without
+twenty-four phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -161,8 +161,9 @@ a CUDA device it exits non-zero at once and prints no result.
     path's ms per save, the write's and the restore's ms, the engine's
     stall fraction, and the median step saving every 2 steps beside none.
     It needs 16 GB of free disk under the temporary directory.
-15. Serving robustness: ``GptConfig()`` (phase 2's seeded weights)
-    behind ``ServeConfig(page_size=16, max_batch=8, max_pages_per_seq=
+15. Serving robustness: ``GptConfig()``'s width at 6 of its 12 layers
+    (``CHAOS_LAYERS``: the depth cut that keeps the whole script near its
+    earlier time with phase 24 added; phase 2's seed) behind ``ServeConfig(page_size=16, max_batch=8, max_pages_per_seq=
     128)`` with a 256-page pool, through the ported chaos drill
     (``apex_tpu_torch.tools.serve_chaos_drill``): 100 Poisson arrivals
     (seed 0, the reference drill's draws) of 64/256/1024-token prompts
@@ -299,6 +300,33 @@ a CUDA device it exits non-zero at once and prints no result.
     one shape launches them there (held to the plain twins) and the
     default elsewhere; a variant that cannot build raises.  23e:
     ``examples/serve_gpt.py`` end to end, its JSONL checked.
+24. Observation and the fleet (``phase24``).  24a, in a process of its
+    own (``--trace-window``): phase 18a's trainer
+    (``GptConfig(remat=True)``, batch 8 x 2048) for 8 steps with a
+    profiler window armed by ``APEX_TPU_TRACE_STEPS="2+2"``: the trace's
+    K1-K4 kernel events equal the launch counters over the window's two
+    steps (a K4 launch is two kernels), the attribution's compute time
+    lies within 5% of the trace's summed kernel durations, the fractions
+    and ``trace_step_period`` beside a step outside the window (the
+    difference is the profiler's cost a step), and
+    ``Watchdog(default_rules())`` over the run's meter and goodput fires
+    ``mfu_floor`` with the floor at twice the measured MFU and not at
+    half of it.  24b: ``examples/train_resilient.py`` as a subprocess
+    under ``APEX_TPU_CHAOS`` (NaN steps, a healed save fault, a
+    preemption at step 42) with a profiler window, then again: it
+    resumes, and both final ``train/goodput`` records carry the exact
+    counts.  24c: the fleet drill (``apex_tpu_torch.tools.fleet_drill``)
+    at ``GptConfig()`` (phase 2's seeded weights, bf16 KV pages, 2
+    replicas, at most 3): its five guarantees, exact K1/K3/K6 launches
+    over every engine of both fleets, its per-request ledgers beside a
+    CPU run's; then three decode graph replays under the profiler (what
+    kineto records of a replay, logged).  24d: the canary drill at
+    ``GptConfig()``: a sound deploy
+    passes and rolls to every replica, NaN weights fail within the
+    canary fraction and roll back with the incumbent's digest bit for
+    bit, exact launches; a planted redeploy that copies the new weights
+    into the replicas' shared tensors in place fails the drill with the
+    incumbents' fingerprints moved.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -307,7 +335,7 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 4, 5, 23c.  The bounds
+11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 24, 4, 5, 23c.  The bounds
 of the main paths' rows come from the op modules' launch plans
 (:func:`apex_tpu_torch.analysis.kernels.roofline`), the others' from
 :func:`apex_tpu_torch.analysis.kernels.bound`.
@@ -376,6 +404,10 @@ line.
 runs phase 23 alone (23c over phase 23's own launches; with
 ``--phase1``, phase 1 first and 23c over both) and prints it as one JSON
 line.
+
+    python3 chip_smoke.py --observe
+
+runs phase 24 alone and prints it as one JSON line.
 
     python3 chip_smoke.py --evoformer
 
@@ -482,6 +514,19 @@ PHASE1_ONLY_ENTRIES = ("flash_dbias",)
 
 def log(*args):
     print(*args, flush=True)
+
+
+#: the whole run's seconds by phase (:func:`timed`)
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its seconds kept under ``name`` in PHASE_SECONDS."""
+    t = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t, 1)
+    log(f"  (phase {name}: {PHASE_SECONDS[name]} s)")
+    return out
 
 
 def compare(name, out, ref, tol):
@@ -2641,7 +2686,7 @@ def _plain_request(prompt, temperature=0.0, seed=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: serving robustness at full width under a chaos storm
+# phase 15: serving robustness at full width (half depth) under a chaos storm
 # ---------------------------------------------------------------------------
 
 
@@ -2649,6 +2694,9 @@ def _plain_request(prompt, temperature=0.0, seed=None):
 #: drill's 8 slots of up to 1024 + 64 tokens, so the clamp rung (60%
 #: occupancy) and page pressure (growth-page victims) are reached
 CHAOS_PAGES = 257
+#: phase 15's depth: half of GptConfig()'s 12 layers at its full width
+#: (the whole script passed 950 s when phase 24 joined it)
+CHAOS_LAYERS = 6
 CHAOS_PROMPTS = (64, 256, 1024)
 CHAOS_OUTPUTS = (16, 32, 64)
 #: drain requests: more than the 8 slots, so the drain sheds a queue
@@ -3159,7 +3207,8 @@ def _registry_on_card(steps=12, fetch_every=2):
 
 
 def phase15():
-    """Serving robustness at the full width of ``GptConfig()`` (phase 2's
+    """Serving robustness at the full width of ``GptConfig()``, at
+    CHAOS_LAYERS of its 12 layers (phase 2's
     seeded weights) under a chaos storm, through the ported drill
     (``apex_tpu_torch.tools.serve_chaos_drill``) on bf16 and on int8 KV
     pages; a speculative run under draft and decode faults; three
@@ -3171,11 +3220,12 @@ def phase15():
 
     from apex_tpu_torch.models import GptConfig, GptModel
 
-    log("phase 15: GptConfig() serving under a chaos storm (the drill at "
+    log(f"phase 15: GptConfig(num_layers={CHAOS_LAYERS}) serving under a "
+        "chaos storm (the drill at "
         f"{CHAOS_PAGES - 1} pages, prompts {CHAOS_PROMPTS}, outputs "
         f"{CHAOS_OUTPUTS}), spec under draft faults, rebuilds, telemetry")
     torch.cuda.empty_cache()
-    model = GptModel(GptConfig(),
+    model = GptModel(GptConfig(num_layers=CHAOS_LAYERS),
                      generator=torch.Generator("cuda").manual_seed(1234))
     out = {}
     with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_phase15_") as tmp:
@@ -3984,41 +4034,13 @@ def device_kernels(prof):
     ]
 
 
-#: kernel-name fragments -> the layer that owns the time (phases 6, 8, 10)
-KERNEL_GROUPS = (
-    ("K3 flash_fwd", ("flash_fwd_kernel", "flash_fwd_wide_kernel")),
-    ("K4 flash_bwd", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                      "flash_bwd_dkdv_wide_kernel",
-                      "flash_bwd_dq_wide_kernel")),
-    # the fused call's dQ pass with the dbias epilogue (its dK/dV pass
-    # counts under K4)
-    ("K4+K5 dQ pass with dbias", ("flash_bwd_dq_dbias_kernel",)),
-    ("K5 flash_dbias", ("flash_dbias_kernel",)),
-    ("K3 flash_fwd_f32", ("flash_fwd_f32_kernel",
-                          "flash_fwd_f32_wide_kernel")),
-    ("K4 flash_bwd_f32", ("flash_bwd_dkdv_f32_kernel",
-                          "flash_bwd_dq_f32_kernel",
-                          "flash_bwd_dkdv_f32_wide_kernel",
-                          "flash_bwd_dq_f32_wide_kernel")),
-    ("K5 flash_dbias_f32", ("flash_dbias_f32_kernel",)),
-    ("K6 paged_decode", ("paged_decode_kernel",)),
-    ("K1 layer_norm_fwd", ("ln_fwd_kernel",)),
-    ("K2 layer_norm_bwd", ("ln_bwd_kernel",)),
-    ("cuBLAS GEMMs", ("nvjet", "gemm", "xmma", "cutlass")),
-    ("optimizer (foreach)", ("multi_tensor_apply",)),
-)
-
-
 def group_kernels(kernels):
-    """Device ms per layer: the kernel groups above, then the rest
-    (elementwise, copies, reductions, the optimizer's foreach kernels)."""
-    out = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    out["other"] = 0.0
-    for key, us, _ in kernels:
-        name = next((g for g, frags in KERNEL_GROUPS
-                     if any(f in key for f in frags)), "other")
-        out[name] += us / 1e3
-    return out
+    """Device ms per layer (phases 6, 8, 10): the kernel-name table of
+    :data:`apex_tpu_torch.observability.attribution.KERNEL_GROUPS`, then
+    the rest (elementwise, copies, reductions)."""
+    from apex_tpu_torch.observability.attribution import group_kernels as g
+
+    return g(kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -9590,6 +9612,541 @@ def phase23(gen, streams=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: observation and the fleet (the rest of ROADMAP item 8)
+# ---------------------------------------------------------------------------
+
+
+#: 24a: the training steps (0..P24_STEPS-1) and the profiler window armed
+#: through APEX_TPU_TRACE_STEPS ("start+length")
+P24_STEPS = 8
+P24_WINDOW = "2+2"
+#: 24a: the attribution's compute time against the summed kernel
+#: durations of the same trace (both from the one trace: they differ by
+#: the copies and memsets only)
+P24_COMPUTE_TOL = 0.05
+#: kernels a launch of each entry runs (a K4 launch is its dK/dV pass,
+#: then its dQ pass), and the KERNEL_GROUPS layer its kernels count under
+P24_KERNELS = {"layer_norm_fwd": (1, "K1 layer_norm_fwd"),
+               "layer_norm_bwd": (1, "K2 layer_norm_bwd"),
+               "flash_fwd": (1, "K3 flash_fwd"),
+               "flash_bwd": (2, "K4 flash_bwd")}
+#: 24b: the example's chaos storm and what its two invocations' final
+#: train/goodput records must carry (a CPU run of the example and the
+#: reference's own give these counts)
+P24_CHAOS = "grads:nan@7,8;checkpoint_save:raise:x1@5;preemption@42"
+P24_GOODPUT = (
+    dict(accepted=41, skipped=2, discarded=0, rollbacks=0, retries=1,
+         resumes=0, preempted=True),
+    dict(accepted=17, skipped=0, discarded=0, rollbacks=0, retries=0,
+         resumes=1, preempted=False),
+)
+#: 24c: the fleet drill's flags (the reference drill's storm and pool,
+#: at most 3 replicas), and the ledgers (every request's status, shed
+#: reason, retries and TTFT in ticks) a CPU run of the same drill gives
+#: (``python -m apex_tpu_torch.tools.fleet_drill --device cpu
+#: --max-replicas 3 --vocab 50304``, at 2 layers of 32 or of 1024 wide):
+#: no scheduler decision reads a token value
+P24C_FLAGS = ("--max-replicas", "3", "--vocab", "50304")
+P24C_CPU_LEDGERS = {"reference": "6c2d3fb22d6b55bb",
+                    "storm": "db63d45ced15a246"}
+#: 24d: the canary drill's flags (one clean seed; the planted-fault run
+#: needs only the regression)
+P24D_FLAGS = ("--vocab", "50304", "--clean-seeds", "1", "--requests", "100")
+P24D_FAULT_FLAGS = ("--vocab", "50304", "--clean-seeds", "0",
+                    "--requests", "100")
+
+
+def _phase24a():
+    """A profiler window over GPT training (phase 18a's trainer at
+    ``GptConfig(remat=True)``, batch 8 x 2048, steps 0..7, the window
+    armed by APEX_TPU_TRACE_STEPS="2+2"; 8 steps): the trace's K1-K4 kernel events
+    against the launch counters over the same two steps, the
+    attribution's compute time against the summed kernel durations, the
+    fractions, ``trace_step_period`` beside the steps outside the window,
+    then ``Watchdog(default_rules())`` over the run's meter and goodput
+    with the MFU floor above the measured MFU (fires) and below it
+    (quiet)."""
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.observability import (
+        GoodputAccountant,
+        StepMeter,
+        TraceScheduler,
+        Watchdog,
+        board,
+        default_rules,
+        peak_flops_for,
+    )
+    from apex_tpu_torch.observability import attribution as attr
+    from apex_tpu_torch.observability import trace as tr
+    from apex_tpu_torch.ops import _dispatch
+
+    args = _gpt_args([])
+    cfg = train_gpt.config(args)
+    batches = _gpt_batches(args, cfg, P24_STEPS)
+    model, trainer, loss_fn, params = _gpt_trainer(cfg, 1)
+    step = trainer.build(loss_fn, params, batches[0])
+    del params
+    n_params = step.n_params()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    meter = StepMeter(tokens_per_step=tokens,
+                      flops_per_step=6.0 * n_params * tokens,
+                      peak_flops=peak_flops_for(torch.cuda.get_device_name(0)))
+    goodput = GoodputAccountant()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_p24a_") as tmp:
+        env = {tr.ENV_TRACE_STEPS: P24_WINDOW, tr.ENV_TRACE_DIR: tmp}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            sched = TraceScheduler()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        st, step_ms, window = step.state, [], {}
+        torch.cuda.synchronize()
+        meter.tick()
+        for i, b in enumerate(batches):
+            if i == sched.end + 1:
+                window["after"] = _dispatch.launches()
+            sched.on_step(i)
+            if i == sched.start:
+                window["before"] = _dispatch.launches()
+            t0 = time.perf_counter()
+            st, aux = step(st, b)
+            float(aux["loss"])
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            meter.tick()
+            goodput.on_step(i, skipped=False)
+        sched.stop()
+        trace = attr.load_trace_dir(sched.log_dir)
+    in_window = {k: window["after"].get(k, 0) - window["before"].get(k, 0)
+                 for k in P24_KERNELS}
+    meas = attr.attribute_trace(trace)
+    events = {k: meas.kernel_events.get(layer, 0)
+              for k, (_, layer) in P24_KERNELS.items()}
+    want_events = {k: per * in_window[k]
+                   for k, (per, _) in P24_KERNELS.items()}
+    kernel_ms = sum(float(e["dur"]) for e in attr.device_events(trace)
+                    if e.get("cat") == "kernel") / 1e3
+    period_ms = 1e3 * attr.trace_step_period(trace)
+    # a step outside the window: neither the first step nor the one after
+    # the window (it follows the trace's export)
+    outside = [ms for i, ms in enumerate(step_ms)
+               if not sched.start <= i <= sched.end + 1 and i > 0]
+    outside_ms = statistics.median(outside)
+    fr = attr.publish_attribution(meas)
+    mfu = meter.mfu
+    wd_fire = Watchdog(default_rules(mfu_floor={"floor": 2.0 * mfu,
+                                                "warmup_steps": 2}),
+                       meter=meter, goodput=goodput, check_every=1)
+    wd_quiet = Watchdog(default_rules(mfu_floor={"floor": 0.5 * mfu,
+                                                 "warmup_steps": 2}),
+                        meter=meter, goodput=goodput, check_every=1)
+    fired = [e.rule for e in wd_fire.check(P24_STEPS)]
+    quiet = [e.rule for e in wd_quiet.check(P24_STEPS)]
+    board.clear()
+    log(f"  24a: window steps {sched.start}..{sched.end}: launches "
+        f"{in_window}, kernel events {events} (want {want_events}); "
+        f"{meas.events} device events, source {meas.source}; compute "
+        f"{meas.compute_ms:.3f} ms against {kernel_ms:.3f} ms of kernels; "
+        f"fractions {fr}; buckets {meas.bucket_fractions()}; layers "
+        f"{meas.layer_ms}; trace step period {period_ms:.3f} ms against "
+        f"{outside_ms:.3f} ms a step outside the window (steps {step_ms}; "
+        f"the profiler's cost a step {period_ms - outside_ms:.3f} ms); MFU "
+        f"{mfu:.4f}; floor 2x MFU fires {fired}, floor MFU/2 {quiet}")
+    failures = []
+    if events != want_events or not all(in_window.values()):
+        failures.append(f"kernel events {events} != launches {want_events}")
+    if abs(meas.compute_ms - kernel_ms) > P24_COMPUTE_TOL * kernel_ms:
+        failures.append(f"compute {meas.compute_ms} ms vs kernels "
+                        f"{kernel_ms} ms")
+    if meas.source != "device-ops" or period_ms <= 0:
+        failures.append(f"source {meas.source}, period {period_ms}")
+    if "mfu_floor" not in fired or "mfu_floor" in quiet:
+        failures.append(f"mfu_floor fired {fired}, its twin {quiet}")
+    out.update(launches=in_window, kernel_events=events,
+               device_events=meas.events, compute_ms=meas.compute_ms,
+               kernel_ms=kernel_ms, fractions=fr,
+               bucket_fractions=meas.bucket_fractions(),
+               layer_ms=meas.layer_ms, trace_period_ms=period_ms,
+               step_ms=step_ms, outside_ms=outside_ms,
+               profiler_cost_ms=period_ms - outside_ms, mfu=mfu,
+               fired=fired, quiet=quiet)
+    del model, trainer, step, st, batches
+    ps.destroy_model_parallel()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("24a: " + "; ".join(failures))
+    return out
+
+
+def _phase24a_process():
+    """24a in a process of its own (``--trace-window``), its log relayed:
+    after the whole script's earlier phases had profiled in this process,
+    kineto's traces of the window lacked one layer's forward kernels in
+    four whole runs of five on the H100, never in a process that had not
+    traced before."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py"),
+         "--trace-window"], cwd=root, capture_output=True, text=True,
+        timeout=900, env=dict(os.environ, PYTHONPATH=root))
+    lines = p.stdout.splitlines()
+    for line in lines[:-1]:
+        log(f"  [24a] {line}")
+    if p.returncode != 0:
+        raise AssertionError(f"24a exited {p.returncode}:\n"
+                             + p.stdout[-3000:] + p.stderr[-3000:])
+    return json.loads(lines[-1])["24a"]
+
+
+def _p24b_goodput(path):
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    (final,) = [r for r in recs
+                if r["metric"] == "train/goodput" and "accepted" in r]
+    return final
+
+
+def _phase24b():
+    """``examples/train_resilient.py`` on the card as a subprocess under
+    the chaos storm (NaN steps 7 and 8, a save fault healed by its
+    retry, a preemption at step 42) with a profiler window, then the
+    same command again: it resumes and finishes; both final
+    ``train/goodput`` records carry the exact counts."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_p24b_") as tmp:
+        env = dict(os.environ, APEX_TPU_CHAOS=P24_CHAOS,
+                   APEX_TPU_TRACE_STEPS=f"20+3:{tmp}/trace",
+                   PYTHONPATH=root)
+        finals = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m",
+                 "apex_tpu_torch.examples.train_resilient", "--steps", "60",
+                 "--dir", f"{tmp}/run", "--metrics-out", f"{tmp}/m{i}.jsonl"],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=300)
+            secs = time.perf_counter() - t0
+            lines = [ln for ln in p.stdout.splitlines()
+                     if ln.startswith(("done:", "trace attribution",
+                                       "final loss", "ckpt:"))]
+            log(f"  24b run {i}: exit {p.returncode} in {secs:.1f} s: "
+                + " | ".join(lines))
+            if p.returncode != 0:
+                raise AssertionError(f"24b run {i} exited {p.returncode}:\n"
+                                     + p.stdout[-3000:] + p.stderr[-3000:])
+            finals.append(_p24b_goodput(f"{tmp}/m{i}.jsonl"))
+            out[f"run{i}_s"] = secs
+        traced = os.listdir(f"{tmp}/trace/steps_000020_000022")
+    got = [{k: f[k] for k in P24_GOODPUT[0]} for f in finals]
+    out.update(goodput=got, trace_files=traced)
+    if got != list(P24_GOODPUT) or len(traced) != 1:
+        raise AssertionError(f"24b: goodput {got} != {P24_GOODPUT} "
+                             f"(trace files {traced})")
+    return out
+
+
+def _p24_configs(model):
+    """The drills' ``configs``: ``GptConfig()`` (bf16) and the drill's
+    page pool on bf16 KV pages."""
+    from apex_tpu_torch.serve import ServeConfig
+
+    def configs(a):
+        return model.cfg, ServeConfig(
+            page_size=a.page_size, num_pages=a.pages, max_batch=a.batch,
+            max_pages_per_seq=a.pages_per_seq)
+
+    return configs
+
+
+def _p24_params(model):
+    """The drills' ``params_fn``: key 1 is phase 2's seeded model, every
+    other key a model seeded with the key."""
+    import torch
+
+    from apex_tpu_torch.models import GptModel
+
+    def params_fn(a, key, configs):
+        if key == 1:
+            return model
+        return GptModel(model.cfg,
+                        generator=torch.Generator("cuda").manual_seed(key))
+
+    return params_fn
+
+
+def _p24_launch_check(tag, engines, layers, launches):
+    want = _serving_want(engines, layers)
+    per_replay = {"layer_norm_fwd": 2 * layers + 1, "paged_decode": layers}
+    bad = [e.graph_launches for e in engines
+           if e.decode_iters and e.graph_launches != per_replay]
+    if launches != want or min(want.values()) <= 0 or bad:
+        raise AssertionError(f"{tag}: launches {launches} != {want} "
+                             f"(replays {bad})")
+    return want
+
+
+def _p24_graph_trace(engine):
+    """Three replays of ``engine``'s captured decode step (idle slots)
+    under a profiler window: whether kineto records the kernels a
+    CUDA-graph replay runs, or only its ``cudaGraphLaunch``."""
+    import tempfile
+
+    from apex_tpu_torch.observability import attribution as attr
+    from apex_tpu_torch.observability import trace as tr
+    from apex_tpu_torch.serve.cache import NULL_PAGE
+
+    b = engine.serve.max_batch
+    tokens = np.zeros((b,), np.int64)
+    lengths = np.zeros((b,), np.int32)
+    table = np.full((b, engine.serve.max_pages_per_seq), NULL_PAGE, np.int32)
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_p24g_") as tmp:
+        with tr.trace(tmp):
+            for _ in range(3):
+                engine.decode(tokens, lengths, table)
+        meas = attr.attribute_trace_dir(tmp)
+    out = dict(graph_launches=meas.graph_launches,
+               graph_kernel_events=meas.graph_kernel_events,
+               kernel_events=meas.kernel_events, note=meas.graph_note())
+    log(f"  24c: three decode graph replays under the profiler: {out}")
+    return out
+
+
+def _phase24c(model):
+    """The fleet drill at ``GptConfig()`` (phase 2's seeded weights, bf16
+    KV pages, 2 replicas, at most 3; the reference drill's storm and
+    pool): its five guarantees, exact K1/K3/K6 launches over every
+    engine of both fleets, and its ledgers against the CPU run's."""
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.tools import fleet_drill as drill
+
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_p24c_") as tmp:
+        args = drill.build_parser().parse_args(
+            [*P24C_FLAGS, "--spans", f"{tmp}/spans.json"])
+        keep = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        art = drill.run_drill(args, configs=_p24_configs(model),
+                              params_fn=_p24_params(model), keep=keep)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _dispatch.launches()
+    peak = torch.cuda.max_memory_allocated() - before
+    engines = [r.engine for f in (keep["reference_fleet"],
+                                  keep["storm_fleet"]) for r in f.replicas]
+    failures = drill.check(art, args)
+    ledgers = {run: art[run]["ledger_digest"] for run in P24C_CPU_LEDGERS}
+    fr = art["fleet_registry"]
+    log(f"  24c: {secs:.1f} s; storm {art['storm']['completed']}/"
+        f"{art['storm']['offered']} completed over "
+        f"{len(art['replicas'])} replicas, reference "
+        f"{art['reference']['completed']}/{art['reference']['offered']}; "
+        f"p99 TTFT {art['storm']['ttft_ms']['p99']} ms vs "
+        f"{art['reference']['ttft_ms']['p99']} ms (inflation "
+        f"{art['p99_ttft_inflation']:.3f}); crashes "
+        f"{fr['fleet/replica_crashes']} preempts {fr['fleet/preempts']} "
+        f"router faults {fr['fleet/router_faults']} scale out "
+        f"{fr['fleet/scale_out']} in {fr['fleet/scale_in']}; leaks "
+        f"{art['pages']['per_replica_in_use']}; ledgers {ledgers} (CPU run "
+        f"{P24C_CPU_LEDGERS}: "
+        f"{'equal' if ledgers == P24C_CPU_LEDGERS else 'DIFFERENT'}); "
+        f"launches {launches}; {len(engines)} engines; peak "
+        f"{peak / 1e9:.3f} GB over the drill")
+    if failures:
+        raise AssertionError("24c: " + "; ".join(failures))
+    want = _p24_launch_check("24c", engines, model.cfg.num_layers, launches)
+    graphs = _p24_graph_trace(keep["reference_fleet"].replicas[0].engine)
+    out = dict(seconds=secs, terminals=art["terminals"], graph_trace=graphs,
+               p99_ttft_inflation=art["p99_ttft_inflation"],
+               fleet_registry=fr, replicas=len(art["replicas"]),
+               ledgers=ledgers,
+               ledgers_equal_cpu=ledgers == P24C_CPU_LEDGERS,
+               launches=launches, want=want, peak_bytes=peak,
+               deploys=art["deploys"])
+    del keep, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _p24_tensors(weights):
+    from apex_tpu_torch.serve.model import PackedParams, PackedWeight
+
+    if isinstance(weights, PackedParams):
+        out = []
+        for leaf in weights.leaves():
+            out += ([leaf.codes, leaf.scale]
+                    if isinstance(leaf, PackedWeight) else [leaf])
+        return out
+    return list(weights.parameters())
+
+
+def _p24_inplace_redeploy(self, params, draft_params=None):
+    """24d's planted fault: a redeploy that copies the new weights into
+    the replica's tensors in place — which the fleet's other replicas
+    share."""
+    import torch
+
+    from apex_tpu_torch.fleetctl import LIVE
+    from apex_tpu_torch.serve.model import PackedParams
+
+    if self.sched.prefix is not None:
+        self.sched.prefix.flush()
+    self.engine.reset_cache()
+    new = (params if isinstance(params, PackedParams)
+           or getattr(params, "_serving_copy", False)
+           else self.engine.prepare_weights(params))
+    with torch.no_grad():
+        for dst, src in zip(_p24_tensors(self.engine.weights),
+                            _p24_tensors(new)):
+            dst.copy_(src)
+    self.engine.rebuild(full=True)
+    self.sched.resume()
+    self.state = LIVE
+    self.drain_reason = None
+
+
+def _phase24d(model):
+    """The canary drill at ``GptConfig()`` (phase 2's seeded weights,
+    3 replicas sharing them): the fingerprint identities, a sound deploy
+    passing and rolling to every replica (each fingerprinting as the
+    canary's new weights), NaN weights failing with exposure within the
+    canary fraction and a rollback whose digest is the incumbent's bit
+    for bit, exact K1/K3/K6 launches; then the planted fault (the
+    redeploy copying into the shared weights in place), which must fail
+    the drill with the incumbents' fingerprints moved."""
+    import tempfile
+
+    import torch
+
+    from apex_tpu_torch.fleetctl import EngineReplica
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.tools import canary_drill as drill
+
+    def run(flags, tmp):
+        args = drill.build_parser().parse_args(
+            [*flags, "--spans", f"{tmp}/spans.json"])
+        keep = {}
+        _dispatch.reset_launches()
+        t0 = time.perf_counter()
+        art = drill.run_drill(args, configs=_p24_configs(model),
+                              params_fn=_p24_params(model), keep=keep)
+        torch.cuda.synchronize()
+        engines = [keep["fingerprint_engine"]] + [
+            r.engine for k, f in keep.items() if k.startswith("fleet:")
+            for r in f.replicas]
+        return (args, art, time.perf_counter() - t0, _dispatch.launches(),
+                engines)
+
+    with tempfile.TemporaryDirectory(prefix="apex_tpu_torch_p24d_") as tmp:
+        args, art, secs, launches, engines = run(P24D_FLAGS, tmp)
+        failures = drill.check(args, art)
+        want = _serving_want(engines, model.cfg.num_layers)
+        del engines
+        gc.collect()
+        sound = {}
+        for label in ("clean[0]", "regression"):
+            r = (art["clean_runs"][0] if label != "regression"
+                 else art["regression"])
+            d = r["deploys"][-1]
+            c = d["canary"]
+            sound[label] = dict(
+                verdict=c.get("verdict"), detect_ticks=c.get("detect_ticks"),
+                exposure=c.get("exposure_frac"),
+                routed=(c.get("canary_routed"), c.get("routed")),
+                tokens=(c.get("tokens_canary"), c.get("tokens_total")),
+                lost=d["lost_requests"], completed=r["completed"],
+                shed=r["shed_reasons"], ticks=r["ticks"],
+                ledger=r["ledger_digest"])
+        reg = art["regression"]
+        rollback_exact = (reg["deploys"][-1]["canary"].get("rollback_digest")
+                          == reg["incumbent_digest"])
+        log(f"  24d: {secs:.1f} s; fingerprints {art['fingerprints']['digest'][:16]} "
+            f"rebuild exact {art['fingerprints']['rebuild_bit_exact']}, one "
+            f"flipped bit moves it {art['fingerprints']['single_bit_flips_digest']}, "
+            f"restored {art['fingerprints']['restore_matches']}; {sound}; "
+            f"rollback bit for bit {rollback_exact}; launches {launches} "
+            f"(want {want})")
+        if failures or not rollback_exact:
+            raise AssertionError("24d: " + "; ".join(failures))
+        if launches != want or min(want.values()) <= 0:
+            raise AssertionError(f"24d: launches {launches} != {want}")
+        orig = EngineReplica.redeploy
+        EngineReplica.redeploy = _p24_inplace_redeploy
+        try:
+            fargs, fart, fsecs, _, fengines = run(P24D_FAULT_FLAGS, tmp)
+        finally:
+            EngineReplica.redeploy = orig
+        del fengines
+        ffail = drill.check(fargs, fart)
+        freg = fart["regression"]
+        moved = sorted(n for n, dg in freg["post_rollback_digests"].items()
+                       if dg != freg["incumbent_digest"])
+        log(f"  24d planted fault (in-place redeploy into the shared "
+            f"weights): {fsecs:.1f} s; drill failures {ffail}; incumbents "
+            f"whose fingerprint moved {moved} of "
+            f"{sorted(freg['post_rollback_digests'])}")
+        if not ffail or not moved:
+            raise AssertionError("24d: the in-place redeploy fault was not "
+                                 "caught")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(seconds=secs, fingerprints=art["fingerprints"],
+                          runs=sound, rollback_bit_exact=rollback_exact,
+                          launches=launches, want=want,
+                          fault=dict(seconds=fsecs, failures=ffail,
+                                     moved=moved))
+
+
+def phase24(model=None):
+    """Observation and the fleet (ROADMAP item 8's rest): 24a, 24b, 24c,
+    24d (see the module docstring); returns (24a's, 24c's and 24d's
+    launches, the numbers).  ``model`` is phase 2's seeded GptConfig()
+    (made here when None)."""
+    import torch
+
+    from apex_tpu_torch.models import GptConfig, GptModel
+
+    log(f"phase 24: a profiler window over GptConfig(remat=True) training "
+        f"(APEX_TPU_TRACE_STEPS={P24_WINDOW}), train_resilient under chaos, "
+        f"the fleet drill and the canary drill at GptConfig()")
+    t0 = time.perf_counter()
+    out = {"24a": _phase24a_process()}
+    launches = {"trace_window": out["24a"]["launches"]}
+    out["24b"] = _phase24b()
+    torch.cuda.empty_cache()
+    if model is None:
+        model = GptModel(GptConfig(),
+                         generator=torch.Generator("cuda").manual_seed(1234))
+    launches["fleet"], out["24c"] = _phase24c(model)
+    launches["canary"], out["24d"] = _phase24d(model)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 24: {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import argparse
 
@@ -9643,6 +10200,14 @@ def main():
                         help="run phase 23 alone (the serving build checks, "
                         "planted faults, the launch plans against the card, "
                         "the tuning cache, serve_gpt)")
+    parser.add_argument("--trace-window", action="store_true",
+                        help="run phase 24a alone, in this process, with "
+                        "the kernels as built (phase 24 starts it as a "
+                        "process of its own)")
+    parser.add_argument("--observe", action="store_true",
+                        help="run phase 24 alone (a profiler window over "
+                        "GPT training, train_resilient under chaos, the "
+                        "fleet and canary drills at GptConfig())")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -9668,6 +10233,9 @@ def main():
         f"({smi})")
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
+    if args.trace_window:
+        print(json.dumps({"24a": _phase24a()}), flush=True)
+        return
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -9779,6 +10347,11 @@ def main():
         run["23c"] = phase23c(_dispatch.launch_signatures())
         print(json.dumps({"analysis": run}, default=str), flush=True)
         return
+    if args.observe:
+        launches, run = phase24()
+        print(json.dumps({"observe": dict(run, launches=launches)},
+                         default=str), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -9786,7 +10359,7 @@ def main():
         return
     from apex_tpu_torch.ops import _dispatch
 
-    errs = phase1(gen)
+    errs = timed("1", phase1, gen)
     errs.update(phase1_flash_dbias(gen))
     # phase 1's launches (phase 2 zeroes the counters): the entries no
     # main path launches must have launched here and passed their checks
@@ -9801,27 +10374,28 @@ def main():
     if args.phase1:
         print(json.dumps({"phase1": errs}), flush=True)
         return
-    serve_launches, rates, engine, streams = phase2()
-    cross = phase3()
-    wires_launches, wires = phase12()
-    spec_launches, spec = phase13(streams, rates)
-    chaos_launches, chaos = phase15()
-    train_launches, training = phase6()
-    train_cross = phase7()
-    bert_launches, bert = phase8()
-    bert_cross = phase9()
-    res_launches, resilience = phase14()
-    evo_launches, evoformer = phase10()
-    evo_f32_launches, evoformer_f32 = phase10_f32()
-    evo_cross = phase11()
-    parallel = phase16(training["losses"])
-    dap_launches, dap = phase17()
-    trainer_launches, trainer = phase18(training["losses"])
-    cp_launches, context = phase19()
-    moe_launches, ep2_launches, experts = phase20()
-    pp_launches, pipeline = phase21()
-    amp_launches, amp_run = phase22(training)
-    analysis_run = phase23(gen, streams)
+    serve_launches, rates, engine, streams = timed("2", phase2)
+    cross = timed("3", phase3)
+    wires_launches, wires = timed("12", phase12)
+    spec_launches, spec = timed("13", phase13, streams, rates)
+    chaos_launches, chaos = timed("15", phase15)
+    train_launches, training = timed("6", phase6)
+    train_cross = timed("7", phase7)
+    bert_launches, bert = timed("8", phase8)
+    bert_cross = timed("9", phase9)
+    res_launches, resilience = timed("14", phase14)
+    evo_launches, evoformer = timed("10", phase10)
+    evo_f32_launches, evoformer_f32 = timed("10 f32", phase10_f32)
+    evo_cross = timed("11", phase11)
+    parallel = timed("16", phase16, training["losses"])
+    dap_launches, dap = timed("17", phase17)
+    trainer_launches, trainer = timed("18", phase18, training["losses"])
+    cp_launches, context = timed("19", phase19)
+    moe_launches, ep2_launches, experts = timed("20", phase20)
+    pp_launches, pipeline = timed("21", phase21)
+    amp_launches, amp_run = timed("22", phase22, training)
+    analysis_run = timed("23", phase23, gen, streams)
+    observe_launches, observe = timed("24", phase24)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -9841,7 +10415,10 @@ def main():
             ("ep2_rank0", ep2_launches),
             ("pp2_rank0", pp_launches),
             ("amp_o1", amp_launches),
-            ("analysis_serving", analysis_run["23a"]["launches"]))
+            ("analysis_serving", analysis_run["23a"]["launches"]),
+            ("trace_window", observe_launches["trace_window"]),
+            ("fleet", observe_launches["fleet"]),
+            ("canary", observe_launches["canary"]))
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -9854,9 +10431,9 @@ def main():
     # microseconds a launch); 23c reads the launches of every other phase
     signatures = _dispatch.launch_signatures()
     _dispatch.record_signatures(False)
-    kernels = phase4(gen, launches, errs)
-    profile = phase5(engine)
-    analysis_run["23c"] = phase23c(signatures)
+    kernels = timed("4", phase4, gen, launches, errs)
+    profile = timed("5", phase5, engine)
+    analysis_run["23c"] = timed("23c", phase23c, signatures)
     log(json.dumps({"serving": rates, "cross_check": cross,
                     "serving_int8_wires": wires, "speculative": spec,
                     "serving_chaos": chaos, "training": training, "training_cross_check": train_cross,
@@ -9869,8 +10446,9 @@ def main():
                     "dap": dap, "trainer": trainer,
                     "context": context, "experts": experts,
                     "pipeline": pipeline, "amp": amp_run,
-                    "analysis": analysis_run,
+                    "analysis": analysis_run, "observe": observe,
                     "decode_profile": profile}, default=str))
+    log(f"seconds by phase: {PHASE_SECONDS}")
     log(f"whole run {time.perf_counter() - t0:.1f} s (the build included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -157,6 +157,13 @@ COUNTERPARTS = (
     "analysis/hlo.py", "analysis/passes.py", "analysis/memory.py",
     "analysis/kernels.py", "observability/export.py",
     "observability/memstats.py",
+    # the rest of item 8: profiler windows, attribution, the fleet view,
+    # SLOs, canaries and the fleet control plane
+    "observability/trace.py", "observability/attribution.py",
+    "observability/fleet.py", "observability/slo.py",
+    "observability/canary.py", "fleetctl/__init__.py",
+    "fleetctl/replica.py", "fleetctl/router.py", "fleetctl/autoscale.py",
+    "fleetctl/fleet.py",
 )
 
 #: modules of item 9 and item 8's first part whose counterparts live at
@@ -177,14 +184,31 @@ ITEM9_FILES = {
 }
 
 
-@pytest.mark.parametrize("module", sorted(ITEM9_FILES))
+#: the rest of item 8's files whose counterparts live at another path
+ITEM8_FILES = {
+    "examples/train_resilient.py": "examples/simple/resilient/train_resilient.py",
+    "tools/fleet_drill.py": "tools/fleet_drill.py",
+    "tools/canary_drill.py": "tools/canary_drill.py",
+    "observability/trace.py": "apex_tpu/observability/trace.py",
+    "observability/attribution.py": "apex_tpu/observability/attribution.py",
+    "observability/fleet.py": "apex_tpu/observability/fleet.py",
+    "observability/slo.py": "apex_tpu/observability/slo.py",
+    "observability/canary.py": "apex_tpu/observability/canary.py",
+    "fleetctl/fleet.py": "apex_tpu/fleetctl/fleet.py",
+    "fleetctl/replica.py": "apex_tpu/fleetctl/replica.py",
+    "fleetctl/router.py": "apex_tpu/fleetctl/router.py",
+    "fleetctl/autoscale.py": "apex_tpu/fleetctl/autoscale.py",
+}
+
+
+@pytest.mark.parametrize("module", sorted(ITEM9_FILES) + sorted(ITEM8_FILES))
 def test_item9_modules_are_in_the_isolation_walk(module):
     path = ROOT / "apex_tpu_torch" / module
     assert path in _port_files(), module
     assert not [m for m in _imported_modules(path)
                 if m.split(".")[0] in ("jax", "jaxlib", "apex_tpu", "flax",
                                        "orbax", "optax")], module
-    assert (ROOT / ITEM9_FILES[module]).is_file(), module
+    assert (ROOT / {**ITEM9_FILES, **ITEM8_FILES}[module]).is_file(), module
 
 #: the modules this walk must see (each imported nothing of JAX above)
 #: and the examples under their counterparts' names (``examples/`` at the
@@ -216,7 +240,8 @@ def test_port_modules_keep_their_counterparts_names(module):
 
 
 #: the port's tools under the reference's tools/ names
-TOOLS = ("serve_chaos_drill.py", "graph_lint.py", "kernel_lint.py")
+TOOLS = ("serve_chaos_drill.py", "graph_lint.py", "kernel_lint.py",
+         "fleet_drill.py", "canary_drill.py")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -419,6 +444,32 @@ def test_new_public_names_are_the_references():
                  "ENV_FLIGHT", "ops_port_from_env",
                  "DEFAULT_LATENCY_BUCKETS_MS"):
         assert hasattr(obs, name), name
+    # the rest of item 8: every name the reference's package exports
+    # from trace, attribution, fleet, health, slo and canary
+    import apex_tpu_torch.fleetctl as fleetctl
+
+    for name in ("TraceScheduler", "annotate", "nvtx_range", "range_push",
+                 "range_pop", "trace", "CostAttribution",
+                 "TraceAttribution", "attribute_cost_model",
+                 "attribute_trace", "attribute_trace_dir", "hlo_bucket_map",
+                 "publish_attribution", "roofline_report", "FleetAggregator",
+                 "FleetView", "default_rules", "goodput_rules",
+                 "CheckpointStallRule", "CollectiveFractionRule",
+                 "HostStallRule", "InputStallRule", "MemoryBudgetRule",
+                 "SLO", "BurnRateTracker", "CounterRatioSLO", "LatencySLO",
+                 "SLORule", "Window", "fleet_slo_rules", "serve_slo_rules",
+                 "CanaryAnalyzer", "CanaryConfig", "CanaryController",
+                 "CanaryVerdict", "GoldenProbeSet", "binom_tail",
+                 "fingerprint_distance", "mann_whitney_p",
+                 "model_fingerprint", "BUCKETS", "categorize_op"):
+        assert hasattr(obs, name), name
+    import apex_tpu.fleetctl as ref_fleetctl
+
+    assert fleetctl.__all__ == ref_fleetctl.__all__
+    for name in fleetctl.__all__:
+        assert hasattr(fleetctl, name), name
+    for name in ("prepare_weights", "swap_weights"):
+        assert callable(getattr(InferenceEngine, name)), name
 
 
 class _OneBatchLoader:
@@ -441,7 +492,9 @@ def no_gpu(monkeypatch):
                                    "init_distributed", "ddp_example",
                                    "gpt_tp_example", "trainer_demo",
                                    "trainer_config", "guarded",
-                                   "loss_scaler", "params_from_numpy"])
+                                   "loss_scaler", "params_from_numpy",
+                                   "fleet_drill", "canary_drill",
+                                   "train_resilient"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -520,6 +573,18 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             from apex_tpu_torch.train import params_from_numpy
 
             params_from_numpy({"w": np.zeros(2, np.float32)})
+        elif entry == "fleet_drill":
+            from apex_tpu_torch.tools import fleet_drill
+
+            fleet_drill.main([])
+        elif entry == "canary_drill":
+            from apex_tpu_torch.tools import canary_drill
+
+            canary_drill.main([])
+        elif entry == "train_resilient":
+            from apex_tpu_torch.examples import train_resilient
+
+            train_resilient.main(["--steps", "1", "--dir", "unused"])
         elif entry == "gpt_tp_example":
             train_gpt.main(["--tiny", "--steps", "1", "--tp", "2",
                             "--sequence-parallel"])

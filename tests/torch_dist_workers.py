@@ -1193,3 +1193,47 @@ def moe_stats_case(logits, top_k, capacity, scales):
         return out
     finally:
         ps.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# observability: the fleet view over the dp group
+# ---------------------------------------------------------------------------
+
+
+def fleet_case(names, rows, values, every, local_world_size):
+    """``FleetAggregator`` over the dp group: ``gather_rows(rows)`` (each
+    rank contributes its own row); the double buffer over ``values``
+    (a list of per-step ``(world, n)`` rows: rank r observes row r), with
+    the gathers dispatched and the handles waited on after each step;
+    ``fetch()``; the straggler rule over the gathered rows; and the host
+    map with ``LOCAL_WORLD_SIZE`` set to ``local_world_size`` (as a
+    launcher sets it)."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.observability import FleetAggregator, FleetView
+    from apex_tpu_torch.observability.health import StragglerRule, Watchdog
+
+    ps.initialize_model_parallel()
+    os.environ["LOCAL_WORLD_SIZE"] = str(local_world_size)
+    try:
+        rank = ps.get_data_parallel_rank()
+        agg = FleetAggregator(names, every=every, publish=False)
+        out = {"gathered": agg.gather_rows(rows), "cadence": []}
+        agg.gathers = agg.waits = 0
+        for step, row in enumerate(values):
+            agg.observe(step, dict(zip(names, (float(v) for v in
+                                              row[rank]))))
+            view = agg.view()
+            out["cadence"].append((agg.gathers, agg.waits,
+                                   None if view is None else view.step))
+        view = agg.fetch()
+        out["fetched"] = (view.step, view.rows.copy(), view.labels)
+        agg._view = FleetView(10, agg.names, agg.gather_rows(rows))
+        wd = Watchdog([StragglerRule(zmax=3.0)], fleet=agg)
+        out["events"] = [(e.rule, e.host, e.value, e.message)
+                         for e in wd.check(10)]
+        out["collapsed"] = agg._collapse(9, rows)
+        out["row_host"] = list(agg._row_host)
+        return out
+    finally:
+        os.environ.pop("LOCAL_WORLD_SIZE", None)
+        ps.destroy_model_parallel()

@@ -14,17 +14,22 @@ Subpackages
   twin, the plain softmax cross entropy and scaled softmaxes, plus the
   device rule, the kernel build and the launch counters
   (``ops._dispatch``, ``ops._build``).
-- :mod:`apex_tpu_torch.models` — GPT and BERT (f32 weights, the
-  training forward and losses, the remat policies) and the converters
-  to and from the JAX parameter trees.
+- :mod:`apex_tpu_torch.models` — GPT, BERT and ResNet-50 (f32 weights,
+  the training forward and losses, the remat policies) and the
+  converters to and from the JAX parameter trees.
+- :mod:`apex_tpu_torch.normalization` — ``FusedLayerNorm`` and
+  ``FusedRMSNorm`` over K1/K2, ``InstanceNorm3d``.
 - :mod:`apex_tpu_torch.parallel_state` — the ``(dp, pp, cp, tp)``
   process groups.
 - :mod:`apex_tpu_torch.transformer` — tensor and sequence parallelism
   (the mappings, the Column/Row/VocabParallel layers, the vocab-parallel
   cross entropy, the RNG tracker and RNG-correct checkpoint), the enums,
   ``FusedScaleMaskSoftmax`` and the remat policy resolution.
-- :mod:`apex_tpu_torch.optimizers` — FusedAdam and FusedLAMB, and the
-  ``by_name`` registry.
+- :mod:`apex_tpu_torch.optimizers` — FusedAdam, FusedLAMB, FusedSGD,
+  FusedAdagrad, FusedNovoGrad, FusedMixedPrecisionLamb, LARC,
+  ``clip_grad_norm`` and the ``by_name`` registry;
+  :mod:`apex_tpu_torch.multi_tensor_apply` the applier, ``flatten`` and
+  ``unflatten``.
 - :mod:`apex_tpu_torch.data` — token files, the synthetic corpus, the
   sharded shuffling loader, the BERT batches and ``DevicePrefetcher``.
 - :mod:`apex_tpu_torch.parallel` — data parallelism: the gradient-sync
@@ -55,10 +60,11 @@ Subpackages
 - :mod:`apex_tpu_torch.analysis` — the rule tables and findings the
   trainer's verification reads.
 - :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``,
-  ``distributed_data_parallel``.
+  ``distributed_data_parallel``, ``imagenet.main_amp`` and the others.
 - :mod:`apex_tpu_torch.contrib` — the OpenFold surface (``mha``,
   ``layer_norm``, the DAP collectives, ``DAPAxialBlock``, the evoformer
-  modules) and the ZeRO optimizers under their contrib names.
+  modules), the ZeRO optimizers under their contrib names, ``fmha``,
+  ``multihead_attn``, ``layer_norm``, ``xentropy`` and ``clip_grad``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.
@@ -69,7 +75,8 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
                     "parallel", "parallel_state", "serve", "examples",
                     "contrib", "checkpoint", "goodput", "resilience",
-                    "observability", "train", "amp", "analysis")
+                    "observability", "train", "amp", "analysis",
+                    "normalization", "multi_tensor_apply")
 
 
 def __getattr__(name):

@@ -20,6 +20,12 @@ from apex_tpu_torch.models.convert import (  # noqa: F401
     optimizer_state,
     to_jax_params,
 )
+from apex_tpu_torch.models.resnet import (  # noqa: F401
+    ResNet,
+    ResNetConfig,
+    resnet50,
+    resnet50_config,
+)
 from apex_tpu_torch.models.gpt import (  # noqa: F401
     GptBlock,
     GptConfig,

@@ -92,7 +92,10 @@ class FusedAdamState(NamedTuple):
     v: Dict[str, torch.Tensor]
 
 
-class _FusedAdamTransform(NamedTuple):
+class Transform(NamedTuple):
+    """A functional optimizer: ``init(params) -> state`` and
+    ``update(grads, state, params) -> (updates, state)``."""
+
     init: Callable
     update: Callable
 
@@ -139,7 +142,7 @@ def fused_adam(
                 FusedAdamState(count=state.count + 1,
                                m=_stored(m, state.m), v=_stored(v, state.v)))
 
-    return _FusedAdamTransform(init, update)
+    return Transform(init, update)
 
 
 class FusedAdam(torch.optim.Optimizer):

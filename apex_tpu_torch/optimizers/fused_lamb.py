@@ -29,12 +29,13 @@ dicts of tensors); :class:`FusedLAMB` the stateful
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Union
+from typing import Dict, List, NamedTuple, Union
 
 import torch
 
 from apex_tpu_torch.optimizers.fused_adam import (
     ScalarOrSchedule,
+    Transform,
     _lr_at,
     _stored,
 )
@@ -103,11 +104,6 @@ class FusedLAMBState(NamedTuple):
     v: Dict[str, torch.Tensor]
 
 
-class _FusedLAMBTransform(NamedTuple):
-    init: Callable
-    update: Callable
-
-
 def fused_lamb(
     learning_rate: ScalarOrSchedule = 1e-3,
     beta1: float = 0.9,
@@ -156,7 +152,7 @@ def fused_lamb(
                 FusedLAMBState(count=state.count + 1,
                                m=_stored(m, state.m), v=_stored(v, state.v)))
 
-    return _FusedLAMBTransform(init, update)
+    return Transform(init, update)
 
 
 class FusedLAMB(torch.optim.Optimizer):

@@ -11,10 +11,9 @@
 - :class:`DistributedFusedAdam` / :class:`DistributedFusedLAMB` (ZeRO);
 - :class:`SyncBatchNorm`, :func:`convert_syncbn_model`;
 - :func:`initialize_distributed` and the process helpers of
-  :mod:`~apex_tpu_torch.parallel.multihost`.
-
-The reference also re-exports ``LARC`` here; the port's LARC waits for
-ROADMAP item 11 (the remaining optimizers) and is not exported yet.
+  :mod:`~apex_tpu_torch.parallel.multihost`;
+- ``LARC``, re-exported from :mod:`apex_tpu_torch.optimizers.larc` as
+  the reference re-exports it.
 """
 
 from apex_tpu_torch.parallel import comm  # noqa: F401  (the sync engine)
@@ -35,6 +34,7 @@ from apex_tpu_torch.parallel.distributed_fused_optimizers import (  # noqa: F401
     DistributedFusedLAMB,
     DistributedFusedLamb,
 )
+from apex_tpu_torch.optimizers.larc import LARC, larc  # noqa: F401
 from apex_tpu_torch.parallel.multihost import (  # noqa: F401
     distributed_is_initialized,
     finalize_distributed,

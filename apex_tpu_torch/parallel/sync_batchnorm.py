@@ -71,6 +71,22 @@ class SyncBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 use_running_average: Optional[bool] = None) -> torch.Tensor:
+        y, stats = self.normalize(x, use_running_average)
+        if stats is not None and self.training:
+            with torch.no_grad():
+                self.running_mean.copy_(stats[0])
+                self.running_var.copy_(stats[1])
+                self.num_batches_tracked.add_(1)
+        return y
+
+    def normalize(self, x: torch.Tensor,
+                  use_running_average: Optional[bool] = None):
+        """``(y, stats)`` without touching the buffers: ``stats`` is the
+        running ``(mean, var)`` after this batch (detached f32), or None
+        when normalizing with the running statistics or tracking none.
+        :meth:`forward` stores them in training mode; a caller that
+        keeps the statistics as returned state (the reference's
+        ``mutable=["batch_stats"]``) uses this directly."""
         c_axis = x.ndim - 1 if self.channel_last else 1
         if x.shape[c_axis] != self.num_features:
             raise ValueError(
@@ -83,32 +99,32 @@ class SyncBatchNorm(nn.Module):
         shape = [1] * x.ndim
         shape[c_axis] = self.num_features
         xf = x.float()
+        stats = None
         if use_running_average and self.track_running_stats:
             mean, var = self.running_mean, self.running_var
         else:
             axes = [d for d in range(x.ndim) if d != c_axis]
             n_local = float(x.numel() // self.num_features)
-            stats = torch.cat([
+            sums = torch.cat([
                 xf.sum(dim=axes), (xf * xf).sum(dim=axes),
                 torch.full((1,), n_local, device=x.device)])
             if ps.get_group(self.axis_name) is not None:
-                stats = comm.psum(stats, self.axis_name)
-            s1, s2, n = stats.split([self.num_features, self.num_features, 1])
+                sums = comm.psum(sums, self.axis_name)
+            s1, s2, n = sums.split([self.num_features, self.num_features, 1])
             mean = s1 / n
             var = s2 / n - mean * mean
-            if self.training and self.track_running_stats:
+            if self.track_running_stats:
                 with torch.no_grad():
                     m = self.momentum
                     unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                    self.running_mean.mul_(1.0 - m).add_(m * mean)
-                    self.running_var.mul_(1.0 - m).add_(m * unbiased)
-                    self.num_batches_tracked.add_(1)
+                    stats = (self.running_mean * (1.0 - m) + m * mean,
+                             self.running_var * (1.0 - m) + m * unbiased)
         y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
                                                      + self.eps)
         if self.affine:
             y = y * self.weight.float().reshape(shape) \
                 + self.bias.float().reshape(shape)
-        return y.to(x.dtype)
+        return y.to(x.dtype), stats
 
 
 def convert_syncbn_model(module: nn.Module,

@@ -327,6 +327,33 @@ a CUDA device it exits non-zero at once and prints no result.
     bit, exact launches; a planted redeploy that copies the new weights
     into the replicas' shared tensors in place fails the drill with the
     incumbents' fingerprints moved.
+25. ROADMAP item 11's first part (``phase25``).  25a:
+    ``examples/imagenet/main_amp.py`` (ResNet-50, 1000 classes, 224 x
+    224 synthetic images, global batch 128) for 12 steps at O1 and again
+    at O2: the median step of steps 2-11, img/s, MFU (3 x the forward's
+    convolution and fc FLOPs over 989 TFLOP/s), peak memory, the losses
+    finite, no K1-K6 launch (convolutions and batch norm run outside
+    Pallas in the reference too).  25b: one training step of ResNet at
+    stage sizes (1, 1, 1, 1), full widths, 64 x 64, bf16 on the card
+    against f32 on the CPU from the same weights in both norm branches
+    (logits, loss, every norm's running statistics), beside symmetric
+    padding planted in the strided conv2.  25c: ``main_amp --sync-bn`` at
+    dp = 2 (two worker processes on the card over gloo, global batch 32,
+    3 steps) against one process at the merged batch (the losses and the
+    running statistics), beside statistics planted over each rank's own
+    rows.  25d: ``SelfMultiheadAttn`` (with and without
+    ``include_norm_add``) and ``EncdecMultiheadAttn`` (Sq 64, Sk 80) at
+    E 1024, H 16, S 64, B 120, dropout 0.1: exact K1-K4 launches, card
+    bf16 against CPU f32, the padding mask dropped as the planted fault,
+    forward + backward timed beside ``torch.nn.MultiheadAttention``.
+    25e: ``fmha`` at B 32, S 512, H 16 against its plain twin on the
+    rows inside each sequence, and ``FusedLayerNorm``/``FusedRMSNorm`` at
+    (16384, 1024) bf16, ``memory_efficient`` both ways, against the CPU
+    twins, launches exact.  25f: ``fused_sgd`` (and nesterov), ``larc``
+    in front of it, ``fused_adagrad``, ``fused_novograd``,
+    ``fused_mixed_precision_lamb`` and ``clip_grad_norm_`` one step on
+    ResNet-50's parameters, card against CPU.  Phase 4 times K3/K4 at
+    25d's and 25e's shapes too.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -408,6 +435,10 @@ line.
     python3 chip_smoke.py --observe
 
 runs phase 24 alone and prints it as one JSON line.
+
+    python3 chip_smoke.py --modules
+
+runs phase 25 alone and prints it as one JSON line.
 
     python3 chip_smoke.py --evoformer
 
@@ -3458,33 +3489,34 @@ def _time_attn_long(gen, flush):
     return fwd, bwd
 
 
-def _time_attn_bert(gen, flush, dropout_p):
-    """K3 and K4 at BERT's shape (BH = 128·16, S = 128, D = 64,
-    non-causal) with the (B, 1, S) padding bias over ragged lengths and
+def _time_attn_masked(gen, flush, b, heads, sq, sk, bias, dropout_p, d=64):
+    """K3 and K4 at a non-causal (B·heads, sq, sk, D 64) bf16 shape with a
+    head-independent bias in the kernels' layout (``bias`` (B, RS, Sk)
+    f32, G = B: (B, 1, Sk) key padding, or (B, Sq, Sk)) and
     ``dropout_p``, beside the plain versions and SDPA with the same
-    additive mask (``attn_mask``, bf16) and dropout rate, forward and
-    backward (timed on its own), with the bounds: the bytes of q, k, v
+    additive mask (bf16) and dropout rate, forward and backward (timed on
+    its own), with the bounds of their launch plans: the bytes of q, k, v
     (and dO) read, o (dq, dk, dv) written and the f32 row statistics, the
     bias and the seed; 2 products of 2·D flops per pair forward, 5
-    backward, S² pairs per head."""
+    backward (BERT's shape and phase 25's multihead and fmha shapes)."""
     import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as attn
 
-    bh, s, d, heads = BERT_BATCH * 16, BERT_SEQ, 64, 16
-    q, k, v = attn_inputs(bh, s, s, d, gen)
-    bias = padding_bias(bert_lengths(gen), s)
+    bh = b * heads
+    q, k, v = attn_inputs(bh, sq, sk, d, gen)
     seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=gen,
                          device="cuda", dtype=torch.int32)
-    kw = dict(scale=0.125, causal=False, dropout_p=dropout_p, seed=seed)
-    q4, k4, v4 = (t.reshape(BERT_BATCH, heads, s, d) for t in (q, k, v))
-    mask4 = bias[:, None].to(torch.bfloat16)  # (B, 1, 1, S)
+    kw = dict(scale=d ** -0.5, causal=False, dropout_p=dropout_p, seed=seed)
+    q4 = q.reshape(b, heads, sq, d)
+    k4, v4 = (t.reshape(b, heads, sk, d) for t in (k, v))
+    mask4 = bias[:, None].to(torch.bfloat16)  # (B, 1, RS, Sk)
 
     def sdpa(a, b_, c):
         return F.scaled_dot_product_attention(a, b_, c, attn_mask=mask4,
                                               dropout_p=dropout_p,
-                                              scale=0.125)
+                                              scale=d ** -0.5)
 
     fwd = dict(
         ms=time_ms(lambda: attn.flash_fwd(q, k, v, bias, **kw), flush=flush),
@@ -3492,11 +3524,12 @@ def _time_attn_bert(gen, flush, dropout_p):
                          flush=flush),
         library_ms=time_ms(lambda: sdpa(q4, k4, v4), flush=flush),
     )
-    plans = attn.kernel_specs(bh, s, s, d, causal=False,
+    plans = attn.kernel_specs(bh, sq, sk, d, causal=False,
                               bias_shape=tuple(bias.shape[:2]),
                               dropout=dropout_p > 0, defines=())
     fwd["bound_ms"], fwd["bound_by"] = roofline_bound(plans[:1])
-    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(bh, sq, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
     o, _, m, l = attn.flash_fwd(q, k, v, bias, **kw)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, m, l, delta, bias)
@@ -3743,11 +3776,45 @@ def phase4(gen, launches, errs):
     torch.cuda.empty_cache()
 
     for p, tag in ((0.0, "bert_shape"), (0.1, "bert_dropout_shape")):
-        b_fwd, b_bwd = _time_attn_bert(gen, flush, p)
+        b_fwd, b_bwd = _time_attn_masked(
+            gen, flush, BERT_BATCH, 16, BERT_SEQ, BERT_SEQ,
+            padding_bias(bert_lengths(gen), BERT_SEQ), p)
         shape = (f"BH={BERT_BATCH * 16} S={BERT_SEQ} D=64 non-causal bf16, "
                  f"bias (B, 1, S) f32, dropout {p}")
         extra.setdefault("flash_fwd", {})[tag] = dict(b_fwd, shape=shape)
         extra.setdefault("flash_bwd", {})[tag] = dict(b_bwd, shape=shape)
+        torch.cuda.empty_cache()
+
+    # phase 25's multihead modules (25d) and fmha (25e): ragged key
+    # padding (row 0 full), the enc-dec's padding + causal-shaped mask
+    def lengths(b, sk):
+        n = torch.randint(1, sk + 1, (b,), generator=gen, device="cuda")
+        n[0] = sk
+        return n
+
+    enc_bias = padding_bias(lengths(P25_B, P25_SK), P25_SK).expand(
+        P25_B, P25_S, P25_SK) + torch.where(
+            torch.arange(P25_SK, device="cuda")[None, :]
+            > torch.arange(P25_S, device="cuda")[:, None] + (P25_SK - P25_S),
+            -1e9, 0.0)
+    for tag, b, sq, sk, bias, p, shape in (
+            ("mha_self_shape", P25_B, P25_S, P25_S,
+             padding_bias(lengths(P25_B, P25_S), P25_S), P25_DROPOUT,
+             f"BH={P25_B * P25_H} S={P25_S} D=64 non-causal bf16, bias "
+             f"(B, 1, S) f32, dropout {P25_DROPOUT} (SelfMultiheadAttn)"),
+            ("mha_encdec_shape", P25_B, P25_S, P25_SK,
+             torch.clamp(enc_bias, min=-1e9).contiguous(), P25_DROPOUT,
+             f"BH={P25_B * P25_H} Sq={P25_S} Sk={P25_SK} D=64 bf16, bias "
+             f"(B, Sq, Sk) f32, dropout {P25_DROPOUT} (EncdecMultiheadAttn)"),
+            ("fmha_shape", P25_FMHA_B, P25_FMHA_S, P25_FMHA_S,
+             padding_bias(lengths(P25_FMHA_B, P25_FMHA_S), P25_FMHA_S), 0.0,
+             f"BH={P25_FMHA_B * P25_FMHA_H} S={P25_FMHA_S} D=64 non-causal "
+             f"bf16, bias (B, 1, S) f32 (fmha)")):
+        a_fwd, a_bwd = _time_attn_masked(gen, flush, b, P25_FMHA_H
+                                         if tag == "fmha_shape" else P25_H,
+                                         sq, sk, bias, p)
+        extra.setdefault("flash_fwd", {})[tag] = dict(a_fwd, shape=shape)
+        extra.setdefault("flash_bwd", {})[tag] = dict(a_bwd, shape=shape)
         torch.cuda.empty_cache()
 
     tri_bh, tri_s, tri_d = TRIANGLE_SHAPE
@@ -3983,6 +4050,10 @@ def phase4(gen, launches, errs):
                        (" (tp = 2)", entry.get("tp2_shape")),
                        (" (BERT)", entry.get("bert_shape")),
                        (" (BERT, dropout)", entry.get("bert_dropout_shape")),
+                       (" (multihead self)", entry.get("mha_self_shape")),
+                       (" (multihead enc-dec)",
+                        entry.get("mha_encdec_shape")),
+                       (" (fmha)", entry.get("fmha_shape")),
                        (" (triangle)", entry.get("triangle_shape")),
                        (" (MSA row)", entry.get("msa_row_shape")),
                        (" (MSA column)", entry.get("msa_col_shape")),
@@ -4846,7 +4917,9 @@ RES_SAVE_EVERY = 2
 RES_SPEC = ("checkpoint_save:raise:x1@2;checkpoint_save:partial:x1@4;"
             "preemption@5")
 RES_SEED = 1234
-RES_TIMING_STEPS = 10
+#: (c)'s steps in each mode (10 before phase 25 joined the script: the
+#: depth cut that keeps the whole script near its earlier time)
+RES_TIMING_STEPS = 4
 #: one BERT-Large checkpoint is ~4.0 GB (336.2 M f32 params and LAMB's
 #: f32 m and v); each part of phase 14 keeps at most two steps plus one
 #: staging directory (~12 GB; (b)'s partial debris is smaller than a
@@ -5764,10 +5837,11 @@ def ptxas_summary(text, nvcc):
 # phase 16: data and tensor parallelism — workers on one card
 # ---------------------------------------------------------------------------
 
-#: phase 16's runs: 4 steps; 16b and 16c's GPT cut to 2 layers (the
-#: width stays GptConfig()'s: hidden 1024, 16 heads, vocab 50304) at
-#: phase 6's batch 8 x 2048; BERT-Large whole (24 x 1024) at phase 8's
-#: batch 128 x 128
+#: phase 16's runs: 4 steps (at 3, 16c's planted fault in BERT's
+#: gradient sync moves the losses by less than P16_BERT_LOSS_TOL); 16b
+#: and 16c's GPT cut to 2 layers (the width stays GptConfig()'s: hidden
+#: 1024, 16 heads, vocab 50304) at phase 6's batch 8 x 2048; BERT-Large
+#: whole (24 x 1024) at phase 8's batch 128 x 128
 P16_STEPS = 4
 P16_GPT_LAYERS = 2
 #: every init_process_group's timeout, and a spawn's deadline
@@ -10147,6 +10221,647 @@ def phase24(model=None):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: ResNet-50 and the ImageNet amp example (dp + SyncBatchNorm),
+# the fused multihead attention, fmha and the norm modules, the remaining
+# optimizers (ROADMAP item 11, first part)
+# ---------------------------------------------------------------------------
+
+#: 25a: BASELINE row 1 — examples/imagenet/main_amp.py at ImageNet's size
+P25_STEPS, P25_BATCH, P25_IMAGE = 12, 128, 224
+#: 25b and 25c: the cross-checks' images; 25c's global batch and steps
+P25_SMALL_IMAGE = 64
+P25_DP_BATCH, P25_DP_STEPS = 32, 3
+#: 25d: the width upstream Apex's perf_test_multihead_attn.py sweeps;
+#: enc-dec keys
+P25_E, P25_H, P25_S, P25_B, P25_SK = 1024, 16, 64, 120, 80
+P25_DROPOUT = 0.1
+#: 25e: fmha at BERT-Large's heads and the longest FMHAFun sequence;
+#: the norm modules at BERT-Large's rows
+P25_FMHA_B, P25_FMHA_S, P25_FMHA_H, P25_FMHA_D = 32, 512, 16, 64
+P25_LN_ROWS, P25_LN_HIDDEN = 16384, 1024
+#: 25b: card bf16 against CPU f32 on the same weights, relative (max
+#: |card - cpu| / max |cpu|) for the logits and every norm's running
+#: statistics; the limit sits between the sound reading and that of the
+#: planted fault (symmetric padding in the strided conv2): on an H100 the
+#: sound logits read 0.029 and the fault's 0.80 (statistics 3e-3 and 0.25)
+P25_RESNET_TOL = 1e-1
+#: 25c: dp = 2 + SyncBatchNorm against one process at the merged batch,
+#: relative, the losses and every running statistic; the planted fault
+#: reduces each norm's statistics over the rank's own rows: on an H100
+#: the sound run reads 1.4e-4 (losses) and 1.5e-3 (statistics), the fault
+#: 2.1e-3 and 1.0 (the fault is held to the statistics)
+P25_DP_TOL = 1e-2
+#: 25d: the multihead modules, card bf16 against CPU f32 (relative, the
+#: output, the query's and the parameters' gradients); the planted fault
+#: drops the padding mask on the card: on an H100 the sound modules read
+#: 4.4e-3 to 7.8e-3, the fault 0.71 to 1.08
+P25_MHA_TOL = 5e-2
+#: 25f: one optimizer step on the card against the CPU (f32 both), the
+#: updates relative to each tensor's largest update, each optimizer under
+#: its own limit.  0 where the update is elementwise (both SGDs, Adagrad:
+#: an H100 matched the CPU bit for bit).  1e-4 where a norm scales it
+#: (LARC, NovoGrad, ``clip_grad_norm_``): f32 sums over up to 2.4 M
+#: elements a tensor and 25.6 M in all, taken in another order on each
+#: side, read up to 1.9e-5 on an H100.  3e-4 for the mixed-precision
+#: LAMB and the plain ``fused_lamb`` under it, whose trust ratio takes
+#: two such norms of each tensor: an H100 read 1.34e-4 at the 512x512x3x3
+#: ``conv2`` weights with and without the masters.  The mixed-precision
+#: LAMB's update is also its rounded f32 master less the parameter, so
+#: each side's rounding of p + u may move an element by up to one ulp of
+#: the parameter (2.5e-4 of the update at that tensor): that ulp is taken
+#: off before its relative reading (:func:`_rel_max_less_ulp`).
+P25_OPT_TOL = dict(fused_sgd=0.0, fused_sgd_nesterov=0.0, fused_adagrad=0.0,
+                   larc_fused_sgd=1e-4, fused_novograd=1e-4,
+                   fused_lamb=3e-4, fused_mixed_precision_lamb=3e-4,
+                   clip_grad_norm_=1e-4)
+#: 25e: the memory-efficient backward recomputes x-hat from the bf16
+#: output, and the card's and the CPU's outputs may round one bf16 step
+#: apart, so their dw and db sums over 16384 rows differ by more than
+#: SUM_TOL's order-only allowance (an H100 read 0.95 of SUM_TOL)
+ME_SUM_TOL = dict(atol=1e-1, rtol=1e-2)
+
+
+def _rel_max(a, b):
+    """max |a - b| / max |b| (f32, on the host)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _rel_max_less_ulp(a, b, p):
+    """max (|a - b| - ulp(|p| + |b|))⁺ / max |b| (f32, on the host): the
+    updates ``a`` and ``b`` of parameter ``p`` once each element's one
+    ulp of rounding p + u is allowed."""
+    import torch
+
+    a, b, p = (t.detach().float().cpu() for t in (a, b, p))
+    mag = p.abs() + b.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return float(((a - b).abs() - ulp).clamp_min(0).max()
+                 / b.abs().max().clamp_min(1e-30))
+
+
+def _launched(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def _phase25a():
+    """25a: ``main_amp.main`` at O1 and at O2, ResNet-50 at ImageNet's
+    size on synthetic data: the median step time of steps 2-11, img/s,
+    MFU (3 x the forward's convolution and fc FLOPs over 989 TFLOP/s),
+    peak memory, the losses finite and the loss scale as the example
+    prints it.  No K1-K6 launch: the convolutions and batch norms run
+    outside Pallas in the reference too."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples.imagenet import main_amp
+    from apex_tpu_torch.models import resnet
+    from apex_tpu_torch.ops import _dispatch
+
+    flops = resnet.forward_flops(resnet.resnet50_config(), P25_IMAGE)
+    log(f"  25a: ResNet-50 forward {flops} FLOPs an image at {P25_IMAGE}^2 "
+        f"(convolutions and fc; MFU = 3x that x img/s / 989e12)")
+    out, failures, launches = {"forward_flops_per_image": flops}, [], {}
+    for level in ("O1", "O2"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _dispatch.reset_launches()
+        run = main_amp.main(["--opt-level", level, "--batch-size",
+                             str(P25_BATCH), "--image-size", str(P25_IMAGE),
+                             "--steps", str(P25_STEPS)])
+        counts = _dispatch.launches()
+        ps.destroy_model_parallel()
+        r = dict(step_ms_median=run["median_step_s"] * 1e3,
+                 images_per_s=run["steady_images_per_s"],
+                 images_per_s_whole_run=run["images_per_s"],
+                 mfu=run["mfu"], peak_memory_bytes=run["peak_bytes"],
+                 step_ms=[s * 1e3 for s in run["step_s"]],
+                 losses=run["losses"], loss_scales=run["loss_scales"],
+                 launches=_launched(counts))
+        del run
+        log(f"  25a {level}: median step {r['step_ms_median']:.1f} ms "
+            f"(steps 2-11), {r['images_per_s']:.1f} img/s "
+            f"({r['images_per_s_whole_run']:.1f} over the whole run, the "
+            f"data's generation included), MFU {r['mfu']:.4f}, peak "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB, losses "
+            f"{[round(x, 4) for x in r['losses']]}, loss scale "
+            f"{r['loss_scales'][-1]:.0f}; K1-K6 launches {r['launches']} "
+            f"(want none)")
+        if r["launches"]:
+            failures.append(f"25a {level}: kernel launches {r['launches']}")
+        if not all(np.isfinite(r["losses"])) or len(r["losses"]) != P25_STEPS:
+            failures.append(f"25a {level}: losses {r['losses']}")
+        out[level] = r
+        launches[f"resnet_{level.lower()}"] = counts
+    return launches, out, failures
+
+
+def _p25_resnet(use_syncbn, dtype, device, stage_sizes=(1, 1, 1, 1)):
+    """A seeded ResNet (full widths, 1000 classes) whose norms are moved
+    off their initial values: bn3's zero scale would make every residual
+    branch, and the strided conv2 in it, invisible in the logits."""
+    import torch
+
+    from apex_tpu_torch.models import resnet
+
+    cfg = resnet.resnet50_config(stage_sizes=stage_sizes,
+                                 use_syncbn=use_syncbn, dtype=dtype)
+    model = resnet.ResNet(cfg, device=device,
+                          generator=torch.Generator().manual_seed(25))
+    g = torch.Generator().manual_seed(26)
+    with torch.no_grad():
+        for _, mod in model.norms():
+            n = mod.weight.shape[0]
+            mod.weight.copy_(1 + 0.2 * torch.randn(n, generator=g))
+            mod.bias.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+            mod.running_var.copy_(1 + 0.1 * torch.rand(n, generator=g))
+    return model
+
+
+def _p25_resnet_step(model, x, y):
+    """One training forward and backward: logits, loss, the updated
+    running statistics (on the host, f32)."""
+    from apex_tpu_torch.examples.imagenet import main_amp
+
+    logits, stats = model(x)
+    loss = main_amp.xent(logits, y)
+    loss.backward()
+    return (logits.detach().float().cpu(), float(loss.detach()),
+            {k: (m.float().cpu(), v.float().cpu())
+             for k, (m, v) in stats.items()})
+
+
+def _p25_resnet_readings(card, cpu):
+    stats = max(max(_rel_max(a[0], b[0]), _rel_max(a[1], b[1]))
+                for a, b in zip((card[2][k] for k in cpu[2]),
+                                cpu[2].values()))
+    return dict(logits=_rel_max(card[0], cpu[0]),
+                loss=abs(card[1] - cpu[1]) / abs(cpu[1]), batch_stats=stats)
+
+
+def _phase25b():
+    """25b: one training step of ResNet at stage sizes (1, 1, 1, 1), full
+    widths, 64 x 64 images, bf16 on the card against f32 on the CPU from
+    the same weights, in both norm branches: the logits, the loss and
+    every norm's updated running statistics under P25_RESNET_TOL, beside
+    the planted fault (the strided conv2 padded (1, 1))."""
+    import torch
+
+    from apex_tpu_torch.models import resnet
+
+    g = torch.Generator().manual_seed(27)
+    x = torch.randn(16, P25_SMALL_IMAGE, P25_SMALL_IMAGE, 3, generator=g)
+    y = torch.randint(0, 1000, (16,), generator=g)
+    out, failures = {}, []
+    for branch in ("bn", "syncbn"):
+        sync = branch == "syncbn"
+        cpu = _p25_resnet_step(_p25_resnet(sync, torch.float32, "cpu"), x, y)
+        card = _p25_resnet_step(_p25_resnet(sync, torch.bfloat16, "cuda"),
+                                x.cuda(), y.cuda())
+        sound = _p25_resnet_readings(card, cpu)
+        orig = resnet.same_pads
+        resnet.same_pads = lambda n, k, s: (k // 2, k // 2)
+        try:
+            bad = _p25_resnet_step(
+                _p25_resnet(sync, torch.bfloat16, "cuda"), x.cuda(), y.cuda())
+        finally:
+            resnet.same_pads = orig
+        fault = _p25_resnet_readings(bad, cpu)
+        log(f"  25b {branch}: card bf16 vs CPU f32 {sound}; planted "
+            f"symmetric padding {fault} (limit {P25_RESNET_TOL})")
+        if not np.isfinite(card[1]) or max(sound.values()) > P25_RESNET_TOL:
+            failures.append(f"25b {branch}: {sound}")
+        if max(fault["logits"], fault["batch_stats"]) <= P25_RESNET_TOL:
+            failures.append(f"25b {branch}: the padding fault reads {fault}")
+        out[branch] = dict(sound=sound, fault=fault)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, failures
+
+
+def _p25_dp_argv(world):
+    return ["--opt-level", "O1", "--sync-bn", "--batch-size",
+            str(P25_DP_BATCH), "--image-size", str(P25_SMALL_IMAGE),
+            "--steps", str(P25_DP_STEPS)] + (
+                ["--backend", "gloo"] if world > 1 else [])
+
+
+def _p25_dp_run(world, fault=False):
+    """``main_amp.main`` with ``--sync-bn`` on this rank; ``fault``
+    reduces every norm's statistics over the rank's rows only (the
+    tensor-parallel axis, of size 1).  The losses, the step times and the
+    running statistics (lists)."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples.imagenet import main_amp
+    from apex_tpu_torch.models import resnet
+
+    try:
+        model = resnet.ResNet(resnet.resnet50_config(use_syncbn=True),
+                              device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+        if fault:
+            for _, mod in model.norms():
+                mod.axis_name = ps.TENSOR_PARALLEL_AXIS
+        run = main_amp.main(_p25_dp_argv(world), model=model)
+        stats = {k: [m.float().cpu().tolist(), v.float().cpu().tolist()]
+                 for k, (m, v) in run["model"].batch_stats().items()}
+        return dict(losses=run["losses"], step_s=run["step_s"], stats=stats)
+    finally:
+        ps.destroy_model_parallel()
+
+
+def p25_dp(rank, world, fault=False):
+    """25c worker: :func:`_p25_dp_run` at dp = ``world``."""
+    return _p25_dp_run(world, fault)
+
+
+def _p25_dp_readings(run, ref):
+    import torch
+
+    losses = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                     ref["losses"]))
+    stats = max(_rel_max(torch.tensor(run["stats"][k][i]),
+                         torch.tensor(ref["stats"][k][i]))
+                for k in ref["stats"] for i in (0, 1))
+    return dict(losses=losses, batch_stats=stats)
+
+
+def _phase25c():
+    """25c: BASELINE row 2 — ``main_amp --sync-bn`` at dp = 2 (two worker
+    processes on the card over gloo, 64 x 64, global batch 32, 3 steps,
+    O1) against one process at the merged batch: the dp-mean losses and
+    every SyncBatchNorm running statistic under P25_DP_TOL, beside the
+    planted fault (each rank's statistics over its own rows).  The
+    workers' step times are host staging (gloo), not a rank's speed."""
+    import torch
+
+    ref = _p25_dp_run(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _p16_spawn(2, "gloo", [
+        ("sound", "p25_dp", {}), ("fault", "p25_dp", {"fault": True})])
+    out, failures = {"one_process_losses": ref["losses"]}, []
+    for name in ("sound", "fault"):
+        readings = [_p25_dp_readings(r[name], ref) for r in ranks]
+        worst = {k: max(rd[k] for rd in readings) for k in readings[0]}
+        step_ms = [statistics.median(r[name]["step_s"]) * 1e3 for r in ranks]
+        log(f"  25c dp = 2 {name}: against one process {worst} (limit "
+            f"{P25_DP_TOL}); losses {ranks[0][name]['losses']} against "
+            f"{ref['losses']}; median step {step_ms} ms a rank (gloo host "
+            f"staging, not a rank's speed)")
+        out[name] = dict(readings=worst, losses=ranks[0][name]["losses"],
+                         step_ms_median=step_ms)
+    if max(out["sound"]["readings"].values()) > P25_DP_TOL:
+        failures.append(f"25c: dp = 2 reads {out['sound']['readings']}")
+    if out["fault"]["readings"]["batch_stats"] <= P25_DP_TOL:
+        failures.append(f"25c: the local-statistics fault reads "
+                        f"{out['fault']['readings']}")
+    return out, failures
+
+
+def _p25_mha(encdec, norm_add, device, dtype):
+    import torch
+
+    from apex_tpu_torch.contrib.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+    )
+
+    cls = EncdecMultiheadAttn if encdec else SelfMultiheadAttn
+    return cls(P25_E, P25_H, dropout=P25_DROPOUT, bias=True,
+               include_norm_add=norm_add, dtype=dtype, device=device,
+               generator=torch.Generator().manual_seed(28))
+
+
+def _p25_mha_inputs(encdec):
+    """query (S, B, E), key (Sk, B, E), the cotangent, a ragged boolean
+    key-padding mask (row 0 full), the enc-dec's causal-shaped additive
+    (Sq, Sk) attn_mask, the dropout seed (host tensors, f32)."""
+    import torch
+
+    g = torch.Generator().manual_seed(29)
+    sk = P25_SK if encdec else P25_S
+    q = torch.randn(P25_S, P25_B, P25_E, generator=g)
+    k = torch.randn(sk, P25_B, P25_E, generator=g) if encdec else None
+    cot = torch.randn(P25_S, P25_B, P25_E, generator=g)
+    lengths = torch.randint(1, sk + 1, (P25_B,), generator=g)
+    lengths[0] = sk
+    kpm = torch.arange(sk)[None, :] >= lengths[:, None]
+    am = None
+    if encdec:
+        shape = (torch.arange(sk)[None, :]
+                 > torch.arange(P25_S)[:, None] + (sk - P25_S))
+        am = torch.where(shape, -1e9, 0.0)
+    seed = torch.tensor([20251], dtype=torch.int32)
+    return q, k, cot, kpm, am, seed
+
+
+def _p25_mha_call(module, q, k, kpm, am, seed):
+    args = (q, k) if k is not None else (q,)
+    return module(*args, kpm, am, deterministic=False, dropout_seed=seed)
+
+
+def _p25_mha_step(module, inputs, device, dtype, mask=True):
+    """The module's output and query (and key) gradient, and its
+    parameters' gradients, on ``device`` with the inputs in ``dtype``."""
+    q, k, cot, kpm, am, seed = inputs
+    qd = q.detach().to(device, dtype).requires_grad_(True)
+    kd = None if k is None else k.detach().to(device, dtype).requires_grad_(
+        True)
+    out = _p25_mha_call(module, qd, kd, kpm.to(device) if mask else None,
+                        None if am is None else am.to(device),
+                        seed.to(device))
+    out.backward(cot.to(device, dtype))
+    return (out.detach().float().cpu(), qd.grad.float().cpu(),
+            {n: p.grad.float().cpu() for n, p in module.named_parameters()})
+
+
+def _phase25d():
+    """25d: BASELINE row 4 — ``SelfMultiheadAttn`` (with and without
+    ``include_norm_add``) and ``EncdecMultiheadAttn`` (Sq 64 against Sk
+    80, a boolean padding mask + a causal-shaped additive attn_mask) at E
+    1024, H 16, S 64, B 120, dropout 0.1 at one seed, forward and
+    backward: exactly one K3 and one K4 a call (and one K1, one K2 with
+    ``include_norm_add``); bf16 on the card against f32 on the CPU from
+    the same weights (the dropout mask is the kernels' hash of the seed
+    on both) under P25_MHA_TOL, beside the planted fault (the padding
+    mask dropped on the card); each module's forward + backward timed
+    beside ``torch.nn.MultiheadAttention``'s (bf16, the same mask and
+    dropout), a yardstick only."""
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+
+    out, failures, launches = {}, [], {}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    for tag, encdec, norm_add in (("self", False, False),
+                                  ("self_norm_add", False, True),
+                                  ("encdec", True, False)):
+        inputs = _p25_mha_inputs(encdec)
+        card = _p25_mha(encdec, norm_add, "cuda", torch.bfloat16)
+        cpu = _p25_mha(encdec, norm_add, "cpu", None)
+        torch.cuda.synchronize()
+        _dispatch.reset_launches()
+        got = _p25_mha_step(card, inputs, "cuda", torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = _launched(_dispatch.launches())
+        want = {"flash_fwd": 1, "flash_bwd": 1}
+        if norm_add:
+            want.update(layer_norm_fwd=1, layer_norm_bwd=1)
+        ref = _p25_mha_step(cpu, inputs, "cpu", torch.float32)
+        card.zero_grad()
+        bad = _p25_mha_step(card, inputs, "cuda", torch.bfloat16, mask=False)
+
+        def readings(a):
+            return dict(out=_rel_max(a[0], ref[0]),
+                        dq=_rel_max(a[1], ref[1]),
+                        param_grads=max(_rel_max(a[2][n], ref[2][n])
+                                        for n in ref[2]))
+
+        sound, fault = readings(got), readings(bad)
+        # the times: the module and torch.nn.MultiheadAttention, forward
+        # + backward (bf16, the same mask, dropout and seed)
+        q, k, cot, kpm, am, seed = inputs
+        qd = q.to("cuda", torch.bfloat16).requires_grad_(True)
+        kd = None if k is None else k.to("cuda", torch.bfloat16)
+        kpm_d = kpm.cuda()
+        am_d = None if am is None else am.cuda().to(torch.bfloat16)
+        cot_d = cot.to("cuda", torch.bfloat16)
+        seed_d = seed.cuda()
+        ms = time_ms(lambda: _p25_mha_call(card, qd, kd, kpm_d, am_d,
+                                           seed_d).backward(cot_d),
+                     flush=flush)
+        lib = torch.nn.MultiheadAttention(P25_E, P25_H, dropout=P25_DROPOUT,
+                                          device="cuda", dtype=torch.bfloat16)
+        kv = qd if kd is None else kd
+
+        def lib_step():
+            o, _ = lib(qd, kv, kv, key_padding_mask=kpm_d, attn_mask=am_d,
+                       need_weights=False)
+            o.backward(cot_d)
+
+        lib_ms = time_ms(lib_step, flush=flush)
+        log(f"  25d {tag}: launches {counts} (want {want}); card bf16 vs "
+            f"CPU f32 {sound}; planted fault (padding mask dropped) {fault} "
+            f"(limit {P25_MHA_TOL}); forward + backward {ms:.4f} ms, "
+            f"torch.nn.MultiheadAttention {lib_ms:.4f} ms")
+        if counts != want:
+            failures.append(f"25d {tag}: launches {counts} != {want}")
+        if max(sound.values()) > P25_MHA_TOL:
+            failures.append(f"25d {tag}: {sound}")
+        if fault["out"] <= P25_MHA_TOL:
+            failures.append(f"25d {tag}: the dropped mask reads {fault}")
+        out[tag] = dict(sound=sound, fault=fault, launches=counts, ms=ms,
+                        torch_mha_ms=lib_ms)
+        launches[f"multihead_{tag}"] = counts
+        del card, cpu, lib, qd
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, out, failures
+
+
+def _phase25e():
+    """25e: ``fmha`` at B 32, S 512, H 16, D 64 with seqlens drawn from
+    1-512 (row 0 full), forward and backward, against its plain twin on
+    the card (``mha_reference`` in f32 through autograd), the output
+    compared on the rows inside each sequence only and the rows past it
+    given no cotangent (the reference's docstring); then
+    ``FusedLayerNorm`` and ``FusedRMSNorm`` at BERT-Large's rows (16384 x
+    1024, bf16, f32 parameters), ``memory_efficient`` both ways, forward
+    and backward against the same modules on the CPU (the kernels' plain
+    twins).  Launches exact: one K3 and one K4; one K1 and one K2 a
+    module call."""
+    import torch
+
+    from apex_tpu_torch.contrib import fmha as pfmha
+    from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import attention as attn
+
+    out, failures, launches = {}, [], {}
+    b, s, h, d = P25_FMHA_B, P25_FMHA_S, P25_FMHA_H, P25_FMHA_D
+    g = torch.Generator(device="cuda").manual_seed(30)
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    lengths = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    lengths[0] = s
+    inside = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    cot = (torch.randn(b, s, h, d, generator=g, device="cuda")
+           * inside[:, :, None, None]).to(torch.bfloat16)
+    qk = qkv.clone().requires_grad_(True)
+    _dispatch.reset_launches()
+    o = pfmha.fmha(qk, lengths)
+    o.backward(cot)
+    torch.cuda.synchronize()
+    counts = _launched(_dispatch.launches())
+    qr = qkv.float().requires_grad_(True)
+    bias = pfmha.padding_bias_from_seqlens(lengths, s)
+    q_, k_, v_ = (qr[:, :, i].transpose(1, 2) for i in range(3))
+    ref = attn.mha_reference(q_, k_, v_, bias).transpose(1, 2)
+    ref.backward(cot.float())
+    e_o = compare("25e fmha o (rows inside each sequence)", o[inside],
+                  ref[inside], BF16_TOL)
+    grads = [qk.grad[:, :, i].transpose(1, 2).reshape(b * h, s, d)
+             for i in range(3)]
+    grads_ref = [qr.grad[:, :, i].transpose(1, 2).reshape(b * h, s, d)
+                 for i in range(3)]
+    e_g = check_k4("25e fmha", grads, grads_ref)
+    want = {"flash_fwd": 1, "flash_bwd": 1}
+    log(f"  25e fmha: launches {counts} (want {want})")
+    if counts != want:
+        failures.append(f"25e fmha: launches {counts} != {want}")
+    out["fmha"] = dict(max_abs_err_o=e_o, max_abs_err_dqkv=e_g,
+                       launches=counts)
+    launches["fmha"] = counts
+    del qk, qr, ref, o
+    torch.cuda.empty_cache()
+
+    x = (torch.randn(P25_LN_ROWS, P25_LN_HIDDEN, generator=g, device="cuda")
+         * 2 + 0.5).to(torch.bfloat16)
+    gy = torch.randn(P25_LN_ROWS, P25_LN_HIDDEN, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    for cls in (FusedLayerNorm, FusedRMSNorm):
+        for me in (False, True):
+            tag = f"{cls.__name__}(memory_efficient={me})"
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                mod = cls(P25_LN_HIDDEN, memory_efficient=me, device=dev)
+                with torch.no_grad():
+                    for p in mod.parameters():
+                        p.add_(0.1 * torch.randn(
+                            p.shape, generator=torch.Generator().manual_seed(31)
+                        ).to(dev))
+                xd = x.detach().to(dev).requires_grad_(True)
+                if dev == "cuda":
+                    _dispatch.reset_launches()
+                y = mod(xd)
+                y.backward(gy.to(dev))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = _launched(_dispatch.launches())
+                runs[dev] = [y.detach(), xd.grad] + [
+                    p.grad for p in mod.parameters()]
+            card, cpu = runs["cuda"], [t.cuda() for t in runs["cpu"]]
+            errs = [compare(f"25e {tag} y", card[0], cpu[0], BF16_TOL),
+                    compare(f"25e {tag} dx", card[1], cpu[1], BF16_TOL)]
+            errs += [compare(f"25e {tag} d{n}", a, r,
+                             ME_SUM_TOL if me else SUM_TOL)
+                     for n, a, r in zip(("w", "b"), card[2:], cpu[2:])]
+            want = {"layer_norm_fwd": 1, "layer_norm_bwd": 1}
+            log(f"  25e {tag}: launches {counts} (want {want})")
+            if counts != want:
+                failures.append(f"25e {tag}: launches {counts} != {want}")
+            out[tag] = dict(max_abs_err=errs, launches=counts)
+            launches[f"norm_{cls.__name__}_{me}"] = counts
+    return launches, out, failures
+
+
+def _phase25f():
+    """25f: one step of each of the remaining optimizers on ResNet-50's
+    parameter set (seeded parameters and gradients, f32): ``fused_sgd``
+    with and without nesterov, ``larc`` in front of ``fused_sgd``,
+    ``fused_adagrad``, ``fused_novograd``, ``fused_mixed_precision_lamb``
+    and ``clip_grad_norm_`` (and the plain ``fused_lamb`` under the
+    mixed-precision one), on the card against the CPU under
+    P25_OPT_TOL."""
+    import torch
+
+    from apex_tpu_torch import optimizers as popt
+    from apex_tpu_torch.models import resnet
+
+    model = resnet.ResNet(resnet.resnet50_config(), device="cpu",
+                          generator=torch.Generator().manual_seed(32))
+    g = torch.Generator().manual_seed(33)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: 0.01 * torch.randn(p.shape, generator=g)
+             for n, p in params.items()}
+    del model
+    cases = {
+        "fused_sgd": lambda: popt.fused_sgd(0.1, momentum=0.9,
+                                            weight_decay=1e-4),
+        "fused_sgd_nesterov": lambda: popt.fused_sgd(
+            0.1, momentum=0.9, nesterov=True, weight_decay=1e-4),
+        "larc_fused_sgd": lambda: popt.LARC(
+            popt.fused_sgd(0.1, momentum=0.9), 0.1, weight_decay=1e-4),
+        "fused_adagrad": lambda: popt.fused_adagrad(0.01, weight_decay=1e-4),
+        "fused_novograd": lambda: popt.fused_novograd(0.01,
+                                                      weight_decay=1e-4),
+        "fused_lamb": lambda: popt.fused_lamb(1e-3),
+        "fused_mixed_precision_lamb": lambda: popt.fused_mixed_precision_lamb(
+            1e-3),
+    }
+    out, failures = {}, []
+    for name, make in cases.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            tx = make()
+            got[dev], _ = tx.update({k: v.to(dev) for k, v in grads.items()},
+                                    tx.init(p), p)
+        out[name] = dict(updates=max(_rel_max(got["cuda"][k], got["cpu"][k])
+                                     for k in params))
+        if name == "fused_mixed_precision_lamb":
+            out[name]["updates_less_ulp"] = max(
+                _rel_max_less_ulp(got["cuda"][k], got["cpu"][k], params[k])
+                for k in params)
+    for dev in ("cuda", "cpu"):
+        gd = {k: v.to(dev) for k, v in grads.items()}
+        total = popt.clip_grad_norm_(gd, 1.0)
+        out.setdefault("clip_grad_norm_", {})[dev] = (float(total), gd)
+    (t_card, g_card), (t_cpu, g_cpu) = (out["clip_grad_norm_"][d]
+                                        for d in ("cuda", "cpu"))
+    out["clip_grad_norm_"] = dict(
+        norm=abs(t_card - t_cpu) / t_cpu,
+        updates=max(_rel_max(g_card[k], g_cpu[k]) for k in grads))
+    log(f"  25f optimizers, one step on ResNet-50's {len(params)} tensors "
+        f"({sum(p.numel() for p in params.values())} parameters), card f32 "
+        f"vs CPU f32 (relative; limits {P25_OPT_TOL}): {out}")
+    for name, r in out.items():
+        held = ({"updates_less_ulp": r["updates_less_ulp"]}
+                if "updates_less_ulp" in r else r)
+        if max(held.values()) > P25_OPT_TOL[name]:
+            failures.append(f"25f {name}: {r} > {P25_OPT_TOL[name]}")
+    return out, failures
+
+
+def phase25():
+    """ROADMAP item 11's first part on the card: 25a-25f (see their
+    docstrings).  Every part logs its readings before any failure fails
+    the phase.  Returns (the launches of each path, results)."""
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 25: ResNet-50 and the ImageNet amp example (O1, O2), its "
+        "card-vs-CPU step, dp = 2 + SyncBatchNorm, the fused multihead "
+        "attention, fmha and the norm modules, the remaining optimizers")
+    seconds = {}
+    t = time.perf_counter()
+    launches, out, failures = _phase25a()
+    seconds["25a"] = time.perf_counter() - t
+    for name, part in (("25b", _phase25b), ("25c", _phase25c),
+                       ("25d", _phase25d), ("25e", _phase25e),
+                       ("25f", _phase25f)):
+        t = time.perf_counter()
+        res = part()
+        if name in ("25d", "25e"):
+            launches.update(res[0])
+        out[name], f = res[-2:]
+        failures += f
+        seconds[name] = time.perf_counter() - t
+    out["part_seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    log(f"  phase 25 by part: {out['part_seconds']} s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 25 took {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("phase 25: " + "; ".join(failures))
+    return launches, out
+
+
 def main():
     import argparse
 
@@ -10208,6 +10923,11 @@ def main():
                         help="run phase 24 alone (a profiler window over "
                         "GPT training, train_resilient under chaos, the "
                         "fleet and canary drills at GptConfig())")
+    parser.add_argument("--modules", action="store_true",
+                        help="run phase 25 alone (ResNet-50 and the "
+                        "ImageNet amp example, dp = 2 + SyncBatchNorm, the "
+                        "multihead attention, fmha, the norm modules, the "
+                        "remaining optimizers)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -10352,6 +11072,11 @@ def main():
         print(json.dumps({"observe": dict(run, launches=launches)},
                          default=str), flush=True)
         return
+    if args.modules:
+        launches, run = phase25()
+        print(json.dumps({"modules": dict(run, launches=launches)},
+                         default=str), flush=True)
+        return
     if args.evoformer:
         launches, run = phase10(check_launches=False)
         print(json.dumps({"evoformer": dict(run, launches=launches)}),
@@ -10396,6 +11121,7 @@ def main():
     amp_launches, amp_run = timed("22", phase22, training)
     analysis_run = timed("23", phase23, gen, streams)
     observe_launches, observe = timed("24", phase24)
+    modules_launches, modules = timed("25", phase25)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -10418,7 +11144,8 @@ def main():
             ("analysis_serving", analysis_run["23a"]["launches"]),
             ("trace_window", observe_launches["trace_window"]),
             ("fleet", observe_launches["fleet"]),
-            ("canary", observe_launches["canary"]))
+            ("canary", observe_launches["canary"]),
+            *modules_launches.items())
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -10447,6 +11174,7 @@ def main():
                     "context": context, "experts": experts,
                     "pipeline": pipeline, "amp": amp_run,
                     "analysis": analysis_run, "observe": observe,
+                    "modules": modules,
                     "decode_profile": profile}, default=str))
     log(f"seconds by phase: {PHASE_SECONDS}")
     log(f"whole run {time.perf_counter() - t0:.1f} s (the build included)")

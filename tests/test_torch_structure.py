@@ -164,6 +164,17 @@ COUNTERPARTS = (
     "observability/canary.py", "fleetctl/__init__.py",
     "fleetctl/replica.py", "fleetctl/router.py", "fleetctl/autoscale.py",
     "fleetctl/fleet.py",
+    # item 11's first part: the norm modules, the contrib modules over
+    # K1-K4, ResNet, the remaining optimizers and multi_tensor_apply
+    "normalization/__init__.py", "normalization/instance_norm.py",
+    "contrib/layer_norm/__init__.py", "contrib/xentropy/__init__.py",
+    "contrib/fmha/__init__.py", "contrib/multihead_attn/__init__.py",
+    "contrib/multihead_attn/modules.py", "contrib/clip_grad/__init__.py",
+    "models/resnet.py", "optimizers/__init__.py", "optimizers/fused_sgd.py",
+    "optimizers/larc.py", "optimizers/clip_grad.py",
+    "optimizers/fused_adagrad.py", "optimizers/fused_novograd.py",
+    "optimizers/fused_mixed_precision_lamb.py", "optimizers/multi_tensor.py",
+    "multi_tensor_apply/__init__.py",
 )
 
 #: modules of item 9 and item 8's first part whose counterparts live at
@@ -220,9 +231,16 @@ ITEM10_FILES = (
     "analysis/concurrency.py", "analysis/purity.py", "analysis/retrace.py",
     "examples/dcgan/main_amp.py",
 )
+#: and item 11's
+ITEM11_FILES = (
+    "normalization/__init__.py", "contrib/multihead_attn/modules.py",
+    "contrib/fmha/__init__.py", "models/resnet.py",
+    "optimizers/fused_mixed_precision_lamb.py",
+    "multi_tensor_apply/__init__.py", "examples/imagenet/main_amp.py",
+)
 
 
-@pytest.mark.parametrize("module", ITEM10_FILES)
+@pytest.mark.parametrize("module", ITEM10_FILES + ITEM11_FILES)
 def test_new_modules_are_in_the_isolation_walk(module):
     path = ROOT / "apex_tpu_torch" / module
     assert path in _port_files(), module
@@ -494,7 +512,9 @@ def no_gpu(monkeypatch):
                                    "trainer_config", "guarded",
                                    "loss_scaler", "params_from_numpy",
                                    "fleet_drill", "canary_drill",
-                                   "train_resilient"])
+                                   "train_resilient", "resnet",
+                                   "imagenet_example", "multihead_attn",
+                                   "fused_layer_norm", "instance_norm"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -585,6 +605,28 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             from apex_tpu_torch.examples import train_resilient
 
             train_resilient.main(["--steps", "1", "--dir", "unused"])
+        elif entry == "resnet":
+            from apex_tpu_torch.models import resnet50
+
+            resnet50(stage_sizes=(1, 1, 1, 1), width=8)
+        elif entry == "imagenet_example":
+            from apex_tpu_torch.examples.imagenet import main_amp
+
+            main_amp.main(["--steps", "1"])
+        elif entry == "multihead_attn":
+            from apex_tpu_torch.contrib.multihead_attn import (
+                SelfMultiheadAttn,
+            )
+
+            SelfMultiheadAttn(16, 2)
+        elif entry == "fused_layer_norm":
+            from apex_tpu_torch.normalization import FusedLayerNorm
+
+            FusedLayerNorm(16)
+        elif entry == "instance_norm":
+            from apex_tpu_torch.normalization import InstanceNorm3d
+
+            InstanceNorm3d(4)
         elif entry == "gpt_tp_example":
             train_gpt.main(["--tiny", "--steps", "1", "--tp", "2",
                             "--sequence-parallel"])

@@ -269,12 +269,9 @@ def test_plan_wire_bytes_equals_the_reference():
 
 
 def test_optimizer_registry():
-    assert popt.by_name("adam") is popt.fused_adam
-    assert popt.by_name("lamb") is popt.fused_lamb
-    assert set(popt.FACTORIES) <= set(jopt.FACTORIES)
-    for name in ("sgd", "adagrad", "novograd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            popt.by_name(name)
+    assert set(popt.FACTORIES) == set(jopt.FACTORIES)
+    for name in jopt.FACTORIES:
+        assert popt.by_name(name) is getattr(popt, f"fused_{name}")
     with pytest.raises(ValueError) as port:
         popt.by_name("adma")
     with pytest.raises(ValueError) as ref:

@@ -1237,3 +1237,33 @@ def fleet_case(names, rows, values, every, local_world_size):
     finally:
         os.environ.pop("LOCAL_WORLD_SIZE", None)
         ps.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# the ImageNet amp example
+# ---------------------------------------------------------------------------
+
+
+def imagenet_case(argv, variables_path, model_kwargs):
+    """``examples.imagenet.main_amp.main(argv)`` on this rank, the model
+    a ``ResNetConfig(**model_kwargs)`` holding the JAX model's variables
+    (a pickle of numpy arrays): the losses and the model's running
+    statistics at the end, in the JAX layout."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.examples.imagenet import main_amp
+    from apex_tpu_torch.models import resnet
+
+    try:
+        args = main_amp.parse_args(list(argv))
+        cfg = resnet.resnet50_config(**model_kwargs,
+                                     num_classes=args.num_classes,
+                                     use_syncbn=args.sync_bn,
+                                     dtype=torch.float32)
+        model = resnet.from_jax_variables(_load(variables_path), cfg,
+                                          device="cpu")
+        out = main_amp.main(list(argv), model=model)
+        return {"losses": out["losses"],
+                "batch_stats": resnet.to_jax_variables(
+                    out["model"])["batch_stats"]}
+    finally:
+        ps.destroy_model_parallel()

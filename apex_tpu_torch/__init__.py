@@ -57,6 +57,12 @@ Subpackages
   ``Trainer.build``/``verify``/``fit``, ``build_guarded``).
 - :mod:`apex_tpu_torch.amp` — the opt-level policies and the loss
   scalers.
+- :mod:`apex_tpu_torch.mlp`, :mod:`apex_tpu_torch.fused_dense`,
+  :mod:`apex_tpu_torch.RNN` and :mod:`apex_tpu_torch.reparameterization`
+  — the fused MLP and dense layers (cuBLAS products), the recurrent
+  networks, weight norm; :mod:`apex_tpu_torch.utils` — the tracing
+  hooks under their old names; ``apex_tpu_torch._native`` — the host
+  C++ ops (flatten, row gather, MLM corruption) the data loader calls.
 - :mod:`apex_tpu_torch.analysis` — the rule tables and findings the
   trainer's verification reads.
 - :mod:`apex_tpu_torch.examples` — ``train_gpt``, ``pretrain_bert``,
@@ -76,7 +82,9 @@ _LAZY_SUBMODULES = ("ops", "models", "transformer", "optimizers", "data",
                     "parallel", "parallel_state", "serve", "examples",
                     "contrib", "checkpoint", "goodput", "resilience",
                     "observability", "train", "amp", "analysis",
-                    "normalization", "multi_tensor_apply")
+                    "normalization", "multi_tensor_apply", "fp16_utils",
+                    "mlp", "fused_dense", "RNN", "reparameterization",
+                    "utils")
 
 
 def __getattr__(name):

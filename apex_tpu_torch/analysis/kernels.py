@@ -53,6 +53,8 @@ __all__ = [
     "dead_tile_stats",
     "default_kernel_specs",
     "occupancy",
+    "predict_config",
+    "publish_kernel_report",
     "roofline",
     "specs_from_launch",
 ]
@@ -375,6 +377,53 @@ def analyze(specs, *, device_kind: Optional[str] = None,
     report.pass_timings.update(timings)
     report.sections["kernels"] = section
     return report
+
+
+def predict_config(specs: Sequence[KernelSpec], *,
+                   device_kind: Optional[str] = None,
+                   smem_budget: Optional[int] = None) -> Dict[str, object]:
+    """One candidate launch plan's verdict for a tuner, as the
+    reference's: ``feasible`` (no ERROR finding from the passes),
+    ``time_s`` and ``flops`` summed over the call's launches (a call runs
+    them back to back; the time is each launch's ``bound_ms``),
+    ``tflops`` and the report itself."""
+    report = analyze(specs, device_kind=device_kind, smem_budget=smem_budget)
+    time_s = flops = 0.0
+    for entry in report.sections["kernels"]:
+        time_s += entry["roofline"]["bound_ms"] / 1e3
+        flops += entry["roofline"]["ops"]
+    return {
+        "feasible": not report.errors(),
+        "time_s": time_s,
+        "flops": flops,
+        "tflops": (flops / time_s / 1e12) if time_s else 0.0,
+        "report": report,
+    }
+
+
+def publish_kernel_report(report: Report) -> None:
+    """Gauge a kernel report onto the observability board
+    (``analysis/kernels/...``) beside the graph lint's counts: the
+    errors, warnings and rule counters of
+    :func:`apex_tpu_torch.analysis.publish_report`, and per launch its
+    shared memory (``smem_bytes``, the reference's ``vmem_bytes``), the
+    TFLOP/s its bound allows (``predicted_tflops``) and, for a causal
+    walk, the dead-tile waste."""
+    from apex_tpu_torch.analysis import publish_report
+    from apex_tpu_torch.observability.metrics import board
+
+    publish_report(report, prefix="analysis/kernels")
+    for entry in report.sections.get("kernels", []):
+        key = entry["name"]
+        roof = entry["roofline"]
+        board.set(f"analysis/kernels/{key}/smem_bytes", entry["smem_bytes"])
+        tflops = (roof["ops"] / (roof["bound_ms"] / 1e3) / 1e12
+                  if roof["bound_ms"] else 0.0)
+        board.set(f"analysis/kernels/{key}/predicted_tflops",
+                  round(tflops, 3))
+        if "dead_tiles" in entry:
+            board.set(f"analysis/kernels/{key}/dead_tile_waste",
+                      round(entry["dead_tiles"]["waste_fraction"], 4))
 
 
 def default_kernel_specs() -> List[Tuple[str, List[KernelSpec]]]:

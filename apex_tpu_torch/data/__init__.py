@@ -5,10 +5,10 @@ Counterpart of ``apex_tpu/data`` (``write_token_file``,
 ``synthetic_token_corpus``, ``TokenFileDataset``, ``DataLoader``,
 ``pack_mlm_predictions``, ``bert_mlm_batches``, ``DevicePrefetcher``),
 kept as the port's own copy: the same file format, the same shuffle order and the same batches
-for the same seed.  Batches are assembled with a numpy gather where the
-JAX package calls its native row gather, and the MLM corruption is the
-numpy replay of its native ``mlm_mask_batch`` (the same splitmix64
-stream); the results are the same arrays.
+for the same seed.  Batches are gathered and the MLM corruption applied
+by the port's native host ops (:mod:`apex_tpu_torch._native`, where the
+JAX package calls its own); ``gather_rows`` and ``mlm_mask_batch`` are
+re-exported from there.
 
 Layout contract: a *token file* is a flat binary array of token ids
 (any integer dtype); samples are consecutive ``seq_len`` windows (the
@@ -26,6 +26,9 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from apex_tpu_torch import _native
+from apex_tpu_torch._native import gather_rows, mlm_mask_batch  # noqa: F401
 
 __all__ = [
     "DataLoader",
@@ -92,22 +95,6 @@ def synthetic_token_corpus(
     os.replace(tmp, path)
     os.replace(meta_tmp, meta_path)
     return path
-
-
-def gather_rows(base: np.ndarray, row_starts: np.ndarray,
-                row_elems: int) -> np.ndarray:
-    """``out[i] = base[row_starts[i] : row_starts[i] + row_elems]`` as one
-    contiguous ``(len(row_starts), row_elems)`` array in ``base.dtype``
-    (the numpy form of the JAX package's native row gather)."""
-    starts = np.asarray(row_starts, dtype=np.int64)
-    if starts.size and (
-        starts.min() < 0 or starts.max() + row_elems > base.size
-    ):
-        raise IndexError(
-            f"row [{starts.min()}, {starts.max()} + {row_elems}) out of "
-            f"bounds for base of {base.size} elements"
-        )
-    return np.asarray(base[starts[:, None] + np.arange(row_elems)])
 
 
 class TokenFileDataset:
@@ -201,9 +188,9 @@ class DataLoader:
         mine = order[self.rank :: self.world]
         for b in range(start, self.batches_per_epoch):
             idx = mine[b * self.batch_size : (b + 1) * self.batch_size]
-            yield gather_rows(self.dataset.tokens,
-                              self.dataset.sample_starts(idx),
-                              self.dataset.seq_len)
+            yield _native.gather_rows(self.dataset.tokens,
+                                      self.dataset.sample_starts(idx),
+                                      self.dataset.seq_len)
 
     def iter_from(self, start_batch: int = 0) -> Iterator[np.ndarray]:
         """Endless epoch stream seeked to global batch ``start_batch``."""
@@ -220,45 +207,6 @@ class DataLoader:
 # ---------------------------------------------------------------------------
 # BERT masked-LM batches
 # ---------------------------------------------------------------------------
-
-
-def _splitmix64(x: np.ndarray) -> np.ndarray:
-    x = (x + np.uint64(0x9E3779B97F4A7C15)).astype(np.uint64)
-    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-    return x ^ (x >> np.uint64(31))
-
-
-def _u01(bits: np.ndarray) -> np.ndarray:
-    return (bits >> np.uint64(11)).astype(np.float64) / 9007199254740992.0
-
-
-def mlm_mask_batch(ids: np.ndarray, seed: int, *, mask_prob: float = 0.15,
-                   mask_id: int = 103, vocab_size: int = 30522,
-                   special_floor: int = 1000):
-    """BERT's 80/10/10 masked-LM corruption of int32 ``ids`` (any shape):
-    ``(masked_ids, labels)`` with ``labels = -1`` where a position was
-    not selected.  Deterministic in (seed, position) through a
-    counter-based splitmix64 stream — the JAX package's numpy replay of
-    its native ``mlm_mask_batch``, bit for bit.  Ids below
-    ``special_floor`` are never selected."""
-    ids = np.ascontiguousarray(ids, dtype=np.int32)
-    flat = ids.ravel()
-    idx = np.arange(flat.size, dtype=np.uint64)
-    r0 = _splitmix64(np.uint64(seed) ^ idx)
-    selected = (flat >= special_floor) & (_u01(r0) < mask_prob)
-    r1 = _splitmix64(r0)
-    action = _u01(r1)
-    r2 = _splitmix64(r1)
-    rand_tok = special_floor + (
-        _splitmix64(r2) % np.uint64(vocab_size - special_floor)
-    ).astype(np.int32)
-    out = flat.copy()
-    out[selected & (action < 0.8)] = mask_id
-    mid = selected & (action >= 0.8) & (action < 0.9)
-    out[mid] = rand_tok[mid]
-    labels = np.where(selected, flat, -1).astype(np.int32)
-    return out.reshape(ids.shape), labels.reshape(ids.shape)
 
 
 def pack_mlm_predictions(labels, max_predictions_per_seq: int = 20,
@@ -322,7 +270,7 @@ def bert_mlm_batches(loader: DataLoader, *, seed: int = 0,
         ids = tokens.astype(np.int32)
         # a full 64-bit (seed, step) mix: injective in step for one seed
         mix = (seed * 0x9E3779B97F4A7C15 + step) & 0xFFFFFFFFFFFFFFFF
-        masked, labels = mlm_mask_batch(
+        masked, labels = _native.mlm_mask_batch(
             ids, mix, mask_prob=mask_prob, mask_id=mask_id,
             vocab_size=vocab_size, special_floor=special_floor,
         )

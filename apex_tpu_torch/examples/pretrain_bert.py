@@ -103,6 +103,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="checkpoint every N steps")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in --ckpt-dir")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="depth (default: the configuration's)")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
     add_distributed_args(p)
@@ -110,12 +112,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def config(args) -> BertConfig:
+    depth = ({} if getattr(args, "num_layers", None) is None
+             else {"num_layers": args.num_layers})
     if args.tiny:
-        return BertConfig(vocab_size=2048, hidden_size=64, num_layers=2,
-                          num_heads=4, intermediate_size=128,
-                          max_position_embeddings=args.seq_len,
-                          dtype=torch.float32)
-    return BertConfig(remat=True)
+        return BertConfig(**{**dict(vocab_size=2048, hidden_size=64,
+                                    num_layers=2, num_heads=4,
+                                    intermediate_size=128,
+                                    max_position_embeddings=args.seq_len,
+                                    dtype=torch.float32), **depth})
+    return BertConfig(remat=True, **depth)
 
 
 def corpus(args, vocab: int) -> str:

@@ -2,7 +2,9 @@
 
 from apex_tpu_torch.models.bert import (  # noqa: F401
     BertConfig,
+    BertEncoderCore,
     BertForPreTraining,
+    BertLayer,
     BertModel,
     bert_large_config,
     bert_pretrain_loss,

@@ -101,7 +101,16 @@ from apex_tpu_torch.observability.health import (  # noqa: F401
 )
 from apex_tpu_torch.observability.locks import (  # noqa: F401
     TrackedLock,
+    lock_order_graph,
+    reset_sanitizer,
     sanitizer_report,
+)
+from apex_tpu_torch.observability.locks import arm as locksan_arm  # noqa: F401
+from apex_tpu_torch.observability.locks import (  # noqa: F401
+    armed as locksan_armed,
+)
+from apex_tpu_torch.observability.locks import (  # noqa: F401
+    attach_flight as locksan_attach_flight,
 )
 from apex_tpu_torch.observability.memstats import (  # noqa: F401
     DeviceMemoryProvider,

@@ -7,8 +7,11 @@
   the microbatch calculator (:mod:`.microbatches`);
 - :mod:`.context_parallel` — ring, zigzag and Ulysses attention;
 - :mod:`.moe` — Switch MoE over the dp ranks;
-- :mod:`.functional` — FusedScaleMaskSoftmax; :mod:`.amp` — the
-  model-parallel GradScaler; :mod:`.enums`.
+- :mod:`.functional` — FusedScaleMaskSoftmax and the fused RoPE;
+  :mod:`.amp` — the model-parallel GradScaler; :mod:`.enums`;
+- :mod:`.layers` — the persist-LN selector; :mod:`.log_util` — the
+  subsystem's logger; :mod:`.testing` — the standalone GPT and BERT
+  providers and the test helpers.
 
 The submodules load on first access, as the reference's do."""
 
@@ -20,6 +23,10 @@ from apex_tpu_torch.transformer.enums import (  # noqa: F401
     LayerType,
     ModelType,
 )
+from apex_tpu_torch.transformer.log_util import (  # noqa: F401
+    get_transformer_logger,
+    set_logging_level,
+)
 
 _LAZY = (
     "pipeline_parallel",
@@ -28,6 +35,8 @@ _LAZY = (
     "microbatches",
     "moe",
     "context_parallel",
+    "layers",
+    "testing",
 )
 
 

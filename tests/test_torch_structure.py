@@ -2,6 +2,9 @@
 
 - the port and ``chip_smoke.py`` import neither ``jax``, ``apex_tpu`` nor
   ``orbax`` (AST scan of every module);
+- every port module with a counterpart at the same path carries the
+  reference module's public names, less the stated JAX-only ones, and
+  the lazy submodule lists cover the reference's;
 - entry points (the GPT and BERT models, the engine with and without a
   draft, the converters of weights and optimizer states, the example
   trainers and the BERT example's resume, the OpenFold modules, the
@@ -237,6 +240,14 @@ ITEM11_FILES = (
     "contrib/fmha/__init__.py", "models/resnet.py",
     "optimizers/fused_mixed_precision_lamb.py",
     "multi_tensor_apply/__init__.py", "examples/imagenet/main_amp.py",
+    "mlp/__init__.py", "fused_dense/__init__.py", "RNN/__init__.py",
+    "reparameterization/__init__.py", "transformer/layers/__init__.py",
+    "transformer/log_util.py", "transformer/testing/__init__.py",
+    "transformer/testing/commons.py",
+    "transformer/testing/standalone_bert.py",
+    "transformer/testing/standalone_gpt.py", "utils/__init__.py",
+    "utils/profiling.py", "_native/__init__.py",
+    "tools/trace_summary.py", "tools/step_profile.py", "tools/timeline.py",
 )
 
 
@@ -259,13 +270,194 @@ def test_port_modules_keep_their_counterparts_names(module):
 
 #: the port's tools under the reference's tools/ names
 TOOLS = ("serve_chaos_drill.py", "graph_lint.py", "kernel_lint.py",
-         "fleet_drill.py", "canary_drill.py")
+         "fleet_drill.py", "canary_drill.py", "trace_summary.py",
+         "step_profile.py", "timeline.py")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
 def test_port_tools_keep_their_counterparts_names(tool):
     assert (ROOT / "tools" / tool).is_file(), tool
     assert (ROOT / "apex_tpu_torch" / "tools" / tool).is_file(), tool
+
+
+def test_native_host_ops_have_their_own_source():
+    """The port builds its own copy of the host C++ (its body the
+    reference's), not the JAX package's file."""
+    port = ROOT / "apex_tpu_torch" / "_native" / "host_ops.cpp"
+    ref = ROOT / "apex_tpu" / "_native" / "host_ops.cpp"
+
+    def body(p):
+        text = p.read_text()
+        return text[text.index("#include <cstdint>"):]
+
+    assert port.is_file() and body(port) == body(ref)
+    assert "apex_tpu/_native" not in (
+        ROOT / "apex_tpu_torch" / "_native" / "__init__.py").read_text()
+
+
+#: public names of a reference module that the port does not carry at
+#: the same path, each with the reason (ROADMAP C13)
+JAX_ONLY_NAMES = {
+    "ops": {
+        "use_pallas": "the Pallas-or-jnp switch: the port's rule is the "
+                      "tensor's device (ops._dispatch.on_card)",
+        "set_use_pallas": "forces that switch",
+    },
+    "ops._dispatch": {
+        "use_pallas": "as ops.use_pallas",
+        "set_use_pallas": "as ops.set_use_pallas",
+        "pallas_interpret": "Pallas's interpret mode off a TPU; a CUDA "
+                            "kernel has none (the CPU runs the twin)",
+        "forced": "reads the Pallas switch's forced state",
+    },
+    "parallel_state": {
+        "named_sharding": "a jax NamedSharding over the mesh; a rank "
+                          "holds its own shard (get_group, axis_rank)",
+        "data_parallel_sharding": "a jax sharding of the batch; "
+                                  "data_parallel_shard slices it here",
+        "replicated_sharding": "every process holds its own replica",
+    },
+    "analysis": {
+        "lint_jaxpr": "lints a jaxpr; the port lints a recorded step "
+                      "(analysis.passes.run_passes)",
+        "lint_hlo": "lints compiled HLO text, which the port has none of",
+        "iter_eqns": "walks jaxpr equations; passes.iter_ops walks a "
+                     "StepRecord",
+    },
+    "analysis.passes": {"iter_eqns": "as analysis.iter_eqns"},
+    "analysis.hlo": {
+        "COLLECTIVE_KINDS": "HLO collective opcodes of compiled text",
+        "async_start_result": "reads an HLO async-start's result shape",
+        "ring_wire_bytes": "wire bytes of a compiled HLO collective "
+                           "(parallel.comm.ring_wire_bytes is the port's)",
+        "overlap_collect": "the async collectives' overlap in HLO text",
+        "num_partitions": "the SPMD partition count of a compiled module",
+        "parameter_shardings": "GSPMD shardings of compiled parameters",
+        "parse_sharding": "parses an HLO sharding annotation",
+        "collective_instructions": "HLO collectives of compiled text",
+        "replica_group_size": "an HLO collective's replica groups",
+    },
+    "analysis.sharding": {
+        "DEFAULT_MIN_BYTES": "a threshold of the GSPMD sharding pass",
+        "DEFAULT_UNPLANNED_TOLERANCE": "a threshold of the reshard pass",
+        "normalize_param_path": "maps GSPMD op_name metadata to a path",
+        "mesh_axis_groups": "device-id replica groups of a jax Mesh",
+        "infer_collective_axis": "a compiled collective's mesh axis from "
+                                 "its replica groups",
+        "plan_table": "compiled parameter shardings against the rules",
+        "sharding_pass": "checks compiled GSPMD shardings; the trainer "
+                         "checks its shards against the rule tables",
+        "reshard_pass": "finds compiler-inserted reshards; the port holds "
+                        "the collective call log to the plan",
+    },
+    "observability.meter": {
+        "VMEM_BYTES": "the TPU's VMEM sizes (SMEM_BYTES is the port's)",
+        "vmem_bytes_for": "a TPU's VMEM size (smem_bytes_for here)",
+    },
+    "analysis.kernels": {
+        "vmem_footprint": "a Pallas call's VMEM blocks; a launch plan's "
+                          "shared memory is KernelSpec.smem_bytes",
+    },
+}
+
+
+def _reference_public_names(path):
+    """A reference module's ``__all__``, or (without one) its public
+    top-level definitions and the names it imports from its own
+    package."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets)):
+            return list(ast.literal_eval(node.value))
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.append(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and (
+                node.level or (node.module or "").startswith("apex_tpu")):
+            names += [a.asname or a.name for a in node.names]
+    return [n for n in names if not n.startswith("_")]
+
+
+def _walked_modules():
+    out = []
+    for path in sorted((ROOT / "apex_tpu_torch").rglob("*.py")):
+        rel = path.relative_to(ROOT / "apex_tpu_torch")
+        if (ROOT / "apex_tpu" / rel).is_file():
+            parts = rel.with_suffix("").parts
+            out.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                                else parts))
+    return out
+
+
+WALKED = _walked_modules()
+
+
+def test_the_walk_sees_every_counterpart():
+    assert len(WALKED) > 100
+    assert set(JAX_ONLY_NAMES) <= set(WALKED)
+    for mod in ("mlp", "fused_dense", "RNN", "reparameterization", "utils",
+                "utils.profiling", "_native", "transformer.layers",
+                "transformer.log_util", "transformer.testing.commons"):
+        assert mod in WALKED, mod
+
+
+@pytest.mark.parametrize("module", WALKED)
+def test_port_modules_carry_the_references_public_names(module):
+    """Every public name of the reference module at the same path is in
+    the port's module, less the stated JAX-only names."""
+    import importlib
+
+    rel = module.replace(".", "/")
+    ref = ROOT / "apex_tpu" / f"{rel}.py"
+    if not ref.is_file():
+        ref = ROOT / "apex_tpu" / rel / "__init__.py"
+    port = importlib.import_module(
+        "apex_tpu_torch" if module == "" else f"apex_tpu_torch.{module}")
+    gaps = JAX_ONLY_NAMES.get(module, {})
+    missing = [n for n in _reference_public_names(ref)
+               if n not in gaps and not hasattr(port, n)]
+    assert missing == [], module
+    # the stated gaps are gaps: each is the reference's and not the port's
+    for name in gaps:
+        assert name in _reference_public_names(ref), (module, name)
+        assert not hasattr(port, name), (module, name)
+
+
+def _lazy_list(path, name):
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name
+                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"{path} has no {name}")
+
+
+@pytest.mark.parametrize("pkg,name", [("", "_LAZY_SUBMODULES"),
+                                      ("transformer", "_LAZY")])
+def test_lazy_submodules_cover_the_references(pkg, name):
+    import importlib
+
+    ref = _lazy_list(ROOT / "apex_tpu" / pkg / "__init__.py", name)
+    port = _lazy_list(ROOT / "apex_tpu_torch" / pkg / "__init__.py", name)
+    # the reference's lazy names less its JAX-only plumbing, and every
+    # package this port has added since
+    assert ref <= port
+    if not pkg:
+        assert {"fp16_utils", "mlp", "fused_dense", "RNN",
+                "reparameterization", "utils"} <= port
+    mod = importlib.import_module(
+        "apex_tpu_torch" + (f".{pkg}" if pkg else ""))
+    for sub in port:
+        assert getattr(mod, sub) is not None, sub
 
 
 #: the data- and tensor-parallel modules (ROADMAP item 5), the DAP, the
@@ -514,7 +706,11 @@ def no_gpu(monkeypatch):
                                    "fleet_drill", "canary_drill",
                                    "train_resilient", "resnet",
                                    "imagenet_example", "multihead_attn",
-                                   "fused_layer_norm", "instance_norm"])
+                                   "fused_layer_norm", "instance_norm",
+                                   "mlp", "fused_dense",
+                                   "fused_dense_gelu_dense", "lstm",
+                                   "mlstm", "gpt_provider", "bert_provider",
+                                   "identity_layer", "step_profile"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -627,6 +823,44 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             from apex_tpu_torch.normalization import InstanceNorm3d
 
             InstanceNorm3d(4)
+        elif entry == "mlp":
+            from apex_tpu_torch.mlp import MLP
+
+            MLP([4, 8, 2])
+        elif entry == "fused_dense":
+            from apex_tpu_torch.fused_dense import FusedDense
+
+            FusedDense(4, 8)
+        elif entry == "fused_dense_gelu_dense":
+            from apex_tpu_torch.fused_dense import FusedDenseGeluDense
+
+            FusedDenseGeluDense(4, 8, 4)
+        elif entry == "lstm":
+            from apex_tpu_torch.RNN import LSTM
+
+            LSTM(4, 8)
+        elif entry == "mlstm":
+            from apex_tpu_torch.RNN import mLSTM
+
+            mLSTM(4, 8)
+        elif entry == "gpt_provider":
+            from apex_tpu_torch.transformer.testing import gpt_model_provider
+
+            gpt_model_provider()
+        elif entry == "bert_provider":
+            from apex_tpu_torch.transformer.testing import (
+                bert_model_provider,
+            )
+
+            bert_model_provider()
+        elif entry == "identity_layer":
+            from apex_tpu_torch.transformer.testing import IdentityLayer
+
+            IdentityLayer((2, 2))
+        elif entry == "step_profile":
+            from apex_tpu_torch.tools import step_profile
+
+            step_profile.main(["--target", "resilient"])
         elif entry == "gpt_tp_example":
             train_gpt.main(["--tiny", "--steps", "1", "--tp", "2",
                             "--sequence-parallel"])

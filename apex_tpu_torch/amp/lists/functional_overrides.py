@@ -4,10 +4,8 @@ Counterpart of ``apex_tpu/amp/lists/functional_overrides.py`` (≙
 ``apex/amp/lists/functional_overrides.py`` :: ``FP16_FUNCS`` /
 ``FP32_FUNCS`` / ``CASTS``), with the same names.  The names are the
 op entry points of this package; each calls ``amp_cast(<name>, ...)``
-on its tensor inputs.  Ops whose module is not ported yet (``mlp``,
-``fused_dense``, ``conv_bias_relu``, ``rnn_gemm``, ``focal_loss``,
-``group_norm``, ``index_mul_2d``) are registered all the same, so the
-modules that port them later find their category here.
+on its tensor inputs (``focal_loss`` computes in f32 with no hook, as
+the reference's does).
 
 - **half** (FP16_FUNCS): GEMM/conv-class compute, where half precision
   runs on the tensor cores;

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-twenty-six phases; any failure raises and the exit code is non-zero.  Without
+twenty-seven phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -147,7 +147,7 @@ a CUDA device it exits non-zero at once and prints no result.
     round, host and device ms and launches per round and decode tokens/s
     beside phase 2's.
 
-14. Checkpoints, preemption and resume: BERT-Large's width at 12 of its
+14. Checkpoints, preemption and resume: BERT-Large's width at 6 of its
     24 layers (``RES_LAYERS``), otherwise phase 8's configuration.  Two
     uninterrupted 8-step runs of the example agree
     bit for bit; ``--steps 4 --ckpt-dir D --save-every 2`` leaves steps
@@ -377,6 +377,34 @@ a CUDA device it exits non-zero at once and prints no result.
     24's span and flight dumps (exit 0, and 1 with a terminal event
     deleted).  26f: the standalone GPT and BERT providers (f32) against
     the CPU with exact f32 K1-K4 launches.
+27. The last of ROADMAP item 11, the remaining contrib packages
+    (``phase27``).  27a: ``Bottleneck`` at ResNet-50's layer 3 stride-1
+    block and layer 2's first block (batch 128), ``ConvBias``/
+    ``ConvBiasReLU``/``ConvBiasMaskReLU`` at a 3x3 256-channel conv (56 x
+    56, batch 32; no layout copy around cuDNN's channels-last
+    convolution), ``GroupNorm(32, C, act="silu")`` at Stable Diffusion
+    v1.5's UNet shapes and ``BatchNorm2d_NHWC(fuse_relu=True)`` with
+    ``z`` at (128, 14, 14, 1024): f32 on the card against f32 on the CPU
+    beside a planted fault each (the residual dropped, one group, the
+    ReLU dropped), bf16 forward + backward ms beside ``BottleneckBlock``,
+    ``F.conv2d``, ``torch.nn.GroupNorm`` + SiLU and ``torch.nn.
+    BatchNorm2d``.  27b: ``focal_loss`` at RetinaNet's OpenImages head
+    (8 x 120087 anchors x 264 classes, bf16), ``index_mul_2d`` (65536 x
+    128, 2^20 rows gathered) and the RNN-T joint + projection + loss (B
+    8, T 256, U 96, H 512, V 1024), forward + backward, one sample each
+    against the CPU (the transducer's in f64) beside a planted fault each
+    (alpha not flipped, an index_copy scatter, the terminal at y_len -
+    1); the transducer's ms and peak memory.  27c: two workers over
+    gloo: the halo exchanges exact (beside zero halos),
+    ``SpatialBottleneck`` at layer 1 (56 x 56 split 28 / 28) against the
+    unsplit block, ``BatchNorm2d_NHWC(bn_group=2)`` against one process
+    (beside local statistics), the N/A stubs.  27d: ASP on
+    ``GptConfig(remat=True)`` at 8 x 2048: 2 dense FusedAdam steps, the
+    masks, 8 masked steps (exactly 2:4 along each pruned weight's input
+    axis, losses falling, K1-K4 launches a step the dense step's) beside
+    the masks not re-applied after a step; ``resnet50()``'s masks on the
+    card and the CPU bit for bit, the permutation search on one
+    ``fc2.weight`` on both.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -385,7 +413,8 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 24, 25, 26, 4, 5, 23c.  The bounds
+11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 24, 25, 26, 27, 4, 5,
+23c.  The bounds
 of the main paths' rows come from the op modules' launch plans
 (:func:`apex_tpu_torch.analysis.kernels.roofline`), the others' from
 :func:`apex_tpu_torch.analysis.kernels.bound`.
@@ -467,6 +496,11 @@ runs phase 25 alone and prints it as one JSON line.
 
 runs phase 26 alone (24b and 24c first, for 26e's dumps) and prints it
 as one JSON line.
+
+    python3 chip_smoke.py --contrib [--seed N]
+
+runs phase 27 alone and prints it as one JSON line (``--seed`` offsets
+its inputs' and weights' seeds, for the margins of its limits).
 
     python3 chip_smoke.py --evoformer
 
@@ -4937,12 +4971,13 @@ def phase9():
 # ---------------------------------------------------------------------------
 
 
-#: phase 14's runs: phase 8's configuration at 12 of BERT-Large's 24
-#: layers (the depth cut that made room for phase 26: a checkpoint of
-#: ~2.0 GB instead of ~4.0 GB, the same schedule), 8 steps, a checkpoint
-#: every 2; the drill's chaos spec (a save that fails once at step 2,
-#: partial debris then a failure at 4, SIGTERM while step 5 runs)
-RES_LAYERS = 12
+#: phase 14's runs: phase 8's configuration at 6 of BERT-Large's 24
+#: layers (the depth cuts that made room for phases 26 and 27, 24 -> 12
+#: -> 6: a checkpoint of ~1.5 GB instead of ~4.0 GB, the same schedule),
+#: 8 steps, a checkpoint every 2; the drill's chaos spec (a save that
+#: fails once at step 2, partial debris then a failure at 4, SIGTERM
+#: while step 5 runs)
+RES_LAYERS = 6
 RES_STEPS = 8
 RES_SAVE_EVERY = 2
 RES_SPEC = ("checkpoint_save:raise:x1@2;checkpoint_save:partial:x1@4;"
@@ -4951,8 +4986,8 @@ RES_SEED = 1234
 #: (c)'s steps in each mode (10 before phase 25 joined the script: the
 #: depth cut that keeps the whole script near its earlier time)
 RES_TIMING_STEPS = 4
-#: one checkpoint at 12 layers is ~2.0 GB (f32 params and LAMB's f32 m
-#: and v; ~4.0 GB at BERT-Large's 24); each part of phase 14 keeps at
+#: one checkpoint at 12 layers is ~2.2 GB (f32 params and LAMB's f32 m
+#: and v; ~4.0 GB at BERT-Large's 24, less at 6); each part of phase 14 keeps at
 #: most two steps plus one staging directory (~6 GB; (b)'s partial
 #: debris is smaller than a step) and removes its directory before the
 #: next part starts: phase 14 refuses to start below this
@@ -11869,12 +11904,967 @@ def phase26():
 
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the rest of ROADMAP item 11 (the remaining contrib packages)
+# ---------------------------------------------------------------------------
+
+
+#: 27a: ResNet-50's bottleneck shapes at phase 25's batch (in, bottleneck,
+#: out, stride, input size): layer 3's stride-1 block and layer 2's first
+#: block (stride 2, with its downsample); timed at P27_BATCH, held to the
+#: CPU at P27_CHECK_BATCH (the CPU's f32 convolutions set the phase's
+#: time)
+P27_BATCH = 128
+P27_CHECK_BATCH = 32
+P27_BLOCKS = {"layer3": (1024, 256, 1024, 1, 14),
+              "layer2_first": (256, 128, 512, 2, 56)}
+#: 27a: the 3x3, 256-channel convolution at 56 x 56, batch 32 (the card
+#: against the CPU on its first P27_CONV_CHECKED images)
+P27_CONV = dict(batch=32, size=56, channels=256)
+P27_CONV_CHECKED = 4
+#: Stable Diffusion v1.5's UNet norms (diffusers UNet2DConditionModel:
+#: norm_num_groups 32, block_out_channels 320/640/1280, sample_size 64)
+#: at batch 8, NHWC
+P27_GN_SHAPES = ((8, 64, 64, 320), (8, 32, 32, 640), (8, 16, 16, 1280))
+P27_BN_SHAPE = (128, 14, 14, 1024)
+#: 27a-27c: f32 on the card (TF32 off) against the same port function in
+#: f32 on the CPU: max |card - cpu| / max |cpu|, the worst over the
+#: outputs, the input gradients, the parameter gradients and the running
+#: statistics.  Each planted fault must read more than 10x its limit.
+#: On an H100 (700 W) the sound readings of ConvBias, GroupNorm, focal,
+#: index_mul_2d and the halo cases were 1.1e-7 to 2.0e-5
+P27_F32_TOL = 1e-4
+#: ... but where a ReLU gates a gradient, an element whose pre-activation
+#: lies within the convolution's f32 error (~1e-5 on the card's cuDNN
+#: algorithms) of zero takes the other side of the gate on one of the two,
+#: and its whole cotangent (up to ~1 against a tensor max of ~5) moves:
+#: on an H100 (700 W) the max reading of such checks jumped from 1.5e-5 to
+#: 0.17 with the seed (a handful of flipped gates), with the planted
+#: faults at 0.86-1.3.  Those checks read the relative Frobenius error
+#: ||card - cpu|| / ||cpu|| (the worst tensor) under this limit: 5.1e-6 to
+#: 1.7e-3 sound, 0.79 to 1.64 for their planted faults
+P27_GATED_TOL = 1e-2
+#: 27a: the bf16 runs on the card against the CPU's f32, relative
+#: Frobenius error over the output and the input gradient: bf16 rounding
+#: of every activation through three convolutions and three batch-norm
+#: backwards flips more ReLU gates than f32 does: an H100 (700 W) read
+#: 5.1e-3-5.4e-3 on the output and 7.6e-2-7.8e-2 on dx (the planted faults
+#: are read by the f32 twin, whose floor is far lower)
+P27_BF16_TOL = 0.1
+#: 27b: MLPerf Training RetinaNet's head on OpenImages: 264 classes,
+#: 120087 anchors of an 800 x 800 image (9 anchors on P3-P7), batch 8,
+#: bf16 logits, ~100 positive anchors an image, 1% ignored
+P27_FOCAL = dict(batch=8, anchors=120087, classes=264, positives=100,
+                 ignored=0.01)
+#: 27b: in1 (65536, 128), 1048576 gathered rows (each row ~16 times)
+P27_INDEX = dict(rows=65536, width=128, gathered=1 << 20)
+#: 27b: of the order of MLPerf Training's RNN-T on LibriSpeech: B 8, T 256,
+#: U 96 labels, joint width 512, vocabulary 1024 with the blank
+P27_RNNT = dict(batch=8, frames=256, labels=96, hidden=512, vocab=1024)
+#: 27b's card-against-CPU limits: focal (f32 math) and index_mul_2d
+#: (f32; the card's scatter-add sums in an order that varies from run to
+#: run) against the CPU in f32, the transducer's one sample against the
+#: CPU in f64: max |card - cpu| / max |cpu| over the loss and gradients
+P27_LOSS_TOL = 1e-4
+#: 27b: the transducer's gradient on the card (f32) against the CPU's
+#: f64, relative Frobenius.  The posterior exp(alpha + score + beta -
+#: log_likelihood) cancels terms of ~2,000 nats in f32 (an ulp ~2e-4,
+#: summed over ~350 diagonals), so single elements read up to 8.5e-4 of
+#: the tensor's max on an H100 (700 W); the planted terminal moves the
+#: whole last row of the lattice
+P27_RNNT_GRAD_TOL = 1e-2
+#: 27c: SpatialBottleneck at ResNet-50's layer 1 (in 256, bottleneck 64,
+#: out 256), 56 x 56 split 28 / 28 over two ranks, batch 32
+P27_SPATIAL = dict(batch=32, size=56, block=(256, 64, 256))
+#: 27d: the permutation search's swaps on one fc2.weight
+P27_PERM_SWAPS = 8
+#: 27d: dense steps before pruning (they give the optimizer the moments
+#: that the planted fault needs), then the sparse steps
+P27_DENSE_STEPS = 2
+P27_SPARSE_STEPS = 8
+
+
+#: phase 27's seed offset (``--seed``; 0 by default)
+P27_SEED = 0
+
+
+def _p27_seed():
+    return 27_000 + P27_SEED
+
+
+def _p27_fwd_bwd(fn, inputs, gy, params=()):
+    """``[y, *input grads, *parameter grads]`` of ``fn(*inputs)`` with
+    cotangent ``gy`` (leaf copies of the inputs; the parameters' grads
+    zeroed first)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    for p in params:
+        p.grad = None
+    y = fn(*leaves)
+    y.backward(gy)
+    return [y.detach()] + [t.grad for t in leaves] + [p.grad for p in params]
+
+
+def _p27_check(tag, failures, sound, fault=None, tol=P27_F32_TOL):
+    """Log ``sound`` (and ``fault``) beside ``tol``; a sound reading over
+    it, or a fault reading not past 10x it, is a failure."""
+    line = f"  {tag}: {sound:.3e} (limit {tol:.0e})"
+    if fault is not None:
+        line += f"; planted fault {fault:.3e}"
+    log(line)
+    if not (sound <= tol):
+        failures.append(f"{tag}: {sound:.3e} > {tol}")
+    if fault is not None and not (fault > 10 * tol):
+        failures.append(f"{tag}: the planted fault reads {fault:.3e}")
+    return dict(sound=sound, fault=fault, limit=tol)
+
+
+def _p27_block(cin, cb, cout, stride, dtype, device, seed, spatial=False):
+    """A seeded (Spatial)Bottleneck with its norms' parameters and
+    running statistics drawn too (the same on every device)."""
+    import torch
+
+    from apex_tpu_torch.contrib import bottleneck, groupbn
+
+    cls = bottleneck.SpatialBottleneck if spatial else bottleneck.Bottleneck
+    g = torch.Generator().manual_seed(seed)
+    block = cls(cin, cb, cout, stride, dtype=dtype, device=device,
+                generator=g)
+    with torch.no_grad():
+        for mod in block.modules():
+            if isinstance(mod, groupbn.BatchNorm2d_NHWC):
+                c = mod.num_features
+                mod.weight.copy_(1 + 0.2 * torch.randn(c, generator=g))
+                mod.bias.copy_(0.2 * torch.randn(c, generator=g))
+                mod.running_mean.copy_(0.2 * torch.randn(c, generator=g))
+                mod.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    return block
+
+
+def _p27_block_run(block, x, gy):
+    return _p27_fwd_bwd(lambda a: block(a, train=True), (x,), gy,
+                        list(block.parameters())) + [
+        b for name, b in block.named_buffers() if "running" in name]
+
+
+def _phase27a():
+    """27a: the NHWC vision blocks at full width.  ``Bottleneck`` at
+    ResNet-50's layer 3 stride-1 block and layer 2's first block, batch
+    128, in training: f32 on the card against f32 on the CPU (outputs,
+    input and parameter gradients, running statistics) beside the
+    residual dropped, bf16 on the card against the CPU's f32, and the
+    bf16 forward + backward ms beside ``models/resnet.py``'s
+    ``BottleneckBlock`` on NCHW (channels-last); the checks at batch
+    P27_CHECK_BATCH.  ``ConvBias``,
+    ``ConvBiasReLU`` and ``ConvBiasMaskReLU`` at the 3x3 256-channel conv
+    (56 x 56, batch 32): the card's f32 against the CPU on 4 images, the
+    bf16 ms beside ``F.conv2d`` with its bias + ReLU (27c's worker, a
+    fresh process, profiles its forward's kernels).
+    ``GroupNorm(32, C, act="silu")`` at Stable Diffusion v1.5's three
+    UNet shapes: f32 against the CPU beside the statistics over one
+    group, bf16 ms beside ``torch.nn.GroupNorm`` + ``F.silu``.
+    ``BatchNorm2d_NHWC(fuse_relu=True)`` with ``z`` at (128, 14, 14,
+    1024): f32 against the CPU beside the ReLU dropped, bf16 ms beside
+    ``torch.nn.BatchNorm2d`` + add + ReLU.  No K1-K6 launch (the
+    reference runs these outside Pallas)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+    from apex_tpu_torch.contrib import group_norm as gn
+    from apex_tpu_torch.contrib import groupbn
+    from apex_tpu_torch.models import resnet
+    from apex_tpu_torch.ops import _dispatch
+
+    out, failures = {}, []
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    g = torch.Generator().manual_seed(_p27_seed())
+    gcuda = torch.Generator(device="cuda").manual_seed(_p27_seed())
+    _dispatch.reset_launches()
+
+    def fwd_bwd_ms(fn, x, gy):
+        def run():
+            fn(x.detach().requires_grad_(True)).backward(gy)
+        return time_ms(run, iters=10, warmup=2, flush=flush)
+
+    # Bottleneck
+    for name, (cin, cb, cout, stride, size) in P27_BLOCKS.items():
+        x = torch.randn(P27_CHECK_BATCH, size, size, cin, generator=g)
+        gy = torch.randn(P27_CHECK_BATCH, size // stride, size // stride,
+                         cout, generator=g)
+        seed = _p27_seed() + stride
+        cpu = _p27_block_run(
+            _p27_block(cin, cb, cout, stride, torch.float32, "cpu", seed),
+            x, gy)
+        xc, gyc = x.cuda(), gy.cuda()
+        card_block = _p27_block(cin, cb, cout, stride, torch.float32, "cuda",
+                                seed)
+        card = _p27_block_run(card_block, xc, gyc)
+        faulty = _p27_block(cin, cb, cout, stride, torch.float32, "cuda",
+                            seed)
+        conv3 = faulty.conv3.forward
+        faulty.conv3.forward = lambda y, z=None, train=True: conv3(
+            y, None, train=train)
+        fault = _p26_rel(_p27_block_run(faulty, xc, gyc), cpu, norm=True)
+        del faulty
+        res = _p27_check(f"27a Bottleneck {name} f32 (relative Frobenius)",
+                         failures, _p26_rel(card, cpu, norm=True), fault,
+                         tol=P27_GATED_TOL)
+        res["max_rel"] = [_rel_max(a, b) for a, b in zip(card, cpu)]
+        log(f"    by tensor (max |card - cpu| / max |cpu|): "
+            f"{[f'{r:.1e}' for r in res['max_rel']]}")
+        bf = _p27_block(cin, cb, cout, stride, torch.bfloat16, "cuda", seed)
+        card_bf = _p27_fwd_bwd(lambda a: bf(a, train=True),
+                               (xc.bfloat16(),), gyc.bfloat16())
+        res["bf16_y_dx"] = [_rel_fro(a, b) for a, b in zip(card_bf[:2],
+                                                            cpu[:2])]
+        res["bf16"] = max(res["bf16_y_dx"])
+        log(f"    bf16 y, dx: {[f'{r:.2e}' for r in res['bf16_y_dx']]}")
+        _p27_check(f"27a Bottleneck {name} bf16 (relative Frobenius)",
+                   failures, res["bf16"], tol=P27_BF16_TOL)
+        cfg = resnet.resnet50_config(dtype=torch.bfloat16)
+        ref_block = resnet.BottleneckBlock(cfg, cin, cout // 4, stride,
+                                           "cuda")
+        with torch.no_grad():
+            for prm in ref_block.parameters():
+                prm.normal_(0.0, 0.05)
+        xb = torch.randn(P27_BATCH, size, size, cin, generator=gcuda,
+                         device="cuda").bfloat16()
+        gyb = torch.randn(P27_BATCH, size // stride, size // stride, cout,
+                          generator=gcuda, device="cuda").bfloat16()
+        res["ms"] = fwd_bwd_ms(lambda a: bf(a, train=True), xb, gyb)
+        res["resnet_block_ms"] = fwd_bwd_ms(
+            lambda a: ref_block(a.permute(0, 3, 1, 2), True, None),
+            xb, gyb.permute(0, 3, 1, 2))
+        log(f"  27a Bottleneck {name} bf16 forward + backward at batch "
+            f"{P27_BATCH} {res['ms']:.3f} ms, models/resnet.py "
+            f"BottleneckBlock (NCHW channels-last) "
+            f"{res['resnet_block_ms']:.3f} ms")
+        out[f"bottleneck_{name}"] = res
+        del cpu, card_block, bf, ref_block, xb, gyb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ConvBias, ConvBiasReLU, ConvBiasMaskReLU
+    n, s, c = P27_CONV["batch"], P27_CONV["size"], P27_CONV["channels"]
+    x = torch.randn(n, s, s, c, generator=g)
+    w = torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5
+    b = 0.1 * torch.randn(c, generator=g)
+    mask = (torch.rand(n, s, s, c, generator=g) > 0.3).float()
+    gy = torch.randn(n, s, s, c, generator=g)
+    k = P27_CONV_CHECKED
+    conv = {}
+    for op in ("ConvBias", "ConvBiasReLU", "ConvBiasMaskReLU"):
+        extra = (mask,) if op == "ConvBiasMaskReLU" else ()
+
+        def fn(x, w, b, *m, op=op):
+            return getattr(cbr, op)(x, w, b, *m)
+
+        cpu = _p27_fwd_bwd(fn, (x[:k], w, b, *[e[:k] for e in extra]),
+                           gy[:k])
+        card = _p27_fwd_bwd(fn, (x[:k].cuda(), w.cuda(), b.cuda(),
+                                 *[e[:k].cuda() for e in extra]),
+                            gy[:k].cuda())
+        if op == "ConvBias":
+            conv[op] = _p27_check(f"27a {op} f32 ({k} images)", failures,
+                                  _p26_rel(card[:4], cpu[:4]))
+        else:
+            conv[op] = _p27_check(
+                f"27a {op} f32 ({k} images, relative Frobenius)", failures,
+                _p26_rel(card[:4], cpu[:4], norm=True), tol=P27_GATED_TOL)
+    xb = x.cuda().bfloat16()
+    wb = w.cuda().bfloat16().contiguous(memory_format=torch.channels_last)
+    bb, gyb = b.cuda().bfloat16(), gy.cuda().bfloat16()
+
+    conv["ms"] = fwd_bwd_ms(lambda a: cbr.ConvBiasReLU(a, wb, bb), xb, gyb)
+    conv["library_ms"] = fwd_bwd_ms(
+        lambda a: F.relu(F.conv2d(a.permute(0, 3, 1, 2), wb, bb, padding=1)),
+        xb, gyb.permute(0, 3, 1, 2))
+    log(f"  27a ConvBiasReLU bf16 forward + backward {conv['ms']:.3f} ms, "
+        f"F.conv2d + bias + ReLU {conv['library_ms']:.3f} ms")
+    out["conv_bias_relu"] = conv
+    del x, mask, gy, xb, wb, gyb
+    torch.cuda.empty_cache()
+
+    # GroupNorm + SiLU at the UNet's shapes
+    gns = {}
+    for shape in P27_GN_SHAPES:
+        c = shape[-1]
+        # per-channel offsets and scales, as activations have: statistics
+        # over the wrong channels then read wrong
+        x = torch.randn(*shape, generator=g) * (
+            1 + torch.rand(c, generator=g)) + torch.randn(c, generator=g)
+        gy = torch.randn(*shape, generator=g)
+        wgt, bias = 1 + 0.2 * torch.randn(c, generator=g), \
+            0.2 * torch.randn(c, generator=g)
+
+        def run(x, w, b, groups=32):
+            return gn.group_norm(x, groups, w, b, 1e-5, "silu")
+
+        cpu = _p27_fwd_bwd(run, (x, wgt, bias), gy)
+        dev = [t.cuda() for t in (x, wgt, bias)]
+        card = _p27_fwd_bwd(run, dev, gy.cuda())
+        bad = _p27_fwd_bwd(lambda *a: run(*a, groups=1), dev, gy.cuda())
+        res = _p27_check(f"27a GroupNorm(32, {c}, silu) {shape} f32",
+                         failures, _p26_rel(card, cpu),
+                         _p26_rel(bad, cpu))
+        module = gn.GroupNorm(32, c, act="silu")
+        lib = torch.nn.GroupNorm(32, c, device="cuda")
+        xb, gyb = dev[0].bfloat16(), gy.cuda().bfloat16()
+        with torch.no_grad():
+            for m in (module, lib):
+                m.weight.copy_(dev[1])
+                m.bias.copy_(dev[2])
+        lib = lib.bfloat16()
+        res["ms"] = fwd_bwd_ms(module, xb, gyb)
+        res["library_ms"] = fwd_bwd_ms(
+            lambda a: F.silu(lib(a.permute(0, 3, 1, 2))), xb,
+            gyb.permute(0, 3, 1, 2))
+        log(f"  27a GroupNorm {shape} bf16 forward + backward "
+            f"{res['ms']:.3f} ms, torch.nn.GroupNorm + F.silu "
+            f"{res['library_ms']:.3f} ms")
+        gns["x".join(map(str, shape))] = res
+    out["group_norm"] = gns
+    torch.cuda.empty_cache()
+
+    # BatchNorm2d_NHWC with the fused add + ReLU
+    c = P27_BN_SHAPE[-1]
+    x = torch.randn(*P27_BN_SHAPE, generator=g) * 1.5 + 0.3
+    z = torch.randn(*P27_BN_SHAPE, generator=g)
+    gy = torch.randn(*P27_BN_SHAPE, generator=g)
+
+    def bn_module(device, fuse_relu=True, dtype=None):
+        m = groupbn.BatchNorm2d_NHWC(c, fuse_relu=fuse_relu, dtype=dtype,
+                                     device=device)
+        with torch.no_grad():
+            gg = torch.Generator().manual_seed(_p27_seed() + 5)
+            m.weight.copy_(1 + 0.2 * torch.randn(c, generator=gg))
+            m.bias.copy_(0.2 * torch.randn(c, generator=gg))
+        return m
+
+    def bn_run(m, x, z, gy):
+        return _p27_fwd_bwd(lambda a, b: m(a, b, use_running_average=False),
+                            (x, z), gy, [m.weight, m.bias]) + [
+            m.running_mean, m.running_var]
+
+    cpu = bn_run(bn_module("cpu"), x, z, gy)
+    dev = [t.cuda() for t in (x, z, gy)]
+    res = _p27_check(
+        "27a BatchNorm2d_NHWC(fuse_relu) + z f32 (relative Frobenius)",
+        failures, _p26_rel(bn_run(bn_module("cuda"), *dev), cpu, norm=True),
+        _p26_rel(bn_run(bn_module("cuda", False), *dev), cpu, norm=True),
+        tol=P27_GATED_TOL)
+    mod = bn_module("cuda")
+    lib = torch.nn.BatchNorm2d(c, device="cuda")  # f32 parameters: cuDNN's
+    xb, zb, gyb = (t.bfloat16() for t in dev)
+    res["ms"] = fwd_bwd_ms(
+        lambda a: mod(a, zb, use_running_average=False), xb, gyb)
+    zc = zb.permute(0, 3, 1, 2)
+    res["library_ms"] = fwd_bwd_ms(
+        lambda a: F.relu(lib(a.permute(0, 3, 1, 2)) + zc), xb,
+        gyb.permute(0, 3, 1, 2))
+    log(f"  27a BatchNorm2d_NHWC bf16 forward + backward {res['ms']:.3f} "
+        f"ms, torch.nn.BatchNorm2d + add + ReLU {res['library_ms']:.3f} ms")
+    out["batchnorm_nhwc"] = res
+    launched = _launched(_dispatch.launches())
+    if launched:
+        failures.append(f"27a launched {launched}")
+    return out, failures
+
+
+def _phase27b():
+    """27b: the losses at full size, forward + backward on the card, and
+    one sample of each against the same port function on the CPU:
+    ``focal_loss`` at RetinaNet's OpenImages head (bf16 logits; the CPU
+    in f32, the math's own precision) beside alpha not flipped for the
+    negatives; ``index_mul_2d`` (f32) against the CPU over the whole
+    batch beside an ``index_copy`` in place of the accumulating
+    scatter-add; ``TransducerJoint(relu=True)``, a ``torch.matmul``
+    projection (512 -> 1024) and ``TransducerLoss`` at the RNN-T sizes,
+    its first sample against the CPU in f64 beside the terminal read at
+    ``y_len - 1``.  The transducer's forward + backward ms and peak
+    memory; no K1-K6 launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib import focal_loss as fl
+    from apex_tpu_torch.contrib import index_mul_2d as im
+    from apex_tpu_torch.contrib import transducer as tr
+    from apex_tpu_torch.ops import _dispatch
+
+    out, failures = {}, []
+    g = torch.Generator().manual_seed(_p27_seed() + 1)
+    gc_ = torch.Generator(device="cuda").manual_seed(_p27_seed() + 1)
+    _dispatch.reset_launches()
+
+    def run_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # focal loss
+    p = P27_FOCAL
+    b, a, c = p["batch"], p["anchors"], p["classes"]
+    logits = torch.randn(b, a, c, generator=gc_, device="cuda").bfloat16()
+    targets = torch.zeros(b, a, dtype=torch.long)
+    for i in range(b):
+        pos = torch.randperm(a, generator=g)[:p["positives"] + int(
+            p["ignored"] * a)]
+        targets[i, pos[:p["positives"]]] = torch.randint(
+            1, c + 1, (p["positives"],), generator=g)
+        targets[i, pos[p["positives"]:]] = -1
+    targets = targets.cuda()
+    npos = torch.tensor(float((targets > 0).sum()), device="cuda")
+
+    def focal(lg, t, n):
+        lg = lg.detach().requires_grad_(True)
+        loss = fl.focal_loss(lg, t, n)
+        loss.backward()
+        return [loss.detach(), lg.grad]
+
+    torch.cuda.reset_peak_memory_stats()
+    focal(logits, targets, npos)  # warm
+    ms = run_ms(lambda: focal(logits, targets, npos))
+    full = focal(logits, targets, npos)
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(t).all()) for t in full)
+    # one image in f32 (the bf16 values, exact), on both sides
+    one = [logits[:1].float(), targets[:1], npos]
+    cpu = focal(*(t.cpu() for t in one))
+    card = focal(*one)
+    sound = _p26_rel(card, cpu)
+    orig = fl.sigmoid_focal_loss
+
+    def alpha_unflipped(lg, t, alpha=0.25, gamma=2.0, smoothing=0.0):
+        # alpha_t = alpha for the negatives too
+        return orig(lg, t, alpha, gamma, smoothing) * torch.where(
+            t > 0, 1.0, alpha / (1.0 - alpha))
+
+    with _p26_patched(fl, "sigmoid_focal_loss", alpha_unflipped):
+        bad = focal(*one)
+    res = _p27_check("27b focal_loss one image (CPU f32)", failures, sound,
+                     _p26_rel(bad, cpu), tol=P27_LOSS_TOL)
+    res.update(ms=ms, peak_memory_bytes=peak, finite=finite,
+               loss=float(full[0]), positives=float(npos))
+    log(f"  27b focal_loss {tuple(logits.shape)} bf16: loss "
+        f"{float(full[0]):.4f} over {int(npos)} positives, forward + "
+        f"backward {ms:.2f} ms, peak {peak / 1e9:.2f} GB, finite {finite}")
+    if not finite:
+        failures.append("27b focal_loss not finite")
+    out["focal_loss"] = res
+    del logits, targets, full, card, bad
+    torch.cuda.empty_cache()
+
+    # index_mul_2d
+    p = P27_INDEX
+    in1 = torch.randn(p["rows"], p["width"], generator=g)
+    in2 = torch.randn(p["gathered"], p["width"], generator=g)
+    idx = torch.randint(0, p["rows"], (p["gathered"],), generator=g)
+    gy = torch.randn(p["gathered"], p["width"], generator=g)
+    cpu = _p27_fwd_bwd(lambda a, b: im.index_mul_2d(a, b, idx), (in1, in2),
+                       gy)
+    dev = [t.cuda() for t in (in1, in2, idx, gy)]
+    card = _p27_fwd_bwd(lambda a, b: im.index_mul_2d(a, b, dev[2]),
+                        dev[:2], dev[3])
+    copied = torch.zeros_like(dev[0]).index_copy_(0, dev[2], dev[3] * dev[1])
+    res = _p27_check("27b index_mul_2d (CPU f32)", failures,
+                     _p26_rel(card, cpu),
+                     _p26_rel([card[0], copied, card[2]], cpu),
+                     tol=P27_LOSS_TOL)
+
+    def fwd_bwd(fn):
+        def run():
+            a = dev[0].detach().requires_grad_(True)
+            b = dev[1].detach().requires_grad_(True)
+            fn(a, b).backward(dev[3])
+        return run
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    res["ms"] = time_ms(fwd_bwd(lambda a, b: im.index_mul_2d(a, b, dev[2])),
+                        iters=10, flush=flush)
+    res["library_ms"] = time_ms(
+        fwd_bwd(lambda a, b: F.embedding(dev[2], a) * b), iters=10,
+        flush=flush)
+    log(f"  27b index_mul_2d forward + backward {res['ms']:.3f} ms, "
+        f"F.embedding * in2 {res['library_ms']:.3f} ms")
+    out["index_mul_2d"] = res
+    del dev, cpu, card, copied
+    torch.cuda.empty_cache()
+
+    # the transducer: joint, projection, loss
+    p = P27_RNNT
+    bsz, t_, u_, h, v = (p[k] for k in ("batch", "frames", "labels",
+                                        "hidden", "vocab"))
+    f = torch.randn(bsz, t_, h, generator=gc_, device="cuda")
+    gg = torch.randn(bsz, u_ + 1, h, generator=gc_, device="cuda")
+    proj = torch.randn(h, v, generator=gc_, device="cuda") / h ** 0.5
+    labels = torch.randint(1, v, (bsz, u_), generator=g).cuda()
+    f_len = torch.randint(t_ // 2, t_ + 1, (bsz,), generator=g)
+    y_len = torch.randint(u_ // 2, u_ + 1, (bsz,), generator=g)
+    f_len[0], y_len[0] = t_, u_
+    f_len, y_len = f_len.cuda(), y_len.cuda()
+    joint, loss_fn = tr.TransducerJoint(relu=True), tr.TransducerLoss()
+
+    def rnnt():
+        fl_, gl_ = (t.detach().requires_grad_(True) for t in (f, gg))
+        logits = torch.matmul(joint(fl_, gl_), proj)
+        logits.retain_grad()
+        nll = loss_fn(logits, labels, f_len, y_len)
+        nll.sum().backward()
+        return nll.detach(), logits
+
+    rnnt()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = run_ms(rnnt)
+    peak = torch.cuda.max_memory_allocated()
+    nll, logits = rnnt()
+    lg = logits.detach()
+    loss_ms = run_ms(lambda: loss_fn(lg.clone().requires_grad_(True), labels,
+                                     f_len, y_len).sum().backward())
+    one = (labels[:1].cpu(), f_len[:1].cpu(), y_len[:1].cpu())
+
+    def cpu64(y_len):
+        x64 = lg[:1].double().cpu().requires_grad_(True)
+        nll64 = loss_fn(x64, one[0], one[1], y_len)
+        nll64.sum().backward()
+        return nll64.detach(), x64.grad
+
+    ref, ref_grad = cpu64(one[2])
+    bad, bad_grad = cpu64(one[2] - 1)  # planted: the terminal at y_len - 1
+    res = _p27_check("27b TransducerLoss sample 0 loss (CPU f64)", failures,
+                     _p26_rel([nll[:1]], [ref]),
+                     _p26_rel([bad], [ref]), tol=P27_LOSS_TOL)
+    res["gradient"] = _p27_check(
+        "27b TransducerLoss sample 0 gradient (CPU f64, relative "
+        "Frobenius)", failures,
+        _p26_rel([logits.grad[:1]], [ref_grad], norm=True),
+        _p26_rel([bad_grad], [ref_grad], norm=True), tol=P27_RNNT_GRAD_TOL)
+    finite = bool(torch.isfinite(nll).all()) and bool(
+        torch.isfinite(logits.grad).all())
+    res.update(ms=ms, loss_ms=loss_ms, peak_memory_bytes=peak,
+               finite=finite, nll=nll.tolist(),
+               logits_bytes=lg.numel() * lg.element_size())
+    log(f"  27b RNN-T joint + projection + loss {tuple(lg.shape)}: forward "
+        f"+ backward {ms:.1f} ms (the loss alone {loss_ms:.1f} ms), peak "
+        f"{peak / 1e9:.2f} GB, nll {[round(x, 1) for x in nll.tolist()]}")
+    if not finite:
+        failures.append("27b transducer not finite")
+    out["transducer"] = res
+    launched = _launched(_dispatch.launches())
+    if launched:
+        failures.append(f"27b launched {launched}")
+    return out, failures
+
+
+def _p27_conv_layout(seed):
+    """The CUDA kernels of one ``ConvBiasReLU`` forward (bf16, P27_CONV,
+    a channels-last 3x3 weight) under ``torch.profiler``, and those that
+    copy or transpose a layout; the same with a contiguous OIHW weight,
+    which the convolution must copy (the control).  Run in a process that
+    has not profiled before: in one that has, kineto can drop a call's
+    kernel events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+
+    n, s, c = P27_CONV["batch"], P27_CONV["size"], P27_CONV["channels"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, s, s, c, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(c, c, 3, 3, generator=g, device="cuda")
+         / (9 * c) ** 0.5).bfloat16()
+    b = torch.zeros(c, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for tag, weight in (("channels_last", w.contiguous(
+            memory_format=torch.channels_last)), ("oihw", w.contiguous())):
+        cbr.ConvBiasReLU(x, weight, b)  # warm: cuDNN picks its algorithm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cbr.ConvBiasReLU(x, weight, b)
+            torch.cuda.synchronize()
+        names = sorted({k[0] for k in device_kernels(prof)})
+        out[tag] = dict(kernels=[nm[:120] for nm in names], layout=[
+            nm[:120] for nm in names if any(t in nm.lower() for t in (
+                "transpose", "nchwtonhwc", "nhwctonchw", "copy"))])
+    return out
+
+
+def p27_halo(rank, world, seed):
+    """27c worker (dp = ``world`` over gloo on the card): on rank 0 first,
+    :func:`_p27_conv_layout` (a fresh process); the halo exchanges, ``SpatialBottleneck`` against the unsplit block in this
+    process (eval), ``BatchNorm2d_NHWC(bn_group=world)`` against one
+    BatchNorm over the whole batch, each beside its planted fault; the
+    N/A stubs.  Returns the readings."""
+    import torch
+
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.contrib import (gpu_direct_storage, groupbn,
+                                        nccl_allocator, nccl_p2p,
+                                        peer_memory)
+
+    out = {"conv_layout": _p27_conv_layout(seed)} if rank == 0 else {}
+    ps.initialize_model_parallel()
+    try:
+        p = P27_SPATIAL
+        n, s, (cin, cb, cout) = p["batch"], p["size"], p["block"]
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(n, s, s, cin, generator=g).cuda()
+        rows = s // world
+        strip = x[:, rank * rows:(rank + 1) * rows]
+
+        def expected(halo):
+            zero = torch.zeros_like(strip[:, :halo])
+            above = zero if rank == 0 else x[:, rank * rows - halo:
+                                             rank * rows]
+            below = zero if rank == world - 1 else \
+                x[:, (rank + 1) * rows:(rank + 1) * rows + halo]
+            return torch.cat([above, strip, below], dim=1)
+
+        for halo in (1, 3):
+            got = peer_memory.halo_exchange_1d(strip, halo)
+            want = expected(halo)
+            zeros = torch.cat([torch.zeros_like(strip[:, :halo]), strip,
+                               torch.zeros_like(strip[:, :halo])], dim=1)
+            out[f"halo{halo}"] = [float((got - want).abs().max()),
+                                  float((zeros - want).abs().max())]
+        got = peer_memory.PeerHaloExchanger1d(half_halo=2)(strip)
+        out["exchanger"] = float((got - expected(2)).abs().max())
+        left = torch.full((8,), float(rank), device="cuda")
+        li, ri = nccl_p2p.left_right_halo_exchange(left, left + 100)
+        want_l = 0.0 if rank == 0 else 100.0 + rank - 1
+        want_r = 0.0 if rank == world - 1 else rank + 1.0
+        out["left_right"] = float(max((li - want_l).abs().max(),
+                                      (ri - want_r).abs().max()))
+
+        # the spatial block on this rank's strip against the unsplit one
+        block_seed = seed + 1
+        full = _p27_block(cin, cb, cout, 1, torch.float32, "cuda",
+                          block_seed)
+        spatial = _p27_block(cin, cb, cout, 1, torch.float32, "cuda",
+                             block_seed, spatial=True)
+        with torch.no_grad():
+            want = full(x, train=False)[:, rank * rows:(rank + 1) * rows]
+            got = spatial(strip, train=False)
+            out["spatial_eval"] = _rel_max(got, want)
+            # planted: the halos left at zero (the strip's own padding)
+            with _p26_patched(spatial.conv2, "spatial_axis_name", None):
+                out["spatial_eval_zero_halos"] = _rel_max(
+                    spatial(strip, train=False), want)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spatial(strip.detach().clone().requires_grad_(True),
+                train=True).sum().backward()
+        torch.cuda.synchronize()
+        out["spatial_train_step_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # bn_group over the two ranks against one BatchNorm on the batch
+        shape = P27_BN_SHAPE
+        c = shape[-1]
+        xb = torch.randn(*shape, generator=g)
+        half = shape[0] // world
+        xb[half:] = xb[half:] * 2.0 + 1.0  # the halves differ
+        gy = torch.randn(*shape, generator=g)
+        xb, gy = xb.cuda(), gy.cuda()
+
+        def bn_run(bn, x, gy):
+            return _p27_fwd_bwd(lambda a: bn(a, use_running_average=False),
+                                (x,), gy) + [bn.running_mean, bn.running_var]
+
+        lo, hi = rank * half, (rank + 1) * half
+        one = bn_run(groupbn.BatchNorm2d_NHWC(c, fuse_relu=True), xb, gy)
+        with nccl_allocator.nccl_mem():
+            grouped = bn_run(groupbn.BatchNorm2d_NHWC(
+                c, fuse_relu=True, bn_group=world), xb[lo:hi], gy[lo:hi])
+        local = bn_run(groupbn.BatchNorm2d_NHWC(c, fuse_relu=True),
+                       xb[lo:hi], gy[lo:hi])
+        want = [one[0][lo:hi], one[1][lo:hi], one[2], one[3]]
+        out["bn_group"] = _p26_rel(grouped, want, norm=True)
+        out["bn_group_local"] = _p26_rel(local, want, norm=True)
+        nccl_allocator.init()
+        refused = []
+        for fn in (gpu_direct_storage.load_data,
+                   peer_memory.PeerMemoryPool().allocate_peer_tensors):
+            try:
+                fn("unused")
+            except NotImplementedError as exc:
+                refused.append(str(exc)[:60])
+        out["refused"] = refused
+        return out
+    finally:
+        ps.destroy_model_parallel()
+
+
+def _phase27c():
+    """27c: two worker processes on the card over gloo, one launch for
+    every case (:func:`p27_halo`): no layout copy or transpose around
+    ``ConvBiasReLU``'s convolution with a channels-last weight (a
+    contiguous OIHW weight shows one); ``halo_exchange_1d`` (halo 1 and 3)
+    and ``PeerHaloExchanger1d`` exactly the neighbours' rows (beside the
+    halos left at zero), ``left_right_halo_exchange``,
+    ``SpatialBottleneck`` at ResNet-50's layer 1 (56 x 56 split 28 / 28,
+    batch 32) in eval against the unsplit ``Bottleneck`` (beside the
+    halos left at zero), ``BatchNorm2d_NHWC(bn_group=2)`` against one
+    process over the whole batch (beside the statistics left local),
+    inside ``nccl_mem()``; ``load_data`` and ``allocate_peer_tensors``
+    refuse."""
+    ranks = _p16_spawn(2, "gloo", [("run", "p27_halo",
+                                    {"seed": _p27_seed() + 2})])
+    out, failures = {"ranks": [r["run"] for r in ranks]}, []
+    runs = out["ranks"]
+    for halo in (1, 3):
+        sound = max(r[f"halo{halo}"][0] for r in runs)
+        fault = max(r[f"halo{halo}"][1] for r in runs)
+        log(f"  27c halo_exchange_1d halo {halo}: max |got - neighbour rows| "
+            f"{sound} (exact); halos left at zero {fault:.3e}")
+        if sound != 0.0 or fault == 0.0:
+            failures.append(f"27c halo {halo}: {sound}, fault {fault}")
+    for key in ("exchanger", "left_right"):
+        worst = max(r[key] for r in runs)
+        log(f"  27c {key}: {worst} (exact)")
+        if worst != 0.0:
+            failures.append(f"27c {key}: {worst}")
+    out["spatial"] = _p27_check(
+        "27c SpatialBottleneck eval against the unsplit block", failures,
+        max(r["spatial_eval"] for r in runs),
+        max(r["spatial_eval_zero_halos"] for r in runs))
+    out["bn_group"] = _p27_check(
+        "27c BatchNorm2d_NHWC(bn_group=2) against one process (relative "
+        "Frobenius)", failures, max(r["bn_group"] for r in runs),
+        max(r["bn_group_local"] for r in runs), tol=P27_GATED_TOL)
+    log(f"  27c SpatialBottleneck train step a rank "
+        f"{[round(r['spatial_train_step_ms'], 1) for r in runs]} ms (two "
+        f"processes on one card, gloo host staging: not a rank's speed)")
+    if any(len(r["refused"]) != 2 for r in runs):
+        failures.append(f"27c refusals {[r['refused'] for r in runs]}")
+    lay = runs[0]["conv_layout"]
+    log(f"  27c ConvBiasReLU forward kernels (rank 0, a fresh process): "
+        f"{lay['channels_last']['kernels']}")
+    log(f"  27c layout copies around the convolution: "
+        f"{lay['channels_last']['layout']} (a contiguous OIHW weight, the "
+        f"control: {lay['oihw']['layout']})")
+    if (not lay["channels_last"]["kernels"] or lay["channels_last"]["layout"]
+            or not lay["oihw"]["layout"]):
+        failures.append(f"27c conv layout: {lay}")
+    out["conv_layout"] = lay
+    return out, failures
+
+
+def _p27_violations(model, masks):
+    """(groups of 4 along the input axis holding more than 2 non-zeros,
+    groups holding fewer), over the pruned weights."""
+    more = fewer = 0
+    for name, p in model.named_parameters():
+        m = masks[name]
+        if m.ndim:
+            nz = (p.detach() != 0).movedim(1, -1)
+            nz = nz.reshape(*nz.shape[:-1], -1, 4).sum(dim=-1)
+            more += int((nz > 2).sum())
+            fewer += int((nz < 2).sum())
+    return more, fewer
+
+
+def _phase27d():
+    """27d: ASP on ``GptConfig(remat=True)`` at phase 6's batch (8 x
+    2048) over K1-K4: 2 dense FusedAdam steps (their launches a step the
+    dense step's), ``ASP.prune_trained_model`` over the named parameters,
+    then 8 steps with the masks applied to the gradients before each step
+    and to the weights after it.  Every pruned weight keeps exactly 2
+    non-zeros in each group of 4 along its input axis; the losses finite
+    and falling; K1-K4 launches a step equal to the dense step's (masking
+    launches none of K1-K6).  One more step without the masks re-applied
+    after it (the planted fault) must leave groups with more than 2.
+    The masks of ``resnet50()``'s weights on the card equal the CPU's bit
+    for bit; ``compute_permutations`` on ``layers.0.fc2.weight`` (1024 x
+    4096, P27_PERM_SWAPS swaps) gives the CPU's permutation, ``after >=
+    before``.  Returns (the sparse steps' launches, results)."""
+    import torch
+
+    from apex_tpu_torch.contrib.sparsity import ASP
+    from apex_tpu_torch.data import DataLoader, TokenFileDataset
+    from apex_tpu_torch.examples import train_gpt
+    from apex_tpu_torch.models import GptConfig, GptModel, resnet50
+    from apex_tpu_torch.models.gpt import gpt_lm_loss
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    out, failures = {}, []
+    cfg = GptConfig(vocab_size=50304, remat=True, max_seq_len=TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GptModel(cfg)  # weights seeded with 0
+    opt = FusedAdam(model.parameters(), lr=TRAIN_LR)
+    args = train_gpt.parse_args(["--seq-len", str(TRAIN_SEQ)])
+    loader = iter(DataLoader(TokenFileDataset(
+        train_gpt.corpus(args, cfg.vocab_size), seq_len=TRAIN_SEQ),
+        batch_size=TRAIN_BATCH, seed=7))
+    params = dict(model.named_parameters())
+
+    def steps(n, masks=None, reapply=True):
+        losses, seconds = [], []
+        for _ in range(n):
+            ids = torch.as_tensor(next(loader).T.astype(np.int64),
+                                  device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = gpt_lm_loss(model, ids)
+            loss.backward()
+            if masks is not None:
+                ASP.apply_masks_({k: p.grad for k, p in params.items()},
+                                 masks)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            if masks is not None and reapply:
+                ASP.apply_masks_(params, masks)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return losses, seconds
+
+    _dispatch.reset_launches()
+    dense_losses, dense_s = steps(P27_DENSE_STEPS)
+    dense = {k: n // P27_DENSE_STEPS
+             for k, n in _launched(_dispatch.launches()).items()}
+    layers = cfg.num_layers
+    per_step = {"layer_norm_fwd": 2 * (2 * layers) + 1,
+                "layer_norm_bwd": 2 * layers + 1,
+                "flash_fwd": 2 * layers, "flash_bwd": layers}
+    if dense != per_step:
+        failures.append(f"27d dense launches a step {dense} != {per_step}")
+    fc2 = params["layers.0.fc2.weight"].detach().clone()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pruned, masks = ASP.prune_trained_model(params)
+    with torch.no_grad():
+        for name, m in masks.items():
+            if m.ndim:
+                params[name].copy_(pruned[name])
+    del pruned
+    torch.cuda.synchronize()
+    prune_ms = (time.perf_counter() - t0) * 1e3
+    n_pruned = sum(1 for m in masks.values() if m.ndim)
+    pruned_elems = sum(m.numel() for m in masks.values() if m.ndim)
+    _dispatch.reset_launches()
+    losses, seconds = steps(P27_SPARSE_STEPS, masks)
+    launches = _launched(_dispatch.launches())
+    want = {k: n * P27_SPARSE_STEPS for k, n in dense.items()}
+    more, fewer = _p27_violations(model, masks)
+    _, _ = steps(1, masks, reapply=False)
+    fault_more, _ = _p27_violations(model, masks)
+    log(f"  27d ASP on GptConfig(remat=True): {n_pruned} weights pruned "
+        f"({pruned_elems} elements) in {prune_ms:.1f} ms; dense steps "
+        f"{[round(x, 4) for x in dense_losses]}, sparse steps "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"  27d launches over {P27_SPARSE_STEPS} sparse steps {launches} "
+        f"(want {want}: the dense step's {dense} a step)")
+    log(f"  27d groups of 4 off 2:4 after the last step: {more} with more "
+        f"than 2 non-zeros, {fewer} with fewer; planted (masks not "
+        f"re-applied after one more step): {fault_more} with more")
+    step_ms = statistics.median(seconds[1:]) * 1e3
+    dense_ms = dense_s[-1] * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  27d sparse step median {step_ms:.1f} ms (the second dense step "
+        f"{dense_ms:.1f} ms), peak {peak / 1e9:.2f} GB")
+    if launches != want:
+        failures.append(f"27d launches {launches} != {want}")
+    if more or fewer or not fault_more:
+        failures.append(f"27d 2:4 violations {more}/{fewer}, fault "
+                        f"{fault_more}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"27d losses not finite and falling: {losses}")
+    out.update(pruned_weights=n_pruned, pruned_elements=pruned_elems,
+               prune_ms=prune_ms, dense_losses=dense_losses, losses=losses,
+               dense_launches_per_step=dense, launches=launches,
+               violations=[more, fewer], fault_violations=fault_more,
+               step_ms_median=step_ms, dense_step_ms=dense_ms,
+               peak_memory_bytes=peak)
+    del model, opt, params, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resnet50()'s masks: the card's equal the CPU's bit for bit
+    net = resnet50(device="cpu",
+                   generator=torch.Generator().manual_seed(_p27_seed()))
+    cpu_masks = ASP.compute_sparse_masks(dict(net.named_parameters()))
+    card_masks = ASP.compute_sparse_masks(
+        dict(net.cuda().named_parameters()))
+    differ = [k for k in cpu_masks
+              if not torch.equal(card_masks[k].cpu(), cpu_masks[k])]
+    n_res = sum(1 for m in cpu_masks.values() if m.ndim)
+    log(f"  27d resnet50() masks: {n_res} weights pruned, {len(differ)} "
+        f"differ between the card and the CPU")
+    if differ or not n_res:
+        failures.append(f"27d resnet50 masks differ: {differ[:4]}")
+    out["resnet50_masks"] = dict(pruned=n_res, differ=len(differ))
+    del net, cpu_masks, card_masks
+
+    # the permutation search on one fc2.weight, card and CPU
+    res = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perms = ASP.compute_permutations({"fc2.weight": fc2.to(dev)},
+                                         max_swaps=P27_PERM_SWAPS)
+        torch.cuda.synchronize()
+        e = perms["fc2.weight"]
+        res[dev] = dict(perm=e["perm"].cpu(), before=e["before"],
+                        after=e["after"],
+                        ms=(time.perf_counter() - t0) * 1e3)
+    same = torch.equal(res["cuda"]["perm"], res["cpu"]["perm"])
+    moved = int((res["cuda"]["perm"] != torch.arange(fc2.shape[1])).sum())
+    log(f"  27d compute_permutations fc2.weight {tuple(fc2.shape)}, "
+        f"{P27_PERM_SWAPS} swaps: kept magnitude {res['cuda']['before']:.2f}"
+        f" -> {res['cuda']['after']:.2f} (CPU {res['cpu']['after']:.2f}), "
+        f"{moved} channels moved, the same permutation on both: {same}; "
+        f"{res['cuda']['ms']:.0f} ms on the card, {res['cpu']['ms']:.0f} ms "
+        f"on the CPU")
+    if not same or not res["cuda"]["after"] >= res["cuda"]["before"]:
+        failures.append("27d permutation search differs or loses")
+    out["permutation"] = {d: {k: v for k, v in r.items() if k != "perm"}
+                          for d, r in res.items()}
+    out["permutation"].update(same=same, moved=moved)
+    return {"asp": launches}, out, failures
+
+
+def phase27():
+    """ROADMAP item 11's last step on the card: 27a-27d (see their
+    docstrings).  Every part logs its readings before any failure fails
+    the phase.  Returns (the ASP path's launches, results)."""
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"phase 27: the remaining contrib packages (NHWC vision blocks, "
+        f"focal and transducer losses, halo exchange, ASP on "
+        f"GptConfig(remat=True)); seed offset {P27_SEED or 0}")
+    out, failures, launches, seconds = {}, [], {}, {}
+    for name, part in (("27a", _phase27a), ("27b", _phase27b),
+                       ("27c", _phase27c), ("27d", _phase27d)):
+        t = time.perf_counter()
+        res = part()
+        if name == "27d":
+            launches.update(res[0])
+        out[name], f = res[-2:]
+        failures += f
+        seconds[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["part_seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    log(f"  phase 27 by part: {out['part_seconds']} s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 27 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 27: " + "; ".join(failures))
+    return launches, out
+
+
 #: the flags that run one part of the script alone
 SINGLE_PHASE_FLAGS = ("f32_attention", "timing", "phase1", "serving",
                       "evoformer", "resilience", "chaos", "parallel", "dap",
                       "trainer", "context", "experts", "pipeline", "amp",
                       "analysis", "trace_window", "observe", "modules",
-                      "tail")
+                      "tail", "contrib")
 
 
 def main():
@@ -11949,10 +12939,15 @@ def main():
                         "three profile tools on a GptConfig() step, the "
                         "standalone providers; phase 24b and 24c first, "
                         "for 26e's dumps)")
+    parser.add_argument("--contrib", action="store_true",
+                        help="run phase 27 alone (the remaining contrib "
+                        "packages: the NHWC vision blocks, the focal and "
+                        "transducer losses, the halo exchange on two "
+                        "workers, ASP on GptConfig(remat=True))")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
-                        "window per case")
+                        "window per case, and offsets phase 27's seeds")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -12000,8 +12995,9 @@ def main():
     # the distinct launches of the run, for phase 23c
     _dispatch.record_signatures(True)
 
-    global K5_F32_WINDOW
+    global K5_F32_WINDOW, P27_SEED
     K5_F32_WINDOW = args.seed is not None
+    P27_SEED = args.seed or 0
     gen = torch.Generator(device="cuda").manual_seed(args.seed or 0)
     if args.f32_attention:
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
@@ -12099,6 +13095,11 @@ def main():
         print(json.dumps({"tail": dict(run, launches=launches)},
                          default=str), flush=True)
         return
+    if args.contrib:
+        launches, run = phase27()
+        print(json.dumps({"contrib": dict(run, launches=launches)},
+                         default=str), flush=True)
+        return
     if args.modules:
         launches, run = phase25()
         print(json.dumps({"modules": dict(run, launches=launches)},
@@ -12150,6 +13151,7 @@ def main():
     observe_launches, observe = timed("24", phase24)
     modules_launches, modules = timed("25", phase25)
     tail_launches, tail = timed("26", phase26)
+    contrib_launches, contrib = timed("27", phase27)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -12174,7 +13176,8 @@ def main():
             ("fleet", observe_launches["fleet"]),
             ("canary", observe_launches["canary"]),
             *modules_launches.items(),
-            *tail_launches.items())
+            *tail_launches.items(),
+            *contrib_launches.items())
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -12203,7 +13206,7 @@ def main():
                     "context": context, "experts": experts,
                     "pipeline": pipeline, "amp": amp_run,
                     "analysis": analysis_run, "observe": observe,
-                    "modules": modules, "tail": tail,
+                    "modules": modules, "tail": tail, "contrib": contrib,
                     "decode_profile": profile}, default=str))
     log(f"seconds by phase: {PHASE_SECONDS}")
     log(f"whole run {time.perf_counter() - t0:.1f} s (the build included)")

@@ -178,6 +178,12 @@ COUNTERPARTS = (
     "optimizers/fused_adagrad.py", "optimizers/fused_novograd.py",
     "optimizers/fused_mixed_precision_lamb.py", "optimizers/multi_tensor.py",
     "multi_tensor_apply/__init__.py",
+    # item 11 step 6: the remaining contrib packages
+    *(f"contrib/{pkg}/__init__.py" for pkg in (
+        "nccl_allocator", "gpu_direct_storage", "peer_memory", "nccl_p2p",
+        "conv_bias_relu", "group_norm", "groupbn", "cudnn_gbn", "bottleneck",
+        "focal_loss", "index_mul_2d", "transducer", "sparsity")),
+    "contrib/sparsity/permutation.py",
 )
 
 #: modules of item 9 and item 8's first part whose counterparts live at
@@ -248,6 +254,9 @@ ITEM11_FILES = (
     "transformer/testing/standalone_gpt.py", "utils/__init__.py",
     "utils/profiling.py", "_native/__init__.py",
     "tools/trace_summary.py", "tools/step_profile.py", "tools/timeline.py",
+    *(p for p in COUNTERPARTS if p.startswith("contrib/")
+      and p.split("/")[1] not in ("openfold", "layer_norm", "xentropy",
+                                  "fmha", "multihead_attn", "clip_grad")),
 )
 
 
@@ -406,7 +415,10 @@ def test_the_walk_sees_every_counterpart():
     assert set(JAX_ONLY_NAMES) <= set(WALKED)
     for mod in ("mlp", "fused_dense", "RNN", "reparameterization", "utils",
                 "utils.profiling", "_native", "transformer.layers",
-                "transformer.log_util", "transformer.testing.commons"):
+                "transformer.log_util", "transformer.testing.commons",
+                "contrib.peer_memory", "contrib.groupbn", "contrib.bottleneck",
+                "contrib.transducer", "contrib.sparsity",
+                "contrib.sparsity.permutation"):
         assert mod in WALKED, mod
 
 
@@ -458,6 +470,24 @@ def test_lazy_submodules_cover_the_references(pkg, name):
         "apex_tpu_torch" + (f".{pkg}" if pkg else ""))
     for sub in port:
         assert getattr(mod, sub) is not None, sub
+
+
+def test_contrib_packages_cover_the_references():
+    """Every package of the reference's ``contrib`` has its counterpart
+    (item 11 closed), each importable from the port's ``contrib``."""
+    import importlib
+
+    def packages(root):
+        return {p.name for p in (ROOT / root / "contrib").iterdir()
+                if (p / "__init__.py").is_file()}
+
+    ref, port = packages("apex_tpu"), packages("apex_tpu_torch")
+    assert len(ref) == 20 and ref == port
+    for pkg in sorted(port):
+        mod = importlib.import_module(f"apex_tpu_torch.contrib.{pkg}")
+        assert f"apex_tpu_torch.contrib.{pkg}" in mod.__name__
+        assert f":mod:`apex_tpu_torch.contrib.{pkg}`" in importlib.import_module(
+            "apex_tpu_torch.contrib").__doc__, pkg
 
 
 #: the data- and tensor-parallel modules (ROADMAP item 5), the DAP, the
@@ -710,7 +740,9 @@ def no_gpu(monkeypatch):
                                    "mlp", "fused_dense",
                                    "fused_dense_gelu_dense", "lstm",
                                    "mlstm", "gpt_provider", "bert_provider",
-                                   "identity_layer", "step_profile"])
+                                   "identity_layer", "step_profile",
+                                   "group_norm", "batchnorm_nhwc",
+                                   "bottleneck", "spatial_bottleneck"])
 def test_entry_points_default_to_the_card(no_gpu, entry):
     cfg = GptConfig(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -861,6 +893,22 @@ def test_entry_points_default_to_the_card(no_gpu, entry):
             from apex_tpu_torch.tools import step_profile
 
             step_profile.main(["--target", "resilient"])
+        elif entry == "group_norm":
+            from apex_tpu_torch.contrib.group_norm import GroupNorm
+
+            GroupNorm(2, 8)
+        elif entry == "batchnorm_nhwc":
+            from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+
+            BatchNorm2d_NHWC(8)
+        elif entry == "bottleneck":
+            from apex_tpu_torch.contrib.bottleneck import Bottleneck
+
+            Bottleneck(8, 4, 8)
+        elif entry == "spatial_bottleneck":
+            from apex_tpu_torch.contrib.bottleneck import SpatialBottleneck
+
+            SpatialBottleneck(8, 4, 8)
         elif entry == "gpt_tp_example":
             train_gpt.main(["--tiny", "--steps", "1", "--tp", "2",
                             "--sequence-parallel"])

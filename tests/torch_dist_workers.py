@@ -1267,3 +1267,71 @@ def imagenet_case(argv, variables_path, model_kwargs):
                     out["model"])["batch_stats"]}
     finally:
         ps.destroy_model_parallel()
+
+
+# ---------------------------------------------------------------------------
+# contrib: halo exchange, the spatial bottleneck, group batch norm
+# ---------------------------------------------------------------------------
+
+
+def _strip(a, rank, world, axis=1):
+    n = a.shape[axis] // world
+    return torch.from_numpy(
+        np.take(a, range(rank * n, (rank + 1) * n), axis=axis).copy())
+
+
+def _value_and_grad(fn, x, g):
+    x = x.clone().requires_grad_(True)
+    y = fn(x)
+    y.backward(g)
+    return _np(y), _np(x.grad)
+
+
+def contrib_halo_case(x, gx, left, right, block_args, block_path, xb, gb,
+                      bn_x, bn_g, bn_path):
+    """On this rank of a dp group: ``halo_exchange_1d`` (halo 1 and 3,
+    with its gradient) and ``PeerHaloExchanger1d`` on the rank's H strip
+    of ``x``, ``left_right_halo_exchange`` of ``left[rank]`` and
+    ``right[rank]``, ``SpatialBottleneck(*block_args)`` (the JAX block's
+    variables, pickled) on the strip of ``xb`` in evaluation and in
+    training (outputs and input gradients), and ``BatchNorm2d_NHWC(
+    bn_group=world, fuse_relu=True)`` on the rank's rows of ``bn_x`` (the
+    output, the input and parameter gradients, the running statistics);
+    every gradient from the strip of the matching cotangent."""
+    from apex_tpu_torch import parallel_state as ps
+    from apex_tpu_torch.contrib import bottleneck, groupbn, nccl_p2p
+    from apex_tpu_torch.contrib import peer_memory
+
+    ps.initialize_model_parallel()
+    try:
+        rank = ps.get_data_parallel_rank()
+        world = ps.get_data_parallel_world_size()
+        out = {}
+        xs = _strip(x, rank, world)
+        for halo in (1, 3):
+            out[f"halo{halo}"] = _value_and_grad(
+                lambda a: peer_memory.halo_exchange_1d(a, halo),
+                xs, _strip(gx[halo], rank, world))
+        out["exchanger"] = _np(peer_memory.PeerHaloExchanger1d(
+            half_halo=2)(xs))
+        out["left_right"] = [_np(t) for t in nccl_p2p.left_right_halo_exchange(
+            torch.from_numpy(left[rank]), torch.from_numpy(right[rank]))]
+        block = bottleneck.from_jax_variables(
+            bottleneck.SpatialBottleneck(*block_args, device="cpu"),
+            _load(block_path))
+        for train in (False, True):
+            out[f"block_train{train}"] = _value_and_grad(
+                lambda a: block(a, train=train), _strip(xb, rank, world),
+                _strip(gb, rank, world))
+        bn = groupbn.from_jax_variables(
+            groupbn.BatchNorm2d_NHWC(bn_x.shape[-1], bn_group=world,
+                                     fuse_relu=True, device="cpu"),
+            _load(bn_path))
+        out["bn"] = _value_and_grad(
+            lambda a: bn(a, use_running_average=False),
+            _rows(bn_x, rank, world), _rows(bn_g, rank, world))
+        out["bn_params"] = [_np(bn.weight.grad), _np(bn.bias.grad),
+                            _np(bn.running_mean), _np(bn.running_var)]
+        return out
+    finally:
+        ps.destroy_model_parallel()

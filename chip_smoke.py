@@ -405,6 +405,21 @@ a CUDA device it exits non-zero at once and prints no result.
     the masks not re-applied after a step; ``resnet50()``'s masks on the
     card and the CPU bit for bit, the permutation search on one
     ``fc2.weight`` on both.
+28. ROADMAP item 12, the root tools that drive the system
+    (``phase28``).  28a: ``tools/serve_bench.py``'s port at
+    ``GptConfig()``'s width in the tool's f32 (batch 8, 16-token pages,
+    64 a sequence, 48 Poisson requests of 64-768 prompt and 32-128 new
+    tokens), twice through its ``main``: f32 pages with the prefix
+    cache, 512-token chunks, the ops endpoint, a TTFT SLO and span
+    chains (then ``timeline --json`` over them), and both int8 wires
+    with a 2-layer draft at k = 4; each exits 0 under the tool's gates,
+    with K1, K3 f32 and K6 launches exactly those of its engine calls.
+    28b: ``goodput_drill`` at its defaults (PASS, the reference drill's
+    ledger).  28c: ``flight_view`` over 24b's flight dump (its summary's
+    counts the dump's) and ``concurrency_lint`` over the package (exit 0,
+    no finding).  28d: ``int8wire_sensitivity`` at the small scale and
+    block 256 on 8 DP workers, ``pipeline_cost``'s pp = 2 lockstep rows
+    (remat on and off) on 2 workers, their tables printed.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -413,8 +428,8 @@ trains 3 steps each under ``remat_policy="dots"`` and ``"sums"``; phases
 gradients must be equal bit for bit.
 
 The phases run in the order 1, 2, 3, 12, 13, 15, 6, 7, 8, 9, 14, 10,
-11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 24, 25, 26, 27, 4, 5,
-23c.  The bounds
+11, 16, 17, 18, 19, 20, 21, 22, 23 (but 23c), 24, 25, 26, 27, 28, 4,
+5, 23c.  The bounds
 of the main paths' rows come from the op modules' launch plans
 (:func:`apex_tpu_torch.analysis.kernels.roofline`), the others' from
 :func:`apex_tpu_torch.analysis.kernels.bound`.
@@ -502,6 +517,11 @@ as one JSON line.
 runs phase 27 alone and prints it as one JSON line (``--seed`` offsets
 its inputs' and weights' seeds, for the margins of its limits).
 
+    python3 chip_smoke.py --tools
+
+runs phase 28 alone (24b first, for 28c's flight dump), then phase 4's
+K3 f32 row at 28a's prefill, and prints them as one JSON line.
+
     python3 chip_smoke.py --evoformer
 
 runs phase 10's bf16 evoformer training alone (its launches logged, not
@@ -510,6 +530,7 @@ prints it as one JSON line: the step times and the profiled step's
 kernel time by layer.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -644,23 +665,29 @@ def compare(name, out, ref, tol):
     return max_abs
 
 
+#: time_ms's spin kernel: the card's clock (cycles a second, ~2 GHz) and
+#: the spin's floor and ceiling in seconds
+SPIN_HZ = 2e9
+SPIN_MIN_S, SPIN_MAX_S = 0.02, 0.2
+#: the seconds every time_ms call of the run spun, and the calls
+SPIN_TOTAL = {"s": 0.0, "calls": 0}
+
+
 def time_ms(fn, *, iters=25, warmup=3, flush=None):
     """Median milliseconds of ``fn()`` over ``iters`` runs, each between
-    its own CUDA events.  All runs are queued behind a spin kernel of
-    ~0.2 s (``torch.cuda._sleep``: little power, so the clocks stay up),
-    so the card runs them back to back and each pair of events measures
-    device time, not the host's launch overhead (a small kernel takes
-    less time than its Python wrapper).  ``flush`` (a large tensor) is
-    rewritten before each run so the inputs come from device memory, not
-    the L2 cache."""
+    its own CUDA events.  All runs are queued behind a spin kernel
+    (``torch.cuda._sleep``: little power, so the clocks stay up) that
+    outlasts the host's queueing of them all — twice the host seconds of
+    the last warm-up, which is one whole timed run (the flush, the two
+    events and ``fn``), within [SPIN_MIN_S, SPIN_MAX_S] — so the card
+    runs them back to back and each pair of events measures device
+    time, not the host's launch overhead (a small kernel takes less time
+    than its Python wrapper).  ``flush`` (a large tensor) is rewritten
+    before each run so the inputs come from device memory, not the L2
+    cache."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(400_000_000)  # clock cycles: ~0.2 s at ~2 GHz
-    events = []
-    for _ in range(iters):
+    def run():
         if flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -668,7 +695,19 @@ def time_ms(fn, *, iters=25, warmup=3, flush=None):
         start.record()
         fn()
         end.record()
-        events.append((start, end))
+        return start, end
+
+    host_s = SPIN_MAX_S / (2 * iters)
+    for _ in range(warmup):
+        t = time.perf_counter()
+        run()
+        host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    spin_s = min(SPIN_MAX_S, max(SPIN_MIN_S, 2 * iters * host_s))
+    SPIN_TOTAL["s"] += spin_s
+    SPIN_TOTAL["calls"] += 1
+    torch.cuda._sleep(int(spin_s * SPIN_HZ))
+    events = [run() for _ in range(iters)]
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
@@ -861,6 +900,9 @@ def phase1_paged(gen):
     from apex_tpu_torch.ops import paged_attention as pa
 
     main_err = None
+    b28, h28, d28, page28, np28 = P28_DECODE
+    p28 = dict(b=b28, h=h28, d=d28, page=page28, np_=np28,
+               pool=b28 * np28 + 1)
     # the decode batch (32 splits a row, run twice for the same bits),
     # int8 pages, f32 pages (one split a row), then head dims past the
     # main path's 64, all with the fused RoPE: 96 and 128 with int8 pages
@@ -906,6 +948,11 @@ def phase1_paged(gen):
                       lengths=[0, 1, 64, 65, 192, 100])),
         ("int8", dict(b=6, h=2, d=34, page=8, np_=20, pool=130,
                       lengths=[0, 1, 64, 65, 160, 100])),
+        # phase 28a's decode batch on the tool's f32 pages (64 pages a
+        # sequence, several splits a row merged) at phase 4's lengths,
+        # then with idle slots, a split edge and a full row
+        ("f32", dict(p28, lengths=list(P28_LENGTHS))),
+        ("f32", dict(p28, lengths=[0, 1, 64, 65, 513, 1024, 896, 0])),
     )
     for kv, shape in cases:
         args = paged_inputs(**shape, gen=gen, kv=kv)
@@ -920,7 +967,7 @@ def phase1_paged(gen):
                f"D={shape['d']} page={shape['page']} NP={shape['np_']}")
         e = compare(tag, out, ref, K6_TOL)
         idle = [i for i, n in enumerate(shape["lengths"]) if n == 0]
-        if float(out[idle].float().abs().max()) != 0.0:
+        if idle and float(out[idle].float().abs().max()) != 0.0:
             raise AssertionError(tag + ": an idle slot is not exactly zero")
         if main_err is None:
             main_err = e
@@ -1308,6 +1355,13 @@ EVO_RES, EVO_SEQ, EVO_HEADS = 256, 128, 4
 TRIANGLE_SHAPE = (EVO_RES * EVO_HEADS, EVO_RES, 32)   # start and end node
 MSA_ROW_SHAPE = (EVO_SEQ * EVO_HEADS, EVO_RES, 64)    # with the pair bias
 MSA_COL_SHAPE = (EVO_RES * EVO_HEADS, EVO_SEQ, 64)    # no bias
+#: phase 28a's serving path in the tool's f32 (phases 1 and 4): K6 on
+#: f32 pages at its decode batch (B, H, D, page, pages a sequence) over
+#: lengths across the load's range, and K3 f32 at its longest causal
+#: prefill (BH = 16 heads, S 768, D)
+P28_DECODE = (8, 16, 64, 16, 64)
+P28_LENGTHS = (896, 800, 640, 513, 320, 192, 96, 65)
+P28_PREFILL = (16, 768, 64)
 #: phase 17's DAP rank (dap = 2): each attention call on half the rows
 DAP = 2
 DAP_SHAPES = {"triangle": (TRIANGLE_SHAPE[0] // DAP,) + TRIANGLE_SHAPE[1:],
@@ -1531,6 +1585,9 @@ F32_CASES = (
      MSA_ROW_SHAPE[1], 64, False, (MSA_ROW_SHAPE[0], MSA_ROW_SHAPE[1]), 0.0),
     ("f32 MSA column D=64 no bias", MSA_COL_SHAPE[0], MSA_COL_SHAPE[1],
      MSA_COL_SHAPE[1], 64, False, None, 0.0),
+    # phase 28a's longest causal prefill in the tool's f32
+    ("f32 serve_bench prefill D=64 causal", P28_PREFILL[0], P28_PREFILL[1],
+     P28_PREFILL[1], P28_PREFILL[2], True, None, 0.0),
     # K5 at D = 128 with two members (64-column blocks, Q and dO streamed)
     ("f32 D=128 G=B RS=Sq", 4, 136, 136, 128, False, (2, 136), 0.0),
     # above 256: the wide instances
@@ -3765,7 +3822,7 @@ def _time_f32_attention(gen, flush):
     return out
 
 
-def phase4(gen, launches, errs):
+def phase4(gen, launches, errs, off_path=True):
     """Each kernel at its main-path shapes: the GPT training shapes of
     phase 6 (K1, K2 at x (16384, 1024), which is also BERT's B·S x
     hidden; K3, K4 at BH=128, S=2048), BERT's attention of phase 8 (K3,
@@ -3782,7 +3839,9 @@ def phase4(gen, launches, errs):
     instances of K3, K4 and K5 at the triangle, MSA row and MSA column shapes (the
     f32-attention run of phase 10).  ``launches`` maps kernel -> {path:
     count} from the phase-2, -6, -8 and -10 runs (empty with
-    ``--timing``)."""
+    ``--timing``).  ``off_path=False`` (the whole run) leaves out the
+    rows no model runs — the long-context shape, D = 256 and D = 384 —
+    which ``--timing`` keeps."""
     import torch
 
     from apex_tpu_torch.ops import _build
@@ -3921,36 +3980,44 @@ def phase4(gen, launches, errs):
             extra.setdefault(name, {})[f"dap_{what}_shape"] = dict(
                 row, shape=shape)
         torch.cuda.empty_cache()
-    long_fwd, long_bwd = _time_attn_long(gen, flush)
-    shape = f"BH={LONG_BH} S={LONG_S} D={LONG_D} causal bf16 (long context)"
-    extra["flash_fwd"]["long_context_shape"] = dict(long_fwd, shape=shape)
-    extra["flash_bwd"]["long_context_shape"] = dict(
-        long_bwd, shape=shape + ", m/l/delta f32")
-    torch.cuda.empty_cache()
+    if off_path:
+        # the reference's long-context shape (no model path)
+        long_fwd, long_bwd = _time_attn_long(gen, flush)
+        shape = (f"BH={LONG_BH} S={LONG_S} D={LONG_D} causal bf16 (long "
+                 f"context)")
+        extra["flash_fwd"]["long_context_shape"] = dict(long_fwd,
+                                                        shape=shape)
+        extra["flash_bwd"]["long_context_shape"] = dict(
+            long_bwd, shape=shape + ", m/l/delta f32")
+        torch.cuda.empty_cache()
     for name, by_shape in _time_f32_attention(gen, flush).items():
         rows[name] = by_shape.pop("triangle_shape")
         extra.setdefault(name, {}).update(by_shape)
     # phase 19's ring hops (f32, K4 with dlse)
     for name, by_shape in _time_ring_hops(gen, flush).items():
         extra.setdefault(name, {}).update(by_shape)
-    # a head dim past 128, which no model of either package runs
-    wide_fwd, wide_bwd = _time_attn(gen, flush, WIDE_BH, WIDE_S,
-                                    with_bwd=True, d=WIDE_D)
-    shape = f"BH={WIDE_BH} S={WIDE_S} D={WIDE_D} causal bf16 (no model path)"
-    extra["flash_fwd"]["d256_shape"] = dict(wide_fwd, shape=shape)
-    extra["flash_bwd"]["d256_shape"] = dict(wide_bwd,
-                                            shape=shape + ", m/l/delta f32")
-    torch.cuda.empty_cache()
-    # and past 256 (the wide instance)
-    wider = _time_attn_wider(gen, flush)
-    if wider is not None:
-        shape = f"BH={WIDE_BH} S={WIDE_S} D={WIDER_D} bf16 (no model path)"
-        for name, r, what in zip(
-                ("flash_fwd", "flash_bwd", "flash_dbias"), wider,
-                (" causal", " causal, m/l/delta f32",
-                 f" non-causal, bias ({WIDE_BH}, {WIDE_S}, {WIDE_S}) f32")):
-            extra.setdefault(name, {})["d384_shape"] = dict(
-                r, shape=shape + what)
+    if off_path:
+        # a head dim past 128, which no model of either package runs
+        wide_fwd, wide_bwd = _time_attn(gen, flush, WIDE_BH, WIDE_S,
+                                        with_bwd=True, d=WIDE_D)
+        shape = (f"BH={WIDE_BH} S={WIDE_S} D={WIDE_D} causal bf16 (no "
+                 f"model path)")
+        extra["flash_fwd"]["d256_shape"] = dict(wide_fwd, shape=shape)
+        extra["flash_bwd"]["d256_shape"] = dict(
+            wide_bwd, shape=shape + ", m/l/delta f32")
+        torch.cuda.empty_cache()
+        # and past 256 (the wide instance)
+        wider = _time_attn_wider(gen, flush)
+        if wider is not None:
+            shape = (f"BH={WIDE_BH} S={WIDE_S} D={WIDER_D} bf16 (no model "
+                     f"path)")
+            for name, r, what in zip(
+                    ("flash_fwd", "flash_bwd", "flash_dbias"), wider,
+                    (" causal", " causal, m/l/delta f32",
+                     f" non-causal, bias ({WIDE_BH}, {WIDE_S}, {WIDE_S})"
+                     f" f32")):
+                extra.setdefault(name, {})["d384_shape"] = dict(
+                    r, shape=shape + what)
     torch.cuda.empty_cache()
 
     serving = {}
@@ -4073,6 +4140,35 @@ def phase4(gen, launches, errs):
                            flush=flush),
         bound_ms=b_ms, bound_by=b_by,
     )
+    del short
+    # phase 28a's serving path in the tool's f32: K6 on f32 pages at its
+    # decode batch, and K3 f32 at its longest causal prefill
+    b, h, d, page, np_ = P28_DECODE
+    f32p = paged_inputs(b=b, h=h, d=d, page=page, np_=np_,
+                        pool=b * np_ + 1, lengths=P28_LENGTHS, gen=gen,
+                        kv="f32")
+    pos = [f32p[k] for k in ("q", "k_pages", "v_pages", "page_table",
+                             "lengths")]
+    kw = dict(scale=d ** -0.5, rope_cos=f32p["rope_cos"],
+              rope_sin=f32p["rope_sin"])
+    b_ms, b_by = roofline_bound(pa.kernel_specs(
+        b, h, d, page=page, np_=np_, q_dtype=torch.float32,
+        kv_dtype=torch.float32, lengths=P28_LENGTHS))
+    extra.setdefault("paged_decode", {})["serve_bench_f32_shape"] = dict(
+        shape=f"B={b} H={h} D={d} page={page} NP={np_} f32 pages, lengths "
+        f"{list(P28_LENGTHS)} (phase 28a's decode batch)",
+        ms=time_ms(lambda: pa.paged_decode_fwd(*pos, **kw), flush=flush),
+        plain_ms=time_ms(
+            lambda: pa.paged_decode_attention_reference(*pos, **kw),
+            flush=flush),
+        library_ms=time_ms(lambda: library_paged(f32p, d ** -0.5),
+                           flush=flush),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    del f32p, pos
+    extra.setdefault("flash_fwd_f32", {})["serve_bench_prefill_shape"] = \
+        _time_p28_prefill(gen, flush)
+    torch.cuda.empty_cache()
 
     def fields(r):
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -5952,88 +6048,57 @@ P16_BN_TOL = 2e-2
 P16_BN_SHAPE = (32, 64, 56, 56)
 
 
-def _p16_main(rank, world, backend, store, jobs, out_dir):
-    """A phase-16 worker: join the group on card 0 (``file://`` store,
-    ``backend``), run ``jobs`` (names of functions here, with kwargs),
-    write their results as JSON; a failure writes its traceback."""
-    import traceback
-
+def _p16_jobs(rank, world, jobs):
+    """A phase-16 worker's body (in a group on card 0 that
+    :func:`apex_tpu_torch.tools._ranks.run_ranks` joined): run ``jobs``
+    (names of functions here, with kwargs) and return their results as
+    JSON would carry them back."""
     import torch
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from apex_tpu_torch.parallel import multihost
+    out = {}
+    for name, fn, kwargs in jobs:
+        out[name] = globals()[fn](rank, world, **kwargs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return json.loads(json.dumps(out))
 
-    try:
-        multihost.initialize_distributed(
-            init_method=f"file://{store}", num_processes=world,
-            process_id=rank, backend=backend, device="cuda",
-            timeout_s=P16_GROUP_TIMEOUT_S)
-        out = {}
-        for name, fn, kwargs in jobs:
-            out[name] = globals()[fn](rank, world, **kwargs)
-            gc.collect()
-            torch.cuda.empty_cache()
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    except BaseException:
-        with open(os.path.join(out_dir, f"err{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        multihost.finalize_distributed()
+
+def _start_worker_server():
+    """Start the server the worker processes fork from (the
+    ``forkserver`` start method), with ``torch`` and numpy imported once
+    in it: a fresh interpreter's ``import torch`` took 8.2 s on an H100
+    host, in every worker of every spawn.  The server never touches the
+    card; each worker takes it itself.  It stops when the script does."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+
+    mp.get_context("forkserver").set_forkserver_preload(["torch", "numpy"])
+    forkserver.ensure_running()
 
 
 def _p16_spawn(world, backend, jobs):
     """Run ``jobs`` (``(name, function name, kwargs)``) on ``world``
-    processes sharing card 0
-    (``torch.multiprocessing``, spawn).  A worker that raises, exits
-    non-zero or outlives ``P16_SPAWN_TIMEOUT_S`` fails the phase (the
-    others are killed).  Returns each rank's results."""
-    import shutil
-    import tempfile
-
+    processes sharing card 0 (:func:`apex_tpu_torch.tools._ranks.run_ranks`,
+    forked from :func:`_start_worker_server`'s server).  A worker that
+    raises, exits non-zero or outlives ``P16_SPAWN_TIMEOUT_S`` fails the
+    phase (the others are killed).  Returns each rank's results."""
     import torch
-    import torch.multiprocessing as tmp_mp
+
+    from apex_tpu_torch.tools._ranks import run_ranks
 
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="apex_p16_")
-    ctx = tmp_mp.get_context("spawn")
-    procs = [ctx.Process(target=_p16_main, args=(
-        r, world, backend, os.path.join(tmp, "store"), jobs, tmp))
-        for r in range(world)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
     try:
-        for p in procs:
-            p.join(max(0.0, P16_SPAWN_TIMEOUT_S - (time.perf_counter() - t0)))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        if hung:
-            raise AssertionError(
-                f"phase 16: ranks {hung} hung past {P16_SPAWN_TIMEOUT_S} s")
-        for r, p in enumerate(procs):
-            if p.exitcode != 0:
-                err = os.path.join(tmp, f"err{r}.txt")
-                text = open(err).read() if os.path.exists(err) else ""
-                raise AssertionError(
-                    f"phase 16: rank {r} exited with {p.exitcode}\n{text}")
-        out = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                out.append(json.load(f))
-        log(f"  {world} worker(s) over {backend}: "
-            f"{time.perf_counter() - t0:.1f} s wall")
-        return out
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        shutil.rmtree(tmp, ignore_errors=True)
+        out = run_ranks(world, _p16_jobs, dict(jobs=jobs), backend=backend,
+                        timeout_s=P16_SPAWN_TIMEOUT_S,
+                        group_timeout_s=P16_GROUP_TIMEOUT_S)
+    except RuntimeError as e:
+        raise AssertionError(f"phase 16: {e}") from e
+    log(f"  {world} worker(s) over {backend}: "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    return out
 
 
 def _param_digests(model):
@@ -12859,12 +12924,510 @@ def phase27():
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the root tools that drive the system (ROADMAP item 12)
+# ---------------------------------------------------------------------------
+
+
+#: 28a: the port's serve_bench at GptConfig()'s width (vocab, hidden,
+#: layers, heads, FFN) in the tool's own f32, batch 8 on 16-token pages
+#: with 64 pages a sequence (1024 positions, the RoPE table's length:
+#: the longest prompt, 768, plus the longest output, 128, fits) and
+#: enough pages that no request waits for one (8 x 64 + 1, and as many
+#: again for the prefix cache)
+P28_MODEL = ("--vocab", "50304", "--hidden", "1024", "--layers", "12",
+             "--heads", "16", "--intermediate", "4096")
+P28_SERVE = ("--batch", "8", "--page-size", "16", "--pages-per-seq", "64",
+             "--pages", "1025")
+P28_LOAD = ("--requests", "48", "--prompt-mix", "64", "256", "768",
+            "--output-mix", "32", "64", "128")
+#: the Poisson rate (requests/s): the highest of the sweep in PERF.md
+#: (4 to 64 requests/s) at which the first invocation sheds nothing and
+#: its mean batch fill is above the single-request baseline.  Every rate
+#: of the sweep meets both (1025 pages shed nothing, and the fill rises
+#: with the rate), so this is the sweep's top
+P28_RATE = 64.0
+#: the first invocation's TTFT SLO: only the threshold of the burn-rate
+#: alerts it prints (no gate reads them, and no source gives the value)
+P28_SLO_TTFT_MS = 1000.0
+P28_RUNS = (
+    ("serve_bench", ("--prefix-cache", "--shared-prefix-tokens", "512",
+                     "--shared-frac", "0.75", "--chunk-tokens", "512",
+                     "--ops-port", "0", "--slo-ttft-ms",
+                     str(P28_SLO_TTFT_MS))),
+    ("serve_bench_int8_spec", ("--kv-wire", "int8", "--weight-wire", "int8",
+                               "--speculate", "4", "--draft-layers", "2")),
+)
+#: 28b: the goodput drill's ledger at its defaults, as the reference
+#: drill (tools/goodput_drill.py) gives it on the CPU
+P28_GOODPUT = dict(accepted=60, skipped=0, discarded=0, retries=1,
+                   resumes=4, invocations=5)
+#: 28d: the sweeps at their smallest setting
+P28_INT8WIRE = ("small (9.5k params)", 256)
+P28_PIPELINE_PP = 2
+
+
+def _time_p28_prefill(gen, flush):
+    """K3 f32 at 28a's longest prefill (q/k/v (16, 768, 64) f32, causal)
+    beside the plain version and f32 SDPA; the bound from its launch
+    plan."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import attention as attn
+
+    bh, s, d = P28_PREFILL
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(scale=d ** -0.5, causal=True)
+    row = dict(
+        shape=f"BH={bh} S={s} D={d} causal f32 (phase 28a's prefill)",
+        ms=time_ms(lambda: attn.flash_fwd(q, k, v, **kw), flush=flush),
+        plain_ms=time_ms(lambda: attn.flash_fwd_reference(q, k, v, **kw),
+                         flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, scale=d ** -0.5),
+            flush=flush),
+    )
+    row["bound_ms"], row["bound_by"] = roofline_bound(attn.kernel_specs(
+        bh, s, s, d, dtype=torch.float32, causal=True, modes=("fwd",)))
+    return row
+
+
+@contextlib.contextmanager
+def _p28_engine_calls():
+    """Record every engine call that launches kernels while the block
+    runs — prefill, chunk prefill, decode (a graph replay), spec round,
+    draft prefill — and every unpaged ``GptModel`` forward, each with
+    the depths it ran at: ``(kind, layers, draft layers, k)``."""
+    from apex_tpu_torch.models import GptModel
+    from apex_tpu_torch.serve import InferenceEngine
+
+    calls = []
+    saved = {}
+
+    def wrap(cls, name, kind):
+        fn = saved[(cls, name)] = getattr(cls, name)
+
+        def call(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            if cls is GptModel:
+                calls.append((kind, self.cfg.num_layers, 0, 0))
+            else:
+                calls.append((kind, self.cfg.num_layers,
+                              self.draft_cfg.num_layers
+                              if self.draft_cfg is not None else 0,
+                              self.spec.k if self.spec is not None else 0))
+            return out
+
+        setattr(cls, name, call)
+
+    for name, kind in (("prefill", "prefill"), ("chunk_prefill", "chunk"),
+                       ("decode", "decode"), ("spec_step", "spec"),
+                       ("draft_prefill", "draft_prefill")):
+        wrap(InferenceEngine, name, kind)
+    wrap(GptModel, "forward", "forward")
+    try:
+        yield calls
+    finally:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def _p28_want(calls):
+    """The exact K1/K3 f32/K6 launches of ``calls``: a prefill or an
+    unpaged forward K1 2L + 1 and K3 L; a chunk call K1 2L + 1 (its
+    attention is the plain composition); a decode replay K1 2L + 1 and
+    K6 L; a draft prefill the draft's K1 2Ld + 1 and K3 Ld; a spec round
+    k + 1 draft steps and k + 1 verify steps (K1 2Ld + 1 and 2L + 1, K6
+    Ld and L a step).  The model is f32, so K3 is its f32 instance."""
+    want = {}
+
+    def add(name, n):
+        if n:
+            want[name] = want.get(name, 0) + n
+
+    for kind, layers, ld, k in calls:
+        if kind in ("prefill", "forward"):
+            add("layer_norm_fwd", 2 * layers + 1)
+            add("flash_fwd_f32", layers)
+        elif kind == "chunk":
+            add("layer_norm_fwd", 2 * layers + 1)
+        elif kind == "decode":
+            add("layer_norm_fwd", 2 * layers + 1)
+            add("paged_decode", layers)
+        elif kind == "draft_prefill":
+            add("layer_norm_fwd", 2 * ld + 1)
+            add("flash_fwd_f32", ld)
+        elif kind == "spec":
+            add("layer_norm_fwd", (k + 1) * (2 * ld + 1 + 2 * layers + 1))
+            add("paged_decode", (k + 1) * (ld + layers))
+    return want
+
+
+def _phase28a(tmp):
+    """``apex_tpu_torch.tools.serve_bench`` at GptConfig()'s width (f32),
+    twice, through its ``main`` in this process: f32 pages with the
+    prefix cache, 512-token chunks, the ops endpoint on an OS-assigned
+    port, a TTFT SLO and span chains (``tools/timeline.py --json`` then
+    accounts for them, as the reference's serving gate does), then both
+    int8 wires with a 2-layer draft proposing 4 tokens.  Each must exit
+    0 under the tool's own gates (batch fill over the single-request
+    baseline, both numerics records within TOL_F32 / TOL_INT8_KV, the
+    build's reports over ``decode`` and a ``prefill*`` program with no
+    ERROR, the prefix and spec replays bit-identical).  The launch
+    counters are zeroed just before each invocation and read just after;
+    they must equal :func:`_p28_want` of the engine calls it made."""
+    import io
+
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.tools import serve_bench, timeline
+
+    launches, out, failures = {}, {}, []
+    for tag, extra in P28_RUNS:
+        art_path = os.path.join(tmp, f"{tag}.json")
+        argv = [*P28_MODEL, *P28_SERVE, *P28_LOAD, "--rate", str(P28_RATE),
+                *extra, "--json", art_path]
+        spans = None
+        if tag == "serve_bench":
+            spans = os.path.join(tmp, "spans.json")
+            argv += ["--spans", spans]
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        _dispatch.reset_launches()
+        _dispatch.clear_paths()
+        with _p28_engine_calls() as calls, \
+                contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(err):
+            rc = serve_bench.main(argv)
+        got = _dispatch.launches()
+        paths = _dispatch.last_paths()
+        dtypes = _dispatch.launch_dtypes()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if not line.startswith("  ") or "ms |" not in line:
+                log(f"  28a {tag}: {line}")
+        for line in err.getvalue().splitlines():
+            log(f"  28a {tag} stderr: {line}")
+        want = _p28_want(calls)
+        kinds = {}
+        for kind, *_ in calls:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        log(f"  28a {tag}: exit {rc} in {secs:.1f} s; engine calls {kinds}; "
+            f"launches {got} (want {want}); dtypes {dtypes}; paths {paths}")
+        launches[tag] = got
+        with open(art_path) as f:
+            art = json.load(f)
+        load = art["load"]
+        rec = dict(
+            exit=rc, seconds=secs, calls=kinds, launches=got,
+            launch_dtypes=dtypes,
+            ttft_ms=load["ttft_ms"], per_token_ms=load["per_token_ms"],
+            tokens_per_s=load["tokens"]["throughput_per_s"],
+            goodput=load["requests"]["goodput"],
+            token_goodput=load["tokens"]["goodput"],
+            shed=load["requests"]["shed_reasons"],
+            batch_fill=load["batch_fill"],
+            baseline_fill=art["batch_fill_single_request_baseline"],
+            ttft_attribution={k: v for k, v in load["ttft_attribution"].items()
+                              if k.endswith("_ms")},
+            numerics=art["numerics_vs_unpaged_f32"],
+            programs=sorted(art["graph_lint_errors"]),
+            memstats_findings=[f["message"] for f in
+                               art["memstats"]["findings"]],
+            live_peaks=art["memstats"]["live_peaks"],
+            wall_s=load["wall_s"])
+        for sec in ("prefix", "spec"):
+            if sec in load:
+                rec[sec] = {k: v for k, v in load[sec].items()
+                            if k not in ("leak_checks_run",)}
+        if art["slo"] is not None:
+            rec["slo_alerts"] = art["slo"]["alerts_fired"]
+        if art["ops"] is not None:
+            rec["ops_scrape_ok"] = [bool(art["ops"]["mid_scrape"] and
+                                         art["ops"]["mid_scrape"]["ok"]),
+                                    bool(art["ops"]["scrape"]["ok"])]
+        out[tag] = rec
+        if rc != 0:
+            failures.append(f"28a {tag} exited {rc}: {art['failures']}")
+        if got != want:
+            failures.append(f"28a {tag} launches {got} != {want}")
+        if set(paths.values()) != {"cuda"}:
+            failures.append(f"28a {tag} op paths {paths}")
+        if load["requests"]["shed"]:
+            failures.append(
+                f"28a {tag} shed {load['requests']['shed_reasons']}")
+        if spans is not None:
+            tbuf = io.StringIO()
+            with contextlib.redirect_stdout(tbuf):
+                rc_tl = timeline.main(["--spans", spans, "--json"])
+            summary = json.loads(tbuf.getvalue().strip().splitlines()[-1])
+            log(f"  28a timeline --json over the spans: exit {rc_tl}, "
+                f"requests {summary['requests']}, violations "
+                f"{summary['violations'][:2]}")
+            rec["timeline"] = dict(exit=rc_tl, requests=summary["requests"])
+            if rc_tl != 0:
+                failures.append(f"28a timeline exited {rc_tl}")
+    return launches, out, failures
+
+
+def _phase28b(tmp):
+    """``apex_tpu_torch.tools.goodput_drill`` at its defaults on the card,
+    through its ``main`` in this process: it must print PASS, and its
+    ledger must equal the reference drill's at the same flags
+    (P28_GOODPUT).  Its kernel launches are counted (the toy regression
+    reaches no K1-K6)."""
+    import io
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.tools import goodput_drill
+
+    art_path = os.path.join(tmp, "goodput.json")
+    buf = io.StringIO()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = goodput_drill.main(["--dir", os.path.join(tmp, "drill"),
+                                 "--json", art_path])
+    secs = time.perf_counter() - t0
+    got = _dispatch.launches()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.startswith("[spans]"):
+            log(f"  28b {line}")
+    with open(art_path) as f:
+        art = json.load(f)
+    ledger = {k: art["accountant"][k] for k in P28_GOODPUT
+              if k != "invocations"}
+    ledger["invocations"] = art["invocations"]
+    out = dict(exit=rc, seconds=secs, ledger=ledger,
+               goodput=art["goodput"], stall_frac=art["ckpt"]["stall_frac"],
+               storm_max_stall_frac=art["ckpt"]["storm_max_stall_frac"],
+               snapshot_ms_median=statistics.median(art["ckpt"]["snapshot_ms"])
+               if art["ckpt"]["snapshot_ms"] else None,
+               write_ms_median=statistics.median(art["ckpt"]["write_ms"])
+               if art["ckpt"]["write_ms"] else None,
+               bit_exact=art["loss_trajectory"]["bit_exact"],
+               midwrite=art["planted_midwrite"], launches=got)
+    log(f"  28b goodput drill: exit {rc} in {secs:.1f} s; ledger {ledger}; "
+        f"stall {out['stall_frac']:.5f}; launches {got}")
+    failures = []
+    if rc != 0 or "goodput drill: PASS" not in text:
+        failures.append(f"28b goodput drill exited {rc}")
+    if ledger != P28_GOODPUT:
+        failures.append(f"28b ledger {ledger} != {P28_GOODPUT}")
+    return out, failures
+
+
+def _phase28c(tmp):
+    """``flight_view`` renders phase 24b's kept flight dump (its render,
+    then ``--json``, whose counts must equal the dump's own), and
+    ``concurrency_lint`` lints ``apex_tpu_torch/`` in a process of its
+    own: both exit 0, the lint with no finding."""
+    import io
+
+    from apex_tpu_torch.tools import flight_view
+
+    failures, out = [], {}
+    if not P24_DUMPS.get("flight"):
+        log("  28c: phase 24b's flight dump first")
+        _phase24b()
+    dump = P24_DUMPS["flight"][0]
+    with open(dump) as f:
+        data = json.load(f)
+    want = dict(
+        reason=data["reason"], frames=len(data["frames"]),
+        events=len(data["events"]),
+        frame_skips=sum(1 for fr in data["frames"] if fr.get("skipped")),
+        rollbacks=sum(1 for e in data["events"] if e["kind"] == "rollback"),
+        retries=sum(1 for e in data["events"] if e["kind"] == "retry"),
+        health_events=sum(1 for e in data["events"]
+                          if e["kind"] == "health"),
+        preempted=any(e["kind"] == "preempt" for e in data["events"]))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_render = flight_view.main([dump])
+    rendered = buf.getvalue()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_json = flight_view.main([dump, "--json"])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    got = {k: summary[k] for k in want}
+    log(f"  28c flight_view: render exit {rc_render} "
+        f"({len(rendered.splitlines())} lines: "
+        f"{rendered.splitlines()[1].strip()}), --json exit {rc_json}: {got}")
+    out["flight_view"] = dict(exits=[rc_render, rc_json], summary=got)
+    if rc_render != 0 or rc_json != 0 or got != want:
+        failures.append(f"28c flight_view exits {rc_render}/{rc_json}, "
+                        f"summary {got} != {want}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    lint_json = os.path.join(tmp, "lint.json")
+    p = subprocess.run([sys.executable, "-m",
+                        "apex_tpu_torch.tools.concurrency_lint", "--json",
+                        lint_json], cwd=root, capture_output=True, text=True,
+                       env=dict(os.environ, PYTHONPATH=root), timeout=120)
+    with open(lint_json) as f:
+        rep = json.load(f)
+    log(f"  28c concurrency_lint: exit {p.returncode}, "
+        f"{rep['files_scanned']} files, {len(rep['findings'])} findings")
+    out["concurrency_lint"] = dict(exit=p.returncode,
+                                   files_scanned=rep["files_scanned"],
+                                   findings=len(rep["findings"]))
+    if p.returncode != 0 or rep["findings"]:
+        failures.append(f"28c concurrency_lint exited {p.returncode}: "
+                        + p.stdout[-2000:])
+    return out, failures
+
+
+#: 28d's int8-wire sweep, started beside the kernels' build (it reaches
+#: no kernel, and its wall time is not what it measures) and waited for
+#: when the build ends, so that its 8 workers hold the card in no
+#: measured phase: a process of its own (and its own session, so that
+#: its workers stop with it) whose last line is the rows as JSON
+P28_INT8WIRE_PROC = {}
+
+
+def _start_p28_int8wire():
+    """Start 28d's int8-wire sweep (:data:`P28_INT8WIRE`) in a process
+    of its own; it is stopped, with its workers, when the script exits."""
+    import atexit
+    import signal
+
+    scale, block = P28_INT8WIRE
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, time\n"
+            "from apex_tpu_torch.tools import int8wire_sensitivity as m\n"
+            "t = time.perf_counter()\n"
+            f"rows = m.sweep([{scale!r}], ({block},))\n"
+            "print(json.dumps(dict(rows=rows, "
+            "seconds=time.perf_counter() - t)))\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=root))
+    P28_INT8WIRE_PROC.update(proc=proc, t0=time.perf_counter())
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(10)
+
+    atexit.register(stop)
+
+
+def _finish_p28_int8wire():
+    """Wait for the sweep that :func:`_start_p28_int8wire` started (its
+    output is kept for 28d) and log whether it had finished by then."""
+    proc = P28_INT8WIRE_PROC["proc"]
+    done = proc.poll() is not None
+    t = time.perf_counter()
+    text, _ = proc.communicate(timeout=P16_SPAWN_TIMEOUT_S)
+    P28_INT8WIRE_PROC["text"] = text
+    log(f"28d's int8-wire sweep: {'had finished' if done else 'still ran'}"
+        f" when the build ended; waited {time.perf_counter() - t:.1f} s "
+        f"for it ({time.perf_counter() - P28_INT8WIRE_PROC['t0']:.1f} s "
+        f"after its start)")
+
+
+def _phase28d():
+    """The two sweeps at their smallest setting, their tables printed:
+    ``int8wire_sensitivity`` at the small scale and block 256 (its 8 DP
+    worker processes on the card, over gloo; started beside the build,
+    :func:`_start_p28_int8wire`), and ``pipeline_cost``'s lockstep rows
+    at pp 2, remat on and off (two workers), beside its one-rank
+    baseline."""
+    import io
+
+    from apex_tpu_torch.tools import pipeline_cost
+
+    out, failures = {}, []
+    if "text" not in P28_INT8WIRE_PROC:
+        _finish_p28_int8wire()
+    proc, text = P28_INT8WIRE_PROC["proc"], P28_INT8WIRE_PROC["text"]
+    lines = text.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  28d {line}")
+    if proc.returncode != 0:
+        raise AssertionError("28d int8wire_sensitivity exited "
+                             f"{proc.returncode}:\n{text[-3000:]}")
+    res = json.loads(lines[-1])
+    rows = out["int8wire"] = res["rows"]
+    out["int8wire_s"] = res["seconds"]
+    log(f"  28d int8wire_sensitivity: exit 0, its sweep {res['seconds']:.1f}"
+        f" s (beside the build)")
+    r = rows[0]
+    if not (0 < r["rel_err_mean_worst_leaf"] < r["rel_err_max_worst_leaf"]
+            < 1.0 and abs(r["loss_delta_frac_of_init"]) < 1e-2):
+        failures.append(f"28d int8wire row {r}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rows = pipeline_cost.schedules_table(
+            "lockstep", pps=(P28_PIPELINE_PP,))
+    out["pipeline_s"] = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  28d {line}")
+    log(f"  28d pipeline_cost: {out['pipeline_s']:.1f} s")
+    out["pipeline"] = [{k: v for k, v in row.items() if k != "line"}
+                       for row in rows]
+    if len(rows) != 2 or not all(row["wall_ms"] > 0 and row["mem_mb"] > 0
+                                 for row in rows):
+        failures.append(f"28d pipeline rows {out['pipeline']}")
+    return out, failures
+
+
+def phase28():
+    """ROADMAP item 12 on the card: 28a-28d (see their docstrings).  Every
+    part logs its readings before any failure fails the phase.  Returns
+    (28a's launches by path, results)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 28: the root tools — serve_bench at GptConfig()'s width "
+        "(f32), goodput_drill, flight_view, concurrency_lint, the int8-wire "
+        "and pipeline-cost sweeps")
+    out, failures, seconds = {}, [], {}
+    tmp = tempfile.mkdtemp(prefix="apex_tpu_torch_p28_")
+    try:
+        t = time.perf_counter()
+        launches, out["28a"], f = _phase28a(tmp)
+        failures += f
+        seconds["28a"] = time.perf_counter() - t
+        for name, part in (("28b", _phase28b), ("28c", _phase28c),
+                           ("28d", lambda _tmp: _phase28d())):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            out[name], f = part(tmp)
+            failures += f
+            seconds[name] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["part_seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    log(f"  phase 28 by part: {out['part_seconds']} s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 28 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 28: " + "; ".join(failures))
+    return launches, out
+
+
 #: the flags that run one part of the script alone
 SINGLE_PHASE_FLAGS = ("f32_attention", "timing", "phase1", "serving",
                       "evoformer", "resilience", "chaos", "parallel", "dap",
                       "trainer", "context", "experts", "pipeline", "amp",
                       "analysis", "trace_window", "observe", "modules",
-                      "tail", "contrib")
+                      "tail", "contrib", "tools")
 
 
 def main():
@@ -12944,6 +13507,13 @@ def main():
                         "packages: the NHWC vision blocks, the focal and "
                         "transducer losses, the halo exchange on two "
                         "workers, ASP on GptConfig(remat=True))")
+    parser.add_argument("--tools", action="store_true",
+                        help="run phase 28 alone (the root tools: "
+                        "serve_bench at GptConfig()'s width, goodput_drill, "
+                        "flight_view, concurrency_lint, the int8-wire and "
+                        "pipeline-cost sweeps; phase 24b first, for 28c's "
+                        "flight dump), then phase 4's two rows on 28a's "
+                        "path")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -12975,11 +13545,19 @@ def main():
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
+    # the worker processes' server, and, where the run reaches phase 28,
+    # its int8-wire sweep (no kernel), start beside the build
+    _start_worker_server()
+    if args.tools or not any(getattr(args, flag)
+                             for flag in SINGLE_PHASE_FLAGS):
+        _start_p28_int8wire()
     # the kernels (one nvcc per source, all started together); where the
     # run reaches phase 23, its two tuned variants build beside the first
     # phases, off the build's critical path, and phase 23 waits for them
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    if P28_INT8WIRE_PROC:
+        _finish_p28_int8wire()
     if args.analysis or not any(getattr(args, flag)
                                 for flag in SINGLE_PHASE_FLAGS):
         pool = ThreadPoolExecutor(2)
@@ -13100,6 +13678,14 @@ def main():
         print(json.dumps({"contrib": dict(run, launches=launches)},
                          default=str), flush=True)
         return
+    if args.tools:
+        launches, run = phase28()
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        run["phase4_rows"] = {"flash_fwd_f32": _time_p28_prefill(gen, flush)}
+        log(f"  phase 4's rows on 28a's path: {run['phase4_rows']}")
+        print(json.dumps({"tools": dict(run, launches=launches)},
+                         default=str), flush=True)
+        return
     if args.modules:
         launches, run = phase25()
         print(json.dumps({"modules": dict(run, launches=launches)},
@@ -13152,6 +13738,7 @@ def main():
     modules_launches, modules = timed("25", phase25)
     tail_launches, tail = timed("26", phase26)
     contrib_launches, contrib = timed("27", phase27)
+    tools_launches, tools = timed("28", phase28)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -13177,7 +13764,8 @@ def main():
             ("canary", observe_launches["canary"]),
             *modules_launches.items(),
             *tail_launches.items(),
-            *contrib_launches.items())
+            *contrib_launches.items(),
+            *tools_launches.items())
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -13190,7 +13778,7 @@ def main():
     # microseconds a launch); 23c reads the launches of every other phase
     signatures = _dispatch.launch_signatures()
     _dispatch.record_signatures(False)
-    kernels = timed("4", phase4, gen, launches, errs)
+    kernels = timed("4", phase4, gen, launches, errs, False)
     profile = timed("5", phase5, engine)
     analysis_run["23c"] = timed("23c", phase23c, signatures)
     log(json.dumps({"serving": rates, "cross_check": cross,
@@ -13207,8 +13795,11 @@ def main():
                     "pipeline": pipeline, "amp": amp_run,
                     "analysis": analysis_run, "observe": observe,
                     "modules": modules, "tail": tail, "contrib": contrib,
-                    "decode_profile": profile}, default=str))
+                    "tools": tools, "decode_profile": profile},
+                   default=str))
     log(f"seconds by phase: {PHASE_SECONDS}")
+    log(f"time_ms: {SPIN_TOTAL['calls']} calls spun {SPIN_TOTAL['s']:.1f} s "
+        f"in all")
     log(f"whole run {time.perf_counter() - t0:.1f} s (the build included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -260,7 +260,16 @@ ITEM11_FILES = (
 )
 
 
-@pytest.mark.parametrize("module", ITEM10_FILES + ITEM11_FILES)
+#: ROADMAP item 12: the root tools that drive the system
+ITEM12_FILES = (
+    "tools/serve_bench.py", "tools/goodput_drill.py", "tools/flight_view.py",
+    "tools/concurrency_lint.py", "tools/int8wire_sensitivity.py",
+    "tools/pipeline_cost.py", "tools/_ranks.py",
+)
+
+
+@pytest.mark.parametrize("module",
+                         ITEM10_FILES + ITEM11_FILES + ITEM12_FILES)
 def test_new_modules_are_in_the_isolation_walk(module):
     path = ROOT / "apex_tpu_torch" / module
     assert path in _port_files(), module
@@ -280,13 +289,41 @@ def test_port_modules_keep_their_counterparts_names(module):
 #: the port's tools under the reference's tools/ names
 TOOLS = ("serve_chaos_drill.py", "graph_lint.py", "kernel_lint.py",
          "fleet_drill.py", "canary_drill.py", "trace_summary.py",
-         "step_profile.py", "timeline.py")
+         "step_profile.py", "timeline.py", "serve_bench.py",
+         "goodput_drill.py", "flight_view.py", "concurrency_lint.py",
+         "int8wire_sensitivity.py", "pipeline_cost.py")
+
+#: the root tools with no counterpart in the port, each with its reason
+TOOLS_WITHOUT_COUNTERPART = {
+    "bench_all.py": "the reference's TPU baseline run; the port's "
+                    "benchmark brings its own",
+    "bench_diff.py": "compares the reference's TPU baseline runs; the "
+                     "port's benchmark brings its own",
+    "mfu_sweep.py": "the reference's TPU MFU sweep; the port's benchmark "
+                    "brings its own",
+    "attn_tune.py": "a Pallas block tuner (tools/flash_tiles.py tunes "
+                    "the CUDA kernels' tiles)",
+    "ln_tune.py": "a Pallas block tuner",
+    "comm_structure.py": "reads GSPMD/HLO collectives of compiled "
+                         "programs, which the port has none of",
+    "shard_report.py": "reads GSPMD shardings of compiled programs",
+    "repo_lint.py": "the reference repository's own source lint",
+}
 
 
 @pytest.mark.parametrize("tool", TOOLS)
 def test_port_tools_keep_their_counterparts_names(tool):
     assert (ROOT / "tools" / tool).is_file(), tool
     assert (ROOT / "apex_tpu_torch" / "tools" / tool).is_file(), tool
+
+
+def test_every_root_tool_is_ported_or_has_its_reason():
+    root_tools = sorted(p.name for p in (ROOT / "tools").glob("*.py"))
+    assert not set(TOOLS) & set(TOOLS_WITHOUT_COUNTERPART)
+    assert root_tools == sorted((*TOOLS, *TOOLS_WITHOUT_COUNTERPART))
+    for name, reason in TOOLS_WITHOUT_COUNTERPART.items():
+        assert reason and not (ROOT / "apex_tpu_torch" / "tools"
+                               / name).exists(), name
 
 
 def test_native_host_ops_have_their_own_source():

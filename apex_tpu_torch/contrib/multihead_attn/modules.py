@@ -246,7 +246,7 @@ def to_jax_params(module: _Attn, tensors: Optional[Mapping] = None) -> dict:
         tensors = dict(module.named_parameters())
 
     def arr(t):
-        return t.detach().float().cpu().numpy()
+        return t.detach().float().cpu().numpy()  # lint: allow(host-sync): export
 
     out = {}
     for name in _PROJ:

@@ -45,7 +45,8 @@ _OTHERS = ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2))
 
 def _to_2d(weight, axis: int) -> torch.Tensor:
     w = torch.as_tensor(weight).movedim(axis, -1)
-    return w.reshape(-1, w.shape[-1]).abs().to(torch.float64)
+    w = w.reshape(-1, w.shape[-1]).abs()
+    return w.to(torch.float64)  # lint: allow(step-f64): offline search
 
 
 def permutation_retained_magnitude(weight, perm, axis: int = -1) -> float:

@@ -360,7 +360,7 @@ def _draw_seeds(generator: Optional[torch.Generator], n: int):
             "seeds are drawn on the host"
         )
     return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,),
-                         generator=generator).tolist()
+                         generator=generator).tolist()  # lint: allow(host-sync): CPU
 
 
 def _dropout_on(cfg: BertConfig, deterministic: bool) -> bool:

@@ -96,6 +96,12 @@ _NORMS = ("ln_attn", "ln_mlp")
 _MOE = ("router", "expert_w1", "expert_w2")
 
 
+def _host_f32(t: torch.Tensor) -> np.ndarray:
+    """``t`` as an f32 numpy array: the converters' one read off the
+    card (an export, not a step)."""
+    return t.detach().float().cpu().numpy()  # lint: allow(host-sync): export
+
+
 def _linears(cfg: GptConfig):
     return _LINEARS[:2] if cfg.num_experts else _LINEARS
 
@@ -244,15 +250,14 @@ def params_from_numpy(tree_np: Mapping, *, device="cuda") -> dict:
 
 def params_to_numpy(tree: Mapping) -> dict:
     """The inverse of :func:`params_from_numpy`: f32 numpy arrays."""
-    return _tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+    return _tree_map(_host_f32, tree)
 
 
 def to_jax_params(model: GptModel,
                   tensors: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
     """The inverse of :func:`from_jax_params`: a JAX-shaped tree of f32
     numpy arrays (:func:`gpt_param_tree` on the host)."""
-    return _tree_map(lambda t: t.float().cpu().numpy(),
-                     gpt_param_tree(model, tensors))
+    return _tree_map(_host_f32, gpt_param_tree(model, tensors))
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +361,7 @@ def bert_to_jax_params(model: BertForPreTraining,
         tensors = dict(model.named_parameters())
 
     def a(name, transpose):
-        out = tensors[name].detach().float().cpu().numpy()
+        out = _host_f32(tensors[name])
         return out.T if transpose else out
 
     tree: dict = {}
@@ -397,7 +402,7 @@ def _core_to_jax(core: Mapping, num_layers: int) -> dict:
         rows = []
         for i in range(num_layers):
             a = core[f"layers/{i}/" + name.replace(".", "/")]
-            a = a.detach().float().cpu().numpy()
+            a = _host_f32(a)
             rows.append(a.T if tr else a)
         _put(layer, path, np.stack(rows))
     return {"params": {"layers": {"layer": layer}}}
@@ -437,8 +442,8 @@ def pipeline_stage_to_jax(tree: Mapping, num_layers: int, *,
     ``num_chunks``)."""
     def one(t):
         return {"core": _core_to_jax(t["core"], num_layers),
-                "embed": t["embed"].detach().float().cpu().numpy(),
-                "is_chunk0": t["is_chunk0"].detach().float().cpu().numpy()}
+                "embed": _host_f32(t["embed"]),
+                "is_chunk0": _host_f32(t["is_chunk0"])}
 
     if num_chunks is None:
         return one(tree)
@@ -513,7 +518,7 @@ def evoformer_to_jax_params(
         tensors = dict(module.named_parameters())
     tree: dict = {}
     for name, path, transpose in _evoformer_leaves(module):
-        out = tensors[name].detach().float().cpu().numpy()
+        out = _host_f32(tensors[name])
         _put(tree, path, out.T if transpose else out)
     return {"params": tree}
 

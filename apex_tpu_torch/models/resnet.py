@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apex_tpu_torch.models.convert import _host_f32
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
@@ -389,7 +390,7 @@ def to_jax_variables(model: ResNet, tensors: Optional[Mapping] = None,
         stats = model.batch_stats()
     out = {"params": {}, "batch_stats": {}}
     for name, path, perm in _param_paths(model):
-        a = tensors[name].detach().float().cpu().numpy()
+        a = _host_f32(tensors[name])
         if perm is not None:
             a = np.ascontiguousarray(np.transpose(a, perm) if a.ndim == 4
                                      else a.T)
@@ -398,7 +399,7 @@ def to_jax_variables(model: ResNet, tensors: Optional[Mapping] = None,
     for path, (mean, var) in stats.items():
         base = (*path.split("/"), bn)
         _put(out["batch_stats"], (*base, "mean"),
-             mean.detach().float().cpu().numpy())
+             _host_f32(mean))
         _put(out["batch_stats"], (*base, "var"),
-             var.detach().float().cpu().numpy())
+             _host_f32(var))
     return out

@@ -938,7 +938,7 @@ def _k3_bf16(bh, sq, sk, d, mode, dropout, defines, sms):
         if bk_def is not None:
             block_k = bk_def if d < 128 else 64
         else:
-            block_k = 128 if mode == _NO_BIAS and d < 128 else 64
+            block_k = 128 if mode == _NO_BIAS and d < 128 else 64  # lint: allow(kernel-hardcoded-block): the kernel's default
         if st_def is not None:
             stages = st_def if d < 128 else (3 if mode == _NO_BIAS else 2)
         else:

@@ -76,7 +76,9 @@ class NormPlan:
       instance that stay resident on an SM;
     - ``grid``: the persistent grid, at most ``ctas_per_sm`` per SM;
     - ``parts``: K2's partial rows of dw and db (one per CTA, or one per
-      warp when the row streams).
+      warp when the row streams);
+    - ``per_cta``: the rows a CTA takes per pass of the grid (the
+      ``block_rows`` asked for, or one row group of each warp).
     """
 
     vec: int
@@ -86,6 +88,7 @@ class NormPlan:
     ctas_per_sm: int
     grid: int
     parts: int
+    per_cta: int
 
 
 def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
@@ -122,7 +125,8 @@ def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
     per_cta = block_rows or NORM_WARPS * rows_per_warp
     grid = min(-(-rows // per_cta), sms * ctas)
     parts = grid if per_lane else grid * NORM_WARPS
-    return NormPlan(vec, per_lane, lanes, rows_per_warp, ctas, grid, parts)
+    return NormPlan(vec, per_lane, lanes, rows_per_warp, ctas, grid, parts,
+                    per_cta)
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,7 +144,9 @@ def _resident_ctas(kernel: str, dtype_code: int, device_index: int, vec: int,
     return ctas.value
 
 
-def _plan(kernel, x2d, *row_tensors, bwd):
+def _plan(kernel, x2d, *row_tensors, bwd, block_rows=None):
+    """The launch plan of a call; ``block_rows`` None reads the tuning
+    cache's entry for the hidden size (none: the default)."""
     rows, hidden = x2d.shape
     dev = x2d.device.index
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -149,10 +155,11 @@ def _plan(kernel, x2d, *row_tensors, bwd):
                              _DTYPE_CODES[x2d.dtype], dev)
     from apex_tpu_torch.ops import tune_cache
 
+    if block_rows is None:
+        block_rows = tune_cache.layer_norm_block_rows(hidden)
     return norm_launch_plan(rows, hidden, x2d.element_size(), sms=sms,
                             ctas_per_sm=ctas, aligned=aligned, bwd=bwd,
-                            block_rows=tune_cache.layer_norm_block_rows(
-                                hidden))
+                            block_rows=block_rows)
 
 
 def layer_norm_reference(
@@ -234,10 +241,12 @@ def _check_operands(name, x2d, w, b, *rows_f32):
 
 def layer_norm_fwd(
     x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, eps: float,
-    rms: bool,
+    rms: bool, block_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K1 on CUDA tensors: ``(y, mu, rstd)`` for ``x2d`` (rows,
-    hidden) in f32 or bf16 and f32 ``w``/``b`` (hidden,)."""
+    hidden) in f32 or bf16 and f32 ``w``/``b`` (hidden,).  ``block_rows``
+    sets the rows a CTA takes per pass (None: the tuning cache's, else the
+    default; :func:`norm_launch_plan`)."""
     _check_operands("layer_norm_fwd", x2d, w, b)
     rows, hidden = x2d.shape
     y = torch.empty_like(x2d)
@@ -245,7 +254,7 @@ def layer_norm_fwd(
     rstd = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     if rows == 0:
         return y, mu, rstd
-    plan = _plan(KERNEL, x2d, y, w, b, bwd=False)
+    plan = _plan(KERNEL, x2d, y, w, b, bwd=False, block_rows=block_rows)
     _dispatch.launch(
         KERNEL, _FWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows,
@@ -258,13 +267,15 @@ def layer_norm_fwd(
 def layer_norm_bwd(
     x2d: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mu: torch.Tensor,
     rstd: torch.Tensor, g: torch.Tensor, *, rms: bool, x_is_output: bool,
+    block_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel K2 on CUDA tensors: ``(dx, dw, db)`` for the saved ``x2d``
     (or the output ``y`` with ``x_is_output``), f32 ``w``/``b`` (hidden,),
     f32 ``mu``/``rstd`` (rows,) and the output gradient ``g`` (rows,
     hidden) in ``x2d``'s dtype.  The kernel's f32 partial rows of dw and
     db (:class:`NormPlan` ``parts``) are summed here with one
-    ``torch.sum``, in a fixed order."""
+    ``torch.sum``, in a fixed order.  ``block_rows`` as
+    :func:`layer_norm_fwd`'s."""
     _check_operands("layer_norm_bwd", x2d, w, b, mu, rstd)
     if (g.device != x2d.device or g.shape != x2d.shape
             or g.dtype != x2d.dtype or not g.is_contiguous()):
@@ -278,7 +289,7 @@ def layer_norm_bwd(
     if rows == 0:
         zeros = torch.zeros(hidden, dtype=torch.float32, device=x2d.device)
         return dx, zeros, zeros.clone()
-    plan = _plan(KERNEL_BWD, x2d, g, dx, w, bwd=True)
+    plan = _plan(KERNEL_BWD, x2d, g, dx, w, bwd=True, block_rows=block_rows)
     part = torch.empty(plan.parts, 2, hidden, dtype=torch.float32,
                        device=x2d.device)
     _dispatch.launch(

@@ -725,7 +725,7 @@ class InferenceEngine:
             top_k=self.serve.top_k,
         )
         self.prefill_calls += 1
-        out = torch.stack([next_token, finite.long()]).cpu()
+        out = torch.stack([next_token, finite.long()]).cpu()  # lint: allow(host-sync): its token
         self.last_prefill_finite = bool(out[1]) and poison is None
         # the readback above waited for the card: the span covers the
         # device time
@@ -769,7 +769,7 @@ class InferenceEngine:
             top_k=self.serve.top_k,
         )
         self.prefill_calls += 1
-        out = torch.stack([next_token, finite.long()]).cpu()
+        out = torch.stack([next_token, finite.long()]).cpu()  # lint: allow(host-sync): its token
         self.last_prefill_finite = bool(out[1]) and poison is None
         self._span("engine/prefill", t0, bucket=bucket, tokens=n,
                    offset=int(offset), call=self.prefill_calls, chunked=True)
@@ -863,7 +863,7 @@ class InferenceEngine:
     def _replay(g: dict, arr: np.ndarray):
         """One copy of ``arr`` into the graph's input, one replay, its
         launches counted; returns the graph's outputs."""
-        g["staging"].numpy()[...] = arr
+        g["staging"].numpy()[...] = arr  # lint: allow(host-sync): host buffer
         g["inp"].copy_(g["staging"], non_blocking=True)
         g["graph"].replay()
         _dispatch.replay_record(g["record"])
@@ -907,10 +907,10 @@ class InferenceEngine:
             if self._graph is None:
                 self._capture_decode()
             logits, out = self._replay(self._graph, arr)
-            logits, out = logits.clone(), out.cpu()
+            logits, out = logits.clone(), out.cpu()  # lint: allow(host-sync): tokens
         else:
             logits, out = self._decode_compute(torch.from_numpy(arr))
-        out = out.numpy()
+        out = out.numpy()  # lint: allow(host-sync): already on the host
         finite = out[1].astype(bool)
         if poison is not None:
             finite = self._poison_first_live(finite, lengths)
@@ -931,7 +931,7 @@ class InferenceEngine:
                                  streams, gens)
         logits, out = self._decode_compute(
             torch.from_numpy(arr).to(self.device))
-        out = out.cpu().numpy()
+        out = out.cpu().numpy()  # lint: allow(host-sync): the step's tokens
         return logits, out[0], out[1].astype(bool)
 
     @torch.no_grad()
@@ -978,7 +978,7 @@ class InferenceEngine:
             # pages through the full page-table row
             prompt_pages = page_ids[: -(-n // self.serve.page_size)]
             logits, first = self.prefill(prompt_ids, prompt_pages)
-            logits_bytes = logits.float().cpu().numpy().tobytes()
+            logits_bytes = logits.float().cpu().numpy().tobytes()  # lint: allow(host-sync): hashed
             finite = bool(self.last_prefill_finite)
             tokens = [first]
             b = self.serve.max_batch
@@ -1147,11 +1147,11 @@ class InferenceEngine:
             if self._spec_graph is None:
                 self._capture_spec()
             logits, out = self._replay(self._spec_graph, arr)
-            out = out.cpu()
+            out = out.cpu()  # lint: allow(host-sync): the round's tokens
         else:
             logits, out = self._spec_compute(torch.from_numpy(arr))
         self.last_verify_logits = logits
-        out = out.numpy()
+        out = out.numpy()  # lint: allow(host-sync): already on the host
         finite = out[:, k + 2].astype(bool)
         if poison is not None:
             finite = self._poison_first_live(finite, lengths)

@@ -7,11 +7,11 @@ caller can preload its imports there once with
 group (gloo by default) through a ``file://`` store in a temporary
 directory (no TCP port), calls a module-level function (pickled by
 reference) as ``fn(rank, world, **kwargs)`` and hands its result back
-pickled.  On the card every rank shares card 0 (NCCL refuses two ranks
-on one device but a world of one; gloo stages CUDA tensors through the
-host).  A rank that raises, exits non-zero or
-outlives ``timeout_s`` fails the call: the others are killed and the
-failing rank's traceback is raised.
+pickled.  On the card every gloo rank shares card 0 (NCCL refuses two
+ranks on one device but a world of one; gloo stages CUDA tensors through
+the host); an NCCL rank takes card ``rank``.  A rank that raises, exits
+non-zero or outlives ``timeout_s`` fails the call: the others are killed
+and the failing rank's traceback is raised.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _rank_main(rank, world, store, target, kwargs, device, backend,
     from apex_tpu_torch.parallel import multihost
 
     if device == "cuda":
-        torch.cuda.set_device(0)
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     else:

@@ -31,6 +31,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -68,20 +69,38 @@ SHAPES = (
 )
 
 
+#: the spin kernel's clock (cycles a second, ~2 GHz on an H100) and its
+#: floor and ceiling in seconds
+SPIN_HZ = 2e9
+SPIN_MIN_S, SPIN_MAX_S = 0.02, 0.2
+
+
 def _time_ms(fn, flush, iters=25):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(400_000_000)
-    events = []
-    for _ in range(iters):
+    """Median ms of ``fn()`` over ``iters`` runs, each between its own
+    CUDA events with ``flush`` rewritten before it (L2 cold).  The runs
+    queue behind a spin kernel that outlasts the host's queueing of them
+    all (twice the host time of the last warm-up run, which is one whole
+    timed run, within [SPIN_MIN_S, SPIN_MAX_S]), so each pair of events
+    reads device time."""
+
+    def run():
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        events.append((start, end))
+        return start, end
+
+    host_s = SPIN_MAX_S / (2 * iters)
+    for _ in range(3):
+        t = time.perf_counter()
+        run()
+        host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    spin_s = min(SPIN_MAX_S, max(SPIN_MIN_S, 2 * iters * host_s))
+    torch.cuda._sleep(int(spin_s * SPIN_HZ))
+    events = [run() for _ in range(iters)]
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
 

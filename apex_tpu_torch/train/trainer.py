@@ -705,10 +705,13 @@ class TrainStep:
                 torch.cuda.synchronize(self.device)
                 torch.cuda.reset_peak_memory_stats(self.device)
             try:
+                # a ZeRO state's PerRank shards named like the rest
+                named_state = {k: v.tree if isinstance(v, PerRank) else v
+                               for k, v in copy_.items()}
                 with comm.collective_log() as log:
                     _, record = analysis_passes.capture(
                         lambda: self(copy_, batch),
-                        named={"state": copy_, "batch": batch})
+                        named={"state": named_state, "batch": batch})
                 if on_card:
                     torch.cuda.synchronize(self.device)
             finally:
@@ -734,6 +737,7 @@ class TrainStep:
             report.extend([make_finding(
                 "memory-budget", self.name,
                 f"{peak} bytes over the {budget}-byte budget")])
+        report.record = record  # as analysis.check's reports carry it
         return report
 
     # -- the composed run loop ------------------------------------------

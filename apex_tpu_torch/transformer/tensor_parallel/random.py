@@ -75,7 +75,8 @@ class TPURNGStatesTracker:
             gen = self._gens.get(name)
             if gen is None:
                 gen = self._gens[name] = torch.Generator()
-            gen.set_state(torch.as_tensor(state, dtype=torch.uint8).cpu())
+            state = torch.as_tensor(state, dtype=torch.uint8).cpu()  # lint: allow(host-sync): host state
+            gen.set_state(state)
 
     def add(self, name: str, seed: int) -> None:
         if name in self._gens:
@@ -140,7 +141,8 @@ def to_per_rank_key(key, axis_name: str = ps.TENSOR_PARALLEL_AXIS):
         return torch.Generator(device=key.device).manual_seed(
             _fold(key.initial_seed(), rank))
     if isinstance(key, torch.Tensor):
-        folded = [_fold(v, rank) for v in key.reshape(-1).tolist()]
+        words = key.reshape(-1).tolist()  # lint: allow(host-sync): key words
+        folded = [_fold(v, rank) for v in words]
         return torch.tensor(folded, dtype=key.dtype,
                             device=key.device).reshape(key.shape)
     return _fold(key, rank)

@@ -8,7 +8,7 @@ toolkit (``nvcc``):
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (set-up
 time, one ``nvcc`` per source, all started together) and then runs
-twenty-seven phases; any failure raises and the exit code is non-zero.  Without
+twenty-nine phases; any failure raises and the exit code is non-zero.  Without
 a CUDA device it exits non-zero at once and prints no result.
 
 1. Each kernel against its plain PyTorch version on the card, at the
@@ -420,6 +420,19 @@ a CUDA device it exits non-zero at once and prints no result.
     no finding).  28d: ``int8wire_sensitivity`` at the small scale and
     block 256 on 8 DP workers, ``pipeline_cost``'s pp = 2 lockstep rows
     (remat on and off) on 2 workers, their tables printed.
+29. The last root tools (``phase29``).  29a: ``ln_tune`` at hidden 1024
+    (GPT's) and 4096, bf16, 16384 rows: every block_rows candidate of K1
+    and K2 held to the plain versions, then timed; its winners go to a
+    tuning cache, which a fresh process reads: K1/K2's launch plan takes
+    the cached rows and the outputs still match.  29b: ``comm_structure``
+    at world 2 (two workers on the card over gloo): the h 1024 tp + SP
+    block's collectives equal ``tp_sp_block_plan``, ResNet-50 DDP's
+    gradient sync equals ``sync_plan`` (f32 wire).  29c:
+    ``shard_report --target train`` at dp 2 x tp 2 (four workers): no
+    ERROR finding, every row's verdict ok.  29d: the ``repo_lint`` CLI
+    over the package (exit 0).  The DDP config, 29c and 29d reach no
+    kernel and run beside the build, which waits for them at its end;
+    29a times alone.
 
 Phase 1 also holds ``fmha_qkvpacked`` (K3 forward, K4 backward) at
 BERT's shape against the same function on a CPU copy; phase 6 also
@@ -7369,6 +7382,7 @@ def _p18c(rank, world, blind=False):
 
 
 def _p18d(rank, world):
+    import shutil
     import tempfile
 
     import torch
@@ -7383,6 +7397,10 @@ def _p18d(rank, world):
     out = {}
     for run in ("plain", "preempted"):
         d = os.path.join(root, f"apex_p18d_{run}")
+        # an earlier run's checkpoints there would be resumed from
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        torch.distributed.barrier()
         model, trainer, loss_fn, params = _gpt_trainer(cfg, world, "shard",
                                                        verify="off")
         step = trainer.build(loss_fn, params, batches[0])
@@ -12525,11 +12543,13 @@ def _phase27b():
 
 def _p27_conv_layout(seed):
     """The CUDA kernels of one ``ConvBiasReLU`` forward (bf16, P27_CONV,
-    a channels-last 3x3 weight) under ``torch.profiler``, and those that
-    copy or transpose a layout; the same with a contiguous OIHW weight,
+    a channels-last 3x3 weight) under ``torch.profiler``, and the layout
+    copies around it: kernels that copy or transpose a layout, and the
+    host's ``aten::copy_`` calls; the same with a contiguous OIHW weight,
     which the convolution must copy (the control).  Run in a process that
     has not profiled before: in one that has, kineto can drop a call's
-    kernel events."""
+    kernel events (the control's second profile once showed no copy
+    kernel), which the host-side ``aten::copy_`` does not depend on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -12546,13 +12566,17 @@ def _p27_conv_layout(seed):
             memory_format=torch.channels_last)), ("oihw", w.contiguous())):
         cbr.ConvBiasReLU(x, weight, b)  # warm: cuDNN picks its algorithm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             cbr.ConvBiasReLU(x, weight, b)
             torch.cuda.synchronize()
         names = sorted({k[0] for k in device_kernels(prof)})
+        copies = sum(e.count for e in prof.key_averages()
+                     if e.key == "aten::copy_")
         out[tag] = dict(kernels=[nm[:120] for nm in names], layout=[
             nm[:120] for nm in names if any(t in nm.lower() for t in (
-                "transpose", "nchwtonhwc", "nhwctonchw", "copy"))])
+                "transpose", "nchwtonhwc", "nhwctonchw", "copy"))]
+            + [f"aten::copy_ x{copies}"] * bool(copies))
     return out
 
 
@@ -13422,12 +13446,313 @@ def phase28():
     return launches, out
 
 
+#: 29a's sweep: GPT's width and a wide one, at ln_tune's default rows
+P29_HIDDENS = (1024, 4096)
+P29_ROWS = 16384
+#: 29b's world, and its tp block and ResNet batch (comm_structure's)
+P29_WORLD = 2
+
+#: 29a's check in a fresh process: the tuning cache named by the
+#: environment reaches K1/K2's launch plan, and the outputs match
+P29_CACHE_CHECK = """
+import json, sys
+import torch
+from apex_tpu_torch.ops import layer_norm as ln, tune_cache
+from apex_tpu_torch.tools import ln_tune
+out = {}
+gen = torch.Generator(device="cuda").manual_seed(1)
+for hidden in json.loads(sys.argv[1]):
+    x, w, b, g = ln_tune._inputs(%(rows)d, hidden, torch.bfloat16, gen)
+    fwd = ln._plan(ln.KERNEL, x, x, w, b, bwd=False)
+    bwd = ln._plan(ln.KERNEL_BWD, x, g, x, w, bwd=True)
+    ln_tune.check(x, w, b, g, None, "bf16")
+    out[hidden] = dict(cached=tune_cache.layer_norm_block_rows(hidden),
+                       fwd_per_cta=fwd.per_cta, fwd_grid=fwd.grid,
+                       bwd_per_cta=bwd.per_cta, bwd_grid=bwd.grid)
+print(json.dumps(out))
+""" % dict(rows=P29_ROWS)
+
+
+def _phase29a(tmp):
+    """``ln_tune`` through its ``main`` at :data:`P29_HIDDENS` (every
+    candidate held to the plain versions inside it).  Returns (the
+    tool's K1/K2 launches less its checks', results, the cache's path,
+    failures)."""
+    import io
+
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.tools import ln_tune
+
+    cache = os.path.join(tmp, "tune.json")
+    argv = ["--rows", str(P29_ROWS), "--cache-out", cache]
+    for h in P29_HIDDENS:
+        argv += ["--hidden", str(h)]
+    buf = io.StringIO()
+    _dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ln_tune.main(argv)
+    secs = time.perf_counter() - t0
+    got = _dispatch.launches()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cands = {h: ln_tune.candidates(P29_ROWS, h, 2, sms) for h in P29_HIDDENS}
+    # one K1 and one K2 a candidate were its checks against the twins
+    checks = sum(len(c) for c in cands.values())
+    launches = {k: got.get(k, 0) - checks
+                for k in ("layer_norm_fwd", "layer_norm_bwd")}
+    rows = []
+    for line in buf.getvalue().splitlines():
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+        else:
+            log(f"  29a {line}")
+    times, other = {}, {}
+    for r in rows:
+        into = times if r["block_rows"] is not None else other
+        key = r["block_rows"] if r["block_rows"] is not None else r["call"]
+        into.setdefault(r["hidden"], {}).setdefault(key, []).append(r["ms"])
+    means = {h: {b: statistics.mean(v) for b, v in by.items()}
+             for h, by in times.items()}
+    # the plain and library pairs, timed in the candidates' two passes
+    other_ms = {h: {k: statistics.mean(v) for k, v in by.items()}
+                for h, by in other.items()}
+    best = {h: min(by, key=by.get) for h, by in means.items()}
+    entries = []
+    if os.path.exists(cache):
+        with open(cache) as f:
+            entries = json.load(f)["layer_norm"]
+    log(f"  29a ln_tune: exit {rc} in {secs:.1f} s; winners {best}; cache "
+        f"{entries}; launches {got} ({checks} of each its checks); plain "
+        f"and library pairs (ms) {other_ms}")
+    failures = []
+    if rc != 0:
+        failures.append(f"29a ln_tune exited {rc}")
+    if {e["hidden"]: e["block_rows"] for e in entries} != best:
+        failures.append(f"29a cache {entries} != winners {best}")
+    out = dict(exit=rc, seconds=secs, candidates=cands, ms=means,
+               other_ms=other_ms, winners=best, launches=launches,
+               bound_ms={h: ln_tune.bound_ms(P29_ROWS, h, 2)
+                         for h in P29_HIDDENS})
+    return launches, out, cache, failures
+
+
+def _phase29a_cache(proc, best):
+    """The fresh process of 29a (:data:`P29_CACHE_CHECK`, started with
+    ``APEX_TPU_TUNE_CACHE`` naming ln_tune's cache): K1/K2's launch plan
+    takes the cached rows (and their grid) and the outputs match."""
+    out, err = proc.communicate(timeout=300)
+    failures, plans = [], {}
+    if proc.returncode != 0:
+        failures.append(f"29a fresh process exited {proc.returncode}:\n"
+                        + err[-3000:])
+    else:
+        plans = {int(h): v for h, v in json.loads(
+            out.strip().splitlines()[-1]).items()}
+    log(f"  29a fresh process with APEX_TPU_TUNE_CACHE: exit "
+        f"{proc.returncode}, plans {plans}")
+    for h, v in plans.items():
+        want_grid = -(-P29_ROWS // best[h])
+        if not (v["cached"] == v["fwd_per_cta"] == v["bwd_per_cta"]
+                == best[h]) or max(v["fwd_grid"], v["bwd_grid"]) > want_grid:
+            failures.append(f"29a plan at hidden {h}: {v}, cached {best[h]}")
+    return plans, failures
+
+
+def _phase29b_tp():
+    """``comm_structure``'s h 1024 tp + SP block at world 2: its
+    collectives must equal ``tp_sp_block_plan``."""
+    from apex_tpu_torch.tools import comm_structure as cs
+
+    t0 = time.perf_counter()
+    kinds, flops, _ = cs.tp_gpt_structure(P29_WORLD)
+    want = cs.tp_sp_block_plan(P29_WORLD, 1024, 1024, 8, 2)
+    rec = cs.config_record("tp_gpt_block", kinds, flops, P29_WORLD,
+                           cs.NVLINK_GBPS, cs.PEAK_TFLOPS)
+    log(f"  29b {json.dumps(rec)} ({time.perf_counter() - t0:.1f} s)")
+    return rec, ([] if kinds == want else
+                 [f"29b tp block {kinds} != plan {want}"])
+
+
+def _phase29b_ddp(say=log):
+    """``comm_structure``'s ResNet-50 DDP with SyncBatchNorm at world 2
+    (f32 wire): its gradient sync must hold to ``sync_plan`` and equal
+    its exact summary.  It reaches no kernel of the port."""
+    from apex_tpu_torch.tools import comm_structure as cs
+
+    t0 = time.perf_counter()
+    details = {}
+    kinds, flops, _ = cs.ddp_syncbn_structure(P29_WORLD, details=details)
+    rec = cs.config_record("ddp_resnet50_syncbn", kinds, flops, P29_WORLD,
+                           cs.NVLINK_GBPS, cs.PEAK_TFLOPS)
+    problems = cs.check_ddp(details, P29_WORLD, False)
+    say(f"  29b {json.dumps(rec)} ({time.perf_counter() - t0:.1f} s); "
+        f"gradient sync {len(details['grad_sync'])} calls against "
+        f"sync_plan: {problems or 'equal'}")
+    return rec, [f"29b ddp: {p}" for p in problems]
+
+
+def _phase29c(say=log):
+    """``shard_report --target train`` at dp 2 x tp 2 (four workers),
+    through the builder and renderer its ``main`` calls (no stdout
+    redirect: it runs beside other threads): no ERROR finding, every
+    row's verdict ok.  The demo's MLP reaches no kernel of the port."""
+    import torch
+
+    from apex_tpu_torch.tools import shard_report
+
+    t0 = time.perf_counter()
+    args = shard_report.build_parser().parse_args(["--target", "train"])
+    report = shard_report.lint_train(args, torch.device("cuda"))
+    for line in shard_report.render(report, top=args.top).splitlines():
+        say(f"  29c {line}")
+    rep = report.to_json()
+    rc = 0 if report.ok() else 1
+    verdicts = sorted({r["verdict"] for r in rep["shard_plan"]})
+    out = dict(exit=rc, rows=len(rep["shard_plan"]), verdicts=verdicts,
+               peak_hbm_bytes=rep["peak_hbm_bytes"],
+               seconds=time.perf_counter() - t0)
+    say(f"  29c shard_report: {out}")
+    return out, ([] if rc == 0 and verdicts == ["ok"] else
+                 [f"29c shard_report exit {rc}, verdicts {verdicts}"])
+
+
+def _popen(args, env=None):
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, *args], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+
+
+#: phase 29's parts that reach no kernel of the port — 29b's ResNet-50
+#: DDP, 29c's shard_report and 29d's repo_lint — started beside the
+#: kernels' build (as 28d's sweep), their log lines kept for phase 29
+P29_EARLY = {}
+
+
+def _start_p29_early():
+    """Start :data:`P29_EARLY`'s parts: two threads of this process (each
+    runs its workers through ``tools/_ranks.py``) and the lint's process,
+    which is stopped at exit if it still runs."""
+    import atexit
+    from concurrent.futures import ThreadPoolExecutor
+
+    lines = P29_EARLY["lines"] = []
+    pool = ThreadPoolExecutor(2)
+    P29_EARLY.update(
+        t0=time.perf_counter(),
+        ddp=pool.submit(_phase29b_ddp, lines.append),
+        shard=pool.submit(_phase29c, lines.append),
+        lint=_popen(["-m", "apex_tpu_torch.tools.repo_lint"]))
+    pool.shutdown(wait=False)
+
+    def stop():
+        if P29_EARLY["lint"].poll() is None:
+            P29_EARLY["lint"].kill()
+
+    atexit.register(stop)
+
+
+def _finish_p29_early():
+    """Wait for :data:`P29_EARLY`'s parts (as :func:`_finish_p28_int8wire`
+    waits for 28d's sweep), so that their workers hold the card in no
+    measured phase, and log whether they had finished by then.  Their
+    results are kept for phase 29, which reads them."""
+    parts = (P29_EARLY["ddp"], P29_EARLY["shard"])
+    lint = P29_EARLY["lint"]
+    done = [p.done() for p in parts] + [lint.poll() is not None]
+    t = time.perf_counter()
+    # a part that raised fails phase 29, where its exception is raised
+    P29_EARLY["results"] = [p.exception() or p.result() for p in parts]
+    text, err = lint.communicate(timeout=120)
+    P29_EARLY["lint_out"] = (text, err)
+    P29_EARLY["wait_s"] = time.perf_counter() - t
+    log(f"29's parts started beside the build (ResNet-50 DDP, "
+        f"shard_report, repo_lint): had finished {done} when the build "
+        f"ended; waited {P29_EARLY['wait_s']:.1f} s for them "
+        f"({time.perf_counter() - P29_EARLY['t0']:.1f} s after their "
+        f"start)")
+
+
+def phase29():
+    """The last root tools on the card: 29a ``ln_tune`` alone on the
+    card (it times), then its cache's fresh process beside 29b's tp
+    block; 29b's ResNet-50 DDP, 29c and 29d ran beside the build
+    (:data:`P29_EARLY`, waited for when it ended) and are read here.  Every part logs its readings
+    before any failure fails the phase.  Returns (29a's K1/K2 launches by
+    path, results)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 29: the last root tools — ln_tune, comm_structure, "
+        "shard_report, repo_lint")
+    if not P29_EARLY:
+        _start_p29_early()
+    if "results" not in P29_EARLY:
+        _finish_p29_early()
+    out, failures = {}, []
+    tmp = tempfile.mkdtemp(prefix="apex_tpu_torch_p29_")
+    fresh = None
+    try:
+        launches, out["29a"], cache, f = _phase29a(tmp)
+        failures += f
+        out["29a"]["part_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = _popen(["-c", P29_CACHE_CHECK, json.dumps(P29_HIDDENS)],
+                       env={"APEX_TPU_TUNE_CACHE": cache})
+        with ThreadPoolExecutor(1) as pool:
+            tp = pool.submit(_phase29b_tp)
+            out["29a"]["plans"], f = _phase29a_cache(
+                fresh, out["29a"]["winners"])
+            failures += f
+            out["29b"] = {}
+            out["29b"]["tp_gpt_block"], f = tp.result()
+            failures += f
+        for r in P29_EARLY["results"]:
+            if isinstance(r, BaseException):
+                raise r
+        (out["29b"]["ddp_resnet50_syncbn"], f), (out["29c"], f2) = \
+            P29_EARLY["results"]
+        failures += f + f2
+        lint = P29_EARLY["lint"]
+        text, err = P29_EARLY["lint_out"]
+        out["early_wait_s"] = P29_EARLY["wait_s"]
+        for line in P29_EARLY["lines"]:
+            log(line)
+        log(f"  29d repo_lint: exit {lint.returncode}: {text.strip()[-300:]}")
+        out["29d"] = dict(exit=lint.returncode, text=text.strip()[-300:])
+        if lint.returncode != 0:
+            failures.append(f"29d repo_lint exited {lint.returncode}: "
+                            + (text + err)[-2000:])
+    finally:
+        if fresh is not None and fresh.poll() is None:
+            fresh.kill()
+            fresh.wait(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 29 took {out['seconds']:.1f} s (29a "
+        f"{out['29a']['part_s']:.1f} s; the build's end waited "
+        f"{out['early_wait_s']:.1f} s for the parts started beside it)")
+    if failures:
+        raise AssertionError("phase 29: " + "; ".join(failures))
+    return {"ln_tune": launches}, out
+
+
 #: the flags that run one part of the script alone
 SINGLE_PHASE_FLAGS = ("f32_attention", "timing", "phase1", "serving",
                       "evoformer", "resilience", "chaos", "parallel", "dap",
                       "trainer", "context", "experts", "pipeline", "amp",
                       "analysis", "trace_window", "observe", "modules",
-                      "tail", "contrib", "tools")
+                      "tail", "contrib", "tools", "last_tools")
 
 
 def main():
@@ -13514,6 +13839,11 @@ def main():
                         "pipeline-cost sweeps; phase 24b first, for 28c's "
                         "flight dump), then phase 4's two rows on 28a's "
                         "path")
+    parser.add_argument("--last-tools", action="store_true",
+                        help="run phase 29 alone (ln_tune at hidden 1024 "
+                        "and 4096 with its cache read back, comm_structure "
+                        "at world 2, shard_report --target train, "
+                        "repo_lint)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -13545,12 +13875,15 @@ def main():
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
-    # the worker processes' server, and, where the run reaches phase 28,
-    # its int8-wire sweep (no kernel), start beside the build
+    # the worker processes' server, and, where the run reaches phases 28
+    # and 29, their parts that reach no kernel, start beside the build
     _start_worker_server()
     if args.tools or not any(getattr(args, flag)
                              for flag in SINGLE_PHASE_FLAGS):
         _start_p28_int8wire()
+    if args.last_tools or not any(getattr(args, flag)
+                                  for flag in SINGLE_PHASE_FLAGS):
+        _start_p29_early()
     # the kernels (one nvcc per source, all started together); where the
     # run reaches phase 23, its two tuned variants build beside the first
     # phases, off the build's critical path, and phase 23 waits for them
@@ -13558,6 +13891,8 @@ def main():
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     if P28_INT8WIRE_PROC:
         _finish_p28_int8wire()
+    if P29_EARLY:
+        _finish_p29_early()
     if args.analysis or not any(getattr(args, flag)
                                 for flag in SINGLE_PHASE_FLAGS):
         pool = ThreadPoolExecutor(2)
@@ -13686,6 +14021,11 @@ def main():
         print(json.dumps({"tools": dict(run, launches=launches)},
                          default=str), flush=True)
         return
+    if args.last_tools:
+        launches, run = phase29()
+        print(json.dumps({"last_tools": dict(run, launches=launches)},
+                         default=str), flush=True)
+        return
     if args.modules:
         launches, run = phase25()
         print(json.dumps({"modules": dict(run, launches=launches)},
@@ -13739,6 +14079,7 @@ def main():
     tail_launches, tail = timed("26", phase26)
     contrib_launches, contrib = timed("27", phase27)
     tools_launches, tools = timed("28", phase28)
+    last_tools_launches, last_tools = timed("29", phase29)
     runs = (("serving", serve_launches),
             ("serving_int8_wires", wires_launches),
             ("speculative", spec_launches),
@@ -13765,7 +14106,8 @@ def main():
             *modules_launches.items(),
             *tail_launches.items(),
             *contrib_launches.items(),
-            *tools_launches.items())
+            *tools_launches.items(),
+            *last_tools_launches.items())
     launches = {
         name: {path: counts[name] for path, counts in runs if name in counts}
         for name in KERNEL_ENTRIES
@@ -13795,7 +14137,8 @@ def main():
                     "pipeline": pipeline, "amp": amp_run,
                     "analysis": analysis_run, "observe": observe,
                     "modules": modules, "tail": tail, "contrib": contrib,
-                    "tools": tools, "decode_profile": profile},
+                    "tools": tools, "last_tools": last_tools,
+                    "decode_profile": profile},
                    default=str))
     log(f"seconds by phase: {PHASE_SECONDS}")
     log(f"time_ms: {SPIN_TOTAL['calls']} calls spun {SPIN_TOTAL['s']:.1f} s "

@@ -30,6 +30,7 @@
 
 import ast
 import ctypes
+import importlib
 import re
 from pathlib import Path
 
@@ -291,7 +292,8 @@ TOOLS = ("serve_chaos_drill.py", "graph_lint.py", "kernel_lint.py",
          "fleet_drill.py", "canary_drill.py", "trace_summary.py",
          "step_profile.py", "timeline.py", "serve_bench.py",
          "goodput_drill.py", "flight_view.py", "concurrency_lint.py",
-         "int8wire_sensitivity.py", "pipeline_cost.py")
+         "int8wire_sensitivity.py", "pipeline_cost.py", "ln_tune.py",
+         "comm_structure.py", "shard_report.py", "repo_lint.py")
 
 #: the root tools with no counterpart in the port, each with its reason
 TOOLS_WITHOUT_COUNTERPART = {
@@ -303,11 +305,26 @@ TOOLS_WITHOUT_COUNTERPART = {
                     "brings its own",
     "attn_tune.py": "a Pallas block tuner (tools/flash_tiles.py tunes "
                     "the CUDA kernels' tiles)",
-    "ln_tune.py": "a Pallas block tuner",
-    "comm_structure.py": "reads GSPMD/HLO collectives of compiled "
-                         "programs, which the port has none of",
-    "shard_report.py": "reads GSPMD shardings of compiled programs",
-    "repo_lint.py": "the reference repository's own source lint",
+}
+
+#: the ported tools whose reference functions the port keeps by name
+#: (every public top-level function of the reference's file)
+TOOLS_KEEPING_FUNCTIONS = ("ln_tune.py", "comm_structure.py",
+                           "shard_report.py", "repo_lint.py")
+
+#: flags of a reference tool that its port drops, each with its reason
+DROPPED_FLAGS = {
+    "shard_report.py": {
+        "--hlo": "reads an optimized-HLO text dump; the port compiles no "
+                 "program text, and its step records live only in the "
+                 "process that ran the step",
+        "--donated": "the declared donated-leaf count that only the --hlo "
+                     "mode reads",
+    },
+    "comm_structure.py": {
+        "--round": "names the root artifact COMM_STRUCTURE_r{N}.json; the "
+                   "port writes build/COMM_STRUCTURE_torch.json (--out)",
+    },
 }
 
 
@@ -315,6 +332,39 @@ TOOLS_WITHOUT_COUNTERPART = {
 def test_port_tools_keep_their_counterparts_names(tool):
     assert (ROOT / "tools" / tool).is_file(), tool
     assert (ROOT / "apex_tpu_torch" / "tools" / tool).is_file(), tool
+
+
+def _ref_source(tool):
+    return (ROOT / "tools" / tool).read_text()
+
+
+@pytest.mark.parametrize("tool", TOOLS_KEEPING_FUNCTIONS)
+def test_ported_tools_keep_the_references_functions(tool):
+    tree = ast.parse(_ref_source(tool))
+    names = [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+             and not n.name.startswith("_")]
+    assert names, tool
+    mod = importlib.import_module(
+        f"apex_tpu_torch.tools.{tool.removesuffix('.py')}")
+    missing = [n for n in names if not callable(getattr(mod, n, None))]
+    assert not missing, (tool, missing)
+
+
+@pytest.mark.parametrize("tool", TOOLS_KEEPING_FUNCTIONS)
+def test_ported_tools_take_the_references_flags(tool):
+    ref_flags = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"',
+                               _ref_source(tool)))
+    mod = importlib.import_module(
+        f"apex_tpu_torch.tools.{tool.removesuffix('.py')}")
+    port_src = Path(mod.__file__).read_text()
+    port_flags = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"',
+                                port_src))
+    dropped = DROPPED_FLAGS.get(tool, {})
+    assert all(reason for reason in dropped.values())
+    assert ref_flags - port_flags == set(dropped), tool
+    # a dropped flag is named, with its reason, in the tool's docstring
+    for flag in dropped:
+        assert flag in (mod.__doc__ or ""), (tool, flag)
 
 
 def test_every_root_tool_is_ported_or_has_its_reason():

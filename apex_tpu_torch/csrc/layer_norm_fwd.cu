@@ -23,16 +23,36 @@
 //           loaded once into registers (16-byte loads too, their bases
 //           in the plan's alignment check), and the next row's loads issued
 //           before the current row's reductions so that every warp keeps
-//           two rows of loads in flight.  Rows wider than 32 * 32 values
-//           (kPer = 0) stream: three passes over the row, which L1 and L2
-//           serve after the first.  bf16 and f32 I/O share one template;
-//           weights are f32.
+//           two rows of loads in flight.
+// Wide rows (hidden > 32 * 32, up to kWideMax = 8 * 32 * 32 = 8192,
+//           norm_wide.cuh):
+//           ln_fwd_wide_kernel splits a row over kW = 4 or 8 warps of one
+//           CTA (Apex's FastLayerNorm WARPS_N), each lane holding kPer =
+//           16 or 32 values, so x is read from device memory once and y
+//           written once, as in the register instance: the streaming
+//           instance it replaces made three passes over the row (L1 and L2
+//           missed from 8 KB rows on) with a scalar load of w and b for
+//           every value.  The two-pass statistics keep _jnp_fwd's
+//           arithmetic: each partial sum is reduced by shuffles within a
+//           warp, then across the kW warps through two floats a warp of
+//           shared memory (two slots taken in turn, so one named barrier a
+//           reduction suffices) under a named barrier of the row group's
+//           32 * kW threads (`bar.sync 1 + group`), never the whole CTA: a
+//           CTA of 8 warps holds 8 / kW row groups, each striding over the
+//           rows on its own.  w and b are loaded once per CTA with 16-byte
+//           loads into the registers of the threads that own those
+//           columns; the next row's x is loaded before the current row's
+//           reductions.  Rows wider than kWideMax (kPer = 0) stream: three
+//           passes over the row, one warp per row, which L1 and L2 serve
+//           after the first.  bf16 and f32 I/O share one template; weights
+//           are f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 #include "launch_query.cuh"
+#include "norm_wide.cuh"
 
 namespace {
 
@@ -242,6 +262,110 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// The wide-row instance's register estimate (norm_wide.cuh): x now and
+// next, w and b.
+template <typename T, int kVec, int kPer>
+using WideCfg = norm_wide::WideCfg<T, kVec, kPer, 2>;
+static_assert(norm_wide::kWideMax == kWarps * 32 * 32,
+              "the wide-row instance's widest row is a CTA's warps x 32 x 32");
+using norm_wide::group_barrier;
+using norm_wide::kWideMax;
+
+// A row of up to 32 * kW * kPer values on kW warps (module note).  `lanes`
+// is the row's threads, 32 * kW.
+template <typename T, int kVec, int kPer, int kW>
+__global__ void __launch_bounds__(kThreads, (WideCfg<T, kVec, kPer>::kCtas))
+ln_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ b, T* __restrict__ y,
+                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                   int rows, int hidden, int lanes, float eps, int rms) {
+  constexpr int kGroups = kWarps / kW;  // row groups of a CTA
+  constexpr int kRowThreads = 32 * kW;
+  constexpr int kLoads = kPer / kVec;
+  __shared__ float red[2][kWarps];  // each warp's partial sum, two slots
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp / kW;
+  const int tid = static_cast<int>(threadIdx.x) - group * kRowThreads;
+  const int stride = static_cast<int>(gridDim.x) * kGroups;
+  const int first = static_cast<int>(blockIdx.x) * kGroups + group;
+  const float inv_n = 1.f / static_cast<float>(hidden);
+  // load t of a thread covers columns [col(t), col(t) + kVec)
+  auto col = [&](int t) { return (tid + kRowThreads * t) * kVec; };
+  int slot = 0;
+  // the sum of v over the row group, in a fixed order (the same bits in
+  // every thread); a slot is written again two reductions later, after
+  // the barrier that every reader of its last value has reached
+  auto row_sum = [&](float v) {
+    v = group_sum(v, 32);
+    if (lane == 0) red[slot][warp] = v;
+    group_barrier(1 + group, kRowThreads);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) s += red[slot][group * kW + i];
+    slot ^= 1;
+    return s;
+  };
+  Raw<T, kVec> cur[kLoads], nxt[kLoads];
+  auto fetch = [&](Raw<T, kVec>(&dst)[kLoads], int r) {
+    const T* xr = x + static_cast<size_t>(r) * hidden;
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t)
+      dst[t] = r < rows && col(t) < hidden ? load_raw<T, kVec>(xr + col(t))
+                                            : zero_raw<T, kVec>();
+  };
+  fetch(cur, first);
+  // w and b once per CTA, into the registers of their columns' threads
+  float wv[kPer], bv[kPer];
+#pragma unroll
+  for (int t = 0; t < kLoads; ++t) {
+    if (col(t) < hidden) {
+      load_f32<kVec>(w + col(t), wv + t * kVec);
+      load_f32<kVec>(b + col(t), bv + t * kVec);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) wv[t * kVec + e] = bv[t * kVec + e] = 0.f;
+    }
+  }
+  for (int r = first; r < rows; r += stride) {
+    fetch(nxt, r + stride);  // in flight during this row's reductions
+    float mean = 0.f;
+    if (!rms) {
+      float s = 0.f;
+#pragma unroll
+      for (int t = 0; t < kLoads; ++t)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) s += raw_at<T, kVec>(cur[t], e);
+      mean = row_sum(s) * inv_n;
+    }
+    float s2 = 0.f;
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float d = raw_at<T, kVec>(cur[t], e) - mean;
+        s2 += col(t) + e < hidden ? d * d : 0.f;
+      }
+    const float rstd = 1.f / sqrtf(row_sum(s2) * inv_n + eps);
+    T* yr = y + static_cast<size_t>(r) * hidden;
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t) {
+      if (col(t) >= hidden) continue;
+      float out[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        out[e] = (raw_at<T, kVec>(cur[t], e) - mean) * rstd * wv[t * kVec + e] +
+                 bv[t * kVec + e];
+      store_vec<T, kVec>(yr + col(t), out);
+    }
+    if (tid == 0) {
+      mu_out[r] = mean;
+      rstd_out[r] = rstd;
+    }
+#pragma unroll
+    for (int t = 0; t < kLoads; ++t) cur[t] = nxt[t];
+  }
+}
+
 template <typename T>
 using Kernel = decltype(&ln_fwd_kernel<T, 1, 0>);
 
@@ -259,21 +383,34 @@ Kernel<T> pick_per(int per_lane) {
   }
 }
 
-// The instance for `vec` values per load and `per_lane` values a lane, or
-// nullptr.
-template <typename T>
-Kernel<T> pick(int vec, int per_lane) {
-  constexpr int kWide = 16 / sizeof(T);
-  if (vec == kWide) return pick_per<T, kWide>(per_lane);
-  if (vec == 1) return pick_per<T, 1>(per_lane);
+// The wide-row instance of `warps` warps a row.
+template <typename T, int kVec>
+Kernel<T> pick_wide(int per_lane, int warps) {
+  if (per_lane == 16 && warps == 4) return ln_fwd_wide_kernel<T, kVec, 16, 4>;
+  if (per_lane == 16 && warps == 8) return ln_fwd_wide_kernel<T, kVec, 16, 8>;
+  if (per_lane == 32 && warps == 4) return ln_fwd_wide_kernel<T, kVec, 32, 4>;
+  if (per_lane == 32 && warps == 8) return ln_fwd_wide_kernel<T, kVec, 32, 8>;
   return nullptr;
+}
+
+// The instance for `vec` values per load, `per_lane` values a lane and
+// `warps` warps a row (1: a lane group, or a streamed row), or nullptr.
+template <typename T>
+Kernel<T> pick(int vec, int per_lane, int warps) {
+  constexpr int kWide = 16 / sizeof(T);
+  if (vec != kWide && vec != 1) return nullptr;
+  if (warps > 1)
+    return vec == kWide ? pick_wide<T, kWide>(per_lane, warps)
+                        : pick_wide<T, 1>(per_lane, warps);
+  if (warps != 1) return nullptr;
+  return vec == kWide ? pick_per<T, kWide>(per_lane) : pick_per<T, 1>(per_lane);
 }
 
 template <typename T>
 int launch(int vec, int per_lane, const void* x, const void* w, const void* b,
            void* y, void* mu, void* rstd, int rows, int hidden, int lanes,
            int grid, float eps, int rms, cudaStream_t stream) {
-  const Kernel<T> kernel = pick<T>(vec, per_lane);
+  const Kernel<T> kernel = pick<T>(vec, per_lane, lanes > 32 ? lanes / 32 : 1);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   { if (!apex_query::record(kernel, dim3(grid), kThreads, 0)) kernel<<<dim3(grid), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
@@ -284,8 +421,8 @@ int launch(int vec, int per_lane, const void* x, const void* w, const void* b,
 }
 
 template <typename T>
-int resident(int vec, int per_lane, int* ctas) {
-  const Kernel<T> kernel = pick<T>(vec, per_lane);
+int resident(int vec, int per_lane, int warps, int* ctas) {
+  const Kernel<T> kernel = pick<T>(vec, per_lane, warps);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, kThreads, 0));
@@ -300,17 +437,21 @@ extern "C" const char* apex_error_string(int code) {
 // dtype: 0 = float32, 1 = bfloat16 (x and y); w, b, mu, rstd are float32.
 // The launch plan (ops/layer_norm.py norm_launch_plan): `vec` values per
 // load (16 bytes' worth, x and y 16-byte aligned, or 1), `per_lane`
-// values a lane holds (4, 8, 16 or 32; 0 streams the row), `lanes` lanes
-// per row (a power of two; 32 when streaming) and `grid` CTAs.
+// values a lane holds (4, 8, 16 or 32; 0 streams the row), `lanes`
+// threads a row (a power of two up to 32: lanes of one warp, 32 when
+// streaming; or 32 * W, the wide-row instance's W = 4 or 8 warps, with 16
+// or 32 values a lane) and `grid` CTAs.
 extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
                               void* y, void* mu, void* rstd, int rows,
                               int hidden, float eps, int rms, int dtype,
                               int vec, int per_lane, int lanes, int grid,
                               void* stream) {
-  if (rows <= 0 || hidden <= 0 || grid <= 0 || lanes <= 0 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0 || (per_lane == 0 && lanes != 32) ||
-      hidden % vec != 0 ||
-      (per_lane > 0 && (lanes * per_lane < hidden || per_lane % vec != 0)))
+  const bool wide = lanes > 32;
+  if (rows <= 0 || hidden <= 0 || grid <= 0 || lanes <= 0 ||
+      (lanes & (lanes - 1)) != 0 || lanes > 32 * kWarps ||
+      (per_lane == 0 && lanes != 32) || hidden % vec != 0 ||
+      (per_lane > 0 && (lanes * per_lane < hidden || per_lane % vec != 0)) ||
+      (wide && hidden > kWideMax))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -322,12 +463,12 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The CTAs of the instance for (dtype, vec, per_lane) that stay resident on
-// an SM of the current device, into *ctas: the launch plan sizes its
-// persistent grid from it.
+// The CTAs of the instance for (dtype, vec, per_lane, warps a row) that
+// stay resident on an SM of the current device, into *ctas: the launch
+// plan sizes its persistent grid from it.
 extern "C" int layer_norm_fwd_ctas_per_sm(int dtype, int vec, int per_lane,
-                                          int* ctas) {
-  if (dtype == 0) return resident<float>(vec, per_lane, ctas);
-  if (dtype == 1) return resident<__nv_bfloat16>(vec, per_lane, ctas);
+                                          int warps, int* ctas) {
+  if (dtype == 0) return resident<float>(vec, per_lane, warps, ctas);
+  if (dtype == 1) return resident<__nv_bfloat16>(vec, per_lane, warps, ctas);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,9 +19,11 @@ tensor they are the plain twins :func:`layer_norm_reference` and
 :func:`layer_norm_bwd_reference`, the arithmetic of the JAX package's
 ``_jnp_fwd`` and ``_jnp_bwd``.  The kernels take any hidden size: the
 TPU's lane rule (``hidden % 128``) does not apply.  Both kernels run a
-row on one warp or a narrower lane group from registers, with a
-persistent grid; :func:`norm_launch_plan` picks the load width, the
-values per lane, the lanes per row and the grid for a call.
+row from registers on one warp or a narrower lane group (hidden up to
+1024), or on 4 or 8 warps of a CTA (the wide-row instance, up to
+:data:`WIDE_MAX_HIDDEN`), with a persistent grid; wider rows stream.
+:func:`norm_launch_plan` picks the load width, the values per lane, the
+lanes and warps per row and the grid for a call.
 """
 
 from __future__ import annotations
@@ -56,9 +58,19 @@ KERNEL_BWD = "layer_norm_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: warps in a CTA of K1 and K2
 NORM_WARPS = 8
-#: the values a lane can hold in registers (K1's and K2's instances);
-#: a row wider than 32 lanes times the last streams
+#: the values a lane can hold in registers (K1's and K2's instances of
+#: one warp or a narrower lane group a row)
 _PER_LANE = (4, 8, 16, 32)
+#: the wide-row instances for rows wider than 32 lanes x 32 values:
+#: (warps a row, values a lane), fewest warps first.  The plan takes the
+#: first that covers the row and whose K2 fits the register file without
+#: spilling (:func:`_wide_regs`), else the first that covers it: at 4096
+#: values 4 x 32 in bf16 (K1 5%, K2 1% faster than 8 x 16 on an H100)
+#: and 8 x 16 in f32 (K2 12% faster than 4 x 32, which spills)
+_WIDE = ((4, 16), (4, 32), (8, 16), (8, 32))
+#: the widest row the wide-row instance holds; wider rows stream (one
+#: warp a row, three passes over it in K1, two in K2)
+WIDE_MAX_HIDDEN = NORM_WARPS * 32 * 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,20 +82,24 @@ class NormPlan:
       multiples of 16, else 1 (the same path, one element per load);
     - ``per_lane``: values a lane holds in registers (0: the row streams
       through L1/L2, one warp per row);
-    - ``lanes``: lanes per row, a power of two, and ``rows_per_warp`` =
-      32 / lanes rows side by side in a warp;
+    - ``lanes``: lanes of a warp per row, a power of two, and
+      ``rows_per_warp`` = 32 / lanes rows side by side in a warp;
+    - ``warps_per_row``: 1, or the wide-row instance's 4 or 8 warps of a
+      CTA that share a row (``lanes`` 32): the kernel's ``lanes``
+      argument is the row's threads, ``lanes * warps_per_row``;
     - ``ctas_per_sm``: the CTAs of :data:`NORM_WARPS` warps of the
       instance that stay resident on an SM;
     - ``grid``: the persistent grid, at most ``ctas_per_sm`` per SM;
     - ``parts``: K2's partial rows of dw and db (one per CTA, or one per
       warp when the row streams);
     - ``per_cta``: the rows a CTA takes per pass of the grid (the
-      ``block_rows`` asked for, or one row group of each warp).
+      ``block_rows`` asked for, or one row group of its warps).
     """
 
     vec: int
     per_lane: int
     lanes: int
+    warps_per_row: int
     rows_per_warp: int
     ctas_per_sm: int
     grid: int
@@ -92,18 +108,20 @@ class NormPlan:
 
 
 def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
-                     ctas_per_sm: Callable[[int, int], int],
+                     ctas_per_sm: Callable[[int, int, int], int],
                      aligned: bool = True, bwd: bool = False,
                      block_rows: Optional[int] = None) -> NormPlan:
     """The launch plan of K1 (or K2 with ``bwd``) for ``rows`` rows of
     ``hidden`` values of ``elem_bytes`` bytes (2 bf16, 4 f32) on a card
     with ``sms`` SMs; ``aligned`` says whether every row tensor's base,
-    and w's and b's, is 16-byte aligned.  ``ctas_per_sm(vec, per_lane)``
-    gives the CTAs of the chosen instance that stay resident on an SM: on
-    the card, the built kernel's own count (:func:`_resident_ctas`).
-    ``block_rows`` (a tuning-cache entry, :mod:`.tune_cache`) sets the rows
-    a CTA takes per pass of the persistent grid instead of one row group
-    of each warp."""
+    and w's and b's, is 16-byte aligned.  ``ctas_per_sm(vec, per_lane,
+    warps_per_row)`` gives the CTAs of the chosen instance that stay
+    resident on an SM: on the card, the built kernel's own count
+    (:func:`_resident_ctas`).  ``block_rows`` (a tuning-cache entry,
+    :mod:`.tune_cache`) sets the rows a CTA takes per pass of the
+    persistent grid instead of one row group of its warps.  A row of
+    1025 to :data:`WIDE_MAX_HIDDEN` values takes the wide-row instance
+    (:data:`_WIDE`)."""
     if rows < 1 or hidden < 1 or elem_bytes not in (2, 4) or sms < 1:
         raise ValueError(
             f"bad norm launch: rows={rows} hidden={hidden} "
@@ -113,34 +131,41 @@ def norm_launch_plan(rows: int, hidden: int, elem_bytes: int, *, sms: int,
         vec = 1
     per_lane = next((n for n in _PER_LANE if n >= vec and hidden <= 32 * n),
                     0)
-    lanes = 32
+    lanes, warps = 32, 1
     if per_lane:
         lanes = 1 << max(0, math.ceil(math.log2(-(-hidden // per_lane))))
-    ctas = ctas_per_sm(vec, per_lane)
+    elif hidden <= WIDE_MAX_HIDDEN:
+        covers = [(w, n) for w, n in _WIDE if hidden <= 32 * w * n]
+        warps, per_lane = next(
+            (lay for lay in covers
+             if _wide_regs(elem_bytes, vec, lay[1], bwd=True) <= 255),
+            covers[0])
+    ctas = ctas_per_sm(vec, per_lane, warps)
     if ctas < 1:
         raise ValueError(f"no CTA of the norm kernel fits an SM: {ctas}")
     rows_per_warp = 32 // lanes
     if block_rows is not None and block_rows < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
-    per_cta = block_rows or NORM_WARPS * rows_per_warp
+    per_cta = block_rows or NORM_WARPS * rows_per_warp // warps
     grid = min(-(-rows // per_cta), sms * ctas)
     parts = grid if per_lane else grid * NORM_WARPS
-    return NormPlan(vec, per_lane, lanes, rows_per_warp, ctas, grid, parts,
-                    per_cta)
+    return NormPlan(vec, per_lane, lanes, warps, rows_per_warp, ctas, grid,
+                    parts, per_cta)
 
 
 @functools.lru_cache(maxsize=None)
 def _resident_ctas(kernel: str, dtype_code: int, device_index: int, vec: int,
-                   per_lane: int) -> int:
+                   per_lane: int, warps: int) -> int:
     """The CTAs of K1's or K2's instance that stay resident on an SM of
     the device, from the CUDA occupancy calculator on the built kernel
     (``<kernel>_ctas_per_sm``)."""
     fn = getattr(_build.load(_build.library(kernel)), f"{kernel}_ctas_per_sm")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     ctas = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _build.check(kernel, fn(dtype_code, vec, per_lane, ctypes.byref(ctas)))
+        _build.check(kernel, fn(dtype_code, vec, per_lane, warps,
+                                ctypes.byref(ctas)))
     return ctas.value
 
 
@@ -160,6 +185,14 @@ def _plan(kernel, x2d, *row_tensors, bwd, block_rows=None):
     return norm_launch_plan(rows, hidden, x2d.element_size(), sms=sms,
                             ctas_per_sm=ctas, aligned=aligned, bwd=bwd,
                             block_rows=block_rows)
+
+
+def _bwd_plan(x2d, w, b, g, dx, *, x_is_output, block_rows=None):
+    """K2's launch plan: the alignment check takes x, g, dx and w, and b
+    in ``x_is_output`` mode, where the wide-row instance loads b 16 bytes
+    at a time (K1's takes b always)."""
+    return _plan(KERNEL_BWD, x2d, g, dx, w, *((b,) if x_is_output else ()),
+                 bwd=True, block_rows=block_rows)
 
 
 def layer_norm_reference(
@@ -214,10 +247,10 @@ def layer_norm_bwd_reference(
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, w, b, y, mu, rstd; rows, hidden, eps, rms, dtype; vec, per_lane,
-# lanes, grid; stream
+# threads a row (NormPlan lanes * warps_per_row), grid; stream
 _FWD_ARGS = [_P] * 6 + [_I, _I, _F, _I, _I] + [_I] * 4 + [_P]
 # x, w, b, mu, rstd, g, dx, partial rows; rows, hidden, rms, x_is_output,
-# dtype; vec, per_lane, lanes, grid; stream
+# dtype; vec, per_lane, threads a row, grid; stream
 _BWD_ARGS = [_P] * 8 + [_I] * 5 + [_I] * 4 + [_P]
 
 
@@ -259,7 +292,8 @@ def layer_norm_fwd(
         KERNEL, _FWD_ARGS, x2d.device, x2d.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows,
         hidden, float(eps), int(rms), _DTYPE_CODES[x2d.dtype], plan.vec,
-        plan.per_lane, plan.lanes, plan.grid, dtype=x2d.dtype,
+        plan.per_lane, plan.lanes * plan.warps_per_row, plan.grid,
+        dtype=x2d.dtype,
     )
     return y, mu, rstd
 
@@ -276,6 +310,15 @@ def layer_norm_bwd(
     db (:class:`NormPlan` ``parts``) are summed here with one
     ``torch.sum``, in a fixed order.  ``block_rows`` as
     :func:`layer_norm_fwd`'s."""
+    dx, part = _bwd_parts(x2d, w, b, mu, rstd, g, rms=rms,
+                          x_is_output=x_is_output, block_rows=block_rows)
+    dw, db = part.sum(dim=0)
+    return dx, dw, db
+
+
+def _bwd_parts(x2d, w, b, mu, rstd, g, *, rms, x_is_output, block_rows=None):
+    """K2's launch: ``(dx, part)``, ``part`` the f32 (parts, 2, hidden)
+    partial rows of dw and db that :func:`layer_norm_bwd` sums."""
     _check_operands("layer_norm_bwd", x2d, w, b, mu, rstd)
     if (g.device != x2d.device or g.shape != x2d.shape
             or g.dtype != x2d.dtype or not g.is_contiguous()):
@@ -287,9 +330,10 @@ def layer_norm_bwd(
     rows, hidden = x2d.shape
     dx = torch.empty_like(x2d)
     if rows == 0:
-        zeros = torch.zeros(hidden, dtype=torch.float32, device=x2d.device)
-        return dx, zeros, zeros.clone()
-    plan = _plan(KERNEL_BWD, x2d, g, dx, w, bwd=True, block_rows=block_rows)
+        return dx, torch.zeros(1, 2, hidden, dtype=torch.float32,
+                               device=x2d.device)
+    plan = _bwd_plan(x2d, w, b, g, dx, x_is_output=x_is_output,
+                     block_rows=block_rows)
     part = torch.empty(plan.parts, 2, hidden, dtype=torch.float32,
                        device=x2d.device)
     _dispatch.launch(
@@ -297,10 +341,9 @@ def layer_norm_bwd(
         b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
         dx.data_ptr(), part.data_ptr(), rows, hidden, int(rms),
         int(x_is_output), _DTYPE_CODES[x2d.dtype], plan.vec, plan.per_lane,
-        plan.lanes, plan.grid, dtype=x2d.dtype,
+        plan.lanes * plan.warps_per_row, plan.grid, dtype=x2d.dtype,
     )
-    dw, db = part.sum(dim=0)
-    return dx, dw, db
+    return dx, part
 
 
 class _Norm2d(torch.autograd.Function):
@@ -413,9 +456,24 @@ SPEC_ENTRIES = (KERNEL, KERNEL_BWD)
 _CXX_TYPES = {0: "float", 1: "__nv_bfloat16"}
 
 
-def _min_blocks(elem: int, per_lane: int, bwd: bool) -> int:
+def _wide_regs(elem: int, vec: int, per_lane: int, bwd: bool) -> int:
+    """The registers a thread of the wide-row instance takes, as
+    ``csrc/norm_wide.cuh``'s ``WideCfg::kRegs`` estimates them: a lane's
+    loaded values (a 16-byte load's four registers, or one per element)
+    now and next, and as many f32 registers of w and b (K2: x and g, w,
+    b, dw and db), and 24 of addresses and sums."""
+    raw = per_lane // vec * -(-(vec * elem) // 4)
+    return (4 if bwd else 2) * (raw + per_lane) + 24
+
+
+def _min_blocks(elem: int, vec: int, per_lane: int, warps: int,
+                bwd: bool) -> int:
     """``__launch_bounds__``' CTAs per SM of an instance (the sources'
-    ``Cfg<T, kPer>::kCtas``)."""
+    ``Cfg<T, kPer>::kCtas``, and ``norm_wide.cuh``'s ``WideCfg::kCtas`` for
+    the wide-row instance of ``warps`` warps a row: two CTAs of 8 warps
+    where 128 registers a thread hold it)."""
+    if warps > 1:
+        return 2 if _wide_regs(elem, vec, per_lane, bwd) <= 128 else 1
     nbytes = per_lane * elem
     if bwd:
         return 2 if per_lane == 0 else 4 if nbytes <= 16 else \
@@ -436,20 +494,28 @@ def _ln_work(rows: int, hidden: int, elem: int, bwd: bool) -> dict:
 
 
 def _ln_spec(entry, rows, hidden, dtype_code, vec, per_lane, lanes, grid):
+    """The spec of one launch; ``lanes`` is the C argument, the row's
+    threads (above 32: the wide-row instance's warps)."""
     from apex_tpu_torch.ops.introspect import KernelSpec
 
     bwd = entry == KERNEL_BWD
     elem = 4 if dtype_code == 0 else 2
+    warps = max(1, lanes // 32)
+    lanes = min(lanes, 32)
+    name = "ln_bwd" if bwd else "ln_fwd"
+    per_cta = NORM_WARPS * (32 // lanes) // warps
     return KernelSpec(
-        name="ln_bwd_kernel" if bwd else "ln_fwd_kernel", entry=entry,
-        instance=f"<{_CXX_TYPES[dtype_code]}, {vec}, {per_lane}>",
+        name=f"{name}_wide_kernel" if warps > 1 else f"{name}_kernel",
+        entry=entry,
+        instance=(f"<{_CXX_TYPES[dtype_code]}, {vec}, {per_lane}"
+                  + (f", {warps}>" if warps > 1 else ">")),
         grid=int(grid), threads=32 * NORM_WARPS, smem_bytes=0,
-        min_blocks=_min_blocks(elem, per_lane, bwd),
+        min_blocks=_min_blocks(elem, vec, per_lane, warps, bwd),
         dtype="float32" if dtype_code == 0 else "bfloat16",
         tile={"rows_per_warp": 32 // lanes, "lanes": lanes,
-              "per_lane": per_lane, "vec": vec, "hidden": hidden},
-        items={"n_items": -(-rows // (NORM_WARPS * (32 // lanes))),
-               "per_cta": "persistent"},
+              "warps_per_row": warps, "per_lane": per_lane, "vec": vec,
+              "hidden": hidden},
+        items={"n_items": -(-rows // per_cta), "per_cta": "persistent"},
         writes=("dx", "dw_part", "db_part") if bwd else ("y", "mu", "rstd"),
         work=_ln_work(rows, hidden, elem, bwd))
 
@@ -474,8 +540,8 @@ def kernel_specs(rows: int, hidden: int, dtype=torch.bfloat16, *,
     on the card)."""
     elem = torch.empty((), dtype=dtype).element_size()
     plan = norm_launch_plan(rows, hidden, elem, sms=sms,
-                            ctas_per_sm=lambda v, p: ctas_per_sm,
+                            ctas_per_sm=lambda *instance: ctas_per_sm,
                             aligned=aligned, bwd=bwd, block_rows=block_rows)
     return [_ln_spec(KERNEL_BWD if bwd else KERNEL, rows, hidden,
-                     _DTYPE_CODES[dtype], plan.vec, plan.per_lane, plan.lanes,
-                     plan.grid)]
+                     _DTYPE_CODES[dtype], plan.vec, plan.per_lane,
+                     plan.lanes * plan.warps_per_row, plan.grid)]

@@ -13,8 +13,11 @@ run-time plan field, so the sweep builds nothing beyond the default
 kernels.
 
 For each hidden size of :data:`HIDDENS` (or ``--hidden``) the candidates
-are the multiples of the default ``NORM_WARPS * rows_per_warp`` up to the
-last one whose grid still puts a CTA on every SM (:func:`candidates`).
+are the default (one row group of each warp of a CTA: ``NORM_WARPS *
+rows_per_warp``, or ``NORM_WARPS / warps_per_row`` rows for the wide-row
+instance) and then the multiples of the larger of it and ``NORM_WARPS``
+up to the last one whose grid still puts a CTA on every SM
+(:func:`candidates`).
 Each candidate runs K1 then K2 (forward and backward, as the reference
 times them) on ``--rows`` rows and is held to the plain versions; a
 mismatch exits 1.  The pair is timed with CUDA events, L2 flushed before
@@ -68,24 +71,29 @@ SUM_TOL = dict(atol=1e-2, rtol=1e-3)
 
 def default_block_rows(hidden: int, elem_bytes: int) -> int:
     """The rows a CTA takes per pass when no cache entry names any: one
-    row group of each of its warps (``NORM_WARPS * rows_per_warp``)."""
+    row group of its warps (``NORM_WARPS * rows_per_warp``, or
+    ``NORM_WARPS / warps_per_row`` for the wide-row instance)."""
     from apex_tpu_torch.ops import layer_norm as ln
 
-    plan = ln.norm_launch_plan(1, hidden, elem_bytes, sms=1,
-                               ctas_per_sm=lambda vec, per_lane: 1)
-    return ln.NORM_WARPS * plan.rows_per_warp
+    return ln.norm_launch_plan(1, hidden, elem_bytes, sms=1,
+                               ctas_per_sm=lambda *instance: 1).per_cta
 
 
 def candidates(rows: int, hidden: int, elem_bytes: int,
                sms: int) -> List[int]:
-    """The ``block_rows`` values swept for one hidden size: the multiples
-    of the default up to the last whose grid (``ceil(rows / block_rows)``)
-    still covers every one of ``sms`` SMs; the default alone when even it
-    does not."""
+    """The ``block_rows`` values swept for one hidden size: the default,
+    then the multiples of the larger of it and ``NORM_WARPS`` above it, up
+    to the last whose grid (``ceil(rows / block_rows)``) still covers every
+    one of ``sms`` SMs; the default alone when even the next does not."""
+    from apex_tpu_torch.ops import layer_norm as ln
+
     base = default_block_rows(hidden, elem_bytes)
+    step = max(base, ln.NORM_WARPS)
     out = [base]
-    while -(-rows // (out[-1] + base)) >= sms:
-        out.append(out[-1] + base)
+    nxt = step * (base // step + 1)
+    while -(-rows // nxt) >= sms:
+        out.append(nxt)
+        nxt += step
     return out
 
 

@@ -833,6 +833,28 @@ def phase1(gen):
     return errs
 
 
+#: K1/K2's rows wider than 1024 values (the wide-row instance): 16384
+#: rows (ln_tune's) at GPT-3 XL's 1536 and the 6.7B/Llama class's 4096
+#: and 8192, in bf16, and 4096 in f32 (that width's rows under amp O1)
+LN_WIDE_SHAPES = ((16384, 1536, "bf16"), (16384, 4096, "bf16"),
+                  (16384, 8192, "bf16"), (16384, 4096, "f32"))
+#: a row wider than the wide-row instance holds (8192,
+#: ``ops/layer_norm.py`` ``WIDE_MAX_HIDDEN``): it streams; timed by
+#: ``--timing`` and ``--norms``
+LN_STREAM_SHAPE = (16384, 12288, "bf16")
+
+
+#: K1's wide-row cases (rows, hidden, rms, dtype, eps): LN_WIDE_SHAPES,
+#: RMS, fewer rows than the grid (37), the one-element loads of odd
+#: widths (2049 bf16 on 8 warps x 16 values, 5001 f32 on 8 x 32), f32 on
+#: 8 warps x 32 values
+LN_WIDE_FWD_CASES = (
+    *((rows, hidden, False, dt, 1e-5) for rows, hidden, dt in LN_WIDE_SHAPES),
+    (2048, 4096, True, "bf16", 1e-5), (37, 4096, False, "bf16", 1e-5),
+    (1000, 2049, False, "bf16", 1e-5), (300, 5001, True, "f32", 1e-6),
+    (64, 8192, False, "f32", 1e-6))
+
+
 def phase1_ln_fwd(gen):
     """K1 against its twin: y under BF16_TOL (bf16) or F32_TOL (f32), mu
     and rstd under F32_TOL.  Returns max |y - y_ref| at the training
@@ -846,10 +868,13 @@ def phase1_ln_fwd(gen):
     # rows of 128, eps 1e-6), an odd bf16 width (1001: every row but
     # every eighth starts off a 16-byte boundary, so one element per
     # load), an f32 width of 130 (520 bytes, also one element per load),
-    # a wide row that streams (12288 > 32 lanes x 32 values) and narrow
-    # rows that share a warp (64 bf16: 8 lanes a row; 33 f32: 16); the
-    # second case is phase 16's sharded shape (tp = 2 with sequence
-    # parallelism: S x B / 2 rows)
+    # a wide row that streams (12288 > 8 warps x 32 lanes x 32 values)
+    # and narrow rows that share a warp (64 bf16: 8 lanes a row; 33 f32:
+    # 16); the second case is phase 16's sharded shape (tp = 2 with
+    # sequence parallelism: S x B / 2 rows).  Then the wide-row instance
+    # (hidden 1025 to 8192: 4 or 8 warps a row): 1536, 4096 and 8192 in
+    # bf16, 4096 and 8192 in f32, RMS, fewer rows than its grid, and odd
+    # widths (one element per load) in bf16 and f32
     for rows, hidden, rms, dt, eps in (
             (TRAIN_BATCH * TRAIN_SEQ, 1024, False, "bf16", 1e-5),
             (TRAIN_BATCH * TRAIN_SEQ // 2, 1024, False, "bf16", 1e-5),
@@ -862,7 +887,8 @@ def phase1_ln_fwd(gen):
             (EVO_RES * EVO_RES // DAP, 128, False, "f32", 1e-6),
             (1000, 1001, False, "bf16", 1e-5), (999, 130, True, "f32", 1e-6),
             (64, 12288, False, "bf16", 1e-5), (300, 64, False, "bf16", 1e-5),
-            (301, 33, False, "f32", 1e-6)):
+            (301, 33, False, "f32", 1e-6),
+            *LN_WIDE_FWD_CASES):
         x, w, b = ln_inputs(rows, hidden, gen)
         if dt == "f32":
             x = x.float()
@@ -1020,22 +1046,43 @@ LN_BWD_CASES = (
     (64, 12288, "bf16", False, True),
     (300, 64, "bf16", True, False),
     (301, 33, "f32", False, False),
+    # the wide-row instance: LN_WIDE_SHAPES, x_is_output at 4096 and
+    # 8192, RMS, fewer rows than the grid, odd widths (one element per
+    # load) in both modes, and f32 x_is_output on 8 warps x 32 values
+    *((rows, hidden, dt, False, False) for rows, hidden, dt in LN_WIDE_SHAPES),
+    (16384, 4096, "bf16", False, True),
+    (16384, 8192, "bf16", True, True),
+    (2048, 4096, "bf16", True, False),
+    (37, 4096, "bf16", False, False),
+    (1000, 2049, "bf16", False, True),
+    (300, 5001, "f32", True, False),
+    (64, 8192, "f32", False, True),
+    # x_is_output reads b: a bias one float into a flat buffer (off a
+    # 16-byte boundary) takes one element per load, at 4096 and at 1024
+    (2048, 4096, "bf16", False, True, "b_off"),
+    (2048, 1024, "bf16", False, True, "b_off"),
 )
+#: the wide K2's planted fault: the sums with one CTA's partial row of dw
+#: and db dropped must read at least this many times SUM_TOL
+LN_WIDE_FAULT_FACTOR = 10.0
 
 
 def phase1_ln_bwd(gen):
     """K2 against its twin on the same saved inputs (the twin's forward
     statistics).  dx: BF16_TOL in bf16, F32_TOL in f32; dw and db:
-    SUM_TOL (f32 sums over the rows, taken in another order)."""
+    SUM_TOL (f32 sums over the rows, taken in another order).  A case
+    marked ``b_off`` passes b as a view one float into a flat buffer."""
     import torch
 
     from apex_tpu_torch.ops import layer_norm as ln
 
     main_err = None
-    for rows, hidden, dt, rms, me in LN_BWD_CASES:
+    for rows, hidden, dt, rms, me, *marks in LN_BWD_CASES:
         x, w, b = ln_inputs(rows, hidden, gen)
         if dt == "f32":
             x = x.float()
+        if "b_off" in marks:
+            b = torch.cat([b.new_zeros(1), b])[1:]
         if me:
             w[::7] = 0.0  # the w == 0 guard of the recovered xhat
         y, mu, rstd = ln.layer_norm_reference(x, w, b, 1e-5, rms)
@@ -1045,14 +1092,49 @@ def phase1_ln_bwd(gen):
                                 x_is_output=me)
         ref = ln.layer_norm_bwd_reference(saved, w, b, mu, rstd, g, rms, me)
         tag = (f"K2 layer_norm_bwd rows={rows} hidden={hidden} {dt} rms={rms} "
-               f"memory_efficient={me}")
+               f"memory_efficient={me}" + "".join(f" {m}" for m in marks))
         e = compare(tag + " dx", out[0], ref[0],
                     BF16_TOL if dt == "bf16" else F32_TOL)
         compare(tag + " dw", out[1], ref[1], SUM_TOL)
         compare(tag + " db", out[2], ref[2], SUM_TOL)
         if main_err is None:
             main_err = e
+    phase1_ln_wide_sums(gen)
     return main_err
+
+
+def phase1_ln_wide_sums(gen):
+    """The wide K2's dw and db at (16384, 4096) bf16: from its partial
+    rows (one a CTA) against the twin under SUM_TOL, the same sums with
+    CTA 0's partial row dropped (a planted fault that must read at least
+    LN_WIDE_FAULT_FACTOR times SUM_TOL), and two runs equal bit for
+    bit."""
+    import torch
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    x, w, b = ln_inputs(16384, 4096, gen)
+    _, mu, rstd = ln.layer_norm_reference(x, w, b, 1e-5, False)
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    _, part = ln._bwd_parts(x, w, b, mu, rstd, g, rms=False,
+                            x_is_output=False)
+    _, dw_r, db_r = ln.layer_norm_bwd_reference(x, w, b, mu, rstd, g, False,
+                                                False)
+    sound = max(_tol_ratio(s, r, SUM_TOL)
+                for s, r in zip(part.sum(dim=0), (dw_r, db_r)))
+    fault = max(_tol_ratio(s, r, SUM_TOL)
+                for s, r in zip(part[1:].sum(dim=0), (dw_r, db_r)))
+    runs = [ln.layer_norm_bwd(x, w, b, mu, rstd, g, rms=False,
+                              x_is_output=False)[1:] for _ in range(2)]
+    same = all(torch.equal(a, c) for a, c in zip(*runs))
+    log(f"  K2 wide (16384, 4096) bf16: {part.shape[0]} partial rows; dw/db "
+        f"worst err/allowance under SUM_TOL sound {sound:.4f}, CTA 0's "
+        f"partial row dropped {fault:.4f} (must be >= "
+        f"{LN_WIDE_FAULT_FACTOR}); two runs bit-identical: {same}")
+    if not (sound < 1.0 and fault >= LN_WIDE_FAULT_FACTOR and same):
+        raise AssertionError(
+            f"K2 wide sums: sound {sound}, dropped partial row {fault}, "
+            f"bit-identical {same}")
 
 
 #: (BH, Sq, Sk, causal, with dlse): the training shape, phase 16's (tp =
@@ -3410,14 +3492,15 @@ def phase15():
 
 def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
     """K1 and K2 at x (rows, hidden) in ``dtype`` (bf16 or f32), each
-    beside its plain version and the library call (``F.layer_norm`` and
-    its backward, affine, with the weights in x's dtype), with the
+    beside its plain version and the library call (``aten.native_layer_norm``
+    and ``aten.native_layer_norm_backward``, what ``F.layer_norm`` and its
+    backward launch, affine, with the weights in x's dtype), with the
     bounds."""
     import torch
-    import torch.nn.functional as F
 
     from apex_tpu_torch.ops import layer_norm as ln
 
+    aten = torch.ops.aten
     x, w, b = ln_inputs(rows, hidden, gen)
     if dtype == "f32":
         x = x.float()
@@ -3427,27 +3510,165 @@ def _time_ln(gen, flush, rows, hidden, dtype="bf16"):
                    flush=flush),
         plain_ms=time_ms(lambda: ln.layer_norm_reference(x, w, b, 1e-5, False),
                          flush=flush),
-        library_ms=time_ms(lambda: F.layer_norm(x, (hidden,), wb, bb, 1e-5),
-                           flush=flush),
+        library_ms=time_ms(lambda: aten.native_layer_norm(
+            x, [hidden], wb, bb, 1e-5), flush=flush),
     )
     fwd["bound_ms"], fwd["bound_by"] = roofline_bound(
         ln.kernel_specs(rows, hidden, x.dtype))
 
     _, mu, rstd = ln.layer_norm_reference(x, w, b, 1e-5, False)
     g = torch.randn(rows, hidden, generator=gen, device="cuda").to(x.dtype)
-    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, wb, bb))
-    y_lib = F.layer_norm(xr, (hidden,), wr, br, 1e-5)
+    _, lmu, lrstd = aten.native_layer_norm(x, [hidden], wb, bb, 1e-5)
     bwd = dict(
         ms=time_ms(lambda: ln.layer_norm_bwd(x, w, b, mu, rstd, g, rms=False,
                                              x_is_output=False), flush=flush),
         plain_ms=time_ms(lambda: ln.layer_norm_bwd_reference(
             x, w, b, mu, rstd, g, False, False), flush=flush),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            y_lib, (xr, wr, br), g, retain_graph=True), flush=flush),
+        library_ms=time_ms(lambda: aten.native_layer_norm_backward(
+            g, x, [hidden], lmu, lrstd, wb, bb, [True, True, True]),
+            flush=flush),
     )
     bwd["bound_ms"], bwd["bound_by"] = roofline_bound(
         ln.kernel_specs(rows, hidden, x.dtype, bwd=True))
     return fwd, bwd
+
+
+def _time_ln_wide(gen, flush, streamed=False):
+    """K1 and K2 at :data:`LN_WIDE_SHAPES` (and, with ``streamed``, at
+    :data:`LN_STREAM_SHAPE`): ``{kernel: {tag: row}}`` for phase 4's
+    extra rows."""
+    import torch
+
+    extra = {}
+    for rows, hidden, dt in LN_WIDE_SHAPES + ((LN_STREAM_SHAPE,) if streamed
+                                              else ()):
+        ln_fwd, ln_bwd = _time_ln(gen, flush, rows, hidden, dt)
+        what = "streamed" if hidden > 8192 else "wide"
+        tag = f"{what}_{hidden}_{dt}_shape"
+        extra.setdefault("layer_norm_fwd", {})[tag] = dict(
+            ln_fwd, shape=f"x ({rows}, {hidden}) {dt} ({what} row)")
+        extra.setdefault("layer_norm_bwd", {})[tag] = dict(
+            ln_bwd, shape=f"x, g ({rows}, {hidden}) {dt} ({what} row)")
+        torch.cuda.empty_cache()
+    return extra
+
+
+#: the wide-row layouts held side by side (``--norms``): at 2048 and 4096
+#: values, 4 and 8 warps a row (each with the plan's values a lane)
+LN_LAYOUT_SHAPES = ((16384, 2048, "bf16"), (16384, 4096, "bf16"),
+                    (16384, 4096, "f32"))
+
+
+def _ln_layout_calls(x, w, b, mu, rstd, g, warps):
+    """K1 and K2 on ``x`` in the wide layout of ``warps`` warps a row and
+    the fewest values a lane that cover it, launched through the dispatch
+    with a plan built here (the wrappers take the one layout their plan
+    picks for a width): ``(fwd, bwd, values a lane)``; ``fwd()`` returns
+    y, ``bwd()`` dx and the summed dw, db."""
+    import torch
+
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    rows, hidden = x.shape
+    per_lane = next(n for n in (16, 32) if 32 * warps * n >= hidden)
+    vec, code = 16 // x.element_size(), ln._DTYPE_CODES[x.dtype]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = {k: min(-(-rows // (ln.NORM_WARPS // warps)),
+                   sms * ln._resident_ctas(k, code, x.device.index, vec,
+                                           per_lane, warps))
+            for k in (ln.KERNEL, ln.KERNEL_BWD)}
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    mu_o, rstd_o = torch.empty_like(mu), torch.empty_like(rstd)
+    part = torch.empty(grid[ln.KERNEL_BWD], 2, hidden, dtype=torch.float32,
+                       device=x.device)
+    lanes = 32 * warps
+
+    def fwd():
+        _dispatch.launch(
+            ln.KERNEL, ln._FWD_ARGS, x.device, x.data_ptr(), w.data_ptr(),
+            b.data_ptr(), y.data_ptr(), mu_o.data_ptr(), rstd_o.data_ptr(),
+            rows, hidden, 1e-5, 0, code, vec, per_lane, lanes,
+            grid[ln.KERNEL], dtype=x.dtype)
+        return y
+
+    def bwd():
+        _dispatch.launch(
+            ln.KERNEL_BWD, ln._BWD_ARGS, x.device, x.data_ptr(), w.data_ptr(),
+            b.data_ptr(), mu.data_ptr(), rstd.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), rows, hidden, 0, 0, code, vec,
+            per_lane, lanes, grid[ln.KERNEL_BWD], dtype=x.dtype)
+        return (dx, *part.sum(dim=0))
+
+    return fwd, bwd, per_lane
+
+
+def _time_ln_layouts(gen, flush):
+    """K1 and K2 ms at :data:`LN_LAYOUT_SHAPES` in each wide layout (4 and
+    8 warps a row), each held to the plain versions first:
+    ``{"<hidden> <dtype> W<warps>": {"fwd_ms", "bwd_ms", "per_lane"}}``."""
+    import torch
+
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    out = {}
+    if not hasattr(ln, "WIDE_MAX_HIDDEN"):  # an older tree: one layout
+        return out
+    for rows, hidden, dt in LN_LAYOUT_SHAPES:
+        x, w, b = ln_inputs(rows, hidden, gen)
+        if dt == "f32":
+            x = x.float()
+        y_ref, mu, rstd = ln.layer_norm_reference(x, w, b, 1e-5, False)
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        bwd_ref = ln.layer_norm_bwd_reference(x, w, b, mu, rstd, g, False,
+                                              False)
+        tol = BF16_TOL if dt == "bf16" else F32_TOL
+        for warps in (4, 8):
+            fwd, bwd, per_lane = _ln_layout_calls(x, w, b, mu, rstd, g, warps)
+            tag = f"wide layout ({rows}, {hidden}) {dt} {warps} x {per_lane}"
+            compare(f"{tag} K1 y", fwd(), y_ref, tol)
+            for name, o, ref, t in zip(("dx", "dw", "db"), bwd(), bwd_ref,
+                                       (tol, SUM_TOL, SUM_TOL)):
+                compare(f"{tag} K2 {name}", o, ref, t)
+            out[f"{hidden} {dt} W{warps}"] = r = dict(
+                per_lane=per_lane, fwd_ms=time_ms(fwd, flush=flush),
+                bwd_ms=time_ms(bwd, flush=flush))
+            log(f"  wide layout ({rows}, {hidden}) {dt}, {warps} warps x "
+                f"{per_lane} values a lane: K1 {r['fwd_ms']:.4f} ms, K2 "
+                f"{r['bwd_ms']:.4f} ms")
+        del x, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase4_norms(gen):
+    """Phase 4's K1/K2 rows alone (``--norms``): the training shape
+    (16384, 1024) in bf16 and f32, the wide rows and the streamed width,
+    each beside its plain version, library call and bound; returns
+    ``{kernel: {tag: row}}``."""
+    import torch
+
+    log("phase 4, K1/K2 rows: timing (median of 25 queued runs, L2 "
+        "flushed before each)")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    out = {"layer_norm_fwd": {}, "layer_norm_bwd": {}}
+    n = TRAIN_BATCH * TRAIN_SEQ
+    for dt in ("bf16", "f32"):
+        fwd, bwd = _time_ln(gen, flush, n, 1024, dt)
+        out["layer_norm_fwd"][f"train_{dt}_shape"] = dict(
+            fwd, shape=f"x ({n}, 1024) {dt}")
+        out["layer_norm_bwd"][f"train_{dt}_shape"] = dict(
+            bwd, shape=f"x, g ({n}, 1024) {dt}")
+        torch.cuda.empty_cache()
+    for name, by_tag in _time_ln_wide(gen, flush, streamed=True).items():
+        out[name].update(by_tag)
+    layouts = _time_ln_layouts(gen, flush)
+    for name, by_tag in out.items():
+        for r in by_tag.values():
+            log(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return dict(out, wide_layouts=layouts)
 
 
 def _time_attn(gen, flush, bh, s, *, with_bwd, d=64):
@@ -3878,6 +4099,10 @@ def phase4(gen, launches, errs, off_path=True):
     extra["layer_norm_bwd"] = {"amp_o1_shape": dict(
         ln_bwd, shape=f"x, g ({train_rows}, 1024) f32 (amp O1)")}
     torch.cuda.empty_cache()
+    # the wide-row instance (hidden > 1024), and with --timing the
+    # streamed width past it
+    for name, by_tag in _time_ln_wide(gen, flush, streamed=off_path).items():
+        extra[name].update(by_tag)
     for tag, n_rows, hidden in (
             ("evo_pair_shape", EVO_RES * EVO_RES, EVO["pair_dim"]),
             ("evo_msa_shape", EVO_SEQ * EVO_RES, EVO["msa_dim"]),
@@ -4241,7 +4466,10 @@ def phase4(gen, launches, errs, off_path=True):
                         entry.get("zigzag_past_shape")),
                        (" (evoformer pair)", entry.get("evo_pair_shape")),
                        (" (evoformer MSA)", entry.get("evo_msa_shape")),
-                       (" (amp O1, f32)", entry.get("amp_o1_shape"))):
+                       (" (amp O1, f32)", entry.get("amp_o1_shape")),
+                       *((f" ({t.removesuffix('_shape').replace('_', ' ')})",
+                          entry[t]) for t in entry
+                         if t.startswith(("wide_", "streamed_")))):
             if r is None:
                 continue
             lib = ("not measured" if r["library_ms"] is None
@@ -13618,6 +13846,135 @@ def _phase29c(say=log):
                  [f"29c shard_report exit {rc}, verdicts {verdicts}"])
 
 
+#: 29e: one GPT block at the reference's ``tp_gpt_block_h4096`` shape
+#: (``tools/comm_structure.py``: hidden 4096, 32 heads, FFN 16384) at tp
+#: 1, forward and backward through the module call on 8 x 1024 tokens in
+#: bf16, timed over P29E_STEPS; its norms take K1/K2's wide-row instance
+P29E_SHAPE = dict(hidden_size=4096, num_heads=32, intermediate_size=16384)
+P29E_SEQ, P29E_BATCH, P29E_STEPS = 1024, 8, 3
+#: 29e's cross-check: the first 128 tokens of one sequence, the card's
+#: bf16 block against the CPU's f32 block (the plain versions) from the
+#: same weights, under phase 7's GRAD_REL_TOL
+P29E_CROSS_TOKENS = 128
+
+
+class _NormLaunchArgs:
+    """A :data:`apex_tpu_torch.ops._dispatch.RECORDERS` entry that keeps
+    the threads-a-row argument (``lanes``) of every K1 and K2 launch."""
+
+    #: the argument's position in each entry's C argument list
+    AT = {"layer_norm_fwd": 13, "layer_norm_bwd": 15}
+
+    def __init__(self):
+        self.lanes = {k: [] for k in self.AT}
+
+    def note_launch(self, kernel, argtypes, args, dtype):
+        if kernel in self.AT:
+            self.lanes[kernel].append(args[self.AT[kernel]])
+
+
+def _p29e_step(blk, x, gy, cos, sin):
+    """One forward and backward of ``blk`` over ``x``: (the output, x's
+    gradient); the parameters' gradients accumulate on ``blk``."""
+    x = x.detach().requires_grad_()
+    out = blk(x, cos, sin)
+    out.backward(gy)
+    return out.detach(), x.grad
+
+
+def _phase29e():
+    """A ``GptBlock`` at hidden 4096 (:data:`P29E_SHAPE`) on the card:
+    forward and backward at 8 x 1024 tokens, its K1/K2 launches (two
+    each a step, every one the wide-row instance's by the launch plan)
+    and ms a step; then a 128-token copy against the CPU's f32 block.
+    Returns (launches, results, failures)."""
+    import torch
+
+    from apex_tpu_torch.models import GptBlock, GptConfig, rope_cos_sin
+    from apex_tpu_torch.ops import _dispatch
+    from apex_tpu_torch.ops import layer_norm as ln
+
+    t0 = time.perf_counter()
+    cfg = GptConfig(**P29E_SHAPE, max_seq_len=P29E_SEQ)
+    blk = GptBlock(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    with torch.no_grad():  # GptModel's draws; the norms moved off 1 and 0
+        for lin in (blk.qkv, blk.out, blk.fc1, blk.fc2):
+            lin.load_full_(randn(lin.output_size, lin.input_size)
+                           * lin.input_size ** -0.5)
+        for norm in (blk.ln_attn, blk.ln_mlp):
+            norm.scale.add_(0.1 * randn(cfg.hidden_size))
+            norm.bias.add_(0.1 * randn(cfg.hidden_size))
+    x = randn(P29E_SEQ, P29E_BATCH, cfg.hidden_size).to(cfg.dtype)
+    gy = randn(*x.shape).to(cfg.dtype)
+    cos, sin = rope_cos_sin(P29E_SEQ, cfg.head_dim, device="cuda")
+    _p29e_step(blk, x, gy, cos, sin)  # warm-up
+    torch.cuda.synchronize()
+    rec = _NormLaunchArgs()
+    _dispatch.reset_launches()
+    _dispatch.RECORDERS.append(rec)
+    ms = []
+    try:
+        for _ in range(P29E_STEPS):
+            blk.zero_grad(set_to_none=True)
+            t = time.perf_counter()
+            _p29e_step(blk, x, gy, cos, sin)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        _dispatch.RECORDERS.remove(rec)
+    launches = _dispatch.launches()
+    rows = P29E_SEQ * P29E_BATCH
+    plan = ln.kernel_specs(rows, cfg.hidden_size, cfg.dtype)[0].tile
+    wide = plan["lanes"] * plan["warps_per_row"]
+    failures = []
+    for kernel, lanes in rec.lanes.items():
+        want = 2 * P29E_STEPS  # ln_attn and ln_mlp, a step
+        if len(lanes) != want or launches.get(kernel) != want or any(
+                n != wide for n in lanes):
+            failures.append(f"29e {kernel}: {launches.get(kernel)} launches "
+                            f"with threads a row {lanes}, want {want} at "
+                            f"{wide}")
+    # the 128-token copy: the card's bf16 block against the CPU's f32
+    n = P29E_CROSS_TOKENS
+    xs, gs = x[:n, :1].contiguous(), gy[:n, :1].contiguous()
+    # built on the meta device and given the card's weights (no init)
+    cpu = GptBlock(dataclasses.replace(cfg, dtype=torch.float32), "meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in blk.state_dict().items()},
+                        assign=True)
+    blk.zero_grad(set_to_none=True)
+    out_c, dx_c = _p29e_step(blk, xs, gs, cos[:n], sin[:n])
+    out_r, dx_r = _p29e_step(cpu, xs.cpu().float(), gs.cpu().float(),
+                             cos[:n].cpu(), sin[:n].cpu())
+    errs = {"out": _rel_fro(out_c, out_r), "dx": _rel_fro(dx_c, dx_r)}
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in blk.named_parameters():
+        errs[f"d{name}"] = _rel_fro(p.grad, cpu_params[name].grad)
+    worst = max(errs, key=errs.get)
+    log(f"  29e GptBlock h {cfg.hidden_size}, {cfg.num_heads} heads, FFN "
+        f"{cfg.intermediate_size}, bf16, {P29E_BATCH} x {P29E_SEQ} tokens: "
+        f"{statistics.median(ms):.2f} ms a forward + backward (steps "
+        f"{[round(t, 2) for t in ms]}); launches {launches}; K1/K2 threads "
+        f"a row {sorted(set(sum(rec.lanes.values(), [])))} (the plan's "
+        f"{plan['warps_per_row']} warps x {plan['per_lane']} values a "
+        f"lane); {n} tokens against the CPU's f32 block: relative errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (worst {worst}, tol {GRAD_REL_TOL})")
+    if not all(np.isfinite(v) and v <= GRAD_REL_TOL for v in errs.values()):
+        failures.append(f"29e card against CPU: {worst} {errs[worst]:.3e}")
+    out = dict(ms=ms, median_ms=statistics.median(ms), launches=launches,
+               threads_a_row=wide, rel_errs=errs,
+               seconds=time.perf_counter() - t0)
+    del blk, cpu, x, gy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out, failures
+
+
 def _popen(args, env=None):
     root = os.path.dirname(os.path.abspath(__file__))
     return subprocess.Popen(
@@ -13721,6 +14078,8 @@ def phase29():
         (out["29b"]["ddp_resnet50_syncbn"], f), (out["29c"], f2) = \
             P29_EARLY["results"]
         failures += f + f2
+        block_launches, out["29e"], f = _phase29e()
+        failures += f
         lint = P29_EARLY["lint"]
         text, err = P29_EARLY["lint_out"]
         out["early_wait_s"] = P29_EARLY["wait_s"]
@@ -13740,11 +14099,12 @@ def phase29():
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"  phase 29 took {out['seconds']:.1f} s (29a "
-        f"{out['29a']['part_s']:.1f} s; the build's end waited "
-        f"{out['early_wait_s']:.1f} s for the parts started beside it)")
+        f"{out['29a']['part_s']:.1f} s, 29e {out['29e']['seconds']:.1f} s; "
+        f"the build's end waited {out['early_wait_s']:.1f} s for the parts "
+        f"started beside it)")
     if failures:
         raise AssertionError("phase 29: " + "; ".join(failures))
-    return {"ln_tune": launches}, out
+    return {"ln_tune": launches, "gpt_block_h4096": block_launches}, out
 
 
 #: the flags that run one part of the script alone
@@ -13752,7 +14112,7 @@ SINGLE_PHASE_FLAGS = ("f32_attention", "timing", "phase1", "serving",
                       "evoformer", "resilience", "chaos", "parallel", "dap",
                       "trainer", "context", "experts", "pipeline", "amp",
                       "analysis", "trace_window", "observe", "modules",
-                      "tail", "contrib", "tools", "last_tools")
+                      "tail", "contrib", "tools", "last_tools", "norms")
 
 
 def main():
@@ -13844,6 +14204,10 @@ def main():
                         "and 4096 with its cache read back, comm_structure "
                         "at world 2, shard_report --target train, "
                         "repo_lint)")
+    parser.add_argument("--norms", action="store_true",
+                        help="build K1 and K2 alone and run phase 4's K1/K2 "
+                        "rows (the training shape, the wide rows, the "
+                        "streamed width)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of phase 1's generator (the kernels' "
                         "inputs; 0 by default); also reads K5 f32's c "
@@ -13887,7 +14251,8 @@ def main():
     # the kernels (one nvcc per source, all started together); where the
     # run reaches phase 23, its two tuned variants build beside the first
     # phases, off the build's critical path, and phase 23 waits for them
-    libs = _build.build()
+    libs = _build.build(("layer_norm_fwd", "layer_norm_bwd") if args.norms
+                        else _build.KERNELS)
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     if P28_INT8WIRE_PROC:
         _finish_p28_int8wire()
@@ -13925,6 +14290,10 @@ def main():
         return
     if args.timing:
         print(json.dumps({"timing": phase4(gen, {}, {})}), flush=True)
+        return
+    if args.norms:
+        _dispatch.record_signatures(False)
+        print(json.dumps({"norms": phase4_norms(gen)}), flush=True)
         return
     if args.serving:
         serve_launches, rates, engine, streams = phase2()

@@ -374,7 +374,8 @@ def test_paged_decode_wide_heads_match_jax_kernel(force_pallas, d, int8):
 # ---------------------------------------------------------------------------
 
 
-def _plan(rows, hidden, elem, ctas_per_sm=lambda vec, per_lane: 1, **kw):
+def _plan(rows, hidden, elem, ctas_per_sm=lambda vec, per_lane, warps: 1,
+          **kw):
     return port_ln.norm_launch_plan(rows, hidden, elem, sms=132,
                                     ctas_per_sm=ctas_per_sm, **kw)
 
@@ -410,7 +411,8 @@ def test_norm_plan_misaligned_base_takes_one_element_loads():
     (65536, 128, 4, True, 4, 528, 528),
     (32768, 256, 4, True, 2, 264, 264),
     (37, 1024, 2, False, 2, 5, 5),          # fewer rows than the grid
-    (64, 12288, 2, True, 2, 8, 64),         # streamed: a partial per warp
+    # wider than the wide-row instance's 8192: streamed, a partial a warp
+    (64, 12288, 2, True, 2, 8, 64),
     (64, 12288, 2, False, 4, 8, 64),
 ])
 def test_norm_plan_grid(rows, hidden, elem, bwd, ctas, grid, parts):
@@ -419,11 +421,87 @@ def test_norm_plan_grid(rows, hidden, elem, bwd, ctas, grid, parts):
     asks for the count of the instance it chose."""
     asked = []
     plan = _plan(rows, hidden, elem, bwd=bwd,
-                 ctas_per_sm=lambda vec, per_lane: asked.append(
-                     (vec, per_lane)) or ctas)
-    assert asked == [(plan.vec, plan.per_lane)]
+                 ctas_per_sm=lambda vec, per_lane, warps: asked.append(
+                     (vec, per_lane, warps)) or ctas)
+    assert asked == [(plan.vec, plan.per_lane, plan.warps_per_row)]
     assert (plan.ctas_per_sm, plan.grid, plan.parts) == (ctas, grid, parts)
-    assert plan.per_lane == (0 if hidden > 1024 else plan.per_lane)
+    assert plan.per_lane == (0 if hidden > port_ln.WIDE_MAX_HIDDEN
+                             else plan.per_lane)
+
+
+@pytest.mark.parametrize("rows,hidden,elem,bwd,vec,warps,per_lane,ctas,grid", [
+    # bf16: 4 warps x 16 values to 2048, 4 x 32 to 4096, 8 x 32 to 8192
+    (16384, 1536, 2, False, 8, 4, 16, 2, 264),
+    (16384, 4096, 2, True, 8, 4, 32, 1, 132),
+    (16384, 8192, 2, False, 8, 8, 32, 1, 132),
+    (16384, 8192, 2, True, 8, 8, 32, 1, 132),
+    # f32, float4 loads: 4 x 32 would not fit K2's registers, so 8 x 16
+    (16384, 4096, 4, False, 4, 8, 16, 2, 264),
+    (16384, 8192, 4, True, 4, 8, 32, 1, 132),
+    # an odd width: one element per load, 8 x 16 (as f32)
+    (1000, 2049, 2, True, 1, 8, 16, 1, 132),
+    # fewer rows than the grid: a CTA per row group (two groups a CTA)
+    (37, 1536, 2, True, 8, 4, 16, 2, 19),
+    (5, 4096, 2, False, 8, 4, 32, 2, 3),
+])
+def test_norm_plan_wide_rows(rows, hidden, elem, bwd, vec, warps, per_lane,
+                             ctas, grid):
+    """Rows of 1025 to 8192 values take the wide-row instance: warps a
+    row x 32 lanes x values a lane cover the row, the plan asks for the
+    resident CTAs of that instance, a CTA holds 8 / warps row groups per
+    pass, and K2 writes one partial row per CTA."""
+    asked = []
+    plan = _plan(rows, hidden, elem, bwd=bwd,
+                 ctas_per_sm=lambda v, p, w: asked.append((v, p, w)) or ctas)
+    assert (plan.vec, plan.warps_per_row, plan.per_lane) == (
+        vec, warps, per_lane)
+    assert asked == [(vec, per_lane, warps)]
+    assert plan.lanes == 32 and plan.rows_per_warp == 1
+    assert plan.warps_per_row * plan.lanes * plan.per_lane >= hidden
+    assert plan.per_lane % plan.vec == 0
+    assert plan.per_cta == port_ln.NORM_WARPS // warps
+    assert (plan.ctas_per_sm, plan.grid, plan.parts) == (ctas, grid, grid)
+    spec = port_ln.kernel_specs(rows, hidden,
+                                torch.bfloat16 if elem == 2 else torch.float32,
+                                bwd=bwd, ctas_per_sm=ctas,
+                                aligned=vec > 1)[0]
+    assert spec.full_name == (
+        f"ln_{'bwd' if bwd else 'fwd'}_wide_kernel<"
+        f"{'__nv_bfloat16' if elem == 2 else 'float'}, {vec}, {per_lane}, "
+        f"{warps}>")
+    assert spec.grid == grid and spec.smem_bytes == 0
+
+
+@pytest.mark.parametrize("hidden", [1024, 4096])
+@pytest.mark.parametrize("x_is_output", [False, True])
+def test_bwd_plan_takes_b_alignment_in_x_is_output_mode(
+        monkeypatch, hidden, x_is_output):
+    """A bias off a 16-byte boundary (a view one float into a flat
+    buffer) sends K2 to one element per load when ``x_is_output`` reads
+    it (the wide-row instance loads b 16 bytes at a time), as it sends
+    K1 always; the plain mode does not read b and keeps 16-byte loads."""
+    from apex_tpu_torch.ops import tune_cache
+
+    monkeypatch.setattr(port_ln.torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 132}))
+    monkeypatch.setattr(port_ln, "_resident_ctas", lambda *instance: 1)
+    monkeypatch.setattr(tune_cache, "layer_norm_block_rows",
+                        lambda hidden: None)
+    x = torch.zeros(64, hidden, dtype=torch.bfloat16)
+    g, dx = torch.zeros_like(x), torch.zeros_like(x)
+    w = torch.ones(hidden)
+    b = torch.zeros(hidden + 1)[1:]
+    assert b.is_contiguous() and b.data_ptr() % 16 == 4
+    plan = port_ln._bwd_plan(x, w, b, g, dx, x_is_output=x_is_output)
+    assert plan.vec == (1 if x_is_output else 8)
+    fwd = port_ln._plan(port_ln.KERNEL, x, dx, w, b, bwd=False)
+    assert fwd.vec == 1
+    aligned = port_ln._bwd_plan(x, w, torch.zeros(hidden), g, dx,
+                                x_is_output=x_is_output)
+    assert aligned.vec == 8
+    assert (plan.warps_per_row, plan.per_lane) == (
+        (1, 32) if hidden == 1024 else (8, 16) if x_is_output else (4, 32))
 
 
 def test_norm_plan_refuses_bad_shapes():
@@ -431,7 +509,7 @@ def test_norm_plan_refuses_bad_shapes():
         with pytest.raises(ValueError):
             _plan(*args)
     with pytest.raises(ValueError):  # an instance that fits no SM
-        _plan(64, 1024, 2, ctas_per_sm=lambda vec, per_lane: 0)
+        _plan(64, 1024, 2, ctas_per_sm=lambda vec, per_lane, warps: 0)
 
 
 # ---------------------------------------------------------------------------

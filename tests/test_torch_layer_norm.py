@@ -99,6 +99,40 @@ def test_reference_matches_pallas_kernel_stats(rms):
     assert mu.dtype == rstd.dtype == torch.float32
 
 
+@pytest.mark.parametrize("x_is_output", [False, True])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("hidden", [4096, 8192])
+def test_wide_rows_match_pallas_kernels(hidden, rms, x_is_output):
+    """Rows of K1/K2's wide-row instance: the port's plain K1 and K2 (the
+    functions the card's kernels are held against) against the Pallas
+    K1 and K2 in interpret mode, the backward on the Pallas forward's
+    saved statistics (and its output with ``x_is_output``).  F32_TOL on
+    every output: y, mu, rstd and dx come from row sums over 4096 or
+    8192 values taken in another order (a few ulps), dw and db from sums
+    over the 8 rows."""
+    x, w, b = _inputs(8, hidden, seed=4)
+    g = np.random.RandomState(5).randn(8, hidden).astype(np.float32)
+    y_j, mu_j, rstd_j = jax_ln_kernel.layer_norm_fwd(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), eps=1e-5, rms=rms)
+    y, mu, rstd = port_ln.layer_norm_reference(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        1e-5, rms)
+    for got, want in ((y, y_j), (mu, mu_j[:, 0]), (rstd, rstd_j[:, 0])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    saved = np.array(y_j) if x_is_output else x
+    mu_s, rstd_s = np.array(mu_j), np.array(rstd_j)
+    ref = jax_ln_kernel.layer_norm_bwd(
+        jnp.asarray(saved), jnp.asarray(w), jnp.asarray(b),
+        jnp.asarray(mu_s), jnp.asarray(rstd_s), jnp.asarray(g), rms=rms,
+        x_is_output=x_is_output)
+    out = port_ln.layer_norm_bwd_reference(
+        torch.from_numpy(saved), torch.from_numpy(w), torch.from_numpy(b),
+        torch.from_numpy(mu_s[:, 0]), torch.from_numpy(rstd_s[:, 0]),
+        torch.from_numpy(g), rms, x_is_output)
+    for got, want in zip(out, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
 @pytest.mark.parametrize("rms", [False, True])
 def test_non_affine_matches_jax(rms):
     x, _, _ = _inputs(8, 200, seed=2)

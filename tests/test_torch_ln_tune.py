@@ -66,23 +66,31 @@ def test_candidates_are_plans_norm_launch_plan_takes(hidden, dtype):
     rows = 16384
     cands = ln_tune.candidates(rows, hidden, elem, H100_SMS)
     default = ln.norm_launch_plan(rows, hidden, elem, sms=H100_SMS,
-                                  ctas_per_sm=lambda v, p: 8)
-    base = ln.NORM_WARPS * default.rows_per_warp
-    assert cands[0] == base == default.per_cta
-    assert cands == [base * k for k in range(1, len(cands) + 1)]
+                                  ctas_per_sm=lambda v, p, w: 8)
+    base = default.per_cta
+    assert base == ln.NORM_WARPS * default.rows_per_warp \
+        // default.warps_per_row
+    assert cands[0] == base
+    # then the multiples of the larger of the default and NORM_WARPS
+    step = max(base, ln.NORM_WARPS)
+    assert cands[1:] == [step * k for k in range(base // step + 1,
+                                                base // step + len(cands))]
     for c in cands:
         plan = ln.norm_launch_plan(rows, hidden, elem, sms=H100_SMS,
-                                   ctas_per_sm=lambda v, p: 8, block_rows=c)
+                                   ctas_per_sm=lambda v, p, w: 8, block_rows=c)
         assert plan.per_cta == c
         assert (plan.vec, plan.per_lane, plan.lanes) == (
             default.vec, default.per_lane, default.lanes)
         assert -(-rows // c) >= H100_SMS
         assert plan.grid == min(-(-rows // c), H100_SMS * 8)
     # the next multiple would leave an SM without a CTA
-    assert -(-rows // (cands[-1] + base)) < H100_SMS
-    if hidden >= 768:
+    assert -(-rows // (cands[-1] + step)) < H100_SMS
+    if 768 <= hidden <= 1024:
         # one row per warp: 8, 16, ..., 120 at 16384 rows on 132 SMs
         assert cands == list(range(8, 121, 8))
+    elif hidden > 1024:
+        # a row on 4 or 8 warps: 2 or 1 rows a CTA, then 8, 16, ..., 120
+        assert cands == [8 // default.warps_per_row] + list(range(8, 121, 8))
 
 
 def test_bound_counts_each_input_once():

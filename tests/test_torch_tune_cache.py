@@ -136,15 +136,15 @@ def test_update_flash_merges_as_the_reference(tmp_path):
 
 def test_block_rows_override_sets_the_grid():
     plan = ln.norm_launch_plan(16384, 1024, 2, sms=132,
-                               ctas_per_sm=lambda v, p: 8)
+                               ctas_per_sm=lambda v, p, w: 8)
     assert plan.grid == min(16384 // (ln.NORM_WARPS * plan.rows_per_warp),
                             132 * 8)
     tuned = ln.norm_launch_plan(16384, 1024, 2, sms=132,
-                                ctas_per_sm=lambda v, p: 8, block_rows=64)
+                                ctas_per_sm=lambda v, p, w: 8, block_rows=64)
     assert tuned.grid == 16384 // 64
     assert dataclasses_equal_but_grid(plan, tuned)
     with pytest.raises(ValueError, match="block_rows"):
-        ln.norm_launch_plan(16, 64, 2, sms=1, ctas_per_sm=lambda v, p: 1,
+        ln.norm_launch_plan(16, 64, 2, sms=1, ctas_per_sm=lambda v, p, w: 1,
                             block_rows=0)
 
 
